@@ -1,0 +1,34 @@
+"""pies_tpu_torch — the PyTorch + CUDA port of pies_tpu.
+
+A second package beside the JAX reference ``pies_tpu``: the same ``Solver``
+surface and the same physics, with the hot path in hand-written CUDA kernels
+for Hopper (``kernels/csrc``) and a plain PyTorch twin beside each kernel.
+It imports ``torch`` and never ``jax``.  The ported slice is the PD tick on
+the disjoint tet soup with floor contact (the tet-column path); anything
+outside it raises ``NotImplementedError`` naming the ROADMAP item that will
+bring it.
+"""
+
+import torch
+
+from .options import PhysicsParams, SolverName, SolverOptions, StepConfig, make_params
+from .solver.host import Solver
+from .state import SolverState, make_state
+from .topology import Topology
+
+# Full float32 for matrix products (the GPU form of pies_tpu/ops/precision.py).
+# The slice has no matmul; this guards the ones later ports bring.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__all__ = [
+    "PhysicsParams",
+    "Solver",
+    "SolverName",
+    "SolverOptions",
+    "SolverState",
+    "StepConfig",
+    "Topology",
+    "make_params",
+    "make_state",
+]

@@ -1,0 +1,78 @@
+"""Carry a JAX package run across to the port.
+
+The JAX package's ``SolverState``, ``Topology``, ``StepConfig`` and
+``PhysicsParams`` come in with NumPy leaves (for example after
+``jax.tree.map(np.asarray, ...)``) and leave as the port's dataclasses of
+tensors on a chosen device.  Fields are read by name, so this module imports
+nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .options import PhysicsParams, SolverName, StepConfig
+from .state import SolverState
+from .topology import PositionBatch, TetBatch, Topology, to_device
+
+
+def _t(a, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def state_from_numpy(state, device="cpu") -> SolverState:
+    """The port's state from a JAX ``SolverState`` with NumPy leaves.  Its
+    scalar ``sim_failed`` becomes latch slot 0."""
+    failed = torch.zeros(2, dtype=torch.int32, device=device)
+    failed[0] = int(bool(np.asarray(state.sim_failed)))
+    return SolverState(
+        positions=_t(state.positions, device),
+        prev_positions=_t(state.prev_positions, device),
+        velocities=_t(state.velocities, device),
+        forces=_t(state.forces, device),
+        inv_mass=_t(state.inv_mass, device),
+        mass=_t(state.mass, device),
+        radius=_t(state.radius, device),
+        node_mask=_t(state.node_mask, device),
+        sim_failed=failed,
+    )
+
+
+def topology_from_numpy(topo, device="cpu") -> Topology:
+    """The port's topology from a JAX ``Topology`` with NumPy leaves (the
+    slice's fields only)."""
+
+    def tets(b):
+        return TetBatch(idx=b.idx, qinv=b.qinv, g=b.g, lo=b.lo, hi=b.hi, w=b.w)
+
+    p = topo.position
+    return to_device(
+        Topology(
+            strain=tets(topo.strain),
+            volume=tets(topo.volume),
+            position=PositionBatch(idx=p.idx, target=p.target, w=p.w),
+            stiffness_diag=topo.stiffness_diag,
+            floor_count=topo.floor_count,
+            tet_block6=topo.tet_block6,
+            position_force_dense=topo.position_force_dense,
+        ),
+        device,
+    )
+
+
+def config_from(config) -> StepConfig:
+    """The port's ``StepConfig`` from a JAX one: the shared fields by name."""
+    kw = {f.name: getattr(config, f.name) for f in dataclasses.fields(StepConfig)}
+    kw["solver"] = SolverName(config.solver.value)
+    return StepConfig(**kw)
+
+
+def params_from(params) -> PhysicsParams:
+    """The port's ``PhysicsParams`` from a JAX one (scalar leaves)."""
+    return PhysicsParams(
+        **{f.name: float(np.asarray(getattr(params, f.name)))
+           for f in dataclasses.fields(PhysicsParams)}
+    )

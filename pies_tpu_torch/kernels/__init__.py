@@ -1,0 +1,146 @@
+"""Hand-written CUDA kernels of the port: build, load and launch checks.
+
+The sources live in ``csrc/``.  At first use :func:`lib` compiles all of them
+with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+interface, under ``pies_tpu_torch/_build/`` (git-ignored; the file name
+carries a hash of the sources and flags, so an edited source is rebuilt),
+and loads it with ``ctypes``.  Nothing is compiled or loaded at import time.
+
+Each C entry point launches one kernel on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises when that is not 0.  The
+wrappers that call them sit beside their plain PyTorch twins:
+
+* T1 ``pies_tet_force12`` — ``constraints/projections.py:tet_force12``
+* T2 ``pies_tet_cols_substep`` — ``solver/tetcols.py:substep_cols``
+* T3 ``pies_substep_head`` — ``solver/pd.py:substep_head``
+* T4 ``pies_substep_tail`` — ``solver/pd.py:substep_tail``
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD = Path(__file__).resolve().parent.parent / "_build"
+# -fmad=false: no contraction of a*b+c into one FMA, so every kernel does the
+# same float32 roundings, in the same order, as its plain PyTorch twin, and
+# the two agree bit for bit on the card.  No --use_fast_math: division and
+# square root stay IEEE.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes of every entry point: c_void_p for each pointer and the stream.
+SIGNATURES = {
+    "pies_tet_force12": [_P] * 10 + [_I, _P, _P],
+    "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F, _P, _P],
+    "pies_substep_head": [_P] * 11 + [_I, _F, _F, _F, _P, _I, _P],
+    "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F, _P, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of this process's build
+build_log: str = ""  # nvcc's output of this process's build
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME  # locates the toolkit only
+
+    for cand in (
+        os.environ.get("CUDA_HOME") and Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc",
+        CUDA_HOME and Path(CUDA_HOME) / "bin" / "nvcc",
+        shutil.which("nvcc"),
+    ):
+        if cand and Path(cand).exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into the build directory unless a library for
+    the same sources and flags is already there; returns its path.
+    ``verbose`` adds ``-Xptxas -v`` (registers, spills) to the log."""
+    global build_seconds, build_log
+    sources = sorted(_CSRC.glob("*.cu"))
+    flags = NVCC_FLAGS
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in sorted(_CSRC.iterdir()):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out = _BUILD / f"libpies_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *flags, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def require(device: torch.device, *tensors: torch.Tensor | None) -> None:
+    """Raise unless every tensor is a contiguous float32/int32 tensor on
+    ``device`` — what the kernels take."""
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"tensor on {t.device}, expected {device}")
+        if t.dtype not in (torch.float32, torch.int32):
+            raise ValueError(f"dtype {t.dtype}: the kernels take float32/int32")
+        if not t.is_contiguous():
+            raise ValueError("the kernels take contiguous tensors")
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain twin), False for a CUDA tensor (kernel);
+    raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")

@@ -1,0 +1,192 @@
+// Kernel T2: the whole PD iteration loop of one substep on the tet-column
+// fast path, one thread per tet.
+//
+// Replaces (JAX): pies_tpu/solver/tetcols.py:263 substep_cols (loop body
+// :327-370, residual and stale static projection :401-420), with
+// block_factor_cols (:125), block_solve_cols (:143) and _block_matvec_cols
+// (:162).
+//
+// The tets of the soup are node-disjoint, so the PD system is exactly
+// block-diagonal in 4x4 blocks and each tet's iterations depend on nothing
+// but its own four nodes.  A thread therefore factors its block once, keeps
+// x, the stale iterate and the last force in registers across all
+// iterations, and writes x, the static projection and its residual share
+// once.  The first iteration's tet force may come from kernel T1 (f0), which
+// evaluates the same device function on the same input; the rest are
+// computed here.
+//
+// Bound: compute, about 1.6k flops per tet and iteration on 48 bytes of x;
+// device memory is touched only at entry and exit (~200 bytes per tet).
+// Blocks of padding (no live tet) have zero off-diagonals and zero tet
+// force: the same code then reduces to the plain diagonal solve, and the
+// mask re-select keeps padded nodes exactly at their park positions.
+#include <cuda_runtime.h>
+
+#include "tet_force.cuh"
+
+namespace {
+
+struct SubstepIn {
+  const float* x;       // [N, 3]
+  const float* msn;     // [N, 3]  M s_n / h^2
+  const float* pin;     // [N, 3]  folded pin force, or null
+  const float* diag;    // [N]
+  const float* mask;    // [N]
+  const float* wf;      // [N]     W_STATIC * floor_count * active
+  const float* block6;  // [6, K]
+  const float* f0;      // [12, C] first iteration's tet force, or null
+  const int* failed;    // latch slot 0 (tick start)
+};
+
+struct SubstepOut {
+  float* x;       // [N, 3]
+  float* stat;    // [N, 3]  stale static projection
+  float* r2;      // [K]     per-tet squared residual
+};
+
+__global__ void __launch_bounds__(128)
+    tet_cols_substep_kernel(SubstepIn in, pies::TetBatchPtrs b, SubstepOut o,
+                            int k, int c, int iterations, float plane) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= k) return;
+  if (in.failed[0] != 0) {
+    o.r2[t] = 0.0f;  // a skipped tick reports residual 0, as the JAX tick
+    return;
+  }
+  const size_t n0 = (size_t)4 * t;
+
+  float x[4][3], rhs0[4][3], dg[4], mk[4], wf[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    dg[a] = in.diag[n0 + a];
+    mk[a] = in.mask[n0 + a];
+    wf[a] = in.wf[n0 + a];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const size_t i = (n0 + a) * 3 + d;
+      x[a][d] = in.x[i];
+      rhs0[a][d] = in.pin != nullptr ? in.msn[i] + in.pin[i] : in.msn[i];
+    }
+  }
+  float b6[6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) b6[r] = in.block6[(size_t)r * k + t];
+  const float b01 = b6[0], b02 = b6[1], b03 = b6[2], b12 = b6[3],
+              b13 = b6[4], b23 = b6[5];
+
+  // Batched 4x4 Cholesky (block_factor_cols), 1/sqrt as IEEE 1.0f/sqrtf.
+  const float i00 = 1.0f / sqrtf(dg[0]);
+  const float l10 = b01 * i00, l20 = b02 * i00, l30 = b03 * i00;
+  const float i11 = 1.0f / sqrtf(dg[1] - l10 * l10);
+  const float l21 = (b12 - l20 * l10) * i11;
+  const float l31 = (b13 - l30 * l10) * i11;
+  const float i22 = 1.0f / sqrtf(dg[2] - l20 * l20 - l21 * l21);
+  const float l32 = (b23 - l30 * l20 - l31 * l21) * i22;
+  const float i33 = 1.0f / sqrtf(dg[3] - l30 * l30 - l31 * l31 - l32 * l32);
+
+  const bool live = t < c;
+  pies::TetParams tp;
+  if (live) pies::load_tet(b, t, tp);
+
+  float stale[4][3], force[4][3];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      stale[a][d] = x[a][d];
+      force[a][d] = 0.0f;
+    }
+
+#pragma unroll 1
+  for (int it = 0; it < iterations; ++it) {
+    float f12[12];
+    if (!live) {
+#pragma unroll
+      for (int r = 0; r < 12; ++r) f12[r] = 0.0f;
+    } else if (it == 0 && in.f0 != nullptr) {
+#pragma unroll
+      for (int r = 0; r < 12; ++r) f12[r] = in.f0[(size_t)r * b.ld + t];
+    } else {
+      pies::tet_force12(x, tp, f12);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float sp_y = pies::nanmax(x[a][1], plane);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        float fad = rhs0[a][d] + f12[3 * a + d];
+        fad = fad + wf[a] * (d == 1 ? sp_y : x[a][d]);
+        force[a][d] = fad;
+      }
+    }
+    // Block solve (block_solve_cols) and the padding re-select.
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float y0 = force[0][d] * i00;
+      const float y1 = (force[1][d] - l10 * y0) * i11;
+      const float y2 = (force[2][d] - l20 * y0 - l21 * y1) * i22;
+      const float y3 = (force[3][d] - l30 * y0 - l31 * y1 - l32 * y2) * i33;
+      const float z3 = y3 * i33;
+      const float z2 = (y2 - l32 * z3) * i22;
+      const float z1 = (y1 - l21 * z2 - l31 * z3) * i11;
+      const float z0 = (y0 - l10 * z1 - l20 * z2 - l30 * z3) * i00;
+      const float z[4] = {z0, z1, z2, z3};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        stale[a][d] = x[a][d];
+        x[a][d] = mk[a] > 0.0f ? z[a] : x[a][d];
+      }
+    }
+  }
+
+  // Residual ||force - A x|| share of this block (_block_matvec_cols).
+  float r2 = 0.0f;
+  if (iterations > 0) {
+    const float off[4][4] = {{0.0f, b01, b02, b03},
+                             {b01, 0.0f, b12, b13},
+                             {b02, b12, 0.0f, b23},
+                             {b03, b13, b23, 0.0f}};
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        float acc = dg[a] * x[a][d];
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb)
+          if (bb != a) acc = acc + off[a][bb] * x[bb][d];
+        const float r = mk[a] > 0.0f ? force[a][d] - acc : 0.0f;
+        r2 = r2 + r * r;
+      }
+  }
+  o.r2[t] = r2;
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const size_t i = (n0 + a) * 3 + d;
+      o.x[i] = x[a][d];
+      o.stat[i] = d == 1 ? pies::nanmax(stale[a][1], plane) : stale[a][d];
+    }
+}
+
+}  // namespace
+
+extern "C" int pies_tet_cols_substep(
+    const float* x, const float* msn, const float* pin, const float* diag,
+    const float* mask, const float* wf, const float* block6, const float* f0,
+    const float* qinv, const float* g, const float* slo, const float* shi,
+    const float* sw, const float* vlo, const float* vhi, const float* vw,
+    float* x_out, float* static_out, float* r2, int k, int c, int iterations,
+    float plane, const int* failed, void* stream) {
+  if (k > 0) {
+    SubstepIn in{x, msn, pin, diag, mask, wf, block6, f0, failed};
+    pies::TetBatchPtrs b{qinv, g, slo, shi, sw, vlo, vhi, vw, c};
+    SubstepOut o{x_out, static_out, r2};
+    const int threads = 128;
+    const int blocks = (k + threads - 1) / threads;
+    tet_cols_substep_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        in, b, o, k, c < k ? c : k, iterations, plane);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,279 @@
+"""Host-facing ``Solver`` (port of the slice's part of
+``pies_tpu/solver/host.py``).
+
+Same keyword surface as the JAX package's ``Solver`` plus ``device=``.  The ported slice is the PD tick on the disjoint tet soup with
+floor contact and optional position pins; anything outside it raises
+``NotImplementedError`` naming the ROADMAP item that will bring it.  Keyword
+arguments that only steer code paths the slice does not take (the CG
+settings, the broadphase and budget settings, ``dense_operator_max``) are
+accepted and have no effect: the tet-column path solves its 4x4 blocks
+exactly.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..collision.batches import CollisionSet
+from ..options import SolverName, SolverOptions, StepConfig, make_params
+from ..scene.builder import SceneBuilder
+from ..state import SolverState, make_state
+from .. import topology as topo_mod
+from . import step, tetcols
+
+_F32 = np.float32
+
+# Solver methods of the JAX package that the port does not have yet, with the
+# ROADMAP item (queue 1) that brings them.
+_NOT_PORTED = {
+    "add_nodes": 9, "create_box": 5, "create_tet_box": 5, "create_sheet": 5,
+    "create_shape_matching_box": 5, "create_shape_matching_sheet": 5,
+    "create_bend_sheet": 5, "create_rope": 7, "add_fixed_regions": 5,
+    "add_linked_regions": 5, "add_tri_mesh_volume": 9,
+    "update_fixed_regions": 9, "clear": 9, "get_lines": 9,
+    "get_triangles": 9, "save": 9, "load": 9,
+}
+
+
+class Solver:
+    def __init__(
+        self,
+        options: SolverOptions | None = None,
+        *,
+        seed: int = 0,
+        cg_iterations: int = 16,
+        cg_rtol: float = 1e-4,
+        rotation_iterations: int = 20,
+        enable_collisions: bool = True,
+        enable_edge_collisions: bool = False,
+        enable_node_collisions: bool = False,
+        reference_quirks: bool = True,
+        broadphase_mode: str = "celllist",
+        contact_coupling: str = "recentered",
+        budget=None,
+        budget_overrides: dict | None = None,
+        node_capacity: int | None = None,
+        allpairs_broadphase_max: int | None = None,
+        dense_operator_max: int = 2048,
+        device: str | torch.device = "cuda",
+    ):
+        """``device``: where the state lives, "cuda" by default (raises when
+        CUDA is absent).  On a CUDA device the tick runs the kernels, on the
+        CPU their plain PyTorch twins."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but CUDA is not available")
+        if enable_edge_collisions:
+            raise NotImplementedError("edge-edge contacts are ROADMAP queue 1 item 8")
+        if enable_node_collisions:
+            raise NotImplementedError("PD node-node contacts are ROADMAP queue 1 item 8")
+        self._options = options or SolverOptions()
+        self._builder = SceneBuilder(seed=seed)
+        self._enable_collisions = enable_collisions
+        self._reference_quirks = reference_quirks
+        self._contact_coupling = contact_coupling
+        self._node_capacity = node_capacity
+        self._device = device
+
+        self._state: SolverState | None = None
+        self._topology = None
+        self._config: StepConfig | None = None
+        self._params = None
+        self._params_options = None
+        self._prepared_nodes = 0
+        self._dirty = True
+        self.render_state_dirty = True
+
+        self._residual_dev: torch.Tensor | None = None
+        self.last_tick_seconds: float = 0.0
+        self.ticks: int = 0
+
+    def __getattr__(self, name):
+        if name in _NOT_PORTED:
+            raise NotImplementedError(
+                f"Solver.{name} is not ported yet: ROADMAP queue 1 item {_NOT_PORTED[name]}"
+            )
+        raise AttributeError(name)
+
+    # ------------------------------------------------------------------
+    # scene construction
+
+    def create_tet_soup(self, count, spacing, scale, w, **kwargs):
+        out = self._builder.create_tet_soup(count, spacing, scale, w, **kwargs)
+        self._dirty = True
+        self.render_state_dirty = True
+        return out
+
+    # ------------------------------------------------------------------
+    # stepping
+
+    def _prepare(self):
+        if not self._dirty:
+            return
+        if self._options.solver != SolverName.PD:
+            raise NotImplementedError("the PBD solver is ROADMAP queue 1 item 7")
+        b = self._builder
+        num_live = b.num_nodes
+        positions = b.all_positions()
+        cat = lambda lst, shape: np.concatenate(lst) if lst else np.zeros(shape, _F32)
+        tris = cat(b.triangles, (0, 3)).astype(np.int32)
+        if self._enable_collisions and tris.shape[0]:
+            raise NotImplementedError(
+                "self-contact (enable_collisions=True on a scene with triangles)"
+                " is ROADMAP queue 1 item 3; pass enable_collisions=False"
+            )
+
+        state = make_state(
+            positions,
+            velocities=cat(b.velocities, (0, 3)),
+            inv_mass=b.all_inv_mass(),
+            radius=cat(b.radius, (0,)),
+            capacity=self._node_capacity,
+            device=self._device,
+        )
+        # Live state survives incremental scene additions, like the reference
+        # growing its node vector without resetting the sim.
+        if self._state is not None and self._prepared_nodes > 0:
+            k = min(self._prepared_nodes, num_live)
+            for field in ("positions", "prev_positions", "velocities"):
+                getattr(state, field)[:k] = getattr(self._state, field)[:k]
+            state.sim_failed.copy_(self._state.sim_failed)
+        cap = state.capacity
+
+        batches = dict(
+            position=topo_mod.build_position(
+                cat(b.pos_idx, (0,)).astype(np.int32), positions, cat(b.pos_w, (0,))
+            ),
+            strain=topo_mod.build_tets(
+                cat(b.strain_idx, (0, 4)).astype(np.int32), positions,
+                cat(b.strain_w, (0,)), cat(b.strain_lo, (0,)), cat(b.strain_hi, (0,)),
+            ),
+            volume=topo_mod.build_tets(
+                cat(b.volume_idx, (0, 4)).astype(np.int32), positions,
+                cat(b.volume_w, (0,)), cat(b.volume_lo, (0,)), cat(b.volume_hi, (0,)),
+            ),
+        )
+        topology = topo_mod.assemble_topology(cap, triangles=tris, **batches)
+
+        def contiguous(idx_list):
+            if not idx_list:
+                return False
+            idx = np.concatenate(idx_list)
+            return 4 * (-(-idx.shape[0] // 8) * 8) <= cap and np.array_equal(
+                idx.reshape(-1), np.arange(idx.size, dtype=idx.dtype)
+            )
+
+        strain_contiguous = contiguous(b.strain_idx)
+        volume_contiguous = contiguous(b.volume_idx)
+        # Fused strain+volume local step: both sets cover the same tets in the
+        # same order (PrimitiveUtilities.cpp:287-316).
+        tet_fused = (
+            bool(b.strain_idx)
+            and len(b.strain_idx) == len(b.volume_idx)
+            and all(np.array_equal(s, v) for s, v in zip(b.strain_idx, b.volume_idx))
+            and strain_contiguous == volume_contiguous
+        )
+        config = StepConfig(
+            solver=self._options.solver,
+            time_substeps=int(self._options.time_substeps),
+            iterations=int(self._options.iterations),
+            enable_collisions=bool(self._enable_collisions and tris.shape[0]),
+            reference_quirks=self._reference_quirks,
+            tet_fused=tet_fused,
+            strain_contiguous=strain_contiguous,
+            volume_contiguous=volume_contiguous,
+            contact_coupling=self._contact_coupling,
+        )
+        colls = CollisionSet(floor_active=np.zeros(cap, _F32))
+        if not tetcols.applies(state, topology, colls, config):
+            raise NotImplementedError(
+                "only disjoint tet soups take the ported tet-column path; the"
+                " generic PD path is ROADMAP queue 1 item 5"
+            )
+        self._state = state
+        self._topology = topo_mod.to_device(topology, self._device)
+        self._config = config
+        self._prepared_nodes = num_live
+        self._dirty = False
+
+    def current_params(self):
+        """The ``PhysicsParams`` a ``tick()`` would use right now."""
+        self._prepare()
+        if self._params is None or self._params_options is not self._options:
+            self._params = make_params(self._options)
+            self._params_options = self._options
+        return self._params
+
+    def tick(self, delta_time: float = 0.0):
+        """Advance one tick.  Like the reference, the wall-clock argument is
+        ignored in favour of the fixed timestep (``Solver.cpp:40-42,165``).
+        Enqueues the launches and returns without waiting for the device."""
+        params = self.current_params()
+        self._residual_dev = step.tick(self._state, self._topology, params, self._config)
+        self.ticks += 1
+        self.render_state_dirty = True
+
+    def run_ticks(self, n: int):
+        """Advance ``n`` ticks: ``n`` ticks of launches, then one sync."""
+        params = self.current_params()
+        n = int(n)
+        t0 = time.perf_counter()
+        res = step.tick_n(self._state, self._topology, params, self._config, n)
+        if res is not None:
+            self._residual_dev = res
+        if self._device.type == "cuda":
+            torch.cuda.synchronize(self._device)
+        self.last_tick_seconds = (time.perf_counter() - t0) / max(1, n)
+        self.ticks += n
+        self.render_state_dirty = True
+
+    @property
+    def last_residual(self) -> float:
+        """Residual of the last tick (read from the device on access)."""
+        if self._residual_dev is None:
+            return 0.0
+        return float(self._residual_dev)
+
+    @property
+    def sim_failed(self) -> bool:
+        if self._state is None:
+            return False
+        return self._state.failed()
+
+    @property
+    def state(self) -> SolverState:
+        self._prepare()
+        return self._state
+
+    @property
+    def topology(self):
+        self._prepare()
+        return self._topology
+
+    @property
+    def options(self) -> SolverOptions:
+        return self._options
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    # ------------------------------------------------------------------
+    # render-facing output (Solver.h:42-49,65)
+
+    def get_vertices(self) -> dict[str, np.ndarray]:
+        """Positions + radius + PBR material per live node."""
+        self._prepare()
+        n = self._prepared_nodes
+        b = self._builder
+        cat = lambda lst, shape: np.concatenate(lst)[:n] if lst else np.zeros(shape, _F32)
+        return {
+            "position": self._state.positions[:n].cpu().numpy(),
+            "radius": self._state.radius[:n].cpu().numpy(),
+            "base_color": cat(b.base_color, (0, 3)),
+            "roughness": cat(b.roughness, (0,)),
+            "metallic": cat(b.metallic, (0,)),
+        }

@@ -1,0 +1,224 @@
+"""Tet-column PD fast path (port of ``pies_tpu/solver/tetcols.py``).
+
+For disjoint-tet scenes (every node owned by exactly one contiguous tet, the
+``Topology.tet_block6`` layout) the PD global system is exactly block
+diagonal in 4x4 per-tet blocks, so the iteration loop is a per-tet local step
+plus a direct 4x4 block solve.  Corner columns ``x[a][d]`` (corner a of every
+tet, axis d) are strided views of the node-major ``[N, 3]`` state here; the
+JAX package's layout converters (``node3_to_cols`` and friends) exist only to
+dodge TPU tile padding and are not ported.
+
+:func:`substep_cols` is the wrapper of kernel T2 (``kernels/csrc/
+tet_cols_substep.cu``); :func:`substep_cols_plain` is its plain twin.
+Point-triangle contacts (``pt_force_cols``) come with the self-contact port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..collision.batches import CollisionSet
+from ..constraints.projections import corner_cols, tet_force12_fused_cols
+from ..options import StepConfig
+from ..topology import Topology
+
+
+def applies(state, topo: Topology, colls: CollisionSet, config: StepConfig) -> bool:
+    """Static eligibility for the tet-column path, as in the JAX package:
+    the block-diagonal layout covering the whole capacity, the fused
+    contiguous tet local step, diagonal-only contact coupling, dense floor
+    contacts, and (besides position pins) no other constraint family — the
+    port's scene builder emits none."""
+    n_pins = topo.position.idx.shape[0]
+    return (
+        config.tet_cols
+        and topo.tet_block6 is not None
+        and topo.tet_block6.shape[-1] * 4 == state.capacity
+        and config.tet_fused
+        and config.strain_contiguous
+        and config.volume_contiguous
+        and config.contact_coupling in ("diagonal", "recentered")
+        and (n_pins == 0 or topo.position_force_dense.shape[0] == state.capacity)
+        and colls.floor_active.shape[0] > 0
+    )
+
+
+def block_factor_cols(dcols, block6: torch.Tensor):
+    """Batched 4x4 Cholesky from the diagonal's corner columns.  ``1/sqrt`` is
+    IEEE ``1.0 / sqrt`` (the kernel does the same)."""
+    d0, d1, d2, d3 = dcols
+    b01, b02, b03, b12, b13, b23 = (block6[i] for i in range(6))
+    i00 = 1.0 / torch.sqrt(d0)
+    l10 = b01 * i00
+    l20 = b02 * i00
+    l30 = b03 * i00
+    i11 = 1.0 / torch.sqrt(d1 - l10 * l10)
+    l21 = (b12 - l20 * l10) * i11
+    l31 = (b13 - l30 * l10) * i11
+    i22 = 1.0 / torch.sqrt(d2 - l20 * l20 - l21 * l21)
+    l32 = (b23 - l30 * l20 - l31 * l21) * i22
+    i33 = 1.0 / torch.sqrt(d3 - l30 * l30 - l31 * l31 - l32 * l32)
+    return (l10, l20, l30, l21, l31, l32, i00, i11, i22, i33)
+
+
+def block_solve_cols(factors, rcols):
+    """Solve ``(L Lᵀ) z = r`` per block for 3 stacked right-hand sides."""
+    l10, l20, l30, l21, l31, l32, i00, i11, i22, i33 = factors
+    out = []
+    for d in range(3):
+        r0, r1, r2, r3 = (rcols[a][d] for a in range(4))
+        y0 = r0 * i00
+        y1 = (r1 - l10 * y0) * i11
+        y2 = (r2 - l20 * y0 - l21 * y1) * i22
+        y3 = (r3 - l30 * y0 - l31 * y1 - l32 * y2) * i33
+        z3 = y3 * i33
+        z2 = (y2 - l32 * z3) * i22
+        z1 = (y1 - l21 * z2 - l31 * z3) * i11
+        z0 = (y0 - l10 * z1 - l20 * z2 - l30 * z3) * i00
+        out.append((z0, z1, z2, z3))
+    return tuple(tuple(out[d][a] for d in range(3)) for a in range(4))
+
+
+def _block_matvec_cols(dcols, block6, xc):
+    """``A·x`` of the block-diagonal system on columns (for the residual)."""
+    b01, b02, b03, b12, b13, b23 = (block6[i] for i in range(6))
+    off = {(0, 1): b01, (0, 2): b02, (0, 3): b03,
+           (1, 2): b12, (1, 3): b13, (2, 3): b23}
+    out = []
+    for a in range(4):
+        row = []
+        for d in range(3):
+            acc = dcols[a] * xc[a][d]
+            for b in range(4):
+                if b != a:
+                    acc = acc + off[(min(a, b), max(a, b))] * xc[b][d]
+            row.append(acc)
+        out.append(tuple(row))
+    return tuple(out)
+
+
+def _node_cols(v: torch.Tensor, k: int):
+    """Corner columns of a per-node ``f32[N]`` (node 4t+a -> column a)."""
+    vt = v.view(k, 4)
+    return tuple(vt[:, a] for a in range(4))
+
+
+def _cols_to_node3(cols) -> torch.Tensor:
+    return torch.stack([torch.stack(list(cols[a]), dim=-1) for a in range(4)], dim=1).reshape(-1, 3)
+
+
+def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
+                       plane: float, iterations: int, failed=None):
+    """Plain twin of kernel T2: the PD iteration loop of one substep.
+
+    ``x``/``msn_h2`` f32[N, 3] are the predicted positions and inertia term;
+    ``diag``/``mask``/``wf`` f32[N] the system diagonal, node mask and floor
+    weight ``W_STATIC·count·active``; ``f0`` f32[12, C] (or None) the first
+    iteration's tet force.  Returns ``(x_new [N, 3], static_proj [N, 3],
+    r2 [K])`` with ``r2`` the per-tet squared residual ``‖force − A·x‖²``
+    (zero where ``failed`` slot 0 is set, as the kernel writes it)."""
+    n = x.shape[0]
+    k = n // 4
+    c_tet = min(topo.strain.qinv.shape[1], k)
+    if topo.position.idx.shape[0]:
+        msn_h2 = msn_h2 + topo.position_force_dense
+    xc = tuple(tuple(col) for col in corner_cols(x, k))
+    msn_c = corner_cols(msn_h2, k)
+    mask_c = _node_cols(mask, k)
+    diag_c = _node_cols(diag, k)
+    wf_c = _node_cols(wf, k)
+    factors = block_factor_cols(diag_c, topo.tet_block6)
+
+    def tet_force(xc_it, it):
+        if it == 0 and f0 is not None:
+            f12 = list(f0[:, :c_tet])
+        else:
+            p = [[xc_it[a][d][:c_tet] for d in range(3)] for a in range(4)]
+            f12 = tet_force12_fused_cols(p, topo.strain, topo.volume)
+        if c_tet < k:
+            pad = torch.zeros(k - c_tet, dtype=x.dtype, device=x.device)
+            f12 = [torch.cat([f, pad]) for f in f12]
+        return f12
+
+    x_it, x_stale = xc, xc
+    force = tuple(tuple(torch.zeros_like(xc[a][d]) for d in range(3)) for a in range(4))
+    for it in range(iterations):
+        f12 = tet_force(x_it, it)
+        force = []
+        for a in range(4):
+            sp_y = torch.clamp_min(x_it[a][1], plane)
+            row = []
+            for d in range(3):
+                fad = msn_c[a][d] + f12[3 * a + d]
+                fad = fad + wf_c[a] * (sp_y if d == 1 else x_it[a][d])
+                row.append(fad)
+            force.append(tuple(row))
+        force = tuple(force)
+        zc = block_solve_cols(factors, force)
+        x_stale = x_it
+        x_it = tuple(
+            tuple(torch.where(mask_c[a] > 0, zc[a][d], x_it[a][d]) for d in range(3))
+            for a in range(4)
+        )
+
+    r2 = torch.zeros(k, dtype=x.dtype, device=x.device)
+    if iterations > 0:
+        az = _block_matvec_cols(diag_c, topo.tet_block6, x_it)
+        for a in range(4):
+            for d in range(3):
+                r = torch.where(mask_c[a] > 0, force[a][d] - az[a][d], 0.0)
+                r2 = r2 + r * r
+    if failed is not None:
+        r2 = torch.where(failed[0] != 0, 0.0, r2)
+    static_c = tuple(
+        tuple(
+            torch.clamp_min(x_stale[a][1], plane)
+            if d == 1 else x_stale[a][d]
+            for d in range(3)
+        )
+        for a in range(4)
+    )
+    return _cols_to_node3(x_it), _cols_to_node3(static_c), r2
+
+
+def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
+                 plane: float, iterations: int, failed=None):
+    """Kernel T2 on CUDA tensors, :func:`substep_cols_plain` on CPU tensors
+    (same arguments and results).  On the card ``failed`` is required: the
+    kernel returns at once, writing ``r2 = 0``, when its slot 0 is set."""
+    if kernels.on_cpu(x):
+        return substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo, plane,
+                                  iterations, failed)
+    n = x.shape[0]
+    k = n // 4
+    if n % 4 or topo.tet_block6 is None or topo.tet_block6.shape[1] != k:
+        raise ValueError("the tet-column kernel needs the disjoint-tet block layout")
+    if failed is None:
+        raise ValueError("the tet-column kernel needs the failure latch")
+    s, v = topo.strain, topo.volume
+    c = s.qinv.shape[1]
+    pin = topo.position_force_dense if topo.position.idx.shape[0] else None
+    if pin is not None and pin.shape[0] != n:
+        raise ValueError("pin force must be dense over the capacity")
+    if f0 is not None and tuple(f0.shape) != (12, c):
+        raise ValueError(f"f0 must be [12, {c}], got {tuple(f0.shape)}")
+    batch = (s.qinv, s.g, s.lo, s.hi, s.w, v.lo, v.hi, v.w)
+    kernels.require(x.device, x, msn_h2, pin, diag, mask, wf, topo.tet_block6,
+                    f0, failed, *batch)
+    x_out = torch.empty_like(x)
+    static_out = torch.empty_like(x)
+    r2 = torch.empty(k, dtype=torch.float32, device=x.device)
+    err = kernels.lib().pies_tet_cols_substep(
+        x.data_ptr(), msn_h2.data_ptr(), kernels.ptr(pin), diag.data_ptr(),
+        mask.data_ptr(), wf.data_ptr(), topo.tet_block6.data_ptr(),
+        kernels.ptr(f0), *(t.data_ptr() for t in batch),
+        x_out.data_ptr(), static_out.data_ptr(), r2.data_ptr(),
+        k, c, int(iterations), float(plane), failed.data_ptr(), kernels.stream(),
+    )
+    kernels.check(err, "tet_cols_substep")
+    substep_cols.launches += 1
+    return x_out, static_out, r2
+
+
+substep_cols.launches = 0

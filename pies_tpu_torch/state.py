@@ -1,0 +1,117 @@
+"""Simulation state as a dataclass of tensors (port of ``pies_tpu/state.py``).
+
+Structure-of-arrays with a padded node count, as in the JAX package:
+
+* ``positions / prev_positions / velocities / forces``: ``f32[N, 3]``
+* ``inv_mass / mass / radius / node_mask``: ``f32[N]``
+* ``sim_failed``: ``i32[2]``, the ``_simFailed`` latch (``Solver.h:198``)
+  kept on the device so that stepping never waits for the host.  Slot 0 holds
+  the latch as of the start of the current tick; slot 1 is where a substep's
+  tail ORs a new failure.  The first substep of each tick folds slot 1 into
+  slot 0, so no kernel ever reads a word that another thread of the same
+  launch may write.  The state has failed when either slot is non-zero.
+
+Padded nodes are parked far away with ``inv_mass = 0``, ``mass = 1`` and
+``node_mask = 0``, exactly as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+PARK_BASE = 1.0e5  # world-space offset of the padding parking line
+PARK_PITCH = 64.0  # spacing between parked particles
+
+
+@dataclass
+class SolverState:
+    positions: torch.Tensor  # f32[N, 3]
+    prev_positions: torch.Tensor  # f32[N, 3]
+    velocities: torch.Tensor  # f32[N, 3]
+    forces: torch.Tensor  # f32[N, 3]
+    inv_mass: torch.Tensor  # f32[N]
+    mass: torch.Tensor  # f32[N]
+    radius: torch.Tensor  # f32[N]
+    node_mask: torch.Tensor  # f32[N]
+    sim_failed: torch.Tensor  # i32[2], see the module docstring
+
+    @property
+    def capacity(self) -> int:
+        return self.positions.shape[-2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.positions.device
+
+    def failed(self) -> bool:
+        """Host read of the latch (waits for the device)."""
+        return bool(self.sim_failed.any().item())
+
+
+def park_positions(num_padded: int, offset: int = 0) -> np.ndarray:
+    """Distinct far-away positions for padded particles."""
+    idx = np.arange(num_padded, dtype=np.float32) + float(offset)
+    park = np.zeros((num_padded, 3), dtype=np.float32)
+    park[:, 0] = PARK_BASE + PARK_PITCH * idx
+    park[:, 1] = PARK_BASE
+    return park
+
+
+def make_state(
+    positions: np.ndarray,
+    *,
+    velocities: np.ndarray | None = None,
+    inv_mass: np.ndarray | None = None,
+    radius: np.ndarray | None = None,
+    capacity: int | None = None,
+    device: torch.device | str = "cpu",
+) -> SolverState:
+    """Build a padded state from host arrays and move it to ``device`` once.
+
+    ``capacity`` defaults to the node count rounded up to a multiple of 8, as
+    in the JAX package.
+    """
+    positions = np.asarray(positions, dtype=np.float32).reshape(-1, 3)
+    n = positions.shape[0]
+    if capacity is None:
+        capacity = max(8, -(-n // 8) * 8)
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < particle count {n}")
+    pad = capacity - n
+
+    if velocities is None:
+        velocities = np.zeros_like(positions)
+    if inv_mass is None:
+        inv_mass = np.ones(n, dtype=np.float32)
+    if radius is None:
+        radius = np.full(n, 0.5, dtype=np.float32)
+    velocities = np.asarray(velocities, dtype=np.float32).reshape(-1, 3)
+    inv_mass = np.asarray(inv_mass, dtype=np.float32).reshape(-1)
+    radius = np.asarray(radius, dtype=np.float32).reshape(-1)
+
+    pos_full = np.concatenate([positions, park_positions(pad)], axis=0)
+    vel_full = np.concatenate([velocities, np.zeros((pad, 3), np.float32)])
+    inv_mass_full = np.concatenate([inv_mass, np.zeros(pad, np.float32)])
+    # Padded nodes get mass 1 so the PD system diagonal stays positive
+    # definite; their solution is exactly their park position.
+    with np.errstate(divide="ignore"):
+        mass_live = np.where(inv_mass > 0, 1.0 / np.maximum(inv_mass, 1e-30), 0.0)
+    mass_full = np.concatenate([mass_live.astype(np.float32), np.ones(pad, np.float32)])
+    radius_full = np.concatenate([radius, np.zeros(pad, np.float32)])
+    mask_full = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    return SolverState(
+        positions=dev(pos_full),
+        prev_positions=dev(pos_full),
+        velocities=dev(vel_full),
+        forces=dev(np.zeros((capacity, 3), np.float32)),
+        inv_mass=dev(inv_mass_full),
+        mass=dev(mass_full),
+        radius=dev(radius_full),
+        node_mask=dev(mask_full),
+        sim_failed=torch.zeros(2, dtype=torch.int32, device=device),
+    )

@@ -1,0 +1,62 @@
+"""Where a tick of the PyTorch + CUDA port spends its time, on one GPU.
+
+    python3 -m pies_tpu_torch.tick_profile [n_tets] [repeats]
+
+Builds the 500k-particle floor-contact soup (``create_tet_soup(n_tets,
+spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)``, 125,000 tets
+by default), warms up, then:
+
+* times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
+  ends in a synchronize) and prints each, for the spread;
+* traces 10 ticks with ``torch.profiler`` and prints the device time per
+  kernel name and the device's busy share of the traced wall time.
+
+Prints the card's name and power limit first.  Needs a CUDA device.
+"""
+
+import subprocess
+import sys
+import time
+
+
+def main(n_tets=125_000, repeats=5):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    import pies_tpu_torch as pt
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip()
+    print(f"card: {smi}")
+    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=False)
+    s.create_tet_soup(n_tets, spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
+    s.run_ticks(5)
+    for r in range(repeats):
+        t0 = time.perf_counter()
+        s.run_ticks(10)
+        dt = (time.perf_counter() - t0) / 10
+        print(f"run {r}: {dt * 1e3:.4f} ms/tick, {1 / dt:.2f} steps/s")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.run_ticks(10)
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
+    busy_us = sum(getattr(e, attr) for e in events)
+    print(f"traced 10 ticks: wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms"
+          f" ({100 * busy_us / 1e6 / wall:.1f}% busy, {100 - 100 * busy_us / 1e6 / wall:.1f}% idle)")
+    for e in sorted(events, key=lambda e: -getattr(e, attr)):
+        print(f"  {getattr(e, attr) / 10:10.2f} us/tick  x{e.count // 10:<3d} {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    args = [int(a) for a in sys.argv[1:]]
+    sys.exit(main(*args))

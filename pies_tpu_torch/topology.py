@@ -1,0 +1,223 @@
+"""Constraint topology for the tet-column slice (port of ``pies_tpu/topology.py``).
+
+Built on the host in NumPy at scene-construction time, exactly as the JAX
+package builds it, then moved to tensors once with :func:`to_device`.  Only
+the batches and precomputed fields that the PD tet-column path reads are
+carried: the strain and volume tet batches, position pins, the constant
+stiffness diagonal, the per-node floor-contact multiplicity, the disjoint-tet
+block off-diagonals and the folded pin force.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+_F32 = np.float32
+_I32 = np.int32
+
+
+def _round_up(n: int, m: int) -> int:
+    # Empty batches stay size 0, as in the JAX package.
+    if n == 0:
+        return 0
+    return -(-n // m) * m
+
+
+def _pad2(a: np.ndarray, cap: int, fill=0) -> np.ndarray:
+    out = np.full((cap,) + a.shape[1:], fill, dtype=a.dtype)
+    out[: a.shape[0]] = a
+    return out
+
+
+@dataclass
+class PositionBatch:
+    """``PositionConstraint`` batch (``Constraints.h:159-169``); A = B = I."""
+
+    idx: torch.Tensor  # i32[C]
+    target: torch.Tensor  # f32[C, 3]
+    w: torch.Tensor  # f32[C]
+
+
+@dataclass
+class TetBatch:
+    """Strain / volume tet batch (``Constraints.h:171-213``).
+
+    ``qinv`` and ``g`` are stored transposed-flat as in the JAX package: row
+    ``3i+j`` of ``qinv`` is entry (i, j) of the rest-edge inverse for every
+    tet, row ``4j+a`` of ``g`` is entry (j, a) of G.  On the GPU this is also
+    the coalesced layout: neighbouring tets read neighbouring words.
+    """
+
+    idx: torch.Tensor  # i32[C, 4]
+    qinv: torch.Tensor  # f32[9, C]
+    g: torch.Tensor  # f32[12, C]
+    lo: torch.Tensor  # f32[C]
+    hi: torch.Tensor  # f32[C]
+    w: torch.Tensor  # f32[C]
+
+
+@dataclass
+class Topology:
+    strain: TetBatch
+    volume: TetBatch
+    position: PositionBatch
+    # Σ w·(AᵀA)ᵢᵢ over the static constraints, per node (no mass term).
+    stiffness_diag: torch.Tensor  # f32[N]
+    # Floor-contact multiplicity: (live triangle, corner) entries per node.
+    floor_count: torch.Tensor  # f32[N]
+    # Upper off-diagonals (0,1),(0,2),(0,3),(1,2),(1,3),(2,3) of each 4x4
+    # disjoint-tet block; None when the block structure does not hold.
+    tet_block6: torch.Tensor | None  # f32[6, N//4]
+    # Σ w·target of the position pins per node; f32[1, 3] when no pins.
+    position_force_dense: torch.Tensor  # f32[N, 3] or f32[1, 3]
+
+
+def build_position(
+    idx: np.ndarray, positions: np.ndarray, w: np.ndarray, cap: int | None = None
+) -> PositionBatch:
+    """Targets captured from initial positions (``Constraints.cpp:65-74``)."""
+    idx = np.asarray(idx, dtype=_I32).reshape(-1)
+    w = np.broadcast_to(np.asarray(w, dtype=_F32), (idx.shape[0],)).copy()
+    target = positions[idx].astype(_F32)
+    cap = cap or _round_up(idx.shape[0], 8)
+    return PositionBatch(
+        idx=_pad2(idx, cap), target=_pad2(target, cap), w=_pad2(w, cap)
+    )
+
+
+def _tet_rest(idx: np.ndarray, positions: np.ndarray):
+    """Rest-shape matrices shared by strain/volume tets: ``Q`` columns are the
+    rest edges, inverted in float64; ``G = Qinvᵀ · W`` with
+    ``W = [[-1,1,0,0],[-1,0,1,0],[-1,0,0,1]]`` (``Constraints.cpp:141-175``)."""
+    p = positions[idx]  # [C,4,3]
+    q = np.stack(
+        [p[:, 1] - p[:, 0], p[:, 2] - p[:, 0], p[:, 3] - p[:, 0]], axis=-1
+    ).astype(np.float64)
+    qinv = np.linalg.inv(q)
+    west = np.array([[-1, 1, 0, 0], [-1, 0, 1, 0], [-1, 0, 0, 1]], dtype=np.float64)
+    g = np.einsum("cji,jk->cik", qinv, west)
+    return qinv.astype(_F32), g.astype(_F32)
+
+
+def build_tets(
+    idx: np.ndarray,
+    positions: np.ndarray,
+    w: np.ndarray,
+    lo: np.ndarray,
+    hi: np.ndarray,
+    cap: int | None = None,
+) -> TetBatch:
+    idx = np.asarray(idx, dtype=_I32).reshape(-1, 4)
+    n = idx.shape[0]
+    w = np.broadcast_to(np.asarray(w, dtype=_F32), (n,)).copy()
+    lo = np.broadcast_to(np.asarray(lo, dtype=_F32), (n,)).copy()
+    hi = np.broadcast_to(np.asarray(hi, dtype=_F32), (n,)).copy()
+    if n:
+        qinv, g = _tet_rest(idx, positions)
+    else:
+        qinv = np.zeros((0, 3, 3), _F32)
+        g = np.zeros((0, 3, 4), _F32)
+    cap = cap or _round_up(n, 8)
+    return TetBatch(
+        idx=_pad2(idx, cap),
+        qinv=np.ascontiguousarray(_pad2(qinv, cap).reshape(cap, 9).T),
+        g=np.ascontiguousarray(_pad2(g, cap).reshape(cap, 12).T),
+        lo=_pad2(lo, cap),
+        hi=_pad2(hi, cap),
+        w=_pad2(w, cap),
+    )
+
+
+def assemble_topology(
+    num_nodes: int,
+    *,
+    strain: TetBatch,
+    volume: TetBatch,
+    position: PositionBatch,
+    triangles: np.ndarray,
+) -> Topology:
+    """The slice's part of ``pies_tpu.topology.assemble_topology``: the
+    stiffness diagonal, floor counts, ``tet_block6`` and the folded pin force,
+    computed with the same host arithmetic (float64 accumulation)."""
+    diag = np.zeros(num_nodes, dtype=np.float64)
+    np.add.at(diag, np.asarray(position.idx), np.asarray(position.w))
+    for t in (strain, volume):
+        tg = np.asarray(t.g).T.reshape(-1, 3, 4)
+        ata_diag = np.einsum("cji,cji->ci", tg, tg)
+        for k in range(4):
+            np.add.at(diag, t.idx[:, k], t.w * ata_diag[:, k])
+
+    tris = np.asarray(triangles, dtype=_I32).reshape(-1, 3)
+    floor_count = np.zeros(num_nodes, dtype=_F32)
+    if tris.shape[0]:
+        np.add.at(floor_count, tris.reshape(-1), 1.0)
+
+    # Banded (element-major) layout: live tet rows index nodes exactly as
+    # arange.  Only then are the tets contiguous and node-disjoint.
+    banded = num_nodes > 0
+    for t in (strain, volume):
+        live_rows = t.idx[t.w > 0]
+        if live_rows.size and not np.array_equal(
+            live_rows.reshape(-1), np.arange(live_rows.size, dtype=np.int64)
+        ):
+            banded = False
+    tet_block6 = None
+    if banded and num_nodes % 4 == 0:
+        tet_band = np.zeros((7, num_nodes), dtype=_F32)
+        for t in (strain, volume):
+            tg = np.asarray(t.g).T.reshape(-1, 3, 4)
+            gtg = np.einsum("cja,cjb->cab", tg, tg) * t.w[:, None, None]
+            for a in range(4):
+                for b in range(4):
+                    np.add.at(tet_band[3 + b - a], t.idx[:, a], gtg[:, a, b])
+        # B[a][b] of block k is band[3 + b - a][4k + a].
+        tet_block6 = np.stack(
+            [
+                tet_band[3 + b - a].reshape(-1, 4)[:, a]
+                for a, b in ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+            ]
+        )
+
+    if np.asarray(position.idx).shape[0]:
+        pos_force = np.zeros((num_nodes, 3), np.float64)
+        np.add.at(
+            pos_force,
+            np.asarray(position.idx),
+            np.asarray(position.w)[:, None].astype(np.float64)
+            * np.asarray(position.target, np.float64),
+        )
+        pos_force = pos_force.astype(_F32)
+    else:
+        pos_force = np.zeros((1, 3), _F32)
+
+    return Topology(
+        strain=strain,
+        volume=volume,
+        position=position,
+        stiffness_diag=diag.astype(_F32),
+        floor_count=floor_count,
+        tet_block6=tet_block6,
+        position_force_dense=pos_force,
+    )
+
+
+def to_device(obj, device):
+    """Copy every NumPy leaf of a topology dataclass to a tensor on
+    ``device`` (one transfer per leaf, once per scene)."""
+    if obj is None:
+        return None
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(
+            obj,
+            **{
+                f.name: to_device(getattr(obj, f.name), device)
+                for f in dataclasses.fields(obj)
+            },
+        )
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    return torch.tensor(np.asarray(obj), device=device)

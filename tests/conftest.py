@@ -21,3 +21,10 @@ if "xla_force_host_platform_device_count" not in _flags:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's kernels); skips without one",
+    )
