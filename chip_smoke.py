@@ -7,21 +7,36 @@ Phases (any failure exits non-zero, before the result line):
 
 0. The card: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc
    versions, whether ``triton`` imports.  No CUDA device: exit 2.
-1. Build the four kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc
-   (``-Xptxas -v`` output printed) and report the build time.
-2. Each kernel against its plain PyTorch twin on the card, at the main
-   path's shapes (125,000 tets, 500,000 nodes) from the seeded scene: T1
-   forces within 1e-4 of the largest, T2 positions within 1e-4, T3 and T4
-   within 1 ulp.  Times from CUDA events, kernel beside twin.
-3. The main path: ``Solver(SolverOptions(solver=PD),
+1. Build the eight kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
+   one process per source, all at once (``-Xptxas -v`` output printed), and
+   report the build time.
+2. T1-T4 against their plain PyTorch twins on the card, at the main path's
+   shapes (125,000 tets, 500,000 nodes) from the seeded scene: T1 forces
+   within 1e-4 of the largest, T2 positions within 1e-4, T3 and T4 within
+   1 ulp.  Times from CUDA events, kernel beside twin.
+2b. T5-T8 against their twins at 500k on a contact-active state (the bench
+   scene with self-contact after 45 ticks of the kernels): T5's cache and
+   flags equal (as found, and with a rebuild forced), T6's contacts equal
+   (as found, and with the positions jittered so that points cross face
+   planes and the cubic runs), T7's incidence and diagonal equal and its
+   force, T2's one-iteration contact mode, and T8 within 1 ulp.
+3. The contact-free main path: ``Solver(SolverOptions(solver=PD),
    enable_collisions=False)`` on ``create_tet_soup(125_000, spacing=1.6,
-   scale=0.8, w=2000.0, height=0.5, jitter=0.05)``; ``run_ticks(3)`` warm-up
-   and a timed ``run_ticks(10)``, launch counters reset to 0 before it.
-   Checks: no sim_failed, finite positions, floor contact, every counter > 0.
-   The same run with the plain twins on the card is timed too, and its final
-   positions are held against the kernels' run.
+   scale=0.8, w=2000.0, height=0.5, jitter=0.05)``; 30 warm-up ticks (the
+   soup reaches the floor at tick ~25), then a timed ``run_ticks(10)`` with
+   the launch counters reset to 0 before it.  Checks: no sim_failed, finite
+   positions, floor-active nodes in the window (a device counter), every
+   counter of T1-T4 > 0.  The same run with the plain twins on the card is
+   timed too, and its final positions are held against the kernels' run.
+3b. The main path with self-contact: the same scene with
+   ``enable_collisions=True``; 45 warm-up ticks (its layers meet only after
+   the bottom one stops on the floor, at tick ~40), then a timed
+   ``run_ticks(10)``.  Checks as in phase 3, plus live contacts in the
+   window and every counter of T1-T8 > 0; prints contacts per tick and cache
+   rebuilds.  The plain twins' run is held to 1e-3.
 4. Kernels against twins on the card over 40 ticks of a 4,096-tet soup:
-   max |Δx| ≤ 1e-3.
+   max |dx| <= 1e-3; then with self-contact at spacing 1.0, where the
+   contact counts must also be equal on every tick.
 
 The last two lines are the kernel table and the result as JSON objects.
 """
@@ -33,6 +48,15 @@ import time
 
 N_TETS = 125_000
 SCENE = dict(spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
+DENSE_SCENE = dict(SCENE, spacing=1.0)
+FLOOR_WARMUP = 30  # the bench soup's bottom layer reaches the floor at tick ~25
+CONTACT_WARMUP = 45  # its layers start touching at tick ~40
+
+# The H100 SXM's published peaks (NVIDIA's datasheet): the least time
+# of a kernel is the larger of its bytes over the memory rate and its float32
+# operations over the non-tensor-core rate.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def run(cmd):
@@ -58,6 +82,13 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, ops):
+    """``(bound_ms, bound_by)`` from the bytes a call must move and the
+    float32 operations it must do."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def max_ulp(a, b):
     """Largest difference in units of the last place of float32 tensors."""
     import torch
@@ -66,14 +97,15 @@ def max_ulp(a, b):
     m = torch.maximum(a.abs(), b.abs())
     ulp = torch.nextafter(m, torch.full_like(m, float("inf"))) - m
     d = (a - b).abs() / ulp
-    return float(torch.where(a == b, torch.zeros_like(d), d).max())
+    return float(torch.where(a == b, torch.zeros_like(d), d).max()) if d.numel() else 0.0
 
 
 def clone_state(s):
     import dataclasses
 
     return dataclasses.replace(
-        s, **{f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)}
+        s, **{f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)
+              if getattr(s, f.name) is not None}
     )
 
 
@@ -106,11 +138,14 @@ def main(n_tets=N_TETS, n_small=4096, dev=None):
 
     import pies_tpu_torch as pt
     from pies_tpu_torch import kernels
+    from pies_tpu_torch.collision import broadphase
+    from pies_tpu_torch.collision.batches import CollisionSet, incident
     from pies_tpu_torch.constraints import projections as proj
     from pies_tpu_torch.solver import pd, step, tetcols
 
     print("nvcc: " + run([kernels._nvcc(), "--version"]).splitlines()[-1])
     dev = dev or torch.device("cuda", 0)
+    PD = pt.SolverName.PD
 
     # ---- phase 1
     print("phase 1: build")
@@ -119,28 +154,32 @@ def main(n_tets=N_TETS, n_small=4096, dev=None):
     kernels.lib()
     print(f"build + load {time.perf_counter() - t0:.2f} s (nvcc {kernels.build_seconds} s)")
     print("\n".join(l for l in kernels.build_log.splitlines() if "registers" in l or "spill" in l
-                    or "Compiling entry" in l))
+                    or "Compiling entry" in l or l.startswith("==")))
+
+    rows = {}
+
+    def row(name, source, replaces, err, ms, plain_ms, tol_text, nbytes, ops):
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"  {name}: max err {err:.3e} ({tol_text}); kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+              f" ms, bound {b_ms:.4f} ms ({b_by})")
+        rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None)
 
     # ---- phase 2
-    print(f"phase 2: kernels against twins at {n_tets} tets, {4 * n_tets} nodes")
-    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=False, device=dev)
+    print(f"phase 2: T1-T4 against twins at {n_tets} tets, {4 * n_tets} nodes")
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False, device=dev)
     s.create_tet_soup(n_tets, **SCENE)
     t0 = time.perf_counter()
-    st, topo, cfg, params = s.state, s.topology, s._config, s.current_params()
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
     print(f"scene set-up {time.perf_counter() - t0:.2f} s, capacity {st.capacity}")
+    n_nodes, n_cols = st.capacity, topo.strain.qinv.shape[1]
     # Seeded velocities with a downward drift, so the predicted positions of
     # the bottom layer fall below the floor threshold.
     rng = np.random.default_rng(0)
     vel = 0.5 * rng.standard_normal((st.capacity, 3)) + np.array([0.0, -40.0, 0.0])
     st.velocities.copy_(torch.from_numpy(vel.astype(np.float32)).to(dev) * st.node_mask[:, None])
     plane = 0.0
-
-    rows = []
-
-    def row(name, source, replaces, err, ms, plain_ms, tol_text):
-        print(f"  {name}: max err {err:.3e} ({tol_text}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms))
 
     sk, sp = clone_state(st), clone_state(st)
     hk = pd.substep_head(sk, topo, params, cfg, True)
@@ -152,7 +191,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None):
     check(float(hk[4].sum()) > 0, f"T3 floor-active nodes: {int(hk[4].sum())}")
     row("substep_head", "pies_tpu_torch/kernels/csrc/substep_ends.cu", "pies_tpu/solver/pd.py:59",
         err, cuda_ms(lambda: pd.substep_head(sk, topo, params, cfg, False), 50),
-        cuda_ms(lambda: pd.substep_head_plain(sp, topo, params, cfg, False), 20), f"{ulps} ulp")
+        cuda_ms(lambda: pd.substep_head_plain(sp, topo, params, cfg, False), 20), f"{ulps} ulp",
+        76 * n_nodes, 17 * n_nodes)
 
     x, msn, diag, wf, active = hk
     fk = proj.tet_force12(x, topo.strain, topo.volume, st.sim_failed)
@@ -165,7 +205,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None):
         "pies_tpu/constraints/projections.py:311", err,
         cuda_ms(lambda: proj.tet_force12(x, topo.strain, topo.volume, st.sim_failed), 20),
         cuda_ms(lambda: proj.tet_force12_plain(x, topo.strain, topo.volume), 5),
-        f"rel {err / scale:.2e}")
+        f"rel {err / scale:.2e}", 204 * n_cols, 1500 * n_cols)
 
     args = (x, msn, diag, st.node_mask, wf, fk, topo, plane, cfg.iterations, st.sim_failed)
     ck = tetcols.substep_cols(*args)
@@ -179,7 +219,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None):
     row("tet_cols_substep", "pies_tpu_torch/kernels/csrc/tet_cols_substep.cu",
         "pies_tpu/solver/tetcols.py:263", err,
         cuda_ms(lambda: tetcols.substep_cols(*args), 20),
-        cuda_ms(lambda: tetcols.substep_cols_plain(*args), 3), "abs")
+        cuda_ms(lambda: tetcols.substep_cols_plain(*args), 3), "abs",
+        424 * (n_nodes // 4), 1600 * cfg.iterations * (n_nodes // 4))
 
     x_new, static_proj, _ = ck
     tk, tp = clone_state(st), clone_state(st)
@@ -194,70 +235,259 @@ def main(n_tets=N_TETS, n_small=4096, dev=None):
     row("substep_tail", "pies_tpu_torch/kernels/csrc/substep_ends.cu", "pies_tpu/solver/pd.py:316",
         err, cuda_ms(lambda: pd.substep_tail(tk, topo, params, active, x_new, static_proj), 50),
         cuda_ms(lambda: pd.substep_tail_plain(tp, topo, params, active, x_new, static_proj), 20),
-        f"{ulps} ulp")
+        f"{ulps} ulp", 120 * n_nodes, 25 * n_nodes)
     del s, st, sk, sp, tk, tp, hk, hp, fk, fp, ck, cp, args
 
-    # ---- phase 3
-    print(f"phase 3: the main path, {4 * n_tets} particles")
-    counters = {"substep_head": pd.substep_head, "tet_force12": proj.tet_force12,
-                "tet_cols_substep": tetcols.substep_cols, "substep_tail": pd.substep_tail}
+    # ---- phase 2b
+    print(f"phase 2b: T5-T8 against twins at {n_tets} tets, contact-active state")
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=True, device=dev)
+    s.create_tet_soup(n_tets, **SCENE)
+    t0 = time.perf_counter()
+    s.run_ticks(CONTACT_WARMUP)
+    print(f"{CONTACT_WARMUP} ticks of the kernels: {time.perf_counter() - t0:.2f} s")
+    check(not s.sim_failed, "no sim_failed after the warm-up")
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    lay = broadphase.body_layout(cfg, topo.tri_mask.shape[0])
+    sc = broadphase.scalars(params)
+    failed = st.sim_failed
+    x, msn, diag, wf, active = pd.substep_head_plain(clone_state(st), topo, params, cfg, True)
+    prev, tmask = st.prev_positions, topo.tri_mask
+    zero = lambda: torch.zeros(1, dtype=torch.int32, device=dev)  # noqa: E731
+    cache_fields = ("pairs", "valid", "ref", "fresh")
 
-    def drive(plain, n, ticks):
-        """``ticks`` ticks after a 3-tick warm-up; returns the solver and the
-        seconds per tick.  The kernels run through ``Solver.run_ticks``, the
-        plain twins through the same tick loop with ``plain=True``."""
-        s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=False,
-                      device=dev)
-        s.create_tet_soup(n, **SCENE)
+    def t5(fn, force):
+        c, ov = st.bp.clone(), zero()
+        if force:
+            c.fresh.zero_()
+        rb = fn(x, prev, tmask, c, lay, sc, ov, failed)
+        return c, ov, rb
 
-        def run(k):
-            if plain:
-                step.tick_n(s.state, s.topology, s.current_params(), s._config, k, plain=True)
-                torch.cuda.synchronize()
-            else:
-                s.run_ticks(k)
+    for force in (False, True):
+        (c5k, ov5k, rbk), (c5p, ov5p, rbp) = (t5(broadphase.body_broadphase, force),
+                                              t5(broadphase.body_broadphase_plain, force))
+        torch.cuda.synchronize()
+        same = (all(torch.equal(getattr(c5k, f), getattr(c5p, f)) for f in cache_fields)
+                and torch.equal(ov5k, ov5p) and int(rbk[0]) == int(rbp[0]))
+        check(same, f"T5 body_broadphase cache and flags equal (rebuild forced {force},"
+                    f" rebuilt {int(rbk[0])}, valid pairs {int(c5k.valid.sum())},"
+                    f" overflow {int(ov5k[0])})")
+    cache = c5k
+    timing_cache, ov = st.bp.clone(), zero()
 
-        run(3)
+    def rebuild(fn):
+        timing_cache.fresh.zero_()
+        fn(x, prev, tmask, timing_cache, lay, sc, ov, failed)
+
+    n_body_nodes = lay.k * lay.m
+    row("body_broadphase", "pies_tpu_torch/kernels/csrc/body_broadphase.cu",
+        "pies_tpu/collision/broadphase.py:210", 0.0,
+        cuda_ms(lambda: rebuild(broadphase.body_broadphase), 20),
+        cuda_ms(lambda: rebuild(broadphase.body_broadphase_plain), 3), "equal",
+        48 * n_body_nodes + 4 * lay.k * lay.e + 8 * lay.lanes + 4, 1000 * lay.k)
+
+    def t6(fn, xx, **kw):
+        ovx = zero()
+        out = fn(xx, prev, tmask, cache, lay, sc, ovx, failed, **kw)
+        return out, ovx
+
+    rng = np.random.default_rng(1)
+    jitter = torch.from_numpy((0.05 * rng.standard_normal(x.shape)).astype(np.float32)).to(dev)
+    x_cross = x + jitter * st.node_mask[:, None]
+    stats = {}
+    for name, xx in (("as found", x), ("jittered", x_cross)):
+        stats[name] = {}
+        (pk, ovk), (pp, ovp) = t6(broadphase.pt_narrowphase, xx), \
+            t6(broadphase.pt_narrowphase_plain, xx, stats=stats[name])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(pk, pp)) and torch.equal(ovk, ovp)
+        check(same, f"T6 pt_narrowphase contacts equal ({name}: {int(pk[2][0])} contacts,"
+                    f" {stats[name]})")
+    check(stats["jittered"]["cross_combos"] > 0,
+          f"T6 phase 2 ran: {stats['jittered']['cross_combos']} crossing combos")
+    pk, _ = t6(broadphase.pt_narrowphase, x)
+    n_contacts = int(pk[2][0])
+    check(n_contacts > 0, f"contacts in the state: {n_contacts}")
+    st6 = stats["as found"]
+    row("pt_narrowphase", "pies_tpu_torch/kernels/csrc/pt_narrowphase.cu",
+        "pies_tpu/collision/broadphase.py:385", 0.0,
+        cuda_ms(lambda: t6(broadphase.pt_narrowphase, x), 20),
+        cuda_ms(lambda: t6(broadphase.pt_narrowphase_plain, x), 3), "equal",
+        24 * n_body_nodes + 4 * lay.k * lay.e + 8 * lay.lanes + 20 * lay.cap,
+        864 * st6["live_lanes"] + 400 * st6["cross_combos"])
+
+    colls = CollisionSet(floor_active=active, pt_idx=pk[0], pt_mask=pk[1], pt_count=pk[2],
+                         overflow=zero())
+    _, h2 = pd._h_h2(params)
+    thick = params.collision_thickness
+    dk, dp = diag.clone(), diag.clone()
+    inc_k, ptd_k = tetcols.pt_coupling_setup(colls, st.mass, topo, h2, dk, wf, failed)
+    inc_p, ptd_p = tetcols.pt_coupling_setup_plain(colls, st.mass, topo, h2, dp, wf, failed)
+    con_k = tetcols.pt_force(x, colls, inc_k, thick, failed)
+    con_p = tetcols.pt_force_plain(x, colls, inc_p, thick, failed)
+    torch.cuda.synchronize()
+    nnz, on = int(inc_p.row_start[-1]), incident(inc_p)
+    n_inc = int(on.sum())
+    same = (torch.equal(inc_k.row_start, inc_p.row_start)
+            and torch.equal(inc_k.entries[:nnz], inc_p.entries[:nnz])
+            and torch.equal(inc_k.nodes[:nnz], inc_p.nodes[:nnz])
+            and torch.equal(ptd_k[on], ptd_p[on]) and torch.equal(dk, dp))
+    check(same, f"T7 incidence, contact diagonal and system diagonal equal ({nnz} entries,"
+                f" {n_inc} nodes)")
+    ulps = max_ulp(con_k[on], con_p[on])
+    err7 = float((con_k[on] - con_p[on]).abs().max())
+    check(ulps <= 1.0, f"T7 contact force within 1 ulp (max {ulps} ulp)")
+
+    def couple(setup, force):
+        d = diag.clone()
+        inc, _ = setup(colls, st.mass, topo, h2, d, wf, failed)
+        for _ in range(cfg.iterations):
+            force(x, colls, inc, thick, failed)
+
+    row("pt_coupling", "pies_tpu_torch/kernels/csrc/pt_coupling.cu",
+        "pies_tpu/solver/tetcols.py:194", err7,
+        cuda_ms(lambda: couple(tetcols.pt_coupling_setup, tetcols.pt_force), 20),
+        cuda_ms(lambda: couple(tetcols.pt_coupling_setup_plain, tetcols.pt_force_plain), 3),
+        f"{ulps} ulp",
+        20 * n_contacts + 24 * n_inc + cfg.iterations * (20 * n_contacts + 24 * n_inc),
+        cfg.iterations * 50 * nnz)
+
+    pt_args = (ptd_k, con_k, inc_k.row_start, colls.pt_count)
+    f0 = proj.tet_force12(x, topo.strain, topo.volume, failed)
+    one = (x, msn, dk, st.node_mask, wf, f0, topo, plane, 1, failed, pt_args)
+    ok2 = tetcols.substep_cols(*one)
+    op2 = tetcols.substep_cols_plain(*one)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(ok2[:2], op2[:2]))
+    check(err <= 1e-4, f"T2 one iteration with contacts within 1e-4 (max {err:.3e})")
+
+    x_new, static_proj = ok2[0], ok2[1]
+    sk, sp = clone_state(st), clone_state(st)
+    xk, xp = x_new.clone(), x_new.clone()
+    colls_a = CollisionSet(floor_active=active, pt_idx=pk[0], pt_mask=pk[1],
+                           pt_count=pk[2], overflow=zero())
+    frk = pd.pt_tail(sk, params, cfg, colls_a, inc_k, xk, static_proj)
+    frp = pd.pt_tail_plain(sp, params, cfg, colls_a, inc_p, xp, static_proj)
+    torch.cuda.synchronize()
+    ulps = max(max_ulp(xk, xp), max_ulp(sk.prev_positions, sp.prev_positions),
+               max_ulp(frk[on], frp[on]))
+    err8 = max(float((xk - xp).abs().max()), float((frk[on] - frp[on]).abs().max()))
+    check(ulps <= 1.0, f"T8 pt_tail positions, prev and friction within 1 ulp (max {ulps} ulp)")
+    passes = cfg.collision_stabilization_iterations
+    row("pt_tail", "pies_tpu_torch/kernels/csrc/pt_tail.cu", "pies_tpu/collision/batches.py:501",
+        err8, cuda_ms(lambda: pd.pt_tail(sk, params, cfg, colls_a, inc_k, xk, static_proj), 20),
+        cuda_ms(lambda: pd.pt_tail_plain(sp, params, cfg, colls_a, inc_p, xp, static_proj), 3),
+        f"{ulps} ulp", passes * (20 * n_contacts + 64 * n_inc) + 20 * n_contacts + 56 * n_inc,
+        passes * 60 * n_contacts + 90 * n_contacts)
+    del s, st, sk, sp, cache, timing_cache, colls, colls_a, inc_k, inc_p
+
+    # ---- phases 3 and 3b
+    wrappers = {"substep_head": [pd.substep_head], "tet_force12": [proj.tet_force12],
+                "tet_cols_substep": [tetcols.substep_cols], "substep_tail": [pd.substep_tail],
+                "body_broadphase": [broadphase.body_broadphase],
+                "pt_narrowphase": [broadphase.pt_narrowphase],
+                "pt_coupling": [tetcols.pt_coupling_setup, tetcols.pt_force],
+                "pt_tail": [pd.pt_tail]}
+
+    def reset_launches():
+        for fns in wrappers.values():
+            for f in fns:
+                f.launches = 0
+
+    def read_launches():
+        return {name: sum(f.launches for f in fns) for name, fns in wrappers.items()}
+
+    def prepare(n, collisions, scene, warm, plain):
+        s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=collisions, device=dev)
+        s.create_tet_soup(n, **scene)
+        advance(s, warm, plain)
+        return s
+
+    def advance(s, ticks, plain, counters=None):
+        if plain:
+            step.tick_n(s.state, s.topology, s.current_params(), s.config, ticks, plain=True,
+                        counters=counters)
+            torch.cuda.synchronize()
+        else:
+            s.counters = counters
+            s.run_ticks(ticks)
+            s.counters = None
+
+    def window(s, ticks, plain):
+        """``ticks`` timed ticks with the device counters on; returns the
+        seconds per tick and the counters."""
+        counters = pd.new_counters(dev)
         t0 = time.perf_counter()
-        run(ticks)
-        return s, (time.perf_counter() - t0) / ticks
+        advance(s, ticks, plain, counters)
+        return (time.perf_counter() - t0) / ticks, {k: int(v) for k, v in counters.items()}
 
-    for f in counters.values():
-        f.launches = 0
-    s, sec = drive(False, n_tets, 10)
-    launches = {name: f.launches for name, f in counters.items()}
-    live = 4 * n_tets
-    pos = s.state.positions[:live]
-    check(not s.sim_failed, "no sim_failed")
-    check(bool(torch.isfinite(pos).all()), "all positions finite")
-    ymin = float(pos[:, 1].min())
-    check(ymin < 0.5, f"floor contact exercised (min y {ymin:.4f})")
-    check(all(n > 0 for n in launches.values()), f"every kernel launched: {launches}")
-    print(f"  kernels: {sec * 1e3:.3f} ms/tick, {1.0 / sec:.2f} steps/s ({smi};"
-          f" residual {s.last_residual:.4g})")
-    sp_, sec_p = drive(True, n_tets, 10)
-    check(all(f.launches == launches[name] for name, f in counters.items()),
-          "the twins launch no kernel")
-    print(f"  plain twins: {sec_p * 1e3:.3f} ms/tick, {1.0 / sec_p:.2f} steps/s ({smi})")
-    d = float((sp_.state.positions[:live] - pos).abs().max())
-    check(d <= 1e-3, f"kernels and twins agree after 13 ticks: max |dx| {d:.3e}")
-    del s, sp_, pos
+    launches = {}
+    for phase, collisions, warm, names in (
+            ("3", False, FLOOR_WARMUP, list(wrappers)[:4]),
+            ("3b", True, CONTACT_WARMUP, list(wrappers))):
+        what = "with self-contact" if collisions else "contact-free"
+        print(f"phase {phase}: the main path {what}, {4 * n_tets} particles,"
+              f" {warm} warm-up ticks")
+        s = prepare(n_tets, collisions, SCENE, warm, False)
+        reset_launches()
+        sec, counts = window(s, 10, False)
+        launches[phase] = read_launches()
+        live = 4 * n_tets
+        pos = s.state.positions[:live]
+        check(not s.sim_failed, "no sim_failed")
+        check(bool(torch.isfinite(pos).all()), "all positions finite")
+        check(counts["floor_active"] > 0,
+              f"floor contact in the window: {counts['floor_active']} node-substeps")
+        if collisions:
+            check(counts["contacts"] > 0,
+                  f"self-contact in the window: {counts['contacts'] / 10:.1f} contacts per tick,"
+                  f" {counts['rebuilds']} cache rebuilds in 10 ticks")
+        check(all(launches[phase][n] > 0 for n in names),
+              f"every kernel launched: {launches[phase]}")
+        print(f"  kernels: {sec * 1e3:.3f} ms/tick, {1.0 / sec:.2f} steps/s ({smi};"
+              f" residual {s.last_residual:.4g}; counters {counts})")
+        s_plain = prepare(n_tets, collisions, SCENE, warm, True)
+        sec_p, counts_p = window(s_plain, 10, True)
+        check(read_launches() == launches[phase], "the twins launch no kernel")
+        print(f"  plain twins: {sec_p * 1e3:.3f} ms/tick, {1.0 / sec_p:.2f} steps/s ({smi};"
+              f" counters {counts_p})")
+        d = float((s_plain.state.positions[:live] - pos).abs().max())
+        check(d <= 1e-3, f"kernels and twins agree after {warm + 10} ticks: max |dx| {d:.3e}")
+        check(counts_p == counts, "the same counters")
+        del s, s_plain, pos
 
     # ---- phase 4
     print(f"phase 4: 40 ticks of a {n_small}-tet soup, kernels against twins")
     runs = []
     for plain in (False, True):
-        s, _ = drive(plain, n_small, 37)  # 3 + 37 = 40 ticks
+        s = prepare(n_small, False, SCENE, 40, plain)
         check(not s.sim_failed, f"no sim_failed (plain={plain})")
         runs.append(s.state.positions[: 4 * n_small])
     d = float((runs[0] - runs[1]).abs().max())
     check(d <= 1e-3, f"trajectories agree: max |dx| {d:.3e}")
     check(float(runs[0][:, 1].min()) < 0.05, "the floor was reached")
+    print(f"phase 4, self-contact: 40 ticks of a {n_small}-tet soup at spacing 1.0")
+    runs, per_tick = [], []
+    for plain in (False, True):
+        s = prepare(n_small, True, DENSE_SCENE, 0, plain)
+        counts = []
+        for _ in range(40):
+            c = pd.new_counters(dev)
+            advance(s, 1, plain, c)
+            counts.append(int(c["contacts"]))
+        check(not s.sim_failed, f"no sim_failed (plain={plain})")
+        runs.append(s.state.positions[: 4 * n_small])
+        per_tick.append(counts)
+    check(per_tick[0] == per_tick[1] and sum(per_tick[0]) > 0,
+          f"contact counts equal on every tick: {per_tick[0]}")
+    d = float((runs[0] - runs[1]).abs().max())
+    check(d <= 1e-3, f"trajectories agree: max |dx| {d:.3e}")
 
-    for r in rows:
-        r["launches"] = launches[r["name"]]
+    table = []
+    for name, r in rows.items():
+        r["launches"] = launches["3b"][name]
+        table.append(r)
     print(f"nvidia-smi: {smi}")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,14 @@
-"""Per-substep floor contacts (port of the dense-floor part of
-``pies_tpu/collision/batches.py``).
+"""Per-substep collision constraints (port of the dense-floor and
+point-triangle parts of ``pies_tpu/collision/batches.py``).
 
-Weights mirror the reference headers; only the floor constraint is used by
-the ported slice, the others are carried for the self-contact port.
+Weights mirror the reference headers.  Point-triangle contacts come from
+the detection as a fixed-capacity buffer whose live entries are a packed
+prefix of ``pt_count`` (a device scalar).  Every per-node sum over contacts
+goes through the node incidence (:class:`Incidence`): the (column, contact)
+entries ``e = a·cap + i`` grouped by node, each node's list in ascending
+``e`` — the order in which the JAX package's scatter of ``idx.T.reshape(-1)``
+adds on the CPU — so the sums are deterministic on every device and need no
+float atomics.
 """
 
 from __future__ import annotations
@@ -11,6 +17,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..ops.math3d import ieee_div as _div
 
 W_POINT_TRI = 1.0e4  # PointTriangleCollisionConstraint (CollisionConstraint.h:33)
 W_STATIC = 1.0e4  # StaticCollisionConstraint, the floor (CollisionConstraint.h:78)
@@ -31,10 +39,17 @@ ATA_DIFF4 = np.array(
 
 @dataclass
 class CollisionSet:
-    """The constraints detected for one substep.  With self-contact off and
-    dense floor contacts, that is one per-node activity mask."""
+    """The constraints detected for one substep: the dense floor activity
+    and, with self-contact on, the point-triangle contacts (node a against
+    triangle (b, c, d) of another body, ``Solver.cpp:777-797``) and the
+    capacity latch."""
 
     floor_active: torch.Tensor  # f32[N]
+    pt_idx: torch.Tensor | None = None  # i32[cap, 4]
+    pt_mask: torch.Tensor | None = None  # f32[cap]
+    pt_count: torch.Tensor | None = None  # i32[1] live prefix length
+    overflow: torch.Tensor | None = None  # i32[1], a capacity was exceeded
+    rebuilt: torch.Tensor | None = None  # i32[1], the broadphase cache was rebuilt
 
 
 def floor_threshold(params) -> float:
@@ -58,3 +73,115 @@ def floor_plane(params, reference_quirks: bool) -> float:
     (``CollisionConstraint.cpp:447-455``; FIDELITY.md), while detection uses
     the floor height."""
     return 0.0 if reference_quirks else params.floor_height
+
+
+@dataclass
+class Incidence:
+    """Node → contact-entry incidence (CSR) of the live contacts.  Entry
+    ``e = a·cap + i`` is column a of contact i; ``entries[row_start[n] :
+    row_start[n+1]]`` are node n's entries in ascending order, and
+    ``nodes[p]`` is the node of position p.  Positions past ``row_start[N]``
+    are unused."""
+
+    row_start: torch.Tensor  # i32[N + 1]
+    entries: torch.Tensor  # i32[4·cap]
+    nodes: torch.Tensor  # i32[4·cap]
+    cap: int
+
+
+def incidence_plain(pt_idx: torch.Tensor, pt_count: torch.Tensor, n_nodes: int) -> Incidence:
+    """Plain twin of T7's incidence stages (count, scan, fill, order)."""
+    cap = pt_idx.shape[0]
+    live = int(pt_count[0])
+    dev = pt_idx.device
+    e = torch.arange(4 * cap, dtype=torch.int64, device=dev).view(4, cap)[:, :live].reshape(-1)
+    node = pt_idx[:live].t().reshape(-1).long()
+    order = torch.sort(node, stable=True).indices
+    deg = torch.bincount(node, minlength=n_nodes)
+    row_start = torch.zeros(n_nodes + 1, dtype=torch.int64, device=dev)
+    row_start[1:] = torch.cumsum(deg, 0)
+    entries = torch.zeros(4 * cap, dtype=torch.int32, device=dev)
+    nodes = torch.zeros(4 * cap, dtype=torch.int32, device=dev)
+    entries[: e.numel()] = e[order].to(torch.int32)
+    nodes[: e.numel()] = node[order].to(torch.int32)
+    return Incidence(row_start.to(torch.int32), entries, nodes, cap)
+
+
+def incident(inc: Incidence) -> torch.Tensor:
+    """bool[N]: nodes with at least one live contact entry."""
+    return inc.row_start[1:] > inc.row_start[:-1]
+
+
+def csr_sum(inc: Incidence, vals: torch.Tensor) -> torch.Tensor:
+    """Per node, the sum of ``vals[e]`` (``vals`` f32[4·cap, w], indexed by
+    entry) over its entries, added one after another in ascending ``e``
+    from 0.0 — the JAX package's CPU scatter order.  Returns f32[N, w]."""
+    n = inc.row_start.shape[0] - 1
+    start = inc.row_start[:-1].long()
+    deg = inc.row_start[1:].long() - start
+    out = torch.zeros((n, vals.shape[1]), dtype=vals.dtype, device=vals.device)
+    for r in range(int(deg.max()) if n else 0):
+        nodes = torch.nonzero(deg > r).reshape(-1)
+        out[nodes] = out[nodes] + vals[inc.entries[start[nodes] + r].long()]
+    return out
+
+
+def _gather4(x: torch.Tensor, pt_idx: torch.Tensor):
+    return tuple(x[pt_idx[:, a].long()] for a in range(4))
+
+
+def _unit_normal_div(b, c, d):
+    """``n = (c−b)×(d−b) / max(|n|, 1e-20)`` with a division per component,
+    as ``jnp.cross`` then ``n / max(norm, 1e-20)``."""
+    e1, e2 = c - b, d - b
+    nx = e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1]
+    ny = e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2]
+    nz = e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]
+    nn = torch.clamp_min(torch.sqrt(nx * nx + ny * ny + nz * nz), 1e-20)
+    return torch.stack([_div(nx, nn), _div(ny, nn), _div(nz, nn)], dim=1)
+
+
+def _dot3(u, v):
+    return u[:, 0] * v[:, 0] + u[:, 1] * v[:, 1] + u[:, 2] * v[:, 2]
+
+
+def stabilize_contacts(positions, inv_mass, pt_idx, pt_mask, thickness):
+    """Per-contact stabilization values (``CollisionConstraint.cpp:126-162``):
+    the point's push-out ``da``, the triangle corners' ``dbcd`` (each of b, c,
+    d takes the full share, as the reference does) and the activity.
+    Returns f32[cap, 7] = (da, dbcd, active)."""
+    a, b, c, d = _gather4(positions, pt_idx)
+    n = _unit_normal_div(b, c, d)
+    ndp = _dot3(n, a - b)
+    active = (ndp < thickness) & (pt_mask > 0)
+    disp = torch.where(active, thickness - ndp, 0.0)[:, None] * n
+    im = inv_mass[pt_idx.long()]
+    w_tri = im[:, 1] + im[:, 2] + im[:, 3]
+    inv_w = _div(torch.ones_like(w_tri), torch.clamp_min(im[:, 0] + w_tri, 1e-20))
+    da = disp * (im[:, 0] * inv_w)[:, None]
+    dbcd = -disp * (w_tri * inv_w)[:, None]
+    return torch.cat([da, dbcd, active.to(positions.dtype)[:, None]], dim=1)
+
+
+def entry_values(per_contact: torch.Tensor) -> torch.Tensor:
+    """Expand per-contact ``(point xyz, corner xyz, count)`` rows f32[cap, 7]
+    to per-entry ``(xyz, count)`` rows f32[4·cap, 4]: column 0 takes the
+    point's values, columns 1-3 the corners'."""
+    pt = torch.cat([per_contact[:, 0:3], per_contact[:, 6:7]], dim=1)
+    tri = torch.cat([per_contact[:, 3:6], per_contact[:, 6:7]], dim=1)
+    return torch.cat([pt, tri, tri, tri], dim=0)
+
+
+def stabilize_point_tri_acc(positions, inv_mass, pt_idx, pt_mask, thickness) -> torch.Tensor:
+    """The stabilization pass's ``[N, 4]`` accumulator (xyz delta sums and
+    contact counts) over every entry of the buffer, before count-averaging
+    (``batches.py:501-549``)."""
+    count = torch.full((1,), pt_idx.shape[0], dtype=torch.int32, device=pt_idx.device)
+    inc = incidence_plain(pt_idx, count, positions.shape[0])
+    vals = stabilize_contacts(positions, inv_mass, pt_idx, pt_mask, thickness)
+    return csr_sum(inc, entry_values(vals))
+
+
+def count_average(acc: torch.Tensor) -> torch.Tensor:
+    """``acc[:, :3] / max(acc[:, 3], 1)``, the Jacobi count-averaging."""
+    return _div(acc[:, :3], torch.clamp_min(acc[:, 3:4], 1.0))

@@ -14,13 +14,30 @@ import dataclasses
 import numpy as np
 import torch
 
-from .options import PhysicsParams, SolverName, StepConfig
-from .state import SolverState
+from .options import CollisionBudget, PhysicsParams, SolverName, StepConfig
+from .state import BroadphaseCache, SolverState
 from .topology import PositionBatch, TetBatch, Topology, to_device
 
 
 def _t(a, device, dtype=torch.float32) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def cache_from_numpy(bp, device="cpu") -> BroadphaseCache | None:
+    """The port's broadphase cache from a JAX ``BroadphaseCache`` with NumPy
+    leaves: bools become int32, and pair slots past a row's valid prefix
+    become 0 (the JAX package leaves sort leftovers there; nothing reads
+    them)."""
+    if bp is None:
+        return None
+    valid = np.asarray(bp.valid)
+    i32 = torch.int32
+    return BroadphaseCache(
+        pairs=_t(np.where(valid, np.asarray(bp.pairs), 0), device, i32),
+        valid=_t(valid, device, i32),
+        ref=_t(bp.ref, device),
+        fresh=_t(np.asarray(bp.fresh).reshape(1), device, i32),
+    )
 
 
 def state_from_numpy(state, device="cpu") -> SolverState:
@@ -38,6 +55,7 @@ def state_from_numpy(state, device="cpu") -> SolverState:
         radius=_t(state.radius, device),
         node_mask=_t(state.node_mask, device),
         sim_failed=failed,
+        bp=cache_from_numpy(getattr(state, "bp", None), device),
     )
 
 
@@ -58,6 +76,8 @@ def topology_from_numpy(topo, device="cpu") -> Topology:
             floor_count=topo.floor_count,
             tet_block6=topo.tet_block6,
             position_force_dense=topo.position_force_dense,
+            triangles=topo.triangles,
+            tri_mask=topo.tri_mask,
         ),
         device,
     )
@@ -67,6 +87,10 @@ def config_from(config) -> StepConfig:
     """The port's ``StepConfig`` from a JAX one: the shared fields by name."""
     kw = {f.name: getattr(config, f.name) for f in dataclasses.fields(StepConfig)}
     kw["solver"] = SolverName(config.solver.value)
+    kw["budget"] = CollisionBudget(
+        **{f.name: getattr(config.budget, f.name)
+           for f in dataclasses.fields(CollisionBudget)}
+    )
     return StepConfig(**kw)
 
 

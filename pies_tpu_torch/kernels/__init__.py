@@ -14,6 +14,14 @@ wrappers that call them sit beside their plain PyTorch twins:
 * T2 ``pies_tet_cols_substep`` — ``solver/tetcols.py:substep_cols``
 * T3 ``pies_substep_head`` — ``solver/pd.py:substep_head``
 * T4 ``pies_substep_tail`` — ``solver/pd.py:substep_tail``
+* T5 ``pies_body_broadphase`` — ``collision/broadphase.py:body_broadphase``
+* T6 ``pies_pt_narrowphase`` — ``collision/broadphase.py:pt_narrowphase``
+* T7 ``pies_pt_coupling_setup``, ``pies_pt_force`` —
+  ``solver/tetcols.py:pt_coupling_setup``, ``pt_force``
+* T8 ``pies_pt_tail`` — ``solver/pd.py:pt_tail``
+
+Each source compiles to an object in its own ``nvcc`` process, all started
+together, and the objects link into one library.
 """
 
 from __future__ import annotations
@@ -36,8 +44,9 @@ _BUILD = Path(__file__).resolve().parent.parent / "_build"
 # square root stay IEEE.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 )
+SCAN_BLOCK = 256  # pies::kBlock in csrc/compact.cuh
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,9 +54,14 @@ _F = ctypes.c_float
 # argtypes of every entry point: c_void_p for each pointer and the stream.
 SIGNATURES = {
     "pies_tet_force12": [_P] * 10 + [_I, _P, _P],
-    "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F, _P, _P],
+    "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F] + [_P] * 6,
     "pies_substep_head": [_P] * 11 + [_I, _F, _F, _F, _P, _I, _P],
-    "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F, _P, _P],
+    "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F] + [_P] * 6,
+    "pies_body_broadphase": [_P] * 16 + [_I] * 10 + [_F] * 6 + [_P],
+    "pies_pt_narrowphase": [_P] * 16 + [_I] * 6 + [_F, _P],
+    "pies_pt_coupling_setup": [_P] * 14 + [_I, _I, _F, _P],
+    "pies_pt_force": [_P] * 9 + [_I, _I, _F, _P],
+    "pies_pt_tail": [_P] * 16 + [_I, _I, _I] + [_F] * 6 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -68,9 +82,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def scan_partials(n: int) -> int:
+    """Ints of scratch a two-level scan of ``n`` values needs."""
+    return max(1, -(-n // SCAN_BLOCK))
+
+
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into the build directory unless a library for
-    the same sources and flags is already there; returns its path.
+    the same sources and flags is already there; returns its path.  One
+    ``nvcc -c`` per source, all running at once, then one link.
     ``verbose`` adds ``-Xptxas -v`` (registers, spills) to the log."""
     global build_seconds, build_log
     sources = sorted(_CSRC.glob("*.cu"))
@@ -79,19 +99,35 @@ def build(verbose: bool = False) -> Path:
     for path in sorted(_CSRC.iterdir()):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    out = _BUILD / f"libpies_kernels_{digest.hexdigest()[:16]}.so"
+    tag = digest.hexdigest()[:16]
+    out = _BUILD / f"libpies_kernels_{tag}.so"
     if out.exists():
         return out
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
+    ptxas = ("-Xptxas", "-v") if verbose else ()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sources:
+        obj = _BUILD / f"{src.stem}_{tag}.{os.getpid()}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *flags, *ptxas, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(f"== {s.name}\n{log}" for s, log in zip(sources, logs))
+    failed = [s.name for s, p in zip(sources, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, *flags[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log += link.stdout + link.stderr
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{build_log}")
     os.replace(tmp, out)
     return out
 

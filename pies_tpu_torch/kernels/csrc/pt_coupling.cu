@@ -1,0 +1,199 @@
+// Kernel T7: point-triangle coupling of the PD iterations.
+//
+// Replaces (JAX): pies_tpu/solver/tetcols.py:194-260 pt_force_cols and the
+// contact terms of substep_cols (:306-349), with solver/assembly.py:357-368
+// point_tri_collision_diag and the point-triangle part of system_diag
+// (:577-599).
+//
+// Once per substep (pies_pt_coupling_setup):
+//  (a) the node incidence of the live contacts: entry e = a*cap + i is
+//      column a of contact i; an atomic count per node, an exclusive scan
+//      (compact.cuh), an atomic fill, and each node's list put in ascending
+//      e by the node's first position ("leader") thread.  Ascending e is the
+//      order in which the JAX package's CPU scatter of idx.T.reshape(-1)
+//      adds, so every per-node sum below is that sum, with no float atomic;
+//  (b) per leader: ptd = sum of w*mask*AtA[a][a] and the diagonal
+//      ((m/h^2 + stiffness) + ptd) + floor, the JAX order.
+// Per PD iteration (pies_pt_force): per leader, each incident contact's
+// point push-out from the current iterate (recomputed per incident node, a
+// contact has 4) and sum of (w*mask*AtA[a][0]) * delta; T2 then adds
+// ptd*x + contact after the floor term.  Nodes without entries are not
+// written: T2 reads neither array there.
+//
+// Everything exits at once when the failure latch (slot 0) is set or the
+// device contact count is 0; launches cover the static 4*cap entries.
+//
+// Bound: bytes over the live contacts: per iteration 4 positions per
+// incident entry and one force row per incident node.
+#include <cuda_runtime.h>
+
+#include "compact.cuh"
+
+namespace {
+
+constexpr float kWPointTri = 1.0e4f;  // CollisionConstraint.h:33
+__constant__ float kAtaDiag[4] = {3.0f, 1.0f, 1.0f, 1.0f};
+__constant__ float kAtaCol0[4] = {3.0f, -1.0f, -1.0f, -1.0f};
+
+struct Pc {
+  const int* pt_idx;
+  const float* pt_mask;
+  const int* pt_count;
+  const float* mass;
+  const float* stiffness;
+  const float* wf;
+  float* diag;
+  int* deg;
+  int* row_start;
+  int* entries;
+  int* nodes;
+  float* ptd;
+  const int* failed;
+  int n, cap;
+  float h2;
+};
+
+__device__ __forceinline__ bool live_entry(const Pc& p, int t, int* node) {
+  if (p.failed[0] != 0 || t >= 4 * p.cap) return false;
+  const int a = t / p.cap, i = t - a * p.cap;
+  if (i >= p.pt_count[0]) return false;
+  *node = p.pt_idx[(size_t)i * 4 + a];
+  return true;
+}
+
+__global__ void __launch_bounds__(pies::kBlock) pc_degree_kernel(Pc p) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  int node;
+  if (live_entry(p, t, &node)) atomicAdd(&p.deg[node], 1);
+}
+
+__global__ void __launch_bounds__(pies::kBlock) pc_fill_kernel(Pc p) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  int node;
+  if (!live_entry(p, t, &node)) return;
+  const int pos = p.row_start[node] + atomicSub(&p.deg[node], 1) - 1;
+  p.entries[pos] = t;
+  p.nodes[pos] = node;
+}
+
+// The leader of node n is the thread at position row_start[n].
+__device__ __forceinline__ bool leader(const int* row_start, const int* nodes,
+                                       int n_nodes, int t, int* node, int* len) {
+  if (t >= row_start[n_nodes]) return false;
+  *node = nodes[t];
+  if (row_start[*node] != t) return false;
+  *len = row_start[*node + 1] - t;
+  return true;
+}
+
+__global__ void __launch_bounds__(pies::kBlock) pc_node_kernel(Pc p) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p.failed[0] != 0 || p.pt_count[0] == 0) return;
+  int node, len;
+  if (!leader(p.row_start, p.nodes, p.n, t, &node, &len)) return;
+  int* e = p.entries + t;
+  for (int i = 1; i < len; ++i) {  // ascending entry order
+    const int v = e[i];
+    int j = i - 1;
+    while (j >= 0 && e[j] > v) {
+      e[j + 1] = e[j];
+      --j;
+    }
+    e[j + 1] = v;
+  }
+  float acc = 0.0f;
+  for (int j = 0; j < len; ++j) {
+    const int a = e[j] / p.cap, i = e[j] - a * p.cap;
+    acc = acc + (kWPointTri * p.pt_mask[i]) * kAtaDiag[a];
+  }
+  p.ptd[node] = acc;
+  p.diag[node] = ((p.mass[node] / p.h2 + p.stiffness[node]) + acc) + p.wf[node];
+}
+
+struct Pf {
+  const float* x;
+  const int* pt_idx;
+  const float* pt_mask;
+  const int* pt_count;
+  const int* row_start;
+  const int* entries;
+  const int* nodes;
+  float* contact;
+  const int* failed;
+  int n, cap;
+  float thickness;
+};
+
+__global__ void __launch_bounds__(pies::kBlock) pc_force_kernel(Pf p) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p.failed[0] != 0 || p.pt_count[0] == 0) return;
+  int node, len;
+  if (!leader(p.row_start, p.nodes, p.n, t, &node, &len)) return;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < len; ++j) {
+    const int ent = p.entries[t + j];
+    const int a = ent / p.cap, i = ent - a * p.cap;
+    const int* idx = p.pt_idx + (size_t)i * 4;
+    float q[4][3];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) q[c][d] = p.x[(size_t)idx[c] * 3 + d];
+    float e1[3], e2[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      e1[d] = q[2][d] - q[1][d];
+      e2[d] = q[3][d] - q[1][d];
+    }
+    float nx = e1[1] * e2[2] - e1[2] * e2[1];
+    float ny = e1[2] * e2[0] - e1[0] * e2[2];
+    float nz = e1[0] * e2[1] - e1[1] * e2[0];
+    const float nn = sqrtf(nx * nx + ny * ny + nz * nz);
+    const float inv = 1.0f / (nn < 1e-20f ? 1e-20f : nn);
+    nx = nx * inv;
+    ny = ny * inv;
+    nz = nz * inv;
+    const float ndp =
+        nx * (q[0][0] - q[1][0]) + ny * (q[0][1] - q[1][1]) + nz * (q[0][2] - q[1][2]);
+    const float disp = ndp < p.thickness ? p.thickness - ndp : 0.0f;
+    const float w = (kWPointTri * p.pt_mask[i]) * kAtaCol0[a];
+    acc[0] = acc[0] + w * (disp * nx);
+    acc[1] = acc[1] + w * (disp * ny);
+    acc[2] = acc[2] + w * (disp * nz);
+  }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) p.contact[(size_t)node * 3 + d] = acc[d];
+}
+
+}  // namespace
+
+extern "C" int pies_pt_coupling_setup(
+    const int* pt_idx, const float* pt_mask, const int* pt_count, const float* mass,
+    const float* stiffness, const float* wf, float* diag, int* deg, int* row_start,
+    int* partial, int* entries, int* nodes, float* ptd, const int* failed, int n,
+    int cap, float h2, void* stream) {
+  if (n > 0 && cap > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    Pc p{pt_idx, pt_mask, pt_count, mass, stiffness, wf, diag, deg, row_start,
+         entries, nodes, ptd, failed, n, cap, h2};
+    const int blocks = pies::tiles(4 * cap);
+    pc_degree_kernel<<<blocks, pies::kBlock, 0, s>>>(p);
+    pies::exclusive_scan_i32(deg, row_start, n, partial, s, pt_count);
+    pc_fill_kernel<<<blocks, pies::kBlock, 0, s>>>(p);
+    pc_node_kernel<<<blocks, pies::kBlock, 0, s>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pies_pt_force(const float* x, const int* pt_idx, const float* pt_mask,
+                             const int* pt_count, const int* row_start,
+                             const int* entries, const int* nodes, float* contact,
+                             const int* failed, int n, int cap, float thickness,
+                             void* stream) {
+  if (n > 0 && cap > 0) {
+    Pf p{x, pt_idx, pt_mask, pt_count, row_start, entries, nodes, contact, failed,
+         n, cap, thickness};
+    pc_force_kernel<<<pies::tiles(4 * cap), pies::kBlock, 0, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,227 @@
+// Kernel T8: the point-triangle part of a PD substep's tail.
+//
+// Replaces (JAX): pies_tpu/collision/batches.py:478-549 stabilize_point_tri
+// / stabilize_point_tri_acc and pies_tpu/solver/pd.py:333-406 (the contact
+// branch of _finish_substep: stabilization passes with the floor snap
+// between them) with :526-586 point_tri_friction_acc.
+//
+// Per stabilization pass, two launches: per contact, the mass-weighted
+// push-out of the point and of the triangle's corners from the current
+// positions (CollisionConstraint.cpp:126-162); then per node, through T7's
+// incidence (its entries in the JAX package's scatter order, no float
+// atomics), the count-averaged sum added to x and prev, and the floor snap
+// to the stale static projection.  After the passes, the same two steps for
+// the friction and restitution impulses (Solver.cpp:431-471) at the
+// velocity the tail computes; the count-averaged impulse goes to `fric`,
+// which T4 adds before the floor friction.  Only nodes with contact entries
+// are read or written; T4 snaps and updates the rest.
+//
+// Everything exits at once when the failure latch (slot 0) is set or the
+// device contact count is 0.
+//
+// Bound: bytes over the live contacts (4 gathered rows and one 32-byte
+// record per contact per pass).
+#include <cuda_runtime.h>
+
+#include "compact.cuh"
+
+namespace {
+
+constexpr int kRec = 8;  // per-contact record: point xyz, corner xyz, count
+
+struct Pt {
+  float* x;
+  float* prev;
+  const float* stat;
+  const float* floor_active;
+  const int* pt_idx;
+  const float* pt_mask;
+  const int* pt_count;
+  const int* row_start;
+  const int* entries;
+  const int* nodes;
+  const float* inv_mass;
+  const float* mass;
+  const float* mask;
+  float* rec;
+  float* fric;
+  const int* failed;
+  int n, cap;
+  float thickness, h, damping, gravity, friction, static_threshold;
+};
+
+__device__ __forceinline__ bool contact_live(const Pt& p, int i) {
+  return p.failed[0] == 0 && i < p.pt_count[0];
+}
+
+__device__ __forceinline__ void load4(const float* a, const int* idx, float q[4][3]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int d = 0; d < 3; ++d) q[c][d] = a[(size_t)idx[c] * 3 + d];
+}
+
+// n = (c-b) x (d-b) / max(|n|, 1e-20), one division per component.
+__device__ __forceinline__ void unit_normal(const float q[4][3], float n[3]) {
+  float e1[3], e2[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    e1[d] = q[2][d] - q[1][d];
+    e2[d] = q[3][d] - q[1][d];
+  }
+  const float nx = e1[1] * e2[2] - e1[2] * e2[1];
+  const float ny = e1[2] * e2[0] - e1[0] * e2[2];
+  const float nz = e1[0] * e2[1] - e1[1] * e2[0];
+  float nn = sqrtf(nx * nx + ny * ny + nz * nz);
+  nn = nn < 1e-20f ? 1e-20f : nn;
+  n[0] = nx / nn;
+  n[1] = ny / nn;
+  n[2] = nz / nn;
+}
+
+__global__ void __launch_bounds__(pies::kBlock) stab_contact_kernel(Pt p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.cap || !contact_live(p, i)) return;
+  const int* idx = p.pt_idx + (size_t)i * 4;
+  float q[4][3], n[3];
+  load4(p.x, idx, q);
+  unit_normal(q, n);
+  const float ndp = n[0] * (q[0][0] - q[1][0]) + n[1] * (q[0][1] - q[1][1]) +
+                    n[2] * (q[0][2] - q[1][2]);
+  const bool active = ndp < p.thickness && p.pt_mask[i] > 0.0f;
+  const float push = active ? p.thickness - ndp : 0.0f;
+  const float im0 = p.inv_mass[idx[0]];
+  const float w_tri = p.inv_mass[idx[1]] + p.inv_mass[idx[2]] + p.inv_mass[idx[3]];
+  const float w_sum = im0 + w_tri;
+  const float inv_w = 1.0f / (w_sum < 1e-20f ? 1e-20f : w_sum);
+  float* r = p.rec + (size_t)i * kRec;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float disp = push * n[d];
+    r[d] = disp * (im0 * inv_w);
+    r[3 + d] = -disp * (w_tri * inv_w);
+  }
+  r[6] = active ? 1.0f : 0.0f;
+}
+
+// Per node: sum its entries' records in entry order (column 0 takes the
+// point's share, columns 1-3 the corners'), then average by the count.
+__device__ __forceinline__ bool node_average(const Pt& p, int t, int* node, float avg[3]) {
+  if (p.failed[0] != 0 || p.pt_count[0] == 0 || t >= p.row_start[p.n]) return false;
+  *node = p.nodes[t];
+  if (p.row_start[*node] != t) return false;
+  const int len = p.row_start[*node + 1] - t;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < len; ++j) {
+    const int ent = p.entries[t + j];
+    const int a = ent / p.cap, i = ent - a * p.cap;
+    const float* r = p.rec + (size_t)i * kRec + (a == 0 ? 0 : 3);
+    acc[0] = acc[0] + r[0];
+    acc[1] = acc[1] + r[1];
+    acc[2] = acc[2] + r[2];
+    acc[3] = acc[3] + p.rec[(size_t)i * kRec + 6];
+  }
+  const float c = acc[3] < 1.0f ? 1.0f : acc[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) avg[d] = acc[d] / c;
+  return true;
+}
+
+__global__ void __launch_bounds__(pies::kBlock) stab_node_kernel(Pt p) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  int node;
+  float delta[3];
+  if (!node_average(p, t, &node, delta)) return;
+  const bool snap = p.floor_active[node] > 0.0f;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const size_t j = (size_t)node * 3 + d;
+    p.prev[j] = p.prev[j] + delta[d];
+    p.x[j] = snap ? p.stat[j] : p.x[j] + delta[d];
+  }
+}
+
+// The tail's velocity ((1-damping)(x-prev)/h + h f/m) mask with gravity
+// f = (0, -g m mask, 0), as T4 computes it.
+__device__ __forceinline__ void velocity(const Pt& p, int node, float v[3]) {
+  const float m = p.mask[node];
+  const float keep = 1.0f - p.damping;
+  const float f[3] = {0.0f, -p.gravity * p.mass[node] * m, 0.0f};
+  const float im = p.inv_mass[node];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const size_t j = (size_t)node * 3 + d;
+    v[d] = (keep * (p.x[j] - p.prev[j]) / p.h + p.h * f[d] * im) * m;
+  }
+}
+
+__global__ void __launch_bounds__(pies::kBlock) fric_contact_kernel(Pt p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.cap || !contact_live(p, i)) return;
+  const int* idx = p.pt_idx + (size_t)i * 4;
+  float q[4][3], v[4][3], n[3];
+  load4(p.x, idx, q);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) velocity(p, idx[c], v[c]);
+  unit_normal(q, n);
+  float rel[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) rel[d] = v[0][d] - (v[1][d] + v[2][d] + v[3][d]) / 3.0f;
+  const float vdn = rel[0] * n[0] + rel[1] * n[1] + rel[2] * n[2];
+  float perp[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) perp[d] = rel[d] - vdn * n[d];
+  const float perp_norm = sqrtf(perp[0] * perp[0] + perp[1] * perp[1] + perp[2] * perp[2]);
+  const float fr = perp_norm < p.static_threshold ? 1.0f : p.friction;
+  const float im0 = p.inv_mass[idx[0]];
+  const float w_tri = p.inv_mass[idx[1]] + p.inv_mass[idx[2]] + p.inv_mass[idx[3]];
+  float w_sum = im0 + w_tri;
+  w_sum = w_sum < 1e-20f ? 1e-20f : w_sum;
+  const float restitution = 1.1f * ((vdn > 0.0f) ? 0.0f : vdn);
+  const float mk = p.pt_mask[i];
+  float* r = p.rec + (size_t)i * kRec;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float dv = (-fr * perp[d] - restitution * n[d]) * mk;
+    r[d] = dv * (im0 / w_sum);
+    r[3 + d] = -dv * (w_tri / w_sum);
+  }
+  r[6] = mk;
+}
+
+__global__ void __launch_bounds__(pies::kBlock) fric_node_kernel(Pt p) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  int node;
+  float impulse[3];
+  if (!node_average(p, t, &node, impulse)) return;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) p.fric[(size_t)node * 3 + d] = impulse[d];
+}
+
+}  // namespace
+
+extern "C" int pies_pt_tail(float* x, float* prev, const float* stat,
+                            const float* floor_active, const int* pt_idx,
+                            const float* pt_mask, const int* pt_count,
+                            const int* row_start, const int* entries,
+                            const int* nodes, const float* inv_mass,
+                            const float* mass, const float* mask, float* rec,
+                            float* fric, const int* failed, int n, int cap,
+                            int passes, float thickness, float h, float damping,
+                            float gravity, float friction, float static_threshold,
+                            void* stream) {
+  if (n > 0 && cap > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    Pt p{x, prev, stat, floor_active, pt_idx, pt_mask, pt_count, row_start, entries,
+         nodes, inv_mass, mass, mask, rec, fric, failed, n, cap, thickness, h,
+         damping, gravity, friction, static_threshold};
+    const int bc = pies::tiles(cap), bn = pies::tiles(4 * cap);
+    for (int k = 0; k < passes; ++k) {
+      stab_contact_kernel<<<bc, pies::kBlock, 0, s>>>(p);
+      stab_node_kernel<<<bn, pies::kBlock, 0, s>>>(p);
+    }
+    fric_contact_kernel<<<bc, pies::kBlock, 0, s>>>(p);
+    fric_node_kernel<<<bn, pies::kBlock, 0, s>>>(p);
+  }
+  return (int)cudaGetLastError();
+}

@@ -18,6 +18,11 @@
 // rounds as in the plain PyTorch twins, in the same order.  The one library
 // call is powf for the friction decay (1-f)^count.
 //
+// With self-contact, T4 also takes kernel T8's contact friction impulse
+// `fric` (added, before the floor friction, at every node with contact
+// entries in T7's incidence when the device contact count is > 0), and ORs
+// the detection's capacity latch `overflow` (T5, T6) into the failure latch.
+//
 // sim_failed is an int[2] on the device (see pies_tpu_torch/state.py):
 // slot 0 is the latch at the start of the tick, slot 1 takes the tail's OR.
 // The first substep's head folds slot 1 into slot 0; every kernel after it
@@ -77,10 +82,17 @@ __global__ void __launch_bounds__(256)
                         const float* __restrict__ mass,
                         const float* __restrict__ mask, int n, float h,
                         float damping, float gravity, float friction,
-                        float static_threshold, int* failed) {
+                        float static_threshold, int* failed,
+                        const float* __restrict__ fric,
+                        const int* __restrict__ row_start,
+                        const int* __restrict__ pt_count,
+                        const int* __restrict__ overflow) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (failed[0] != 0) return;
+  if (i == 0 && overflow != nullptr && overflow[0] != 0) atomicOr(&failed[1], 1);
+  const bool pt = pt_count != nullptr && pt_count[0] > 0 &&
+                  row_start[i + 1] > row_start[i];
 
   const float act = active[i];
   const float m = mask[i];
@@ -98,6 +110,7 @@ __global__ void __launch_bounds__(256)
     // equal one.
     x[d] = act > 0.0f ? static_proj[j] : x_solved[j];
     v[d] = (keep * (x[d] - prev[j]) / h + h * f[d] * im) * m;
+    if (pt) v[d] = v[d] + fric[j];
     finite = finite && isfinite(x[d]);
   }
   // Floor friction: (1-f)^count on x and z, the static threshold tested on
@@ -150,6 +163,8 @@ extern "C" int pies_substep_tail(float* pos, float* prev, float* vel,
                                  const float* mask, int n, float h,
                                  float damping, float gravity, float friction,
                                  float static_threshold, int* failed,
+                                 const float* fric, const int* row_start,
+                                 const int* pt_count, const int* overflow,
                                  void* stream) {
   if (n > 0) {
     const int threads = 256;
@@ -157,7 +172,7 @@ extern "C" int pies_substep_tail(float* pos, float* prev, float* vel,
     substep_tail_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         pos, prev, vel, forces, x_solved, static_proj, active, floor_count,
         inv_mass, mass, mask, n, h, damping, gravity, friction,
-        static_threshold, failed);
+        static_threshold, failed, fric, row_start, pt_count, overflow);
   }
   return (int)cudaGetLastError();
 }

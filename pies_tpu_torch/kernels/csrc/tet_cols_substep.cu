@@ -20,6 +20,14 @@
 // Blocks of padding (no live tet) have zero off-diagonals and zero tet
 // force: the same code then reduces to the plain diagonal solve, and the
 // mask re-select keeps padded nodes exactly at their park positions.
+//
+// With point-triangle contacts (pt_count non-null and > 0 on the device)
+// the caller runs one iteration per launch, after kernel T7 has written the
+// contacts' diagonal `ptd` and force `contact` for every node with contact
+// entries (those with row_start[n+1] > row_start[n]); such a node adds
+// ptd*x and then contact to its force after the floor term
+// (pies_tpu/solver/tetcols.py:341-349).  Elsewhere both are exact zeros and
+// are not read.
 #include <cuda_runtime.h>
 
 #include "tet_force.cuh"
@@ -36,6 +44,10 @@ struct SubstepIn {
   const float* block6;  // [6, K]
   const float* f0;      // [12, C] first iteration's tet force, or null
   const int* failed;    // latch slot 0 (tick start)
+  const float* ptd;     // [N] contact diagonal, or null
+  const float* contact;  // [N, 3] contact force, or null
+  const int* row_start;  // [N + 1] T7's incidence, or null
+  const int* pt_count;   // live contacts (device scalar), or null
 };
 
 struct SubstepOut {
@@ -66,6 +78,18 @@ __global__ void __launch_bounds__(128)
       const size_t i = (n0 + a) * 3 + d;
       x[a][d] = in.x[i];
       rhs0[a][d] = in.pin != nullptr ? in.msn[i] + in.pin[i] : in.msn[i];
+    }
+  }
+  bool pt_on[4] = {false, false, false, false};
+  float pt_d[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pt_f[4][3] = {};
+  if (in.pt_count != nullptr && in.pt_count[0] > 0) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const size_t node = n0 + a;
+      pt_on[a] = in.row_start[node + 1] > in.row_start[node];
+      pt_d[a] = pt_on[a] ? in.ptd[node] : 0.0f;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) pt_f[a][d] = pt_on[a] ? in.contact[node * 3 + d] : 0.0f;
     }
   }
   float b6[6];
@@ -116,6 +140,7 @@ __global__ void __launch_bounds__(128)
       for (int d = 0; d < 3; ++d) {
         float fad = rhs0[a][d] + f12[3 * a + d];
         fad = fad + wf[a] * (d == 1 ? sp_y : x[a][d]);
+        if (pt_on[a]) fad = (fad + pt_d[a] * x[a][d]) + pt_f[a][d];
         force[a][d] = fad;
       }
     }
@@ -178,9 +203,11 @@ extern "C" int pies_tet_cols_substep(
     const float* qinv, const float* g, const float* slo, const float* shi,
     const float* sw, const float* vlo, const float* vhi, const float* vw,
     float* x_out, float* static_out, float* r2, int k, int c, int iterations,
-    float plane, const int* failed, void* stream) {
+    float plane, const int* failed, const float* ptd, const float* contact,
+    const int* row_start, const int* pt_count, void* stream) {
   if (k > 0) {
-    SubstepIn in{x, msn, pin, diag, mask, wf, block6, f0, failed};
+    SubstepIn in{x,  msn,    pin,     diag,      mask,     wf,
+                 block6, f0, failed, ptd, contact, row_start, pt_count};
     pies::TetBatchPtrs b{qinv, g, slo, shi, sw, vlo, vhi, vw, c};
     SubstepOut o{x_out, static_out, r2};
     const int threads = 128;

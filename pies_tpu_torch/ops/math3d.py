@@ -17,6 +17,16 @@ _TINY = 1e-20
 _EPS = 1e-12
 
 
+def ieee_div(a: torch.Tensor, b) -> torch.Tensor:
+    """``a / b`` as an IEEE division on every device, ``b`` a tensor or a
+    Python number.  (PyTorch's CUDA path turns division by a Python scalar
+    into a product with its reciprocal, which rounds differently from the
+    kernels and the JAX package.)"""
+    if not isinstance(b, torch.Tensor):
+        b = torch.full((), b, dtype=a.dtype, device=a.device)
+    return a / b
+
+
 def det3x3_flat(m):
     return (
         m[0] * (m[4] * m[8] - m[5] * m[7])

@@ -1,9 +1,10 @@
 """Solver configuration (port of ``pies_tpu/options.py``).
 
 ``SolverOptions`` mirrors the reference's public struct field for field, as in
-the JAX package.  ``StepConfig`` keeps only the static fields the ported slice
-reads; ``PhysicsParams`` holds plain Python floats (there is no tracing, so
-nothing has to become a device scalar).
+the JAX package.  ``CollisionBudget`` is the JAX package's, field for field.
+``StepConfig`` keeps only the static fields the ported slice reads;
+``PhysicsParams`` holds plain Python floats (there is no tracing, so nothing
+has to become a device scalar).
 """
 
 from __future__ import annotations
@@ -44,6 +45,29 @@ class SolverOptions:
 
 
 @dataclass(frozen=True)
+class CollisionBudget:
+    """Static capacities of the collision pipeline
+    (``pies_tpu/options.py:65-111``), with the same fields and defaults.
+    Exceeding a capacity that would lose a true contact latches
+    ``sim_failed``, as the reference's bucket caps do
+    (``Solver.cpp:741-755``)."""
+
+    max_cells_per_tri: int = 64
+    max_entries_per_cell: int = 16
+    max_candidates_per_tri: int = 64
+    max_point_tri_contacts: int = 256
+    max_edge_contacts: int = 256
+    max_narrow_candidates: int = 32
+    # Triangles per collision body (4 faces per tet in a soup); 1 = general.
+    body_stride: int = 1
+    max_candidates_per_body: int = 24
+    max_narrow_bodies: int = 8
+    max_candidates_per_node: int = 32
+    max_cells_per_node: int = 27
+    max_node_node_contacts: int = 256
+
+
+@dataclass(frozen=True)
 class StepConfig:
     """The static fields of ``pies_tpu.options.StepConfig`` that the PD
     tet-column slice reads, with the same meanings and defaults."""
@@ -51,14 +75,27 @@ class StepConfig:
     solver: SolverName = SolverName.PD
     time_substeps: int = 1
     iterations: int = 4
+    collision_stabilization_iterations: int = 4
     enable_collisions: bool = True
     dense_floor: bool = True
     reference_quirks: bool = True
+    broadphase_mode: str = "celllist"
     tet_fused: bool = False
+    allpairs_broadphase_max: int = 1024
     strain_contiguous: bool = False
     volume_contiguous: bool = False
+    # Packed-body layout, set by the host: body b owns nodes
+    # ``body_node_offset + b·body_nodes + (0 .. body_nodes−1)`` and its
+    # ``budget.body_stride`` triangles use the local corners ``body_faces``.
+    body_nodes: int = 0
+    body_node_offset: int = 0
+    body_faces: tuple = ()
+    # Temporal broadphase cache (state.BroadphaseCache), when the host
+    # allocated one.
+    bp_cache: bool = True
     contact_coupling: str = "full"
     tet_cols: bool = True
+    budget: CollisionBudget = CollisionBudget()
 
 
 def _f32(v) -> float:
@@ -79,10 +116,17 @@ class PhysicsParams:
     friction: float
     static_friction_threshold: float
     floor_height: float
+    collision_threshold_distance: float
     collision_thickness: float
+    # Cell size of the body broadphase grid (world units) and the temporal
+    # cache's displacement bound (world units per axis; 0 = rebuild every
+    # substep), set per scene by the host.
+    broadphase_cell: float = 1.0
+    broadphase_slack: float = 0.0
 
 
-def make_params(options: SolverOptions) -> PhysicsParams:
+def make_params(options: SolverOptions, broadphase_cell: float = 1.0,
+                broadphase_slack: float = 0.0) -> PhysicsParams:
     return PhysicsParams(
         dt=_f32(options.fixed_timestep_size / max(1, options.time_substeps)),
         gravity=_f32(options.gravity),
@@ -90,5 +134,8 @@ def make_params(options: SolverOptions) -> PhysicsParams:
         friction=_f32(options.friction),
         static_friction_threshold=_f32(options.static_friction_threshold),
         floor_height=_f32(options.floor_height),
+        collision_threshold_distance=_f32(options.collision_threshold_distance),
         collision_thickness=_f32(options.collision_thickness),
+        broadphase_cell=_f32(broadphase_cell),
+        broadphase_slack=_f32(broadphase_slack),
     )

@@ -1,13 +1,13 @@
 """Host-facing ``Solver`` (port of the slice's part of
 ``pies_tpu/solver/host.py``).
 
-Same keyword surface as the JAX package's ``Solver`` plus ``device=``.  The ported slice is the PD tick on the disjoint tet soup with
-floor contact and optional position pins; anything outside it raises
-``NotImplementedError`` naming the ROADMAP item that will bring it.  Keyword
-arguments that only steer code paths the slice does not take (the CG
-settings, the broadphase and budget settings, ``dense_operator_max``) are
-accepted and have no effect: the tet-column path solves its 4x4 blocks
-exactly.
+Same keyword surface as the JAX package's ``Solver`` plus ``device=``.  The
+ported slice is the PD tick on the disjoint tet soup with floor contact,
+self-contact through the packed-body detection, and optional position pins;
+anything outside it raises ``NotImplementedError`` naming the ROADMAP item
+that will bring it.  Keyword arguments that only steer code paths the slice
+does not take (the CG settings, ``dense_operator_max``) are accepted and
+have no effect: the tet-column path solves its 4x4 blocks exactly.
 """
 
 from __future__ import annotations
@@ -17,10 +17,13 @@ import time
 import numpy as np
 import torch
 
+import dataclasses
+
+from ..collision import broadphase
 from ..collision.batches import CollisionSet
-from ..options import SolverName, SolverOptions, StepConfig, make_params
+from ..options import CollisionBudget, SolverName, SolverOptions, StepConfig, make_params
 from ..scene.builder import SceneBuilder
-from ..state import SolverState, make_state
+from ..state import SolverState, empty_broadphase_cache, make_state
 from .. import topology as topo_mod
 from . import step, tetcols
 
@@ -36,6 +39,30 @@ _NOT_PORTED = {
     "update_fixed_regions": 9, "clear": 9, "get_lines": 9,
     "get_triangles": 9, "save": 9, "load": 9,
 }
+
+
+def _packed_layout(tris: np.ndarray, stride: int, padded_t: int, cap: int):
+    """The packed-body layout (``host.py:649-675``): every body's ``stride``
+    triangles span ``m <= 8`` contiguous nodes from ``off + b·m`` with one
+    local corner pattern.  Returns ``(m, off, faces)``, ``(0, 0, ())`` when
+    the scene does not have it."""
+    if stride <= 1 or not tris.shape[0]:
+        return 0, 0, ()
+    kb = tris.shape[0] // stride
+    tn = tris.reshape(kb, stride * 3)
+    mins = tn.min(axis=1)
+    m = int(tn[0].max() - mins[0] + 1)
+    local = tris.reshape(kb, stride, 3) - mins[:, None, None]
+    if (
+        m <= 8
+        and padded_t % stride == 0
+        and np.all(tn.max(axis=1) - mins + 1 == m)
+        and np.array_equal(mins, mins[0] + np.arange(kb, dtype=mins.dtype) * m)
+        and np.all(local == local[0])
+        and int(mins[0]) + (padded_t // stride) * m <= cap
+    ):
+        return m, int(mins[0]), tuple(tuple(int(v) for v in row) for row in local[0])
+    return 0, 0, ()
 
 
 class Solver:
@@ -74,7 +101,14 @@ class Solver:
         self._builder = SceneBuilder(seed=seed)
         self._enable_collisions = enable_collisions
         self._reference_quirks = reference_quirks
+        self._broadphase_mode = broadphase_mode
+        self._allpairs_max = (StepConfig.allpairs_broadphase_max
+                              if allpairs_broadphase_max is None else allpairs_broadphase_max)
         self._contact_coupling = contact_coupling
+        self._broadphase_cell = 1.0
+        self._broadphase_slack = 0.0
+        self._budget = budget
+        self._budget_overrides = budget_overrides
         self._node_capacity = node_capacity
         self._device = device
 
@@ -90,6 +124,9 @@ class Solver:
         self._residual_dev: torch.Tensor | None = None
         self.last_tick_seconds: float = 0.0
         self.ticks: int = 0
+        # Device counters summed by every tick while set (pd.new_counters);
+        # None, the default, adds no work.
+        self.counters: dict[str, torch.Tensor] | None = None
 
     def __getattr__(self, name):
         if name in _NOT_PORTED:
@@ -120,11 +157,11 @@ class Solver:
         positions = b.all_positions()
         cat = lambda lst, shape: np.concatenate(lst) if lst else np.zeros(shape, _F32)
         tris = cat(b.triangles, (0, 3)).astype(np.int32)
-        if self._enable_collisions and tris.shape[0]:
-            raise NotImplementedError(
-                "self-contact (enable_collisions=True on a scene with triangles)"
-                " is ROADMAP queue 1 item 3; pass enable_collisions=False"
-            )
+        bodies = (
+            np.concatenate(b.tri_bodies).astype(np.int32)
+            if b.tri_bodies and sum(x.shape[0] for x in b.tri_bodies) == tris.shape[0]
+            else None
+        )
 
         state = make_state(
             positions,
@@ -157,6 +194,9 @@ class Solver:
             ),
         )
         topology = topo_mod.assemble_topology(cap, triangles=tris, **batches)
+        budget = self._budget or self._auto_budget(tris, bodies)
+        if self._budget is None and self._budget_overrides:
+            budget = dataclasses.replace(budget, **self._budget_overrides)
 
         def contiguous(idx_list):
             if not idx_list:
@@ -176,17 +216,42 @@ class Solver:
             and all(np.array_equal(s, v) for s, v in zip(b.strain_idx, b.volume_idx))
             and strain_contiguous == volume_contiguous
         )
+        body_nodes, body_off, body_faces = _packed_layout(
+            tris, budget.body_stride, topology.triangles.shape[0], cap)
+        # Cell-list cell size: the largest triangle extent with headroom for
+        # deformation and the per-substep sweep (host.py:788-792).
+        if tris.shape[0]:
+            ext = (positions[tris].max(axis=1) - positions[tris].min(axis=1)).max()
+            self._broadphase_cell = float(max(0.25, 1.5 * ext))
         config = StepConfig(
             solver=self._options.solver,
             time_substeps=int(self._options.time_substeps),
             iterations=int(self._options.iterations),
+            collision_stabilization_iterations=int(
+                self._options.collision_stabilization_iterations),
             enable_collisions=bool(self._enable_collisions and tris.shape[0]),
             reference_quirks=self._reference_quirks,
+            broadphase_mode=self._broadphase_mode,
             tet_fused=tet_fused,
+            allpairs_broadphase_max=self._allpairs_max,
             strain_contiguous=strain_contiguous,
             volume_contiguous=volume_contiguous,
+            body_nodes=body_nodes,
+            body_node_offset=body_off,
+            body_faces=body_faces,
             contact_coupling=self._contact_coupling,
+            budget=budget,
         )
+        if config.enable_collisions:
+            broadphase.check_packed(config)
+        # The temporal broadphase cache, reset on every prepare (fresh = 0
+        # rebuilds at the next detection), with a slack of cell/8: the JAX
+        # package's A/B on the 500k soup found it best (host.py:821-844).
+        self._broadphase_slack = self._broadphase_cell / 8.0
+        if body_nodes > 0 and budget.body_stride > 1:
+            kb = int(topology.triangles.shape[0]) // budget.body_stride
+            state.bp = empty_broadphase_cache(kb, budget.max_narrow_bodies, kb * body_nodes,
+                                              self._device)
         colls = CollisionSet(floor_active=np.zeros(cap, _F32))
         if not tetcols.applies(state, topology, colls, config):
             raise NotImplementedError(
@@ -199,12 +264,40 @@ class Solver:
         self._prepared_nodes = num_live
         self._dirty = False
 
+    def _auto_budget(self, tris: np.ndarray, bodies: np.ndarray | None) -> CollisionBudget:
+        """Collision capacities from the scene (``host.py:879-929``), for the
+        cell-list broadphases: a uniform triangle count per body (4 faces of
+        a tet) becomes the body stride, and the contact cap follows the
+        triangle count.  The reference-mode sizing is not ported."""
+        if tris.shape[0] == 0 or self._broadphase_mode != "celllist":
+            return CollisionBudget()
+        stride = 1
+        if bodies is not None and bodies.size:
+            _, counts = np.unique(bodies, return_counts=True)
+            e = int(counts[0])
+            starts = np.nonzero(np.concatenate([[True], bodies[1:] != bodies[:-1]]))[0]
+            cap8 = -(-tris.shape[0] // 8) * 8
+            if e > 1 and np.all(counts == e) and np.all(starts % e == 0) and cap8 % e == 0:
+                stride = e
+        return CollisionBudget(
+            max_cells_per_tri=32,
+            max_entries_per_cell=32,
+            max_candidates_per_tri=96,
+            max_point_tri_contacts=max(256, -(-tris.shape[0] // 8) // 8 * 8 + 8),
+            max_narrow_candidates=16 if stride > 1 else 32,
+            max_narrow_bodies=16 if stride > 1 else 8,
+            body_stride=stride,
+        )
+
     def current_params(self):
-        """The ``PhysicsParams`` a ``tick()`` would use right now."""
+        """The ``PhysicsParams`` a ``tick()`` would use right now, with the
+        scene's broadphase cell and cache slack."""
         self._prepare()
-        if self._params is None or self._params_options is not self._options:
-            self._params = make_params(self._options)
-            self._params_options = self._options
+        key = (self._options, self._broadphase_cell, self._broadphase_slack)
+        if self._params is None or self._params_options != key:
+            self._params = make_params(self._options, self._broadphase_cell,
+                                       self._broadphase_slack)
+            self._params_options = key
         return self._params
 
     def tick(self, delta_time: float = 0.0):
@@ -212,7 +305,8 @@ class Solver:
         ignored in favour of the fixed timestep (``Solver.cpp:40-42,165``).
         Enqueues the launches and returns without waiting for the device."""
         params = self.current_params()
-        self._residual_dev = step.tick(self._state, self._topology, params, self._config)
+        self._residual_dev = step.tick(self._state, self._topology, params, self._config,
+                                       counters=self.counters)
         self.ticks += 1
         self.render_state_dirty = True
 
@@ -221,7 +315,8 @@ class Solver:
         params = self.current_params()
         n = int(n)
         t0 = time.perf_counter()
-        res = step.tick_n(self._state, self._topology, params, self._config, n)
+        res = step.tick_n(self._state, self._topology, params, self._config, n,
+                          counters=self.counters)
         if res is not None:
             self._residual_dev = res
         if self._device.type == "cuda":
@@ -260,6 +355,11 @@ class Solver:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def config(self) -> StepConfig:
+        self._prepare()
+        return self._config
 
     # ------------------------------------------------------------------
     # render-facing output (Solver.h:42-49,65)

@@ -1,20 +1,27 @@
 """Projective Dynamics substep on the tet-column path (port of
-``pies_tpu/solver/pd.py:59-130,316-435,589-617``).
+``pies_tpu/solver/pd.py:59-130,316-435,526-617``).
 
-One substep is four launches on the card, each with a plain PyTorch twin:
+A substep is a fixed sequence of launches on the card, each with a plain
+PyTorch twin:
 
 * T3 :func:`substep_head` — inertia estimate, floor detection on the
   predicted positions, the system diagonal and the floor weight;
+* with self-contact on: T5 and T6 (``collision/broadphase.py``), the
+  point-triangle detection, and T7's setup (``tetcols.pt_coupling_setup``),
+  the node incidence and the contacts' diagonal;
 * T1 ``tet_force12`` — the first PD iteration's tet force;
 * T2 ``tetcols.substep_cols`` — the PD iterations with the direct 4x4 block
-  solve, the stale static projection and the residual;
+  solve, the stale static projection and the residual; with self-contact
+  on, one T2 launch per iteration, each after T7's contact force
+  (``tetcols.pt_force``);
+* with self-contact on: T8 :func:`pt_tail` — the stabilization passes with
+  the floor snap between them and the contact friction;
 * T4 :func:`substep_tail` — floor snap, velocity, floor friction, the state
   update and the failure latch, in place on the state.
 
-The JAX tail's ``lax.cond(any_contact, …)`` is not needed: with no node
-active the snap and the friction are identities, so both branches agree.
-Point-triangle stabilization and friction are exact no-ops without
-point-triangle contacts and come with the self-contact port.
+The JAX package's ``lax.cond``s on runtime data (any contact, any live
+pair, any crossing) become device counts that the kernels read and exit on:
+the host never waits for the device within a tick.
 """
 
 from __future__ import annotations
@@ -23,13 +30,24 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..collision import broadphase
 from ..collision.batches import (
     CollisionSet,
+    Incidence,
+    count_average,
+    csr_sum,
     detect_floor_active,
+    entry_values,
     floor_plane,
     floor_threshold,
+    incidence_plain,
+    incident,
+    stabilize_contacts,
+    _dot3,
+    _unit_normal_div,
 )
 from ..constraints.projections import tet_force12, tet_force12_plain
+from ..ops.math3d import ieee_div as _div
 from ..options import PhysicsParams, StepConfig
 from ..state import SolverState
 from ..topology import Topology
@@ -42,36 +60,45 @@ def _h_h2(params: PhysicsParams) -> tuple[float, float]:
     return float(h), float(h * h)
 
 
-def _div(a: torch.Tensor, s: float) -> torch.Tensor:
-    """``a / s`` as an IEEE division on every device.  (PyTorch's CUDA path
-    turns division by a Python scalar into a product with its reciprocal,
-    which rounds differently from the kernels and the JAX package.)"""
-    return a / torch.full((), s, dtype=a.dtype, device=a.device)
-
-
 def _fold_latch(failed: torch.Tensor) -> None:
     """First substep of a tick: slot 0 takes slot 1 (see state.py)."""
     failed[0:1].bitwise_or_(failed[1:2])
 
 
+def self_contact(config: StepConfig, topo: Topology) -> bool:
+    return config.enable_collisions and topo.triangles.shape[0] > 0
+
+
 def check_detection(config: StepConfig) -> None:
     """Raise for the detection branches that are not ported yet."""
     if config.enable_collisions:
-        raise NotImplementedError(
-            "self-contact (point-triangle detection) is ROADMAP queue 1 item 3"
-        )
+        broadphase.check_packed(config)
     if not config.dense_floor:
         raise NotImplementedError("the floor entry-list path is ROADMAP queue 1 item 5")
 
 
 def default_detect_collisions(x: torch.Tensor, topo: Topology,
                               params: PhysicsParams, config: StepConfig) -> CollisionSet:
-    """PD collision detection for one substep, dense-floor branch with
-    self-contact off (``pies_tpu/solver/step.py:26-44``)."""
+    """The floor part of the PD collision detection for one substep, dense
+    floor (``pies_tpu/solver/step.py:26-44``); the point-triangle part is
+    :func:`detect_point_tri`."""
     check_detection(config)
     return CollisionSet(
         floor_active=detect_floor_active(x, topo.floor_count, floor_threshold(params))
     )
+
+
+def detect_point_tri(state: SolverState, x: torch.Tensor, topo: Topology,
+                     params: PhysicsParams, config: StepConfig, active: torch.Tensor,
+                     plain: bool = False) -> CollisionSet:
+    """The point-triangle branch of ``step.default_detect_collisions``
+    (``pies_tpu/solver/step.py:55-74``): kernels T5 and T6 against the
+    state's cache, which is updated in place."""
+    pt_idx, pt_mask, pt_count, overflow, rebuilt = broadphase.detect_point_tri_collisions(
+        x, state.prev_positions, topo.tri_mask, params, config, cache=state.bp,
+        failed=state.sim_failed, plain=plain)
+    return CollisionSet(floor_active=active, pt_idx=pt_idx, pt_mask=pt_mask,
+                        pt_count=pt_count, overflow=overflow, rebuilt=rebuilt)
 
 
 def substep_head_plain(state: SolverState, topo: Topology, params: PhysicsParams,
@@ -142,46 +169,169 @@ def _static_floor_friction(vel: torch.Tensor, colls: CollisionSet,
     return out
 
 
+def base_velocity(x: torch.Tensor, prev: torch.Tensor, state: SolverState,
+                  params: PhysicsParams) -> torch.Tensor:
+    """``((1−damping)·(x − prev)/h + h·f·m⁻¹)·mask`` with the gravity force
+    ``f = (0, −g·m·mask, 0)`` of ``step.tick`` (``Solver.cpp:224-226,394-397``)."""
+    h, _ = _h_h2(params)
+    forces = torch.zeros_like(x)
+    forces[:, 1] = (-params.gravity * state.mass) * state.node_mask
+    keep = float(np.float32(1.0) - np.float32(params.damping))
+    return (_div(keep * (x - prev), h) + h * forces * state.inv_mass[:, None]) \
+        * state.node_mask[:, None]
+
+
+def friction_contacts(x, vel, inv_mass, pt_idx, pt_mask, params: PhysicsParams):
+    """Per-contact friction and restitution impulses (``Solver.cpp:431-471``):
+    returns f32[cap, 7] = (point share, triangle-corner share, mask)."""
+    pa, pb, pc, pd_ = (x[pt_idx[:, j].long()] for j in range(4))
+    va, vb, vc, vd = (vel[pt_idx[:, j].long()] for j in range(4))
+    im = inv_mass[pt_idx.long()]
+    avg = _div(vb + vc + vd, 3.0)
+    n = _unit_normal_div(pb, pc, pd_)
+    rel = va - avg
+    v_dot_n = _dot3(rel, n)
+    perp = rel - v_dot_n[:, None] * n
+    perp_norm = torch.sqrt(perp[:, 0] * perp[:, 0] + perp[:, 1] * perp[:, 1]
+                           + perp[:, 2] * perp[:, 2])
+    friction = torch.where(perp_norm < params.static_friction_threshold, 1.0,
+                           params.friction)
+    tri_w = im[:, 1] + im[:, 2] + im[:, 3]
+    w_sum = torch.clamp_min(im[:, 0] + tri_w, 1e-20)
+    restitution = float(np.float32(1.1)) * torch.clamp_max(v_dot_n, 0.0)
+    dv = ((-friction)[:, None] * perp - restitution[:, None] * n) * pt_mask[:, None]
+    share = -dv * (tri_w / w_sum)[:, None]
+    point = dv * (im[:, 0] / w_sum)[:, None]
+    return torch.cat([point, share, pt_mask[:, None]], dim=1)
+
+
+def point_tri_friction_acc(x, vel, inv_mass, pt_idx, pt_mask,
+                           params: PhysicsParams) -> torch.Tensor:
+    """The contact friction pass's ``[N, 4]`` accumulator (impulse sums and
+    contact counts) over every entry of the buffer, before count-averaging
+    (``pd.py:526-586``)."""
+    count = torch.full((1,), pt_idx.shape[0], dtype=torch.int32, device=pt_idx.device)
+    inc = incidence_plain(pt_idx, count, x.shape[0])
+    vals = friction_contacts(x, vel, inv_mass, pt_idx, pt_mask, params)
+    return csr_sum(inc, entry_values(vals))
+
+
+def pt_tail_plain(state: SolverState, params: PhysicsParams, config: StepConfig,
+                  colls: CollisionSet, inc: Incidence, x: torch.Tensor,
+                  static_proj: torch.Tensor) -> torch.Tensor:
+    """Plain twin of kernel T8, the point-triangle part of
+    ``pd._finish_substep`` (``pd.py:333-406``), in place on ``x`` and
+    ``state.prev_positions`` at the nodes with contact entries:
+    ``collision_stabilization_iterations`` count-averaged stabilization
+    passes, each followed by the floor snap, then the contact friction and
+    restitution at the velocity the tail computes.  Returns the
+    count-averaged friction impulse f32[N, 3] that T4 adds (zero at nodes
+    without entries).  Does nothing without live contacts, or when latch
+    slot 0 is set."""
+    fric = torch.zeros_like(x)
+    if bool(state.sim_failed[0]) or int(colls.pt_count[0]) == 0:
+        return fric
+    on = incident(inc)[:, None]
+    snap = on & (colls.floor_active[:, None] > 0)
+    prev = state.prev_positions
+    thickness = params.collision_thickness
+    for _ in range(config.collision_stabilization_iterations):
+        vals = stabilize_contacts(x, state.inv_mass, colls.pt_idx, colls.pt_mask, thickness)
+        delta = count_average(csr_sum(inc, entry_values(vals)))
+        prev.copy_(torch.where(on, prev + delta, prev))
+        x.copy_(torch.where(snap, static_proj, torch.where(on, x + delta, x)))
+    vel = base_velocity(x, prev, state, params)
+    vals = friction_contacts(x, vel, state.inv_mass, colls.pt_idx, colls.pt_mask, params)
+    return torch.where(on, count_average(csr_sum(inc, entry_values(vals))), fric)
+
+
+def pt_tail(state: SolverState, params: PhysicsParams, config: StepConfig,
+            colls: CollisionSet, inc: Incidence, x: torch.Tensor,
+            static_proj: torch.Tensor) -> torch.Tensor:
+    """Kernel T8 on a CUDA state, :func:`pt_tail_plain` on a CPU state.  On
+    the card the friction impulse is written only at nodes with contact
+    entries, which are the only ones T4 reads."""
+    pos = state.positions
+    if kernels.on_cpu(pos):
+        return pt_tail_plain(state, params, config, colls, inc, x, static_proj)
+    kernels.require(pos.device, x, state.prev_positions, static_proj, colls.floor_active,
+                    colls.pt_idx, colls.pt_mask, colls.pt_count, inc.row_start,
+                    inc.entries, inc.nodes, state.inv_mass, state.mass, state.node_mask,
+                    state.sim_failed)
+    cap = colls.pt_idx.shape[0]
+    per_contact = torch.empty((cap, 8), dtype=torch.float32, device=pos.device)
+    fric = torch.empty_like(x)
+    h, _ = _h_h2(params)
+    err = kernels.lib().pies_pt_tail(
+        x.data_ptr(), state.prev_positions.data_ptr(), static_proj.data_ptr(),
+        colls.floor_active.data_ptr(), colls.pt_idx.data_ptr(), colls.pt_mask.data_ptr(),
+        colls.pt_count.data_ptr(), inc.row_start.data_ptr(), inc.entries.data_ptr(),
+        inc.nodes.data_ptr(), state.inv_mass.data_ptr(), state.mass.data_ptr(),
+        state.node_mask.data_ptr(), per_contact.data_ptr(), fric.data_ptr(),
+        state.sim_failed.data_ptr(), state.capacity, cap,
+        config.collision_stabilization_iterations, params.collision_thickness, h,
+        params.damping, params.gravity, params.friction, params.static_friction_threshold,
+        kernels.stream(),
+    )
+    kernels.check(err, "pt_tail")
+    pt_tail.launches += 1
+    return fric
+
+
+pt_tail.launches = 0
+
+
 def substep_tail_plain(state: SolverState, topo: Topology, params: PhysicsParams,
                        active: torch.Tensor, x: torch.Tensor,
-                       static_proj: torch.Tensor) -> None:
-    """Plain twin of kernel T4 — ``pd._finish_substep`` on the dense floor
-    without point-triangle contacts — in place on ``state``: floor snap,
-    velocity, floor friction, ``positions = prev = x``, gravity forces, and
-    the OR of non-finite positions into latch slot 1.  Nothing changes when
-    latch slot 0 is set (a skipped tick)."""
-    colls = CollisionSet(floor_active=active)
-    h, _ = _h_h2(params)
-    mask = state.node_mask[:, None]
+                       static_proj: torch.Tensor, colls: CollisionSet | None = None,
+                       inc: Incidence | None = None,
+                       fric: torch.Tensor | None = None) -> None:
+    """Plain twin of kernel T4 — the dense-floor rest of
+    ``pd._finish_substep`` — in place on ``state``: floor snap, velocity,
+    the contact friction impulse ``fric`` at nodes with contact entries
+    (when ``colls`` has live contacts), floor friction, ``positions = prev =
+    x``, gravity forces, and the OR of the detection's capacity latch and of
+    non-finite positions into latch slot 1.  Nothing changes when latch slot
+    0 is set (a skipped tick)."""
+    floor = CollisionSet(floor_active=active)
     # Hard snap of floor contacts to the stale static projection
     # (Solver.cpp:379-382).
-    x = torch.where(colls.floor_active[:, None] > 0, static_proj, x)
-    gy = (-params.gravity * state.mass) * state.node_mask
+    x = torch.where(floor.floor_active[:, None] > 0, static_proj, x)
     forces = torch.zeros_like(x)
-    forces[:, 1] = gy
-    keep = float(np.float32(1.0) - np.float32(params.damping))
-    vel = (_div(keep * (x - state.prev_positions), h)
-           + h * forces * state.inv_mass[:, None]) * mask
-    vel = _static_floor_friction(vel, colls, params, topo.floor_count)
+    forces[:, 1] = (-params.gravity * state.mass) * state.node_mask
+    vel = base_velocity(x, state.prev_positions, state, params)
+    overflow = torch.zeros(1, dtype=torch.int32, device=x.device)
+    if colls is not None and colls.pt_idx is not None:
+        on = (incident(inc) & (colls.pt_count[0] > 0))[:, None]
+        vel = torch.where(on, vel + fric, vel)
+        overflow = colls.overflow
+    vel = _static_floor_friction(vel, floor, params, topo.floor_count)
 
     skip = state.sim_failed[0] != 0
     for old, new in ((state.positions, x), (state.prev_positions, x),
                      (state.velocities, vel), (state.forces, forces)):
         old.copy_(torch.where(skip, old, new))
-    bad = ~torch.isfinite(x).all() & ~skip
+    bad = (~torch.isfinite(x).all() | (overflow[0] != 0)) & ~skip
     state.sim_failed[1:2].bitwise_or_(bad.to(torch.int32))
 
 
 def substep_tail(state: SolverState, topo: Topology, params: PhysicsParams,
                  active: torch.Tensor, x: torch.Tensor,
-                 static_proj: torch.Tensor) -> None:
+                 static_proj: torch.Tensor, colls: CollisionSet | None = None,
+                 inc: Incidence | None = None,
+                 fric: torch.Tensor | None = None) -> None:
     """Kernel T4 on a CUDA state, :func:`substep_tail_plain` on a CPU state."""
     pos = state.positions
     if kernels.on_cpu(pos):
-        return substep_tail_plain(state, topo, params, active, x, static_proj)
+        return substep_tail_plain(state, topo, params, active, x, static_proj, colls,
+                                  inc, fric)
+    pt = colls is not None and colls.pt_idx is not None
+    row_start, pt_count, overflow = ((inc.row_start, colls.pt_count, colls.overflow)
+                                     if pt else (None, None, None))
     kernels.require(pos.device, pos, state.prev_positions, state.velocities,
                     state.forces, x, static_proj, active, topo.floor_count,
-                    state.inv_mass, state.mass, state.node_mask, state.sim_failed)
+                    state.inv_mass, state.mass, state.node_mask, state.sim_failed,
+                    fric, row_start, pt_count, overflow)
     h, _ = _h_h2(params)
     err = kernels.lib().pies_substep_tail(
         pos.data_ptr(), state.prev_positions.data_ptr(),
@@ -190,7 +340,8 @@ def substep_tail(state: SolverState, topo: Topology, params: PhysicsParams,
         state.inv_mass.data_ptr(), state.mass.data_ptr(),
         state.node_mask.data_ptr(), state.capacity, h, params.damping,
         params.gravity, params.friction, params.static_friction_threshold,
-        state.sim_failed.data_ptr(), kernels.stream(),
+        state.sim_failed.data_ptr(), kernels.ptr(fric), kernels.ptr(row_start),
+        kernels.ptr(pt_count), kernels.ptr(overflow), kernels.stream(),
     )
     kernels.check(err, "substep_tail")
     substep_tail.launches += 1
@@ -199,25 +350,62 @@ def substep_tail(state: SolverState, topo: Topology, params: PhysicsParams,
 substep_tail.launches = 0
 
 
+_KERNELS = dict(head=substep_head, force=tet_force12, cols=tetcols.substep_cols,
+                setup=tetcols.pt_coupling_setup, pt_force=tetcols.pt_force,
+                pt_tail=pt_tail, tail=substep_tail)
+_PLAIN = dict(head=substep_head_plain, force=tet_force12_plain, cols=tetcols.substep_cols_plain,
+              setup=tetcols.pt_coupling_setup_plain, pt_force=tetcols.pt_force_plain,
+              pt_tail=pt_tail_plain, tail=substep_tail_plain)
+
+
+COUNTERS = ("floor_active", "contacts", "rebuilds")
+
+
+def new_counters(device) -> dict[str, torch.Tensor]:
+    """Zeroed device counters for :func:`pd_substep`: floor-active nodes,
+    live point-triangle contacts and broadphase cache rebuilds, each summed
+    over substeps."""
+    return {name: torch.zeros((), dtype=torch.int64, device=device) for name in COUNTERS}
+
+
 def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
-               config: StepConfig, fold: bool, plain: bool = False) -> torch.Tensor:
+               config: StepConfig, fold: bool, plain: bool = False,
+               counters: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
     """One PD substep on the tet-column path, in place on ``state``; returns
     the device-side residual ``‖b − A·x‖`` of its last iteration.
 
     ``plain=True`` runs the plain twins whatever the device (the card's
     reference run); otherwise each wrapper picks the kernel for a CUDA state
-    and the twin for a CPU state."""
-    head, force, cols, tail = (
-        (substep_head_plain, tet_force12_plain, tetcols.substep_cols_plain,
-         substep_tail_plain)
-        if plain else (substep_head, tet_force12, tetcols.substep_cols, substep_tail)
-    )
-    x, msn_h2, diag, wf, active = head(state, topo, params, config, fold)
-    f0 = force(x, topo.strain, topo.volume, state.sim_failed) if config.iterations else None
-    x_new, static_proj, r2 = cols(
-        x, msn_h2, diag, state.node_mask, wf, f0, topo,
-        floor_plane(params, config.reference_quirks), config.iterations,
-        state.sim_failed,
-    )
-    tail(state, topo, params, active, x_new, static_proj)
+    and the twin for a CPU state.  ``counters`` (from :func:`new_counters`)
+    are summed on the device, never read here: one small reduction or add
+    per counter and substep."""
+    k = _PLAIN if plain else _KERNELS
+    x, msn_h2, diag, wf, active = k["head"](state, topo, params, config, fold)
+    failed = state.sim_failed
+    colls = inc = fric = pt = None
+    if counters is not None:
+        counters["floor_active"].add_(active.sum().to(torch.int64))
+    if self_contact(config, topo):
+        colls = detect_point_tri(state, x, topo, params, config, active, plain)
+        if counters is not None:
+            counters["contacts"].add_(colls.pt_count[0])
+            counters["rebuilds"].add_(colls.rebuilt[0])
+        _, h2 = _h_h2(params)
+        inc, ptd = k["setup"](colls, state.mass, topo, h2, diag, wf, failed)
+    f0 = k["force"](x, topo.strain, topo.volume, failed) if config.iterations else None
+    args = (msn_h2, diag, state.node_mask, wf)
+    plane = floor_plane(params, config.reference_quirks)
+    if colls is None or config.iterations == 0:
+        x_new, static_proj, r2 = k["cols"](x, *args, f0, topo, plane, config.iterations,
+                                           failed)
+    else:
+        x_new = x
+        for it in range(config.iterations):
+            contact = k["pt_force"](x_new, colls, inc, params.collision_thickness, failed)
+            pt = (ptd, contact, inc.row_start, colls.pt_count)
+            x_new, static_proj, r2 = k["cols"](x_new, *args, f0 if it == 0 else None, topo,
+                                               plane, 1, failed, pt)
+    if colls is not None:
+        fric = k["pt_tail"](state, params, config, colls, inc, x_new, static_proj)
+    k["tail"](state, topo, params, active, x_new, static_proj, colls, inc, fric)
     return torch.sqrt(torch.sum(r2))

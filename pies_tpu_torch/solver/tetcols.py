@@ -10,7 +10,14 @@ dodge TPU tile padding and are not ported.
 
 :func:`substep_cols` is the wrapper of kernel T2 (``kernels/csrc/
 tet_cols_substep.cu``); :func:`substep_cols_plain` is its plain twin.
-Point-triangle contacts (``pt_force_cols``) come with the self-contact port.
+
+With point-triangle contacts the loop runs one iteration per call: kernel
+T7 (``kernels/csrc/pt_coupling.cu``) first builds the node incidence and
+folds the contacts' diagonal into ``diag`` once per substep
+(:func:`pt_coupling_setup`), then, before each T2 iteration, computes each
+contact's push-out from the current iterate and its per-node force
+(:func:`pt_force`), which T2 adds as ``ptd·x + contact`` after the floor
+term (``pies_tpu/solver/tetcols.py:194-260,306-349``).
 """
 
 from __future__ import annotations
@@ -18,10 +25,20 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..collision.batches import CollisionSet
+from ..collision.batches import (
+    ATA_DIFF4,
+    W_POINT_TRI,
+    CollisionSet,
+    Incidence,
+    csr_sum,
+    incidence_plain,
+    incident,
+)
 from ..constraints.projections import corner_cols, tet_force12_fused_cols
+from ..ops.math3d import ieee_div as _div
 from ..options import StepConfig
 from ..topology import Topology
+from . import assembly
 
 
 def applies(state, topo: Topology, colls: CollisionSet, config: StepConfig) -> bool:
@@ -109,15 +126,20 @@ def _cols_to_node3(cols) -> torch.Tensor:
 
 
 def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
-                       plane: float, iterations: int, failed=None):
+                       plane: float, iterations: int, failed=None, pt=None):
     """Plain twin of kernel T2: the PD iteration loop of one substep.
 
     ``x``/``msn_h2`` f32[N, 3] are the predicted positions and inertia term;
     ``diag``/``mask``/``wf`` f32[N] the system diagonal, node mask and floor
     weight ``W_STATIC·count·active``; ``f0`` f32[12, C] (or None) the first
-    iteration's tet force.  Returns ``(x_new [N, 3], static_proj [N, 3],
-    r2 [K])`` with ``r2`` the per-tet squared residual ``‖force − A·x‖²``
-    (zero where ``failed`` slot 0 is set, as the kernel writes it)."""
+    iteration's tet force.  ``pt`` (or None) is ``(ptd f32[N], contact
+    f32[N, 3], row_start i32[N+1], pt_count i32[1])``: when contacts are
+    live, each node with contact entries adds ``ptd·x`` and then
+    ``contact`` to its force (elsewhere both are exact zeros, and the
+    arrays there are not read).  Returns ``(x_new [N, 3], static_proj
+    [N, 3], r2 [K])`` with ``r2`` the per-tet squared residual
+    ``‖force − A·x‖²`` (zero where ``failed`` slot 0 is set, as the kernel
+    writes it)."""
     n = x.shape[0]
     k = n // 4
     c_tet = min(topo.strain.qinv.shape[1], k)
@@ -129,6 +151,12 @@ def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
     diag_c = _node_cols(diag, k)
     wf_c = _node_cols(wf, k)
     factors = block_factor_cols(diag_c, topo.tet_block6)
+    if pt is not None:
+        ptd, contact, row_start, pt_count = pt
+        on = (row_start[1:] > row_start[:-1]) & (pt_count[0] > 0)
+        on_c = _node_cols(on, k)
+        ptd_c = _node_cols(ptd, k)
+        contact_c = corner_cols(contact, k)
 
     def tet_force(xc_it, it):
         if it == 0 and f0 is not None:
@@ -152,6 +180,9 @@ def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
             for d in range(3):
                 fad = msn_c[a][d] + f12[3 * a + d]
                 fad = fad + wf_c[a] * (sp_y if d == 1 else x_it[a][d])
+                if pt is not None:
+                    with_pt = (fad + ptd_c[a] * x_it[a][d]) + contact_c[a][d]
+                    fad = torch.where(on_c[a], with_pt, fad)
                 row.append(fad)
             force.append(tuple(row))
         force = tuple(force)
@@ -183,13 +214,13 @@ def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
 
 
 def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
-                 plane: float, iterations: int, failed=None):
+                 plane: float, iterations: int, failed=None, pt=None):
     """Kernel T2 on CUDA tensors, :func:`substep_cols_plain` on CPU tensors
     (same arguments and results).  On the card ``failed`` is required: the
     kernel returns at once, writing ``r2 = 0``, when its slot 0 is set."""
     if kernels.on_cpu(x):
         return substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo, plane,
-                                  iterations, failed)
+                                  iterations, failed, pt)
     n = x.shape[0]
     k = n // 4
     if n % 4 or topo.tet_block6 is None or topo.tet_block6.shape[1] != k:
@@ -204,8 +235,9 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
     if f0 is not None and tuple(f0.shape) != (12, c):
         raise ValueError(f"f0 must be [12, {c}], got {tuple(f0.shape)}")
     batch = (s.qinv, s.g, s.lo, s.hi, s.w, v.lo, v.hi, v.w)
+    ptd, contact, row_start, pt_count = pt if pt is not None else (None,) * 4
     kernels.require(x.device, x, msn_h2, pin, diag, mask, wf, topo.tet_block6,
-                    f0, failed, *batch)
+                    f0, failed, ptd, contact, row_start, pt_count, *batch)
     x_out = torch.empty_like(x)
     static_out = torch.empty_like(x)
     r2 = torch.empty(k, dtype=torch.float32, device=x.device)
@@ -214,7 +246,9 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
         mask.data_ptr(), wf.data_ptr(), topo.tet_block6.data_ptr(),
         kernels.ptr(f0), *(t.data_ptr() for t in batch),
         x_out.data_ptr(), static_out.data_ptr(), r2.data_ptr(),
-        k, c, int(iterations), float(plane), failed.data_ptr(), kernels.stream(),
+        k, c, int(iterations), float(plane), failed.data_ptr(),
+        kernels.ptr(ptd), kernels.ptr(contact), kernels.ptr(row_start),
+        kernels.ptr(pt_count), kernels.stream(),
     )
     kernels.check(err, "tet_cols_substep")
     substep_cols.launches += 1
@@ -222,3 +256,110 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
 
 
 substep_cols.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel T7: point-triangle coupling
+
+
+_COL0 = [float(ATA_DIFF4[a, 0]) for a in range(4)]
+
+
+def pt_coupling_setup_plain(colls: CollisionSet, mass: torch.Tensor, topo: Topology,
+                            h2: float, diag: torch.Tensor, wf: torch.Tensor,
+                            failed: torch.Tensor | None = None):
+    """Plain twin of T7's once-per-substep stages: the node incidence of the
+    live contacts, the contacts' diagonal ``ptd`` and, at every node with
+    contact entries, ``diag = ((m/h² + stiffness) + ptd) + floor`` in place
+    (``assembly.py:577-599``).  Returns ``(incidence, ptd f32[N])``."""
+    n = mass.shape[0]
+    inc = incidence_plain(colls.pt_idx, colls.pt_count, n)
+    ptd = assembly.point_tri_collision_diag(colls.pt_idx, colls.pt_mask, n, inc)
+    if failed is None or not bool(failed[0]):
+        full = ((_div(mass, h2) + topo.stiffness_diag) + ptd) + wf
+        diag.copy_(torch.where(incident(inc), full, diag))
+    return inc, ptd
+
+
+def pt_coupling_setup(colls: CollisionSet, mass: torch.Tensor, topo: Topology, h2: float,
+                      diag: torch.Tensor, wf: torch.Tensor,
+                      failed: torch.Tensor | None = None):
+    """T7's once-per-substep stages on CUDA tensors (the plain twin on CPU
+    tensors).  On the card ``ptd`` is written only at nodes with contact
+    entries, and nothing at all when ``failed`` slot 0 is set."""
+    if kernels.on_cpu(mass):
+        return pt_coupling_setup_plain(colls, mass, topo, h2, diag, wf, failed)
+    if failed is None:
+        raise ValueError("the coupling kernel needs the failure latch")
+    dev = mass.device
+    n, cap = mass.shape[0], colls.pt_idx.shape[0]
+    kernels.require(dev, colls.pt_idx, colls.pt_mask, colls.pt_count, mass,
+                    topo.stiffness_diag, diag, wf, failed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    deg = torch.zeros(n, **i32)
+    row_start = torch.empty(n + 1, **i32)
+    partial = torch.empty(kernels.scan_partials(n), **i32)
+    entries = torch.empty(4 * cap, **i32)
+    nodes = torch.empty(4 * cap, **i32)
+    ptd = torch.empty(n, dtype=torch.float32, device=dev)
+    err = kernels.lib().pies_pt_coupling_setup(
+        colls.pt_idx.data_ptr(), colls.pt_mask.data_ptr(), colls.pt_count.data_ptr(),
+        mass.data_ptr(), topo.stiffness_diag.data_ptr(), wf.data_ptr(), diag.data_ptr(),
+        deg.data_ptr(), row_start.data_ptr(), partial.data_ptr(), entries.data_ptr(),
+        nodes.data_ptr(), ptd.data_ptr(), failed.data_ptr(), n, cap, h2, kernels.stream(),
+    )
+    kernels.check(err, "pt_coupling_setup")
+    pt_coupling_setup.launches += 1
+    return Incidence(row_start, entries, nodes, cap), ptd
+
+
+pt_coupling_setup.launches = 0
+
+
+def pt_force_plain(x: torch.Tensor, colls: CollisionSet, inc: Incidence, thickness: float,
+                   failed: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of T7's per-iteration stage (``pt_force_cols``,
+    ``tetcols.py:194-260``): each contact's point push-out ``delta`` along
+    the unit normal of its triangle at the iterate ``x``, and per node the
+    sum of ``(w·mask·AᵀA[a, 0])·delta`` over its entries.  Returns f32[N, 3],
+    zero at nodes without entries."""
+    a, b, c, d = (x[colls.pt_idx[:, j].long()] for j in range(4))
+    e1, e2 = c - b, d - b
+    nx = e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1]
+    ny = e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2]
+    nz = e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]
+    nn = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    inv = _div(torch.ones_like(nn), torch.clamp_min(nn, 1e-20))
+    nx, ny, nz = nx * inv, ny * inv, nz * inv
+    ndp = nx * (a[:, 0] - b[:, 0]) + ny * (a[:, 1] - b[:, 1]) + nz * (a[:, 2] - b[:, 2])
+    disp = torch.where(ndp < thickness, thickness - ndp, 0.0)
+    delta = torch.stack([disp * nx, disp * ny, disp * nz], dim=1)
+    w = W_POINT_TRI * colls.pt_mask
+    vals = torch.cat([(w * _COL0[j])[:, None] * delta for j in range(4)])
+    return csr_sum(inc, vals)
+
+
+def pt_force(x: torch.Tensor, colls: CollisionSet, inc: Incidence, thickness: float,
+             failed: torch.Tensor | None = None) -> torch.Tensor:
+    """T7's per-iteration stage on a CUDA tensor, :func:`pt_force_plain` on
+    a CPU tensor.  On the card the result is written only at nodes with
+    contact entries (T2 reads nothing else)."""
+    if kernels.on_cpu(x):
+        return pt_force_plain(x, colls, inc, thickness, failed)
+    if failed is None:
+        raise ValueError("the coupling kernel needs the failure latch")
+    kernels.require(x.device, x, colls.pt_idx, colls.pt_mask, colls.pt_count,
+                    inc.row_start, inc.entries, inc.nodes, failed)
+    contact = torch.empty_like(x)
+    err = kernels.lib().pies_pt_force(
+        x.data_ptr(), colls.pt_idx.data_ptr(), colls.pt_mask.data_ptr(),
+        colls.pt_count.data_ptr(), inc.row_start.data_ptr(), inc.entries.data_ptr(), inc.nodes.data_ptr(),
+        contact.data_ptr(), failed.data_ptr(), x.shape[0], inc.cap, thickness,
+        kernels.stream(),
+    )
+    kernels.check(err, "pt_force")
+    pt_force.launches += 1
+    return contact
+
+
+pt_force.launches = 0

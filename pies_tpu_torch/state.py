@@ -13,6 +13,10 @@ Structure-of-arrays with a padded node count, as in the JAX package:
 
 Padded nodes are parked far away with ``inv_mass = 0``, ``mass = 1`` and
 ``node_mask = 0``, exactly as in the JAX package.
+
+``bp`` is the packed-body broadphase's temporal cache (``BroadphaseCache``),
+allocated by the host for self-contact scenes and updated in place by the
+detection each substep.
 """
 
 from __future__ import annotations
@@ -27,6 +31,39 @@ PARK_PITCH = 64.0  # spacing between parked particles
 
 
 @dataclass
+class BroadphaseCache:
+    """Temporal broadphase cache (port of ``pies_tpu/state.py:41-60``).
+
+    The candidate body pairs stay valid while no body node has moved more
+    than ``PhysicsParams.broadphase_slack`` (per axis) from ``ref``: the build
+    inflates every AABB by that slack, and the narrowphase re-tests the
+    cached pairs at the current positions each substep.  ``valid`` and
+    ``fresh`` are int32 0/1 (the kernels take int32); slots past a row's
+    valid prefix hold 0.
+    """
+
+    pairs: torch.Tensor  # i32[K, NB] candidate bodies per body
+    valid: torch.Tensor  # i32[K, NB] prefix mask
+    ref: torch.Tensor  # f32[K·m, 3] body-node positions at the last build
+    fresh: torch.Tensor  # i32[1]; 0 forces a rebuild
+
+    def clone(self) -> "BroadphaseCache":
+        return BroadphaseCache(self.pairs.clone(), self.valid.clone(),
+                               self.ref.clone(), self.fresh.clone())
+
+
+def empty_broadphase_cache(k: int, nb: int, m: int,
+                           device: torch.device | str = "cpu") -> BroadphaseCache:
+    """Unpopulated cache (``fresh = 0``: the first detection rebuilds)."""
+    return BroadphaseCache(
+        pairs=torch.zeros((k, nb), dtype=torch.int32, device=device),
+        valid=torch.zeros((k, nb), dtype=torch.int32, device=device),
+        ref=torch.zeros((m, 3), dtype=torch.float32, device=device),
+        fresh=torch.zeros(1, dtype=torch.int32, device=device),
+    )
+
+
+@dataclass
 class SolverState:
     positions: torch.Tensor  # f32[N, 3]
     prev_positions: torch.Tensor  # f32[N, 3]
@@ -37,6 +74,7 @@ class SolverState:
     radius: torch.Tensor  # f32[N]
     node_mask: torch.Tensor  # f32[N]
     sim_failed: torch.Tensor  # i32[2], see the module docstring
+    bp: BroadphaseCache | None = None
 
     @property
     def capacity(self) -> int:

@@ -1,15 +1,20 @@
 """Where a tick of the PyTorch + CUDA port spends its time, on one GPU.
 
-    python3 -m pies_tpu_torch.tick_profile [n_tets] [repeats]
+    python3 -m pies_tpu_torch.tick_profile [n_tets] [repeats] [--collisions]
 
-Builds the 500k-particle floor-contact soup (``create_tet_soup(n_tets,
-spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)``, 125,000 tets
-by default), warms up, then:
+Builds the 500k-particle soup (``create_tet_soup(n_tets, spacing=1.6,
+scale=0.8, w=2000.0, height=0.5, jitter=0.05)``, 125,000 tets by default),
+self-contact off, or on with ``--collisions``.  It warms up until the
+window it measures is contact-active: 30 ticks without self-contact (the
+bottom layer reaches the floor at tick ~25), 45 with it (the layers meet at
+tick ~40, once the bottom one rests on the floor).  Then:
 
 * times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
   ends in a synchronize) and prints each, for the spread;
 * traces 10 ticks with ``torch.profiler`` and prints the device time per
-  kernel name and the device's busy share of the traced wall time.
+  kernel name and the device's busy share of the traced wall time;
+* reads the device counters of the 10 traced ticks once: floor-active node
+  substeps, live contacts and broadphase cache rebuilds.
 
 Prints the card's name and power limit first.  Needs a CUDA device.
 """
@@ -18,8 +23,10 @@ import subprocess
 import sys
 import time
 
+FLOOR_WARMUP, CONTACT_WARMUP = 30, 45
 
-def main(n_tets=125_000, repeats=5):
+
+def main(n_tets=125_000, repeats=5, collisions=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -27,15 +34,16 @@ def main(n_tets=125_000, repeats=5):
         print("needs a CUDA device", file=sys.stderr)
         return 2
     import pies_tpu_torch as pt
+    from pies_tpu_torch.solver import pd
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    print(f"card: {smi}")
-    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=False)
+    print(f"card: {smi}; self-contact {'on' if collisions else 'off'}")
+    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=collisions)
     s.create_tet_soup(n_tets, spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
-    s.run_ticks(5)
+    s.run_ticks(CONTACT_WARMUP if collisions else FLOOR_WARMUP)
     for r in range(repeats):
         t0 = time.perf_counter()
         s.run_ticks(10)
@@ -43,20 +51,25 @@ def main(n_tets=125_000, repeats=5):
         print(f"run {r}: {dt * 1e3:.4f} ms/tick, {1 / dt:.2f} steps/s")
 
     torch.cuda.synchronize()
+    s.counters = pd.new_counters(s.device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         s.run_ticks(10)
         wall = time.perf_counter() - t0
+    counts = {k: int(v) for k, v in s.counters.items()}
+    s.counters = None
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
     busy_us = sum(getattr(e, attr) for e in events)
-    print(f"traced 10 ticks: wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms"
-          f" ({100 * busy_us / 1e6 / wall:.1f}% busy, {100 - 100 * busy_us / 1e6 / wall:.1f}% idle)")
+    print(f"traced 10 ticks (device counters on): wall {wall * 1e3:.3f} ms, device busy"
+          f" {busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / wall:.1f}% busy,"
+          f" {100 - 100 * busy_us / 1e6 / wall:.1f}% idle); counters {counts}")
     for e in sorted(events, key=lambda e: -getattr(e, attr)):
-        print(f"  {getattr(e, attr) / 10:10.2f} us/tick  x{e.count // 10:<3d} {e.key[:90]}")
+        print(f"  {getattr(e, attr) / 10:10.2f} us/tick  x{e.count / 10:<5.1f} {e.key[:90]}")
     return 0
 
 
 if __name__ == "__main__":
-    args = [int(a) for a in sys.argv[1:]]
-    sys.exit(main(*args))
+    flags = [a for a in sys.argv[1:] if a.startswith("--")]
+    args = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
+    sys.exit(main(*args, collisions="--collisions" in flags))

@@ -3,9 +3,10 @@
 Built on the host in NumPy at scene-construction time, exactly as the JAX
 package builds it, then moved to tensors once with :func:`to_device`.  Only
 the batches and precomputed fields that the PD tet-column path reads are
-carried: the strain and volume tet batches, position pins, the constant
-stiffness diagonal, the per-node floor-contact multiplicity, the disjoint-tet
-block off-diagonals and the folded pin force.
+carried: the strain and volume tet batches, position pins, the surface
+triangles with their live mask (padded to a multiple of 8, as in the JAX
+package), the constant stiffness diagonal, the per-node floor-contact
+multiplicity, the disjoint-tet block off-diagonals and the folded pin force.
 """
 
 from __future__ import annotations
@@ -74,6 +75,9 @@ class Topology:
     tet_block6: torch.Tensor | None  # f32[6, N//4]
     # Σ w·target of the position pins per node; f32[1, 3] when no pins.
     position_force_dense: torch.Tensor  # f32[N, 3] or f32[1, 3]
+    # Surface triangles (padded to a multiple of 8) and their live mask.
+    triangles: torch.Tensor  # i32[T, 3]
+    tri_mask: torch.Tensor  # f32[T]
 
 
 def build_position(
@@ -194,6 +198,7 @@ def assemble_topology(
     else:
         pos_force = np.zeros((1, 3), _F32)
 
+    tcap = _round_up(tris.shape[0], 8)
     return Topology(
         strain=strain,
         volume=volume,
@@ -202,6 +207,8 @@ def assemble_topology(
         floor_count=floor_count,
         tet_block6=tet_block6,
         position_force_dense=pos_force,
+        triangles=_pad2(tris, tcap),
+        tri_mask=_pad2(np.ones(tris.shape[0], _F32), tcap),
     )
 
 

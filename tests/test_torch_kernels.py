@@ -8,7 +8,11 @@ Tests marked ``gpu`` skip without a CUDA device.  The library is built with
 ``-fmad=false`` and IEEE division and square root, and each kernel does its
 twin's float32 operations in the same order, so the tolerances are tight: T3
 and T4 exact, T1 1e-6 of the largest force and T2 1e-6 absolute (allowing
-only for library-math differences), and a 40-tick trajectory 1e-5.
+only for library-math differences), and a 40-tick trajectory 1e-5.  The
+self-contact kernels T5-T8 are held to their twins exactly: equal caches,
+contacts and incidence, and bit-equal forces and positions (their sums run
+in one fixed order on both sides, and their library math is the same
+libdevice ``powf``/``acosf``/``cosf``).
 """
 
 import dataclasses
@@ -18,11 +22,16 @@ import pytest
 import torch
 
 import pies_tpu_torch as pt
+from pies_tpu_torch.collision import broadphase
+from pies_tpu_torch.collision.batches import CollisionSet, incident
 from pies_tpu_torch.constraints import projections as proj
 from pies_tpu_torch.solver import pd, step, tetcols
 
 SCENE = dict(spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
+CONTACT_SCENE = dict(SCENE, spacing=1.0)
 WRAPPERS = (pd.substep_head, proj.tet_force12, tetcols.substep_cols, pd.substep_tail)
+CONTACT_WRAPPERS = (broadphase.body_broadphase, broadphase.pt_narrowphase,
+                    tetcols.pt_coupling_setup, tetcols.pt_force, pd.pt_tail)
 
 
 @pytest.fixture
@@ -40,7 +49,8 @@ def _solver(device, n=96):
 
 def _clone(state):
     return dataclasses.replace(
-        state, **{f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)}
+        state, **{f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)
+                  if getattr(state, f.name) is not None}
     )
 
 
@@ -60,6 +70,17 @@ def test_cpu_tensors_take_the_twin_and_count_nothing():
     s.run_ticks(2)
     assert [f.launches for f in WRAPPERS] == before
     assert not s.sim_failed
+
+
+def test_cpu_tensors_take_the_contact_twins():
+    s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu")
+    s.create_tet_soup(96, **CONTACT_SCENE)
+    wrappers = WRAPPERS + CONTACT_WRAPPERS
+    before = [f.launches for f in wrappers]
+    s.counters = pd.new_counters("cpu")
+    s.run_ticks(2)
+    assert [f.launches for f in wrappers] == before
+    assert not s.sim_failed and int(s.counters["contacts"]) > 0
 
 
 def test_cuda_solver_refuses_without_cuda():
@@ -150,3 +171,128 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         proj.tet_force12(s.state.positions.double(), topo.strain, topo.volume)
     with pytest.raises(ValueError):
         proj.tet_force12(s.state.positions.t().contiguous().t(), topo.strain, topo.volume)
+
+
+def _contact_state(device, n=512, ticks=25):
+    """A self-contact soup after ``ticks`` ticks of the kernels, with the
+    predicted positions of its next substep."""
+    s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device=device)
+    s.create_tet_soup(n, **CONTACT_SCENE)
+    s.run_ticks(ticks)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    head = pd.substep_head_plain(_clone(st), topo, params, cfg, True)
+    return s, head
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("force_rebuild", [False, True], ids=["as_found", "rebuild"])
+def test_broadphase_and_narrowphase_kernels_equal_twins(cuda, force_rebuild):
+    s, (x, *_rest) = _contact_state(cuda)
+    st, topo = s.state, s.topology
+    lay = broadphase.body_layout(s.config, topo.tri_mask.shape[0])
+    sc = broadphase.scalars(s.current_params())
+    out = []
+    for bf, nf in ((broadphase.body_broadphase, broadphase.pt_narrowphase),
+                   (broadphase.body_broadphase_plain, broadphase.pt_narrowphase_plain)):
+        cache = st.bp.clone()
+        if force_rebuild:
+            cache.fresh.zero_()
+        over = torch.zeros(1, dtype=torch.int32, device=cuda)
+        rebuilt = bf(x, st.prev_positions, topo.tri_mask, cache, lay, sc, over, st.sim_failed)
+        contacts = nf(x, st.prev_positions, topo.tri_mask, cache, lay, sc, over, st.sim_failed)
+        out.append((cache, over, rebuilt, contacts))
+    (ck, ok, rk, pk), (cp, op, rp, pp) = out
+    for f in ("pairs", "valid", "ref", "fresh"):
+        assert torch.equal(getattr(ck, f), getattr(cp, f)), f
+    assert torch.equal(ok, op) and int(rk[0]) == int(rp[0]) == int(force_rebuild or rk[0])
+    for a, b in zip(pk, pp):
+        assert torch.equal(a, b)
+    assert int(pk[2][0]) > 0
+
+
+@pytest.mark.gpu
+def test_coupling_and_tail_kernels_equal_twins(cuda):
+    s, (x, msn, diag, wf, active) = _contact_state(cuda)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    pt_idx, pt_mask, pt_count, over, _ = broadphase.detect_point_tri_collisions(
+        x, st.prev_positions, topo.tri_mask, params, cfg, cache=st.bp.clone(),
+        failed=st.sim_failed)
+    colls = CollisionSet(floor_active=active, pt_idx=pt_idx, pt_mask=pt_mask,
+                         pt_count=pt_count, overflow=over)
+    _, h2 = pd._h_h2(params)
+    dk, dp = diag.clone(), diag.clone()
+    inc_k, ptd_k = tetcols.pt_coupling_setup(colls, st.mass, topo, h2, dk, wf, st.sim_failed)
+    inc_p, ptd_p = tetcols.pt_coupling_setup_plain(colls, st.mass, topo, h2, dp, wf,
+                                                   st.sim_failed)
+    nnz, on = int(inc_p.row_start[-1]), incident(inc_p)
+    assert nnz == 4 * int(pt_count[0]) > 0
+    assert torch.equal(inc_k.row_start, inc_p.row_start)
+    assert torch.equal(inc_k.entries[:nnz], inc_p.entries[:nnz])
+    assert torch.equal(ptd_k[on], ptd_p[on]) and torch.equal(dk, dp)
+    thick = params.collision_thickness
+    fk = tetcols.pt_force(x, colls, inc_k, thick, st.sim_failed)
+    fp = tetcols.pt_force_plain(x, colls, inc_p, thick, st.sim_failed)
+    assert torch.equal(fk[on], fp[on])
+
+    pt_args = (ptd_k, fk, inc_k.row_start, pt_count)
+    args = (x, msn, dk, st.node_mask, wf, None, topo, 0.0, 1, st.sim_failed, pt_args)
+    x_new, static, _ = tetcols.substep_cols(*args)
+    x_ref, static_ref, _ = tetcols.substep_cols_plain(*args)
+    assert torch.equal(x_new, x_ref) and torch.equal(static, static_ref)
+
+    a, b = _clone(st), _clone(st)
+    xa, xb = x_new.clone(), x_new.clone()
+    fa = pd.pt_tail(a, params, cfg, colls, inc_k, xa, static)
+    fb = pd.pt_tail_plain(b, params, cfg, colls, inc_p, xb, static)
+    assert torch.equal(xa, xb) and torch.equal(a.prev_positions, b.prev_positions)
+    assert torch.equal(fa[on], fb[on])
+
+
+@pytest.mark.gpu
+def test_contact_kernels_match_twins_over_a_trajectory(cuda):
+    """40 ticks of a self-contact soup, kernels against twins: the same
+    contacts every tick and the same positions, and every kernel of the
+    path launched on every tick."""
+    runs = []
+    for plain in (False, True):
+        s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device=cuda)
+        s.create_tet_soup(512, **CONTACT_SCENE)
+        before = [f.launches for f in WRAPPERS + CONTACT_WRAPPERS]
+        counts = []
+        for _ in range(40):
+            c = pd.new_counters(cuda)
+            if plain:
+                step.tick(s.state, s.topology, s.current_params(), s.config, plain=True,
+                          counters=c)
+            else:
+                s.counters = c
+                s.tick()
+            counts.append(int(c["contacts"]))
+        launched = [f.launches - n for f, n in zip(WRAPPERS + CONTACT_WRAPPERS, before)]
+        assert not s.sim_failed
+        runs.append((counts, s.state.positions.clone(), launched))
+    (ck, xk, lk), (cp, xp, lp) = runs
+    assert ck == cp and sum(ck) > 0
+    assert torch.equal(xk, xp)
+    assert all(n > 0 for n in lk) and not any(lp)
+
+
+@pytest.mark.gpu
+def test_contact_latch_on_the_card(cuda):
+    """One narrow slot per body cannot hold a dense soup's exact overlaps:
+    the kernels latch sim_failed on the first tick, as the twins do, and
+    later ticks leave the state and the broadphase cache as they are."""
+    runs = []
+    for plain in (False, True):
+        s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device=cuda,
+                      budget_overrides={"max_narrow_bodies": 1})
+        s.create_tet_soup(64, **dict(CONTACT_SCENE, spacing=0.9))
+        step.tick(s.state, s.topology, s.current_params(), s.config, plain=plain)
+        assert s.sim_failed
+        frozen = (s.state.positions.clone(), s.state.bp.clone())
+        step.tick_n(s.state, s.topology, s.current_params(), s.config, 3, plain=plain)
+        assert torch.equal(s.state.positions, frozen[0])
+        for f in ("pairs", "valid", "ref", "fresh"):
+            assert torch.equal(getattr(s.state.bp, f), getattr(frozen[1], f)), f
+        runs.append(frozen)
+    assert torch.equal(runs[0][0], runs[1][0])
