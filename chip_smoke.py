@@ -7,7 +7,7 @@ Phases (any failure exits non-zero, before the result line):
 
 0. The card: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc
    versions, whether ``triton`` imports.  No CUDA device: exit 2.
-1. Build the eight kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
+1. Build the eleven kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
    one process per source, all at once (``-Xptxas -v`` output printed), and
    report the build time.
 2. T1-T4 against their plain PyTorch twins on the card, at the main path's
@@ -37,11 +37,31 @@ Phases (any failure exits non-zero, before the result line):
 4. Kernels against twins on the card over 40 ticks of a 4,096-tet soup:
    max |dx| <= 1e-3; then with self-contact at spacing 1.0, where the
    contact counts must also be equal on every tick.
+5. The generic path at full size: the imported 110,592-node / 622,938-tet
+   mesh (``scripts/refbench/tet_cube_mesh_100k.txt``, a cube of side 12
+   with its bottom at y = 3) through ``Solver(SolverOptions(solver=PD),
+   enable_collisions=False)`` and ``scene.mesh_dump.add_tet_mesh`` (the
+   scene of ``scripts/bench_all.py:116-121``); 75 warm-up ticks, the bottom
+   reaching the floor at tick 70 (the floor-active device counter, read
+   per tick from tick 60, says when).
+2c. (on that warmed state) T9-T11 against their twins, one substep's
+   shapes: T9's tet forces, force and static projection, T10's product and
+   partials, and T11's solve (16 trips, rtol 1e-4 as the path runs it):
+   solution, residual partials and trip count.  Then phase 5 proper: a
+   timed ``run_ticks(10)`` over ticks 76-85 with the launch counters reset
+   to 0 before it; checks: no sim_failed, finite positions, floor contact
+   in the window, every counter of T3, T9, T10, T11 and T4 > 0; prints
+   ms/tick, steps/s, CG trips and launches per tick.  From the warmed
+   state, 3 ticks of the kernels against 3 of the twins (positions within
+   1e-3, equal counters); then 40 ticks of the 1,331-node mesh
+   (``tet_cube_mesh.txt``, 4 pinned nodes, floor contact from tick ~27),
+   kernels against twins: positions within 1e-3 and the counters equal.
 
 The last two lines are the kernel table and the result as JSON objects.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -51,6 +71,11 @@ SCENE = dict(spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
 DENSE_SCENE = dict(SCENE, spacing=1.0)
 FLOOR_WARMUP = 30  # the bench soup's bottom layer reaches the floor at tick ~25
 CONTACT_WARMUP = 45  # its layers start touching at tick ~40
+MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "refbench")
+MESH_BIG = os.path.join(MESH_DIR, "tet_cube_mesh_100k.txt")
+MESH_SMALL = os.path.join(MESH_DIR, "tet_cube_mesh.txt")
+MESH_WARMUP = 75  # the big mesh falls 3.0 units: its bottom meets the floor at tick 70
+SMALL_PINS = (0, 10, 110, 120)  # the corners of the small mesh's x = 0 face
 
 # The H100 SXM's published peaks (NVIDIA's datasheet): the least time
 # of a kernel is the larger of its bytes over the memory rate and its float32
@@ -115,7 +140,18 @@ def check(ok, what):
     print(f"  ok: {what}")
 
 
-def main(n_tets=N_TETS, n_small=4096, dev=None):
+def mesh_solver(pt, path, dev, pins=()):
+    """A solver on an imported mesh dump (w = 1000, radius 0.2), with
+    ``pins`` held by position constraints of weight 8000."""
+    from pies_tpu_torch.scene.mesh_dump import add_tet_mesh, load_mesh_txt
+
+    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=False,
+                  device=dev)
+    add_tet_mesh(s, *load_mesh_txt(path), pins=pins)
+    return s
+
+
+def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP):
     import torch
 
     # ---- phase 0
@@ -141,7 +177,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None):
     from pies_tpu_torch.collision import broadphase
     from pies_tpu_torch.collision.batches import CollisionSet, incident
     from pies_tpu_torch.constraints import projections as proj
-    from pies_tpu_torch.solver import pd, step, tetcols
+    from pies_tpu_torch.solver import assembly, pd, step, tetcols
 
     print("nvcc: " + run([kernels._nvcc(), "--version"]).splitlines()[-1])
     dev = dev or torch.device("cuda", 0)
@@ -158,13 +194,14 @@ def main(n_tets=N_TETS, n_small=4096, dev=None):
 
     rows = {}
 
-    def row(name, source, replaces, err, ms, plain_ms, tol_text, nbytes, ops):
+    def row(name, source, replaces, err, ms, plain_ms, tol_text, nbytes, ops, library_ms=None):
         b_ms, b_by = bound(nbytes, ops)
+        lib_text = "" if library_ms is None else f", library {library_ms:.4f} ms"
         print(f"  {name}: max err {err:.3e} ({tol_text}); kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-              f" ms, bound {b_ms:.4f} ms ({b_by})")
+              f" ms{lib_text}, bound {b_ms:.4f} ms ({b_by})")
         rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None)
+                          bound_by=b_by, library_ms=library_ms)
 
     # ---- phase 2
     print(f"phase 2: T1-T4 against twins at {n_tets} tets, {4 * n_tets} nodes")
@@ -386,7 +423,9 @@ def main(n_tets=N_TETS, n_small=4096, dev=None):
                 "body_broadphase": [broadphase.body_broadphase],
                 "pt_narrowphase": [broadphase.pt_narrowphase],
                 "pt_coupling": [tetcols.pt_coupling_setup, tetcols.pt_force],
-                "pt_tail": [pd.pt_tail]}
+                "pt_tail": [pd.pt_tail],
+                "tet_force_nodes": [proj.tet_force12_gathered, assembly.assemble_force],
+                "ell_matvec": [assembly.apply_system], "pcg": [assembly.pcg_solve]}
 
     def reset_launches():
         for fns in wrappers.values():
@@ -423,7 +462,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None):
     launches = {}
     for phase, collisions, warm, names in (
             ("3", False, FLOOR_WARMUP, list(wrappers)[:4]),
-            ("3b", True, CONTACT_WARMUP, list(wrappers))):
+            ("3b", True, CONTACT_WARMUP, list(wrappers)[:8])):
         what = "with self-contact" if collisions else "contact-free"
         print(f"phase {phase}: the main path {what}, {4 * n_tets} particles,"
               f" {warm} warm-up ticks")
@@ -482,9 +521,157 @@ def main(n_tets=N_TETS, n_small=4096, dev=None):
     d = float((runs[0] - runs[1]).abs().max())
     check(d <= 1e-3, f"trajectories agree: max |dx| {d:.3e}")
 
+    # ---- phase 5 (with 2c)
+    generic = ["substep_head", "tet_force_nodes", "ell_matvec", "pcg", "substep_tail"]
+    print(f"phase 5: the generic path on {mesh_big}")
+    t0 = time.perf_counter()
+    s = mesh_solver(pt, mesh_big, dev)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    n_nodes, n_live = st.capacity, s._builder.num_nodes
+    n_tets, m = topo.strain.idx.shape[0], topo.ell_nbr.shape[0]
+    pinned = int(topo.position.idx.shape[0] > 0)
+    state_mb = sum(t.numel() * t.element_size() for t in (
+        topo.ell_nbr, topo.ell_coef, topo.tet_inc.row_start, topo.tet_inc.entries,
+        topo.tet_inc.nodes,
+        topo.strain.idx, topo.strain.qinv, topo.strain.g, topo.strain.lo, topo.strain.hi,
+        topo.strain.w, topo.volume.lo, topo.volume.hi, topo.volume.w)) / 1e6
+    print(f"set-up {time.perf_counter() - t0:.2f} s: {n_live} nodes (capacity {n_nodes}),"
+          f" {n_tets} tet rows, ELL width {m}, {state_mb:.1f} MB of topology on the card;"
+          f" path {'tet-column' if tetcols.applies(st, topo, cfg) else 'generic'}")
+    check(not tetcols.applies(st, topo, cfg), "the mesh takes the generic path")
+    t0 = time.perf_counter()
+    s.run_ticks(mesh_warmup - 15)
+    first = None
+    for tick in range(mesh_warmup - 15, mesh_warmup):
+        c = pd.new_counters(dev)
+        advance(s, 1, False, c)
+        if first is None and int(c["floor_active"]) > 0:
+            first = tick + 1
+    print(f"{mesh_warmup} warm-up ticks of the kernels: {time.perf_counter() - t0:.2f} s;"
+          f" first floor contact at tick {first}")
+    check(first is not None and not s.sim_failed, "floor contact in the warm-up, no sim_failed")
+    warm = clone_state(s.state)
+
+    print(f"phase 2c: T9-T11 against twins on the warmed {n_live}-node mesh")
+    failed = st.sim_failed
+    x, msn, diag, wf, active = pd.substep_head_plain(clone_state(st), topo, params, cfg, True)
+    check(float(active.sum()) > 0, f"floor-active nodes in the state: {int(active.sum())}")
+    _, h2 = pd._h_h2(params)
+    bk = proj.tet_force12_gathered(x, topo.strain, topo.volume, failed)
+    bp = proj.tet_force12_gathered_plain(x, topo.strain, topo.volume)
+    fk = assembly.assemble_force(x, msn, wf, bk, topo, plane, failed)
+    fp = assembly.assemble_force_plain(x, msn, wf, bp, topo, plane)
+    torch.cuda.synchronize()
+    scale = float(fp[0].abs().max())
+    err = max(float((bk - bp).abs().max()), float((fk[0] - fp[0]).abs().max()))
+    ulps = max(max_ulp(bk, bp), max_ulp(fk[0], fp[0]), max_ulp(fk[1], fp[1]))
+    check(err <= 1e-6 * scale, f"T9 tet forces, force and static projection within 1e-6 of"
+                               f" max |f| = {scale:.4g} ({ulps} ulp)")
+
+    def t9(gather, assemble):
+        blocks = gather(x, topo.strain, topo.volume, failed)
+        assemble(x, msn, wf, blocks, topo, plane, failed)
+
+    row("tet_force_nodes", "pies_tpu_torch/kernels/csrc/tet_force_nodes.cu",
+        "pies_tpu/solver/assembly.py:188", err,
+        cuda_ms(lambda: t9(proj.tet_force12_gathered, assembly.assemble_force), 20),
+        cuda_ms(lambda: t9(proj.tet_force12_gathered_plain, assembly.assemble_force_plain), 3),
+        f"{ulps} ulp", 124 * n_tets + (52 + 12 * pinned) * n_nodes,
+        1500 * n_tets + 12 * 4 * n_tets)
+
+    yk, pk = assembly.apply_system(x, st.mass, wf, h2, topo, failed, part=True)
+    yp, pp = assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True)
+    # The same operator as one CSR matrix (the ELL's nonzero slots plus the
+    # diagonal mass/h² + wf + pin weight) for the library's sparse product.
+    ids = torch.arange(n_nodes, device=dev)
+    live = topo.ell_coef.reshape(-1) != 0
+    dg = st.mass / h2 + wf + (topo.pin_w if topo.position.idx.shape[0] else 0.0)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([ids.repeat(m)[live], ids]),
+                     torch.cat([topo.ell_nbr.reshape(-1).long()[live], ids])]),
+        torch.cat([topo.ell_coef.reshape(-1)[live], dg]), (n_nodes, n_nodes))
+    csr = coo.coalesce().to_sparse_csr()
+    lib_y = torch.sparse.mm(csr, x)
+    torch.cuda.synchronize()
+    err = float((yk - yp).abs().max())
+    lib_err = float((lib_y - yk).abs().max()) / float(yk.abs().max())
+    check(torch.equal(yk, yp) and torch.equal(pk, pp),
+          f"T10 ell_matvec and its p.Ap partials equal (library CSR product within"
+          f" {lib_err:.2e} relative)")
+    row("ell_matvec", "pies_tpu_torch/kernels/csrc/ell_matvec.cu",
+        "pies_tpu/solver/assembly.py:448", err,
+        cuda_ms(lambda: assembly.apply_system(x, st.mass, wf, h2, topo, failed, part=pk,
+                                              out=yk), 50),
+        cuda_ms(lambda: assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True), 5),
+        "equal", (8 * m + 32) * n_nodes, (6 * m + 9) * n_nodes,
+        library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x), 50))
+    del csr, coo, lib_y
+
+    cg_args = (fk[0], x, diag, st.mass, wf, h2, st.node_mask, topo, cfg.cg_iterations,
+               cfg.cg_rtol)
+    ok = assembly.pcg_solve(*cg_args, failed)
+    op = assembly.pcg_solve_plain(*cg_args, failed)
+    torch.cuda.synchronize()
+    trips = int(ok[2][0])
+    same = (torch.equal(ok[0], op[0]) and torch.equal(ok[1], op[1])
+            and trips == int(op[2][0]))
+    check(same, f"T11 pcg solution, residual partials and trips equal ({trips} trips of"
+                f" {cfg.cg_iterations}, residual {float(ok[1].sum().sqrt()):.6g})")
+    row("pcg", "pies_tpu_torch/kernels/csrc/pcg.cu",
+        "pies_tpu/solver/assembly.py:656", float((ok[0] - op[0]).abs().max()),
+        cuda_ms(lambda: assembly.pcg_solve(*cg_args, failed), 20),
+        cuda_ms(lambda: assembly.pcg_solve_plain(*cg_args, failed), 2), "equal, same trips",
+        (trips + 1) * (8 * m + 32) * n_nodes + 88 * n_nodes + trips * 128 * n_nodes,
+        (trips + 1) * (6 * m + 9) * n_nodes + trips * 30 * n_nodes)
+    del bk, bp, fk, fp, yk, yp, ok, op
+
+    reset_launches()
+    sec, counts = window(s, 10, False)
+    launches["5"] = read_launches()
+    pos = s.state.positions[:n_live]
+    check(not s.sim_failed, "no sim_failed")
+    check(bool(torch.isfinite(pos).all()), "all positions finite")
+    check(counts["floor_active"] > 0,
+          f"floor contact in the window: {counts['floor_active']} node-substeps")
+    check(all(launches["5"][n] > 0 for n in generic),
+          f"every kernel of the path launched: {launches['5']}")
+    per_tick = {n: launches["5"][n] / 10 for n in generic}
+    print(f"  kernels: {sec * 1e3:.3f} ms/tick, {1.0 / sec:.2f} steps/s ({smi}; residual"
+          f" {s.last_residual:.6g}; {counts['cg_trips'] / 10:.1f} CG trips per tick; launches"
+          f" per tick {per_tick})")
+    runs = []
+    for plain in (False, True):
+        w = clone_state(warm)
+        c = pd.new_counters(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.tick_n(w, topo, params, cfg, 3, plain=plain, counters=c)
+        torch.cuda.synchronize()
+        runs.append((w, {k: int(v) for k, v in c.items()}, (time.perf_counter() - t0) / 3))
+    check(read_launches() != launches["5"] and not runs[0][0].failed()
+          and not runs[1][0].failed(), "the kernels' run launched, no sim_failed in either")
+    d = float((runs[0][0].positions[:n_live] - runs[1][0].positions[:n_live]).abs().max())
+    check(d <= 1e-3 and runs[0][1] == runs[1][1],
+          f"kernels and twins agree over ticks 76-78: max |dx| {d:.3e}, counters {runs[0][1]}")
+    print(f"  plain twins: {runs[1][2] * 1e3:.3f} ms/tick ({smi})")
+    del s, st, warm, runs, pos
+
+    print(f"phase 5, small mesh: 40 ticks of {MESH_SMALL} with 4 pins, kernels against twins")
+    runs = []
+    for plain in (False, True):
+        s = mesh_solver(pt, MESH_SMALL, dev, SMALL_PINS)
+        c = pd.new_counters(dev)
+        step.tick_n(s.state, s.topology, s.current_params(), s.config, 40, plain=plain,
+                    counters=c)
+        check(not s.sim_failed, f"no sim_failed (plain={plain})")
+        runs.append((s.state.positions[: s._builder.num_nodes], {k: int(v) for k, v in c.items()}))
+    d = float((runs[0][0] - runs[1][0]).abs().max())
+    check(d <= 1e-3 and runs[0][1] == runs[1][1] and runs[0][1]["floor_active"] > 0,
+          f"trajectories agree: max |dx| {d:.3e}, counters {runs[0][1]}")
+
     table = []
     for name, r in rows.items():
-        r["launches"] = launches["3b"][name]
+        r["launches"] = launches["5" if name in generic[1:4] else "3b"][name]
         table.append(r)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": table}))

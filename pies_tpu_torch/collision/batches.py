@@ -112,14 +112,16 @@ def incident(inc: Incidence) -> torch.Tensor:
     return inc.row_start[1:] > inc.row_start[:-1]
 
 
-def csr_sum(inc: Incidence, vals: torch.Tensor) -> torch.Tensor:
-    """Per node, the sum of ``vals[e]`` (``vals`` f32[4·cap, w], indexed by
-    entry) over its entries, added one after another in ascending ``e``
-    from 0.0 — the JAX package's CPU scatter order.  Returns f32[N, w]."""
+def csr_sum(inc: Incidence, vals: torch.Tensor, init: torch.Tensor | None = None) -> torch.Tensor:
+    """Per node, the sum of ``vals[e]`` (``vals`` f32[E, w], indexed by
+    entry) over its entries of ``inc``, added one after another in
+    ascending ``e`` from 0.0, or from ``init`` f32[N, w] — the JAX package's
+    CPU scatter order.  Returns f32[N, w]."""
     n = inc.row_start.shape[0] - 1
     start = inc.row_start[:-1].long()
     deg = inc.row_start[1:].long() - start
-    out = torch.zeros((n, vals.shape[1]), dtype=vals.dtype, device=vals.device)
+    out = (torch.zeros((n, vals.shape[1]), dtype=vals.dtype, device=vals.device)
+           if init is None else init.clone())
     for r in range(int(deg.max()) if n else 0):
         nodes = torch.nonzero(deg > r).reshape(-1)
         out[nodes] = out[nodes] + vals[inc.entries[start[nodes] + r].long()]

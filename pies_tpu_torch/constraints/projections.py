@@ -1,9 +1,13 @@
 """Tet local step and force (port of the fused path of
-``pies_tpu/constraints/projections.py:194-207,311-356``).
+``pies_tpu/constraints/projections.py:194-207,280-356``).
 
 :func:`tet_force12` is the wrapper of kernel T1 (``kernels/csrc/
-tet_force.cu``); :func:`tet_force12_plain` is its plain PyTorch twin, used for
-CPU tensors and as the oracle on the card.
+tet_force.cu``), the element-major form of the tet-column path;
+:func:`tet_force12_gathered` is stage 1 of kernel T9 (``kernels/csrc/
+tet_force_nodes.cu``), the shared-node form that gathers its corners through
+the tet ids.  :func:`tet_force12_plain` and :func:`tet_force12_gathered_plain`
+are their plain PyTorch twins, used for CPU tensors and as the oracles on
+the card.
 """
 
 from __future__ import annotations
@@ -112,3 +116,44 @@ def tet_force12(x: torch.Tensor, strain: TetBatch, volume: TetBatch,
 
 
 tet_force12.launches = 0
+
+
+def tet_force12_gathered_plain(x: torch.Tensor, strain: TetBatch, volume: TetBatch,
+                               failed: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of T9's stage 1 (``tet_force12_fused`` with the gather,
+    ``projections.py:280-308``): the combined force of every tet of the
+    batch, corners gathered from ``x`` f32[N, 3] through ``strain.idx``, as
+    the JAX scatter's update rows ``blocks`` f32[4C, 3] (row ``a·C + t`` is
+    corner a of tet t).  ``failed`` is accepted for signature parity."""
+    idx = strain.idx.long()
+    p = [[x[idx[:, a], d] for d in range(3)] for a in range(4)]
+    f12 = tet_force12_fused_cols(p, strain, volume)
+    return torch.cat([torch.stack(f12[3 * a:3 * a + 3], dim=1) for a in range(4)])
+
+
+def tet_force12_gathered(x: torch.Tensor, strain: TetBatch, volume: TetBatch,
+                         failed: torch.Tensor | None = None) -> torch.Tensor:
+    """T9's stage 1 on a CUDA tensor, its plain twin on a CPU tensor.  On the
+    card ``failed`` is required: the kernel returns at once when its slot 0
+    is set."""
+    if kernels.on_cpu(x):
+        return tet_force12_gathered_plain(x, strain, volume, failed)
+    if failed is None:
+        raise ValueError("the gathered tet-force kernel needs the failure latch")
+    c = strain.qinv.shape[1]
+    if tuple(strain.idx.shape) != (c, 4):
+        raise ValueError(f"tet ids must be [{c}, 4], got {tuple(strain.idx.shape)}")
+    b = (strain.qinv, strain.g, strain.lo, strain.hi, strain.w,
+         volume.lo, volume.hi, volume.w)
+    kernels.require(x.device, x, strain.idx, failed, *b)
+    blocks = torch.empty((4 * c, 3), dtype=torch.float32, device=x.device)
+    err = kernels.lib().pies_tet_force12_gather(
+        x.data_ptr(), strain.idx.data_ptr(), *(t.data_ptr() for t in b),
+        blocks.data_ptr(), c, failed.data_ptr(), kernels.stream(),
+    )
+    kernels.check(err, "tet_force12_gather")
+    tet_force12_gathered.launches += 1
+    return blocks
+
+
+tet_force12_gathered.launches = 0

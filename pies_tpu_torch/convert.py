@@ -16,7 +16,14 @@ import torch
 
 from .options import CollisionBudget, PhysicsParams, SolverName, StepConfig
 from .state import BroadphaseCache, SolverState
-from .topology import PositionBatch, TetBatch, Topology, to_device
+from .topology import (
+    PositionBatch,
+    TetBatch,
+    Topology,
+    pin_weights,
+    tet_incidence,
+    to_device,
+)
 
 
 def _t(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -61,12 +68,19 @@ def state_from_numpy(state, device="cpu") -> SolverState:
 
 def topology_from_numpy(topo, device="cpu") -> Topology:
     """The port's topology from a JAX ``Topology`` with NumPy leaves (the
-    slice's fields only)."""
+    ported fields only).  The ELL operator becomes slot-major; the pin
+    weight and, with the ELL, the tet incidence are built here as the
+    port's host builds them."""
 
     def tets(b):
         return TetBatch(idx=b.idx, qinv=b.qinv, g=b.g, lo=b.lo, hi=b.hi, w=b.w)
 
+    def slot_major(a):
+        return None if a is None else np.ascontiguousarray(np.asarray(a).T)
+
     p = topo.position
+    n = np.asarray(topo.stiffness_diag).shape[0]
+    ell = getattr(topo, "ell_nbr", None)
     return to_device(
         Topology(
             strain=tets(topo.strain),
@@ -78,6 +92,10 @@ def topology_from_numpy(topo, device="cpu") -> Topology:
             position_force_dense=topo.position_force_dense,
             triangles=topo.triangles,
             tri_mask=topo.tri_mask,
+            pin_w=pin_weights(p, n),
+            ell_nbr=slot_major(ell),
+            ell_coef=slot_major(getattr(topo, "ell_coef", None)),
+            tet_inc=None if ell is None else tet_incidence(np.asarray(topo.strain.idx), n),
         ),
         device,
     )

@@ -19,6 +19,12 @@ wrappers that call them sit beside their plain PyTorch twins:
 * T7 ``pies_pt_coupling_setup``, ``pies_pt_force`` —
   ``solver/tetcols.py:pt_coupling_setup``, ``pt_force``
 * T8 ``pies_pt_tail`` — ``solver/pd.py:pt_tail``
+* T9 ``pies_tet_force12_gather``, ``pies_assemble_force`` —
+  ``constraints/projections.py:tet_force12_gathered``,
+  ``solver/assembly.py:assemble_force``
+* T10 ``pies_ell_matvec`` — ``solver/assembly.py:apply_system``
+* T11 ``pies_cg_init``, ``pies_cg_update``, ``pies_cg_direction`` —
+  ``solver/assembly.py:pcg_solve``
 
 Each source compiles to an object in its own ``nvcc`` process, all started
 together, and the objects link into one library.
@@ -62,6 +68,12 @@ SIGNATURES = {
     "pies_pt_coupling_setup": [_P] * 14 + [_I, _I, _F, _P],
     "pies_pt_force": [_P] * 9 + [_I, _I, _F, _P],
     "pies_pt_tail": [_P] * 16 + [_I, _I, _I] + [_F] * 6 + [_P],
+    "pies_tet_force12_gather": [_P] * 11 + [_I, _P, _P],
+    "pies_assemble_force": [_P] * 9 + [_I, _F, _P, _P],
+    "pies_ell_matvec": [_P] * 6 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F, _P],
+    "pies_cg_init": [_P] * 12 + [_I, _P, _P],
+    "pies_cg_update": [_P] * 12 + [_I] * 3 + [_F, _P, _P],
+    "pies_cg_direction": [_P] * 5 + [_I] * 3 + [_F, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,0 +1,79 @@
+// Fixed-order reductions and the trip gate shared by the Jacobi-PCG
+// kernels T10 (ell_matvec.cu) and T11 (pcg.cu).
+//
+// A dot product over N nodes is summed in two fixed trees, which the plain
+// twins in pies_tpu_torch/solver/assembly.py (block_partials, finalize)
+// repeat operation for operation, so kernel and twin agree bit for bit:
+//   * each block of kCgBlock = 256 threads, one node per thread, sums its
+//     256 values (0 past N) by the pairwise tree v[t] = v[t] + v[t + s],
+//     s = 128, 64, ..., 1, into one partial per block;
+//   * a stage that needs the total sums the P partials in each of its
+//     blocks: thread t adds part[t], part[t + 256], ... (0 past P) in that
+//     order, then the same 256-wide tree.  Every block gets the same total,
+//     and no launch is spent on a separate reduction.
+//
+// The gate is the condition of the JAX package's CG while_loop
+// (pies_tpu/solver/assembly.py:714-716), evaluated on the device before
+// each trip: every stage of trip i returns at once unless trips 0..i-1 ran
+// and, with the early exit on, rz_i > float32(rtol^2) * rz_0.  The host
+// enqueues all cg_iterations trips and never waits; the trips that the
+// while_loop would not run change nothing.
+#pragma once
+
+namespace pies {
+
+constexpr int kCgBlock = 256;
+
+// max(a, b) that keeps a NaN in `a`, as jnp.maximum and torch.clamp_min do.
+__device__ __forceinline__ float max_keep_nan(float a, float b) {
+  return (a != a) ? a : fmaxf(a, b);
+}
+
+// The block's pairwise tree over one value per thread; every thread gets
+// the sum.  Needs blockDim.x == kCgBlock and all threads of the block.
+__device__ __forceinline__ float block_sum(float v, float* sm) {
+  const int t = threadIdx.x;
+  __syncthreads();  // the previous call's readers of sm[0] are done
+  sm[t] = v;
+  __syncthreads();
+#pragma unroll
+  for (int s = kCgBlock / 2; s > 0; s >>= 1) {
+    if (t < s) sm[t] = sm[t] + sm[t + s];
+    __syncthreads();
+  }
+  return sm[0];
+}
+
+// The total of P block partials, the same in every block.
+__device__ __forceinline__ float finalize(const float* part, int p, float* sm) {
+  const int t = threadIdx.x;
+  const int span = (p + kCgBlock - 1) / kCgBlock * kCgBlock;
+  float acc = t < p ? part[t] : 0.0f;
+  for (int j = t + kCgBlock; j < span; j += kCgBlock)
+    acc = acc + (j < p ? part[j] : 0.0f);
+  return block_sum(acc, sm);
+}
+
+struct CgGate {
+  const int* trips;   // trips completed in this solve, or null: no gate
+  const float* prz;   // [2, P] partials of r.z; trip i reads row i & 1
+  const float* prz0;  // [P] partials of the initial r.z
+  int parts;          // P = blocks over the nodes
+  int trip;           // this trip's index i
+  int early_exit;     // cg_rtol > 0
+  float rtol2;        // float32(cg_rtol^2)
+};
+
+// The while_loop's condition before trip i; sets *rz = rz_i when gated.
+// Uniform across the block (trips reads i or i + 1 during the direction
+// stage, which writes i + 1: both pass).
+__device__ __forceinline__ bool cg_active(const CgGate& g, float* sm, float* rz) {
+  if (g.trips == nullptr) return true;
+  if (*g.trips < g.trip) return false;
+  *rz = finalize(g.prz + (size_t)(g.trip & 1) * g.parts, g.parts, sm);
+  if (!g.early_exit) return true;
+  const float rz0 = finalize(g.prz0, g.parts, sm);
+  return *rz > g.rtol2 * rz0;
+}
+
+}  // namespace pies

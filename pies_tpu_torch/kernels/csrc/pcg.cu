@@ -1,0 +1,187 @@
+// Kernel T11: the vector stages of the generic path's Jacobi-PCG, one
+// thread per node.
+//
+// Replaces (JAX): pies_tpu/solver/assembly.py:656 pcg_solve with the Jacobi
+// preconditioner 1/diag (diag from system_diag :577, which kernel T3
+// computes), the while_loop exit (i < cg_iterations) & (rz > rtol^2 rz0)
+// (:711-720), the residual sqrt(sum r^2) (:725), and the mask re-select of
+// pies_tpu/solver/pd.py:195.
+//
+// A solve is init, then cg_iterations trips of (T10 A.p, update,
+// direction), all enqueued by the host with no sync:
+//   init       r = b - A x0, z = r / diag, p = z, x = x0; partials of r.z
+//              (twice: rz_0 is kept for the exit test) and r.r; trips = 0;
+//   update     alpha = rz / max(pAp, 1e-30) if pAp > 0 else 0 from T10's
+//              partials; x += alpha p where mask > 0 (the re-select, done
+//              per trip: x is read by nothing else), r -= alpha Ap,
+//              z = r / diag; partials of r.z (the other row of the pair)
+//              and r.r;
+//   direction  beta = rz_new / max(rz, 1e-30) if rz > 0 else 0; p = z +
+//              beta p; block 0 writes trips = i + 1.
+// Every stage of a trip first evaluates the gate of cg_reduce.cuh, so the
+// trips after the while_loop's exit change nothing and `trips` ends as the
+// while_loop's trip count.  The residual partials are those of the last
+// trip that ran.  With the latch (failed slot 0) set, init writes zero
+// residual partials and every stage returns at once.
+//
+// Bound: device memory, ~92 bytes per node for update and 36 for direction
+// (x, r, z, p, Ap, diag, mask), ~14 MB per trip at 110,592 nodes with
+// T10's ~17 MB.  The design keeps the three dot products in fixed-order
+// block partials (no atomics) and puts alpha, beta and the exit test on
+// the device, so a whole solve is one stream of launches.
+#include <cuda_runtime.h>
+
+#include "cg_reduce.cuh"
+
+namespace {
+
+using pies::kCgBlock;
+
+__global__ void __launch_bounds__(kCgBlock)
+    cg_init_kernel(const float* __restrict__ b, const float* __restrict__ y,
+                   const float* __restrict__ x0,
+                   const float* __restrict__ diag, float* __restrict__ r,
+                   float* __restrict__ z, float* __restrict__ p,
+                   float* __restrict__ x, float* __restrict__ prz,
+                   float* __restrict__ prz0, float* __restrict__ prr,
+                   int* __restrict__ trips, int n,
+                   const int* __restrict__ failed) {
+  __shared__ float sm[kCgBlock];
+  if (blockIdx.x == 0 && threadIdx.x == 0) *trips = 0;
+  if (failed[0] != 0) {
+    if (threadIdx.x == 0) prr[blockIdx.x] = 0.0f;
+    return;
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float vz = 0.0f, vr = 0.0f;
+  if (i < n) {
+    const float inv = 1.0f / diag[i];
+    float ri[3], zi[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const size_t j = (size_t)i * 3 + d;
+      ri[d] = b[j] - y[j];
+      zi[d] = inv * ri[d];
+      r[j] = ri[d];
+      z[j] = zi[d];
+      p[j] = zi[d];
+      x[j] = x0[j];
+    }
+    vz = ri[0] * zi[0] + ri[1] * zi[1] + ri[2] * zi[2];
+    vr = ri[0] * ri[0] + ri[1] * ri[1] + ri[2] * ri[2];
+  }
+  const float sz = pies::block_sum(vz, sm);
+  const float sr = pies::block_sum(vr, sm);
+  if (threadIdx.x == 0) {
+    prz[blockIdx.x] = sz;
+    prz0[blockIdx.x] = sz;
+    prr[blockIdx.x] = sr;
+  }
+}
+
+__global__ void __launch_bounds__(kCgBlock)
+    cg_update_kernel(float* __restrict__ x, const float* __restrict__ p,
+                     const float* __restrict__ ap, float* __restrict__ r,
+                     float* __restrict__ z, const float* __restrict__ diag,
+                     const float* __restrict__ mask, float* prz,
+                     const float* __restrict__ pap, float* __restrict__ prr,
+                     int n, const int* __restrict__ failed,
+                     pies::CgGate gate) {
+  __shared__ float sm[kCgBlock];
+  if (failed[0] != 0) return;
+  float rz;
+  if (!pies::cg_active(gate, sm, &rz)) return;
+  const float p_ap = pies::finalize(pap, gate.parts, sm);
+  const float alpha = p_ap > 0.0f ? rz / pies::max_keep_nan(p_ap, 1e-30f) : 0.0f;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float vz = 0.0f, vr = 0.0f;
+  if (i < n) {
+    const float inv = 1.0f / diag[i];
+    const bool live = mask[i] > 0.0f;
+    float ri[3], zi[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const size_t j = (size_t)i * 3 + d;
+      if (live) x[j] = x[j] + alpha * p[j];
+      ri[d] = r[j] - alpha * ap[j];
+      zi[d] = inv * ri[d];
+      r[j] = ri[d];
+      z[j] = zi[d];
+    }
+    vz = ri[0] * zi[0] + ri[1] * zi[1] + ri[2] * zi[2];
+    vr = ri[0] * ri[0] + ri[1] * ri[1] + ri[2] * ri[2];
+  }
+  const float sz = pies::block_sum(vz, sm);
+  const float sr = pies::block_sum(vr, sm);
+  if (threadIdx.x == 0) {
+    prz[(size_t)((gate.trip + 1) & 1) * gate.parts + blockIdx.x] = sz;
+    prr[blockIdx.x] = sr;
+  }
+}
+
+__global__ void __launch_bounds__(kCgBlock)
+    cg_direction_kernel(float* __restrict__ p, const float* __restrict__ z,
+                        int* trips, int n, const int* __restrict__ failed,
+                        pies::CgGate gate) {
+  __shared__ float sm[kCgBlock];
+  if (failed[0] != 0) return;
+  float rz;
+  if (!pies::cg_active(gate, sm, &rz)) return;
+  const float rz_new = pies::finalize(
+      gate.prz + (size_t)((gate.trip + 1) & 1) * gate.parts, gate.parts, sm);
+  const float beta = rz > 0.0f ? rz_new / pies::max_keep_nan(rz, 1e-30f) : 0.0f;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const size_t j = (size_t)i * 3 + d;
+      p[j] = z[j] + beta * p[j];
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *trips = gate.trip + 1;
+}
+
+inline int blocks_for(int n) { return (n + kCgBlock - 1) / kCgBlock; }
+
+}  // namespace
+
+extern "C" int pies_cg_init(const float* b, const float* y, const float* x0,
+                            const float* diag, float* r, float* z, float* p,
+                            float* x, float* prz, float* prz0, float* prr,
+                            int* trips, int n, const int* failed,
+                            void* stream) {
+  if (n > 0) {
+    cg_init_kernel<<<blocks_for(n), kCgBlock, 0, (cudaStream_t)stream>>>(
+        b, y, x0, diag, r, z, p, x, prz, prz0, prr, trips, n, failed);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pies_cg_update(float* x, const float* p, const float* ap,
+                              float* r, float* z, const float* diag,
+                              const float* mask, float* prz,
+                              const float* prz0, const float* pap, float* prr,
+                              const int* trips, int n, int trip,
+                              int early_exit, float rtol2, const int* failed,
+                              void* stream) {
+  if (n > 0) {
+    const int blocks = blocks_for(n);
+    pies::CgGate gate{trips, prz, prz0, blocks, trip, early_exit, rtol2};
+    cg_update_kernel<<<blocks, kCgBlock, 0, (cudaStream_t)stream>>>(
+        x, p, ap, r, z, diag, mask, prz, pap, prr, n, failed, gate);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pies_cg_direction(float* p, const float* z, const float* prz,
+                                 const float* prz0, int* trips, int n,
+                                 int trip, int early_exit, float rtol2,
+                                 const int* failed, void* stream) {
+  if (n > 0) {
+    const int blocks = blocks_for(n);
+    pies::CgGate gate{trips, prz, prz0, blocks, trip, early_exit, rtol2};
+    cg_direction_kernel<<<blocks, kCgBlock, 0, (cudaStream_t)stream>>>(
+        p, z, trips, n, failed, gate);
+  }
+  return (int)cudaGetLastError();
+}

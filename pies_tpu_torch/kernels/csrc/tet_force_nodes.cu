@@ -1,0 +1,132 @@
+// Kernel T9: the local step and force assembly of one PD iteration on a
+// shared-node tet mesh, in two stages.
+//
+// Replaces (JAX): pies_tpu/constraints/projections.py:280
+// tet_force12_fused with the gather of collision/batches.py:188
+// gather_cols (stage 1, on the device function of kernel T1), and
+// pies_tpu/solver/assembly.py:188 assemble_force on this path: the pin force
+// f + position_force_dense (:232-238), the corner-major tet scatter
+// (:252-261) and the dense floor term f + wf p_static (:329-331), with
+// collision/batches.py:216 project_static_dense (stage 2).
+//
+// Stage 1, one thread per tet: gather the 4 corners through idx, compute
+// the combined strain + volume force, write it as rows k = a*C + t of
+// blocks f32[4C, 3] (the JAX scatter's update layout; one 12-byte row per
+// (tet, corner) for stage 2 to read).
+// Stage 2, one thread per node: force = ((msn + pin) + the node's rows of
+// blocks, added in ascending k as the JAX package's scatter adds them) +
+// wf * static, with static = (x, max(y, plane), z) the floor projection
+// (the plane is y = 0 in quirk mode).  The node -> (tet, corner) incidence
+// (topology.tet_incidence) fixes the order, so there are no float atomics
+// and kernel and twin agree bit for bit.
+//
+// Bound: device memory.  The function needs the tet ids and 27 parameter
+// floats per tet (124 B; ~77 MB at 622,938 tets) and 52 B per node (x, msn
+// and wf read, force and static written; ~5.8 MB at 110,592 nodes), plus
+// the dense pin force when there are pins: ~83 MB, ~25 us at 3.35 TB/s.
+// The ~1.5k float32 operations per tet take ~14 us at 67 TFLOP/s.  Stage
+// 1's corner gathers hit L2 (x is 1.3 MB) and its parameter reads are
+// coalesced ([9, C] and [12, C] rows); the incidence (~10 MB read) and
+// the 30 MB blocks round trip between the stages are the design's extra
+// cost.
+#include <cuda_runtime.h>
+
+#include "tet_force.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(128)
+    tet_force12_gather_kernel(const float* __restrict__ x,
+                              const int* __restrict__ idx,
+                              pies::TetBatchPtrs b, float* __restrict__ blocks,
+                              int c, const int* __restrict__ failed) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= c) return;
+  if (failed[0] != 0) return;
+  const int4 q = reinterpret_cast<const int4*>(idx)[t];
+  const int id[4] = {q.x, q.y, q.z, q.w};
+  float p[4][3];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int d = 0; d < 3; ++d) p[a][d] = x[(size_t)id[a] * 3 + d];
+  pies::TetParams tp;
+  pies::load_tet(b, t, tp);
+  float f[12];
+  pies::tet_force12(p, tp, f);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int d = 0; d < 3; ++d) blocks[((size_t)a * c + t) * 3 + d] = f[3 * a + d];
+}
+
+__global__ void __launch_bounds__(256)
+    assemble_force_kernel(const float* __restrict__ x,
+                          const float* __restrict__ msn,
+                          const float* __restrict__ pin,
+                          const float* __restrict__ wf,
+                          const int* __restrict__ row_start,
+                          const int* __restrict__ entries,
+                          const float* __restrict__ blocks,
+                          float* __restrict__ force, float* __restrict__ stat,
+                          int n, float plane, const int* __restrict__ failed) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (failed[0] != 0) return;
+  float f[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const size_t j = (size_t)i * 3 + d;
+    f[d] = pin != nullptr ? msn[j] + pin[j] : msn[j];
+  }
+  const int e1 = row_start[i + 1];
+  for (int e = row_start[i]; e < e1; ++e) {
+    const size_t k = (size_t)entries[e] * 3;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) f[d] = f[d] + blocks[k + d];
+  }
+  const float w = wf[i];
+  const float y = x[(size_t)i * 3 + 1];
+  const float s[3] = {x[(size_t)i * 3], y < plane ? plane : y, x[(size_t)i * 3 + 2]};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const size_t j = (size_t)i * 3 + d;
+    force[j] = f[d] + w * s[d];
+    stat[j] = s[d];
+  }
+}
+
+}  // namespace
+
+extern "C" int pies_tet_force12_gather(const float* x, const int* idx,
+                                       const float* qinv, const float* g,
+                                       const float* slo, const float* shi,
+                                       const float* sw, const float* vlo,
+                                       const float* vhi, const float* vw,
+                                       float* blocks, int c, const int* failed,
+                                       void* stream) {
+  if (c > 0) {
+    pies::TetBatchPtrs b{qinv, g, slo, shi, sw, vlo, vhi, vw, c};
+    const int threads = 128;
+    tet_force12_gather_kernel<<<(c + threads - 1) / threads, threads, 0,
+                                (cudaStream_t)stream>>>(x, idx, b, blocks, c,
+                                                        failed);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pies_assemble_force(const float* x, const float* msn,
+                                   const float* pin, const float* wf,
+                                   const int* row_start, const int* entries,
+                                   const float* blocks, float* force,
+                                   float* stat, int n, float plane,
+                                   const int* failed, void* stream) {
+  if (n > 0) {
+    const int threads = 256;
+    assemble_force_kernel<<<(n + threads - 1) / threads, threads, 0,
+                            (cudaStream_t)stream>>>(
+        x, msn, pin, wf, row_start, entries, blocks, force, stat, n, plane,
+        failed);
+  }
+  return (int)cudaGetLastError();
+}

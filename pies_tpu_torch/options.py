@@ -69,13 +69,17 @@ class CollisionBudget:
 
 @dataclass(frozen=True)
 class StepConfig:
-    """The static fields of ``pies_tpu.options.StepConfig`` that the PD
-    tet-column slice reads, with the same meanings and defaults."""
+    """The static fields of ``pies_tpu.options.StepConfig`` that the ported
+    PD paths read, with the same meanings and defaults."""
 
     solver: SolverName = SolverName.PD
     time_substeps: int = 1
     iterations: int = 4
     collision_stabilization_iterations: int = 4
+    # Jacobi-PCG of the generic path: the trip cap, and the relative
+    # early-exit tolerance (0 = always ``cg_iterations`` trips).
+    cg_iterations: int = 16
+    cg_rtol: float = 0.0
     enable_collisions: bool = True
     dense_floor: bool = True
     reference_quirks: bool = True

@@ -105,6 +105,30 @@ class SceneBuilder:
             self.volume_hi.append(np.full(tets.shape[0], volume[1], _F32))
         self.tets.append(tets)
 
+    def create_tet_box(
+        self,
+        translation,
+        scale: float,
+        initial_velocity,
+        w: float,
+        mass: float,
+        hinged: bool = False,
+    ):
+        """Tet lattice box (``PrimitiveUtilities.cpp:330-618``): 3x3x3 grid
+        (10x2x10 if hinged), six tets per cell each carrying a strain *and* a
+        volume constraint, surface triangles."""
+        dims = (10, 2, 10) if hinged else (3, 3, 3)
+        _, pos = _lattice(dims, scale, translation)
+        node_ids = self._emit_nodes(
+            pos,
+            velocity=initial_velocity,
+            inv_mass=1.0 / mass,
+            radius=0.95 * 0.5 * scale,
+        )
+        gid = node_ids.reshape(dims)
+        self._emit_tets(_six_tets_per_cell(gid), w)
+        self._emit_triangles(_box_surface_tris(gid))
+
     def create_tet_soup(
         self, count: int, spacing: float, scale: float, w: float, mass=1.0,
         jitter: float = 0.0, height: float = 2.0,
@@ -130,3 +154,66 @@ class SceneBuilder:
         bodies = start_body + np.repeat(np.arange(tets.shape[0], dtype=_I32), 4)
         self._emit_triangles(tets[:, faces].reshape(-1, 3), bodies)
         return node_ids
+
+
+# ---------------------------------------------------------------------------
+# lattice helpers (pies_tpu/scene/builder.py:444-548)
+
+
+def _lattice(dims, scale, translation):
+    """Positions for an x-major lattice, matching the reference's loop order
+    (``PrimitiveUtilities.cpp:355-373``)."""
+    i, j, k = np.meshgrid(*(np.arange(d) for d in dims), indexing="ij")
+    pos = (
+        scale * np.stack([i, j, k], axis=-1).reshape(-1, 3).astype(_F32)
+        + np.asarray(translation, _F32)
+    )
+    return np.arange(pos.shape[0], dtype=_I32), pos
+
+
+def _six_tets_per_cell(gid):
+    """The reference's 6-tet cell decomposition
+    (``PrimitiveUtilities.cpp:401-514``)."""
+    c000 = gid[:-1, :-1, :-1].reshape(-1)
+    c001 = gid[:-1, :-1, 1:].reshape(-1)
+    c010 = gid[:-1, 1:, :-1].reshape(-1)
+    c011 = gid[:-1, 1:, 1:].reshape(-1)
+    c100 = gid[1:, :-1, :-1].reshape(-1)
+    c101 = gid[1:, :-1, 1:].reshape(-1)
+    c110 = gid[1:, 1:, :-1].reshape(-1)
+    c111 = gid[1:, 1:, 1:].reshape(-1)
+    tets = [
+        (c000, c001, c011, c111),
+        (c000, c010, c011, c111),
+        (c000, c001, c101, c111),
+        (c000, c100, c101, c111),
+        (c000, c010, c110, c111),
+        (c000, c100, c110, c111),
+    ]
+    return np.concatenate([np.stack(t, axis=-1) for t in tets], axis=0).astype(_I32)
+
+
+def _box_surface_tris(gid):
+    """Surface triangulation of a lattice box, all six faces wound outward
+    (``PrimitiveUtilities.cpp:519-606``)."""
+    tris = []
+
+    def face(grid2d, flip):
+        a = grid2d[:-1, :-1].reshape(-1)
+        b = grid2d[1:, 1:].reshape(-1)
+        c = grid2d[1:, :-1].reshape(-1)
+        d = grid2d[:-1, 1:].reshape(-1)
+        if flip:
+            tris.append(np.stack([a, b, c], axis=-1))
+            tris.append(np.stack([a, d, b], axis=-1))
+        else:
+            tris.append(np.stack([a, c, b], axis=-1))
+            tris.append(np.stack([a, b, d], axis=-1))
+
+    face(gid[:, :, 0], True)
+    face(gid[:, :, -1], False)
+    face(gid[:, 0, :], False)
+    face(gid[:, -1, :], True)
+    face(gid[0, :, :], True)
+    face(gid[-1, :, :], False)
+    return np.concatenate(tris, axis=0).astype(_I32)

@@ -1,14 +1,31 @@
-"""PD system diagonal (port of the dense-floor and point-triangle branches
-of ``pies_tpu/solver/assembly.py:338-368,577-599``).
+"""PD global system: diagonals, and the generic path's force, operator and
+Jacobi-PCG (port of ``pies_tpu/solver/assembly.py:188-335,338-368,448-512,
+577-599,656-725`` for the ported scenes).
 
-The generic PD path (matrix-free apply, PCG, the other constraint families)
-is not ported yet: the tet-column slice solves its 4x4 blocks directly.
+The tet-column path solves its 4x4 blocks directly and needs only the
+diagonals.  The generic path, for shared-node tet meshes, runs per PD
+iteration:
+
+* T9's stage 2 :func:`assemble_force` — ``((M·sₙ/h² + pin force) + the tet
+  forces of T9's stage 1, per node in the JAX scatter order) + w_f·p_static``
+  and the static projection;
+* T10 :func:`apply_system` — ``(M/h² + w_f)·x + pin_w·x + Σ coef·x[nbr]``
+  over the assembled ELL operator;
+* T11 :func:`pcg_solve` — the Jacobi-PCG with the JAX package's trip cap
+  and early exit, each trip one T10 launch and two T11 launches.
+
+Each has a plain twin (``*_plain``).  The CG's dot products are summed in
+the kernels' fixed block order (:func:`block_partials`, :func:`finalize`),
+so kernel and twin agree bit for bit; against the JAX package (whose sums
+XLA orders) they agree to float32 roundoff.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import kernels
 from ..collision.batches import (
     ATA_DIFF4,
     W_POINT_TRI,
@@ -18,7 +35,10 @@ from ..collision.batches import (
     csr_sum,
     incidence_plain,
 )
+from ..ops.math3d import ieee_div as _div
 from ..topology import Topology
+
+CG_BLOCK = 256  # pies::kCgBlock in kernels/csrc/cg_reduce.cuh
 
 
 def static_collision_diag(colls: CollisionSet, floor_count: torch.Tensor) -> torch.Tensor:
@@ -47,3 +67,251 @@ def system_diag(mass_over_h2: torch.Tensor, topo: Topology,
     folded in between the two sums by ``tetcols.pt_coupling_setup``."""
     diag = mass_over_h2 + topo.stiffness_diag
     return diag + static_collision_diag(colls, topo.floor_count)
+
+
+def _pins(topo: Topology) -> bool:
+    return topo.position.idx.shape[0] > 0
+
+
+# ---------------------------------------------------------------------------
+# T9 stage 2: the force
+
+
+def assemble_force_plain(x, msn_h2, wf, blocks, topo: Topology, plane: float,
+                         failed=None):
+    """Plain twin of T9's stage 2.  ``x`` f32[N, 3] is the iterate, ``msn_h2``
+    its ``M·sₙ/h²``, ``wf`` f32[N] the floor weight, ``blocks`` f32[4C, 3]
+    stage 1's tet forces.  Returns ``(force, static)`` f32[N, 3]: the right
+    side ``((msn + pin force) + Σ tet rows) + wf·static`` and the floor
+    projection ``static = (x, max(y, plane), z)``.  ``failed`` is accepted
+    for signature parity."""
+    f = msn_h2 + topo.position_force_dense if _pins(topo) else msn_h2
+    f = csr_sum(topo.tet_inc, blocks, f)
+    y = x[:, 1]
+    static = torch.stack([x[:, 0], torch.where(y < plane, plane, y), x[:, 2]], dim=1)
+    return f + wf[:, None] * static, static
+
+
+def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=None):
+    """T9's stage 2 on CUDA tensors, :func:`assemble_force_plain` on CPU
+    tensors.  On the card ``failed`` is required."""
+    if kernels.on_cpu(x):
+        return assemble_force_plain(x, msn_h2, wf, blocks, topo, plane, failed)
+    if failed is None:
+        raise ValueError("the force kernel needs the failure latch")
+    inc = topo.tet_inc
+    n = x.shape[0]
+    pin = topo.position_force_dense if _pins(topo) else None
+    if pin is not None and pin.shape[0] != n:
+        raise ValueError("pin force must be dense over the capacity")
+    if inc.row_start.shape[0] != n + 1 or blocks.shape[0] != inc.entries.shape[0]:
+        raise ValueError("the tet incidence does not match the nodes or the tet rows")
+    kernels.require(x.device, x, msn_h2, pin, wf, inc.row_start, inc.entries, blocks, failed)
+    force, static = torch.empty_like(x), torch.empty_like(x)
+    err = kernels.lib().pies_assemble_force(
+        x.data_ptr(), msn_h2.data_ptr(), kernels.ptr(pin), wf.data_ptr(),
+        inc.row_start.data_ptr(), inc.entries.data_ptr(), blocks.data_ptr(),
+        force.data_ptr(), static.data_ptr(), n, float(plane), failed.data_ptr(),
+        kernels.stream(),
+    )
+    kernels.check(err, "assemble_force")
+    assemble_force.launches += 1
+    return force, static
+
+
+assemble_force.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fixed-order reductions (kernels/csrc/cg_reduce.cuh)
+
+
+def _dot3(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return u[:, 0] * v[:, 0] + u[:, 1] * v[:, 1] + u[:, 2] * v[:, 2]
+
+
+def _tree(w: torch.Tensor) -> torch.Tensor:
+    """The 256-wide pairwise tree over the last axis: v[t] += v[t + s]."""
+    s = CG_BLOCK // 2
+    while s:
+        w = w[..., :s] + w[..., s:2 * s]
+        s //= 2
+    return w[..., 0]
+
+
+def block_partials(v: torch.Tensor) -> torch.Tensor:
+    """Per-block sums f32[P] of per-node values f32[N], blocks of 256 nodes
+    (0 past N), each by the kernels' pairwise tree."""
+    n = v.shape[0]
+    p = -(-n // CG_BLOCK)
+    w = torch.zeros(p * CG_BLOCK, dtype=v.dtype, device=v.device)
+    w[:n] = v
+    return _tree(w.view(p, CG_BLOCK)).contiguous()
+
+
+def finalize(part: torch.Tensor) -> torch.Tensor:
+    """The total (a 0-d tensor) of block partials f32[P] in the kernels'
+    order: lane t sums part[t], part[t + 256], ... (0 past P), then the
+    tree."""
+    p = part.shape[0]
+    k = -(-p // CG_BLOCK)
+    w = torch.zeros(k * CG_BLOCK, dtype=part.dtype, device=part.device)
+    w[:p] = part
+    w = w.view(k, CG_BLOCK)
+    acc = w[0]
+    for j in range(1, k):
+        acc = acc + w[j]
+    return _tree(acc)
+
+
+# ---------------------------------------------------------------------------
+# T10: the operator
+
+
+def apply_system_plain(x, mass, wf, h2: float, topo: Topology, part: bool = False):
+    """Plain twin of T10: ``y = (mass/h² + wf)·x + pin_w·x + Σₘ coef·x[nbr]``
+    (slot order) f32[N, 3]; with ``part`` also the block partials of
+    ``x·y``, else None."""
+    y = (_div(mass, h2) + wf)[:, None] * x
+    if _pins(topo):
+        y = y + topo.pin_w[:, None] * x
+    nbr, coef = topo.ell_nbr, topo.ell_coef
+    acc = coef[0][:, None] * x[nbr[0].long()]
+    for s in range(1, nbr.shape[0]):
+        acc = acc + coef[s][:, None] * x[nbr[s].long()]
+    y = y + acc
+    return y, (block_partials(_dot3(x, y)) if part else None)
+
+
+def apply_system(x, mass, wf, h2: float, topo: Topology, failed=None,
+                 part: bool | torch.Tensor = False, out=None, gate=None):
+    """T10 on CUDA tensors, :func:`apply_system_plain` on CPU tensors (same
+    results).  On the card: ``failed`` is required; ``out`` (f32[N, 3]) and
+    ``part`` (f32[P], or True for a new one) receive the results; ``gate``
+    ``(trips, prz, prz0, trip, early_exit, rtol2)`` makes the launch CG trip
+    ``trip`` of :func:`pcg_solve`, which returns at once after the exit."""
+    if kernels.on_cpu(x):
+        return apply_system_plain(x, mass, wf, h2, topo, part is not False)
+    if failed is None:
+        raise ValueError("the operator kernel needs the failure latch")
+    n = x.shape[0]
+    nbr, coef = topo.ell_nbr, topo.ell_coef
+    if nbr is None or nbr.shape != coef.shape or nbr.shape[1] != n:
+        raise ValueError("the operator kernel needs the slot-major ELL over the capacity")
+    pin_w = topo.pin_w if _pins(topo) else None
+    y = torch.empty_like(x) if out is None else out
+    if part is True:
+        part = torch.empty(-(-n // CG_BLOCK), dtype=torch.float32, device=x.device)
+    part = part if isinstance(part, torch.Tensor) else None
+    trips, prz, prz0, trip, early, rtol2 = gate if gate is not None else (None,) * 3 + (0, 0, 0.0)
+    kernels.require(x.device, x, mass, wf, pin_w, nbr, coef, y, part, failed, trips, prz, prz0)
+    err = kernels.lib().pies_ell_matvec(
+        x.data_ptr(), mass.data_ptr(), wf.data_ptr(), kernels.ptr(pin_w), nbr.data_ptr(),
+        coef.data_ptr(), nbr.shape[0], y.data_ptr(), kernels.ptr(part), n, float(h2),
+        failed.data_ptr(), kernels.ptr(trips), kernels.ptr(prz), kernels.ptr(prz0),
+        int(trip), int(early), float(rtol2), kernels.stream(),
+    )
+    kernels.check(err, "ell_matvec")
+    apply_system.launches += 1
+    return y, part
+
+
+apply_system.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# T11: Jacobi-PCG
+
+
+def _rtol2(rtol: float) -> float:
+    """``rtol·rtol`` as the float32 the JAX package multiplies ``rz0`` by."""
+    return float(np.float32(rtol * rtol))
+
+
+def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
+                    iterations: int, rtol: float = 0.0, failed=None):
+    """Plain twin of T11 (with T10's twin as the operator): Jacobi-PCG on the
+    stacked 3-RHS system from ``x0``, at most ``iterations`` trips, stopping
+    before a trip once ``rz ≤ rtol²·rz0`` when ``rtol > 0``
+    (``assembly.py:656-725``), and the mask re-select of ``pd.py:195``.
+    Returns ``(x f32[N, 3], prr f32[P], trips i32[1])``: the solution, the
+    block partials of the final ``r·r`` (zero when ``failed`` slot 0 is
+    set) and the trips run."""
+    dev = b.device
+    if failed is not None and bool(failed[0]):
+        return (x0.clone(), torch.zeros(-(-b.shape[0] // CG_BLOCK), device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+    y, _ = apply_system_plain(x0, mass, wf, h2, topo)
+    r = b - y
+    inv = _div(torch.ones_like(diag), diag)[:, None]
+    z = inv * r
+    p, x = z, x0
+    rz = finalize(block_partials(_dot3(r, z)))
+    prr = block_partials(_dot3(r, r))
+    tol2 = rz * _rtol2(rtol)
+    trips = 0
+    live = mask[:, None] > 0
+    for _ in range(iterations):
+        if rtol > 0.0 and not bool(rz > tol2):
+            break
+        ap, pap = apply_system_plain(p, mass, wf, h2, topo, part=True)
+        p_ap = finalize(pap)
+        alpha = torch.where(p_ap > 0, rz / torch.clamp_min(p_ap, 1e-30), 0.0)
+        x = torch.where(live, x + alpha * p, x)
+        r = r - alpha * ap
+        z = inv * r
+        rz_new = finalize(block_partials(_dot3(r, z)))
+        prr = block_partials(_dot3(r, r))
+        beta = torch.where(rz > 0, rz_new / torch.clamp_min(rz, 1e-30), 0.0)
+        p = z + beta * p
+        rz = rz_new
+        trips += 1
+    return x, prr, torch.full((1,), trips, dtype=torch.int32, device=dev)
+
+
+def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations: int,
+              rtol: float = 0.0, failed=None):
+    """T10 + T11 on CUDA tensors, :func:`pcg_solve_plain` on CPU tensors
+    (same arguments and results; ``trips`` stays on the device).  Enqueues
+    the init and all ``iterations`` trips without waiting: the trips past
+    the exit return at once on the device."""
+    if kernels.on_cpu(b):
+        return pcg_solve_plain(b, x0, diag, mass, wf, h2, mask, topo, iterations, rtol,
+                               failed)
+    if failed is None:
+        raise ValueError("the CG kernels need the failure latch")
+    n = b.shape[0]
+    dev = b.device
+    kernels.require(dev, b, x0, diag, mask)
+    parts = -(-n // CG_BLOCK)
+    scal = torch.empty((5, parts), dtype=torch.float32, device=dev)
+    prz, prz0, pap, prr = scal[0:2], scal[2], scal[3], scal[4]
+    trips = torch.empty(1, dtype=torch.int32, device=dev)
+    r, z, p, x, ap = (torch.empty_like(b) for _ in range(5))
+    lib, stream = kernels.lib(), kernels.stream()
+    apply_system(x0, mass, wf, h2, topo, failed, out=ap)
+    err = lib.pies_cg_init(
+        b.data_ptr(), ap.data_ptr(), x0.data_ptr(), diag.data_ptr(), r.data_ptr(),
+        z.data_ptr(), p.data_ptr(), x.data_ptr(), prz.data_ptr(), prz0.data_ptr(),
+        prr.data_ptr(), trips.data_ptr(), n, failed.data_ptr(), stream)
+    kernels.check(err, "cg_init")
+    pcg_solve.launches += 1
+    early, rtol2 = int(rtol > 0.0), _rtol2(rtol)
+    for i in range(iterations):
+        apply_system(p, mass, wf, h2, topo, failed, part=pap, out=ap,
+                     gate=(trips, prz, prz0, i, early, rtol2))
+        err = lib.pies_cg_update(
+            x.data_ptr(), p.data_ptr(), ap.data_ptr(), r.data_ptr(), z.data_ptr(),
+            diag.data_ptr(), mask.data_ptr(), prz.data_ptr(), prz0.data_ptr(),
+            pap.data_ptr(), prr.data_ptr(), trips.data_ptr(), n, i, early, rtol2,
+            failed.data_ptr(), stream)
+        kernels.check(err, "cg_update")
+        err = lib.pies_cg_direction(
+            p.data_ptr(), z.data_ptr(), prz.data_ptr(), prz0.data_ptr(), trips.data_ptr(),
+            n, i, early, rtol2, failed.data_ptr(), stream)
+        kernels.check(err, "cg_direction")
+        pcg_solve.launches += 2
+    return x, prr, trips
+
+
+pcg_solve.launches = 0

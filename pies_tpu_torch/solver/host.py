@@ -2,12 +2,20 @@
 ``pies_tpu/solver/host.py``).
 
 Same keyword surface as the JAX package's ``Solver`` plus ``device=``.  The
-ported slice is the PD tick on the disjoint tet soup with floor contact,
-self-contact through the packed-body detection, and optional position pins;
-anything outside it raises ``NotImplementedError`` naming the ROADMAP item
-that will bring it.  Keyword arguments that only steer code paths the slice
-does not take (the CG settings, ``dense_operator_max``) are accepted and
-have no effect: the tet-column path solves its 4x4 blocks exactly.
+ported scope is the PD tick with floor contact and optional position pins on
+two paths:
+
+* the tet-column path, for disjoint tet soups (``create_tet_soup``), with
+  self-contact through the packed-body detection;
+* the generic path, for shared-node tet meshes (``create_tet_box``, or an
+  imported mesh through ``scene.mesh_dump.add_tet_mesh``) with self-contact
+  off: the assembled ELL operator and Jacobi-PCG, where ``cg_iterations``
+  and ``cg_rtol`` take effect as in the JAX package.
+
+Anything outside it raises ``NotImplementedError`` naming the ROADMAP item
+that will bring it.  ``dense_operator_max`` is accepted and has no effect:
+the port's generic path always runs Jacobi-PCG, and the JAX package's dense
+prefactorization for small scenes is not ported (ROADMAP, "Not to port").
 """
 
 from __future__ import annotations
@@ -20,7 +28,6 @@ import torch
 import dataclasses
 
 from ..collision import broadphase
-from ..collision.batches import CollisionSet
 from ..options import CollisionBudget, SolverName, SolverOptions, StepConfig, make_params
 from ..scene.builder import SceneBuilder
 from ..state import SolverState, empty_broadphase_cache, make_state
@@ -32,10 +39,10 @@ _F32 = np.float32
 # Solver methods of the JAX package that the port does not have yet, with the
 # ROADMAP item (queue 1) that brings them.
 _NOT_PORTED = {
-    "add_nodes": 9, "create_box": 5, "create_tet_box": 5, "create_sheet": 5,
-    "create_shape_matching_box": 5, "create_shape_matching_sheet": 5,
-    "create_bend_sheet": 5, "create_rope": 7, "add_fixed_regions": 5,
-    "add_linked_regions": 5, "add_tri_mesh_volume": 9,
+    "add_nodes": 9, "create_box": "5b", "create_sheet": "5b",
+    "create_shape_matching_box": "5b", "create_shape_matching_sheet": "5b",
+    "create_bend_sheet": "5b", "create_rope": 7, "add_fixed_regions": "5b",
+    "add_linked_regions": "5b", "add_tri_mesh_volume": 9,
     "update_fixed_regions": 9, "clear": 9, "get_lines": 9,
     "get_triangles": 9, "save": 9, "load": 9,
 }
@@ -63,6 +70,24 @@ def _packed_layout(tris: np.ndarray, stride: int, padded_t: int, cap: int):
     ):
         return m, int(mins[0]), tuple(tuple(int(v) for v in row) for row in local[0])
     return 0, 0, ()
+
+
+def _check_generic(topology, config: StepConfig) -> None:
+    """Raise unless a scene off the tet-column path can take the port's
+    generic path: PD (checked before), strain, volume and pin constraints
+    only (the port's builders emit no other family), fused tets, the
+    assembled ELL operator, and no self-contact."""
+    if not config.tet_fused:
+        raise NotImplementedError(
+            "unfused strain/volume tets on the generic path are ROADMAP queue 1 item 5b")
+    if topology.ell_nbr is None:
+        raise NotImplementedError(
+            "a tet scene without the ELL operator (banded, more than 64 neighbours, or no"
+            " live tet; the _tet_ata_flat and tet_block forms) is ROADMAP queue 1 item 5b")
+    if config.enable_collisions:
+        raise NotImplementedError(
+            "self-contact off the disjoint tet soup (the super-body broadphase) is ROADMAP"
+            " queue 1 item 6")
 
 
 class Solver:
@@ -98,6 +123,8 @@ class Solver:
         if enable_node_collisions:
             raise NotImplementedError("PD node-node contacts are ROADMAP queue 1 item 8")
         self._options = options or SolverOptions()
+        self._cg_iterations = cg_iterations
+        self._cg_rtol = cg_rtol
         self._builder = SceneBuilder(seed=seed)
         self._enable_collisions = enable_collisions
         self._reference_quirks = reference_quirks
@@ -138,11 +165,18 @@ class Solver:
     # ------------------------------------------------------------------
     # scene construction
 
-    def create_tet_soup(self, count, spacing, scale, w, **kwargs):
-        out = self._builder.create_tet_soup(count, spacing, scale, w, **kwargs)
+    def _scene(self, fn, *args, **kwargs):
+        out = fn(*args, **kwargs)
         self._dirty = True
         self.render_state_dirty = True
         return out
+
+    def create_tet_soup(self, count, spacing, scale, w, **kwargs):
+        return self._scene(self._builder.create_tet_soup, count, spacing, scale, w, **kwargs)
+
+    def create_tet_box(self, translation, scale, initial_velocity, w, mass, hinged=False):
+        return self._scene(self._builder.create_tet_box, translation, scale,
+                           initial_velocity, w, mass, hinged)
 
     # ------------------------------------------------------------------
     # stepping
@@ -229,6 +263,8 @@ class Solver:
             iterations=int(self._options.iterations),
             collision_stabilization_iterations=int(
                 self._options.collision_stabilization_iterations),
+            cg_iterations=int(self._cg_iterations),
+            cg_rtol=float(self._cg_rtol),
             enable_collisions=bool(self._enable_collisions and tris.shape[0]),
             reference_quirks=self._reference_quirks,
             broadphase_mode=self._broadphase_mode,
@@ -252,12 +288,8 @@ class Solver:
             kb = int(topology.triangles.shape[0]) // budget.body_stride
             state.bp = empty_broadphase_cache(kb, budget.max_narrow_bodies, kb * body_nodes,
                                               self._device)
-        colls = CollisionSet(floor_active=np.zeros(cap, _F32))
-        if not tetcols.applies(state, topology, colls, config):
-            raise NotImplementedError(
-                "only disjoint tet soups take the ported tet-column path; the"
-                " generic PD path is ROADMAP queue 1 item 5"
-            )
+        if not tetcols.applies(state, topology, config):
+            _check_generic(topology, config)
         self._state = state
         self._topology = topo_mod.to_device(topology, self._device)
         self._config = config

@@ -1,8 +1,8 @@
-"""Projective Dynamics substep on the tet-column path (port of
-``pies_tpu/solver/pd.py:59-130,316-435,526-617``).
+"""Projective Dynamics substep (port of
+``pies_tpu/solver/pd.py:59-313,316-435,526-617``).
 
 A substep is a fixed sequence of launches on the card, each with a plain
-PyTorch twin:
+PyTorch twin.  On the tet-column path (disjoint tet soups):
 
 * T3 :func:`substep_head` — inertia estimate, floor detection on the
   predicted positions, the system diagonal and the floor weight;
@@ -19,9 +19,17 @@ PyTorch twin:
 * T4 :func:`substep_tail` — floor snap, velocity, floor friction, the state
   update and the failure latch, in place on the state.
 
-The JAX package's ``lax.cond``s on runtime data (any contact, any live
-pair, any crossing) become device counts that the kernels read and exit on:
-the host never waits for the device within a tick.
+On the generic path (shared-node tet meshes: wherever ``tetcols.applies``
+fails, as in the JAX package): T3, then
+per PD iteration T9 (``tet_force12_gathered`` and ``assembly.assemble_force``:
+the tet forces and the right-hand side) and a Jacobi-PCG solve
+(``assembly.pcg_solve``: T10 operator applies and T11 vector stages), then
+T4.
+
+The JAX package's ``lax.cond``s and ``while_loop``s on runtime data (any
+contact, any live pair, any crossing, the CG's early exit) become device
+counts and flags that the kernels read and exit on: the host never waits
+for the device within a tick.
 """
 
 from __future__ import annotations
@@ -46,7 +54,12 @@ from ..collision.batches import (
     _dot3,
     _unit_normal_div,
 )
-from ..constraints.projections import tet_force12, tet_force12_plain
+from ..constraints.projections import (
+    tet_force12,
+    tet_force12_gathered,
+    tet_force12_gathered_plain,
+    tet_force12_plain,
+)
 from ..ops.math3d import ieee_div as _div
 from ..options import PhysicsParams, StepConfig
 from ..state import SolverState
@@ -352,27 +365,56 @@ substep_tail.launches = 0
 
 _KERNELS = dict(head=substep_head, force=tet_force12, cols=tetcols.substep_cols,
                 setup=tetcols.pt_coupling_setup, pt_force=tetcols.pt_force,
-                pt_tail=pt_tail, tail=substep_tail)
+                pt_tail=pt_tail, tail=substep_tail, gforce=tet_force12_gathered,
+                assemble=assembly.assemble_force, pcg=assembly.pcg_solve)
 _PLAIN = dict(head=substep_head_plain, force=tet_force12_plain, cols=tetcols.substep_cols_plain,
               setup=tetcols.pt_coupling_setup_plain, pt_force=tetcols.pt_force_plain,
-              pt_tail=pt_tail_plain, tail=substep_tail_plain)
+              pt_tail=pt_tail_plain, tail=substep_tail_plain,
+              gforce=tet_force12_gathered_plain, assemble=assembly.assemble_force_plain,
+              pcg=assembly.pcg_solve_plain)
 
 
-COUNTERS = ("floor_active", "contacts", "rebuilds")
+COUNTERS = ("floor_active", "contacts", "rebuilds", "cg_trips")
 
 
 def new_counters(device) -> dict[str, torch.Tensor]:
     """Zeroed device counters for :func:`pd_substep`: floor-active nodes,
-    live point-triangle contacts and broadphase cache rebuilds, each summed
-    over substeps."""
+    live point-triangle contacts, broadphase cache rebuilds and CG trips,
+    each summed over substeps."""
     return {name: torch.zeros((), dtype=torch.int64, device=device) for name in COUNTERS}
+
+
+def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
+                     config: StepConfig, k: dict, head, counters) -> torch.Tensor:
+    """The PD iterations and tail of :func:`pd_substep` on the generic path
+    (``pd.py:184-196,306``): each iteration's local step and force (T9) and
+    its Jacobi-PCG solve warm-started from the iterate (T10/T11), with the
+    last local step's static projection kept for the floor snap.  The zero
+    point-triangle diagonal that the JAX package adds with self-contact off
+    is left out, which is exact."""
+    x, msn_h2, diag, wf, active = head
+    failed = state.sim_failed
+    _, h2 = _h_h2(params)
+    plane = floor_plane(params, config.reference_quirks)
+    x_it, static_proj = x, torch.zeros_like(x)
+    prr = torch.zeros(1, dtype=x.dtype, device=x.device)
+    for _ in range(config.iterations):
+        blocks = k["gforce"](x_it, topo.strain, topo.volume, failed)
+        force, static_proj = k["assemble"](x_it, msn_h2, wf, blocks, topo, plane, failed)
+        x_it, prr, trips = k["pcg"](force, x_it, diag, state.mass, wf, h2, state.node_mask,
+                                    topo, config.cg_iterations, config.cg_rtol, failed)
+        if counters is not None:
+            counters["cg_trips"].add_(trips[0])
+    k["tail"](state, topo, params, active, x_it, static_proj)
+    return torch.sqrt(torch.sum(prr))
 
 
 def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
                config: StepConfig, fold: bool, plain: bool = False,
                counters: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
-    """One PD substep on the tet-column path, in place on ``state``; returns
-    the device-side residual ``‖b − A·x‖`` of its last iteration.
+    """One PD substep on the tet-column or the generic path, in place on
+    ``state``; returns the device-side residual of its last iteration
+    (``‖b − A·x‖`` of the block solve, or of the last CG).
 
     ``plain=True`` runs the plain twins whatever the device (the card's
     reference run); otherwise each wrapper picks the kernel for a CUDA state
@@ -380,11 +422,14 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     are summed on the device, never read here: one small reduction or add
     per counter and substep."""
     k = _PLAIN if plain else _KERNELS
-    x, msn_h2, diag, wf, active = k["head"](state, topo, params, config, fold)
+    head = k["head"](state, topo, params, config, fold)
+    x, msn_h2, diag, wf, active = head
     failed = state.sim_failed
     colls = inc = fric = pt = None
     if counters is not None:
         counters["floor_active"].add_(active.sum().to(torch.int64))
+    if not tetcols.applies(state, topo, config):
+        return _generic_substep(state, topo, params, config, k, head, counters)
     if self_contact(config, topo):
         colls = detect_point_tri(state, x, topo, params, config, active, plain)
         if counters is not None:

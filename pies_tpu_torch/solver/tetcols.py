@@ -41,12 +41,14 @@ from ..topology import Topology
 from . import assembly
 
 
-def applies(state, topo: Topology, colls: CollisionSet, config: StepConfig) -> bool:
+def applies(state, topo: Topology, config: StepConfig) -> bool:
     """Static eligibility for the tet-column path, as in the JAX package:
     the block-diagonal layout covering the whole capacity, the fused
     contiguous tet local step, diagonal-only contact coupling, dense floor
     contacts, and (besides position pins) no other constraint family — the
-    port's scene builder emits none."""
+    port's scene builder emits none.  The host checks it once per scene and
+    ``pd.pd_substep`` dispatches on it; a scene where it fails takes the
+    generic path."""
     n_pins = topo.position.idx.shape[0]
     return (
         config.tet_cols
@@ -57,7 +59,7 @@ def applies(state, topo: Topology, colls: CollisionSet, config: StepConfig) -> b
         and config.volume_contiguous
         and config.contact_coupling in ("diagonal", "recentered")
         and (n_pins == 0 or topo.position_force_dense.shape[0] == state.capacity)
-        and colls.floor_active.shape[0] > 0
+        and config.dense_floor
     )
 
 

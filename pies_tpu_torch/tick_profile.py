@@ -1,20 +1,26 @@
 """Where a tick of the PyTorch + CUDA port spends its time, on one GPU.
 
     python3 -m pies_tpu_torch.tick_profile [n_tets] [repeats] [--collisions]
+    python3 -m pies_tpu_torch.tick_profile --mesh [repeats]
 
 Builds the 500k-particle soup (``create_tet_soup(n_tets, spacing=1.6,
 scale=0.8, w=2000.0, height=0.5, jitter=0.05)``, 125,000 tets by default),
-self-contact off, or on with ``--collisions``.  It warms up until the
-window it measures is contact-active: 30 ticks without self-contact (the
-bottom layer reaches the floor at tick ~25), 45 with it (the layers meet at
-tick ~40, once the bottom one rests on the floor).  Then:
+self-contact off, or on with ``--collisions``; or, with ``--mesh``, the
+imported 110,592-node / 622,938-tet mesh
+(``scripts/refbench/tet_cube_mesh_100k.txt``, w = 1000, self-contact off),
+which runs the generic path.  It warms up until the window it measures is
+contact-active: 30 ticks without self-contact (the bottom layer reaches the
+floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
+bottom one rests on the floor), 75 for the mesh (its bottom, 3.0 above the
+floor, meets it at tick 70).  Then:
 
 * times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
   ends in a synchronize) and prints each, for the spread;
-* traces 10 ticks with ``torch.profiler`` and prints the device time per
-  kernel name and the device's busy share of the traced wall time;
-* reads the device counters of the 10 traced ticks once: floor-active node
-  substeps, live contacts and broadphase cache rebuilds.
+* traces 10 ticks with ``torch.profiler`` and the device counters off, and
+  prints the device's busy share of the traced wall time;
+* traces 10 more with the counters on, prints the same share, the device
+  time per kernel name, and the counters read once: floor-active node
+  substeps, live contacts, broadphase cache rebuilds and CG trips.
 
 Prints the card's name and power limit first.  Needs a CUDA device.
 """
@@ -22,11 +28,13 @@ Prints the card's name and power limit first.  Needs a CUDA device.
 import subprocess
 import sys
 import time
+from pathlib import Path
 
-FLOOR_WARMUP, CONTACT_WARMUP = 30, 45
+FLOOR_WARMUP, CONTACT_WARMUP, MESH_WARMUP = 30, 45, 75
+MESH = Path(__file__).resolve().parent.parent / "scripts" / "refbench" / "tet_cube_mesh_100k.txt"
 
 
-def main(n_tets=125_000, repeats=5, collisions=False):
+def main(n_tets=125_000, repeats=5, collisions=False, mesh=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -40,30 +48,47 @@ def main(n_tets=125_000, repeats=5, collisions=False):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    print(f"card: {smi}; self-contact {'on' if collisions else 'off'}")
+    print(f"card: {smi}; {'the 110k mesh' if mesh else 'the soup'}, self-contact"
+          f" {'on' if collisions else 'off'}")
     s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=collisions)
-    s.create_tet_soup(n_tets, spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
-    s.run_ticks(CONTACT_WARMUP if collisions else FLOOR_WARMUP)
+    if mesh:
+        from pies_tpu_torch.scene.mesh_dump import add_tet_mesh, load_mesh_txt
+
+        add_tet_mesh(s, *load_mesh_txt(MESH))
+        s.run_ticks(MESH_WARMUP)
+    else:
+        s.create_tet_soup(n_tets, spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
+        s.run_ticks(CONTACT_WARMUP if collisions else FLOOR_WARMUP)
     for r in range(repeats):
         t0 = time.perf_counter()
         s.run_ticks(10)
         dt = (time.perf_counter() - t0) / 10
         print(f"run {r}: {dt * 1e3:.4f} ms/tick, {1 / dt:.2f} steps/s")
 
-    torch.cuda.synchronize()
-    s.counters = pd.new_counters(s.device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        s.run_ticks(10)
-        wall = time.perf_counter() - t0
-    counts = {k: int(v) for k, v in s.counters.items()}
-    s.counters = None
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    attr = "self_device_time_total" if hasattr(events[0], "self_device_time_total") else "self_cuda_time_total"
-    busy_us = sum(getattr(e, attr) for e in events)
-    print(f"traced 10 ticks (device counters on): wall {wall * 1e3:.3f} ms, device busy"
-          f" {busy_us / 1e3:.3f} ms ({100 * busy_us / 1e6 / wall:.1f}% busy,"
-          f" {100 - 100 * busy_us / 1e6 / wall:.1f}% idle); counters {counts}")
+    def traced(counters):
+        torch.cuda.synchronize()
+        s.counters = pd.new_counters(s.device) if counters else None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            s.run_ticks(10)
+            wall = time.perf_counter() - t0
+        counts = {k: int(v) for k, v in s.counters.items()} if counters else None
+        s.counters = None
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        busy_us = sum(getattr(e, attr) for e in events)
+        print(f"traced 10 ticks (device counters {'on' if counters else 'off'}): wall"
+              f" {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms"
+              f" ({100 * busy_us / 1e6 / wall:.1f}% busy,"
+              f" {100 - 100 * busy_us / 1e6 / wall:.1f}% idle)"
+              + (f"; counters {counts}" if counters else ""))
+        return events, attr
+
+    # The first traced window has the path as users run it; the second adds
+    # the device counters, and its per-kernel times are printed.
+    traced(False)
+    events, attr = traced(True)
     for e in sorted(events, key=lambda e: -getattr(e, attr)):
         print(f"  {getattr(e, attr) / 10:10.2f} us/tick  x{e.count / 10:<5.1f} {e.key[:90]}")
     return 0
@@ -72,4 +97,6 @@ def main(n_tets=125_000, repeats=5, collisions=False):
 if __name__ == "__main__":
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
+    if "--mesh" in flags:
+        sys.exit(main(125_000, *args[:1], mesh=True))
     sys.exit(main(*args, collisions="--collisions" in flags))

@@ -1,12 +1,18 @@
-"""Constraint topology for the tet-column slice (port of ``pies_tpu/topology.py``).
+"""Constraint topology of the ported PD paths (port of ``pies_tpu/topology.py``).
 
 Built on the host in NumPy at scene-construction time, exactly as the JAX
 package builds it, then moved to tensors once with :func:`to_device`.  Only
-the batches and precomputed fields that the PD tet-column path reads are
-carried: the strain and volume tet batches, position pins, the surface
-triangles with their live mask (padded to a multiple of 8, as in the JAX
-package), the constant stiffness diagonal, the per-node floor-contact
-multiplicity, the disjoint-tet block off-diagonals and the folded pin force.
+the batches and precomputed fields that the ported paths read are carried:
+the strain and volume tet batches, position pins, the surface triangles with
+their live mask (padded to a multiple of 8, as in the JAX package), the
+constant stiffness diagonal, the per-node floor-contact multiplicity, the
+disjoint-tet block off-diagonals, the folded pin force and, for shared-node
+meshes, the assembled ELL operator.
+
+Two fields are the port's own: the dense pin weight (the pin term of the
+operator as one multiply per node) and the node → (tet, corner) incidence
+(a ``collision.batches.Incidence``) that sums the tet forces per node
+without float atomics.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .collision.batches import Incidence, incidence_plain
 
 _F32 = np.float32
 _I32 = np.int32
@@ -78,6 +86,16 @@ class Topology:
     # Surface triangles (padded to a multiple of 8) and their live mask.
     triangles: torch.Tensor  # i32[T, 3]
     tri_mask: torch.Tensor  # f32[T]
+    # Σ w of the position pins per node; f32[1] when no pins.
+    pin_w: torch.Tensor | None = None  # f32[N] or f32[1]
+    # Shared-node meshes: the assembled strain+volume Σ w·GᵀG in ELL form,
+    # slot-major (the transpose of the JAX package's [N, m] arrays, so
+    # neighbouring nodes read neighbouring words); None otherwise.
+    ell_nbr: torch.Tensor | None = None  # i32[m, N]
+    ell_coef: torch.Tensor | None = None  # f32[m, N]
+    # Shared-node meshes: the node → (tet, corner) incidence of the strain
+    # batch (tet_incidence); None otherwise.
+    tet_inc: Incidence | None = None
 
 
 def build_position(
@@ -136,6 +154,71 @@ def build_tets(
     )
 
 
+def assemble_ell(num_nodes: int, batches) -> tuple[np.ndarray | None, np.ndarray | None]:
+    """The assembled ``Σ w·GᵀG`` of the live tets of ``batches`` as ELL
+    ``(nbr i32[N, m], coef f32[N, m])`` (``pies_tpu/topology.py:605-646``):
+    the 16 entries of every tet coalesced in float64 (``np.add.at`` in entry
+    order), each row's columns ascending, rows padded with ``(0, 0.0)``.
+    ``(None, None)`` when there is no live tet or ``m > 64``."""
+    rows_l, cols_l, vals_l = [], [], []
+    for t in batches:
+        ti, tw = np.asarray(t.idx), np.asarray(t.w)
+        live = tw > 0
+        if not np.any(live):
+            continue
+        ti, tw = ti[live], tw[live]
+        tg = np.asarray(t.g).T.reshape(-1, 3, 4)[live]
+        gtg = np.einsum("cja,cjb->cab", tg, tg) * tw[:, None, None]
+        for a in range(4):
+            for b in range(4):
+                rows_l.append(ti[:, a])
+                cols_l.append(ti[:, b])
+                vals_l.append(gtg[:, a, b])
+    if not rows_l:
+        return None, None
+    r = np.concatenate(rows_l).astype(np.int64)
+    c = np.concatenate(cols_l).astype(np.int64)
+    v = np.concatenate(vals_l).astype(np.float64)
+    uniq, inv = np.unique(r * num_nodes + c, return_inverse=True)
+    coal = np.zeros(uniq.shape[0], np.float64)
+    np.add.at(coal, inv, v)
+    rr, cc = uniq // num_nodes, uniq % num_nodes
+    deg = np.bincount(rr, minlength=num_nodes)
+    m = int(deg.max()) if deg.size else 0
+    if not 0 < m <= 64:
+        return None, None
+    starts = np.zeros(num_nodes + 1, np.int64)
+    np.cumsum(deg, out=starts[1:])
+    slot = np.arange(uniq.shape[0], dtype=np.int64) - starts[rr]
+    nbr = np.zeros((num_nodes, m), _I32)
+    coef = np.zeros((num_nodes, m), _F32)
+    nbr[rr, slot] = cc.astype(_I32)
+    coef[rr, slot] = coal.astype(_F32)
+    return nbr, coef
+
+
+def tet_incidence(idx: np.ndarray, num_nodes: int) -> Incidence:
+    """The node → (tet, corner) incidence of a tet batch ``idx`` i32[C, 4],
+    every row live (padding rows included, as the JAX scatter includes
+    them): entry ``k = a·C + t`` is corner a of tet t, the index of the JAX
+    package's scatter ``f.at[idx.T.reshape(-1)].add(...)``, and each node's
+    entries are in ascending k, the order in which that scatter adds them.
+    Built with the contact incidence's builder, on CPU tensors."""
+    idx = torch.tensor(np.asarray(idx, dtype=_I32))
+    return incidence_plain(idx, torch.tensor([idx.shape[0]], dtype=torch.int32), num_nodes)
+
+
+def pin_weights(position: PositionBatch, num_nodes: int) -> np.ndarray:
+    """``Σ w`` of the position pins per node (float64 sum), f32[N]; f32[1]
+    when there is no pin row."""
+    idx = np.asarray(position.idx)
+    if not idx.shape[0]:
+        return np.zeros(1, _F32)
+    w = np.zeros(num_nodes, np.float64)
+    np.add.at(w, idx, np.asarray(position.w, np.float64))
+    return w.astype(_F32)
+
+
 def assemble_topology(
     num_nodes: int,
     *,
@@ -144,9 +227,11 @@ def assemble_topology(
     position: PositionBatch,
     triangles: np.ndarray,
 ) -> Topology:
-    """The slice's part of ``pies_tpu.topology.assemble_topology``: the
-    stiffness diagonal, floor counts, ``tet_block6`` and the folded pin force,
-    computed with the same host arithmetic (float64 accumulation)."""
+    """The ported part of ``pies_tpu.topology.assemble_topology``: the
+    stiffness diagonal, floor counts, ``tet_block6``, the folded pin force
+    and, when the tets are not banded, the ELL operator, computed with the
+    same host arithmetic (float64 accumulation); plus the port's pin weight
+    and tet incidence."""
     diag = np.zeros(num_nodes, dtype=np.float64)
     np.add.at(diag, np.asarray(position.idx), np.asarray(position.w))
     for t in (strain, volume):
@@ -186,6 +271,13 @@ def assemble_topology(
             ]
         )
 
+    ell_nbr = ell_coef = tet_inc = None
+    if not banded:
+        nbr, coef = assemble_ell(num_nodes, (strain, volume))
+        if nbr is not None:
+            ell_nbr, ell_coef = np.ascontiguousarray(nbr.T), np.ascontiguousarray(coef.T)
+        tet_inc = tet_incidence(strain.idx, num_nodes)
+
     if np.asarray(position.idx).shape[0]:
         pos_force = np.zeros((num_nodes, 3), np.float64)
         np.add.at(
@@ -209,12 +301,16 @@ def assemble_topology(
         position_force_dense=pos_force,
         triangles=_pad2(tris, tcap),
         tri_mask=_pad2(np.ones(tris.shape[0], _F32), tcap),
+        pin_w=pin_weights(position, num_nodes),
+        ell_nbr=ell_nbr,
+        ell_coef=ell_coef,
+        tet_inc=tet_inc,
     )
 
 
 def to_device(obj, device):
-    """Copy every NumPy leaf of a topology dataclass to a tensor on
-    ``device`` (one transfer per leaf, once per scene)."""
+    """Copy every array leaf of a topology dataclass to a tensor on
+    ``device`` (one transfer per leaf, once per scene); ints stay ints."""
     if obj is None:
         return None
     if dataclasses.is_dataclass(obj):
@@ -227,4 +323,6 @@ def to_device(obj, device):
         )
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
+    if isinstance(obj, int):
+        return obj
     return torch.tensor(np.asarray(obj), device=device)

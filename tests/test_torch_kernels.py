@@ -12,7 +12,9 @@ only for library-math differences), and a 40-tick trajectory 1e-5.  The
 self-contact kernels T5-T8 are held to their twins exactly: equal caches,
 contacts and incidence, and bit-equal forces and positions (their sums run
 in one fixed order on both sides, and their library math is the same
-libdevice ``powf``/``acosf``/``cosf``).
+libdevice ``powf``/``acosf``/``cosf``).  The generic path's kernels T9-T11
+are held to their twins exactly too, with equal CG trip counts: the CG's dot
+products are summed in the same fixed block order on both sides.
 """
 
 import dataclasses
@@ -21,17 +23,24 @@ import numpy as np
 import pytest
 import torch
 
+import os
+
 import pies_tpu_torch as pt
 from pies_tpu_torch.collision import broadphase
 from pies_tpu_torch.collision.batches import CollisionSet, incident
 from pies_tpu_torch.constraints import projections as proj
-from pies_tpu_torch.solver import pd, step, tetcols
+from pies_tpu_torch.scene.mesh_dump import add_tet_mesh, load_mesh_txt
+from pies_tpu_torch.solver import assembly, pd, step, tetcols
 
 SCENE = dict(spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
 CONTACT_SCENE = dict(SCENE, spacing=1.0)
 WRAPPERS = (pd.substep_head, proj.tet_force12, tetcols.substep_cols, pd.substep_tail)
 CONTACT_WRAPPERS = (broadphase.body_broadphase, broadphase.pt_narrowphase,
                     tetcols.pt_coupling_setup, tetcols.pt_force, pd.pt_tail)
+GENERIC_WRAPPERS = (pd.substep_head, proj.tet_force12_gathered, assembly.assemble_force,
+                    assembly.apply_system, assembly.pcg_solve, pd.substep_tail)
+MESH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "scripts", "refbench", "tet_cube_mesh.txt")
 
 
 @pytest.fixture
@@ -69,6 +78,20 @@ def test_cpu_tensors_take_the_twin_and_count_nothing():
     before = [f.launches for f in WRAPPERS]
     s.run_ticks(2)
     assert [f.launches for f in WRAPPERS] == before
+    assert not s.sim_failed
+
+
+def _mesh_solver(device, pins=(0, 10, 110, 120), **kw):
+    s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device=device, **kw)
+    add_tet_mesh(s, *load_mesh_txt(MESH), pins=pins or ())
+    return s
+
+
+def test_cpu_tensors_take_the_generic_twins():
+    s = _mesh_solver("cpu")
+    before = [f.launches for f in GENERIC_WRAPPERS]
+    s.run_ticks(1)
+    assert [f.launches for f in GENERIC_WRAPPERS] == before
     assert not s.sim_failed
 
 
@@ -296,3 +319,82 @@ def test_contact_latch_on_the_card(cuda):
             assert torch.equal(getattr(s.state.bp, f), getattr(frozen[1], f)), f
         runs.append(frozen)
     assert torch.equal(runs[0][0], runs[1][0])
+
+
+def _mesh_floor_state(device, ticks=30):
+    """The pinned 1,331-node mesh after ``ticks`` ticks of the kernels (its
+    far side rests on the floor from tick ~27), with its next substep's
+    head."""
+    s = _mesh_solver(device)
+    s.run_ticks(ticks)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    return s, pd.substep_head_plain(_clone(st), topo, params, cfg, True)
+
+
+@pytest.mark.gpu
+def test_generic_kernels_equal_twins(cuda):
+    s, (x, msn, diag, wf, active) = _mesh_floor_state(cuda)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    assert active.sum().item() > 0
+    failed = st.sim_failed
+    bk = proj.tet_force12_gathered(x, topo.strain, topo.volume, failed)
+    bp = proj.tet_force12_gathered_plain(x, topo.strain, topo.volume)
+    assert torch.equal(bk, bp)
+    fk = assembly.assemble_force(x, msn, wf, bk, topo, 0.0, failed)
+    fp = assembly.assemble_force_plain(x, msn, wf, bk, topo, 0.0)
+    for a, b in zip(fk, fp):
+        assert torch.equal(a, b)
+    _, h2 = pd._h_h2(params)
+    yk, pk = assembly.apply_system(x, st.mass, wf, h2, topo, failed, part=True)
+    yp, pp = assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True)
+    assert torch.equal(yk, yp) and torch.equal(pk, pp)
+    for iters, rtol in ((16, 1e-4), (16, 0.0), (64, 1e-6)):
+        args = (fk[0], x, diag, st.mass, wf, h2, st.node_mask, topo, iters, rtol)
+        ok = assembly.pcg_solve(*args, failed)
+        op = assembly.pcg_solve_plain(*args, failed)
+        assert torch.equal(ok[0], op[0]) and torch.equal(ok[1], op[1]), (iters, rtol)
+        assert int(ok[2][0]) == int(op[2][0]), (iters, rtol)
+
+
+@pytest.mark.gpu
+def test_generic_kernels_match_twins_over_a_trajectory(cuda):
+    """40 ticks of the pinned mesh, kernels against twins: equal floor
+    counts and CG trips, equal positions, and every kernel of the path
+    launched."""
+    runs = []
+    for plain in (False, True):
+        s = _mesh_solver(cuda)
+        before = [f.launches for f in GENERIC_WRAPPERS]
+        c = pd.new_counters(cuda)
+        step.tick_n(s.state, s.topology, s.current_params(), s.config, 40, plain=plain,
+                    counters=c)
+        launched = [f.launches - n for f, n in zip(GENERIC_WRAPPERS, before)]
+        assert not s.sim_failed
+        runs.append(({k: int(v) for k, v in c.items()}, s.state.positions.clone(), launched))
+    (ck, xk, lk), (cp, xp, lp) = runs
+    assert ck == cp and ck["floor_active"] > 0 and ck["cg_trips"] == 40 * 4 * 16
+    assert torch.equal(xk, xp)
+    assert all(n > 0 for n in lk) and not any(lp)
+
+
+@pytest.mark.gpu
+def test_generic_early_exit_on_the_card(cuda):
+    """The tet box of tests/test_solver.py:411 with a 32-trip cap and
+    rtol 1e-6: the kernels stop after the same trips as the twins, and a
+    skipped tick (the latch) reports residual 0."""
+    runs = []
+    for plain in (False, True):
+        s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device=cuda,
+                      cg_iterations=32, cg_rtol=1e-6)
+        s.create_tet_box((0, 2.0, 0), 1.0, (0, 0, 0), w=1500.0, mass=1.0)
+        trips = []
+        for _ in range(20):
+            c = pd.new_counters(cuda)
+            step.tick(s.state, s.topology, s.current_params(), s.config, plain=plain, counters=c)
+            trips.append(int(c["cg_trips"]))
+        runs.append((trips, s.state.positions.clone()))
+    assert runs[0][0] == runs[1][0] and sum(runs[0][0]) < 20 * 4 * 32
+    assert torch.equal(runs[0][1], runs[1][1])
+    s.state.velocities[3, 0] = float("inf")
+    s.run_ticks(2)
+    assert s.sim_failed and s.last_residual == 0.0
