@@ -7,7 +7,7 @@ Phases (any failure exits non-zero, before the result line):
 
 0. The card: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc
    versions, whether ``triton`` imports.  No CUDA device: exit 2.
-1. Build the eleven kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
+1. Build the thirteen kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
    one process per source, all at once (``-Xptxas -v`` output printed), and
    report the build time.
 2. T1-T4 against their plain PyTorch twins on the card, at the main path's
@@ -57,6 +57,33 @@ Phases (any failure exits non-zero, before the result line):
    (``tet_cube_mesh.txt``, 4 pinned nodes, floor contact from tick ~27),
    kernels against twins: positions within 1e-3 and the counters equal.
 
+6. The rigged cloth at full size (``scene.rigged_cloth.add_rigged_cloth``:
+   a 512 x 512 lattice, 262,144 nodes, 1,045,506 distance pairs, 781,321
+   bends, 522,242 triangles, one fixed region of 1,536 nodes and 1,024
+   linked regions of 64; scale 0.1, height 0.3, w = 5000) through
+   ``Solver(SolverOptions(solver=PD), enable_collisions=False)``: the
+   generic path with every constraint family but the tets.  Warm-up tick by
+   tick until the first floor-active one (tick ~19).
+2d. (on that warmed state) T12's distance and bend rows, T13's shape and
+   goal rows and rotations, T9's stage 2 over all families' rows and T10
+   (ELL width 9, with the static weight) against their twins: equal where
+   no ``acos``/``sin``/``cos`` is involved, else within 1e-6 of the largest
+   row; T10 also against ``torch.sparse.mm``.  Then phase 6 proper: the
+   fixed region turned by 0.05 rad (``update_fixed_regions``) and a timed
+   ``run_ticks(10)``, launch counters reset before; checks: no sim_failed,
+   finite positions, floor contact in the window, every counter of T3, T12,
+   T13, T9's stage 2, T10, T11 and T4 > 0, the goal transform not the
+   identity.  From the warmed state, 3 ticks of the kernels against 3 of
+   the twins (positions within 1e-3, equal counters).
+6b. Shape-matching blobs (``scripts/bench_all.py:155-166`` at 4,096
+   bodies): ``create_shape_matching_box(.., 5, 5, 5, 1.0, v, 4000.0)`` with
+   a seeded velocity per body and a seeded spin added to the state (so
+   that the rotation extraction has work), 512,000 nodes, 4,096 groups of
+   125, free flight (these bodies have no triangles, so the floor never
+   acts on them); 5 warm-up ticks, T13 against its twin at this shape, a
+   timed ``run_ticks(10)`` with the CG trips reported, and 3 ticks of
+   kernels against twins.
+
 The last two lines are the kernel table and the result as JSON objects.
 """
 
@@ -76,6 +103,10 @@ MESH_BIG = os.path.join(MESH_DIR, "tet_cube_mesh_100k.txt")
 MESH_SMALL = os.path.join(MESH_DIR, "tet_cube_mesh.txt")
 MESH_WARMUP = 75  # the big mesh falls 3.0 units: its bottom meets the floor at tick 70
 SMALL_PINS = (0, 10, 110, 120)  # the corners of the small mesh's x = 0 face
+CLOTH_N = 512  # the rigged cloth's lattice side
+CLOTH = dict(scale=0.1, height=0.3, w=5000.0)
+CLOTH_TURN = 0.05  # radians the fixed region is turned by before the window
+N_BLOBS = 4096
 
 # The H100 SXM's published peaks (NVIDIA's datasheet): the least time
 # of a kernel is the larger of its bytes over the memory rate and its float32
@@ -151,7 +182,33 @@ def mesh_solver(pt, path, dev, pins=()):
     return s
 
 
-def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP):
+def blob_solver(pt, n_bodies, dev):
+    """``n_bodies`` shape-matching boxes of 5 x 5 x 5 nodes on a grid, each
+    with a seeded velocity, and a seeded spin of each body about its centre
+    written to the state."""
+    import numpy as np
+    import torch
+
+    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=False,
+                  device=dev)
+    rng = np.random.default_rng(2)
+    side = int(np.ceil(n_bodies ** 0.5))
+    vel = rng.uniform(-1.0, 1.0, (n_bodies, 3)).astype(np.float32)
+    for b in range(n_bodies):
+        i, j = divmod(b, side)
+        s.create_shape_matching_box((3.0 * i, 1.0 + 0.5 * (b % 3), 3.0 * j), 5, 5, 5, 1.0,
+                                    tuple(vel[b]), 4000.0)
+    st = s.state
+    n = 125 * n_bodies
+    pos = st.positions[:n].view(n_bodies, 125, 3)
+    omega = torch.from_numpy(rng.uniform(-2.0, 2.0, (n_bodies, 1, 3)).astype(np.float32)).to(dev)
+    spin = torch.linalg.cross(omega.expand(-1, 125, -1), pos - pos.mean(dim=1, keepdim=True))
+    st.velocities[:n] += spin.reshape(n, 3)
+    return s
+
+
+def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
+         cloth_n=CLOTH_N, n_blobs=N_BLOBS):
     import torch
 
     # ---- phase 0
@@ -425,7 +482,9 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                 "pt_coupling": [tetcols.pt_coupling_setup, tetcols.pt_force],
                 "pt_tail": [pd.pt_tail],
                 "tet_force_nodes": [proj.tet_force12_gathered, assembly.assemble_force],
-                "ell_matvec": [assembly.apply_system], "pcg": [assembly.pcg_solve]}
+                "ell_matvec": [assembly.apply_system], "pcg": [assembly.pcg_solve],
+                "constraint_rows": [proj.distance_rows, proj.bend_rows],
+                "shape_match": [proj.shape_rows, proj.goal_rows]}
 
     def reset_launches():
         for fns in wrappers.values():
@@ -458,6 +517,20 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         t0 = time.perf_counter()
         advance(s, ticks, plain, counters)
         return (time.perf_counter() - t0) / ticks, {k: int(v) for k, v in counters.items()}
+
+    def operator_csr(st, topo, wf, h2):
+        """The whole operator as one CSR matrix (the ELL's nonzero slots plus
+        the diagonal mass/h² + wf + static weight) for the library's sparse
+        product."""
+        n, m = st.capacity, topo.ell_nbr.shape[0]
+        ids = torch.arange(n, device=dev)
+        live = topo.ell_coef.reshape(-1) != 0
+        dg = st.mass / h2 + wf + (topo.static_w if topo.static_w.shape[0] == n else 0.0)
+        coo = torch.sparse_coo_tensor(
+            torch.stack([torch.cat([ids.repeat(m)[live], ids]),
+                         torch.cat([topo.ell_nbr.reshape(-1).long()[live], ids])]),
+            torch.cat([topo.ell_coef.reshape(-1)[live], dg]), (n, n))
+        return coo.coalesce().to_sparse_csr()
 
     launches = {}
     for phase, collisions, warm, names in (
@@ -531,8 +604,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     n_tets, m = topo.strain.idx.shape[0], topo.ell_nbr.shape[0]
     pinned = int(topo.position.idx.shape[0] > 0)
     state_mb = sum(t.numel() * t.element_size() for t in (
-        topo.ell_nbr, topo.ell_coef, topo.tet_inc.row_start, topo.tet_inc.entries,
-        topo.tet_inc.nodes,
+        topo.ell_nbr, topo.ell_coef, topo.row_inc.row_start, topo.row_inc.entries,
+        topo.row_inc.nodes,
         topo.strain.idx, topo.strain.qinv, topo.strain.g, topo.strain.lo, topo.strain.hi,
         topo.strain.w, topo.volume.lo, topo.volume.hi, topo.volume.w)) / 1e6
     print(f"set-up {time.perf_counter() - t0:.2f} s: {n_live} nodes (capacity {n_nodes}),"
@@ -583,14 +656,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     yp, pp = assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True)
     # The same operator as one CSR matrix (the ELL's nonzero slots plus the
     # diagonal mass/h² + wf + pin weight) for the library's sparse product.
-    ids = torch.arange(n_nodes, device=dev)
-    live = topo.ell_coef.reshape(-1) != 0
-    dg = st.mass / h2 + wf + (topo.pin_w if topo.position.idx.shape[0] else 0.0)
-    coo = torch.sparse_coo_tensor(
-        torch.stack([torch.cat([ids.repeat(m)[live], ids]),
-                     torch.cat([topo.ell_nbr.reshape(-1).long()[live], ids])]),
-        torch.cat([topo.ell_coef.reshape(-1)[live], dg]), (n_nodes, n_nodes))
-    csr = coo.coalesce().to_sparse_csr()
+    csr = operator_csr(st, topo, wf, h2)
     lib_y = torch.sparse.mm(csr, x)
     torch.cuda.synchronize()
     err = float((yk - yp).abs().max())
@@ -605,7 +671,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         cuda_ms(lambda: assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True), 5),
         "equal", (8 * m + 32) * n_nodes, (6 * m + 9) * n_nodes,
         library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x), 50))
-    del csr, coo, lib_y
+    del csr, lib_y
 
     cg_args = (fk[0], x, diag, st.mass, wf, h2, st.node_mask, topo, cfg.cg_iterations,
                cfg.cg_rtol)
@@ -669,9 +735,243 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     check(d <= 1e-3 and runs[0][1] == runs[1][1] and runs[0][1]["floor_active"] > 0,
           f"trajectories agree: max |dx| {d:.3e}, counters {runs[0][1]}")
 
+    # ---- phase 6 (with 2d)
+    from pies_tpu_torch.scene.rigged_cloth import add_rigged_cloth, fixed_region_matrix
+    from pies_tpu_torch.topology import row_layout
+
+    cloth_path = ["substep_head", "constraint_rows", "shape_match", "tet_force_nodes",
+                  "ell_matvec", "pcg", "substep_tail"]
+    print(f"phase 6: the rigged cloth, {cloth_n} x {cloth_n} nodes")
+    t0 = time.perf_counter()
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False, device=dev)
+    add_rigged_cloth(s, cloth_n, **CLOTH)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    n_nodes, n_live, m = st.capacity, s._builder.num_nodes, topo.ell_nbr.shape[0]
+    lay = row_layout(topo)
+    n_rows = sum(r for _, r in lay.values())
+    c_dist, c_bend = topo.distance.idx.shape[0], topo.bend.idx.shape[0]
+    m_shape, g_shape = topo.shape.node_idx.shape[0], topo.shape.num_groups
+    m_goal, g_goal = topo.goal.node_idx.shape[0], topo.goal.num_groups
+    print(f"set-up {time.perf_counter() - t0:.2f} s: {n_live} nodes (capacity {n_nodes}),"
+          f" {c_dist} distance rows, {c_bend} bend rows, {int(topo.tri_mask.sum())} triangles,"
+          f" {g_shape} shape groups ({m_shape} members), {g_goal} goal group(s) ({m_goal}"
+          f" members), ELL width {m}, {n_rows} force rows")
+    check(not tetcols.applies(st, topo, cfg) and topo.strain.idx.shape[0] == 0,
+          "the cloth takes the generic path, without tets")
+    t0 = time.perf_counter()
+    first = None
+    for tick in range(60):
+        c = pd.new_counters(dev)
+        advance(s, 1, False, c)
+        if int(c["floor_active"]) > 0:
+            first = tick + 1
+            break
+    print(f"warm-up ticks of the kernels: {time.perf_counter() - t0:.2f} s; first floor contact"
+          f" at tick {first}")
+    check(first is not None and not s.sim_failed, "floor contact in the warm-up, no sim_failed")
+    s.update_fixed_regions([fixed_region_matrix(cloth_n, CLOTH["scale"], CLOTH["height"],
+                                                CLOTH_TURN)])
+    advance(s, 1, False)  # one tick with the region turned: the state phase 2d reads
+    warm = clone_state(s.state)
+
+    print(f"phase 2d: T12, T13, T9 stage 2 and T10 against twins on the warmed {n_live}-node"
+          " cloth")
+    failed = st.sim_failed
+    x, msn, diag, wf, active = pd.substep_head_plain(clone_state(st), topo, params, cfg, True)
+    check(float(active.sum()) > 0, f"floor-active nodes in the state: {int(active.sum())}")
+    _, h2 = pd._h_h2(params)
+    dk = proj.distance_rows(x, topo.distance, failed)
+    dp = proj.distance_rows_plain(x, topo.distance)
+    bk = proj.bend_rows(x, st.inv_mass, topo.bend, failed)
+    bp = proj.bend_rows_plain(x, st.inv_mass, topo.bend)
+    torch.cuda.synchronize()
+    scale_b = float(bp.abs().max())
+    err_b = float((bk - bp).abs().max())
+    check(torch.equal(dk, dp), "T12 distance rows equal")
+    check(err_b <= 1e-6 * scale_b, f"T12 bend rows within 1e-6 of max |row| = {scale_b:.4g}"
+                                   f" (max err {err_b:.3e}, {max_ulp(bk, bp)} ulp)")
+    row("constraint_rows", "pies_tpu_torch/kernels/csrc/constraint_rows.cu",
+        "pies_tpu/constraints/projections.py:48", err_b,
+        cuda_ms(lambda: (proj.distance_rows(x, topo.distance, failed),
+                         proj.bend_rows(x, st.inv_mass, topo.bend, failed)), 20),
+        cuda_ms(lambda: (proj.distance_rows_plain(x, topo.distance),
+                         proj.bend_rows_plain(x, st.inv_mass, topo.bend)), 3),
+        f"distance equal, bend {max_ulp(bk, bp)} ulp",
+        40 * c_dist + 72 * c_bend + 16 * n_nodes, 30 * c_dist + 250 * c_bend)
+
+    def t13(shape_fn, goal_fn, quats):
+        return (shape_fn(x, st.mass, quats, topo.shape, cfg.rotation_iterations, failed),
+                goal_fn(topo.goal, failed))
+
+    qk, qp = st.shape_quats.clone(), st.shape_quats.clone()
+    sk, gk = t13(proj.shape_rows, proj.goal_rows, qk)
+    sp, gp = t13(proj.shape_rows_plain, proj.goal_rows_plain, qp)
+    torch.cuda.synchronize()
+    scale_s = float(sp.abs().max())
+    err_s = float((sk - sp).abs().max())
+    err_q = float((qk - qp).abs().max())
+    turned = float((qk - torch.tensor([1.0, 0, 0, 0], device=dev)).abs().max())
+    check(torch.equal(gk, gp), "T13 goal rows equal")
+    check(err_s <= 1e-6 * scale_s and err_q <= 1e-6,
+          f"T13 shape rows within 1e-6 of max |row| = {scale_s:.4g} (max err {err_s:.3e},"
+          f" {max_ulp(sk, sp)} ulp) and rotations within 1e-6 (max err {err_q:.3e}); the"
+          f" groups have turned by up to {turned:.3e}")
+    check(turned > 1e-4, "the shape groups have turned")
+    scratch_q = st.shape_quats.clone()
+    row("shape_match", "pies_tpu_torch/kernels/csrc/shape_match.cu",
+        "pies_tpu/constraints/projections.py:446", max(err_s, err_q),
+        cuda_ms(lambda: t13(proj.shape_rows, proj.goal_rows, scratch_q.copy_(st.shape_quats)), 20),
+        cuda_ms(lambda: t13(proj.shape_rows_plain, proj.goal_rows_plain,
+                            scratch_q.copy_(st.shape_quats)), 3),
+        f"goal equal, shape {max_ulp(sk, sp)} ulp",
+        48 * m_shape + 92 * g_shape + 36 * m_goal + 64 * g_goal,
+        60 * m_shape + 200 * cfg.rotation_iterations * g_shape + 20 * m_goal)
+
+    rows_k = assembly.local_step(x, st.inv_mass, st.mass, st.shape_quats.clone(), topo,
+                                 cfg.rotation_iterations, failed)
+    fk = assembly.assemble_force(x, msn, wf, rows_k, topo, plane, failed)
+    fp = assembly.assemble_force_plain(x, msn, wf, rows_k, topo, plane)
+    torch.cuda.synchronize()
+    err = float((fk[0] - fp[0]).abs().max())
+    check(torch.equal(fk[0], fp[0]) and torch.equal(fk[1], fp[1]),
+          f"T9 stage 2 over {n_rows} rows of all families: force and static projection equal")
+    row("assemble_force_cloth", "pies_tpu_torch/kernels/csrc/tet_force_nodes.cu",
+        "pies_tpu/solver/assembly.py:188", err,
+        cuda_ms(lambda: assembly.assemble_force(x, msn, wf, rows_k, topo, plane, failed), 20),
+        cuda_ms(lambda: assembly.assemble_force_plain(x, msn, wf, rows_k, topo, plane), 3),
+        "equal", 12 * n_rows + 52 * n_nodes, 3 * n_rows + 9 * n_nodes)
+
+    yk, pk = assembly.apply_system(x, st.mass, wf, h2, topo, failed, part=True)
+    yp, pp = assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True)
+    csr = operator_csr(st, topo, wf, h2)
+    lib_y = torch.sparse.mm(csr, x)
+    torch.cuda.synchronize()
+    lib_err = float((lib_y - yk).abs().max()) / float(yk.abs().max())
+    check(torch.equal(yk, yp) and torch.equal(pk, pp),
+          f"T10 with the distance Laplacian and the static weight (ELL width {m}): product and"
+          f" p.Ap partials equal (library CSR product within {lib_err:.2e} relative)")
+    row("ell_matvec_cloth", "pies_tpu_torch/kernels/csrc/ell_matvec.cu",
+        "pies_tpu/solver/assembly.py:448", float((yk - yp).abs().max()),
+        cuda_ms(lambda: assembly.apply_system(x, st.mass, wf, h2, topo, failed, part=pk,
+                                              out=yk), 50),
+        cuda_ms(lambda: assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True), 5),
+        "equal", (8 * m + 36) * n_nodes, (6 * m + 12) * n_nodes,
+        library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x), 50))
+    del csr, lib_y
+
+    cg_args = (fk[0], x, diag, st.mass, wf, h2, st.node_mask, topo, cfg.cg_iterations,
+               cfg.cg_rtol)
+    ok = assembly.pcg_solve(*cg_args, failed)
+    op = assembly.pcg_solve_plain(*cg_args, failed)
+    torch.cuda.synchronize()
+    trips = int(ok[2][0])
+    check(torch.equal(ok[0], op[0]) and torch.equal(ok[1], op[1]) and trips == int(op[2][0]),
+          f"T11 on the cloth: solution, residual partials and trips equal ({trips} trips of"
+          f" {cfg.cg_iterations})")
+    row("pcg_cloth", "pies_tpu_torch/kernels/csrc/pcg.cu", "pies_tpu/solver/assembly.py:656",
+        float((ok[0] - op[0]).abs().max()),
+        cuda_ms(lambda: assembly.pcg_solve(*cg_args, failed), 20),
+        cuda_ms(lambda: assembly.pcg_solve_plain(*cg_args, failed), 2), "equal, same trips",
+        (trips + 1) * (8 * m + 36) * n_nodes + 88 * n_nodes + trips * 128 * n_nodes,
+        (trips + 1) * (6 * m + 12) * n_nodes + trips * 30 * n_nodes)
+    del dk, dp, bk, bp, sk, sp, gk, gp, rows_k, fk, fp, yk, yp, ok, op
+
+    reset_launches()
+    sec, counts = window(s, 10, False)
+    launches["6"] = read_launches()
+    pos = s.state.positions[:n_live]
+    check(not s.sim_failed, "no sim_failed")
+    check(bool(torch.isfinite(pos).all()), "all positions finite")
+    check(counts["floor_active"] > 0,
+          f"floor contact in the window: {counts['floor_active']} node-substeps")
+    check(all(launches["6"][n] > 0 for n in cloth_path),
+          f"every kernel of the path launched: {launches['6']}")
+    check(not torch.equal(topo.goal.transforms[0], torch.eye(4, device=dev)),
+          "the goal transform is not the identity")
+    per_tick = {n: launches["6"][n] / 10 for n in cloth_path}
+    print(f"  kernels: {sec * 1e3:.3f} ms/tick, {1.0 / sec:.2f} steps/s ({smi}; residual"
+          f" {s.last_residual:.6g}; {counts['cg_trips'] / 10:.1f} CG trips per tick; launches"
+          f" per tick {per_tick})")
+    runs = []
+    for plain in (False, True):
+        w = clone_state(warm)
+        c = pd.new_counters(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.tick_n(w, topo, params, cfg, 3, plain=plain, counters=c)
+        torch.cuda.synchronize()
+        runs.append((w, {k: int(v) for k, v in c.items()}, (time.perf_counter() - t0) / 3))
+    check(not runs[0][0].failed() and not runs[1][0].failed(), "no sim_failed in either run")
+    d = float((runs[0][0].positions[:n_live] - runs[1][0].positions[:n_live]).abs().max())
+    dq = float((runs[0][0].shape_quats - runs[1][0].shape_quats).abs().max())
+    check(d <= 1e-3 and runs[0][1] == runs[1][1],
+          f"kernels and twins agree over 3 ticks from the warmed state: max |dx| {d:.3e},"
+          f" max |dq| {dq:.3e}, counters {runs[0][1]}")
+    print(f"  plain twins: {runs[1][2] * 1e3:.3f} ms/tick ({smi})")
+    del s, st, topo, warm, runs, pos
+
+    # ---- phase 6b
+    print(f"phase 6b: {n_blobs} shape-matching blobs, {125 * n_blobs} nodes")
+    t0 = time.perf_counter()
+    s = blob_solver(pt, n_blobs, dev)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    n_live = s._builder.num_nodes
+    print(f"set-up {time.perf_counter() - t0:.2f} s: {n_live} nodes, {topo.shape.num_groups}"
+          f" groups of {topo.shape.max_count}, ELL width {topo.ell_nbr.shape[0]}")
+    advance(s, 5, False)
+    warm = clone_state(s.state)
+    x = st.positions
+    qk, qp = st.shape_quats.clone(), st.shape_quats.clone()
+    args13 = (x, st.mass)
+    sk = proj.shape_rows(*args13, qk, topo.shape, cfg.rotation_iterations, st.sim_failed)
+    sp = proj.shape_rows_plain(*args13, qp, topo.shape, cfg.rotation_iterations)
+    torch.cuda.synchronize()
+    scale_s, err_s = float(sp.abs().max()), float((sk - sp).abs().max())
+    err_q = float((qk - qp).abs().max())
+    check(err_s <= 1e-6 * scale_s and err_q <= 1e-6,
+          f"T13 at {topo.shape.num_groups} groups of {topo.shape.max_count}: rows within 1e-6"
+          f" of max |row| = {scale_s:.4g} (max err {err_s:.3e}), rotations within 1e-6 (max"
+          f" err {err_q:.3e})")
+    scratch_q = st.shape_quats.clone()
+    ms13 = cuda_ms(lambda: proj.shape_rows(*args13, scratch_q.copy_(st.shape_quats), topo.shape,
+                                           cfg.rotation_iterations, st.sim_failed), 20)
+    ms13p = cuda_ms(lambda: proj.shape_rows_plain(*args13, scratch_q.copy_(st.shape_quats),
+                                                  topo.shape, cfg.rotation_iterations), 3)
+    b_ms, _ = bound(48 * topo.shape.node_idx.shape[0] + 92 * topo.shape.num_groups, 0)
+    print(f"  T13 shape rows at this shape: kernel {ms13:.4f} ms, plain {ms13p:.4f} ms, bound"
+          f" {b_ms:.4f} ms (bytes)")
+    reset_launches()
+    sec, counts = window(s, 10, False)
+    launches["6b"] = read_launches()
+    check(not s.sim_failed and bool(torch.isfinite(s.state.positions[:n_live]).all()),
+          "no sim_failed, all positions finite")
+    check(launches["6b"]["shape_match"] > 0 and launches["6b"]["pcg"] > 0,
+          f"the path's kernels launched: {launches['6b']}")
+    check(counts["cg_trips"] <= 40, f"Jacobi is exact on a diagonal system:"
+                                    f" {counts['cg_trips']} CG trips in 10 ticks (40 solves)")
+    print(f"  kernels: {sec * 1e3:.3f} ms/tick, {1.0 / sec:.2f} steps/s ({smi};"
+          f" {counts['cg_trips'] / 10:.1f} CG trips per tick)")
+    runs = []
+    for plain in (False, True):
+        w = clone_state(warm)
+        c = pd.new_counters(dev)
+        step.tick_n(w, topo, params, cfg, 3, plain=plain, counters=c)
+        torch.cuda.synchronize()
+        runs.append((w, {k: int(v) for k, v in c.items()}))
+    d = float((runs[0][0].positions[:n_live] - runs[1][0].positions[:n_live]).abs().max())
+    check(d <= 1e-3 and not runs[0][0].failed() and not runs[1][0].failed(),
+          f"kernels and twins agree over 3 ticks: max |dx| {d:.3e}, counters {runs[0][1]},"
+          f" twins' {runs[1][1]}")
+    del s, st, topo, warm, runs
+
     table = []
     for name, r in rows.items():
-        r["launches"] = launches["5" if name in generic[1:4] else "3b"][name]
+        if name.endswith("_cloth") or name in ("constraint_rows", "shape_match"):
+            key = {"assemble_force_cloth": "tet_force_nodes", "ell_matvec_cloth": "ell_matvec",
+                   "pcg_cloth": "pcg"}.get(name, name)
+            r["launches"] = launches["6"][key]
+        else:
+            r["launches"] = launches["5" if name in generic[1:4] else "3b"][name]
         table.append(r)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": table}))

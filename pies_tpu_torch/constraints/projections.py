@@ -1,13 +1,25 @@
-"""Tet local step and force (port of the fused path of
-``pies_tpu/constraints/projections.py:194-207,280-356``).
+"""The PD local step, family by family (port of
+``pies_tpu/constraints/projections.py:48-77,194-504``).
 
 :func:`tet_force12` is the wrapper of kernel T1 (``kernels/csrc/
 tet_force.cu``), the element-major form of the tet-column path;
 :func:`tet_force12_gathered` is stage 1 of kernel T9 (``kernels/csrc/
 tet_force_nodes.cu``), the shared-node form that gathers its corners through
-the tet ids.  :func:`tet_force12_plain` and :func:`tet_force12_gathered_plain`
-are their plain PyTorch twins, used for CPU tensors and as the oracles on
-the card.
+the tet ids: strain and volume fused, or one of them alone.
+
+The other families each fill their part of the generic path's force-row
+buffer (``topology.row_layout``) with ``w·AᵀB·p``, the rows that the JAX
+package's ``assemble_force`` scatters: :func:`distance_rows` and
+:func:`bend_rows` (kernel T12, ``kernels/csrc/constraint_rows.cu``),
+:func:`shape_rows` and :func:`goal_rows` (kernel T13, ``kernels/csrc/
+shape_match.cu``).  The projections themselves (:func:`project_distance_delta`,
+:func:`project_bend`, :func:`project_shape`, :func:`project_goal`) are plain
+PyTorch, as the JAX package's are plain JAX.
+
+Every wrapper has a plain twin (``*_plain``), used for CPU tensors and as
+the oracle on the card.  The twins do each float32 operation in the kernels'
+order, so the two agree bit for bit wherever no ``acos``, ``sin`` or ``cos``
+is involved.
 """
 
 from __future__ import annotations
@@ -16,7 +28,11 @@ import torch
 
 from .. import kernels
 from ..ops import math3d
-from ..topology import TetBatch
+from ..ops.math3d import ieee_div as _div
+from ..topology import BendBatch, DistanceBatch, GroupBatch, TetBatch
+
+SHAPE_BLOCK = 128  # threads per group in kernels/csrc/shape_match.cu
+TET_KINDS = {"fused": 0, "strain": 1, "volume": 2}
 
 
 def _compute_d_flat(sigma, lo, hi):
@@ -118,38 +134,101 @@ def tet_force12(x: torch.Tensor, strain: TetBatch, volume: TetBatch,
 tet_force12.launches = 0
 
 
+def tet_force12_single_cols(p, batch: TetBatch, kind: str):
+    """Corner positions ``p[a][d]`` -> one family's force ``w·AᵀB·p̂`` as 12
+    ``f32[C]`` columns, index ``3a + d`` (``tet_force12``,
+    ``projections.py:210-277``): ``kind`` "strain" clamps the singular
+    values (the third negated on an inverted tet), "volume" corrects them;
+    the weight multiplies last."""
+    e = [[p[k + 1][d] - p[0][d] for d in range(3)] for k in range(3)]
+    qf = tuple(batch.qinv[r] for r in range(9))
+    f = tuple(
+        e[0][d] * qf[0 + j] + e[1][d] * qf[3 + j] + e[2][d] * qf[6 + j]
+        for d in range(3)
+        for j in range(3)
+    )
+    u, sigma, v = math3d.svd3x3_flat(f)
+    if kind == "strain":
+        s_hat = [torch.clamp(s, batch.lo, batch.hi) for s in sigma]
+        inverted = math3d.det3x3_flat(f) < 0.0
+        s_hat[2] = s_hat[2] * torch.where(inverted, -1.0, 1.0)
+    else:
+        dcorr = _compute_d_flat(sigma, batch.lo, batch.hi)
+        s_hat = [s + dd for s, dd in zip(sigma, dcorr)]
+    fhat = tuple(
+        u[3 * d + 0] * s_hat[0] * v[3 * j + 0]
+        + u[3 * d + 1] * s_hat[1] * v[3 * j + 1]
+        + u[3 * d + 2] * s_hat[2] * v[3 * j + 2]
+        for d in range(3)
+        for j in range(3)
+    )
+    g = batch.g
+    out = []
+    for a in range(4):
+        ga = [g[4 * j + a] for j in range(3)]
+        for d in range(3):
+            out.append(batch.w * (
+                ga[0] * fhat[3 * d + 0] + ga[1] * fhat[3 * d + 1] + ga[2] * fhat[3 * d + 2]
+            ))
+    return out
+
+
+def _rows_out(out: torch.Tensor | None, rows: int, like: torch.Tensor) -> torch.Tensor:
+    """``out`` checked, or a new f32[rows, 3] beside ``like``."""
+    if out is None:
+        return torch.empty((rows, 3), dtype=torch.float32, device=like.device)
+    if tuple(out.shape) != (rows, 3):
+        raise ValueError(f"the rows go to f32[{rows}, 3], got {tuple(out.shape)}")
+    return out
+
+
+def _store(out: torch.Tensor | None, rows: torch.Tensor) -> torch.Tensor:
+    if out is None:
+        return rows
+    _rows_out(out, rows.shape[0], rows).copy_(rows)
+    return out
+
+
 def tet_force12_gathered_plain(x: torch.Tensor, strain: TetBatch, volume: TetBatch,
-                               failed: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain twin of T9's stage 1 (``tet_force12_fused`` with the gather,
-    ``projections.py:280-308``): the combined force of every tet of the
-    batch, corners gathered from ``x`` f32[N, 3] through ``strain.idx``, as
-    the JAX scatter's update rows ``blocks`` f32[4C, 3] (row ``a·C + t`` is
-    corner a of tet t).  ``failed`` is accepted for signature parity."""
-    idx = strain.idx.long()
+                               failed: torch.Tensor | None = None, out=None,
+                               kind: str = "fused") -> torch.Tensor:
+    """Plain twin of T9's stage 1 (``tet_force12_fused`` or ``tet_force12``
+    with the gather, ``projections.py:210-308``): the force of every tet of
+    the batch, corners gathered from ``x`` f32[N, 3] through the batch's
+    ids, as the JAX scatter's update rows ``blocks`` f32[4C, 3] (row
+    ``a·C + t`` is corner a of tet t), written to ``out`` when given.
+    ``kind``: "fused" (strain + volume on shared tets), "strain" or "volume"
+    (that batch alone).  ``failed`` is accepted for signature parity."""
+    batch = volume if kind == "volume" else strain
+    idx = batch.idx.long()
     p = [[x[idx[:, a], d] for d in range(3)] for a in range(4)]
-    f12 = tet_force12_fused_cols(p, strain, volume)
-    return torch.cat([torch.stack(f12[3 * a:3 * a + 3], dim=1) for a in range(4)])
+    f12 = (tet_force12_fused_cols(p, strain, volume) if kind == "fused"
+           else tet_force12_single_cols(p, batch, kind))
+    return _store(out, torch.cat([torch.stack(f12[3 * a:3 * a + 3], dim=1) for a in range(4)]))
 
 
 def tet_force12_gathered(x: torch.Tensor, strain: TetBatch, volume: TetBatch,
-                         failed: torch.Tensor | None = None) -> torch.Tensor:
+                         failed: torch.Tensor | None = None, out=None,
+                         kind: str = "fused") -> torch.Tensor:
     """T9's stage 1 on a CUDA tensor, its plain twin on a CPU tensor.  On the
     card ``failed`` is required: the kernel returns at once when its slot 0
     is set."""
     if kernels.on_cpu(x):
-        return tet_force12_gathered_plain(x, strain, volume, failed)
+        return tet_force12_gathered_plain(x, strain, volume, failed, out, kind)
     if failed is None:
         raise ValueError("the gathered tet-force kernel needs the failure latch")
-    c = strain.qinv.shape[1]
-    if tuple(strain.idx.shape) != (c, 4):
-        raise ValueError(f"tet ids must be [{c}, 4], got {tuple(strain.idx.shape)}")
-    b = (strain.qinv, strain.g, strain.lo, strain.hi, strain.w,
-         volume.lo, volume.hi, volume.w)
-    kernels.require(x.device, x, strain.idx, failed, *b)
-    blocks = torch.empty((4 * c, 3), dtype=torch.float32, device=x.device)
+    first, second = {"fused": (strain, volume), "strain": (strain, strain),
+                     "volume": (volume, volume)}[kind]
+    c = first.qinv.shape[1]
+    if tuple(first.idx.shape) != (c, 4):
+        raise ValueError(f"tet ids must be [{c}, 4], got {tuple(first.idx.shape)}")
+    b = (first.qinv, first.g, first.lo, first.hi, first.w,
+         second.lo, second.hi, second.w)
+    blocks = _rows_out(out, 4 * c, x)
+    kernels.require(x.device, x, first.idx, failed, blocks, *b)
     err = kernels.lib().pies_tet_force12_gather(
-        x.data_ptr(), strain.idx.data_ptr(), *(t.data_ptr() for t in b),
-        blocks.data_ptr(), c, failed.data_ptr(), kernels.stream(),
+        x.data_ptr(), first.idx.data_ptr(), *(t.data_ptr() for t in b),
+        blocks.data_ptr(), c, TET_KINDS[kind], failed.data_ptr(), kernels.stream(),
     )
     kernels.check(err, "tet_force12_gather")
     tet_force12_gathered.launches += 1
@@ -157,3 +236,288 @@ def tet_force12_gathered(x: torch.Tensor, strain: TetBatch, volume: TetBatch,
 
 
 tet_force12_gathered.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# T12: distance and bend rows
+
+
+def project_distance_delta(x: torch.Tensor, batch: DistanceBatch) -> torch.Tensor:
+    """``p0 − p1`` f32[C, 3] of the distance projection
+    (``projections.py:48-77``, ``Constraints.cpp:11-37``): only node 0
+    moves, by the full ``−(rest − dist)·dir``, and the direction falls back
+    to ``(1, 0, 0)`` when ``dist ≤ 1e-5``."""
+    idx = batch.idx.long()
+    ga, gb = x[idx[:, 0]], x[idx[:, 1]]
+    df = [gb[:, d] - ga[:, d] for d in range(3)]
+    dist = torch.sqrt(df[0] * df[0] + df[1] * df[1] + df[2] * df[2])
+    safe = dist > 1e-5
+    inv = _div(torch.ones_like(dist), torch.clamp_min(dist, 1e-20))
+    dirs = [torch.where(safe, df[d] * inv, 1.0 if d == 0 else 0.0) for d in range(3)]
+    disp = batch.rest - dist
+    return torch.stack([-(df[d] + disp * dirs[d]) for d in range(3)], dim=-1)
+
+
+def distance_rows_plain(x: torch.Tensor, batch: DistanceBatch, failed=None,
+                        out=None) -> torch.Tensor:
+    """Plain twin of T12's distance kernel: the update rows f32[2C, 3] of
+    ``assemble_force``'s distance scatter (``assembly.py:218-227``),
+    ``+0.5·w·(p0 − p1)`` for the C first nodes, then the negated rows for
+    the second nodes."""
+    half = (0.5 * batch.w)[:, None] * project_distance_delta(x, batch)
+    return _store(out, torch.cat([half, -half]))
+
+
+def distance_rows(x: torch.Tensor, batch: DistanceBatch, failed=None, out=None) -> torch.Tensor:
+    """T12's distance kernel on a CUDA tensor, its twin on a CPU tensor."""
+    if kernels.on_cpu(x):
+        return distance_rows_plain(x, batch, failed, out)
+    if failed is None:
+        raise ValueError("the distance-row kernel needs the failure latch")
+    c = batch.idx.shape[0]
+    rows = _rows_out(out, 2 * c, x)
+    kernels.require(x.device, x, batch.idx, batch.rest, batch.w, rows, failed)
+    err = kernels.lib().pies_distance_rows(
+        x.data_ptr(), batch.idx.data_ptr(), batch.rest.data_ptr(), batch.w.data_ptr(),
+        rows.data_ptr(), c, failed.data_ptr(), kernels.stream())
+    kernels.check(err, "distance_rows")
+    distance_rows.launches += 1
+    return rows
+
+
+distance_rows.launches = 0
+
+
+def _cross(u, v):
+    return torch.stack([u[:, 1] * v[:, 2] - u[:, 2] * v[:, 1],
+                        u[:, 2] * v[:, 0] - u[:, 0] * v[:, 2],
+                        u[:, 0] * v[:, 1] - u[:, 1] * v[:, 0]], dim=1)
+
+
+def _norm3(u):
+    return torch.sqrt(u[:, 0] * u[:, 0] + u[:, 1] * u[:, 1] + u[:, 2] * u[:, 2])
+
+
+def project_bend(x: torch.Tensor, inv_mass: torch.Tensor, batch: BendBatch) -> torch.Tensor:
+    """Dihedral-angle projection f32[C, 4, 3] per the PBD 2007 paper,
+    Appendix A (``projections.py:359-406``, ``Constraints.cpp:312-366``).
+    Degenerate triangles (``Σ|q|² < 1e-5``) leave the positions as they
+    are; the normal divisions are guarded with a tiny epsilon."""
+    idx = batch.idx.long()
+    p = [x[idx[:, k]] for k in range(4)]
+    wim = [inv_mass[idx[:, k]] for k in range(4)]
+    p2, p3, p4 = p[1] - p[0], p[2] - p[0], p[3] - p[0]
+    c23, c24 = _cross(p2, p3), _cross(p2, p4)
+    l23 = torch.clamp_min(_norm3(c23), 1e-20)[:, None]
+    l24 = torch.clamp_min(_norm3(c24), 1e-20)[:, None]
+    n1, n2 = c23 / l23, c24 / l24
+    d = torch.clamp(n1[:, 0] * n2[:, 0] + n1[:, 1] * n2[:, 1] + n1[:, 2] * n2[:, 2],
+                    -1.0, 1.0)
+    c = torch.acos(d) - batch.rest_angle
+    dd = d[:, None]
+    q3 = (_cross(p2, n2) + _cross(n1, p2) * dd) / l23
+    q4 = (_cross(p2, n1) + _cross(n2, p2) * dd) / l24
+    q2 = (-(_cross(p3, n2) + _cross(n1, p3) * dd)) / l23 \
+        - (_cross(p4, n1) + _cross(n2, p4) * dd) / l24
+    q1 = -q2 - q3 - q4
+    q = [q1, q2, q3, q4]
+    w_sum = torch.clamp_min(wim[0] + wim[1] + wim[2] + wim[3], 1e-20)
+    q_sq = None
+    for qk in q:
+        for dim in range(3):
+            sq = qk[:, dim] * qk[:, dim]
+            q_sq = sq if q_sq is None else q_sq + sq
+    num = torch.sqrt(torch.clamp_min(1.0 - d * d, 0.0)) * c
+    scale = torch.where(q_sq < 1e-5, 0.0, num / torch.clamp_min(q_sq, 1e-20))
+    out = [p[k] + ((-q[k]) * (4.0 * wim[k] / w_sum)[:, None]) * scale[:, None]
+           for k in range(4)]
+    return torch.stack(out, dim=1)
+
+
+def bend_rows_plain(x: torch.Tensor, inv_mass: torch.Tensor, batch: BendBatch,
+                    failed=None, out=None) -> torch.Tensor:
+    """Plain twin of T12's bend kernel: the update rows f32[4C, 3] of
+    ``assemble_force``'s bend scatter (``assembly.py:269-271``), row
+    ``4c + k`` the weighted projection ``w·p`` of node k of bend c."""
+    rows = batch.w[:, None, None] * project_bend(x, inv_mass, batch)
+    return _store(out, rows.reshape(-1, 3))
+
+
+def bend_rows(x: torch.Tensor, inv_mass: torch.Tensor, batch: BendBatch, failed=None,
+              out=None) -> torch.Tensor:
+    """T12's bend kernel on a CUDA tensor, its twin on a CPU tensor.  The
+    two agree to the roundoff of ``acos`` (``acosf`` in the kernel)."""
+    if kernels.on_cpu(x):
+        return bend_rows_plain(x, inv_mass, batch, failed, out)
+    if failed is None:
+        raise ValueError("the bend-row kernel needs the failure latch")
+    c = batch.idx.shape[0]
+    rows = _rows_out(out, 4 * c, x)
+    kernels.require(x.device, x, inv_mass, batch.idx, batch.rest_angle, batch.w, rows, failed)
+    err = kernels.lib().pies_bend_rows(
+        x.data_ptr(), inv_mass.data_ptr(), batch.idx.data_ptr(),
+        batch.rest_angle.data_ptr(), batch.w.data_ptr(), rows.data_ptr(), c,
+        failed.data_ptr(), kernels.stream())
+    kernels.check(err, "bend_rows")
+    bend_rows.launches += 1
+    return rows
+
+
+bend_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# T13: shape- and goal-matching rows
+
+
+def _lane_tree(w: torch.Tensor) -> torch.Tensor:
+    """The ``SHAPE_BLOCK``-wide pairwise tree over axis 1: v[t] += v[t + s]."""
+    s = SHAPE_BLOCK // 2
+    while s:
+        w = w[:, :s] + w[:, s:2 * s]
+        s //= 2
+    return w[:, 0]
+
+
+def shape_group_sums(x: torch.Tensor, mass: torch.Tensor, batch: GroupBatch) -> torch.Tensor:
+    """Per group, the 15 sums f32[G, 15] over its members of ``(x | m·xᵢ·matⱼ
+    | m·mat)`` (``shape_group_moments``, ``projections.py:409-443``), summed
+    in kernel T13's fixed order: lane t of ``SHAPE_BLOCK`` adds the group's
+    members t, t + 128, ... one after another, then the lanes are summed by
+    the pairwise tree."""
+    g = batch.num_groups
+    k = max(1, -(-batch.max_count // SHAPE_BLOCK))
+    start = batch.member_start.long()
+    at = start[:-1, None] + torch.arange(k * SHAPE_BLOCK, device=x.device)[None, :]
+    valid = at < start[1:, None]
+    at = torch.where(valid, at, 0)
+    node = batch.node_idx.long()[at]
+    mask = batch.member_mask[at]
+    mat = batch.mat_coords[at]  # [G, KB, 3]
+    xg = x[node] * mask[..., None]
+    m = mass[node] * mask
+    mx = m[..., None] * xg
+    cols = torch.cat(
+        [xg] + [mx[..., i:i + 1] * mat[..., j:j + 1] for i in range(3) for j in range(3)]
+        + [m[..., None] * mat], dim=-1)
+    cols = torch.where(valid[..., None], cols, 0.0).view(g, k, SHAPE_BLOCK, 15)
+    acc = cols[:, 0]
+    for j in range(1, k):
+        acc = acc + cols[:, j]
+    return _lane_tree(acc)
+
+
+def shape_group_moments(x: torch.Tensor, mass: torch.Tensor, batch: GroupBatch):
+    """Per-group COM f32[G, 3] (equal weights ``1/count``: the reference's
+    COM is not mass-weighted) and mass-weighted moment matrix f32[G, 3, 3],
+    expanded around the origin: ``Σ m·x·matᵀ − com·(Σ m·mat)ᵀ``."""
+    s = shape_group_sums(x, mass, batch)
+    com = s[:, :3] * batch.inv_count[:, None]
+    p = s[:, 3:12].reshape(-1, 3, 3) - com[:, :, None] * s[:, 12:15][:, None, :]
+    return com, p
+
+
+def _member_weights(batch: GroupBatch) -> torch.Tensor:
+    return batch.w[batch.group_idx.long()] * batch.member_mask
+
+
+def project_shape(x: torch.Tensor, mass: torch.Tensor, quats: torch.Tensor,
+                  batch: GroupBatch, rotation_iterations: int):
+    """Shape-matching projection (``projections.py:446-485``,
+    ``ShapeMatchingConstraint.cpp:96-122``): ``(projected member positions
+    f32[M, 3], updated quats f32[G, 4])``.  ``F = P·Qinv``; padded groups
+    get ``F = I`` and keep their quaternion."""
+    com, p = shape_group_moments(x, mass, batch)
+    qi = batch.qinv
+    f = torch.stack(
+        [p[:, i, 0] * qi[:, 0, k] + p[:, i, 1] * qi[:, 1, k] + p[:, i, 2] * qi[:, 2, k]
+         for i in range(3) for k in range(3)], dim=-1).reshape(-1, 3, 3)
+    eye = torch.eye(3, dtype=x.dtype, device=x.device).expand_as(f)
+    f = torch.where(batch.group_mask[:, None, None] > 0, f, eye)
+    quats = math3d.extract_rotation(f, quats, rotation_iterations)
+    gi = batch.group_idx.long()
+    r = torch.stack(math3d.quat_to_mat9(quats), dim=-1)[gi]  # [M, 9]
+    mat, comg = batch.mat_coords, com[gi]
+    projected = torch.stack(
+        [r[:, 3 * i] * mat[:, 0] + r[:, 3 * i + 1] * mat[:, 1] + r[:, 3 * i + 2] * mat[:, 2]
+         + comg[:, i] for i in range(3)], dim=-1)
+    return projected, quats
+
+
+def shape_rows_plain(x: torch.Tensor, mass: torch.Tensor, quats: torch.Tensor,
+                     batch: GroupBatch, rotation_iterations: int, failed=None,
+                     out=None) -> torch.Tensor:
+    """Plain twin of T13's shape kernel: the update rows f32[M, 3] of
+    ``assemble_force``'s shape scatter (``assembly.py:275-278``), each
+    member's projection times ``w[group]·mask``; ``quats`` f32[G, 4] takes
+    the new rotations in place, unless slot 0 of ``failed`` is set."""
+    projected, new = project_shape(x, mass, quats, batch, rotation_iterations)
+    if failed is not None:
+        new = torch.where(failed[0] != 0, quats, new)
+    quats.copy_(new)
+    return _store(out, _member_weights(batch)[:, None] * projected)
+
+
+def shape_rows(x: torch.Tensor, mass: torch.Tensor, quats: torch.Tensor, batch: GroupBatch,
+               rotation_iterations: int, failed=None, out=None) -> torch.Tensor:
+    """T13's shape kernel on a CUDA tensor, its twin on a CPU tensor; in
+    place on ``quats``.  The two agree to the roundoff of ``sin`` and
+    ``cos``."""
+    if kernels.on_cpu(x):
+        return shape_rows_plain(x, mass, quats, batch, rotation_iterations, failed, out)
+    if failed is None:
+        raise ValueError("the shape-matching kernel needs the failure latch")
+    m, g = batch.node_idx.shape[0], batch.num_groups
+    if tuple(quats.shape) != (g, 4) or batch.member_start.shape[0] != g + 1:
+        raise ValueError(f"{g} groups need quats [{g}, 4] and {g + 1} member starts")
+    rows = _rows_out(out, m, x)
+    b = (batch.node_idx, batch.mat_coords, batch.member_mask, batch.member_start, batch.w,
+         batch.group_mask, batch.inv_count, batch.qinv)
+    kernels.require(x.device, x, mass, quats, rows, failed, *b)
+    err = kernels.lib().pies_shape_rows(
+        x.data_ptr(), mass.data_ptr(), *(t.data_ptr() for t in b), quats.data_ptr(),
+        rows.data_ptr(), m, g, int(rotation_iterations), failed.data_ptr(), kernels.stream())
+    kernels.check(err, "shape_rows")
+    shape_rows.launches += 1
+    return rows
+
+
+shape_rows.launches = 0
+
+
+def project_goal(batch: GroupBatch) -> torch.Tensor:
+    """Goal-matching projection f32[M, 3] (``projections.py:488-504``,
+    ``ShapeMatchingConstraint.cpp:162-173``): ``p = T·(mat, 1)`` with the
+    group's 4x4 transform, which the host updates
+    (``Solver.update_fixed_regions``)."""
+    t16 = batch.transforms.reshape(-1, 16)[batch.group_idx.long()]
+    mat = batch.mat_coords
+    return torch.stack(
+        [t16[:, 4 * i] * mat[:, 0] + t16[:, 4 * i + 1] * mat[:, 1]
+         + t16[:, 4 * i + 2] * mat[:, 2] + t16[:, 4 * i + 3] for i in range(3)], dim=-1)
+
+
+def goal_rows_plain(batch: GroupBatch, failed=None, out=None) -> torch.Tensor:
+    """Plain twin of T13's goal kernel: the update rows f32[M, 3] of
+    ``assemble_force``'s goal scatter, ``w[group]·mask·T·(mat, 1)``."""
+    return _store(out, _member_weights(batch)[:, None] * project_goal(batch))
+
+
+def goal_rows(batch: GroupBatch, failed=None, out=None) -> torch.Tensor:
+    """T13's goal kernel on CUDA tensors, its twin on CPU tensors."""
+    if kernels.on_cpu(batch.mat_coords):
+        return goal_rows_plain(batch, failed, out)
+    if failed is None:
+        raise ValueError("the goal-matching kernel needs the failure latch")
+    m = batch.node_idx.shape[0]
+    rows = _rows_out(out, m, batch.mat_coords)
+    b = (batch.group_idx, batch.mat_coords, batch.member_mask, batch.w, batch.transforms)
+    kernels.require(rows.device, rows, failed, *b)
+    err = kernels.lib().pies_goal_rows(
+        *(t.data_ptr() for t in b), rows.data_ptr(), m, failed.data_ptr(), kernels.stream())
+    kernels.check(err, "goal_rows")
+    goal_rows.launches += 1
+    return rows
+
+
+goal_rows.launches = 0

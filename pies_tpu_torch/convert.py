@@ -17,11 +17,13 @@ import torch
 from .options import CollisionBudget, PhysicsParams, SolverName, StepConfig
 from .state import BroadphaseCache, SolverState
 from .topology import (
+    BendBatch,
+    DistanceBatch,
+    GroupBatch,
     PositionBatch,
     TetBatch,
     Topology,
-    pin_weights,
-    tet_incidence,
+    generic_fields,
     to_device,
 )
 
@@ -63,39 +65,64 @@ def state_from_numpy(state, device="cpu") -> SolverState:
         node_mask=_t(state.node_mask, device),
         sim_failed=failed,
         bp=cache_from_numpy(getattr(state, "bp", None), device),
+        shape_quats=_t(state.shape_quats, device),
     )
 
 
-def topology_from_numpy(topo, device="cpu") -> Topology:
+def groups_from_numpy(g) -> GroupBatch:
+    """The port's group batch from a JAX ``GroupBatch`` with NumPy leaves
+    (the goal transforms included); the member runs are read off
+    ``group_idx``, which ``build_groups`` fills group after group."""
+    mask = np.asarray(g.member_mask) > 0
+    counts = np.bincount(np.asarray(g.group_idx)[mask], minlength=g.w.shape[0])
+    start = np.zeros(counts.shape[0] + 1, np.int32)
+    np.cumsum(counts, out=start[1:])
+    return GroupBatch(
+        node_idx=g.node_idx, group_idx=g.group_idx, mat_coords=g.mat_coords,
+        member_mask=g.member_mask, w=g.w, group_mask=g.group_mask, inv_count=g.inv_count,
+        qinv=g.qinv, transforms=g.transforms, member_start=start,
+        max_count=int(counts.max()) if counts.size else 0,
+    )
+
+
+def topology_from_numpy(topo, device="cpu", tet_fused: bool = True) -> Topology:
     """The port's topology from a JAX ``Topology`` with NumPy leaves (the
-    ported fields only).  The ELL operator becomes slot-major; the pin
-    weight and, with the ELL, the tet incidence are built here as the
-    port's host builds them."""
+    ported fields only), for a scene with the JAX ``StepConfig.tet_fused``
+    given.  Unless the live tets are banded, the static weight, the
+    assembled operator and the row incidence are built here as the port's
+    host builds them."""
 
     def tets(b):
-        return TetBatch(idx=b.idx, qinv=b.qinv, g=b.g, lo=b.lo, hi=b.hi, w=b.w)
+        return TetBatch(idx=np.asarray(b.idx), qinv=np.asarray(b.qinv), g=np.asarray(b.g),
+                        lo=np.asarray(b.lo), hi=np.asarray(b.hi), w=np.asarray(b.w))
 
-    def slot_major(a):
-        return None if a is None else np.ascontiguousarray(np.asarray(a).T)
-
-    p = topo.position
+    p, d, b = topo.position, topo.distance, topo.bend
     n = np.asarray(topo.stiffness_diag).shape[0]
-    ell = getattr(topo, "ell_nbr", None)
+    strain, volume = tets(topo.strain), tets(topo.volume)
+    position = PositionBatch(idx=p.idx, target=p.target, w=p.w)
+    distance = DistanceBatch(idx=np.asarray(d.idx), rest=np.asarray(d.rest), w=np.asarray(d.w))
+    bend = BendBatch(idx=np.asarray(b.idx), rest_angle=np.asarray(b.rest_angle),
+                     w=np.asarray(b.w))
+    shape, goal = groups_from_numpy(topo.shape), groups_from_numpy(topo.goal)
     return to_device(
         Topology(
-            strain=tets(topo.strain),
-            volume=tets(topo.volume),
-            position=PositionBatch(idx=p.idx, target=p.target, w=p.w),
+            strain=strain,
+            volume=volume,
+            position=position,
             stiffness_diag=topo.stiffness_diag,
             floor_count=topo.floor_count,
             tet_block6=topo.tet_block6,
             position_force_dense=topo.position_force_dense,
             triangles=topo.triangles,
             tri_mask=topo.tri_mask,
-            pin_w=pin_weights(p, n),
-            ell_nbr=slot_major(ell),
-            ell_coef=slot_major(getattr(topo, "ell_coef", None)),
-            tet_inc=None if ell is None else tet_incidence(np.asarray(topo.strain.idx), n),
+            **generic_fields(n, strain=strain, volume=volume, position=position,
+                             distance=distance, bend=bend, shape=shape, goal=goal,
+                             tet_fused=tet_fused),
+            distance=distance,
+            bend=bend,
+            shape=shape,
+            goal=goal,
+            tet_fused=tet_fused,
         ),
         device,
     )

@@ -25,6 +25,10 @@ wrappers that call them sit beside their plain PyTorch twins:
 * T10 ``pies_ell_matvec`` — ``solver/assembly.py:apply_system``
 * T11 ``pies_cg_init``, ``pies_cg_update``, ``pies_cg_direction`` —
   ``solver/assembly.py:pcg_solve``
+* T12 ``pies_distance_rows``, ``pies_bend_rows`` —
+  ``constraints/projections.py:distance_rows``, ``bend_rows``
+* T13 ``pies_shape_rows``, ``pies_goal_rows`` —
+  ``constraints/projections.py:shape_rows``, ``goal_rows``
 
 Each source compiles to an object in its own ``nvcc`` process, all started
 together, and the objects link into one library.
@@ -68,12 +72,16 @@ SIGNATURES = {
     "pies_pt_coupling_setup": [_P] * 14 + [_I, _I, _F, _P],
     "pies_pt_force": [_P] * 9 + [_I, _I, _F, _P],
     "pies_pt_tail": [_P] * 16 + [_I, _I, _I] + [_F] * 6 + [_P],
-    "pies_tet_force12_gather": [_P] * 11 + [_I, _P, _P],
+    "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P, _P],
     "pies_assemble_force": [_P] * 9 + [_I, _F, _P, _P],
-    "pies_ell_matvec": [_P] * 6 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F, _P],
+    "pies_ell_matvec": [_P] * 7 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F, _P],
     "pies_cg_init": [_P] * 12 + [_I, _P, _P],
     "pies_cg_update": [_P] * 12 + [_I] * 3 + [_F, _P, _P],
     "pies_cg_direction": [_P] * 5 + [_I] * 3 + [_F, _P, _P],
+    "pies_distance_rows": [_P] * 5 + [_I, _P, _P],
+    "pies_bend_rows": [_P] * 6 + [_I, _P, _P],
+    "pies_shape_rows": [_P] * 12 + [_I, _I, _I, _P, _P],
+    "pies_goal_rows": [_P] * 6 + [_I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,36 +1,47 @@
-// Kernel T10: one application of the generic PD system on a shared-node
-// tet mesh, one thread per node.
+// Kernel T10: one application of the generic PD system, one thread per
+// node, over the assembled operator.
 //
-// Replaces (JAX): pies_tpu/solver/assembly.py:448 apply_system in its
-// assembled-ELL form: the diagonal (mass/h^2 + static_diag) x (:470), the
-// position pins p.w x[p.idx] (:488-490) and the strain + volume sum
-// acc = sum_m coef[:, m] x[nbr[:, m]] in slot order (:503-512); and the
+// Replaces (JAX): pies_tpu/solver/assembly.py:448 apply_system: the
+// diagonal (mass/h^2 + static_diag) x (:470); the terms whose A^T A is the
+// identity, folded into one weight per node (topology.static_weights): the
+// position pins (:488-490), the bends (:547-549) and the shape and goal
+// members (:551-554); and the off-diagonal terms, assembled on the host in
+// float64 (topology.assemble_operator): the distance constraints' weighted
+// graph Laplacian (:479-486, which the JAX package scatters per constraint)
+// and the strain + volume sum acc = sum_m coef[:, m] x[nbr[:, m]] in slot
+// order (:503-512, and :397 _tet_ata_flat where no ELL exists); and the
 // p.Ap reduction of pies_tpu/solver/assembly.py:701 pcg_solve, fused as a
 // per-block partial (cg_reduce.cuh).
 //
 // static_diag is the floor weight wf of kernel T3 (W_STATIC * count *
 // active); the JAX package adds a zero point-triangle diagonal to it when
-// self-contact is off, which changes nothing.  The pins come folded into a
-// dense per-node weight (topology.pin_weights).
+// self-contact is off, which changes nothing.
 //
-// Bound: device memory.  Per node it reads m = 15 neighbour ids and
-// coefficients (120 bytes), x, mass, the floor and pin weights (24 bytes)
-// and writes y (12 bytes): ~17 MB per apply at 110,592 nodes, ~5 us at
-// 3.35 TB/s; the neighbours' x rows come from L2.  The ELL is stored
-// slot-major ([m, N]) so that neighbouring threads read neighbouring words,
-// and a row is a node, so there are no atomics and the order of every sum
-// is the JAX package's.
+// The operator is ELL, slot-major ([m, N], so that neighbouring threads
+// read neighbouring words; m = 0 for a scene with diagonal terms only),
+// while no row has more than 64 entries, and CSR beyond (a row per thread,
+// its columns ascending, as the ELL's slots are).  A row is a node, so
+// there are no atomics and the order of every sum is fixed.
+//
+// Bound: device memory.  Per node it reads m neighbour ids and
+// coefficients (8 m bytes), x, mass, the floor and static weights (24
+// bytes) and writes y (12 bytes): ~17 MB per apply at 110,592 nodes and
+// m = 15, ~5 us at 3.35 TB/s; the neighbours' x rows come from L2.
 #include <cuda_runtime.h>
 
 #include "cg_reduce.cuh"
 
 namespace {
 
+// kCsr: `nbr` and `coef` are the CSR columns and values and `row_start` the
+// rows' starts; else they are the slot-major ELL of width m.
+template <bool kCsr>
 __global__ void __launch_bounds__(pies::kCgBlock)
     ell_matvec_kernel(const float* __restrict__ x,
                       const float* __restrict__ mass,
                       const float* __restrict__ wf,
-                      const float* __restrict__ pin_w,
+                      const float* __restrict__ static_w,
+                      const int* __restrict__ row_start,
                       const int* __restrict__ nbr,
                       const float* __restrict__ coef, int m,
                       float* __restrict__ y, float* __restrict__ part, int n,
@@ -46,21 +57,36 @@ __global__ void __launch_bounds__(pies::kCgBlock)
     float xi[3], acc[3], yi[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d) xi[d] = x[(size_t)i * 3 + d];
-    const int j0 = nbr[i];
-    const float c0 = coef[i];
+    acc[0] = acc[1] = acc[2] = 0.0f;
+    // The first term starts the sum, the others are added in slot order.
+    if (kCsr) {
+      const int e0 = row_start[i], e1 = row_start[i + 1];
+      for (int e = e0; e < e1; ++e) {
+        const int j = nbr[e];
+        const float c = coef[e];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) acc[d] = c0 * x[(size_t)j0 * 3 + d];
-    for (int s = 1; s < m; ++s) {
-      const int j = nbr[(size_t)s * n + i];
-      const float c = coef[(size_t)s * n + i];
+        for (int d = 0; d < 3; ++d) {
+          const float t = c * x[(size_t)j * 3 + d];
+          acc[d] = e == e0 ? t : acc[d] + t;
+        }
+      }
+    } else if (m > 0) {
+      const int j0 = nbr[i];
+      const float c0 = coef[i];
 #pragma unroll
-      for (int d = 0; d < 3; ++d) acc[d] = acc[d] + c * x[(size_t)j * 3 + d];
+      for (int d = 0; d < 3; ++d) acc[d] = c0 * x[(size_t)j0 * 3 + d];
+      for (int s = 1; s < m; ++s) {
+        const int j = nbr[(size_t)s * n + i];
+        const float c = coef[(size_t)s * n + i];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc[d] = acc[d] + c * x[(size_t)j * 3 + d];
+      }
     }
     const float dg = mass[i] / h2 + wf[i];
 #pragma unroll
     for (int d = 0; d < 3; ++d) yi[d] = dg * xi[d];
-    if (pin_w != nullptr) {
-      const float pw = pin_w[i];
+    if (static_w != nullptr) {
+      const float pw = static_w[i];
 #pragma unroll
       for (int d = 0; d < 3; ++d) yi[d] = yi[d] + pw * xi[d];
     }
@@ -81,9 +107,11 @@ __global__ void __launch_bounds__(pies::kCgBlock)
 
 // y = A x; with `part` non-null also the per-block partials of x.y.  With
 // `trips` non-null the launch is CG trip `trip` and is gated (cg_reduce.cuh).
+// With `row_start` non-null the operator is CSR, else ELL of width m.
 extern "C" int pies_ell_matvec(const float* x, const float* mass,
-                               const float* wf, const float* pin_w,
-                               const int* nbr, const float* coef, int m,
+                               const float* wf, const float* static_w,
+                               const int* row_start, const int* nbr,
+                               const float* coef, int m,
                                float* y, float* part, int n, float h2,
                                const int* failed, const int* trips,
                                const float* prz, const float* prz0, int trip,
@@ -91,8 +119,14 @@ extern "C" int pies_ell_matvec(const float* x, const float* mass,
   if (n > 0) {
     const int blocks = (n + pies::kCgBlock - 1) / pies::kCgBlock;
     pies::CgGate gate{trips, prz, prz0, blocks, trip, early_exit, rtol2};
-    ell_matvec_kernel<<<blocks, pies::kCgBlock, 0, (cudaStream_t)stream>>>(
-        x, mass, wf, pin_w, nbr, coef, m, y, part, n, h2, failed, gate);
+    if (row_start != nullptr)
+      ell_matvec_kernel<true><<<blocks, pies::kCgBlock, 0, (cudaStream_t)stream>>>(
+          x, mass, wf, static_w, row_start, nbr, coef, m, y, part, n, h2,
+          failed, gate);
+    else
+      ell_matvec_kernel<false><<<blocks, pies::kCgBlock, 0, (cudaStream_t)stream>>>(
+          x, mass, wf, static_w, row_start, nbr, coef, m, y, part, n, h2,
+          failed, gate);
   }
   return (int)cudaGetLastError();
 }

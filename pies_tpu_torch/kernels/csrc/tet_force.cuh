@@ -283,4 +283,57 @@ __device__ __forceinline__ void tet_force12(const float p[4][3],
                        tp.g[8 + a] * fh[3 * d + 2];
 }
 
+// One family's force w A^T B p of one tet (tet_force12 of
+// pies_tpu/constraints/projections.py:210): strain clamps the singular
+// values (the third negated on an inverted tet), volume corrects them; the
+// weight multiplies last.  Reads the strain slots of `tp` for strain and
+// the volume slots for volume.
+__device__ __forceinline__ void tet_force12_single(const float p[4][3],
+                                                   const TetParams& tp,
+                                                   bool strain,
+                                                   float out[12]) {
+  float f[9];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float e0 = p[1][d] - p[0][d];
+    const float e1 = p[2][d] - p[0][d];
+    const float e2 = p[3][d] - p[0][d];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      f[3 * d + j] = e0 * tp.qinv[0 + j] + e1 * tp.qinv[3 + j] +
+                     e2 * tp.qinv[6 + j];
+  }
+  float u[9], sigma[3], v[9];
+  svd3(f, u, sigma, v);
+
+  float sh[3];
+  if (strain) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) sh[k] = fminf(fmaxf(sigma[k], tp.slo), tp.shi);
+    if (det3(f) < 0.0f) sh[2] = -sh[2];
+  } else {
+    float dc[3];
+    compute_d(sigma, tp.vlo, tp.vhi, dc);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) sh[k] = sigma[k] + dc[k];
+  }
+  const float w = strain ? tp.sw : tp.vw;
+
+  float fh[9];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      fh[3 * d + j] = u[3 * d + 0] * sh[0] * v[3 * j + 0] +
+                      u[3 * d + 1] * sh[1] * v[3 * j + 1] +
+                      u[3 * d + 2] * sh[2] * v[3 * j + 2];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      out[3 * a + d] = w * (tp.g[0 + a] * fh[3 * d + 0] +
+                            tp.g[4 + a] * fh[3 * d + 1] +
+                            tp.g[8 + a] * fh[3 * d + 2]);
+}
+
 }  // namespace pies

@@ -1,24 +1,31 @@
-// Kernel T9: the local step and force assembly of one PD iteration on a
-// shared-node tet mesh, in two stages.
+// Kernel T9: the tet local step and the force assembly of one PD iteration
+// on the generic path, in two stages.
 //
 // Replaces (JAX): pies_tpu/constraints/projections.py:280
-// tet_force12_fused with the gather of collision/batches.py:188
-// gather_cols (stage 1, on the device function of kernel T1), and
-// pies_tpu/solver/assembly.py:188 assemble_force on this path: the pin force
-// f + position_force_dense (:232-238), the corner-major tet scatter
-// (:252-261) and the dense floor term f + wf p_static (:329-331), with
-// collision/batches.py:216 project_static_dense (stage 2).
+// tet_force12_fused and :210 tet_force12 with the gather of
+// collision/batches.py:188 gather_cols (stage 1, on the device functions of
+// kernel T1), and pies_tpu/solver/assembly.py:188 assemble_force on this
+// path: the per-node sum of every family's scatter (:218-278), the pin force
+// f + position_force_dense (:232-238) and the dense floor term
+// f + wf p_static (:329-331), with collision/batches.py:216
+// project_static_dense (stage 2).
 //
 // Stage 1, one thread per tet: gather the 4 corners through idx, compute
-// the combined strain + volume force, write it as rows k = a*C + t of
-// blocks f32[4C, 3] (the JAX scatter's update layout; one 12-byte row per
-// (tet, corner) for stage 2 to read).
+// the force (kind 0: strain + volume combined on shared tets; 1: strain
+// alone; 2: volume alone), write it as rows k = a*C + t of blocks
+// f32[4C, 3] (the JAX scatter's update layout; one 12-byte row per (tet,
+// corner) for stage 2 to read).
 // Stage 2, one thread per node: force = ((msn + pin) + the node's rows of
-// blocks, added in ascending k as the JAX package's scatter adds them) +
-// wf * static, with static = (x, max(y, plane), z) the floor projection
-// (the plane is y = 0 in quirk mode).  The node -> (tet, corner) incidence
-// (topology.tet_incidence) fixes the order, so there are no float atomics
-// and kernel and twin agree bit for bit.
+// the row buffer, added in ascending row index) + wf * static, with
+// static = (x, max(y, plane), z) the floor projection (the plane is y = 0
+// in quirk mode).  The buffer holds the rows of all families (distance,
+// tets, bends, shape and goal members: kernels T12, T13 and stage 1 fill
+// it) in assemble_force's order, each family's in its scatter's update
+// order, so ascending index is the order in which the JAX package adds
+// them; the node -> row incidence (topology.row_incidence) fixes it, so
+// there are no float atomics and kernel and twin agree bit for bit.  (In
+// the JAX package the pin force is added after the distance rows; here it
+// comes first, folded into the start value.)
 //
 // Bound: device memory.  The function needs the tet ids and 27 parameter
 // floats per tet (124 B; ~77 MB at 622,938 tets) and 52 B per node (x, msn
@@ -39,7 +46,8 @@ __global__ void __launch_bounds__(128)
     tet_force12_gather_kernel(const float* __restrict__ x,
                               const int* __restrict__ idx,
                               pies::TetBatchPtrs b, float* __restrict__ blocks,
-                              int c, const int* __restrict__ failed) {
+                              int c, int kind,
+                              const int* __restrict__ failed) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= c) return;
   if (failed[0] != 0) return;
@@ -53,7 +61,10 @@ __global__ void __launch_bounds__(128)
   pies::TetParams tp;
   pies::load_tet(b, t, tp);
   float f[12];
-  pies::tet_force12(p, tp, f);
+  if (kind == 0)
+    pies::tet_force12(p, tp, f);
+  else
+    pies::tet_force12_single(p, tp, kind == 1, f);
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -103,14 +114,14 @@ extern "C" int pies_tet_force12_gather(const float* x, const int* idx,
                                        const float* slo, const float* shi,
                                        const float* sw, const float* vlo,
                                        const float* vhi, const float* vw,
-                                       float* blocks, int c, const int* failed,
-                                       void* stream) {
+                                       float* blocks, int c, int kind,
+                                       const int* failed, void* stream) {
   if (c > 0) {
     pies::TetBatchPtrs b{qinv, g, slo, shi, sw, vlo, vhi, vw, c};
     const int threads = 128;
     tet_force12_gather_kernel<<<(c + threads - 1) / threads, threads, 0,
                                 (cudaStream_t)stream>>>(x, idx, b, blocks, c,
-                                                        failed);
+                                                        kind, failed);
   }
   return (int)cudaGetLastError();
 }

@@ -169,3 +169,87 @@ def _perp_flat(x):
     n = torch.sqrt(_dot3(p, p))
     inv = 1.0 / torch.clamp_min(n, _EPS)
     return tuple(pi * inv for pi in p)
+
+
+# ---------------------------------------------------------------------------
+# Quaternions (w, x, y, z) and Müller's rotation extraction (port of
+# ``pies_tpu/ops/math3d.py:372-443``).  Written component by component, in
+# the order in which ``kernels/csrc/shape_match.cu`` does the same steps.
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
+def quat_to_mat9(q: torch.Tensor):
+    """Unit quaternion ``[..., 4]`` -> the rotation matrix as nine tensors,
+    row-major."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return (
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    )
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion -> rotation matrix ``[..., 3, 3]``."""
+    r = quat_to_mat9(q)
+    return torch.stack(r, dim=-1).reshape(*q.shape[:-1], 3, 3)
+
+
+def quat_from_axis_angle(angle: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
+    half = 0.5 * angle
+    s = torch.sin(half)
+    return torch.cat([torch.cos(half)[..., None], s[..., None] * axis], dim=-1)
+
+
+def _cross3(u, v):
+    return (u[1] * v[2] - u[2] * v[1], u[2] * v[0] - u[0] * v[2], u[0] * v[1] - u[1] * v[0])
+
+
+def extract_rotation(a: torch.Tensor, q: torch.Tensor, iterations: int) -> torch.Tensor:
+    """Rotational part of ``a`` f32[G, 3, 3] by Müller et al.'s iteration
+    (``extractRotation``, ``ShapeMatchingConstraint.cpp:75-94``), warm-started
+    from ``q`` f32[G, 4]: per trip the torque ``ω`` of the current rotation
+    against ``a``, and a turn of ``q`` about it.  A fixed trip count with the
+    update masked once ``|ω| < 1e-9``, as in the JAX package.
+
+    The torque's scale is ``1/|den| + 1e-9`` — the JAX package's expression
+    (``pies_tpu/ops/math3d.py:432``), not ``1/(|den| + 1e-9)`` — because the
+    port is held to that package."""
+    acol = [(a[..., 0, k], a[..., 1, k], a[..., 2, k]) for k in range(3)]
+    for _ in range(iterations):
+        r = quat_to_mat9(q)
+        rcol = [(r[k], r[3 + k], r[6 + k]) for k in range(3)]
+        num = _cross3(rcol[0], acol[0])
+        for k in (1, 2):
+            c = _cross3(rcol[k], acol[k])
+            num = tuple(n + ci for n, ci in zip(num, c))
+        dots = [rc[0] * ac[0] + rc[1] * ac[1] + rc[2] * ac[2] for rc, ac in zip(rcol, acol)]
+        den = dots[0] + dots[1] + dots[2]
+        scale = ieee_div(torch.ones_like(den), den.abs()) + 1e-9
+        om = tuple(n * scale for n in num)
+        w = torch.sqrt(om[0] * om[0] + om[1] * om[1] + om[2] * om[2])
+        converged = w < 1e-9
+        wn = torch.clamp_min(w, _TINY)
+        axis = torch.stack([o / wn for o in om], dim=-1)
+        q_new = quat_mul(quat_from_axis_angle(w, axis), q)
+        norm = torch.sqrt(q_new[..., 0] * q_new[..., 0] + q_new[..., 1] * q_new[..., 1]
+                          + q_new[..., 2] * q_new[..., 2] + q_new[..., 3] * q_new[..., 3])
+        q_new = q_new / torch.clamp_min(norm, _TINY)[..., None]
+        q = torch.where(converged[..., None], q, q_new)
+    return q

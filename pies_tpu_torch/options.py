@@ -80,6 +80,9 @@ class StepConfig:
     # early-exit tolerance (0 = always ``cg_iterations`` trips).
     cg_iterations: int = 16
     cg_rtol: float = 0.0
+    # Trips of the shape-matching rotation extraction (ops.math3d.
+    # extract_rotation), warm-started from the state's quaternions.
+    rotation_iterations: int = 20
     enable_collisions: bool = True
     dense_floor: bool = True
     reference_quirks: bool = True

@@ -1,16 +1,18 @@
-"""PD global system: diagonals, and the generic path's force, operator and
-Jacobi-PCG (port of ``pies_tpu/solver/assembly.py:188-335,338-368,448-512,
-577-599,656-725`` for the ported scenes).
+"""PD global system: diagonals, and the generic path's local step, force,
+operator and Jacobi-PCG (port of ``pies_tpu/solver/assembly.py:72-335,
+338-368,448-556,577-599,656-725`` for the ported scenes).
 
 The tet-column path solves its 4x4 blocks directly and needs only the
-diagonals.  The generic path, for shared-node tet meshes, runs per PD
-iteration:
+diagonals.  The generic path, for every other scene, runs per PD iteration:
 
-* T9's stage 2 :func:`assemble_force` — ``((M·sₙ/h² + pin force) + the tet
-  forces of T9's stage 1, per node in the JAX scatter order) + w_f·p_static``
-  and the static projection;
-* T10 :func:`apply_system` — ``(M/h² + w_f)·x + pin_w·x + Σ coef·x[nbr]``
-  over the assembled ELL operator;
+* :func:`local_step` — every constraint family's force rows ``w·AᵀB·p``
+  into one row buffer: T12 (distance, bend), T13 (shape, goal) and T9's
+  stage 1 (tets), see ``constraints/projections.py``;
+* T9's stage 2 :func:`assemble_force` — ``((M·sₙ/h² + pin force) + the
+  node's rows, in the JAX scatters' order) + w_f·p_static`` and the static
+  projection;
+* T10 :func:`apply_system` — ``(M/h² + w_f)·x + static_w·x + Σ coef·x[nbr]``
+  over the assembled operator (ELL, or CSR for very wide rows);
 * T11 :func:`pcg_solve` — the Jacobi-PCG with the JAX package's trip cap
   and early exit, each trip one T10 launch and two T11 launches.
 
@@ -35,8 +37,9 @@ from ..collision.batches import (
     csr_sum,
     incidence_plain,
 )
+from ..constraints import projections as proj
 from ..ops.math3d import ieee_div as _div
-from ..topology import Topology
+from ..topology import Topology, row_layout
 
 CG_BLOCK = 256  # pies::kCgBlock in kernels/csrc/cg_reduce.cuh
 
@@ -73,6 +76,57 @@ def _pins(topo: Topology) -> bool:
     return topo.position.idx.shape[0] > 0
 
 
+def _static_w(topo: Topology, n: int):
+    """The dense static weight, or None when the scene has no diagonal-only
+    constraint."""
+    return topo.static_w if topo.static_w.shape[0] == n else None
+
+
+# ---------------------------------------------------------------------------
+# the local step: every family's force rows
+
+
+def local_step(x, inv_mass, mass, quats, topo: Topology, rotation_iterations: int,
+               failed=None, plain: bool = False) -> torch.Tensor:
+    """One PD iteration's local step (``assembly.py:72-173`` with the row
+    construction of ``assemble_force``, ``:218-278``): every constraint is
+    projected from the same positions ``x`` f32[N, 3], and its force rows
+    ``w·AᵀB·p`` go to one buffer f32[R, 3] laid out by
+    ``topology.row_layout``.  ``quats`` f32[G, 4], the shape groups'
+    rotations, is updated in place.  A family without constraints launches
+    nothing, as the JAX package elides it.  ``plain`` takes the twins
+    whatever the device."""
+    lay = row_layout(topo)
+    total = sum(rows for _, rows in lay.values())
+    buf = torch.empty((total, 3), dtype=torch.float32, device=x.device)
+
+    def part(name):
+        at, rows = lay[name]
+        return buf[at:at + rows] if rows else None
+
+    dist, bend, shape, goal, tets = (
+        (proj.distance_rows_plain, proj.bend_rows_plain, proj.shape_rows_plain,
+         proj.goal_rows_plain, proj.tet_force12_gathered_plain) if plain else
+        (proj.distance_rows, proj.bend_rows, proj.shape_rows, proj.goal_rows,
+         proj.tet_force12_gathered))
+    if (out := part("distance")) is not None:
+        dist(x, topo.distance, failed, out)
+    if topo.tet_fused:
+        if (out := part("strain")) is not None:
+            tets(x, topo.strain, topo.volume, failed, out, "fused")
+    else:
+        for kind in ("strain", "volume"):
+            if (out := part(kind)) is not None:
+                tets(x, topo.strain, topo.volume, failed, out, kind)
+    if (out := part("bend")) is not None:
+        bend(x, inv_mass, topo.bend, failed, out)
+    if (out := part("shape")) is not None:
+        shape(x, mass, quats, topo.shape, rotation_iterations, failed, out)
+    if (out := part("goal")) is not None:
+        goal(topo.goal, failed, out)
+    return buf
+
+
 # ---------------------------------------------------------------------------
 # T9 stage 2: the force
 
@@ -80,13 +134,13 @@ def _pins(topo: Topology) -> bool:
 def assemble_force_plain(x, msn_h2, wf, blocks, topo: Topology, plane: float,
                          failed=None):
     """Plain twin of T9's stage 2.  ``x`` f32[N, 3] is the iterate, ``msn_h2``
-    its ``M·sₙ/h²``, ``wf`` f32[N] the floor weight, ``blocks`` f32[4C, 3]
-    stage 1's tet forces.  Returns ``(force, static)`` f32[N, 3]: the right
-    side ``((msn + pin force) + Σ tet rows) + wf·static`` and the floor
-    projection ``static = (x, max(y, plane), z)``.  ``failed`` is accepted
-    for signature parity."""
+    its ``M·sₙ/h²``, ``wf`` f32[N] the floor weight, ``blocks`` f32[R, 3]
+    the local step's force rows.  Returns ``(force, static)`` f32[N, 3]: the
+    right side ``((msn + pin force) + Σ the node's rows) + wf·static`` and
+    the floor projection ``static = (x, max(y, plane), z)``.  ``failed`` is
+    accepted for signature parity."""
     f = msn_h2 + topo.position_force_dense if _pins(topo) else msn_h2
-    f = csr_sum(topo.tet_inc, blocks, f)
+    f = csr_sum(topo.row_inc, blocks, f)
     y = x[:, 1]
     static = torch.stack([x[:, 0], torch.where(y < plane, plane, y), x[:, 2]], dim=1)
     return f + wf[:, None] * static, static
@@ -99,13 +153,13 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
         return assemble_force_plain(x, msn_h2, wf, blocks, topo, plane, failed)
     if failed is None:
         raise ValueError("the force kernel needs the failure latch")
-    inc = topo.tet_inc
+    inc = topo.row_inc
     n = x.shape[0]
     pin = topo.position_force_dense if _pins(topo) else None
     if pin is not None and pin.shape[0] != n:
         raise ValueError("pin force must be dense over the capacity")
     if inc.row_start.shape[0] != n + 1 or blocks.shape[0] != inc.entries.shape[0]:
-        raise ValueError("the tet incidence does not match the nodes or the tet rows")
+        raise ValueError("the row incidence does not match the nodes or the force rows")
     kernels.require(x.device, x, msn_h2, pin, wf, inc.row_start, inc.entries, blocks, failed)
     force, static = torch.empty_like(x), torch.empty_like(x)
     err = kernels.lib().pies_assemble_force(
@@ -168,18 +222,39 @@ def finalize(part: torch.Tensor) -> torch.Tensor:
 # T10: the operator
 
 
-def apply_system_plain(x, mass, wf, h2: float, topo: Topology, part: bool = False):
-    """Plain twin of T10: ``y = (mass/h² + wf)·x + pin_w·x + Σₘ coef·x[nbr]``
-    (slot order) f32[N, 3]; with ``part`` also the block partials of
-    ``x·y``, else None."""
-    y = (_div(mass, h2) + wf)[:, None] * x
-    if _pins(topo):
-        y = y + topo.pin_w[:, None] * x
+def _operator_sum(x, topo: Topology) -> torch.Tensor:
+    """``Σ coef·x[col]`` per row of the assembled operator, the first term
+    starting the sum and the others added in slot (ascending column) order;
+    zero for an empty row."""
+    if topo.csr_start is not None:
+        start = topo.csr_start.long()
+        deg = start[1:] - start[:-1]
+        last = max(topo.csr_col.shape[0] - 1, 0)
+        acc = torch.zeros_like(x)
+        for s in range(int(deg.max())):
+            live = deg > s
+            at = torch.clamp_max(start[:-1] + s, last)
+            term = torch.where(live, topo.csr_val[at], 0.0)[:, None] * x[topo.csr_col[at].long()]
+            acc = term if s == 0 else torch.where(live[:, None], acc + term, acc)
+        return acc
     nbr, coef = topo.ell_nbr, topo.ell_coef
+    if nbr.shape[0] == 0:
+        return torch.zeros_like(x)
     acc = coef[0][:, None] * x[nbr[0].long()]
     for s in range(1, nbr.shape[0]):
         acc = acc + coef[s][:, None] * x[nbr[s].long()]
-    y = y + acc
+    return acc
+
+
+def apply_system_plain(x, mass, wf, h2: float, topo: Topology, part: bool = False):
+    """Plain twin of T10: ``y = (mass/h² + wf)·x + static_w·x + Σₘ
+    coef·x[nbr]`` (slot order) f32[N, 3]; with ``part`` also the block
+    partials of ``x·y``, else None."""
+    y = (_div(mass, h2) + wf)[:, None] * x
+    sw = _static_w(topo, x.shape[0])
+    if sw is not None:
+        y = y + sw[:, None] * x
+    y = y + _operator_sum(x, topo)
     return y, (block_partials(_dot3(x, y)) if part else None)
 
 
@@ -195,19 +270,28 @@ def apply_system(x, mass, wf, h2: float, topo: Topology, failed=None,
     if failed is None:
         raise ValueError("the operator kernel needs the failure latch")
     n = x.shape[0]
-    nbr, coef = topo.ell_nbr, topo.ell_coef
-    if nbr is None or nbr.shape != coef.shape or nbr.shape[1] != n:
-        raise ValueError("the operator kernel needs the slot-major ELL over the capacity")
-    pin_w = topo.pin_w if _pins(topo) else None
+    row_start = topo.csr_start
+    if row_start is not None:
+        nbr, coef, m = topo.csr_col, topo.csr_val, 0
+        if row_start.shape[0] != n + 1 or nbr.shape != coef.shape:
+            raise ValueError("the operator kernel needs the CSR over the capacity")
+    else:
+        nbr, coef = topo.ell_nbr, topo.ell_coef
+        if nbr is None or nbr.shape != coef.shape or nbr.shape[1] != n:
+            raise ValueError("the operator kernel needs the slot-major ELL over the capacity")
+        m = nbr.shape[0]
+    pin_w = _static_w(topo, n)
     y = torch.empty_like(x) if out is None else out
     if part is True:
         part = torch.empty(-(-n // CG_BLOCK), dtype=torch.float32, device=x.device)
     part = part if isinstance(part, torch.Tensor) else None
     trips, prz, prz0, trip, early, rtol2 = gate if gate is not None else (None,) * 3 + (0, 0, 0.0)
-    kernels.require(x.device, x, mass, wf, pin_w, nbr, coef, y, part, failed, trips, prz, prz0)
+    kernels.require(x.device, x, mass, wf, pin_w, row_start, nbr, coef, y, part, failed,
+                    trips, prz, prz0)
     err = kernels.lib().pies_ell_matvec(
-        x.data_ptr(), mass.data_ptr(), wf.data_ptr(), kernels.ptr(pin_w), nbr.data_ptr(),
-        coef.data_ptr(), nbr.shape[0], y.data_ptr(), kernels.ptr(part), n, float(h2),
+        x.data_ptr(), mass.data_ptr(), wf.data_ptr(), kernels.ptr(pin_w),
+        kernels.ptr(row_start), nbr.data_ptr(), coef.data_ptr(), m, y.data_ptr(),
+        kernels.ptr(part), n, float(h2),
         failed.data_ptr(), kernels.ptr(trips), kernels.ptr(prz), kernels.ptr(prz0),
         int(trip), int(early), float(rtol2), kernels.stream(),
     )

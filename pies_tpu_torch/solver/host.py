@@ -2,15 +2,20 @@
 ``pies_tpu/solver/host.py``).
 
 Same keyword surface as the JAX package's ``Solver`` plus ``device=``.  The
-ported scope is the PD tick with floor contact and optional position pins on
-two paths:
+ported scope is the PD tick with floor contact on two paths:
 
-* the tet-column path, for disjoint tet soups (``create_tet_soup``), with
-  self-contact through the packed-body detection;
-* the generic path, for shared-node tet meshes (``create_tet_box``, or an
-  imported mesh through ``scene.mesh_dump.add_tet_mesh``) with self-contact
-  off: the assembled ELL operator and Jacobi-PCG, where ``cg_iterations``
-  and ``cg_rtol`` take effect as in the JAX package.
+* the tet-column path, for disjoint tet soups (``create_tet_soup``, with
+  optional position pins), with self-contact through the packed-body
+  detection;
+* the generic path, for every other scene, with self-contact off: every
+  constraint family (distance, pins, fused or unfused strain and volume
+  tets, bends, shape and goal matching: ``create_box``, ``create_sheet``,
+  ``create_bend_sheet``, ``create_shape_matching_box``,
+  ``create_shape_matching_sheet``, ``create_tet_box``, an imported mesh
+  through ``scene.mesh_dump.add_tet_mesh``, ``add_fixed_regions`` with
+  ``update_fixed_regions``, ``add_linked_regions``), the assembled operator
+  and Jacobi-PCG, where ``cg_iterations``, ``cg_rtol`` and
+  ``rotation_iterations`` take effect as in the JAX package.
 
 Anything outside it raises ``NotImplementedError`` naming the ROADMAP item
 that will bring it.  ``dense_operator_max`` is accepted and has no effect:
@@ -39,12 +44,8 @@ _F32 = np.float32
 # Solver methods of the JAX package that the port does not have yet, with the
 # ROADMAP item (queue 1) that brings them.
 _NOT_PORTED = {
-    "add_nodes": 9, "create_box": "5b", "create_sheet": "5b",
-    "create_shape_matching_box": "5b", "create_shape_matching_sheet": "5b",
-    "create_bend_sheet": "5b", "create_rope": 7, "add_fixed_regions": "5b",
-    "add_linked_regions": "5b", "add_tri_mesh_volume": 9,
-    "update_fixed_regions": 9, "clear": 9, "get_lines": 9,
-    "get_triangles": 9, "save": 9, "load": 9,
+    "add_nodes": 9, "create_rope": 7, "add_tri_mesh_volume": 9, "clear": 9,
+    "get_lines": 9, "get_triangles": 9, "save": 9, "load": 9,
 }
 
 
@@ -74,16 +75,12 @@ def _packed_layout(tris: np.ndarray, stride: int, padded_t: int, cap: int):
 
 def _check_generic(topology, config: StepConfig) -> None:
     """Raise unless a scene off the tet-column path can take the port's
-    generic path: PD (checked before), strain, volume and pin constraints
-    only (the port's builders emit no other family), fused tets, the
-    assembled ELL operator, and no self-contact."""
-    if not config.tet_fused:
+    generic path: PD (checked before), the assembled operator (any scene
+    but a banded tet soup), and no self-contact."""
+    if topology.ell_nbr is None and topology.csr_start is None:
         raise NotImplementedError(
-            "unfused strain/volume tets on the generic path are ROADMAP queue 1 item 5b")
-    if topology.ell_nbr is None:
-        raise NotImplementedError(
-            "a tet scene without the ELL operator (banded, more than 64 neighbours, or no"
-            " live tet; the _tet_ata_flat and tet_block forms) is ROADMAP queue 1 item 5b")
+            "a disjoint tet soup off the tet-column path (the tet_band operator and the"
+            " tet_block preconditioner) is ROADMAP queue 1 item 5c")
     if config.enable_collisions:
         raise NotImplementedError(
             "self-contact off the disjoint tet soup (the super-body broadphase) is ROADMAP"
@@ -125,6 +122,7 @@ class Solver:
         self._options = options or SolverOptions()
         self._cg_iterations = cg_iterations
         self._cg_rtol = cg_rtol
+        self._rotation_iterations = rotation_iterations
         self._builder = SceneBuilder(seed=seed)
         self._enable_collisions = enable_collisions
         self._reference_quirks = reference_quirks
@@ -141,6 +139,7 @@ class Solver:
 
         self._state: SolverState | None = None
         self._topology = None
+        self._goal_transforms: np.ndarray | None = None
         self._config: StepConfig | None = None
         self._params = None
         self._params_options = None
@@ -178,6 +177,45 @@ class Solver:
         return self._scene(self._builder.create_tet_box, translation, scale,
                            initial_velocity, w, mass, hinged)
 
+    def create_box(self, translation, scale, w):
+        return self._scene(self._builder.create_box, translation, scale, w)
+
+    def create_sheet(self, translation, scale, mass, w):
+        return self._scene(self._builder.create_sheet, translation, scale, mass, w)
+
+    def create_shape_matching_box(self, translation, count_x, count_y, count_z, scale,
+                                  initial_velocity, w):
+        return self._scene(self._builder.create_shape_matching_box, translation, count_x,
+                           count_y, count_z, scale, initial_velocity, w)
+
+    def create_shape_matching_sheet(self, translation, scale, initial_velocity, w):
+        return self._scene(self._builder.create_shape_matching_sheet, translation, scale,
+                           initial_velocity, w)
+
+    def create_bend_sheet(self, translation, scale, w):
+        return self._scene(self._builder.create_bend_sheet, translation, scale, w)
+
+    def add_fixed_regions(self, region_matrices, w):
+        return self._scene(self._builder.add_fixed_regions, region_matrices, w)
+
+    def add_linked_regions(self, region_matrices, w):
+        return self._scene(self._builder.add_linked_regions, region_matrices, w)
+
+    def update_fixed_regions(self, region_matrices):
+        """Retarget the goal constraints from updated region transforms
+        (``PrimitiveUtilities.cpp:114-128``): region r's goal group gets
+        ``T = matrix · inverse(initial matrix)``, one small copy to the
+        device."""
+        regions = self._builder.fixed_regions
+        if len(region_matrices) != len(regions):
+            raise ValueError(
+                f"expected {len(regions)} region matrices, got {len(region_matrices)}")
+        self._prepare()
+        transforms = self._goal_transforms  # the host's copy: no device read
+        for mat, (_, inv_initial, goal_idx) in zip(region_matrices, regions):
+            transforms[goal_idx] = np.asarray(mat, _F32).reshape(4, 4) @ inv_initial
+        self._topology.goal.transforms.copy_(torch.from_numpy(transforms))
+
     # ------------------------------------------------------------------
     # stepping
 
@@ -204,6 +242,7 @@ class Solver:
             radius=cat(b.radius, (0,)),
             capacity=self._node_capacity,
             device=self._device,
+            num_shape_groups=len(b.shape_groups),
         )
         # Live state survives incremental scene additions, like the reference
         # growing its node vector without resetting the sim.
@@ -211,10 +250,30 @@ class Solver:
             k = min(self._prepared_nodes, num_live)
             for field in ("positions", "prev_positions", "velocities"):
                 getattr(state, field)[:k] = getattr(self._state, field)[:k]
+            # The rotations of the groups that were there before (groups are
+            # append-only in the builder, so old ids are stable) and the
+            # failure latch survive too.
+            g = min(state.shape_quats.shape[0], self._state.shape_quats.shape[0])
+            state.shape_quats[:g] = self._state.shape_quats[:g]
             state.sim_failed.copy_(self._state.sim_failed)
         cap = state.capacity
 
+        inv_mass = b.all_inv_mass()
         batches = dict(
+            distance=topo_mod.build_distance(
+                cat(b.dist_idx, (0, 2)).astype(np.int32), positions, cat(b.dist_w, (0,))
+            ),
+            bend=topo_mod.build_bend(
+                cat(b.bend_idx, (0, 4)).astype(np.int32), positions, cat(b.bend_w, (0,))
+            ),
+            shape=topo_mod.build_groups(
+                [(ids, coords) for ids, coords, _ in b.shape_groups],
+                np.asarray([w for _, _, w in b.shape_groups], _F32), inv_mass, kind="shape",
+            ),
+            goal=topo_mod.build_groups(
+                [(ids, coords) for ids, coords, _ in b.goal_groups],
+                np.asarray([w for _, _, w in b.goal_groups], _F32), inv_mass, kind="goal",
+            ),
             position=topo_mod.build_position(
                 cat(b.pos_idx, (0,)).astype(np.int32), positions, cat(b.pos_w, (0,))
             ),
@@ -227,7 +286,6 @@ class Solver:
                 cat(b.volume_w, (0,)), cat(b.volume_lo, (0,)), cat(b.volume_hi, (0,)),
             ),
         )
-        topology = topo_mod.assemble_topology(cap, triangles=tris, **batches)
         budget = self._budget or self._auto_budget(tris, bodies)
         if self._budget is None and self._budget_overrides:
             budget = dataclasses.replace(budget, **self._budget_overrides)
@@ -250,6 +308,8 @@ class Solver:
             and all(np.array_equal(s, v) for s, v in zip(b.strain_idx, b.volume_idx))
             and strain_contiguous == volume_contiguous
         )
+        topology = topo_mod.assemble_topology(cap, triangles=tris, tet_fused=tet_fused,
+                                              **batches)
         body_nodes, body_off, body_faces = _packed_layout(
             tris, budget.body_stride, topology.triangles.shape[0], cap)
         # Cell-list cell size: the largest triangle extent with headroom for
@@ -265,6 +325,7 @@ class Solver:
                 self._options.collision_stabilization_iterations),
             cg_iterations=int(self._cg_iterations),
             cg_rtol=float(self._cg_rtol),
+            rotation_iterations=int(self._rotation_iterations),
             enable_collisions=bool(self._enable_collisions and tris.shape[0]),
             reference_quirks=self._reference_quirks,
             broadphase_mode=self._broadphase_mode,
@@ -291,6 +352,7 @@ class Solver:
         if not tetcols.applies(state, topology, config):
             _check_generic(topology, config)
         self._state = state
+        self._goal_transforms = np.array(topology.goal.transforms)
         self._topology = topo_mod.to_device(topology, self._device)
         self._config = config
         self._prepared_nodes = num_live

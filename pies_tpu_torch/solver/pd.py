@@ -19,12 +19,15 @@ PyTorch twin.  On the tet-column path (disjoint tet soups):
 * T4 :func:`substep_tail` — floor snap, velocity, floor friction, the state
   update and the failure latch, in place on the state.
 
-On the generic path (shared-node tet meshes: wherever ``tetcols.applies``
-fails, as in the JAX package): T3, then
-per PD iteration T9 (``tet_force12_gathered`` and ``assembly.assemble_force``:
-the tet forces and the right-hand side) and a Jacobi-PCG solve
-(``assembly.pcg_solve``: T10 operator applies and T11 vector stages), then
-T4.
+On the generic path (every other scene: wherever ``tetcols.applies``
+fails, as in the JAX package): T3, then per PD iteration the local step
+(``assembly.local_step``: T12 for distance and bend constraints, T13 for
+shape and goal groups, T9's stage 1 for tets, each filling its part of one
+force-row buffer), T9's stage 2 (``assembly.assemble_force``: the per-node
+sum and the right-hand side) and a Jacobi-PCG solve (``assembly.pcg_solve``:
+T10 operator applies and T11 vector stages), then T4.  The shape groups'
+rotations (``state.shape_quats``) are carried from iteration to iteration
+and tick to tick, in place.
 
 The JAX package's ``lax.cond``s and ``while_loop``s on runtime data (any
 contact, any live pair, any crossing, the CG's early exit) become device
@@ -54,12 +57,7 @@ from ..collision.batches import (
     _dot3,
     _unit_normal_div,
 )
-from ..constraints.projections import (
-    tet_force12,
-    tet_force12_gathered,
-    tet_force12_gathered_plain,
-    tet_force12_plain,
-)
+from ..constraints.projections import tet_force12, tet_force12_plain
 from ..ops.math3d import ieee_div as _div
 from ..options import PhysicsParams, StepConfig
 from ..state import SolverState
@@ -365,13 +363,12 @@ substep_tail.launches = 0
 
 _KERNELS = dict(head=substep_head, force=tet_force12, cols=tetcols.substep_cols,
                 setup=tetcols.pt_coupling_setup, pt_force=tetcols.pt_force,
-                pt_tail=pt_tail, tail=substep_tail, gforce=tet_force12_gathered,
+                pt_tail=pt_tail, tail=substep_tail,
                 assemble=assembly.assemble_force, pcg=assembly.pcg_solve)
 _PLAIN = dict(head=substep_head_plain, force=tet_force12_plain, cols=tetcols.substep_cols_plain,
               setup=tetcols.pt_coupling_setup_plain, pt_force=tetcols.pt_force_plain,
               pt_tail=pt_tail_plain, tail=substep_tail_plain,
-              gforce=tet_force12_gathered_plain, assemble=assembly.assemble_force_plain,
-              pcg=assembly.pcg_solve_plain)
+              assemble=assembly.assemble_force_plain, pcg=assembly.pcg_solve_plain)
 
 
 COUNTERS = ("floor_active", "contacts", "rebuilds", "cg_trips")
@@ -385,13 +382,15 @@ def new_counters(device) -> dict[str, torch.Tensor]:
 
 
 def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
-                     config: StepConfig, k: dict, head, counters) -> torch.Tensor:
+                     config: StepConfig, k: dict, head, counters,
+                     plain: bool) -> torch.Tensor:
     """The PD iterations and tail of :func:`pd_substep` on the generic path
-    (``pd.py:184-196,306``): each iteration's local step and force (T9) and
-    its Jacobi-PCG solve warm-started from the iterate (T10/T11), with the
-    last local step's static projection kept for the floor snap.  The zero
-    point-triangle diagonal that the JAX package adds with self-contact off
-    is left out, which is exact."""
+    (``pd.py:184-196,306``): each iteration's local step (T12, T13, T9's
+    stage 1), force (T9's stage 2) and Jacobi-PCG solve warm-started from
+    the iterate (T10/T11), with the last local step's static projection kept
+    for the floor snap and the shape rotations updated in place on the
+    state.  The zero point-triangle diagonal that the JAX package adds with
+    self-contact off is left out, which is exact."""
     x, msn_h2, diag, wf, active = head
     failed = state.sim_failed
     _, h2 = _h_h2(params)
@@ -399,8 +398,9 @@ def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     x_it, static_proj = x, torch.zeros_like(x)
     prr = torch.zeros(1, dtype=x.dtype, device=x.device)
     for _ in range(config.iterations):
-        blocks = k["gforce"](x_it, topo.strain, topo.volume, failed)
-        force, static_proj = k["assemble"](x_it, msn_h2, wf, blocks, topo, plane, failed)
+        rows = assembly.local_step(x_it, state.inv_mass, state.mass, state.shape_quats, topo,
+                                   config.rotation_iterations, failed, plain)
+        force, static_proj = k["assemble"](x_it, msn_h2, wf, rows, topo, plane, failed)
         x_it, prr, trips = k["pcg"](force, x_it, diag, state.mass, wf, h2, state.node_mask,
                                     topo, config.cg_iterations, config.cg_rtol, failed)
         if counters is not None:
@@ -429,7 +429,7 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     if counters is not None:
         counters["floor_active"].add_(active.sum().to(torch.int64))
     if not tetcols.applies(state, topo, config):
-        return _generic_substep(state, topo, params, config, k, head, counters)
+        return _generic_substep(state, topo, params, config, k, head, counters, plain)
     if self_contact(config, topo):
         colls = detect_point_tri(state, x, topo, params, config, active, plain)
         if counters is not None:

@@ -45,8 +45,8 @@ def applies(state, topo: Topology, config: StepConfig) -> bool:
     """Static eligibility for the tet-column path, as in the JAX package:
     the block-diagonal layout covering the whole capacity, the fused
     contiguous tet local step, diagonal-only contact coupling, dense floor
-    contacts, and (besides position pins) no other constraint family — the
-    port's scene builder emits none.  The host checks it once per scene and
+    contacts, and (besides position pins) no other constraint family.  The
+    host checks it once per scene and
     ``pd.pd_substep`` dispatches on it; a scene where it fails takes the
     generic path."""
     n_pins = topo.position.idx.shape[0]
@@ -58,7 +58,11 @@ def applies(state, topo: Topology, config: StepConfig) -> bool:
         and config.strain_contiguous
         and config.volume_contiguous
         and config.contact_coupling in ("diagonal", "recentered")
+        and topo.distance.idx.shape[0] == 0
         and (n_pins == 0 or topo.position_force_dense.shape[0] == state.capacity)
+        and topo.bend.idx.shape[0] == 0
+        and topo.shape.node_idx.shape[0] == 0
+        and topo.goal.node_idx.shape[0] == 0
         and config.dense_floor
     )
 

@@ -4,6 +4,9 @@ Structure-of-arrays with a padded node count, as in the JAX package:
 
 * ``positions / prev_positions / velocities / forces``: ``f32[N, 3]``
 * ``inv_mass / mass / radius / node_mask``: ``f32[N]``
+* ``shape_quats``: ``f32[G, 4]`` (w, x, y, z), the shape-matching groups'
+  rotations carried from tick to tick (the reference's persistent
+  ``_currentRotation`` warm start); ``max(1, groups)`` rows, identity-seeded
 * ``sim_failed``: ``i32[2]``, the ``_simFailed`` latch (``Solver.h:198``)
   kept on the device so that stepping never waits for the host.  Slot 0 holds
   the latch as of the start of the current tick; slot 1 is where a substep's
@@ -75,6 +78,7 @@ class SolverState:
     node_mask: torch.Tensor  # f32[N]
     sim_failed: torch.Tensor  # i32[2], see the module docstring
     bp: BroadphaseCache | None = None
+    shape_quats: torch.Tensor | None = None  # f32[G, 4]
 
     @property
     def capacity(self) -> int:
@@ -106,6 +110,7 @@ def make_state(
     radius: np.ndarray | None = None,
     capacity: int | None = None,
     device: torch.device | str = "cpu",
+    num_shape_groups: int = 1,
 ) -> SolverState:
     """Build a padded state from host arrays and move it to ``device`` once.
 
@@ -152,4 +157,6 @@ def make_state(
         radius=dev(radius_full),
         node_mask=dev(mask_full),
         sim_failed=torch.zeros(2, dtype=torch.int32, device=device),
+        shape_quats=dev(np.tile(np.array([1.0, 0.0, 0.0, 0.0], np.float32),
+                                (max(1, num_shape_groups), 1))),
     )

@@ -2,17 +2,22 @@
 
     python3 -m pies_tpu_torch.tick_profile [n_tets] [repeats] [--collisions]
     python3 -m pies_tpu_torch.tick_profile --mesh [repeats]
+    python3 -m pies_tpu_torch.tick_profile --cloth [repeats]
 
 Builds the 500k-particle soup (``create_tet_soup(n_tets, spacing=1.6,
 scale=0.8, w=2000.0, height=0.5, jitter=0.05)``, 125,000 tets by default),
 self-contact off, or on with ``--collisions``; or, with ``--mesh``, the
 imported 110,592-node / 622,938-tet mesh
 (``scripts/refbench/tet_cube_mesh_100k.txt``, w = 1000, self-contact off),
-which runs the generic path.  It warms up until the window it measures is
+which runs the generic path; or, with ``--cloth``, the 512 x 512 rigged
+cloth of ``scene/rigged_cloth.py`` (262,144 nodes; distance, bend, shape and
+goal constraints; self-contact off), the generic path's other families, with
+its fixed region turned by 0.05 rad before the windows.  It warms up until
+the window it measures is
 contact-active: 30 ticks without self-contact (the bottom layer reaches the
 floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
 bottom one rests on the floor), 75 for the mesh (its bottom, 3.0 above the
-floor, meets it at tick 70).  Then:
+floor, meets it at tick 70), 25 for the cloth (it lands at tick ~19).  Then:
 
 * times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
   ends in a synchronize) and prints each, for the spread;
@@ -30,11 +35,11 @@ import sys
 import time
 from pathlib import Path
 
-FLOOR_WARMUP, CONTACT_WARMUP, MESH_WARMUP = 30, 45, 75
+FLOOR_WARMUP, CONTACT_WARMUP, MESH_WARMUP, CLOTH_WARMUP = 30, 45, 75, 25
 MESH = Path(__file__).resolve().parent.parent / "scripts" / "refbench" / "tet_cube_mesh_100k.txt"
 
 
-def main(n_tets=125_000, repeats=5, collisions=False, mesh=False):
+def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -48,14 +53,20 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    print(f"card: {smi}; {'the 110k mesh' if mesh else 'the soup'}, self-contact"
-          f" {'on' if collisions else 'off'}")
+    scene = "the 110k mesh" if mesh else "the 512 x 512 rigged cloth" if cloth else "the soup"
+    print(f"card: {smi}; {scene}, self-contact {'on' if collisions else 'off'}")
     s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=collisions)
     if mesh:
         from pies_tpu_torch.scene.mesh_dump import add_tet_mesh, load_mesh_txt
 
         add_tet_mesh(s, *load_mesh_txt(MESH))
         s.run_ticks(MESH_WARMUP)
+    elif cloth:
+        from pies_tpu_torch.scene.rigged_cloth import add_rigged_cloth, fixed_region_matrix
+
+        add_rigged_cloth(s, 512, scale=0.1, height=0.3, w=5000.0)
+        s.run_ticks(CLOTH_WARMUP)
+        s.update_fixed_regions([fixed_region_matrix(512, 0.1, 0.3, 0.05)])
     else:
         s.create_tet_soup(n_tets, spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
         s.run_ticks(CONTACT_WARMUP if collisions else FLOOR_WARMUP)
@@ -97,6 +108,6 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False):
 if __name__ == "__main__":
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
-    if "--mesh" in flags:
-        sys.exit(main(125_000, *args[:1], mesh=True))
+    if "--mesh" in flags or "--cloth" in flags:
+        sys.exit(main(125_000, *args[:1], mesh="--mesh" in flags, cloth="--cloth" in flags))
     sys.exit(main(*args, collisions="--collisions" in flags))

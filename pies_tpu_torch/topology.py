@@ -3,16 +3,22 @@
 Built on the host in NumPy at scene-construction time, exactly as the JAX
 package builds it, then moved to tensors once with :func:`to_device`.  Only
 the batches and precomputed fields that the ported paths read are carried:
-the strain and volume tet batches, position pins, the surface triangles with
-their live mask (padded to a multiple of 8, as in the JAX package), the
-constant stiffness diagonal, the per-node floor-contact multiplicity, the
-disjoint-tet block off-diagonals, the folded pin force and, for shared-node
-meshes, the assembled ELL operator.
+the distance, pin, strain, volume and bend batches, the shape- and
+goal-matching groups, the surface triangles with their live mask (padded to
+a multiple of 8, as in the JAX package), the constant stiffness diagonal,
+the per-node floor-contact multiplicity, the disjoint-tet block
+off-diagonals and the folded pin force.
 
-Two fields are the port's own: the dense pin weight (the pin term of the
-operator as one multiply per node) and the node → (tet, corner) incidence
-(a ``collision.batches.Incidence``) that sums the tet forces per node
-without float atomics.
+Three things are the port's own, for scenes off the tet-column path:
+
+* ``static_w``, the diagonal terms of the operator (pins, bends, shape and
+  goal members: A = I for each) as one weight per node;
+* the assembled operator ``Σ w·AᵀA`` of the distance constraints (a weighted
+  graph Laplacian) and the tets (``w·GᵀG``), coalesced in float64: slot-major
+  ELL while no row has more than 64 entries, CSR beyond;
+* ``row_inc``, the node → row incidence (a ``collision.batches.Incidence``)
+  over the force rows of all families, which sums them per node in the JAX
+  scatters' order without float atomics (:func:`row_layout`).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .collision.batches import Incidence, incidence_plain
+from .collision.batches import Incidence
 
 _F32 = np.float32
 _I32 = np.int32
@@ -40,6 +46,16 @@ def _pad2(a: np.ndarray, cap: int, fill=0) -> np.ndarray:
     out = np.full((cap,) + a.shape[1:], fill, dtype=a.dtype)
     out[: a.shape[0]] = a
     return out
+
+
+@dataclass
+class DistanceBatch:
+    """``DistanceConstraint`` batch (``Constraints.h:147-157``);
+    ``A = B = [[.5,-.5],[-.5,.5]]``."""
+
+    idx: torch.Tensor  # i32[C, 2]
+    rest: torch.Tensor  # f32[C], rest length captured at creation
+    w: torch.Tensor  # f32[C]; 0 = padding
 
 
 @dataclass
@@ -70,6 +86,41 @@ class TetBatch:
 
 
 @dataclass
+class BendBatch:
+    """``BendConstraint`` batch (``Constraints.h:215-230``); A = B = I₄."""
+
+    idx: torch.Tensor  # i32[C, 4]: (x1, x2, x3, x4), (x2, x3) the shared edge
+    rest_angle: torch.Tensor  # f32[C]
+    w: torch.Tensor  # f32[C]
+
+
+@dataclass
+class GroupBatch:
+    """Flat ragged-group storage shared by shape and goal matching
+    (``ShapeMatchingConstraint.h:15-60``), field for field the JAX package's,
+    plus the port's ``member_start``: the groups are consecutive runs of the
+    member list, group g owning members ``member_start[g] ..
+    member_start[g+1] − 1``; members from ``member_start[G]`` on are padding
+    (mask 0, group G − 1)."""
+
+    node_idx: torch.Tensor  # i32[M], member -> node
+    group_idx: torch.Tensor  # i32[M], member -> group
+    mat_coords: torch.Tensor  # f32[M, 3]: centered (shape) or raw initial (goal)
+    member_mask: torch.Tensor  # f32[M]
+    w: torch.Tensor  # f32[G]
+    group_mask: torch.Tensor  # f32[G]
+    inv_count: torch.Tensor  # f32[G], 1 / member count (the COM weight)
+    qinv: torch.Tensor  # f32[G, 3, 3] (shape; identity for goal)
+    transforms: torch.Tensor  # f32[G, 4, 4] (goal; identity for shape)
+    member_start: torch.Tensor  # i32[G + 1]
+    max_count: int = 0  # the largest group's member count
+
+    @property
+    def num_groups(self) -> int:
+        return self.w.shape[0]
+
+
+@dataclass
 class Topology:
     strain: TetBatch
     volume: TetBatch
@@ -86,16 +137,42 @@ class Topology:
     # Surface triangles (padded to a multiple of 8) and their live mask.
     triangles: torch.Tensor  # i32[T, 3]
     tri_mask: torch.Tensor  # f32[T]
-    # Σ w of the position pins per node; f32[1] when no pins.
-    pin_w: torch.Tensor | None = None  # f32[N] or f32[1]
-    # Shared-node meshes: the assembled strain+volume Σ w·GᵀG in ELL form,
-    # slot-major (the transpose of the JAX package's [N, m] arrays, so
-    # neighbouring nodes read neighbouring words); None otherwise.
+    # Σ w of the diagonal-only constraints per node (pins, bends, shape and
+    # goal members); f32[1] when the scene has none.
+    static_w: torch.Tensor | None = None  # f32[N] or f32[1]
+    # Off the banded tet layout: the assembled distance + strain + volume
+    # Σ w·AᵀA.  ELL, slot-major (the transpose of the JAX package's [N, m]
+    # arrays, so neighbouring nodes read neighbouring words; m = 0 when the
+    # scene has no off-diagonal term), or CSR when a row has more than 64
+    # entries; all None otherwise.
     ell_nbr: torch.Tensor | None = None  # i32[m, N]
     ell_coef: torch.Tensor | None = None  # f32[m, N]
-    # Shared-node meshes: the node → (tet, corner) incidence of the strain
-    # batch (tet_incidence); None otherwise.
-    tet_inc: Incidence | None = None
+    csr_start: torch.Tensor | None = None  # i32[N + 1]
+    csr_col: torch.Tensor | None = None  # i32[nnz], ascending in each row
+    csr_val: torch.Tensor | None = None  # f32[nnz]
+    # Off the banded tet layout: the node → row incidence over the force
+    # rows of all families (row_incidence); None otherwise.
+    row_inc: Incidence | None = None
+    distance: DistanceBatch | None = None
+    bend: BendBatch | None = None
+    shape: GroupBatch | None = None
+    goal: GroupBatch | None = None
+    # Strain and volume cover the same tets (the host's check): one combined
+    # force row per (tet, corner) instead of one per family.
+    tet_fused: bool = True
+
+
+def build_distance(
+    idx: np.ndarray, positions: np.ndarray, w: np.ndarray, cap: int | None = None
+) -> DistanceBatch:
+    """Rest lengths from initial positions (``Constraints.cpp:49-55``)."""
+    idx = np.asarray(idx, dtype=_I32).reshape(-1, 2)
+    w = np.broadcast_to(np.asarray(w, dtype=_F32), (idx.shape[0],)).copy()
+    rest = np.linalg.norm(
+        positions[idx[:, 1]] - positions[idx[:, 0]], axis=-1
+    ).astype(_F32)
+    cap = cap or _round_up(idx.shape[0], 8)
+    return DistanceBatch(idx=_pad2(idx, cap), rest=_pad2(rest, cap), w=_pad2(w, cap))
 
 
 def build_position(
@@ -154,14 +231,114 @@ def build_tets(
     )
 
 
-def assemble_ell(num_nodes: int, batches) -> tuple[np.ndarray | None, np.ndarray | None]:
-    """The assembled ``Σ w·GᵀG`` of the live tets of ``batches`` as ELL
-    ``(nbr i32[N, m], coef f32[N, m])`` (``pies_tpu/topology.py:605-646``):
-    the 16 entries of every tet coalesced in float64 (``np.add.at`` in entry
-    order), each row's columns ascending, rows padded with ``(0, 0.0)``.
-    ``(None, None)`` when there is no live tet or ``m > 64``."""
+def build_bend(
+    idx: np.ndarray, positions: np.ndarray, w: np.ndarray, cap: int | None = None
+) -> BendBatch:
+    """Rest dihedral angle from the initial configuration
+    (``Constraints.cpp:368-394``)."""
+    idx = np.asarray(idx, dtype=_I32).reshape(-1, 4)
+    n = idx.shape[0]
+    w = np.broadcast_to(np.asarray(w, dtype=_F32), (n,)).copy()
+    if n:
+        p = positions[idx].astype(np.float64)
+        p2, p3, p4 = p[:, 1] - p[:, 0], p[:, 2] - p[:, 0], p[:, 3] - p[:, 0]
+        n1 = np.cross(p2, p3)
+        n2 = np.cross(p2, p4)
+        n1 /= np.maximum(np.linalg.norm(n1, axis=-1, keepdims=True), 1e-30)
+        n2 /= np.maximum(np.linalg.norm(n2, axis=-1, keepdims=True), 1e-30)
+        d = np.clip(np.sum(n1 * n2, axis=-1), -1.0, 1.0)
+        rest = np.arccos(d).astype(_F32)
+    else:
+        rest = np.zeros((0,), _F32)
+    cap = cap or _round_up(n, 8)
+    return BendBatch(idx=_pad2(idx, cap), rest_angle=_pad2(rest, cap), w=_pad2(w, cap))
+
+
+def build_groups(
+    groups: list[tuple[np.ndarray, np.ndarray]],  # [(node_ids, mat_coords)]
+    weights: np.ndarray,
+    inv_mass: np.ndarray,
+    *,
+    kind: str,  # "shape" | "goal"
+    member_cap: int | None = None,
+    group_cap: int | None = None,
+) -> GroupBatch:
+    """Flatten ragged shape/goal groups, group after group.
+
+    For ``kind="shape"``, the constructor precompute of
+    ``ShapeMatchingConstraint`` (``ShapeMatchingConstraint.cpp:6-48``): the
+    equal-weight COM of the material coordinates, centering, and the
+    mass-weighted moment matrix ``Q = Σ m·(x₀−com₀)(x₀−com₀)ᵀ``, inverted in
+    float64 with ``pinv`` (planar groups have a singular moment).  For
+    ``kind="goal"`` the raw initial positions are stored
+    (``ShapeMatchingConstraint.cpp:124-137``).  A group may be empty."""
+    num_groups = len(groups)
+    weights = np.broadcast_to(np.asarray(weights, dtype=_F32), (num_groups,)).copy()
+    node_idx, group_idx, mats = [], [], []
+    inv_counts = np.zeros(num_groups, dtype=_F32)
+    qinvs = np.tile(np.eye(3, dtype=_F32), (num_groups, 1, 1))
+    counts = np.zeros(num_groups, np.int64)
+    for gi, (ids, coords) in enumerate(groups):
+        ids = np.asarray(ids, dtype=_I32).reshape(-1)
+        coords = np.asarray(coords, dtype=np.float64).reshape(-1, 3)
+        count = ids.shape[0]
+        counts[gi] = count
+        inv_counts[gi] = 1.0 / max(count, 1)
+        if kind == "shape":
+            com = coords.mean(axis=0)
+            local = coords - com
+            im = np.asarray(inv_mass, dtype=np.float64)[ids]
+            m = np.where(im > 0, 1.0 / np.maximum(im, 1e-30), 0.0)
+            q = np.einsum("mi,mj,m->ij", local, local, m)
+            qinvs[gi] = np.linalg.pinv(q).astype(_F32)
+            mats.append(local.astype(_F32))
+        else:
+            mats.append(coords.astype(_F32))
+        node_idx.append(ids)
+        group_idx.append(np.full(count, gi, dtype=_I32))
+
+    node_idx = np.concatenate(node_idx) if node_idx else np.zeros(0, _I32)
+    group_idx = np.concatenate(group_idx) if group_idx else np.zeros(0, _I32)
+    mats = np.concatenate(mats) if mats else np.zeros((0, 3), _F32)
+
+    m_cap = member_cap or _round_up(node_idx.shape[0], 8)
+    g_cap = group_cap or max(1, num_groups)
+    member_start = np.full(g_cap + 1, node_idx.shape[0], _I32)
+    member_start[0] = 0
+    np.cumsum(counts, out=member_start[1 : num_groups + 1])
+    return GroupBatch(
+        node_idx=_pad2(node_idx, m_cap),
+        group_idx=_pad2(group_idx, m_cap, fill=max(0, g_cap - 1)),
+        mat_coords=_pad2(mats, m_cap),
+        member_mask=_pad2(np.ones(node_idx.shape[0], _F32), m_cap),
+        w=_pad2(weights, g_cap),
+        group_mask=_pad2(np.ones(num_groups, _F32), g_cap),
+        inv_count=_pad2(inv_counts, g_cap, fill=1),
+        qinv=_pad2(qinvs, g_cap),
+        transforms=np.tile(np.eye(4, dtype=_F32), (g_cap, 1, 1)),
+        member_start=member_start,
+        max_count=int(counts.max()) if num_groups else 0,
+    )
+
+
+def operator_entries(num_nodes: int, tet_batches, distance: DistanceBatch | None = None):
+    """The assembled ``Σ w·AᵀA`` of the live distance pairs (``+w/2`` on both
+    diagonals, ``−w/2`` off: ``AᵀA = A``, ``Constraints.cpp:42-47``) and the
+    live tets of ``tet_batches`` (the 16 entries of ``w·GᵀG``), coalesced in
+    float64 (``np.add.at`` in entry order; ``pies_tpu/topology.py:605-646``
+    is the pattern).  Returns ``(rows, cols, vals)`` sorted by row, then
+    column, or None when there is no live entry."""
     rows_l, cols_l, vals_l = [], [], []
-    for t in batches:
+    if distance is not None:
+        di, dw = np.asarray(distance.idx), np.asarray(distance.w)
+        live = dw > 0
+        if np.any(live):
+            di, half = di[live], 0.5 * dw[live].astype(np.float64)
+            for a, b, sign in ((0, 0, 1.0), (1, 1, 1.0), (0, 1, -1.0), (1, 0, -1.0)):
+                rows_l.append(di[:, a])
+                cols_l.append(di[:, b])
+                vals_l.append(sign * half)
+    for t in tet_batches:
         ti, tw = np.asarray(t.idx), np.asarray(t.w)
         live = tw > 0
         if not np.any(live):
@@ -175,48 +352,139 @@ def assemble_ell(num_nodes: int, batches) -> tuple[np.ndarray | None, np.ndarray
                 cols_l.append(ti[:, b])
                 vals_l.append(gtg[:, a, b])
     if not rows_l:
-        return None, None
+        return None
     r = np.concatenate(rows_l).astype(np.int64)
     c = np.concatenate(cols_l).astype(np.int64)
     v = np.concatenate(vals_l).astype(np.float64)
     uniq, inv = np.unique(r * num_nodes + c, return_inverse=True)
     coal = np.zeros(uniq.shape[0], np.float64)
     np.add.at(coal, inv, v)
-    rr, cc = uniq // num_nodes, uniq % num_nodes
+    return uniq // num_nodes, uniq % num_nodes, coal
+
+
+ELL_MAX = 64  # the widest row kept as ELL (the JAX package's bound)
+
+
+def assemble_operator(num_nodes: int, tet_batches, distance: DistanceBatch | None = None):
+    """:func:`operator_entries` as ``(ell, csr)``: ``ell = (nbr i32[N, m],
+    coef f32[N, m])``, each row's columns ascending and padded with
+    ``(0, 0.0)``, while the widest row has ``m ≤ 64`` entries (``m = 0``
+    without any entry), else ``csr = (start i32[N+1], col i32[nnz], val
+    f32[nnz])``; the other is None."""
+    ent = operator_entries(num_nodes, tet_batches, distance)
+    if ent is None:
+        return (np.zeros((num_nodes, 0), _I32), np.zeros((num_nodes, 0), _F32)), None
+    rr, cc, coal = ent
     deg = np.bincount(rr, minlength=num_nodes)
-    m = int(deg.max()) if deg.size else 0
-    if not 0 < m <= 64:
-        return None, None
+    m = int(deg.max())
     starts = np.zeros(num_nodes + 1, np.int64)
     np.cumsum(deg, out=starts[1:])
-    slot = np.arange(uniq.shape[0], dtype=np.int64) - starts[rr]
+    if m > ELL_MAX:
+        return None, (starts.astype(_I32), cc.astype(_I32), coal.astype(_F32))
+    slot = np.arange(rr.shape[0], dtype=np.int64) - starts[rr]
     nbr = np.zeros((num_nodes, m), _I32)
     coef = np.zeros((num_nodes, m), _F32)
     nbr[rr, slot] = cc.astype(_I32)
     coef[rr, slot] = coal.astype(_F32)
-    return nbr, coef
+    return (nbr, coef), None
 
 
-def tet_incidence(idx: np.ndarray, num_nodes: int) -> Incidence:
-    """The node → (tet, corner) incidence of a tet batch ``idx`` i32[C, 4],
-    every row live (padding rows included, as the JAX scatter includes
-    them): entry ``k = a·C + t`` is corner a of tet t, the index of the JAX
-    package's scatter ``f.at[idx.T.reshape(-1)].add(...)``, and each node's
-    entries are in ascending k, the order in which that scatter adds them.
-    Built with the contact incidence's builder, on CPU tensors."""
-    idx = torch.tensor(np.asarray(idx, dtype=_I32))
-    return incidence_plain(idx, torch.tensor([idx.shape[0]], dtype=torch.int32), num_nodes)
+def row_layout(topo) -> dict[str, tuple[int, int]]:
+    """``family -> (first row, rows)`` of the force-row buffer that the
+    local step fills and :func:`row_incidence` indexes: the families in
+    ``assemble_force``'s order (``pies_tpu/solver/assembly.py:218-278``),
+    each family's rows in the order of its JAX scatter's updates:
+    distance ``[+half; −half]`` (``d.idx.T.reshape(-1)``), tets corner-major
+    (row ``a·C + t``; the volume batch only when the tets are not fused),
+    bends constraint-major (row ``4c + k``), then the shape and the goal
+    members."""
+    sizes = (
+        ("distance", 2 * topo.distance.idx.shape[0]),
+        ("strain", 4 * topo.strain.idx.shape[0]),
+        ("volume", 0 if topo.tet_fused else 4 * topo.volume.idx.shape[0]),
+        ("bend", 4 * topo.bend.idx.shape[0]),
+        ("shape", topo.shape.node_idx.shape[0]),
+        ("goal", topo.goal.node_idx.shape[0]),
+    )
+    out, at = {}, 0
+    for name, rows in sizes:
+        out[name] = (at, rows)
+        at += rows
+    return out
 
 
-def pin_weights(position: PositionBatch, num_nodes: int) -> np.ndarray:
-    """``Σ w`` of the position pins per node (float64 sum), f32[N]; f32[1]
-    when there is no pin row."""
-    idx = np.asarray(position.idx)
-    if not idx.shape[0]:
+def row_incidence(num_nodes: int, *, distance, strain, volume, bend, shape, goal,
+                  tet_fused: bool) -> Incidence:
+    """The node → row incidence over the buffer of :func:`row_layout`, every
+    row included (padding rows too, as the JAX scatters include them): each
+    node's rows ascending, which is family after family and, within one, the
+    order in which that family's scatter adds its updates."""
+    parts = [
+        np.asarray(distance.idx).T.reshape(-1),
+        np.asarray(strain.idx).T.reshape(-1),
+        np.zeros(0, _I32) if tet_fused else np.asarray(volume.idx).T.reshape(-1),
+        np.asarray(bend.idx).reshape(-1),
+        np.asarray(shape.node_idx),
+        np.asarray(goal.node_idx),
+    ]
+    node = np.concatenate(parts).astype(np.int64)
+    order = np.argsort(node, kind="stable")
+    row_start = np.zeros(num_nodes + 1, np.int64)
+    np.cumsum(np.bincount(node, minlength=num_nodes), out=row_start[1:])
+    return Incidence(
+        row_start=torch.from_numpy(row_start.astype(_I32)),
+        entries=torch.from_numpy(order.astype(_I32)),
+        nodes=torch.from_numpy(node[order].astype(_I32)),
+        cap=int(node.shape[0]),
+    )
+
+
+def static_weights(num_nodes: int, position: PositionBatch, bend: BendBatch,
+                   shape: GroupBatch, goal: GroupBatch) -> np.ndarray:
+    """``Σ w`` per node of the constraints whose ``AᵀA`` is the identity:
+    pins, bends (all four nodes) and shape and goal members (float64 sum),
+    f32[N]; f32[1] when the scene has none of them."""
+    if not (np.asarray(position.idx).shape[0] or np.asarray(bend.idx).shape[0]
+            or np.asarray(shape.node_idx).shape[0] or np.asarray(goal.node_idx).shape[0]):
         return np.zeros(1, _F32)
     w = np.zeros(num_nodes, np.float64)
-    np.add.at(w, idx, np.asarray(position.w, np.float64))
+    np.add.at(w, np.asarray(position.idx), np.asarray(position.w, np.float64))
+    bw = np.asarray(bend.w, np.float64)
+    for k in range(4):
+        np.add.at(w, np.asarray(bend.idx)[:, k], bw)
+    for grp in (shape, goal):
+        gw = np.asarray(grp.w, np.float64)[np.asarray(grp.group_idx)] * np.asarray(
+            grp.member_mask)
+        np.add.at(w, np.asarray(grp.node_idx), gw)
     return w.astype(_F32)
+
+
+def banded_soup(strain: TetBatch, volume: TetBatch) -> bool:
+    """True when the scene has live tets and every batch's live rows index
+    the nodes exactly as arange: the element-major layout of a disjoint tet
+    soup, which runs the tet-column path."""
+    live = [np.asarray(t.idx)[np.asarray(t.w) > 0] for t in (strain, volume)]
+    return any(r.size for r in live) and all(
+        np.array_equal(r.reshape(-1), np.arange(r.size, dtype=np.int64)) for r in live if r.size)
+
+
+def generic_fields(num_nodes: int, *, strain, volume, position, distance, bend, shape, goal,
+                   tet_fused: bool) -> dict:
+    """The port's own ``Topology`` fields for the generic path: the static
+    weight and, unless the scene is a banded soup, the assembled operator
+    (ELL slot-major, or CSR) and the row incidence."""
+    out = dict(static_w=static_weights(num_nodes, position, bend, shape, goal))
+    if banded_soup(strain, volume):
+        return out
+    ell, csr = assemble_operator(num_nodes, (strain, volume), distance)
+    if ell is not None:
+        out.update(ell_nbr=np.ascontiguousarray(ell[0].T),
+                   ell_coef=np.ascontiguousarray(ell[1].T))
+    else:
+        out.update(csr_start=csr[0], csr_col=csr[1], csr_val=csr[2])
+    out["row_inc"] = row_incidence(num_nodes, distance=distance, strain=strain, volume=volume,
+                                   bend=bend, shape=shape, goal=goal, tet_fused=tet_fused)
+    return out
 
 
 def assemble_topology(
@@ -226,19 +494,34 @@ def assemble_topology(
     volume: TetBatch,
     position: PositionBatch,
     triangles: np.ndarray,
+    distance: DistanceBatch,
+    bend: BendBatch,
+    shape: GroupBatch,
+    goal: GroupBatch,
+    tet_fused: bool,
 ) -> Topology:
     """The ported part of ``pies_tpu.topology.assemble_topology``: the
-    stiffness diagonal, floor counts, ``tet_block6``, the folded pin force
-    and, when the tets are not banded, the ELL operator, computed with the
-    same host arithmetic (float64 accumulation); plus the port's pin weight
-    and tet incidence."""
+    stiffness diagonal, floor counts, ``tet_block6`` and the folded pin
+    force, computed with the same host arithmetic (float64 accumulation);
+    plus, unless the live tets are banded, the port's static weight,
+    assembled operator and row incidence.  ``tet_fused``: see
+    ``Topology.tet_fused``."""
     diag = np.zeros(num_nodes, dtype=np.float64)
+    # Distance AᵀA = A has 0.5 on the diagonal (Constraints.cpp:42-47).
+    np.add.at(diag, distance.idx[:, 0], 0.5 * distance.w)
+    np.add.at(diag, distance.idx[:, 1], 0.5 * distance.w)
     np.add.at(diag, np.asarray(position.idx), np.asarray(position.w))
     for t in (strain, volume):
         tg = np.asarray(t.g).T.reshape(-1, 3, 4)
         ata_diag = np.einsum("cji,cji->ci", tg, tg)
         for k in range(4):
             np.add.at(diag, t.idx[:, k], t.w * ata_diag[:, k])
+    for k in range(4):  # A = I₄ (Constraints.cpp:390-391)
+        np.add.at(diag, bend.idx[:, k], bend.w)
+    for grp in (shape, goal):
+        # A = B = I: +w on each member's diagonal
+        # (ShapeMatchingConstraint.cpp:50-56,139-145).
+        np.add.at(diag, grp.node_idx, grp.w[grp.group_idx] * grp.member_mask)
 
     tris = np.asarray(triangles, dtype=_I32).reshape(-1, 3)
     floor_count = np.zeros(num_nodes, dtype=_F32)
@@ -255,7 +538,7 @@ def assemble_topology(
         ):
             banded = False
     tet_block6 = None
-    if banded and num_nodes % 4 == 0:
+    if banded and num_nodes % 4 == 0 and distance.idx.shape[0] == 0:
         tet_band = np.zeros((7, num_nodes), dtype=_F32)
         for t in (strain, volume):
             tg = np.asarray(t.g).T.reshape(-1, 3, 4)
@@ -271,12 +554,9 @@ def assemble_topology(
             ]
         )
 
-    ell_nbr = ell_coef = tet_inc = None
-    if not banded:
-        nbr, coef = assemble_ell(num_nodes, (strain, volume))
-        if nbr is not None:
-            ell_nbr, ell_coef = np.ascontiguousarray(nbr.T), np.ascontiguousarray(coef.T)
-        tet_inc = tet_incidence(strain.idx, num_nodes)
+    generic = generic_fields(num_nodes, strain=strain, volume=volume, position=position,
+                             distance=distance, bend=bend, shape=shape, goal=goal,
+                             tet_fused=tet_fused)
 
     if np.asarray(position.idx).shape[0]:
         pos_force = np.zeros((num_nodes, 3), np.float64)
@@ -301,10 +581,12 @@ def assemble_topology(
         position_force_dense=pos_force,
         triangles=_pad2(tris, tcap),
         tri_mask=_pad2(np.ones(tris.shape[0], _F32), tcap),
-        pin_w=pin_weights(position, num_nodes),
-        ell_nbr=ell_nbr,
-        ell_coef=ell_coef,
-        tet_inc=tet_inc,
+        **generic,
+        distance=distance,
+        bend=bend,
+        shape=shape,
+        goal=goal,
+        tet_fused=tet_fused,
     )
 
 

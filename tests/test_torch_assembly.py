@@ -129,7 +129,7 @@ def test_mesh_topology_matches_reference(pins):
 def test_tet_incidence_lists_every_corner_once_in_scatter_order(mesh):
     _, t = mesh
     idx = t.topology.strain.idx.numpy()
-    inc = t.topology.tet_inc
+    inc = t.topology.row_inc  # tets only: the rows are the strain batch's
     rs, ent = inc.row_start.numpy(), inc.entries.numpy()
     c = idx.shape[0]
     assert rs[0] == 0 and rs[-1] == 4 * c
@@ -145,10 +145,10 @@ def test_converter_carries_the_mesh_topology(mesh):
     j, t = mesh
     topo = convert.topology_from_numpy(jax.tree.map(np.asarray, j._topology))
     mine = t.topology
-    for f in ("ell_nbr", "ell_coef", "pin_w", "stiffness_diag", "floor_count"):
+    for f in ("ell_nbr", "ell_coef", "static_w", "stiffness_diag", "floor_count"):
         assert torch.equal(getattr(topo, f), getattr(mine, f)), f
     for f in ("row_start", "entries"):
-        assert torch.equal(getattr(topo.tet_inc, f), getattr(mine.tet_inc, f)), f
+        assert torch.equal(getattr(topo.row_inc, f), getattr(mine.row_inc, f)), f
     assert convert.config_from(j._config).cg_rtol == 1e-4
 
 

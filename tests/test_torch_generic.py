@@ -2,7 +2,8 @@
 packages' ``Solver``: the imported 1,331-node / 6,000-tet mesh
 (``scripts/refbench/tet_cube_mesh.txt``, the scene of
 ``scripts/bench_all.py:116-121`` at a small size) with floor contact, and
-``create_tet_box``.  The JAX package runs with ``dense_operator_max=0`` so
+``create_tet_box`` (the other constraint families: ``tests/test_torch_cloth.py``).
+The JAX package runs with ``dense_operator_max=0`` so
 that both take Jacobi-PCG.
 
 Tolerances and why:
@@ -164,18 +165,22 @@ def test_mesh_failure_latch_matches_reference():
 
 
 def test_generic_cases_not_ported_yet_raise():
+    # A disjoint soup off the tet-column path (here through a distance
+    # constraint between two tets) needs the banded operator of item 5c.
     s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device="cpu")
-    pts, tets, _ = load_mesh_txt(MESH)
-    ids = s._builder._emit_nodes(pts)
-    s._builder._emit_tets(ids[tets], 1000.0, strain_w=0.0)  # volume only: unfused
-    s._dirty = True
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    ids = s.create_tet_soup(8, spacing=1.6, scale=0.8, w=2000.0)
+    s._builder._emit_distance(np.array([[ids[0], ids[4]]]), 100.0)
+    with pytest.raises(NotImplementedError, match="item 5c"):
         s.tick()
     s = _mesh(pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu"), None)
     with pytest.raises(NotImplementedError, match="item 6"):
         s.tick()
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        s.create_box((0, 0, 0), 1.0, 1.0)
+    s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu")
+    s.create_sheet((0, 1.0, 0), 0.5, 1.0, 5000.0)  # a cloth with self-contact on
+    with pytest.raises(NotImplementedError, match="item 6"):
+        s.tick()
+    with pytest.raises(NotImplementedError, match="item 7"):
+        s.create_rope((0, 0, 0), (1, 0, 0), 8, 100.0)
 
 
 def test_port_and_its_scripts_import_no_jax():

@@ -14,7 +14,11 @@ contacts and incidence, and bit-equal forces and positions (their sums run
 in one fixed order on both sides, and their library math is the same
 libdevice ``powf``/``acosf``/``cosf``).  The generic path's kernels T9-T11
 are held to their twins exactly too, with equal CG trip counts: the CG's dot
-products are summed in the same fixed block order on both sides.
+products are summed in the same fixed block order on both sides.  Of the
+constraint kernels, T12's distance rows, T13's goal rows, the unfused tet
+force and the CSR operator are held exactly; T12's bend rows and T13's shape
+rows and rotations within 1e-6 of the largest row (they pass through
+``acosf``, ``sinf`` and ``cosf``; measured equal on an H100).
 """
 
 import dataclasses
@@ -398,3 +402,141 @@ def test_generic_early_exit_on_the_card(cuda):
     s.state.velocities[3, 0] = float("inf")
     s.run_ticks(2)
     assert s.sim_failed and s.last_residual == 0.0
+
+
+# ---------------------------------------------------------------------------
+# T12, T13, the unfused T9 mode and the CSR operator
+
+
+def _cloth_solver(device, n=32):
+    from pies_tpu_torch.scene.rigged_cloth import add_rigged_cloth
+
+    s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device=device)
+    add_rigged_cloth(s, n)
+    return s
+
+
+def _star_solver(device, spokes=80):
+    """A hub joined to ``spokes`` rim nodes and the rim closed to a ring: the
+    hub's operator row has more than 64 entries, so the operator is CSR."""
+    s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device=device)
+    ang = np.linspace(0.0, 2 * np.pi, spokes, endpoint=False)
+    pts = np.concatenate([[[0.0, 2.0, 0.0]],
+                          np.stack([np.cos(ang), 2.0 + 0.1 * np.sin(3 * ang), np.sin(ang)], 1)])
+    ids = s._builder._emit_nodes(pts.astype(np.float32), inv_mass=1.0, radius=0.05)
+    rim = ids[1:]
+    s._builder._emit_distance(np.stack([np.full(spokes, ids[0]), rim], 1), 3000.0)
+    s._builder._emit_distance(np.stack([rim, np.roll(rim, -1)], 1), 3000.0)
+    s._builder._emit_triangles(np.stack([np.full(spokes, ids[0]), rim, np.roll(rim, -1)], 1))
+    s._dirty = True
+    return s
+
+
+NEW_WRAPPERS = (proj.distance_rows, proj.bend_rows, proj.shape_rows, proj.goal_rows,
+                assembly.assemble_force, assembly.apply_system, assembly.pcg_solve)
+
+
+def test_cpu_tensors_take_the_constraint_twins():
+    s = _cloth_solver("cpu", 16)
+    before = [f.launches for f in NEW_WRAPPERS]
+    s.run_ticks(1)
+    assert [f.launches for f in NEW_WRAPPERS] == before
+    assert not s.sim_failed
+
+
+def test_star_scene_stores_its_operator_as_csr():
+    s = _star_solver("cpu")
+    topo = s.topology
+    assert topo.ell_nbr is None and topo.csr_start is not None
+    assert int((topo.csr_start[1:] - topo.csr_start[:-1]).max()) == 81
+    s.run_ticks(3)
+    assert not s.sim_failed
+
+
+@pytest.mark.gpu
+def test_constraint_row_kernels_match_twins(cuda):
+    """T12 and T13 on a moving rigged cloth (20 ticks in, the fixed region
+    turned): distance and goal rows bit-equal; bend and shape rows and the
+    new quaternions within 1e-6 of the largest row (``acosf``, ``sinf`` and
+    ``cosf`` against torch's)."""
+    from pies_tpu_torch.scene.rigged_cloth import fixed_region_matrix
+
+    s = _cloth_solver(cuda, 64)
+    s.run_ticks(20)
+    s.update_fixed_regions([fixed_region_matrix(64, 0.1, 0.3, 0.05)])
+    s.run_ticks(2)
+    st, topo, cfg = s.state, s.topology, s.config
+    x, failed = st.positions, st.sim_failed
+    assert torch.equal(proj.distance_rows(x, topo.distance, failed),
+                       proj.distance_rows_plain(x, topo.distance))
+    assert torch.equal(proj.goal_rows(topo.goal, failed), proj.goal_rows_plain(topo.goal))
+    bk = proj.bend_rows(x, st.inv_mass, topo.bend, failed)
+    bp = proj.bend_rows_plain(x, st.inv_mass, topo.bend)
+    assert float((bk - bp).abs().max()) <= 1e-6 * float(bp.abs().max())
+    qk, qp = st.shape_quats.clone(), st.shape_quats.clone()
+    sk = proj.shape_rows(x, st.mass, qk, topo.shape, cfg.rotation_iterations, failed)
+    sp = proj.shape_rows_plain(x, st.mass, qp, topo.shape, cfg.rotation_iterations)
+    assert float((sk - sp).abs().max()) <= 1e-6 * float(sp.abs().max())
+    assert float((qk - qp).abs().max()) <= 1e-6
+    assert not torch.equal(qk, st.shape_quats)  # the groups did turn
+    assert torch.equal(proj.shape_group_sums(x, st.mass, topo.shape),
+                       proj.shape_group_sums(x.cpu(), st.mass.cpu(),
+                                             pt.topology.to_device(topo.shape, "cpu")).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["strain", "volume"])
+def test_unfused_tet_force_kernel_equals_twin(cuda, kind):
+    s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device=cuda)
+    pts, tets, surf = load_mesh_txt(MESH)
+    ids = s._builder._emit_nodes(pts, inv_mass=1.0, radius=0.2)
+    s._builder._emit_tets(ids[tets], 1000.0, **{("volume_w" if kind == "strain" else
+                                                 "strain_w"): 0.0})
+    s._builder._emit_triangles(ids[surf])
+    s._dirty = True
+    s.run_ticks(10)
+    st, topo = s.state, s.topology
+    assert not topo.tet_fused and not s.sim_failed
+    bk = proj.tet_force12_gathered(st.positions, topo.strain, topo.volume, st.sim_failed,
+                                   kind=kind)
+    bp = proj.tet_force12_gathered_plain(st.positions, topo.strain, topo.volume, kind=kind)
+    assert torch.equal(bk, bp) and float(bk.abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_csr_operator_kernel_equals_twin(cuda):
+    s = _star_solver(cuda)
+    s.run_ticks(5)
+    st, topo, params = s.state, s.topology, s.current_params()
+    x, msn, diag, wf, active = pd.substep_head_plain(_clone(st), topo, params, s.config, True)
+    _, h2 = pd._h_h2(params)
+    yk, pk = assembly.apply_system(x, st.mass, wf, h2, topo, st.sim_failed, part=True)
+    yp, pp = assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True)
+    assert torch.equal(yk, yp) and torch.equal(pk, pp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["cloth", "star", "blob"])
+def test_constraint_kernels_match_twins_over_a_trajectory(cuda, scene):
+    """30 ticks, kernels against twins: equal counters (floor, CG trips) and
+    positions within 1e-5 (bit-equal where no bend or shape group is)."""
+    runs = []
+    for plain in (False, True):
+        if scene == "cloth":
+            s = _cloth_solver(cuda, 32)
+        elif scene == "star":
+            s = _star_solver(cuda)
+        else:
+            s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device=cuda)
+            s.create_shape_matching_box((0, 1.0, 0), 5, 5, 5, 1.0, (0.5, 0.0, 0.2), 4000.0)
+        c = pd.new_counters(cuda)
+        step.tick_n(s.state, s.topology, s.current_params(), s.config, 30, plain=plain,
+                    counters=c)
+        assert not s.sim_failed
+        runs.append(({k: int(v) for k, v in c.items()}, s.state.positions.clone()))
+    (ck, xk), (cp, xp) = runs
+    assert ck == cp and ck["cg_trips"] > 0
+    if scene == "star":
+        assert torch.equal(xk, xp)
+    else:
+        assert float((xk - xp).abs().max()) <= 1e-5
