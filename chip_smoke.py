@@ -7,7 +7,7 @@ Phases (any failure exits non-zero, before the result line):
 
 0. The card: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc
    versions, whether ``triton`` imports.  No CUDA device: exit 2.
-1. Build the thirteen kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
+1. Build the fifteen kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
    one process per source, all at once (``-Xptxas -v`` output printed), and
    report the build time.
 2. T1-T4 against their plain PyTorch twins on the card, at the main path's
@@ -84,9 +84,44 @@ Phases (any failure exits non-zero, before the result line):
    timed ``run_ticks(10)`` with the CG trips reported, and 3 ticks of
    kernels against twins.
 
+7. The cloth over the soup at full size (``scene.mixed_drape.add_mixed_drape``:
+   125,000 tets and a 100 x 100 sheet, 510,000 nodes, 519,602 triangles,
+   144,602 collision rows) through ``Solver(SolverOptions(solver=PD))`` with
+   its default arguments (self-contact on, recentered coupling): the
+   generic path with the super-body detection, the contact terms and the
+   banded tet operator.  35 warm-up ticks, then tick by tick until a sheet
+   node and a soup triangle (or the reverse) are in contact.
+2e. (on that warmed state) T14 against its twin (cache, flags and latch
+   equal, as found and with a rebuild forced), T15 against its twin
+   (contacts equal, as found and with the positions jittered so that the
+   cubic runs), T7's setup with the operator's dense diagonal, T9's stage 2
+   with the contact terms, T10's band form (also against
+   ``torch.sparse.mm``) and the PCG with the contact diagonal: equal to
+   their twins.  Then phase 7 proper: a timed ``run_ticks(10)``, launch
+   counters reset before; checks: no sim_failed, finite positions, floor
+   contact and contacts in the window, sheet-soup contacts after it (one
+   detection, counted on the host), every counter of T3, T14, T15, T7, T9,
+   T12, T10, T11, T8 and T4 > 0.  From the warmed state, 3 ticks of the
+   kernels against 3 of the twins (positions within 1e-3, equal counters).
+5b, 6c. The mesh of phase 5 and the cloth of phase 6 with
+   ``enable_collisions=True`` (pure-loose layouts: one row per triangle,
+   W = 3, one face slot), the same ticks as those phases ran, launch
+   counters reset before: no sim_failed, contacts printed, every kernel of
+   the path launched; without a contact the positions equal the
+   collisions-off run's bit for bit (a zero contact diagonal and force add
+   exactly nothing).  Then T14 and T15 against their twins at these shapes,
+   on the state as found and on that state folded over itself (a strip
+   mirrored back onto the part beside it, its nodes seeded distances above
+   and under where they land): cache, latches and contact lists equal, with
+   contacts and crossing combos present.
+8. A small mixed scene (4,096 tets, a 32 x 32 sheet at y = 2.2, in contact
+   from the first tick), 40 ticks, kernels against twins: contact counts
+   equal on every tick, positions within 1e-3.
+
 The last two lines are the kernel table and the result as JSON objects.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -107,6 +142,9 @@ CLOTH_N = 512  # the rigged cloth's lattice side
 CLOTH = dict(scale=0.1, height=0.3, w=5000.0)
 CLOTH_TURN = 0.05  # radians the fixed region is turned by before the window
 N_BLOBS = 4096
+MIXED_SHEET = 100  # the full mixed scene's sheet side (its soup has N_TETS tets)
+MIXED_FREE_FALL = 35  # ticks before sheet and soup can touch (they do from tick ~40)
+SMALL_SHEET = 32
 
 # The H100 SXM's published peaks (NVIDIA's datasheet): the least time
 # of a kernel is the larger of its bytes over the memory rate and its float32
@@ -157,8 +195,6 @@ def max_ulp(a, b):
 
 
 def clone_state(s):
-    import dataclasses
-
     return dataclasses.replace(
         s, **{f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)
               if getattr(s, f.name) is not None}
@@ -171,12 +207,12 @@ def check(ok, what):
     print(f"  ok: {what}")
 
 
-def mesh_solver(pt, path, dev, pins=()):
+def mesh_solver(pt, path, dev, pins=(), collisions=False):
     """A solver on an imported mesh dump (w = 1000, radius 0.2), with
     ``pins`` held by position constraints of weight 8000."""
     from pies_tpu_torch.scene.mesh_dump import add_tet_mesh, load_mesh_txt
 
-    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=False,
+    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=collisions,
                   device=dev)
     add_tet_mesh(s, *load_mesh_txt(path), pins=pins)
     return s
@@ -208,7 +244,7 @@ def blob_solver(pt, n_bodies, dev):
 
 
 def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
-         cloth_n=CLOTH_N, n_blobs=N_BLOBS):
+         cloth_n=CLOTH_N, n_blobs=N_BLOBS, mixed_sheet=MIXED_SHEET, small_sheet=SMALL_SHEET):
     import torch
 
     # ---- phase 0
@@ -239,6 +275,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     print("nvcc: " + run([kernels._nvcc(), "--version"]).splitlines()[-1])
     dev = dev or torch.device("cuda", 0)
     PD = pt.SolverName.PD
+    soup_tets = n_tets  # (later phases reuse the name for their own tet counts)
 
     # ---- phase 1
     print("phase 1: build")
@@ -406,7 +443,9 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         "pies_tpu/collision/broadphase.py:385", 0.0,
         cuda_ms(lambda: t6(broadphase.pt_narrowphase, x), 20),
         cuda_ms(lambda: t6(broadphase.pt_narrowphase_plain, x), 3), "equal",
-        24 * n_body_nodes + 4 * lay.k * lay.e + 8 * lay.lanes + 20 * lay.cap,
+        # (the valid mask of every lane, the pair of each live lane)
+        24 * n_body_nodes + 4 * lay.k * lay.e + 4 * lay.lanes + 4 * st6["live_lanes"]
+        + 20 * lay.cap,
         864 * st6["live_lanes"] + 400 * st6["cross_combos"])
 
     colls = CollisionSet(floor_active=active, pt_idx=pk[0], pt_mask=pk[1], pt_count=pk[2],
@@ -484,7 +523,9 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                 "tet_force_nodes": [proj.tet_force12_gathered, assembly.assemble_force],
                 "ell_matvec": [assembly.apply_system], "pcg": [assembly.pcg_solve],
                 "constraint_rows": [proj.distance_rows, proj.bend_rows],
-                "shape_match": [proj.shape_rows, proj.goal_rows]}
+                "shape_match": [proj.shape_rows, proj.goal_rows],
+                "super_broadphase": [broadphase.super_broadphase],
+                "super_narrowphase": [broadphase.super_narrowphase]}
 
     def reset_launches():
         for fns in wrappers.values():
@@ -526,10 +567,16 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         ids = torch.arange(n, device=dev)
         live = topo.ell_coef.reshape(-1) != 0
         dg = st.mass / h2 + wf + (topo.static_w if topo.static_w.shape[0] == n else 0.0)
-        coo = torch.sparse_coo_tensor(
-            torch.stack([torch.cat([ids.repeat(m)[live], ids]),
-                         torch.cat([topo.ell_nbr.reshape(-1).long()[live], ids])]),
-            torch.cat([topo.ell_coef.reshape(-1)[live], dg]), (n, n))
+        rows_, cols_, vals_ = [ids.repeat(m)[live], ids], \
+            [topo.ell_nbr.reshape(-1).long()[live], ids], [topo.ell_coef.reshape(-1)[live], dg]
+        if topo.tet_band is not None:  # the tets' seven diagonals, wrapping as jnp.roll
+            for d in range(-3, 4):
+                on = topo.tet_band[3 + d] != 0
+                rows_.append(ids[on])
+                cols_.append(((ids + d) % n)[on])
+                vals_.append(topo.tet_band[3 + d][on])
+        coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows_), torch.cat(cols_)]),
+                                      torch.cat(vals_), (n, n))
         return coo.coalesce().to_sparse_csr()
 
     launches = {}
@@ -720,6 +767,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     check(d <= 1e-3 and runs[0][1] == runs[1][1],
           f"kernels and twins agree over ticks 76-78: max |dx| {d:.3e}, counters {runs[0][1]}")
     print(f"  plain twins: {runs[1][2] * 1e3:.3f} ms/tick ({smi})")
+    mesh_off = pos.clone()  # collisions off, mesh_warmup + 10 ticks: phase 5b compares
     del s, st, warm, runs, pos
 
     print(f"phase 5, small mesh: 40 ticks of {MESH_SMALL} with 4 pins, kernels against twins")
@@ -908,6 +956,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
           f"kernels and twins agree over 3 ticks from the warmed state: max |dx| {d:.3e},"
           f" max |dq| {dq:.3e}, counters {runs[0][1]}")
     print(f"  plain twins: {runs[1][2] * 1e3:.3f} ms/tick ({smi})")
+    cloth_off, cloth_first = pos.clone(), first  # collisions off: phase 6c compares
     del s, st, topo, warm, runs, pos
 
     # ---- phase 6b
@@ -964,9 +1013,419 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
           f" twins' {runs[1][1]}")
     del s, st, topo, warm, runs
 
+
+    # ---- phase 7 (with 2e)
+    from pies_tpu_torch.scene.mixed_drape import add_mixed_drape
+
+    mixed_path = ["substep_head", "super_broadphase", "super_narrowphase", "pt_coupling",
+                  "tet_force_nodes", "constraint_rows", "ell_matvec", "pcg", "pt_tail",
+                  "substep_tail"]
+    n_tets = soup_tets
+    print(f"phase 7: the cloth over the soup, {n_tets} tets and a {mixed_sheet} x {mixed_sheet}"
+          " sheet, default Solver arguments")
+    t0 = time.perf_counter()
+    s = pt.Solver(pt.SolverOptions(solver=PD), device=dev)
+    add_mixed_drape(s, n_tets, mixed_sheet)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    n_nodes, n_live, n_soup = st.capacity, s._builder.num_nodes, 4 * n_tets
+    lay = broadphase.super_layout(cfg, topo.super_corners, topo.super_adj)
+    m = topo.ell_nbr.shape[0]
+    cache_mb = (st.bp.pairs.numel() + st.bp.valid.numel()) * 4 / 1e6
+    print(f"set-up {time.perf_counter() - t0:.2f} s: {n_live} nodes (capacity {n_nodes}),"
+          f" {int(topo.tri_mask.sum())} triangles, {lay.live_k} collision rows ({lay.kp} packed,"
+          f" W = {lay.w}, {lay.n_face} face slots, {len(lay.combos())} combos, {lay.a}"
+          f" neighbours per row at most), {lay.lanes} lanes, cache {cache_mb:.1f} MB, contact"
+          f" cap {lay.cap}, {lay.bmax} raw candidates and {lay.nb} slots per row, cell"
+          f" {params.broadphase_cell:.3f}, ELL width {m} beside the band")
+    check(cfg.enable_collisions and cfg.contact_coupling == "recentered" and cfg.super_k > 0
+          and not tetcols.applies(st, topo, cfg) and topo.tet_band is not None,
+          "default arguments: self-contact on, recentered coupling, the super-body layout, the"
+          " generic path with the banded tet operator")
+
+    def mixed_contacts(solver):
+        """The next substep's contacts of ``solver`` (a detection on a copy
+        of its state): how many, and how many between the sheet and the
+        soup."""
+        c = clone_state(solver.state)
+        h = pd.substep_head_plain(c, solver.topology, solver.current_params(), solver.config,
+                                  True)
+        colls = pd.detect_point_tri(c, h[0], solver.topology, solver.current_params(),
+                                    solver.config, h[4])
+        idx = colls.pt_idx[: int(colls.pt_count[0])]
+        point_soup = idx[:, 0] < n_soup
+        cross = (point_soup != (idx[:, 1] < n_soup)) if idx.numel() else idx[:, 0] > 0
+        return idx.shape[0], int(cross.sum())
+
+    t0 = time.perf_counter()
+    free = MIXED_FREE_FALL
+    advance(s, free, False)
+    first = None
+    for tick in range(free, free + 60):
+        n_all, n_cross = mixed_contacts(s)
+        if n_cross > 0:
+            first = tick
+            break
+        advance(s, 1, False)
+    print(f"warm-up ticks of the kernels: {time.perf_counter() - t0:.2f} s; before tick {first}"
+          f" {n_all} contacts, {n_cross} of them between the sheet and the soup")
+    check(first is not None and not s.sim_failed,
+          "sheet-soup contact in the warm-up, no sim_failed")
+    warm = clone_state(s.state)
+
+    print(f"phase 2e: T14, T15, T7, T9 stage 2, T10's band form and T11 against twins on the"
+          f" warmed {n_live}-node scene")
+    failed = st.sim_failed
+    x, msn, diag, wf, active = pd.substep_head_plain(clone_state(st), topo, params, cfg, True)
+    prev, corners, adj = st.prev_positions, topo.super_corners, topo.super_adj
+    sc = broadphase.scalars(params)
+    _, h2 = pd._h_h2(params)
+
+    def t14(fn, force, **kw):
+        c, ov = st.bp.clone(), zero()
+        if force:
+            c.fresh.zero_()
+        rb = fn(x, prev, corners, adj, c, lay, sc, ov, failed, **kw)
+        return c, ov, rb
+
+    for force in (False, True):
+        flags = []
+        (c14k, ov14k, rbk), (c14p, ov14p, rbp) = (
+            t14(broadphase.super_broadphase, force, flags_out=flags),
+            t14(broadphase.super_broadphase_plain, force))
+        torch.cuda.synchronize()
+        same = (all(torch.equal(getattr(c14k, f), getattr(c14p, f)) for f in cache_fields)
+                and torch.equal(ov14k, ov14p) and int(rbk[0]) == int(rbp[0]))
+        named = dict(zip(broadphase.SUPER_FLAGS, flags[0].tolist())) if flags else {}
+        check(same, f"T14 super_broadphase cache, latch and rebuild flag equal (rebuild forced"
+                    f" {force}, rebuilt {int(rbk[0])}, valid pairs {int(c14k.valid.sum())},"
+                    f" most per row {int(c14k.valid.sum(1).max())}, overflow {int(ov14k[0])},"
+                    f" flags {named})")
+    check(int(ov14k[0]) == 0, "no capacity latch on the warmed state")
+    cache = c14k
+    timing_cache, ov = st.bp.clone(), zero()
+
+    def rebuild14(fn, force=True):
+        if force:
+            timing_cache.fresh.zero_()
+        fn(x, prev, corners, adj, timing_cache, lay, sc, ov, failed)
+
+    a_width = lay.a
+    row("super_broadphase", "pies_tpu_torch/kernels/csrc/super_broadphase.cu",
+        "pies_tpu/collision/broadphase.py:647", 0.0,
+        cuda_ms(lambda: rebuild14(broadphase.super_broadphase), 20),
+        cuda_ms(lambda: rebuild14(broadphase.super_broadphase_plain), 2), "equal",
+        36 * n_nodes + 4 * lay.k * (lay.w + a_width) + 8 * lay.lanes + 4, 1000 * lay.k)
+    # A substep that keeps its cached pairs: the slack is raised so that no
+    # node has moved past it.
+    calm = dataclasses.replace(sc, slack=1e30)
+    rebuild14(broadphase.super_broadphase)  # leaves the cache fresh
+    ms_keep = cuda_ms(lambda: broadphase.super_broadphase(
+        x, prev, corners, adj, timing_cache, lay, calm, ov, failed), 20)
+    b_keep, _ = bound(36 * n_nodes + 4 * lay.k * lay.w, 0)
+    print(f"  T14 without a rebuild: kernel {ms_keep:.4f} ms, bound {b_keep:.4f} ms (bytes)")
+
+    def t15(fn, xx, **kw):
+        ovx = zero()
+        out = fn(xx, prev, corners, cache, lay, sc, ovx, failed, **kw)
+        return out, ovx
+
+    rng = np.random.default_rng(1)
+    jitter = torch.from_numpy((0.05 * rng.standard_normal(x.shape)).astype(np.float32)).to(dev)
+    x_cross = x + jitter * st.node_mask[:, None]
+    stats = {}
+    for name, xx in (("as found", x), ("jittered", x_cross)):
+        stats[name] = {}
+        (pk, ovk), (pp, ovp) = t15(broadphase.super_narrowphase, xx), \
+            t15(broadphase.super_narrowphase_plain, xx, stats=stats[name])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(pk, pp)) and torch.equal(ovk, ovp)
+        check(same, f"T15 super_narrowphase contacts equal ({name}: {int(pk[2][0])} contacts,"
+                    f" latch {int(ovk[0])}, {stats[name]})")
+    check(stats["jittered"]["cross_combos"] > 0,
+          f"T15 phase 2 ran: {stats['jittered']['cross_combos']} crossing combos")
+    pk, _ = t15(broadphase.super_narrowphase, x)
+    n_contacts = int(pk[2][0])
+    check(n_contacts > 0, f"contacts in the state: {n_contacts}")
+    st15 = stats["as found"]
+    row("super_narrowphase", "pies_tpu_torch/kernels/csrc/super_narrowphase.cu",
+        "pies_tpu/collision/broadphase.py:850", 0.0,
+        cuda_ms(lambda: t15(broadphase.super_narrowphase, x), 20),
+        cuda_ms(lambda: t15(broadphase.super_narrowphase_plain, x), 2), "equal",
+        # (the valid mask of every lane, the pair of each live lane)
+        24 * n_nodes + 4 * lay.k * lay.w + 4 * lay.lanes + 4 * st15["live_lanes"]
+        + 20 * lay.cap,
+        60 * len(lay.combos()) * st15["live_lanes"] + 400 * st15["cross_combos"])
+
+    colls = CollisionSet(floor_active=active, pt_idx=pk[0], pt_mask=pk[1], pt_count=pk[2],
+                         overflow=zero())
+    thick = params.collision_thickness
+    dk, dp, sdk, sdp = diag.clone(), diag.clone(), wf.clone(), wf.clone()
+    inc_k, ptd_k = tetcols.pt_coupling_setup(colls, st.mass, topo, h2, dk, wf, failed, sdk)
+    inc_p, ptd_p = tetcols.pt_coupling_setup_plain(colls, st.mass, topo, h2, dp, wf, failed,
+                                                   sdp)
+    con_k = tetcols.pt_force(x, colls, inc_k, thick, failed)
+    con_p = tetcols.pt_force_plain(x, colls, inc_p, thick, failed)
+    torch.cuda.synchronize()
+    on = incident(inc_p)
+    check(torch.equal(dk, dp) and torch.equal(sdk, sdp) and torch.equal(ptd_k[on], ptd_p[on])
+          and not torch.equal(sdk, wf),
+          f"T7 Jacobi diagonal, operator diagonal (floor + contacts) and contact diagonal equal"
+          f" ({int(on.sum())} nodes with contact entries)")
+    ulps = max_ulp(con_k[on], con_p[on])
+    check(ulps <= 1.0, f"T7 contact force within 1 ulp (max {ulps} ulp)")
+
+    rows_k = assembly.local_step(x, st.inv_mass, st.mass, st.shape_quats.clone(), topo,
+                                 cfg.rotation_iterations, failed)
+    n_rows = rows_k.shape[0]
+    pt_k = (ptd_k, con_k, inc_k.row_start, colls.pt_count)
+    pt_p = (ptd_p, con_p, inc_p.row_start, colls.pt_count)
+    fk = assembly.assemble_force(x, msn, wf, rows_k, topo, plane, failed, pt_k)
+    fp = assembly.assemble_force_plain(x, msn, wf, rows_k, topo, plane, None, pt_p)
+    bare = assembly.assemble_force_plain(x, msn, wf, rows_k, topo, plane)
+    torch.cuda.synchronize()
+    err = float((fk[0] - fp[0]).abs().max())
+    check(torch.equal(fk[0], fp[0]) and torch.equal(fk[1], fp[1])
+          and not torch.equal(fk[0], bare[0]),
+          f"T9 stage 2 with the contact terms over {n_rows} rows: force and static projection"
+          f" equal (tolerance 0; the contact terms move the force by up to"
+          f" {float((fk[0] - bare[0]).abs().max()):.4g})")
+    row("assemble_force_contacts", "pies_tpu_torch/kernels/csrc/tet_force_nodes.cu",
+        "pies_tpu/solver/assembly.py:288", err,
+        cuda_ms(lambda: assembly.assemble_force(x, msn, wf, rows_k, topo, plane, failed, pt_k),
+                20),
+        cuda_ms(lambda: assembly.assemble_force_plain(x, msn, wf, rows_k, topo, plane, None,
+                                                      pt_p), 3),
+        "equal", 12 * n_rows + 52 * n_nodes + 20 * int(on.sum()), 3 * n_rows + 15 * n_nodes)
+
+    yk, pk10 = assembly.apply_system(x, st.mass, sdk, h2, topo, failed, part=True)
+    yp, pp10 = assembly.apply_system_plain(x, st.mass, sdp, h2, topo, part=True)
+    csr = operator_csr(st, topo, sdk, h2)
+    lib_y = torch.sparse.mm(csr, x)
+    torch.cuda.synchronize()
+    lib_err = float((lib_y - yk).abs().max()) / float(yk.abs().max())
+    check(torch.equal(yk, yp) and torch.equal(pk10, pp10),
+          f"T10 band form with the contact diagonal (seven tet diagonals, ELL width {m}):"
+          f" product and p.Ap partials equal (tolerance 0; library CSR product within"
+          f" {lib_err:.2e} relative)")
+    row("ell_matvec_band", "pies_tpu_torch/kernels/csrc/ell_matvec.cu",
+        "pies_tpu/solver/assembly.py:493", float((yk - yp).abs().max()),
+        cuda_ms(lambda: assembly.apply_system(x, st.mass, sdk, h2, topo, failed, part=pk10,
+                                              out=yk), 50),
+        cuda_ms(lambda: assembly.apply_system_plain(x, st.mass, sdp, h2, topo, part=True), 5),
+        "equal", (8 * m + 64) * n_nodes, (6 * m + 54) * n_nodes,
+        library_ms=cuda_ms(lambda: torch.sparse.mm(csr, x), 50))
+    del csr, lib_y
+
+    cg_args = (fk[0], x, dk, st.mass, sdk, h2, st.node_mask, topo, cfg.cg_iterations,
+               cfg.cg_rtol)
+    ok = assembly.pcg_solve(*cg_args, failed)
+    op = assembly.pcg_solve_plain(*cg_args, failed)
+    torch.cuda.synchronize()
+    trips = int(ok[2][0])
+    check(torch.equal(ok[0], op[0]) and torch.equal(ok[1], op[1]) and trips == int(op[2][0]),
+          f"T11 with the contact diagonal: solution, residual partials and trips equal ({trips}"
+          f" trips of {cfg.cg_iterations})")
+    ms_cg = cuda_ms(lambda: assembly.pcg_solve(*cg_args, failed), 20)
+    ms_cgp = cuda_ms(lambda: assembly.pcg_solve_plain(*cg_args, failed), 2)
+    b_cg, _ = bound((trips + 1) * (8 * m + 64) * n_nodes + 88 * n_nodes + trips * 128 * n_nodes,
+                    0)
+    print(f"  T11 a whole solve on this scene: kernel {ms_cg:.4f} ms, plain {ms_cgp:.4f} ms,"
+          f" bound {b_cg:.4f} ms (bytes)")
+    del rows_k, fk, fp, bare, yk, yp, ok, op, cache, timing_cache, colls, inc_k, inc_p
+
+    reset_launches()
+    sec, counts = window(s, 10, False)
+    launches["7"] = read_launches()
+    pos = s.state.positions[:n_live]
+    check(not s.sim_failed, "no sim_failed")
+    check(bool(torch.isfinite(pos).all()), "all positions finite")
+    check(counts["floor_active"] > 0,
+          f"floor contact in the window: {counts['floor_active']} node-substeps")
+    check(counts["contacts"] > 0,
+          f"contacts in the window: {counts['contacts'] / 10:.1f} per tick,"
+          f" {counts['rebuilds']} cache rebuilds in 10 ticks")
+    n_all, n_cross = mixed_contacts(s)
+    check(n_cross > 0, f"sheet-soup contacts after the window: {n_cross} of {n_all}")
+    check(all(launches["7"][n] > 0 for n in mixed_path),
+          f"every kernel of the path launched: {launches['7']}")
+    per_tick = {n: launches["7"][n] / 10 for n in mixed_path}
+    print(f"  kernels: {sec * 1e3:.3f} ms/tick, {1.0 / sec:.2f} steps/s ({smi}; ticks"
+          f" {first + 1}-{first + 10}; residual {s.last_residual:.6g};"
+          f" {counts['cg_trips'] / 10:.1f} CG trips per tick; launches per tick {per_tick})")
+    runs = []
+    for plain in (False, True):
+        w = clone_state(warm)
+        c = pd.new_counters(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.tick_n(w, topo, params, cfg, 3, plain=plain, counters=c)
+        torch.cuda.synchronize()
+        runs.append((w, {k: int(v) for k, v in c.items()}, (time.perf_counter() - t0) / 3))
+    check(not runs[0][0].failed() and not runs[1][0].failed(), "no sim_failed in either run")
+    d = float((runs[0][0].positions[:n_live] - runs[1][0].positions[:n_live]).abs().max())
+    check(d <= 1e-3 and runs[0][1] == runs[1][1],
+          f"kernels and twins agree over 3 ticks from the warmed state: max |dx| {d:.3e},"
+          f" counters {runs[0][1]}")
+    print(f"  plain twins: {runs[1][2] * 1e3:.3f} ms/tick ({smi})")
+    del s, st, topo, warm, runs, pos
+
+    # ---- phases 5b and 6c
+    def hold_loose(solver, fold_from):
+        """T14 and T15 against their twins at a pure-loose scene's shapes, on
+        the state as the run left it and on that state folded over itself:
+        the nodes past the ``fold_from`` quantile of x mirrored back onto
+        the part beside them, shifted off the lattice, each a seeded
+        distance of at most min(threshold, 0.2 cells) above or under where
+        it lands, before and now independently, so that points end within
+        the threshold of a face (contacts) and points cross faces (the
+        cubic).  Every cache field, latch, rebuild flag and contact list
+        must be equal, with contacts and crossing combos present."""
+        st, topo, params = solver.state, solver.topology, solver.current_params()
+        lay = broadphase.super_layout(solver.config, topo.super_corners, topo.super_adj)
+        sc = broadphase.scalars(params)
+        failed, corners, adj = st.sim_failed, topo.super_corners, topo.super_adj
+        live = st.node_mask > 0
+        xs = st.positions[:, 0]
+        edge = float(torch.quantile(xs[live][:: max(1, int(live.sum()) // 100_000)], fold_from))
+        over = live & (xs > edge)
+        amp = min(sc.thr, 0.2 * sc.cell)
+        rng = np.random.default_rng(5)
+        lift = torch.from_numpy(rng.uniform(-amp, amp, (2, st.capacity)).astype(np.float32)
+                                ).to(dev) * over
+        flat = st.positions.clone()
+        flat[:, 0] = torch.where(over, 2.0 * edge - xs + 0.13 * sc.cell, xs)
+        flat[:, 2] += 0.07 * sc.cell * over
+        folded = []
+        for dy in lift:
+            f = flat.clone()
+            f[:, 1] += dy
+            folded.append(f)
+        def detect(bf, nf, x, prev, force, bf_kw, nf_kw):
+            c, ov = st.bp.clone(), zero()
+            if force:
+                c.fresh.zero_()
+            rb = bf(x, prev, corners, adj, c, lay, sc, ov, failed, **bf_kw)
+            wide = int(ov[0])  # T14's latch alone
+            contacts = nf(x, prev, corners, c, lay, sc, ov, failed, **nf_kw)
+            torch.cuda.synchronize()
+            return c, int(rb[0]), wide, contacts, int(ov[0])
+
+        for name, x, prev, force in (("as found", st.positions, st.prev_positions, False),
+                                     ("folded", folded[0], folded[1], True)):
+            flags, stats = [], {}
+            ck, rbk, wide_k, pk, ovk = detect(broadphase.super_broadphase,
+                                              broadphase.super_narrowphase, x, prev, force,
+                                              dict(flags_out=flags), {})
+            cp, rbp, wide_p, pp, ovp = detect(broadphase.super_broadphase_plain,
+                                              broadphase.super_narrowphase_plain, x, prev,
+                                              force, {}, dict(stats=stats))
+            named = dict(zip(broadphase.SUPER_FLAGS, flags[0].tolist())) if flags else {}
+            check(all(torch.equal(getattr(ck, f), getattr(cp, f)) for f in cache_fields)
+                  and rbk == rbp and wide_k == wide_p,
+                  f"T14 at {lay.live_k} loose rows, {name}: cache, latch and rebuild flag equal"
+                  f" (rebuilt {rbk}, latch {wide_k}, valid pairs {int(ck.valid.sum())}, most"
+                  f" per row {int(ck.valid.sum(1).max())}, flags {named})")
+            check(all(torch.equal(a, b) for a, b in zip(pk, pp)) and ovk == ovp,
+                  f"T15 at {lay.lanes} lanes, {name}: contacts equal ({int(pk[2][0])} contacts"
+                  f" of at most {lay.cap}, latch {ovk}, {stats})")
+        check(rbk == 1 and int(ck.valid.sum()) > 0 and int(pk[2][0]) > 0
+              and stats["cross_combos"] > 0,
+              f"the folded state has pairs, contacts and crossing combos"
+              f" ({int(over.sum())} nodes folded at x > {edge:.3f})")
+        x, prev = folded
+        timing = st.bp.clone()
+
+        def rebuild():
+            timing.fresh.zero_()
+            broadphase.super_broadphase(x, prev, corners, adj, timing, lay, sc, zero(), failed)
+
+        ms14 = cuda_ms(rebuild, 10)
+        ms15 = cuda_ms(lambda: broadphase.super_narrowphase(x, prev, corners, ck, lay, sc,
+                                                            zero(), failed), 10)
+        print(f"  on the folded state: T14 rebuild {ms14:.4f} ms, T15 {ms15:.4f} ms ({smi})")
+
+    loose_path = [n for n in mixed_path if n != "constraint_rows"]
+    print(f"phase 5b: the mesh of phase 5 with self-contact on, {mesh_warmup + 10} ticks")
+    t0 = time.perf_counter()
+    s = mesh_solver(pt, mesh_big, dev, collisions=True)
+    lay = broadphase.super_layout(s.config, s.topology.super_corners, s.topology.super_adj)
+    counts = pd.new_counters(dev)
+    reset_launches()
+    advance(s, mesh_warmup + 10, False, counts)
+    launches["5b"] = read_launches()
+    counts = {k: int(v) for k, v in counts.items()}
+    print(f"  set-up and run {time.perf_counter() - t0:.2f} s: {lay.live_k} loose rows (W ="
+          f" {lay.w}, {lay.n_face} face slot, {lay.a} neighbours per row at most); counters"
+          f" {counts}")
+    check(not s.sim_failed and lay.kp == 0, "a pure-loose layout, no sim_failed (no latch)")
+    n_mesh = s._builder.num_nodes
+    if counts["contacts"] == 0:
+        check(torch.equal(s.state.positions[:n_mesh], mesh_off),
+              "no contact: positions equal to the collisions-off run's (tolerance 0)")
+    else:
+        d = float((s.state.positions[:n_mesh] - mesh_off).abs().max())
+        print(f"  {counts['contacts']} contacts: max |dx| against the collisions-off run {d:.3e}")
+    check(all(launches["5b"][n] > 0 for n in loose_path),
+          f"every kernel of the path launched: {launches['5b']}")
+    hold_loose(s, 0.75)
+    del s, mesh_off
+
+    print(f"phase 6c: the rigged cloth of phase 6 with self-contact on, {cloth_first + 11} ticks")
+    t0 = time.perf_counter()
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=True, device=dev)
+    add_rigged_cloth(s, cloth_n, **CLOTH)
+    lay = broadphase.super_layout(s.config, s.topology.super_corners, s.topology.super_adj)
+    counts = pd.new_counters(dev)
+    reset_launches()
+    advance(s, cloth_first, False, counts)
+    s.update_fixed_regions([fixed_region_matrix(cloth_n, CLOTH["scale"], CLOTH["height"],
+                                                CLOTH_TURN)])
+    advance(s, 11, False, counts)
+    launches["6c"] = read_launches()
+    counts = {k: int(v) for k, v in counts.items()}
+    print(f"  set-up and run {time.perf_counter() - t0:.2f} s: {lay.live_k} loose rows,"
+          f" {lay.lanes} lanes, {lay.a} neighbours per row at most; counters {counts}")
+    check(not s.sim_failed and lay.kp == 0, "a pure-loose layout, no sim_failed (no latch)")
+    n_cloth = s._builder.num_nodes
+    if counts["contacts"] == 0:
+        check(torch.equal(s.state.positions[:n_cloth], cloth_off),
+              "no contact: positions equal to the collisions-off run's (tolerance 0)")
+    else:
+        d = float((s.state.positions[:n_cloth] - cloth_off).abs().max())
+        print(f"  {counts['contacts']} contacts: max |dx| against the collisions-off run {d:.3e}")
+    check(all(launches["6c"][n] > 0 for n in loose_path + ["constraint_rows", "shape_match"]),
+          f"every kernel of the path launched: {launches['6c']}")
+    hold_loose(s, 0.9)
+    del s, cloth_off
+
+    # ---- phase 8
+    print(f"phase 8: 40 ticks of a small mixed scene ({n_small} tets, a {small_sheet} x"
+          f" {small_sheet} sheet at y = 2.2), kernels against twins")
+    runs, per_tick = [], []
+    for plain in (False, True):
+        s = pt.Solver(pt.SolverOptions(solver=PD), device=dev, allpairs_broadphase_max=0)
+        add_mixed_drape(s, n_small, small_sheet, sheet_y=2.2)
+        counts = []
+        for _ in range(40):
+            c = pd.new_counters(dev)
+            advance(s, 1, plain, c)
+            counts.append(int(c["contacts"]))
+        check(not s.sim_failed, f"no sim_failed (plain={plain})")
+        runs.append(s.state.positions[: s._builder.num_nodes])
+        per_tick.append(counts)
+    check(per_tick[0] == per_tick[1] and sum(per_tick[0]) > 0,
+          f"contact counts equal on every tick: {per_tick[0]}")
+    d = float((runs[0] - runs[1]).abs().max())
+    check(d <= 1e-3, f"trajectories agree: max |dx| {d:.3e}")
+
     table = []
+    mixed_rows = {"super_broadphase": "super_broadphase",
+                  "super_narrowphase": "super_narrowphase",
+                  "assemble_force_contacts": "tet_force_nodes", "ell_matvec_band": "ell_matvec"}
     for name, r in rows.items():
-        if name.endswith("_cloth") or name in ("constraint_rows", "shape_match"):
+        if name in mixed_rows:
+            r["launches"] = launches["7"][mixed_rows[name]]
+        elif name.endswith("_cloth") or name in ("constraint_rows", "shape_match"):
             key = {"assemble_force_cloth": "tet_force_nodes", "ell_matvec_cloth": "ell_matvec",
                    "pcg_cloth": "pcg"}.get(name, name)
             r["launches"] = launches["6"][key]

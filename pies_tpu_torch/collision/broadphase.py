@@ -1,9 +1,11 @@
-"""Point-triangle detection on the packed-body layout (port of
-``pies_tpu/collision/broadphase.py:37-101,210-644,1271-1355,1641-1766``).
+"""Point-triangle detection on the packed-body and the super-body layouts
+(port of ``pies_tpu/collision/broadphase.py:37-101,210-644,647-1085,
+1271-1355,1641-1766``).
 
-Every collision body owns ``m`` contiguous nodes and ``e`` triangles with
-one local corner pattern (a tet of the soup: 4 nodes, 4 faces).  Detection
-runs in two kernels, each with a plain PyTorch twin here:
+On the packed-body layout every collision body owns ``m`` contiguous nodes
+and ``e`` triangles with one local corner pattern (a tet of the soup: 4
+nodes, 4 faces).  Detection runs in two kernels, each with a plain PyTorch
+twin here:
 
 * T5 :func:`body_broadphase` — the body grid and the temporal pair cache:
   swept body AABBs in cell units, the rebuild test against the cache, the
@@ -14,6 +16,16 @@ runs in two kernels, each with a plain PyTorch twin here:
   flagged) on every (body, slot) lane, the prox-first lane compaction,
   phase 2 (the coplanarity cubic) on compacted lanes with crossings, and the
   compaction and decode of the hit (corner, face) combos into contacts.
+
+The super-body layout covers any triangle scene (``StepConfig.super_*``): a
+packed prefix of such bodies and one "loose" row per remaining triangle,
+every row's corner nodes in the ``corners`` table.  The same two stages run
+as kernels T14 :func:`super_broadphase` (the query window absorbs the CCD
+margin, rows sharing a node are dropped through the static ``adj`` table
+before the prefilter, a truncated raw gather latches, and the cache's
+reference spans all nodes) and T15 :func:`super_narrowphase` (the static
+(corner, face) combos with their class masks, contacts decoded through
+``corners``).
 
 The JAX package's TPU workarounds are not ported (width tiers, forced
 transposes, one-hot lookups, ``optimization_barrier``); everything runs at
@@ -91,14 +103,23 @@ def packed(config: StepConfig) -> bool:
             and config.body_nodes > 0)
 
 
-def check_packed(config: StepConfig) -> None:
+def super_body(config: StepConfig) -> bool:
+    """Whether detection takes the super-body path (``broadphase.py:84``)."""
+    return config.broadphase_mode != "reference" and not packed(config) and config.super_k > 0
+
+
+def check_detection(config: StepConfig) -> None:
     """Raise for the detection branches that are not ported yet."""
-    if not packed(config):
+    if config.broadphase_mode == "reference":
         raise NotImplementedError(
-            "point-triangle detection off the packed-body layout (the super-body,"
-            " all-pairs, cell-list and reference broadphases) is ROADMAP queue 1"
-            " item 6"
-        )
+            "broadphase_mode='reference' (the quirk-faithful per-triangle sweep) is ROADMAP"
+            " queue 1 item 6b")
+    if not packed(config) and not super_body(config):
+        raise NotImplementedError(
+            "point-triangle detection off the packed-body and super-body layouts (the"
+            " all-pairs broadphase of scenes with at most allpairs_broadphase_max"
+            " triangles, the cell-list and per-body broadphases of scenes whose layout the"
+            " super-body detection refuses) is ROADMAP queue 1 item 6b")
 
 
 def body_layout(config: StepConfig, n_tris: int) -> BodyLayout:
@@ -158,18 +179,20 @@ def _insertion_slots(lo, hi, live):
     return coords, allowed & live[:, None]
 
 
-def _aabb_prefilter_pack(cand, valid, lo, hi, margin, exact_margin, narrow):
+def _aabb_prefilter_pack(cand, valid, lo, hi, margin, exact_margin, narrow,
+                         rows: slice = slice(None)):
     """Keep candidates whose AABBs overlap (inflated by ``margin``), exact
     overlaps (``exact_margin``) before slack-only ones, each tier by body id
     with duplicates dropped, into ``narrow`` slots (``broadphase.py:
-    1641-1766``).  Returns ``(packed, packed_valid, narrow_over,
+    1641-1766``).  ``cand`` and ``valid`` hold the rows ``rows`` of the
+    bounds ``lo``, ``hi``.  Returns ``(packed, packed_valid, narrow_over,
     exact_over)``; slots past the valid prefix hold 0."""
     k, b = cand.shape
     c = cand.long()
     a_lo, a_hi = lo[c], hi[c]
-    ov = valid & ((a_lo <= hi[:, None] + margin) & (a_hi >= lo[:, None] - margin)).all(-1)
-    ex = valid & ((a_lo <= hi[:, None] + exact_margin)
-                  & (a_hi >= lo[:, None] - exact_margin)).all(-1)
+    r_lo, r_hi = lo[rows][:, None], hi[rows][:, None]
+    ov = valid & ((a_lo <= r_hi + margin) & (a_hi >= r_lo - margin)).all(-1)
+    ex = valid & ((a_lo <= r_hi + exact_margin) & (a_hi >= r_lo - exact_margin)).all(-1)
     key = 2 - 2 * ex.long() - (ov & ~ex).long()
     srt = torch.sort(key * (1 << 32) + c, dim=1).values
     skey, sid = srt >> 32, srt & 0xFFFFFFFF
@@ -417,14 +440,19 @@ pt_narrowphase.launches = 0
 
 def detect_point_tri_collisions(x, prev, tri_mask, params: PhysicsParams, config: StepConfig,
                                 cache: BroadphaseCache | None = None,
-                                failed: torch.Tensor | None = None, plain: bool = False):
-    """Point-triangle contacts of one substep on the packed-body path
-    (``broadphase.py:37-101``).  With a cache of the scene's shape, it is
+                                failed: torch.Tensor | None = None, plain: bool = False,
+                                corners: torch.Tensor | None = None,
+                                adj: torch.Tensor | None = None):
+    """Point-triangle contacts of one substep on the packed-body path or,
+    with the scene's ``corners`` (and ``adj``) tables, the super-body path
+    (``broadphase.py:37-101``); the other branches raise.  With a cache of the scene's shape, it is
     used and updated in place; without one every call rebuilds (a fresh
     cache with zero slack gives exactly that).  Returns ``(pt_idx, pt_mask,
     pt_count, overflow, rebuilt)``; ``overflow`` and ``rebuilt`` are i32[1]
     device flags."""
-    check_packed(config)
+    check_detection(config)
+    if super_body(config):
+        return _detect_super(x, prev, params, config, cache, failed, plain, corners, adj)
     lay = body_layout(config, tri_mask.shape[0])
     if not (cache is not None and config.bp_cache
             and tuple(cache.pairs.shape) == (lay.k, lay.nb)):
@@ -436,4 +464,404 @@ def detect_point_tri_collisions(x, prev, tri_mask, params: PhysicsParams, config
               else (body_broadphase, pt_narrowphase))
     rebuilt = bf(x, prev, tri_mask, cache, lay, sc, overflow, failed)
     pt_idx, pt_mask, pt_count = nf(x, prev, tri_mask, cache, lay, sc, overflow, failed)
+    return pt_idx, pt_mask, pt_count, overflow, rebuilt
+
+
+# ---------------------------------------------------------------------------
+# the super-body layout: kernels T14 and T15
+
+
+@dataclass(frozen=True)
+class SuperLayout:
+    """The super-body shapes of a scene (``StepConfig.super_*``): ``k`` rows
+    of ``w`` corner slots, ``live_k`` of them live, the first ``kp`` packed
+    bodies; ``faces`` the local corner patterns of all face slots, the first
+    ``e_packed`` for packed candidates and slot ``loose_face`` for loose
+    ones; ``a`` shared-node neighbours per row (0 without the table); ``nb``
+    narrow slots, ``bmax`` raw candidates, ``cap`` contacts, a grid of ``h``
+    slots."""
+
+    k: int
+    kp: int
+    live_k: int
+    w: int
+    faces: tuple
+    e_packed: int
+    loose_face: int
+    a: int
+    nb: int
+    bmax: int
+    cells_cap: int
+    entries_cap: int
+    cap: int
+    h: int
+
+    @property
+    def lanes(self) -> int:
+        return self.k * self.nb
+
+    @property
+    def pcap(self) -> int:
+        return 2 * self.cap
+
+    @property
+    def entries(self) -> int:
+        return 8 * self.k
+
+    @property
+    def n_face(self) -> int:
+        return len(self.faces)
+
+    @property
+    def n_combo(self) -> int:
+        return self.w * self.n_face
+
+    def combos(self):
+        """The statically live (corner, face) combos with their class gates
+        (``broadphase.py:865-883``): ``(c, f, row_packed, cand)`` where
+        ``row_packed`` says the emitting row must be packed (a corner slot
+        past 2 beside loose rows) and ``cand`` is None, "packed" or "loose":
+        the class the candidate row must have for face slot ``f``."""
+        loose_exists = self.live_k > self.kp
+        out = []
+        for c in range(self.w):
+            if c >= 3 and not self.kp:
+                continue
+            row_packed = c >= 3 and loose_exists
+            for f in range(self.n_face):
+                p_ok = self.kp > 0 and f < self.e_packed
+                l_ok = loose_exists and f == self.loose_face
+                if not (p_ok or l_ok):
+                    continue
+                if p_ok and l_ok:
+                    cand = None
+                elif p_ok:
+                    cand = "packed" if loose_exists else None
+                else:
+                    cand = "loose" if self.kp else None
+                out.append((c, f, row_packed, cand))
+        return out
+
+    def combo_bits(self):
+        """The combos as four bit masks over ``c·n_face + f``: live, needing
+        a packed row, needing a packed candidate, needing a loose one."""
+        live = row_packed = cand_packed = cand_loose = 0
+        for c, f, rp, cand in self.combos():
+            bit = 1 << (c * self.n_face + f)
+            live |= bit
+            row_packed |= bit if rp else 0
+            cand_packed |= bit if cand == "packed" else 0
+            cand_loose |= bit if cand == "loose" else 0
+        return live, row_packed, cand_packed, cand_loose
+
+
+def super_layout(config: StepConfig, corners: torch.Tensor,
+                 adj: torch.Tensor | None) -> SuperLayout:
+    b = config.budget
+    k, kp = config.super_k, config.super_packed_k
+    w = config.super_packed_m if kp else 3
+    if tuple(corners.shape) != (k, w):
+        raise ValueError(f"corners must be [{k}, {w}], got {tuple(corners.shape)}")
+    if w * len(config.super_faces) > 32:
+        raise ValueError("the super-body path needs W·faces <= 32 combo bits")
+    if adj is not None and adj.shape[0] != k:
+        raise ValueError("adj must have one row per body row")
+    return SuperLayout(
+        k=k, kp=kp, live_k=config.super_live_k, w=w, faces=tuple(config.super_faces),
+        e_packed=config.super_packed_e, loose_face=config.super_loose_face,
+        a=0 if adj is None else adj.shape[1], nb=b.max_narrow_bodies,
+        bmax=b.max_candidates_per_body, cells_cap=b.max_cells_per_tri,
+        entries_cap=b.max_entries_per_cell, cap=b.max_point_tri_contacts,
+        h=table_size_for(2 * k),
+    )
+
+
+def _super_live(lay: SuperLayout, device) -> torch.Tensor:
+    return torch.arange(lay.k, dtype=torch.int32, device=device) < lay.live_k
+
+
+def super_broadphase_plain(x, prev, corners, adj, cache: BroadphaseCache, lay: SuperLayout,
+                           sc: Scalars, overflow: torch.Tensor,
+                           failed: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of kernel T14: the super-body broadphase with the temporal
+    cache (``broadphase.py:710-849``), in place on ``cache``; ORs the
+    capacity latch (oversize row, saturated bucket, exact-tier eviction,
+    truncated raw gather) into ``overflow`` i32[1].  Returns i32[1], 1 when
+    the pairs were rebuilt.  Nothing changes when latch slot 0 of ``failed``
+    is set."""
+    rebuilt = torch.zeros(1, dtype=torch.int32, device=x.device)
+    if failed is not None and bool(failed[0]):
+        return rebuilt
+    # A NaN displacement compares false, as jnp.max does.
+    disp = torch.maximum((x - cache.ref).abs().amax(), (prev - cache.ref).abs().amax())
+    if bool(cache.fresh[0]) and not bool(disp > sc.slack):
+        return rebuilt
+    rebuilt.fill_(1)
+
+    k = lay.k
+    # Padding corners repeat corner 0, so they never widen a row's box.
+    xb, pb = x[corners.long()], prev[corners.long()]
+    live = _super_live(lay, x.device)
+    lo = _div(torch.minimum(xb.amin(1), pb.amin(1)), sc.cell) - sc.slack_c
+    hi = _div(torch.maximum(xb.amax(1), pb.amax(1)), sc.cell) + sc.slack_c
+    lo = torch.where(live[:, None], lo, 0.0)
+    hi = torch.where(live[:, None], hi, 0.0)
+    size_over = bool((((hi - lo) > sc.size_limit).any(-1) & live).any())
+
+    ins_coords, ins_valid = _insertion_slots(lo, hi, live)
+    grid = build_grid(ins_coords, ins_valid, lay.h)
+    # The window absorbs the margin on both sides (broadphase.py:745-756).
+    q_coords, q_valid, _ = aabb_cell_slots(lo - sc.margin - 1.0, hi + sc.margin,
+                                           lay.cells_cap, QUERY_RANGE_CAP)
+    start, offsets, total, gather_over = query_buckets(grid, q_coords, q_valid & live[:, None],
+                                                       lay.entries_cap)
+    trunc_over = bool(((total > lay.bmax) & live).any())
+    narrow_over = exact_over = False
+    own = torch.arange(k, dtype=torch.int32, device=x.device)[:, None]
+    # Rows are independent from here on: blocks of rows keep the [rows, 512]
+    # intermediates of a large scene small.
+    for r0 in range(0, k, SUPER_TWIN_ROWS):
+        rows = slice(r0, min(r0 + SUPER_TWIN_ROWS, k))
+        cand, valid = gather_entries(grid, start[rows], offsets[rows], total[rows], lay.bmax)
+        cand = torch.clamp_max(cand, k - 1)
+        valid = valid & (cand != own[rows])
+        if adj is not None:
+            for a in range(adj.shape[1]):
+                valid = valid & (cand != adj[rows, a][:, None])
+        pairs, pvalid, n_over, e_over = _aabb_prefilter_pack(
+            cand, valid, lo, hi, sc.margin, sc.exact_margin, lay.nb, rows)
+        cache.pairs[rows] = pairs
+        cache.valid[rows] = pvalid.to(torch.int32)
+        narrow_over, exact_over = narrow_over or n_over, exact_over or e_over
+    cache.ref.copy_(x)
+    cache.fresh.fill_(0 if narrow_over else 1)
+    if size_over or bool((gather_over & live).any()) or exact_over or trunc_over:
+        overflow.fill_(1)
+    return rebuilt
+
+
+SUPER_TWIN_ROWS = 1 << 16  # rows the plain twin gathers and packs at a time
+SUPER_MAX_RAW = 512  # kMaxRaw of kernels/csrc/super_broadphase.cu
+SUPER_MAX_CELLS = 64  # kMaxCells
+SUPER_MAX_ADJ = 64  # kMaxAdj
+SUPER_FLAGS = ("exceed", "nan", "size_over", "gather_over", "narrow_over", "exact_over",
+               "rebuild", "trunc_over")
+
+
+def super_broadphase(x, prev, corners, adj, cache: BroadphaseCache, lay: SuperLayout,
+                     sc: Scalars, overflow: torch.Tensor,
+                     failed: torch.Tensor | None = None, flags_out: list | None = None):
+    """Kernel T14 on CUDA tensors, :func:`super_broadphase_plain` on CPU
+    tensors (same arguments and result).  On the card ``failed`` is
+    required; ``flags_out``, when given, receives the kernel's flag words
+    i32[8] (``SUPER_FLAGS``: which latch fired)."""
+    if kernels.on_cpu(x):
+        return super_broadphase_plain(x, prev, corners, adj, cache, lay, sc, overflow, failed)
+    if failed is None:
+        raise ValueError("the broadphase kernel needs the failure latch")
+    if (lay.bmax > SUPER_MAX_RAW or lay.cells_cap > SUPER_MAX_CELLS or lay.a > SUPER_MAX_ADJ
+            or lay.w > 8):
+        raise ValueError(
+            f"the super-body broadphase kernel takes at most {SUPER_MAX_RAW} raw candidates,"
+            f" {SUPER_MAX_CELLS} query cells, {SUPER_MAX_ADJ} neighbours and 8 corners per row")
+    dev = x.device
+    n = x.shape[0]
+    if tuple(cache.ref.shape) != (n, 3) or tuple(cache.pairs.shape) != (lay.k, lay.nb):
+        raise ValueError("the cache does not have the scene's super-body shapes")
+    kernels.require(dev, x, prev, corners, adj, cache.pairs, cache.valid, cache.ref,
+                    cache.fresh, overflow, failed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    # Scratch of a rebuild; the kernel zeroes the counts and cursors itself,
+    # and only when it rebuilds.
+    count = torch.empty(lay.h, **i32)
+    cursor = torch.empty(lay.h, **i32)
+    start = torch.empty(lay.h + 1, **i32)
+    partial = torch.empty(kernels.scan_partials(lay.h), **i32)
+    entries = torch.empty(lay.entries, **i32)
+    bounds = torch.empty((2, lay.k, 3), dtype=torch.float32, device=dev)
+    flags = torch.zeros(8, **i32)
+    err = kernels.lib().pies_super_broadphase(
+        x.data_ptr(), prev.data_ptr(), corners.data_ptr(), kernels.ptr(adj),
+        cache.pairs.data_ptr(), cache.valid.data_ptr(), cache.ref.data_ptr(),
+        cache.fresh.data_ptr(), count.data_ptr(), cursor.data_ptr(), start.data_ptr(),
+        partial.data_ptr(), entries.data_ptr(), bounds.data_ptr(), flags.data_ptr(),
+        overflow.data_ptr(), failed.data_ptr(), n, lay.k, lay.live_k, lay.w, lay.a, lay.nb,
+        lay.bmax, lay.cells_cap, lay.entries_cap, lay.h,
+        int(lay.entries >= PACKED_MAX_ENTRIES), sc.cell, sc.slack, sc.slack_c, sc.margin,
+        sc.exact_margin, sc.size_limit, kernels.stream(),
+    )
+    kernels.check(err, "super_broadphase")
+    super_broadphase.launches += 1
+    if flags_out is not None:
+        flags_out.append(flags)
+    return flags[6:7]  # kRebuild
+
+
+super_broadphase.launches = 0
+
+
+def super_narrowphase_plain(x, prev, corners, cache: BroadphaseCache, lay: SuperLayout,
+                            sc: Scalars, overflow: torch.Tensor,
+                            failed: torch.Tensor | None = None, stats: dict | None = None):
+    """Plain twin of kernel T15: the narrowphase of the cached row pairs at
+    the current positions (``broadphase.py:850-1085``).  Returns ``(pt_idx
+    i32[cap, 4], pt_mask f32[cap], pt_count i32[1])`` with the live contacts
+    a packed prefix; ORs the proximity-lane eviction latch into
+    ``overflow``.  ``stats``, when given, receives the work counts: live
+    lanes, compacted lanes, crossing combos solved by the cubic, and
+    contacts before the cap."""
+    dev = x.device
+    k, w, nb, cap, kp, nf = lay.k, lay.w, lay.nb, lay.cap, lay.kp, lay.n_face
+    pt_idx = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
+    pt_mask = torch.zeros(cap, dtype=torch.float32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    if failed is not None and bool(failed[0]):
+        return pt_idx, pt_mask, count
+    cl = corners.long()
+    xb, pb = x[cl], prev[cl]
+    live = _super_live(lay, dev)
+    own = torch.arange(k, dtype=torch.int32, device=dev)[:, None]
+    ok = ((cache.valid > 0) & (cache.pairs != own) & live[:, None]).reshape(-1)
+    other = cache.pairs.reshape(-1).long()
+    gates = {None: ok, "packed": ok & (other < kp), "loose": ok & (other >= kp)}
+    row_packed = (own < kp).expand(k, nb).reshape(-1)
+    combos = lay.combos()
+
+    # Phase 1 on every lane, face-major, over the statically live combos.
+    o_prev, o_now = pb[other], xb[other]
+    own_prev = [_cols(pb[:, c].repeat_interleave(nb, 0)) for c in range(w)]
+    own_now = [_cols(xb[:, c].repeat_interleave(nb, 0)) for c in range(w)]
+    bits_prox = torch.zeros(k * nb, dtype=torch.int64, device=dev)
+    bits_cross = torch.zeros_like(bits_prox)
+    for f in sorted({f for _, f, _, _ in combos}):
+        i0, i1, i2 = lay.faces[f]
+        f_combos = [cm for cm in combos if cm[1] == f]
+        b0, b1 = _cols(o_prev[:, i0]), _cols(o_now[:, i0])
+        per_corner = point_triangle_phase1_face(
+            b0, _sub_c(_cols(o_prev[:, i1]), b0), _sub_c(_cols(o_prev[:, i2]), b0),
+            b1, _sub_c(_cols(o_now[:, i1]), b1), _sub_c(_cols(o_now[:, i2]), b1),
+            [own_prev[c] for c, _, _, _ in f_combos], [own_now[c] for c, _, _, _ in f_combos],
+            sc.thr)
+        for (c, _, rp, cand), (prox, crossing) in zip(f_combos, per_corner):
+            mok = gates[cand] & row_packed if rp else gates[cand]
+            bits_prox |= (prox & mok).long() << (c * nf + f)
+            bits_cross |= (crossing & mok).long() << (c * nf + f)
+
+    # Proximity lanes first, then crossing-only lanes, each by lane id.
+    key = torch.where(bits_prox > 0, 0, torch.where(bits_cross > 0, 1, 2))
+    order = torch.sort(key, stable=True).indices
+    pcap_eff = min(lay.pcap, k * nb)
+    n_live = min(int((key < 2).sum()), pcap_eff)
+    if int((bits_prox > 0).sum()) > pcap_eff:
+        overflow.fill_(1)
+    lane = order[:n_live]
+    prox_c, cross_c = bits_prox[lane], bits_cross[lane]
+
+    # Phase 2: the cubic, only for the crossing combos of compacted lanes.
+    bits_ccd = torch.zeros_like(prox_c)
+    sel = torch.nonzero(cross_c > 0).reshape(-1)
+    if sel.numel():
+        ln = lane[sel]
+        bo, ot = ln // nb, other[ln]
+        own_p, own_n, oth_p, oth_n = pb[bo], xb[bo], pb[ot], xb[ot]
+        cs = cross_c[sel]
+        acc = torch.zeros_like(cs)
+        for c, f, _, _ in combos:
+            i0, i1, i2 = lay.faces[f]
+            ap0c, ap1c = _cols(own_p[:, c]), _cols(own_n[:, c])
+            b0, b1 = _cols(oth_p[:, i0]), _cols(oth_n[:, i0])
+            hit, _ = point_triangle_ccd_cols(
+                _sub_c(ap0c, b0), _sub_c(_cols(oth_p[:, i1]), b0),
+                _sub_c(_cols(oth_p[:, i2]), b0), _sub_c(ap1c, b1),
+                _sub_c(_cols(oth_n[:, i1]), b1), _sub_c(_cols(oth_n[:, i2]), b1), sc.thr)
+            sh = c * nf + f
+            need = ((cs >> sh) & 1) > 0
+            acc |= (hit & need).long() << sh
+        bits_ccd[sel] = acc
+    pbits = prox_c | bits_ccd
+
+    # Hit combos in (lane, combo) order into the contact buffer, decoded
+    # through the corner table.
+    n_combo = lay.n_combo
+    combo_hit = (pbits[:, None] >> torch.arange(n_combo, device=dev)[None, :]) & 1
+    hits = torch.nonzero(combo_hit.reshape(-1) > 0).reshape(-1)[:cap]
+    n = hits.numel()
+    if stats is not None:
+        ones = [bin(v).count("1") for v in cross_c.tolist()]
+        stats.update(live_lanes=int(ok.sum()), compacted_lanes=n_live,
+                     cross_combos=sum(ones), contacts=int(combo_hit.sum()))
+    if n:
+        slot, combo = hits // n_combo, hits % n_combo
+        ln = lane[slot]
+        b, ot = ln // nb, other[ln]
+        c, f = combo // nf, combo % nf
+        faces = torch.tensor(lay.faces, dtype=torch.int64, device=dev)
+        pt_idx[:n, 0] = corners[b, c]
+        pt_idx[:n, 1:] = torch.gather(corners[ot], 1, faces[f]).to(torch.int32)
+        pt_mask[:n] = 1.0
+    count.fill_(n)
+    return pt_idx, pt_mask, count
+
+
+def super_narrowphase(x, prev, corners, cache: BroadphaseCache, lay: SuperLayout, sc: Scalars,
+                      overflow: torch.Tensor, failed: torch.Tensor | None = None):
+    """Kernel T15 on CUDA tensors, :func:`super_narrowphase_plain` on CPU
+    tensors (same arguments and results).  On the card the count stays on
+    the device and ``failed`` is required."""
+    if kernels.on_cpu(x):
+        return super_narrowphase_plain(x, prev, corners, cache, lay, sc, overflow, failed)
+    if failed is None:
+        raise ValueError("the narrowphase kernel needs the failure latch")
+    if lay.w > 8 or lay.n_combo > 32:
+        raise ValueError("the narrowphase kernel takes W <= 8 and W·faces <= 32")
+    dev = x.device
+    kernels.require(dev, x, prev, corners, cache.pairs, cache.valid, overflow, failed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    lanes, pcap, cap = lay.lanes, lay.pcap, lay.cap
+    if lanes >= 1 << 31:
+        raise ValueError("the narrowphase kernel takes fewer than 2^31 lanes")
+    bits = torch.empty((2, lanes), **i32)
+    pair_buf = torch.empty(pcap, **i32)
+    pbits = torch.empty(pcap, **i32)
+    partial = torch.empty(kernels.scan_partials(lanes) + kernels.scan_partials(pcap),
+                          dtype=torch.int64, device=dev)
+    totals = torch.zeros(4, dtype=torch.int64, device=dev)
+    faces = torch.tensor(lay.faces, **i32)
+    masks = [m if m < 1 << 31 else m - (1 << 32) for m in lay.combo_bits()]
+    pt_idx = torch.empty((cap, 4), **i32)
+    pt_mask = torch.empty(cap, dtype=torch.float32, device=dev)
+    pt_count = torch.empty(1, **i32)
+    err = kernels.lib().pies_super_narrowphase(
+        x.data_ptr(), prev.data_ptr(), corners.data_ptr(), cache.pairs.data_ptr(),
+        cache.valid.data_ptr(), faces.data_ptr(), bits.data_ptr(), pair_buf.data_ptr(),
+        pbits.data_ptr(), partial.data_ptr(), totals.data_ptr(), pt_idx.data_ptr(),
+        pt_mask.data_ptr(), pt_count.data_ptr(), overflow.data_ptr(), failed.data_ptr(),
+        lay.k, lay.kp, lay.live_k, lay.w, lay.n_face, lay.nb, cap, *masks, sc.thr,
+        kernels.stream(),
+    )
+    kernels.check(err, "super_narrowphase")
+    super_narrowphase.launches += 1
+    return pt_idx, pt_mask, pt_count
+
+
+super_narrowphase.launches = 0
+
+
+def _detect_super(x, prev, params: PhysicsParams, config: StepConfig,
+                  cache: BroadphaseCache | None, failed, plain: bool, corners, adj):
+    """The super-body branch of :func:`detect_point_tri_collisions`."""
+    if corners is None:
+        raise ValueError("the super-body detection needs the scene's corner table")
+    lay = super_layout(config, corners, adj)
+    if not (cache is not None and config.bp_cache
+            and tuple(cache.pairs.shape) == (lay.k, lay.nb)
+            and cache.ref.shape[0] == x.shape[0]):
+        cache = empty_broadphase_cache(lay.k, lay.nb, x.shape[0], x.device)
+        params = dataclasses.replace(params, broadphase_slack=0.0)
+    sc = scalars(params)
+    overflow = torch.zeros(1, dtype=torch.int32, device=x.device)
+    bf, nf = ((super_broadphase_plain, super_narrowphase_plain) if plain
+              else (super_broadphase, super_narrowphase))
+    rebuilt = bf(x, prev, corners, adj, cache, lay, sc, overflow, failed)
+    pt_idx, pt_mask, pt_count = nf(x, prev, corners, cache, lay, sc, overflow, failed)
     return pt_idx, pt_mask, pt_count, overflow, rebuilt

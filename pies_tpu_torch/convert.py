@@ -88,9 +88,10 @@ def groups_from_numpy(g) -> GroupBatch:
 def topology_from_numpy(topo, device="cpu", tet_fused: bool = True) -> Topology:
     """The port's topology from a JAX ``Topology`` with NumPy leaves (the
     ported fields only), for a scene with the JAX ``StepConfig.tet_fused``
-    given.  Unless the live tets are banded, the static weight, the
-    assembled operator and the row incidence are built here as the port's
-    host builds them."""
+    given.  The static weight, the assembled operator and the row
+    incidence are built here as the port's host builds them; a banded
+    soup's seven diagonals ``tet_band`` and the super-body tables
+    ``super_corners`` and ``super_adj`` are the JAX arrays."""
 
     def tets(b):
         return TetBatch(idx=np.asarray(b.idx), qinv=np.asarray(b.qinv), g=np.asarray(b.g),
@@ -104,6 +105,12 @@ def topology_from_numpy(topo, device="cpu", tet_fused: bool = True) -> Topology:
     bend = BendBatch(idx=np.asarray(b.idx), rest_angle=np.asarray(b.rest_angle),
                      w=np.asarray(b.w))
     shape, goal = groups_from_numpy(topo.shape), groups_from_numpy(topo.goal)
+    generic = generic_fields(n, strain=strain, volume=volume, position=position,
+                             distance=distance, bend=bend, shape=shape, goal=goal,
+                             tet_fused=tet_fused)
+    if "tet_band" in generic:  # (the JAX package has one for every scene)
+        generic["tet_band"] = np.asarray(topo.tet_band)
+    opt = lambda a: None if a is None else np.asarray(a)
     return to_device(
         Topology(
             strain=strain,
@@ -115,9 +122,9 @@ def topology_from_numpy(topo, device="cpu", tet_fused: bool = True) -> Topology:
             position_force_dense=topo.position_force_dense,
             triangles=topo.triangles,
             tri_mask=topo.tri_mask,
-            **generic_fields(n, strain=strain, volume=volume, position=position,
-                             distance=distance, bend=bend, shape=shape, goal=goal,
-                             tet_fused=tet_fused),
+            **generic,
+            super_corners=opt(getattr(topo, "super_corners", None)),
+            super_adj=opt(getattr(topo, "super_adj", None)),
             distance=distance,
             bend=bend,
             shape=shape,

@@ -29,6 +29,9 @@ wrappers that call them sit beside their plain PyTorch twins:
   ``constraints/projections.py:distance_rows``, ``bend_rows``
 * T13 ``pies_shape_rows``, ``pies_goal_rows`` —
   ``constraints/projections.py:shape_rows``, ``goal_rows``
+* T14 ``pies_super_broadphase`` — ``collision/broadphase.py:super_broadphase``
+* T15 ``pies_super_narrowphase`` —
+  ``collision/broadphase.py:super_narrowphase``
 
 Each source compiles to an object in its own ``nvcc`` process, all started
 together, and the objects link into one library.
@@ -69,12 +72,14 @@ SIGNATURES = {
     "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F] + [_P] * 6,
     "pies_body_broadphase": [_P] * 16 + [_I] * 10 + [_F] * 6 + [_P],
     "pies_pt_narrowphase": [_P] * 16 + [_I] * 6 + [_F, _P],
-    "pies_pt_coupling_setup": [_P] * 14 + [_I, _I, _F, _P],
+    "pies_pt_coupling_setup": [_P] * 15 + [_I, _I, _F, _P],
+    "pies_super_broadphase": [_P] * 17 + [_I] * 11 + [_F] * 6 + [_P],
+    "pies_super_narrowphase": [_P] * 16 + [_I] * 11 + [_F, _P],
     "pies_pt_force": [_P] * 9 + [_I, _I, _F, _P],
     "pies_pt_tail": [_P] * 16 + [_I, _I, _I] + [_F] * 6 + [_P],
     "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P, _P],
-    "pies_assemble_force": [_P] * 9 + [_I, _F, _P, _P],
-    "pies_ell_matvec": [_P] * 7 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F, _P],
+    "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 6,
+    "pies_ell_matvec": [_P] * 8 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F, _P],
     "pies_cg_init": [_P] * 12 + [_I, _P, _P],
     "pies_cg_update": [_P] * 12 + [_I] * 3 + [_F, _P, _P],
     "pies_cg_direction": [_P] * 5 + [_I] * 3 + [_F, _P, _P],

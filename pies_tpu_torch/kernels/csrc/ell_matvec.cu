@@ -11,11 +11,15 @@
 // and the strain + volume sum acc = sum_m coef[:, m] x[nbr[:, m]] in slot
 // order (:503-512, and :397 _tet_ata_flat where no ELL exists); and the
 // p.Ap reduction of pies_tpu/solver/assembly.py:701 pcg_solve, fused as a
-// per-block partial (cg_reduce.cuh).
+// per-block partial (cg_reduce.cuh).  On a banded (element-major) tet soup
+// the tets are not in the assembled operator: their w G^T G is the seven
+// diagonals `band` f32[7, N] of :493-502 (tet_band), applied as
+// sum_d band[3 + d][i] x[i + d] with the wrap-around of jnp.roll, in the JAX
+// order: the diagonal, then for d = 1, 2, 3 the +d term and the -d term.
 //
-// static_diag is the floor weight wf of kernel T3 (W_STATIC * count *
-// active); the JAX package adds a zero point-triangle diagonal to it when
-// self-contact is off, which changes nothing.
+// static_diag (`wf`) is the floor weight of kernel T3 (W_STATIC * count *
+// active), with the point-triangle contacts' diagonal added by kernel T7
+// where contacts are live (recentered coupling, :466-469).
 //
 // The operator is ELL, slot-major ([m, N], so that neighbouring threads
 // read neighbouring words; m = 0 for a scene with diagonal terms only),
@@ -41,6 +45,7 @@ __global__ void __launch_bounds__(pies::kCgBlock)
                       const float* __restrict__ mass,
                       const float* __restrict__ wf,
                       const float* __restrict__ static_w,
+                      const float* __restrict__ band,
                       const int* __restrict__ row_start,
                       const int* __restrict__ nbr,
                       const float* __restrict__ coef, int m,
@@ -90,6 +95,25 @@ __global__ void __launch_bounds__(pies::kCgBlock)
 #pragma unroll
       for (int d = 0; d < 3; ++d) yi[d] = yi[d] + pw * xi[d];
     }
+    if (band != nullptr) {
+      float bacc[3];
+      const float b0 = band[(size_t)3 * n + i];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) bacc[d] = b0 * xi[d];
+      for (int dd = 1; dd <= 3; ++dd) {
+        const int up = i + dd < n ? i + dd : i + dd - n;
+        const int dn = i - dd >= 0 ? i - dd : i - dd + n;
+        const float bu = band[(size_t)(3 + dd) * n + i];
+        const float bd = band[(size_t)(3 - dd) * n + i];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          bacc[d] = bacc[d] + bu * x[(size_t)up * 3 + d];
+          bacc[d] = bacc[d] + bd * x[(size_t)dn * 3 + d];
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) yi[d] = yi[d] + bacc[d];
+    }
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       yi[d] = yi[d] + acc[d];
@@ -107,9 +131,11 @@ __global__ void __launch_bounds__(pies::kCgBlock)
 
 // y = A x; with `part` non-null also the per-block partials of x.y.  With
 // `trips` non-null the launch is CG trip `trip` and is gated (cg_reduce.cuh).
-// With `row_start` non-null the operator is CSR, else ELL of width m.
+// With `row_start` non-null the operator is CSR, else ELL of width m; with
+// `band` non-null the seven tet diagonals are applied before it.
 extern "C" int pies_ell_matvec(const float* x, const float* mass,
                                const float* wf, const float* static_w,
+                               const float* band,
                                const int* row_start, const int* nbr,
                                const float* coef, int m,
                                float* y, float* part, int n, float h2,
@@ -121,11 +147,11 @@ extern "C" int pies_ell_matvec(const float* x, const float* mass,
     pies::CgGate gate{trips, prz, prz0, blocks, trip, early_exit, rtol2};
     if (row_start != nullptr)
       ell_matvec_kernel<true><<<blocks, pies::kCgBlock, 0, (cudaStream_t)stream>>>(
-          x, mass, wf, static_w, row_start, nbr, coef, m, y, part, n, h2,
+          x, mass, wf, static_w, band, row_start, nbr, coef, m, y, part, n, h2,
           failed, gate);
     else
       ell_matvec_kernel<false><<<blocks, pies::kCgBlock, 0, (cudaStream_t)stream>>>(
-          x, mass, wf, static_w, row_start, nbr, coef, m, y, part, n, h2,
+          x, mass, wf, static_w, band, row_start, nbr, coef, m, y, part, n, h2,
           failed, gate);
   }
   return (int)cudaGetLastError();

@@ -13,7 +13,10 @@
 //      order in which the JAX package's CPU scatter of idx.T.reshape(-1)
 //      adds, so every per-node sum below is that sum, with no float atomic;
 //  (b) per leader: ptd = sum of w*mask*AtA[a][a] and the diagonal
-//      ((m/h^2 + stiffness) + ptd) + floor, the JAX order.
+//      ((m/h^2 + stiffness) + ptd) + floor, the JAX order; for the generic
+//      path also the operator's dense diagonal floor + ptd (solver/pd.py:
+//      81-99 static_diag), into an array the wrapper preset to the floor
+//      weight.
 // Per PD iteration (pies_pt_force): per leader, each incident contact's
 // point push-out from the current iterate (recomputed per incident node, a
 // contact has 4) and sum of (w*mask*AtA[a][0]) * delta; T2 then adds
@@ -48,6 +51,7 @@ struct Pc {
   int* entries;
   int* nodes;
   float* ptd;
+  float* static_diag;  // may be null
   const int* failed;
   int n, cap;
   float h2;
@@ -108,6 +112,7 @@ __global__ void __launch_bounds__(pies::kBlock) pc_node_kernel(Pc p) {
   }
   p.ptd[node] = acc;
   p.diag[node] = ((p.mass[node] / p.h2 + p.stiffness[node]) + acc) + p.wf[node];
+  if (p.static_diag != nullptr) p.static_diag[node] = p.wf[node] + acc;
 }
 
 struct Pf {
@@ -170,12 +175,12 @@ __global__ void __launch_bounds__(pies::kBlock) pc_force_kernel(Pf p) {
 extern "C" int pies_pt_coupling_setup(
     const int* pt_idx, const float* pt_mask, const int* pt_count, const float* mass,
     const float* stiffness, const float* wf, float* diag, int* deg, int* row_start,
-    int* partial, int* entries, int* nodes, float* ptd, const int* failed, int n,
-    int cap, float h2, void* stream) {
+    int* partial, int* entries, int* nodes, float* ptd, float* static_diag,
+    const int* failed, int n, int cap, float h2, void* stream) {
   if (n > 0 && cap > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     Pc p{pt_idx, pt_mask, pt_count, mass, stiffness, wf, diag, deg, row_start,
-         entries, nodes, ptd, failed, n, cap, h2};
+         entries, nodes, ptd, static_diag, failed, n, cap, h2};
     const int blocks = pies::tiles(4 * cap);
     pc_degree_kernel<<<blocks, pies::kBlock, 0, s>>>(p);
     pies::exclusive_scan_i32(deg, row_start, n, partial, s, pt_count);

@@ -25,7 +25,10 @@
 // them; the node -> row incidence (topology.row_incidence) fixes it, so
 // there are no float atomics and kernel and twin agree bit for bit.  (In
 // the JAX package the pin force is added after the distance rows; here it
-// comes first, folded into the start value.)
+// comes first, folded into the start value.)  With point-triangle contacts
+// under recentered coupling (:288-303) a node with contact entries then adds
+// kernel T7's contact force and the lag term ptd * x, in that order, before
+// the floor term; the arrays are read nowhere else.
 //
 // Bound: device memory.  The function needs the tet ids and 27 parameter
 // floats per tet (124 B; ~77 MB at 622,938 tets) and 52 B per node (x, msn
@@ -80,7 +83,11 @@ __global__ void __launch_bounds__(256)
                           const int* __restrict__ entries,
                           const float* __restrict__ blocks,
                           float* __restrict__ force, float* __restrict__ stat,
-                          int n, float plane, const int* __restrict__ failed) {
+                          int n, float plane, const int* __restrict__ failed,
+                          const float* __restrict__ ptd,
+                          const float* __restrict__ contact,
+                          const int* __restrict__ pt_start,
+                          const int* __restrict__ pt_count) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (failed[0] != 0) return;
@@ -95,6 +102,14 @@ __global__ void __launch_bounds__(256)
     const size_t k = (size_t)entries[e] * 3;
 #pragma unroll
     for (int d = 0; d < 3; ++d) f[d] = f[d] + blocks[k + d];
+  }
+  if (ptd != nullptr && pt_count[0] > 0 && pt_start[i + 1] > pt_start[i]) {
+    const float pd = ptd[i];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const size_t j = (size_t)i * 3 + d;
+      f[d] = (f[d] + contact[j]) + pd * x[j];
+    }
   }
   const float w = wf[i];
   const float y = x[(size_t)i * 3 + 1];
@@ -131,13 +146,15 @@ extern "C" int pies_assemble_force(const float* x, const float* msn,
                                    const int* row_start, const int* entries,
                                    const float* blocks, float* force,
                                    float* stat, int n, float plane,
-                                   const int* failed, void* stream) {
+                                   const int* failed, const float* ptd,
+                                   const float* contact, const int* pt_start,
+                                   const int* pt_count, void* stream) {
   if (n > 0) {
     const int threads = 256;
     assemble_force_kernel<<<(n + threads - 1) / threads, threads, 0,
                             (cudaStream_t)stream>>>(
         x, msn, pin, wf, row_start, entries, blocks, force, stat, n, plane,
-        failed);
+        failed, ptd, contact, pt_start, pt_count);
   }
   return (int)cudaGetLastError();
 }

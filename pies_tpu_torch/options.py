@@ -97,6 +97,23 @@ class StepConfig:
     body_nodes: int = 0
     body_node_offset: int = 0
     body_faces: tuple = ()
+    # Super-body layout, set by the host for a triangle scene without an
+    # all-covering uniform body stride (``super_k == 0`` disables): rows
+    # ``0 .. super_packed_k−1`` are a uniform packed prefix
+    # (``super_packed_m`` contiguous nodes each from ``super_packed_off``),
+    # every other live row is one "loose" triangle with explicit corner ids
+    # (``Topology.super_corners``, padded to the packed corner width).
+    super_k: int = 0  # body rows, padding included
+    super_packed_k: int = 0
+    super_packed_m: int = 0
+    super_packed_off: int = 0
+    super_live_k: int = 0  # live rows (packed + loose)
+    # Local corner patterns of every face slot: the first ``super_packed_e``
+    # are the packed bodies' faces, slot ``super_loose_face`` (the (0, 1, 2)
+    # pattern; −1 without loose rows) is a loose row's single face.
+    super_faces: tuple = ()
+    super_packed_e: int = 0
+    super_loose_face: int = -1
     # Temporal broadphase cache (state.BroadphaseCache), when the host
     # allocated one.
     bp_cache: bool = True

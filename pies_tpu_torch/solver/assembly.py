@@ -1,6 +1,8 @@
 """PD global system: diagonals, and the generic path's local step, force,
 operator and Jacobi-PCG (port of ``pies_tpu/solver/assembly.py:72-335,
-338-368,448-556,577-599,656-725`` for the ported scenes).
+338-368,448-556,577-599,656-725`` for the ported scenes), with the
+recentered point-triangle coupling: the contacts' diagonal in the operator
+and the preconditioner, their force and lag term in the right-hand side.
 
 The tet-column path solves its 4x4 blocks directly and needs only the
 diagonals.  The generic path, for every other scene, runs per PD iteration:
@@ -12,7 +14,8 @@ diagonals.  The generic path, for every other scene, runs per PD iteration:
   node's rows, in the JAX scatters' order) + w_f·p_static`` and the static
   projection;
 * T10 :func:`apply_system` — ``(M/h² + w_f)·x + static_w·x + Σ coef·x[nbr]``
-  over the assembled operator (ELL, or CSR for very wide rows);
+  over the assembled operator (ELL, or CSR for very wide rows), with a
+  banded soup's tets as seven diagonals before it;
 * T11 :func:`pcg_solve` — the Jacobi-PCG with the JAX package's trip cap
   and early exit, each trip one T10 launch and two T11 launches.
 
@@ -132,25 +135,35 @@ def local_step(x, inv_mass, mass, quats, topo: Topology, rotation_iterations: in
 
 
 def assemble_force_plain(x, msn_h2, wf, blocks, topo: Topology, plane: float,
-                         failed=None):
+                         failed=None, pt=None):
     """Plain twin of T9's stage 2.  ``x`` f32[N, 3] is the iterate, ``msn_h2``
     its ``M·sₙ/h²``, ``wf`` f32[N] the floor weight, ``blocks`` f32[R, 3]
-    the local step's force rows.  Returns ``(force, static)`` f32[N, 3]: the
-    right side ``((msn + pin force) + Σ the node's rows) + wf·static`` and
-    the floor projection ``static = (x, max(y, plane), z)``.  ``failed`` is
-    accepted for signature parity."""
+    the local step's force rows.  ``pt`` (or None) is ``(ptd f32[N], contact
+    f32[N, 3], row_start i32[N+1], pt_count i32[1])``, the recentered
+    point-triangle coupling (``assembly.py:288-303``): when contacts are
+    live, each node with contact entries adds ``contact`` (its sum of
+    ``w·AᵀA[:, 0]·delta``) and then ``ptd·x`` (elsewhere both are exact
+    zeros, and the arrays there are not read).  Returns ``(force, static)``
+    f32[N, 3]: the right side ``(((msn + pin force) + Σ the node's rows) +
+    contact + ptd·x) + wf·static`` and the floor projection ``static = (x,
+    max(y, plane), z)``.  ``failed`` is accepted for signature parity."""
     f = msn_h2 + topo.position_force_dense if _pins(topo) else msn_h2
     f = csr_sum(topo.row_inc, blocks, f)
+    if pt is not None:
+        ptd, contact, row_start, pt_count = pt
+        on = ((row_start[1:] > row_start[:-1]) & (pt_count[0] > 0))[:, None]
+        f = torch.where(on, (f + contact) + ptd[:, None] * x, f)
     y = x[:, 1]
     static = torch.stack([x[:, 0], torch.where(y < plane, plane, y), x[:, 2]], dim=1)
     return f + wf[:, None] * static, static
 
 
-def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=None):
+def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=None,
+                   pt=None):
     """T9's stage 2 on CUDA tensors, :func:`assemble_force_plain` on CPU
     tensors.  On the card ``failed`` is required."""
     if kernels.on_cpu(x):
-        return assemble_force_plain(x, msn_h2, wf, blocks, topo, plane, failed)
+        return assemble_force_plain(x, msn_h2, wf, blocks, topo, plane, failed, pt)
     if failed is None:
         raise ValueError("the force kernel needs the failure latch")
     inc = topo.row_inc
@@ -160,13 +173,16 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
         raise ValueError("pin force must be dense over the capacity")
     if inc.row_start.shape[0] != n + 1 or blocks.shape[0] != inc.entries.shape[0]:
         raise ValueError("the row incidence does not match the nodes or the force rows")
-    kernels.require(x.device, x, msn_h2, pin, wf, inc.row_start, inc.entries, blocks, failed)
+    ptd, contact, pt_start, pt_count = pt if pt is not None else (None,) * 4
+    kernels.require(x.device, x, msn_h2, pin, wf, inc.row_start, inc.entries, blocks, failed,
+                    ptd, contact, pt_start, pt_count)
     force, static = torch.empty_like(x), torch.empty_like(x)
     err = kernels.lib().pies_assemble_force(
         x.data_ptr(), msn_h2.data_ptr(), kernels.ptr(pin), wf.data_ptr(),
         inc.row_start.data_ptr(), inc.entries.data_ptr(), blocks.data_ptr(),
         force.data_ptr(), static.data_ptr(), n, float(plane), failed.data_ptr(),
-        kernels.stream(),
+        kernels.ptr(ptd), kernels.ptr(contact), kernels.ptr(pt_start),
+        kernels.ptr(pt_count), kernels.stream(),
     )
     kernels.check(err, "assemble_force")
     assemble_force.launches += 1
@@ -246,14 +262,36 @@ def _operator_sum(x, topo: Topology) -> torch.Tensor:
     return acc
 
 
+def _band(topo: Topology, n: int):
+    """The tets' seven diagonals, or None off the banded layout."""
+    band = topo.tet_band
+    return band if band is not None and band.shape[1] == n else None
+
+
+def _band_sum(x, band) -> torch.Tensor:
+    """``Σ_d band[3 + d]·x[i + d]`` with wrap-around, in the JAX order
+    (``assembly.py:498-501``): the diagonal, then for d = 1, 2, 3 the ``+d``
+    term and the ``−d`` term."""
+    acc = band[3][:, None] * x
+    for d in (1, 2, 3):
+        acc = acc + band[3 + d][:, None] * torch.roll(x, -d, 0)
+        acc = acc + band[3 - d][:, None] * torch.roll(x, d, 0)
+    return acc
+
+
 def apply_system_plain(x, mass, wf, h2: float, topo: Topology, part: bool = False):
-    """Plain twin of T10: ``y = (mass/h² + wf)·x + static_w·x + Σₘ
-    coef·x[nbr]`` (slot order) f32[N, 3]; with ``part`` also the block
-    partials of ``x·y``, else None."""
+    """Plain twin of T10: ``y = (mass/h² + wf)·x + static_w·x + the tets'
+    band + Σₘ coef·x[nbr]`` (slot order) f32[N, 3]; ``wf`` is the substep's
+    dense diagonal (the floor weight, plus the contacts' diagonal under
+    recentered coupling); with ``part`` also the block partials of ``x·y``,
+    else None."""
     y = (_div(mass, h2) + wf)[:, None] * x
     sw = _static_w(topo, x.shape[0])
     if sw is not None:
         y = y + sw[:, None] * x
+    band = _band(topo, x.shape[0])
+    if band is not None:
+        y = y + _band_sum(x, band)
     y = y + _operator_sum(x, topo)
     return y, (block_partials(_dot3(x, y)) if part else None)
 
@@ -281,15 +319,16 @@ def apply_system(x, mass, wf, h2: float, topo: Topology, failed=None,
             raise ValueError("the operator kernel needs the slot-major ELL over the capacity")
         m = nbr.shape[0]
     pin_w = _static_w(topo, n)
+    band = _band(topo, n)
     y = torch.empty_like(x) if out is None else out
     if part is True:
         part = torch.empty(-(-n // CG_BLOCK), dtype=torch.float32, device=x.device)
     part = part if isinstance(part, torch.Tensor) else None
     trips, prz, prz0, trip, early, rtol2 = gate if gate is not None else (None,) * 3 + (0, 0, 0.0)
-    kernels.require(x.device, x, mass, wf, pin_w, row_start, nbr, coef, y, part, failed,
+    kernels.require(x.device, x, mass, wf, pin_w, band, row_start, nbr, coef, y, part, failed,
                     trips, prz, prz0)
     err = kernels.lib().pies_ell_matvec(
-        x.data_ptr(), mass.data_ptr(), wf.data_ptr(), kernels.ptr(pin_w),
+        x.data_ptr(), mass.data_ptr(), wf.data_ptr(), kernels.ptr(pin_w), kernels.ptr(band),
         kernels.ptr(row_start), nbr.data_ptr(), coef.data_ptr(), m, y.data_ptr(),
         kernels.ptr(part), n, float(h2),
         failed.data_ptr(), kernels.ptr(trips), kernels.ptr(prz), kernels.ptr(prz0),

@@ -7,7 +7,9 @@ ported scope is the PD tick with floor contact on two paths:
 * the tet-column path, for disjoint tet soups (``create_tet_soup``, with
   optional position pins), with self-contact through the packed-body
   detection;
-* the generic path, for every other scene, with self-contact off: every
+* the generic path, for every other scene, with self-contact through the
+  super-body detection where the scene has more triangles than
+  ``allpairs_broadphase_max`` (recentered coupling): every
   constraint family (distance, pins, fused or unfused strain and volume
   tets, bends, shape and goal matching: ``create_box``, ``create_sheet``,
   ``create_bend_sheet``, ``create_shape_matching_box``,
@@ -73,18 +75,138 @@ def _packed_layout(tris: np.ndarray, stride: int, padded_t: int, cap: int):
     return 0, 0, ()
 
 
+def _detect_super_layout(tris: np.ndarray, bodies: np.ndarray, cap: int):
+    """The super-body collision layout of a general triangle scene (the
+    port's copy of ``pies_tpu/solver/host.py:114-250``; see
+    ``StepConfig.super_*`` and ``broadphase.super_broadphase``).
+
+    * Bodies of more than one triangle must all share one packed structure:
+      ``e`` triangles over ``m`` contiguous nodes at ``off + i·m`` with one
+      local corner pattern.  Otherwise the layout does not apply.
+    * Every single-triangle body is one loose row with explicit corner ids.
+    * The static shared-node adjacency (every pair of rows whose node sets
+      intersect, the reference's sweep-time skip, ``Solver.cpp:757-770``) is
+      enumerated here; a node shared by more than 64 rows, or a row with
+      more than 64 neighbours, refuses the layout rather than truncate.
+
+    Returns ``(config_fields, corners i32[K, W], adj i32[K, A] | None)``, or
+    None when the layout does not apply."""
+    nt = tris.shape[0]
+    if nt == 0:
+        return None
+    first = np.concatenate([[True], bodies[1:] != bodies[:-1]])
+    starts = np.nonzero(first)[0]
+    ends = np.concatenate([starts[1:], [nt]])
+    counts = (ends - starts).astype(np.int64)
+    multi = counts > 1
+    kp = int(multi.sum())
+    m, off = 0, 0
+    pat_list: list[tuple[int, int, int]] = []
+    if kp:
+        e = int(counts[multi][0])
+        if not np.all(counts[multi] == e):
+            return None
+        rows = (starts[multi][:, None] + np.arange(e)[None, :]).reshape(-1)
+        tn = tris[rows].reshape(kp, e * 3)
+        mins = tn.min(axis=1)
+        m = int(tn[0].max() - mins[0] + 1)
+        local = tris[rows].reshape(kp, e, 3) - mins[:, None, None]
+        if not (
+            3 <= m <= 8
+            and np.all(tn.max(axis=1) - mins + 1 == m)
+            and np.array_equal(mins, mins[0] + np.arange(kp, dtype=mins.dtype) * m)
+            and np.all(local == local[0])
+        ):
+            return None
+        off = int(mins[0])
+        if off + kp * m > cap:
+            return None
+        pat_list = [tuple(int(v) for v in r) for r in local[0]]
+    e_packed = len(pat_list)
+    loose_tris = tris[np.repeat(~multi, counts)]
+    tl = loose_tris.shape[0]
+    loose_face = -1
+    if tl:
+        loose_face = pat_list.index((0, 1, 2)) if (0, 1, 2) in pat_list else len(pat_list)
+        if loose_face == len(pat_list):
+            pat_list.append((0, 1, 2))
+    w_c = m if kp else 3
+    if w_c * len(pat_list) > 32:
+        return None
+    live_k = kp + tl
+    k = -(-live_k // 8) * 8
+    corners = np.zeros((k, w_c), np.int32)
+    if kp:
+        corners[:kp] = off + (np.arange(kp, dtype=np.int32)[:, None] * m
+                              + np.arange(m, dtype=np.int32)[None, :])
+    if tl:
+        corners[kp: kp + tl, :3] = loose_tris
+        if w_c > 3:  # padded by repeating corner 0 (masked out of the combos)
+            corners[kp: kp + tl, 3:] = loose_tris[:, :1]
+
+    # (node, row) incidence -> the rows of each node -> all ordered pairs of
+    # rows within a node -> each row's neighbour list, ascending.
+    # (Pairs are sorted as one int64 key each, which orders them as the JAX
+    # package's row-wise ``np.unique`` does, at a fraction of the host time.)
+    inc = np.unique(corners[:live_k].reshape(-1).astype(np.int64) * live_k
+                    + np.repeat(np.arange(live_k, dtype=np.int64), w_c))
+    node_ids, row_ids = inc // live_k, inc % live_k
+    uniq, idx_start, g_counts = np.unique(node_ids, return_index=True, return_counts=True)
+    adj = None
+    gmax = int(g_counts.max()) if g_counts.size else 0
+    if gmax > 64:
+        return None
+    if gmax > 1:
+        tab = np.full((uniq.size, gmax), -1, np.int64)
+        pos = np.arange(inc.shape[0]) - np.repeat(idx_start, g_counts)
+        tab[np.repeat(np.arange(uniq.size), g_counts), pos] = row_ids
+        prs = []
+        for a in range(gmax):
+            va = tab[:, a]
+            for bb in range(gmax):
+                if a == bb:
+                    continue
+                vb = tab[:, bb]
+                ok = (va >= 0) & (vb >= 0)
+                if ok.any():
+                    prs.append(va[ok] * live_k + vb[ok])
+        if prs:
+            allp = np.unique(np.concatenate(prs))
+            r1, r2 = allp // live_k, allp % live_k
+            _, st, cc = np.unique(r1, return_index=True, return_counts=True)
+            a_width = int(cc.max())
+            if a_width > 64:
+                return None
+            adj = np.full((k, a_width), -1, np.int32)
+            pos = np.arange(allp.shape[0]) - np.repeat(st, cc)
+            adj[r1, pos] = r2.astype(np.int32)
+
+    fields = dict(
+        super_k=k, super_packed_k=kp, super_packed_m=m, super_packed_off=off,
+        super_live_k=live_k, super_faces=tuple(pat_list), super_packed_e=e_packed,
+        super_loose_face=loose_face,
+    )
+    return fields, corners, adj
+
+
 def _check_generic(topology, config: StepConfig) -> None:
     """Raise unless a scene off the tet-column path can take the port's
-    generic path: PD (checked before), the assembled operator (any scene
-    but a banded tet soup), and no self-contact."""
+    generic path: PD (checked before), the assembled operator with the
+    Jacobi preconditioner, the dense floor, and self-contact through the
+    packed-body or the super-body detection with diagonal coupling."""
     if topology.ell_nbr is None and topology.csr_start is None:
         raise NotImplementedError(
-            "a disjoint tet soup off the tet-column path (the tet_band operator and the"
+            "a disjoint tet soup with the block structure off the tet-column path (the"
             " tet_block preconditioner) is ROADMAP queue 1 item 5c")
+    if not config.dense_floor:
+        raise NotImplementedError("the floor entry-list path (dense_floor=False) is ROADMAP"
+                                  " queue 1 item 5c")
     if config.enable_collisions:
-        raise NotImplementedError(
-            "self-contact off the disjoint tet soup (the super-body broadphase) is ROADMAP"
-            " queue 1 item 6")
+        broadphase.check_detection(config)
+        if config.contact_coupling not in ("diagonal", "recentered"):
+            raise NotImplementedError(
+                f"contact_coupling={config.contact_coupling!r} on the generic path (the"
+                " contact blocks in the operator) is ROADMAP queue 1 item 5c")
 
 
 class Solver:
@@ -312,6 +434,24 @@ class Solver:
                                               **batches)
         body_nodes, body_off, body_faces = _packed_layout(
             tris, budget.body_stride, topology.triangles.shape[0], cap)
+        # Super-body layout (host.py:681-727): any larger triangle scene
+        # without an all-covering uniform body stride.  Its budget holds 64
+        # narrow slots and 512 raw candidates per row, because mesh-adjacent
+        # rows are dropped only after the raw gather; a user's override wins.
+        super_fields = {}
+        if (body_nodes == 0 and budget.body_stride == 1 and self._enable_collisions
+                and self._broadphase_mode == "celllist" and bodies is not None
+                and tris.shape[0] > self._allpairs_max):
+            sup = _detect_super_layout(tris, bodies, cap)
+            if sup is not None:
+                super_fields, corners, adj = sup
+                topology = dataclasses.replace(topology, super_corners=corners,
+                                               super_adj=adj)
+                if self._budget is None:
+                    auto = dict(max_narrow_bodies=64, max_candidates_per_body=512)
+                    for key in self._budget_overrides or ():
+                        auto.pop(key, None)
+                    budget = dataclasses.replace(budget, **auto)
         # Cell-list cell size: the largest triangle extent with headroom for
         # deformation and the per-substep sweep (host.py:788-792).
         if tris.shape[0]:
@@ -338,9 +478,10 @@ class Solver:
             body_faces=body_faces,
             contact_coupling=self._contact_coupling,
             budget=budget,
+            **super_fields,
         )
         if config.enable_collisions:
-            broadphase.check_packed(config)
+            broadphase.check_detection(config)
         # The temporal broadphase cache, reset on every prepare (fresh = 0
         # rebuilds at the next detection), with a slack of cell/8: the JAX
         # package's A/B on the 500k soup found it best (host.py:821-844).
@@ -349,6 +490,10 @@ class Solver:
             kb = int(topology.triangles.shape[0]) // budget.body_stride
             state.bp = empty_broadphase_cache(kb, budget.max_narrow_bodies, kb * body_nodes,
                                               self._device)
+        elif super_fields:
+            # The super-body cache's reference spans all nodes (host.py:845-858).
+            state.bp = empty_broadphase_cache(super_fields["super_k"],
+                                              budget.max_narrow_bodies, cap, self._device)
         if not tetcols.applies(state, topology, config):
             _check_generic(topology, config)
         self._state = state
@@ -361,8 +506,9 @@ class Solver:
     def _auto_budget(self, tris: np.ndarray, bodies: np.ndarray | None) -> CollisionBudget:
         """Collision capacities from the scene (``host.py:879-929``), for the
         cell-list broadphases: a uniform triangle count per body (4 faces of
-        a tet) becomes the body stride, and the contact cap follows the
-        triangle count.  The reference-mode sizing is not ported."""
+        a tet) becomes the body stride (1 for a mixed or a single-triangle
+        body scene), and the contact cap follows the triangle count.  The
+        reference-mode sizing is not ported."""
         if tris.shape[0] == 0 or self._broadphase_mode != "celllist":
             return CollisionBudget()
         stride = 1

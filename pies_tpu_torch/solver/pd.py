@@ -20,12 +20,16 @@ PyTorch twin.  On the tet-column path (disjoint tet soups):
   update and the failure latch, in place on the state.
 
 On the generic path (every other scene: wherever ``tetcols.applies``
-fails, as in the JAX package): T3, then per PD iteration the local step
+fails, as in the JAX package): T3; with self-contact on the detection (T5
+and T6 on packed bodies, T14 and T15 on the super-body layout) and T7's
+setup; then per PD iteration the local step
 (``assembly.local_step``: T12 for distance and bend constraints, T13 for
 shape and goal groups, T9's stage 1 for tets, each filling its part of one
 force-row buffer), T9's stage 2 (``assembly.assemble_force``: the per-node
 sum and the right-hand side) and a Jacobi-PCG solve (``assembly.pcg_solve``:
-T10 operator applies and T11 vector stages), then T4.  The shape groups'
+T10 operator applies and T11 vector stages; with contacts T7's force
+before T9's stage 2, which adds it with the lag term), then T8 with
+contacts, and T4.  The shape groups'
 rotations (``state.shape_quats``) are carried from iteration to iteration
 and tick to tick, in place.
 
@@ -83,9 +87,10 @@ def self_contact(config: StepConfig, topo: Topology) -> bool:
 def check_detection(config: StepConfig) -> None:
     """Raise for the detection branches that are not ported yet."""
     if config.enable_collisions:
-        broadphase.check_packed(config)
+        broadphase.check_detection(config)
     if not config.dense_floor:
-        raise NotImplementedError("the floor entry-list path is ROADMAP queue 1 item 5")
+        raise NotImplementedError("the floor entry-list path (dense_floor=False) is ROADMAP"
+                                  " queue 1 item 5c")
 
 
 def default_detect_collisions(x: torch.Tensor, topo: Topology,
@@ -103,11 +108,13 @@ def detect_point_tri(state: SolverState, x: torch.Tensor, topo: Topology,
                      params: PhysicsParams, config: StepConfig, active: torch.Tensor,
                      plain: bool = False) -> CollisionSet:
     """The point-triangle branch of ``step.default_detect_collisions``
-    (``pies_tpu/solver/step.py:55-74``): kernels T5 and T6 against the
-    state's cache, which is updated in place."""
+    (``pies_tpu/solver/step.py:55-74``): kernels T5 and T6 (packed bodies)
+    or T14 and T15 (the super-body layout) against the state's cache, which
+    is updated in place."""
     pt_idx, pt_mask, pt_count, overflow, rebuilt = broadphase.detect_point_tri_collisions(
         x, state.prev_positions, topo.tri_mask, params, config, cache=state.bp,
-        failed=state.sim_failed, plain=plain)
+        failed=state.sim_failed, plain=plain, corners=topo.super_corners,
+        adj=topo.super_adj)
     return CollisionSet(floor_active=active, pt_idx=pt_idx, pt_mask=pt_mask,
                         pt_count=pt_count, overflow=overflow, rebuilt=rebuilt)
 
@@ -384,28 +391,47 @@ def new_counters(device) -> dict[str, torch.Tensor]:
 def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
                      config: StepConfig, k: dict, head, counters,
                      plain: bool) -> torch.Tensor:
-    """The PD iterations and tail of :func:`pd_substep` on the generic path
-    (``pd.py:184-196,306``): each iteration's local step (T12, T13, T9's
-    stage 1), force (T9's stage 2) and Jacobi-PCG solve warm-started from
-    the iterate (T10/T11), with the last local step's static projection kept
-    for the floor snap and the shape rotations updated in place on the
-    state.  The zero point-triangle diagonal that the JAX package adds with
-    self-contact off is left out, which is exact."""
+    """The detection, PD iterations and tail of :func:`pd_substep` on the
+    generic path (``pd.py:76-99,184-196,286-313``): with self-contact on, the
+    point-triangle detection and T7's setup (the node incidence, the
+    contacts' diagonal folded into the Jacobi diagonal and into the
+    operator's dense diagonal); then each iteration's local step (T12, T13,
+    T9's stage 1; T7's contact force under recentered coupling), force
+    (T9's stage 2) and Jacobi-PCG solve warm-started from the iterate
+    (T10/T11), with the last local step's static projection kept for the
+    floor snap and the shape rotations updated in place on the state; then
+    T8 and T4 as on the tet-column path.  A substep without a live contact
+    adds exact zeros, which is the JAX package's contact-free loop."""
     x, msn_h2, diag, wf, active = head
     failed = state.sim_failed
     _, h2 = _h_h2(params)
     plane = floor_plane(params, config.reference_quirks)
+    colls = inc = fric = pt = None
+    static_diag = wf
+    if self_contact(config, topo):
+        colls = detect_point_tri(state, x, topo, params, config, active, plain)
+        if counters is not None:
+            counters["contacts"].add_(colls.pt_count[0])
+            counters["rebuilds"].add_(colls.rebuilt[0])
+        static_diag = wf.clone()
+        inc, ptd = k["setup"](colls, state.mass, topo, h2, diag, wf, failed, static_diag)
     x_it, static_proj = x, torch.zeros_like(x)
     prr = torch.zeros(1, dtype=x.dtype, device=x.device)
     for _ in range(config.iterations):
         rows = assembly.local_step(x_it, state.inv_mass, state.mass, state.shape_quats, topo,
                                    config.rotation_iterations, failed, plain)
-        force, static_proj = k["assemble"](x_it, msn_h2, wf, rows, topo, plane, failed)
-        x_it, prr, trips = k["pcg"](force, x_it, diag, state.mass, wf, h2, state.node_mask,
-                                    topo, config.cg_iterations, config.cg_rtol, failed)
+        if colls is not None:
+            contact = k["pt_force"](x_it, colls, inc, params.collision_thickness, failed)
+            pt = (ptd, contact, inc.row_start, colls.pt_count)
+        force, static_proj = k["assemble"](x_it, msn_h2, wf, rows, topo, plane, failed, pt)
+        x_it, prr, trips = k["pcg"](force, x_it, diag, state.mass, static_diag, h2,
+                                    state.node_mask, topo, config.cg_iterations,
+                                    config.cg_rtol, failed)
         if counters is not None:
             counters["cg_trips"].add_(trips[0])
-    k["tail"](state, topo, params, active, x_it, static_proj)
+    if colls is not None:
+        fric = k["pt_tail"](state, params, config, colls, inc, x_it, static_proj)
+    k["tail"](state, topo, params, active, x_it, static_proj, colls, inc, fric)
     return torch.sqrt(torch.sum(prr))
 
 

@@ -273,34 +273,41 @@ _COL0 = [float(ATA_DIFF4[a, 0]) for a in range(4)]
 
 def pt_coupling_setup_plain(colls: CollisionSet, mass: torch.Tensor, topo: Topology,
                             h2: float, diag: torch.Tensor, wf: torch.Tensor,
-                            failed: torch.Tensor | None = None):
+                            failed: torch.Tensor | None = None,
+                            static_diag: torch.Tensor | None = None):
     """Plain twin of T7's once-per-substep stages: the node incidence of the
     live contacts, the contacts' diagonal ``ptd`` and, at every node with
     contact entries, ``diag = ((m/h² + stiffness) + ptd) + floor`` in place
-    (``assembly.py:577-599``).  Returns ``(incidence, ptd f32[N])``."""
+    (``assembly.py:577-599``).  ``static_diag`` f32[N] (the generic path's
+    dense operator diagonal, preset to the floor weight ``wf``) becomes
+    ``wf + ptd`` at those nodes (``pd.py:81-99``).  Returns ``(incidence, ptd
+    f32[N])``."""
     n = mass.shape[0]
     inc = incidence_plain(colls.pt_idx, colls.pt_count, n)
     ptd = assembly.point_tri_collision_diag(colls.pt_idx, colls.pt_mask, n, inc)
     if failed is None or not bool(failed[0]):
         full = ((_div(mass, h2) + topo.stiffness_diag) + ptd) + wf
         diag.copy_(torch.where(incident(inc), full, diag))
+        if static_diag is not None:
+            static_diag.copy_(torch.where(incident(inc), wf + ptd, static_diag))
     return inc, ptd
 
 
 def pt_coupling_setup(colls: CollisionSet, mass: torch.Tensor, topo: Topology, h2: float,
                       diag: torch.Tensor, wf: torch.Tensor,
-                      failed: torch.Tensor | None = None):
+                      failed: torch.Tensor | None = None,
+                      static_diag: torch.Tensor | None = None):
     """T7's once-per-substep stages on CUDA tensors (the plain twin on CPU
     tensors).  On the card ``ptd`` is written only at nodes with contact
     entries, and nothing at all when ``failed`` slot 0 is set."""
     if kernels.on_cpu(mass):
-        return pt_coupling_setup_plain(colls, mass, topo, h2, diag, wf, failed)
+        return pt_coupling_setup_plain(colls, mass, topo, h2, diag, wf, failed, static_diag)
     if failed is None:
         raise ValueError("the coupling kernel needs the failure latch")
     dev = mass.device
     n, cap = mass.shape[0], colls.pt_idx.shape[0]
     kernels.require(dev, colls.pt_idx, colls.pt_mask, colls.pt_count, mass,
-                    topo.stiffness_diag, diag, wf, failed)
+                    topo.stiffness_diag, diag, wf, failed, static_diag)
     i32 = dict(dtype=torch.int32, device=dev)
     deg = torch.zeros(n, **i32)
     row_start = torch.empty(n + 1, **i32)
@@ -312,7 +319,8 @@ def pt_coupling_setup(colls: CollisionSet, mass: torch.Tensor, topo: Topology, h
         colls.pt_idx.data_ptr(), colls.pt_mask.data_ptr(), colls.pt_count.data_ptr(),
         mass.data_ptr(), topo.stiffness_diag.data_ptr(), wf.data_ptr(), diag.data_ptr(),
         deg.data_ptr(), row_start.data_ptr(), partial.data_ptr(), entries.data_ptr(),
-        nodes.data_ptr(), ptd.data_ptr(), failed.data_ptr(), n, cap, h2, kernels.stream(),
+        nodes.data_ptr(), ptd.data_ptr(), kernels.ptr(static_diag), failed.data_ptr(), n, cap,
+        h2, kernels.stream(),
     )
     kernels.check(err, "pt_coupling_setup")
     pt_coupling_setup.launches += 1

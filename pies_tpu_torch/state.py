@@ -17,9 +17,9 @@ Structure-of-arrays with a padded node count, as in the JAX package:
 Padded nodes are parked far away with ``inv_mass = 0``, ``mass = 1`` and
 ``node_mask = 0``, exactly as in the JAX package.
 
-``bp`` is the packed-body broadphase's temporal cache (``BroadphaseCache``),
-allocated by the host for self-contact scenes and updated in place by the
-detection each substep.
+``bp`` is the temporal cache of the packed-body or the super-body broadphase
+(``BroadphaseCache``), allocated by the host for self-contact scenes and
+updated in place by the detection each substep.
 """
 
 from __future__ import annotations
@@ -47,7 +47,9 @@ class BroadphaseCache:
 
     pairs: torch.Tensor  # i32[K, NB] candidate bodies per body
     valid: torch.Tensor  # i32[K, NB] prefix mask
-    ref: torch.Tensor  # f32[K·m, 3] body-node positions at the last build
+    # f32[K·m, 3] body-node positions at the last build (packed bodies), or
+    # f32[N, 3], all nodes (the super-body layout).
+    ref: torch.Tensor
     fresh: torch.Tensor  # i32[1]; 0 forces a rebuild
 
     def clone(self) -> "BroadphaseCache":

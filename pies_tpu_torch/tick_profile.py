@@ -3,6 +3,7 @@
     python3 -m pies_tpu_torch.tick_profile [n_tets] [repeats] [--collisions]
     python3 -m pies_tpu_torch.tick_profile --mesh [repeats]
     python3 -m pies_tpu_torch.tick_profile --cloth [repeats]
+    python3 -m pies_tpu_torch.tick_profile --mixed [repeats]
 
 Builds the 500k-particle soup (``create_tet_soup(n_tets, spacing=1.6,
 scale=0.8, w=2000.0, height=0.5, jitter=0.05)``, 125,000 tets by default),
@@ -12,12 +13,18 @@ imported 110,592-node / 622,938-tet mesh
 which runs the generic path; or, with ``--cloth``, the 512 x 512 rigged
 cloth of ``scene/rigged_cloth.py`` (262,144 nodes; distance, bend, shape and
 goal constraints; self-contact off), the generic path's other families, with
-its fixed region turned by 0.05 rad before the windows.  It warms up until
+its fixed region turned by 0.05 rad before the windows; or, with
+``--mixed``, the cloth-over-soup scene of ``scene/mixed_drape.py`` (125,000
+tets and a 100 x 100 sheet, 510,000 nodes, self-contact on through the
+super-body detection), the generic path with contact terms and the banded
+tet operator.  It warms up until
 the window it measures is
 contact-active: 30 ticks without self-contact (the bottom layer reaches the
 floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
 bottom one rests on the floor), 75 for the mesh (its bottom, 3.0 above the
-floor, meets it at tick 70), 25 for the cloth (it lands at tick ~19).  Then:
+floor, meets it at tick 70), 25 for the cloth (it lands at tick ~19), 50 for
+the mixed scene (the soup's layers meet at tick ~40, sheet and soup at tick
+49).  Then:
 
 * times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
   ends in a synchronize) and prints each, for the spread;
@@ -35,11 +42,11 @@ import sys
 import time
 from pathlib import Path
 
-FLOOR_WARMUP, CONTACT_WARMUP, MESH_WARMUP, CLOTH_WARMUP = 30, 45, 75, 25
+FLOOR_WARMUP, CONTACT_WARMUP, MESH_WARMUP, CLOTH_WARMUP, MIXED_WARMUP = 30, 45, 75, 25, 50
 MESH = Path(__file__).resolve().parent.parent / "scripts" / "refbench" / "tet_cube_mesh_100k.txt"
 
 
-def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False):
+def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, mixed=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -53,10 +60,17 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    scene = "the 110k mesh" if mesh else "the 512 x 512 rigged cloth" if cloth else "the soup"
+    scene = ("the 110k mesh" if mesh else "the 512 x 512 rigged cloth" if cloth
+             else "the cloth over the soup" if mixed else "the soup")
+    collisions = collisions or mixed
     print(f"card: {smi}; {scene}, self-contact {'on' if collisions else 'off'}")
     s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=collisions)
-    if mesh:
+    if mixed:
+        from pies_tpu_torch.scene.mixed_drape import add_mixed_drape
+
+        add_mixed_drape(s, n_tets, 100)
+        s.run_ticks(MIXED_WARMUP)
+    elif mesh:
         from pies_tpu_torch.scene.mesh_dump import add_tet_mesh, load_mesh_txt
 
         add_tet_mesh(s, *load_mesh_txt(MESH))
@@ -108,6 +122,7 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False):
 if __name__ == "__main__":
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
-    if "--mesh" in flags or "--cloth" in flags:
-        sys.exit(main(125_000, *args[:1], mesh="--mesh" in flags, cloth="--cloth" in flags))
+    if "--mesh" in flags or "--cloth" in flags or "--mixed" in flags:
+        sys.exit(main(125_000, *args[:1], mesh="--mesh" in flags, cloth="--cloth" in flags,
+                      mixed="--mixed" in flags))
     sys.exit(main(*args, collisions="--collisions" in flags))

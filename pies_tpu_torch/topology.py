@@ -15,7 +15,9 @@ Three things are the port's own, for scenes off the tet-column path:
   goal members: A = I for each) as one weight per node;
 * the assembled operator ``Σ w·AᵀA`` of the distance constraints (a weighted
   graph Laplacian) and the tets (``w·GᵀG``), coalesced in float64: slot-major
-  ELL while no row has more than 64 entries, CSR beyond;
+  ELL while no row has more than 64 entries, CSR beyond; on a banded
+  (element-major) tet soup the tets stay out of it, as the JAX package's
+  seven diagonals ``tet_band``;
 * ``row_inc``, the node → row incidence (a ``collision.batches.Incidence``)
   over the force rows of all families, which sums them per node in the JAX
   scatters' order without float atomics (:func:`row_layout`).
@@ -140,19 +142,30 @@ class Topology:
     # Σ w of the diagonal-only constraints per node (pins, bends, shape and
     # goal members); f32[1] when the scene has none.
     static_w: torch.Tensor | None = None  # f32[N] or f32[1]
-    # Off the banded tet layout: the assembled distance + strain + volume
-    # Σ w·AᵀA.  ELL, slot-major (the transpose of the JAX package's [N, m]
-    # arrays, so neighbouring nodes read neighbouring words; m = 0 when the
-    # scene has no off-diagonal term), or CSR when a row has more than 64
-    # entries; all None otherwise.
+    # The assembled distance + strain + volume Σ w·AᵀA (on a banded tet
+    # layout the tets are in ``tet_band`` instead).  ELL, slot-major (the
+    # transpose of the JAX package's [N, m] arrays, so neighbouring nodes
+    # read neighbouring words; m = 0 when the scene has no off-diagonal
+    # term), or CSR when a row has more than 64 entries; all None for a soup
+    # with the disjoint-tet block structure (``tet_block6``).
     ell_nbr: torch.Tensor | None = None  # i32[m, N]
     ell_coef: torch.Tensor | None = None  # f32[m, N]
     csr_start: torch.Tensor | None = None  # i32[N + 1]
     csr_col: torch.Tensor | None = None  # i32[nnz], ascending in each row
     csr_val: torch.Tensor | None = None  # f32[nnz]
-    # Off the banded tet layout: the node → row incidence over the force
-    # rows of all families (row_incidence); None otherwise.
+    # The node → row incidence over the force rows of all families
+    # (row_incidence); None where the operator is.
     row_inc: Incidence | None = None
+    # Banded (element-major) live tets: the strain + volume Σ w·GᵀG as seven
+    # diagonals, ``tet_band[3 + b − a][4t + a]`` entry (a, b) of tet t's
+    # block (``pies_tpu/topology.py:563-588``); None off that layout, and
+    # where the soup has the block structure (``tet_block6``).
+    tet_band: torch.Tensor | None = None  # f32[7, N]
+    # Super-body detection layout (``StepConfig.super_*``): node id per body
+    # corner slot, and per row the rows sharing a node with it (−1 padded;
+    # None when no two rows share a node).
+    super_corners: torch.Tensor | None = None  # i32[K, W]
+    super_adj: torch.Tensor | None = None  # i32[K, A]
     distance: DistanceBatch | None = None
     bend: BendBatch | None = None
     shape: GroupBatch | None = None
@@ -468,15 +481,42 @@ def banded_soup(strain: TetBatch, volume: TetBatch) -> bool:
         np.array_equal(r.reshape(-1), np.arange(r.size, dtype=np.int64)) for r in live if r.size)
 
 
+def tet_band_of(num_nodes: int, strain: TetBatch, volume: TetBatch) -> np.ndarray:
+    """The seven diagonals f32[7, N] of a banded soup's strain + volume
+    ``Σ w·GᵀG``, summed as the JAX package sums them
+    (``pies_tpu/topology.py:575-586``)."""
+    band = np.zeros((7, num_nodes), dtype=_F32)
+    for t in (strain, volume):
+        ti, tw = np.asarray(t.idx), np.asarray(t.w)
+        tg = np.asarray(t.g).T.reshape(-1, 3, 4)
+        gtg = np.einsum("cja,cjb->cab", tg, tg) * tw[:, None, None]
+        for a in range(4):
+            for b in range(4):
+                np.add.at(band[3 + b - a], ti[:, a], gtg[:, a, b])
+    return band
+
+
+def block_structure(num_nodes: int, distance: DistanceBatch) -> bool:
+    """Whether a banded soup's system is block diagonal in 4x4 tet blocks
+    (``pies_tpu/topology.py:595``)."""
+    return num_nodes % 4 == 0 and np.asarray(distance.idx).shape[0] == 0
+
+
 def generic_fields(num_nodes: int, *, strain, volume, position, distance, bend, shape, goal,
                    tet_fused: bool) -> dict:
     """The port's own ``Topology`` fields for the generic path: the static
-    weight and, unless the scene is a banded soup, the assembled operator
-    (ELL slot-major, or CSR) and the row incidence."""
+    weight, the assembled operator (ELL slot-major, or CSR) and the row
+    incidence.  A banded soup with the block structure (the tet-column
+    path's layout) gets neither operator nor incidence; any other banded
+    soup keeps its tets out of the operator, as the seven diagonals
+    ``tet_band``."""
     out = dict(static_w=static_weights(num_nodes, position, bend, shape, goal))
-    if banded_soup(strain, volume):
-        return out
-    ell, csr = assemble_operator(num_nodes, (strain, volume), distance)
+    banded = banded_soup(strain, volume)
+    if banded:
+        if block_structure(num_nodes, distance):
+            return out
+        out["tet_band"] = tet_band_of(num_nodes, strain, volume)
+    ell, csr = assemble_operator(num_nodes, () if banded else (strain, volume), distance)
     if ell is not None:
         out.update(ell_nbr=np.ascontiguousarray(ell[0].T),
                    ell_coef=np.ascontiguousarray(ell[1].T))
@@ -503,8 +543,8 @@ def assemble_topology(
     """The ported part of ``pies_tpu.topology.assemble_topology``: the
     stiffness diagonal, floor counts, ``tet_block6`` and the folded pin
     force, computed with the same host arithmetic (float64 accumulation);
-    plus, unless the live tets are banded, the port's static weight,
-    assembled operator and row incidence.  ``tet_fused``: see
+    plus the port's static weight, assembled operator and row incidence
+    (:func:`generic_fields`).  ``tet_fused``: see
     ``Topology.tet_fused``."""
     diag = np.zeros(num_nodes, dtype=np.float64)
     # Distance AᵀA = A has 0.5 on the diagonal (Constraints.cpp:42-47).
@@ -538,14 +578,8 @@ def assemble_topology(
         ):
             banded = False
     tet_block6 = None
-    if banded and num_nodes % 4 == 0 and distance.idx.shape[0] == 0:
-        tet_band = np.zeros((7, num_nodes), dtype=_F32)
-        for t in (strain, volume):
-            tg = np.asarray(t.g).T.reshape(-1, 3, 4)
-            gtg = np.einsum("cja,cjb->cab", tg, tg) * t.w[:, None, None]
-            for a in range(4):
-                for b in range(4):
-                    np.add.at(tet_band[3 + b - a], t.idx[:, a], gtg[:, a, b])
+    if banded and block_structure(num_nodes, distance):
+        tet_band = tet_band_of(num_nodes, strain, volume)
         # B[a][b] of block k is band[3 + b - a][4k + a].
         tet_block6 = np.stack(
             [

@@ -165,18 +165,23 @@ def test_mesh_failure_latch_matches_reference():
 
 
 def test_generic_cases_not_ported_yet_raise():
-    # A disjoint soup off the tet-column path (here through a distance
-    # constraint between two tets) needs the banded operator of item 5c.
-    s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device="cpu")
-    ids = s.create_tet_soup(8, spacing=1.6, scale=0.8, w=2000.0)
-    s._builder._emit_distance(np.array([[ids[0], ids[4]]]), 100.0)
+    # A disjoint soup off the tet-column path that keeps its block structure
+    # (here through full contact coupling) needs the tet_block preconditioner
+    # of item 5c.  (With another constraint family on it, it runs: the banded
+    # operator is ported, tests/test_torch_super.py.)
+    s = pt.Solver(pt.SolverOptions(), contact_coupling="full", device="cpu")
+    s.create_tet_soup(8, spacing=1.6, scale=0.8, w=2000.0)
     with pytest.raises(NotImplementedError, match="item 5c"):
         s.tick()
-    s = _mesh(pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu"), None)
+    # The mesh's 1,200 triangles take the super-body detection, which is
+    # ported; the reference-mode sweep and scenes of at most 1,024 triangles
+    # are item 6b.
+    s = _mesh(pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu",
+                        broadphase_mode="reference"), None)
     with pytest.raises(NotImplementedError, match="item 6"):
         s.tick()
     s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu")
-    s.create_sheet((0, 1.0, 0), 0.5, 1.0, 5000.0)  # a cloth with self-contact on
+    s.create_sheet((0, 1.0, 0), 0.5, 1.0, 5000.0)  # a small cloth with self-contact on
     with pytest.raises(NotImplementedError, match="item 6"):
         s.tick()
     with pytest.raises(NotImplementedError, match="item 7"):

@@ -540,3 +540,227 @@ def test_constraint_kernels_match_twins_over_a_trajectory(cuda, scene):
         assert torch.equal(xk, xp)
     else:
         assert float((xk - xp).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the super-body detection (T14, T15), the band form of T10, and the contact
+# terms of T7 and T9 on the generic path
+
+
+SUPER_WRAPPERS = (broadphase.super_broadphase, broadphase.super_narrowphase,
+                  tetcols.pt_coupling_setup, tetcols.pt_force, pd.pt_tail)
+
+
+def _mixed_solver(device, n_tets=512, sheet_n=24, **kw):
+    """A sheet over a soup (``scene/mixed_drape.py``), its sheet low enough
+    to touch the soup from the first ticks."""
+    from pies_tpu_torch.scene.mixed_drape import add_mixed_drape
+
+    s = pt.Solver(pt.SolverOptions(), device=device, allpairs_broadphase_max=0, **kw)
+    add_mixed_drape(s, n_tets, sheet_n, sheet_y=2.2)
+    return s
+
+
+def test_cpu_tensors_take_the_super_twins():
+    s = _mixed_solver("cpu", 40, 8)
+    before = [f.launches for f in SUPER_WRAPPERS + GENERIC_WRAPPERS]
+    s.counters = pd.new_counters("cpu")
+    s.run_ticks(2)
+    assert [f.launches for f in SUPER_WRAPPERS + GENERIC_WRAPPERS] == before
+    assert int(s.counters["contacts"]) > 0 and not s.sim_failed
+
+
+def _super_state(device, ticks=6):
+    s = _mixed_solver(device)
+    s.run_ticks(ticks)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    head = pd.substep_head_plain(_clone(st), topo, params, cfg, True)
+    return s, head
+
+
+def _super_kernels_against_twins(s, x, prev, force_rebuild):
+    """T14 then T15 on ``(x, prev)`` from the solver's cache, kernels and
+    twins: asserts equal cache, latches and contact lists; returns the
+    rebuild flag, the contact count and the twin's work counts."""
+    st, topo = s.state, s.topology
+    lay = broadphase.super_layout(s.config, topo.super_corners, topo.super_adj)
+    sc = broadphase.scalars(s.current_params())
+    out, stats = [], {}
+    for bf, nf, kw in ((broadphase.super_broadphase, broadphase.super_narrowphase, {}),
+                       (broadphase.super_broadphase_plain, broadphase.super_narrowphase_plain,
+                        dict(stats=stats))):
+        cache = st.bp.clone()
+        if force_rebuild:
+            cache.fresh.zero_()
+        over = torch.zeros(1, dtype=torch.int32, device=x.device)
+        rebuilt = bf(x, prev, topo.super_corners, topo.super_adj, cache, lay, sc, over,
+                     st.sim_failed)
+        contacts = nf(x, prev, topo.super_corners, cache, lay, sc, over, st.sim_failed, **kw)
+        out.append((cache, over, rebuilt, contacts))
+    (ck, ok, rk, pk), (cp, op, rp, pp) = out
+    for f in ("pairs", "valid", "ref", "fresh"):
+        assert torch.equal(getattr(ck, f), getattr(cp, f)), f
+    assert torch.equal(ok, op) and int(rk[0]) == int(rp[0])
+    for a, b in zip(pk, pp):
+        assert torch.equal(a, b)
+    assert int(ck.valid.sum()) > 0
+    return int(rk[0]), int(pk[2][0]), stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("jitter", [0.0, 0.05], ids=["as_found", "jittered"])
+@pytest.mark.parametrize("force_rebuild", [False, True], ids=["cached", "rebuild"])
+def test_super_broadphase_and_narrowphase_kernels_equal_twins(cuda, force_rebuild, jitter):
+    """T14 and T15 against their twins on a mixed scene with live contacts:
+    equal cache, latches and contact lists; with the positions jittered,
+    points cross face planes and phase 2's cubic runs."""
+    s, (x, *_rest) = _super_state(cuda)
+    st = s.state
+    if jitter:
+        rng = np.random.default_rng(1)
+        x = x + torch.from_numpy((jitter * rng.standard_normal(x.shape)).astype(np.float32)
+                                 ).to(cuda) * st.node_mask[:, None]
+    rebuilt, n_contacts, stats = _super_kernels_against_twins(s, x, st.prev_positions,
+                                                              force_rebuild)
+    assert rebuilt == 1 or not (force_rebuild or jitter)
+    assert n_contacts > 0
+    if jitter:
+        assert stats["cross_combos"] > 0
+
+
+def _folded_cloth(device, n=32):
+    """A pure-loose layout in self-contact: the rigged cloth (one row per
+    triangle, W = 3, one face slot), its last tenth in x mirrored back over
+    the part beside it, shifted off the lattice, every folded node a seeded
+    distance of at most 0.2 cells above or under where it lands, before and
+    now independently (points within the threshold of a face, and points
+    crossing faces)."""
+    from pies_tpu_torch.scene.rigged_cloth import add_rigged_cloth
+
+    s = pt.Solver(pt.SolverOptions(), device=device, allpairs_broadphase_max=0)
+    add_rigged_cloth(s, n)
+    st = s.state
+    sc = broadphase.scalars(s.current_params())
+    xs = st.positions[:, 0]
+    live = st.node_mask > 0
+    edge = float(torch.quantile(xs[live], 0.9))
+    over = live & (xs > edge)
+    amp = min(sc.thr, 0.2 * sc.cell)
+    rng = np.random.default_rng(5)
+    lift = torch.from_numpy(rng.uniform(-amp, amp, (2, st.capacity)).astype(np.float32)
+                            ).to(device) * over
+    flat = st.positions.clone()
+    flat[:, 0] = torch.where(over, 2.0 * edge - xs + 0.13 * sc.cell, xs)
+    flat[:, 2] += 0.07 * sc.cell * over
+    x, prev = flat.clone(), flat.clone()
+    x[:, 1] += lift[0]
+    prev[:, 1] += lift[1]
+    return s, x, prev
+
+
+def test_folded_cloth_is_in_self_contact_on_the_twins():
+    """The folded pure-loose cloth on the CPU: the twins find pairs, contacts
+    and crossing combos, without a latch."""
+    s, x, prev = _folded_cloth("cpu")
+    topo = s.topology
+    lay = broadphase.super_layout(s.config, topo.super_corners, topo.super_adj)
+    sc = broadphase.scalars(s.current_params())
+    assert lay.kp == 0 and lay.w == 3 and lay.n_face == 1
+    cache, over, stats = s.state.bp.clone(), torch.zeros(1, dtype=torch.int32), {}
+    rb = broadphase.super_broadphase(x, prev, topo.super_corners, topo.super_adj, cache, lay, sc,
+                                     over)
+    out = broadphase.super_narrowphase_plain(x, prev, topo.super_corners, cache, lay, sc, over,
+                                             stats=stats)
+    assert int(rb[0]) == 1 and int(over[0]) == 0
+    assert int(out[2][0]) > 0 and stats["cross_combos"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [32, 128])
+def test_super_kernels_equal_twins_on_a_folded_pure_loose_cloth(cuda, n):
+    """T14 (rebuild forced) and T15 against their twins on the pure-loose
+    layout (W = 3, one face slot, no packed row): equal cache, latches and
+    contact lists, with contacts and crossing combos present."""
+    s, x, prev = _folded_cloth(cuda, n)
+    lay = broadphase.super_layout(s.config, s.topology.super_corners, s.topology.super_adj)
+    assert lay.kp == 0 and lay.w == 3 and lay.n_face == 1
+    rebuilt, n_contacts, stats = _super_kernels_against_twins(s, x, prev, True)
+    assert rebuilt == 1 and n_contacts > 0 and stats["cross_combos"] > 0
+
+
+@pytest.mark.gpu
+def test_super_broadphase_latches_equal_twins(cuda):
+    """A raw-candidate budget of 2 truncates the gather and one narrow slot
+    evicts exact overlaps: kernel and twin latch alike."""
+    for over_kw in ({"max_candidates_per_body": 2}, {"max_narrow_bodies": 1}):
+        s = _mixed_solver(cuda, budget_overrides=over_kw)
+        st, topo = s.state, s.topology
+        lay = broadphase.super_layout(s.config, topo.super_corners, topo.super_adj)
+        sc = broadphase.scalars(s.current_params())
+        res = []
+        for bf in (broadphase.super_broadphase, broadphase.super_broadphase_plain):
+            cache, over = st.bp.clone(), torch.zeros(1, dtype=torch.int32, device=cuda)
+            bf(st.positions, st.prev_positions, topo.super_corners, topo.super_adj, cache, lay,
+               sc, over, st.sim_failed)
+            res.append((cache, int(over[0])))
+        assert res[0][1] == res[1][1] == 1, over_kw
+        for f in ("pairs", "valid", "fresh"):
+            assert torch.equal(getattr(res[0][0], f), getattr(res[1][0], f)), (over_kw, f)
+
+
+@pytest.mark.gpu
+def test_band_operator_and_contact_terms_equal_twins(cuda):
+    """T10's band form, T7's dense operator diagonal and T9 stage 2 with the
+    contact terms, against their twins on a contact-live mixed state."""
+    s, (x, msn, diag, wf, active) = _super_state(cuda)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    assert topo.tet_band is not None and not tetcols.applies(st, topo, cfg)
+    colls = pd.detect_point_tri(_clone(st), x, topo, params, cfg, active)
+    assert int(colls.pt_count[0]) > 0
+    _, h2 = pd._h_h2(params)
+    dk, dp, sk, sp = diag.clone(), diag.clone(), wf.clone(), wf.clone()
+    inc_k, ptd_k = tetcols.pt_coupling_setup(colls, st.mass, topo, h2, dk, wf, st.sim_failed, sk)
+    inc_p, ptd_p = tetcols.pt_coupling_setup_plain(colls, st.mass, topo, h2, dp, wf,
+                                                   st.sim_failed, sp)
+    on = incident(inc_p)
+    assert torch.equal(dk, dp) and torch.equal(sk, sp) and not torch.equal(sk, wf)
+    assert torch.equal(ptd_k[on], ptd_p[on])
+    yk, pk = assembly.apply_system(x, st.mass, sk, h2, topo, st.sim_failed, part=True)
+    yp, pp = assembly.apply_system_plain(x, st.mass, sp, h2, topo, part=True)
+    assert torch.equal(yk, yp) and torch.equal(pk, pp)
+    con_k = tetcols.pt_force(x, colls, inc_k, params.collision_thickness, st.sim_failed)
+    con_p = tetcols.pt_force_plain(x, colls, inc_p, params.collision_thickness)
+    rows = assembly.local_step(x, st.inv_mass, st.mass, st.shape_quats.clone(), topo,
+                               cfg.rotation_iterations, st.sim_failed)
+    fk = assembly.assemble_force(x, msn, wf, rows, topo, 0.0, st.sim_failed,
+                                 (ptd_k, con_k, inc_k.row_start, colls.pt_count))
+    fp = assembly.assemble_force_plain(x, msn, wf, rows, topo, 0.0, None,
+                                       (ptd_p, con_p, inc_p.row_start, colls.pt_count))
+    bare = assembly.assemble_force_plain(x, msn, wf, rows, topo, 0.0)
+    assert torch.equal(fk[0], fp[0]) and torch.equal(fk[1], fp[1])
+    assert not torch.equal(fk[0], bare[0])
+
+
+@pytest.mark.gpu
+def test_super_kernels_match_twins_over_a_trajectory(cuda):
+    """30 ticks of a mixed scene, kernels against twins: the same contacts,
+    rebuilds and CG trips on every tick, positions within 1e-5, and every
+    kernel of the path launched."""
+    wrappers = SUPER_WRAPPERS + GENERIC_WRAPPERS
+    runs = []
+    for plain in (False, True):
+        s = _mixed_solver(cuda)
+        before = [f.launches for f in wrappers]
+        counts = []
+        for _ in range(30):
+            c = pd.new_counters(cuda)
+            step.tick(s.state, s.topology, s.current_params(), s.config, plain=plain,
+                      counters=c)
+            counts.append({k: int(v) for k, v in c.items()})
+        assert not s.sim_failed
+        runs.append((counts, s.state.positions.clone(),
+                     [f.launches - n for f, n in zip(wrappers, before)]))
+    (ck, xk, lk), (cp, xp, lp) = runs
+    assert ck == cp and sum(c["contacts"] for c in ck) > 0
+    assert float((xk - xp).abs().max()) <= 1e-5
+    assert all(n > 0 for n in lk) and not any(lp)

@@ -243,14 +243,15 @@ def test_converter_carries_the_broadphase_cache():
 
 
 def test_self_contact_is_not_ported_yet():
-    """Self-contact off the packed-body layout (here: one body per
-    triangle, the super-body and cell-list paths) still raises."""
+    """Self-contact of a scene with at most 1,024 triangles off the
+    packed-body layout (here: one body per triangle, the all-pairs path)
+    still raises."""
     s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu",
                   budget_overrides={"body_stride": 1})
     s.create_tet_soup(8, **SCENE)
     with pytest.raises(NotImplementedError, match="item 6"):
         s.tick()
-    # A cloth is ported, but its self-contact (triangles in one body) is not.
+    # A cloth is ported, but at this size its self-contact is the all-pairs path.
     s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu")
     s.create_sheet((0, 0, 0), 1.0, 1.0, 1.0)
     with pytest.raises(NotImplementedError, match="item 6"):
