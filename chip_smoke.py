@@ -7,7 +7,7 @@ Phases (any failure exits non-zero, before the result line):
 
 0. The card: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc
    versions, whether ``triton`` imports.  No CUDA device: exit 2.
-1. Build the fifteen kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
+1. Build the seventeen kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
    one process per source, all at once (``-Xptxas -v`` output printed), and
    report the build time.
 2. T1-T4 against their plain PyTorch twins on the card, at the main path's
@@ -297,6 +297,78 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=library_ms)
 
+    def contact_set(contacts):
+        idx, _, count = contacts
+        return {tuple(r) for r in idx[: int(count[0])].tolist()}
+
+    def hold_tri(mode, x, prev, tris, tmask, params, cfg, failed, ref_contacts, ref_name,
+                 relation="equals"):
+        """T16 then T17 in the per-triangle branch ``mode`` against their
+        twins: candidate rows, counts, flag words, latch and contact list
+        equal, no latch; the contact set equal to ``ref_contacts``' (kernels
+        ``ref_name`` on the same state; the per-triangle sweep repeats a
+        contact once per own face that finds it, so lists differ and sets do
+        not), or, by ``relation``, one that "contains" it or lies "within"
+        it.  Returns the layout, the
+        scalars, the twin's work counts, the kernel's candidate rows and its
+        contacts."""
+        lay = broadphase.tri_layout(cfg, tris.shape[0], mode)
+        sc = broadphase.tri_scalars(params, cfg)
+        out, stats = [], {}
+        for cf, df, kw in ((broadphase.tri_candidates, broadphase.tri_ccd, {}),
+                           (broadphase.tri_candidates_plain, broadphase.tri_ccd_plain,
+                            dict(stats=stats))):
+            ov = torch.zeros(1, dtype=torch.int32, device=dev)
+            cand, count, flags = cf(x, prev, tris, tmask, lay, sc, ov, failed)
+            contacts = df(x, prev, tris, cand, count, flags, lay, sc, failed, **kw)
+            out.append((cand, count, flags, ov, contacts))
+        torch.cuda.synchronize()
+        (ck, nk, fk, ok, pk), (cp, np_, fp, op, pp) = out
+        named = dict(zip(broadphase.TRI_FLAGS, fk.tolist()))
+        check(torch.equal(ck, cp) and torch.equal(nk, np_) and torch.equal(fk, fp)
+              and torch.equal(ok, op),
+              f"T16 {mode} at {lay.t} rows, {lay.nb} slots: candidate rows, counts, flags and"
+              f" latch equal (flags {named}, most per row {int(nk.max())})")
+        check(all(torch.equal(a, b) for a, b in zip(pk, pp)),
+              f"T17 {mode} at {lay.lanes} lanes: contacts equal ({int(pk[2][0])} of at most"
+              f" {lay.cap}, {stats})")
+        mine, ref = contact_set(pk), contact_set(ref_contacts)
+        same = {"equals": mine == ref, "contains": ref <= mine, "within": mine <= ref}[relation]
+        check(same and len(mine) > 0 and int(ok[0]) == 0 and int(pk[2][0]) < lay.cap,
+              f"T16/T17 {mode}: no latch, the contact set {relation}"
+              f" {ref_name}'s ({len(mine)} distinct of {int(pk[2][0])} contacts, {len(ref)}"
+              f" there; only here {sorted(mine - ref)[:4]}, only there {sorted(ref - mine)[:4]})")
+        return lay, sc, stats, (ck, nk, fk), pk
+
+    def time_tri(mode, x, prev, tris, tmask, failed, held, n_nodes):
+        """CUDA-event times of T16 and T17 (and their twins) on the state
+        ``hold_tri`` held, with their bounds; printed, and returned as
+        ``(ms16, plain16, bytes16, ops16, ms17, plain17, bytes17, ops17)``."""
+        lay, sc, stats, (cand, count, flags), pk = held
+        c16 = lambda fn: fn(x, prev, tris, tmask, lay, sc, zero(), failed)  # noqa: E731
+        c17 = lambda fn: fn(x, prev, tris, cand, count, flags, lay, sc, failed)  # noqa: E731
+        ms16, ms16p = (cuda_ms(lambda: c16(broadphase.tri_candidates), 10),
+                       cuda_ms(lambda: c16(broadphase.tri_candidates_plain), 2))
+        ms17, ms17p = (cuda_ms(lambda: c17(broadphase.tri_ccd), 10),
+                       cuda_ms(lambda: c17(broadphase.tri_ccd_plain), 2))
+        # T16: positions at both times, the triangles and their mask read once,
+        # the candidate rows and counts written; all-pairs compares every
+        # pair's boxes (6 float comparisons), a grid branch every gathered
+        # candidate's (at most raw per row, per body row in the per-body one).
+        bytes16 = 24 * n_nodes + 16 * lay.t + 4 * lay.t * (lay.nb + 1)
+        ops16 = 6 * (lay.t * lay.t if mode == "allpairs" else lay.k * lay.raw)
+        # T17: the rows, counts, positions and triangles read once, the
+        # contacts written; ~200 float operations per corner test of a live
+        # lane.
+        bytes17 = 4 * lay.t * (lay.nb + 1) + 24 * n_nodes + 12 * lay.t + 20 * lay.cap
+        ops17 = 3 * 200 * stats["live_lanes"]
+        b16, b17 = bound(bytes16, ops16), bound(bytes17, ops17)
+        print(f"  {mode}: T16 {ms16:.4f} ms (plain {ms16p:.4f}, bound {b16[0]:.4f} ms, {b16[1]}),"
+              f" T17 {ms17:.4f} ms (plain {ms17p:.4f}, bound {b17[0]:.4f} ms, {b17[1]});"
+              f" {lay.t} rows, {lay.lanes} lanes, {stats['live_lanes']} live, {int(pk[2][0])}"
+              f" contacts ({smi})")
+        return ms16, ms16p, bytes16, ops16, ms17, ms17p, bytes17, ops17
+
     # ---- phase 2
     print(f"phase 2: T1-T4 against twins at {n_tets} tets, {4 * n_tets} nodes")
     s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False, device=dev)
@@ -438,6 +510,20 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     pk, _ = t6(broadphase.pt_narrowphase, x)
     n_contacts = int(pk[2][0])
     check(n_contacts > 0, f"contacts in the state: {n_contacts}")
+    print("phase 9b (on this state): T16 and T17 in the per-body branch, the packed node"
+          " layout switched off")
+    cap_b = 4 * cfg.budget.max_point_tri_contacts  # room for the per-face repetition
+    cfg_b = dataclasses.replace(cfg, body_nodes=0, body_node_offset=0, body_faces=(),
+                                budget=dataclasses.replace(cfg.budget,
+                                                           max_point_tri_contacts=cap_b))
+    # The reference: T5 and T6 on a fresh cache with zero slack (the cached
+    # pairs' slack tier may be evicted from a full row without a latch).
+    fresh = broadphase.detect_point_tri_collisions(x, prev, tmask, params, cfg, failed=failed,
+                                                   triangles=topo.triangles)[:3]
+    held = hold_tri("bodies", x, prev, topo.triangles, tmask, params, cfg_b, failed, fresh,
+                    "T5 and T6 (fresh)")
+    time_tri("bodies", x, prev, topo.triangles, tmask, failed, held, st.capacity)
+    del held, fresh
     st6 = stats["as found"]
     row("pt_narrowphase", "pies_tpu_torch/kernels/csrc/pt_narrowphase.cu",
         "pies_tpu/collision/broadphase.py:385", 0.0,
@@ -525,7 +611,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                 "constraint_rows": [proj.distance_rows, proj.bend_rows],
                 "shape_match": [proj.shape_rows, proj.goal_rows],
                 "super_broadphase": [broadphase.super_broadphase],
-                "super_narrowphase": [broadphase.super_narrowphase]}
+                "super_narrowphase": [broadphase.super_narrowphase],
+                "tri_candidates": [broadphase.tri_candidates], "tri_ccd": [broadphase.tri_ccd]}
 
     def reset_launches():
         for fns in wrappers.values():
@@ -1343,6 +1430,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         ms15 = cuda_ms(lambda: broadphase.super_narrowphase(x, prev, corners, ck, lay, sc,
                                                             zero(), failed), 10)
         print(f"  on the folded state: T14 rebuild {ms14:.4f} ms, T15 {ms15:.4f} ms ({smi})")
+        return x, prev, pk
 
     loose_path = [n for n in mixed_path if n != "constraint_rows"]
     print(f"phase 5b: the mesh of phase 5 with self-contact on, {mesh_warmup + 10} ticks")
@@ -1367,8 +1455,50 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         print(f"  {counts['contacts']} contacts: max |dx| against the collisions-off run {d:.3e}")
     check(all(launches["5b"][n] > 0 for n in loose_path),
           f"every kernel of the path launched: {launches['5b']}")
-    hold_loose(s, 0.75)
-    del s, mesh_off
+    xf, pf, _ = hold_loose(s, 0.75)
+    print(f"phase 9b (on this folded state): T16 and T17 in the all-pairs and cell-list"
+          f" branches, the super-body path switched off")
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    tris, tmask, failed = topo.triangles, topo.tri_mask, st.sim_failed
+    no_super = dict(super_k=0, super_packed_k=0, super_packed_m=0, super_packed_off=0,
+                    super_live_k=0, super_faces=(), super_packed_e=0, super_loose_face=-1)
+    # Contact caps with room for the per-face repetition (15,844 contacts on
+    # this state against T15's cap of 3,320) and for T15's pair buffer,
+    # which drops crossing-only lanes past twice the cap.  The cell list with
+    # the all-pairs width of 128 narrow slots and wider gathers: it drops a
+    # bucket's entries past entries_cap and a row's past its raw budget
+    # without a latch, as the JAX package does, so its contacts lie within
+    # the exact (all-pairs) set.
+    cap_t = 16 * cfg.budget.max_point_tri_contacts
+    budget_t = dataclasses.replace(cfg.budget, max_point_tri_contacts=cap_t)
+    tri_cfg = {"allpairs": dataclasses.replace(cfg, allpairs_broadphase_max=1 << 20,
+                                               budget=budget_t, **no_super),
+               "celllist": dataclasses.replace(
+                   cfg, allpairs_broadphase_max=0, **no_super, budget=dataclasses.replace(
+                       budget_t, max_narrow_candidates=128, max_entries_per_cell=64,
+                       max_candidates_per_tri=broadphase.TRI_MAX_RAW))}
+    # The reference: T14 and T15 on a fresh cache with zero slack.  The
+    # all-pairs sweep tests every overlapping pair, so its set contains
+    # theirs (equal on most states; on a small folded mesh it finds one
+    # crossing contact more).
+    fresh = broadphase.detect_point_tri_collisions(
+        xf, pf, tmask, params, dataclasses.replace(cfg, budget=budget_t), failed=failed,
+        corners=topo.super_corners, adj=topo.super_adj)[:3]
+    held = {"allpairs": hold_tri("allpairs", xf, pf, tris, tmask, params, tri_cfg["allpairs"],
+                                 failed, fresh, "T14 and T15 (fresh)", "contains")}
+    held["celllist"] = hold_tri("celllist", xf, pf, tris, tmask, params, tri_cfg["celllist"],
+                                failed, held["allpairs"][4], "the all-pairs branch", "within")
+    for m in ("allpairs", "celllist"):
+        ms16, ms16p, bytes16, ops16, ms17, ms17p, bytes17, ops17 = time_tri(
+            m, xf, pf, tris, tmask, failed, held[m], st.capacity)
+        if m == "allpairs":
+            row("tri_candidates", "pies_tpu_torch/kernels/csrc/tri_candidates.cu",
+                "pies_tpu/collision/broadphase.py:104", 0.0, ms16, ms16p, "equal", bytes16,
+                ops16)
+            row("tri_ccd", "pies_tpu_torch/kernels/csrc/tri_ccd.cu",
+                "pies_tpu/collision/broadphase.py:1769", 0.0, ms17, ms17p, "equal", bytes17,
+                ops17)
+    del s, mesh_off, held, xf, pf, fresh
 
     print(f"phase 6c: the rigged cloth of phase 6 with self-contact on, {cloth_first + 11} ticks")
     t0 = time.perf_counter()
@@ -1418,6 +1548,58 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     d = float((runs[0] - runs[1]).abs().max())
     check(d <= 1e-3, f"trajectories agree: max |dx| {d:.3e}")
 
+    # ---- phase 9 (a)
+    tri_path = ["substep_head", "tri_candidates", "tri_ccd", "pt_coupling", "ell_matvec", "pcg",
+                "pt_tail", "substep_tail"]
+
+    from pies_tpu_torch.scene.contact_piles import add_box_pile, add_tet_boxes
+
+    scenes9 = (
+        ("cloth_pd_20x20", lambda s: s.create_sheet((0, 10, 0), 1.0, 1.0, 5000.0), {},
+         ["constraint_rows"]),
+        ("two_tet_boxes", add_tet_boxes, {}, ["tet_force_nodes"]),
+        ("box_pile", add_box_pile, {}, ["constraint_rows"]),
+        ("box_pile_reference", add_box_pile, dict(broadphase_mode="reference"),
+         ["constraint_rows"]),
+    )
+    launches["9"] = {n: 0 for n in wrappers}
+    for name, build, kw, extra in scenes9:
+        runs = []
+        for plain in (False, True):
+            s = pt.Solver(pt.SolverOptions(solver=PD), device=dev, **kw)
+            build(s)
+            counts = []
+            reset_launches()
+            for _ in range(40):
+                c = pd.new_counters(dev)
+                advance(s, 1, plain, c)
+                counts.append(int(c["contacts"]))
+            runs.append((s, counts, s.sim_failed, read_launches()))
+        (sk, ck, fk, lk), (sp, cp, fp, lp) = runs
+        mode = broadphase.tri_mode(sk.config, sk.topology.tri_mask.shape[0])
+        n = sk._builder.num_nodes
+        d = float((sk.state.positions[:n] - sp.state.positions[:n]).abs().max())
+        print(f"phase 9a: {name} ({n} nodes, {int(sk.topology.tri_mask.sum())} triangles, the"
+              f" {mode} branch), 40 ticks, default Solver arguments{' ' if kw else ''}"
+              f"{kw or ''}: contacts per tick {ck}")
+        check(mode is not None and sk.config.enable_collisions, "self-contact on, a"
+              " per-triangle branch")
+        check(ck == cp and fk == fp and not fk, "kernels and twins: equal contact counts on"
+              " every tick, no latch")
+        check(d <= 1e-3, f"trajectories agree: max |dx| {d:.3e}")
+        if name != "cloth_pd_20x20":
+            check(sum(ck) > 0, "contacts in the run")
+        path = tri_path + extra
+        check(all(lk[k] > 0 for k in path) and not any(lp.values()),
+              f"every kernel of the path launched, the twins none: {lk}")
+        for k in wrappers:
+            launches["9"][k] += lk[k]
+        reset_launches()
+        sec, _ = window(sk, 10, False)
+        per = {k: v / 10 for k, v in read_launches().items() if v}
+        print(f"  kernels: {sec * 1e3:.3f} ms/tick, launches per tick {per} ({smi})")
+        del runs, sk, sp
+
     table = []
     mixed_rows = {"super_broadphase": "super_broadphase",
                   "super_narrowphase": "super_narrowphase",
@@ -1425,6 +1607,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     for name, r in rows.items():
         if name in mixed_rows:
             r["launches"] = launches["7"][mixed_rows[name]]
+        elif name in ("tri_candidates", "tri_ccd"):
+            r["launches"] = launches["9"][name]
         elif name.endswith("_cloth") or name in ("constraint_rows", "shape_match"):
             key = {"assemble_force_cloth": "tet_force_nodes", "ell_matvec_cloth": "ell_matvec",
                    "pcg_cloth": "pcg"}.get(name, name)

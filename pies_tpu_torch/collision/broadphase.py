@@ -1,6 +1,5 @@
-"""Point-triangle detection on the packed-body and the super-body layouts
-(port of ``pies_tpu/collision/broadphase.py:37-101,210-644,647-1085,
-1271-1355,1641-1766``).
+"""Point-triangle detection (port of ``pies_tpu/collision/broadphase.py:
+37-1181,1257-1448,1551-1900``): every branch of the JAX package's dispatch.
 
 On the packed-body layout every collision body owns ``m`` contiguous nodes
 and ``e`` triangles with one local corner pattern (a tet of the soup: 4
@@ -27,12 +26,24 @@ reference spans all nodes) and T15 :func:`super_narrowphase` (the static
 (corner, face) combos with their class masks, contacts decoded through
 ``corners``).
 
+Every other scene takes one of the per-triangle branches (``TriLayout``):
+all-pairs for at most ``allpairs_broadphase_max`` triangles, the cell list
+for larger ones, per-body cell lists for a uniform body stride without the
+packed node layout, and the reference's multi-cell sweep under
+``broadphase_mode="reference"``.  They share two kernels: T16
+:func:`tri_candidates` (each branch's candidates, packed ascending into a
+row per triangle, with the latches as device flags) and T17
+:func:`tri_ccd` (the CCD of each own corner against each candidate, the
+hits compacted in the JAX package's chunk-major order).  These branches
+keep no cache.
+
 The JAX package's TPU workarounds are not ported (width tiers, forced
 transposes, one-hot lookups, ``optimization_barrier``); everything runs at
 the full static width, and its width-independent results are kept.  The
 order that decides what survives a cap is the JAX package's: bucket entries
 in entry order, candidates in query-cell order, lanes in (class, body,
-slot) order and contacts in (lane, combo) order.
+slot) order and contacts in (lane, combo) order on the body layouts, and in
+(chunk of 8 slots, triangle, slot, corner) order on the per-triangle ones.
 """
 
 from __future__ import annotations
@@ -50,11 +61,18 @@ from .grid import (
     PACKED_MAX_ENTRIES,
     aabb_cell_slots,
     build_grid,
+    gather_candidates,
     gather_entries,
     query_buckets,
     table_size_for,
 )
-from .narrowphase import _sub_c, point_triangle_ccd_cols, point_triangle_phase1_face
+from .narrowphase import (
+    _cols,
+    _sub_c,
+    point_triangle_ccd,
+    point_triangle_ccd_cols,
+    point_triangle_phase1_face,
+)
 from ..ops.math3d import ieee_div as _div
 
 _F32 = np.float32
@@ -109,17 +127,10 @@ def super_body(config: StepConfig) -> bool:
 
 
 def check_detection(config: StepConfig) -> None:
-    """Raise for the detection branches that are not ported yet."""
-    if config.broadphase_mode == "reference":
-        raise NotImplementedError(
-            "broadphase_mode='reference' (the quirk-faithful per-triangle sweep) is ROADMAP"
-            " queue 1 item 6b")
-    if not packed(config) and not super_body(config):
-        raise NotImplementedError(
-            "point-triangle detection off the packed-body and super-body layouts (the"
-            " all-pairs broadphase of scenes with at most allpairs_broadphase_max"
-            " triangles, the cell-list and per-body broadphases of scenes whose layout the"
-            " super-body detection refuses) is ROADMAP queue 1 item 6b")
+    """Raise for a configuration no detection branch takes."""
+    if config.broadphase_mode not in ("celllist", "reference"):
+        raise ValueError(f"broadphase_mode must be 'celllist' or 'reference', got"
+                         f" {config.broadphase_mode!r}")
 
 
 def body_layout(config: StepConfig, n_tris: int) -> BodyLayout:
@@ -182,11 +193,12 @@ def _insertion_slots(lo, hi, live):
 def _aabb_prefilter_pack(cand, valid, lo, hi, margin, exact_margin, narrow,
                          rows: slice = slice(None)):
     """Keep candidates whose AABBs overlap (inflated by ``margin``), exact
-    overlaps (``exact_margin``) before slack-only ones, each tier by body id
+    overlaps (``exact_margin``) before slack-only ones, each tier by id
     with duplicates dropped, into ``narrow`` slots (``broadphase.py:
     1641-1766``).  ``cand`` and ``valid`` hold the rows ``rows`` of the
     bounds ``lo``, ``hi``.  Returns ``(packed, packed_valid, narrow_over,
-    exact_over)``; slots past the valid prefix hold 0."""
+    exact_over)``, the latches as bool tensors; slots past the valid prefix
+    hold 0."""
     k, b = cand.shape
     c = cand.long()
     a_lo, a_hi = lo[c], hi[c]
@@ -208,7 +220,7 @@ def _aabb_prefilter_pack(cand, valid, lo, hi, margin, exact_margin, narrow,
     slot = torch.arange(narrow, device=cand.device)[None, :]
     pvalid = slot < torch.clamp_max(total, narrow)[:, None]
     packed_ = torch.where(pvalid, packed_full[:, :narrow], 0).to(torch.int32)
-    return packed_, pvalid, bool((total > narrow).any()), bool((exact_total > narrow).any())
+    return packed_, pvalid, (total > narrow).any(), (exact_total > narrow).any()
 
 
 def body_broadphase_plain(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLayout,
@@ -296,10 +308,6 @@ def body_broadphase(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLayout,
 
 
 body_broadphase.launches = 0
-
-
-def _cols(v: torch.Tensor):
-    return (v[..., 0], v[..., 1], v[..., 2])
 
 
 def pt_narrowphase_plain(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLayout,
@@ -442,15 +450,24 @@ def detect_point_tri_collisions(x, prev, tri_mask, params: PhysicsParams, config
                                 cache: BroadphaseCache | None = None,
                                 failed: torch.Tensor | None = None, plain: bool = False,
                                 corners: torch.Tensor | None = None,
-                                adj: torch.Tensor | None = None):
-    """Point-triangle contacts of one substep on the packed-body path or,
-    with the scene's ``corners`` (and ``adj``) tables, the super-body path
-    (``broadphase.py:37-101``); the other branches raise.  With a cache of the scene's shape, it is
-    used and updated in place; without one every call rebuilds (a fresh
-    cache with zero slack gives exactly that).  Returns ``(pt_idx, pt_mask,
-    pt_count, overflow, rebuilt)``; ``overflow`` and ``rebuilt`` are i32[1]
-    device flags."""
+                                adj: torch.Tensor | None = None,
+                                triangles: torch.Tensor | None = None):
+    """Point-triangle contacts of one substep, dispatched as
+    ``broadphase.py:74-101`` does: the reference sweep, the packed-body
+    path, the super-body path (with the scene's ``corners`` and ``adj``
+    tables), the per-body cell list, all-pairs, or the cell list; the
+    per-triangle branches need ``triangles``.  With a cache of the scene's
+    shape, the body paths use and update it in place; without one every
+    call rebuilds (a fresh cache with zero slack gives exactly that).
+    Returns ``(pt_idx, pt_mask, pt_count, overflow, rebuilt)``; ``overflow``
+    and ``rebuilt`` are i32[1] device flags (``rebuilt`` stays 0 on the
+    per-triangle branches, which have no cache)."""
     check_detection(config)
+    mode = tri_mode(config, tri_mask.shape[0])
+    if mode is not None:
+        if triangles is None:
+            raise ValueError(f"the {mode} detection needs the scene's triangles")
+        return _detect_tri(x, prev, triangles, tri_mask, params, config, failed, plain, mode)
     if super_body(config):
         return _detect_super(x, prev, params, config, cache, failed, plain, corners, adj)
     lay = body_layout(config, tri_mask.shape[0])
@@ -865,3 +882,376 @@ def _detect_super(x, prev, params: PhysicsParams, config: StepConfig,
     rebuilt = bf(x, prev, corners, adj, cache, lay, sc, overflow, failed)
     pt_idx, pt_mask, pt_count = nf(x, prev, corners, cache, lay, sc, overflow, failed)
     return pt_idx, pt_mask, pt_count, overflow, rebuilt
+
+
+# ---------------------------------------------------------------------------
+# the per-triangle branches: kernels T16 and T17
+
+TRI_MODES = ("allpairs", "celllist", "bodies", "reference")
+# T16's flag words: [0] candidate slots filled over all rows (T17 does
+# nothing at 0), then one word per latch.
+TRI_FLAGS = ("filled", "size_over", "gather_over", "exact_over", "narrow_over", "ins_over",
+             "query_over", "unused")
+TRI_MAX_RAW = 1024  # kMaxRaw of kernels/csrc/tri_candidates.cu
+TRI_MAX_CELLS = 512  # kMaxCells
+TRI_TWIN_ROWS = 1 << 12  # rows the plain twins test or pack at a time
+
+
+def tri_mode(config: StepConfig, n_tris: int) -> str | None:
+    """The per-triangle branch a scene of ``n_tris`` (padded) triangles
+    takes, or None for the packed-body and super-body paths
+    (``broadphase.py:74-100``)."""
+    if config.broadphase_mode == "reference":
+        return "reference"
+    if packed(config) or super_body(config):
+        return None
+    if config.budget.body_stride > 1:
+        return "bodies"
+    return "allpairs" if n_tris <= config.allpairs_broadphase_max else "celllist"
+
+
+@dataclass(frozen=True)
+class TriLayout:
+    """The shapes of a per-triangle branch ``mode``: ``t`` triangle rows;
+    ``k`` grid items (triangles, or bodies of ``e`` triangles) with ``s``
+    insertion slots each; ``cells_cap`` cells per query window,
+    ``entries_cap`` entries read per bucket, ``raw`` candidates gathered per
+    item, ``nbb`` narrow bodies; ``nb`` candidate slots per triangle (the
+    all-pairs branch's escape width ``n2``, else ``max_narrow_candidates``),
+    ``cap`` contacts and a grid of ``h`` slots."""
+
+    mode: str
+    t: int
+    k: int
+    e: int
+    s: int
+    cells_cap: int
+    entries_cap: int
+    raw: int
+    nbb: int
+    nb: int
+    cap: int
+    h: int
+
+    @property
+    def chunk(self) -> int:
+        """Candidate slots per CCD chunk (``broadphase.py:1802``)."""
+        return min(8, self.nb)
+
+    @property
+    def nb_padded(self) -> int:
+        return -(-self.nb // self.chunk) * self.chunk
+
+    @property
+    def lanes(self) -> int:
+        return self.t * self.nb_padded
+
+    @property
+    def unpacked(self) -> bool:
+        """The JAX package's table holds 2^24 entries or more: a bucket
+        latches past the hard cap, not at the packed count's saturation."""
+        return self.k * self.s >= PACKED_MAX_ENTRIES
+
+
+def tri_layout(config: StepConfig, n_tris: int, mode: str) -> TriLayout:
+    b = config.budget
+    t, e, s, raw, nbb = n_tris, 1, 8, b.max_candidates_per_tri, 0
+    if mode == "allpairs":
+        n1 = min(b.max_narrow_candidates, t)
+        nb, h, raw = min(4 * n1, t), 0, 0
+    else:
+        nb = b.max_narrow_candidates
+        h = table_size_for(2 * t)
+    if mode == "bodies":
+        e, raw, nbb = b.body_stride, b.max_candidates_per_body, b.max_narrow_bodies
+        if t % e:
+            raise ValueError(f"{t} triangles are not bodies of {e}")
+        h = table_size_for(2 * (t // e))
+    elif mode == "reference":
+        s = b.max_cells_per_tri
+        h = min(table_size_for(t * s, 1.0), 1 << 22)
+    return TriLayout(mode=mode, t=t, k=t // e, e=e, s=s, cells_cap=b.max_cells_per_tri,
+                     entries_cap=b.max_entries_per_cell, raw=raw, nbb=nbb, nb=nb,
+                     cap=b.max_point_tri_contacts, h=h)
+
+
+def tri_scalars(params: PhysicsParams, config: StepConfig) -> Scalars:
+    """The scalars of a per-triangle branch: cell units of
+    ``broadphase_cell``, or in reference mode world units (with the
+    quirks) or ``grid_spacing`` (``broadphase.py:1578``)."""
+    if config.broadphase_mode == "reference":
+        scale = 1.0 if config.reference_quirks else params.grid_spacing
+        params = dataclasses.replace(params, broadphase_cell=scale)
+    return scalars(params)
+
+
+def tri_swept_aabb(x, prev, triangles, scale: float):
+    """Each triangle's AABB over its corners before and now, divided by
+    ``scale`` (``_tri_swept_aabb``, ``broadphase.py:1257-1262``)."""
+    tl = triangles.long()
+    p_now, p_prev = _div(x[tl], scale), _div(prev[tl], scale)
+    lo = torch.minimum(p_now.amin(1), p_prev.amin(1))
+    hi = torch.maximum(p_now.amax(1), p_prev.amax(1))
+    return lo, hi
+
+
+def _allpairs_plain(lo, hi, triangles, live, lay: TriLayout, sc: Scalars, flags):
+    """All triangles' AABBs against all (``broadphase.py:104-207``):
+    overlaps with the margin between live triangles that share no node,
+    each row's packed ascending into ``nb`` slots; ``narrow_over`` when a
+    row has more."""
+    t, nb, dev = lay.t, lay.nb, lo.device
+    cand = torch.zeros((t, nb), dtype=torch.int32, device=dev)
+    count = torch.zeros(t, dtype=torch.int32, device=dev)
+    cols = torch.arange(t, device=dev)
+    for r0 in range(0, t, TRI_TWIN_ROWS):
+        rows = slice(r0, min(r0 + TRI_TWIN_ROWS, t))
+        ov = ((lo[None] <= hi[rows, None] + sc.margin)
+              & (hi[None] >= lo[rows, None] - sc.margin)).all(-1)
+        ov &= live[rows, None] & live[None, :] & (cols[None, :] != cols[rows, None])
+        for a in range(3):
+            for b in range(3):
+                ov &= triangles[rows, a, None] != triangles[None, :, b]
+        pos = ov.cumsum(1) - 1
+        r, c = torch.nonzero(ov & (pos < nb), as_tuple=True)
+        cand[r0 + r, pos[r, c]] = c.to(torch.int32)
+        total = ov.sum(1)
+        count[rows] = total.clamp_max(nb).to(torch.int32)
+        flags[4] |= (total > nb).any().to(torch.int32)
+    return cand, count
+
+
+def _pack_rows(cand, valid, lo, hi, sc: Scalars, narrow: int, flags):
+    """The prefilter pack with one tier (``_aabb_prefilter_pack`` with
+    ``slack2 = 0``, ``dedup=True``) in blocks of rows: each row's unique
+    candidates whose AABB overlaps its own, ascending, into ``narrow``
+    slots; ``exact_over`` when a row has more.  Returns ``(packed, count)``."""
+    m = cand.shape[0]
+    packed = torch.zeros((m, narrow), dtype=torch.int32, device=cand.device)
+    count = torch.zeros(m, dtype=torch.int32, device=cand.device)
+    for r0 in range(0, m, TRI_TWIN_ROWS):
+        rows = slice(r0, min(r0 + TRI_TWIN_ROWS, m))
+        p, pv, _, over = _aabb_prefilter_pack(cand[rows], valid[rows], lo, hi, sc.margin,
+                                              sc.margin, narrow, rows)
+        packed[rows], count[rows] = p, pv.sum(1).to(torch.int32)
+        flags[3] |= over.to(torch.int32)
+    return packed, count
+
+
+def _cell_list(lo, hi, live, lay: TriLayout, raw: int, flags):
+    """One home-cell entry per item (two corners on an oversize axis),
+    queries over ``[lo − 1, hi]`` (``broadphase.py:1386-1428``): up to
+    ``raw`` candidate items per row, clamped to the item count."""
+    ins_coords, ins_valid = _insertion_slots(lo, hi, live)
+    grid = build_grid(ins_coords, ins_valid, lay.h)
+    q_coords, q_valid, _ = aabb_cell_slots(lo - 1.0, hi, lay.cells_cap, QUERY_RANGE_CAP)
+    cand, valid, over = gather_candidates(grid, q_coords, q_valid & live[:, None],
+                                          lay.entries_cap, raw)
+    flags[2] |= (over & live).any().to(torch.int32)
+    return torch.clamp_max(cand, lo.shape[0] - 1), valid
+
+
+def tri_candidates_plain(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scalars,
+                         overflow: torch.Tensor, failed: torch.Tensor | None = None):
+    """Plain twin of kernel T16, the candidate stage of a per-triangle
+    branch: ``(cand i32[T, nb], count i32[T], flags i32[8])``, each row's
+    candidates a packed ascending prefix of ``count`` slots (0 past it) and
+    ``flags`` the words of ``TRI_FLAGS``; ORs the latches into ``overflow``.
+    Nothing is found when latch slot 0 of ``failed`` is set."""
+    dev = x.device
+    flags = torch.zeros(8, dtype=torch.int32, device=dev)
+    if failed is not None and bool(failed[0]):
+        return (torch.zeros((lay.t, lay.nb), dtype=torch.int32, device=dev),
+                torch.zeros(lay.t, dtype=torch.int32, device=dev), flags)
+    lo, hi = tri_swept_aabb(x, prev, triangles, sc.cell)
+    live = tri_mask > 0
+    if lay.mode == "allpairs":
+        cand, count = _allpairs_plain(lo, hi, triangles, live, lay, sc, flags)
+    elif lay.mode == "celllist":
+        flags[1] |= ((((hi - lo) > sc.size_limit).any(-1) & live).any()).to(torch.int32)
+        raw, valid = _cell_list(lo, hi, live, lay, lay.raw, flags)
+        cand, count = _pack_rows(raw, valid, lo, hi, sc, lay.nb, flags)
+    elif lay.mode == "bodies":
+        # Body boxes over their live triangles (broadphase.py:1117-1166).
+        k, e = lay.k, lay.e
+        big = 3.0e38
+        lo_b = torch.where(live[:, None], lo, big).view(k, e, 3).amin(1)
+        hi_b = torch.where(live[:, None], hi, -big).view(k, e, 3).amax(1)
+        live_b = live.view(k, e).any(1)
+        lo_b = torch.where(live_b[:, None], lo_b, 0.0)
+        hi_b = torch.where(live_b[:, None], hi_b, 0.0)
+        flags[1] |= ((((hi_b - lo_b) > sc.size_limit).any(-1) & live_b).any()).to(torch.int32)
+        raw, valid = _cell_list(lo_b, hi_b, live_b, lay, lay.raw, flags)
+        bodies, n_b = _pack_rows(raw, valid, lo_b, hi_b, sc, lay.nbb, flags)
+        # Each body's list, expanded to its bodies' triangles, for each of
+        # its triangles.
+        tri = (bodies.long()[:, :, None] * e + torch.arange(e, device=dev)).reshape(k, -1)
+        slot = torch.arange(lay.nbb * e, device=dev)[None, :]
+        ok = slot < (n_b.long() * e)[:, None]
+        tri, ok = tri.repeat_interleave(e, 0), ok.repeat_interleave(e, 0) & live[:, None]
+        cand, count = _pack_rows(tri, ok, lo, hi, sc, lay.nb, flags)
+    else:
+        # The reference's multi-cell sweep (broadphase.py:1584-1626): the
+        # duplicates it gathers are dropped by the pack.
+        s = lay.s
+        ins_coords, ins_valid, ins_over = aabb_cell_slots(lo, hi, s, 50)
+        q_coords, q_valid, q_over = aabb_cell_slots(lo, hi, s, 20)
+        grid = build_grid(ins_coords, ins_valid & live[:, None], lay.h)
+        raw, valid, over = gather_candidates(grid, q_coords, q_valid & live[:, None],
+                                             lay.entries_cap, lay.raw)
+        flags[2] |= (over & live).any().to(torch.int32)
+        flags[5] |= (ins_over & live).any().to(torch.int32)
+        flags[6] |= (q_over & live).any().to(torch.int32)
+        cand, count = _pack_rows(raw, valid, lo, hi, sc, lay.nb, flags)
+    flags[0] = count.sum()
+    overflow.bitwise_or_(flags[1:].amax().clamp_max(1).view(1))
+    return cand, count, flags
+
+
+def tri_candidates(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scalars,
+                   overflow: torch.Tensor, failed: torch.Tensor | None = None):
+    """Kernel T16 on CUDA tensors, :func:`tri_candidates_plain` on CPU
+    tensors (same arguments and results).  On the card ``failed`` is
+    required."""
+    if kernels.on_cpu(x):
+        return tri_candidates_plain(x, prev, triangles, tri_mask, lay, sc, overflow, failed)
+    if failed is None:
+        raise ValueError("the candidate kernel needs the failure latch")
+    if (lay.raw > TRI_MAX_RAW or lay.cells_cap > TRI_MAX_CELLS
+            or lay.nbb * lay.e > TRI_MAX_RAW):
+        raise ValueError(f"the candidate kernel takes at most {TRI_MAX_RAW} raw candidates"
+                         f" (narrow bodies times body stride) and {TRI_MAX_CELLS} query"
+                         " cells per row")
+    dev = x.device
+    kernels.require(dev, x, prev, triangles, tri_mask, overflow, failed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    h = max(lay.h, 1)
+    count_h = torch.empty(h, **i32)
+    cursor = torch.empty(h, **i32)
+    start = torch.empty(h + 1, **i32)
+    partial = torch.empty(kernels.scan_partials(h), **i32)
+    entries = torch.empty(max(1, lay.k * lay.s), **i32)
+    bounds = torch.empty((2, lay.t + lay.k, 3), dtype=torch.float32, device=dev)
+    bodies = torch.empty((lay.k, max(1, lay.nbb)), **i32)
+    n_bodies = torch.empty(lay.k, **i32)
+    cand = torch.empty((lay.t, lay.nb), **i32)
+    count = torch.empty(lay.t, **i32)
+    flags = torch.zeros(8, **i32)
+    err = kernels.lib().pies_tri_candidates(
+        x.data_ptr(), prev.data_ptr(), triangles.data_ptr(), tri_mask.data_ptr(),
+        count_h.data_ptr(), cursor.data_ptr(), start.data_ptr(), partial.data_ptr(),
+        entries.data_ptr(), bounds.data_ptr(), bodies.data_ptr(), n_bodies.data_ptr(),
+        cand.data_ptr(), count.data_ptr(), flags.data_ptr(), overflow.data_ptr(),
+        failed.data_ptr(), TRI_MODES.index(lay.mode), lay.t, lay.k, lay.e, lay.s,
+        lay.cells_cap, lay.entries_cap, lay.raw, lay.nbb, lay.nb, lay.h, int(lay.unpacked),
+        sc.cell, sc.margin, sc.size_limit, kernels.stream(),
+    )
+    kernels.check(err, "tri_candidates")
+    tri_candidates.launches += 1
+    return cand, count, flags
+
+
+tri_candidates.launches = 0
+
+
+def tri_ccd_plain(x, prev, triangles, cand, count, flags, lay: TriLayout, sc: Scalars,
+                  failed: torch.Tensor | None = None, stats: dict | None = None):
+    """Plain twin of kernel T17, the CCD stage of the per-triangle branches
+    (``_ccd_and_compact``, ``broadphase.py:1769-1900``): each live
+    (triangle, slot) pair that shares no node, each of the triangle's three
+    corners against the candidate, relative to its first node; hits in
+    chunk-major order (chunks of ``chunk`` slots; in a chunk by triangle,
+    slot, corner) into ``cap`` contacts.  Returns ``(pt_idx i32[cap, 4],
+    pt_mask f32[cap], pt_count i32[1])`` with the contacts a packed prefix.
+    ``stats``, when given, receives the live lanes and the hits before the
+    cap."""
+    dev, cap = x.device, lay.cap
+    pt_idx = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
+    pt_mask = torch.zeros(cap, dtype=torch.float32, device=dev)
+    pt_count = torch.zeros(1, dtype=torch.int32, device=dev)
+    if (failed is not None and bool(failed[0])) or int(flags[0]) == 0:
+        if stats is not None:
+            stats.update(live_lanes=0, contacts=0)
+        return pt_idx, pt_mask, pt_count
+    t, nb, c, bp = lay.t, lay.nb, lay.chunk, lay.nb_padded
+    # Lane l in chunk-major order: chunk l // (t·c), then triangle, then the
+    # slot in the chunk.
+    lane = torch.arange(lay.lanes, device=dev)
+    tri = (lane % (t * c)) // c
+    slot = (lane // (t * c)) * c + lane % c
+    ok = (slot < nb) & (slot < count.long()[tri])
+    tri, slot = tri[ok], slot[ok]
+    other = cand.long()[tri, slot]
+    tl = triangles.long()
+    own, oth = tl[tri], tl[other]
+    keep = (other != tri) & ~(own[:, :, None] == oth[:, None, :]).any(-1).any(-1)
+    tri, other, own, oth = tri[keep], other[keep], own[keep], oth[keep]
+    hits = []
+    for r0 in range(0, tri.shape[0], 1 << 20):
+        o, w = oth[r0: r0 + (1 << 20)], own[r0: r0 + (1 << 20)]
+        b0, b1 = prev[o[:, 0]], x[o[:, 0]]
+        ab0, ac0 = prev[o[:, 1]] - b0, prev[o[:, 2]] - b0
+        ab1, ac1 = x[o[:, 1]] - b1, x[o[:, 2]] - b1
+        hit = [point_triangle_ccd(prev[w[:, k]] - b0, ab0, ac0, x[w[:, k]] - b1, ab1, ac1,
+                                  sc.thr)[0] for k in range(3)]
+        hits.append(torch.stack(hit, 1))
+    hit = torch.cat(hits) if hits else torch.zeros((0, 3), dtype=torch.bool, device=dev)
+    flat = torch.nonzero(hit.reshape(-1)).reshape(-1)
+    if stats is not None:
+        stats.update(live_lanes=int(tri.shape[0]), contacts=int(flat.shape[0]))
+    flat = flat[:cap]
+    n = flat.shape[0]
+    if n:
+        pair, corner = flat // 3, flat % 3
+        pt_idx[:n, 0] = own[pair, corner].to(torch.int32)
+        pt_idx[:n, 1:] = oth[pair].to(torch.int32)
+        pt_mask[:n] = 1.0
+    pt_count.fill_(n)
+    return pt_idx, pt_mask, pt_count
+
+
+def tri_ccd(x, prev, triangles, cand, count, flags, lay: TriLayout, sc: Scalars,
+            failed: torch.Tensor | None = None):
+    """Kernel T17 on CUDA tensors, :func:`tri_ccd_plain` on CPU tensors
+    (same arguments and results).  On the card the count stays on the
+    device, the kernel does nothing past its first stage when ``flags[0]``
+    (the candidate slots T16 filled) is 0, and ``failed`` is required."""
+    if kernels.on_cpu(x):
+        return tri_ccd_plain(x, prev, triangles, cand, count, flags, lay, sc, failed)
+    if failed is None:
+        raise ValueError("the CCD kernel needs the failure latch")
+    if lay.lanes >= 1 << 31:
+        raise ValueError("the CCD kernel takes fewer than 2^31 lanes")
+    dev = x.device
+    kernels.require(dev, x, prev, triangles, cand, count, flags, failed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    cap = lay.cap
+    hits = torch.empty(lay.lanes, dtype=torch.uint8, device=dev)
+    partial = torch.empty(kernels.scan_partials(max(lay.lanes, cap)) + 1, **i32)
+    pt_idx = torch.empty((cap, 4), **i32)
+    pt_mask = torch.empty(cap, dtype=torch.float32, device=dev)
+    pt_count = torch.empty(1, **i32)
+    err = kernels.lib().pies_tri_ccd(
+        x.data_ptr(), prev.data_ptr(), triangles.data_ptr(), cand.data_ptr(),
+        count.data_ptr(), flags.data_ptr(), hits.data_ptr(), partial.data_ptr(),
+        pt_idx.data_ptr(), pt_mask.data_ptr(), pt_count.data_ptr(), failed.data_ptr(),
+        lay.t, lay.nb, lay.chunk, cap, sc.thr, kernels.stream(),
+    )
+    kernels.check(err, "tri_ccd")
+    tri_ccd.launches += 1
+    return pt_idx, pt_mask, pt_count
+
+
+tri_ccd.launches = 0
+
+
+def _detect_tri(x, prev, triangles, tri_mask, params: PhysicsParams, config: StepConfig,
+                failed, plain: bool, mode: str):
+    """A per-triangle branch of :func:`detect_point_tri_collisions`."""
+    lay = tri_layout(config, triangles.shape[0], mode)
+    sc = tri_scalars(params, config)
+    overflow = torch.zeros(1, dtype=torch.int32, device=x.device)
+    cf, df = (tri_candidates_plain, tri_ccd_plain) if plain else (tri_candidates, tri_ccd)
+    cand, count, flags = cf(x, prev, triangles, tri_mask, lay, sc, overflow, failed)
+    pt_idx, pt_mask, pt_count = df(x, prev, triangles, cand, count, flags, lay, sc, failed)
+    return pt_idx, pt_mask, pt_count, overflow, torch.zeros_like(overflow)

@@ -1,5 +1,5 @@
 """Uniform-grid broadphase with a direct-address bucket table (port of
-``pies_tpu/collision/grid.py:33-187,254-359``), in plain PyTorch.
+``pies_tpu/collision/grid.py:33-187,254-411``), in plain PyTorch.
 
 Every item expands to (cell, item) entries; entries are keyed by the
 reference's cell hash (``SpatialHash.h:28-34``) masked into a power-of-two
@@ -7,8 +7,9 @@ table and sorted stably by slot, so each bucket lists its entries in entry
 order (``item·S + slot``).  A bucket is a (start, count) pair; a query walks
 its cells in order and takes at most ``per_cell_cap`` entries of each.
 
-These are the plain twins of the bucket stages of kernel T5
-(``kernels/csrc/body_broadphase.cu``).  The JAX package's TPU workarounds
+These are the plain twins of the bucket stages of kernels T5, T14 and T16
+(``kernels/csrc/body_broadphase.cu``, ``super_broadphase.cu``,
+``tri_candidates.cu``).  The JAX package's TPU workarounds
 (the packed one-gather table, the width tiers, ``_lookup_i32``, ``_idiv``,
 ``_rank_and_prev``) are not ported; their results are kept: counts saturate
 as the packed table's 7-bit field does, so a bucket of 127 or more entries
@@ -143,3 +144,17 @@ def gather_entries(grid: HashGrid, start: torch.Tensor, offsets: torch.Tensor,
     entry = torch.where(valid, st + b - prev, 0).long()
     cand = torch.where(valid, grid.sorted_items[entry.clamp_max(grid.sorted_entries.shape[0] - 1)], 0)
     return cand.to(torch.int32), valid
+
+
+def gather_candidates(grid: HashGrid, query_coords: torch.Tensor, query_valid: torch.Tensor,
+                      per_cell_cap: int, budget: int, hard_cap: int = HARD_CAP):
+    """Up to ``budget`` candidate items per query row: :func:`query_buckets`
+    then :func:`gather_entries`.  Entries past ``per_cell_cap`` in a bucket
+    and past ``budget`` in a row are dropped; a row latches as
+    :func:`query_buckets` says (the reference's ``_simFailed``,
+    ``Solver.cpp:741-755``).  Returns ``(candidates i32[M, budget], valid
+    bool[M, budget], overflow bool[M])``."""
+    start, offsets, total, overflow = query_buckets(grid, query_coords, query_valid,
+                                                    per_cell_cap, hard_cap)
+    cand, valid = gather_entries(grid, start, offsets, total, budget)
+    return cand, valid, overflow

@@ -32,6 +32,8 @@ wrappers that call them sit beside their plain PyTorch twins:
 * T14 ``pies_super_broadphase`` — ``collision/broadphase.py:super_broadphase``
 * T15 ``pies_super_narrowphase`` —
   ``collision/broadphase.py:super_narrowphase``
+* T16 ``pies_tri_candidates`` — ``collision/broadphase.py:tri_candidates``
+* T17 ``pies_tri_ccd`` — ``collision/broadphase.py:tri_ccd``
 
 Each source compiles to an object in its own ``nvcc`` process, all started
 together, and the objects link into one library.
@@ -87,6 +89,8 @@ SIGNATURES = {
     "pies_bend_rows": [_P] * 6 + [_I, _P, _P],
     "pies_shape_rows": [_P] * 12 + [_I, _I, _I, _P, _P],
     "pies_goal_rows": [_P] * 6 + [_I, _P, _P],
+    "pies_tri_candidates": [_P] * 17 + [_I] * 12 + [_F] * 3 + [_P],
+    "pies_tri_ccd": [_P] * 12 + [_I] * 4 + [_F, _P],
 }
 
 _lib: ctypes.CDLL | None = None

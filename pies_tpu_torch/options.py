@@ -142,6 +142,9 @@ class PhysicsParams:
     floor_height: float
     collision_threshold_distance: float
     collision_thickness: float
+    # Cell size of the reference-mode triangle grid without its quirks
+    # (``Solver.cpp:659-670``).
+    grid_spacing: float
     # Cell size of the body broadphase grid (world units) and the temporal
     # cache's displacement bound (world units per axis; 0 = rebuild every
     # substep), set per scene by the host.
@@ -160,6 +163,7 @@ def make_params(options: SolverOptions, broadphase_cell: float = 1.0,
         floor_height=_f32(options.floor_height),
         collision_threshold_distance=_f32(options.collision_threshold_distance),
         collision_thickness=_f32(options.collision_thickness),
+        grid_spacing=_f32(options.grid_spacing),
         broadphase_cell=_f32(broadphase_cell),
         broadphase_slack=_f32(broadphase_slack),
     )

@@ -3,7 +3,7 @@
 NumPy only, and the same code as the JAX package's builder for the methods
 that are ported: ``np.random.default_rng(seed)`` is drawn in the same order,
 so one seed gives the same scene, bit for bit, in both packages.  Not ported
-yet: ``add_nodes`` and ``create_rope``.
+yet: ``create_rope``.
 """
 
 from __future__ import annotations
@@ -123,6 +123,11 @@ class SceneBuilder:
             self.volume_lo.append(np.full(tets.shape[0], volume[0], _F32))
             self.volume_hi.append(np.full(tets.shape[0], volume[1], _F32))
         self.tets.append(tets)
+
+    def add_nodes(self, vertices) -> np.ndarray:
+        """Free particles: mass 1, radius 0.5
+        (``PrimitiveUtilities.cpp:42-75``)."""
+        return self._emit_nodes(vertices, inv_mass=1.0, radius=0.5)
 
     def create_box(self, translation, scale: float, w: float):
         """5x5x5 distance-constraint lattice (``PrimitiveUtilities.cpp:620-847``):

@@ -6,8 +6,9 @@ PyTorch twin.  On the tet-column path (disjoint tet soups):
 
 * T3 :func:`substep_head` — inertia estimate, floor detection on the
   predicted positions, the system diagonal and the floor weight;
-* with self-contact on: T5 and T6 (``collision/broadphase.py``), the
-  point-triangle detection, and T7's setup (``tetcols.pt_coupling_setup``),
+* with self-contact on: the point-triangle detection
+  (``collision/broadphase.py``: T5 and T6 on packed bodies, else T16 and
+  T17), and T7's setup (``tetcols.pt_coupling_setup``),
   the node incidence and the contacts' diagonal;
 * T1 ``tet_force12`` — the first PD iteration's tet force;
 * T2 ``tetcols.substep_cols`` — the PD iterations with the direct 4x4 block
@@ -21,8 +22,8 @@ PyTorch twin.  On the tet-column path (disjoint tet soups):
 
 On the generic path (every other scene: wherever ``tetcols.applies``
 fails, as in the JAX package): T3; with self-contact on the detection (T5
-and T6 on packed bodies, T14 and T15 on the super-body layout) and T7's
-setup; then per PD iteration the local step
+and T6 on packed bodies, T14 and T15 on the super-body layout, T16 and T17
+on the per-triangle branches) and T7's setup; then per PD iteration the local step
 (``assembly.local_step``: T12 for distance and bend constraints, T13 for
 shape and goal groups, T9's stage 1 for tets, each filling its part of one
 force-row buffer), T9's stage 2 (``assembly.assemble_force``: the per-node
@@ -85,7 +86,8 @@ def self_contact(config: StepConfig, topo: Topology) -> bool:
 
 
 def check_detection(config: StepConfig) -> None:
-    """Raise for the detection branches that are not ported yet."""
+    """Raise for a detection the port does not run: an unknown broadphase
+    mode, or the floor's entry-list form."""
     if config.enable_collisions:
         broadphase.check_detection(config)
     if not config.dense_floor:
@@ -110,11 +112,11 @@ def detect_point_tri(state: SolverState, x: torch.Tensor, topo: Topology,
     """The point-triangle branch of ``step.default_detect_collisions``
     (``pies_tpu/solver/step.py:55-74``): kernels T5 and T6 (packed bodies)
     or T14 and T15 (the super-body layout) against the state's cache, which
-    is updated in place."""
+    is updated in place, or T16 and T17 (the per-triangle branches)."""
     pt_idx, pt_mask, pt_count, overflow, rebuilt = broadphase.detect_point_tri_collisions(
         x, state.prev_positions, topo.tri_mask, params, config, cache=state.bp,
         failed=state.sim_failed, plain=plain, corners=topo.super_corners,
-        adj=topo.super_adj)
+        adj=topo.super_adj, triangles=topo.triangles)
     return CollisionSet(floor_active=active, pt_idx=pt_idx, pt_mask=pt_mask,
                         pt_count=pt_count, overflow=overflow, rebuilt=rebuilt)
 

@@ -4,6 +4,7 @@
     python3 -m pies_tpu_torch.tick_profile --mesh [repeats]
     python3 -m pies_tpu_torch.tick_profile --cloth [repeats]
     python3 -m pies_tpu_torch.tick_profile --mixed [repeats]
+    python3 -m pies_tpu_torch.tick_profile --boxes [repeats] [--reference]
 
 Builds the 500k-particle soup (``create_tet_soup(n_tets, spacing=1.6,
 scale=0.8, w=2000.0, height=0.5, jitter=0.05)``, 125,000 tets by default),
@@ -17,14 +18,18 @@ its fixed region turned by 0.05 rad before the windows; or, with
 ``--mixed``, the cloth-over-soup scene of ``scene/mixed_drape.py`` (125,000
 tets and a 100 x 100 sheet, 510,000 nodes, self-contact on through the
 super-body detection), the generic path with contact terms and the banded
-tet operator.  It warms up until
+tet operator; or, with ``--boxes``, the pile of five ``create_box``es of
+``scene/contact_piles.py`` (625 nodes, 960 triangles) with the default
+arguments, self-contact through the per-triangle all-pairs branch (T16,
+T17), or with ``--reference`` as well through ``broadphase_mode=
+"reference"``.  It warms up until
 the window it measures is
 contact-active: 30 ticks without self-contact (the bottom layer reaches the
 floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
 bottom one rests on the floor), 75 for the mesh (its bottom, 3.0 above the
 floor, meets it at tick 70), 25 for the cloth (it lands at tick ~19), 50 for
 the mixed scene (the soup's layers meet at tick ~40, sheet and soup at tick
-49).  Then:
+49), 30 for the boxes (they touch from tick 27).  Then:
 
 * times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
   ends in a synchronize) and prints each, for the spread;
@@ -43,10 +48,12 @@ import time
 from pathlib import Path
 
 FLOOR_WARMUP, CONTACT_WARMUP, MESH_WARMUP, CLOTH_WARMUP, MIXED_WARMUP = 30, 45, 75, 25, 50
+BOXES_WARMUP = 30
 MESH = Path(__file__).resolve().parent.parent / "scripts" / "refbench" / "tet_cube_mesh_100k.txt"
 
 
-def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, mixed=False):
+def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, mixed=False,
+         boxes=False, reference=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -61,11 +68,20 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
         capture_output=True, text=True,
     ).stdout.strip()
     scene = ("the 110k mesh" if mesh else "the 512 x 512 rigged cloth" if cloth
-             else "the cloth over the soup" if mixed else "the soup")
-    collisions = collisions or mixed
-    print(f"card: {smi}; {scene}, self-contact {'on' if collisions else 'off'}")
-    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=collisions)
-    if mixed:
+             else "the cloth over the soup" if mixed else "the box pile" if boxes
+             else "the soup")
+    collisions = collisions or mixed or boxes
+    mode = "reference" if reference else "celllist"
+    print(f"card: {smi}; {scene}, self-contact {'on' if collisions else 'off'},"
+          f" broadphase_mode {mode}")
+    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=collisions,
+                  broadphase_mode=mode)
+    if boxes:
+        from pies_tpu_torch.scene.contact_piles import add_box_pile
+
+        add_box_pile(s)
+        s.run_ticks(BOXES_WARMUP)
+    elif mixed:
         from pies_tpu_torch.scene.mixed_drape import add_mixed_drape
 
         add_mixed_drape(s, n_tets, 100)
@@ -122,7 +138,8 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
 if __name__ == "__main__":
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
-    if "--mesh" in flags or "--cloth" in flags or "--mixed" in flags:
+    if {"--mesh", "--cloth", "--mixed", "--boxes"} & set(flags):
         sys.exit(main(125_000, *args[:1], mesh="--mesh" in flags, cloth="--cloth" in flags,
-                      mixed="--mixed" in flags))
+                      mixed="--mixed" in flags, boxes="--boxes" in flags,
+                      reference="--reference" in flags))
     sys.exit(main(*args, collisions="--collisions" in flags))

@@ -1,10 +1,10 @@
 """The port's generic PD path against the JAX package, driven through both
 packages' ``Solver``: the imported 1,331-node / 6,000-tet mesh
 (``scripts/refbench/tet_cube_mesh.txt``, the scene of
-``scripts/bench_all.py:116-121`` at a small size) with floor contact, and
-``create_tet_box`` (the other constraint families: ``tests/test_torch_cloth.py``).
-The JAX package runs with ``dense_operator_max=0`` so
-that both take Jacobi-PCG.
+``scripts/bench_all.py:116-121`` at a small size) with floor contact
+(``create_tet_box``: ``tests/test_torch_tet_box.py``; the other constraint
+families: ``tests/test_torch_cloth.py``).  The JAX package runs with
+``dense_operator_max=0`` so that both take Jacobi-PCG.
 
 Tolerances and why:
 
@@ -16,10 +16,6 @@ Tolerances and why:
   port: the JAX package parts by 4.5e-5, the port by 2.4e-5; the port
   parts from the JAX package by 4.8e-5.  (Without pins the JAX package's
   spread is 1.72e-4.)
-* 20 ticks of the tet box, 5e-5 absolute.  Measured against a float64 run
-  of the port: the JAX package parts by 4.8e-6 (4.1e-6 with the early
-  exit), the port by 1.3e-5 (1.8e-5); the port parts from the JAX package
-  by 1.0e-5 (1.6e-5).
 * floor-active node counts and the failure latch: equal on every tick.
 """
 
@@ -42,11 +38,13 @@ from pies_tpu_torch.solver import pd as tpd
 from pies_tpu_torch.solver import step as tstep
 from pies_tpu_torch.solver import tetcols as ttetcols
 
+from torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = os.path.join(REPO, "scripts", "refbench", "tet_cube_mesh.txt")
 PINS = [0, 10, 110, 120]  # the corners of the mesh's x = 0 face
 TICKS = 40
-STEP_TOL, MESH_TOL, BOX_TOL = 1e-5, 1e-4, 5e-5
+STEP_TOL, MESH_TOL = 1e-5, 1e-4
 
 
 def _mesh(s, pins):
@@ -122,27 +120,6 @@ def test_converter_carries_a_mesh_run_across():
                                    atol=tol, rtol=0, err_msg=f)
 
 
-@pytest.mark.parametrize("rtol", [0.0, 1e-6], ids=["fixed", "early_exit"])
-def test_tet_box_matches_reference(rtol):
-    """``create_tet_box`` with a 32-trip cap (tests/test_solver.py:411): 20
-    ticks in both packages, with the early exit on and off."""
-    kw = dict(enable_collisions=False, cg_iterations=32, cg_rtol=rtol)
-    j = pies_tpu.Solver(JOptions(solver=JName.PD), dense_operator_max=0, **kw)
-    t = pt.Solver(pt.SolverOptions(), device="cpu", **kw)
-    for s in (j, t):
-        s.create_tet_box((0, 2.0, 0), 1.0, (0, 0, 0), w=1500.0, mass=1.0)
-    t.counters = tpd.new_counters("cpu")
-    for _ in range(20):
-        j.tick()
-        t.tick()
-    trips = int(t.counters["cg_trips"])
-    assert (trips < 20 * 4 * 32) if rtol else (trips == 20 * 4 * 32)
-    a = np.asarray(j._state.positions)[:27]
-    b = t.state.positions[:27].numpy()
-    assert np.abs(a - b).max() <= BOX_TOL
-    assert not t.sim_failed and not j.sim_failed
-
-
 def test_mesh_failure_latch_matches_reference():
     """A non-finite velocity latches sim_failed on the first tick in both
     packages, and later ticks leave the port's state as it is."""
@@ -173,17 +150,12 @@ def test_generic_cases_not_ported_yet_raise():
     s.create_tet_soup(8, spacing=1.6, scale=0.8, w=2000.0)
     with pytest.raises(NotImplementedError, match="item 5c"):
         s.tick()
-    # The mesh's 1,200 triangles take the super-body detection, which is
-    # ported; the reference-mode sweep and scenes of at most 1,024 triangles
-    # are item 6b.
-    s = _mesh(pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu",
-                        broadphase_mode="reference"), None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        s.tick()
+    # Self-contact runs on every PD scene (tests/test_torch_tri_detect.py);
+    # edge-edge contacts and ropes do not.
+    with pytest.raises(NotImplementedError, match="item 8"):
+        pt.Solver(pt.SolverOptions(), enable_edge_collisions=True, device="cpu")
     s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu")
-    s.create_sheet((0, 1.0, 0), 0.5, 1.0, 5000.0)  # a small cloth with self-contact on
-    with pytest.raises(NotImplementedError, match="item 6"):
-        s.tick()
+    s.create_sheet((0, 1.0, 0), 0.5, 1.0, 5000.0)
     with pytest.raises(NotImplementedError, match="item 7"):
         s.create_rope((0, 0, 0), (1, 0, 0), 8, 100.0)
 

@@ -33,6 +33,7 @@ import pies_tpu_torch as pt
 from pies_tpu_torch.collision import broadphase
 from pies_tpu_torch.collision.batches import CollisionSet, incident
 from pies_tpu_torch.constraints import projections as proj
+from pies_tpu_torch.options import CollisionBudget
 from pies_tpu_torch.scene.mesh_dump import add_tet_mesh, load_mesh_txt
 from pies_tpu_torch.solver import assembly, pd, step, tetcols
 
@@ -753,6 +754,180 @@ def test_super_kernels_match_twins_over_a_trajectory(cuda):
         before = [f.launches for f in wrappers]
         counts = []
         for _ in range(30):
+            c = pd.new_counters(cuda)
+            step.tick(s.state, s.topology, s.current_params(), s.config, plain=plain,
+                      counters=c)
+            counts.append({k: int(v) for k, v in c.items()})
+        assert not s.sim_failed
+        runs.append((counts, s.state.positions.clone(),
+                     [f.launches - n for f, n in zip(wrappers, before)]))
+    (ck, xk, lk), (cp, xp, lp) = runs
+    assert ck == cp and sum(c["contacts"] for c in ck) > 0
+    assert float((xk - xp).abs().max()) <= 1e-5
+    assert all(n > 0 for n in lk) and not any(lp)
+
+
+# ---------------------------------------------------------------------------
+# the per-triangle branches: T16 and T17
+
+TRI_WRAPPERS = (broadphase.tri_candidates, broadphase.tri_ccd)
+TRI_MODES_OFF = dict(super_k=0, super_packed_k=0, super_packed_m=0, super_packed_off=0,
+                     super_live_k=0, super_faces=(), super_packed_e=0, super_loose_face=-1)
+
+
+def _box_pile(device, gap=0.3, **kw):
+    """``scene.contact_piles.add_box_pile``: 960 triangles, the all-pairs
+    branch with the default arguments."""
+    from pies_tpu_torch.scene.contact_piles import add_box_pile
+
+    return add_box_pile(pt.Solver(pt.SolverOptions(), device=device, **kw), gap=gap)
+
+
+def _mini_pile(device, n_tets=40, spread=1.0, seed=0):
+    """``n_tets`` random tets of side 0.5 crowded into a box of side
+    ``spread``, every node moved a little: rows with more overlaps than
+    ``max_narrow_candidates``.  Returns ``(x, prev, tris, mask)``."""
+    rng = np.random.default_rng(seed)
+    origins = rng.uniform(0.0, spread, (n_tets, 3)).astype(np.float32)
+    unit = np.float32([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]]) * np.float32(0.5)
+    prev = (origins[:, None] + unit[None]).reshape(-1, 3).astype(np.float32)
+    x = prev + rng.uniform(-0.05, 0.05, prev.shape).astype(np.float32)
+    faces = np.int32([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]])
+    tris = (np.arange(n_tets, dtype=np.int32)[:, None, None] * 4 + faces[None]).reshape(-1, 3)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(x), t(prev), t(tris), t(np.ones(tris.shape[0], np.float32))
+
+
+def _tri_kernels_against_twins(x, prev, tris, mask, params, config, mode):
+    """T16 then T17 on ``(x, prev)``, kernels and twins: asserts equal
+    candidate rows, counts, flag words, latch and contact lists; returns the
+    flag words and the contact count."""
+    lay = broadphase.tri_layout(config, tris.shape[0], mode)
+    sc = broadphase.tri_scalars(params, config)
+    failed = torch.zeros(2, dtype=torch.int32, device=x.device)
+    out = []
+    for cf, df in ((broadphase.tri_candidates, broadphase.tri_ccd),
+                   (broadphase.tri_candidates_plain, broadphase.tri_ccd_plain)):
+        over = torch.zeros(1, dtype=torch.int32, device=x.device)
+        cand, count, flags = cf(x, prev, tris, mask, lay, sc, over, failed)
+        contacts = df(x, prev, tris, cand, count, flags, lay, sc, failed)
+        out.append((cand, count, flags, over, contacts))
+    (ck, nk, fk, ok, pk), (cp, np_, fp, op, pp) = out
+    assert torch.equal(nk, np_) and torch.equal(ck, cp)
+    assert torch.equal(fk, fp) and torch.equal(ok, op)
+    for a, b in zip(pk, pp):
+        assert torch.equal(a, b)
+    return fk.tolist(), int(pk[2][0])
+
+
+def test_cpu_tensors_take_the_tri_twins():
+    s = _box_pile("cpu", gap=0.05)
+    assert broadphase.tri_mode(s.config, s.topology.tri_mask.shape[0]) == "allpairs"
+    before = [f.launches for f in TRI_WRAPPERS + GENERIC_WRAPPERS]
+    s.counters = pd.new_counters("cpu")
+    s.run_ticks(2)
+    assert [f.launches for f in TRI_WRAPPERS + GENERIC_WRAPPERS] == before
+    assert int(s.counters["contacts"]) > 0 and not s.sim_failed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["allpairs", "celllist"])
+@pytest.mark.parametrize("n", [32, 128])
+def test_tri_kernels_equal_twins_on_a_folded_cloth(cuda, mode, n):
+    """The folded rigged cloth with the super-body path off, through the
+    all-pairs and the cell-list branches: contacts present."""
+    s, x, prev = _folded_cloth(cuda, n)
+    cfg = dataclasses.replace(s.config, allpairs_broadphase_max=1 << 20 if mode == "allpairs"
+                              else 0, **TRI_MODES_OFF)
+    topo = s.topology
+    flags, n_contacts = _tri_kernels_against_twins(x, prev, topo.triangles, topo.tri_mask,
+                                                   s.current_params(), cfg, mode)
+    assert n_contacts > 0 and flags[0] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["n2", "latch", "cut"])
+def test_tri_kernels_equal_twins_on_a_mini_pile(cuda, case):
+    """The all-pairs branch on dense mini-piles: rows past ``n1 = 32``
+    overlaps (the ``n2`` width), past ``n2`` (the ``narrow_over`` latch), and
+    a contact cap of 40 that cuts the list."""
+    x, prev, tris, mask = _mini_pile(cuda, 40, 0.2) if case == "latch" else _mini_pile(cuda, 24)
+    cap = 40 if case == "cut" else 4096
+    cfg = pt.StepConfig(budget=CollisionBudget(max_point_tri_contacts=cap))
+    params = pt.make_params(pt.SolverOptions(), broadphase_cell=1.0)
+    flags, n_contacts = _tri_kernels_against_twins(x, prev, tris, mask, params, cfg,
+                                                   "allpairs")
+    assert bool(flags[4]) == (case == "latch")
+    assert n_contacts == 40 if case == "cut" else n_contacts > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("move", [0.0, 0.07])
+def test_tri_kernels_equal_twins_on_bodies(cuda, move):
+    """The per-body branch: the 96-tet contact soup with ``body_nodes = 0``,
+    as built and moved (the ``exact_over`` latch)."""
+    s = pt.Solver(pt.SolverOptions(), device=cuda)
+    s.create_tet_soup(96, **CONTACT_SCENE)
+    cfg = dataclasses.replace(s.config, body_nodes=0, body_node_offset=0, body_faces=())
+    st, topo = s.state, s.topology
+    rng = np.random.default_rng(4)
+    x = st.positions + torch.from_numpy(
+        rng.uniform(-move, move, (st.capacity, 3)).astype(np.float32)).to(cuda) * st.node_mask[:, None]
+    flags, n_contacts = _tri_kernels_against_twins(x, st.prev_positions, topo.triangles,
+                                                   topo.tri_mask, s.current_params(), cfg,
+                                                   "bodies")
+    assert n_contacts > 0 and bool(flags[3]) == (move > 0.05)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quirks", [True, False])
+def test_tri_kernels_equal_twins_in_reference_mode(cuda, quirks):
+    """The reference sweep on the box pile with gaps of 0.05 (inside the CCD
+    threshold), every node moved a little, with world-unit cells and with
+    ``grid_spacing`` cells."""
+    s = _box_pile(cuda, gap=0.05, broadphase_mode="reference", reference_quirks=quirks)
+    st, topo = s.state, s.topology
+    rng = np.random.default_rng(3)
+    x = st.positions + torch.from_numpy(
+        rng.uniform(-0.02, 0.02, (st.capacity, 3)).astype(np.float32)).to(cuda) * st.node_mask[:, None]
+    flags, n_contacts = _tri_kernels_against_twins(x, st.prev_positions, topo.triangles,
+                                                   topo.tri_mask, s.current_params(), s.config,
+                                                   "reference")
+    assert n_contacts > 0
+
+
+@pytest.mark.gpu
+def test_tri_kernels_on_a_failed_state_write_empty_outputs(cuda):
+    x, prev, tris, mask = _mini_pile(cuda, 24)
+    cfg = pt.StepConfig()
+    params = pt.make_params(pt.SolverOptions(), broadphase_cell=1.0)
+    lay = broadphase.tri_layout(cfg, tris.shape[0], "allpairs")
+    sc = broadphase.tri_scalars(params, cfg)
+    failed = torch.ones(2, dtype=torch.int32, device=cuda)
+    over = torch.zeros(1, dtype=torch.int32, device=cuda)
+    cand, count, flags = broadphase.tri_candidates(x, prev, tris, mask, lay, sc, over, failed)
+    pt_idx, pt_mask, pt_count = broadphase.tri_ccd(x, prev, tris, cand, count, flags, lay, sc,
+                                                   failed)
+    assert not cand.any() and not count.any() and not flags.any() and not over.any()
+    assert not pt_idx.any() and not pt_mask.any() and int(pt_count[0]) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["celllist", "reference"], ids=["allpairs", "reference"])
+def test_tri_kernels_match_twins_over_a_trajectory(cuda, mode):
+    """40 ticks of the box pile with the default arguments (all-pairs; with
+    ``broadphase_mode="reference"`` the reference sweep), kernels against
+    twins: the same contacts and CG trips on every tick, positions within
+    1e-5, and every kernel of the path launched (the boxes have distance
+    constraints and no tets)."""
+    wrappers = TRI_WRAPPERS + (pd.substep_head, proj.distance_rows, assembly.assemble_force,
+                               assembly.apply_system, assembly.pcg_solve, pd.substep_tail)
+    runs = []
+    for plain in (False, True):
+        s = _box_pile(cuda, broadphase_mode=mode)
+        before = [f.launches for f in wrappers]
+        counts = []
+        for _ in range(40):
             c = pd.new_counters(cuda)
             step.tick(s.state, s.topology, s.current_params(), s.config, plain=plain,
                       counters=c)

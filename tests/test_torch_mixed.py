@@ -42,7 +42,7 @@ from pies_tpu_torch.solver import step as tstep
 from pies_tpu_torch.solver import tetcols as ttetcols
 
 from test_torch_super import _jax_detect, _np, build, solvers
-from test_torch_super import two_threads  # noqa: F401  (autouse: two threads here too)
+from torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
 
 STEP_TOL, MIXED_TOL, CLOTH_TOL = 1e-5, 5e-3, 1e-4
 

@@ -243,18 +243,22 @@ def test_converter_carries_the_broadphase_cache():
 
 
 def test_self_contact_is_not_ported_yet():
-    """Self-contact of a scene with at most 1,024 triangles off the
-    packed-body layout (here: one body per triangle, the all-pairs path)
-    still raises."""
+    """Point-triangle self-contact runs on every PD scene (the soup below,
+    one body per triangle, takes the all-pairs branch on the tet-column
+    path; ``tests/test_torch_tri_detect.py`` holds it to the JAX package);
+    the self-contact kinds still to port raise and name their item."""
     s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu",
                   budget_overrides={"body_stride": 1})
     s.create_tet_soup(8, **SCENE)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        s.tick()
-    # A cloth is ported, but at this size its self-contact is the all-pairs path.
-    s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu")
+    s.tick()
+    assert not s.sim_failed and s.config.body_nodes == 0
+    for kind in ("enable_edge_collisions", "enable_node_collisions"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            pt.Solver(pt.SolverOptions(), device="cpu", **{kind: True})
+    s = pt.Solver(pt.SolverOptions(), enable_collisions=True, contact_coupling="full",
+                  device="cpu")
     s.create_sheet((0, 0, 0), 1.0, 1.0, 1.0)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 5c"):
         s.tick()
 
 

@@ -54,18 +54,7 @@ from pies_tpu_torch.solver import pd as tpd
 from pies_tpu_torch.solver import tetcols as ttetcols
 
 from test_torch_generic import _mesh
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """The scenes here are small: two threads for the twins keep the six
-    workers of a parallel test run from oversubscribing the cores (eight
-    OpenMP threads each slowed a tick of the 1,331-node mesh from 0.2 s to
-    over 10 s).  The process's thread count is restored after the module."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
+from torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
 
 
 SCENES = ("mixed", "cloth", "mesh")
@@ -388,18 +377,25 @@ def test_force_with_contact_terms_matches_reference():
 
 
 def test_branches_not_ported_raise_and_name_their_item():
+    """The detection branches of item 6b now prepare (the cloth at most
+    1,024 triangles, the reference sweep, a layout the super-body detection
+    refuses); what is still not ported raises and names its item."""
     kw = dict(device="cpu", allpairs_broadphase_max=0)
-    with pytest.raises(NotImplementedError, match="item 6b"):  # at most 1,024 triangles
-        build(pt.Solver(pt.SolverOptions(), device="cpu"), "cloth")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        build(pt.Solver(pt.SolverOptions(), broadphase_mode="reference", **kw), "cloth")
+    assert tb.tri_mode(build(pt.Solver(pt.SolverOptions(), device="cpu"), "cloth").config,
+                       168) == "allpairs"
+    s = build(pt.Solver(pt.SolverOptions(), broadphase_mode="reference", **kw), "cloth")
+    assert tb.tri_mode(s.config, 168) == "reference"
+    s = pt.Solver(pt.SolverOptions(), **kw)
+    s.create_tet_soup(8, spacing=1.6, scale=0.8, w=2000.0)
+    s._builder.tri_bodies[0] = np.repeat(np.arange(16), 2).astype(np.int32)  # half tets
+    s._prepare()
+    assert s.config.super_k == 0 and tb.tri_mode(s.config, 32) == "bodies"
     with pytest.raises(NotImplementedError, match="item 5c"):
         build(pt.Solver(pt.SolverOptions(), contact_coupling="full", **kw), "mixed")
-    with pytest.raises(NotImplementedError, match="item 6b"):  # a layout the detection refuses
-        s = pt.Solver(pt.SolverOptions(), **kw)
-        s.create_tet_soup(8, spacing=1.6, scale=0.8, w=2000.0)
-        s._builder.tri_bodies[0] = np.repeat(np.arange(16), 2).astype(np.int32)  # half tets
-        s._prepare()
+    with pytest.raises(NotImplementedError, match="item 8"):
+        pt.Solver(pt.SolverOptions(), enable_node_collisions=True, **kw)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        build(pt.Solver(pt.SolverOptions(solver=pt.SolverName.PBD), **kw), "cloth")
     # A soup off the tet-column path keeps its block structure: item 5c.
     with pytest.raises(NotImplementedError, match="item 5c"):
         s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device="cpu")
