@@ -7,7 +7,7 @@ Phases (any failure exits non-zero, before the result line):
 
 0. The card: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc
    versions, whether ``triton`` imports.  No CUDA device: exit 2.
-1. Build the seventeen kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
+1. Build the 21 kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
    one process per source, all at once (``-Xptxas -v`` output printed), and
    report the build time.
 2. T1-T4 against their plain PyTorch twins on the card, at the main path's
@@ -118,6 +118,24 @@ Phases (any failure exits non-zero, before the result line):
    from the first tick), 40 ticks, kernels against twins: contact counts
    equal on every tick, positions within 1e-3.
 
+10. The PBD solver (T18-T21), ``Solver(SolverOptions(solver=PBD))`` with
+   the default 4 iterations.  First the small scenes, 40 ticks each, kernels
+   against twins (counters equal on every tick, no latch, positions within
+   1e-3): the colour classes on the 8 x 8 net of ``tests/test_solver.py`` and
+   a ``create_box``, strain on a ``create_tet_box`` in both quirk modes, bends
+   on a ``create_bend_sheet``.  Then the cells, all with collisions on:
+   ``rope_pbd`` (2,048 particles) and ``pbd_node_pile`` (8,192) as
+   ``scripts/bench_all.py`` builds them, and both at 131,072 particles (1,024
+   ropes; the pile at the bench's density on 16x the floor,
+   ``scene/pbd_scenes.py``).  Each warms up until a tick has floor-active
+   nodes and touching pairs, runs 3 ticks of the kernels against 3 of the
+   twins from that state (positions within 1e-3; pair counts, rebuilds and
+   the latch equal), then a timed ``run_ticks(10)`` with the launch counters
+   reset before, gated on the device counters (live and touching pairs,
+   floor-active nodes, no sim_failed): ms/tick, launches, rebuilds, pairs
+   and touching pairs per tick.  Then T18-T21 against their twins at 131,072
+   particles, timed beside their bounds and ``index_add_``.
+
 The last two lines are the kernel table and the result as JSON objects.
 """
 
@@ -145,6 +163,9 @@ N_BLOBS = 4096
 MIXED_SHEET = 100  # the full mixed scene's sheet side (its soup has N_TETS tets)
 MIXED_FREE_FALL = 35  # ticks before sheet and soup can touch (they do from tick ~40)
 SMALL_SHEET = 32
+PBD_BIG = 131_072  # the PBD cells' full width
+PBD_BENCH = (2048, 8192)  # rope_pbd, pbd_node_pile at bench_all.py's sizes
+PBD_ROWS = ("pbd_constraints", "pbd_distance_seq", "node_pairs", "node_response")
 
 # The H100 SXM's published peaks (NVIDIA's datasheet): the least time
 # of a kernel is the larger of its bytes over the memory rate and its float32
@@ -244,7 +265,8 @@ def blob_solver(pt, n_bodies, dev):
 
 
 def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
-         cloth_n=CLOTH_N, n_blobs=N_BLOBS, mixed_sheet=MIXED_SHEET, small_sheet=SMALL_SHEET):
+         cloth_n=CLOTH_N, n_blobs=N_BLOBS, mixed_sheet=MIXED_SHEET, small_sheet=SMALL_SHEET,
+         pbd_big=PBD_BIG, pbd_bench=PBD_BENCH):
     import torch
 
     # ---- phase 0
@@ -270,7 +292,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     from pies_tpu_torch.collision import broadphase
     from pies_tpu_torch.collision.batches import CollisionSet, incident
     from pies_tpu_torch.constraints import projections as proj
-    from pies_tpu_torch.solver import assembly, pd, step, tetcols
+    from pies_tpu_torch.solver import assembly, pbd, pd, step, tetcols
 
     print("nvcc: " + run([kernels._nvcc(), "--version"]).splitlines()[-1])
     dev = dev or torch.device("cuda", 0)
@@ -296,6 +318,16 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=library_ms)
+
+    def index_add_ms(inc, rows, n):
+        """The library's yardstick for a per-node sum of ``rows`` over an
+        incidence (T9 stage 2): one ``index_add_`` of the rows into their
+        nodes (atomics, in no fixed order)."""
+        live = int(inc.row_start[-1])
+        node = torch.zeros(rows.shape[0], dtype=torch.long, device=dev)
+        node[inc.entries[:live].long()] = inc.nodes[:live].long()
+        return cuda_ms(lambda: torch.zeros((n, rows.shape[1]), device=dev).index_add_(0, node,
+                                                                                       rows), 20)
 
     def contact_set(contacts):
         idx, _, count = contacts
@@ -612,7 +644,11 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                 "shape_match": [proj.shape_rows, proj.goal_rows],
                 "super_broadphase": [broadphase.super_broadphase],
                 "super_narrowphase": [broadphase.super_narrowphase],
-                "tri_candidates": [broadphase.tri_candidates], "tri_ccd": [broadphase.tri_ccd]}
+                "tri_candidates": [broadphase.tri_candidates], "tri_ccd": [broadphase.tri_ccd],
+                "pbd_constraints": [pbd.substep_head, proj.jacobi_rows, pbd.apply_jacobi,
+                                    pbd.floor_clamp, pbd.substep_tail],
+                "pbd_distance_seq": [pbd.chain_scan, pbd.color_classes],
+                "node_pairs": [broadphase.node_pairs], "node_response": [broadphase.node_response]}
 
     def reset_launches():
         for fns in wrappers.values():
@@ -784,7 +820,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         cuda_ms(lambda: t9(proj.tet_force12_gathered, assembly.assemble_force), 20),
         cuda_ms(lambda: t9(proj.tet_force12_gathered_plain, assembly.assemble_force_plain), 3),
         f"{ulps} ulp", 124 * n_tets + (52 + 12 * pinned) * n_nodes,
-        1500 * n_tets + 12 * 4 * n_tets)
+        1500 * n_tets + 12 * 4 * n_tets, index_add_ms(topo.row_inc, bk, n_nodes))
 
     yk, pk = assembly.apply_system(x, st.mass, wf, h2, topo, failed, part=True)
     yp, pp = assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True)
@@ -974,7 +1010,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         "pies_tpu/solver/assembly.py:188", err,
         cuda_ms(lambda: assembly.assemble_force(x, msn, wf, rows_k, topo, plane, failed), 20),
         cuda_ms(lambda: assembly.assemble_force_plain(x, msn, wf, rows_k, topo, plane), 3),
-        "equal", 12 * n_rows + 52 * n_nodes, 3 * n_rows + 9 * n_nodes)
+        "equal", 12 * n_rows + 52 * n_nodes, 3 * n_rows + 9 * n_nodes,
+        index_add_ms(topo.row_inc, rows_k, n_nodes))
 
     yk, pk = assembly.apply_system(x, st.mass, wf, h2, topo, failed, part=True)
     yp, pp = assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True)
@@ -1282,7 +1319,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                 20),
         cuda_ms(lambda: assembly.assemble_force_plain(x, msn, wf, rows_k, topo, plane, None,
                                                       pt_p), 3),
-        "equal", 12 * n_rows + 52 * n_nodes + 20 * int(on.sum()), 3 * n_rows + 15 * n_nodes)
+        "equal", 12 * n_rows + 52 * n_nodes + 20 * int(on.sum()), 3 * n_rows + 15 * n_nodes,
+        index_add_ms(topo.row_inc, rows_k, n_nodes))
 
     yk, pk10 = assembly.apply_system(x, st.mass, sdk, h2, topo, failed, part=True)
     yp, pp10 = assembly.apply_system_plain(x, st.mass, sdp, h2, topo, part=True)
@@ -1600,6 +1638,217 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         print(f"  kernels: {sec * 1e3:.3f} ms/tick, launches per tick {per} ({smi})")
         del runs, sk, sp
 
+    # ---- phase 10
+    from pies_tpu_torch.scene.pbd_scenes import add_net, add_node_pile, add_rope_fleet
+
+    PBD = pt.SolverName.PBD
+
+    def pbd_solver(build, **kw):
+        s = pt.Solver(pt.SolverOptions(solver=PBD), device=dev, **kw)
+        build(s)
+        s._prepare()
+        return s
+
+    def pbd_tick(s, plain, state=None):
+        """One tick of the kernels (``run_ticks``) or of the twins on the card
+        (on ``state`` when given, else the solver's); returns its device
+        counters."""
+        c = pbd.new_counters(dev)
+        if plain:
+            step.tick(state or s.state, s.topology, s.current_params(), s.config, plain=True,
+                      counters=c)
+        else:
+            s.counters = c
+            s.run_ticks(1)
+            s.counters = None
+        return {k: int(v) for k, v in c.items()}
+
+    small_pbd = (
+        ("net", add_net, dict(enable_collisions=False), "pbd_distance_seq"),
+        ("box", lambda s: s.create_box((0.0, 3.0, 0.0), 1.0, 0.5), {}, "pbd_distance_seq"),
+        ("tet_box_quirks", lambda s: s.create_tet_box((0.0, 3.0, 0.0), 1.0, (0, 0, 0), w=0.1,
+                                                      mass=1.0), dict(enable_collisions=False),
+         "pbd_constraints"),
+        ("tet_box_fixed", lambda s: s.create_tet_box((0.0, 3.0, 0.0), 1.0, (0, 0, 0), w=0.1,
+                                                     mass=1.0),
+         dict(enable_collisions=False, reference_quirks=False), "pbd_constraints"),
+        ("bend_sheet", lambda s: s.create_bend_sheet((0, 2.0, 0), 0.5, w=0.1),
+         dict(enable_collisions=False), "pbd_constraints"))
+    for name, build, kw, kernel in small_pbd:
+        runs = []
+        for plain in (False, True):
+            s = pbd_solver(build, **kw)
+            reset_launches()
+            counts = [pbd_tick(s, plain) for _ in range(40)]
+            runs.append((s, counts, s.sim_failed, read_launches()))
+        (sk, ck, fk, lk), (sp, cp, fp, lp) = runs
+        n = sk._builder.num_nodes
+        d = float((sk.state.positions[:n] - sp.state.positions[:n]).abs().max())
+        form = ("chains" if sk.config.distance_chain else
+                f"{len(sk.config.distance_colors)} colour classes" if sk.config.distance_colors
+                else "Jacobi")
+        print(f"phase 10: {name} ({n} nodes, distance form {form}), 40 ticks, kernels against"
+              f" twins: max |dx| {d:.3e}")
+        check(ck == cp and fk == fp and not fk, "equal counters on every tick, no latch")
+        check(d <= 1e-3, f"trajectories agree: max |dx| {d:.3e}")
+        check(lk[kernel] > 0 and not any(lp.values()), f"{kernel} launched, the twins launch"
+              f" nothing: {lk}")
+        del runs, sk, sp
+
+    def warm_to_contact(s, first, cap):
+        """``first`` ticks, then tick by tick until a tick has floor-active nodes
+        and touching pairs; returns the ticks run."""
+        s.run_ticks(first)
+        for t in range(cap):
+            c = pbd_tick(s, False)
+            if c["floor_active"] > 0 and c["touching"] > 0:
+                return first + t + 1
+        raise SystemExit(f"FAILED: no floor contact with touching pairs in {first + cap} ticks")
+
+    cells = (("rope_pbd", add_rope_fleet, pbd_bench[0], 35),
+             ("pbd_node_pile", add_node_pile, pbd_bench[1], 2),
+             ("rope fleet", add_rope_fleet, pbd_big, 35),
+             ("pile", add_node_pile, pbd_big, 2))
+    warmed = {}
+    for label, build, n_part, first in cells:
+        t0 = time.perf_counter()
+        s = pbd_solver(lambda s: build(s, n_part), enable_collisions=True)
+        setup = time.perf_counter() - t0
+        warm = warm_to_contact(s, first, 60)
+        print(f"phase 10: {label}, {n_part} particles ({s.state.capacity} slots,"
+              f" {'chains' if s.config.distance_chain else 'no distance constraints'}):"
+              f" set-up {setup:.2f} s, contact at tick {warm}")
+        # From the warmed state: 3 ticks of the kernels against 3 of the twins.
+        sp = clone_state(s.state)
+        ck = [pbd_tick(s, False) for _ in range(3)]
+        cp = [pbd_tick(s, True, sp) for _ in range(3)]
+        d = float((s.state.positions - sp.positions).abs().max())
+        check(d <= 1e-3 and s.sim_failed == sp.failed() == False,  # noqa: E712
+              f"3 ticks, kernels against twins: max |dx| {d:.3e}, no latch")
+        check([(c["pairs"], c["rebuilds"]) for c in ck] == [(c["pairs"], c["rebuilds"]) for c in cp],
+              f"pair counts and rebuilds equal on every tick: {ck}")
+        del sp
+        reset_launches()
+        c = pbd.new_counters(dev)
+        s.counters = c
+        t0 = time.perf_counter()
+        s.run_ticks(10)
+        sec = (time.perf_counter() - t0) / 10
+        s.counters = None
+        counts = {k: int(v) for k, v in c.items()}
+        lw = read_launches()
+        check(counts["pairs"] > 0 and counts["touching"] > 0 and counts["floor_active"] > 0
+              and not s.sim_failed and bool(torch.isfinite(s.state.positions).all()),
+              f"a contact-active window: {counts}")
+        per = {k: v / 10 for k, v in lw.items() if v}
+        print(f"  kernels: {sec * 1e3:.3f} ms/tick, {1.0 / sec:.2f} steps/s ({smi}); per tick:"
+              f" {counts['rebuilds'] / 10} rebuilds, {counts['pairs'] / 40:.1f} live and"
+              f" {counts['touching'] / 40:.1f} touching pairs per iteration,"
+              f" {counts['floor_active'] / 10:.1f} floor nodes; launches per tick {per}")
+        check(lw["node_pairs"] > 0 and lw["node_response"] > 0 and lw["pbd_constraints"] > 0
+              and (lw["pbd_distance_seq"] > 0 or build is add_node_pile),
+              "every kernel of the path launched")
+        launches["10 " + label] = lw
+        if n_part == pbd_big:
+            warmed[label] = s
+        else:
+            del s
+
+    # T18-T21 against their twins at the full width, timed.
+    fleet, pile_s = warmed["rope fleet"], warmed["pile"]
+    n_big = fleet.state.capacity
+    params_f, cfg_f, topo_f = fleet.current_params(), fleet.config, fleet.topology
+
+    def t18(st, k):
+        """One substep's T18 launches on the fleet: head, per iteration the
+        pins' rows and application and the floor clamp, then the tail."""
+        (pbd.substep_head if k else pbd.substep_head_plain)(st, params_f, False)
+        for _ in range(cfg_f.iterations):
+            rows_fn = proj.jacobi_rows if k else proj.jacobi_rows_plain
+            vals = rows_fn("position", st.positions, st.inv_mass, topo_f.position,
+                           w_scale=1.0, failed=st.sim_failed)
+            (pbd.apply_jacobi if k else pbd.apply_jacobi_plain)(
+                st.positions, topo_f.jacobi.position, vals, st.sim_failed)
+            (pbd.floor_clamp if k else pbd.floor_clamp_plain)(
+                st.positions, st.radius, st.node_mask, params_f.floor_height, st.sim_failed)
+        (pbd.substep_tail if k else pbd.substep_tail_plain)(st, st.positions, params_f)
+
+    a, b = clone_state(fleet.state), clone_state(fleet.state)
+    t18(a, True)
+    t18(b, False)
+    err18 = float((a.positions - b.positions).abs().max())
+    check(err18 == 0.0 and torch.equal(a.velocities, b.velocities),
+          "T18 (head, pins, floor, tail) equals its twin on the fleet")
+    n_pins = int(topo_f.position.idx.shape[0])
+    vals = proj.jacobi_rows_plain("position", a.positions, a.inv_mass, topo_f.position)
+    pin_idx = topo_f.position.idx.long()
+    row("pbd_constraints", "pies_tpu_torch/kernels/csrc/pbd_constraints.cu",
+        "pies_tpu/solver/pbd.py:32", err18, cuda_ms(lambda: t18(a, True), 20),
+        cuda_ms(lambda: t18(b, False), 3), "equal",
+        72 * n_big + 36 * n_pins, 40 * n_big + cfg_f.iterations * 10 * n_pins,
+        cuda_ms(lambda: torch.zeros((n_big, 4), device=dev).index_add_(0, pin_idx, vals), 20))
+    ch = topo_f.chains
+    xk, xp = fleet.state.positions.clone(), fleet.state.positions.clone()
+    pbd.chain_scan(xk, ch, fleet.state.sim_failed)
+    pbd.chain_scan_plain(xp, ch)
+    err19 = float((xk - xp).abs().max())
+    check(err19 == 0.0, f"T19 chain walk equals its twin ({ch.idx0.shape[0]} chains of"
+          f" {ch.idx0.shape[1]} links)")
+    links = ch.idx0.numel()
+    row("pbd_distance_seq", "pies_tpu_torch/kernels/csrc/pbd_distance_seq.cu",
+        "pies_tpu/solver/pbd.py:91", err19,
+        cuda_ms(lambda: pbd.chain_scan(xk, ch, fleet.state.sim_failed), 20),
+        cuda_ms(lambda: pbd.chain_scan_plain(xp, ch), 3), "equal",
+        36 * links + 16 * ch.idx0.shape[0], 45 * links)
+    st = pile_s.state
+    params_p, cfg_p = pile_s.current_params(), pile_s.config
+    n_pile = st.capacity
+    ck, cp = st.nn.clone(), st.nn.clone()
+    for cc in (ck, cp):
+        cc.fresh.zero_()
+    args = (st.positions, st.radius, st.node_mask)
+    broadphase.node_pairs(*args, ck, params_p, cfg_p, st.sim_failed)
+    broadphase.node_pairs_plain(*args, cp, params_p, cfg_p, st.sim_failed)
+    pairs = int(cp.count[0])
+    same = int(ck.count[0]) == pairs and all(
+        torch.equal(getattr(ck, f)[:pairs], getattr(cp, f)[:pairs]) for f in ("pi", "pj", "inc_pair")
+    ) and all(torch.equal(getattr(ck, f), getattr(cp, f)) for f in ("row_off", "inc_start", "ref"))
+    check(same, f"T20 rebuild equals its twin: {pairs} pairs, prefix, ref and incidence")
+
+    def rebuild20(fn, cc):
+        cc.fresh.zero_()
+        fn(*args, cc, params_p, cfg_p, st.sim_failed)
+
+    ms_keep = cuda_ms(lambda: broadphase.node_pairs(*args, ck, params_p, cfg_p, st.sim_failed), 20)
+    row("node_pairs", "pies_tpu_torch/kernels/csrc/node_pairs.cu",
+        "pies_tpu/collision/broadphase.py:1903", 0.0,
+        cuda_ms(lambda: rebuild20(broadphase.node_pairs, ck), 20),
+        cuda_ms(lambda: rebuild20(broadphase.node_pairs_plain, cp), 3), "equal",
+        52 * n_pile + 12 * pairs, 0)
+    print(f"  node_pairs without a rebuild (the drift test): {ms_keep:.4f} ms")
+    vel = st.velocities
+    out_k = broadphase.node_response(st.positions, vel, st.radius, st.inv_mass, st.node_mask, ck,
+                                     params_p, st.sim_failed)
+    out_p = broadphase.node_response_plain(st.positions, vel, st.radius, st.inv_mass,
+                                           st.node_mask, cp, params_p, st.sim_failed)
+    err21 = max(float((out_k[0] - out_p[0]).abs().max()), float((out_k[1] - out_p[1]).abs().max()))
+    check(err21 == 0.0 and int(out_k[2][0]) == int(out_p[2][0]) > 0,
+          f"T21 equals its twin: {int(out_k[2][0])} touching of {pairs} pairs")
+    vi, vj, _ = broadphase.pair_terms(st.positions, vel, st.radius, st.inv_mass, cp.pi[:pairs],
+                                      cp.pj[:pairs], params_p)
+    rows21 = torch.cat([cp.pi[:pairs], cp.pj[:pairs]]).long()
+    vals21 = torch.cat([vi, vj])
+    row("node_response", "pies_tpu_torch/kernels/csrc/node_response.cu",
+        "pies_tpu/collision/broadphase.py:2035", err21,
+        cuda_ms(lambda: broadphase.node_response(st.positions, vel, st.radius, st.inv_mass,
+                                                 st.node_mask, ck, params_p, st.sim_failed), 20),
+        cuda_ms(lambda: broadphase.node_response_plain(st.positions, vel, st.radius,
+                                                       st.inv_mass, st.node_mask, cp, params_p,
+                                                       st.sim_failed), 3), "equal",
+        68 * n_pile + 12 * pairs, 140 * pairs,
+        cuda_ms(lambda: torch.zeros((n_pile, 6), device=dev).index_add_(0, rows21, vals21), 20))
+    del warmed, fleet, pile_s, a, b, xk, xp, ck, cp
+
     table = []
     mixed_rows = {"super_broadphase": "super_broadphase",
                   "super_narrowphase": "super_narrowphase",
@@ -1609,6 +1858,12 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             r["launches"] = launches["7"][mixed_rows[name]]
         elif name in ("tri_candidates", "tri_ccd"):
             r["launches"] = launches["9"][name]
+        elif name in PBD_ROWS:
+            # The 10-tick window of the cell the row was timed on, and each
+            # cell's own window beside it.
+            timed = "rope fleet" if name in PBD_ROWS[:2] else "pile"
+            r["launches"] = launches["10 " + timed][name]
+            r["launches_by_path"] = {c[0]: launches["10 " + c[0]][name] for c in cells}
         elif name.endswith("_cloth") or name in ("constraint_rows", "shape_match"):
             key = {"assemble_force_cloth": "tet_force_nodes", "ell_matvec_cloth": "ell_matvec",
                    "pcg_cloth": "pcg"}.get(name, name)

@@ -56,7 +56,13 @@ import torch
 
 from .. import kernels
 from ..options import PhysicsParams, StepConfig
-from ..state import BroadphaseCache, empty_broadphase_cache
+from ..state import (
+    BroadphaseCache,
+    empty_broadphase_cache,
+    empty_node_pair_cache,
+    pair_incidence,
+)
+from .batches import Incidence, csr_sum
 from .grid import (
     PACKED_MAX_ENTRIES,
     aabb_cell_slots,
@@ -1255,3 +1261,269 @@ def _detect_tri(x, prev, triangles, tri_mask, params: PhysicsParams, config: Ste
     cand, count, flags = cf(x, prev, triangles, tri_mask, lay, sc, overflow, failed)
     pt_idx, pt_mask, pt_count = df(x, prev, triangles, cand, count, flags, lay, sc, failed)
     return pt_idx, pt_mask, pt_count, overflow, torch.zeros_like(overflow)
+
+
+# ---------------------------------------------------------------------------
+# The PBD node-node response: T20 (node grid and pair cache), T21 (response)
+
+# World-units displacement bound of the node-pair cache
+# (``pies_tpu/collision/broadphase.py:2015``): the AABB padding of 0.5
+# keeps a touching pair's padded boxes overlapping while each node drifts
+# up to 0.5 per axis from where the grid was built; margin for roundoff.
+NN_CACHE_SLACK = float(np.float32(0.497))
+NODE_RANGE_CAP = 50  # per-axis cells of a node's box (broadphase.py:1933)
+NODE_TABLE_MAX = 1 << 22
+NODE_MAX_CELLS = 64  # kMaxNodeCells of kernels/csrc/node_pairs.cu
+NODE_MAX_BUDGET = 32  # a lane per candidate slot
+NODE_MAX_HEAD = 64  # kMaxHead: the largest max_entries_per_cell T20 takes
+NODE_SMALL_BUCKET = 32  # kSmallBucket: larger buckets are ordered by a warp
+
+
+def node_table_size(n: int, config: StepConfig) -> int:
+    """Slots of the node grid: ``min(table_size_for(n·cells, 1), 2^22)``."""
+    return min(table_size_for(n * config.budget.max_cells_per_node, 1.0), NODE_TABLE_MAX)
+
+
+def node_pair_candidates(x: torch.Tensor, radius: torch.Tensor, node_mask: torch.Tensor,
+                         params: PhysicsParams, config: StepConfig):
+    """Port of ``_node_pair_candidates`` (``broadphase.py:1903-1972``): every
+    live node's AABB padded by 0.5 (``NodeCompRange``, ``Solver.cpp:877-901``)
+    in ``grid_spacing`` cells, its cells (range cap 50), the grid, up to
+    ``max_candidates_per_node`` candidates per node in query-cell order
+    (``max_entries_per_cell`` per bucket), each row sorted and deduplicated.
+    Returns ``(cand i32[N, B], ok bool[N, B])``, ``ok`` marking unordered
+    pairs (``cand > i``) of live nodes."""
+    budget = config.budget
+    n = x.shape[0]
+    live = node_mask > 0
+    gs = params.grid_spacing
+    r_grid = _div(radius + 0.5, gs)
+    center = _div(x, gs)
+    coords, valid, _ = aabb_cell_slots(center - r_grid[:, None], center + r_grid[:, None],
+                                       budget.max_cells_per_node, NODE_RANGE_CAP)
+    valid = valid & live[:, None]
+    grid = build_grid(coords, valid, node_table_size(n, config))
+    cand, cand_valid, _ = gather_candidates(grid, coords, valid, budget.max_entries_per_cell,
+                                            budget.max_candidates_per_node)
+    sentinel = 2**31 - 1
+    cand_sorted = torch.sort(torch.where(cand_valid, cand, sentinel), dim=-1).values
+    first = torch.ones_like(cand_valid)
+    first[:, 1:] = cand_sorted[:, 1:] != cand_sorted[:, :-1]
+    cand_valid = first & (cand_sorted != sentinel)
+    cand = torch.clamp_max(cand_sorted, n - 1)
+    i_idx = torch.arange(n, dtype=torch.int32, device=x.device)[:, None]
+    ok = cand_valid & (cand > i_idx) & live[:, None] & live[cand.long()]
+    return cand.to(torch.int32), ok
+
+
+def node_pair_prefix(x, radius, node_mask, params: PhysicsParams, config: StepConfig):
+    """Port of ``_node_pair_prefix`` (``broadphase.py:2018-2032``): the
+    unordered pairs packed to a valid prefix in stable i-major order.
+    Returns ``(pi i32[NB], pj i32[NB], count)``; the tail holds the invalid
+    slots in order."""
+    cand, ok = node_pair_candidates(x, radius, node_mask, params, config)
+    n, bw = cand.shape
+    ok_f = ok.reshape(-1)
+    order = torch.sort((~ok_f).to(torch.int32), stable=True).indices
+    i_f = torch.arange(n, dtype=torch.int32, device=x.device).repeat_interleave(bw)
+    return i_f[order], cand.reshape(-1)[order], int(ok_f.sum())
+
+
+def pair_terms(x, vel, radius, inv_mass, pi, pj, params: PhysicsParams):
+    """The response of each pair ``(pi[k], pj[k])`` (``_pair_response_acc``,
+    ``broadphase.py:2035-2112``, ``Solver.cpp:95-129``): the 0.85-relaxed
+    mass-weighted push of a touching pair and its friction impulse.
+    Returns ``(vals_i f32[P, 6], vals_j f32[P, 6], touching bool[P])``, each
+    side's ``(dx | dv)``."""
+    a_i, b_i = pi.long(), pj.long()
+    df = [x[b_i, d] - x[a_i, d] for d in range(3)]
+    rl = [vel[b_i, d] - vel[a_i, d] for d in range(3)]
+    dist = torch.sqrt(df[0] * df[0] + df[1] * df[1] + df[2] * df[2])
+    disp = (radius[a_i] + radius[b_i]) - dist
+    touching = disp > 0.0
+    inv_d = 1.0 / torch.clamp_min(dist, 1e-20)
+    ndeg = dist > 1e-5
+    dirs = [torch.where(ndeg, df[d] * inv_d, 1.0 if d == 0 else 0.0) for d in range(3)]
+    im_i, im_j = inv_mass[a_i], inv_mass[b_i]
+    w_sum = torch.clamp_min(im_i + im_j, 1e-20)
+    amp = torch.where(touching, 0.85 * disp, 0.0)
+    si = -amp * (im_i / w_sum)
+    sj = amp * (im_j / w_sum)
+    vdotn = rl[0] * dirs[0] + rl[1] * dirs[1] + rl[2] * dirs[2]
+    pp = [rl[d] - vdotn * dirs[d] for d in range(3)]
+    fr = torch.where(torch.sqrt(pp[0] * pp[0] + pp[1] * pp[1] + pp[2] * pp[2])
+                     < params.static_friction_threshold, 1.0, params.friction)
+    f_amp = torch.where(touching, fr, 0.0)
+    fi = -f_amp * (im_i / w_sum)
+    fj = f_amp * (im_j / w_sum)
+    side = lambda s, f: torch.stack([s * dirs[0], s * dirs[1], s * dirs[2],
+                                     f * pp[0], f * pp[1], f * pp[2]], dim=1)
+    return side(si, fi), side(sj, fj), touching
+
+
+def _response_incidence(pi, pj, count: int, row_off, inc_start, inc_pair) -> Incidence:
+    """Node n's entries of ``concat(vals_i, vals_j)`` (``count`` rows each)
+    from a pair incidence (``state.pair_incidence``): its pairs as i, then
+    ``count +`` its pairs as j, ascending."""
+    n, dev = row_off.shape[0] - 1, pi.device
+    ci = (row_off[1:] - row_off[:-1]).long()
+    cj = (inc_start[1:] - inc_start[:-1]).long()
+    start = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    start[1:] = torch.cumsum(ci + cj, 0)
+    entries = torch.zeros(2 * count, dtype=torch.int64, device=dev)
+    k = torch.arange(count, dtype=torch.int64, device=dev)
+    node_i = pi[:count].long()
+    entries[start[node_i] + k - row_off[node_i].long()] = k
+    kj = inc_pair[:count].long()
+    node_j = pj[kj].long()
+    entries[start[node_j] + ci[node_j] + k - inc_start[node_j].long()] = count + kj
+    return Incidence(row_start=start.to(torch.int32), entries=entries.to(torch.int32),
+                     nodes=torch.zeros(0, dtype=torch.int32, device=dev), cap=2 * count)
+
+
+def pair_response_acc(x, vel, radius, inv_mass, pi, pj, count: int,
+                      params: PhysicsParams) -> torch.Tensor:
+    """Port of ``_pair_response_acc``: the ``[N, 6]`` (dx | dv) sum over
+    the rows ``concat(pi, pj)`` of the pairs ``k < count``, per node in the
+    JAX scatter's order."""
+    pi, pj = pi[:count], pj[:count]
+    inc = _response_incidence(pi, pj, count, *pair_incidence(pi, pj, count, x.shape[0]))
+    vi, vj, _ = pair_terms(x, vel, radius, inv_mass, pi, pj, params)
+    return csr_sum(inc, torch.cat([vi, vj]))
+
+
+def node_pairs_plain(x, radius, node_mask, nn, params: PhysicsParams, config: StepConfig,
+                     failed) -> torch.Tensor:
+    """Plain twin of kernel T20, in place on the cache ``nn``: the drift test
+    (``max|x − ref| > NN_CACHE_SLACK``, or a stale cache), then on a rebuild
+    the pair prefix of :func:`node_pair_prefix`, ``ref = x``, ``fresh = 1``
+    and the incidence of :func:`state.pair_incidence`.  Returns the rebuild
+    flag i32[1] (also ``nn.rebuilt``); nothing happens when latch slot 0 is
+    set."""
+    drift = torch.max(torch.abs(x - nn.ref))
+    due = (int(failed[0]) == 0
+           and (int(nn.fresh[0]) == 0 or bool(drift > NN_CACHE_SLACK)))
+    nn.rebuilt.fill_(int(due))
+    if due:
+        pi, pj, count = node_pair_prefix(x, radius, node_mask, params, config)
+        n = x.shape[0]
+        ro, ist, ip = pair_incidence(pi, pj, count, n)
+        nn.pi[:count] = pi[:count]
+        nn.pj[:count] = pj[:count]
+        nn.count.fill_(count)
+        nn.ref.copy_(x)
+        nn.fresh.fill_(1)
+        nn.row_off.copy_(ro)
+        nn.inc_start.copy_(ist)
+        nn.inc_pair[:count] = ip[:count]
+    return nn.rebuilt
+
+
+def node_scratch(n: int, config: StepConfig, device) -> dict[str, torch.Tensor]:
+    """The device scratch of T20 for ``n`` nodes, in one int32 buffer."""
+    h = node_table_size(n, config)
+    s, bw = config.budget.max_cells_per_node, config.budget.max_candidates_per_node
+    sizes = dict(count_h=h, cursor=h, start=h + 1, partial=kernels.scan_partials(max(h, 2 * n)),
+                 entries=n * s, rows=n * bw, cnt2=2 * n, off2=2 * n + 1, jcur=n, flags=8,
+                 big=1 + n * s // (NODE_SMALL_BUCKET + 1))
+    buf = torch.empty(sum(sizes.values()), dtype=torch.int32, device=device)
+    out, at = {}, 0
+    for name, size in sizes.items():
+        out[name] = buf[at: at + size]
+        at += size
+    return out
+
+
+def node_pairs(x, radius, node_mask, nn, params: PhysicsParams, config: StepConfig,
+               failed) -> torch.Tensor:
+    """Kernel T20 on a CUDA tensor (the cache updated on the device, the
+    rebuild decided there), :func:`node_pairs_plain` on a CPU tensor.
+    Returns the rebuild flag i32[1]."""
+    if kernels.on_cpu(x):
+        return node_pairs_plain(x, radius, node_mask, nn, params, config, failed)
+    b = config.budget
+    if (b.max_candidates_per_node > NODE_MAX_BUDGET or b.max_cells_per_node > NODE_MAX_CELLS
+            or b.max_entries_per_cell > NODE_MAX_HEAD):
+        raise ValueError(f"T20 takes at most {NODE_MAX_BUDGET} candidates and"
+                         f" {NODE_MAX_CELLS} cells per node, {NODE_MAX_HEAD} entries per cell")
+    n = x.shape[0]
+    sc = node_scratch(n, config, x.device)
+    kernels.require(x.device, x, radius, node_mask, failed,
+                    *(getattr(nn, f.name) for f in dataclasses.fields(nn)))
+    err = kernels.lib().pies_node_pairs(
+        x.data_ptr(), radius.data_ptr(), node_mask.data_ptr(),
+        *(getattr(nn, f.name).data_ptr() for f in dataclasses.fields(nn)),
+        *(sc[k].data_ptr() for k in ("count_h", "cursor", "start", "partial", "entries", "rows",
+                                      "cnt2", "off2", "jcur", "flags", "big")),
+        failed.data_ptr(), n, b.max_cells_per_node, b.max_entries_per_cell,
+        b.max_candidates_per_node, node_table_size(n, config), params.grid_spacing,
+        NN_CACHE_SLACK, kernels.stream())
+    kernels.check(err, "node_pairs")
+    node_pairs.launches += 1
+    return nn.rebuilt
+
+
+node_pairs.launches = 0
+
+
+def node_response_plain(x, vel, radius, inv_mass, node_mask, nn, params: PhysicsParams,
+                        failed):
+    """Plain twin of kernel T21: ``(x + dx·live, vel + dv·live, touching
+    i32[1])`` from the cached pairs (:func:`pair_terms` summed per node over
+    the cache's incidence).  New tensors; with latch slot 0 set the inputs
+    come back as they are."""
+    touching = torch.zeros(1, dtype=torch.int32, device=x.device)
+    if int(failed[0]) != 0:
+        return x, vel, touching
+    count = int(nn.count[0])
+    vi, vj, tch = pair_terms(x, vel, radius, inv_mass, nn.pi[:count], nn.pj[:count], params)
+    inc = _response_incidence(nn.pi, nn.pj, count, nn.row_off, nn.inc_start, nn.inc_pair)
+    acc = csr_sum(inc, torch.cat([vi, vj]))
+    live = (node_mask > 0).to(x.dtype)[:, None]
+    touching[0] = int(tch.sum())
+    return x + acc[:, :3] * live, vel + acc[:, 3:] * live, touching
+
+
+def node_response(x, vel, radius, inv_mass, node_mask, nn, params: PhysicsParams, failed):
+    """Kernel T21 on a CUDA tensor, :func:`node_response_plain` on a CPU
+    tensor.  On the card the outputs are new buffers and the touching count
+    stays on the device."""
+    if kernels.on_cpu(x):
+        return node_response_plain(x, vel, radius, inv_mass, node_mask, nn, params, failed)
+    x_out, vel_out = torch.empty_like(x), torch.empty_like(vel)
+    touching = torch.empty(1, dtype=torch.int32, device=x.device)
+    kernels.require(x.device, x, vel, radius, inv_mass, node_mask, nn.pi, nn.pj, nn.row_off,
+                    nn.inc_start, nn.inc_pair, x_out, vel_out, touching, failed)
+    err = kernels.lib().pies_node_response(
+        x.data_ptr(), vel.data_ptr(), radius.data_ptr(), inv_mass.data_ptr(),
+        node_mask.data_ptr(), nn.pi.data_ptr(), nn.pj.data_ptr(), nn.row_off.data_ptr(),
+        nn.inc_start.data_ptr(), nn.inc_pair.data_ptr(), x_out.data_ptr(), vel_out.data_ptr(),
+        touching.data_ptr(), x.shape[0], params.friction, params.static_friction_threshold,
+        failed.data_ptr(), kernels.stream())
+    kernels.check(err, "node_response")
+    node_response.launches += 1
+    return x_out, vel_out, touching
+
+
+node_response.launches = 0
+
+
+def pbd_node_node_response(state, x, vel, params: PhysicsParams, config: StepConfig,
+                           cache=None, plain: bool = False):
+    """Port of ``pbd_node_node_response`` (``broadphase.py:2115-2187``): the
+    node-node push and friction impulses over the pair cache ``cache``
+    (``state.nn``): T20 refreshes it when some node drifted past the slack,
+    T21 applies the response.  Without a cache (the JAX package's uncached
+    form) an empty one stands in, so T20 rebuilds the pairs on every call.  Returns
+    ``(x, vel, touching i32[1], rebuilt i32[1])``; the width ladder of the
+    JAX package is not ported: the kernels run over the device's count."""
+    failed = state.sim_failed
+    args = (state.radius, state.inv_mass, state.node_mask)
+    if cache is None:
+        cache = empty_node_pair_cache(x.shape[0], config.budget.max_candidates_per_node,
+                                      x.device)
+    pairs, respond = ((node_pairs_plain, node_response_plain) if plain
+                      else (node_pairs, node_response))
+    rebuilt = pairs(x, state.radius, state.node_mask, cache, params, config, failed)
+    x, vel, touching = respond(x, vel, *args, cache, params, failed)
+    return x, vel, touching, rebuilt

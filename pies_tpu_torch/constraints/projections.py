@@ -16,6 +16,11 @@ shape_match.cu``).  The projections themselves (:func:`project_distance_delta`,
 :func:`project_bend`, :func:`project_shape`, :func:`project_goal`) are plain
 PyTorch, as the JAX package's are plain JAX.
 
+The PBD solver's forms (:func:`project_distance`, :func:`project_position`,
+:func:`project_strain` and the shared :func:`project_bend`) feed
+:func:`jacobi_rows`, stage 1 of kernel T18 (``kernels/csrc/
+pbd_constraints.cu``): each Jacobi family's ``w·(projected − x)`` rows.
+
 Every wrapper has a plain twin (``*_plain``), used for CPU tensors and as
 the oracle on the card.  The twins do each float32 operation in the kernels'
 order, so the two agree bit for bit wherever no ``acos``, ``sin`` or ``cos``
@@ -29,7 +34,7 @@ import torch
 from .. import kernels
 from ..ops import math3d
 from ..ops.math3d import ieee_div as _div
-from ..topology import BendBatch, DistanceBatch, GroupBatch, TetBatch
+from ..topology import BendBatch, DistanceBatch, GroupBatch, PositionBatch, TetBatch
 
 SHAPE_BLOCK = 128  # threads per group in kernels/csrc/shape_match.cu
 TET_KINDS = {"fused": 0, "strain": 1, "volume": 2}
@@ -521,3 +526,134 @@ def goal_rows(batch: GroupBatch, failed=None, out=None) -> torch.Tensor:
 
 
 goal_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# PBD projections and T18's stage 1: the Jacobi families' update rows
+
+PBD_KINDS = {"position": 0, "distance": 1, "strain": 2, "bend": 3}
+
+
+def pbd_direction(pa, pb):
+    """``(dir, dist)`` of the PBD distance projection
+    (``pies_tpu/solver/pbd.py:104-112``): ``dir = (pb − pa) / max(dist,
+    1e-20)`` (an IEEE division per component), ``(1, 0, 0)`` when ``dist ≤
+    1e-5``; ``dir`` a list of three f32[C] columns."""
+    df = [pb[:, d] - pa[:, d] for d in range(3)]
+    dist = torch.sqrt(df[0] * df[0] + df[1] * df[1] + df[2] * df[2])
+    safe = dist > 1e-5
+    den = torch.clamp_min(dist, 1e-20)
+    return [torch.where(safe, df[d] / den, 1.0 if d == 0 else 0.0) for d in range(3)], dist
+
+
+def project_distance(x: torch.Tensor, batch: DistanceBatch) -> torch.Tensor:
+    """The PBD distance projection (``projections.py:25-45``,
+    ``Constraints.cpp:11-37``): only node 0 moves, by the full ``−(rest −
+    dist)·dir``.  Returns the projected pair f32[C, 2, 3]."""
+    idx = batch.idx.long()
+    pa, pb = x[idx[:, 0]], x[idx[:, 1]]
+    dirs, dist = pbd_direction(pa, pb)
+    disp = batch.rest - dist
+    proj0 = torch.stack([pa[:, d] - disp * dirs[d] for d in range(3)], dim=1)
+    return torch.stack([proj0, pb], dim=1)
+
+
+def project_position(batch: PositionBatch) -> torch.Tensor:
+    """Pin to the stored position (``projections.py:80``)."""
+    return batch.target
+
+
+def project_strain(x: torch.Tensor, batch: TetBatch, recenter: bool = False) -> torch.Tensor:
+    """Strain limiting (``projections.py:119``, ``Constraints.cpp:76-128``):
+    the singular values of ``F = P·Qinv`` clamped to ``[lo, hi]``, the
+    third negated on an inverted tet; the projected tet in differential
+    coordinates ``(0, F̂e₁, F̂e₂, F̂e₃)``, f32[C, 4, 3].  ``recenter`` moves
+    it onto the current centroid (``pbd.py:167-169``, the PBD step without
+    the reference's quirks).  The SVD is the flat one of T1
+    (``ops/math3d.svd3x3_flat``)."""
+    idx = batch.idx.long()
+    p = [[x[idx[:, a], d] for d in range(3)] for a in range(4)]
+    e = [[p[k + 1][d] - p[0][d] for d in range(3)] for k in range(3)]
+    qf = tuple(batch.qinv[r] for r in range(9))
+    f = tuple(e[0][d] * qf[0 + j] + e[1][d] * qf[3 + j] + e[2][d] * qf[6 + j]
+              for d in range(3) for j in range(3))
+    u, sigma, v = math3d.svd3x3_flat(f)
+    s = [torch.clamp(sk, batch.lo, batch.hi) for sk in sigma]
+    s[2] = s[2] * torch.where(math3d.det3x3_flat(f) < 0.0, -1.0, 1.0)
+    fhat = [u[3 * d + 0] * s[0] * v[3 * j + 0] + u[3 * d + 1] * s[1] * v[3 * j + 1]
+            + u[3 * d + 2] * s[2] * v[3 * j + 2] for d in range(3) for j in range(3)]
+    zero = torch.zeros_like(fhat[0])
+    ps = [[zero] * 3] + [[fhat[3 * d + a] for d in range(3)] for a in range(3)]
+    if recenter:
+        for d in range(3):
+            m = _div(zero + ps[1][d] + ps[2][d] + ps[3][d], 4.0)
+            c = _div(p[0][d] + p[1][d] + p[2][d] + p[3][d], 4.0)
+            for a in range(4):
+                ps[a][d] = (ps[a][d] - m) + c
+    return torch.stack([torch.stack(ps[a], dim=1) for a in range(4)], dim=1)
+
+
+def _entries(delta: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """``(delta, live)`` rows f32[E, 4] from f32[C, k, 3] and bool[C, k]."""
+    delta = torch.where(live[..., None], delta, 0.0)
+    return torch.cat([delta, live.to(delta.dtype)[..., None]], dim=-1).reshape(-1, 4)
+
+
+def jacobi_rows_plain(kind: str, x: torch.Tensor, inv_mass: torch.Tensor, batch,
+                      w_scale: float = 1.0, recenter: bool = False,
+                      failed=None) -> torch.Tensor:
+    """Plain twin of T18's stage 1: one PBD Jacobi family's update rows
+    f32[C·k, 4], row ``c·k + j`` the ``w·(projected − x[idx])`` of slot j
+    of constraint c and its live flag (``_apply_jacobi``,
+    ``pies_tpu/solver/pbd.py:32-53``).  ``kind``: "position" (k = 1, the
+    pins, ``w·w_scale`` with ``w_scale = 1 − release_hinge``), "distance"
+    (k = 1: slot 0 of each pair, the only node that moves), "strain"
+    (k = 4, ``recenter`` off the quirks) or "bend" (k = 4).  ``failed`` is
+    accepted for signature parity."""
+    idx = batch.idx.long()
+    if kind == "position":
+        w = batch.w * w_scale
+        delta = (w[:, None] * (project_position(batch) - x[idx]))[:, None]
+    elif kind == "distance":
+        w = batch.w
+        pa = x[idx[:, 0]]
+        delta = (w[:, None] * (project_distance(x, batch)[:, 0] - pa))[:, None]
+    elif kind == "strain":
+        w = batch.w
+        delta = w[:, None, None] * (project_strain(x, batch, recenter) - x[idx])
+    elif kind == "bend":
+        w = batch.w
+        delta = w[:, None, None] * (project_bend(x, inv_mass, batch) - x[idx])
+    else:
+        raise ValueError(f"no PBD family {kind!r}")
+    live = (w > 0)[:, None].expand(delta.shape[:2])
+    return _entries(delta, live)
+
+
+def jacobi_rows(kind: str, x: torch.Tensor, inv_mass: torch.Tensor, batch,
+                w_scale: float = 1.0, recenter: bool = False,
+                failed=None) -> torch.Tensor:
+    """T18's stage 1 (``kernels/csrc/pbd_constraints.cu``) on a CUDA tensor,
+    :func:`jacobi_rows_plain` on a CPU tensor.  The kernel returns at once
+    when latch slot 0 is set."""
+    if kernels.on_cpu(x):
+        return jacobi_rows_plain(kind, x, inv_mass, batch, w_scale, recenter, failed)
+    if failed is None:
+        raise ValueError("the PBD row kernel needs the failure latch")
+    c = batch.idx.shape[0]
+    k = 4 if kind in ("strain", "bend") else 1
+    vals = torch.empty((c * k, 4), dtype=torch.float32, device=x.device)
+    fields = {"position": ("target",), "distance": ("rest",), "strain": ("qinv", "lo", "hi"),
+              "bend": ("rest_angle",)}[kind]
+    a, b, cc = ([getattr(batch, f) for f in fields] + [None, None])[:3]
+    kernels.require(x.device, x, inv_mass, batch.idx, batch.w, a, b, cc, vals, failed)
+    err = kernels.lib().pies_pbd_rows(
+        PBD_KINDS[kind], x.data_ptr(), inv_mass.data_ptr(), batch.idx.data_ptr(),
+        kernels.ptr(a), kernels.ptr(b), kernels.ptr(cc), batch.w.data_ptr(), vals.data_ptr(),
+        c, float(w_scale), int(recenter), failed.data_ptr(), kernels.stream())
+    kernels.check(err, "pbd_rows")
+    jacobi_rows.launches += 1
+    return vals
+
+
+jacobi_rows.launches = 0

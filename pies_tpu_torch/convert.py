@@ -1,5 +1,9 @@
 """Carry a JAX package run across to the port.
 
+The PBD pieces come along: the rope chains, the node-pair cache (with the
+port's incidence built from its prefix), the hinge toggle and the distance
+form of the configuration.
+
 The JAX package's ``SolverState``, ``Topology``, ``StepConfig`` and
 ``PhysicsParams`` come in with NumPy leaves (for example after
 ``jax.tree.map(np.asarray, ...)``) and leave as the port's dataclasses of
@@ -15,15 +19,17 @@ import numpy as np
 import torch
 
 from .options import CollisionBudget, PhysicsParams, SolverName, StepConfig
-from .state import BroadphaseCache, SolverState
+from .state import BroadphaseCache, NodePairCache, SolverState, pair_incidence
 from .topology import (
     BendBatch,
+    ChainBatch,
     DistanceBatch,
     GroupBatch,
     PositionBatch,
     TetBatch,
     Topology,
     generic_fields,
+    pbd_incidences,
     to_device,
 )
 
@@ -49,6 +55,23 @@ def cache_from_numpy(bp, device="cpu") -> BroadphaseCache | None:
     )
 
 
+def node_cache_from_numpy(nn, device="cpu") -> NodePairCache | None:
+    """The port's node-pair cache from a JAX ``NodePairCache`` with NumPy
+    leaves: scalars become i32[1], and the port's incidence is built from
+    the pair prefix."""
+    if nn is None:
+        return None
+    i32 = torch.int32
+    pi, pj = _t(nn.pi, device, i32), _t(nn.pj, device, i32)
+    count = int(np.asarray(nn.count))
+    row_off, inc_start, inc_pair = pair_incidence(pi, pj, count, np.asarray(nn.ref).shape[0])
+    return NodePairCache(pi=pi, pj=pj, count=_t(np.reshape(count, 1), device, i32),
+                         ref=_t(nn.ref, device),
+                         fresh=_t(np.asarray(nn.fresh).reshape(1), device, i32),
+                         row_off=row_off, inc_start=inc_start, inc_pair=inc_pair,
+                         rebuilt=torch.zeros(1, dtype=i32, device=device))
+
+
 def state_from_numpy(state, device="cpu") -> SolverState:
     """The port's state from a JAX ``SolverState`` with NumPy leaves.  Its
     scalar ``sim_failed`` becomes latch slot 0."""
@@ -66,6 +89,7 @@ def state_from_numpy(state, device="cpu") -> SolverState:
         sim_failed=failed,
         bp=cache_from_numpy(getattr(state, "bp", None), device),
         shape_quats=_t(state.shape_quats, device),
+        nn=node_cache_from_numpy(getattr(state, "nn", None), device),
     )
 
 
@@ -88,8 +112,9 @@ def groups_from_numpy(g) -> GroupBatch:
 def topology_from_numpy(topo, device="cpu", tet_fused: bool = True) -> Topology:
     """The port's topology from a JAX ``Topology`` with NumPy leaves (the
     ported fields only), for a scene with the JAX ``StepConfig.tet_fused``
-    given.  The static weight, the assembled operator and the row
-    incidence are built here as the port's host builds them; a banded
+    given.  The static weight, the assembled operator, the row incidence
+    and the PBD families' incidences are built here as the port's host
+    builds them; the rope chains are the JAX package's; a banded
     soup's seven diagonals ``tet_band`` and the super-body tables
     ``super_corners`` and ``super_adj`` are the JAX arrays."""
 
@@ -111,8 +136,11 @@ def topology_from_numpy(topo, device="cpu", tet_fused: bool = True) -> Topology:
     if "tet_band" in generic:  # (the JAX package has one for every scene)
         generic["tet_band"] = np.asarray(topo.tet_band)
     opt = lambda a: None if a is None else np.asarray(a)
-    return to_device(
-        Topology(
+    ch = getattr(topo, "chains", None)
+    chains = None if ch is None else ChainBatch(
+        idx0=np.asarray(ch.idx0), anchor=np.asarray(ch.anchor), rest=np.asarray(ch.rest),
+        w=np.asarray(ch.w))
+    out = Topology(
             strain=strain,
             volume=volume,
             position=position,
@@ -130,9 +158,10 @@ def topology_from_numpy(topo, device="cpu", tet_fused: bool = True) -> Topology:
             shape=shape,
             goal=goal,
             tet_fused=tet_fused,
-        ),
-        device,
-    )
+            chains=chains,
+        )
+    out.jacobi = pbd_incidences(n, out)
+    return to_device(out, device)
 
 
 def config_from(config) -> StepConfig:

@@ -34,6 +34,14 @@ wrappers that call them sit beside their plain PyTorch twins:
   ``collision/broadphase.py:super_narrowphase``
 * T16 ``pies_tri_candidates`` — ``collision/broadphase.py:tri_candidates``
 * T17 ``pies_tri_ccd`` — ``collision/broadphase.py:tri_ccd``
+* T18 ``pies_pbd_rows``, ``pies_pbd_apply``, ``pies_pbd_head``,
+  ``pies_pbd_floor``, ``pies_pbd_tail`` —
+  ``constraints/projections.py:jacobi_rows``, ``solver/pbd.py:apply_jacobi``,
+  ``substep_head``, ``floor_clamp``, ``substep_tail``
+* T19 ``pies_pbd_chains``, ``pies_pbd_color_class`` —
+  ``solver/pbd.py:chain_scan``, ``color_classes``
+* T20 ``pies_node_pairs`` — ``collision/broadphase.py:node_pairs``
+* T21 ``pies_node_response`` — ``collision/broadphase.py:node_response``
 
 Each source compiles to an object in its own ``nvcc`` process, all started
 together, and the objects link into one library.
@@ -91,6 +99,15 @@ SIGNATURES = {
     "pies_goal_rows": [_P] * 6 + [_I, _P, _P],
     "pies_tri_candidates": [_P] * 17 + [_I] * 12 + [_F] * 3 + [_P],
     "pies_tri_ccd": [_P] * 12 + [_I] * 4 + [_F, _P],
+    "pies_pbd_rows": [_I] + [_P] * 8 + [_I, _F, _I, _P, _P],
+    "pies_pbd_apply": [_P] * 4 + [_I, _P, _P],
+    "pies_pbd_head": [_P] * 4 + [_I, _F, _F, _P, _I, _P],
+    "pies_pbd_floor": [_P] * 3 + [_I, _F, _P, _P],
+    "pies_pbd_tail": [_P] * 6 + [_I] + [_F] * 4 + [_P, _P],
+    "pies_pbd_chains": [_P] * 5 + [_I, _I, _P, _P],
+    "pies_pbd_color_class": [_P] * 4 + [_I, _I, _P, _P],
+    "pies_node_pairs": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_P],
+    "pies_node_response": [_P] * 13 + [_I, _F, _F, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -20,14 +20,11 @@
 // while_loop would not run change nothing.
 #pragma once
 
+#include "nan_math.cuh"
+
 namespace pies {
 
 constexpr int kCgBlock = 256;
-
-// max(a, b) that keeps a NaN in `a`, as jnp.maximum and torch.clamp_min do.
-__device__ __forceinline__ float max_keep_nan(float a, float b) {
-  return (a != a) ? a : fmaxf(a, b);
-}
 
 // The block's pairwise tree over one value per thread; every thread gets
 // the sum.  Needs blockDim.x == kCgBlock and all threads of the block.

@@ -1,13 +1,15 @@
-// The hash-grid pieces shared by the broadphase kernels T5 and T14: the
-// reference's cell hash, a row's insertion cells, the ordering of a bucket's
-// head, and the flag words of a build.
+// The hash-grid pieces shared by the broadphase kernels T5, T14, T16 and
+// T20: the reference's cell hash, a row's insertion cells, a box's range of
+// cells, the ordering of a bucket's head, and the flag words of a build.
 //
-// Replaces (JAX): pies_tpu/collision/grid.py:33-187 (cell_hash, build_grid)
-// and broadphase.py:1333 (_insertion_slots).
+// Replaces (JAX): pies_tpu/collision/grid.py:33-187 (cell_hash,
+// aabb_cell_slots, build_grid) and broadphase.py:1333 (_insertion_slots).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "nan_math.cuh"
 
 // Everything is internal to each translation unit that includes this file.
 namespace {
@@ -30,14 +32,8 @@ enum Flag {
   kTruncOver = 7,
 };
 
-// min / max that keep a NaN from either side, as jnp.minimum/maximum and
-// torch.minimum/maximum do (fminf/fmaxf would drop it).
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
-}
+using pies::nan_max;
+using pies::nan_min;
 
 // The reference's spatial hash (SpatialHash.h:28-34) in uint32: int32
 // cells reinterpreted as two's complement, products wrapping.
@@ -102,6 +98,31 @@ __device__ __forceinline__ void fill_row(const float* lo, const float* hi, int b
     const int pos = start[slot] + atomicAdd(&cursor[slot], 1);
     entries[pos] = b * kSlotsPerBody + s;
   }
+}
+
+// A box's grid cells, x-major (grid.py aabb_cell_slots): the base cell and
+// the per-axis lengths, zero on every axis when one exceeds range_cap;
+// returns the cell count before the cap of slots.
+__device__ __forceinline__ int cell_range(const float* qlo, const float* qhi, int range_cap,
+                                          int base[3], int len[3]) {
+  bool in_cap = true;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    base[d] = (int)floorf(qlo[d]);
+    len[d] = (int)(ceilf(qhi[d]) - floorf(qlo[d]));
+    len[d] = len[d] < 1 ? 1 : len[d];
+    in_cap = in_cap && len[d] <= range_cap;
+  }
+  if (!in_cap) len[0] = len[1] = len[2] = 0;
+  return len[0] * len[1] * len[2];
+}
+
+__device__ __forceinline__ int range_slot(const int base[3], const int len[3], int s, int h) {
+  const int lyz = len[1] * len[2] > 1 ? len[1] * len[2] : 1;
+  const int lz = len[2] > 1 ? len[2] : 1;
+  const int dx = s / lyz, rem = s - dx * lyz;
+  const int dy = rem / lz, dz = rem - dy * lz;
+  return cell_slot(base[0] + dx, base[1] + dy, base[2] + dz, h);
 }
 
 // Only the first entries_cap entries of a bucket are ever read: select them

@@ -31,13 +31,13 @@
 // writes its quaternion.  A goal member reads 24 B and writes 12 B.
 #include <cuda_runtime.h>
 
+#include "nan_math.cuh"
+
 namespace {
 
-constexpr int kShapeBlock = 128;
+using pies::max_keep_nan;
 
-__device__ __forceinline__ float max_keep_nan(float a, float b) {
-  return (a != a) ? a : fmaxf(a, b);
-}
+constexpr int kShapeBlock = 128;
 
 __device__ __forceinline__ void quat_to_mat(const float q[4], float r[9]) {
   const float w = q[0], x = q[1], y = q[2], z = q[3];

@@ -118,31 +118,6 @@ __device__ __forceinline__ bool item_live(const Tc& g, int i) {
   return false;
 }
 
-// A box's grid cells, x-major (grid.py aabb_cell_slots): the base cell and
-// the per-axis lengths, zero on every axis when one exceeds range_cap;
-// returns the cell count before the cap of slots.
-__device__ __forceinline__ int cell_range(const float* qlo, const float* qhi, int range_cap,
-                                          int base[3], int len[3]) {
-  bool in_cap = true;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    base[d] = (int)floorf(qlo[d]);
-    len[d] = (int)(ceilf(qhi[d]) - floorf(qlo[d]));
-    len[d] = len[d] < 1 ? 1 : len[d];
-    in_cap = in_cap && len[d] <= range_cap;
-  }
-  if (!in_cap) len[0] = len[1] = len[2] = 0;
-  return len[0] * len[1] * len[2];
-}
-
-__device__ __forceinline__ int range_slot(const int base[3], const int len[3], int s, int h) {
-  const int lyz = len[1] * len[2] > 1 ? len[1] * len[2] : 1;
-  const int lz = len[2] > 1 ? len[2] : 1;
-  const int dx = s / lyz, rem = s - dx * lyz;
-  const int dy = rem / lz, dz = rem - dy * lz;
-  return cell_slot(base[0] + dx, base[1] + dy, base[2] + dz, h);
-}
-
 // (a) triangle boxes, the table zeroed, the oversize latch (cell list).
 __global__ void __launch_bounds__(pies::kBlock) tc_bounds_kernel(Tc g) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;

@@ -2,7 +2,7 @@
 
 ``SolverOptions`` mirrors the reference's public struct field for field, as in
 the JAX package.  ``CollisionBudget`` is the JAX package's, field for field.
-``StepConfig`` keeps only the static fields the ported slice reads;
+``StepConfig`` keeps only the static fields the ported paths read;
 ``PhysicsParams`` holds plain Python floats (there is no tracing, so nothing
 has to become a device scalar).
 """
@@ -70,7 +70,7 @@ class CollisionBudget:
 @dataclass(frozen=True)
 class StepConfig:
     """The static fields of ``pies_tpu.options.StepConfig`` that the ported
-    PD paths read, with the same meanings and defaults."""
+    PD and PBD paths read, with the same meanings and defaults."""
 
     solver: SolverName = SolverName.PD
     time_substeps: int = 1
@@ -118,6 +118,13 @@ class StepConfig:
     # allocated one.
     bp_cache: bool = True
     contact_coupling: str = "full"
+    # The PBD distance form, set by the host: the cumulative end offsets of
+    # the colour classes of the (host-reordered) distance batch, projected
+    # class after class in place; and the chain scan down the rope links of
+    # ``Topology.chains``, which takes precedence.  Neither: count-averaged
+    # Jacobi.
+    distance_colors: tuple = ()
+    distance_chain: bool = False
     tet_cols: bool = True
     budget: CollisionBudget = CollisionBudget()
 
@@ -150,10 +157,13 @@ class PhysicsParams:
     # substep), set per scene by the host.
     broadphase_cell: float = 1.0
     broadphase_slack: float = 0.0
+    # The PBD toggle gating the position pins (``Solver.h:52``,
+    # ``Solver.cpp:59-63``): 1.0 releases them.
+    release_hinge: float = 0.0
 
 
 def make_params(options: SolverOptions, broadphase_cell: float = 1.0,
-                broadphase_slack: float = 0.0) -> PhysicsParams:
+                broadphase_slack: float = 0.0, *, release_hinge: bool = False) -> PhysicsParams:
     return PhysicsParams(
         dt=_f32(options.fixed_timestep_size / max(1, options.time_substeps)),
         gravity=_f32(options.gravity),
@@ -166,4 +176,5 @@ def make_params(options: SolverOptions, broadphase_cell: float = 1.0,
         grid_spacing=_f32(options.grid_spacing),
         broadphase_cell=_f32(broadphase_cell),
         broadphase_slack=_f32(broadphase_slack),
+        release_hinge=1.0 if release_hinge else 0.0,
     )

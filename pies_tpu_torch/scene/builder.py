@@ -2,8 +2,7 @@
 
 NumPy only, and the same code as the JAX package's builder for the methods
 that are ported: ``np.random.default_rng(seed)`` is drawn in the same order,
-so one seed gives the same scene, bit for bit, in both packages.  Not ported
-yet: ``create_rope``.
+so one seed gives the same scene, bit for bit, in both packages.
 """
 
 from __future__ import annotations
@@ -273,6 +272,35 @@ class SceneBuilder:
             sel = _nodes_in_unit_box(pos, inv)
             if sel.shape[0] >= 3:
                 self.shape_groups.append((sel.astype(_I32), pos[sel].copy(), float(w)))
+
+    def create_rope(
+        self, start, end, num_nodes: int, w: float, mass=1.0, radius=None,
+        pin_start: bool = True, pin_end: bool = False,
+    ):
+        """Rope of ``num_nodes`` particles chained by distance constraints
+        (``pies_tpu/scene/builder.py:366-400``).  ``radius`` defaults to 40%
+        of the segment spacing, at most 0.25, so chain neighbours never start
+        overlapping.  The links are ordered outer node first (only a pair's
+        node 0 moves under the PBD projection, ``Constraints.cpp:34``), so
+        each node chases toward the pinned start."""
+        t = np.linspace(0.0, 1.0, num_nodes, dtype=_F32)[:, None]
+        pos = np.asarray(start, _F32) * (1 - t) + np.asarray(end, _F32) * t
+        if radius is None:
+            spacing = float(
+                np.linalg.norm(np.asarray(end, _F32) - np.asarray(start, _F32))
+            ) / max(num_nodes - 1, 1)
+            radius = min(0.25, 0.4 * spacing)
+        node_ids = self._emit_nodes(pos, inv_mass=1.0 / mass, radius=radius)
+        self._emit_distance(np.stack([node_ids[1:], node_ids[:-1]], axis=-1), w)
+        pins = []
+        if pin_start:
+            pins.append(node_ids[0])
+        if pin_end:
+            pins.append(node_ids[-1])
+        if pins:
+            self.pos_idx.append(np.asarray(pins, _I32))
+            self.pos_w.append(np.full(len(pins), w, _F32))
+        return node_ids
 
     def create_tet_soup(
         self, count: int, spacing: float, scale: float, w: float, mass=1.0,

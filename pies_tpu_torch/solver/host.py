@@ -18,6 +18,12 @@ paths:
   and ``rotation_iterations`` take effect as in the JAX package, with
   recentered or diagonal contact coupling.
 
+The PBD solver (``SolverOptions(solver=SolverName.PBD)``) runs every scene
+the builders make (``create_rope`` among them): pins gated by
+``release_hinge``, the distance constraints as rope chains, colour classes
+or Jacobi (the host's choice, as in the JAX package), strain and bend, and
+with collisions on the node-node response over its pair cache.
+
 Self-contact runs on every PD scene, through the branch the JAX package's
 dispatch picks: the packed-body detection on a tet soup, the super-body
 detection on a larger triangle scene whose layout it accepts, and
@@ -42,7 +48,14 @@ import dataclasses
 from ..collision import broadphase
 from ..options import CollisionBudget, SolverName, SolverOptions, StepConfig, make_params
 from ..scene.builder import SceneBuilder
-from ..state import SolverState, empty_broadphase_cache, make_state
+from ..state import (
+    SolverState,
+    empty_broadphase_cache,
+    empty_node_pair_cache,
+    load_state,
+    make_state,
+    save_state,
+)
 from .. import topology as topo_mod
 from . import step, tetcols
 
@@ -50,12 +63,59 @@ _F32 = np.float32
 
 # Solver methods of the JAX package that the port does not have yet, with the
 # ROADMAP item (queue 1) that brings them.
-_NOT_PORTED = {"create_rope": 7, "add_tri_mesh_volume": 9, "save": 9, "load": 9}
+_NOT_PORTED = {"add_tri_mesh_volume": 9}
 
 
 class NotPortedError(NotImplementedError, AttributeError):
     """A ``Solver`` method of the JAX package that the port does not have
     yet; an ``AttributeError`` too, so ``hasattr`` answers False."""
+
+
+def _detect_chains(idx: np.ndarray, rest: np.ndarray, w: np.ndarray):
+    """Split PBD distance constraints into chase chains (``topology.ChainBatch``;
+    ``pies_tpu/solver/host.py:53-80``): a chain breaks wherever ``idx1[j] !=
+    idx0[j-1]``; the split holds when every written node (``idx0``) is
+    unique and no anchor is written.  Returns ``(idx0 [C, L], anchor [C],
+    rest [C, L], w [C, L])``, padded with ``w = 0`` links, or None."""
+    n = idx.shape[0]
+    if n == 0 or np.unique(idx[:, 0]).size != n:
+        return None
+    brk = np.concatenate([[True], idx[1:, 1] != idx[:-1, 0]])
+    starts = np.nonzero(brk)[0]
+    ends = np.concatenate([starts[1:], [n]])
+    anchors = idx[starts, 1]
+    if np.intersect1d(anchors, idx[:, 0]).size:
+        return None
+    c, lmax = starts.shape[0], int((ends - starts).max())
+    idx0 = np.zeros((c, lmax), np.int32)
+    rest_t = np.zeros((c, lmax), np.float32)
+    w_t = np.zeros((c, lmax), np.float32)
+    for ci, (s0, e0) in enumerate(zip(starts, ends)):
+        idx0[ci, : e0 - s0] = idx[s0:e0, 0]
+        rest_t[ci, : e0 - s0] = rest[s0:e0]
+        w_t[ci, : e0 - s0] = w[s0:e0]
+    return idx0, anchors.astype(np.int32), rest_t, w_t
+
+
+def _color_distance(idx: np.ndarray, max_colors: int = 63):
+    """Greedy first-fit colouring of PBD distance constraints
+    (``pies_tpu/solver/host.py:83-112``): two constraints conflict when they
+    share any node.  Returns ``(perm, ends)``, a stable permutation grouping
+    the constraints by colour and each class's cumulative end, or None past
+    ``max_colors`` colours (Jacobi then)."""
+    used: dict[int, int] = {}  # node -> bitmask of the colours touching it
+    colors = np.empty(idx.shape[0], np.int32)
+    for i in range(idx.shape[0]):
+        a, b = int(idx[i, 0]), int(idx[i, 1])
+        taken = used.get(a, 0) | used.get(b, 0)
+        c = (~taken & (taken + 1)).bit_length() - 1  # lowest zero bit
+        if c >= max_colors:
+            return None
+        colors[i] = c
+        used[a] = used.get(a, 0) | (1 << c)
+        used[b] = used.get(b, 0) | (1 << c)
+    perm = np.argsort(colors, kind="stable")
+    return perm, tuple(int(v) for v in np.cumsum(np.bincount(colors)))
 
 
 def _packed_layout(tris: np.ndarray, stride: int, padded_t: int, cap: int):
@@ -275,6 +335,8 @@ class Solver:
         self._prepared_nodes = 0
         self._dirty = True
         self.render_state_dirty = True
+        # The PBD hinge toggle (Solver.h:52): True releases the position pins.
+        self.release_hinge = False
 
         self._residual_dev: torch.Tensor | None = None
         self.last_tick_seconds: float = 0.0
@@ -304,6 +366,9 @@ class Solver:
 
     def create_tet_soup(self, count, spacing, scale, w, **kwargs):
         return self._scene(self._builder.create_tet_soup, count, spacing, scale, w, **kwargs)
+
+    def create_rope(self, start, end, num_nodes, w, **kwargs):
+        return self._scene(self._builder.create_rope, start, end, num_nodes, w, **kwargs)
 
     def create_tet_box(self, translation, scale, initial_velocity, w, mass, hinged=False):
         return self._scene(self._builder.create_tet_box, translation, scale,
@@ -354,8 +419,7 @@ class Solver:
     def _prepare(self):
         if not self._dirty:
             return
-        if self._options.solver != SolverName.PD:
-            raise NotImplementedError("the PBD solver is ROADMAP queue 1 item 7")
+        pbd = self._options.solver == SolverName.PBD
         b = self._builder
         num_live = b.num_nodes
         positions = b.all_positions()
@@ -391,10 +455,23 @@ class Solver:
         cap = state.capacity
 
         inv_mass = b.all_inv_mass()
+        dist_idx = cat(b.dist_idx, (0, 2)).astype(np.int32)
+        dist_w = cat(b.dist_w, (0,))
+        # The PBD distance form (host.py:533-556): rope chains, else colour
+        # classes (the batch reordered class by class), else Jacobi.
+        distance_colors, chains = (), None
+        if pbd and dist_idx.shape[0] > 1:
+            dw = np.broadcast_to(np.asarray(dist_w, _F32), (dist_idx.shape[0],))
+            rest = np.linalg.norm(positions[dist_idx[:, 1]] - positions[dist_idx[:, 0]],
+                                  axis=-1).astype(_F32)
+            chains = _detect_chains(dist_idx, rest, dw)
+            if chains is None:
+                colored = _color_distance(dist_idx)
+                if colored is not None and len(colored[1]) > 1:
+                    perm, distance_colors = colored
+                    dist_idx, dist_w = dist_idx[perm], dw[perm]
         batches = dict(
-            distance=topo_mod.build_distance(
-                cat(b.dist_idx, (0, 2)).astype(np.int32), positions, cat(b.dist_w, (0,))
-            ),
+            distance=topo_mod.build_distance(dist_idx, positions, dist_w),
             bend=topo_mod.build_bend(
                 cat(b.bend_idx, (0, 4)).astype(np.int32), positions, cat(b.bend_w, (0,))
             ),
@@ -442,6 +519,10 @@ class Solver:
         )
         topology = topo_mod.assemble_topology(cap, triangles=tris, tet_fused=tet_fused,
                                               **batches)
+        if pbd:
+            topology = dataclasses.replace(
+                topology, jacobi=topo_mod.pbd_incidences(cap, topology),
+                chains=None if chains is None else topo_mod.ChainBatch(*chains))
         body_nodes, body_off, body_faces = _packed_layout(
             tris, budget.body_stride, topology.triangles.shape[0], cap)
         # Super-body layout (host.py:681-727): any larger triangle scene
@@ -476,7 +557,7 @@ class Solver:
             cg_iterations=int(self._cg_iterations),
             cg_rtol=float(self._cg_rtol),
             rotation_iterations=int(self._rotation_iterations),
-            enable_collisions=bool(self._enable_collisions and tris.shape[0]),
+            enable_collisions=bool(self._enable_collisions and (pbd or tris.shape[0])),
             reference_quirks=self._reference_quirks,
             broadphase_mode=self._broadphase_mode,
             tet_fused=tet_fused,
@@ -487,10 +568,12 @@ class Solver:
             body_node_offset=body_off,
             body_faces=body_faces,
             contact_coupling=self._contact_coupling,
+            distance_colors=distance_colors,
+            distance_chain=chains is not None,
             budget=budget,
             **super_fields,
         )
-        if config.enable_collisions:
+        if config.enable_collisions and not pbd:
             broadphase.check_detection(config)
         # The temporal broadphase cache, reset on every prepare (fresh = 0
         # rebuilds at the next detection), with a slack of cell/8: the JAX
@@ -504,7 +587,10 @@ class Solver:
             # The super-body cache's reference spans all nodes (host.py:845-858).
             state.bp = empty_broadphase_cache(super_fields["super_k"],
                                               budget.max_narrow_bodies, cap, self._device)
-        if not tetcols.applies(state, topology, config):
+        # The PBD node-pair cache (host.py:859-875), reset on every prepare.
+        if pbd and config.enable_collisions:
+            state.nn = empty_node_pair_cache(cap, budget.max_candidates_per_node, self._device)
+        if not pbd and not tetcols.applies(state, topology, config):
             _check_generic(topology, config)
         self._state = state
         self._goal_transforms = np.array(topology.goal.transforms)
@@ -557,12 +643,15 @@ class Solver:
 
     def current_params(self):
         """The ``PhysicsParams`` a ``tick()`` would use right now, with the
-        scene's broadphase cell and cache slack."""
+        scene's broadphase cell and cache slack and the hinge toggle; cached
+        on those values."""
         self._prepare()
-        key = (self._options, self._broadphase_cell, self._broadphase_slack)
+        key = (self._options, bool(self.release_hinge), self._broadphase_cell,
+               self._broadphase_slack)
         if self._params is None or self._params_options != key:
             self._params = make_params(self._options, self._broadphase_cell,
-                                       self._broadphase_slack)
+                                       self._broadphase_slack,
+                                       release_hinge=bool(self.release_hinge))
             self._params_options = key
         return self._params
 
@@ -636,6 +725,17 @@ class Solver:
     def config(self) -> StepConfig:
         self._prepare()
         return self._config
+
+    def save(self, path: str):
+        """Checkpoint the state (``host.py:1161-1163``): the JAX package's
+        npz of leaves, which either package loads."""
+        self._prepare()
+        save_state(path, self._state)
+
+    def load(self, path: str):
+        """Restore a checkpoint of either package into the prepared scene."""
+        self._prepare()
+        self._state = load_state(path, self._state)
 
     def clear(self):
         """Wipe the scene (``Solver::clear``, ``Solver.cpp:488-507``); the

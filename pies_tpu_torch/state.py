@@ -19,12 +19,18 @@ Padded nodes are parked far away with ``inv_mass = 0``, ``mass = 1`` and
 
 ``bp`` is the temporal cache of the packed-body or the super-body broadphase
 (``BroadphaseCache``), allocated by the host for self-contact scenes and
-updated in place by the detection each substep.
+updated in place by the detection each substep.  ``nn`` is the PBD
+node-pair cache (``NodePairCache``), allocated by the host for PBD scenes
+with collisions on and updated in place by the node-node response.
+
+:func:`save_state` and :func:`load_state` write and read the JAX package's
+checkpoint: an npz of the state's leaves in the JAX package's pytree order,
+so either package loads the other's file.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -69,6 +75,66 @@ def empty_broadphase_cache(k: int, nb: int, m: int,
 
 
 @dataclass
+class NodePairCache:
+    """Temporal node-pair cache of the PBD response (port of
+    ``pies_tpu/state.py:65-92``).
+
+    The pair list is rebuilt only when the cache is stale or some node has
+    moved more than ``collision.broadphase.NN_CACHE_SLACK`` (per axis) from
+    ``ref``; the reference's AABB padding of 0.5 keeps the cached list a
+    superset of every touching set until then, and the response re-tests
+    each pair at the current positions.  ``pi``/``pj`` hold the live pairs
+    as a prefix of ``count``, i-major, each row's j ascending.
+
+    The port's own fields: the per-node incidence of the pair list's
+    entries ``concat(pi, pj)`` that the response sums over, built at each
+    rebuild (:func:`pair_incidence`), and the rebuild flag of the last
+    response (a device word the host never waits on)."""
+
+    pi: torch.Tensor  # i32[NB]
+    pj: torch.Tensor  # i32[NB]
+    count: torch.Tensor  # i32[1] live prefix length
+    ref: torch.Tensor  # f32[N, 3] positions at the last build
+    fresh: torch.Tensor  # i32[1]; 0 forces a rebuild
+    # Node n is the i of pairs row_off[n] .. row_off[n+1]-1, and the j of
+    # pairs inc_pair[inc_start[n] .. inc_start[n+1]-1] (ascending).
+    row_off: torch.Tensor  # i32[N + 1]
+    inc_start: torch.Tensor  # i32[N + 1]
+    inc_pair: torch.Tensor  # i32[NB]
+    rebuilt: torch.Tensor  # i32[1]
+
+    def clone(self) -> "NodePairCache":
+        return NodePairCache(*(getattr(self, f.name).clone() for f in fields(self)))
+
+
+def empty_node_pair_cache(n: int, bwidth: int,
+                          device: torch.device | str = "cpu") -> NodePairCache:
+    """Unpopulated node-pair cache (``fresh = 0``: the first use rebuilds)."""
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=device)
+    return NodePairCache(pi=z(n * bwidth), pj=z(n * bwidth), count=z(1),
+                         ref=torch.zeros((n, 3), dtype=torch.float32, device=device),
+                         fresh=z(1), row_off=z(n + 1), inc_start=z(n + 1),
+                         inc_pair=z(n * bwidth), rebuilt=z(1))
+
+
+def pair_incidence(pi: torch.Tensor, pj: torch.Tensor, count: int, n: int):
+    """``(row_off, inc_start, inc_pair)`` of a pair prefix (see
+    ``NodePairCache``): node n's entries of ``concat(pi, pj)`` are its pairs
+    as i, then its pairs as j in ascending pair order, which is the order
+    the JAX package's scatter over ``concat(pi, pj)`` adds them in."""
+    dev = pi.device
+    ci = torch.bincount(pi[:count].long(), minlength=n)
+    cj = torch.bincount(pj[:count].long(), minlength=n)
+    row_off = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    inc_start = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    row_off[1:] = torch.cumsum(ci, 0)
+    inc_start[1:] = torch.cumsum(cj, 0)
+    inc_pair = torch.zeros(pi.shape[0], dtype=torch.int32, device=dev)
+    inc_pair[:count] = torch.sort(pj[:count].long(), stable=True).indices.to(torch.int32)
+    return row_off.to(torch.int32), inc_start.to(torch.int32), inc_pair
+
+
+@dataclass
 class SolverState:
     positions: torch.Tensor  # f32[N, 3]
     prev_positions: torch.Tensor  # f32[N, 3]
@@ -81,6 +147,7 @@ class SolverState:
     sim_failed: torch.Tensor  # i32[2], see the module docstring
     bp: BroadphaseCache | None = None
     shape_quats: torch.Tensor | None = None  # f32[G, 4]
+    nn: NodePairCache | None = None
 
     @property
     def capacity(self) -> int:
@@ -148,7 +215,8 @@ def make_state(
     radius_full = np.concatenate([radius, np.zeros(pad, np.float32)])
     mask_full = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
 
-    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    # (a copy each: positions and prev_positions must not share memory)
+    dev = lambda a: torch.from_numpy(np.array(a, np.float32)).to(device)
     return SolverState(
         positions=dev(pos_full),
         prev_positions=dev(pos_full),
@@ -162,3 +230,60 @@ def make_state(
         shape_quats=dev(np.tile(np.array([1.0, 0.0, 0.0, 0.0], np.float32),
                                 (max(1, num_shape_groups), 1))),
     )
+
+
+def _leaves(state: SolverState) -> list[np.ndarray]:
+    """The state's leaves as the JAX package's pytree flattens its state:
+    the field order of ``pies_tpu/state.py:95-113``, a bool scalar latch,
+    bool masks and flags, scalar counts."""
+    f32 = lambda t: t.detach().cpu().numpy()
+    out = [f32(getattr(state, k)) for k in ("positions", "prev_positions", "velocities",
+                                            "forces", "inv_mass", "mass", "radius",
+                                            "node_mask", "shape_quats")]
+    out.append(np.asarray(bool(state.sim_failed.any())))
+    if state.bp is not None:
+        bp = state.bp
+        out += [f32(bp.pairs), f32(bp.valid).astype(bool), f32(bp.ref),
+                np.asarray(bool(bp.fresh[0]))]
+    if state.nn is not None:
+        nn = state.nn
+        out += [f32(nn.pi), f32(nn.pj), np.asarray(int(nn.count[0]), np.int32), f32(nn.ref),
+                np.asarray(bool(nn.fresh[0]))]
+    return out
+
+
+def save_state(path: str, state: SolverState) -> None:
+    """Checkpoint (``pies_tpu/state.py:216-223``): the leaves as an npz,
+    ``leaf_0`` .. ``leaf_k`` in the JAX package's order."""
+    np.savez(path, **{f"leaf_{i}": leaf for i, leaf in enumerate(_leaves(state))})
+
+
+def load_state(path: str, like: SolverState) -> SolverState:
+    """Restore a checkpoint of :func:`save_state` or of the JAX package's
+    ``save_state`` into a state shaped like ``like`` (the caches it has are
+    read; the node-pair incidence is rebuilt from the pair prefix)."""
+    data = np.load(path)
+    leaf = iter(data[f"leaf_{i}"] for i in range(len(data.files)))
+    dev = like.device
+    t = lambda a, dtype=torch.float32: torch.from_numpy(np.array(a)).to(dev, dtype)
+    i32 = torch.int32
+    out = SolverState(**{k: t(next(leaf)) for k in (
+        "positions", "prev_positions", "velocities", "forces", "inv_mass", "mass", "radius",
+        "node_mask")}, sim_failed=torch.zeros(2, dtype=i32, device=dev))
+    out.shape_quats = t(next(leaf))
+    out.sim_failed[0] = int(bool(next(leaf)))
+    if like.bp is not None:
+        pairs, valid, ref, fresh = (next(leaf) for _ in range(4))
+        valid = np.asarray(valid, bool)
+        out.bp = BroadphaseCache(pairs=t(np.where(valid, pairs, 0), i32), valid=t(valid, i32),
+                                 ref=t(ref), fresh=t(np.reshape(fresh, 1), i32))
+    if like.nn is not None:
+        pi, pj, count, ref, fresh = (next(leaf) for _ in range(5))
+        n, count = out.capacity, int(count)
+        pi, pj = t(pi, i32), t(pj, i32)
+        row_off, inc_start, inc_pair = pair_incidence(pi, pj, count, n)
+        out.nn = NodePairCache(pi=pi, pj=pj, count=t(np.reshape(count, 1), i32), ref=t(ref),
+                               fresh=t(np.reshape(fresh, 1), i32), row_off=row_off,
+                               inc_start=inc_start, inc_pair=inc_pair,
+                               rebuilt=torch.zeros(1, dtype=i32, device=dev))
+    return out

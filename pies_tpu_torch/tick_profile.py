@@ -5,6 +5,8 @@
     python3 -m pies_tpu_torch.tick_profile --cloth [repeats]
     python3 -m pies_tpu_torch.tick_profile --mixed [repeats]
     python3 -m pies_tpu_torch.tick_profile --boxes [repeats] [--reference]
+    python3 -m pies_tpu_torch.tick_profile --rope [particles] [repeats]
+    python3 -m pies_tpu_torch.tick_profile --pile [particles] [repeats]
 
 Builds the 500k-particle soup (``create_tet_soup(n_tets, spacing=1.6,
 scale=0.8, w=2000.0, height=0.5, jitter=0.05)``, 125,000 tets by default),
@@ -22,14 +24,17 @@ tet operator; or, with ``--boxes``, the pile of five ``create_box``es of
 ``scene/contact_piles.py`` (625 nodes, 960 triangles) with the default
 arguments, self-contact through the per-triangle all-pairs branch (T16,
 T17), or with ``--reference`` as well through ``broadphase_mode=
-"reference"``.  It warms up until
-the window it measures is
-contact-active: 30 ticks without self-contact (the bottom layer reaches the
-floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
+"reference"``; or, with ``--rope`` or ``--pile``, the PBD cells of
+``scene/pbd_scenes.py`` at 131,072 particles by default (1,024 ropes of 128
+nodes, or the node pile at the bench's density), collisions on.  It warms
+up until the window it measures is contact-active: 30 ticks without
+self-contact (the bottom layer reaches the floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
 bottom one rests on the floor), 75 for the mesh (its bottom, 3.0 above the
 floor, meets it at tick 70), 25 for the cloth (it lands at tick ~19), 50 for
 the mixed scene (the soup's layers meet at tick ~40, sheet and soup at tick
-49), 30 for the boxes (they touch from tick 27).  Then:
+49), 30 for the boxes (they touch from tick 27); the PBD scenes tick by
+tick until a tick has floor-active nodes and touching pairs (the ropes
+reach the floor at tick ~42, the pile at once).  Then:
 
 * times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
   ends in a synchronize) and prints each, for the spread;
@@ -37,7 +42,9 @@ the mixed scene (the soup's layers meet at tick ~40, sheet and soup at tick
   prints the device's busy share of the traced wall time;
 * traces 10 more with the counters on, prints the same share, the device
   time per kernel name, and the counters read once: floor-active node
-  substeps, live contacts, broadphase cache rebuilds and CG trips.
+  substeps, live contacts, broadphase cache rebuilds and CG trips (for
+  PBD: floor nodes, live and touching pairs per iteration, pair-cache
+  rebuilds).
 
 Prints the card's name and power limit first.  Needs a CUDA device.
 """
@@ -49,11 +56,12 @@ from pathlib import Path
 
 FLOOR_WARMUP, CONTACT_WARMUP, MESH_WARMUP, CLOTH_WARMUP, MIXED_WARMUP = 30, 45, 75, 25, 50
 BOXES_WARMUP = 30
+PBD_WARMUP = 35  # then tick by tick: the ropes reach the floor at tick ~42
 MESH = Path(__file__).resolve().parent.parent / "scripts" / "refbench" / "tet_cube_mesh_100k.txt"
 
 
 def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, mixed=False,
-         boxes=False, reference=False):
+         boxes=False, reference=False, rope=False, pile=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -61,7 +69,7 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
         print("needs a CUDA device", file=sys.stderr)
         return 2
     import pies_tpu_torch as pt
-    from pies_tpu_torch.solver import pd
+    from pies_tpu_torch.solver import pbd, pd
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -69,14 +77,29 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
     ).stdout.strip()
     scene = ("the 110k mesh" if mesh else "the 512 x 512 rigged cloth" if cloth
              else "the cloth over the soup" if mixed else "the box pile" if boxes
-             else "the soup")
-    collisions = collisions or mixed or boxes
+             else f"the PBD rope fleet, {n_tets} particles" if rope
+             else f"the PBD node pile, {n_tets} particles" if pile else "the soup")
+    collisions = collisions or mixed or boxes or rope or pile
     mode = "reference" if reference else "celllist"
     print(f"card: {smi}; {scene}, self-contact {'on' if collisions else 'off'},"
           f" broadphase_mode {mode}")
-    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=collisions,
+    solver = pt.SolverName.PBD if rope or pile else pt.SolverName.PD
+    s = pt.Solver(pt.SolverOptions(solver=solver), enable_collisions=collisions,
                   broadphase_mode=mode)
-    if boxes:
+    new_counters = (pbd if rope or pile else pd).new_counters
+    if rope or pile:
+        from pies_tpu_torch.scene.pbd_scenes import add_node_pile, add_rope_fleet
+
+        (add_rope_fleet if rope else add_node_pile)(s, n_tets)
+        s.run_ticks(PBD_WARMUP if rope else 2)
+        for _ in range(60):
+            s.counters = new_counters(s.device)
+            s.run_ticks(1)
+            c, s.counters = s.counters, None
+            if int(c["floor_active"]) > 0 and int(c["touching"]) > 0:
+                break
+        print(f"contact-active from tick {s.ticks}")
+    elif boxes:
         from pies_tpu_torch.scene.contact_piles import add_box_pile
 
         add_box_pile(s)
@@ -108,7 +131,7 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
 
     def traced(counters):
         torch.cuda.synchronize()
-        s.counters = pd.new_counters(s.device) if counters else None
+        s.counters = new_counters(s.device) if counters else None
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             s.run_ticks(10)
@@ -138,6 +161,8 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
 if __name__ == "__main__":
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
+    if {"--rope", "--pile"} & set(flags):
+        sys.exit(main(*(args or [131_072]), rope="--rope" in flags, pile="--pile" in flags))
     if {"--mesh", "--cloth", "--mixed", "--boxes"} & set(flags):
         sys.exit(main(125_000, *args[:1], mesh="--mesh" in flags, cloth="--cloth" in flags,
                       mixed="--mixed" in flags, boxes="--boxes" in flags,

@@ -21,6 +21,10 @@ Three things are the port's own, for scenes off the tet-column path:
 * ``row_inc``, the node → row incidence (a ``collision.batches.Incidence``)
   over the force rows of all families, which sums them per node in the JAX
   scatters' order without float atomics (:func:`row_layout`).
+
+A PBD scene also carries the rope chains (``ChainBatch``, as in the JAX
+package) and, the port's own, the node → entry incidences of its Jacobi
+families (:func:`pbd_incidences`).
 """
 
 from __future__ import annotations
@@ -94,6 +98,35 @@ class BendBatch:
     idx: torch.Tensor  # i32[C, 4]: (x1, x2, x3, x4), (x2, x3) the shared edge
     rest_angle: torch.Tensor  # f32[C]
     w: torch.Tensor  # f32[C]
+
+
+@dataclass
+class ChainBatch:
+    """Chain-structured PBD distance constraints (``pies_tpu/topology.py:121``):
+    when every constraint writes a node no other one writes, consecutive
+    constraints chase each other (``idx1[j] == idx0[j-1]``) and no chain's
+    anchor is written, the set splits into node-disjoint chains (ropes),
+    projected exactly in emission order by a walk down each chain.  Chains
+    are padded to the longest with ``w = 0`` links."""
+
+    idx0: torch.Tensor  # i32[C, L] written node per link, in chain order
+    anchor: torch.Tensor  # i32[C] the chase root (never written)
+    rest: torch.Tensor  # f32[C, L]
+    w: torch.Tensor  # f32[C, L], 0 on padding links
+
+
+@dataclass
+class JacobiIncidence:
+    """The port's node → entry incidences of the PBD Jacobi families
+    (:func:`jacobi_incidence`): entry ``e = c·k + j`` is slot j of row c of
+    a family's ``idx [C, k]``, each node's entries ascending, which is the
+    order in which the JAX package's scatter of ``_apply_jacobi`` adds
+    them."""
+
+    position: Incidence
+    distance: Incidence  # node 0 of each pair only (node 1 never moves)
+    strain: Incidence
+    bend: Incidence
 
 
 @dataclass
@@ -173,6 +206,10 @@ class Topology:
     # Strain and volume cover the same tets (the host's check): one combined
     # force row per (tet, corner) instead of one per family.
     tet_fused: bool = True
+    # PBD only: the rope chains (``StepConfig.distance_chain``) and the
+    # Jacobi families' incidences; None on PD scenes.
+    chains: ChainBatch | None = None
+    jacobi: JacobiIncidence | None = None
 
 
 def build_distance(
@@ -449,6 +486,39 @@ def row_incidence(num_nodes: int, *, distance, strain, volume, bend, shape, goal
         entries=torch.from_numpy(order.astype(_I32)),
         nodes=torch.from_numpy(node[order].astype(_I32)),
         cap=int(node.shape[0]),
+    )
+
+
+def jacobi_incidence(num_nodes: int, idx, w) -> Incidence:
+    """The incidence of one PBD Jacobi family over its live rows (``w >
+    0``), ``idx`` i32[C] or i32[C, k].  The entries of dead rows are left
+    out: their update is +0.0, and adding it to the JAX package's sum
+    changes nothing."""
+    idx = np.asarray(idx).astype(np.int64)
+    idx = idx.reshape(idx.shape[0], 1 if idx.ndim == 1 else idx.shape[1])
+    c, k = idx.shape
+    keep = np.broadcast_to((np.asarray(w) > 0)[:, None], (c, k))
+    e = np.nonzero(keep.reshape(-1))[0]
+    node = idx.reshape(-1)[e]
+    order = np.argsort(node, kind="stable")
+    row_start = np.zeros(num_nodes + 1, np.int64)
+    np.cumsum(np.bincount(node, minlength=num_nodes), out=row_start[1:])
+    return Incidence(
+        row_start=torch.from_numpy(row_start.astype(_I32)),
+        entries=torch.from_numpy(e[order].astype(_I32)),
+        nodes=torch.from_numpy(node[order].astype(_I32)),
+        cap=int(c * k),
+    )
+
+
+def pbd_incidences(num_nodes: int, topo: "Topology") -> JacobiIncidence:
+    """The four Jacobi families' incidences of a PBD topology."""
+    return JacobiIncidence(
+        position=jacobi_incidence(num_nodes, topo.position.idx, topo.position.w),
+        distance=jacobi_incidence(num_nodes, np.asarray(topo.distance.idx)[:, :1],
+                                  topo.distance.w),
+        strain=jacobi_incidence(num_nodes, topo.strain.idx, topo.strain.w),
+        bend=jacobi_incidence(num_nodes, topo.bend.idx, topo.bend.w),
     )
 
 

@@ -151,13 +151,17 @@ def test_generic_cases_not_ported_yet_raise():
     with pytest.raises(NotImplementedError, match="item 5c"):
         s.tick()
     # Self-contact runs on every PD scene (tests/test_torch_tri_detect.py);
-    # edge-edge contacts and ropes do not.
+    # edge-edge contacts do not.
     with pytest.raises(NotImplementedError, match="item 8"):
         pt.Solver(pt.SolverOptions(), enable_edge_collisions=True, device="cpu")
-    s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu")
-    s.create_sheet((0, 1.0, 0), 0.5, 1.0, 5000.0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        s.create_rope((0, 0, 0), (1, 0, 0), 8, 100.0)
+    # Ropes run (tests/test_torch_pbd.py): create_rope builds a chain
+    # topology, one chain of 7 links from the pinned first node.
+    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PBD), enable_collisions=True,
+                  device="cpu")
+    ids = s.create_rope((0, 0, 0), (1, 0, 0), 8, 100.0)
+    np.testing.assert_array_equal(ids, np.arange(8))
+    assert s.config.distance_chain and tuple(s.topology.chains.idx0.shape) == (1, 7)
+    assert int(s.topology.chains.anchor[0]) == 0 and s.topology.position.idx.tolist()[0] == 0
 
 
 def test_port_and_its_scripts_import_no_jax():

@@ -939,3 +939,201 @@ def test_tri_kernels_match_twins_over_a_trajectory(cuda, mode):
     assert ck == cp and sum(c["contacts"] for c in ck) > 0
     assert float((xk - xp).abs().max()) <= 1e-5
     assert all(n > 0 for n in lk) and not any(lp)
+
+
+# ---------------------------------------------------------------------------
+# T18-T21: the PBD solver
+
+from pies_tpu_torch.solver import pbd  # noqa: E402
+
+PBD = pt.SolverOptions(solver=pt.SolverName.PBD)
+PBD_WRAPPERS = (pbd.substep_head, proj.jacobi_rows, pbd.apply_jacobi, pbd.chain_scan,
+                pbd.floor_clamp, pbd.substep_tail, broadphase.node_pairs,
+                broadphase.node_response)
+
+
+def _pbd_scene(device, scene, **kw):
+    s = pt.Solver(PBD, device=device, **kw)
+    if scene == "ropes":  # two lengths: the shorter chain has padding links
+        s.create_rope((0.0, 8.0, 0.0), (12.0, 8.0, 0.0), 128, w=0.9)
+        s.create_rope((0.0, 8.0, 0.7), (9.0, 8.0, 0.7), 97, w=0.9)
+    elif scene == "pile":
+        rng = np.random.default_rng(3)
+        s.add_nodes(rng.uniform([-4, 0.5, -4], [4, 6.0, 4], (8192, 3)).astype(np.float32))
+    elif scene == "net":
+        s.create_sheet((0.0, 3.0, 0.0), 1.0, 1.0, 0.5)
+    elif scene == "tet_box":
+        s.create_tet_box((0.0, 3.0, 0.0), 1.0, (0, 0, 0), w=0.1, mass=1.0)
+    else:
+        s.create_bend_sheet((0, 2.0, 0), 0.5, w=0.1)
+    s._prepare()
+    return s
+
+
+def _jittered(s, seed=7, scale=0.05):
+    n = s._builder.num_nodes
+    x = s.state.positions.clone()
+    x[:n] += torch.from_numpy(np.random.default_rng(seed).normal(0.0, scale, (n, 3))
+                              .astype(np.float32)).to(x.device)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,scene,quirks", [
+    ("position", "ropes", True), ("distance", "net", True), ("strain", "tet_box", True),
+    ("strain", "tet_box", False), ("bend", "bend_sheet", True)])
+def test_pbd_rows_and_apply_match_twins(cuda, kind, scene, quirks):
+    """T18: a family's rows equal the twin's (the bend rows within 1e-6 of
+    the largest, through acosf), and the count-averaged application of the
+    same rows is exact."""
+    s = _pbd_scene(cuda, scene, enable_collisions=False, reference_quirks=quirks)
+    st, topo, x = s.state, s.topology, _jittered(s)
+    batch = getattr(topo, kind)
+    vk = proj.jacobi_rows(kind, x, st.inv_mass, batch, recenter=not quirks,
+                          failed=st.sim_failed)
+    vp = proj.jacobi_rows_plain(kind, x, st.inv_mass, batch, recenter=not quirks)
+    tol = 1e-6 * float(vp.abs().max()) if kind == "bend" else 0.0
+    assert float((vk - vp).abs().max()) <= tol and float(vp[:, 3].sum()) > 0
+    xk, xp = x.clone(), x.clone()
+    pbd.apply_jacobi(xk, getattr(topo.jacobi, kind), vp, st.sim_failed)
+    pbd.apply_jacobi_plain(xp, getattr(topo.jacobi, kind), vp)
+    assert torch.equal(xk, xp) and not torch.equal(xk, x)
+
+
+@pytest.mark.gpu
+def test_pbd_head_floor_tail_exact(cuda):
+    """T18's head, floor clamp and tail equal their twins bit for bit."""
+    s = _pbd_scene(cuda, "pile", enable_collisions=False)
+    params = s.current_params()
+    a, b = _clone(s.state), _clone(s.state)
+    a.velocities.copy_(torch.randn_like(a.velocities) * 5.0 * a.node_mask[:, None])
+    b.velocities.copy_(a.velocities)
+    pbd.substep_head(a, params, True)
+    pbd.substep_head_plain(b, params, True)
+    assert torch.equal(a.positions, b.positions) and torch.equal(a.prev_positions,
+                                                                 b.prev_positions)
+    a.positions[:, 1] -= 0.6  # some nodes under the floor
+    b.positions.copy_(a.positions)
+    pbd.floor_clamp(a.positions, a.radius, a.node_mask, params.floor_height, a.sim_failed)
+    pbd.floor_clamp_plain(b.positions, b.radius, b.node_mask, params.floor_height)
+    assert torch.equal(a.positions, b.positions)
+    x = a.positions + 0.01
+    pbd.substep_tail(a, x.clone(), params)
+    pbd.substep_tail_plain(b, x.clone(), params)
+    for f in ("positions", "prev_positions", "velocities", "sim_failed"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.gpu
+def test_pbd_sequential_distance_kernels(cuda):
+    """T19: the chain walk and the colour classes equal their twins.  A
+    padding link (w = 0, the shorter rope's tail) writes nothing in the
+    kernel, where the twin, as the JAX package, adds its zero delta to node
+    0; the two agree (+0.0 == -0.0)."""
+    s = _pbd_scene(cuda, "ropes", enable_collisions=False)
+    ch = s.topology.chains
+    assert s.config.distance_chain and float((ch.w == 0).sum()) > 0
+    x = _jittered(s)
+    xk, xp = x.clone(), x.clone()
+    pbd.chain_scan(xk, ch, s.state.sim_failed)
+    pbd.chain_scan_plain(xp, ch)
+    assert torch.equal(xk, xp) and not torch.equal(xk, x)
+    s = _pbd_scene(cuda, "net", enable_collisions=False)
+    assert len(s.config.distance_colors) > 1
+    x = _jittered(s)
+    xk, xp = x.clone(), x.clone()
+    pbd.color_classes(xk, s.topology.distance, s.config.distance_colors, s.state.sim_failed)
+    pbd.color_classes_plain(xp, s.topology.distance, s.config.distance_colors)
+    assert torch.equal(xk, xp) and not torch.equal(xk, x)
+
+
+@pytest.mark.gpu
+def test_node_pair_kernels_match_twins(cuda):
+    """T20 and T21 on the 8,192-node pile: the rebuild, the pair prefix,
+    count and incidence equal; the response bit-equal with the same
+    touching count; a drift under the slack keeps the cache, one past it
+    rebuilds."""
+    s = _pbd_scene(cuda, "pile", enable_collisions=True)
+    st, params, cfg = s.state, s.current_params(), s.config
+    ck, cp = st.nn.clone(), st.nn.clone()
+    x = st.positions
+    args = (st.radius, st.node_mask)
+    rk = broadphase.node_pairs(x, *args, ck, params, cfg, st.sim_failed)
+    rp = broadphase.node_pairs_plain(x, *args, cp, params, cfg, st.sim_failed)
+    c = int(cp.count[0])
+    assert int(rk[0]) == int(rp[0]) == 1 and int(ck.count[0]) == c > 1000
+    for f in ("pi", "pj", "inc_pair"):
+        assert torch.equal(getattr(ck, f)[:c], getattr(cp, f)[:c]), f
+    for f in ("row_off", "inc_start", "ref", "fresh"):
+        assert torch.equal(getattr(ck, f), getattr(cp, f)), f
+    vel = torch.randn_like(st.velocities)
+    out_k = broadphase.node_response(x, vel, st.radius, st.inv_mass, st.node_mask, ck, params,
+                                     st.sim_failed)
+    out_p = broadphase.node_response_plain(x, vel, st.radius, st.inv_mass, st.node_mask, cp,
+                                           params, st.sim_failed)
+    assert torch.equal(out_k[0], out_p[0]) and torch.equal(out_k[1], out_p[1])
+    assert int(out_k[2][0]) == int(out_p[2][0]) > 0
+    small = x + 0.4
+    assert int(broadphase.node_pairs(small, *args, ck, params, cfg, st.sim_failed)[0]) == 0
+    big = x.clone()
+    big[5, 0] += 0.6
+    assert int(broadphase.node_pairs(big, *args, ck, params, cfg, st.sim_failed)[0]) == 1
+    assert torch.equal(ck.ref, big)
+
+
+@pytest.mark.gpu
+def test_uncached_node_response_launches_the_kernels(cuda):
+    """A state on the card without a pair cache (``nn`` None, the JAX
+    package's uncached form) rebuilds through T20 and responds through T21
+    on every iteration, with the twins' counters and positions within
+    1e-5."""
+    pair_wrappers = (broadphase.node_pairs, broadphase.node_response)
+    runs = []
+    for plain in (False, True):
+        s = _pbd_scene(cuda, "pile", enable_collisions=True)
+        s.state.nn = None
+        before = [f.launches for f in pair_wrappers]
+        counts = []
+        for _ in range(5):
+            c = pbd.new_counters(cuda)
+            step.tick(s.state, s.topology, s.current_params(), s.config, plain=plain,
+                      counters=c)
+            counts.append({k: int(v) for k, v in c.items()})
+        assert not s.sim_failed
+        runs.append((counts, s.state.positions.clone(),
+                     [f.launches - n for f, n in zip(pair_wrappers, before)]))
+    (ck, xk, lk), (cp, xp, lp) = runs
+    per_tick = s.config.iterations * s.config.time_substeps
+    assert ck == cp and all(c["rebuilds"] == per_tick for c in ck)
+    assert sum(c["touching"] for c in ck) > 0
+    assert float((xk - xp).abs().max()) <= 1e-5
+    assert lk == [5 * per_tick] * 2 and not any(lp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["ropes", "pile"])
+def test_pbd_kernels_match_twins_over_a_trajectory(cuda, scene):
+    """30 ticks with collisions on, kernels against twins: the same
+    counters on every tick (pairs, touching pairs, rebuilds, floor nodes),
+    positions within 1e-5, every kernel of the path launched; the pile's
+    nodes touch (the two ropes' do not in 30 ticks)."""
+    skip = () if scene == "ropes" else (proj.jacobi_rows, pbd.apply_jacobi, pbd.chain_scan)
+    wrappers = tuple(f for f in PBD_WRAPPERS if f not in skip)
+    runs = []
+    for plain in (False, True):
+        s = _pbd_scene(cuda, scene, enable_collisions=True)
+        before = [f.launches for f in wrappers]
+        counts = []
+        for _ in range(30):
+            c = pbd.new_counters(cuda)
+            step.tick(s.state, s.topology, s.current_params(), s.config, plain=plain,
+                      counters=c)
+            counts.append({k: int(v) for k, v in c.items()})
+        assert not s.sim_failed
+        runs.append((counts, s.state.positions.clone(),
+                     [f.launches - n for f, n in zip(wrappers, before)]))
+    (ck, xk, lk), (cp, xp, lp) = runs
+    assert ck == cp and sum(c["pairs"] for c in ck) > 0
+    assert scene == "ropes" or sum(c["touching"] for c in ck) > 0
+    assert float((xk - xp).abs().max()) <= 1e-5
+    assert all(n > 0 for n in lk) and not any(lp)

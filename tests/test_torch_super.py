@@ -379,7 +379,8 @@ def test_force_with_contact_terms_matches_reference():
 def test_branches_not_ported_raise_and_name_their_item():
     """The detection branches of item 6b now prepare (the cloth at most
     1,024 triangles, the reference sweep, a layout the super-body detection
-    refuses); what is still not ported raises and names its item."""
+    refuses), and so does the PBD solver of item 7; what is still not
+    ported raises and names its item."""
     kw = dict(device="cpu", allpairs_broadphase_max=0)
     assert tb.tri_mode(build(pt.Solver(pt.SolverOptions(), device="cpu"), "cloth").config,
                        168) == "allpairs"
@@ -394,8 +395,12 @@ def test_branches_not_ported_raise_and_name_their_item():
         build(pt.Solver(pt.SolverOptions(), contact_coupling="full", **kw), "mixed")
     with pytest.raises(NotImplementedError, match="item 8"):
         pt.Solver(pt.SolverOptions(), enable_node_collisions=True, **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build(pt.Solver(pt.SolverOptions(solver=pt.SolverName.PBD), **kw), "cloth")
+    # The PBD solver is ported (tests/test_torch_pbd.py): a PBD cloth
+    # prepares (colour classes, the node-pair cache) and ticks.
+    s = build(pt.Solver(pt.SolverOptions(solver=pt.SolverName.PBD), **kw), "cloth")
+    assert len(s.config.distance_colors) > 1 and s.state.nn is not None
+    s.tick()
+    assert not s.sim_failed and int(s.state.nn.count[0]) > 0
     # A soup off the tet-column path keeps its block structure: item 5c.
     with pytest.raises(NotImplementedError, match="item 5c"):
         s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device="cpu")

@@ -380,9 +380,9 @@ def test_host_repairs():
     assert s.last_tick_seconds > 0.0
     s.last_residual = 2.5
     assert s.last_residual == 2.5
-    assert not hasattr(s, "save") and not hasattr(s, "create_rope")
+    assert not hasattr(s, "add_tri_mesh_volume")
     with pytest.raises(NotImplementedError, match="item 9"):
-        s.save("scene.npz")
+        s.add_tri_mesh_volume(np.zeros((4, 3), np.float32), np.zeros((4, 3), np.int32))
 
 
 @pytest.mark.parametrize("scene,kw", [
