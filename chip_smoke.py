@@ -7,7 +7,7 @@ Phases (any failure exits non-zero, before the result line):
 
 0. The card: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc
    versions, whether ``triton`` imports.  No CUDA device: exit 2.
-1. Build the 21 kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
+1. Build the 24 kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
    one process per source, all at once (``-Xptxas -v`` output printed), and
    report the build time.
 2. T1-T4 against their plain PyTorch twins on the card, at the main path's
@@ -118,6 +118,12 @@ Phases (any failure exits non-zero, before the result line):
    from the first tick), 40 ticks, kernels against twins: contact counts
    equal on every tick, positions within 1e-3.
 
+9. The reference's scenes with the default arguments and self-contact on
+   (9a: ``create_sheet``, two tet boxes, five stacked boxes, the boxes
+   under ``broadphase_mode="reference"``, and ``create_sheet`` under
+   ``contact_coupling="full"``; 40 ticks each, kernels against twins, then
+   a timed ``run_ticks(10)``); 9b holds T16 and T17 against their twins
+   inside phases 2b and 5b.
 10. The PBD solver (T18-T21), ``Solver(SolverOptions(solver=PBD))`` with
    the default 4 iterations.  First the small scenes, 40 ticks each, kernels
    against twins (counters equal on every tick, no latch, positions within
@@ -135,6 +141,22 @@ Phases (any failure exits non-zero, before the result line):
    floor-active nodes, no sim_failed): ms/tick, launches, rebuilds, pairs
    and touching pairs per tick.  Then T18-T21 against their twins at 131,072
    particles, timed beside their bounds and ``index_add_``.
+
+11. Item 5c's paths, each window a timed ``run_ticks(10)`` with the launch
+   counters reset before, gated on floor contact (and contacts), no
+   sim_failed, finite positions and every kernel of its path launched,
+   followed by 3 ticks of kernels against twins: 11a ``bench.py``'s soup
+   under ``contact_coupling="full"`` (45 warm-up ticks, ticks 46-55; CG
+   trips per solve printed), with T22's factor, T10 and T9's stage 2 with
+   T23's terms and T11 with the block solve held to their twins on its
+   state; 11b phase 3b's solver at tick 55 with ``tet_cols=False``: one
+   tick from its state within twice the tet-column tick's own one-ulp
+   spread of the tet-column tick, one CG trip per solve; 11c phase 7's
+   state at its first sheet-soup contact under full coupling; 11d phase
+   5's state at tick 75 with ``dense_floor=False``: T24, T9's entry mode
+   and T4's count mode held to their twins, one tick from each state held
+   against the dense floor's (within 1e-6 of the position scale or twice
+   the dense tick's one-ulp spread).
 
 The last two lines are the kernel table and the result as JSON objects.
 """
@@ -648,7 +670,9 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                 "pbd_constraints": [pbd.substep_head, proj.jacobi_rows, pbd.apply_jacobi,
                                     pbd.floor_clamp, pbd.substep_tail],
                 "pbd_distance_seq": [pbd.chain_scan, pbd.color_classes],
-                "node_pairs": [broadphase.node_pairs], "node_response": [broadphase.node_response]}
+                "node_pairs": [broadphase.node_pairs], "node_response": [broadphase.node_response],
+                "tet_block": [assembly.tet_block_factor], "pt_full": [assembly.pt_full],
+                "floor_entries": [pd.floor_entries]}
 
     def reset_launches():
         for fns in wrappers.values():
@@ -735,6 +759,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         d = float((s_plain.state.positions[:live] - pos).abs().max())
         check(d <= 1e-3, f"kernels and twins agree after {warm + 10} ticks: max |dx| {d:.3e}")
         check(counts_p == counts, "the same counters")
+        if collisions:
+            soup_3b = s  # phase 11b starts from this state
         del s, s_plain, pos
 
     # ---- phase 4
@@ -891,6 +917,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
           f"kernels and twins agree over ticks 76-78: max |dx| {d:.3e}, counters {runs[0][1]}")
     print(f"  plain twins: {runs[1][2] * 1e3:.3f} ms/tick ({smi})")
     mesh_off = pos.clone()  # collisions off, mesh_warmup + 10 ticks: phase 5b compares
+    mesh_5 = (s, warm)  # phase 11d starts from the warmed state
     del s, st, warm, runs, pos
 
     print(f"phase 5, small mesh: 40 ticks of {MESH_SMALL} with 4 pins, kernels against twins")
@@ -1392,6 +1419,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
           f"kernels and twins agree over 3 ticks from the warmed state: max |dx| {d:.3e},"
           f" counters {runs[0][1]}")
     print(f"  plain twins: {runs[1][2] * 1e3:.3f} ms/tick ({smi})")
+    mixed_7 = (s, warm, first)  # phase 11c starts from the state of the first contact
     del s, st, topo, warm, runs, pos
 
     # ---- phases 5b and 6c
@@ -1599,6 +1627,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         ("box_pile", add_box_pile, {}, ["constraint_rows"]),
         ("box_pile_reference", add_box_pile, dict(broadphase_mode="reference"),
          ["constraint_rows"]),
+        ("cloth_pd_20x20_full", lambda s: s.create_sheet((0, 10, 0), 1.0, 1.0, 5000.0),
+         dict(contact_coupling="full"), ["constraint_rows", "pt_full"]),
     )
     launches["9"] = {n: 0 for n in wrappers}
     for name, build, kw, extra in scenes9:
@@ -1625,7 +1655,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         check(ck == cp and fk == fp and not fk, "kernels and twins: equal contact counts on"
               " every tick, no latch")
         check(d <= 1e-3, f"trajectories agree: max |dx| {d:.3e}")
-        if name != "cloth_pd_20x20":
+        if not name.startswith("cloth_pd_20x20"):
             check(sum(ck) > 0, "contacts in the run")
         path = tri_path + extra
         check(all(lk[k] > 0 for k in path) and not any(lp.values()),
@@ -1849,6 +1879,304 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         cuda_ms(lambda: torch.zeros((n_pile, 6), device=dev).index_add_(0, rows21, vals21), 20))
     del warmed, fleet, pile_s, a, b, xk, xp, ck, cp
 
+    # ---- phase 11: full contact coupling, the block preconditioner and the
+    # entry-list floor (T22-T24)
+    def generic_inputs(solver):
+        """The generic path's substep inputs on a copy of ``solver``'s state
+        (twins): predicted positions, inertia term, diagonal (with the
+        contacts'), floor weight (the operator's dense diagonal under full
+        coupling), the entry-list floor, and the contacts with T7's
+        incidence for full coupling."""
+        c = clone_state(solver.state)
+        tp, cf, pr = solver.topology, solver.config, solver.current_params()
+        x, msn, diag, wf, active = pd.substep_head_plain(c, tp, pr, cf, True)
+        floor = None
+        if not cf.dense_floor:
+            wf, floor = pd.floor_entries_plain(x, tp, pr, cf, diag)
+        colls = full = None
+        if cf.enable_collisions:  # (phase 11 asks under full coupling only)
+            colls = pd.detect_point_tri(c, x, tp, pr, cf, active, plain=True)
+            _, hh = pd._h_h2(pr)
+            inc, _ = tetcols.pt_coupling_setup_plain(colls, c.mass, tp, hh, diag, wf)
+            full = assembly.FullCoupling(colls, inc, pr.collision_thickness)
+        return c, x, msn, diag, wf, floor, colls, full
+
+    def kernels_vs_twins(solver, warm_state, ticks=3):
+        """``ticks`` ticks of the kernels against the twins from
+        ``warm_state``: max |dx| and the two runs' counters."""
+        runs = []
+        for plain in (False, True):
+            w = clone_state(warm_state)
+            c = pd.new_counters(dev)
+            step.tick_n(w, solver.topology, solver.current_params(), solver.config, ticks,
+                        plain=plain, counters=c)
+            torch.cuda.synchronize()
+            runs.append((w, {k: int(v) for k, v in c.items()}))
+        check(not runs[0][0].failed() and not runs[1][0].failed(), "no sim_failed in either run")
+        d = float((runs[0][0].positions - runs[1][0].positions).abs().max())
+        check(d <= 1e-3 and runs[0][1] == runs[1][1],
+              f"{ticks} ticks, kernels against twins: max |dx| {d:.3e}, counters {runs[0][1]}")
+
+    def timed_window(label, solver, names, first_tick):
+        """``run_ticks(10)`` with the launch counts reset before; checks the
+        window's gates and prints ms/tick, CG trips per solve and launches."""
+        reset_launches()
+        sec, counts = window(solver, 10, False)
+        launches[label] = read_launches()
+        pos = solver.state.positions[: solver._builder.num_nodes]
+        check(not solver.sim_failed and bool(torch.isfinite(pos).all()),
+              "no sim_failed, all positions finite")
+        check(counts["floor_active"] > 0,
+              f"floor contact in the window: {counts['floor_active']} node-substeps")
+        if solver.config.enable_collisions:
+            check(counts["contacts"] > 0,
+                  f"contacts in the window: {counts['contacts'] / 10:.1f} per tick")
+        check(all(launches[label][n] > 0 for n in names),
+              f"every kernel of the path launched: {launches[label]}")
+        cf = solver.config
+        solves = 10 * cf.time_substeps * cf.iterations
+        per_tick = {n: launches[label][n] / 10 for n in names}
+        print(f"  kernels: {sec * 1e3:.3f} ms/tick, {1.0 / sec:.2f} steps/s ({smi}; ticks"
+              f" {first_tick}-{first_tick + 9}; {counts['cg_trips'] / solves:.2f} CG trips per"
+              f" solve; counters {counts}; launches per tick {per_tick})")
+        return counts, solves
+
+    generic_soup = ["substep_head", "body_broadphase", "pt_narrowphase", "pt_coupling",
+                    "tet_force_nodes", "ell_matvec", "pcg", "tet_block", "pt_tail",
+                    "substep_tail"]
+
+    # 11a: the bench soup under full contact coupling.
+    print(f"phase 11a: the soup, {4 * soup_tets} particles, contact_coupling='full',"
+          f" {CONTACT_WARMUP} warm-up ticks")
+    t0 = time.perf_counter()
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=True, contact_coupling="full",
+                  device=dev)
+    s.create_tet_soup(soup_tets, **SCENE)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    check(not tetcols.applies(st, topo, cfg) and pd.block_layout(st, topo)
+          and topo.ell_nbr.shape[0] == 0 and topo.tet_band is not None,
+          f"the generic path with the block preconditioner, the band and an ELL of width 0"
+          f" (set-up {time.perf_counter() - t0:.2f} s)")
+    advance(s, CONTACT_WARMUP, False)
+    warm = clone_state(s.state)
+    counts, solves = timed_window("11a", s, generic_soup + ["pt_full"], CONTACT_WARMUP + 1)
+    trips_11a = counts["cg_trips"] / solves
+    kernels_vs_twins(s, warm)
+
+    print("phase 11a: T22 and T23 against their twins on the warmed soup")
+    s._state = warm
+    c, x, msn, diag, wf, _, colls, full = generic_inputs(s)
+    st, failed = s.state, s.state.sim_failed
+    _, h2 = pd._h_h2(params)
+    n_nodes, k_blocks, live = st.capacity, st.capacity // 4, int(colls.pt_count[0])
+    check(live > 0, f"{live} live contacts at tick {CONTACT_WARMUP + 1}")
+    fk = assembly.tet_block_factor(diag, topo.tet_block6, failed)
+    fp = assembly.tet_block_factor_plain(diag, topo.tet_block6)
+    torch.cuda.synchronize()
+    check(torch.equal(fk, fp), f"T22 factor of {k_blocks} blocks equals its twin")
+    blocks44 = torch.zeros((k_blocks, 4, 4), device=dev)
+    dview = diag.view(k_blocks, 4)
+    for a in range(4):
+        blocks44[:, a, a] = dview[:, a]
+    for r_, (a, b) in enumerate(((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))):
+        blocks44[:, a, b] = blocks44[:, b, a] = topo.tet_block6[r_]
+    rhs = x.view(k_blocks, 4, 3)
+    row("tet_block", "pies_tpu_torch/kernels/csrc/tet_block.cu",
+        "pies_tpu/solver/assembly.py:602", 0.0,
+        cuda_ms(lambda: assembly.tet_block_factor(diag, topo.tet_block6, failed), 50),
+        cuda_ms(lambda: assembly.tet_block_factor_plain(diag, topo.tet_block6), 10), "equal",
+        80 * k_blocks, 40 * k_blocks,
+        cuda_ms(lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky(blocks44)), 10))
+    yk, pk = assembly.apply_system(x, st.mass, wf, h2, topo, failed, part=True, full=full)
+    yp, pp = assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True, full=full)
+    bare, _ = assembly.apply_system_plain(x, st.mass, wf, h2, topo)
+    torch.cuda.synchronize()
+    n_ent = int(full.inc.row_start[-1])
+    err23 = float((yk - yp).abs().max())
+    check(torch.equal(yk, yp) and torch.equal(pk, pp) and not torch.equal(yk, bare),
+          f"T23 in T10 (the contacts' blocks beside the band, {live} contacts, {n_ent}"
+          f" entries): product and partials equal; the blocks move it by"
+          f" {float((yk - bare).abs().max()):.4g}")
+    ent_nodes = full.inc.nodes[:n_ent].long()
+    ent_rows = torch.randn((n_ent, 3), device=dev)
+    y_t, p_t = torch.empty_like(yk), torch.empty_like(pk)
+    ms_bare = cuda_ms(lambda: assembly.apply_system(x, st.mass, wf, h2, topo, failed,
+                                                    part=p_t, out=y_t), 50)
+    row("pt_full", "pies_tpu_torch/kernels/csrc/pt_full.cuh",
+        "pies_tpu/solver/assembly.py:559", err23,
+        cuda_ms(lambda: assembly.apply_system(x, st.mass, wf, h2, topo, failed, part=p_t,
+                                              out=y_t, full=full), 50),
+        cuda_ms(lambda: assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True,
+                                                    full=full), 5), "equal",
+        64 * n_nodes + 8 * n_ent + 64 * live, 54 * n_nodes + 30 * n_ent,
+        cuda_ms(lambda: torch.zeros((n_nodes, 3), device=dev).index_add_(0, ent_nodes,
+                                                                         ent_rows), 50))
+    print(f"  T10 without the contact term on this state: {ms_bare:.4f} ms")
+    rows_k = assembly.local_step(x, st.inv_mass, st.mass, st.shape_quats.clone(), topo,
+                                 cfg.rotation_iterations, failed)
+    plane = pd.floor_plane(params, cfg.reference_quirks)
+    ak = assembly.assemble_force(x, msn, wf, rows_k, topo, plane, failed, None, full)
+    ap = assembly.assemble_force_plain(x, msn, wf, rows_k, topo, plane, None, None, full)
+    torch.cuda.synchronize()
+    check(torch.equal(ak[0], ap[0]) and torch.equal(ak[1], ap[1]),
+          "T23 in T9 stage 2 (the stacked contact force): force and static projection equal")
+    cg_args = (ak[0], x, diag, st.mass, wf, h2, st.node_mask, topo, cfg.cg_iterations,
+               cfg.cg_rtol, failed, fk, full)
+    ok = assembly.pcg_solve(*cg_args)
+    op = assembly.pcg_solve_plain(*cg_args)
+    torch.cuda.synchronize()
+    check(torch.equal(ok[0], op[0]) and torch.equal(ok[1], op[1])
+          and torch.equal(ok[2], op[2]),
+          f"T11 with the block solve and T23's operator: solution, residual partials and"
+          f" trips equal ({int(ok[2][0])} trips of {cfg.cg_iterations})")
+    print(f"  T11 a whole solve on this state: kernel"
+          f" {cuda_ms(lambda: assembly.pcg_solve(*cg_args), 20):.4f} ms")
+    del s, st, warm, c, x, msn, diag, wf, colls, full, yk, yp, bare, rows_k, ak, ap, ok, op
+    del blocks44, rhs
+
+    # 11b: the soup of phase 3b off the tet-column path (recentered coupling).
+    s = soup_3b
+    ticks_3b = CONTACT_WARMUP + 10
+    print(f"phase 11b: the soup of phase 3b at tick {ticks_3b}, tet_cols=False")
+    shared = clone_state(s.state)
+    cols_cfg = s.config
+    a, b = clone_state(shared), clone_state(shared)
+    step.tick(a, s.topology, s.current_params(), cols_cfg)
+    gen_cfg = dataclasses.replace(cols_cfg, tet_cols=False)
+    check(not tetcols.applies(s.state, s.topology, gen_cfg) and pd.block_layout(s.state, s.topology),
+          "tet_cols=False: the generic path with the block preconditioner")
+    step.tick(b, s.topology, s.current_params(), gen_cfg)
+    torch.cuda.synchronize()
+    d = float((a.positions - b.positions).abs().max())
+    # The tolerance: the tet-column tick's own float32 spread on this state,
+    # the farthest it moves from ticks started one ulp away (half the
+    # coordinates moved up or down, four seeds), times 2: a contact on the
+    # knife edge of a friction or push-out test jumps in either path.  (The
+    # JAX package bounds its two paths' gap by 2e-4 over 8 ticks of a 24-tet
+    # soup whose coordinates stay within ~3, tests/test_fastpaths.py:100;
+    # this soup's reach 40 and more, and a float32 ulp grows with them.)
+    spread = 0.0
+    gen = torch.Generator(device=dev)
+    for seed in range(4):
+        gen.manual_seed(seed)
+        c = clone_state(shared)
+        moved = torch.rand(c.positions.shape, generator=gen, device=dev) < 0.5
+        up = torch.rand(c.positions.shape, generator=gen, device=dev) < 0.5
+        away = torch.nextafter(c.positions, torch.where(up, float("inf"), float("-inf")))
+        live_rows = c.node_mask[:, None] > 0
+        c.positions.copy_(torch.where(moved & live_rows, away, c.positions))
+        step.tick(c, s.topology, s.current_params(), cols_cfg)
+        torch.cuda.synchronize()
+        spread = max(spread, float((c.positions - a.positions).abs().max()))
+    check(d <= 2.0 * spread, f"one tick from one state: the generic path within 2x the"
+          f" tet-column path's own one-ulp spread {spread:.3e} of its tick (max |dx| {d:.3e})")
+    s._config = gen_cfg
+    counts, solves = timed_window("11b", s, generic_soup, ticks_3b + 1)
+    check(counts["cg_trips"] == solves, f"one CG trip per solve ({counts['cg_trips']} trips in"
+          f" {solves} solves): the block preconditioner is exact")
+    kernels_vs_twins(s, shared)
+    del soup_3b, s, shared, a, b
+
+    # 11c: the sheet over the soup of phase 7, from its first sheet-soup
+    # contact, under full coupling.
+    s, warm, first = mixed_7
+    print(f"phase 11c: the cloth over the soup of phase 7 from tick {first},"
+          f" contact_coupling='full'")
+    s._state = clone_state(warm)
+    s._config = dataclasses.replace(s.config, contact_coupling="full")
+    timed_window("11c", s, mixed_path + ["pt_full"], first + 1)
+    kernels_vs_twins(s, warm)
+    del mixed_7, s, warm
+
+    # 11d: the mesh of phase 5 on the entry-list floor.
+    s, warm = mesh_5
+    print(f"phase 11d: the mesh of phase 5 from tick {mesh_warmup}, dense_floor=False")
+    dense_cfg = s.config
+    entry_cfg = dataclasses.replace(dense_cfg, dense_floor=False)
+    s._config = entry_cfg
+    c, x, msn, diag, wf, floor, _, _ = generic_inputs(s)
+    st, topo, params = s.state, s.topology, s.current_params()
+    failed, n_nodes = st.sim_failed, st.capacity
+    dk, dp = diag.clone(), diag.clone()
+    wk, flk = pd.floor_entries(x, topo, params, entry_cfg, dk, failed)
+    wp, flp = pd.floor_entries_plain(x, topo, params, entry_cfg, dp)
+    torch.cuda.synchronize()
+    n_entries, live_e = topo.corner_inc.cap, int(flp.static_mask.sum())
+    check(torch.equal(dk, dp) and torch.equal(wk, wp)
+          and all(torch.equal(getattr(flk, f), getattr(flp, f))
+                  for f in ("static_mask", "floor_active", "floor_counts")),
+          f"T24 at {n_entries} entries ({live_e} live, {int(flp.floor_active.sum())} nodes):"
+          " masks, weights, counts, snap flags and diagonal equal")
+    ent_nodes = topo.corner_inc.nodes.long()
+    ent_w = torch.ones((n_entries, 1), device=dev)
+    row("floor_entries", "pies_tpu_torch/kernels/csrc/floor_entries.cu",
+        "pies_tpu/collision/batches.py:104", 0.0,
+        cuda_ms(lambda: pd.floor_entries(x, topo, params, entry_cfg, diag.clone(), failed), 50),
+        cuda_ms(lambda: pd.floor_entries_plain(x, topo, params, entry_cfg, diag.clone()), 5),
+        "equal", 36 * n_nodes + 12 * n_entries, 4 * n_entries,
+        cuda_ms(lambda: torch.zeros((n_nodes, 1), device=dev).index_add_(0, ent_nodes, ent_w),
+                50))
+    rows_k = assembly.local_step(x, st.inv_mass, st.mass, st.shape_quats.clone(), topo,
+                                 entry_cfg.rotation_iterations, failed)
+    plane = pd.floor_plane(params, entry_cfg.reference_quirks)
+    ak = assembly.assemble_force(x, msn, wk, rows_k, topo, plane, failed, floor=flk)
+    ap = assembly.assemble_force_plain(x, msn, wp, rows_k, topo, plane, floor=flp)
+    torch.cuda.synchronize()
+    check(torch.equal(ak[0], ap[0]) and torch.equal(ak[1], ap[1]),
+          "T9 stage 2 with the entry-list floor: force and static projection equal")
+    tk, tp_ = clone_state(warm), clone_state(warm)
+    pd.substep_tail(tk, topo, params, flk.floor_active, x, ak[1], floor_counts=flk.floor_counts)
+    pd.substep_tail_plain(tp_, topo, params, flp.floor_active, x, ak[1],
+                          floor_counts=flp.floor_counts)
+    torch.cuda.synchronize()
+    check(all(torch.equal(getattr(tk, f), getattr(tp_, f))
+              for f in ("positions", "prev_positions", "velocities", "forces", "sim_failed")),
+          "T4 with the entry list's counts equals its twin")
+    del c, rows_k, ak, ap, tk, tp_
+    # Per tick against the dense floor from the same state.  The entry
+    # list's k additions of w*p round otherwise than the dense (k w)*p, a
+    # last-bit change of the force; the gate is 1e-6 of the position scale
+    # or, where the dense tick's own float32 spread is larger, twice that
+    # spread (its farthest move from a state one ulp away, one seed per
+    # tick).  With the CG's early exit off (16 trips, both floors) the gap
+    # is printed too: the exit test can end a solve a trip apart.
+    scale = float(warm.positions[: s._builder.num_nodes].abs().max())
+    s._state = clone_state(warm)
+    worst = worst_fixed = spread = 0.0
+    fixed = lambda cf: dataclasses.replace(cf, cg_rtol=0.0)  # noqa: E731
+    gen = torch.Generator(device=dev)
+    for k in range(10):
+        runs = []
+        for cf in (entry_cfg, fixed(entry_cfg), fixed(dense_cfg)):
+            e = clone_state(s.state)
+            step.tick(e, topo, params, cf)
+            runs.append(e.positions)
+        gen.manual_seed(k)
+        u = clone_state(s.state)
+        moved = (torch.rand(u.positions.shape, generator=gen, device=dev) < 0.5) \
+            & (u.node_mask[:, None] > 0)
+        up = torch.rand(u.positions.shape, generator=gen, device=dev) < 0.5
+        u.positions.copy_(torch.where(moved, torch.nextafter(
+            u.positions, torch.where(up, float("inf"), float("-inf"))), u.positions))
+        step.tick(u, topo, params, dense_cfg)
+        step.tick(s.state, topo, params, dense_cfg)
+        worst = max(worst, float((runs[0] - s.state.positions).abs().max()))
+        worst_fixed = max(worst_fixed, float((runs[1] - runs[2]).abs().max()))
+        spread = max(spread, float((u.positions - s.state.positions).abs().max()))
+    tol = max(1e-6 * scale, 2.0 * spread)
+    check(worst <= tol, f"one tick from each state of ticks {mesh_warmup + 1}-"
+          f"{mesh_warmup + 10}: the entry-list floor within {tol:.3e} of the dense floor"
+          f" (max |dx| {worst:.3e}, {worst / scale:.2e} of the position scale {scale:.3f};"
+          f" the dense tick's one-ulp spread {spread:.3e}; with 16 fixed CG trips the"
+          f" floors part by {worst_fixed:.3e})")
+    s._state = clone_state(warm)
+    s._config = entry_cfg
+    timed_window("11d", s, ["substep_head", "floor_entries", "tet_force_nodes", "ell_matvec",
+                            "pcg", "substep_tail"], mesh_warmup + 1)
+    kernels_vs_twins(s, warm)
+    print(f"  phase 11a: {trips_11a:.2f} CG trips per solve under full coupling")
+    del mesh_5, s, warm
+
     table = []
     mixed_rows = {"super_broadphase": "super_broadphase",
                   "super_narrowphase": "super_narrowphase",
@@ -1856,6 +2184,12 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     for name, r in rows.items():
         if name in mixed_rows:
             r["launches"] = launches["7"][mixed_rows[name]]
+        elif name in ("tet_block", "pt_full", "floor_entries"):
+            # The main path of each: 11a (T22, T23) and 11d (T24); every
+            # phase-11 window beside it.
+            r["launches"] = launches["11d" if name == "floor_entries" else "11a"][name]
+            paths = ("11a", "11b", "11c", "11d") + (("6b",) if name == "tet_block" else ())
+            r["launches_by_path"] = {p: launches[p][name] for p in paths}
         elif name in ("tri_candidates", "tri_ccd"):
             r["launches"] = launches["9"][name]
         elif name in PBD_ROWS:

@@ -4,10 +4,10 @@ A second package beside the JAX reference ``pies_tpu``: the same ``Solver``
 surface and the same physics, with the hot path in hand-written CUDA kernels
 for Hopper (``kernels/csrc``) and a plain PyTorch twin beside each kernel.
 It imports ``torch`` and never ``jax``.  The ported scope is the PD tick
-with floor contact on disjoint tet soups (the tet-column path, with
-self-contact) and on shared-node tet meshes (the generic path, self-contact
-off); anything outside it raises ``NotImplementedError`` naming the ROADMAP
-item that will bring it.
+with floor contact and point-triangle self-contact (in every coupling mode)
+on disjoint tet soups (the tet-column path) and every other scene the
+builders make (the generic path), and the PBD solver; anything outside it
+raises ``NotImplementedError`` naming the ROADMAP item that will bring it.
 """
 
 import torch

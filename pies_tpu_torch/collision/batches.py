@@ -1,5 +1,5 @@
-"""Per-substep collision constraints (port of the dense-floor and
-point-triangle parts of ``pies_tpu/collision/batches.py``).
+"""Per-substep collision constraints (port of the floor and point-triangle
+parts of ``pies_tpu/collision/batches.py``).
 
 Weights mirror the reference headers.  Point-triangle contacts come from
 the detection as a fixed-capacity buffer whose live entries are a packed
@@ -39,10 +39,17 @@ ATA_DIFF4 = np.array(
 
 @dataclass
 class CollisionSet:
-    """The constraints detected for one substep: the dense floor activity
-    and, with self-contact on, the point-triangle contacts (node a against
+    """The constraints detected for one substep: the floor contacts and,
+    with self-contact on, the point-triangle contacts (node a against
     triangle (b, c, d) of another body, ``Solver.cpp:777-797``) and the
-    capacity latch."""
+    capacity latch.
+
+    The floor comes in two forms.  Dense (``StepConfig.dense_floor``): the
+    per-node activity ``floor_active``.  Entry list: one entry per triangle
+    corner (``static_idx``, ``static_mask``, ``Solver.cpp:829-834``), with
+    ``floor_active`` the per-node snap flag (1 where any entry of the node
+    is live) and ``floor_counts`` its live entries (the friction's
+    exponent), both summed through the topology's corner incidence."""
 
     floor_active: torch.Tensor  # f32[N]
     pt_idx: torch.Tensor | None = None  # i32[cap, 4]
@@ -50,6 +57,9 @@ class CollisionSet:
     pt_count: torch.Tensor | None = None  # i32[1] live prefix length
     overflow: torch.Tensor | None = None  # i32[1], a capacity was exceeded
     rebuilt: torch.Tensor | None = None  # i32[1], the broadphase cache was rebuilt
+    static_idx: torch.Tensor | None = None  # i32[3T] entry list: each corner's node
+    static_mask: torch.Tensor | None = None  # f32[3T] entry list: the live entries
+    floor_counts: torch.Tensor | None = None  # f32[N] entry list: live entries per node
 
 
 def floor_threshold(params) -> float:
@@ -65,6 +75,29 @@ def detect_floor_active(positions: torch.Tensor, floor_count: torch.Tensor,
     node).  Returns ``f32[N]``."""
     hit = (positions[:, 1] < threshold) & (floor_count > 0)
     return hit.to(positions.dtype)
+
+
+def detect_floor_contacts(positions: torch.Tensor, triangles: torch.Tensor,
+                          tri_mask: torch.Tensor, threshold: float):
+    """Floor contact entries as the PD sweep emits them
+    (``batches.py:104-124``, ``Solver.cpp:829-834``): every corner of every
+    triangle with ``y < floorHeight + thickness``, a node shared by k
+    triangles k times.  Returns ``(static_idx i32[3T], static_mask
+    f32[3T])``, entry ``e = 3·triangle + corner``."""
+    corner_idx = triangles.reshape(-1)
+    y = positions[corner_idx.long(), 1]
+    hit = (y < threshold) & (torch.repeat_interleave(tri_mask, 3) > 0)
+    return corner_idx, hit.to(positions.dtype)
+
+
+def project_static(positions: torch.Tensor, static_idx: torch.Tensor,
+                   plane: float) -> torch.Tensor:
+    """The floor projection at the entries (``batches.py:230-245``): each
+    entry's node with y clamped to ``plane`` (``floor_plane``).  Returns
+    f32[S, 3]."""
+    p = positions[static_idx.long()]
+    y = p[:, 1]
+    return torch.stack([p[:, 0], torch.where(y < plane, plane, y), p[:, 2]], dim=1)
 
 
 def floor_plane(params, reference_quirks: bool) -> float:
@@ -182,6 +215,19 @@ def stabilize_point_tri_acc(positions, inv_mass, pt_idx, pt_mask, thickness) -> 
     inc = incidence_plain(pt_idx, count, positions.shape[0])
     vals = stabilize_contacts(positions, inv_mass, pt_idx, pt_mask, thickness)
     return csr_sum(inc, entry_values(vals))
+
+
+def project_point_tri(positions: torch.Tensor, pt_idx: torch.Tensor,
+                      thickness: float) -> torch.Tensor:
+    """The point-triangle projection in its stack form (``batches.py:286-330``,
+    ``build_stack=True``, ``CollisionConstraint.cpp:86-124``): within
+    ``thickness`` of the triangle's plane the point moves out along the unit
+    normal to ``thickness``, the corners stay.  Returns f32[K, 4, 3]."""
+    a, b, c, d = _gather4(positions, pt_idx)
+    n = _unit_normal_div(b, c, d)
+    ndp = _dot3(n, a - b)
+    disp = torch.where(ndp < thickness, thickness - ndp, 0.0)
+    return torch.stack([a + disp[:, None] * n, b, c, d], dim=1)
 
 
 def count_average(acc: torch.Tensor) -> torch.Tensor:

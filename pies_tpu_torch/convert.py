@@ -28,6 +28,7 @@ from .topology import (
     PositionBatch,
     TetBatch,
     Topology,
+    corner_incidence,
     generic_fields,
     pbd_incidences,
     to_device,
@@ -112,9 +113,9 @@ def groups_from_numpy(g) -> GroupBatch:
 def topology_from_numpy(topo, device="cpu", tet_fused: bool = True) -> Topology:
     """The port's topology from a JAX ``Topology`` with NumPy leaves (the
     ported fields only), for a scene with the JAX ``StepConfig.tet_fused``
-    given.  The static weight, the assembled operator, the row incidence
-    and the PBD families' incidences are built here as the port's host
-    builds them; the rope chains are the JAX package's; a banded
+    given.  The static weight, the assembled operator, the row incidence,
+    the corner incidence and the PBD families' incidences are built here as
+    the port's host builds them; the rope chains are the JAX package's; a banded
     soup's seven diagonals ``tet_band`` and the super-body tables
     ``super_corners`` and ``super_adj`` are the JAX arrays."""
 
@@ -151,6 +152,8 @@ def topology_from_numpy(topo, device="cpu", tet_fused: bool = True) -> Topology:
             triangles=topo.triangles,
             tri_mask=topo.tri_mask,
             **generic,
+            corner_inc=(corner_incidence(n, np.asarray(topo.triangles))
+                        if np.asarray(topo.triangles).shape[0] else None),
             super_corners=opt(getattr(topo, "super_corners", None)),
             super_adj=opt(getattr(topo, "super_adj", None)),
             distance=distance,

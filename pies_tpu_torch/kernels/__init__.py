@@ -42,6 +42,13 @@ wrappers that call them sit beside their plain PyTorch twins:
   ``solver/pbd.py:chain_scan``, ``color_classes``
 * T20 ``pies_node_pairs`` — ``collision/broadphase.py:node_pairs``
 * T21 ``pies_node_response`` — ``collision/broadphase.py:node_response``
+* T22 ``pies_tet_block_factor`` — ``solver/assembly.py:tet_block_factor``
+  (its solve is a mode of T11's init and update stages)
+* T23 — full contact coupling, device functions in ``csrc/pt_full.cuh``
+  that run inside T10 (``apply_system``) and T9's stage 2
+  (``assemble_force``)
+* T24 ``pies_floor_entries`` — ``solver/pd.py:floor_entries`` (the force's
+  per-entry sum runs inside T9's stage 2, ``csrc/floor_entries.cuh``)
 
 Each source compiles to an object in its own ``nvcc`` process, all started
 together, and the objects link into one library.
@@ -79,7 +86,7 @@ SIGNATURES = {
     "pies_tet_force12": [_P] * 10 + [_I, _P, _P],
     "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F] + [_P] * 6,
     "pies_substep_head": [_P] * 11 + [_I, _F, _F, _F, _P, _I, _P],
-    "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F] + [_P] * 6,
+    "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F] + [_P] * 7,
     "pies_body_broadphase": [_P] * 16 + [_I] * 10 + [_F] * 6 + [_P],
     "pies_pt_narrowphase": [_P] * 16 + [_I] * 6 + [_F, _P],
     "pies_pt_coupling_setup": [_P] * 15 + [_I, _I, _F, _P],
@@ -88,10 +95,11 @@ SIGNATURES = {
     "pies_pt_force": [_P] * 9 + [_I, _I, _F, _P],
     "pies_pt_tail": [_P] * 16 + [_I, _I, _I] + [_F] * 6 + [_P],
     "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P, _P],
-    "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 6,
-    "pies_ell_matvec": [_P] * 8 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F, _P],
-    "pies_cg_init": [_P] * 12 + [_I, _P, _P],
-    "pies_cg_update": [_P] * 12 + [_I] * 3 + [_F, _P, _P],
+    "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 8 + [_I, _F] + [_P] * 4,
+    "pies_ell_matvec": [_P] * 8 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F]
+    + [_P] * 5 + [_I, _P],
+    "pies_cg_init": [_P] * 13 + [_I, _P, _P],
+    "pies_cg_update": [_P] * 13 + [_I] * 3 + [_F, _P, _P],
     "pies_cg_direction": [_P] * 5 + [_I] * 3 + [_F, _P, _P],
     "pies_distance_rows": [_P] * 5 + [_I, _P, _P],
     "pies_bend_rows": [_P] * 6 + [_I, _P, _P],
@@ -108,6 +116,8 @@ SIGNATURES = {
     "pies_pbd_color_class": [_P] * 4 + [_I, _I, _P, _P],
     "pies_node_pairs": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_P],
     "pies_node_response": [_P] * 13 + [_I, _F, _F, _P, _P],
+    "pies_tet_block_factor": [_P] * 3 + [_I, _P, _P],
+    "pies_floor_entries": [_P] * 4 + [_F] + [_P] * 5 + [_I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

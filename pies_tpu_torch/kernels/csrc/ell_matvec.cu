@@ -18,8 +18,12 @@
 // order: the diagonal, then for d = 1, 2, 3 the +d term and the -d term.
 //
 // static_diag (`wf`) is the floor weight of kernel T3 (W_STATIC * count *
-// active), with the point-triangle contacts' diagonal added by kernel T7
-// where contacts are live (recentered coupling, :466-469).
+// active; kernel T24's per-entry sum on the entry-list floor), with the
+// point-triangle contacts' diagonal added by kernel T7 where contacts are
+// live (recentered coupling, :466-469).  Under full coupling the contacts'
+// whole blocks are applied instead, after every other term (:559-574,
+// kernel T23's device function pt_full_add).  A pure tet soup off the
+// tet-column path has the band and an ELL of width 0.
 //
 // The operator is ELL, slot-major ([m, N], so that neighbouring threads
 // read neighbouring words; m = 0 for a scene with diagonal terms only),
@@ -34,6 +38,7 @@
 #include <cuda_runtime.h>
 
 #include "cg_reduce.cuh"
+#include "pt_full.cuh"
 
 namespace {
 
@@ -51,7 +56,7 @@ __global__ void __launch_bounds__(pies::kCgBlock)
                       const float* __restrict__ coef, int m,
                       float* __restrict__ y, float* __restrict__ part, int n,
                       float h2, const int* __restrict__ failed,
-                      pies::CgGate gate) {
+                      pies::CgGate gate, pies::PtFull pt) {
   __shared__ float sm[pies::kCgBlock];
   if (failed[0] != 0) return;
   float rz;
@@ -115,10 +120,11 @@ __global__ void __launch_bounds__(pies::kCgBlock)
       for (int d = 0; d < 3; ++d) yi[d] = yi[d] + bacc[d];
     }
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      yi[d] = yi[d] + acc[d];
-      y[(size_t)i * 3 + d] = yi[d];
-    }
+    for (int d = 0; d < 3; ++d) yi[d] = yi[d] + acc[d];
+    // Full contact coupling (kernel T23, pt_full.cuh): the contacts' blocks.
+    if (pt.pt_idx != nullptr) pies::pt_full_add<false>(pt, x, i, yi);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) y[(size_t)i * 3 + d] = yi[d];
     v = xi[0] * yi[0] + xi[1] * yi[1] + xi[2] * yi[2];
   }
   if (part != nullptr) {
@@ -132,7 +138,9 @@ __global__ void __launch_bounds__(pies::kCgBlock)
 // y = A x; with `part` non-null also the per-block partials of x.y.  With
 // `trips` non-null the launch is CG trip `trip` and is gated (cg_reduce.cuh).
 // With `row_start` non-null the operator is CSR, else ELL of width m; with
-// `band` non-null the seven tet diagonals are applied before it.
+// `band` non-null the seven tet diagonals are applied before it; with
+// `pt_idx` non-null (full contact coupling) the contacts' blocks after it,
+// through T7's incidence (`pt_start`, `pt_entries`).
 extern "C" int pies_ell_matvec(const float* x, const float* mass,
                                const float* wf, const float* static_w,
                                const float* band,
@@ -141,18 +149,22 @@ extern "C" int pies_ell_matvec(const float* x, const float* mass,
                                float* y, float* part, int n, float h2,
                                const int* failed, const int* trips,
                                const float* prz, const float* prz0, int trip,
-                               int early_exit, float rtol2, void* stream) {
+                               int early_exit, float rtol2, const int* pt_idx,
+                               const float* pt_mask, const int* pt_count,
+                               const int* pt_start, const int* pt_entries, int cap,
+                               void* stream) {
   if (n > 0) {
     const int blocks = (n + pies::kCgBlock - 1) / pies::kCgBlock;
     pies::CgGate gate{trips, prz, prz0, blocks, trip, early_exit, rtol2};
+    pies::PtFull pt{pt_idx, pt_mask, pt_count, pt_start, pt_entries, cap, 0.0f};
     if (row_start != nullptr)
       ell_matvec_kernel<true><<<blocks, pies::kCgBlock, 0, (cudaStream_t)stream>>>(
           x, mass, wf, static_w, band, row_start, nbr, coef, m, y, part, n, h2,
-          failed, gate);
+          failed, gate, pt);
     else
       ell_matvec_kernel<false><<<blocks, pies::kCgBlock, 0, (cudaStream_t)stream>>>(
           x, mass, wf, static_w, band, row_start, nbr, coef, m, y, part, n, h2,
-          failed, gate);
+          failed, gate, pt);
   }
   return (int)cudaGetLastError();
 }

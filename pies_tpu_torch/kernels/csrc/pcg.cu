@@ -3,18 +3,20 @@
 //
 // Replaces (JAX): pies_tpu/solver/assembly.py:656 pcg_solve with the Jacobi
 // preconditioner 1/diag (diag from system_diag :577, which kernel T3
-// computes), the while_loop exit (i < cg_iterations) & (rz > rtol^2 rz0)
+// computes) or, on a disjoint tet soup, the block preconditioner
+// precond_fn = tet_block_apply (:633; the factor is kernel T22's, the
+// solve tet_block.cuh's, four lanes of a warp per block), the while_loop exit (i < cg_iterations) & (rz > rtol^2 rz0)
 // (:711-720), the residual sqrt(sum r^2) (:725), and the mask re-select of
 // pies_tpu/solver/pd.py:195.
 //
 // A solve is init, then cg_iterations trips of (T10 A.p, update,
 // direction), all enqueued by the host with no sync:
-//   init       r = b - A x0, z = r / diag, p = z, x = x0; partials of r.z
+//   init       r = b - A x0, z = M^-1 r, p = z, x = x0; partials of r.z
 //              (twice: rz_0 is kept for the exit test) and r.r; trips = 0;
 //   update     alpha = rz / max(pAp, 1e-30) if pAp > 0 else 0 from T10's
 //              partials; x += alpha p where mask > 0 (the re-select, done
 //              per trip: x is read by nothing else), r -= alpha Ap,
-//              z = r / diag; partials of r.z (the other row of the pair)
+//              z = M^-1 r; partials of r.z (the other row of the pair)
 //              and r.r;
 //   direction  beta = rz_new / max(rz, 1e-30) if rz > 0 else 0; p = z +
 //              beta p; block 0 writes trips = i + 1.
@@ -32,15 +34,32 @@
 #include <cuda_runtime.h>
 
 #include "cg_reduce.cuh"
+#include "tet_block.cuh"
 
 namespace {
 
 using pies::kCgBlock;
 
+// z = M^-1 r at node i: the Jacobi 1/diag, or with `factors` (f32[10, K]
+// from kernel T22) the disjoint-tet block solve.  Every thread of the
+// block calls it (the block form trades rows between lanes).
+__device__ __forceinline__ void precondition(const float* __restrict__ factors,
+                                             const float* __restrict__ diag, int n,
+                                             int i, const float ri[3], float zi[3]) {
+  if (factors != nullptr) {
+    pies::tet_block_precond(factors, n, i, ri, zi);
+  } else if (i < n) {
+    const float inv = 1.0f / diag[i];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) zi[d] = inv * ri[d];
+  }
+}
+
 __global__ void __launch_bounds__(kCgBlock)
     cg_init_kernel(const float* __restrict__ b, const float* __restrict__ y,
                    const float* __restrict__ x0,
-                   const float* __restrict__ diag, float* __restrict__ r,
+                   const float* __restrict__ diag,
+                   const float* __restrict__ factors, float* __restrict__ r,
                    float* __restrict__ z, float* __restrict__ p,
                    float* __restrict__ x, float* __restrict__ prz,
                    float* __restrict__ prz0, float* __restrict__ prr,
@@ -53,15 +72,17 @@ __global__ void __launch_bounds__(kCgBlock)
     return;
   }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float ri[3] = {0.0f, 0.0f, 0.0f}, zi[3] = {0.0f, 0.0f, 0.0f};
+  if (i < n) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) ri[d] = b[(size_t)i * 3 + d] - y[(size_t)i * 3 + d];
+  }
+  precondition(factors, diag, n, i, ri, zi);
   float vz = 0.0f, vr = 0.0f;
   if (i < n) {
-    const float inv = 1.0f / diag[i];
-    float ri[3], zi[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       const size_t j = (size_t)i * 3 + d;
-      ri[d] = b[j] - y[j];
-      zi[d] = inv * ri[d];
       r[j] = ri[d];
       z[j] = zi[d];
       p[j] = zi[d];
@@ -83,6 +104,7 @@ __global__ void __launch_bounds__(kCgBlock)
     cg_update_kernel(float* __restrict__ x, const float* __restrict__ p,
                      const float* __restrict__ ap, float* __restrict__ r,
                      float* __restrict__ z, const float* __restrict__ diag,
+                     const float* __restrict__ factors,
                      const float* __restrict__ mask, float* prz,
                      const float* __restrict__ pap, float* __restrict__ prr,
                      int n, const int* __restrict__ failed,
@@ -94,20 +116,22 @@ __global__ void __launch_bounds__(kCgBlock)
   const float p_ap = pies::finalize(pap, gate.parts, sm);
   const float alpha = p_ap > 0.0f ? rz / pies::max_keep_nan(p_ap, 1e-30f) : 0.0f;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float vz = 0.0f, vr = 0.0f;
+  float ri[3] = {0.0f, 0.0f, 0.0f}, zi[3] = {0.0f, 0.0f, 0.0f};
   if (i < n) {
-    const float inv = 1.0f / diag[i];
     const bool live = mask[i] > 0.0f;
-    float ri[3], zi[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       const size_t j = (size_t)i * 3 + d;
       if (live) x[j] = x[j] + alpha * p[j];
       ri[d] = r[j] - alpha * ap[j];
-      zi[d] = inv * ri[d];
       r[j] = ri[d];
-      z[j] = zi[d];
     }
+  }
+  precondition(factors, diag, n, i, ri, zi);
+  float vz = 0.0f, vr = 0.0f;
+  if (i < n) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) z[(size_t)i * 3 + d] = zi[d];
     vz = ri[0] * zi[0] + ri[1] * zi[1] + ri[2] * zi[2];
     vr = ri[0] * ri[0] + ri[1] * ri[1] + ri[2] * ri[2];
   }
@@ -146,20 +170,21 @@ inline int blocks_for(int n) { return (n + kCgBlock - 1) / kCgBlock; }
 }  // namespace
 
 extern "C" int pies_cg_init(const float* b, const float* y, const float* x0,
-                            const float* diag, float* r, float* z, float* p,
+                            const float* diag, const float* factors, float* r,
+                            float* z, float* p,
                             float* x, float* prz, float* prz0, float* prr,
                             int* trips, int n, const int* failed,
                             void* stream) {
   if (n > 0) {
     cg_init_kernel<<<blocks_for(n), kCgBlock, 0, (cudaStream_t)stream>>>(
-        b, y, x0, diag, r, z, p, x, prz, prz0, prr, trips, n, failed);
+        b, y, x0, diag, factors, r, z, p, x, prz, prz0, prr, trips, n, failed);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int pies_cg_update(float* x, const float* p, const float* ap,
                               float* r, float* z, const float* diag,
-                              const float* mask, float* prz,
+                              const float* factors, const float* mask, float* prz,
                               const float* prz0, const float* pap, float* prr,
                               const int* trips, int n, int trip,
                               int early_exit, float rtol2, const int* failed,
@@ -168,7 +193,7 @@ extern "C" int pies_cg_update(float* x, const float* p, const float* ap,
     const int blocks = blocks_for(n);
     pies::CgGate gate{trips, prz, prz0, blocks, trip, early_exit, rtol2};
     cg_update_kernel<<<blocks, kCgBlock, 0, (cudaStream_t)stream>>>(
-        x, p, ap, r, z, diag, mask, prz, pap, prr, n, failed, gate);
+        x, p, ap, r, z, diag, factors, mask, prz, pap, prr, n, failed, gate);
   }
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,10 @@
 // rounds as in the plain PyTorch twins, in the same order.  The one library
 // call is powf for the friction decay (1-f)^count.
 //
+// On the entry-list floor T4 takes kernel T24's per-node counts of live
+// entries as the friction's exponent (pd.py:601-604, the segment sum)
+// instead of floor_count * active, and T24's snap flag as `active`.
+//
 // With self-contact, T4 also takes kernel T8's contact friction impulse
 // `fric` (added, before the floor friction, at every node with contact
 // entries in T7's incidence when the device contact count is > 0), and ORs
@@ -86,7 +90,8 @@ __global__ void __launch_bounds__(256)
                         const float* __restrict__ fric,
                         const int* __restrict__ row_start,
                         const int* __restrict__ pt_count,
-                        const int* __restrict__ overflow) {
+                        const int* __restrict__ overflow,
+                        const float* __restrict__ counts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (failed[0] != 0) return;
@@ -115,7 +120,7 @@ __global__ void __launch_bounds__(256)
   }
   // Floor friction: (1-f)^count on x and z, the static threshold tested on
   // the velocity before the pass.
-  const float count = floor_count[i] * act;
+  const float count = counts != nullptr ? counts[i] : floor_count[i] * act;
   const float norm = sqrtf(v[0] * v[0] + v[2] * v[2]);
   float factor = norm < static_threshold
                      ? 0.0f
@@ -165,14 +170,14 @@ extern "C" int pies_substep_tail(float* pos, float* prev, float* vel,
                                  float static_threshold, int* failed,
                                  const float* fric, const int* row_start,
                                  const int* pt_count, const int* overflow,
-                                 void* stream) {
+                                 const float* counts, void* stream) {
   if (n > 0) {
     const int threads = 256;
     const int blocks = (n + threads - 1) / threads;
     substep_tail_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         pos, prev, vel, forces, x_solved, static_proj, active, floor_count,
         inv_mass, mass, mask, n, h, damping, gravity, friction,
-        static_threshold, failed, fric, row_start, pt_count, overflow);
+        static_threshold, failed, fric, row_start, pt_count, overflow, counts);
   }
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 //
 // Replaces (JAX): pies_tpu/solver/tetcols.py:263 substep_cols (loop body
 // :327-370, residual and stale static projection :401-420), with
-// block_factor_cols (:125), block_solve_cols (:143) and _block_matvec_cols
+// block_factor_cols (:125) and block_solve_cols (:143), whose device
+// functions tet_block.cuh shares with kernel T22, and _block_matvec_cols
 // (:162).
 //
 // The tets of the soup are node-disjoint, so the PD system is exactly
@@ -30,6 +31,7 @@
 // are not read.
 #include <cuda_runtime.h>
 
+#include "tet_block.cuh"
 #include "tet_force.cuh"
 
 namespace {
@@ -97,16 +99,8 @@ __global__ void __launch_bounds__(128)
   for (int r = 0; r < 6; ++r) b6[r] = in.block6[(size_t)r * k + t];
   const float b01 = b6[0], b02 = b6[1], b03 = b6[2], b12 = b6[3],
               b13 = b6[4], b23 = b6[5];
-
-  // Batched 4x4 Cholesky (block_factor_cols), 1/sqrt as IEEE 1.0f/sqrtf.
-  const float i00 = 1.0f / sqrtf(dg[0]);
-  const float l10 = b01 * i00, l20 = b02 * i00, l30 = b03 * i00;
-  const float i11 = 1.0f / sqrtf(dg[1] - l10 * l10);
-  const float l21 = (b12 - l20 * l10) * i11;
-  const float l31 = (b13 - l30 * l10) * i11;
-  const float i22 = 1.0f / sqrtf(dg[2] - l20 * l20 - l21 * l21);
-  const float l32 = (b23 - l30 * l20 - l31 * l21) * i22;
-  const float i33 = 1.0f / sqrtf(dg[3] - l30 * l30 - l31 * l31 - l32 * l32);
+  // Batched 4x4 Cholesky (block_factor_cols, tet_block.cuh).
+  const pies::TetBlock fac = pies::tet_block_factor(dg, b6);
 
   const bool live = t < c;
   pies::TetParams tp;
@@ -144,18 +138,13 @@ __global__ void __launch_bounds__(128)
         force[a][d] = fad;
       }
     }
-    // Block solve (block_solve_cols) and the padding re-select.
+    // Block solve (block_solve_cols, tet_block.cuh) and the padding
+    // re-select.
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      const float y0 = force[0][d] * i00;
-      const float y1 = (force[1][d] - l10 * y0) * i11;
-      const float y2 = (force[2][d] - l20 * y0 - l21 * y1) * i22;
-      const float y3 = (force[3][d] - l30 * y0 - l31 * y1 - l32 * y2) * i33;
-      const float z3 = y3 * i33;
-      const float z2 = (y2 - l32 * z3) * i22;
-      const float z1 = (y1 - l21 * z2 - l31 * z3) * i11;
-      const float z0 = (y0 - l10 * z1 - l20 * z2 - l30 * z3) * i00;
-      const float z[4] = {z0, z1, z2, z3};
+      const float rhs[4] = {force[0][d], force[1][d], force[2][d], force[3][d]};
+      float z[4];
+      pies::tet_block_solve(fac, rhs, z);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         stale[a][d] = x[a][d];

@@ -28,7 +28,11 @@
 // comes first, folded into the start value.)  With point-triangle contacts
 // under recentered coupling (:288-303) a node with contact entries then adds
 // kernel T7's contact force and the lag term ptd * x, in that order, before
-// the floor term; the arrays are read nowhere else.
+// the floor term; the arrays are read nowhere else.  Under full coupling
+// (:282-287) a node adds instead w A^T A p over its contact entries, p the
+// stack projection (kernel T23's device function, pt_full.cuh); on the
+// entry-list floor (:332-334) the floor term is w * static per corner entry
+// (kernel T24's, floor_entries.cuh) instead of wf * static.
 //
 // Bound: device memory.  The function needs the tet ids and 27 parameter
 // floats per tet (124 B; ~77 MB at 622,938 tets) and 52 B per node (x, msn
@@ -41,6 +45,8 @@
 // cost.
 #include <cuda_runtime.h>
 
+#include "floor_entries.cuh"
+#include "pt_full.cuh"
 #include "tet_force.cuh"
 
 namespace {
@@ -87,7 +93,8 @@ __global__ void __launch_bounds__(256)
                           const float* __restrict__ ptd,
                           const float* __restrict__ contact,
                           const int* __restrict__ pt_start,
-                          const int* __restrict__ pt_count) {
+                          const int* __restrict__ pt_count,
+                          pies::PtFull full, pies::FloorEntries fl) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (failed[0] != 0) return;
@@ -111,13 +118,21 @@ __global__ void __launch_bounds__(256)
       f[d] = (f[d] + contact[j]) + pd * x[j];
     }
   }
-  const float w = wf[i];
+  // Full contact coupling (kernel T23, pt_full.cuh): the stacked force.
+  if (full.pt_idx != nullptr) pies::pt_full_add<true>(full, x, i, f);
   const float y = x[(size_t)i * 3 + 1];
   const float s[3] = {x[(size_t)i * 3], y < plane ? plane : y, x[(size_t)i * 3 + 2]};
+  if (fl.start != nullptr) {
+    pies::floor_entry_force(fl, i, s, f);  // the entry-list floor (T24)
+  } else {
+    const float w = wf[i];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) f[d] = f[d] + w * s[d];
+  }
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     const size_t j = (size_t)i * 3 + d;
-    force[j] = f[d] + w * s[d];
+    force[j] = f[d];
     stat[j] = s[d];
   }
 }
@@ -148,13 +163,20 @@ extern "C" int pies_assemble_force(const float* x, const float* msn,
                                    float* stat, int n, float plane,
                                    const int* failed, const float* ptd,
                                    const float* contact, const int* pt_start,
-                                   const int* pt_count, void* stream) {
+                                   const int* pt_count, const int* pt_idx,
+                                   const float* pt_mask, const int* pt_entries,
+                                   int cap, float thickness,
+                                   const int* corner_start,
+                                   const int* corner_entries,
+                                   const float* static_mask, void* stream) {
   if (n > 0) {
     const int threads = 256;
+    pies::PtFull full{pt_idx, pt_mask, pt_count, pt_start, pt_entries, cap, thickness};
+    pies::FloorEntries fl{corner_start, corner_entries, static_mask};
     assemble_force_kernel<<<(n + threads - 1) / threads, threads, 0,
                             (cudaStream_t)stream>>>(
         x, msn, pin, wf, row_start, entries, blocks, force, stat, n, plane,
-        failed, ptd, contact, pt_start, pt_count);
+        failed, ptd, contact, pt_start, pt_count, full, fl);
   }
   return (int)cudaGetLastError();
 }

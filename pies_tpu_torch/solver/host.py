@@ -13,10 +13,13 @@ paths:
   ``create_bend_sheet``, ``create_shape_matching_box``,
   ``create_shape_matching_sheet``, ``create_tet_box``, an imported mesh
   through ``scene.mesh_dump.add_tet_mesh``, ``add_fixed_regions`` with
-  ``update_fixed_regions``, ``add_linked_regions``, ``add_nodes``), the
-  assembled operator and Jacobi-PCG, where ``cg_iterations``, ``cg_rtol``
-  and ``rotation_iterations`` take effect as in the JAX package, with
-  recentered or diagonal contact coupling.
+  ``update_fixed_regions``, ``add_linked_regions``, ``add_nodes``), and a
+  tet soup under full contact coupling or ``tet_cols=False``: the
+  assembled operator and PCG (Jacobi, or the exact block preconditioner
+  where the disjoint-tet layout covers the capacity), where
+  ``cg_iterations``, ``cg_rtol`` and ``rotation_iterations`` take effect
+  as in the JAX package, with recentered, diagonal or full contact
+  coupling, on the dense floor or its entry list (``dense_floor=False``).
 
 The PBD solver (``SolverOptions(solver=SolverName.PBD)``) runs every scene
 the builders make (``create_rope`` among them): pins gated by
@@ -57,7 +60,7 @@ from ..state import (
     save_state,
 )
 from .. import topology as topo_mod
-from . import step, tetcols
+from . import step
 
 _F32 = np.float32
 
@@ -254,26 +257,6 @@ def _detect_super_layout(tris: np.ndarray, bodies: np.ndarray, cap: int):
         super_loose_face=loose_face,
     )
     return fields, corners, adj
-
-
-def _check_generic(topology, config: StepConfig) -> None:
-    """Raise unless a scene off the tet-column path can take the port's
-    generic path: PD (checked before), the assembled operator with the
-    Jacobi preconditioner, the dense floor, and self-contact (any detection
-    branch) with recentered or diagonal coupling."""
-    if topology.ell_nbr is None and topology.csr_start is None:
-        raise NotImplementedError(
-            "a disjoint tet soup with the block structure off the tet-column path (the"
-            " tet_block preconditioner) is ROADMAP queue 1 item 5c")
-    if not config.dense_floor:
-        raise NotImplementedError("the floor entry-list path (dense_floor=False) is ROADMAP"
-                                  " queue 1 item 5c")
-    if config.enable_collisions:
-        broadphase.check_detection(config)
-        if config.contact_coupling not in ("diagonal", "recentered"):
-            raise NotImplementedError(
-                f"contact_coupling={config.contact_coupling!r} on the generic path (the"
-                " contact blocks in the operator) is ROADMAP queue 1 item 5c")
 
 
 class Solver:
@@ -590,8 +573,6 @@ class Solver:
         # The PBD node-pair cache (host.py:859-875), reset on every prepare.
         if pbd and config.enable_collisions:
             state.nn = empty_node_pair_cache(cap, budget.max_candidates_per_node, self._device)
-        if not pbd and not tetcols.applies(state, topology, config):
-            _check_generic(topology, config)
         self._state = state
         self._goal_transforms = np.array(topology.goal.transforms)
         self._topology = topo_mod.to_device(topology, self._device)

@@ -8,6 +8,13 @@
     python3 -m pies_tpu_torch.tick_profile --rope [particles] [repeats]
     python3 -m pies_tpu_torch.tick_profile --pile [particles] [repeats]
 
+and on the PD scenes any of ``--full`` (``contact_coupling="full"``,
+self-contact on), ``--no-tet-cols`` (a soup off the tet-column path, on
+the generic path with the block preconditioner) and ``--entry-floor`` (the
+floor's entry list, ``dense_floor=False``), e.g. ``--collisions --full``
+or ``--no-tet-cols --collisions`` on the soup, ``--mixed --full``, or
+``--mesh --entry-floor``.
+
 Builds the 500k-particle soup (``create_tet_soup(n_tets, spacing=1.6,
 scale=0.8, w=2000.0, height=0.5, jitter=0.05)``, 125,000 tets by default),
 self-contact off, or on with ``--collisions``; or, with ``--mesh``, the
@@ -61,7 +68,8 @@ MESH = Path(__file__).resolve().parent.parent / "scripts" / "refbench" / "tet_cu
 
 
 def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, mixed=False,
-         boxes=False, reference=False, rope=False, pile=False):
+         boxes=False, reference=False, rope=False, pile=False, full=False, tet_cols=True,
+         dense_floor=True):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -79,13 +87,26 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
              else "the cloth over the soup" if mixed else "the box pile" if boxes
              else f"the PBD rope fleet, {n_tets} particles" if rope
              else f"the PBD node pile, {n_tets} particles" if pile else "the soup")
-    collisions = collisions or mixed or boxes or rope or pile
+    collisions = collisions or mixed or boxes or rope or pile or full
     mode = "reference" if reference else "celllist"
+    coupling = "full" if full else "recentered"
     print(f"card: {smi}; {scene}, self-contact {'on' if collisions else 'off'},"
-          f" broadphase_mode {mode}")
+          f" broadphase_mode {mode}, contact_coupling {coupling}, tet_cols {tet_cols},"
+          f" dense_floor {dense_floor}")
     solver = pt.SolverName.PBD if rope or pile else pt.SolverName.PD
     s = pt.Solver(pt.SolverOptions(solver=solver), enable_collisions=collisions,
-                  broadphase_mode=mode)
+                  broadphase_mode=mode, contact_coupling=coupling)
+
+    def configure():
+        """The StepConfig fields of --no-tet-cols and --entry-floor, set
+        once the scene is built and before the warm-up."""
+        if not (tet_cols and dense_floor):
+            import dataclasses
+
+            s._prepare()
+            s._config = dataclasses.replace(s.config, tet_cols=tet_cols,
+                                            dense_floor=dense_floor)
+
     new_counters = (pbd if rope or pile else pd).new_counters
     if rope or pile:
         from pies_tpu_torch.scene.pbd_scenes import add_node_pile, add_rope_fleet
@@ -103,25 +124,30 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
         from pies_tpu_torch.scene.contact_piles import add_box_pile
 
         add_box_pile(s)
+        configure()
         s.run_ticks(BOXES_WARMUP)
     elif mixed:
         from pies_tpu_torch.scene.mixed_drape import add_mixed_drape
 
         add_mixed_drape(s, n_tets, 100)
+        configure()
         s.run_ticks(MIXED_WARMUP)
     elif mesh:
         from pies_tpu_torch.scene.mesh_dump import add_tet_mesh, load_mesh_txt
 
         add_tet_mesh(s, *load_mesh_txt(MESH))
+        configure()
         s.run_ticks(MESH_WARMUP)
     elif cloth:
         from pies_tpu_torch.scene.rigged_cloth import add_rigged_cloth, fixed_region_matrix
 
         add_rigged_cloth(s, 512, scale=0.1, height=0.3, w=5000.0)
+        configure()
         s.run_ticks(CLOTH_WARMUP)
         s.update_fixed_regions([fixed_region_matrix(512, 0.1, 0.3, 0.05)])
     else:
         s.create_tet_soup(n_tets, spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
+        configure()
         s.run_ticks(CONTACT_WARMUP if collisions else FLOOR_WARMUP)
     for r in range(repeats):
         t0 = time.perf_counter()
@@ -163,8 +189,10 @@ if __name__ == "__main__":
     args = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
     if {"--rope", "--pile"} & set(flags):
         sys.exit(main(*(args or [131_072]), rope="--rope" in flags, pile="--pile" in flags))
+    paths = dict(full="--full" in flags, tet_cols="--no-tet-cols" not in flags,
+                 dense_floor="--entry-floor" not in flags)
     if {"--mesh", "--cloth", "--mixed", "--boxes"} & set(flags):
         sys.exit(main(125_000, *args[:1], mesh="--mesh" in flags, cloth="--cloth" in flags,
                       mixed="--mixed" in flags, boxes="--boxes" in flags,
-                      reference="--reference" in flags))
-    sys.exit(main(*args, collisions="--collisions" in flags))
+                      reference="--reference" in flags, **paths))
+    sys.exit(main(*args, collisions="--collisions" in flags, **paths))

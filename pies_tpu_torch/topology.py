@@ -9,7 +9,7 @@ a multiple of 8, as in the JAX package), the constant stiffness diagonal,
 the per-node floor-contact multiplicity, the disjoint-tet block
 off-diagonals and the folded pin force.
 
-Three things are the port's own, for scenes off the tet-column path:
+Four things are the port's own, for scenes off the tet-column path:
 
 * ``static_w``, the diagonal terms of the operator (pins, bends, shape and
   goal members: A = I for each) as one weight per node;
@@ -20,7 +20,10 @@ Three things are the port's own, for scenes off the tet-column path:
   seven diagonals ``tet_band``;
 * ``row_inc``, the node → row incidence (a ``collision.batches.Incidence``)
   over the force rows of all families, which sums them per node in the JAX
-  scatters' order without float atomics (:func:`row_layout`).
+  scatters' order without float atomics (:func:`row_layout`);
+* ``corner_inc``, the node → triangle-corner incidence that the entry-list
+  floor (``StepConfig.dense_floor=False``) sums its entries through
+  (:func:`corner_incidence`).
 
 A PBD scene also carries the rope chains (``ChainBatch``, as in the JAX
 package) and, the port's own, the node → entry incidences of its Jacobi
@@ -179,8 +182,8 @@ class Topology:
     # layout the tets are in ``tet_band`` instead).  ELL, slot-major (the
     # transpose of the JAX package's [N, m] arrays, so neighbouring nodes
     # read neighbouring words; m = 0 when the scene has no off-diagonal
-    # term), or CSR when a row has more than 64 entries; all None for a soup
-    # with the disjoint-tet block structure (``tet_block6``).
+    # term, a pure tet soup among them), or CSR when a row has more than 64
+    # entries.
     ell_nbr: torch.Tensor | None = None  # i32[m, N]
     ell_coef: torch.Tensor | None = None  # f32[m, N]
     csr_start: torch.Tensor | None = None  # i32[N + 1]
@@ -191,9 +194,11 @@ class Topology:
     row_inc: Incidence | None = None
     # Banded (element-major) live tets: the strain + volume Σ w·GᵀG as seven
     # diagonals, ``tet_band[3 + b − a][4t + a]`` entry (a, b) of tet t's
-    # block (``pies_tpu/topology.py:563-588``); None off that layout, and
-    # where the soup has the block structure (``tet_block6``).
+    # block (``pies_tpu/topology.py:563-588``); None off that layout.
     tet_band: torch.Tensor | None = None  # f32[7, N]
+    # The node → triangle-corner incidence (corner_incidence); None without
+    # triangles.
+    corner_inc: Incidence | None = None
     # Super-body detection layout (``StepConfig.super_*``): node id per body
     # corner slot, and per row the rows sharing a node with it (−1 padded;
     # None when no two rows share a node).
@@ -522,6 +527,24 @@ def pbd_incidences(num_nodes: int, topo: "Topology") -> JacobiIncidence:
     )
 
 
+def corner_incidence(num_nodes: int, triangles: np.ndarray) -> Incidence:
+    """The node → triangle-corner incidence of the (padded) triangles: entry
+    ``e = 3·triangle + corner`` (``static_idx = triangles.reshape(-1)``,
+    ``pies_tpu/collision/batches.py:104-124``), each node's entries
+    ascending, the order of the JAX package's entry-list scatters.  Padding
+    triangles' corners are node 0's last entries."""
+    node = np.asarray(triangles).reshape(-1).astype(np.int64)
+    order = np.argsort(node, kind="stable")
+    row_start = np.zeros(num_nodes + 1, np.int64)
+    np.cumsum(np.bincount(node, minlength=num_nodes), out=row_start[1:])
+    return Incidence(
+        row_start=torch.from_numpy(row_start.astype(_I32)),
+        entries=torch.from_numpy(order.astype(_I32)),
+        nodes=torch.from_numpy(node[order].astype(_I32)),
+        cap=int(node.shape[0]),
+    )
+
+
 def static_weights(num_nodes: int, position: PositionBatch, bend: BendBatch,
                    shape: GroupBatch, goal: GroupBatch) -> np.ndarray:
     """``Σ w`` per node of the constraints whose ``AᵀA`` is the identity:
@@ -576,15 +599,12 @@ def generic_fields(num_nodes: int, *, strain, volume, position, distance, bend, 
                    tet_fused: bool) -> dict:
     """The port's own ``Topology`` fields for the generic path: the static
     weight, the assembled operator (ELL slot-major, or CSR) and the row
-    incidence.  A banded soup with the block structure (the tet-column
-    path's layout) gets neither operator nor incidence; any other banded
-    soup keeps its tets out of the operator, as the seven diagonals
-    ``tet_band``."""
+    incidence.  A banded soup keeps its tets out of the operator, as the
+    seven diagonals ``tet_band`` (a pure soup then has an ELL of width
+    0)."""
     out = dict(static_w=static_weights(num_nodes, position, bend, shape, goal))
     banded = banded_soup(strain, volume)
     if banded:
-        if block_structure(num_nodes, distance):
-            return out
         out["tet_band"] = tet_band_of(num_nodes, strain, volume)
     ell, csr = assemble_operator(num_nodes, () if banded else (strain, volume), distance)
     if ell is not None:
@@ -614,7 +634,7 @@ def assemble_topology(
     stiffness diagonal, floor counts, ``tet_block6`` and the folded pin
     force, computed with the same host arithmetic (float64 accumulation);
     plus the port's static weight, assembled operator and row incidence
-    (:func:`generic_fields`).  ``tet_fused``: see
+    (:func:`generic_fields`) and corner incidence.  ``tet_fused``: see
     ``Topology.tet_fused``."""
     diag = np.zeros(num_nodes, dtype=np.float64)
     # Distance AᵀA = A has 0.5 on the diagonal (Constraints.cpp:42-47).
@@ -647,9 +667,14 @@ def assemble_topology(
             live_rows.reshape(-1), np.arange(live_rows.size, dtype=np.int64)
         ):
             banded = False
+    generic = generic_fields(num_nodes, strain=strain, volume=volume, position=position,
+                             distance=distance, bend=bend, shape=shape, goal=goal,
+                             tet_fused=tet_fused)
     tet_block6 = None
     if banded and block_structure(num_nodes, distance):
-        tet_band = tet_band_of(num_nodes, strain, volume)
+        tet_band = generic.get("tet_band")
+        if tet_band is None:  # no live tet: zero blocks
+            tet_band = tet_band_of(num_nodes, strain, volume)
         # B[a][b] of block k is band[3 + b - a][4k + a].
         tet_block6 = np.stack(
             [
@@ -657,10 +682,6 @@ def assemble_topology(
                 for a, b in ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
             ]
         )
-
-    generic = generic_fields(num_nodes, strain=strain, volume=volume, position=position,
-                             distance=distance, bend=bend, shape=shape, goal=goal,
-                             tet_fused=tet_fused)
 
     if np.asarray(position.idx).shape[0]:
         pos_force = np.zeros((num_nodes, 3), np.float64)
@@ -675,6 +696,7 @@ def assemble_topology(
         pos_force = np.zeros((1, 3), _F32)
 
     tcap = _round_up(tris.shape[0], 8)
+    triangles = _pad2(tris, tcap)
     return Topology(
         strain=strain,
         volume=volume,
@@ -683,9 +705,10 @@ def assemble_topology(
         floor_count=floor_count,
         tet_block6=tet_block6,
         position_force_dense=pos_force,
-        triangles=_pad2(tris, tcap),
+        triangles=triangles,
         tri_mask=_pad2(np.ones(tris.shape[0], _F32), tcap),
         **generic,
+        corner_inc=corner_incidence(num_nodes, triangles) if tcap else None,
         distance=distance,
         bend=bend,
         shape=shape,

@@ -143,13 +143,15 @@ def test_mesh_failure_latch_matches_reference():
 
 def test_generic_cases_not_ported_yet_raise():
     # A disjoint soup off the tet-column path that keeps its block structure
-    # (here through full contact coupling) needs the tet_block preconditioner
-    # of item 5c.  (With another constraint family on it, it runs: the banded
-    # operator is ported, tests/test_torch_super.py.)
+    # (here through full contact coupling) ticks on the generic path with
+    # the block preconditioner (tests/test_torch_coupling.py holds it to the
+    # JAX package).
     s = pt.Solver(pt.SolverOptions(), contact_coupling="full", device="cpu")
     s.create_tet_soup(8, spacing=1.6, scale=0.8, w=2000.0)
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        s.tick()
+    s.tick()
+    assert not s.sim_failed
+    assert not ttetcols.applies(s.state, s.topology, s.config)
+    assert tpd.block_layout(s.state, s.topology)
     # Self-contact runs on every PD scene (tests/test_torch_tri_detect.py);
     # edge-edge contacts do not.
     with pytest.raises(NotImplementedError, match="item 8"):

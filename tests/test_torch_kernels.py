@@ -1137,3 +1137,186 @@ def test_pbd_kernels_match_twins_over_a_trajectory(cuda, scene):
     assert scene == "ropes" or sum(c["touching"] for c in ck) > 0
     assert float((xk - xp).abs().max()) <= 1e-5
     assert all(n > 0 for n in lk) and not any(lp)
+
+
+# ---------------------------------------------------------------------------
+# full contact coupling (T23), the block preconditioner (T22) and the
+# entry-list floor (T24)
+
+
+COUPLING_WRAPPERS = (assembly.tet_block_factor, pd.floor_entries, assembly.pt_full)
+
+
+def _coupling_solver(device, scene):
+    """The scenes of ``tests/coupling_scenes.py`` at the kernels' test
+    sizes: a soup under full coupling or off the tet-column path, a tet box
+    on the entry-list floor, and a sheet over a soup under full coupling."""
+    if scene in ("soup_full", "soup_block"):
+        s = pt.Solver(pt.SolverOptions(), device=device,
+                      contact_coupling="full" if scene == "soup_full" else "recentered")
+        s.create_tet_soup(96, **CONTACT_SCENE)
+    elif scene == "box_entry":
+        s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device=device)
+        s.create_tet_box((0.0, 0.5, 0.0), 1.0, (0, 0, 0), w=1500.0, mass=1.0)
+    else:
+        s = _mixed_solver(device, contact_coupling="full")
+    s._prepare()
+    if scene == "soup_block":
+        s._config = dataclasses.replace(s.config, tet_cols=False)
+    if scene == "box_entry":
+        s._config = dataclasses.replace(s.config, dense_floor=False)
+    return s
+
+
+def test_cpu_tensors_take_the_coupling_twins():
+    """Full coupling, the block preconditioner and the entry-list floor on
+    CPU tensors take the twins: no launch is counted."""
+    for scene in ("soup_full", "box_entry"):
+        s = _coupling_solver("cpu", scene)
+        before = [f.launches for f in COUPLING_WRAPPERS + GENERIC_WRAPPERS]
+        s.run_ticks(2)
+        assert [f.launches for f in COUPLING_WRAPPERS + GENERIC_WRAPPERS] == before
+        assert not s.sim_failed
+
+
+def _generic_head(s):
+    """The generic path's substep inputs on the solver's state (twins):
+    the head, the entry-list floor, the contacts and T7's setup.  Returns
+    ``wf`` as the operator's dense diagonal: the floor weight, plus the
+    contacts' diagonal unless the coupling is full."""
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    x, msn, diag, wf, active = pd.substep_head_plain(_clone(st), topo, params, cfg, True)
+    floor = None
+    if not cfg.dense_floor:
+        wf, floor = pd.floor_entries_plain(x, topo, params, cfg, diag)
+    colls = inc = full = None
+    if cfg.enable_collisions:
+        colls = pd.detect_point_tri(_clone(st), x, topo, params, cfg, active, plain=True)
+        _, h2 = pd._h_h2(params)
+        if cfg.contact_coupling == "full":
+            inc, _ = tetcols.pt_coupling_setup_plain(colls, st.mass, topo, h2, diag, wf)
+            full = assembly.FullCoupling(colls, inc, params.collision_thickness)
+        else:
+            sd = wf.clone()
+            tetcols.pt_coupling_setup_plain(colls, st.mass, topo, h2, diag, wf,
+                                            static_diag=sd)
+            wf = sd
+    return x, msn, diag, wf, floor, colls, full
+
+
+@pytest.mark.gpu
+def test_tet_block_factor_and_block_pcg_equal_twins(cuda):
+    """T22's factor and T11 with the block solve, on the soup off the
+    tet-column path with live contacts: equal factors, solution, residual
+    partials and trips (one: the preconditioner is exact)."""
+    s = _coupling_solver(cuda, "soup_block")
+    s.run_ticks(36)
+    st, topo, params = s.state, s.topology, s.current_params()
+    x, msn, diag, wf, _, colls, _ = _generic_head(s)
+    assert int(colls.pt_count[0]) > 0
+    fk = assembly.tet_block_factor(diag, topo.tet_block6, st.sim_failed)
+    fp = assembly.tet_block_factor_plain(diag, topo.tet_block6)
+    assert torch.equal(fk, fp)
+    _, h2 = pd._h_h2(params)
+    b = assembly.apply_system_plain(x, st.mass, wf, h2, topo)[0] + 7.0
+    args = (b, x, diag, st.mass, wf, h2, st.node_mask, topo, 16, 1e-4, st.sim_failed, fk)
+    xk, rk, tk = assembly.pcg_solve(*args)
+    xp, rp, tp = assembly.pcg_solve_plain(*args)
+    assert torch.equal(xk, xp) and torch.equal(rk, rp) and torch.equal(tk, tp)
+    assert int(tk[0]) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["soup_full", "mixed_full"])
+def test_full_coupling_terms_equal_twins(cuda, scene):
+    """T23 inside T10 (the contacts' blocks, beside the band and the ELL)
+    and inside T9's stage 2 (the stacked force), and the PCG over it: equal
+    to the twins on a state with live contacts."""
+    s = _coupling_solver(cuda, scene)
+    s.run_ticks(36 if scene == "soup_full" else 6)
+    st, topo, params, cfg = s.state, s.topology, s.current_params(), s.config
+    x, msn, diag, wf, _, colls, full = _generic_head(s)
+    assert int(colls.pt_count[0]) > 0
+    _, h2 = pd._h_h2(params)
+    before = assembly.pt_full.launches
+    yk, pk = assembly.apply_system(x, st.mass, wf, h2, topo, st.sim_failed, part=True,
+                                   full=full)
+    yp, pp = assembly.apply_system_plain(x, st.mass, wf, h2, topo, part=True, full=full)
+    assert torch.equal(yk, yp) and torch.equal(pk, pp)
+    bare, _ = assembly.apply_system_plain(x, st.mass, wf, h2, topo)
+    assert not torch.equal(bare, yp)
+    rows = assembly.local_step(x, st.inv_mass, st.mass, st.shape_quats, topo,
+                               cfg.rotation_iterations, st.sim_failed, plain=True)
+    plane = pd.floor_plane(params, cfg.reference_quirks)
+    fk, sk = assembly.assemble_force(x, msn, wf, rows, topo, plane, st.sim_failed, None, full)
+    fp, sp = assembly.assemble_force_plain(x, msn, wf, rows, topo, plane, None, None, full)
+    assert torch.equal(fk, fp) and torch.equal(sk, sp)
+    block = (assembly.tet_block_factor_plain(diag, topo.tet_block6)
+             if pd.block_layout(st, topo) else None)
+    args = (fk, x, diag, st.mass, wf, h2, st.node_mask, topo, 16, 1e-4, st.sim_failed, block,
+            full)
+    xk, rk, tk = assembly.pcg_solve(*args)
+    xp, rp, tp = assembly.pcg_solve_plain(*args)
+    assert torch.equal(xk, xp) and torch.equal(rk, rp) and torch.equal(tk, tp)
+    assert assembly.pt_full.launches > before
+
+
+@pytest.mark.gpu
+def test_floor_entry_kernels_equal_twins(cuda):
+    """T24 (the corner entries, weights, counts and snap flags, the
+    diagonal), T9's stage 2 with the entry-list floor and T4 with its
+    counts, on the box on the floor: equal to the twins, and the per-node
+    values the dense floor's."""
+    s = _coupling_solver(cuda, "box_entry")
+    s.run_ticks(30)
+    st, topo, params, cfg = s.state, s.topology, s.current_params(), s.config
+    x, msn, diag, wf, active = pd.substep_head(_clone(st), topo, params, cfg, True)
+    xp_, _, diag_p, _, _ = pd.substep_head_plain(_clone(st), topo, params, cfg, True)
+    assert torch.equal(x, xp_) and torch.equal(diag, diag_p)
+    dk, dp = diag.clone(), diag.clone()
+    wk, fk = pd.floor_entries(x, topo, params, cfg, dk, st.sim_failed)
+    wp, fp = pd.floor_entries_plain(x, topo, params, cfg, dp)
+    assert torch.equal(dk, dp) and torch.equal(wk, wp)
+    for f in ("static_idx", "static_mask", "floor_active", "floor_counts"):
+        assert torch.equal(getattr(fk, f), getattr(fp, f)), f
+    assert int(fk.static_mask.sum()) > 0
+    dense = dataclasses.replace(cfg, dense_floor=True)
+    hd = pd.substep_head_plain(_clone(st), topo, params, dense, True)
+    assert torch.equal(fk.floor_active, hd[4]) and torch.equal(wk, hd[3])
+    rows = assembly.local_step(x, st.inv_mass, st.mass, st.shape_quats, topo,
+                               cfg.rotation_iterations, st.sim_failed, plain=True)
+    plane = pd.floor_plane(params, cfg.reference_quirks)
+    ak = assembly.assemble_force(x, msn, wk, rows, topo, plane, st.sim_failed, floor=fk)
+    ap = assembly.assemble_force_plain(x, msn, wk, rows, topo, plane, floor=fp)
+    assert torch.equal(ak[0], ap[0]) and torch.equal(ak[1], ap[1])
+    a, b = _clone(st), _clone(st)
+    pd.substep_tail(a, topo, params, fk.floor_active, x, ak[1], floor_counts=fk.floor_counts)
+    pd.substep_tail_plain(b, topo, params, fp.floor_active, x, ak[1],
+                          floor_counts=fp.floor_counts)
+    for f in ("positions", "prev_positions", "velocities", "forces", "sim_failed"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["soup_full", "soup_block", "box_entry", "mixed_full"])
+def test_coupling_paths_match_twins_over_a_trajectory(cuda, scene):
+    """40 ticks, kernels against twins: equal counters (floor, contacts, CG
+    trips), positions within 1e-5, and every new kernel of the scene's path
+    launched."""
+    runs = []
+    for plain in (False, True):
+        s = _coupling_solver(cuda, scene)
+        before = [f.launches for f in COUPLING_WRAPPERS]
+        c = pd.new_counters(cuda)
+        step.tick_n(s.state, s.topology, s.current_params(), s.config, 40, plain=plain,
+                    counters=c)
+        assert not s.sim_failed
+        runs.append(({k: int(v) for k, v in c.items()}, s.state.positions.clone(),
+                     [f.launches - b for f, b in zip(COUPLING_WRAPPERS, before)]))
+    (ck, xk, lk), (cp, xp, lp) = runs
+    assert ck == cp and ck["floor_active"] > 0
+    assert float((xk - xp).abs().max()) <= 1e-5
+    assert lp == [0, 0, 0]
+    want = {"soup_full": [1, 0, 1], "soup_block": [1, 0, 0], "box_entry": [0, 1, 0],
+            "mixed_full": [0, 0, 1]}[scene]
+    assert [int(n > 0) for n in lk] == want

@@ -379,8 +379,9 @@ def test_force_with_contact_terms_matches_reference():
 def test_branches_not_ported_raise_and_name_their_item():
     """The detection branches of item 6b now prepare (the cloth at most
     1,024 triangles, the reference sweep, a layout the super-body detection
-    refuses), and so does the PBD solver of item 7; what is still not
-    ported raises and names its item."""
+    refuses), and so does the PBD solver of item 7, full contact coupling
+    and a soup off the tet-column path (item 5c); what is still not ported
+    raises and names its item."""
     kw = dict(device="cpu", allpairs_broadphase_max=0)
     assert tb.tri_mode(build(pt.Solver(pt.SolverOptions(), device="cpu"), "cloth").config,
                        168) == "allpairs"
@@ -391,8 +392,11 @@ def test_branches_not_ported_raise_and_name_their_item():
     s._builder.tri_bodies[0] = np.repeat(np.arange(16), 2).astype(np.int32)  # half tets
     s._prepare()
     assert s.config.super_k == 0 and tb.tri_mode(s.config, 32) == "bodies"
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        build(pt.Solver(pt.SolverOptions(), contact_coupling="full", **kw), "mixed")
+    # Full contact coupling on the mixed scene ticks (tests/test_torch_coupling.py
+    # holds it to the JAX package).
+    s = build(pt.Solver(pt.SolverOptions(), contact_coupling="full", **kw), "mixed")
+    s.tick()
+    assert not s.sim_failed and s.config.super_k > 0
     with pytest.raises(NotImplementedError, match="item 8"):
         pt.Solver(pt.SolverOptions(), enable_node_collisions=True, **kw)
     # The PBD solver is ported (tests/test_torch_pbd.py): a PBD cloth
@@ -401,11 +405,12 @@ def test_branches_not_ported_raise_and_name_their_item():
     assert len(s.config.distance_colors) > 1 and s.state.nn is not None
     s.tick()
     assert not s.sim_failed and int(s.state.nn.count[0]) > 0
-    # A soup off the tet-column path keeps its block structure: item 5c.
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device="cpu")
-        s.create_tet_soup(8, spacing=1.6, scale=0.8, w=2000.0)
-        s._prepare()
-        cfg = dataclasses.replace(s.config, tet_cols=False)
-        assert not ttetcols.applies(s.state, s.topology, cfg)
-        thost._check_generic(s.topology, cfg)
+    # A soup off the tet-column path keeps its block structure and ticks on
+    # the generic path with the block preconditioner.
+    s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device="cpu")
+    s.create_tet_soup(8, spacing=1.6, scale=0.8, w=2000.0)
+    s._prepare()
+    s._config = dataclasses.replace(s.config, tet_cols=False)
+    assert not ttetcols.applies(s.state, s.topology, s.config)
+    s.tick()
+    assert not s.sim_failed
