@@ -158,6 +158,24 @@ Phases (any failure exits non-zero, before the result line):
    against the dense floor's (within 1e-6 of the position scale or twice
    the dense tick's one-ulp spread).
 
+12. Edge-edge and PD node-node contacts (T25-T27), each window a timed
+   ``run_ticks(10)`` with the launch counters reset before, gated on no
+   sim_failed, finite positions, the window's contact counters above 0
+   (read on the device) and every kernel of its path launched, followed by
+   3 ticks of kernels against twins: 12a the crossing nets of
+   ``scripts/bench_all.py``'s ``edge_nets`` (nn = 24, 1,152 nodes, full
+   coupling, ``reference_quirks=False``, caps 2,048), warmed tick by tick to
+   the first tick with live edge contacts, the window the 10 ticks after it
+   (edge contacts, hits before the cap, point-triangle contacts and CG trips
+   printed per tick); 12b the same nets at nn = 256 (131,072 nodes, caps
+   262,144), the same rule (or, if the latch falls in those ticks, the 10
+   that end before it), with T25's contacts, order and pre-cap count held
+   equal to its twin and T26's setup and its terms in T9's stage 2, T10 and
+   T8 within 1 ulp, timed beside their bounds and ``index_add_``; 12c a PD
+   node cloud (``add_node_pile``, 131,072 nodes, seed 3, cap 2^21), ticks
+   1-10 gated on live and touching pairs, then T27 (setup, friction, its
+   force in T9's stage 2, T4 with its impulse) within 1 ulp of its twin.
+
 The last two lines are the kernel table and the result as JSON objects.
 """
 
@@ -188,6 +206,9 @@ SMALL_SHEET = 32
 PBD_BIG = 131_072  # the PBD cells' full width
 PBD_BENCH = (2048, 8192)  # rope_pbd, pbd_node_pile at bench_all.py's sizes
 PBD_ROWS = ("pbd_constraints", "pbd_distance_seq", "node_pairs", "node_response")
+NETS_NN = 24  # the edge_nets cell's nets (bench_all.py:221)
+NETS_BIG = 256  # two 256 x 256 nets: 131,072 nodes, the PBD cells' width
+CLOUD_N = 131_072  # the PD node cloud
 
 # The H100 SXM's published peaks (NVIDIA's datasheet): the least time
 # of a kernel is the larger of its bytes over the memory rate and its float32
@@ -286,9 +307,314 @@ def blob_solver(pt, n_bodies, dev):
     return s
 
 
+def phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches, kernels_vs_twins,
+            nets_nn, nets_big, cloud_n):
+    """Phase 12: the crossing nets at the bench's size (12a) and at full
+    width (12b), and a PD node cloud (12c); T25-T27 against their twins on
+    12b's and 12c's states."""
+    import collections
+
+    import torch
+
+    from pies_tpu_torch.collision import broadphase
+    from pies_tpu_torch.collision.batches import incident
+    from pies_tpu_torch.scene.edge_nets import BENCH_CAPS, add_crossing_nets, solver_args
+    from pies_tpu_torch.scene.pbd_scenes import add_node_pile
+    from pies_tpu_torch.solver import assembly, pd, tetcols
+
+    def nets(nn, caps):
+        s = pt.Solver(pt.SolverOptions(solver=PD), device=dev, **solver_args(caps))
+        return add_crossing_nets(s, nn)
+
+    def tick_counts(s):
+        c = pd.new_counters(dev)
+        s.counters = c
+        s.run_ticks(1)
+        s.counters = None
+        return {k: int(v) for k, v in c.items()}
+
+    def path_names(s):
+        """The wrappers the nets' path launches."""
+        tri = broadphase.tri_mode(s.config, s.topology.triangles.shape[0])
+        detect = ["tri_candidates", "tri_ccd"] if tri else ["super_broadphase",
+                                                             "super_narrowphase"]
+        return ["substep_head"] + detect + ["pt_coupling", "edge_ccd", "edge_terms",
+                                            "constraint_rows", "tet_force_nodes", "ell_matvec",
+                                            "pcg", "pt_full", "pt_tail", "substep_tail"]
+
+    def contact_window(label, s, names, first_tick, gate):
+        """A timed ``run_ticks(10)`` with the launch counts reset before it;
+        checks no latch, finite positions, the window's contact counters
+        (``gate``: counter names that must be above 0) and every kernel of
+        the path launched."""
+        reset_launches()
+        c = pd.new_counters(dev)
+        s.counters = c
+        t0 = time.perf_counter()
+        s.run_ticks(10)
+        sec = (time.perf_counter() - t0) / 10
+        s.counters = None
+        counts = {k: int(v) for k, v in c.items()}
+        launches[label] = read_launches()
+        pos = s.state.positions[: s._builder.num_nodes]
+        check(not s.sim_failed and bool(torch.isfinite(pos).all()),
+              "no sim_failed, all positions finite")
+        check(all(counts[g] > 0 for g in gate),
+              f"contacts in the window: {', '.join(f'{g} {counts[g]}' for g in gate)}")
+        check(all(launches[label][n] > 0 for n in names),
+              f"every kernel of the path launched: {launches[label]}")
+        cf = s.config
+        solves = 10 * cf.time_substeps * cf.iterations
+        per_tick = {n: launches[label][n] / 10 for n in names}
+        print(f"  kernels: {sec * 1e3:.3f} ms/tick, {1.0 / sec:.2f} steps/s ({smi}; ticks"
+              f" {first_tick}-{first_tick + 9}; {counts['cg_trips'] / solves:.2f} CG trips per"
+              f" solve; counters {counts}; launches per tick {per_tick})")
+        return counts
+
+    def nets_phase(label, nn, caps, limit):
+        """Warm the nets tick by tick to their first tick with live edge
+        contacts, then the window of the 10 ticks after it (or, if the
+        latch falls inside those, the 10 ticks that end before it), the
+        window's ticks one by one, and 3 ticks of kernels against twins.
+        Returns the solver at the window's end and that tick."""
+        t0 = time.perf_counter()
+        s = nets(nn, caps)
+        s._prepare()
+        print(f"phase {label}: the crossing nets, nn = {nn}: {s._builder.num_nodes} nodes,"
+              f" {s.topology.triangles.shape[0]} triangles,"
+              f" {s.topology.distance.idx.shape[0]} distance constraints, caps {caps}"
+              f" (set-up {time.perf_counter() - t0:.2f} s)")
+        after = collections.deque(maxlen=21)  # (tick, state after it)
+        after.append((0, clone_state(s.state)))
+        first = None
+        for t in range(1, limit + 1):
+            c = tick_counts(s)
+            after.append((t, clone_state(s.state)))
+            check(not s.sim_failed, f"no latch before the first edge contact (tick {t})")
+            if c["edge_contacts"] > 0:
+                first = t
+                break
+        check(first is not None, f"edge contacts within {limit} ticks")
+        print(f"  first edge contacts at tick {first}")
+        per_tick = []
+        latch = None
+        for t in range(first + 1, first + 11):
+            c = tick_counts(s)
+            after.append((t, clone_state(s.state)))
+            per_tick.append((t, c))
+            if s.sim_failed:
+                latch = t
+                break
+        start = first if latch is None else latch - 11
+        states = dict(after)
+        check(start in states, f"the window's start state is kept (tick {start})")
+        if latch is not None:
+            print(f"  the latch falls at tick {latch}: the window is ticks {start + 1}-"
+                  f"{start + 10}, the 10 that end before it")
+        for t, c in per_tick:
+            print(f"  tick {t}: edge contacts {c['edge_contacts']}, edge hits {c['edge_hits']},"
+                  f" point-triangle contacts {c['contacts']}, CG trips {c['cg_trips']}")
+        warm = states[start]
+        s._state = clone_state(warm)
+        contact_window(label, s, path_names(s), start + 1, ("edge_contacts",))
+        kernels_vs_twins(s, warm)
+        return s, start + 10
+
+    # 12a: the bench's size; then on to the latch (or tick 120), for where
+    # the dense contact phase, the cap and the latch fall.
+    s, tick = nets_phase("12a", nets_nn, BENCH_CAPS, 120)
+    dense = capped = latch = None
+    while tick < 120 and latch is None:
+        c = tick_counts(s)
+        tick += 1
+        if dense is None and c["edge_contacts"] >= 100:
+            dense = tick
+        if capped is None and c["edge_contacts"] >= BENCH_CAPS:
+            capped = tick
+        if s.sim_failed:
+            latch = tick
+    print(f"  after the window, up to tick {tick}: 100 or more edge contacts from tick"
+          f" {dense}, the cap of {BENCH_CAPS} reached at tick {capped}, the latch at tick"
+          f" {latch} (None: not reached)")
+    del s
+    # 12b: full width, caps x 128.
+    s, _ = nets_phase("12b", nets_big, BENCH_CAPS * 128, 120)
+
+    print("phase 12b: T25 and T26 against their twins on the window's last state")
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    failed = st.sim_failed
+    c = clone_state(st)
+    x, msn, diag, wf, active = pd.substep_head_plain(c, topo, params, cfg, True)
+    colls = pd.detect_point_tri(c, x, topo, params, cfg, active, plain=False)
+    lay = broadphase.tri_layout(cfg, topo.triangles.shape[0], "celllist")
+    sc = broadphase.scalars(params)
+    ov = torch.zeros(1, dtype=torch.int32, device=dev)
+    cand, count, flags = broadphase.tri_candidates(x, c.prev_positions, topo.triangles,
+                                                   topo.tri_mask, lay, sc, ov, failed)
+    cap = cfg.budget.max_edge_contacts
+    args25 = (x, c.prev_positions, topo.triangles, cand, count, flags, cap, False, failed)
+    k25 = broadphase.edge_ccd(*args25)
+    p25 = broadphase.edge_ccd_plain(*args25)
+    torch.cuda.synchronize()
+    n_e, hits = int(p25[2][0]), int(p25[3][0])
+    check(all(torch.equal(a, b) for a, b in zip(k25, p25)) and n_e > 0,
+          f"T25 contacts, their order, the count ({n_e}) and the hits before the cap ({hits})"
+          f" equal the twin's")
+    t_rows, nb = cand.shape
+    slot = torch.arange(nb, device=dev)[None, :]
+    live_pairs = int(((slot < count[:, None]) & (cand > torch.arange(t_rows, device=dev)[:, None]))
+                     .sum())
+    n_nodes = st.capacity
+    row("edge_ccd", "pies_tpu_torch/kernels/csrc/edge_ccd.cu",
+        "pies_tpu/collision/broadphase.py:1450", 0.0,
+        cuda_ms(lambda: broadphase.edge_ccd(*args25), 20),
+        cuda_ms(lambda: broadphase.edge_ccd_plain(*args25), 2), "equal",
+        4 * t_rows * nb + 16 * t_rows + 24 * n_nodes + 20 * n_e, 9 * 220 * live_pairs)
+    colls.edge_idx, colls.edge_mask, colls.edge_count, colls.edge_hits = k25
+    _, h2 = pd._h_h2(params)
+    inc = ptd = None
+    if colls.pt_idx is not None:
+        inc, ptd = tetcols.pt_coupling_setup_plain(colls, st.mass, topo, h2, diag, wf)
+    out = []
+    for setup in (assembly.edge_setup, assembly.edge_setup_plain):
+        dg = diag.clone()
+        e = setup(colls, st.mass, st.inv_mass, topo, h2, dg, wf, params.collision_thickness,
+                  cfg.reference_quirks, True, failed, None, inc, ptd, None, colls.pt_count)
+        out.append((e, dg))
+    (ek, dk), (ep, dp) = out
+    torch.cuda.synchronize()
+    on = incident(ep.inc)
+    n_ent = int(ep.inc.row_start[-1])
+    ulp26 = max(max_ulp(dk, dp), max_ulp(ek.ed[on], ep.ed[on]))
+    check(torch.equal(ek.inc.row_start, ep.inc.row_start)
+          and torch.equal(ek.inc.entries[:n_ent], ep.inc.entries[:n_ent]) and ulp26 <= 1.0,
+          f"T26 setup: incidence equal ({n_ent} entries, {int(on.sum())} nodes), diagonals"
+          f" within 1 ulp ({ulp26} ulp)")
+    rows_k = assembly.local_step(x, st.inv_mass, st.mass, st.shape_quats.clone(), topo,
+                                 cfg.rotation_iterations, failed)
+    plane = pd.floor_plane(params, cfg.reference_quirks)
+    fk = assembly.assemble_force(x, msn, wf, rows_k, topo, plane, failed, edges=ek)
+    fp = assembly.assemble_force_plain(x, msn, wf, rows_k, topo, plane, edges=ep)
+    yk, _ = assembly.apply_system(x, st.mass, wf, h2, topo, failed, edges=ek)
+    yp, _ = assembly.apply_system_plain(x, st.mass, wf, h2, topo, edges=ep)
+    edges_only = dataclasses.replace(colls, pt_idx=None)
+    a, b = clone_state(c), clone_state(c)
+    xa, xb = x.clone(), x.clone()
+    pd.pt_tail(a, params, cfg, edges_only, None, xa, fk[1], ek, None, pd.STABILIZE)
+    pd.pt_tail_plain(b, params, cfg, edges_only, None, xb, fk[1], ep, None, pd.STABILIZE)
+    torch.cuda.synchronize()
+    ulps = {"T9": max_ulp(fk[0], fp[0]), "T10": max_ulp(yk, yp),
+            "T8": max(max_ulp(xa, xb), max_ulp(a.prev_positions, b.prev_positions))}
+    check(max(ulps.values()) <= 1.0, f"T26's terms in T9's stage 2, T10 and T8 within 1 ulp of"
+          f" the twins ({ulps}); T8's pass moves x by {float((xa - x).abs().max()):.3e}")
+    err26 = max(float((fk[0] - fp[0]).abs().max()), float((yk - yp).abs().max()),
+                float((xa - xb).abs().max()))
+    ent_nodes = ep.inc.nodes[:n_ent].long()
+    ent_1 = torch.ones((n_ent, 1), device=dev)
+    ent_3 = torch.ones((n_ent, 3), device=dev)
+    carried = {
+        "T9": (cuda_ms(lambda: assembly.assemble_force(x, msn, wf, rows_k, topo, plane, failed,
+                                                       edges=ek), 20),
+               cuda_ms(lambda: assembly.assemble_force(x, msn, wf, rows_k, topo, plane,
+                                                       failed), 20)),
+        "T10": (cuda_ms(lambda: assembly.apply_system(x, st.mass, wf, h2, topo, failed,
+                                                      edges=ek), 20),
+                cuda_ms(lambda: assembly.apply_system(x, st.mass, wf, h2, topo, failed), 20)),
+        "T8": (cuda_ms(lambda: pd.pt_tail(clone_state(c), params, cfg, edges_only, None,
+                                          x.clone(), fk[1], ek, None, pd.STABILIZE), 10), 0.0)}
+    lib_rows = cuda_ms(lambda: torch.zeros((n_nodes, 3), device=dev).index_add_(0, ent_nodes,
+                                                                                ent_3), 20)
+    print("  T26's terms, kernel ms with and without them: "
+          + ", ".join(f"{k} {w:.4f} / {wo:.4f}" for k, (w, wo) in carried.items())
+          + f"; index_add_ of the {n_ent} entry rows {lib_rows:.4f} ms ({smi})")
+    edge_bytes = 20 * cap + 8 * 4 * cap + 24 * int(on.sum())
+    row("edge_terms", "pies_tpu_torch/kernels/csrc/edge_terms.cu",
+        "pies_tpu/solver/assembly.py:371", err26,
+        cuda_ms(lambda: assembly.edge_setup(colls, st.mass, st.inv_mass, topo, h2, diag.clone(),
+                                            wf, params.collision_thickness, False, True,
+                                            failed, None, inc, ptd, None, colls.pt_count), 20),
+        cuda_ms(lambda: assembly.edge_setup_plain(colls, st.mass, st.inv_mass, topo, h2,
+                                                  diag.clone(), wf, params.collision_thickness,
+                                                  False, True, failed, None, inc, ptd, None,
+                                                  colls.pt_count), 2),
+        f"{max(ulps.values())} ulp", edge_bytes, 8 * n_ent,
+        cuda_ms(lambda: torch.zeros((n_nodes, 1), device=dev).index_add_(0, ent_nodes, ent_1),
+                20))
+    del s, st, c, colls, cand, k25, p25, ek, ep, rows_k, fk, fp, yk, yp, a, b, xa, xb
+
+    # 12c: a PD node cloud.
+    t0 = time.perf_counter()
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False,
+                  enable_node_collisions=True,
+                  budget_overrides=dict(max_node_node_contacts=32 * cloud_n // 2), device=dev)
+    add_node_pile(s, cloud_n)
+    s._prepare()
+    print(f"phase 12c: a PD node cloud, {cloud_n} nodes (add_node_pile, seed 3), node-node"
+          f" contacts on, cap {s.config.budget.max_node_node_contacts}"
+          f" (set-up {time.perf_counter() - t0:.2f} s)")
+    warm = clone_state(s.state)
+    cloud_path = ["substep_head", "node_pairs", "node_contacts", "tet_force_nodes",
+                  "ell_matvec", "pcg", "substep_tail"]
+    contact_window("12c", s, cloud_path, 1, ("node_pairs", "touching_pairs"))
+    kernels_vs_twins(s, warm)
+
+    print("phase 12c: T27 against its twin on the cloud after 10 ticks")
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    failed, n_nodes = st.sim_failed, st.capacity
+    x, msn, diag, wf, active = pd.substep_head_plain(clone_state(st), topo, params, cfg, True)
+    nn = broadphase.detect_node_node_pairs(x, st.radius, st.node_mask, params, cfg, failed)
+    cap = cfg.budget.max_node_node_contacts
+    _, h2 = pd._h_h2(params)
+
+    def setup27(fn):
+        dg, sd = diag.clone(), wf.clone()
+        return fn(nn, cap, st.mass, st.radius, st.inv_mass, topo, h2, dg, wf, failed, sd), dg, sd
+
+    (tk, dk, sk), (tp, dp, sp) = setup27(assembly.node_setup), setup27(assembly.node_setup_plain)
+    ik, ck = pd.node_friction(x, st, params, tk, failed)
+    ip, cp = pd.node_friction_plain(x, st, params, tp, failed)
+    rows_k = assembly.local_step(x, st.inv_mass, st.mass, st.shape_quats.clone(), topo,
+                                 cfg.rotation_iterations, failed)
+    plane = pd.floor_plane(params, cfg.reference_quirks)
+    fk = assembly.assemble_force(x, msn, sp, rows_k, topo, plane, failed, nodes=tk)
+    fp = assembly.assemble_force_plain(x, msn, sp, rows_k, topo, plane, nodes=tp)
+    ta, tb = clone_state(st), clone_state(st)
+    pd.substep_tail(ta, topo, params, active, x, fk[1], nn_imp=ik)
+    pd.substep_tail_plain(tb, topo, params, active, x, fk[1], nn_imp=ip)
+    torch.cuda.synchronize()
+    lim = int(tp.lim[0])
+    ulps = {"setup": max(max_ulp(dk, dp), max_ulp(sk, sp)), "friction": max_ulp(ik, ip),
+            "T9": max_ulp(fk[0], fp[0]), "T4": max_ulp(ta.velocities, tb.velocities)}
+    check(int(tk.lim[0]) == lim > 0 and int(ck[0]) == int(cp[0]) > 0
+          and max(ulps.values()) <= 1.0,
+          f"T27 ({lim} live pairs, {int(cp[0])} touching): setup, friction, its force in T9's"
+          f" stage 2 and T4 with its impulse within 1 ulp of the twins ({ulps})")
+    err27 = max(float((ik - ip).abs().max()), float((fk[0] - fp[0]).abs().max()))
+    pair_nodes = torch.cat([nn.pi[:lim], nn.pj[:lim]]).long()
+    pair_rows = torch.ones((2 * lim, 4), device=dev)
+
+    def both(setup, fric):
+        t, _, _ = setup27(setup)
+        fric(x, st, params, t, failed)
+
+    t9 = (cuda_ms(lambda: assembly.assemble_force(x, msn, sp, rows_k, topo, plane, failed,
+                                                  nodes=tk), 20),
+          cuda_ms(lambda: assembly.assemble_force(x, msn, sp, rows_k, topo, plane, failed), 20))
+    print(f"  T27's force in T9's stage 2, kernel ms with and without it: {t9[0]:.4f} /"
+          f" {t9[1]:.4f} ({smi})")
+    row("node_contacts", "pies_tpu_torch/kernels/csrc/node_contacts.cu",
+        "pies_tpu/collision/broadphase.py:1975", err27,
+        cuda_ms(lambda: both(assembly.node_setup, pd.node_friction), 20),
+        cuda_ms(lambda: both(assembly.node_setup_plain, pd.node_friction_plain), 2),
+        f"{max(ulps.values())} ulp", 68 * n_nodes + 40 * lim, 80 * lim,
+        cuda_ms(lambda: torch.zeros((n_nodes, 4), device=dev).index_add_(0, pair_nodes,
+                                                                         pair_rows), 20))
+
+
 def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
          cloth_n=CLOTH_N, n_blobs=N_BLOBS, mixed_sheet=MIXED_SHEET, small_sheet=SMALL_SHEET,
-         pbd_big=PBD_BIG, pbd_bench=PBD_BENCH):
+         pbd_big=PBD_BIG, pbd_bench=PBD_BENCH, nets_nn=NETS_NN, nets_big=NETS_BIG,
+         cloud_n=CLOUD_N):
     import torch
 
     # ---- phase 0
@@ -672,7 +998,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                 "pbd_distance_seq": [pbd.chain_scan, pbd.color_classes],
                 "node_pairs": [broadphase.node_pairs], "node_response": [broadphase.node_response],
                 "tet_block": [assembly.tet_block_factor], "pt_full": [assembly.pt_full],
-                "floor_entries": [pd.floor_entries]}
+                "floor_entries": [pd.floor_entries], "edge_ccd": [broadphase.edge_ccd],
+                "edge_terms": [assembly.edge_terms], "node_contacts": [assembly.node_terms]}
 
     def reset_launches():
         for fns in wrappers.values():
@@ -2177,6 +2504,10 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     print(f"  phase 11a: {trips_11a:.2f} CG trips per solve under full coupling")
     del mesh_5, s, warm
 
+    # ---- phase 12: edge-edge and PD node-node contacts (T25-T27)
+    phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches, kernels_vs_twins,
+            nets_nn, nets_big, cloud_n)
+
     table = []
     mixed_rows = {"super_broadphase": "super_broadphase",
                   "super_narrowphase": "super_narrowphase",
@@ -2192,6 +2523,11 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             r["launches_by_path"] = {p: launches[p][name] for p in paths}
         elif name in ("tri_candidates", "tri_ccd"):
             r["launches"] = launches["9"][name]
+        elif name in ("edge_ccd", "edge_terms", "node_contacts"):
+            # The main path of each: 12b (the nets at full width: T25, T26)
+            # and 12c (the node cloud: T27); every phase-12 window beside it.
+            r["launches"] = launches["12c" if name == "node_contacts" else "12b"][name]
+            r["launches_by_path"] = {p: launches[p][name] for p in ("12a", "12b", "12c")}
         elif name in PBD_ROWS:
             # The 10-tick window of the cell the row was timed on, and each
             # cell's own window beside it.

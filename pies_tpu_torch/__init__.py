@@ -4,9 +4,10 @@ A second package beside the JAX reference ``pies_tpu``: the same ``Solver``
 surface and the same physics, with the hot path in hand-written CUDA kernels
 for Hopper (``kernels/csrc``) and a plain PyTorch twin beside each kernel.
 It imports ``torch`` and never ``jax``.  The ported scope is the PD tick
-with floor contact and point-triangle self-contact (in every coupling mode)
-on disjoint tet soups (the tet-column path) and every other scene the
-builders make (the generic path), and the PBD solver; anything outside it
+with floor contact and point-triangle self-contact (in every coupling
+mode) on disjoint tet soups (the tet-column path) and every other scene the
+builders make (the generic path, which also runs edge-edge and node-node
+contacts), and the PBD solver; anything outside it
 raises ``NotImplementedError`` naming the ROADMAP item that will bring it.
 """
 

@@ -1,14 +1,17 @@
-"""Per-substep collision constraints (port of the floor and point-triangle
-parts of ``pies_tpu/collision/batches.py``).
+"""Per-substep collision constraints (port of
+``pies_tpu/collision/batches.py``: the floor, point-triangle, edge-edge and
+node-node constraints).
 
-Weights mirror the reference headers.  Point-triangle contacts come from
-the detection as a fixed-capacity buffer whose live entries are a packed
-prefix of ``pt_count`` (a device scalar).  Every per-node sum over contacts
-goes through the node incidence (:class:`Incidence`): the (column, contact)
-entries ``e = a·cap + i`` grouped by node, each node's list in ascending
-``e`` — the order in which the JAX package's scatter of ``idx.T.reshape(-1)``
-adds on the CPU — so the sums are deterministic on every device and need no
-float atomics.
+Weights mirror the reference headers.  Contacts come from the detection as
+fixed-capacity buffers whose live entries are a packed prefix of a device
+count.  Every per-node sum over contacts goes through a node incidence
+(:class:`Incidence`): the (column, contact) entries grouped by node, each
+node's list in ascending entry id.  Point-triangle entries are ``e =
+a·cap + i``, the order in which the JAX package's scatter of
+``idx.T.reshape(-1)`` adds on the CPU; edge and node-pair entries are ``e =
+w·i + a`` (``w`` the columns), the order of its scatters of ``idx`` itself,
+and :func:`column_order` gives the ``idx.T`` order of the same entries.  So
+the sums are deterministic on every device and need no float atomics.
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ import torch
 
 from ..ops.math3d import ieee_div as _div
 
+W_NODE_NODE = 1.0e5  # CollisionConstraint (CollisionConstraint.h:14)
 W_POINT_TRI = 1.0e4  # PointTriangleCollisionConstraint (CollisionConstraint.h:33)
+W_EDGE = 1.0e6  # EdgeCollisionConstraint (CollisionConstraint.h:56)
 W_STATIC = 1.0e4  # StaticCollisionConstraint, the floor (CollisionConstraint.h:78)
 
 # AᵀA of the point-triangle / edge collision differential matrix
@@ -60,6 +65,18 @@ class CollisionSet:
     static_idx: torch.Tensor | None = None  # i32[3T] entry list: each corner's node
     static_mask: torch.Tensor | None = None  # f32[3T] entry list: the live entries
     floor_counts: torch.Tensor | None = None  # f32[N] entry list: live entries per node
+    # Edge-edge contacts (StepConfig.enable_edge_collisions): nodes (a, b |
+    # c, d), a packed prefix of edge_count; edge_hits counts the hits
+    # before the cap (the JAX package drops the rest without a latch).
+    edge_idx: torch.Tensor | None = None  # i32[E, 4]
+    edge_mask: torch.Tensor | None = None  # f32[E]
+    edge_count: torch.Tensor | None = None  # i32[1]
+    edge_hits: torch.Tensor | None = None  # i32[1]
+    # PD node-node pairs (StepConfig.enable_node_collisions): the pair
+    # prefix of a freshly built state.NodePairCache, of which the first
+    # min(count, nn_cap) pairs are the contacts.
+    nn: object = None
+    nn_cap: int = 0
 
 
 def floor_threshold(params) -> float:
@@ -111,33 +128,57 @@ def floor_plane(params, reference_quirks: bool) -> float:
 @dataclass
 class Incidence:
     """Node → contact-entry incidence (CSR) of the live contacts.  Entry
-    ``e = a·cap + i`` is column a of contact i; ``entries[row_start[n] :
+    ``e = a·cap + i`` (point-triangle) or ``e = w·i + a`` (row-major: edges,
+    node pairs) is column a of contact i; ``entries[row_start[n] :
     row_start[n+1]]`` are node n's entries in ascending order, and
     ``nodes[p]`` is the node of position p.  Positions past ``row_start[N]``
     are unused."""
 
     row_start: torch.Tensor  # i32[N + 1]
-    entries: torch.Tensor  # i32[4·cap]
-    nodes: torch.Tensor  # i32[4·cap]
+    entries: torch.Tensor  # i32[w·cap]
+    nodes: torch.Tensor  # i32[w·cap]
     cap: int
 
 
-def incidence_plain(pt_idx: torch.Tensor, pt_count: torch.Tensor, n_nodes: int) -> Incidence:
-    """Plain twin of T7's incidence stages (count, scan, fill, order)."""
-    cap = pt_idx.shape[0]
-    live = int(pt_count[0])
-    dev = pt_idx.device
-    e = torch.arange(4 * cap, dtype=torch.int64, device=dev).view(4, cap)[:, :live].reshape(-1)
-    node = pt_idx[:live].t().reshape(-1).long()
+def incidence_plain(idx: torch.Tensor, count: torch.Tensor | int, n_nodes: int,
+                    row_major: bool = False) -> Incidence:
+    """Plain twin of the incidence stages of T7 (``e = a·cap + i``) and,
+    with ``row_major``, of T26 (``e = w·i + a``): count, scan, fill, order
+    over the first ``count`` rows of ``idx`` i32[cap, w]."""
+    cap, w = idx.shape
+    live = int(count[0]) if isinstance(count, torch.Tensor) else int(count)
+    dev = idx.device
+    ids = torch.arange(w * cap, dtype=torch.int64, device=dev)
+    if row_major:
+        e = ids[: w * live]
+        node = idx[:live].reshape(-1).long()
+    else:
+        e = ids.view(w, cap)[:, :live].reshape(-1)
+        node = idx[:live].t().reshape(-1).long()
     order = torch.sort(node, stable=True).indices
     deg = torch.bincount(node, minlength=n_nodes)
     row_start = torch.zeros(n_nodes + 1, dtype=torch.int64, device=dev)
     row_start[1:] = torch.cumsum(deg, 0)
-    entries = torch.zeros(4 * cap, dtype=torch.int32, device=dev)
-    nodes = torch.zeros(4 * cap, dtype=torch.int32, device=dev)
+    entries = torch.zeros(w * cap, dtype=torch.int32, device=dev)
+    nodes = torch.zeros(w * cap, dtype=torch.int32, device=dev)
     entries[: e.numel()] = e[order].to(torch.int32)
     nodes[: e.numel()] = node[order].to(torch.int32)
     return Incidence(row_start.to(torch.int32), entries, nodes, cap)
+
+
+def column_order(inc: Incidence, w: int) -> Incidence:
+    """The row-major incidence ``inc`` (``e = w·i + a``) with each node's
+    entries in column-major order, by ``(a, i)``: the order of the JAX
+    package's scatters over ``idx.T.reshape(-1)``.  Entry ids stay
+    row-major."""
+    total = int(inc.row_start[-1])
+    e = inc.entries[:total].long()
+    key = (e % w) * inc.cap + e // w
+    order = torch.sort(key, stable=True).indices
+    order = order[torch.sort(inc.nodes[:total][order], stable=True).indices]
+    entries = inc.entries.clone()
+    entries[:total] = inc.entries[:total][order]
+    return Incidence(inc.row_start, entries, inc.nodes, inc.cap)
 
 
 def incident(inc: Incidence) -> torch.Tensor:
@@ -233,3 +274,160 @@ def project_point_tri(positions: torch.Tensor, pt_idx: torch.Tensor,
 def count_average(acc: torch.Tensor) -> torch.Tensor:
     """``acc[:, :3] / max(acc[:, 3], 1)``, the Jacobi count-averaging."""
     return _div(acc[:, :3], torch.clamp_min(acc[:, 3:4], 1.0))
+
+
+# ---------------------------------------------------------------------------
+# edge-edge contacts (the plain twins of kernel T26's device functions)
+
+ATA_DIAG4 = [float(ATA_DIFF4[a, a]) for a in range(4)]
+
+
+def _norm3(v):
+    return torch.sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] + v[:, 2] * v[:, 2])
+
+
+def edge_closest_disp(q, inv_mass4: torch.Tensor, thickness: float, quirks: bool):
+    """``_edge_edge_closest_disp`` (``batches.py:331-379``,
+    ``CollisionConstraint.cpp:225-314,316-400``) for rows ``q`` f32[E, 4, 3]
+    (edge 1 = (a, b), edge 2 = (c, d)) and their inverse masses f32[E, 4]:
+    the closest points' parameters (u, v; with ``quirks`` u = v = 0 unless
+    the segments are parallel), the push-out ``disp = (thickness − dist)·n``
+    and the mass weights.  Returns ``(active bool[E], disp f32[E, 3], w
+    f32[E, 4])``; a, b move by +w·disp and c, d by −w·disp."""
+    from .narrowphase import segment_closest_uv
+
+    a, b, c, d = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    cols = lambda v: (v[:, 0], v[:, 1], v[:, 2])  # noqa: E731
+    ab, ac, ad = b - a, c - a, d - a
+    u, v, degenerate = segment_closest_uv(cols(ab), cols(ac), cols(ad))
+    if quirks:
+        u = torch.where(degenerate, u, 0.0)
+        v = torch.where(degenerate, v, 0.0)
+    n = u[:, None] * ab - (ac + v[:, None] * (ad - ac))
+    dist = _norm3(n)
+    n = _div(n, torch.clamp_min(dist, 1e-20)[:, None])
+    im = inv_mass4
+    iu, iv = 1.0 - u, 1.0 - v
+    s = ((im[:, 0] * (iu * iu) + im[:, 1] * (u * u)) + im[:, 2] * (iv * iv)) + im[:, 3] * (v * v)
+    active = (dist < thickness) & (s > 0.0)
+    disp = (thickness - dist)[:, None] * n
+    inv_s = _div(torch.ones_like(s), torch.clamp_min(s, 1e-20))
+    w = torch.stack([(im[:, 0] * iu) * inv_s, (im[:, 1] * u) * inv_s,
+                     (im[:, 2] * iv) * inv_s, (im[:, 3] * v) * inv_s], dim=1)
+    return active, disp, w
+
+
+def project_edge_edge(positions, inv_mass, edge_idx, thickness: float, quirks: bool):
+    """The edge-edge projection (``batches.py:381-420``): returns ``(proj,
+    delta)`` f32[E, 4, 3], ``delta = proj − gathered``.  Quirk mode keeps
+    the reference's sign, which moves the edges toward each other."""
+    idx = edge_idx.long()
+    q = positions[idx]
+    active, disp, w = edge_closest_disp(q, inv_mass[idx], thickness, quirks)
+    sign = -1.0 if quirks else 1.0
+    am = active.to(positions.dtype)[:, None]
+    delta = torch.stack([((sign * w[:, 0])[:, None] * disp) * am,
+                         ((sign * w[:, 1])[:, None] * disp) * am,
+                         ((-sign * w[:, 2])[:, None] * disp) * am,
+                         ((-sign * w[:, 3])[:, None] * disp) * am], dim=1)
+    return q + delta, delta
+
+
+def stabilize_edges(positions, inv_mass, edge_idx, edge_mask, thickness: float,
+                    quirks: bool) -> torch.Tensor:
+    """Per-entry values of one edge-edge stabilization pass
+    (``batches.py:445-476``): f32[4E, 4] rows ``e = 4·i + a`` of (xyz push,
+    count), zero where the contact is not active."""
+    idx = edge_idx.long()
+    active, disp, w = edge_closest_disp(positions[idx], inv_mass[idx], thickness, quirks)
+    am = (active & (edge_mask > 0)).to(positions.dtype)[:, None]
+    sgn = (1.0, 1.0, -1.0, -1.0)
+    rows = torch.stack([torch.cat([((sgn[a] * w[:, a])[:, None] * disp) * am, am], dim=1)
+                        for a in range(4)], dim=1)
+    return rows.reshape(-1, 4)
+
+
+def stabilize_edge_edge_acc(positions, inv_mass, edge_idx, edge_mask, thickness: float,
+                            quirks: bool) -> torch.Tensor:
+    """The pass's ``[N, 4]`` accumulator over every entry of the buffer in
+    the JAX package's ``idx.T`` order, before count-averaging."""
+    n = positions.shape[0]
+    inc = column_order(incidence_plain(edge_idx, edge_idx.shape[0], n, row_major=True), 4)
+    return csr_sum(inc, stabilize_edges(positions, inv_mass, edge_idx, edge_mask, thickness,
+                                        quirks))
+
+
+def ata_rows(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``w·(AᵀA q)[a]`` for rows ``q`` f32[K, 4, 3] and weights f32[K]:
+    f32[K, 4, 3], each row's four terms summed in order (T23, T26)."""
+    out = []
+    for a in range(4):
+        c = [float(ATA_DIFF4[a, b]) for b in range(4)]
+        r = ((c[0] * q[:, 0] + c[1] * q[:, 1]) + c[2] * q[:, 2]) + c[3] * q[:, 3]
+        out.append(w[:, None] * r)
+    return torch.stack(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# node-node contacts (the plain twins of kernel T27's device functions)
+
+
+def node_pairs_of(nn, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(nn_idx i32[cap, 2], nn_mask f32[cap])`` of a pair prefix, the JAX
+    package's ``detect_node_node_pairs`` result: the first ``min(count,
+    cap)`` pairs, then rows (0, 0) with mask 0."""
+    live = min(int(nn.count[0]), cap)
+    dev = nn.pi.device
+    idx = torch.zeros((cap, 2), dtype=torch.int32, device=dev)
+    idx[:live, 0] = nn.pi[:live]
+    idx[:live, 1] = nn.pj[:live]
+    mask = torch.zeros(cap, dtype=torch.float32, device=dev)
+    mask[:live] = 1.0
+    return idx, mask
+
+
+def project_node_node(positions, radius, inv_mass, nn_idx) -> torch.Tensor:
+    """The node-node projection (``batches.py:248-284``,
+    ``CollisionConstraint.cpp:10-39``): overlapping spheres pushed apart
+    along their centre line, inverse-mass weighted, with the reference's
+    ``(dispLength, 0, 0)`` for coincident centres.  Returns f32[P, 2, 3]."""
+    i, j = nn_idx[:, 0].long(), nn_idx[:, 1].long()
+    a, b = positions[i], positions[j]
+    diff = b - a
+    dist_sq = diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1] + diff[:, 2] * diff[:, 2]
+    r = radius[i] + radius[j]
+    overlapping = dist_sq < r * r
+    dist = torch.sqrt(torch.clamp_min(dist_sq, 0.0))
+    disp_len = r - dist
+    zero = torch.zeros_like(disp_len)
+    disp = torch.where((dist > 1e-5)[:, None],
+                       _div(disp_len[:, None] * diff, torch.clamp_min(dist, 1e-20)[:, None]),
+                       torch.stack([disp_len, zero, zero], dim=1))
+    w_sum = torch.clamp_min(inv_mass[i] + inv_mass[j], 1e-20)
+    ov = overlapping.to(positions.dtype)[:, None]
+    a_proj = a - (ov * disp) * _div(inv_mass[i], w_sum)[:, None]
+    b_proj = b + (ov * disp) * _div(inv_mass[j], w_sum)[:, None]
+    return torch.stack([a_proj, b_proj], dim=1)
+
+
+def node_friction_pairs(x, vel, inv_mass, radius, nn_idx, nn_mask, friction: float,
+                        static_threshold: float) -> torch.Tensor:
+    """Per-pair values of the node-node friction pass
+    (``pd.py:452-508``, ``Solver.cpp:398-428``): f32[P, 7] = (a's impulse,
+    b's impulse, touching).  The static branch keeps the reference's sign
+    (FIDELITY.md #18)."""
+    i, j = nn_idx[:, 0].long(), nn_idx[:, 1].long()
+    diff = x[j] - x[i]
+    dist = _norm3(diff)
+    touching = (dist <= radius[i] + radius[j]) & (nn_mask > 0)
+    n = _div(diff, torch.clamp_min(dist, 1e-20)[:, None])
+    rel = vel[j] - vel[i]
+    vdn = rel[:, 0] * n[:, 0] + rel[:, 1] * n[:, 1] + rel[:, 2] * n[:, 2]
+    perp = rel - vdn[:, None] * n
+    fr = torch.where(_norm3(perp) < static_threshold, -1.0, friction)
+    w_sum = torch.clamp_min(inv_mass[i] + inv_mass[j], 1e-20)
+    fp = fr[:, None] * perp
+    m = touching.to(x.dtype)[:, None]
+    dva = (fp * _div(inv_mass[i], w_sum)[:, None]) * m
+    dvb = (-fp * _div(inv_mass[j], w_sum)[:, None]) * m
+    return torch.cat([dva, dvb, m], dim=1)

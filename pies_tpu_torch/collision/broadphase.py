@@ -75,6 +75,7 @@ from .grid import (
 from .narrowphase import (
     _cols,
     _sub_c,
+    edge_edge_ccd,
     point_triangle_ccd,
     point_triangle_ccd_cols,
     point_triangle_phase1_face,
@@ -1261,6 +1262,128 @@ def _detect_tri(x, prev, triangles, tri_mask, params: PhysicsParams, config: Ste
     cand, count, flags = cf(x, prev, triangles, tri_mask, lay, sc, overflow, failed)
     pt_idx, pt_mask, pt_count = df(x, prev, triangles, cand, count, flags, lay, sc, failed)
     return pt_idx, pt_mask, pt_count, overflow, torch.zeros_like(overflow)
+
+
+# ---------------------------------------------------------------------------
+# edge-edge detection: T16 (cell-list candidates) and T25 (the edge CCD)
+
+EDGES = ((0, 1), (1, 2), (2, 0))  # a triangle's edges, in the JAX order
+
+
+def edge_ccd_plain(x, prev, triangles, cand, count, flags, cap: int, quirks: bool,
+                   failed: torch.Tensor | None = None):
+    """Plain twin of kernel T25, the narrowphase of ``detect_edge_edge_
+    collisions`` (``broadphase.py:1485-1548``): each (triangle, candidate
+    slot) pair whose candidate has a larger id and shares no node, its 3 x 3
+    edge combos CCD-tested (``narrowphase.edge_edge_ccd``, relative to the
+    first edge's start); the hits compacted combo-major (combo 0 over all
+    pairs ascending, then combo 1, ...) into ``cap`` contacts and decoded to
+    ``(a, b | c, d)``.  Returns ``(edge_idx i32[cap, 4], edge_mask f32[cap],
+    edge_count i32[1], edge_hits i32[1])``, ``edge_hits`` the hits before
+    the cap.  Nothing is found when latch slot 0 is set or T16 filled no
+    slot."""
+    dev = x.device
+    edge_idx = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
+    edge_mask = torch.zeros(cap, dtype=torch.float32, device=dev)
+    edge_count = torch.zeros(1, dtype=torch.int32, device=dev)
+    edge_hits = torch.zeros(1, dtype=torch.int32, device=dev)
+    if (failed is not None and bool(failed[0])) or int(flags[0]) == 0:
+        return edge_idx, edge_mask, edge_count, edge_hits
+    t, nb = cand.shape
+    pair = torch.arange(t * nb, device=dev)
+    tri, slot = pair // nb, pair % nb
+    other = cand.reshape(-1).long()
+    tl = triangles.long()
+    ok = (slot < count.long()[tri]) & (other > tri)
+    ok &= ~(tl[tri][:, :, None] == tl[other][:, None, :]).any(-1).any(-1)
+    pair, tri, other = pair[ok], tri[ok], other[ok]
+    ids = []
+    for e1, (i0, i1) in enumerate(EDGES):
+        a, b = tl[tri, i0], tl[tri, i1]
+        for e2, (j0, j1) in enumerate(EDGES):
+            c, d = tl[other, j0], tl[other, j1]
+            p0, p1 = prev[a], x[a]
+            hit = edge_edge_ccd(_cols(prev[b] - p0), _cols(prev[c] - p0), _cols(prev[d] - p0),
+                                _cols(x[b] - p1), _cols(x[c] - p1), _cols(x[d] - p1),
+                                quirk=quirks)
+            ids.append(pair[hit] * 9 + (e1 * 3 + e2))
+    ids = torch.cat(ids) if ids else torch.zeros(0, dtype=torch.int64, device=dev)
+    edge_hits.fill_(ids.shape[0])
+    ids = ids[:cap]
+    n = ids.shape[0]
+    if n:
+        combo, pr = ids % 9, ids // 9
+        e = torch.tensor(EDGES, dtype=torch.int64, device=dev)
+        own, oth = tl[pr // nb], tl[cand.reshape(-1).long()[pr]]
+        ab = own.gather(1, e[combo // 3])
+        cd = oth.gather(1, e[combo % 3])
+        edge_idx[:n] = torch.cat([ab, cd], dim=1).to(torch.int32)
+        edge_mask[:n] = 1.0
+    edge_count.fill_(n)
+    return edge_idx, edge_mask, edge_count, edge_hits
+
+
+def edge_ccd(x, prev, triangles, cand, count, flags, cap: int, quirks: bool,
+             failed: torch.Tensor | None = None):
+    """Kernel T25 on CUDA tensors, :func:`edge_ccd_plain` on CPU tensors
+    (same arguments and results; the counts stay on the device).  On the
+    card ``failed`` is required."""
+    if kernels.on_cpu(x):
+        return edge_ccd_plain(x, prev, triangles, cand, count, flags, cap, quirks, failed)
+    if failed is None:
+        raise ValueError("the edge CCD kernel needs the failure latch")
+    t, nb = cand.shape
+    if 9 * t * nb >= 1 << 31:
+        raise ValueError("the edge CCD kernel takes fewer than 2^31 lanes")
+    dev = x.device
+    kernels.require(dev, x, prev, triangles, cand, count, flags, failed)
+    i32 = dict(dtype=torch.int32, device=dev)
+    bits = torch.empty(t * nb, dtype=torch.int16, device=dev)
+    partial = torch.empty(9 * kernels.scan_partials(t * nb) + 1, **i32)
+    edge_idx = torch.empty((cap, 4), **i32)
+    edge_mask = torch.empty(cap, dtype=torch.float32, device=dev)
+    edge_count = torch.empty(1, **i32)
+    edge_hits = torch.empty(1, **i32)
+    err = kernels.lib().pies_edge_ccd(
+        x.data_ptr(), prev.data_ptr(), triangles.data_ptr(), cand.data_ptr(),
+        count.data_ptr(), flags.data_ptr(), bits.data_ptr(), partial.data_ptr(),
+        edge_idx.data_ptr(), edge_mask.data_ptr(), edge_count.data_ptr(),
+        edge_hits.data_ptr(), failed.data_ptr(), t, nb, cap, int(quirks), kernels.stream())
+    kernels.check(err, "edge_ccd")
+    edge_ccd.launches += 1
+    return edge_idx, edge_mask, edge_count, edge_hits
+
+
+edge_ccd.launches = 0
+
+
+def detect_edge_edge_collisions(x, prev, triangles, tri_mask, params: PhysicsParams,
+                                config: StepConfig, overflow: torch.Tensor,
+                                failed: torch.Tensor | None = None, plain: bool = False):
+    """Port of ``detect_edge_edge_collisions`` (``broadphase.py:1450-1548``):
+    the cell-list candidates (T16 in ``"celllist"`` mode, whatever branch
+    the point-triangle detection takes, in ``broadphase_cell`` units), their
+    latches ORed into ``overflow``, then T25.  Returns ``(edge_idx,
+    edge_mask, edge_count, edge_hits)``."""
+    lay = tri_layout(config, triangles.shape[0], "celllist")
+    sc = scalars(params)
+    cf, ef = (tri_candidates_plain, edge_ccd_plain) if plain else (tri_candidates, edge_ccd)
+    cand, count, flags = cf(x, prev, triangles, tri_mask, lay, sc, overflow, failed)
+    return ef(x, prev, triangles, cand, count, flags, config.budget.max_edge_contacts,
+              config.reference_quirks, failed)
+
+
+def detect_node_node_pairs(x, radius, node_mask, params: PhysicsParams, config: StepConfig,
+                           failed, plain: bool = False):
+    """Port of ``detect_node_node_pairs`` (``broadphase.py:1975-2015``): the
+    i-major pair prefix of T20, built afresh in a new cache (PD detects
+    every substep; the PBD cache ``state.nn`` is not touched), of which the
+    first ``min(count, max_node_node_contacts)`` pairs are the contacts
+    (``batches.node_pairs_of``).  Returns the cache."""
+    nn = empty_node_pair_cache(x.shape[0], config.budget.max_candidates_per_node, x.device)
+    (node_pairs_plain if plain else node_pairs)(x, radius, node_mask, nn, params, config,
+                                                failed)
+    return nn
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,13 @@ wrappers that call them sit beside their plain PyTorch twins:
   (``assemble_force``)
 * T24 ``pies_floor_entries`` — ``solver/pd.py:floor_entries`` (the force's
   per-entry sum runs inside T9's stage 2, ``csrc/floor_entries.cuh``)
+* T25 ``pies_edge_ccd`` — ``collision/broadphase.py:edge_ccd``
+* T26 ``pies_edge_setup`` — ``solver/assembly.py:edge_setup`` (its
+  stabilization pass runs inside T8, its force and operator terms inside
+  T9's stage 2 and T10: ``csrc/edge_terms.cuh``)
+* T27 ``pies_node_setup``, ``pies_node_friction`` —
+  ``solver/assembly.py:node_setup``, ``solver/pd.py:node_friction`` (its
+  force term runs inside T9's stage 2, ``csrc/node_contacts.cuh``)
 
 Each source compiles to an object in its own ``nvcc`` process, all started
 together, and the objects link into one library.
@@ -86,18 +93,19 @@ SIGNATURES = {
     "pies_tet_force12": [_P] * 10 + [_I, _P, _P],
     "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F] + [_P] * 6,
     "pies_substep_head": [_P] * 11 + [_I, _F, _F, _F, _P, _I, _P],
-    "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F] + [_P] * 7,
+    "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F] + [_P] * 8,
     "pies_body_broadphase": [_P] * 16 + [_I] * 10 + [_F] * 6 + [_P],
     "pies_pt_narrowphase": [_P] * 16 + [_I] * 6 + [_F, _P],
     "pies_pt_coupling_setup": [_P] * 15 + [_I, _I, _F, _P],
     "pies_super_broadphase": [_P] * 17 + [_I] * 11 + [_F] * 6 + [_P],
     "pies_super_narrowphase": [_P] * 16 + [_I] * 11 + [_F, _P],
     "pies_pt_force": [_P] * 9 + [_I, _I, _F, _P],
-    "pies_pt_tail": [_P] * 16 + [_I, _I, _I] + [_F] * 6 + [_P],
+    "pies_pt_tail": [_P] * 23 + [_I] * 6 + [_F] * 6 + [_P],
     "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P, _P],
-    "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 8 + [_I, _F] + [_P] * 4,
+    "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 8 + [_I, _F] + [_P] * 10
+    + [_I, _F] + [_P] * 8 + [_I, _P],
     "pies_ell_matvec": [_P] * 8 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F]
-    + [_P] * 5 + [_I, _P],
+    + [_P] * 5 + [_I] + [_P] * 7 + [_I, _F, _P],
     "pies_cg_init": [_P] * 13 + [_I, _P, _P],
     "pies_cg_update": [_P] * 13 + [_I] * 3 + [_F, _P, _P],
     "pies_cg_direction": [_P] * 5 + [_I] * 3 + [_F, _P, _P],
@@ -118,6 +126,10 @@ SIGNATURES = {
     "pies_node_response": [_P] * 13 + [_I, _F, _F, _P, _P],
     "pies_tet_block_factor": [_P] * 3 + [_I, _P, _P],
     "pies_floor_entries": [_P] * 4 + [_F] + [_P] * 5 + [_I, _P, _P],
+    "pies_edge_ccd": [_P] * 13 + [_I] * 4 + [_P],
+    "pies_edge_setup": [_P] * 23 + [_I] * 3 + [_F, _P],
+    "pies_node_setup": [_P] * 16 + [_I] * 3 + [_F, _P],
+    "pies_node_friction": [_P] * 16 + [_I, _I] + [_F] * 5 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -22,7 +22,8 @@
 // point-triangle contacts' diagonal added by kernel T7 where contacts are
 // live (recentered coupling, :466-469).  Under full coupling the contacts'
 // whole blocks are applied instead, after every other term (:559-574,
-// kernel T23's device function pt_full_add).  A pure tet soup off the
+// kernel T23's device function pt_full_add), then the edge-edge contacts'
+// (kernel T26's edge_add, edge_terms.cuh).  A pure tet soup off the
 // tet-column path has the band and an ELL of width 0.
 //
 // The operator is ELL, slot-major ([m, N], so that neighbouring threads
@@ -38,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include "cg_reduce.cuh"
+#include "edge_terms.cuh"
 #include "pt_full.cuh"
 
 namespace {
@@ -56,7 +58,7 @@ __global__ void __launch_bounds__(pies::kCgBlock)
                       const float* __restrict__ coef, int m,
                       float* __restrict__ y, float* __restrict__ part, int n,
                       float h2, const int* __restrict__ failed,
-                      pies::CgGate gate, pies::PtFull pt) {
+                      pies::CgGate gate, pies::PtFull pt, pies::EdgeTerms et) {
   __shared__ float sm[pies::kCgBlock];
   if (failed[0] != 0) return;
   float rz;
@@ -123,6 +125,7 @@ __global__ void __launch_bounds__(pies::kCgBlock)
     for (int d = 0; d < 3; ++d) yi[d] = yi[d] + acc[d];
     // Full contact coupling (kernel T23, pt_full.cuh): the contacts' blocks.
     if (pt.pt_idx != nullptr) pies::pt_full_add<false>(pt, x, i, yi);
+    if (et.edge_idx != nullptr) pies::edge_add<false>(et, x, i, yi);  // kernel T26
 #pragma unroll
     for (int d = 0; d < 3; ++d) y[(size_t)i * 3 + d] = yi[d];
     v = xi[0] * yi[0] + xi[1] * yi[1] + xi[2] * yi[2];
@@ -140,7 +143,8 @@ __global__ void __launch_bounds__(pies::kCgBlock)
 // With `row_start` non-null the operator is CSR, else ELL of width m; with
 // `band` non-null the seven tet diagonals are applied before it; with
 // `pt_idx` non-null (full contact coupling) the contacts' blocks after it,
-// through T7's incidence (`pt_start`, `pt_entries`).
+// through T7's incidence (`pt_start`, `pt_entries`), and with `edge_idx`
+// non-null the edge contacts' blocks after those, through T26's.
 extern "C" int pies_ell_matvec(const float* x, const float* mass,
                                const float* wf, const float* static_w,
                                const float* band,
@@ -152,19 +156,25 @@ extern "C" int pies_ell_matvec(const float* x, const float* mass,
                                int early_exit, float rtol2, const int* pt_idx,
                                const float* pt_mask, const int* pt_count,
                                const int* pt_start, const int* pt_entries, int cap,
+                               const int* edge_idx, const float* edge_mask,
+                               const int* edge_count, const int* e_start,
+                               const int* e_entries, const float* ed,
+                               const float* e_inv_mass, int e_mode, float e_thickness,
                                void* stream) {
   if (n > 0) {
     const int blocks = (n + pies::kCgBlock - 1) / pies::kCgBlock;
     pies::CgGate gate{trips, prz, prz0, blocks, trip, early_exit, rtol2};
     pies::PtFull pt{pt_idx, pt_mask, pt_count, pt_start, pt_entries, cap, 0.0f};
+    pies::EdgeTerms et{edge_idx, edge_mask, edge_count, e_start, e_entries, ed,
+                       e_inv_mass, e_mode, e_thickness};
     if (row_start != nullptr)
       ell_matvec_kernel<true><<<blocks, pies::kCgBlock, 0, (cudaStream_t)stream>>>(
           x, mass, wf, static_w, band, row_start, nbr, coef, m, y, part, n, h2,
-          failed, gate, pt);
+          failed, gate, pt, et);
     else
       ell_matvec_kernel<false><<<blocks, pies::kCgBlock, 0, (cudaStream_t)stream>>>(
           x, mass, wf, static_w, band, row_start, nbr, coef, m, y, part, n, h2,
-          failed, gate, pt);
+          failed, gate, pt, et);
   }
   return (int)cudaGetLastError();
 }

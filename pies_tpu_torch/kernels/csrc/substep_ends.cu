@@ -22,10 +22,13 @@
 // entries as the friction's exponent (pd.py:601-604, the segment sum)
 // instead of floor_count * active, and T24's snap flag as `active`.
 //
-// With self-contact, T4 also takes kernel T8's contact friction impulse
-// `fric` (added, before the floor friction, at every node with contact
-// entries in T7's incidence when the device contact count is > 0), and ORs
-// the detection's capacity latch `overflow` (T5, T6) into the failure latch.
+// With node-node contacts T4 first adds kernel T27's friction impulse
+// `nn_imp` (pd.py:398-402, every node).  With self-contact, T4 also takes
+// kernel T8's contact friction impulse `fric` (added, before the floor
+// friction, at every node with contact entries in T7's incidence when the
+// device contact count is > 0).  It ORs the detection's capacity latch
+// `overflow` (T5, T6, T14-T17, and the edge detection's T16) into the
+// failure latch.
 //
 // sim_failed is an int[2] on the device (see pies_tpu_torch/state.py):
 // slot 0 is the latch at the start of the tick, slot 1 takes the tail's OR.
@@ -91,7 +94,8 @@ __global__ void __launch_bounds__(256)
                         const int* __restrict__ row_start,
                         const int* __restrict__ pt_count,
                         const int* __restrict__ overflow,
-                        const float* __restrict__ counts) {
+                        const float* __restrict__ counts,
+                        const float* __restrict__ nn_imp) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (failed[0] != 0) return;
@@ -115,6 +119,7 @@ __global__ void __launch_bounds__(256)
     // equal one.
     x[d] = act > 0.0f ? static_proj[j] : x_solved[j];
     v[d] = (keep * (x[d] - prev[j]) / h + h * f[d] * im) * m;
+    if (nn_imp != nullptr) v[d] = v[d] + nn_imp[j];  // kernel T27's friction
     if (pt) v[d] = v[d] + fric[j];
     finite = finite && isfinite(x[d]);
   }
@@ -170,14 +175,14 @@ extern "C" int pies_substep_tail(float* pos, float* prev, float* vel,
                                  float static_threshold, int* failed,
                                  const float* fric, const int* row_start,
                                  const int* pt_count, const int* overflow,
-                                 const float* counts, void* stream) {
+                                 const float* counts, const float* nn_imp, void* stream) {
   if (n > 0) {
     const int threads = 256;
     const int blocks = (n + threads - 1) / threads;
     substep_tail_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         pos, prev, vel, forces, x_solved, static_proj, active, floor_count,
         inv_mass, mass, mask, n, h, damping, gravity, friction,
-        static_threshold, failed, fric, row_start, pt_count, overflow, counts);
+        static_threshold, failed, fric, row_start, pt_count, overflow, counts, nn_imp);
   }
   return (int)cudaGetLastError();
 }

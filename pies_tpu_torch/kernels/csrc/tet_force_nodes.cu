@@ -30,7 +30,13 @@
 // kernel T7's contact force and the lag term ptd * x, in that order, before
 // the floor term; the arrays are read nowhere else.  Under full coupling
 // (:282-287) a node adds instead w A^T A p over its contact entries, p the
-// stack projection (kernel T23's device function, pt_full.cuh); on the
+// stack projection (kernel T23's device function, pt_full.cuh).  With
+// edge-edge contacts (kernel T26, edge_terms.cuh; :305-318) a node with
+// edge entries adds ed * x to the lag term off full coupling (the lag is
+// (ptd + ed) x, pd.py:91-99), then, after the point-triangle terms, each
+// entry's w A^T A q (q the stack projection under full coupling, its
+// displacement otherwise); with node-node contacts (kernel T27,
+// node_contacts.cuh; :320-325) then each live pair's w p.  On the
 // entry-list floor (:332-334) the floor term is w * static per corner entry
 // (kernel T24's, floor_entries.cuh) instead of wf * static.
 //
@@ -45,7 +51,9 @@
 // cost.
 #include <cuda_runtime.h>
 
+#include "edge_terms.cuh"
 #include "floor_entries.cuh"
+#include "node_contacts.cuh"
 #include "pt_full.cuh"
 #include "tet_force.cuh"
 
@@ -94,7 +102,8 @@ __global__ void __launch_bounds__(256)
                           const float* __restrict__ contact,
                           const int* __restrict__ pt_start,
                           const int* __restrict__ pt_count,
-                          pies::PtFull full, pies::FloorEntries fl) {
+                          pies::PtFull full, pies::FloorEntries fl,
+                          pies::EdgeTerms et, pies::NodeTerms nt) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (failed[0] != 0) return;
@@ -110,16 +119,27 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int d = 0; d < 3; ++d) f[d] = f[d] + blocks[k + d];
   }
+  // The recentered coupling's contact force and lag term (ptd + ed) x.
+  bool lag_on = false;
+  float lag = 0.0f;
   if (ptd != nullptr && pt_count[0] > 0 && pt_start[i + 1] > pt_start[i]) {
-    const float pd = ptd[i];
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const size_t j = (size_t)i * 3 + d;
-      f[d] = (f[d] + contact[j]) + pd * x[j];
-    }
+    for (int d = 0; d < 3; ++d) f[d] = f[d] + contact[(size_t)i * 3 + d];
+    lag = ptd[i];
+    lag_on = true;
+  }
+  if (!(et.mode & pies::kEdgeFull) && pies::edge_incident(et, i)) {
+    lag = lag + et.ed[i];
+    lag_on = true;
+  }
+  if (lag_on) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) f[d] = f[d] + lag * x[(size_t)i * 3 + d];
   }
   // Full contact coupling (kernel T23, pt_full.cuh): the stacked force.
   if (full.pt_idx != nullptr) pies::pt_full_add<true>(full, x, i, f);
+  if (et.edge_idx != nullptr) pies::edge_add<true>(et, x, i, f);  // kernel T26
+  if (nt.pi != nullptr) pies::node_add(nt, x, i, f);  // kernel T27
   const float y = x[(size_t)i * 3 + 1];
   const float s[3] = {x[(size_t)i * 3], y < plane ? plane : y, x[(size_t)i * 3 + 2]};
   if (fl.start != nullptr) {
@@ -168,15 +188,26 @@ extern "C" int pies_assemble_force(const float* x, const float* msn,
                                    int cap, float thickness,
                                    const int* corner_start,
                                    const int* corner_entries,
-                                   const float* static_mask, void* stream) {
+                                   const float* static_mask, const int* edge_idx,
+                                   const float* edge_mask, const int* edge_count,
+                                   const int* e_start, const int* e_entries, const float* ed,
+                                   const float* e_inv_mass, int e_mode, float e_thickness,
+                                   const int* nn_pi, const int* nn_pj, const int* nn_row_off,
+                                   const int* nn_inc_start, const int* nn_inc_pair,
+                                   const int* nn_lim, const float* nn_radius,
+                                   const float* nn_inv_mass, int nn_cap, void* stream) {
   if (n > 0) {
     const int threads = 256;
     pies::PtFull full{pt_idx, pt_mask, pt_count, pt_start, pt_entries, cap, thickness};
     pies::FloorEntries fl{corner_start, corner_entries, static_mask};
+    pies::EdgeTerms et{edge_idx, edge_mask, edge_count, e_start, e_entries, ed,
+                       e_inv_mass, e_mode, e_thickness};
+    pies::NodeTerms nt{nn_pi,  nn_pj,     nn_row_off,  nn_inc_start, nn_inc_pair,
+                       nn_lim, nn_radius, nn_inv_mass, nn_cap};
     assemble_force_kernel<<<(n + threads - 1) / threads, threads, 0,
                             (cudaStream_t)stream>>>(
         x, msn, pin, wf, row_start, entries, blocks, force, stat, n, plane,
-        failed, ptd, contact, pt_start, pt_count, full, fl);
+        failed, ptd, contact, pt_start, pt_count, full, fl, et, nt);
   }
   return (int)cudaGetLastError();
 }

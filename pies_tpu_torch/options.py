@@ -84,6 +84,11 @@ class StepConfig:
     # extract_rotation), warm-started from the state's quaternions.
     rotation_iterations: int = 20
     enable_collisions: bool = True
+    # Edge-edge contacts between triangles' edges (``step.py:75-86``) and
+    # the PD node-node contacts (``step.py:87-91``); PBD's node-node
+    # response follows ``enable_collisions``.
+    enable_edge_collisions: bool = False
+    enable_node_collisions: bool = False
     dense_floor: bool = True
     reference_quirks: bool = True
     broadphase_mode: str = "celllist"

@@ -40,13 +40,21 @@ import torch
 
 from .. import kernels
 from ..collision.batches import (
+    ATA_DIAG4,
     ATA_DIFF4,
+    W_EDGE,
+    W_NODE_NODE,
     W_POINT_TRI,
     W_STATIC,
     CollisionSet,
     Incidence,
+    ata_rows,
     csr_sum,
     incidence_plain,
+    incident,
+    node_pairs_of,
+    project_edge_edge,
+    project_node_node,
     project_point_tri,
     project_static,
 )
@@ -111,19 +119,228 @@ class FusedLaunches:
 pt_full = FusedLaunches()  # T23: the T9 stage 2 and T10 launches under full coupling
 
 
+# ---------------------------------------------------------------------------
+# T26 and T27: the edge-edge and node-node contacts' setup
+
+
+@dataclass
+class EdgeTerms:
+    """T26's live edge contacts for T8, T9's stage 2 and T10: the
+    detection's buffer, its row-major incidence (``e = 4·i + a``), the
+    per-node diagonal ``ed`` (the sum of ``w·(AᵀA)ₐₐ`` over the node's
+    entries, written at nodes with entries), and what the terms read."""
+
+    edge_idx: torch.Tensor  # i32[E, 4]
+    edge_mask: torch.Tensor  # f32[E]
+    count: torch.Tensor  # i32[1]
+    inc: Incidence
+    ed: torch.Tensor  # f32[N]
+    inv_mass: torch.Tensor
+    thickness: float
+    quirks: bool
+    full: bool  # full coupling: the operator's blocks and the stacked force
+
+
+@dataclass
+class NodeTerms:
+    """T27's live node pairs for T9's stage 2 and the friction: the pair
+    prefix (``state.NodePairCache`` from T20, its incidence ``row_off``,
+    ``inc_start``, ``inc_pair``) of which the first ``lim = min(count,
+    cap)`` pairs are live, and the per-node diagonal ``nnd`` (written at
+    nodes with live pairs)."""
+
+    nn: object
+    cap: int
+    lim: torch.Tensor  # i32[1]
+    nnd: torch.Tensor  # f32[N]
+    radius: torch.Tensor
+    inv_mass: torch.Tensor
+
+
+edge_terms = FusedLaunches()  # T26: its setup launches and the T8/T9/T10 launches carrying it
+node_terms = FusedLaunches()  # T27: its setup and friction launches and the T9 launches carrying it
+
+
+def _node_incidence(nodes: NodeTerms, n: int) -> Incidence:
+    """The row-major incidence (``e = 2·p + c``) of the live pairs."""
+    idx, _ = node_pairs_of(nodes.nn, nodes.cap)
+    return incidence_plain(idx, nodes.lim, n, row_major=True)
+
+
+def _base_diag(mass, topo: Topology, h2: float, pt_inc, ptd):
+    """``m/h² + stiffness``, plus the point-triangle diagonal at nodes with
+    point-triangle entries (the JAX order of ``system_diag``)."""
+    base = _div(mass, h2) + topo.stiffness_diag
+    if pt_inc is not None:
+        base = torch.where(incident(pt_inc), base + ptd, base)
+    return base
+
+
+def node_setup_plain(nn, cap: int, mass, radius, inv_mass, topo: Topology, h2: float,
+                     diag, wf, failed=None, static_diag=None, pt_inc: Incidence | None = None,
+                     ptd=None, recentered: bool = False, pt_count=None) -> NodeTerms:
+    """Plain twin of T27's setup: ``lim = min(count, cap)``, the pairs'
+    diagonal ``nnd`` (``assembly.py:382-394``), and at nodes with live
+    pairs ``diag = (((m/h² + stiffness) + ptd) + nnd) + wf`` and the
+    operator's dense diagonal ``static_diag = (wf + nnd) + ptd`` (ptd only
+    under recentered coupling; ``pd.py:83-99``), in place.  ``pt_inc``,
+    ``ptd``, ``pt_count``: T7's incidence, diagonal and contact count (None
+    without self-contact; the twin's incidence is empty without contacts,
+    so ``pt_count`` is accepted for signature parity)."""
+    n = mass.shape[0]
+    lim = torch.full((1,), min(int(nn.count[0]), cap), dtype=torch.int32, device=mass.device)
+    terms = NodeTerms(nn, cap, lim, torch.zeros_like(mass), radius, inv_mass)
+    inc = _node_incidence(terms, n)
+    terms.nnd = csr_sum(inc, torch.full((2 * cap, 1), W_NODE_NODE, device=mass.device))[:, 0]
+    if failed is None or not bool(failed[0]):
+        on = incident(inc)
+        full = (_base_diag(mass, topo, h2, pt_inc, ptd) + terms.nnd) + wf
+        diag.copy_(torch.where(on, full, diag))
+        if static_diag is not None:
+            sd = wf + terms.nnd
+            if recentered and pt_inc is not None:
+                sd = torch.where(incident(pt_inc), sd + ptd, sd)
+            static_diag.copy_(torch.where(on, sd, static_diag))
+    return terms
+
+
+def node_setup(nn, cap: int, mass, radius, inv_mass, topo: Topology, h2: float, diag, wf,
+               failed=None, static_diag=None, pt_inc: Incidence | None = None, ptd=None,
+               recentered: bool = False, pt_count=None) -> NodeTerms:
+    """T27's setup on CUDA tensors, :func:`node_setup_plain` on CPU tensors.
+    On the card ``nnd`` is written only at nodes with live pairs, and
+    nothing when ``failed`` slot 0 is set (``lim`` is then 0)."""
+    if kernels.on_cpu(mass):
+        return node_setup_plain(nn, cap, mass, radius, inv_mass, topo, h2, diag, wf, failed,
+                                static_diag, pt_inc, ptd, recentered, pt_count)
+    if failed is None:
+        raise ValueError("the node contact kernel needs the failure latch")
+    dev = mass.device
+    n = mass.shape[0]
+    pt_start = pt_inc.row_start if pt_inc is not None else None
+    kernels.require(dev, nn.pi, nn.pj, nn.count, nn.row_off, nn.inc_start, nn.inc_pair, mass,
+                    topo.stiffness_diag, diag, wf, failed, static_diag, pt_start, pt_count, ptd)
+    lim = torch.empty(1, dtype=torch.int32, device=dev)
+    nnd = torch.empty(n, dtype=torch.float32, device=dev)
+    err = kernels.lib().pies_node_setup(
+        nn.pi.data_ptr(), nn.count.data_ptr(), nn.row_off.data_ptr(), nn.inc_start.data_ptr(),
+        nn.inc_pair.data_ptr(), mass.data_ptr(), topo.stiffness_diag.data_ptr(), wf.data_ptr(),
+        diag.data_ptr(), kernels.ptr(static_diag), kernels.ptr(pt_start),
+        kernels.ptr(pt_count), kernels.ptr(ptd), lim.data_ptr(), nnd.data_ptr(),
+        failed.data_ptr(), n, cap, int(recentered), h2, kernels.stream())
+    kernels.check(err, "node_setup")
+    node_terms.launches += 1
+    return NodeTerms(nn, cap, lim, nnd, radius, inv_mass)
+
+
+def edge_setup_plain(colls: CollisionSet, mass, inv_mass, topo: Topology, h2: float, diag, wf,
+                     thickness: float, quirks: bool, full: bool, failed=None,
+                     static_diag=None, pt_inc: Incidence | None = None, ptd=None,
+                     nodes: NodeTerms | None = None, pt_count=None) -> EdgeTerms:
+    """Plain twin of T26's setup: the row-major incidence of the live
+    edges, their diagonal ``ed`` (``assembly.py:371-380``) and, at nodes
+    with edge entries, ``diag = ((((m/h² + stiffness) + ptd) + w·(AᵀA)ₐₐ of
+    each entry in turn) + nnd) + wf`` (``assembly.py:577-598``) and the
+    operator's dense diagonal ``static_diag = (wf + nnd) + (ptd + ed)``
+    (``ptd + ed`` only off full coupling; ``pd.py:83-99``), in place."""
+    n = mass.shape[0]
+    inc = incidence_plain(colls.edge_idx, colls.edge_count, n, row_major=True)
+    we = W_EDGE * colls.edge_mask
+    vals = (we[:, None] * torch.tensor(ATA_DIAG4, device=mass.device)[None, :]).reshape(-1, 1)
+    ed = csr_sum(inc, vals)[:, 0]
+    if failed is None or not bool(failed[0]):
+        on = incident(inc)
+        acc = csr_sum(inc, vals, _base_diag(mass, topo, h2, pt_inc, ptd)[:, None])[:, 0]
+        sd = wf
+        if nodes is not None:
+            nn_on = incident(_node_incidence(nodes, n))
+            acc = torch.where(nn_on, acc + nodes.nnd, acc)
+            sd = torch.where(nn_on, wf + nodes.nnd, wf)
+        diag.copy_(torch.where(on, acc + wf, diag))
+        if static_diag is not None:
+            if not full:
+                lag = ed if pt_inc is None else torch.where(incident(pt_inc), ptd + ed, ed)
+                sd = sd + lag
+            static_diag.copy_(torch.where(on, sd, static_diag))
+    return EdgeTerms(colls.edge_idx, colls.edge_mask, colls.edge_count, inc, ed, inv_mass,
+                     thickness, quirks, full)
+
+
+def edge_setup(colls: CollisionSet, mass, inv_mass, topo: Topology, h2: float, diag, wf,
+               thickness: float, quirks: bool, full: bool, failed=None, static_diag=None,
+               pt_inc: Incidence | None = None, ptd=None,
+               nodes: NodeTerms | None = None, pt_count=None) -> EdgeTerms:
+    """T26's setup on CUDA tensors, :func:`edge_setup_plain` on CPU tensors.
+    On the card ``ed`` is written only at nodes with edge entries, and
+    nothing when ``failed`` slot 0 is set."""
+    if kernels.on_cpu(mass):
+        return edge_setup_plain(colls, mass, inv_mass, topo, h2, diag, wf, thickness, quirks,
+                                full, failed, static_diag, pt_inc, ptd, nodes, pt_count)
+    if failed is None:
+        raise ValueError("the edge contact kernel needs the failure latch")
+    dev = mass.device
+    n, cap = mass.shape[0], colls.edge_idx.shape[0]
+    pt_start = pt_inc.row_start if pt_inc is not None else None
+    nn = nodes.nn if nodes is not None else None
+    nn_ptrs = ((nn.row_off, nn.inc_start, nn.inc_pair, nodes.lim, nodes.nnd)
+               if nodes is not None else (None,) * 5)
+    kernels.require(dev, colls.edge_idx, colls.edge_mask, colls.edge_count, mass,
+                    topo.stiffness_diag, diag, wf, failed, static_diag, pt_start, pt_count, ptd,
+                    *nn_ptrs)
+    i32 = dict(dtype=torch.int32, device=dev)
+    deg = torch.zeros(n, **i32)
+    row_start = torch.empty(n + 1, **i32)
+    partial = torch.empty(kernels.scan_partials(n), **i32)
+    entries = torch.empty(4 * cap, **i32)
+    nodes_of = torch.empty(4 * cap, **i32)
+    ed = torch.empty(n, dtype=torch.float32, device=dev)
+    err = kernels.lib().pies_edge_setup(
+        colls.edge_idx.data_ptr(), colls.edge_mask.data_ptr(), colls.edge_count.data_ptr(),
+        mass.data_ptr(), topo.stiffness_diag.data_ptr(), wf.data_ptr(), diag.data_ptr(),
+        kernels.ptr(static_diag), kernels.ptr(pt_start), kernels.ptr(pt_count),
+        kernels.ptr(ptd), *(kernels.ptr(t) for t in nn_ptrs), deg.data_ptr(),
+        row_start.data_ptr(), partial.data_ptr(), entries.data_ptr(), nodes_of.data_ptr(),
+        ed.data_ptr(), failed.data_ptr(), n, cap, int(full), h2, kernels.stream())
+    kernels.check(err, "edge_setup")
+    edge_terms.launches += 1
+    return EdgeTerms(colls.edge_idx, colls.edge_mask, colls.edge_count,
+                     Incidence(row_start, entries, nodes_of, cap), ed, inv_mass, thickness,
+                     quirks, full)
+
+
+def edge_force_rows(x, edges: EdgeTerms) -> torch.Tensor:
+    """Plain twin of T26's force term: per entry ``e = 4·i + a``, ``w·(AᵀA
+    q)[a]`` with ``q`` the stack projection (full coupling) or its
+    displacement (recentered), ``w = 1e6·mask`` (``assembly.py:305-318``).
+    Returns f32[4E, 3]."""
+    proj, delta = project_edge_edge(x, edges.inv_mass, edges.edge_idx, edges.thickness,
+                                    edges.quirks)
+    return ata_rows(proj if edges.full else delta, W_EDGE * edges.edge_mask).reshape(-1, 3)
+
+
+def edge_operator_rows(x, edges: EdgeTerms) -> torch.Tensor:
+    """Plain twin of T26's operator term under full coupling: per entry
+    ``w·(AᵀA x)[a]`` (``assembly.py:559-574``).  Returns f32[4E, 3]."""
+    return ata_rows(x[edges.edge_idx.long()], W_EDGE * edges.edge_mask).reshape(-1, 3)
+
+
+def node_force_rows(x, nodes: NodeTerms) -> tuple[torch.Tensor, Incidence]:
+    """Plain twin of T27's force term: per entry ``e = 2·p + c``, ``w·p`` of
+    the pair's projection, ``w = 1e5·mask`` (``assembly.py:320-325``), with
+    the row-major incidence of the live pairs."""
+    idx, mask = node_pairs_of(nodes.nn, nodes.cap)
+    proj = project_node_node(x, nodes.radius, nodes.inv_mass, idx)
+    rows = ((W_NODE_NODE * mask)[:, None, None] * proj).reshape(-1, 3)
+    return rows, _node_incidence(nodes, x.shape[0])
+
+
 def pt_full_rows(q: torch.Tensor, pt_mask: torch.Tensor) -> torch.Tensor:
     """Plain twin of T23's per-entry term: ``w·(AᵀA q)[a]`` for each contact
     k's rows ``q`` f32[K, 4, 3] (its positions, or their stack projection),
     ``w = 1e4·mask``, as entry rows ``e = a·K + k`` f32[4K, 3]
     (``assembly.py:282-287,559-574``; the row's four terms summed in
     order)."""
-    w = (W_POINT_TRI * pt_mask)[:, None]
-    rows = []
-    for a in range(4):
-        c = [float(ATA_DIFF4[a, b]) for b in range(4)]
-        r = ((c[0] * q[:, 0] + c[1] * q[:, 1]) + c[2] * q[:, 2]) + c[3] * q[:, 3]
-        rows.append(w * r)
-    return torch.cat(rows)
+    return ata_rows(q, W_POINT_TRI * pt_mask).transpose(0, 1).reshape(-1, 3)
 
 
 def _add_full(v: torch.Tensor, x: torch.Tensor, full: FullCoupling, project: bool):
@@ -198,7 +415,8 @@ def local_step(x, inv_mass, mass, quats, topo: Topology, rotation_iterations: in
 
 def assemble_force_plain(x, msn_h2, wf, blocks, topo: Topology, plane: float,
                          failed=None, pt=None, full: FullCoupling | None = None,
-                         floor: CollisionSet | None = None):
+                         floor: CollisionSet | None = None, edges: EdgeTerms | None = None,
+                         nodes: NodeTerms | None = None):
     """Plain twin of T9's stage 2.  ``x`` f32[N, 3] is the iterate, ``msn_h2``
     its ``M·sₙ/h²``, ``wf`` f32[N] the floor weight, ``blocks`` f32[R, 3]
     the local step's force rows.  ``pt`` (or None) is ``(ptd f32[N], contact
@@ -211,18 +429,35 @@ def assemble_force_plain(x, msn_h2, wf, blocks, topo: Topology, plane: float,
     entries, ``p`` the stack projection (T23).  ``floor`` (the entry-list
     floor's ``CollisionSet``, ``:332-334``): the floor term is ``w·static``
     per corner entry, ``w = 1e4·static_mask``, instead of ``wf·static``.
-    Returns ``(force, static)`` f32[N, 3]: the right side ``(((msn + pin
-    force) + Σ the node's rows) + contact + ptd·x) + wf·static`` and the
-    floor projection ``static = (x, max(y, plane), z)``.  ``failed`` is
-    accepted for signature parity."""
+    ``edges`` (T26): off full coupling, nodes with edge entries add
+    ``ed·x`` to the lag term (``ptd + ed``, ``pd.py:91-99``); then each
+    node adds its edge entries' terms (:func:`edge_force_rows`).
+    ``nodes`` (T27): each node adds its pair entries' ``w·p``.
+    Returns ``(force, static)`` f32[N, 3]: the right side ``((((msn + pin
+    force) + Σ the node's rows) + contact + (ptd + ed)·x) + edge and pair
+    terms) + wf·static`` and the floor projection ``static = (x, max(y,
+    plane), z)``.  ``failed`` is accepted for signature parity."""
     f = msn_h2 + topo.position_force_dense if _pins(topo) else msn_h2
     f = csr_sum(topo.row_inc, blocks, f)
+    lag_on = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    lag = torch.zeros_like(wf)
     if pt is not None:
         ptd, contact, row_start, pt_count = pt
-        on = ((row_start[1:] > row_start[:-1]) & (pt_count[0] > 0))[:, None]
-        f = torch.where(on, (f + contact) + ptd[:, None] * x, f)
+        lag_on = (row_start[1:] > row_start[:-1]) & (pt_count[0] > 0)
+        f = torch.where(lag_on[:, None], f + contact, f)
+        lag = torch.where(lag_on, ptd, lag)
+    if edges is not None and not edges.full:
+        e_on = incident(edges.inc)
+        lag = torch.where(e_on, lag + edges.ed, lag)
+        lag_on = lag_on | e_on
+    f = torch.where(lag_on[:, None], f + lag[:, None] * x, f)
     if full is not None:
         f = _add_full(f, x, full, project=True)
+    if edges is not None:
+        f = csr_sum(edges.inc, edge_force_rows(x, edges), f)
+    if nodes is not None:
+        rows, inc = node_force_rows(x, nodes)
+        f = csr_sum(inc, rows, f)
     y = x[:, 1]
     static = torch.stack([x[:, 0], torch.where(y < plane, plane, y), x[:, 2]], dim=1)
     if floor is not None:
@@ -234,12 +469,13 @@ def assemble_force_plain(x, msn_h2, wf, blocks, topo: Topology, plane: float,
 
 def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=None,
                    pt=None, full: FullCoupling | None = None,
-                   floor: CollisionSet | None = None):
+                   floor: CollisionSet | None = None, edges: EdgeTerms | None = None,
+                   nodes: NodeTerms | None = None):
     """T9's stage 2 on CUDA tensors, :func:`assemble_force_plain` on CPU
     tensors.  On the card ``failed`` is required."""
     if kernels.on_cpu(x):
         return assemble_force_plain(x, msn_h2, wf, blocks, topo, plane, failed, pt, full,
-                                    floor)
+                                    floor, edges, nodes)
     if failed is None:
         raise ValueError("the force kernel needs the failure latch")
     inc = topo.row_inc
@@ -271,13 +507,43 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
         kernels.ptr(ptd), kernels.ptr(contact), kernels.ptr(pt_start),
         kernels.ptr(pt_count), kernels.ptr(pt_idx), kernels.ptr(pt_mask),
         kernels.ptr(pt_entries), cap, float(thickness), kernels.ptr(c_start),
-        kernels.ptr(c_entries), kernels.ptr(smask), kernels.stream(),
+        kernels.ptr(c_entries), kernels.ptr(smask), *_edge_args(x.device, edges, True),
+        *_node_args(x.device, nodes), kernels.stream(),
     )
     kernels.check(err, "assemble_force")
     assemble_force.launches += 1
     if full is not None:
         pt_full.launches += 1
+    if edges is not None:
+        edge_terms.launches += 1
+    if nodes is not None:
+        node_terms.launches += 1
     return force, static
+
+
+def _edge_args(device, edges: EdgeTerms | None, force: bool) -> tuple:
+    """T26's arguments of T9's stage 2 (``force``) and T10: pointers (null
+    without edges, and in T10 off full coupling), then the mode word (1 full
+    coupling, 2 quirks) and the thickness."""
+    if edges is None or not (force or edges.full):
+        return (None,) * 7 + (0, 0.0)
+    t = (edges.edge_idx, edges.edge_mask, edges.count, edges.inc.row_start,
+         edges.inc.entries, edges.ed, edges.inv_mass)
+    kernels.require(device, *t)
+    mode = int(edges.full) | (2 * int(edges.quirks))
+    return tuple(x.data_ptr() for x in t) + (mode, float(edges.thickness))
+
+
+def _node_args(device, nodes: NodeTerms | None) -> tuple:
+    """T27's arguments of T9's stage 2: pointers (null without pairs), then
+    the cap."""
+    if nodes is None:
+        return (None,) * 8 + (0,)
+    nn = nodes.nn
+    t = (nn.pi, nn.pj, nn.row_off, nn.inc_start, nn.inc_pair, nodes.lim, nodes.radius,
+         nodes.inv_mass)
+    kernels.require(device, *t)
+    return tuple(x.data_ptr() for x in t) + (nodes.cap,)
 
 
 assemble_force.launches = 0
@@ -371,13 +637,15 @@ def _band_sum(x, band) -> torch.Tensor:
 
 
 def apply_system_plain(x, mass, wf, h2: float, topo: Topology, part: bool = False,
-                       full: FullCoupling | None = None):
+                       full: FullCoupling | None = None, edges: EdgeTerms | None = None):
     """Plain twin of T10: ``y = (mass/h² + wf)·x + static_w·x + the tets'
     band + Σₘ coef·x[nbr]`` (slot order) f32[N, 3]; ``wf`` is the substep's
     dense diagonal (the floor weight, plus the contacts' diagonal under
     recentered coupling); with ``full`` (full coupling) then each node's
     ``w·AᵀA·x`` over its contact entries (``assembly.py:559-574``, T23);
-    with ``part`` also the block partials of ``x·y``, else None."""
+    then, with ``edges`` under full coupling, each node's ``w·AᵀA·x`` over
+    its edge entries (T26); with ``part`` also the block partials of
+    ``x·y``, else None."""
     y = (_div(mass, h2) + wf)[:, None] * x
     sw = _static_w(topo, x.shape[0])
     if sw is not None:
@@ -388,19 +656,21 @@ def apply_system_plain(x, mass, wf, h2: float, topo: Topology, part: bool = Fals
     y = y + _operator_sum(x, topo)
     if full is not None:
         y = _add_full(y, x, full, project=False)
+    if edges is not None and edges.full:
+        y = csr_sum(edges.inc, edge_operator_rows(x, edges), y)
     return y, (block_partials(_dot3(x, y)) if part else None)
 
 
 def apply_system(x, mass, wf, h2: float, topo: Topology, failed=None,
                  part: bool | torch.Tensor = False, out=None, gate=None,
-                 full: FullCoupling | None = None):
+                 full: FullCoupling | None = None, edges: EdgeTerms | None = None):
     """T10 on CUDA tensors, :func:`apply_system_plain` on CPU tensors (same
     results).  On the card: ``failed`` is required; ``out`` (f32[N, 3]) and
     ``part`` (f32[P], or True for a new one) receive the results; ``gate``
     ``(trips, prz, prz0, trip, early_exit, rtol2)`` makes the launch CG trip
     ``trip`` of :func:`pcg_solve`, which returns at once after the exit."""
     if kernels.on_cpu(x):
-        return apply_system_plain(x, mass, wf, h2, topo, part is not False, full)
+        return apply_system_plain(x, mass, wf, h2, topo, part is not False, full, edges)
     if failed is None:
         raise ValueError("the operator kernel needs the failure latch")
     n = x.shape[0]
@@ -432,12 +702,15 @@ def apply_system(x, mass, wf, h2: float, topo: Topology, failed=None,
         kernels.ptr(part), n, float(h2),
         failed.data_ptr(), kernels.ptr(trips), kernels.ptr(prz), kernels.ptr(prz0),
         int(trip), int(early), float(rtol2), *(kernels.ptr(t) for t in pt),
-        inc.cap if inc is not None else 0, kernels.stream(),
+        inc.cap if inc is not None else 0, *_edge_args(x.device, edges, False),
+        kernels.stream(),
     )
     kernels.check(err, "ell_matvec")
     apply_system.launches += 1
     if full is not None:
         pt_full.launches += 1
+    if edges is not None and edges.full:
+        edge_terms.launches += 1
     return y, part
 
 
@@ -455,21 +728,21 @@ def _rtol2(rtol: float) -> float:
 
 def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
                     iterations: int, rtol: float = 0.0, failed=None, block=None,
-                    full: FullCoupling | None = None):
+                    full: FullCoupling | None = None, edges: EdgeTerms | None = None):
     """Plain twin of T11 (with T10's twin as the operator): PCG on the
     stacked 3-RHS system from ``x0``, at most ``iterations`` trips, stopping
     before a trip once ``rz ≤ rtol²·rz0`` when ``rtol > 0``
     (``assembly.py:656-725``), and the mask re-select of ``pd.py:195``.
     The preconditioner is Jacobi, or with ``block`` (T22's factor f32[10,
     K]) the disjoint-tet block solve :func:`tet_block_apply_plain`; ``full``
-    goes to the operator.  Returns ``(x f32[N, 3], prr f32[P], trips
+    and ``edges`` go to the operator.  Returns ``(x f32[N, 3], prr f32[P], trips
     i32[1])``: the solution, the block partials of the final ``r·r`` (zero
     when ``failed`` slot 0 is set) and the trips run."""
     dev = b.device
     if failed is not None and bool(failed[0]):
         return (x0.clone(), torch.zeros(-(-b.shape[0] // CG_BLOCK), device=dev),
                 torch.zeros(1, dtype=torch.int32, device=dev))
-    y, _ = apply_system_plain(x0, mass, wf, h2, topo, full=full)
+    y, _ = apply_system_plain(x0, mass, wf, h2, topo, full=full, edges=edges)
     r = b - y
     if block is None:
         inv = _div(torch.ones_like(diag), diag)[:, None]
@@ -486,7 +759,7 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
     for _ in range(iterations):
         if rtol > 0.0 and not bool(rz > tol2):
             break
-        ap, pap = apply_system_plain(p, mass, wf, h2, topo, part=True, full=full)
+        ap, pap = apply_system_plain(p, mass, wf, h2, topo, part=True, full=full, edges=edges)
         p_ap = finalize(pap)
         alpha = torch.where(p_ap > 0, rz / torch.clamp_min(p_ap, 1e-30), 0.0)
         x = torch.where(live, x + alpha * p, x)
@@ -502,14 +775,15 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
 
 
 def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations: int,
-              rtol: float = 0.0, failed=None, block=None, full: FullCoupling | None = None):
+              rtol: float = 0.0, failed=None, block=None, full: FullCoupling | None = None,
+              edges: EdgeTerms | None = None):
     """T10 + T11 on CUDA tensors, :func:`pcg_solve_plain` on CPU tensors
     (same arguments and results; ``trips`` stays on the device).  Enqueues
     the init and all ``iterations`` trips without waiting: the trips past
     the exit return at once on the device."""
     if kernels.on_cpu(b):
         return pcg_solve_plain(b, x0, diag, mass, wf, h2, mask, topo, iterations, rtol,
-                               failed, block, full)
+                               failed, block, full, edges)
     if failed is None:
         raise ValueError("the CG kernels need the failure latch")
     n = b.shape[0]
@@ -523,7 +797,7 @@ def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations
     trips = torch.empty(1, dtype=torch.int32, device=dev)
     r, z, p, x, ap = (torch.empty_like(b) for _ in range(5))
     lib, stream = kernels.lib(), kernels.stream()
-    apply_system(x0, mass, wf, h2, topo, failed, out=ap, full=full)
+    apply_system(x0, mass, wf, h2, topo, failed, out=ap, full=full, edges=edges)
     err = lib.pies_cg_init(
         b.data_ptr(), ap.data_ptr(), x0.data_ptr(), diag.data_ptr(), kernels.ptr(block),
         r.data_ptr(),
@@ -534,7 +808,7 @@ def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations
     early, rtol2 = int(rtol > 0.0), _rtol2(rtol)
     for i in range(iterations):
         apply_system(p, mass, wf, h2, topo, failed, part=pap, out=ap,
-                     gate=(trips, prz, prz0, i, early, rtol2), full=full)
+                     gate=(trips, prz, prz0, i, early, rtol2), full=full, edges=edges)
         err = lib.pies_cg_update(
             x.data_ptr(), p.data_ptr(), ap.data_ptr(), r.data_ptr(), z.data_ptr(),
             diag.data_ptr(), kernels.ptr(block), mask.data_ptr(), prz.data_ptr(), prz0.data_ptr(),

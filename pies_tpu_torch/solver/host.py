@@ -32,6 +32,8 @@ dispatch picks: the packed-body detection on a tet soup, the super-body
 detection on a larger triangle scene whose layout it accepts, and
 otherwise the per-triangle branches (all-pairs, cell list, per-body cell
 list, or the reference sweep under ``broadphase_mode="reference"``).
+Edge-edge contacts (``enable_edge_collisions``) and PD node-node contacts
+(``enable_node_collisions``) run on the generic path of any PD scene.
 
 Anything outside it raises ``NotImplementedError`` naming the ROADMAP item
 that will bring it.  ``dense_operator_max`` is accepted and has no effect:
@@ -287,16 +289,14 @@ class Solver:
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but CUDA is not available")
-        if enable_edge_collisions:
-            raise NotImplementedError("edge-edge contacts are ROADMAP queue 1 item 8")
-        if enable_node_collisions:
-            raise NotImplementedError("PD node-node contacts are ROADMAP queue 1 item 8")
         self._options = options or SolverOptions()
         self._cg_iterations = cg_iterations
         self._cg_rtol = cg_rtol
         self._rotation_iterations = rotation_iterations
         self._builder = SceneBuilder(seed=seed)
         self._enable_collisions = enable_collisions
+        self._enable_edge_collisions = enable_edge_collisions
+        self._enable_node_collisions = enable_node_collisions
         self._reference_quirks = reference_quirks
         self._broadphase_mode = broadphase_mode
         self._allpairs_max = (StepConfig.allpairs_broadphase_max
@@ -541,6 +541,8 @@ class Solver:
             cg_rtol=float(self._cg_rtol),
             rotation_iterations=int(self._rotation_iterations),
             enable_collisions=bool(self._enable_collisions and (pbd or tris.shape[0])),
+            enable_edge_collisions=bool(self._enable_edge_collisions),
+            enable_node_collisions=bool(self._enable_node_collisions),
             reference_quirks=self._reference_quirks,
             broadphase_mode=self._broadphase_mode,
             tet_fused=tet_fused,

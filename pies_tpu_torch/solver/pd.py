@@ -1,5 +1,4 @@
-"""Projective Dynamics substep (port of
-``pies_tpu/solver/pd.py:59-313,316-435,526-617``).
+"""Projective Dynamics substep (port of ``pies_tpu/solver/pd.py``).
 
 A substep is a fixed sequence of launches on the card, each with a plain
 PyTorch twin.  On the tet-column path (disjoint tet soups):
@@ -34,8 +33,12 @@ and a PCG solve (``assembly.pcg_solve``: T10 operator applies and T11
 vector stages, Jacobi or T22's block solve).  Contacts enter by
 ``contact_coupling``: recentered or diagonal, T7's force before T9's stage
 2, which adds it with the lag term; full, T23's terms inside T9's stage 2
-(the stacked force) and T10 (the contacts' blocks).  Then T8 with
-contacts, and T4.  The shape groups'
+(the stacked force) and T10 (the contacts' blocks).  Edge-edge contacts
+(T16 and T25's detection, T26's setup) add their terms to T9's stage 2,
+under full coupling their blocks to T10, and their stabilization pass to
+T8; node-node contacts (T20's fresh pair prefix, T27's setup) add their
+projection to T9's stage 2 and their friction (T27) before T8's.  Then T8
+with contacts, and T4.  The shape groups'
 rotations (``state.shape_quats``) are carried from iteration to iteration
 and tick to tick, in place.
 
@@ -55,6 +58,7 @@ from ..collision import broadphase
 from ..collision.batches import (
     CollisionSet,
     Incidence,
+    column_order,
     count_average,
     csr_sum,
     detect_floor_active,
@@ -64,7 +68,10 @@ from ..collision.batches import (
     floor_threshold,
     incidence_plain,
     incident,
+    node_friction_pairs,
+    node_pairs_of,
     stabilize_contacts,
+    stabilize_edges,
     _dot3,
     _unit_normal_div,
 )
@@ -89,6 +96,11 @@ def _fold_latch(failed: torch.Tensor) -> None:
 
 def self_contact(config: StepConfig, topo: Topology) -> bool:
     return config.enable_collisions and topo.triangles.shape[0] > 0
+
+
+def edge_contact(config: StepConfig, topo: Topology) -> bool:
+    """Edge-edge detection runs (``step.py:75``): the flag, and triangles."""
+    return config.enable_edge_collisions and topo.triangles.shape[0] > 0
 
 
 def check_detection(config: StepConfig) -> None:
@@ -297,69 +309,159 @@ def point_tri_friction_acc(x, vel, inv_mass, pt_idx, pt_mask,
     return csr_sum(inc, entry_values(vals))
 
 
+STABILIZE, FRICTION = 1, 2  # T8's stages
+
+
 def pt_tail_plain(state: SolverState, params: PhysicsParams, config: StepConfig,
-                  colls: CollisionSet, inc: Incidence, x: torch.Tensor,
-                  static_proj: torch.Tensor) -> torch.Tensor:
-    """Plain twin of kernel T8, the point-triangle part of
-    ``pd._finish_substep`` (``pd.py:333-406``), in place on ``x`` and
-    ``state.prev_positions`` at the nodes with contact entries:
-    ``collision_stabilization_iterations`` count-averaged stabilization
-    passes, each followed by the floor snap, then the contact friction and
-    restitution at the velocity the tail computes.  Returns the
-    count-averaged friction impulse f32[N, 3] that T4 adds (zero at nodes
-    without entries).  Does nothing without live contacts, or when latch
-    slot 0 is set."""
+                  colls: CollisionSet, inc: Incidence | None, x: torch.Tensor,
+                  static_proj: torch.Tensor, edges=None, nn_imp: torch.Tensor | None = None,
+                  stages: int = STABILIZE | FRICTION) -> torch.Tensor:
+    """Plain twin of kernel T8, the contact part of ``pd._finish_substep``
+    (``pd.py:330-436``), in place on ``x`` and ``state.prev_positions`` at
+    the nodes with contact entries.  Stage ``STABILIZE``:
+    ``collision_stabilization_iterations`` passes, each the count-averaged
+    point-triangle push-out (``colls.pt_idx``; None without self-contact),
+    then with ``edges`` (T26's ``EdgeTerms``) the count-averaged edge-edge
+    push-out from the positions it left (``batches.py:422-476``, in the
+    ``idx.T`` order), then the floor snap at the nodes with entries.  Stage
+    ``FRICTION``: the point-triangle friction and restitution at the
+    velocity the tail computes plus ``nn_imp`` (the node-node friction's
+    impulse, ``pd.py:398-402``).  Returns the count-averaged friction
+    impulse f32[N, 3] that T4 adds (zero at nodes without point-triangle
+    entries).  Does nothing without live contacts, or when latch slot 0 is
+    set."""
     fric = torch.zeros_like(x)
-    if bool(state.sim_failed[0]) or int(colls.pt_count[0]) == 0:
+    pt_live = colls.pt_idx is not None and int(colls.pt_count[0]) > 0
+    e_live = edges is not None and int(edges.count[0]) > 0
+    if bool(state.sim_failed[0]) or not (pt_live or e_live):
         return fric
-    on = incident(inc)[:, None]
-    snap = on & (colls.floor_active[:, None] > 0)
+    none = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    on_pt = (incident(inc) if pt_live else none)[:, None]
+    on_e = (incident(edges.inc) if e_live else none)[:, None]
     prev = state.prev_positions
     thickness = params.collision_thickness
-    for _ in range(config.collision_stabilization_iterations):
-        vals = stabilize_contacts(x, state.inv_mass, colls.pt_idx, colls.pt_mask, thickness)
-        delta = count_average(csr_sum(inc, entry_values(vals)))
-        prev.copy_(torch.where(on, prev + delta, prev))
-        x.copy_(torch.where(snap, static_proj, torch.where(on, x + delta, x)))
+    if stages & STABILIZE:
+        snap = (on_pt | on_e) & (colls.floor_active[:, None] > 0)
+        e_inc = column_order(edges.inc, 4) if e_live else None
+        for _ in range(config.collision_stabilization_iterations):
+            if pt_live:
+                vals = stabilize_contacts(x, state.inv_mass, colls.pt_idx, colls.pt_mask,
+                                          thickness)
+                delta = count_average(csr_sum(inc, entry_values(vals)))
+                prev.copy_(torch.where(on_pt, prev + delta, prev))
+                x.copy_(torch.where(on_pt, x + delta, x))
+            if e_live:
+                vals = stabilize_edges(x, state.inv_mass, edges.edge_idx, edges.edge_mask,
+                                       thickness, edges.quirks)
+                delta = count_average(csr_sum(e_inc, vals))
+                prev.copy_(torch.where(on_e, prev + delta, prev))
+                x.copy_(torch.where(on_e, x + delta, x))
+            x.copy_(torch.where(snap, static_proj, x))
+    if not (stages & FRICTION and pt_live):
+        return fric
     vel = base_velocity(x, prev, state, params)
+    if nn_imp is not None:
+        vel = vel + nn_imp
     vals = friction_contacts(x, vel, state.inv_mass, colls.pt_idx, colls.pt_mask, params)
-    return torch.where(on, count_average(csr_sum(inc, entry_values(vals))), fric)
+    return torch.where(on_pt, count_average(csr_sum(inc, entry_values(vals))), fric)
 
 
 def pt_tail(state: SolverState, params: PhysicsParams, config: StepConfig,
-            colls: CollisionSet, inc: Incidence, x: torch.Tensor,
-            static_proj: torch.Tensor) -> torch.Tensor:
+            colls: CollisionSet, inc: Incidence | None, x: torch.Tensor,
+            static_proj: torch.Tensor, edges=None, nn_imp: torch.Tensor | None = None,
+            stages: int = STABILIZE | FRICTION) -> torch.Tensor:
     """Kernel T8 on a CUDA state, :func:`pt_tail_plain` on a CPU state.  On
-    the card the friction impulse is written only at nodes with contact
-    entries, which are the only ones T4 reads."""
+    the card the friction impulse is written only at nodes with
+    point-triangle entries, which are the only ones T4 reads."""
     pos = state.positions
     if kernels.on_cpu(pos):
-        return pt_tail_plain(state, params, config, colls, inc, x, static_proj)
+        return pt_tail_plain(state, params, config, colls, inc, x, static_proj, edges, nn_imp,
+                             stages)
+    pt = colls.pt_idx is not None
+    pt_t = ((colls.pt_idx, colls.pt_mask, colls.pt_count, inc.row_start, inc.entries,
+             inc.nodes) if pt else (None,) * 6)
+    e_on = edges is not None and bool(stages & STABILIZE)
+    e_t = ((edges.edge_idx, edges.edge_mask, edges.count, edges.inc.row_start,
+            edges.inc.entries) if e_on else (None,) * 5)
     kernels.require(pos.device, x, state.prev_positions, static_proj, colls.floor_active,
-                    colls.pt_idx, colls.pt_mask, colls.pt_count, inc.row_start,
-                    inc.entries, inc.nodes, state.inv_mass, state.mass, state.node_mask,
+                    *pt_t, *e_t, nn_imp, state.inv_mass, state.mass, state.node_mask,
                     state.sim_failed)
-    cap = colls.pt_idx.shape[0]
+    cap = colls.pt_idx.shape[0] if pt else 0
+    ecap = edges.edge_idx.shape[0] if e_on else 0
     per_contact = torch.empty((cap, 8), dtype=torch.float32, device=pos.device)
+    per_entry = torch.empty((4 * ecap, 4), dtype=torch.float32, device=pos.device)
     fric = torch.empty_like(x)
     h, _ = _h_h2(params)
     err = kernels.lib().pies_pt_tail(
         x.data_ptr(), state.prev_positions.data_ptr(), static_proj.data_ptr(),
-        colls.floor_active.data_ptr(), colls.pt_idx.data_ptr(), colls.pt_mask.data_ptr(),
-        colls.pt_count.data_ptr(), inc.row_start.data_ptr(), inc.entries.data_ptr(),
-        inc.nodes.data_ptr(), state.inv_mass.data_ptr(), state.mass.data_ptr(),
-        state.node_mask.data_ptr(), per_contact.data_ptr(), fric.data_ptr(),
-        state.sim_failed.data_ptr(), state.capacity, cap,
-        config.collision_stabilization_iterations, params.collision_thickness, h,
-        params.damping, params.gravity, params.friction, params.static_friction_threshold,
-        kernels.stream(),
+        colls.floor_active.data_ptr(), *(kernels.ptr(t) for t in pt_t),
+        *(kernels.ptr(t) for t in e_t), kernels.ptr(nn_imp), state.inv_mass.data_ptr(),
+        state.mass.data_ptr(), state.node_mask.data_ptr(), per_contact.data_ptr(),
+        per_entry.data_ptr(), fric.data_ptr(), state.sim_failed.data_ptr(), state.capacity,
+        cap, ecap, config.collision_stabilization_iterations, int(stages),
+        int(e_on and edges.quirks), params.collision_thickness, h, params.damping,
+        params.gravity, params.friction, params.static_friction_threshold, kernels.stream(),
     )
     kernels.check(err, "pt_tail")
     pt_tail.launches += 1
+    if e_on:
+        assembly.edge_terms.launches += 1
     return fric
 
 
 pt_tail.launches = 0
+
+
+def node_friction_plain(x: torch.Tensor, state: SolverState, params: PhysicsParams,
+                        nodes, failed=None):
+    """Plain twin of T27's friction stage (``pd.py:438-508``): per live
+    pair the impulses at the velocity the tail computes, summed per node in
+    the JAX package's ``idx.T`` order and count-averaged.  Returns ``(imp
+    f32[N, 3], touching i32[1])``: the impulse (zero at nodes without a
+    touching pair) and the touching pairs."""
+    touching = torch.zeros(1, dtype=torch.int32, device=x.device)
+    imp = torch.zeros_like(x)
+    if failed is not None and bool(failed[0]):
+        return imp, touching
+    idx, mask = node_pairs_of(nodes.nn, nodes.cap)
+    vel = base_velocity(x, state.prev_positions, state, params)
+    vals = node_friction_pairs(x, vel, state.inv_mass, state.radius, idx, mask,
+                               params.friction, params.static_friction_threshold)
+    inc = column_order(incidence_plain(idx, nodes.lim, x.shape[0], row_major=True), 2)
+    rows = torch.stack([torch.cat([vals[:, 0:3], vals[:, 6:7]], dim=1),
+                        torch.cat([vals[:, 3:6], vals[:, 6:7]], dim=1)], dim=1).reshape(-1, 4)
+    touching[0] = int(vals[:, 6].sum())
+    return count_average(csr_sum(inc, rows)), touching
+
+
+def node_friction(x: torch.Tensor, state: SolverState, params: PhysicsParams, nodes,
+                  failed=None):
+    """T27's friction stage on a CUDA state, :func:`node_friction_plain` on
+    a CPU state (the count stays on the device)."""
+    if kernels.on_cpu(x):
+        return node_friction_plain(x, state, params, nodes, failed)
+    if failed is None:
+        raise ValueError("the node contact kernel needs the failure latch")
+    nn = nodes.nn
+    kernels.require(x.device, x, state.prev_positions, state.inv_mass, state.mass,
+                    state.node_mask, state.radius, nn.pi, nn.pj, nn.row_off, nn.inc_start,
+                    nn.inc_pair, nodes.lim, failed)
+    cap = nodes.cap
+    rows = min(cap, nn.pi.shape[0])
+    rec = torch.empty((rows, 8), dtype=torch.float32, device=x.device)
+    imp = torch.empty_like(x)
+    touching = torch.empty(1, dtype=torch.int32, device=x.device)
+    h, _ = _h_h2(params)
+    err = kernels.lib().pies_node_friction(
+        x.data_ptr(), state.prev_positions.data_ptr(), state.inv_mass.data_ptr(),
+        state.mass.data_ptr(), state.node_mask.data_ptr(), state.radius.data_ptr(),
+        nn.pi.data_ptr(), nn.pj.data_ptr(), nn.row_off.data_ptr(), nn.inc_start.data_ptr(),
+        nn.inc_pair.data_ptr(), nodes.lim.data_ptr(), rec.data_ptr(), imp.data_ptr(),
+        touching.data_ptr(), failed.data_ptr(), x.shape[0], rows, h, params.damping,
+        params.gravity, params.friction, params.static_friction_threshold, kernels.stream())
+    kernels.check(err, "node_friction")
+    assembly.node_terms.launches += 1
+    return imp, touching
 
 
 def substep_tail_plain(state: SolverState, topo: Topology, params: PhysicsParams,
@@ -367,14 +469,17 @@ def substep_tail_plain(state: SolverState, topo: Topology, params: PhysicsParams
                        static_proj: torch.Tensor, colls: CollisionSet | None = None,
                        inc: Incidence | None = None,
                        fric: torch.Tensor | None = None,
-                       floor_counts: torch.Tensor | None = None) -> None:
+                       floor_counts: torch.Tensor | None = None,
+                       nn_imp: torch.Tensor | None = None) -> None:
     """Plain twin of kernel T4 — the dense-floor rest of
     ``pd._finish_substep`` — in place on ``state``: floor snap, velocity,
-    the contact friction impulse ``fric`` at nodes with contact entries
-    (when ``colls`` has live contacts), floor friction, ``positions = prev =
-    x``, gravity forces, and the OR of the detection's capacity latch and of
-    non-finite positions into latch slot 1.  Nothing changes when latch slot
-    0 is set (a skipped tick).  ``floor_counts`` (the entry-list floor's
+    the node-node friction impulse ``nn_imp`` (T27), then the contact
+    friction impulse ``fric`` at nodes with point-triangle entries (when
+    ``colls`` has live contacts), floor friction, ``positions = prev = x``,
+    gravity forces, and the OR of the detection's capacity latch
+    (``colls.overflow``) and of non-finite positions into latch slot 1.
+    Nothing changes when latch slot 0 is set (a skipped tick).
+    ``floor_counts`` (the entry-list floor's
     live entries per node) are the floor friction's exponents; ``active`` is
     then the entry list's snap flag."""
     floor = CollisionSet(floor_active=active, floor_counts=floor_counts)
@@ -384,10 +489,13 @@ def substep_tail_plain(state: SolverState, topo: Topology, params: PhysicsParams
     forces = torch.zeros_like(x)
     forces[:, 1] = (-params.gravity * state.mass) * state.node_mask
     vel = base_velocity(x, state.prev_positions, state, params)
+    if nn_imp is not None:
+        vel = vel + nn_imp
     overflow = torch.zeros(1, dtype=torch.int32, device=x.device)
     if colls is not None and colls.pt_idx is not None:
         on = (incident(inc) & (colls.pt_count[0] > 0))[:, None]
         vel = torch.where(on, vel + fric, vel)
+    if colls is not None and colls.overflow is not None:
         overflow = colls.overflow
     vel = _static_floor_friction(vel, floor, params, topo.floor_count)
 
@@ -404,19 +512,20 @@ def substep_tail(state: SolverState, topo: Topology, params: PhysicsParams,
                  static_proj: torch.Tensor, colls: CollisionSet | None = None,
                  inc: Incidence | None = None,
                  fric: torch.Tensor | None = None,
-                 floor_counts: torch.Tensor | None = None) -> None:
+                 floor_counts: torch.Tensor | None = None,
+                 nn_imp: torch.Tensor | None = None) -> None:
     """Kernel T4 on a CUDA state, :func:`substep_tail_plain` on a CPU state."""
     pos = state.positions
     if kernels.on_cpu(pos):
         return substep_tail_plain(state, topo, params, active, x, static_proj, colls,
-                                  inc, fric, floor_counts)
+                                  inc, fric, floor_counts, nn_imp)
     pt = colls is not None and colls.pt_idx is not None
-    row_start, pt_count, overflow = ((inc.row_start, colls.pt_count, colls.overflow)
-                                     if pt else (None, None, None))
+    row_start, pt_count = (inc.row_start, colls.pt_count) if pt else (None, None)
+    overflow = colls.overflow if colls is not None else None
     kernels.require(pos.device, pos, state.prev_positions, state.velocities,
                     state.forces, x, static_proj, active, topo.floor_count,
                     state.inv_mass, state.mass, state.node_mask, state.sim_failed,
-                    fric, row_start, pt_count, overflow, floor_counts)
+                    fric, row_start, pt_count, overflow, floor_counts, nn_imp)
     h, _ = _h_h2(params)
     err = kernels.lib().pies_substep_tail(
         pos.data_ptr(), state.prev_positions.data_ptr(),
@@ -427,7 +536,7 @@ def substep_tail(state: SolverState, topo: Topology, params: PhysicsParams,
         params.gravity, params.friction, params.static_friction_threshold,
         state.sim_failed.data_ptr(), kernels.ptr(fric), kernels.ptr(row_start),
         kernels.ptr(pt_count), kernels.ptr(overflow), kernels.ptr(floor_counts),
-        kernels.stream(),
+        kernels.ptr(nn_imp), kernels.stream(),
     )
     kernels.check(err, "substep_tail")
     substep_tail.launches += 1
@@ -440,21 +549,25 @@ _KERNELS = dict(head=substep_head, floor=floor_entries, force=tet_force12,
                 cols=tetcols.substep_cols, setup=tetcols.pt_coupling_setup,
                 pt_force=tetcols.pt_force, pt_tail=pt_tail, tail=substep_tail,
                 block=assembly.tet_block_factor, assemble=assembly.assemble_force,
-                pcg=assembly.pcg_solve)
+                pcg=assembly.pcg_solve, edge_setup=assembly.edge_setup,
+                node_setup=assembly.node_setup, node_friction=node_friction)
 _PLAIN = dict(head=substep_head_plain, floor=floor_entries_plain, force=tet_force12_plain,
               cols=tetcols.substep_cols_plain, setup=tetcols.pt_coupling_setup_plain,
               pt_force=tetcols.pt_force_plain, pt_tail=pt_tail_plain, tail=substep_tail_plain,
               block=assembly.tet_block_factor_plain, assemble=assembly.assemble_force_plain,
-              pcg=assembly.pcg_solve_plain)
+              pcg=assembly.pcg_solve_plain, edge_setup=assembly.edge_setup_plain,
+              node_setup=assembly.node_setup_plain, node_friction=node_friction_plain)
 
 
-COUNTERS = ("floor_active", "contacts", "rebuilds", "cg_trips")
+COUNTERS = ("floor_active", "contacts", "rebuilds", "cg_trips", "edge_contacts", "edge_hits",
+            "node_pairs", "touching_pairs")
 
 
 def new_counters(device) -> dict[str, torch.Tensor]:
     """Zeroed device counters for :func:`pd_substep`: floor-active nodes,
-    live point-triangle contacts, broadphase cache rebuilds and CG trips,
-    each summed over substeps."""
+    live point-triangle contacts, broadphase cache rebuilds, CG trips, live
+    edge-edge contacts and their hits before the cap, live node pairs and
+    touching node pairs, each summed over substeps."""
     return {name: torch.zeros((), dtype=torch.int64, device=device) for name in COUNTERS}
 
 
@@ -472,56 +585,101 @@ def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     generic path (``pd.py:76-99,124-147,184-313``): with self-contact on, the
     point-triangle detection and T7's setup (the node incidence, the
     contacts' diagonal folded into the system diagonal and, unless the
-    coupling is full, into the operator's dense diagonal); T22's block
-    factor of the system diagonal where the disjoint-tet layout covers the
-    capacity; then each iteration's local step (T12, T13, T9's stage 1; T7's
-    contact force under recentered coupling), force (T9's stage 2, with
-    T23's stacked contact force under full coupling and the entry-list
-    floor's per-entry sum when ``floor`` is given) and PCG solve
-    warm-started from the iterate (T10/T11, with T23's contact blocks under
-    full coupling), with the last local step's static projection kept for
-    the floor snap and the shape rotations updated in place on the state;
-    then T8 and T4 as on the tet-column path.  A substep without a live
-    contact adds exact zeros, which is the JAX package's contact-free
-    loop."""
+    coupling is full, into the operator's dense diagonal); with node-node
+    contacts, T20's fresh pair prefix and T27's setup (the pairs'
+    diagonal, in both diagonals); with edge-edge contacts, T16 and T25's
+    detection and T26's setup (the incidence, the edges' diagonal: in the
+    system diagonal, and off full coupling in the operator's and the lag
+    term); T22's block factor of the system diagonal where the disjoint-tet
+    layout covers the capacity; then each iteration's local step (T12, T13,
+    T9's stage 1; T7's contact force under recentered coupling), force
+    (T9's stage 2, with T23's stacked contact force under full coupling,
+    T26's edge and T27's pair terms, and the entry-list floor's per-entry
+    sum when ``floor`` is given) and PCG solve warm-started from the iterate
+    (T10/T11, with T23's and T26's contact blocks under full coupling),
+    with the last local step's static projection kept for the floor snap
+    and the shape rotations updated in place on the state; then T8 (the
+    point-triangle and edge stabilization), T27's friction, T8's
+    point-triangle friction and T4.  A substep without a live contact adds
+    exact zeros, which is the JAX package's contact-free loop."""
     x, msn_h2, diag, wf, active = head
     failed = state.sim_failed
     _, h2 = _h_h2(params)
     plane = floor_plane(params, config.reference_quirks)
-    colls = inc = fric = pt = full = None
+    inc = ptd = fric = pt = full = edges = nodes = nn_imp = colls = None
     full_coupling = config.contact_coupling == "full"
-    static_diag = wf
-    if self_contact(config, topo):
+    pt_on, edge_on = self_contact(config, topo), edge_contact(config, topo)
+    node_on = config.enable_node_collisions
+    if pt_on:
         colls = detect_point_tri(state, x, topo, params, config, active, plain)
         if counters is not None:
             counters["contacts"].add_(colls.pt_count[0])
             counters["rebuilds"].add_(colls.rebuilt[0])
-        if not full_coupling:
-            static_diag = wf.clone()
+    elif edge_on or node_on:
+        colls = CollisionSet(floor_active=active,
+                             overflow=torch.zeros(1, dtype=torch.int32, device=x.device))
+    if edge_on:
+        (colls.edge_idx, colls.edge_mask, colls.edge_count,
+         colls.edge_hits) = broadphase.detect_edge_edge_collisions(
+            x, state.prev_positions, topo.triangles, topo.tri_mask, params, config,
+            colls.overflow, failed, plain)
+        if counters is not None:
+            counters["edge_contacts"].add_(colls.edge_count[0])
+            counters["edge_hits"].add_(colls.edge_hits[0])
+    if node_on:
+        colls.nn = broadphase.detect_node_node_pairs(x, state.radius, state.node_mask, params,
+                                                     config, failed, plain)
+        colls.nn_cap = config.budget.max_node_node_contacts
+    # The operator's dense diagonal: the floor weight, with the pairs'
+    # diagonal and, off full coupling, the contacts' diagonals.
+    static_diag = wf
+    if node_on or (not full_coupling and (pt_on or edge_on)):
+        static_diag = wf.clone()
+    sd = None if static_diag is wf else static_diag
+    if pt_on:
         inc, ptd = k["setup"](colls, state.mass, topo, h2, diag, wf, failed,
-                              None if full_coupling else static_diag)
+                              None if full_coupling else sd)
         if full_coupling:
             full = assembly.FullCoupling(colls, inc, params.collision_thickness)
+    if node_on:
+        nodes = k["node_setup"](colls.nn, colls.nn_cap, state.mass, state.radius,
+                                state.inv_mass, topo, h2, diag, wf, failed, sd, inc, ptd,
+                                not full_coupling, colls.pt_count)
+        if counters is not None:
+            counters["node_pairs"].add_(nodes.lim[0])
+    if edge_on:
+        edges = k["edge_setup"](colls, state.mass, state.inv_mass, topo, h2, diag, wf,
+                                params.collision_thickness, config.reference_quirks,
+                                full_coupling, failed, sd, inc, ptd, nodes, colls.pt_count)
     block = k["block"](diag, topo.tet_block6, failed) if block_layout(state, topo) else None
     x_it, static_proj = x, torch.zeros_like(x)
     prr = torch.zeros(1, dtype=x.dtype, device=x.device)
     for _ in range(config.iterations):
         rows = assembly.local_step(x_it, state.inv_mass, state.mass, state.shape_quats, topo,
                                    config.rotation_iterations, failed, plain)
-        if colls is not None and not full_coupling:
+        if pt_on and not full_coupling:
             contact = k["pt_force"](x_it, colls, inc, params.collision_thickness, failed)
             pt = (ptd, contact, inc.row_start, colls.pt_count)
         force, static_proj = k["assemble"](x_it, msn_h2, wf, rows, topo, plane, failed, pt,
-                                           full, floor)
+                                           full, floor, edges, nodes)
         x_it, prr, trips = k["pcg"](force, x_it, diag, state.mass, static_diag, h2,
                                     state.node_mask, topo, config.cg_iterations,
-                                    config.cg_rtol, failed, block, full)
+                                    config.cg_rtol, failed, block, full, edges)
         if counters is not None:
             counters["cg_trips"].add_(trips[0])
-    if colls is not None:
-        fric = k["pt_tail"](state, params, config, colls, inc, x_it, static_proj)
+    if pt_on or edge_on:
+        stages = STABILIZE if node_on else STABILIZE | FRICTION
+        fric = k["pt_tail"](state, params, config, colls, inc, x_it, static_proj, edges,
+                            None, stages)
+    if node_on:
+        nn_imp, touching = k["node_friction"](x_it, state, params, nodes, failed)
+        if counters is not None:
+            counters["touching_pairs"].add_(touching[0])
+        if pt_on:
+            fric = k["pt_tail"](state, params, config, colls, inc, x_it, static_proj, None,
+                                nn_imp, FRICTION)
     k["tail"](state, topo, params, active, x_it, static_proj, colls, inc, fric,
-              None if floor is None else floor.floor_counts)
+              None if floor is None else floor.floor_counts, nn_imp)
     return torch.sqrt(torch.sum(prr))
 
 

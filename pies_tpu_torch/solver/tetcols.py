@@ -45,7 +45,9 @@ def applies(state, topo: Topology, config: StepConfig) -> bool:
     """Static eligibility for the tet-column path, as in the JAX package:
     the block-diagonal layout covering the whole capacity, the fused
     contiguous tet local step, diagonal-only contact coupling, dense floor
-    contacts, and (besides position pins) no other constraint family.  The
+    contacts, no node-node and no edge-edge contact buffer (``tetcols.py:
+    82-83``: the edge buffer exists where the scene has triangles), and
+    (besides position pins) no other constraint family.  The
     host checks it once per scene and
     ``pd.pd_substep`` dispatches on it; a scene where it fails takes the
     generic path."""
@@ -63,6 +65,9 @@ def applies(state, topo: Topology, config: StepConfig) -> bool:
         and topo.bend.idx.shape[0] == 0
         and topo.shape.node_idx.shape[0] == 0
         and topo.goal.node_idx.shape[0] == 0
+        and not (config.enable_node_collisions and config.budget.max_node_node_contacts > 0)
+        and not (config.enable_edge_collisions and topo.triangles.shape[0] > 0
+                 and config.budget.max_edge_contacts > 0)
         and config.dense_floor
     )
 

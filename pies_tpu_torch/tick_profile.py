@@ -7,6 +7,8 @@
     python3 -m pies_tpu_torch.tick_profile --boxes [repeats] [--reference]
     python3 -m pies_tpu_torch.tick_profile --rope [particles] [repeats]
     python3 -m pies_tpu_torch.tick_profile --pile [particles] [repeats]
+    python3 -m pies_tpu_torch.tick_profile --nets [nn] [repeats]
+    python3 -m pies_tpu_torch.tick_profile --node-cloud [particles] [repeats]
 
 and on the PD scenes any of ``--full`` (``contact_coupling="full"``,
 self-contact on), ``--no-tet-cols`` (a soup off the tet-column path, on
@@ -33,7 +35,14 @@ arguments, self-contact through the per-triangle all-pairs branch (T16,
 T17), or with ``--reference`` as well through ``broadphase_mode=
 "reference"``; or, with ``--rope`` or ``--pile``, the PBD cells of
 ``scene/pbd_scenes.py`` at 131,072 particles by default (1,024 ropes of 128
-nodes, or the node pile at the bench's density), collisions on.  It warms
+nodes, or the node pile at the bench's density), collisions on; or, with
+``--nets``, the crossing nets of ``scene/edge_nets.py`` with the bench's
+arguments (edge-edge contacts, full coupling, ``reference_quirks=False``)
+at nn = 256 by default (131,072 nodes; contact caps 262,144 above the
+bench's nn = 24, 2,048 up to it), or with ``--node-cloud`` the node pile at 131,072
+particles by default under the PD solver with node-node contacts on
+(``max_node_node_contacts`` 16 per particle, so the cap never truncates).
+It warms
 up until the window it measures is contact-active: 30 ticks without
 self-contact (the bottom layer reaches the floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
 bottom one rests on the floor), 75 for the mesh (its bottom, 3.0 above the
@@ -41,7 +50,10 @@ floor, meets it at tick 70), 25 for the cloth (it lands at tick ~19), 50 for
 the mixed scene (the soup's layers meet at tick ~40, sheet and soup at tick
 49), 30 for the boxes (they touch from tick 27); the PBD scenes tick by
 tick until a tick has floor-active nodes and touching pairs (the ropes
-reach the floor at tick ~42, the pile at once).  Then:
+reach the floor at tick ~42, the pile at once), the nets tick by tick
+until a tick has live edge contacts (each window below then starts from
+that tick's state: the nets latch within a few dozen ticks of it), the node
+cloud not at all (its pairs touch from the first tick).  Then:
 
 * times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
   ends in a synchronize) and prints each, for the spread;
@@ -49,8 +61,9 @@ reach the floor at tick ~42, the pile at once).  Then:
   prints the device's busy share of the traced wall time;
 * traces 10 more with the counters on, prints the same share, the device
   time per kernel name, and the counters read once: floor-active node
-  substeps, live contacts, broadphase cache rebuilds and CG trips (for
-  PBD: floor nodes, live and touching pairs per iteration, pair-cache
+  substeps, live contacts, broadphase cache rebuilds, CG trips, edge
+  contacts and their hits before the cap, live and touching node pairs
+  (for PBD: floor nodes, live and touching pairs per iteration, pair-cache
   rebuilds).
 
 Prints the card's name and power limit first.  Needs a CUDA device.
@@ -67,9 +80,17 @@ PBD_WARMUP = 35  # then tick by tick: the ropes reach the floor at tick ~42
 MESH = Path(__file__).resolve().parent.parent / "scripts" / "refbench" / "tet_cube_mesh_100k.txt"
 
 
+def _clone(state):
+    import dataclasses
+
+    return dataclasses.replace(
+        state, **{f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)
+                  if getattr(state, f.name) is not None})
+
+
 def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, mixed=False,
          boxes=False, reference=False, rope=False, pile=False, full=False, tet_cols=True,
-         dense_floor=True):
+         dense_floor=True, nets=False, cloud=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -86,16 +107,28 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
     scene = ("the 110k mesh" if mesh else "the 512 x 512 rigged cloth" if cloth
              else "the cloth over the soup" if mixed else "the box pile" if boxes
              else f"the PBD rope fleet, {n_tets} particles" if rope
-             else f"the PBD node pile, {n_tets} particles" if pile else "the soup")
-    collisions = collisions or mixed or boxes or rope or pile or full
+             else f"the PBD node pile, {n_tets} particles" if pile
+             else f"the crossing nets, nn = {n_tets}" if nets
+             else f"the PD node cloud, {n_tets} particles" if cloud else "the soup")
+    collisions = (collisions or mixed or boxes or rope or pile or full or nets) and not cloud
     mode = "reference" if reference else "celllist"
-    coupling = "full" if full else "recentered"
+    coupling = "full" if full or nets else "recentered"
     print(f"card: {smi}; {scene}, self-contact {'on' if collisions else 'off'},"
           f" broadphase_mode {mode}, contact_coupling {coupling}, tet_cols {tet_cols},"
           f" dense_floor {dense_floor}")
     solver = pt.SolverName.PBD if rope or pile else pt.SolverName.PD
-    s = pt.Solver(pt.SolverOptions(solver=solver), enable_collisions=collisions,
-                  broadphase_mode=mode, contact_coupling=coupling)
+    if nets:
+        from pies_tpu_torch.scene.edge_nets import BENCH_CAPS, BENCH_NN, solver_args
+
+        caps = BENCH_CAPS if n_tets <= BENCH_NN else 128 * BENCH_CAPS
+        s = pt.Solver(pt.SolverOptions(solver=solver), **solver_args(caps))
+    elif cloud:
+        s = pt.Solver(pt.SolverOptions(solver=solver), enable_collisions=False,
+                      enable_node_collisions=True,
+                      budget_overrides=dict(max_node_node_contacts=16 * n_tets))
+    else:
+        s = pt.Solver(pt.SolverOptions(solver=solver), enable_collisions=collisions,
+                      broadphase_mode=mode, contact_coupling=coupling)
 
     def configure():
         """The StepConfig fields of --no-tet-cols and --entry-floor, set
@@ -108,7 +141,22 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
                                             dense_floor=dense_floor)
 
     new_counters = (pbd if rope or pile else pd).new_counters
-    if rope or pile:
+    if nets:
+        from pies_tpu_torch.scene.edge_nets import add_crossing_nets
+
+        add_crossing_nets(s, n_tets)
+        for _ in range(150):
+            s.counters = new_counters(s.device)
+            s.run_ticks(1)
+            c, s.counters = s.counters, None
+            if int(c["edge_contacts"]) > 0:
+                break
+        print(f"edge contacts from tick {s.ticks}")
+    elif cloud:
+        from pies_tpu_torch.scene.pbd_scenes import add_node_pile
+
+        add_node_pile(s, n_tets)
+    elif rope or pile:
         from pies_tpu_torch.scene.pbd_scenes import add_node_pile, add_rope_fleet
 
         (add_rope_fleet if rope else add_node_pile)(s, n_tets)
@@ -149,13 +197,24 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
         s.create_tet_soup(n_tets, spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
         configure()
         s.run_ticks(CONTACT_WARMUP if collisions else FLOOR_WARMUP)
+    # The nets latch within a few dozen ticks of their first contacts, so
+    # every window of theirs starts from the state after that tick.
+    start = _clone(s.state) if nets else None
+
+    def rewind():
+        if start is not None:
+            s._state = _clone(start)
+
     for r in range(repeats):
+        rewind()
         t0 = time.perf_counter()
         s.run_ticks(10)
         dt = (time.perf_counter() - t0) / 10
-        print(f"run {r}: {dt * 1e3:.4f} ms/tick, {1 / dt:.2f} steps/s")
+        print(f"run {r}: {dt * 1e3:.4f} ms/tick, {1 / dt:.2f} steps/s"
+              + (" (sim_failed latched in it)" if s.sim_failed else ""))
 
     def traced(counters):
+        rewind()
         torch.cuda.synchronize()
         s.counters = new_counters(s.device) if counters else None
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -168,6 +227,8 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
         attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
                 else "self_cuda_time_total")
         busy_us = sum(getattr(e, attr) for e in events)
+        if s.sim_failed:
+            print("sim_failed latched in the traced window")
         print(f"traced 10 ticks (device counters {'on' if counters else 'off'}): wall"
               f" {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms"
               f" ({100 * busy_us / 1e6 / wall:.1f}% busy,"
@@ -187,6 +248,10 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
 if __name__ == "__main__":
     flags = [a for a in sys.argv[1:] if a.startswith("--")]
     args = [int(a) for a in sys.argv[1:] if not a.startswith("--")]
+    if "--nets" in flags:
+        sys.exit(main(*(args or [256]), nets=True))
+    if "--node-cloud" in flags:
+        sys.exit(main(*(args or [131_072]), cloud=True))
     if {"--rope", "--pile"} & set(flags):
         sys.exit(main(*(args or [131_072]), rope="--rope" in flags, pile="--pile" in flags))
     paths = dict(full="--full" in flags, tet_cols="--no-tet-cols" not in flags,

@@ -152,10 +152,16 @@ def test_generic_cases_not_ported_yet_raise():
     assert not s.sim_failed
     assert not ttetcols.applies(s.state, s.topology, s.config)
     assert tpd.block_layout(s.state, s.topology)
-    # Self-contact runs on every PD scene (tests/test_torch_tri_detect.py);
-    # edge-edge contacts do not.
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pt.Solver(pt.SolverOptions(), enable_edge_collisions=True, device="cpu")
+    # Self-contact runs on every PD scene (tests/test_torch_tri_detect.py),
+    # and so do edge-edge contacts (tests/test_torch_edges.py): a soup with
+    # them prepares, leaves the tet-column path and ticks on the generic one.
+    s = pt.Solver(pt.SolverOptions(), enable_edge_collisions=True, device="cpu")
+    s.create_tet_soup(8, spacing=1.6, scale=0.8, w=2000.0)
+    s._prepare()
+    assert s.config.enable_edge_collisions
+    assert not ttetcols.applies(s.state, s.topology, s.config)
+    s.tick()
+    assert not s.sim_failed
     # Ropes run (tests/test_torch_pbd.py): create_rope builds a chain
     # topology, one chain of 7 links from the pinned first node.
     s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PBD), enable_collisions=True,

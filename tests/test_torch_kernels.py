@@ -1320,3 +1320,214 @@ def test_coupling_paths_match_twins_over_a_trajectory(cuda, scene):
     want = {"soup_full": [1, 0, 1], "soup_block": [1, 0, 0], "box_entry": [0, 1, 0],
             "mixed_full": [0, 0, 1]}[scene]
     assert [int(n > 0) for n in lk] == want
+
+
+# ---------------------------------------------------------------------------
+# edge-edge and PD node-node contacts: T25 (the edge CCD), T26 (the edge
+# terms, inside T8, T9's stage 2 and T10) and T27 (the node pairs' setup,
+# friction and force inside T9's stage 2)
+
+EDGE_NODE_WRAPPERS = (broadphase.edge_ccd, assembly.edge_terms, assembly.node_terms)
+
+
+def _nets_solver(device, nn=8, coupling="full", quirks=False, caps=2048):
+    from pies_tpu_torch.scene.edge_nets import add_crossing_nets, solver_args
+
+    kw = solver_args(caps)
+    kw.update(contact_coupling=coupling, reference_quirks=quirks)
+    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), device=device, **kw)
+    return add_crossing_nets(s, nn)
+
+
+def _cloud_solver(device, n=4096, cap=1 << 17):
+    from pies_tpu_torch.scene.pbd_scenes import add_node_pile
+
+    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=False,
+                  enable_node_collisions=True,
+                  budget_overrides=dict(max_node_node_contacts=cap), device=device)
+    return add_node_pile(s, n)
+
+
+def _until_contacts(s, least, limit=120):
+    """Tick ``s`` until its next substep has at least ``least`` edge
+    contacts; returns the ticks run."""
+    for t in range(limit):
+        s.run_ticks(1)
+        if int(_edge_inputs(s)[-1].edge_count[0]) >= least:
+            return t + 1
+    raise AssertionError("too few edge contacts")
+
+
+def _until_active(s, limit=120):
+    """Tick ``s`` until its next substep's edge contacts include one within
+    the thickness (its projection and stabilization move nodes); returns
+    the ticks run."""
+    from pies_tpu_torch.collision.batches import edge_closest_disp
+
+    for t in range(limit):
+        s.run_ticks(1)
+        c, x, _, _, _, colls = _edge_inputs(s)
+        idx = colls.edge_idx[: int(colls.edge_count[0])].long()
+        active, _, _ = edge_closest_disp(x[idx], c.inv_mass[idx],
+                                         s.current_params().collision_thickness,
+                                         s.config.reference_quirks)
+        if bool(active.any()):
+            return t + 1
+    raise AssertionError("no active edge contact")
+
+
+def _edge_inputs(s, plain=True):
+    """The generic path's substep inputs with this substep's point-triangle
+    and edge contacts (twins, or kernels with ``plain=False``)."""
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    c = _clone(st)
+    x, msn, diag, wf, active = pd.substep_head_plain(c, topo, params, cfg, True)
+    colls = pd.detect_point_tri(c, x, topo, params, cfg, active, plain=True)
+    out = broadphase.detect_edge_edge_collisions(x, c.prev_positions, topo.triangles,
+                                                 topo.tri_mask, params, cfg, colls.overflow,
+                                                 c.sim_failed, plain=plain)
+    colls.edge_idx, colls.edge_mask, colls.edge_count, colls.edge_hits = out
+    return c, x, msn, diag, wf, colls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quirks", [False, True], ids=["fixed", "quirks"])
+def test_edge_ccd_matches_twin(cuda, quirks):
+    """T25 on the nets once they have more than 8 edge contacts, with and
+    without the quirks: the contacts, their order, the count and the hits
+    before the cap equal the twin's; with a cap of 8 the truncated prefix
+    too."""
+    s = _nets_solver(cuda, quirks=quirks)
+    _until_contacts(s, 9)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    x = st.positions + 0.012 * st.velocities
+    lay = broadphase.tri_layout(cfg, topo.triangles.shape[0], "celllist")
+    sc = broadphase.scalars(params)
+    ov = torch.zeros(1, dtype=torch.int32, device=cuda)
+    cand, count, flags = broadphase.tri_candidates(x, st.prev_positions, topo.triangles,
+                                                   topo.tri_mask, lay, sc, ov, st.sim_failed)
+    for cap in (cfg.budget.max_edge_contacts, 8):
+        before = broadphase.edge_ccd.launches
+        k = broadphase.edge_ccd(x, st.prev_positions, topo.triangles, cand, count, flags, cap,
+                                quirks, st.sim_failed)
+        p = broadphase.edge_ccd_plain(x, st.prev_positions, topo.triangles, cand, count, flags,
+                                      cap, quirks, st.sim_failed)
+        assert broadphase.edge_ccd.launches == before + 1
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+        assert int(k[3][0]) > 0 and int(k[2][0]) == min(int(k[3][0]), cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coupling", ["full", "recentered"])
+def test_edge_terms_equal_twins(cuda, coupling):
+    """T26's setup (incidence, the edges' diagonal, the system and operator
+    diagonals), its terms in T9's stage 2 and T10, and T8's stabilization
+    with its pass, on the nets with live edge and point-triangle contacts:
+    equal to the twins."""
+    s = _nets_solver(cuda, coupling=coupling)
+    _until_active(s)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    c, x, msn, diag, wf, colls = _edge_inputs(s)
+    assert int(colls.edge_count[0]) > 0
+    _, h2 = pd._h_h2(params)
+    full = coupling == "full"
+    out = []
+    for setup in (assembly.edge_setup, assembly.edge_setup_plain):
+        dg, sd = diag.clone(), wf.clone()
+        e = setup(colls, st.mass, st.inv_mass, topo, h2, dg, wf, params.collision_thickness,
+                  False, full, st.sim_failed, sd)
+        out.append((e, dg, sd))
+    (ek, dk, sk), (ep, dp, sp) = out
+    live = int(ep.inc.row_start[-1])
+    assert torch.equal(ek.inc.row_start, ep.inc.row_start)
+    assert torch.equal(ek.inc.entries[:live], ep.inc.entries[:live])
+    on = incident(ep.inc)
+    assert torch.equal(ek.ed[on], ep.ed[on]) and torch.equal(dk, dp) and torch.equal(sk, sp)
+    rows = assembly.local_step(x, st.inv_mass, st.mass, st.shape_quats, topo,
+                               cfg.rotation_iterations, st.sim_failed, plain=True)
+    plane = pd.floor_plane(params, cfg.reference_quirks)
+    fk = assembly.assemble_force(x, msn, sp, rows, topo, plane, st.sim_failed, edges=ek)
+    fp = assembly.assemble_force_plain(x, msn, sp, rows, topo, plane, edges=ep)
+    assert torch.equal(fk[0], fp[0]) and torch.equal(fk[1], fp[1])
+    yk, _ = assembly.apply_system(x, st.mass, sp, h2, topo, st.sim_failed, edges=ek)
+    yp, _ = assembly.apply_system_plain(x, st.mass, sp, h2, topo, edges=ep)
+    assert torch.equal(yk, yp)
+    edges_only = dataclasses.replace(colls, pt_idx=None)
+    a, b = _clone(c), _clone(c)
+    xa, xb = x.clone(), x.clone()
+    pd.pt_tail(a, params, cfg, edges_only, None, xa, fk[1], ek, None, pd.STABILIZE)
+    pd.pt_tail_plain(b, params, cfg, edges_only, None, xb, fk[1], ep, None, pd.STABILIZE)
+    assert torch.equal(xa, xb) and torch.equal(a.prev_positions, b.prev_positions)
+    assert not torch.equal(xa, x)
+
+
+@pytest.mark.gpu
+def test_node_contact_kernels_equal_twins(cuda):
+    """T20's fresh pair prefix, T27's setup and friction, its force in T9's
+    stage 2 and T4 with its impulse, on a PD node cloud with a cap below the
+    pair count: equal to the twins."""
+    s = _cloud_solver(cuda, cap=1024)
+    s.run_ticks(3)
+    st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
+    x, msn, diag, wf, active = pd.substep_head_plain(_clone(st), topo, params, cfg, True)
+    nk = broadphase.detect_node_node_pairs(x, st.radius, st.node_mask, params, cfg,
+                                           st.sim_failed)
+    np_ = broadphase.detect_node_node_pairs(x, st.radius, st.node_mask, params, cfg,
+                                            st.sim_failed, plain=True)
+    count = int(np_.count[0])
+    assert int(nk.count[0]) == count > 1024
+    for f in ("pi", "pj"):
+        assert torch.equal(getattr(nk, f)[:count], getattr(np_, f)[:count])
+    _, h2 = pd._h_h2(params)
+    out = []
+    for setup, nn in ((assembly.node_setup, nk), (assembly.node_setup_plain, np_)):
+        dg, sd = diag.clone(), wf.clone()
+        t = setup(nn, 1024, st.mass, st.radius, st.inv_mass, topo, h2, dg, wf, st.sim_failed,
+                  sd)
+        out.append((t, dg, sd))
+    (tk, dk, sk), (tp, dp, sp) = out
+    assert int(tk.lim[0]) == int(tp.lim[0]) == 1024
+    assert torch.equal(dk, dp) and torch.equal(sk, sp)
+    rows = assembly.local_step(x, st.inv_mass, st.mass, st.shape_quats, topo,
+                               cfg.rotation_iterations, st.sim_failed, plain=True)
+    plane = pd.floor_plane(params, cfg.reference_quirks)
+    fk = assembly.assemble_force(x, msn, sp, rows, topo, plane, st.sim_failed, nodes=tk)
+    fp = assembly.assemble_force_plain(x, msn, sp, rows, topo, plane, nodes=tp)
+    assert torch.equal(fk[0], fp[0])
+    ik, ck = pd.node_friction(x, st, params, tk, st.sim_failed)
+    ip, cp = pd.node_friction_plain(x, st, params, tp, st.sim_failed)
+    assert torch.equal(ik, ip) and torch.equal(ck, cp) and int(ck[0]) > 0
+    a, b = _clone(st), _clone(st)
+    pd.substep_tail(a, topo, params, active, x, fk[1], nn_imp=ik)
+    pd.substep_tail_plain(b, topo, params, active, x, fk[1], nn_imp=ip)
+    for f in ("positions", "prev_positions", "velocities", "forces", "sim_failed"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["nets_full", "nets_recentered", "cloud"])
+def test_edge_node_paths_match_twins_over_a_trajectory(cuda, scene):
+    """Ticks through the contacts, kernels against twins: equal counters,
+    positions within 1e-5, and T25-T27 launched on their scene's path."""
+    runs = []
+    for plain in (False, True):
+        s = (_cloud_solver(cuda) if scene == "cloud"
+             else _nets_solver(cuda, coupling=scene.split("_")[1]))
+        ticks = 20 if scene == "cloud" else 55
+        before = [f.launches for f in EDGE_NODE_WRAPPERS]
+        c = pd.new_counters(cuda)
+        step.tick_n(s.state, s.topology, s.current_params(), s.config, ticks, plain=plain,
+                    counters=c)
+        assert not s.sim_failed
+        runs.append(({k: int(v) for k, v in c.items()}, s.state.positions.clone(),
+                     [f.launches - b for f, b in zip(EDGE_NODE_WRAPPERS, before)]))
+    (ck, xk, lk), (cp, xp, lp) = runs
+    assert ck == cp
+    assert float((xk - xp).abs().max()) <= 1e-5
+    assert lp == [0, 0, 0]
+    if scene == "cloud":
+        assert ck["node_pairs"] > 0 and ck["touching_pairs"] > 0 and lk == [0, 0, lk[2]] \
+            and lk[2] > 0
+    else:
+        assert ck["edge_contacts"] > 0 and lk[0] > 0 and lk[1] > 0 and lk[2] == 0

@@ -246,16 +246,20 @@ def test_self_contact_is_not_ported_yet():
     """Point-triangle self-contact runs on every PD scene (the soup below,
     one body per triangle, takes the all-pairs branch on the tet-column
     path; ``tests/test_torch_tri_detect.py`` holds it to the JAX package);
-    so does full contact coupling on ``create_sheet``; the self-contact
-    kinds still to port raise and name their item."""
+    so does full contact coupling on ``create_sheet``; and the other contact
+    kinds, edge-edge and PD node-node, prepare and tick on the soup
+    (``tests/test_torch_edges.py``, ``tests/test_torch_nodes.py`` hold them
+    to the JAX package)."""
     s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu",
                   budget_overrides={"body_stride": 1})
     s.create_tet_soup(8, **SCENE)
     s.tick()
     assert not s.sim_failed and s.config.body_nodes == 0
     for kind in ("enable_edge_collisions", "enable_node_collisions"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            pt.Solver(pt.SolverOptions(), device="cpu", **{kind: True})
+        s = pt.Solver(pt.SolverOptions(), device="cpu", **{kind: True})
+        s.create_tet_soup(8, **SCENE)
+        s.tick()
+        assert not s.sim_failed and getattr(s.config, kind)
     s = pt.Solver(pt.SolverOptions(), enable_collisions=True, contact_coupling="full",
                   device="cpu")
     s.create_sheet((0, 0, 0), 1.0, 1.0, 1.0)

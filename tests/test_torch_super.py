@@ -397,8 +397,16 @@ def test_branches_not_ported_raise_and_name_their_item():
     s = build(pt.Solver(pt.SolverOptions(), contact_coupling="full", **kw), "mixed")
     s.tick()
     assert not s.sim_failed and s.config.super_k > 0
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pt.Solver(pt.SolverOptions(), enable_node_collisions=True, **kw)
+    # PD node-node contacts run (tests/test_torch_nodes.py holds them to the
+    # JAX package): a soup with them prepares, leaves the tet-column path
+    # and ticks on the generic one.
+    s = pt.Solver(pt.SolverOptions(), enable_node_collisions=True, **kw)
+    s.create_tet_soup(8, spacing=1.6, scale=0.8, w=2000.0)
+    s._prepare()
+    assert s.config.enable_node_collisions
+    assert not ttetcols.applies(s.state, s.topology, s.config)
+    s.tick()
+    assert not s.sim_failed
     # The PBD solver is ported (tests/test_torch_pbd.py): a PBD cloth
     # prepares (colour classes, the node-pair cache) and ticks.
     s = build(pt.Solver(pt.SolverOptions(solver=pt.SolverName.PBD), **kw), "cloth")
