@@ -175,6 +175,27 @@ Phases (any failure exits non-zero, before the result line):
    node cloud (``add_node_pile``, 131,072 nodes, seed 3, cap 2^21), ticks
    1-10 gated on live and touching pairs, then T27 (setup, friction, its
    force in T9's stage 2, T4 with its impulse) within 1 ulp of its twin.
+13. The scene ensemble (``pies_tpu_torch.parallel.ensemble``; T1-T8 with a
+   member axis): ``scripts/bench_all.py``'s ``ensemble_vmap``, 64 members of
+   ``create_tet_soup(512, spacing=1.6, ...)`` with self-contact (131,072
+   nodes), each member's live nodes moved by a seeded offset (uniform
+   +-0.02, seed = member).  45 warm-up ticks tick by tick (the layers meet
+   at tick ~40), then three timed ``ensemble_tick_n(10)`` calls with the
+   launch counts reset before each: ms/tick and scene-steps/s, launches per
+   tick, contacts per tick and the members that have them, cache rebuilds,
+   floor-active nodes.  Checks: no member latched, finite positions, live
+   contacts, launches per tick equal to a batch of one's; members 0, 21, 42
+   and 63 bit-equal to single-scene kernel runs from the same start, contact
+   counts equal on every warm-up tick; all 64 members bit-equal to their
+   single-scene kernel runs over each window, contact counts equal; one
+   ensemble tick of the kernels bit-equal, at all 64 members, to the batched
+   twin (each wrapper's twin member by member), and 3 ticks bit-equal at
+   members 0, 21, 42 and 63 to their twins (~0.18 s a member-tick on the
+   card, so not all 64 for 3).  Each batched T1-T8
+   stage is timed at B = 64 beside 64 launches of it at B = 1.  13b: 4
+   members of a 4,096-tet soup at spacing 1.0, member 2 latched before the
+   start: after 40 ticks it is bit-unchanged and the others are in contact,
+   unlatched.
 
 The last two lines are the kernel table and the result as JSON objects.
 """
@@ -209,6 +230,9 @@ PBD_ROWS = ("pbd_constraints", "pbd_distance_seq", "node_pairs", "node_response"
 NETS_NN = 24  # the edge_nets cell's nets (bench_all.py:221)
 NETS_BIG = 256  # two 256 x 256 nets: 131,072 nodes, the PBD cells' width
 CLOUD_N = 131_072  # the PD node cloud
+ENS_MEMBERS, ENS_TETS = 64, 512  # ensemble_vmap's scenes (bench_all.py:314-333)
+ENS_SAMPLED = (0, 21, 42, 63)  # members held to their single-scene runs
+ENS_SMALL = 4096  # tets of each member of phase 13b's latch ensemble
 
 # The H100 SXM's published peaks (NVIDIA's datasheet): the least time
 # of a kernel is the larger of its bytes over the memory rate and its float32
@@ -259,10 +283,9 @@ def max_ulp(a, b):
 
 
 def clone_state(s):
-    return dataclasses.replace(
-        s, **{f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)
-              if getattr(s, f.name) is not None}
-    )
+    from pies_tpu_torch.state import clone_state as clone
+
+    return clone(s)
 
 
 def check(ok, what):
@@ -305,6 +328,249 @@ def blob_solver(pt, n_bodies, dev):
     spin = torch.linalg.cross(omega.expand(-1, 125, -1), pos - pos.mean(dim=1, keepdim=True))
     st.velocities[:n] += spin.reshape(n, 3)
     return s
+
+
+def phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, path,
+            members=ENS_MEMBERS, n_tets=ENS_TETS, small_tets=ENS_SMALL):
+    """Phase 13: the ``ensemble_vmap`` cell (``scripts/bench_all.py:314-333``),
+    ``members`` soups of ``n_tets`` tets with self-contact under one tick;
+    13b a small ensemble with a member latched before the start."""
+    import numpy as np
+    import torch
+
+    from pies_tpu_torch.collision import broadphase
+    from pies_tpu_torch.constraints import projections as proj
+    from pies_tpu_torch.parallel import ensemble
+    from pies_tpu_torch.solver import pd, step, tetcols
+    from pies_tpu_torch.state import member, stack_ensemble, unstack
+
+    def soup(n, scene, b):
+        """A prepared soup and its ensemble of ``b`` members, each member's
+        live nodes moved by its own offset (uniform +-0.02, seed = member)."""
+        s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=True, device=dev)
+        s.create_tet_soup(n, **scene)
+        s._prepare()
+        states = stack_ensemble(s.state, b)
+        live = s._builder.num_nodes
+        for m in range(b):
+            off = np.random.default_rng(m).uniform(-0.02, 0.02, (live, 3)).astype(np.float32)
+            off = torch.from_numpy(off).to(dev)
+            states.positions[m, :live] += off
+            states.prev_positions[m, :live] += off
+        return s, states
+
+    fields = ("positions", "prev_positions", "velocities", "forces", "sim_failed")
+
+    def same(a, b):
+        """Bit-equal states (the cache included)."""
+        return (all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+                and all(torch.equal(getattr(a.bp, f), getattr(b.bp, f))
+                        for f in ("pairs", "valid", "ref", "fresh")))
+
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        print(f"  ({what}: {time.perf_counter() - t_phase:.1f} s into phase 13)")
+
+    s, states = soup(n_tets, SCENE, members)
+    topo, params, cfg = s.topology, s.current_params(), s.config
+    live = s._builder.num_nodes
+    print(f"phase 13: ensemble_vmap, {members} x {n_tets}-tet soups with self-contact,"
+          f" {members * s.state.capacity} nodes, {CONTACT_WARMUP} warm-up ticks tick by tick")
+    sampled = [b for b in ENS_SAMPLED if b < members]
+    singles = {b: unstack(states, b) for b in sampled}
+    ens_counts, single_counts = [], {b: [] for b in sampled}
+    for _ in range(CONTACT_WARMUP):
+        c = pd.new_counters(dev, members)
+        ensemble.ensemble_tick(states, topo, params, cfg, counters=c)
+        ens_counts.append(c["contacts"].tolist())
+        for b, sb in singles.items():
+            cb = pd.new_counters(dev)
+            step.tick(sb, topo, params, cfg, counters=cb)
+            single_counts[b].append(int(cb["contacts"]))
+    check(all(single_counts[b] == [r[b] for r in ens_counts] for b in sampled),
+          f"members {sampled}: contact counts equal their single-scene kernel runs on each of"
+          f" ticks 1-{CONTACT_WARMUP} (member 0: {single_counts[0][-6:]} over the last 6)")
+    check(all(same(member(states, b), singles[b]) for b in sampled),
+          f"members {sampled} bit-equal to their single-scene runs at tick {CONTACT_WARMUP}")
+
+    lap("warm-up")
+    del singles
+    # Three timed windows of ensemble_tick_n(10), the launch counts reset
+    # before each; every member's single-scene run from the window's start
+    # follows it (B = 1 launches, which earlier phases hold to the twins).
+    for w in range(3):
+        first = CONTACT_WARMUP + 10 * w + 1
+        starts = [unstack(states, b) for b in range(members)]
+        reset_launches()
+        c = pd.new_counters(dev, members)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ensemble.ensemble_tick_n(states, topo, params, cfg, 10, counters=c)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / 10
+        launches["13"] = read_launches()
+        counts = {k: v.tolist() for k, v in c.items()}
+        per_tick = sum(launches["13"][n] for n in path) / 10
+        contacts = counts["contacts"]
+        with_contacts = sum(v > 0 for v in contacts)
+        print(f"  window {w + 1}: {sec * 1e3:.3f} ms/tick, {members / sec:.1f} scene-steps/s"
+              f" ({smi}; ticks {first}-{first + 9}; max residual {float(res):.4g});"
+              f" {per_tick:.1f} launches per tick; contacts {sum(contacts) / 10:.1f} per tick"
+              f" in {with_contacts} of {members} members; cache rebuilds {sum(counts['rebuilds'])};"
+              f" floor-active node-substeps {sum(counts['floor_active'])}")
+        apart = []
+        for b, sb in enumerate(starts):
+            cb = pd.new_counters(dev)
+            step.tick_n(sb, topo, params, cfg, 10, counters=cb)
+            if int(cb["contacts"]) != contacts[b] or not same(member(states, b), sb):
+                apart.append(b)
+        check(not apart, f"all {members} members bit-equal to their single-scene kernel runs"
+              f" over ticks {first}-{first + 9}, contact counts equal (apart: {apart})")
+        del starts
+    pos = states.positions[:, :live]
+    n_failed = int((states.sim_failed != 0).any(dim=-1).sum())
+    check(n_failed == 0 and bool(torch.isfinite(pos).all()),
+          "no member latched, all positions finite")
+    check(sum(contacts) > 0, f"live contacts in the window: {with_contacts} members")
+    check(all(launches["13"][n] > 0 for n in path), f"every kernel launched: {launches['13']}")
+    one = stack_ensemble(unstack(states, 0), 1)
+    reset_launches()
+    ensemble.ensemble_tick_n(one, topo, params, cfg, 10)
+    torch.cuda.synchronize()
+    launches["13 B=1"] = read_launches()
+    check(launches["13 B=1"] == launches["13"],
+          f"launches per tick at B = {members} equal those at B = 1: {per_tick:.1f}")
+
+    lap("windows")
+    # The batched twin (each wrapper's twin run member by member) for one
+    # tick at B = members, then the sampled members' twins for 3 ticks
+    # (~0.18 s a member-tick on the card, so not all members for 3).
+    print(f"phase 13: the kernels at B = {members} against the batched twin for 1 tick and"
+          f" against members {sampled}' twins for 3 ticks")
+    e, p = clone_state(states), clone_state(states)
+    c, cp = pd.new_counters(dev, members), pd.new_counters(dev, members)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ensemble.ensemble_tick(e, topo, params, cfg, counters=c)
+    torch.cuda.synchronize()
+    sec_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step.tick(p, topo, params, cfg, plain=True, counters=cp)
+    torch.cuda.synchronize()
+    sec_p = time.perf_counter() - t0
+    apart = [b for b in range(members) if not same(member(e, b), member(p, b))]
+    check(not apart and all(torch.equal(c[k], cp[k]) for k in c),
+          f"tick 1: all {members} members' states, caches and counters bit-equal to the batched"
+          f" twin's ({int(c['contacts'].sum())} contacts; apart: {apart})")
+    print(f"  kernels {sec_k * 1e3:.3f} ms per ensemble tick ({members} members), batched twin"
+          f" {sec_p * 1e3:.3f} ms ({smi})")
+    del p
+    ensemble.ensemble_tick_n(e, topo, params, cfg, 2, counters=c)
+    for b in sampled:
+        sb, cb = unstack(states, b), pd.new_counters(dev)
+        step.tick_n(sb, topo, params, cfg, 3, plain=True, counters=cb)
+        check(same(member(e, b), sb) and all(int(cb[k]) == int(c[k][b]) for k in cb),
+              f"member {b}: state, cache and counters bit-equal to its twins' after 3 ticks"
+              f" ({int(cb['contacts'])} contacts)")
+    del e
+    lap("kernels against twins")
+
+    # Each batched stage at B = members against `members` launches of it at
+    # B = 1 on the members' views, on this state's next substep.
+    st = clone_state(states)
+    x, msn, diag, wf, active = pd.substep_head(st, topo, params, cfg, False)
+    tmask, lay = topo.tri_mask, broadphase.body_layout(cfg, topo.tri_mask.shape[0])
+    sc = broadphase.scalars(params)
+    ov = torch.zeros((members, 1), dtype=torch.int32, device=dev)
+    colls = pd.detect_point_tri(st, x, topo, params, cfg, active)
+    _, h2 = pd._h_h2(params)
+    inc, ptd = tetcols.pt_coupling_setup(colls, st.mass, topo, h2, diag, wf, st.sim_failed)
+    f0 = proj.tet_force12(x, topo.strain, topo.volume, st.sim_failed)
+    thick = params.collision_thickness
+    contact = tetcols.pt_force(x, colls, inc, thick, st.sim_failed)
+    plane = pd.floor_plane(params, cfg.reference_quirks)
+    pt_args = (ptd, contact, inc.row_start, colls.pt_count)
+    x_new, stat, _ = tetcols.substep_cols(x, msn, diag, st.node_mask, wf, f0, topo, plane, 1,
+                                          st.sim_failed, pt_args)
+    fric = pd.pt_tail(st, params, cfg, colls, inc, x_new, stat)
+    torch.cuda.synchronize()
+    n_contacts = int(colls.pt_count.sum())
+    mv = lambda *a: [tuple(member(t, b) for t in a) for b in range(members)]  # noqa: E731
+    stages = {
+        "substep_head": (lambda st_, *_: pd.substep_head(st_, topo, params, cfg, False),
+                         (st,), 76 * members * st.capacity, 17 * members * st.capacity),
+        "body_broadphase": (
+            lambda x_, p_, c_, o_, f_: broadphase.body_broadphase(x_, p_, tmask, c_, lay, sc,
+                                                                  o_, f_),
+            (x, st.prev_positions, st.bp, ov, st.sim_failed),
+            members * (48 * lay.k * lay.m + 4 * lay.k * lay.e + 8 * lay.lanes), members * 1000
+            * lay.k),
+        "pt_narrowphase": (
+            lambda x_, p_, c_, o_, f_: broadphase.pt_narrowphase(x_, p_, tmask, c_, lay, sc,
+                                                                 o_, f_),
+            (x, st.prev_positions, st.bp, ov, st.sim_failed),
+            members * (24 * lay.k * lay.m + 4 * lay.k * lay.e + 4 * lay.lanes + 20 * lay.cap),
+            members * 864 * lay.lanes),
+        "pt_coupling": (
+            lambda c_, m_, d_, w_, x_, f_: tetcols.pt_force(
+                x_, c_, tetcols.pt_coupling_setup(c_, m_, topo, h2, d_, w_, f_)[0], thick, f_),
+            (colls, st.mass, diag, wf, x, st.sim_failed),
+            2 * (20 * n_contacts + 24 * 4 * n_contacts), 50 * 4 * n_contacts),
+        "tet_force12": (lambda x_, f_: proj.tet_force12(x_, topo.strain, topo.volume, f_),
+                        (x, st.sim_failed), 204 * members * lay.k, 1500 * members * lay.k),
+        "tet_cols_substep": (
+            lambda x_, m_, d_, k_, w_, f0_, f_, p_: tetcols.substep_cols(
+                x_, m_, d_, k_, w_, f0_, topo, plane, 1, f_, p_),
+            (x, msn, diag, st.node_mask, wf, f0, st.sim_failed, pt_args),
+            424 * members * (st.capacity // 4), 1600 * members * (st.capacity // 4)),
+        "pt_tail": (lambda s_, c_, i_, x_, sp_: pd.pt_tail(s_, params, cfg, c_, i_, x_, sp_),
+                    (st, colls, inc, x_new, stat),
+                    cfg.collision_stabilization_iterations * 84 * n_contacts + 76 * n_contacts,
+                    cfg.collision_stabilization_iterations * 60 * n_contacts + 90 * n_contacts),
+        "substep_tail": (
+            lambda s_, a_, x_, sp_, c_, i_, fr_: pd.substep_tail(s_, topo, params, a_, x_, sp_,
+                                                                c_, i_, fr_),
+            (st, active, x_new, stat, colls, inc, fric), 120 * members * st.capacity,
+            25 * members * st.capacity),
+    }
+    print(f"phase 13: each batched stage at B = {members} against {members} launches at B = 1"
+          f" ({n_contacts} contacts on this substep; {smi})")
+    for name, (fn, args, nbytes, ops) in stages.items():
+        per = mv(*args)
+        if name == "body_broadphase":  # a rebuild, forced
+            batched = lambda: (st.bp.fresh.zero_(), fn(*args))  # noqa: E731
+            looped = lambda: (st.bp.fresh.zero_(), [fn(*p) for p in per])  # noqa: E731
+        else:
+            batched = lambda: fn(*args)  # noqa: E731
+            looped = lambda: [fn(*p) for p in per]  # noqa: E731
+        ms_b, ms_1 = cuda_ms(batched, 20), cuda_ms(looped, 5)
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"  {name}: B = {members} {ms_b:.4f} ms, {members} x B = 1 {ms_1:.4f} ms"
+              f" ({ms_1 / ms_b:.1f}x), bound {b_ms:.4f} ms ({b_by})")
+        if name in rows:
+            rows[name].update(ensemble_b64_ms=ms_b, ensemble_b1x64_ms=ms_1,
+                              ensemble_bound_ms=b_ms, ensemble_bound_by=b_by)
+    del st, colls, inc, s, states
+    lap("stages")
+
+    # 13b: a member latched before the start stays frozen while the others
+    # step through contact.
+    s4, e4 = soup(small_tets, DENSE_SCENE, 4)
+    e4.sim_failed[2, 0] = 1
+    start = unstack(e4, 2)
+    c = pd.new_counters(dev, 4)
+    ensemble.ensemble_tick_n(e4, s4.topology, s4.current_params(), s4.config, 40, counters=c)
+    contacts = c["contacts"].tolist()
+    latched = (e4.sim_failed != 0).any(dim=-1).tolist()
+    print(f"phase 13b: 4 x {small_tets}-tet soups at spacing 1.0, member 2 latched before the"
+          f" start, 40 ticks: contacts {contacts}, latched {latched}")
+    check(same(member(e4, 2), start), "the latched member is bit-unchanged, its cache too")
+    check(latched == [False, False, True, False] and contacts[2] == 0
+          and min(contacts[:2] + contacts[3:]) > 0
+          and bool(torch.isfinite(e4.positions).all()),
+          "the others step through contact, unlatched and finite")
+    lap("13b")
 
 
 def phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches, kernels_vs_twins,
@@ -614,7 +880,7 @@ def phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches, kern
 def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
          cloth_n=CLOTH_N, n_blobs=N_BLOBS, mixed_sheet=MIXED_SHEET, small_sheet=SMALL_SHEET,
          pbd_big=PBD_BIG, pbd_bench=PBD_BENCH, nets_nn=NETS_NN, nets_big=NETS_BIG,
-         cloud_n=CLOUD_N):
+         cloud_n=CLOUD_N, ens_members=ENS_MEMBERS, ens_tets=ENS_TETS, ens_small=ENS_SMALL):
     import torch
 
     # ---- phase 0
@@ -2508,6 +2774,10 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches, kernels_vs_twins,
             nets_nn, nets_big, cloud_n)
 
+    # ---- phase 13: the scene ensemble (T1-T8 with a member axis)
+    phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches,
+            list(wrappers)[:8], ens_members, ens_tets, ens_small)
+
     table = []
     mixed_rows = {"super_broadphase": "super_broadphase",
                   "super_narrowphase": "super_narrowphase",
@@ -2540,6 +2810,9 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             r["launches"] = launches["6"][key]
         else:
             r["launches"] = launches["5" if name in generic[1:4] else "3b"][name]
+        if name in list(wrappers)[:8]:
+            # T1-T8: the soup's path (3b) and the ensemble's (13, B = 64).
+            r["launches_by_path"] = {p: launches[p][name] for p in ("3b", "13")}
         table.append(r)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": table}))

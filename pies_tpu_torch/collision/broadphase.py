@@ -58,9 +58,12 @@ from .. import kernels
 from ..options import PhysicsParams, StepConfig
 from ..state import (
     BroadphaseCache,
+    each_member,
     empty_broadphase_cache,
     empty_node_pair_cache,
+    members_of,
     pair_incidence,
+    stack_members,
 )
 from .batches import Incidence, csr_sum
 from .grid import (
@@ -236,7 +239,12 @@ def body_broadphase_plain(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLa
     """Plain twin of kernel T5: the body broadphase with the temporal cache,
     in place on ``cache``; ORs the capacity latch into ``overflow`` i32[1].
     Returns i32[1], 1 when the pairs were rebuilt.  Nothing changes when
-    latch slot 0 of ``failed`` is set."""
+    latch slot 0 of ``failed`` is set.  An ensemble (``x`` f32[B, N, 3], a
+    batched cache, ``overflow`` and the result i32[B, 1]) runs member by
+    member."""
+    if members_of(x):
+        return each_member(lambda xb, pb, cb, ob, fb: body_broadphase_plain(
+            xb, pb, tri_mask, cb, lay, sc, ob, fb), members_of(x), x, prev, cache, overflow, failed)
     rebuilt = torch.zeros(1, dtype=torch.int32, device=x.device)
     if failed is not None and bool(failed[0]):
         return rebuilt
@@ -292,14 +300,15 @@ def body_broadphase(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLayout,
     dev = x.device
     kernels.require(dev, x, prev, tri_mask, cache.pairs, cache.valid, cache.ref,
                     cache.fresh, overflow, failed)
+    lead = x.shape[:-2]  # (B,) for an ensemble: a table, bounds and flags per member
     i32 = dict(dtype=torch.int32, device=dev)
-    count = torch.zeros(lay.h, **i32)
-    cursor = torch.zeros(lay.h, **i32)
-    start = torch.empty(lay.h + 1, **i32)
-    partial = torch.empty(kernels.scan_partials(lay.h), **i32)
-    entries = torch.empty(lay.entries, **i32)
-    bounds = torch.empty((2, lay.k, 3), dtype=torch.float32, device=dev)
-    flags = torch.zeros(8, **i32)
+    count = torch.zeros(lead + (lay.h,), **i32)
+    cursor = torch.zeros(lead + (lay.h,), **i32)
+    start = torch.empty(lead + (lay.h + 1,), **i32)
+    partial = torch.empty(lead + (kernels.scan_partials(lay.h),), **i32)
+    entries = torch.empty(lead + (lay.entries,), **i32)
+    bounds = torch.empty(lead + (2, lay.k, 3), dtype=torch.float32, device=dev)
+    flags = torch.zeros(lead + (8,), **i32)
     err = kernels.lib().pies_body_broadphase(
         x.data_ptr(), prev.data_ptr(), tri_mask.data_ptr(), cache.pairs.data_ptr(),
         cache.valid.data_ptr(), cache.ref.data_ptr(), cache.fresh.data_ptr(),
@@ -307,11 +316,12 @@ def body_broadphase(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLayout,
         entries.data_ptr(), bounds.data_ptr(), flags.data_ptr(), overflow.data_ptr(),
         failed.data_ptr(), lay.k, lay.m, lay.e, lay.off, lay.nb, lay.bmax, lay.cells_cap,
         lay.entries_cap, lay.h, int(lay.entries >= PACKED_MAX_ENTRIES), sc.cell, sc.slack,
-        sc.slack_c, sc.margin, sc.exact_margin, sc.size_limit, kernels.stream(),
+        sc.slack_c, sc.margin, sc.exact_margin, sc.size_limit, x.shape[-2],
+        max(members_of(x), 1), kernels.stream(),
     )
     kernels.check(err, "body_broadphase")
     body_broadphase.launches += 1
-    return flags[6:7]  # kRebuild
+    return flags[..., 6:7]  # kRebuild
 
 
 body_broadphase.launches = 0
@@ -325,7 +335,12 @@ def pt_narrowphase_plain(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLay
     pt_count i32[1])`` with the live contacts a packed prefix; ORs the
     proximity-lane eviction latch into ``overflow``.  ``stats``, when given,
     receives the work counts: live lanes, compacted lanes, crossing combos
-    solved by the cubic, and contacts before the cap."""
+    solved by the cubic, and contacts before the cap.  An ensemble runs
+    member by member (``pt_idx`` i32[B, cap, 4], node ids local to each
+    member, ``pt_count`` i32[B, 1]; ``stats`` not taken)."""
+    if members_of(x):
+        return each_member(lambda xb, pb, cb, ob, fb: pt_narrowphase_plain(
+            xb, pb, tri_mask, cb, lay, sc, ob, fb), members_of(x), x, prev, cache, overflow, failed)
     dev = x.device
     k, m, e, nb, off, cap = lay.k, lay.m, lay.e, lay.nb, lay.off, lay.cap
     pt_idx = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
@@ -426,24 +441,26 @@ def pt_narrowphase(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLayout, s
     kernels.require(dev, x, prev, tri_mask, cache.pairs, cache.valid, overflow, failed)
     i32 = dict(dtype=torch.int32, device=dev)
     lanes, pcap, cap = lay.lanes, lay.pcap, lay.cap
-    bits = torch.empty((2, lanes), **i32)
-    pair_buf = torch.empty(pcap, **i32)
-    pbits = torch.empty(pcap, **i32)
-    if lanes >= 1 << 31:
-        raise ValueError("the narrowphase kernel takes fewer than 2^31 lanes")
-    partial = torch.empty(kernels.scan_partials(lanes) + kernels.scan_partials(pcap),
+    lead = x.shape[:-2]  # (B,) for an ensemble: every buffer per member
+    b = max(members_of(x), 1)
+    if b * max(lanes, 4 * cap, x.shape[-2] * 3) >= 1 << 31:
+        raise ValueError("the narrowphase kernel takes fewer than 2^31 lanes in all")
+    bits = torch.empty(lead + (2, lanes), **i32)
+    pair_buf = torch.empty(lead + (pcap,), **i32)
+    pbits = torch.empty(lead + (pcap,), **i32)
+    partial = torch.empty(b * (kernels.scan_partials(lanes) + kernels.scan_partials(pcap)),
                           dtype=torch.int64, device=dev)
-    totals = torch.zeros(4, dtype=torch.int64, device=dev)
+    totals = torch.zeros(lead + (4,), dtype=torch.int64, device=dev)
     faces = torch.tensor(lay.faces, **i32)
-    pt_idx = torch.empty((cap, 4), **i32)
-    pt_mask = torch.empty(cap, dtype=torch.float32, device=dev)
-    pt_count = torch.empty(1, **i32)
+    pt_idx = torch.empty(lead + (cap, 4), **i32)
+    pt_mask = torch.empty(lead + (cap,), dtype=torch.float32, device=dev)
+    pt_count = torch.empty(lead + (1,), **i32)
     err = kernels.lib().pies_pt_narrowphase(
         x.data_ptr(), prev.data_ptr(), tri_mask.data_ptr(), cache.pairs.data_ptr(),
         cache.valid.data_ptr(), faces.data_ptr(), bits.data_ptr(), pair_buf.data_ptr(),
         pbits.data_ptr(), partial.data_ptr(), totals.data_ptr(), pt_idx.data_ptr(),
         pt_mask.data_ptr(), pt_count.data_ptr(), overflow.data_ptr(), failed.data_ptr(),
-        lay.k, lay.m, lay.e, lay.off, lay.nb, cap, sc.thr, kernels.stream(),
+        lay.k, lay.m, lay.e, lay.off, lay.nb, cap, sc.thr, x.shape[-2], b, kernels.stream(),
     )
     kernels.check(err, "pt_narrowphase")
     pt_narrowphase.launches += 1
@@ -468,9 +485,14 @@ def detect_point_tri_collisions(x, prev, tri_mask, params: PhysicsParams, config
     call rebuilds (a fresh cache with zero slack gives exactly that).
     Returns ``(pt_idx, pt_mask, pt_count, overflow, rebuilt)``; ``overflow``
     and ``rebuilt`` are i32[1] device flags (``rebuilt`` stays 0 on the
-    per-triangle branches, which have no cache)."""
+    per-triangle branches, which have no cache).  An ensemble (``x``
+    f32[B, N, 3] and a batched cache) takes the packed-body path only, with
+    per-member results."""
     check_detection(config)
     mode = tri_mode(config, tri_mask.shape[0])
+    lead = x.shape[:-2]  # (B,) for an ensemble
+    if lead and (mode is not None or super_body(config)):
+        raise ValueError("an ensemble's detection takes the packed-body path only")
     if mode is not None:
         if triangles is None:
             raise ValueError(f"the {mode} detection needs the scene's triangles")
@@ -479,11 +501,13 @@ def detect_point_tri_collisions(x, prev, tri_mask, params: PhysicsParams, config
         return _detect_super(x, prev, params, config, cache, failed, plain, corners, adj)
     lay = body_layout(config, tri_mask.shape[0])
     if not (cache is not None and config.bp_cache
-            and tuple(cache.pairs.shape) == (lay.k, lay.nb)):
+            and tuple(cache.pairs.shape) == lead + (lay.k, lay.nb)):
         cache = empty_broadphase_cache(lay.k, lay.nb, lay.k * lay.m, x.device)
+        if lead:
+            cache = stack_members([cache.clone() for _ in range(lead[0])])
         params = dataclasses.replace(params, broadphase_slack=0.0)
     sc = scalars(params)
-    overflow = torch.zeros(1, dtype=torch.int32, device=x.device)
+    overflow = torch.zeros(lead + (1,), dtype=torch.int32, device=x.device)
     bf, nf = ((body_broadphase_plain, pt_narrowphase_plain) if plain
               else (body_broadphase, pt_narrowphase))
     rebuilt = bf(x, prev, tri_mask, cache, lay, sc, overflow, failed)

@@ -34,6 +34,7 @@ import torch
 from .. import kernels
 from ..ops import math3d
 from ..ops.math3d import ieee_div as _div
+from ..state import each_member, members_of
 from ..topology import BendBatch, DistanceBatch, GroupBatch, PositionBatch, TetBatch
 
 SHAPE_BLOCK = 128  # threads per group in kernels/csrc/shape_match.cu
@@ -107,7 +108,11 @@ def tet_force12_plain(x: torch.Tensor, strain: TetBatch, volume: TetBatch,
                       failed: torch.Tensor | None = None) -> torch.Tensor:
     """Plain twin of kernel T1: ``f32[12, C]`` forces of every tet of the
     batch, from the element-major positions ``x`` f32[N, 3].  ``failed`` is
-    accepted for signature parity; a skipped tick ignores the result."""
+    accepted for signature parity; a skipped tick ignores the result.  An
+    ensemble's ``x`` f32[B, N, 3] gives f32[B, 12, C], member by member."""
+    if members_of(x):
+        return each_member(lambda xb, fb: tet_force12_plain(xb, strain, volume, fb),
+                           members_of(x), x, failed)
     c = strain.qinv.shape[1]
     return torch.stack(tet_force12_fused_cols(corner_cols(x, c), strain, volume))
 
@@ -116,20 +121,21 @@ def tet_force12(x: torch.Tensor, strain: TetBatch, volume: TetBatch,
                 failed: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel T1 on a CUDA tensor, its plain twin on a CPU tensor.
 
-    ``failed`` (the state's ``i32[2]`` latch) makes the kernel return at once
-    when slot 0 is set."""
+    ``failed`` (the state's ``i32[2]`` latch, ``i32[B, 2]`` for an
+    ensemble) makes the kernel return at once when slot 0 is set."""
     if kernels.on_cpu(x):
         return tet_force12_plain(x, strain, volume, failed)
     c = strain.qinv.shape[1]
-    if x.shape[0] < 4 * c:
-        raise ValueError(f"{c} tets need {4 * c} nodes, got {x.shape[0]}")
+    n = x.shape[-2]
+    if n < 4 * c:
+        raise ValueError(f"{c} tets need {4 * c} nodes, got {n}")
     b = (strain.qinv, strain.g, strain.lo, strain.hi, strain.w,
          volume.lo, volume.hi, volume.w)
     kernels.require(x.device, x, failed, *b)
-    out = torch.empty((12, c), dtype=torch.float32, device=x.device)
+    out = torch.empty(x.shape[:-2] + (12, c), dtype=torch.float32, device=x.device)
     err = kernels.lib().pies_tet_force12(
-        x.data_ptr(), *(t.data_ptr() for t in b), out.data_ptr(), c,
-        kernels.ptr(failed), kernels.stream(),
+        x.data_ptr(), *(t.data_ptr() for t in b), out.data_ptr(), c, n,
+        kernels.ptr(failed), max(members_of(x), 1), kernels.stream(),
     )
     kernels.check(err, "tet_force12")
     tet_force12.launches += 1

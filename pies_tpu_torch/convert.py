@@ -43,16 +43,18 @@ def cache_from_numpy(bp, device="cpu") -> BroadphaseCache | None:
     """The port's broadphase cache from a JAX ``BroadphaseCache`` with NumPy
     leaves: bools become int32, and pair slots past a row's valid prefix
     become 0 (the JAX package leaves sort leftovers there; nothing reads
-    them)."""
+    them).  A vmapped ensemble's cache (a leading member axis on every
+    leaf) becomes the port's batched cache, ``fresh`` i32[B, 1]."""
     if bp is None:
         return None
     valid = np.asarray(bp.valid)
+    fresh = np.asarray(bp.fresh)
     i32 = torch.int32
     return BroadphaseCache(
         pairs=_t(np.where(valid, np.asarray(bp.pairs), 0), device, i32),
         valid=_t(valid, device, i32),
         ref=_t(bp.ref, device),
-        fresh=_t(np.asarray(bp.fresh).reshape(1), device, i32),
+        fresh=_t(fresh.reshape(fresh.shape + (1,)), device, i32),
     )
 
 
@@ -75,9 +77,12 @@ def node_cache_from_numpy(nn, device="cpu") -> NodePairCache | None:
 
 def state_from_numpy(state, device="cpu") -> SolverState:
     """The port's state from a JAX ``SolverState`` with NumPy leaves.  Its
-    scalar ``sim_failed`` becomes latch slot 0."""
-    failed = torch.zeros(2, dtype=torch.int32, device=device)
-    failed[0] = int(bool(np.asarray(state.sim_failed)))
+    scalar ``sim_failed`` becomes latch slot 0.  A vmapped ensemble (a
+    leading member axis on every leaf, ``sim_failed`` bool[B]) becomes the
+    port's batched state, latch i32[B, 2]."""
+    latch = np.asarray(state.sim_failed)
+    failed = torch.zeros(latch.shape + (2,), dtype=torch.int32, device=device)
+    failed[..., 0] = torch.from_numpy(latch.astype(np.int32))
     return SolverState(
         positions=_t(state.positions, device),
         prev_positions=_t(state.prev_positions, device),

@@ -57,6 +57,10 @@ wrappers that call them sit beside their plain PyTorch twins:
   ``solver/assembly.py:node_setup``, ``solver/pd.py:node_friction`` (its
   force term runs inside T9's stage 2, ``csrc/node_contacts.cuh``)
 
+T1-T8 take an ensemble's member axis (``pies_tpu/parallel/ensemble.py``,
+ROADMAP item 10a): their last int argument is the member count, each
+launch's ``blockIdx.y`` is the member, and a single scene is one member.
+
 Each source compiles to an object in its own ``nvcc`` process, all started
 together, and the objects link into one library.
 """
@@ -90,17 +94,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argtypes of every entry point: c_void_p for each pointer and the stream.
 SIGNATURES = {
-    "pies_tet_force12": [_P] * 10 + [_I, _P, _P],
-    "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F] + [_P] * 6,
-    "pies_substep_head": [_P] * 11 + [_I, _F, _F, _F, _P, _I, _P],
-    "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F] + [_P] * 8,
-    "pies_body_broadphase": [_P] * 16 + [_I] * 10 + [_F] * 6 + [_P],
-    "pies_pt_narrowphase": [_P] * 16 + [_I] * 6 + [_F, _P],
-    "pies_pt_coupling_setup": [_P] * 15 + [_I, _I, _F, _P],
+    "pies_tet_force12": [_P] * 10 + [_I, _I, _P, _I, _P],
+    "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F] + [_P] * 5 + [_I, _P],
+    "pies_substep_head": [_P] * 11 + [_I, _F, _F, _F, _P, _I, _I, _P],
+    "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F] + [_P] * 7 + [_I, _P],
+    "pies_body_broadphase": [_P] * 16 + [_I] * 10 + [_F] * 6 + [_I, _I, _P],
+    "pies_pt_narrowphase": [_P] * 16 + [_I] * 6 + [_F, _I, _I, _P],
+    "pies_pt_coupling_setup": [_P] * 15 + [_I, _I, _F, _I, _P],
     "pies_super_broadphase": [_P] * 17 + [_I] * 11 + [_F] * 6 + [_P],
     "pies_super_narrowphase": [_P] * 16 + [_I] * 11 + [_F, _P],
-    "pies_pt_force": [_P] * 9 + [_I, _I, _F, _P],
-    "pies_pt_tail": [_P] * 23 + [_I] * 6 + [_F] * 6 + [_P],
+    "pies_pt_force": [_P] * 9 + [_I, _I, _F, _I, _P],
+    "pies_pt_tail": [_P] * 23 + [_I] * 6 + [_F] * 6 + [_I, _P],
     "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P, _P],
     "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 8 + [_I, _F] + [_P] * 10
     + [_I, _F] + [_P] * 8 + [_I, _P],

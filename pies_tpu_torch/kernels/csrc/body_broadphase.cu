@@ -31,6 +31,15 @@
 // rebuild reads the 8 MB of positions and writes/reads ~10 MB of grid; a
 // substep without rebuild reads 12 MB (x, prev, ref) and exits.  The design
 // is one thread per body with its candidates in registers and local memory.
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b, and each member runs all of the above
+// on its own: its nodes from b*n, its cache row (pairs, valid, ref, fresh),
+// its own hash table (count, cursor, start, entries over the same h slots),
+// its bounds, flag words, overflow word and latch.  No member ever reads
+// another's table, so no pair joins bodies of two members, and each member's
+// rebuild, order and latches are those of a single-scene run.  The triangle
+// mask is shared.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,9 +68,30 @@ struct Geo {
   int* flags;
   int* overflow;
   const int* failed;
-  int k, m, e, off, nb, bmax, cells_cap, entries_cap, h, unpacked;
+  int k, m, e, off, nb, bmax, cells_cap, entries_cap, h, unpacked, n;
   float cell, slack, slack_c, margin, exact_margin, size_limit;
 };
+
+// The view of member blockIdx.y: every per-member array offset to its row.
+__device__ __forceinline__ Geo member_view(Geo g) {
+  const size_t b = blockIdx.y;
+  g.x += b * g.n * 3;
+  g.prev += b * g.n * 3;
+  g.pairs += b * g.k * g.nb;
+  g.valid += b * g.k * g.nb;
+  g.ref += b * g.k * g.m * 3;
+  g.fresh += b;
+  g.count += b * g.h;
+  g.cursor += b * g.h;
+  g.start += b * (g.h + 1);
+  g.entries += b * kSlotsPerBody * g.k;
+  g.lo += b * 6 * g.k;
+  g.hi += b * 6 * g.k;
+  g.flags += b * 8;
+  g.overflow += b;
+  g.failed += 2 * b;
+  return g;
+}
 
 __device__ __forceinline__ bool body_live(const Geo& g, int b) {
   for (int j = 0; j < g.e; ++j)
@@ -70,7 +100,8 @@ __device__ __forceinline__ bool body_live(const Geo& g, int b) {
 }
 
 // (a) bounds, oversize latch, displacement test.
-__global__ void __launch_bounds__(pies::kBlock) bp_bounds_kernel(Geo g) {
+__global__ void __launch_bounds__(pies::kBlock) bp_bounds_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= g.k || g.failed[0] != 0) return;
   const size_t n0 = (size_t)g.off + (size_t)b * g.m;
@@ -115,7 +146,8 @@ __global__ void __launch_bounds__(pies::kBlock) bp_bounds_kernel(Geo g) {
 }
 
 // (b) the rebuild flag and the per-slot counts.
-__global__ void __launch_bounds__(pies::kBlock) bp_count_kernel(Geo g) {
+__global__ void __launch_bounds__(pies::kBlock) bp_count_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= g.k || g.failed[0] != 0) return;
   const bool rebuild = rebuild_due(g.fresh, g.flags);
@@ -125,21 +157,24 @@ __global__ void __launch_bounds__(pies::kBlock) bp_count_kernel(Geo g) {
 }
 
 // (d) fill each bucket (any order), then (d2) order its head.
-__global__ void __launch_bounds__(pies::kBlock) bp_fill_kernel(Geo g) {
+__global__ void __launch_bounds__(pies::kBlock) bp_fill_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= g.k || g.failed[0] != 0 || g.flags[kRebuild] == 0) return;
   if (!body_live(g, b)) return;
   fill_row(g.lo, g.hi, b, g.h, g.start, g.cursor, g.entries);
 }
 
-__global__ void __launch_bounds__(pies::kBlock) bp_order_kernel(Geo g) {
+__global__ void __launch_bounds__(pies::kBlock) bp_order_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   if (slot >= g.h || g.failed[0] != 0 || g.flags[kRebuild] == 0) return;
   order_bucket(g.entries + g.start[slot], g.count[slot], g.entries_cap);
 }
 
 // (e) query, gather, prefilter, pack.
-__global__ void __launch_bounds__(128) bp_query_kernel(Geo g) {
+__global__ void __launch_bounds__(128) bp_query_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= g.k || g.failed[0] != 0 || g.flags[kRebuild] == 0) return;
   int* prow = g.pairs + (size_t)b * g.nb;
@@ -224,7 +259,8 @@ __global__ void __launch_bounds__(128) bp_query_kernel(Geo g) {
 }
 
 // (f) the cache reference, freshness and the capacity latch.
-__global__ void __launch_bounds__(pies::kBlock) bp_finish_kernel(Geo g) {
+__global__ void __launch_bounds__(pies::kBlock) bp_finish_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (g.failed[0] != 0 || g.flags[kRebuild] == 0) return;
   if (t < g.k * g.m) {
@@ -248,23 +284,23 @@ extern "C" int pies_body_broadphase(
     const int* failed, int k, int m, int e, int off, int nb, int bmax,
     int cells_cap, int entries_cap, int h, int unpacked, float cell,
     float slack, float slack_c, float margin, float exact_margin,
-    float size_limit, void* stream) {
-  if (k > 0 && m > 0 && m <= kMaxNodes && bmax <= kMaxCand) {
+    float size_limit, int n, int members, void* stream) {
+  if (k > 0 && m > 0 && m <= kMaxNodes && bmax <= kMaxCand && members > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     Geo g{x,     prev,    tri_mask, pairs,        valid,    ref,
           fresh, count,   cursor,   start,        entries,  bounds,
           bounds + (size_t)3 * k,   flags,        overflow, failed,
           k,     m,       e,        off,          nb,       bmax,
-          cells_cap,      entries_cap,            h,        unpacked,
+          cells_cap,      entries_cap,            h,        unpacked, n,
           cell,  slack,   slack_c,  margin,       exact_margin, size_limit};
-    const int kb = pies::tiles(k);
+    const dim3 kb(pies::tiles(k), members);
     bp_bounds_kernel<<<kb, pies::kBlock, 0, s>>>(g);
     bp_count_kernel<<<kb, pies::kBlock, 0, s>>>(g);
-    pies::exclusive_scan_i32(count, start, h, partial, s, flags + kRebuild);
+    pies::exclusive_scan_i32(count, start, h, partial, s, flags + kRebuild, members, 8);
     bp_fill_kernel<<<kb, pies::kBlock, 0, s>>>(g);
-    bp_order_kernel<<<pies::tiles(h), pies::kBlock, 0, s>>>(g);
-    bp_query_kernel<<<(k + 127) / 128, 128, 0, s>>>(g);
-    bp_finish_kernel<<<pies::tiles(k * m), pies::kBlock, 0, s>>>(g);
+    bp_order_kernel<<<dim3(pies::tiles(h), members), pies::kBlock, 0, s>>>(g);
+    bp_query_kernel<<<dim3((k + 127) / 128, members), 128, 0, s>>>(g);
+    bp_finish_kernel<<<dim3(pies::tiles(k * m), members), pies::kBlock, 0, s>>>(g);
   }
   return (int)cudaGetLastError();
 }

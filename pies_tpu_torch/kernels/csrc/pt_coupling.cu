@@ -28,6 +28,15 @@
 //
 // Bound: bytes over the live contacts: per iteration 4 positions per
 // incident entry and one force row per incident node.
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b, with its contacts [b] of [members,
+// cap, 4] (node ids local to the member), its nodes from b*n, its latch
+// failed[2b], and its own incidence: degrees, the scan (one segment per
+// member, gated on the member's contact count), row_start [b] of [members,
+// n + 1] and entries and nodes [b] of [members, 4 cap], all local to the
+// member.  So each member's per-node sums are a single-scene run's.  The
+// stiffness diagonal is shared.
 #include <cuda_runtime.h>
 
 #include "compact.cuh"
@@ -57,6 +66,25 @@ struct Pc {
   float h2;
 };
 
+// The view of member blockIdx.y: every per-member array offset to its row.
+__device__ __forceinline__ Pc member_view(Pc p) {
+  const size_t b = blockIdx.y;
+  p.pt_idx += b * p.cap * 4;
+  p.pt_mask += b * p.cap;
+  p.pt_count += b;
+  p.mass += b * p.n;
+  p.wf += b * p.n;
+  p.diag += b * p.n;
+  p.deg += b * p.n;
+  p.row_start += b * (p.n + 1);
+  p.entries += b * 4 * p.cap;
+  p.nodes += b * 4 * p.cap;
+  p.ptd += b * p.n;
+  if (p.static_diag != nullptr) p.static_diag += b * p.n;
+  p.failed += 2 * b;
+  return p;
+}
+
 __device__ __forceinline__ bool live_entry(const Pc& p, int t, int* node) {
   if (p.failed[0] != 0 || t >= 4 * p.cap) return false;
   const int a = t / p.cap, i = t - a * p.cap;
@@ -65,13 +93,15 @@ __device__ __forceinline__ bool live_entry(const Pc& p, int t, int* node) {
   return true;
 }
 
-__global__ void __launch_bounds__(pies::kBlock) pc_degree_kernel(Pc p) {
+__global__ void __launch_bounds__(pies::kBlock) pc_degree_kernel(Pc p0) {
+  const Pc p = member_view(p0);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   int node;
   if (live_entry(p, t, &node)) atomicAdd(&p.deg[node], 1);
 }
 
-__global__ void __launch_bounds__(pies::kBlock) pc_fill_kernel(Pc p) {
+__global__ void __launch_bounds__(pies::kBlock) pc_fill_kernel(Pc p0) {
+  const Pc p = member_view(p0);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   int node;
   if (!live_entry(p, t, &node)) return;
@@ -90,7 +120,8 @@ __device__ __forceinline__ bool leader(const int* row_start, const int* nodes,
   return true;
 }
 
-__global__ void __launch_bounds__(pies::kBlock) pc_node_kernel(Pc p) {
+__global__ void __launch_bounds__(pies::kBlock) pc_node_kernel(Pc p0) {
+  const Pc p = member_view(p0);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (p.failed[0] != 0 || p.pt_count[0] == 0) return;
   int node, len;
@@ -129,7 +160,22 @@ struct Pf {
   float thickness;
 };
 
-__global__ void __launch_bounds__(pies::kBlock) pc_force_kernel(Pf p) {
+__device__ __forceinline__ Pf member_view(Pf p) {
+  const size_t b = blockIdx.y;
+  p.x += b * p.n * 3;
+  p.pt_idx += b * p.cap * 4;
+  p.pt_mask += b * p.cap;
+  p.pt_count += b;
+  p.row_start += b * (p.n + 1);
+  p.entries += b * 4 * p.cap;
+  p.nodes += b * 4 * p.cap;
+  p.contact += b * p.n * 3;
+  p.failed += 2 * b;
+  return p;
+}
+
+__global__ void __launch_bounds__(pies::kBlock) pc_force_kernel(Pf p0) {
+  const Pf p = member_view(p0);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (p.failed[0] != 0 || p.pt_count[0] == 0) return;
   int node, len;
@@ -176,14 +222,14 @@ extern "C" int pies_pt_coupling_setup(
     const int* pt_idx, const float* pt_mask, const int* pt_count, const float* mass,
     const float* stiffness, const float* wf, float* diag, int* deg, int* row_start,
     int* partial, int* entries, int* nodes, float* ptd, float* static_diag,
-    const int* failed, int n, int cap, float h2, void* stream) {
-  if (n > 0 && cap > 0) {
+    const int* failed, int n, int cap, float h2, int members, void* stream) {
+  if (n > 0 && cap > 0 && members > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     Pc p{pt_idx, pt_mask, pt_count, mass, stiffness, wf, diag, deg, row_start,
          entries, nodes, ptd, static_diag, failed, n, cap, h2};
-    const int blocks = pies::tiles(4 * cap);
+    const dim3 blocks(pies::tiles(4 * cap), members);
     pc_degree_kernel<<<blocks, pies::kBlock, 0, s>>>(p);
-    pies::exclusive_scan_i32(deg, row_start, n, partial, s, pt_count);
+    pies::exclusive_scan_i32(deg, row_start, n, partial, s, pt_count, members, 1);
     pc_fill_kernel<<<blocks, pies::kBlock, 0, s>>>(p);
     pc_node_kernel<<<blocks, pies::kBlock, 0, s>>>(p);
   }
@@ -194,11 +240,12 @@ extern "C" int pies_pt_force(const float* x, const int* pt_idx, const float* pt_
                              const int* pt_count, const int* row_start,
                              const int* entries, const int* nodes, float* contact,
                              const int* failed, int n, int cap, float thickness,
-                             void* stream) {
-  if (n > 0 && cap > 0) {
+                             int members, void* stream) {
+  if (n > 0 && cap > 0 && members > 0) {
     Pf p{x, pt_idx, pt_mask, pt_count, row_start, entries, nodes, contact, failed,
          n, cap, thickness};
-    pc_force_kernel<<<pies::tiles(4 * cap), pies::kBlock, 0, (cudaStream_t)stream>>>(p);
+    pc_force_kernel<<<dim3(pies::tiles(4 * cap), members), pies::kBlock, 0,
+                      (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -31,6 +31,13 @@
 //
 // Bound: bytes over the live contacts (4 gathered rows and one 32-byte
 // record per contact per pass; an edge contact 64 bytes of records).
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b, with its nodes from b*n (x, prev,
+// the static projection, the floor flags, the masses, the friction
+// impulse), its contacts, T7's incidence and the records [b] of their
+// [members, ...] arrays, and its latch failed[2b].  Edge contacts exist only
+// off the tet-column path, so only in single scenes (members == 1).
 #include <cuda_runtime.h>
 
 #include "compact.cuh"
@@ -64,6 +71,31 @@ struct Pt {
   float thickness, h, damping, gravity, friction, static_threshold;
 };
 
+// The view of member blockIdx.y: every per-member array offset to its row.
+__device__ __forceinline__ Pt member_view(Pt p) {
+  const size_t b = blockIdx.y;
+  p.x += b * p.n * 3;
+  p.prev += b * p.n * 3;
+  p.stat += b * p.n * 3;
+  p.floor_active += b * p.n;
+  if (p.pt_idx != nullptr) {
+    p.pt_idx += b * p.cap * 4;
+    p.pt_mask += b * p.cap;
+    p.pt_count += b;
+    p.row_start += b * (p.n + 1);
+    p.entries += b * 4 * p.cap;
+    p.nodes += b * 4 * p.cap;
+  }
+  if (p.nn_imp != nullptr) p.nn_imp += b * p.n * 3;
+  p.inv_mass += b * p.n;
+  p.mass += b * p.n;
+  p.mask += b * p.n;
+  p.rec += b * p.cap * kRec;
+  p.fric += b * p.n * 3;
+  p.failed += 2 * b;
+  return p;
+}
+
 __device__ __forceinline__ bool contact_live(const Pt& p, int i) {
   return p.pt_idx != nullptr && p.failed[0] == 0 && i < p.pt_count[0];
 }
@@ -93,7 +125,8 @@ __device__ __forceinline__ void unit_normal(const float q[4][3], float n[3]) {
   n[2] = nz / nn;
 }
 
-__global__ void __launch_bounds__(pies::kBlock) stab_contact_kernel(Pt p) {
+__global__ void __launch_bounds__(pies::kBlock) stab_contact_kernel(Pt p0) {
+  const Pt p = member_view(p0);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.cap || !contact_live(p, i)) return;
   const int* idx = p.pt_idx + (size_t)i * 4;
@@ -142,7 +175,8 @@ __device__ __forceinline__ bool node_average(const Pt& p, int t, int* node, floa
   return true;
 }
 
-__global__ void __launch_bounds__(pies::kBlock) stab_node_kernel(Pt p) {
+__global__ void __launch_bounds__(pies::kBlock) stab_node_kernel(Pt p0) {
+  const Pt p = member_view(p0);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   int node;
   float delta[3];
@@ -224,7 +258,8 @@ __device__ __forceinline__ void velocity(const Pt& p, int node, float v[3]) {
   }
 }
 
-__global__ void __launch_bounds__(pies::kBlock) fric_contact_kernel(Pt p) {
+__global__ void __launch_bounds__(pies::kBlock) fric_contact_kernel(Pt p0) {
+  const Pt p = member_view(p0);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.cap || !contact_live(p, i)) return;
   const int* idx = p.pt_idx + (size_t)i * 4;
@@ -258,7 +293,8 @@ __global__ void __launch_bounds__(pies::kBlock) fric_contact_kernel(Pt p) {
   r[6] = mk;
 }
 
-__global__ void __launch_bounds__(pies::kBlock) fric_node_kernel(Pt p) {
+__global__ void __launch_bounds__(pies::kBlock) fric_node_kernel(Pt p0) {
+  const Pt p = member_view(p0);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   int node;
   float impulse[3];
@@ -280,8 +316,10 @@ extern "C" int pies_pt_tail(float* x, float* prev, const float* stat,
                             float* rec, float* erec, float* fric, const int* failed, int n,
                             int cap, int ecap, int passes, int stages, int quirks,
                             float thickness, float h, float damping, float gravity,
-                            float friction, float static_threshold, void* stream) {
-  if (n <= 0 || cap < 0 || ecap < 0) return (int)cudaErrorInvalidValue;
+                            float friction, float static_threshold, int members,
+                            void* stream) {
+  if (n <= 0 || cap < 0 || ecap < 0 || members <= 0 || (members > 1 && edge_idx != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const bool pt = pt_idx != nullptr && cap > 0, edge = edge_idx != nullptr && ecap > 0;
   const pies::EdgeTerms edges{edge ? edge_idx : nullptr, edge_mask, edge_count, e_row_start,
@@ -291,7 +329,7 @@ extern "C" int pies_pt_tail(float* x, float* prev, const float* stat,
        entries,  nodes,    edges,   nn_imp,       inv_mass, mass,    mask,     rec,
        erec,     fric,     failed,  n,            cap,      ecap,    thickness, h,
        damping,  gravity,  friction, static_threshold};
-  const int bc = pies::tiles(cap), bn = pies::tiles(4 * cap);
+  const dim3 bc(pies::tiles(cap), members), bn(pies::tiles(4 * cap), members);
   if (stages & 1) {
     for (int k = 0; k < passes; ++k) {
       if (pt) {

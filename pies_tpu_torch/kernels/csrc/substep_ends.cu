@@ -35,6 +35,13 @@
 // The first substep's head folds slot 1 into slot 0; every kernel after it
 // returns at once when slot 0 is set, so a failed tick is a no-op, as
 // step.tick's lax.cond makes it in the JAX package.
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41 ensemble_tick, the tick under
+// jax.vmap): blockIdx.y is the member b of `members`.  Its node data sits at
+// b*n + node, its latch at failed[2b], its detection words (overflow,
+// pt_count) at [b] and its incidence row at b*(n+1); the topology
+// (floor_count, stiffness_diag) is shared.  A latched member is left as it
+// is while the others step, as vmap's select of lax.cond's branches does.
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,16 +63,18 @@ __global__ void __launch_bounds__(256)
                         int fold) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const size_t g = (size_t)blockIdx.y * n + i;  // the member's node
+  failed += 2 * blockIdx.y;
   const int was = fold ? (failed[0] | failed[1]) : failed[0];
   if (fold && i == 0 && was) failed[0] = 1;
   if (was) return;
 
-  const float m = mask[i];
-  const float moh2 = mass[i] / h2;
+  const float m = mask[g];
+  const float moh2 = mass[g] / h2;
   float x[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    const size_t j = (size_t)i * 3 + d;
+    const size_t j = g * 3 + d;
     x[d] = pos[j] + h * vel[j] * m;
     x_out[j] = x[d];
     msn_out[j] = x[d] * moh2;
@@ -73,9 +82,9 @@ __global__ void __launch_bounds__(256)
   const float fc = floor_count[i];
   const float act = (x[1] < floor_threshold && fc > 0.0f) ? 1.0f : 0.0f;
   const float wf = kWStatic * fc * act;
-  active_out[i] = act;
-  wf_out[i] = wf;
-  diag_out[i] = moh2 + stiffness_diag[i] + wf;
+  active_out[g] = act;
+  wf_out[g] = wf;
+  diag_out[g] = moh2 + stiffness_diag[i] + wf;
 }
 
 __global__ void __launch_bounds__(256)
@@ -98,22 +107,25 @@ __global__ void __launch_bounds__(256)
                         const float* __restrict__ nn_imp) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const int b = blockIdx.y;
+  const size_t g = (size_t)b * n + i;  // the member's node
+  failed += 2 * b;
   if (failed[0] != 0) return;
-  if (i == 0 && overflow != nullptr && overflow[0] != 0) atomicOr(&failed[1], 1);
-  const bool pt = pt_count != nullptr && pt_count[0] > 0 &&
-                  row_start[i + 1] > row_start[i];
+  if (i == 0 && overflow != nullptr && overflow[b] != 0) atomicOr(&failed[1], 1);
+  const int* rs = row_start == nullptr ? nullptr : row_start + (size_t)b * (n + 1);
+  const bool pt = pt_count != nullptr && pt_count[b] > 0 && rs[i + 1] > rs[i];
 
-  const float act = active[i];
-  const float m = mask[i];
-  const float im = inv_mass[i];
-  const float fy = -gravity * mass[i] * m;
+  const float act = active[g];
+  const float m = mask[g];
+  const float im = inv_mass[g];
+  const float fy = -gravity * mass[g] * m;
   const float f[3] = {0.0f, fy, 0.0f};
   const float keep = 1.0f - damping;
   float x[3], v[3];
   bool finite = true;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    const size_t j = (size_t)i * 3 + d;
+    const size_t j = g * 3 + d;
     // Floor snap to the stale static projection; point-triangle
     // stabilization is an exact no-op without contacts, and repeated snaps
     // equal one.
@@ -125,7 +137,7 @@ __global__ void __launch_bounds__(256)
   }
   // Floor friction: (1-f)^count on x and z, the static threshold tested on
   // the velocity before the pass.
-  const float count = counts != nullptr ? counts[i] : floor_count[i] * act;
+  const float count = counts != nullptr ? counts[g] : floor_count[i] * act;
   const float norm = sqrtf(v[0] * v[0] + v[2] * v[2]);
   float factor = norm < static_threshold
                      ? 0.0f
@@ -136,7 +148,7 @@ __global__ void __launch_bounds__(256)
 
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    const size_t j = (size_t)i * 3 + d;
+    const size_t j = g * 3 + d;
     pos[j] = x[d];
     prev[j] = x[d];
     vel[j] = v[d];
@@ -154,10 +166,10 @@ extern "C" int pies_substep_head(const float* pos, const float* vel,
                                  float* msn_out, float* diag_out,
                                  float* wf_out, float* active_out, int n,
                                  float h, float h2, float floor_threshold,
-                                 int* failed, int fold, void* stream) {
-  if (n > 0) {
+                                 int* failed, int fold, int members, void* stream) {
+  if (n > 0 && members > 0) {
     const int threads = 256;
-    const int blocks = (n + threads - 1) / threads;
+    const dim3 blocks((n + threads - 1) / threads, members);
     substep_head_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         pos, vel, mass, mask, floor_count, stiffness_diag, x_out, msn_out,
         diag_out, wf_out, active_out, n, h, h2, floor_threshold, failed, fold);
@@ -175,10 +187,11 @@ extern "C" int pies_substep_tail(float* pos, float* prev, float* vel,
                                  float static_threshold, int* failed,
                                  const float* fric, const int* row_start,
                                  const int* pt_count, const int* overflow,
-                                 const float* counts, const float* nn_imp, void* stream) {
-  if (n > 0) {
+                                 const float* counts, const float* nn_imp, int members,
+                                 void* stream) {
+  if (n > 0 && members > 0) {
     const int threads = 256;
-    const int blocks = (n + threads - 1) / threads;
+    const dim3 blocks((n + threads - 1) / threads, members);
     substep_tail_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         pos, prev, vel, forces, x_solved, static_proj, active, floor_count,
         inv_mass, mass, mask, n, h, damping, gravity, friction,

@@ -29,6 +29,13 @@
 // ptd*x and then contact to its force after the floor term
 // (pies_tpu/solver/tetcols.py:341-349).  Elsewhere both are exact zeros and
 // are not read.
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): blockIdx.y
+// is the member b.  Its nodes start at b*4k (x, msn, diag, mask, wf, ptd,
+// contact and the outputs), its latch is failed[2b], its first force f0[b]
+// of [members, 12, C], its contact count pt_count[b], its incidence row
+// row_start + b*(4k+1) and its residual shares r2[b] of [members, K]; the
+// tets' parameters, block6 and the pin force are shared.
 #include <cuda_runtime.h>
 
 #include "tet_block.cuh"
@@ -45,7 +52,7 @@ struct SubstepIn {
   const float* wf;      // [N]     W_STATIC * floor_count * active
   const float* block6;  // [6, K]
   const float* f0;      // [12, C] first iteration's tet force, or null
-  const int* failed;    // latch slot 0 (tick start)
+  const int* failed;    // latch slot 0 (tick start), [2 members]
   const float* ptd;     // [N] contact diagonal, or null
   const float* contact;  // [N, 3] contact force, or null
   const int* row_start;  // [N + 1] T7's incidence, or null
@@ -63,11 +70,14 @@ __global__ void __launch_bounds__(128)
                             int k, int c, int iterations, float plane) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= k) return;
-  if (in.failed[0] != 0) {
-    o.r2[t] = 0.0f;  // a skipped tick reports residual 0, as the JAX tick
+  const size_t member = blockIdx.y;
+  if (in.failed[2 * member] != 0) {
+    o.r2[member * k + t] = 0.0f;  // a skipped tick reports residual 0, as the JAX tick
     return;
   }
-  const size_t n0 = (size_t)4 * t;
+  const size_t base = member * 4 * k;  // the member's first node
+  const size_t n0 = base + (size_t)4 * t;
+  const size_t l0 = (size_t)4 * t;  // the tet's first node in the shared topology
 
   float x[4][3], rhs0[4][3], dg[4], mk[4], wf[4];
 #pragma unroll
@@ -79,16 +89,17 @@ __global__ void __launch_bounds__(128)
     for (int d = 0; d < 3; ++d) {
       const size_t i = (n0 + a) * 3 + d;
       x[a][d] = in.x[i];
-      rhs0[a][d] = in.pin != nullptr ? in.msn[i] + in.pin[i] : in.msn[i];
+      rhs0[a][d] = in.pin != nullptr ? in.msn[i] + in.pin[(l0 + a) * 3 + d] : in.msn[i];
     }
   }
   bool pt_on[4] = {false, false, false, false};
   float pt_d[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pt_f[4][3] = {};
-  if (in.pt_count != nullptr && in.pt_count[0] > 0) {
+  if (in.pt_count != nullptr && in.pt_count[member] > 0) {
+    const int* rs = in.row_start + member * (4 * k + 1);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const size_t node = n0 + a;
-      pt_on[a] = in.row_start[node + 1] > in.row_start[node];
+      pt_on[a] = rs[l0 + a + 1] > rs[l0 + a];
       pt_d[a] = pt_on[a] ? in.ptd[node] : 0.0f;
 #pragma unroll
       for (int d = 0; d < 3; ++d) pt_f[a][d] = pt_on[a] ? in.contact[node * 3 + d] : 0.0f;
@@ -123,7 +134,7 @@ __global__ void __launch_bounds__(128)
       for (int r = 0; r < 12; ++r) f12[r] = 0.0f;
     } else if (it == 0 && in.f0 != nullptr) {
 #pragma unroll
-      for (int r = 0; r < 12; ++r) f12[r] = in.f0[(size_t)r * b.ld + t];
+      for (int r = 0; r < 12; ++r) f12[r] = in.f0[(member * 12 + r) * b.ld + t];
     } else {
       pies::tet_force12(x, tp, f12);
     }
@@ -172,7 +183,7 @@ __global__ void __launch_bounds__(128)
         r2 = r2 + r * r;
       }
   }
-  o.r2[t] = r2;
+  o.r2[member * k + t] = r2;
 
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -193,14 +204,14 @@ extern "C" int pies_tet_cols_substep(
     const float* sw, const float* vlo, const float* vhi, const float* vw,
     float* x_out, float* static_out, float* r2, int k, int c, int iterations,
     float plane, const int* failed, const float* ptd, const float* contact,
-    const int* row_start, const int* pt_count, void* stream) {
-  if (k > 0) {
+    const int* row_start, const int* pt_count, int members, void* stream) {
+  if (k > 0 && members > 0) {
     SubstepIn in{x,  msn,    pin,     diag,      mask,     wf,
                  block6, f0, failed, ptd, contact, row_start, pt_count};
     pies::TetBatchPtrs b{qinv, g, slo, shi, sw, vlo, vhi, vw, c};
     SubstepOut o{x_out, static_out, r2};
     const int threads = 128;
-    const int blocks = (k + threads - 1) / threads;
+    const dim3 blocks((k + threads - 1) / threads, members);
     tet_cols_substep_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         in, b, o, k, c < k ? c : k, iterations, plane);
   }

@@ -13,6 +13,10 @@
 // Gram-Schmidt completion, 10 volume-correction steps).  The design keeps
 // everything in registers and reads the parameter columns coalesced
 // ([9, C] and [12, C] rows: neighbouring threads read neighbouring words).
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): blockIdx.y
+// is the member b; its nodes start at b*n, its latch is failed[2b] and its
+// forces are out[b] of [members, 12, C]; the tet parameters are shared.
 #include <cuda_runtime.h>
 
 #include "tet_force.cuh"
@@ -21,11 +25,14 @@ namespace {
 
 __global__ void __launch_bounds__(128)
     tet_force12_kernel(const float* __restrict__ x, pies::TetBatchPtrs b,
-                       float* __restrict__ out, int c,
+                       float* __restrict__ out, int c, int n,
                        const int* __restrict__ failed) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= c) return;
-  if (failed != nullptr && failed[0] != 0) return;
+  const size_t member = blockIdx.y;
+  if (failed != nullptr && failed[2 * member] != 0) return;
+  x += member * n * 3;
+  out += member * 12 * c;
   float p[4][3];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
@@ -45,14 +52,14 @@ extern "C" int pies_tet_force12(const float* x, const float* qinv,
                                 const float* g, const float* slo,
                                 const float* shi, const float* sw,
                                 const float* vlo, const float* vhi,
-                                const float* vw, float* out, int c,
-                                const int* failed, void* stream) {
-  if (c > 0) {
+                                const float* vw, float* out, int c, int n,
+                                const int* failed, int members, void* stream) {
+  if (c > 0 && members > 0) {
     pies::TetBatchPtrs b{qinv, g, slo, shi, sw, vlo, vhi, vw, c};
     const int threads = 128;
-    const int blocks = (c + threads - 1) / threads;
+    const dim3 blocks((c + threads - 1) / threads, members);
     tet_force12_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        x, b, out, c, failed);
+        x, b, out, c, n, failed);
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,77 @@
+"""Multi-scene ensembles on one card (port of
+``pies_tpu/parallel/ensemble.py:34-122``, ROADMAP item 10a).
+
+The JAX package steps a batch of independent scenes under ``jax.vmap`` of
+its tick, with topology, parameters and configuration shared, and shards
+the batch over a device mesh.  Here the batch is a member axis written out:
+an ensemble is one ``SolverState`` whose every leaf has a leading axis B
+(``state.stack_ensemble``), and the tet-column path's kernels T1-T8 take
+that axis, so a tick of B scenes is the same launches as a tick of one.
+``vmap``'s select of ``lax.cond``'s branches (``step.py:161``) is the
+per-member latch: a member whose ``sim_failed`` is set is left bit for bit
+as it is and reports residual 0, while the others step.
+
+The ensemble runs on the tet-column path (``tetcols.applies``), with or
+without self-contact on packed bodies.  Every other path (the generic PD
+path with its CG, PBD) raises :class:`NotPortedError` naming ROADMAP item
+10b.  Several cards (``make_mesh``, ``shard_ensemble`` and
+``make_sharded_step``'s ``shard_map``) are ROADMAP item 11;
+:func:`ensemble_step` is that step's one-card form, its ``pmax`` and
+``psum`` reductions over the member axis on the device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..collision import broadphase
+from ..options import PhysicsParams, SolverName, StepConfig
+from ..solver import pd, step, tetcols
+from ..solver.host import NotPortedError
+from ..state import SolverState, stack_ensemble, unstack
+from ..topology import Topology
+
+__all__ = ["ensemble_step", "ensemble_tick", "ensemble_tick_n", "stack_ensemble", "unstack"]
+
+
+def check_ensemble(states: SolverState, topo: Topology, config: StepConfig) -> None:
+    """Raise unless ``states`` is an ensemble whose scene takes the ported
+    path: PD on the tet-column path, detection (if any) on packed bodies."""
+    if not states.members:
+        raise ValueError("an ensemble's state has a leading member axis (stack_ensemble)")
+    packed = (not pd.self_contact(config, topo)
+              or (broadphase.tri_mode(config, topo.tri_mask.shape[0]) is None
+                  and broadphase.packed(config)))
+    if config.solver != SolverName.PD or not tetcols.applies(states, topo, config) or not packed:
+        raise NotPortedError(
+            "ensembles run only on the tet-column PD path (packed-body detection); the"
+            " generic PD path and PBD ensembles are not ported yet: ROADMAP queue 1 item 10b")
+
+
+def ensemble_tick(states: SolverState, topo: Topology, params: PhysicsParams,
+                  config: StepConfig, counters=None) -> torch.Tensor:
+    """One tick of every member, in place on ``states``; returns the
+    residuals f32[B] on the device (0 for a latched member).  ``counters``
+    are ``pd.new_counters(device, B)``."""
+    check_ensemble(states, topo, config)
+    return step.tick(states, topo, params, config, counters=counters)
+
+
+def ensemble_tick_n(states: SolverState, topo: Topology, params: PhysicsParams,
+                    config: StepConfig, n: int, counters=None) -> torch.Tensor:
+    """``n`` ticks of every member with no host sync; returns the largest of
+    the last tick's residuals over the members (``ensemble.py:70,73``), a
+    device scalar."""
+    check_ensemble(states, topo, config)
+    res = step.tick_n(states, topo, params, config, n, counters=counters)
+    return torch.max(res)
+
+
+def ensemble_step(states: SolverState, topo: Topology, params: PhysicsParams,
+                  config: StepConfig, counters=None):
+    """One tick of every member and the fleet's diagnostics, the one-card
+    form of ``make_sharded_step``'s step (``ensemble.py:92-122``): returns
+    ``(max_residual, num_failed)``, device scalars: the largest residual and
+    the number of latched members after the tick."""
+    res = ensemble_tick(states, topo, params, config, counters=counters)
+    return torch.max(res), (states.sim_failed != 0).any(dim=-1).sum()

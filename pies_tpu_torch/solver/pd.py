@@ -46,6 +46,12 @@ The JAX package's ``lax.cond``s and ``while_loop``s on runtime data (any
 contact, any live pair, any crossing, the CG's early exit) become device
 counts and flags that the kernels read and exit on: the host never waits
 for the device within a tick.
+
+An ensemble state (``state.py``: every leaf with a leading member axis)
+runs the tet-column path with the same launches: T1-T8 take the member
+axis, so the launch count of a substep does not depend on the member
+count, and each plain twin loops over the members
+(``state.each_member``).  Its residual and its counters are per member.
 """
 
 from __future__ import annotations
@@ -78,7 +84,7 @@ from ..collision.batches import (
 from ..constraints.projections import tet_force12, tet_force12_plain
 from ..ops.math3d import ieee_div as _div
 from ..options import PhysicsParams, StepConfig
-from ..state import SolverState
+from ..state import SolverState, each_member
 from ..topology import Topology
 from . import assembly, tetcols
 
@@ -145,7 +151,11 @@ def substep_head_plain(state: SolverState, topo: Topology, params: PhysicsParams
                        config: StepConfig, fold: bool):
     """Plain twin of kernel T3.  Returns ``(x, msn_h2, diag, wf, active)``:
     the predicted positions and ``M·x/h²`` f32[N, 3], the system diagonal, the
-    floor weight ``W_STATIC·count·active`` and the floor activity f32[N]."""
+    floor weight ``W_STATIC·count·active`` and the floor activity f32[N]
+    (each with a leading member axis for an ensemble)."""
+    if state.members:
+        return each_member(lambda s: substep_head_plain(s, topo, params, config, fold),
+                           state.members, state)
     if fold:
         _fold_latch(state.sim_failed)
     h, h2 = _h_h2(params)
@@ -179,7 +189,7 @@ def substep_head(state: SolverState, topo: Topology, params: PhysicsParams,
                     topo.floor_count, topo.stiffness_diag, state.sim_failed)
     x = torch.empty_like(pos)
     msn = torch.empty_like(pos)
-    diag, wf, active = (torch.empty(n, dtype=torch.float32, device=pos.device)
+    diag, wf, active = (torch.empty(pos.shape[:-1], dtype=torch.float32, device=pos.device)
                         for _ in range(3))
     h, h2 = _h_h2(params)
     err = kernels.lib().pies_substep_head(
@@ -188,7 +198,7 @@ def substep_head(state: SolverState, topo: Topology, params: PhysicsParams,
         topo.stiffness_diag.data_ptr(), x.data_ptr(), msn.data_ptr(),
         diag.data_ptr(), wf.data_ptr(), active.data_ptr(), n, h, h2,
         floor_threshold(params) if config.dense_floor else -float("inf"),
-        state.sim_failed.data_ptr(), int(fold),
+        state.sim_failed.data_ptr(), int(fold), max(state.members, 1),
         kernels.stream(),
     )
     kernels.check(err, "substep_head")
@@ -329,7 +339,14 @@ def pt_tail_plain(state: SolverState, params: PhysicsParams, config: StepConfig,
     impulse, ``pd.py:398-402``).  Returns the count-averaged friction
     impulse f32[N, 3] that T4 adds (zero at nodes without point-triangle
     entries).  Does nothing without live contacts, or when latch slot 0 is
-    set."""
+    set.  An ensemble (no edge or node-node contacts) runs member by
+    member."""
+    if state.members:
+        if edges is not None or nn_imp is not None:
+            raise ValueError("an ensemble has no edge-edge or node-node contacts")
+        return each_member(lambda s, c, i, xx, sp: pt_tail_plain(s, params, config, c, i, xx, sp,
+                                                                 stages=stages),
+                           state.members, state, colls, inc, x, static_proj)
     fric = torch.zeros_like(x)
     pt_live = colls.pt_idx is not None and int(colls.pt_count[0]) > 0
     e_live = edges is not None and int(edges.count[0]) > 0
@@ -386,9 +403,12 @@ def pt_tail(state: SolverState, params: PhysicsParams, config: StepConfig,
     kernels.require(pos.device, x, state.prev_positions, static_proj, colls.floor_active,
                     *pt_t, *e_t, nn_imp, state.inv_mass, state.mass, state.node_mask,
                     state.sim_failed)
-    cap = colls.pt_idx.shape[0] if pt else 0
+    lead = pos.shape[:-2]  # (B,) for an ensemble
+    if lead and (e_on or nn_imp is not None):
+        raise ValueError("an ensemble has no edge-edge or node-node contacts")
+    cap = colls.pt_idx.shape[-2] if pt else 0
     ecap = edges.edge_idx.shape[0] if e_on else 0
-    per_contact = torch.empty((cap, 8), dtype=torch.float32, device=pos.device)
+    per_contact = torch.empty(lead + (cap, 8), dtype=torch.float32, device=pos.device)
     per_entry = torch.empty((4 * ecap, 4), dtype=torch.float32, device=pos.device)
     fric = torch.empty_like(x)
     h, _ = _h_h2(params)
@@ -400,7 +420,8 @@ def pt_tail(state: SolverState, params: PhysicsParams, config: StepConfig,
         per_entry.data_ptr(), fric.data_ptr(), state.sim_failed.data_ptr(), state.capacity,
         cap, ecap, config.collision_stabilization_iterations, int(stages),
         int(e_on and edges.quirks), params.collision_thickness, h, params.damping,
-        params.gravity, params.friction, params.static_friction_threshold, kernels.stream(),
+        params.gravity, params.friction, params.static_friction_threshold,
+        max(state.members, 1), kernels.stream(),
     )
     kernels.check(err, "pt_tail")
     pt_tail.launches += 1
@@ -481,7 +502,12 @@ def substep_tail_plain(state: SolverState, topo: Topology, params: PhysicsParams
     Nothing changes when latch slot 0 is set (a skipped tick).
     ``floor_counts`` (the entry-list floor's
     live entries per node) are the floor friction's exponents; ``active`` is
-    then the entry list's snap flag."""
+    then the entry list's snap flag.  An ensemble runs member by member."""
+    if state.members:
+        return each_member(
+            lambda s, a, xx, sp, c, i, f, fc, nn: substep_tail_plain(s, topo, params, a, xx, sp,
+                                                                     c, i, f, fc, nn),
+            state.members, state, active, x, static_proj, colls, inc, fric, floor_counts, nn_imp)
     floor = CollisionSet(floor_active=active, floor_counts=floor_counts)
     # Hard snap of floor contacts to the stale static projection
     # (Solver.cpp:379-382).
@@ -536,7 +562,7 @@ def substep_tail(state: SolverState, topo: Topology, params: PhysicsParams,
         params.gravity, params.friction, params.static_friction_threshold,
         state.sim_failed.data_ptr(), kernels.ptr(fric), kernels.ptr(row_start),
         kernels.ptr(pt_count), kernels.ptr(overflow), kernels.ptr(floor_counts),
-        kernels.ptr(nn_imp), kernels.stream(),
+        kernels.ptr(nn_imp), max(state.members, 1), kernels.stream(),
     )
     kernels.check(err, "substep_tail")
     substep_tail.launches += 1
@@ -563,12 +589,14 @@ COUNTERS = ("floor_active", "contacts", "rebuilds", "cg_trips", "edge_contacts",
             "node_pairs", "touching_pairs")
 
 
-def new_counters(device) -> dict[str, torch.Tensor]:
+def new_counters(device, members: int = 0) -> dict[str, torch.Tensor]:
     """Zeroed device counters for :func:`pd_substep`: floor-active nodes,
     live point-triangle contacts, broadphase cache rebuilds, CG trips, live
     edge-edge contacts and their hits before the cap, live node pairs and
-    touching node pairs, each summed over substeps."""
-    return {name: torch.zeros((), dtype=torch.int64, device=device) for name in COUNTERS}
+    touching node pairs, each summed over substeps; i64[members] for an
+    ensemble."""
+    shape = (members,) if members else ()
+    return {name: torch.zeros(shape, dtype=torch.int64, device=device) for name in COUNTERS}
 
 
 def block_layout(state: SolverState, topo: Topology) -> bool:
@@ -688,7 +716,8 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
                counters: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
     """One PD substep on the tet-column or the generic path, in place on
     ``state``; returns the device-side residual of its last iteration
-    (``‖b − A·x‖`` of the block solve, or of the last CG).
+    (``‖b − A·x‖`` of the block solve, or of the last CG), f32[B] for an
+    ensemble (tet-column path only).
 
     ``plain=True`` runs the plain twins whatever the device (the card's
     reference run); otherwise each wrapper picks the kernel for a CUDA state
@@ -705,14 +734,16 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
         active = floor.floor_active
         head = (x, msn_h2, diag, wf, active)
     if counters is not None:
-        counters["floor_active"].add_(active.sum().to(torch.int64))
+        counters["floor_active"].add_(active.sum(-1).to(torch.int64))
     if not tetcols.applies(state, topo, config):
+        if state.members:
+            raise ValueError("an ensemble runs only on the tet-column path")
         return _generic_substep(state, topo, params, config, k, head, floor, counters, plain)
     if self_contact(config, topo):
         colls = detect_point_tri(state, x, topo, params, config, active, plain)
         if counters is not None:
-            counters["contacts"].add_(colls.pt_count[0])
-            counters["rebuilds"].add_(colls.rebuilt[0])
+            counters["contacts"].add_(colls.pt_count[..., 0])
+            counters["rebuilds"].add_(colls.rebuilt[..., 0])
         _, h2 = _h_h2(params)
         inc, ptd = k["setup"](colls, state.mass, topo, h2, diag, wf, failed)
     f0 = k["force"](x, topo.strain, topo.volume, failed) if config.iterations else None
@@ -731,4 +762,4 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     if colls is not None:
         fric = k["pt_tail"](state, params, config, colls, inc, x_new, static_proj)
     k["tail"](state, topo, params, active, x_new, static_proj, colls, inc, fric)
-    return torch.sqrt(torch.sum(r2))
+    return torch.sqrt(torch.sum(r2, dim=-1))

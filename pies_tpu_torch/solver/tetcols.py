@@ -18,6 +18,10 @@ folds the contacts' diagonal into ``diag`` once per substep
 contact's push-out from the current iterate and its per-node force
 (:func:`pt_force`), which T2 adds as ``ptd·x + contact`` after the floor
 term (``pies_tpu/solver/tetcols.py:194-260,306-349``).
+
+Each wrapper also takes an ensemble's arrays (a leading member axis, see
+``state.py``) and launches its kernel once over all members; its plain
+twin then runs member by member (``state.each_member``).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..collision.batches import (
 from ..constraints.projections import corner_cols, tet_force12_fused_cols
 from ..ops.math3d import ieee_div as _div
 from ..options import StepConfig
+from ..state import each_member, members_of
 from ..topology import Topology
 from . import assembly
 
@@ -150,7 +155,13 @@ def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
     arrays there are not read).  Returns ``(x_new [N, 3], static_proj
     [N, 3], r2 [K])`` with ``r2`` the per-tet squared residual
     ``‖force − A·x‖²`` (zero where ``failed`` slot 0 is set, as the kernel
-    writes it)."""
+    writes it).  An ensemble's arrays (``r2`` f32[B, K]) run member by
+    member."""
+    if members_of(x):
+        return each_member(
+            lambda xb, mb, db, kb, wb, fb, lb, pb: substep_cols_plain(
+                xb, mb, db, kb, wb, fb, topo, plane, iterations, lb, pb),
+            members_of(x), x, msn_h2, diag, mask, wf, f0, failed, pt)
     n = x.shape[0]
     k = n // 4
     c_tet = min(topo.strain.qinv.shape[1], k)
@@ -232,7 +243,7 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
     if kernels.on_cpu(x):
         return substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo, plane,
                                   iterations, failed, pt)
-    n = x.shape[0]
+    n = x.shape[-2]
     k = n // 4
     if n % 4 or topo.tet_block6 is None or topo.tet_block6.shape[1] != k:
         raise ValueError("the tet-column kernel needs the disjoint-tet block layout")
@@ -243,15 +254,16 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
     pin = topo.position_force_dense if topo.position.idx.shape[0] else None
     if pin is not None and pin.shape[0] != n:
         raise ValueError("pin force must be dense over the capacity")
-    if f0 is not None and tuple(f0.shape) != (12, c):
-        raise ValueError(f"f0 must be [12, {c}], got {tuple(f0.shape)}")
+    lead = x.shape[:-2]  # (B,) for an ensemble
+    if f0 is not None and tuple(f0.shape) != lead + (12, c):
+        raise ValueError(f"f0 must be {list(lead + (12, c))}, got {list(f0.shape)}")
     batch = (s.qinv, s.g, s.lo, s.hi, s.w, v.lo, v.hi, v.w)
     ptd, contact, row_start, pt_count = pt if pt is not None else (None,) * 4
     kernels.require(x.device, x, msn_h2, pin, diag, mask, wf, topo.tet_block6,
                     f0, failed, ptd, contact, row_start, pt_count, *batch)
     x_out = torch.empty_like(x)
     static_out = torch.empty_like(x)
-    r2 = torch.empty(k, dtype=torch.float32, device=x.device)
+    r2 = torch.empty(lead + (k,), dtype=torch.float32, device=x.device)
     err = kernels.lib().pies_tet_cols_substep(
         x.data_ptr(), msn_h2.data_ptr(), kernels.ptr(pin), diag.data_ptr(),
         mask.data_ptr(), wf.data_ptr(), topo.tet_block6.data_ptr(),
@@ -259,7 +271,7 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
         x_out.data_ptr(), static_out.data_ptr(), r2.data_ptr(),
         k, c, int(iterations), float(plane), failed.data_ptr(),
         kernels.ptr(ptd), kernels.ptr(contact), kernels.ptr(row_start),
-        kernels.ptr(pt_count), kernels.stream(),
+        kernels.ptr(pt_count), max(members_of(x), 1), kernels.stream(),
     )
     kernels.check(err, "tet_cols_substep")
     substep_cols.launches += 1
@@ -286,7 +298,13 @@ def pt_coupling_setup_plain(colls: CollisionSet, mass: torch.Tensor, topo: Topol
     (``assembly.py:577-599``).  ``static_diag`` f32[N] (the generic path's
     dense operator diagonal, preset to the floor weight ``wf``) becomes
     ``wf + ptd`` at those nodes (``pd.py:81-99``).  Returns ``(incidence, ptd
-    f32[N])``."""
+    f32[N])``.  An ensemble (``mass`` f32[B, N], no ``static_diag``) runs
+    member by member; its incidence has a leading member axis."""
+    if mass.dim() == 2:
+        if static_diag is not None:
+            raise ValueError("an ensemble has no generic-path operator diagonal")
+        return each_member(lambda c, m, d, w, f: pt_coupling_setup_plain(c, m, topo, h2, d, w, f),
+                           mass.shape[0], colls, mass, diag, wf, failed)
     n = mass.shape[0]
     inc = incidence_plain(colls.pt_idx, colls.pt_count, n)
     ptd = assembly.point_tri_collision_diag(colls.pt_idx, colls.pt_mask, n, inc)
@@ -310,22 +328,23 @@ def pt_coupling_setup(colls: CollisionSet, mass: torch.Tensor, topo: Topology, h
     if failed is None:
         raise ValueError("the coupling kernel needs the failure latch")
     dev = mass.device
-    n, cap = mass.shape[0], colls.pt_idx.shape[0]
+    n, cap = mass.shape[-1], colls.pt_idx.shape[-2]
+    lead = mass.shape[:-1]  # (B,) for an ensemble
     kernels.require(dev, colls.pt_idx, colls.pt_mask, colls.pt_count, mass,
                     topo.stiffness_diag, diag, wf, failed, static_diag)
     i32 = dict(dtype=torch.int32, device=dev)
-    deg = torch.zeros(n, **i32)
-    row_start = torch.empty(n + 1, **i32)
-    partial = torch.empty(kernels.scan_partials(n), **i32)
-    entries = torch.empty(4 * cap, **i32)
-    nodes = torch.empty(4 * cap, **i32)
-    ptd = torch.empty(n, dtype=torch.float32, device=dev)
+    deg = torch.zeros(lead + (n,), **i32)
+    row_start = torch.empty(lead + (n + 1,), **i32)
+    partial = torch.empty(lead + (kernels.scan_partials(n),), **i32)
+    entries = torch.empty(lead + (4 * cap,), **i32)
+    nodes = torch.empty(lead + (4 * cap,), **i32)
+    ptd = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     err = kernels.lib().pies_pt_coupling_setup(
         colls.pt_idx.data_ptr(), colls.pt_mask.data_ptr(), colls.pt_count.data_ptr(),
         mass.data_ptr(), topo.stiffness_diag.data_ptr(), wf.data_ptr(), diag.data_ptr(),
         deg.data_ptr(), row_start.data_ptr(), partial.data_ptr(), entries.data_ptr(),
         nodes.data_ptr(), ptd.data_ptr(), kernels.ptr(static_diag), failed.data_ptr(), n, cap,
-        h2, kernels.stream(),
+        h2, lead[0] if lead else 1, kernels.stream(),
     )
     kernels.check(err, "pt_coupling_setup")
     pt_coupling_setup.launches += 1
@@ -341,7 +360,10 @@ def pt_force_plain(x: torch.Tensor, colls: CollisionSet, inc: Incidence, thickne
     ``tetcols.py:194-260``): each contact's point push-out ``delta`` along
     the unit normal of its triangle at the iterate ``x``, and per node the
     sum of ``(w·mask·AᵀA[a, 0])·delta`` over its entries.  Returns f32[N, 3],
-    zero at nodes without entries."""
+    zero at nodes without entries.  An ensemble runs member by member."""
+    if members_of(x):
+        return each_member(lambda xb, cb, ib, fb: pt_force_plain(xb, cb, ib, thickness, fb),
+                           members_of(x), x, colls, inc, failed)
     a, b, c, d = (x[colls.pt_idx[:, j].long()] for j in range(4))
     e1, e2 = c - b, d - b
     nx = e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1]
@@ -373,8 +395,8 @@ def pt_force(x: torch.Tensor, colls: CollisionSet, inc: Incidence, thickness: fl
     err = kernels.lib().pies_pt_force(
         x.data_ptr(), colls.pt_idx.data_ptr(), colls.pt_mask.data_ptr(),
         colls.pt_count.data_ptr(), inc.row_start.data_ptr(), inc.entries.data_ptr(), inc.nodes.data_ptr(),
-        contact.data_ptr(), failed.data_ptr(), x.shape[0], inc.cap, thickness,
-        kernels.stream(),
+        contact.data_ptr(), failed.data_ptr(), x.shape[-2], inc.cap, thickness,
+        max(members_of(x), 1), kernels.stream(),
     )
     kernels.check(err, "pt_force")
     pt_force.launches += 1

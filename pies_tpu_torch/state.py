@@ -26,11 +26,20 @@ with collisions on and updated in place by the node-node response.
 :func:`save_state` and :func:`load_state` write and read the JAX package's
 checkpoint: an npz of the state's leaves in the JAX package's pytree order,
 so either package loads the other's file.
+
+An ensemble (``pies_tpu/parallel/ensemble.py``) is one ``SolverState`` whose
+every leaf has a leading member axis B, the cache's included:
+``positions`` f32[B, N, 3], ``mass`` f32[B, N], ``sim_failed`` i32[B, 2]
+(each row the two-slot latch above), ``bp.pairs`` i32[B, K, NB], ``bp.ref``
+f32[B, M, 3], ``bp.fresh`` i32[B, 1].  One-word flags and counts keep a unit
+axis, so member b's slice (:func:`member`) of any batched value is the
+single scene's value, a view that shares its memory.
+:func:`stack_ensemble` makes one, :func:`unstack` copies one member out.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, is_dataclass, replace
 
 import numpy as np
 import torch
@@ -134,6 +143,50 @@ def pair_incidence(pi: torch.Tensor, pj: torch.Tensor, count: int, n: int):
     return row_off.to(torch.int32), inc_start.to(torch.int32), inc_pair
 
 
+def member(obj, b: int):
+    """Member ``b``'s view of a batched value: a tensor's ``[b]``, a tuple or
+    list element by element, a dataclass (a state, a cache, a collision set,
+    an incidence) field by field; ``None`` and scalars as they are.  Only
+    batched values are passed here: a topology's tensors have no member
+    axis."""
+    if isinstance(obj, torch.Tensor):
+        return obj[b]
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(member(o, b) for o in obj)
+    if is_dataclass(obj) and not isinstance(obj, type):
+        return replace(obj, **{f.name: member(getattr(obj, f.name), b) for f in fields(obj)})
+    return obj
+
+
+def stack_members(items: list):
+    """The batched value of the members' values ``items`` (the inverse of
+    :func:`member`): tensors stacked on a new leading axis, tuples, lists
+    and dataclasses field by field; scalars, which the members share, taken
+    from the first."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    if isinstance(first, (tuple, list)):
+        return type(first)(stack_members(list(z)) for z in zip(*items))
+    if is_dataclass(first) and not isinstance(first, type):
+        return replace(first, **{f.name: stack_members([getattr(i, f.name) for i in items])
+                                 for f in fields(first)})
+    return first
+
+
+def each_member(fn, n: int, *args):
+    """The batched twin of a single-scene function: ``fn`` on member b's
+    view of every argument, for b = 0 .. n-1 in order, the results stacked.
+    In-place updates of the views land in the batched arguments."""
+    return stack_members([fn(*(member(a, b) for a in args)) for b in range(n)])
+
+
+def members_of(positions: torch.Tensor) -> int:
+    """The member count of a batched f32[B, N, 3] node tensor, 0 for a
+    single scene's f32[N, 3]."""
+    return positions.shape[0] if positions.dim() == 3 else 0
+
+
 @dataclass
 class SolverState:
     positions: torch.Tensor  # f32[N, 3]
@@ -154,12 +207,42 @@ class SolverState:
         return self.positions.shape[-2]
 
     @property
+    def members(self) -> int:
+        """The ensemble's member count, 0 for a single scene."""
+        return members_of(self.positions)
+
+    @property
     def device(self) -> torch.device:
         return self.positions.device
 
     def failed(self) -> bool:
         """Host read of the latch (waits for the device)."""
         return bool(self.sim_failed.any().item())
+
+
+def clone_state(obj):
+    """A deep copy of a state (or of any of its caches): every tensor
+    cloned, dataclasses field by field."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if is_dataclass(obj):
+        return replace(obj, **{f.name: clone_state(getattr(obj, f.name)) for f in fields(obj)})
+    return obj
+
+
+def stack_ensemble(state: SolverState, n: int) -> SolverState:
+    """An ``n``-member ensemble of copies of the single scene ``state``
+    (``pies_tpu/parallel/ensemble.py:34``): every leaf gets a leading
+    member axis, as a contiguous copy (the tick writes it in place, so the
+    members must not share memory as a broadcast view would)."""
+    if state.members:
+        raise ValueError("stack_ensemble takes a single scene's state")
+    return stack_members([clone_state(state) for _ in range(n)])
+
+
+def unstack(states: SolverState, b: int) -> SolverState:
+    """Member ``b`` of an ensemble as an ordinary state (a copy)."""
+    return clone_state(member(states, b))
 
 
 def park_positions(num_padded: int, offset: int = 0) -> np.ndarray:

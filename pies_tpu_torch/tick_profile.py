@@ -9,6 +9,7 @@
     python3 -m pies_tpu_torch.tick_profile --pile [particles] [repeats]
     python3 -m pies_tpu_torch.tick_profile --nets [nn] [repeats]
     python3 -m pies_tpu_torch.tick_profile --node-cloud [particles] [repeats]
+    python3 -m pies_tpu_torch.tick_profile --ensemble [members] [repeats]
 
 and on the PD scenes any of ``--full`` (``contact_coupling="full"``,
 self-contact on), ``--no-tet-cols`` (a soup off the tet-column path, on
@@ -41,7 +42,12 @@ arguments (edge-edge contacts, full coupling, ``reference_quirks=False``)
 at nn = 256 by default (131,072 nodes; contact caps 262,144 above the
 bench's nn = 24, 2,048 up to it), or with ``--node-cloud`` the node pile at 131,072
 particles by default under the PD solver with node-node contacts on
-(``max_node_node_contacts`` 16 per particle, so the cap never truncates).
+(``max_node_node_contacts`` 16 per particle, so the cap never truncates),
+or with ``--ensemble`` the ``ensemble_vmap`` cell of ``chip_smoke.py``
+phase 13: 64 members by default of the 512-tet soup with self-contact, each
+member's live nodes moved by a seeded offset, stepped by
+``parallel.ensemble.ensemble_tick_n`` (its windows and counters sum over
+the members).
 It warms
 up until the window it measures is contact-active: 30 ticks without
 self-contact (the bottom layer reaches the floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
@@ -52,8 +58,8 @@ the mixed scene (the soup's layers meet at tick ~40, sheet and soup at tick
 tick until a tick has floor-active nodes and touching pairs (the ropes
 reach the floor at tick ~42, the pile at once), the nets tick by tick
 until a tick has live edge contacts (each window below then starts from
-that tick's state: the nets latch within a few dozen ticks of it), the node
-cloud not at all (its pairs touch from the first tick).  Then:
+that tick's state: the nets latch within a few dozen ticks of it), the
+ensemble 45 ticks as the soup with self-contact, the node cloud not at all (its pairs touch from the first tick).  Then:
 
 * times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
   ends in a synchronize) and prints each, for the spread;
@@ -90,7 +96,7 @@ def _clone(state):
 
 def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, mixed=False,
          boxes=False, reference=False, rope=False, pile=False, full=False, tet_cols=True,
-         dense_floor=True, nets=False, cloud=False):
+         dense_floor=True, nets=False, cloud=False, members=0):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -109,8 +115,10 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
              else f"the PBD rope fleet, {n_tets} particles" if rope
              else f"the PBD node pile, {n_tets} particles" if pile
              else f"the crossing nets, nn = {n_tets}" if nets
-             else f"the PD node cloud, {n_tets} particles" if cloud else "the soup")
-    collisions = (collisions or mixed or boxes or rope or pile or full or nets) and not cloud
+             else f"the PD node cloud, {n_tets} particles" if cloud
+             else f"an ensemble of {members} 512-tet soups" if members else "the soup")
+    collisions = (collisions or mixed or boxes or rope or pile or full or nets
+                  or members) and not cloud
     mode = "reference" if reference else "celllist"
     coupling = "full" if full or nets else "recentered"
     print(f"card: {smi}; {scene}, self-contact {'on' if collisions else 'off'},"
@@ -141,7 +149,24 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
                                             dense_floor=dense_floor)
 
     new_counters = (pbd if rope or pile else pd).new_counters
-    if nets:
+    states = None
+    if members:
+        import numpy as np
+
+        from .parallel import ensemble
+
+        s.create_tet_soup(512, spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
+        s._prepare()
+        states = ensemble.stack_ensemble(s.state, members)
+        live = s._builder.num_nodes
+        for b in range(members):
+            off = np.random.default_rng(b).uniform(-0.02, 0.02, (live, 3)).astype(np.float32)
+            states.positions[b, :live] += torch.from_numpy(off).to(s.device)
+            states.prev_positions[b, :live] += torch.from_numpy(off).to(s.device)
+        env = (s.topology, s.current_params(), s.config)
+        ensemble.ensemble_tick_n(states, *env, CONTACT_WARMUP)
+        new_counters = lambda device: pd.new_counters(device, members)  # noqa: E731
+    elif nets:
         from pies_tpu_torch.scene.edge_nets import add_crossing_nets
 
         add_crossing_nets(s, n_tets)
@@ -205,29 +230,42 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
         if start is not None:
             s._state = _clone(start)
 
+    def run10(counters=None):
+        """10 ticks, then one synchronize."""
+        if states is not None:
+            ensemble.ensemble_tick_n(states, *env, 10, counters=counters)
+            torch.cuda.synchronize()
+        else:
+            s.counters = counters
+            s.run_ticks(10)
+            s.counters = None
+
+    def failed():
+        return bool(states.sim_failed.any()) if states is not None else s.sim_failed
+
     for r in range(repeats):
         rewind()
         t0 = time.perf_counter()
-        s.run_ticks(10)
+        run10()
         dt = (time.perf_counter() - t0) / 10
         print(f"run {r}: {dt * 1e3:.4f} ms/tick, {1 / dt:.2f} steps/s"
-              + (" (sim_failed latched in it)" if s.sim_failed else ""))
+              + (f", {members / dt:.1f} scene-steps/s" if members else "")
+              + (" (sim_failed latched in it)" if failed() else ""))
 
     def traced(counters):
         rewind()
         torch.cuda.synchronize()
-        s.counters = new_counters(s.device) if counters else None
+        c = new_counters(s.device) if counters else None
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            s.run_ticks(10)
+            run10(c)
             wall = time.perf_counter() - t0
-        counts = {k: int(v) for k, v in s.counters.items()} if counters else None
-        s.counters = None
+        counts = {k: int(v.sum()) for k, v in c.items()} if counters else None
         events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
         attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
                 else "self_cuda_time_total")
         busy_us = sum(getattr(e, attr) for e in events)
-        if s.sim_failed:
+        if failed():
             print("sim_failed latched in the traced window")
         print(f"traced 10 ticks (device counters {'on' if counters else 'off'}): wall"
               f" {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms"
@@ -252,6 +290,8 @@ if __name__ == "__main__":
         sys.exit(main(*(args or [256]), nets=True))
     if "--node-cloud" in flags:
         sys.exit(main(*(args or [131_072]), cloud=True))
+    if "--ensemble" in flags:
+        sys.exit(main(512, *args[1:2], members=args[0] if args else 64))
     if {"--rope", "--pile"} & set(flags):
         sys.exit(main(*(args or [131_072]), rope="--rope" in flags, pile="--pile" in flags))
     paths = dict(full="--full" in flags, tet_cols="--no-tet-cols" not in flags,
