@@ -7,7 +7,7 @@ Phases (any failure exits non-zero, before the result line):
 
 0. The card: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc
    versions, whether ``triton`` imports.  No CUDA device: exit 2.
-1. Build the 24 kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
+1. Build the 29 kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
    one process per source, all at once (``-Xptxas -v`` output printed), and
    report the build time.
 2. T1-T4 against their plain PyTorch twins on the card, at the main path's
@@ -197,6 +197,31 @@ Phases (any failure exits non-zero, before the result line):
    start: after 40 ticks it is bit-unchanged and the others are in contact,
    unlatched.
 
+14. The tet mesher, ``Solver.add_tri_mesh_volume`` and the diagnostics
+   (T28, T29).  14a: ``Solver(SolverOptions(solver=PD),
+   enable_collisions=True).add_tri_mesh_volume(cube * 6, tris,
+   resolution=47)`` on the bench's cube (``scripts/bench_all.py:86-97``),
+   meshed by the port's native mesher (built with g++ under
+   ``pies_tpu_torch/_build``; the route is required): 110,592 nodes,
+   622,938 tets and 26,508 surface triangles, tets and surface equal to
+   ``scripts/refbench/tet_cube_mesh_100k.txt`` and points within 6e-6.
+   Warm-up to the first tick with floor-active nodes (from tick 60, tick by
+   tick), then a timed ``run_ticks(10)`` followed by
+   ``diagnostics.solver_stats`` and ``diagnostics.broadphase_health``, the
+   launch counts reset before the window and read after the diagnostics:
+   gated on floor contact, no sim_failed, finite positions, every kernel of
+   the path and T28, T29 launched; ms/tick, launches per tick and a traced
+   window's device idle share.  14b: ``tet_cube_drop`` as
+   ``scripts/bench_all.py:80-102`` builds it (the port's ``tetrahedralize``
+   at 10: 1,331 nodes, 6,000 tets; radius 0.2, w 1000, collisions on), the
+   same gates.  14c: T28 against its twin on 14a's state (strain, volume,
+   floor, speed), phase 6's cloth (distance, bend) and the pinned 1,331-node
+   mesh (pins): each key within 1e-6 relative, timed with its bound.  14d:
+   T29 against its twin in its three branches (phase 3b's soup on packed
+   bodies, phase 9a's box pile under all-pairs, 14a's and 14b's meshes
+   under the cell list): the five words equal, and ``broadphase_health``
+   equal to the twin's words on each scene.
+
 The last two lines are the kernel table and the result as JSON objects.
 """
 
@@ -233,6 +258,15 @@ CLOUD_N = 131_072  # the PD node cloud
 ENS_MEMBERS, ENS_TETS = 64, 512  # ensemble_vmap's scenes (bench_all.py:314-333)
 ENS_SAMPLED = (0, 21, 42, 63)  # members held to their single-scene runs
 ENS_SMALL = 4096  # tets of each member of phase 13b's latch ensemble
+# Phase 14: the bench's cube (scripts/bench_all.py:86-97, its +0.5 lift in y
+# applied), meshed at 47 cells across and scaled by 6 (the dump MESH_BIG's
+# geometry; its bottom at y = 3), and at 10 for tet_cube_drop.
+CUBE_VERTS = ((0, 0.5, 0), (2, 0.5, 0), (2, 2.5, 0), (0, 2.5, 0),
+              (0, 0.5, 2), (2, 0.5, 2), (2, 2.5, 2), (0, 2.5, 2))
+CUBE_TRIS = ((0, 2, 1), (0, 3, 2), (4, 5, 6), (4, 6, 7), (0, 1, 5), (0, 5, 4),
+             (1, 2, 6), (1, 6, 5), (2, 3, 7), (2, 7, 6), (3, 0, 4), (3, 4, 7))
+MESH_RES, MESH_SCALE = 47, 6.0
+DROP_RES = 10
 
 # The H100 SXM's published peaks (NVIDIA's datasheet): the least time
 # of a kernel is the larger of its bytes over the memory rate and its float32
@@ -877,10 +911,247 @@ def phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches, kern
                                                                          pair_rows), 20))
 
 
+def device_idle(solver, ticks=10):
+    """A traced window of ``ticks`` ticks of ``solver``: ``(wall ms, device
+    busy ms)`` from ``torch.profiler``'s CUDA events (tick_profile's
+    reading)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pies_tpu_torch.tick_profile import device_events
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.run_ticks(ticks)
+        wall = time.perf_counter() - t0
+    return wall * 1e3, sum(us for _, us in device_events(prof)) / 1e3
+
+
+def device_us(fn, reps=5):
+    """Device time of one call of ``fn`` in µs: the profiler's CUDA events
+    over ``reps`` calls, summed, over ``reps``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pies_tpu_torch.tick_profile import device_events
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(us for _, us in device_events(prof)) / reps
+
+
+def phase14(pt, dev, smi, PD, row, launches, reset_launches, read_launches, keep, mesh_res,
+            mesh_scale, mesh_dump):
+    """The tet mesher, ``Solver.add_tri_mesh_volume`` and the diagnostics:
+    14a the cube meshed at full width and stepped, 14b ``tet_cube_drop``,
+    14c T28 and 14d T29 against their twins."""
+    import numpy as np
+    import torch
+
+    from pies_tpu_torch import diagnostics
+    from pies_tpu_torch.collision import broadphase
+    from pies_tpu_torch.scene import tetmesh
+    from pies_tpu_torch.scene.mesh_dump import load_mesh_txt
+    from pies_tpu_torch.solver import pd
+
+    cube_v, cube_f = np.float32(CUBE_VERTS), np.int32(CUBE_TRIS)
+
+    def path_of(s):
+        """The kernels of a PD tick with self-contact on ``s``'s scene: the
+        generic path and the detection branch its dispatch picks."""
+        cfg, n_tris = s.config, s.topology.tri_mask.shape[0]
+        det = (["tri_candidates", "tri_ccd"] if broadphase.tri_mode(cfg, n_tris)
+               else ["super_broadphase", "super_narrowphase"] if broadphase.super_body(cfg)
+               else ["body_broadphase", "pt_narrowphase"])
+        return ["substep_head"] + det + ["pt_coupling", "tet_force_nodes", "ell_matvec", "pcg",
+                                         "pt_tail", "substep_tail"]
+
+    def to_floor(s, label, start):
+        """``start`` ticks, then tick by tick to the first tick with
+        floor-active nodes; returns that tick."""
+        s.run_ticks(start)
+        for tick in range(start + 1, start + 200):
+            c = pd.new_counters(dev)
+            s.counters = c
+            s.run_ticks(1)
+            s.counters = None
+            if int(c["floor_active"]) > 0:
+                check(not s.sim_failed, f"{label}: floor contact at tick {tick}, no sim_failed")
+                return tick
+        raise SystemExit(f"FAILED: {label}: no floor contact by tick {start + 200}")
+
+    def timed(label, s, first):
+        """``run_ticks(10)`` with the launch counts reset before, then the
+        diagnostics of the state reached (``solver_stats``,
+        ``broadphase_health``) inside the same count; gates and prints the
+        window (launches per tick without the diagnostics), and a traced
+        window's device idle share."""
+        names = path_of(s)
+        reset_launches()
+        c = pd.new_counters(dev)
+        s.counters = c
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run_ticks(10)
+        sec = (time.perf_counter() - t0) / 10
+        s.counters = None
+        ticks = read_launches()
+        stats = diagnostics.solver_stats(s)
+        health = diagnostics.broadphase_health(s)
+        launches[label] = read_launches()
+        counts = {k: int(v) for k, v in c.items()}
+        pos = s.state.positions[: s._builder.num_nodes]
+        check(not s.sim_failed and bool(torch.isfinite(pos).all()),
+              f"{label}: no sim_failed, all positions finite")
+        check(counts["floor_active"] > 0,
+              f"{label}: floor contact in the window: {counts['floor_active']} node-substeps")
+        check(all(launches[label][n] > 0 for n in names + ["residuals", "occupancy"]),
+              f"{label}: every kernel of the path launched, T28 and T29 by the diagnostics:"
+              f" {launches[label]}")
+        check(set(stats) >= set(diagnostics.KEYS) and stats["ticks"] == s.ticks
+              and all(np.isfinite(stats[k]) for k in diagnostics.KEYS),
+              f"{label}: solver_stats {stats}")
+        check(health["candidate_budget"] > 0 and health["pt_contact_cap"] > 0,
+              f"{label}: broadphase_health {health}")
+        per_tick = {n: ticks[n] / 10 for n in names}
+        wall, busy = device_idle(s)
+        print(f"  {label}: {sec * 1e3:.3f} ms/tick, {1.0 / sec:.2f} steps/s ({smi}; ticks"
+              f" {first + 1}-{first + 10}; counters {counts}; launches per tick {per_tick};"
+              f" traced ticks {first + 11}-{first + 20}: wall {wall:.3f} ms, device busy"
+              f" {busy:.3f} ms, idle {100 - 100 * busy / wall:.1f}%)")
+
+    # 14a: the cube meshed at full width through add_tri_mesh_volume.
+    print(f"phase 14a: add_tri_mesh_volume(cube x {mesh_scale:g}, resolution={mesh_res})")
+    t0 = time.perf_counter()
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=True, device=dev)
+    ids = s.add_tri_mesh_volume(cube_v * np.float32(mesh_scale), cube_f, resolution=mesh_res)
+    t_mesh = time.perf_counter() - t0
+    check(tetmesh.last_route == "native", f"the native mesher ran ({tetmesh.last_route}),"
+          f" {t_mesh:.2f} s with its g++ build")
+    b = s._builder
+    points, tets, surface = b.all_positions(), b.tets[0], s.get_triangles()
+    ref = load_mesh_txt(mesh_dump)
+    dp = float(np.abs(points - ref[0]).max())
+    check(np.array_equal(tets, ref[1]) and np.array_equal(surface, ref[2])
+          and dp <= 1e-6 * mesh_scale,
+          f"{len(ids)} nodes, {len(tets)} tets, {len(surface)} surface triangles: tets and"
+          f" surface equal to {os.path.basename(mesh_dump)}, points within {dp:.3e}")
+    t0 = time.perf_counter()
+    st, topo = s.state, s.topology
+    check(float(st.radius[0]) == 0.5 and float(st.inv_mass[0]) == 1.0
+          and topo.strain.idx.shape[0] >= len(tets) and topo.volume.idx.shape[0] >= len(tets),
+          f"set-up {time.perf_counter() - t0:.2f} s: radius 0.5, inverse mass 1, strain and"
+          f" volume rows for every tet; detection kernels {path_of(s)[1:3]}")
+    first = to_floor(s, "14a", 60)
+    timed("14a", s, first)
+    mesh = s
+    del s, st, topo, ref, points
+
+    # 14b: tet_cube_drop as scripts/bench_all.py:80-102 builds it.
+    print(f"phase 14b: tet_cube_drop (the cube meshed at {DROP_RES}, radius 0.2, w 1000)")
+    pts, tts, srf = tetmesh.tetrahedralize(cube_v, cube_f, DROP_RES)
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=True, device=dev)
+    ids = s._builder._emit_nodes(pts, inv_mass=1.0, radius=0.2)
+    s._builder._emit_tets(ids[tts], 1000.0)
+    s._builder._emit_triangles(ids[srf])
+    s._dirty = True
+    check(tetmesh.last_route == "native" and len(ids) == 1331 and len(tts) == 6000,
+          f"{len(ids)} nodes, {len(tts)} tets, {len(srf)} surface triangles (native route)")
+    first = to_floor(s, "14b", 10)
+    timed("14b", s, first)
+    drop = s
+    del s
+
+    # 14c: T28 against its twin.
+    print("phase 14c: T28 (constraint_residuals) against its twin")
+    from pies_tpu_torch.scene.mesh_dump import add_tet_mesh
+
+    pinned = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False, device=dev)
+    add_tet_mesh(pinned, *load_mesh_txt(MESH_SMALL), pins=SMALL_PINS)
+    pinned.run_ticks(40)
+    held = {}
+    for label, solver, keys in (("14a's mesh", mesh, ("strain", "volume", "max_speed")),
+                                ("phase 6's cloth", keep["cloth"], ("distance", "bend")),
+                                ("the pinned 1,331-node mesh", pinned, ("position",))):
+        st, topo = solver.state, solver.topology
+        k = diagnostics.constraint_residuals(st, topo)
+        p = diagnostics.constraint_residuals_plain(st, topo)
+        errs = {key: abs(float(k[key]) - float(p[key])) / max(abs(float(p[key])), 1e-30)
+                for key in diagnostics.KEYS}
+        check(all(errs[key] <= 1e-6 for key in diagnostics.KEYS)
+              and all(float(p[key]) != 0.0 for key in keys),
+              f"{label}: every key within 1e-6 relative of the twin (largest"
+              f" {max(errs.values()):.3e}; bit-equal: {[key for key in errs if errs[key] == 0]});"
+              f" {', '.join(f'{key} {float(k[key]):.6g}' for key in keys)}")
+        held[label] = max(errs.values())
+    st, topo = mesh.state, mesh.topology
+    n_nodes, n_tets = st.capacity, topo.strain.idx.shape[0]
+    fn = lambda: diagnostics.constraint_residuals(st, topo)  # noqa: E731
+    # Bytes: positions, velocities and the node mask once; per strain and per
+    # volume row its ids, Q^-1, lo, hi and w (64 bytes); the 7 results.
+    # Operations: a strain row ~1,800 (F and F^T F as 90 fused steps, 24
+    # Jacobi rotations of ~70, the violations), a volume row ~65, a node 12.
+    nbytes = 28 * n_nodes + 64 * 2 * n_tets + 28
+    ops = 1800 * n_tets + 65 * n_tets + 12 * n_nodes
+    row("residuals", "pies_tpu_torch/kernels/csrc/residuals.cu", "pies_tpu/diagnostics.py:33",
+        held["14a's mesh"], cuda_ms(fn, 20),
+        cuda_ms(lambda: diagnostics.constraint_residuals_plain(st, topo), 3),
+        "1e-6 relative", nbytes, ops)
+    print(f"  T28 on 14a's mesh ({n_tets} strain and volume rows, {n_nodes} nodes): device"
+          f" {device_us(fn):.2f} us per call ({smi})")
+
+    # 14d: T29 against its twin in each branch, and broadphase_health.
+    print("phase 14d: T29 (candidate occupancy, oversize counts) against its twin")
+    timing = None
+    for label, solver in (("phase 3b's soup", keep["soup"]),
+                          ("phase 9a's box pile", keep["box_pile"]), ("14a's mesh", mesh),
+                          ("14b's tet_cube_drop", drop)):
+        st, topo, cfg = solver.state, solver.topology, solver.config
+        lay = broadphase.occupancy_layout(cfg, topo.triangles.shape[0])
+        sc = broadphase.scalars(solver.current_params())
+        args = (st.positions, st.prev_positions, topo.triangles, topo.tri_mask, lay, sc)
+        k, p = broadphase.occupancy(*args), broadphase.occupancy_plain(*args)
+        words = dict(zip(broadphase.OCC_WORDS, p.tolist()))
+        check(torch.equal(k, p) and words["count_max"] > 0,
+              f"{label}: {lay.mode} branch, {lay.t} triangle rows ({lay.k} rows): words equal"
+              f" {words}")
+        health = diagnostics.broadphase_health(solver)
+        cmax, cmean, cap = broadphase.occupancy_result(p.tolist(), cfg, lay.t)
+        check(health["candidate_count_max"] == cmax and health["candidate_count_mean"] == cmean
+              and health["candidate_budget"] == cap
+              and health["broadphase_oversize_items"] == words["oversize"]
+              and health["broadphase_latching_items"] == words["latching"],
+              f"{label}: broadphase_health equals the twin's words: {health}")
+        if label == "14a's mesh":
+            timing = args
+    n_tris = timing[2].shape[0]
+    fn = lambda: broadphase.occupancy(*timing)  # noqa: E731
+    # Bytes: the positions and previous positions of the nodes that live
+    # triangles reach (the kernel reads no other node), the triangles and
+    # their mask, the table (read and written once), the 5 words.
+    # Operations: per row ~60 (its swept box from 18 divided coordinates,
+    # the extents).
+    lay = timing[4]
+    n_reached = torch.unique(timing[2][timing[3] > 0]).numel()
+    row("occupancy", "pies_tpu_torch/kernels/csrc/occupancy.cu",
+        "pies_tpu/collision/broadphase.py:1183", 0.0, cuda_ms(fn, 20),
+        cuda_ms(lambda: broadphase.occupancy_plain(*timing), 3), "equal",
+        24 * n_reached + 16 * n_tris + 8 * lay.h + 20, 60 * n_tris)
+    print(f"  T29 on 14a's mesh ({n_tris} rows, cell list, {n_reached} nodes reached): device"
+          f" {device_us(fn):.2f} us per call ({smi})")
+    keep.clear()
+
+
 def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
          cloth_n=CLOTH_N, n_blobs=N_BLOBS, mixed_sheet=MIXED_SHEET, small_sheet=SMALL_SHEET,
          pbd_big=PBD_BIG, pbd_bench=PBD_BENCH, nets_nn=NETS_NN, nets_big=NETS_BIG,
-         cloud_n=CLOUD_N, ens_members=ENS_MEMBERS, ens_tets=ENS_TETS, ens_small=ENS_SMALL):
+         cloud_n=CLOUD_N, ens_members=ENS_MEMBERS, ens_tets=ENS_TETS, ens_small=ENS_SMALL,
+         mesh_res=MESH_RES, mesh_scale=MESH_SCALE, mesh_dump=MESH_BIG):
     import torch
 
     # ---- phase 0
@@ -902,7 +1173,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     import numpy as np
 
     import pies_tpu_torch as pt
-    from pies_tpu_torch import kernels
+    from pies_tpu_torch import diagnostics, kernels
     from pies_tpu_torch.collision import broadphase
     from pies_tpu_torch.collision.batches import CollisionSet, incident
     from pies_tpu_torch.constraints import projections as proj
@@ -923,6 +1194,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                     or "Compiling entry" in l or l.startswith("==")))
 
     rows = {}
+    keep = {}  # solvers of earlier phases that phase 14 reads
 
     def row(name, source, replaces, err, ms, plain_ms, tol_text, nbytes, ops, library_ms=None):
         b_ms, b_by = bound(nbytes, ops)
@@ -1265,7 +1537,9 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                 "node_pairs": [broadphase.node_pairs], "node_response": [broadphase.node_response],
                 "tet_block": [assembly.tet_block_factor], "pt_full": [assembly.pt_full],
                 "floor_entries": [pd.floor_entries], "edge_ccd": [broadphase.edge_ccd],
-                "edge_terms": [assembly.edge_terms], "node_contacts": [assembly.node_terms]}
+                "edge_terms": [assembly.edge_terms], "node_contacts": [assembly.node_terms],
+                "residuals": [diagnostics.constraint_residuals],
+                "occupancy": [broadphase.occupancy]}
 
     def reset_launches():
         for fns in wrappers.values():
@@ -1701,6 +1975,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
           f" max |dq| {dq:.3e}, counters {runs[0][1]}")
     print(f"  plain twins: {runs[1][2] * 1e3:.3f} ms/tick ({smi})")
     cloth_off, cloth_first = pos.clone(), first  # collisions off: phase 6c compares
+    keep["cloth"] = s  # phase 14c holds T28's distance and bend rows on its state
     del s, st, topo, warm, runs, pos
 
     # ---- phase 6b
@@ -2259,6 +2534,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         sec, _ = window(sk, 10, False)
         per = {k: v / 10 for k, v in read_launches().items() if v}
         print(f"  kernels: {sec * 1e3:.3f} ms/tick, launches per tick {per} ({smi})")
+        if name == "box_pile":
+            keep["box_pile"] = sk  # phase 14d: T29's all-pairs branch
         del runs, sk, sp
 
     # ---- phase 10
@@ -2668,6 +2945,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     check(counts["cg_trips"] == solves, f"one CG trip per solve ({counts['cg_trips']} trips in"
           f" {solves} solves): the block preconditioner is exact")
     kernels_vs_twins(s, shared)
+    keep["soup"] = s  # phase 14d: T29's packed-body branch
     del soup_3b, s, shared, a, b
 
     # 11c: the sheet over the soup of phase 7, from its first sheet-soup
@@ -2778,6 +3056,10 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches,
             list(wrappers)[:8], ens_members, ens_tets, ens_small)
 
+    # ---- phase 14: the mesher, add_tri_mesh_volume and the diagnostics (T28, T29)
+    phase14(pt, dev, smi, PD, row, launches, reset_launches, read_launches, keep,
+            mesh_res, mesh_scale, mesh_dump)
+
     table = []
     mixed_rows = {"super_broadphase": "super_broadphase",
                   "super_narrowphase": "super_narrowphase",
@@ -2793,6 +3075,11 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             r["launches_by_path"] = {p: launches[p][name] for p in paths}
         elif name in ("tri_candidates", "tri_ccd"):
             r["launches"] = launches["9"][name]
+        elif name in ("residuals", "occupancy"):
+            # The main path: 14a's window and the diagnostics read after it;
+            # 14b's beside it.
+            r["launches"] = launches["14a"][name]
+            r["launches_by_path"] = {p: launches[p][name] for p in ("14a", "14b")}
         elif name in ("edge_ccd", "edge_terms", "node_contacts"):
             # The main path of each: 12b (the nets at full width: T25, T26)
             # and 12c (the node cloud: T27); every phase-12 window beside it.

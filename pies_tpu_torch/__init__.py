@@ -7,15 +7,25 @@ It imports ``torch`` and never ``jax``.  The ported scope is the PD tick
 with floor contact and point-triangle self-contact (in every coupling
 mode) on disjoint tet soups (the tet-column path) and every other scene the
 builders make (the generic path, which also runs edge-edge and node-node
-contacts), and the PBD solver; anything outside it
-raises ``NotImplementedError`` naming the ROADMAP item that will bring it.
+contacts), and the PBD solver; the mesher (``Solver.add_tri_mesh_volume``,
+``scene.tetmesh``) and the diagnostics (``diagnostics``).  Anything outside
+it raises ``NotImplementedError`` naming the ROADMAP item that will bring
+it.
 """
 
 import torch
 
-from .options import PhysicsParams, SolverName, SolverOptions, StepConfig, make_params
+from .options import (
+    CollisionBudget,
+    PhysicsParams,
+    SolverName,
+    SolverOptions,
+    StepConfig,
+    make_params,
+    split_options,
+)
 from .solver.host import Solver
-from .state import SolverState, make_state
+from .state import SolverState, load_state, make_state, save_state
 from .topology import Topology
 
 # Full float32 for matrix products (the GPU form of pies_tpu/ops/precision.py).
@@ -24,6 +34,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = [
+    "CollisionBudget",
     "PhysicsParams",
     "Solver",
     "SolverName",
@@ -31,6 +42,9 @@ __all__ = [
     "SolverState",
     "StepConfig",
     "Topology",
+    "load_state",
     "make_params",
     "make_state",
+    "save_state",
+    "split_options",
 ]

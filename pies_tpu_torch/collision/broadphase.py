@@ -1674,3 +1674,138 @@ def pbd_node_node_response(state, x, vel, params: PhysicsParams, config: StepCon
     rebuilt = pairs(x, state.radius, state.node_mask, cache, params, config, failed)
     x, vel, touching = respond(x, vel, *args, cache, params, failed)
     return x, vel, touching, rebuilt
+
+
+# ---------------------------------------------------------------------------
+# candidate occupancy and the oversize counts: kernel T29
+
+OCC_MODES = ("bodies", "allpairs", "celllist")
+# T29's result words.
+OCC_WORDS = ("count_max", "count_sum", "live_rows", "oversize", "latching")
+OCC_TWIN_ROWS = 1 << 12  # all-pairs rows the twin tests at a time
+
+
+@dataclass(frozen=True)
+class OccupancyLayout:
+    """The branch of ``candidate_occupancy`` (``broadphase.py:1183-1253``)
+    a scene of ``t`` triangle rows takes: ``k`` rows of ``e`` triangles
+    (bodies) or of one, the query's ``cells_cap`` cells and
+    ``entries_cap`` entries a bucket, the candidate ``budget`` and a grid of
+    ``h`` slots (0 for all-pairs)."""
+
+    mode: str
+    t: int
+    k: int
+    e: int
+    cells_cap: int
+    entries_cap: int
+    budget: int
+    h: int
+
+
+def occupancy_layout(config: StepConfig, n_tris: int) -> OccupancyLayout:
+    """The JAX package's three branches in its order: a body stride > 1
+    (the packed-body grid), at most ``allpairs_broadphase_max`` triangles
+    (all-pairs), else the cell list.  As there, a scene whose detection runs
+    the super-body branch is counted by the cell list."""
+    b = config.budget
+    caps = dict(cells_cap=b.max_cells_per_tri, entries_cap=b.max_entries_per_cell)
+    if b.body_stride > 1:
+        e = b.body_stride
+        k = n_tris // e
+        return OccupancyLayout("bodies", n_tris, k, e, budget=b.max_candidates_per_body,
+                               h=table_size_for(2 * k), **caps)
+    if n_tris <= config.allpairs_broadphase_max:
+        return OccupancyLayout("allpairs", n_tris, n_tris, 1, budget=b.max_narrow_candidates,
+                               h=0, **caps)
+    return OccupancyLayout("celllist", n_tris, n_tris, 1, budget=b.max_candidates_per_tri,
+                           h=table_size_for(2 * n_tris), **caps)
+
+
+def occupancy_plain(x, prev, triangles, tri_mask, lay: OccupancyLayout,
+                    sc: Scalars) -> torch.Tensor:
+    """Plain twin of kernel T29: ``i32[5]``, the words ``OCC_WORDS``.  Each
+    row's candidate count is what the branch's front end would gather: the
+    grid modes' query total (entries capped per bucket) capped at the budget,
+    all-pairs' swept-box overlaps with the margin between live rows other
+    than itself (``broadphase.py:1214-1236``).  Then the largest count, the
+    live rows' sum and number, and the live rows whose box spans more than
+    one cell and more than 2 − margin cells (``diagnostics.py:151-169``)."""
+    dev = x.device
+    lo, hi = tri_swept_aabb(x, prev, triangles, sc.cell)
+    live = tri_mask > 0
+    if lay.mode == "bodies":  # a body's box over its live triangles, 0 when dead
+        n, big = lay.k * lay.e, 3.0e38
+        lo = torch.where(live[:, None], lo, big)[:n].view(lay.k, lay.e, 3).amin(1)
+        hi = torch.where(live[:, None], hi, -big)[:n].view(lay.k, lay.e, 3).amax(1)
+        live = live[:n].view(lay.k, lay.e).any(1)
+        lo = torch.where(live[:, None], lo, 0.0)
+        hi = torch.where(live[:, None], hi, 0.0)
+    ext = (hi - lo).amax(-1)
+    if lay.mode == "allpairs":
+        counts = torch.zeros(lay.k, dtype=torch.int64, device=dev)
+        cols = torch.arange(lay.k, device=dev)
+        for r0 in range(0, lay.k, OCC_TWIN_ROWS):
+            rows = slice(r0, min(r0 + OCC_TWIN_ROWS, lay.k))
+            ov = ((lo[None] <= hi[rows, None] + sc.margin)
+                  & (hi[None] >= lo[rows, None] - sc.margin)).all(-1)
+            ov &= live[rows, None] & live[None, :] & (cols[None, :] != cols[rows, None])
+            counts[rows] = ov.sum(1)
+    else:
+        ins_coords, ins_valid = _insertion_slots(lo, hi, live)
+        grid = build_grid(ins_coords, ins_valid, lay.h)
+        q_coords, q_valid, _ = aabb_cell_slots(lo - 1.0, hi, lay.cells_cap, QUERY_RANGE_CAP)
+        _, _, total, _ = query_buckets(grid, q_coords, q_valid & live[:, None],
+                                       lay.entries_cap)
+        counts = total.clamp_max(lay.budget).long()
+    words = [counts.max() if counts.numel() else counts.new_zeros(()),
+             (counts * live).sum(), live.sum(), ((ext > 1.0) & live).sum(),
+             ((ext > sc.size_limit) & live).sum()]
+    return torch.stack(words).to(torch.int32)
+
+
+def occupancy(x, prev, triangles, tri_mask, lay: OccupancyLayout, sc: Scalars) -> torch.Tensor:
+    """Kernel T29 on CUDA tensors, :func:`occupancy_plain` on CPU tensors
+    (same arguments and result, ``i32[5]`` on the device)."""
+    if kernels.on_cpu(x):
+        return occupancy_plain(x, prev, triangles, tri_mask, lay, sc)
+    dev = x.device
+    kernels.require(dev, x, prev, triangles, tri_mask)
+    out = torch.zeros(len(OCC_WORDS), dtype=torch.int32, device=dev)
+    if lay.t == 0:
+        return out
+    bounds = torch.empty((2, lay.t + lay.k, 3), dtype=torch.float32, device=dev)
+    table = torch.empty(max(lay.h, 1), dtype=torch.int32, device=dev)
+    err = kernels.lib().pies_occupancy(
+        x.data_ptr(), prev.data_ptr(), triangles.data_ptr(), tri_mask.data_ptr(),
+        bounds.data_ptr(), table.data_ptr(), out.data_ptr(), OCC_MODES.index(lay.mode),
+        lay.t, lay.k, lay.e, lay.cells_cap, lay.entries_cap, lay.budget, lay.h, sc.cell,
+        sc.margin, sc.size_limit, kernels.stream())
+    kernels.check(err, "occupancy")
+    occupancy.launches += 1
+    return out
+
+
+occupancy.launches = 0
+
+
+def occupancy_result(words, config: StepConfig, n_tris: int):
+    """``(count_max, count_mean, budget)`` of ``candidate_occupancy`` from
+    T29's words (host ints): the mean is the float32 sum over the float32
+    live-row count, as the JAX package divides."""
+    cmax, csum, live = (int(w) for w in words[:3])
+    mean = np.float32(csum) / np.float32(max(live, 1))
+    return cmax, float(mean), occupancy_layout(config, n_tris).budget
+
+
+def candidate_occupancy(x, prev, triangles, tri_mask, params: PhysicsParams,
+                        config: StepConfig):
+    """Candidate-buffer occupancy of the active broadphase branch at the
+    given state (``pies_tpu/collision/broadphase.py:1183-1253``):
+    ``(count_max, count_mean, budget)`` as host numbers.  Static candidate
+    buffers drop overflow gracefully, so a scene can drift toward the budget
+    cliff unseen until contacts go missing; ``count_max / budget > 1`` reads
+    as the overflow factor."""
+    lay = occupancy_layout(config, triangles.shape[0])
+    words = occupancy(x, prev, triangles, tri_mask, lay, scalars(params))
+    return occupancy_result(words.tolist(), config, triangles.shape[0])

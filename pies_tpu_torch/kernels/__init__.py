@@ -57,6 +57,14 @@ wrappers that call them sit beside their plain PyTorch twins:
   ``solver/assembly.py:node_setup``, ``solver/pd.py:node_friction`` (its
   force term runs inside T9's stage 2, ``csrc/node_contacts.cuh``)
 
+* T28 ``pies_constraint_residuals`` — ``diagnostics.py:
+  constraint_residuals`` (one launch per family present and one reduction)
+* T29 ``pies_occupancy`` — ``collision/broadphase.py:occupancy``, the count
+  modes of T5's packed-body grid and T16's all-pairs and cell-list front
+  ends in one source of their own (``csrc/occupancy.cu``, over
+  ``grid.cuh``), behind ``candidate_occupancy`` and
+  ``diagnostics.broadphase_health``
+
 T1-T8 take an ensemble's member axis (``pies_tpu/parallel/ensemble.py``,
 ROADMAP item 10a): their last int argument is the member count, each
 launch's ``blockIdx.y`` is the member, and a single scene is one member.
@@ -134,6 +142,9 @@ SIGNATURES = {
     "pies_edge_setup": [_P] * 23 + [_I] * 3 + [_F, _P],
     "pies_node_setup": [_P] * 16 + [_I] * 3 + [_F, _P],
     "pies_node_friction": [_P] * 16 + [_I, _I] + [_F] * 5 + [_P],
+    "pies_constraint_residuals": ([_P] * 3 + [_I]) + ([_P] * 3 + [_I]) * 2
+    + ([_P] * 5 + [_I]) * 2 + ([_P] * 3 + [_I]) + [_P] * 5,
+    "pies_occupancy": [_P] * 7 + [_I] * 8 + [_F] * 3 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

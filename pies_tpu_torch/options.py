@@ -132,6 +132,8 @@ class StepConfig:
     distance_chain: bool = False
     tet_cols: bool = True
     budget: CollisionBudget = CollisionBudget()
+    # Accepted for parity with the JAX package, which never reads it either.
+    dtype: str = "float32"
 
 
 def _f32(v) -> float:
@@ -167,8 +169,23 @@ class PhysicsParams:
     release_hinge: float = 0.0
 
 
-def make_params(options: SolverOptions, broadphase_cell: float = 1.0,
-                broadphase_slack: float = 0.0, *, release_hinge: bool = False) -> PhysicsParams:
+def split_options(options: SolverOptions, **config_overrides) -> tuple[StepConfig, PhysicsParams]:
+    """Map the reference-shaped options onto (static, dynamic) halves
+    (``pies_tpu/options.py:318-330``)."""
+    config = StepConfig(
+        solver=options.solver,
+        time_substeps=int(options.time_substeps),
+        iterations=int(options.iterations),
+        collision_stabilization_iterations=int(options.collision_stabilization_iterations),
+        **config_overrides,
+    )
+    return config, make_params(options)
+
+
+def make_params(options: SolverOptions, release_hinge: bool = False,
+                broadphase_cell: float = 1.0, broadphase_slack: float = 0.0) -> PhysicsParams:
+    """The step's scalars, with the JAX package's argument order
+    (``pies_tpu/options.py:333-338``)."""
     return PhysicsParams(
         dt=_f32(options.fixed_timestep_size / max(1, options.time_substeps)),
         gravity=_f32(options.gravity),

@@ -35,10 +35,12 @@ list, or the reference sweep under ``broadphase_mode="reference"``).
 Edge-edge contacts (``enable_edge_collisions``) and PD node-node contacts
 (``enable_node_collisions``) run on the generic path of any PD scene.
 
-Anything outside it raises ``NotImplementedError`` naming the ROADMAP item
-that will bring it.  ``dense_operator_max`` is accepted and has no effect:
-the port's generic path always runs Jacobi-PCG, and the JAX package's dense
-prefactorization for small scenes is not ported (ROADMAP, "Not to port").
+Imported closed triangle meshes are tetrahedralized by the lattice mesher
+(``add_tri_mesh_volume``).  Anything outside it raises
+``NotImplementedError`` naming the ROADMAP item that will bring it.
+``dense_operator_max`` is accepted and has no effect: the port's generic
+path always runs Jacobi-PCG, and the JAX package's dense prefactorization
+for small scenes is not ported (ROADMAP, "Not to port").
 """
 
 from __future__ import annotations
@@ -66,14 +68,10 @@ from . import step
 
 _F32 = np.float32
 
-# Solver methods of the JAX package that the port does not have yet, with the
-# ROADMAP item (queue 1) that brings them.
-_NOT_PORTED = {"add_tri_mesh_volume": 9}
-
-
 class NotPortedError(NotImplementedError, AttributeError):
-    """A ``Solver`` method of the JAX package that the port does not have
-    yet; an ``AttributeError`` too, so ``hasattr`` answers False."""
+    """A path of the JAX package that the port does not have yet (the
+    message names its ROADMAP item); an ``AttributeError`` too, so
+    ``hasattr`` answers False where it stands for a missing attribute."""
 
 
 def _detect_chains(idx: np.ndarray, rest: np.ndarray, w: np.ndarray):
@@ -328,13 +326,6 @@ class Solver:
         # None, the default, adds no work.
         self.counters: dict[str, torch.Tensor] | None = None
 
-    def __getattr__(self, name):
-        if name in _NOT_PORTED:
-            raise NotPortedError(
-                f"Solver.{name} is not ported yet: ROADMAP queue 1 item {_NOT_PORTED[name]}"
-            )
-        raise AttributeError(name)
-
     # ------------------------------------------------------------------
     # scene construction
 
@@ -380,6 +371,33 @@ class Solver:
 
     def add_linked_regions(self, region_matrices, w):
         return self._scene(self._builder.add_linked_regions, region_matrices, w)
+
+    def add_tri_mesh_volume(self, vertices, tri_indices, initial_velocity=(0.0, 0.0, 0.0),
+                            density=1.0, strain_stiffness=1000.0, min_strain=0.8,
+                            max_strain=1.0, volume_stiffness=1000.0, compression=1.0,
+                            stretching=1.0, resolution=8, target_tets=None):
+        """Tetrahedralize a closed triangle mesh and add it as a soft body
+        (``pies_tpu/solver/host.py:413-456``, the reference's
+        ``addTriMeshVolume``, ``PrimitiveUtilities.cpp:164-328``): the
+        lattice mesher of ``scene.tetmesh`` in place of tetgen, nodes of
+        radius 0.5 and inverse mass ``1/density``, a strain and a volume
+        constraint on every tet, and the surface triangles.
+        ``target_tets``, when given, overrides ``resolution``."""
+        from ..scene.tetmesh import tetrahedralize
+
+        points, tets, surface = tetrahedralize(
+            np.asarray(vertices, _F32), np.asarray(tri_indices, np.int32),
+            resolution=resolution, target_tets=target_tets)
+        b = self._builder
+        node_ids = b._emit_nodes(points, velocity=initial_velocity, inv_mass=1.0 / density,
+                                 radius=0.5)
+        b._emit_tets(node_ids[tets], 0.0, strain=(min_strain, max_strain),
+                     volume=(compression, stretching), strain_w=strain_stiffness,
+                     volume_w=volume_stiffness)
+        b._emit_triangles(node_ids[surface])
+        self._dirty = True
+        self.render_state_dirty = True
+        return node_ids
 
     def update_fixed_regions(self, region_matrices):
         """Retarget the goal constraints from updated region transforms
@@ -632,9 +650,8 @@ class Solver:
         key = (self._options, bool(self.release_hinge), self._broadphase_cell,
                self._broadphase_slack)
         if self._params is None or self._params_options != key:
-            self._params = make_params(self._options, self._broadphase_cell,
-                                       self._broadphase_slack,
-                                       release_hinge=bool(self.release_hinge))
+            self._params = make_params(self._options, bool(self.release_hinge),
+                                       self._broadphase_cell, self._broadphase_slack)
             self._params_options = key
         return self._params
 

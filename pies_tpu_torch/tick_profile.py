@@ -86,6 +86,16 @@ PBD_WARMUP = 35  # then tick by tick: the ropes reach the floor at tick ~42
 MESH = Path(__file__).resolve().parent.parent / "scripts" / "refbench" / "tet_cube_mesh_100k.txt"
 
 
+def device_events(prof):
+    """The CUDA events of a finished ``torch.profiler`` run, each with its
+    self device time in µs: ``[(event, µs)]`` (newer PyTorch names the
+    field ``self_device_time_total``, older ``self_cuda_time_total``)."""
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    attr = ("self_device_time_total" if events and hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    return [(e, getattr(e, attr)) for e in events]
+
+
 def _clone(state):
     import dataclasses
 
@@ -261,10 +271,8 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
             run10(c)
             wall = time.perf_counter() - t0
         counts = {k: int(v.sum()) for k, v in c.items()} if counters else None
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        attr = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
-                else "self_cuda_time_total")
-        busy_us = sum(getattr(e, attr) for e in events)
+        events = device_events(prof)
+        busy_us = sum(us for _, us in events)
         if failed():
             print("sim_failed latched in the traced window")
         print(f"traced 10 ticks (device counters {'on' if counters else 'off'}): wall"
@@ -272,14 +280,13 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
               f" ({100 * busy_us / 1e6 / wall:.1f}% busy,"
               f" {100 - 100 * busy_us / 1e6 / wall:.1f}% idle)"
               + (f"; counters {counts}" if counters else ""))
-        return events, attr
+        return events
 
     # The first traced window has the path as users run it; the second adds
     # the device counters, and its per-kernel times are printed.
     traced(False)
-    events, attr = traced(True)
-    for e in sorted(events, key=lambda e: -getattr(e, attr)):
-        print(f"  {getattr(e, attr) / 10:10.2f} us/tick  x{e.count / 10:<5.1f} {e.key[:90]}")
+    for e, us in sorted(traced(True), key=lambda eu: -eu[1]):
+        print(f"  {us / 10:10.2f} us/tick  x{e.count / 10:<5.1f} {e.key[:90]}")
     return 0
 
 

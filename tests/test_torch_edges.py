@@ -224,6 +224,50 @@ def test_edge_detection_equals_reference(scene, quirks):
     assert count == hits > 0
 
 
+def test_edge_detection_on_the_full_nets_equals_reference():
+    """``edge_nets`` at its full nn = 24 (1,152 nodes, the cell of
+    ``chip_smoke.py`` phase 12a): both detections on the port's own states
+    after ticks 3, 4 and 5, and on the tick-3 state with every live
+    coordinate moved by a seeded amount under 1e-6; ``edge_idx``,
+    ``edge_mask`` and the overflow flag equal (the JAX detection op by op).
+    The port's run finds edge contacts from its tick-3 prediction on.  The
+    flat nets lie near the CCD's threshold there, so the moved state may
+    find another count; both detections must decide it alike on each
+    input."""
+    t = add_crossing_nets(pt.Solver(pt.SolverOptions(), device="cpu", **_nets_args()), 24)
+    j = add_crossing_nets(pies_tpu.Solver(JOptions(solver=JName.PD), dense_operator_max=0,
+                                          **_nets_args()), 24)
+    j._prepare()
+    p, topo, cfg_j = j.current_params(), j._topology, j._config
+    cfg, params = convert.config_from(cfg_j), convert.params_from(_np(p))
+    n = t._builder.num_nodes
+
+    def both(x, prev):
+        with jax.disable_jit():
+            ji, jm, jo = jdetect(jnp.asarray(x), jnp.asarray(prev), topo.triangles,
+                                 topo.tri_mask, p, cfg_j)
+        ov = torch.zeros(1, dtype=torch.int32)
+        ti, tm, tc, _ = tb.detect_edge_edge_collisions(
+            _t(x), _t(prev), _t(topo.triangles), _t(topo.tri_mask), params, cfg, ov, plain=True)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        assert bool(ov[0]) == bool(jo)
+        return int(tc[0])
+
+    counts = {}
+    t.run_ticks(2)
+    for tick in (3, 4, 5):
+        t.tick()
+        st = t.state
+        x = (st.positions + params.dt * st.velocities * st.node_mask[:, None]).numpy()
+        counts[tick] = both(x, st.prev_positions.numpy())
+        if tick == 3:
+            moved = x.copy()
+            moved[:n] += np.random.default_rng(0).uniform(-1e-6, 1e-6, (n, 3)).astype(np.float32)
+            counts["moved"] = both(moved, st.prev_positions.numpy())
+    assert counts[3] > 0, counts
+
+
 def test_edge_contacts_take_the_generic_path():
     """A tet soup with edge-edge contacts leaves the tet-column path
     (``tetcols.py:82-83``: its triangles make the edge buffer); one without

@@ -269,7 +269,8 @@ def test_self_contact_is_not_ported_yet():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, pies_tpu_torch, pies_tpu_torch.convert; "
+        "import sys, pies_tpu_torch, pies_tpu_torch.convert, pies_tpu_torch.diagnostics, "
+        "pies_tpu_torch.scene.tetmesh, pies_tpu_torch.native.load; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pies_tpu' or m.startswith('pies_tpu.')]; "
         "assert not bad, bad"
