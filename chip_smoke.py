@@ -222,6 +222,34 @@ Phases (any failure exits non-zero, before the result line):
    under the cell list): the five words equal, and ``broadphase_health``
    equal to the twin's words on each scene.
 
+15. Ensembles on the contact-free generic PD path (ROADMAP item 10b-i; T3,
+   T9-T13, T22 and T4 with a member axis, each CG with its own exit per
+   member).  15a ``tests/test_diagnostics.py:47-76`` at its size: 64 x an
+   8-node rope at y = 6 (one pin, w 2000, ``StepConfig`` defaults, so
+   ``cg_rtol`` 0), 10 ticks of ``ensemble_step``: ``num_failed`` 0, the max
+   residual finite, member 0 equal to member 63 and every member bit-equal
+   to the single-scene run.  15b 64 x ``tet_cube_drop`` (``scene/
+   cube_drop.py``: the cube meshed at 10, 1,331 nodes and 6,000 tets each,
+   85,184 nodes a tick, the Solver's defaults with self-contact off), each
+   member lifted by its own seeded offset (up to 0.5 in y, +-0.02 jitter):
+   tick by tick until every member has had floor-active nodes, then three
+   timed ``ensemble_tick_n(10)`` calls (ms/tick, scene-steps/s, launches per
+   tick, CG trips per solve per member), gated on floor contact in every
+   member over the 30 ticks, no latch, finite positions, members 0, 21, 42,
+   63 bit-equal to their single-scene runs and launches per tick equal at B
+   = 64 and B = 1; an exit window with the CG cap raised to 64 trips
+   (at 16 no solve of this mesh meets ``cg_rtol`` 1e-4), gated on the
+   members' trip counts differing and the sampled members equal to their
+   single-scene runs, trips included; a traced window's idle share and
+   device time by kernel.  15c one tick of all 64 members bit-equal to the
+   batched twin's, then each stage's kernel against its batched twin on
+   the same inputs and timed at B against B launches at B = 1: T3, T9's two
+   stages, T10 (ELL), T11 and T4 on 15b's state; T12, T13, T9 stage 2, T10
+   (ELL width 9) and T11 on 8 x the 32 x 32 rigged cloth; T22, T10's band
+   and T11's block solve on 4 x 4,096-tet soups with ``tet_cols=False``.
+   15d 4 x ``tet_cube_drop`` with member 2 latched before the start: after
+   40 ticks it is bit-unchanged and the others have stepped.
+
 The last two lines are the kernel table and the result as JSON objects.
 """
 
@@ -258,6 +286,10 @@ CLOUD_N = 131_072  # the PD node cloud
 ENS_MEMBERS, ENS_TETS = 64, 512  # ensemble_vmap's scenes (bench_all.py:314-333)
 ENS_SAMPLED = (0, 21, 42, 63)  # members held to their single-scene runs
 ENS_SMALL = 4096  # tets of each member of phase 13b's latch ensemble
+ENS_ROPE = 64  # phase 15a: tests/test_diagnostics.py:47-76's ensemble
+ENS_DROP = 64  # phase 15b: members of tet_cube_drop
+ENS_CLOTH = (32, 8)  # phase 15c: the rigged cloth's side and members
+ENS_BLOCK = (4096, 4)  # phase 15c: the soup's tets and members, tet_cols=False
 # Phase 14: the bench's cube (scripts/bench_all.py:86-97, its +0.5 lift in y
 # applied), meshed at 47 cells across and scaled by 6 (the dump MESH_BIG's
 # geometry; its bottom at y = 3), and at 10 for tet_cube_drop.
@@ -1147,11 +1179,406 @@ def phase14(pt, dev, smi, PD, row, launches, reset_launches, read_launches, keep
     keep.clear()
 
 
+def phase15(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, generic,
+            members=ENS_DROP, rope_members=ENS_ROPE, drop_res=DROP_RES, cloth=ENS_CLOTH,
+            block=ENS_BLOCK):
+    """Phase 15: ensembles on the contact-free generic PD path (ROADMAP item
+    10b-i): 15a the reference's own ensemble rollout, 15b ``members`` x
+    ``tet_cube_drop`` timed, 15c the batched kernels against their twins
+    and against B launches at B = 1, 15d a pre-latched member."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pies_tpu_torch.constraints import projections as proj
+    from pies_tpu_torch.parallel import ensemble
+    from pies_tpu_torch.scene.cube_drop import add_cube_drop, lifted_ensemble
+    from pies_tpu_torch.scene.rigged_cloth import add_rigged_cloth
+    from pies_tpu_torch.solver import assembly, pd, step, tetcols
+    from pies_tpu_torch.state import member, stack_ensemble, unstack
+    from pies_tpu_torch.tick_profile import device_events
+    from pies_tpu_torch.topology import row_layout
+
+    fields = ("positions", "prev_positions", "velocities", "forces", "sim_failed", "shape_quats")
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        print(f"  ({what}: {time.perf_counter() - t_phase:.1f} s into phase 15)")
+
+    # 15a: tests/test_diagnostics.py:47-76 at its size, StepConfig defaults.
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False, device=dev)
+    s.create_rope((0.0, 6.0, 0.0), (3.5, 6.0, 0.0), 8, 2000.0)
+    s._prepare()
+    topo, params = s.topology, pt.make_params(pt.SolverOptions())
+    cfg = pt.StepConfig(solver=PD, enable_collisions=False)
+    states, single = stack_ensemble(s.state, rope_members), clone_state(s.state)
+    print(f"phase 15a: the reference's ensemble rollout, {rope_members} x an 8-node rope (one"
+          f" pin, w 2000, StepConfig defaults: cg_rtol {cfg.cg_rtol}), 10 ticks of"
+          " ensemble_step")
+    for _ in range(10):
+        max_res, n_failed = ensemble.ensemble_step(states, topo, params, cfg)
+        step.tick(single, topo, params, cfg)
+    torch.cuda.synchronize()
+    check(int(n_failed) == 0 and math.isfinite(float(max_res))
+          and bool(torch.isfinite(states.positions).all()),
+          f"num_failed 0, max_residual {float(max_res):.4g} finite, positions finite")
+    check(torch.equal(states.positions[0], states.positions[-1])
+          and all(same(member(states, b), single) for b in range(rope_members)),
+          f"member 0 equals member {rope_members - 1}; all {rope_members} members bit-equal to"
+          " the single-scene run")
+    del s, states, single
+
+    # 15b: members x tet_cube_drop, self-contact off, each member lifted.
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False, device=dev)
+    ids = add_cube_drop(s, drop_res)
+    s._prepare()
+    topo, params, cfg = s.topology, s.current_params(), s.config
+    live = len(ids)
+    states = lifted_ensemble(s.state, members, live)
+    n_tets = int((topo.strain.w > 0).sum())
+    print(f"phase 15b: {members} x tet_cube_drop (meshed at {drop_res}: {live} nodes,"
+          f" {n_tets} tets each; {members * live} nodes, {members * n_tets} tets a tick),"
+          f" self-contact off, {cfg.iterations} iterations, {cfg.cg_iterations} CG trips,"
+          f" cg_rtol {cfg.cg_rtol}")
+    check(not tetcols.applies(states, topo, cfg) and pd.ensemble_unported(states, topo, cfg)
+          is None and topo.ell_nbr is not None,
+          f"the contact-free generic path, ELL width {topo.ell_nbr.shape[0]}")
+    seen = torch.zeros(members, dtype=torch.bool, device=dev)
+    for tick in range(1, 121):
+        c = pd.new_counters(dev, members)
+        ensemble.ensemble_tick(states, topo, params, cfg, counters=c)
+        seen |= c["floor_active"] > 0
+        if bool(seen.all()):
+            break
+    else:
+        raise SystemExit(f"FAILED: 15b: {int((~seen).sum())} members never on the floor")
+    check(not bool(states.sim_failed.any()), f"every member has had floor-active nodes by tick"
+          f" {tick} (member 0's floor tick is ~27), none latched")
+    lap("15b warm-up")
+    sampled = [b for b in ENS_SAMPLED if b < members]
+    starts = {b: unstack(states, b) for b in sampled}
+    windows, on_floor = [], torch.zeros(members, dtype=torch.int64, device=dev)
+    for w in range(3):
+        first = tick + 10 * w + 1
+        reset_launches()
+        c = pd.new_counters(dev, members)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ensemble.ensemble_tick_n(states, topo, params, cfg, 10, counters=c)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / 10
+        launches["15b"] = read_launches()
+        counts = {k: v.tolist() for k, v in c.items()}
+        per_tick = sum(launches["15b"][n] for n in generic) / 10
+        trips = counts["cg_trips"]
+        solves = 10 * cfg.time_substeps * cfg.iterations
+        windows.append(sec)
+        on_floor += c["floor_active"]
+        print(f"  window {w + 1}: {sec * 1e3:.3f} ms/tick, {members / sec:.1f} scene-steps/s"
+              f" ({smi}; ticks {first}-{first + 9}; max residual {float(res):.4g});"
+              f" {per_tick:.1f} launches per tick; CG trips per solve {min(trips) / solves:.2f}"
+              f" to {max(trips) / solves:.2f} over the members ({len(set(trips))} distinct"
+              f" counts); floor-active node-substeps {min(counts['floor_active'])} to"
+              f" {max(counts['floor_active'])} per member, in"
+              f" {sum(v > 0 for v in counts['floor_active'])} of {members} members")
+        check(sum(counts["floor_active"]) > 0 and not bool(states.sim_failed.any())
+              and bool(torch.isfinite(states.positions[:, :live]).all()),
+              "floor-active nodes in the window, no member latched, positions finite")
+    # The cubes land from tick ~27 to ~40 and hop off the floor ~20 ticks
+    # after landing, so a member may be airborne through one 10-tick call:
+    # every member is gated on floor contact in the 30 timed ticks.
+    check(int(on_floor.min()) > 0, f"floor-active nodes in every member over ticks {tick + 1}-"
+          f"{tick + 30}: {int(on_floor.min())} to {int(on_floor.max())} node-substeps a member")
+    for b, sb in starts.items():
+        step.tick_n(sb, topo, params, cfg, 30)
+    check(all(same(member(states, b), sb) for b, sb in starts.items()),
+          f"members {sampled} bit-equal to their single-scene kernel runs over the 30 ticks")
+    # The exit window: at the Solver's 16 trips no solve of this mesh meets
+    # cg_rtol 1e-4 (every member runs 4 x 16 trips a tick), so the
+    # per-member exit is shown with the trip cap raised to 64, the same
+    # rtol: each member's solves leave at their own trips.
+    exit_cfg = dataclasses.replace(cfg, cg_iterations=64)
+    starts = {b: unstack(states, b) for b in sampled}
+    c = pd.new_counters(dev, members)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ensemble.ensemble_tick_n(states, topo, params, exit_cfg, 10, counters=c)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / 10
+    trips = c["cg_trips"].tolist()
+    solves = 10 * cfg.time_substeps * cfg.iterations
+    print(f"  exit window (cg_iterations 64, cg_rtol {cfg.cg_rtol}; ticks {tick + 31}-{tick + 40}):"
+          f" {sec * 1e3:.3f} ms/tick ({smi}); CG trips per solve {min(trips) / solves:.2f} to"
+          f" {max(trips) / solves:.2f} over the members, {len(set(trips))} distinct counts")
+    check(len(set(trips)) > 1 and max(trips) < 64 * solves and not bool(states.sim_failed.any()),
+          "per-member CG trip counts not all equal and below the cap: each member's own exit")
+    singles_trips = {}
+    for b, sb in starts.items():
+        cb = pd.new_counters(dev)
+        step.tick_n(sb, topo, params, exit_cfg, 10, counters=cb)
+        singles_trips[b] = int(cb["cg_trips"])
+    check(all(same(member(states, b), sb) and singles_trips[b] == trips[b]
+              for b, sb in starts.items()),
+          f"members {sampled} bit-equal to their single-scene runs over the exit window, trips"
+          f" equal ({[singles_trips[b] for b in sampled]})")
+    one = stack_ensemble(unstack(states, 0), 1)
+    reset_launches()
+    ensemble.ensemble_tick_n(one, topo, params, cfg, 10)
+    torch.cuda.synchronize()
+    launches["15b B=1"] = read_launches()
+    check(launches["15b B=1"] == launches["15b"] and all(launches["15b"][n] > 0 for n in generic),
+          f"launches per tick at B = {members} equal those at B = 1: {per_tick:.1f}"
+          f" ({ {n: launches['15b'][n] / 10 for n in generic} })")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ensemble.ensemble_tick_n(states, topo, params, cfg, 10)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy = sum(us for _, us in events) / 1e3
+    print(f"  traced ticks {tick + 41}-{tick + 50}: wall {wall:.3f} ms, device busy {busy:.3f} ms,"
+          f" idle {100 - 100 * busy / wall:.1f}% ({smi}); device time per tick by kernel:")
+    for e, us in sorted(events, key=lambda eu: -eu[1])[:8]:
+        print(f"    {us / 10:9.2f} us/tick  x{e.count / 10:<6.1f} {e.key[:80]}")
+    print(f"  15b: {min(windows) * 1e3:.3f} to {max(windows) * 1e3:.3f} ms/tick over the three"
+          f" windows, {members / max(windows):.1f} to {members / min(windows):.1f}"
+          " scene-steps/s")
+    drop = (s, states, live)
+    del starts, one
+    lap("15b")
+
+    # 15c: the kernels against the batched twin, and each stage at B against
+    # B launches at B = 1.
+    def stage_checks(label, st, topo, params, cfg):
+        """One substep's stages on ``st`` (a copy), each kernel against its
+        batched twin on the same inputs (the kernels' outputs carried
+        forward); returns the inputs of the timings."""
+        b_, n = st.members, st.capacity
+        work = clone_state(st)
+        head = pd.substep_head(work, topo, params, cfg, False)
+        hp = pd.substep_head_plain(clone_state(st), topo, params, cfg, False)
+        x, msn, diag, wf, active = head
+        failed = work.sim_failed
+        _, h2 = pd._h_h2(params)
+        plane = pd.floor_plane(params, cfg.reference_quirks)
+        held = {"T3": all(torch.equal(a, b) for a, b in zip(head, hp))}
+        factors = None
+        if pd.block_layout(work, topo):
+            factors = assembly.tet_block_factor(diag, topo.tet_block6, failed)
+            held["T22"] = torch.equal(factors, assembly.tet_block_factor_plain(diag,
+                                                                               topo.tet_block6))
+        qk, qp = work.shape_quats.clone(), work.shape_quats.clone()
+        rk = assembly.local_step(x, work.inv_mass, work.mass, qk, topo,
+                                 cfg.rotation_iterations, failed)
+        rp = assembly.local_step(x, work.inv_mass, work.mass, qp, topo,
+                                 cfg.rotation_iterations, failed, plain=True)
+        for name, (at, cnt) in row_layout(topo).items():
+            if cnt:
+                a, b = rk[:, at:at + cnt], rp[:, at:at + cnt]
+                if name in ("bend", "shape"):  # acosf, sinf, cosf against torch's
+                    held[name] = float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+                else:
+                    held[name] = torch.equal(a, b)
+        if qk.shape[-2] > 1:
+            held["quats"] = float((qk - qp).abs().max()) <= 1e-6
+        force = assembly.assemble_force(x, msn, wf, rk, topo, plane, failed)
+        held["T9 stage 2"] = all(torch.equal(a, b) for a, b in zip(
+            force, assembly.assemble_force_plain(x, msn, wf, rk, topo, plane)))
+        held["T10"] = all(torch.equal(a, b) for a, b in zip(
+            assembly.apply_system(x, work.mass, wf, h2, topo, failed, part=True),
+            assembly.apply_system_plain(x, work.mass, wf, h2, topo, part=True)))
+        cg = (force[0], x, diag, work.mass, wf, h2, work.node_mask, topo, cfg.cg_iterations,
+              cfg.cg_rtol, failed, factors)
+        sol, solp = assembly.pcg_solve(*cg), assembly.pcg_solve_plain(*cg)
+        held["T11"] = all(torch.equal(a, b) for a, b in zip(sol, solp))
+        tk, tp = clone_state(work), clone_state(work)
+        pd.substep_tail(tk, topo, params, active, sol[0], force[1])
+        pd.substep_tail_plain(tp, topo, params, active, sol[0], force[1])
+        held["T4"] = same(tk, tp)
+        torch.cuda.synchronize()
+        trips = sol[2][:, 0].tolist()
+        check(all(held.values()), f"{label}: each kernel at B = {b_} equals its batched twin on"
+              f" the same inputs ({', '.join(held)}; bend and shape rows within 1e-6 of the"
+              f" largest, quaternions within 1e-6); CG trips {min(trips)} to {max(trips)},"
+              " equal to the twin's")
+        return dict(work=work, x=x, msn=msn, diag=diag, wf=wf, active=active, rows=rk,
+                    force=force, sol=sol, factors=factors, h2=h2, plane=plane, n=n, b=b_,
+                    trips=trips)
+
+    def time_stages(label, inp, topo, params, cfg, names):
+        """Each stage in ``names`` timed at B = b against b launches of it at
+        B = 1 on the members' views, beside its bound; recorded in the rows."""
+        work, x, failed = inp["work"], inp["x"], inp["work"].sim_failed
+        b_, n, h2, plane = inp["b"], inp["n"], inp["h2"], inp["plane"]
+        lay = row_layout(topo)
+        rows_of = lambda name: lay[name][1]  # noqa: E731
+        m = topo.ell_nbr.shape[0] if topo.ell_nbr is not None else 0
+        c_t = topo.strain.idx.shape[0]
+        quats = work.shape_quats.clone()
+        goal_out = torch.empty((b_, rows_of("goal"), 3), device=dev) if rows_of("goal") else None
+        tail = clone_state(work)
+        r_all = inp["rows"].shape[-2]
+        trips = inp["trips"]
+        g_shape, m_shape = topo.shape.num_groups, topo.shape.node_idx.shape[0]
+        m_goal, g_goal = topo.goal.node_idx.shape[0], topo.goal.num_groups
+        c_dist, c_bend = topo.distance.idx.shape[0], topo.bend.idx.shape[0]
+        k_blk = n // 4
+        table = {
+            "T3 substep_head": ("substep_head", lambda st_: pd.substep_head(
+                st_, topo, params, cfg, False), (work,), 76 * b_ * n, 17 * b_ * n),
+            "T9 stage 1": ("tet_force_nodes", lambda x_, f_: proj.tet_force12_gathered(
+                x_, topo.strain, topo.volume, f_), (x, failed),
+                124 * c_t + b_ * (12 * n + 48 * c_t), b_ * 1500 * c_t),
+            "T9 stage 2": ("tet_force_nodes", lambda x_, m_, w_, r_, f_: assembly.assemble_force(
+                x_, m_, w_, r_, topo, plane, f_), (x, inp["msn"], inp["wf"], inp["rows"], failed),
+                4 * n + 4 * r_all + b_ * (52 * n + 12 * r_all), b_ * (3 * r_all + 12 * n)),
+            "T10": ("ell_matvec", lambda x_, ms_, w_, f_: assembly.apply_system(
+                x_, ms_, w_, h2, topo, f_, part=True), (x, work.mass, inp["wf"], failed),
+                8 * m * n + b_ * 32 * n, b_ * (6 * m + 9) * n),
+            "T11": ("pcg", lambda b0, x_, d_, ms_, w_, k_, f_, bl_: assembly.pcg_solve(
+                b0, x_, d_, ms_, w_, h2, k_, topo, cfg.cg_iterations, cfg.cg_rtol, f_, bl_),
+                (inp["force"][0], x, inp["diag"], work.mass, inp["wf"], work.node_mask, failed,
+                 inp["factors"]),
+                8 * m * n + sum(88 * n + t * 128 * n + (t + 1) * 32 * n for t in trips),
+                sum((t + 1) * (6 * m + 9) * n + t * 30 * n for t in trips)),
+            "T12 distance": ("constraint_rows", lambda x_, f_: proj.distance_rows(
+                x_, topo.distance, f_), (x, failed), 16 * c_dist + b_ * (12 * n + 24 * c_dist),
+                b_ * 30 * c_dist),
+            "T12 bend": ("constraint_rows", lambda x_, im_, f_: proj.bend_rows(
+                x_, im_, topo.bend, f_), (x, work.inv_mass, failed),
+                24 * c_bend + b_ * (16 * n + 48 * c_bend), b_ * 250 * c_bend),
+            "T13 shape": ("shape_match", lambda x_, ms_, q_, f_: proj.shape_rows(
+                x_, ms_, q_, topo.shape, cfg.rotation_iterations, f_),
+                (x, work.mass, quats, failed), 20 * m_shape + 60 * g_shape
+                + b_ * (28 * m_shape + 32 * g_shape),
+                b_ * (60 * m_shape + 200 * cfg.rotation_iterations * g_shape)),
+            "T13 goal": ("shape_match", lambda f_, o_: proj.goal_rows(topo.goal, f_, o_),
+                         (failed, goal_out), 24 * m_goal + 64 * g_goal + b_ * 12 * m_goal,
+                         b_ * 20 * m_goal),
+            "T22": ("tet_block", lambda d_, f_: assembly.tet_block_factor(
+                d_, topo.tet_block6, f_), (inp["diag"], failed), 24 * k_blk + b_ * 56 * k_blk,
+                b_ * 40 * k_blk),
+            "T4 substep_tail": ("substep_tail", lambda st_, a_, x_, sp_: pd.substep_tail(
+                st_, topo, params, a_, x_, sp_),
+                (tail, inp["active"], inp["sol"][0], inp["force"][1]), 120 * b_ * n,
+                25 * b_ * n),
+        }
+        print(f"phase 15c: {label}, each stage at B = {b_} against {b_} launches at B = 1"
+              f" ({smi})")
+        for stage in names:
+            row_name, fn, args, nbytes, ops = table[stage]
+            per = [tuple(member(t, k) for t in args) for k in range(b_)]
+            ms_b = cuda_ms(lambda: fn(*args), 20)
+            ms_1 = cuda_ms(lambda: [fn(*p) for p in per], 5)
+            b_ms, b_by = bound(nbytes, ops)
+            print(f"  {stage}: B = {b_} {ms_b:.4f} ms, {b_} x B = 1 {ms_1:.4f} ms"
+                  f" ({ms_1 / ms_b:.1f}x), bound {b_ms:.4f} ms ({b_by})")
+            if row_name in rows:
+                rows[row_name].setdefault("ensemble_generic", {})[f"{stage}, {label}"] = dict(
+                    members=b_, b_ms=ms_b, b1_x_members_ms=ms_1, bound_ms=b_ms, bound_by=b_by)
+
+    s, states, live = drop
+    label = f"15b's state ({members} x tet_cube_drop)"
+    e, p = clone_state(states), clone_state(states)
+    c, cp = pd.new_counters(dev, members), pd.new_counters(dev, members)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ensemble.ensemble_tick(e, topo, params, cfg, counters=c)
+    torch.cuda.synchronize()
+    sec_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step.tick(p, topo, params, cfg, plain=True, counters=cp)
+    torch.cuda.synchronize()
+    sec_p = time.perf_counter() - t0
+    apart = [b for b in range(members) if not same(member(e, b), member(p, b))]
+    check(not apart and all(torch.equal(c[k], cp[k]) for k in c),
+          f"one tick: all {members} members' states and counters bit-equal to the batched twin's"
+          f" (CG trips {min(c['cg_trips'].tolist())} to {max(c['cg_trips'].tolist())}; apart:"
+          f" {apart}); kernels {sec_k * 1e3:.3f} ms, batched twin {sec_p * 1e3:.3f} ms ({smi})")
+    del e, p
+    inp = stage_checks(label, states, topo, params, cfg)
+    time_stages(label, inp, topo, params, cfg, ["T3 substep_head", "T9 stage 1", "T9 stage 2",
+                                                "T10", "T11", "T4 substep_tail"])
+    del inp
+    lap("15c on 15b's state")
+
+    side, b_cloth = cloth
+    c_s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False, device=dev)
+    add_rigged_cloth(c_s, side)
+    c_s._prepare()
+    ctopo, cparams, ccfg = c_s.topology, c_s.current_params(), c_s.config
+    cst = lifted_ensemble(c_s.state, b_cloth, c_s._builder.num_nodes)
+    ensemble.ensemble_tick_n(cst, ctopo, cparams, ccfg, 20)
+    reset_launches()
+    ensemble.ensemble_tick_n(cst, ctopo, cparams, ccfg, 2)
+    torch.cuda.synchronize()
+    launches["15c cloth"] = read_launches()
+    label = f"the {side} x {side} rigged cloth at B = {b_cloth}"
+    check(ctopo.ell_nbr is not None and ctopo.ell_nbr.shape[0] == 9
+          and not bool(cst.sim_failed.any()),
+          f"{label}: the generic path with every family but the tets, ELL width 9, 22 ticks,"
+          " none latched")
+    inp = stage_checks(label, cst, ctopo, cparams, ccfg)
+    time_stages(label, inp, ctopo, cparams, ccfg, ["T12 distance", "T12 bend", "T13 shape",
+                                                   "T13 goal", "T9 stage 2", "T10", "T11"])
+    del inp, c_s, cst
+
+    n_blk, b_blk = block
+    b_s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False, device=dev)
+    b_s.create_tet_soup(n_blk, **SCENE)
+    b_s._prepare()
+    b_s._config = dataclasses.replace(b_s.config, tet_cols=False)
+    btopo, bparams, bcfg = b_s.topology, b_s.current_params(), b_s.config
+    bst = lifted_ensemble(b_s.state, b_blk, b_s._builder.num_nodes)
+    check(not tetcols.applies(bst, btopo, bcfg) and pd.block_layout(bst, btopo)
+          and btopo.tet_band is not None and btopo.ell_nbr.shape[0] == 0,
+          f"{b_blk} x {n_blk}-tet soups with tet_cols=False: the block preconditioner, the band"
+          " and an ELL of width 0")
+    ensemble.ensemble_tick_n(bst, btopo, bparams, bcfg, FLOOR_WARMUP)
+    reset_launches()
+    ensemble.ensemble_tick_n(bst, btopo, bparams, bcfg, 2)
+    torch.cuda.synchronize()
+    launches["15c soup"] = read_launches()
+    label = f"{b_blk} x {n_blk}-tet soups off the tet-column path"
+    inp = stage_checks(label, bst, btopo, bparams, bcfg)
+    check(set(inp["trips"]) == {1}, "one CG trip per solve: the block preconditioner is exact")
+    time_stages(label, inp, btopo, bparams, bcfg, ["T22", "T10", "T11"])
+    del inp, b_s, bst
+    lap("15c")
+
+    # 15d: a member latched before the start stays frozen, the others step.
+    e4 = lifted_ensemble(s.state, 4, live)
+    e4.sim_failed[2, 0] = 1
+    start, others = unstack(e4, 2), [unstack(e4, b) for b in (0, 1, 3)]
+    c = pd.new_counters(dev, 4)
+    ensemble.ensemble_tick_n(e4, topo, params, cfg, 40, counters=c)
+    latched = (e4.sim_failed != 0).any(dim=-1).tolist()
+    trips = c["cg_trips"].tolist()
+    print(f"phase 15d: 4 x tet_cube_drop, member 2 latched before the start, 40 ticks: latched"
+          f" {latched}, CG trips {trips}, floor-active node-substeps"
+          f" {c['floor_active'].tolist()}")
+    check(same(member(e4, 2), start) and trips[2] == 0 and int(c["floor_active"][2]) == 0,
+          "the latched member is bit-unchanged and counts nothing")
+    check(latched == [False, False, True, False] and min(trips[:2] + trips[3:]) > 0
+          and all(not torch.equal(member(e4, b).positions, o.positions)
+                  for b, o in zip((0, 1, 3), others))
+          and bool(torch.isfinite(e4.positions).all()),
+          "the others step, unlatched and finite")
+    lap("15d")
+
+
 def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
          cloth_n=CLOTH_N, n_blobs=N_BLOBS, mixed_sheet=MIXED_SHEET, small_sheet=SMALL_SHEET,
          pbd_big=PBD_BIG, pbd_bench=PBD_BENCH, nets_nn=NETS_NN, nets_big=NETS_BIG,
          cloud_n=CLOUD_N, ens_members=ENS_MEMBERS, ens_tets=ENS_TETS, ens_small=ENS_SMALL,
-         mesh_res=MESH_RES, mesh_scale=MESH_SCALE, mesh_dump=MESH_BIG):
+         mesh_res=MESH_RES, mesh_scale=MESH_SCALE, mesh_dump=MESH_BIG, ens_drop=ENS_DROP,
+         ens_rope=ENS_ROPE, drop_res=DROP_RES, ens_cloth=ENS_CLOTH, ens_block=ENS_BLOCK):
     import torch
 
     # ---- phase 0
@@ -3060,7 +3487,14 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     phase14(pt, dev, smi, PD, row, launches, reset_launches, read_launches, keep,
             mesh_res, mesh_scale, mesh_dump)
 
+    # ---- phase 15: ensembles on the contact-free generic path (T3, T9-T13,
+    # T22, T4 with a member axis)
+    phase15(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, generic, ens_drop,
+            ens_rope, drop_res, ens_cloth, ens_block)
+
     table = []
+    generic_ens = ("substep_head", "substep_tail", "tet_force_nodes", "ell_matvec", "pcg",
+                   "constraint_rows", "shape_match", "tet_block")
     mixed_rows = {"super_broadphase": "super_broadphase",
                   "super_narrowphase": "super_narrowphase",
                   "assemble_force_contacts": "tet_force_nodes", "ell_matvec_band": "ell_matvec"}
@@ -3100,6 +3534,13 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         if name in list(wrappers)[:8]:
             # T1-T8: the soup's path (3b) and the ensemble's (13, B = 64).
             r["launches_by_path"] = {p: launches[p][name] for p in ("3b", "13")}
+        if name in generic_ens:
+            # The generic path's ensembles: 15b (B = 64 x tet_cube_drop), and
+            # 15c's cloth and soup where only they reach the kernel.
+            paths = {"15b": launches["15b"][name]}
+            if launches["15b"][name] == 0:
+                paths.update({p: launches[p][name] for p in ("15c cloth", "15c soup")})
+            r.setdefault("launches_by_path", {}).update(paths)
         table.append(r)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": table}))

@@ -25,6 +25,12 @@ Every wrapper has a plain twin (``*_plain``), used for CPU tensors and as
 the oracle on the card.  The twins do each float32 operation in the kernels'
 order, so the two agree bit for bit wherever no ``acos``, ``sin`` or ``cos``
 is involved.
+
+An ensemble (``state.py``: positions f32[B, N, 3]) goes through the same
+wrappers: a CUDA tensor with a member axis launches each kernel once with
+the member count, the rows go to f32[B, R, 3] (a member-major view of the
+row buffer) and the shape groups' rotations are per member, f32[B, G, 4];
+each twin runs member by member (``state.each_member``).
 """
 
 from __future__ import annotations
@@ -184,13 +190,23 @@ def tet_force12_single_cols(p, batch: TetBatch, kind: str):
     return out
 
 
-def _rows_out(out: torch.Tensor | None, rows: int, like: torch.Tensor) -> torch.Tensor:
-    """``out`` checked, or a new f32[rows, 3] beside ``like``."""
+def _rows_out(out: torch.Tensor | None, rows: int, like: torch.Tensor,
+              members: int = 0) -> torch.Tensor:
+    """``out`` checked, or a new f32[rows, 3] (f32[members, rows, 3] for an
+    ensemble) beside ``like``."""
+    shape = ((members,) if members else ()) + (rows, 3)
     if out is None:
-        return torch.empty((rows, 3), dtype=torch.float32, device=like.device)
-    if tuple(out.shape) != (rows, 3):
-        raise ValueError(f"the rows go to f32[{rows}, 3], got {tuple(out.shape)}")
+        return torch.empty(shape, dtype=torch.float32, device=like.device)
+    if tuple(out.shape) != shape:
+        raise ValueError(f"the rows go to f32{list(shape)}, got {tuple(out.shape)}")
     return out
+
+
+def _twin_rows(fn, x: torch.Tensor, out, *args):
+    """A row twin on an ensemble: ``fn(x_b, *args_b, out_b)`` member by
+    member; returns ``out`` when given, else the stacked rows."""
+    rows = each_member(fn, members_of(x), x, *args, out)
+    return rows if out is None else out
 
 
 def _store(out: torch.Tensor | None, rows: torch.Tensor) -> torch.Tensor:
@@ -209,7 +225,11 @@ def tet_force12_gathered_plain(x: torch.Tensor, strain: TetBatch, volume: TetBat
     ids, as the JAX scatter's update rows ``blocks`` f32[4C, 3] (row
     ``a·C + t`` is corner a of tet t), written to ``out`` when given.
     ``kind``: "fused" (strain + volume on shared tets), "strain" or "volume"
-    (that batch alone).  ``failed`` is accepted for signature parity."""
+    (that batch alone).  ``failed`` is accepted for signature parity.  An
+    ensemble's ``x`` f32[B, N, 3] gives f32[B, 4C, 3], member by member."""
+    if members_of(x):
+        return _twin_rows(lambda xb, fb, ob: tet_force12_gathered_plain(xb, strain, volume, fb,
+                                                                       ob, kind), x, out, failed)
     batch = volume if kind == "volume" else strain
     idx = batch.idx.long()
     p = [[x[idx[:, a], d] for d in range(3)] for a in range(4)]
@@ -235,11 +255,13 @@ def tet_force12_gathered(x: torch.Tensor, strain: TetBatch, volume: TetBatch,
         raise ValueError(f"tet ids must be [{c}, 4], got {tuple(first.idx.shape)}")
     b = (first.qinv, first.g, first.lo, first.hi, first.w,
          second.lo, second.hi, second.w)
-    blocks = _rows_out(out, 4 * c, x)
-    kernels.require(x.device, x, first.idx, failed, blocks, *b)
+    blocks = _rows_out(out, 4 * c, x, members_of(x))
+    stride = kernels.row_stride(x.device, blocks)
+    kernels.require(x.device, x, first.idx, failed, *b)
     err = kernels.lib().pies_tet_force12_gather(
         x.data_ptr(), first.idx.data_ptr(), *(t.data_ptr() for t in b),
-        blocks.data_ptr(), c, TET_KINDS[kind], failed.data_ptr(), kernels.stream(),
+        blocks.data_ptr(), c, TET_KINDS[kind], failed.data_ptr(), x.shape[-2], stride,
+        kernels.launch_members(x, failed), kernels.stream(),
     )
     kernels.check(err, "tet_force12_gather")
     tet_force12_gathered.launches += 1
@@ -274,7 +296,10 @@ def distance_rows_plain(x: torch.Tensor, batch: DistanceBatch, failed=None,
     """Plain twin of T12's distance kernel: the update rows f32[2C, 3] of
     ``assemble_force``'s distance scatter (``assembly.py:218-227``),
     ``+0.5·w·(p0 − p1)`` for the C first nodes, then the negated rows for
-    the second nodes."""
+    the second nodes; f32[B, 2C, 3] for an ensemble, member by member."""
+    if members_of(x):
+        return _twin_rows(lambda xb, fb, ob: distance_rows_plain(xb, batch, fb, ob), x, out,
+                          failed)
     half = (0.5 * batch.w)[:, None] * project_distance_delta(x, batch)
     return _store(out, torch.cat([half, -half]))
 
@@ -286,11 +311,13 @@ def distance_rows(x: torch.Tensor, batch: DistanceBatch, failed=None, out=None) 
     if failed is None:
         raise ValueError("the distance-row kernel needs the failure latch")
     c = batch.idx.shape[0]
-    rows = _rows_out(out, 2 * c, x)
-    kernels.require(x.device, x, batch.idx, batch.rest, batch.w, rows, failed)
+    rows = _rows_out(out, 2 * c, x, members_of(x))
+    stride = kernels.row_stride(x.device, rows)
+    kernels.require(x.device, x, batch.idx, batch.rest, batch.w, failed)
     err = kernels.lib().pies_distance_rows(
         x.data_ptr(), batch.idx.data_ptr(), batch.rest.data_ptr(), batch.w.data_ptr(),
-        rows.data_ptr(), c, failed.data_ptr(), kernels.stream())
+        rows.data_ptr(), c, failed.data_ptr(), x.shape[-2], stride,
+        kernels.launch_members(x, failed), kernels.stream())
     kernels.check(err, "distance_rows")
     distance_rows.launches += 1
     return rows
@@ -349,7 +376,11 @@ def bend_rows_plain(x: torch.Tensor, inv_mass: torch.Tensor, batch: BendBatch,
                     failed=None, out=None) -> torch.Tensor:
     """Plain twin of T12's bend kernel: the update rows f32[4C, 3] of
     ``assemble_force``'s bend scatter (``assembly.py:269-271``), row
-    ``4c + k`` the weighted projection ``w·p`` of node k of bend c."""
+    ``4c + k`` the weighted projection ``w·p`` of node k of bend c;
+    f32[B, 4C, 3] for an ensemble, member by member."""
+    if members_of(x):
+        return _twin_rows(lambda xb, mb, fb, ob: bend_rows_plain(xb, mb, batch, fb, ob), x, out,
+                          inv_mass, failed)
     rows = batch.w[:, None, None] * project_bend(x, inv_mass, batch)
     return _store(out, rows.reshape(-1, 3))
 
@@ -363,12 +394,14 @@ def bend_rows(x: torch.Tensor, inv_mass: torch.Tensor, batch: BendBatch, failed=
     if failed is None:
         raise ValueError("the bend-row kernel needs the failure latch")
     c = batch.idx.shape[0]
-    rows = _rows_out(out, 4 * c, x)
-    kernels.require(x.device, x, inv_mass, batch.idx, batch.rest_angle, batch.w, rows, failed)
+    rows = _rows_out(out, 4 * c, x, members_of(x))
+    stride = kernels.row_stride(x.device, rows)
+    kernels.require(x.device, x, inv_mass, batch.idx, batch.rest_angle, batch.w, failed)
     err = kernels.lib().pies_bend_rows(
         x.data_ptr(), inv_mass.data_ptr(), batch.idx.data_ptr(),
         batch.rest_angle.data_ptr(), batch.w.data_ptr(), rows.data_ptr(), c,
-        failed.data_ptr(), kernels.stream())
+        failed.data_ptr(), x.shape[-2], stride, kernels.launch_members(x, failed, inv_mass),
+        kernels.stream())
     kernels.check(err, "bend_rows")
     bend_rows.launches += 1
     return rows
@@ -461,7 +494,12 @@ def shape_rows_plain(x: torch.Tensor, mass: torch.Tensor, quats: torch.Tensor,
     """Plain twin of T13's shape kernel: the update rows f32[M, 3] of
     ``assemble_force``'s shape scatter (``assembly.py:275-278``), each
     member's projection times ``w[group]·mask``; ``quats`` f32[G, 4] takes
-    the new rotations in place, unless slot 0 of ``failed`` is set."""
+    the new rotations in place, unless slot 0 of ``failed`` is set.  An
+    ensemble (``x`` f32[B, N, 3], ``quats`` f32[B, G, 4]) runs member by
+    member."""
+    if members_of(x):
+        return _twin_rows(lambda xb, mb, qb, fb, ob: shape_rows_plain(
+            xb, mb, qb, batch, rotation_iterations, fb, ob), x, out, mass, quats, failed)
     projected, new = project_shape(x, mass, quats, batch, rotation_iterations)
     if failed is not None:
         new = torch.where(failed[0] != 0, quats, new)
@@ -479,15 +517,19 @@ def shape_rows(x: torch.Tensor, mass: torch.Tensor, quats: torch.Tensor, batch: 
     if failed is None:
         raise ValueError("the shape-matching kernel needs the failure latch")
     m, g = batch.node_idx.shape[0], batch.num_groups
-    if tuple(quats.shape) != (g, 4) or batch.member_start.shape[0] != g + 1:
-        raise ValueError(f"{g} groups need quats [{g}, 4] and {g + 1} member starts")
-    rows = _rows_out(out, m, x)
+    lead = x.shape[:-2]
+    if tuple(quats.shape) != lead + (g, 4) or batch.member_start.shape[0] != g + 1:
+        raise ValueError(f"{g} groups need quats {list(lead + (g, 4))} and {g + 1} member"
+                         " starts")
+    rows = _rows_out(out, m, x, members_of(x))
+    stride = kernels.row_stride(x.device, rows)
     b = (batch.node_idx, batch.mat_coords, batch.member_mask, batch.member_start, batch.w,
          batch.group_mask, batch.inv_count, batch.qinv)
-    kernels.require(x.device, x, mass, quats, rows, failed, *b)
+    kernels.require(x.device, x, mass, quats, failed, *b)
     err = kernels.lib().pies_shape_rows(
         x.data_ptr(), mass.data_ptr(), *(t.data_ptr() for t in b), quats.data_ptr(),
-        rows.data_ptr(), m, g, int(rotation_iterations), failed.data_ptr(), kernels.stream())
+        rows.data_ptr(), m, g, int(rotation_iterations), failed.data_ptr(), x.shape[-2],
+        stride, kernels.launch_members(x, failed, mass), kernels.stream())
     kernels.check(err, "shape_rows")
     shape_rows.launches += 1
     return rows
@@ -510,22 +552,35 @@ def project_goal(batch: GroupBatch) -> torch.Tensor:
 
 def goal_rows_plain(batch: GroupBatch, failed=None, out=None) -> torch.Tensor:
     """Plain twin of T13's goal kernel: the update rows f32[M, 3] of
-    ``assemble_force``'s goal scatter, ``w[group]·mask·T·(mat, 1)``."""
+    ``assemble_force``'s goal scatter, ``w[group]·mask·T·(mat, 1)``; into an
+    ensemble's ``out`` f32[B, M, 3] member by member (the transforms are
+    shared)."""
+    if out is not None and out.dim() == 3:
+        for b in range(out.shape[0]):
+            goal_rows_plain(batch, None if failed is None else failed[b], out[b])
+        return out
     return _store(out, _member_weights(batch)[:, None] * project_goal(batch))
 
 
 def goal_rows(batch: GroupBatch, failed=None, out=None) -> torch.Tensor:
-    """T13's goal kernel on CUDA tensors, its twin on CPU tensors."""
+    """T13's goal kernel on CUDA tensors, its twin on CPU tensors; an
+    ensemble's rows ``out`` f32[B, M, 3] with its latch ``failed`` i32[B,
+    2] in one launch."""
     if kernels.on_cpu(batch.mat_coords):
         return goal_rows_plain(batch, failed, out)
     if failed is None:
         raise ValueError("the goal-matching kernel needs the failure latch")
     m = batch.node_idx.shape[0]
-    rows = _rows_out(out, m, batch.mat_coords)
+    members = out.shape[0] if out is not None and out.dim() == 3 else 0
+    if failed.shape[:-1] != ((members,) if members else ()):
+        raise ValueError("the latch needs the rows' member axis")
+    rows = _rows_out(out, m, batch.mat_coords, members)
+    stride = kernels.row_stride(rows.device, rows)
     b = (batch.group_idx, batch.mat_coords, batch.member_mask, batch.w, batch.transforms)
-    kernels.require(rows.device, rows, failed, *b)
+    kernels.require(rows.device, failed, *b)
     err = kernels.lib().pies_goal_rows(
-        *(t.data_ptr() for t in b), rows.data_ptr(), m, failed.data_ptr(), kernels.stream())
+        *(t.data_ptr() for t in b), rows.data_ptr(), m, failed.data_ptr(), stride,
+        max(members, 1), kernels.stream())
     kernels.check(err, "goal_rows")
     goal_rows.launches += 1
     return rows

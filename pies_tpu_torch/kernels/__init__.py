@@ -65,9 +65,12 @@ wrappers that call them sit beside their plain PyTorch twins:
   ``grid.cuh``), behind ``candidate_occupancy`` and
   ``diagnostics.broadphase_health``
 
-T1-T8 take an ensemble's member axis (``pies_tpu/parallel/ensemble.py``,
-ROADMAP item 10a): their last int argument is the member count, each
-launch's ``blockIdx.y`` is the member, and a single scene is one member.
+T1-T8 (ROADMAP item 10a) and the generic path's T9-T13 and T22 (item
+10b-i) take an ensemble's member axis (``pies_tpu/parallel/ensemble.py``):
+their last int argument is the member count, each launch's ``blockIdx.y``
+is the member, and a single scene is one member.  The row kernels (T9's
+stage 1, T12, T13) and T9's stage 2 also take the row buffer's member
+stride, in rows, since each family writes its part of one buffer.
 
 Each source compiles to an object in its own ``nvcc`` process, all started
 together, and the objects link into one library.
@@ -113,18 +116,18 @@ SIGNATURES = {
     "pies_super_narrowphase": [_P] * 16 + [_I] * 11 + [_F, _P],
     "pies_pt_force": [_P] * 9 + [_I, _I, _F, _I, _P],
     "pies_pt_tail": [_P] * 23 + [_I] * 6 + [_F] * 6 + [_I, _P],
-    "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P, _P],
+    "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P] + [_I] * 3 + [_P],
     "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 8 + [_I, _F] + [_P] * 10
-    + [_I, _F] + [_P] * 8 + [_I, _P],
+    + [_I, _F] + [_P] * 8 + [_I] * 3 + [_P],
     "pies_ell_matvec": [_P] * 8 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F]
-    + [_P] * 5 + [_I] + [_P] * 7 + [_I, _F, _P],
-    "pies_cg_init": [_P] * 13 + [_I, _P, _P],
-    "pies_cg_update": [_P] * 13 + [_I] * 3 + [_F, _P, _P],
-    "pies_cg_direction": [_P] * 5 + [_I] * 3 + [_F, _P, _P],
-    "pies_distance_rows": [_P] * 5 + [_I, _P, _P],
-    "pies_bend_rows": [_P] * 6 + [_I, _P, _P],
-    "pies_shape_rows": [_P] * 12 + [_I, _I, _I, _P, _P],
-    "pies_goal_rows": [_P] * 6 + [_I, _P, _P],
+    + [_P] * 5 + [_I] + [_P] * 7 + [_I, _F, _I, _P],
+    "pies_cg_init": [_P] * 13 + [_I, _P, _I, _P],
+    "pies_cg_update": [_P] * 13 + [_I] * 3 + [_F, _P, _I, _P],
+    "pies_cg_direction": [_P] * 5 + [_I] * 3 + [_F, _P, _I, _P],
+    "pies_distance_rows": [_P] * 5 + [_I, _P] + [_I] * 3 + [_P],
+    "pies_bend_rows": [_P] * 6 + [_I, _P] + [_I] * 3 + [_P],
+    "pies_shape_rows": [_P] * 12 + [_I, _I, _I, _P] + [_I] * 3 + [_P],
+    "pies_goal_rows": [_P] * 6 + [_I, _P, _I, _I, _P],
     "pies_tri_candidates": [_P] * 17 + [_I] * 12 + [_F] * 3 + [_P],
     "pies_tri_ccd": [_P] * 12 + [_I] * 4 + [_F, _P],
     "pies_pbd_rows": [_I] + [_P] * 8 + [_I, _F, _I, _P, _P],
@@ -136,7 +139,7 @@ SIGNATURES = {
     "pies_pbd_color_class": [_P] * 4 + [_I, _I, _P, _P],
     "pies_node_pairs": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_P],
     "pies_node_response": [_P] * 13 + [_I, _F, _F, _P, _P],
-    "pies_tet_block_factor": [_P] * 3 + [_I, _P, _P],
+    "pies_tet_block_factor": [_P] * 3 + [_I, _P, _I, _P],
     "pies_floor_entries": [_P] * 4 + [_F] + [_P] * 5 + [_I, _P, _P],
     "pies_edge_ccd": [_P] * 13 + [_I] * 4 + [_P],
     "pies_edge_setup": [_P] * 23 + [_I] * 3 + [_F, _P],
@@ -253,6 +256,30 @@ def require(device: torch.device, *tensors: torch.Tensor | None) -> None:
             raise ValueError(f"dtype {t.dtype}: the kernels take float32/int32")
         if not t.is_contiguous():
             raise ValueError("the kernels take contiguous tensors")
+
+
+def launch_members(x: torch.Tensor, failed: torch.Tensor, *batched: torch.Tensor) -> int:
+    """The member count a kernel launches with for the positions (or
+    vectors) ``x`` f32[..., N, 3]: B for an ensemble's f32[B, N, 3], 1 for
+    a single scene.  Raises unless the latch ``failed`` and the per-member
+    arrays ``batched`` carry the same member axis."""
+    lead = x.shape[:-2]
+    if failed.shape[:-1] != lead or any(t.shape[:len(lead)] != lead for t in batched):
+        raise ValueError("the latch and the per-member arrays need the positions' member axis")
+    return lead[0] if lead else 1
+
+
+def row_stride(device: torch.device, rows: torch.Tensor) -> int:
+    """The member stride, in rows, of a force-row output f32[R, 3] or f32[B,
+    R, 3]: an ensemble's family writes its part of one row buffer, a view
+    whose members are ``stride`` rows apart.  Raises unless each member's
+    rows are contiguous float32 on ``device``."""
+    if rows.device != device or rows.dtype != torch.float32:
+        raise ValueError(f"rows on {rows.device} as {rows.dtype}, expected float32 on {device}")
+    if rows.stride(-1) != 1 or rows.stride(-2) != 3 or (rows.dim() == 3
+                                                        and rows.stride(0) % 3):
+        raise ValueError("the row kernels take rows of 3 contiguous floats per member")
+    return rows.stride(0) // 3 if rows.dim() == 3 else rows.shape[0]
 
 
 def on_cpu(t: torch.Tensor) -> bool:

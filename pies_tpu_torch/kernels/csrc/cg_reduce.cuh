@@ -18,6 +18,15 @@
 // and, with the early exit on, rz_i > float32(rtol^2) * rz_0.  The host
 // enqueues all cg_iterations trips and never waits; the trips that the
 // while_loop would not run change nothing.
+//
+// Ensembles (the CG under jax.vmap, pies_tpu/parallel/ensemble.py:41):
+// each member has its own gate.  A stage's blockIdx.y is the member b, and
+// CgGate::member(b) points at b's trip count trips[b], its r.z partials
+// prz[b] ([2, P]) and prz0[b] ([P]).  Trip i of member b runs iff b ran
+// trips 0..i-1 and, with the early exit on, rz_b > float32(rtol^2) rz0_b:
+// a member that has exited is left bit for bit, as vmap's select of the
+// batched while_loop's carry leaves it, while the others go on.  The trees
+// above are per member and do not depend on the member count.
 #pragma once
 
 #include "nan_math.cuh"
@@ -52,13 +61,24 @@ __device__ __forceinline__ float finalize(const float* part, int p, float* sm) {
 }
 
 struct CgGate {
-  const int* trips;   // trips completed in this solve, or null: no gate
-  const float* prz;   // [2, P] partials of r.z; trip i reads row i & 1
-  const float* prz0;  // [P] partials of the initial r.z
+  const int* trips;   // [B] trips completed in this solve, or null: no gate
+  const float* prz;   // [B, 2, P] partials of r.z; trip i reads row i & 1
+  const float* prz0;  // [B, P] partials of the initial r.z
   int parts;          // P = blocks over the nodes
   int trip;           // this trip's index i
   int early_exit;     // cg_rtol > 0
   float rtol2;        // float32(cg_rtol^2)
+
+  // Member b's gate: its own count and partials.
+  __device__ __forceinline__ CgGate member(int b) const {
+    CgGate g = *this;
+    if (trips != nullptr) {
+      g.trips = trips + b;
+      g.prz = prz + (size_t)b * 2 * parts;
+      g.prz0 = prz0 + (size_t)b * parts;
+    }
+    return g;
+  }
 };
 
 // The while_loop's condition before trip i; sets *rz = rz_i when gated.

@@ -16,6 +16,12 @@
 // rows equal the twin's bit for bit; the bend rows differ from it by the
 // roundoff of acosf against torch.acos.
 //
+// Ensembles (the local step under jax.vmap, pies_tpu/parallel/ensemble.py:41):
+// blockIdx.y is the member b of `members`.  The constraints are the shared
+// topology's; b's positions start at b*N*3, its inverse masses at b*N,
+// its rows at b*S*3 (S the row buffer's member stride) and its latch at
+// failed[2b].
+//
 // Bound: device memory.  A pair reads its 2 ids, rest and w (16 B) and
 // writes 2 rows (24 B); a bend reads 4 ids, rest angle and w (24 B) and
 // writes 4 rows (48 B).  The endpoint positions and inverse masses are
@@ -31,10 +37,13 @@ __global__ void __launch_bounds__(256)
                          const int* __restrict__ idx,
                          const float* __restrict__ rest,
                          const float* __restrict__ w, float* __restrict__ rows,
-                         int c, const int* __restrict__ failed) {
+                         int c, const int* __restrict__ failed, int n, int stride) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= c) return;
-  if (failed[0] != 0) return;
+  const int mb = blockIdx.y;
+  if (failed[2 * mb] != 0) return;
+  x += (size_t)mb * n * 3;
+  rows += (size_t)mb * stride * 3;
   const int2 id = reinterpret_cast<const int2*>(idx)[t];
   float df[3];
 #pragma unroll
@@ -60,10 +69,14 @@ __global__ void __launch_bounds__(128)
                      const int* __restrict__ idx,
                      const float* __restrict__ rest_angle,
                      const float* __restrict__ w, float* __restrict__ rows,
-                     int c, const int* __restrict__ failed) {
+                     int c, const int* __restrict__ failed, int n, int stride) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= c) return;
-  if (failed[0] != 0) return;
+  const int mb = blockIdx.y;
+  if (failed[2 * mb] != 0) return;
+  x += (size_t)mb * n * 3;
+  inv_mass += (size_t)mb * n;
+  rows += (size_t)mb * stride * 3;
   const int4 q4i = reinterpret_cast<const int4*>(idx)[t];
   const int id[4] = {q4i.x, q4i.y, q4i.z, q4i.w};
   float p[4][3], wim[4];
@@ -86,13 +99,13 @@ __global__ void __launch_bounds__(128)
 
 extern "C" int pies_distance_rows(const float* x, const int* idx,
                                   const float* rest, const float* w,
-                                  float* rows, int c, const int* failed,
-                                  void* stream) {
-  if (c > 0) {
+                                  float* rows, int c, const int* failed, int n,
+                                  int stride, int members, void* stream) {
+  if (c > 0 && members > 0) {
     const int threads = 256;
-    distance_rows_kernel<<<(c + threads - 1) / threads, threads, 0,
-                           (cudaStream_t)stream>>>(x, idx, rest, w, rows, c,
-                                                   failed);
+    const dim3 grid((c + threads - 1) / threads, members);
+    distance_rows_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        x, idx, rest, w, rows, c, failed, n, stride);
   }
   return (int)cudaGetLastError();
 }
@@ -100,12 +113,13 @@ extern "C" int pies_distance_rows(const float* x, const int* idx,
 extern "C" int pies_bend_rows(const float* x, const float* inv_mass,
                               const int* idx, const float* rest_angle,
                               const float* w, float* rows, int c,
-                              const int* failed, void* stream) {
-  if (c > 0) {
+                              const int* failed, int n, int stride, int members,
+                              void* stream) {
+  if (c > 0 && members > 0) {
     const int threads = 128;
-    bend_rows_kernel<<<(c + threads - 1) / threads, threads, 0,
-                       (cudaStream_t)stream>>>(x, inv_mass, idx, rest_angle, w,
-                                               rows, c, failed);
+    const dim3 grid((c + threads - 1) / threads, members);
+    bend_rows_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        x, inv_mass, idx, rest_angle, w, rows, c, failed, n, stride);
   }
   return (int)cudaGetLastError();
 }

@@ -32,6 +32,14 @@
 // its columns ascending, as the ELL's slots are).  A row is a node, so
 // there are no atomics and the order of every sum is fixed.
 //
+// Ensembles (apply_system under jax.vmap, pies_tpu/parallel/ensemble.py:41):
+// blockIdx.y is the member b of `members`.  The operator (ELL or CSR), the
+// static weight and the band are the shared topology's; b's x and y start
+// at b*N*3, its mass and dense diagonal at b*N, its partials at b*P, its
+// latch at failed[2b], and a CG trip passes b's own gate (cg_reduce.cuh).
+// The contacts' blocks under full coupling (T23, T26) are single-scene:
+// the wrapper passes them only with one member.
+//
 // Bound: device memory.  Per node it reads m neighbour ids and
 // coefficients (8 m bytes), x, mass, the floor and static weights (24
 // bytes) and writes y (12 bytes): ~17 MB per apply at 110,592 nodes and
@@ -58,11 +66,16 @@ __global__ void __launch_bounds__(pies::kCgBlock)
                       const float* __restrict__ coef, int m,
                       float* __restrict__ y, float* __restrict__ part, int n,
                       float h2, const int* __restrict__ failed,
-                      pies::CgGate gate, pies::PtFull pt, pies::EdgeTerms et) {
+                      pies::CgGate all, pies::PtFull pt, pies::EdgeTerms et) {
   __shared__ float sm[pies::kCgBlock];
-  if (failed[0] != 0) return;
+  const int mb = blockIdx.y;
+  if (failed[2 * mb] != 0) return;
+  const pies::CgGate gate = all.member(mb);
   float rz;
   if (!pies::cg_active(gate, sm, &rz)) return;
+  x += (size_t)mb * n * 3, y += (size_t)mb * n * 3;
+  mass += (size_t)mb * n, wf += (size_t)mb * n;
+  if (part != nullptr) part += (size_t)mb * gridDim.x;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float v = 0.0f;
   if (i < n) {
@@ -144,7 +157,8 @@ __global__ void __launch_bounds__(pies::kCgBlock)
 // `band` non-null the seven tet diagonals are applied before it; with
 // `pt_idx` non-null (full contact coupling) the contacts' blocks after it,
 // through T7's incidence (`pt_start`, `pt_entries`), and with `edge_idx`
-// non-null the edge contacts' blocks after those, through T26's.
+// non-null the edge contacts' blocks after those, through T26's (both with
+// one member only).
 extern "C" int pies_ell_matvec(const float* x, const float* mass,
                                const float* wf, const float* static_w,
                                const float* band,
@@ -160,10 +174,10 @@ extern "C" int pies_ell_matvec(const float* x, const float* mass,
                                const int* edge_count, const int* e_start,
                                const int* e_entries, const float* ed,
                                const float* e_inv_mass, int e_mode, float e_thickness,
-                               void* stream) {
-  if (n > 0) {
-    const int blocks = (n + pies::kCgBlock - 1) / pies::kCgBlock;
-    pies::CgGate gate{trips, prz, prz0, blocks, trip, early_exit, rtol2};
+                               int members, void* stream) {
+  if (n > 0 && members > 0) {
+    const dim3 blocks((n + pies::kCgBlock - 1) / pies::kCgBlock, members);
+    pies::CgGate gate{trips, prz, prz0, (int)blocks.x, trip, early_exit, rtol2};
     pies::PtFull pt{pt_idx, pt_mask, pt_count, pt_start, pt_entries, cap, 0.0f};
     pies::EdgeTerms et{edge_idx, edge_mask, edge_count, e_start, e_entries, ed,
                        e_inv_mass, e_mode, e_thickness};

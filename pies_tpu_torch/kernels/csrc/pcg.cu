@@ -26,6 +26,14 @@
 // trip that ran.  With the latch (failed slot 0) set, init writes zero
 // residual partials and every stage returns at once.
 //
+// Ensembles (pcg_solve under jax.vmap, pies_tpu/parallel/ensemble.py:41):
+// blockIdx.y is the member b of `members`.  Its vectors start at b*N*3,
+// its diag and mask at b*N, its block factors at b*10*(N/4), its partials
+// at b*P (r.z at b*2*P), its trip count at trips[b] and its latch at
+// failed[2b]; each member passes its own gate (cg_reduce.cuh), so its trip
+// count and result are those of its single-scene solve.  A trip stays
+// three launches at any member count.
+//
 // Bound: device memory, ~92 bytes per node for update and 36 for direction
 // (x, r, z, p, Ap, diag, mask), ~14 MB per trip at 110,592 nodes with
 // T10's ~17 MB.  The design keeps the three dot products in fixed-order
@@ -66,6 +74,14 @@ __global__ void __launch_bounds__(kCgBlock)
                    int* __restrict__ trips, int n,
                    const int* __restrict__ failed) {
   __shared__ float sm[kCgBlock];
+  const int mb = blockIdx.y;
+  const size_t v = (size_t)mb * n * 3, parts = gridDim.x;
+  b += v, y += v, x0 += v, r += v, z += v, p += v, x += v;
+  diag += (size_t)mb * n;
+  if (factors != nullptr) factors += (size_t)mb * pies::kTetBlockCols * (n / 4);
+  prz += mb * 2 * parts, prz0 += mb * parts, prr += mb * parts;
+  trips += mb;
+  failed += 2 * mb;
   if (blockIdx.x == 0 && threadIdx.x == 0) *trips = 0;
   if (failed[0] != 0) {
     if (threadIdx.x == 0) prr[blockIdx.x] = 0.0f;
@@ -108,11 +124,19 @@ __global__ void __launch_bounds__(kCgBlock)
                      const float* __restrict__ mask, float* prz,
                      const float* __restrict__ pap, float* __restrict__ prr,
                      int n, const int* __restrict__ failed,
-                     pies::CgGate gate) {
+                     pies::CgGate all) {
   __shared__ float sm[kCgBlock];
-  if (failed[0] != 0) return;
+  const int mb = blockIdx.y;
+  if (failed[2 * mb] != 0) return;
+  const pies::CgGate gate = all.member(mb);
   float rz;
   if (!pies::cg_active(gate, sm, &rz)) return;
+  const size_t v = (size_t)mb * n * 3;
+  x += v, p += v, ap += v, r += v, z += v;
+  diag += (size_t)mb * n, mask += (size_t)mb * n;
+  if (factors != nullptr) factors += (size_t)mb * pies::kTetBlockCols * (n / 4);
+  prz += (size_t)mb * 2 * gate.parts;
+  pap += (size_t)mb * gate.parts, prr += (size_t)mb * gate.parts;
   const float p_ap = pies::finalize(pap, gate.parts, sm);
   const float alpha = p_ap > 0.0f ? rz / pies::max_keep_nan(p_ap, 1e-30f) : 0.0f;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -146,11 +170,15 @@ __global__ void __launch_bounds__(kCgBlock)
 __global__ void __launch_bounds__(kCgBlock)
     cg_direction_kernel(float* __restrict__ p, const float* __restrict__ z,
                         int* trips, int n, const int* __restrict__ failed,
-                        pies::CgGate gate) {
+                        pies::CgGate all) {
   __shared__ float sm[kCgBlock];
-  if (failed[0] != 0) return;
+  const int mb = blockIdx.y;
+  if (failed[2 * mb] != 0) return;
+  const pies::CgGate gate = all.member(mb);
   float rz;
   if (!pies::cg_active(gate, sm, &rz)) return;
+  p += (size_t)mb * n * 3, z += (size_t)mb * n * 3;
+  trips += mb;
   const float rz_new = pies::finalize(
       gate.prz + (size_t)((gate.trip + 1) & 1) * gate.parts, gate.parts, sm);
   const float beta = rz > 0.0f ? rz_new / pies::max_keep_nan(rz, 1e-30f) : 0.0f;
@@ -165,7 +193,9 @@ __global__ void __launch_bounds__(kCgBlock)
   if (blockIdx.x == 0 && threadIdx.x == 0) *trips = gate.trip + 1;
 }
 
-inline int blocks_for(int n) { return (n + kCgBlock - 1) / kCgBlock; }
+inline dim3 grid_for(int n, int members) {
+  return dim3((n + kCgBlock - 1) / kCgBlock, members);
+}
 
 }  // namespace
 
@@ -174,9 +204,9 @@ extern "C" int pies_cg_init(const float* b, const float* y, const float* x0,
                             float* z, float* p,
                             float* x, float* prz, float* prz0, float* prr,
                             int* trips, int n, const int* failed,
-                            void* stream) {
-  if (n > 0) {
-    cg_init_kernel<<<blocks_for(n), kCgBlock, 0, (cudaStream_t)stream>>>(
+                            int members, void* stream) {
+  if (n > 0 && members > 0) {
+    cg_init_kernel<<<grid_for(n, members), kCgBlock, 0, (cudaStream_t)stream>>>(
         b, y, x0, diag, factors, r, z, p, x, prz, prz0, prr, trips, n, failed);
   }
   return (int)cudaGetLastError();
@@ -188,11 +218,11 @@ extern "C" int pies_cg_update(float* x, const float* p, const float* ap,
                               const float* prz0, const float* pap, float* prr,
                               const int* trips, int n, int trip,
                               int early_exit, float rtol2, const int* failed,
-                              void* stream) {
-  if (n > 0) {
-    const int blocks = blocks_for(n);
-    pies::CgGate gate{trips, prz, prz0, blocks, trip, early_exit, rtol2};
-    cg_update_kernel<<<blocks, kCgBlock, 0, (cudaStream_t)stream>>>(
+                              int members, void* stream) {
+  if (n > 0 && members > 0) {
+    const dim3 grid = grid_for(n, members);
+    pies::CgGate gate{trips, prz, prz0, (int)grid.x, trip, early_exit, rtol2};
+    cg_update_kernel<<<grid, kCgBlock, 0, (cudaStream_t)stream>>>(
         x, p, ap, r, z, diag, factors, mask, prz, pap, prr, n, failed, gate);
   }
   return (int)cudaGetLastError();
@@ -201,11 +231,11 @@ extern "C" int pies_cg_update(float* x, const float* p, const float* ap,
 extern "C" int pies_cg_direction(float* p, const float* z, const float* prz,
                                  const float* prz0, int* trips, int n,
                                  int trip, int early_exit, float rtol2,
-                                 const int* failed, void* stream) {
-  if (n > 0) {
-    const int blocks = blocks_for(n);
-    pies::CgGate gate{trips, prz, prz0, blocks, trip, early_exit, rtol2};
-    cg_direction_kernel<<<blocks, kCgBlock, 0, (cudaStream_t)stream>>>(
+                                 const int* failed, int members, void* stream) {
+  if (n > 0 && members > 0) {
+    const dim3 grid = grid_for(n, members);
+    pies::CgGate gate{trips, prz, prz0, (int)grid.x, trip, early_exit, rtol2};
+    cg_direction_kernel<<<grid, kCgBlock, 0, (cudaStream_t)stream>>>(
         p, z, trips, n, failed, gate);
   }
   return (int)cudaGetLastError();

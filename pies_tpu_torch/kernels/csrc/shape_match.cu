@@ -25,6 +25,12 @@
 //
 // Goal: one thread per member, row = w[g] mask T[g] (mat, 1).
 //
+// Ensembles (the local step under jax.vmap, pies_tpu/parallel/ensemble.py:41):
+// blockIdx.y is the member b of `members`.  The groups are the shared
+// topology's; b's positions start at b*N*3, its masses at b*N, its
+// rotations (shape_quats, per-member state) at b*G*4, its rows at b*S*3 (S
+// the row buffer's member stride) and its latch at failed[2b].
+//
 // Bound: device memory.  A shape member reads its node id, material
 // coordinates and mask (20 B) and its node's position and mass (16 B,
 // gathered) and writes one row (12 B); a group reads 60 B and reads and
@@ -107,10 +113,15 @@ __global__ void __launch_bounds__(kShapeBlock)
                       const float* __restrict__ inv_count,
                       const float* __restrict__ qinv, float* __restrict__ quats,
                       float* __restrict__ rows, int m, int groups, int trips,
-                      const int* __restrict__ failed) {
+                      const int* __restrict__ failed, int n, int stride) {
   __shared__ float sm[15][kShapeBlock];
   __shared__ float rc[12];  // R row-major, then the COM
-  if (failed[0] != 0) return;
+  const int mb = blockIdx.y;
+  if (failed[2 * mb] != 0) return;
+  x += (size_t)mb * n * 3;
+  mass += (size_t)mb * n;
+  quats += (size_t)mb * groups * 4;
+  rows += (size_t)mb * stride * 3;
   const int g = blockIdx.x;
   const int t = threadIdx.x;
   const int m0 = member_start[g];
@@ -208,10 +219,12 @@ __global__ void __launch_bounds__(256)
                      const float* __restrict__ gw,
                      const float* __restrict__ transforms,
                      float* __restrict__ rows, int m,
-                     const int* __restrict__ failed) {
+                     const int* __restrict__ failed, int stride) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= m) return;
-  if (failed[0] != 0) return;
+  const int mb = blockIdx.y;
+  if (failed[2 * mb] != 0) return;
+  rows += (size_t)mb * stride * 3;
   const int g = group_idx[j];
   const float wm = gw[g] * member_mask[j];
   const float* tr = transforms + (size_t)g * 16;
@@ -233,11 +246,11 @@ extern "C" int pies_shape_rows(const float* x, const float* mass,
                                const float* group_mask, const float* inv_count,
                                const float* qinv, float* quats, float* rows,
                                int m, int groups, int trips, const int* failed,
-                               void* stream) {
-  if (m > 0 && groups > 0) {
-    shape_rows_kernel<<<groups, kShapeBlock, 0, (cudaStream_t)stream>>>(
+                               int n, int stride, int members, void* stream) {
+  if (m > 0 && groups > 0 && members > 0) {
+    shape_rows_kernel<<<dim3(groups, members), kShapeBlock, 0, (cudaStream_t)stream>>>(
         x, mass, node_idx, mat, member_mask, member_start, gw, group_mask,
-        inv_count, qinv, quats, rows, m, groups, trips, failed);
+        inv_count, qinv, quats, rows, m, groups, trips, failed, n, stride);
   }
   return (int)cudaGetLastError();
 }
@@ -245,12 +258,13 @@ extern "C" int pies_shape_rows(const float* x, const float* mass,
 extern "C" int pies_goal_rows(const int* group_idx, const float* mat,
                               const float* member_mask, const float* gw,
                               const float* transforms, float* rows, int m,
-                              const int* failed, void* stream) {
-  if (m > 0) {
+                              const int* failed, int stride, int members,
+                              void* stream) {
+  if (m > 0 && members > 0) {
     const int threads = 256;
-    goal_rows_kernel<<<(m + threads - 1) / threads, threads, 0,
-                       (cudaStream_t)stream>>>(group_idx, mat, member_mask, gw,
-                                               transforms, rows, m, failed);
+    const dim3 grid((m + threads - 1) / threads, members);
+    goal_rows_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        group_idx, mat, member_mask, gw, transforms, rows, m, failed, stride);
   }
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,11 @@
 // static off-diagonals block6 f32[6, K].  Blocks of padding have zero
 // off-diagonals: their factor is the plain diagonal's.
 //
+// Ensembles (the factor under jax.vmap, pies_tpu/parallel/ensemble.py:41):
+// blockIdx.y is the member b of `members`; block6 is the shared topology's,
+// b's diagonal starts at b*4K, its factors at b*10*K and its latch at
+// failed[2b].
+//
 // Bound: device memory, 40 bytes read and 40 written per block (80 per 4
 // nodes): ~2.5 MB and ~0.75 us at 500,000 nodes and 3.35 TB/s; ~40
 // operations per block.
@@ -31,7 +36,10 @@ __global__ void __launch_bounds__(256)
                             const int* __restrict__ failed) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= k) return;
-  if (failed[0] != 0) return;
+  const int mb = blockIdx.y;
+  if (failed[2 * mb] != 0) return;
+  diag += (size_t)mb * 4 * k;
+  factors += (size_t)mb * pies::kTetBlockCols * k;
   float d[4], b6[6];
 #pragma unroll
   for (int a = 0; a < 4; ++a) d[a] = diag[(size_t)4 * t + a];
@@ -48,12 +56,12 @@ __global__ void __launch_bounds__(256)
 
 extern "C" int pies_tet_block_factor(const float* diag, const float* block6,
                                      float* factors, int k, const int* failed,
-                                     void* stream) {
-  if (k > 0) {
+                                     int members, void* stream) {
+  if (k > 0 && members > 0) {
     const int threads = 256;
-    tet_block_factor_kernel<<<(k + threads - 1) / threads, threads, 0,
-                              (cudaStream_t)stream>>>(diag, block6, factors, k,
-                                                      failed);
+    const dim3 grid((k + threads - 1) / threads, members);
+    tet_block_factor_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        diag, block6, factors, k, failed);
   }
   return (int)cudaGetLastError();
 }

@@ -40,6 +40,15 @@
 // entry-list floor (:332-334) the floor term is w * static per corner entry
 // (kernel T24's, floor_entries.cuh) instead of wf * static.
 //
+// Ensembles (the local step and assemble_force under jax.vmap,
+// pies_tpu/parallel/ensemble.py:41): blockIdx.y is the member b of
+// `members`.  The tets, the row incidence and the pin force are the shared
+// topology's; b's positions, inertia term, force and static projection
+// start at b*N*3, its floor weight at b*N, its rows at b*S*3 (S the row
+// buffer's member stride, which stage 1 writes a part of) and its latch at
+// failed[2b].  The contact terms (T7's force and lag, T23, T24, T26, T27)
+// are single-scene: the wrappers pass them only with one member.
+//
 // Bound: device memory.  The function needs the tet ids and 27 parameter
 // floats per tet (124 B; ~77 MB at 622,938 tets) and 52 B per node (x, msn
 // and wf read, force and static written; ~5.8 MB at 110,592 nodes), plus
@@ -64,10 +73,14 @@ __global__ void __launch_bounds__(128)
                               const int* __restrict__ idx,
                               pies::TetBatchPtrs b, float* __restrict__ blocks,
                               int c, int kind,
-                              const int* __restrict__ failed) {
+                              const int* __restrict__ failed, int n,
+                              int stride) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= c) return;
-  if (failed[0] != 0) return;
+  const int mb = blockIdx.y;
+  if (failed[2 * mb] != 0) return;
+  x += (size_t)mb * n * 3;
+  blocks += (size_t)mb * stride * 3;
   const int4 q = reinterpret_cast<const int4*>(idx)[t];
   const int id[4] = {q.x, q.y, q.z, q.w};
   float p[4][3];
@@ -97,7 +110,8 @@ __global__ void __launch_bounds__(256)
                           const int* __restrict__ entries,
                           const float* __restrict__ blocks,
                           float* __restrict__ force, float* __restrict__ stat,
-                          int n, float plane, const int* __restrict__ failed,
+                          int n, int stride, float plane,
+                          const int* __restrict__ failed,
                           const float* __restrict__ ptd,
                           const float* __restrict__ contact,
                           const int* __restrict__ pt_start,
@@ -106,7 +120,12 @@ __global__ void __launch_bounds__(256)
                           pies::EdgeTerms et, pies::NodeTerms nt) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  if (failed[0] != 0) return;
+  const int mb = blockIdx.y;
+  if (failed[2 * mb] != 0) return;
+  const size_t v = (size_t)mb * n * 3;
+  x += v, msn += v, force += v, stat += v;
+  wf += (size_t)mb * n;
+  blocks += (size_t)mb * stride * 3;
   float f[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -165,13 +184,14 @@ extern "C" int pies_tet_force12_gather(const float* x, const int* idx,
                                        const float* sw, const float* vlo,
                                        const float* vhi, const float* vw,
                                        float* blocks, int c, int kind,
-                                       const int* failed, void* stream) {
-  if (c > 0) {
+                                       const int* failed, int n, int stride,
+                                       int members, void* stream) {
+  if (c > 0 && members > 0) {
     pies::TetBatchPtrs b{qinv, g, slo, shi, sw, vlo, vhi, vw, c};
     const int threads = 128;
-    tet_force12_gather_kernel<<<(c + threads - 1) / threads, threads, 0,
-                                (cudaStream_t)stream>>>(x, idx, b, blocks, c,
-                                                        kind, failed);
+    const dim3 grid((c + threads - 1) / threads, members);
+    tet_force12_gather_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        x, idx, b, blocks, c, kind, failed, n, stride);
   }
   return (int)cudaGetLastError();
 }
@@ -195,8 +215,9 @@ extern "C" int pies_assemble_force(const float* x, const float* msn,
                                    const int* nn_pi, const int* nn_pj, const int* nn_row_off,
                                    const int* nn_inc_start, const int* nn_inc_pair,
                                    const int* nn_lim, const float* nn_radius,
-                                   const float* nn_inv_mass, int nn_cap, void* stream) {
-  if (n > 0) {
+                                   const float* nn_inv_mass, int nn_cap, int stride,
+                                   int members, void* stream) {
+  if (n > 0 && members > 0) {
     const int threads = 256;
     pies::PtFull full{pt_idx, pt_mask, pt_count, pt_start, pt_entries, cap, thickness};
     pies::FloorEntries fl{corner_start, corner_entries, static_mask};
@@ -204,9 +225,9 @@ extern "C" int pies_assemble_force(const float* x, const float* msn,
                        e_inv_mass, e_mode, e_thickness};
     pies::NodeTerms nt{nn_pi,  nn_pj,     nn_row_off,  nn_inc_start, nn_inc_pair,
                        nn_lim, nn_radius, nn_inv_mass, nn_cap};
-    assemble_force_kernel<<<(n + threads - 1) / threads, threads, 0,
-                            (cudaStream_t)stream>>>(
-        x, msn, pin, wf, row_start, entries, blocks, force, stat, n, plane,
+    const dim3 grid((n + threads - 1) / threads, members);
+    assemble_force_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        x, msn, pin, wf, row_start, entries, blocks, force, stat, n, stride, plane,
         failed, ptd, contact, pt_start, pt_count, full, fl, et, nt);
   }
   return (int)cudaGetLastError();

@@ -12,9 +12,16 @@ per-member latch: a member whose ``sim_failed`` is set is left bit for bit
 as it is and reports residual 0, while the others step.
 
 The ensemble runs on the tet-column path (``tetcols.applies``), with or
-without self-contact on packed bodies.  Every other path (the generic PD
-path with its CG, PBD) raises :class:`NotPortedError` naming ROADMAP item
-10b.  Several cards (``make_mesh``, ``shard_ensemble`` and
+without self-contact on packed bodies (ROADMAP item 10a), and on the
+contact-free generic PD path (item 10b-i): the rope of
+``tests/test_parallel.py``, the meshes, the cloth and its constraint
+families, a soup off the tet-column path.  There the kernels T9-T13 and
+T22 take the member axis too, and each member's CG leaves at its own trip,
+as ``vmap`` of the JAX package's ``while_loop`` selects each member's carry
+once its condition fails.  The generic path's contact terms (self-contact,
+edge-edge and node-node contacts, and so full coupling's blocks), the
+entry-list floor and PBD ensembles raise :class:`NotPortedError` naming
+ROADMAP item 10b-ii.  Several cards (``make_mesh``, ``shard_ensemble`` and
 ``make_sharded_step``'s ``shard_map``) are ROADMAP item 11;
 :func:`ensemble_step` is that step's one-card form, its ``pmax`` and
 ``psum`` reductions over the member axis on the device.
@@ -24,9 +31,8 @@ from __future__ import annotations
 
 import torch
 
-from ..collision import broadphase
 from ..options import PhysicsParams, SolverName, StepConfig
-from ..solver import pd, step, tetcols
+from ..solver import pd, step
 from ..solver.host import NotPortedError
 from ..state import SolverState, stack_ensemble, unstack
 from ..topology import Topology
@@ -35,17 +41,15 @@ __all__ = ["ensemble_step", "ensemble_tick", "ensemble_tick_n", "stack_ensemble"
 
 
 def check_ensemble(states: SolverState, topo: Topology, config: StepConfig) -> None:
-    """Raise unless ``states`` is an ensemble whose scene takes the ported
-    path: PD on the tet-column path, detection (if any) on packed bodies."""
+    """Raise unless ``states`` is an ensemble whose scene takes a ported
+    path: PD on the tet-column path, detection (if any) on packed bodies,
+    or PD on the generic path without contact terms
+    (``pd.check_ensemble_path``)."""
     if not states.members:
         raise ValueError("an ensemble's state has a leading member axis (stack_ensemble)")
-    packed = (not pd.self_contact(config, topo)
-              or (broadphase.tri_mode(config, topo.tri_mask.shape[0]) is None
-                  and broadphase.packed(config)))
-    if config.solver != SolverName.PD or not tetcols.applies(states, topo, config) or not packed:
-        raise NotPortedError(
-            "ensembles run only on the tet-column PD path (packed-body detection); the"
-            " generic PD path and PBD ensembles are not ported yet: ROADMAP queue 1 item 10b")
+    if config.solver != SolverName.PD:
+        raise NotPortedError("PBD ensembles are not ported yet: ROADMAP queue 1 item 10b-ii")
+    pd.check_ensemble_path(states, topo, config)
 
 
 def ensemble_tick(states: SolverState, topo: Topology, params: PhysicsParams,

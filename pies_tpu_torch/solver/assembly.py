@@ -29,6 +29,16 @@ Each has a plain twin (``*_plain``).  The CG's dot products are summed in
 the kernels' fixed block order (:func:`block_partials`, :func:`finalize`),
 so kernel and twin agree bit for bit; against the JAX package (whose sums
 XLA orders) they agree to float32 roundoff.
+
+An ensemble (ROADMAP item 10b-i: the generic tick under ``jax.vmap``,
+``pies_tpu/parallel/ensemble.py:41-50``) passes its per-member values with
+a leading member axis B (positions, diagonals, rows, the CG's vectors,
+partials and trip counts ``i32[B, 1]``) and shares the topology: each
+kernel launches once for all members, and each twin runs member by member
+(``state.each_member``).  The CG's exit is per member, as ``vmap`` of its
+``while_loop`` makes it: a member stops at its own trip, and its result is
+its single-scene solve's.  The contact terms (T7's force, T23, T24, T26,
+T27) stay single-scene (ROADMAP item 10b-ii).
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ from ..collision.batches import (
 )
 from ..constraints import projections as proj
 from ..ops.math3d import ieee_div as _div
+from ..state import each_member, members_of
 from ..topology import Topology, row_layout
 
 CG_BLOCK = 256  # pies::kCgBlock in kernels/csrc/cg_reduce.cuh
@@ -377,14 +388,16 @@ def local_step(x, inv_mass, mass, quats, topo: Topology, rotation_iterations: in
     ``topology.row_layout``.  ``quats`` f32[G, 4], the shape groups'
     rotations, is updated in place.  A family without constraints launches
     nothing, as the JAX package elides it.  ``plain`` takes the twins
-    whatever the device."""
+    whatever the device.  An ensemble's ``x`` f32[B, N, 3] (with its
+    ``inv_mass``, ``mass``, ``quats`` and latch per member) fills f32[B, R,
+    3], each family's part a member-major view."""
     lay = row_layout(topo)
     total = sum(rows for _, rows in lay.values())
-    buf = torch.empty((total, 3), dtype=torch.float32, device=x.device)
+    buf = torch.empty(x.shape[:-2] + (total, 3), dtype=torch.float32, device=x.device)
 
     def part(name):
         at, rows = lay[name]
-        return buf[at:at + rows] if rows else None
+        return buf[..., at:at + rows, :] if rows else None
 
     dist, bend, shape, goal, tets = (
         (proj.distance_rows_plain, proj.bend_rows_plain, proj.shape_rows_plain,
@@ -436,7 +449,14 @@ def assemble_force_plain(x, msn_h2, wf, blocks, topo: Topology, plane: float,
     Returns ``(force, static)`` f32[N, 3]: the right side ``((((msn + pin
     force) + Σ the node's rows) + contact + (ptd + ed)·x) + edge and pair
     terms) + wf·static`` and the floor projection ``static = (x, max(y,
-    plane), z)``.  ``failed`` is accepted for signature parity."""
+    plane), z)``.  ``failed`` is accepted for signature parity.  An
+    ensemble (``x``, ``msn_h2`` f32[B, N, 3], ``wf`` f32[B, N], ``blocks``
+    f32[B, R, 3]; no contact terms) runs member by member."""
+    if members_of(x):
+        _single_scene_terms(pt, full, floor, edges, nodes)
+        return each_member(lambda xb, mb, wb, bb: assemble_force_plain(xb, mb, wb, bb, topo,
+                                                                      plane),
+                           members_of(x), x, msn_h2, wf, blocks)
     f = msn_h2 + topo.position_force_dense if _pins(topo) else msn_h2
     f = csr_sum(topo.row_inc, blocks, f)
     lag_on = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
@@ -479,11 +499,14 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
     if failed is None:
         raise ValueError("the force kernel needs the failure latch")
     inc = topo.row_inc
-    n = x.shape[0]
+    n = x.shape[-2]
+    members = kernels.launch_members(x, failed, msn_h2, wf, blocks)
+    if members > 1:
+        _single_scene_terms(pt, full, floor, edges, nodes)
     pin = topo.position_force_dense if _pins(topo) else None
     if pin is not None and pin.shape[0] != n:
         raise ValueError("pin force must be dense over the capacity")
-    if inc.row_start.shape[0] != n + 1 or blocks.shape[0] != inc.entries.shape[0]:
+    if inc.row_start.shape[0] != n + 1 or blocks.shape[-2] != inc.entries.shape[0]:
         raise ValueError("the row incidence does not match the nodes or the force rows")
     ptd, contact, pt_start, pt_count = pt if pt is not None else (None,) * 4
     pt_idx = pt_mask = pt_entries = None
@@ -508,7 +531,7 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
         kernels.ptr(pt_count), kernels.ptr(pt_idx), kernels.ptr(pt_mask),
         kernels.ptr(pt_entries), cap, float(thickness), kernels.ptr(c_start),
         kernels.ptr(c_entries), kernels.ptr(smask), *_edge_args(x.device, edges, True),
-        *_node_args(x.device, nodes), kernels.stream(),
+        *_node_args(x.device, nodes), blocks.shape[-2], members, kernels.stream(),
     )
     kernels.check(err, "assemble_force")
     assemble_force.launches += 1
@@ -519,6 +542,14 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
     if nodes is not None:
         node_terms.launches += 1
     return force, static
+
+
+def _single_scene_terms(*terms) -> None:
+    """Raise for an ensemble given a contact term: the recentered contact
+    force, full coupling, the entry-list floor, edge-edge or node-node
+    contacts (ROADMAP item 10b-ii)."""
+    if any(t is not None for t in terms):
+        raise ValueError("an ensemble's generic path has no contact terms (ROADMAP item 10b-ii)")
 
 
 def _edge_args(device, edges: EdgeTerms | None, force: bool) -> tuple:
@@ -645,7 +676,14 @@ def apply_system_plain(x, mass, wf, h2: float, topo: Topology, part: bool = Fals
     ``w·AᵀA·x`` over its contact entries (``assembly.py:559-574``, T23);
     then, with ``edges`` under full coupling, each node's ``w·AᵀA·x`` over
     its edge entries (T26); with ``part`` also the block partials of
-    ``x·y``, else None."""
+    ``x·y``, else None.  An ensemble (``x`` f32[B, N, 3], ``mass`` and ``wf``
+    f32[B, N]; no contact blocks) runs member by member: partials f32[B,
+    P]."""
+    if members_of(x):
+        _single_scene_terms(full, edges)
+        y, p = zip(*(apply_system_plain(x[b], mass[b], wf[b], h2, topo, part)
+                     for b in range(x.shape[0])))
+        return torch.stack(y), (torch.stack(p) if part else None)
     y = (_div(mass, h2) + wf)[:, None] * x
     sw = _static_w(topo, x.shape[0])
     if sw is not None:
@@ -673,7 +711,10 @@ def apply_system(x, mass, wf, h2: float, topo: Topology, failed=None,
         return apply_system_plain(x, mass, wf, h2, topo, part is not False, full, edges)
     if failed is None:
         raise ValueError("the operator kernel needs the failure latch")
-    n = x.shape[0]
+    n = x.shape[-2]
+    members = kernels.launch_members(x, failed, mass, wf)
+    if members > 1:
+        _single_scene_terms(full, edges)
     row_start = topo.csr_start
     if row_start is not None:
         nbr, coef, m = topo.csr_col, topo.csr_val, 0
@@ -688,7 +729,8 @@ def apply_system(x, mass, wf, h2: float, topo: Topology, failed=None,
     band = _band(topo, n)
     y = torch.empty_like(x) if out is None else out
     if part is True:
-        part = torch.empty(-(-n // CG_BLOCK), dtype=torch.float32, device=x.device)
+        part = torch.empty(x.shape[:-2] + (-(-n // CG_BLOCK),), dtype=torch.float32,
+                           device=x.device)
     part = part if isinstance(part, torch.Tensor) else None
     trips, prz, prz0, trip, early, rtol2 = gate if gate is not None else (None,) * 3 + (0, 0, 0.0)
     c, inc = (full.colls, full.inc) if full is not None else (None, None)
@@ -702,7 +744,7 @@ def apply_system(x, mass, wf, h2: float, topo: Topology, failed=None,
         kernels.ptr(part), n, float(h2),
         failed.data_ptr(), kernels.ptr(trips), kernels.ptr(prz), kernels.ptr(prz0),
         int(trip), int(early), float(rtol2), *(kernels.ptr(t) for t in pt),
-        inc.cap if inc is not None else 0, *_edge_args(x.device, edges, False),
+        inc.cap if inc is not None else 0, *_edge_args(x.device, edges, False), members,
         kernels.stream(),
     )
     kernels.check(err, "ell_matvec")
@@ -737,7 +779,15 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
     K]) the disjoint-tet block solve :func:`tet_block_apply_plain`; ``full``
     and ``edges`` go to the operator.  Returns ``(x f32[N, 3], prr f32[P], trips
     i32[1])``: the solution, the block partials of the final ``r·r`` (zero
-    when ``failed`` slot 0 is set) and the trips run."""
+    when ``failed`` slot 0 is set) and the trips run.  An ensemble (every
+    per-node argument with the member axis, ``block`` f32[B, 10, K]; no
+    contact blocks) runs member by member, each with its own exit: ``(x
+    f32[B, N, 3], prr f32[B, P], trips i32[B, 1])``."""
+    if members_of(b):
+        _single_scene_terms(full, edges)
+        return each_member(lambda bb, xb, db, mb, wb, kb, fb, ob: pcg_solve_plain(
+            bb, xb, db, mb, wb, h2, kb, topo, iterations, rtol, fb, ob),
+            members_of(b), b, x0, diag, mass, wf, mask, failed, block)
     dev = b.device
     if failed is not None and bool(failed[0]):
         return (x0.clone(), torch.zeros(-(-b.shape[0] // CG_BLOCK), device=dev),
@@ -780,21 +830,27 @@ def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations
     """T10 + T11 on CUDA tensors, :func:`pcg_solve_plain` on CPU tensors
     (same arguments and results; ``trips`` stays on the device).  Enqueues
     the init and all ``iterations`` trips without waiting: the trips past
-    the exit return at once on the device."""
+    the exit return at once on the device, each member's past its own exit
+    in an ensemble (one launch per stage for all members)."""
     if kernels.on_cpu(b):
         return pcg_solve_plain(b, x0, diag, mass, wf, h2, mask, topo, iterations, rtol,
                                failed, block, full, edges)
     if failed is None:
         raise ValueError("the CG kernels need the failure latch")
-    n = b.shape[0]
+    n = b.shape[-2]
     dev = b.device
-    if block is not None and (n % 4 or tuple(block.shape) != (10, n // 4)):
-        raise ValueError("the block preconditioner needs f32[10, N/4] factors")
+    lead = b.shape[:-2]
+    members = kernels.launch_members(b, failed, x0, diag, mask, mass, wf)
+    if block is not None and (n % 4 or tuple(block.shape) != lead + (10, n // 4)):
+        raise ValueError("the block preconditioner needs f32[10, N/4] factors per member")
     kernels.require(dev, b, x0, diag, mask, block)
     parts = -(-n // CG_BLOCK)
-    scal = torch.empty((5, parts), dtype=torch.float32, device=dev)
-    prz, prz0, pap, prr = scal[0:2], scal[2], scal[3], scal[4]
-    trips = torch.empty(1, dtype=torch.int32, device=dev)
+    # Per-member scratch, once per solve: r.z partials (two rows, a trip
+    # reads one and writes the other), r.z at the start, p.Ap and r.r.
+    prz = torch.empty(lead + (2, parts), dtype=torch.float32, device=dev)
+    prz0, pap, prr = (torch.empty(lead + (parts,), dtype=torch.float32, device=dev)
+                      for _ in range(3))
+    trips = torch.empty(lead + (1,), dtype=torch.int32, device=dev)
     r, z, p, x, ap = (torch.empty_like(b) for _ in range(5))
     lib, stream = kernels.lib(), kernels.stream()
     apply_system(x0, mass, wf, h2, topo, failed, out=ap, full=full, edges=edges)
@@ -802,7 +858,7 @@ def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations
         b.data_ptr(), ap.data_ptr(), x0.data_ptr(), diag.data_ptr(), kernels.ptr(block),
         r.data_ptr(),
         z.data_ptr(), p.data_ptr(), x.data_ptr(), prz.data_ptr(), prz0.data_ptr(),
-        prr.data_ptr(), trips.data_ptr(), n, failed.data_ptr(), stream)
+        prr.data_ptr(), trips.data_ptr(), n, failed.data_ptr(), members, stream)
     kernels.check(err, "cg_init")
     pcg_solve.launches += 1
     early, rtol2 = int(rtol > 0.0), _rtol2(rtol)
@@ -813,11 +869,11 @@ def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations
             x.data_ptr(), p.data_ptr(), ap.data_ptr(), r.data_ptr(), z.data_ptr(),
             diag.data_ptr(), kernels.ptr(block), mask.data_ptr(), prz.data_ptr(), prz0.data_ptr(),
             pap.data_ptr(), prr.data_ptr(), trips.data_ptr(), n, i, early, rtol2,
-            failed.data_ptr(), stream)
+            failed.data_ptr(), members, stream)
         kernels.check(err, "cg_update")
         err = lib.pies_cg_direction(
             p.data_ptr(), z.data_ptr(), prz.data_ptr(), prz0.data_ptr(), trips.data_ptr(),
-            n, i, early, rtol2, failed.data_ptr(), stream)
+            n, i, early, rtol2, failed.data_ptr(), members, stream)
         kernels.check(err, "cg_direction")
         pcg_solve.launches += 2
     return x, prr, trips
@@ -836,8 +892,12 @@ def tet_block_factor_plain(diag: torch.Tensor, block6: torch.Tensor,
     disjoint-tet block of the system, from the full diagonal ``diag`` f32[N]
     and the static off-diagonals ``block6`` f32[6, N/4] — the tet-column
     path's ``block_factor_cols``.  Returns the 10 factor columns f32[10,
-    N/4].  ``failed`` is accepted for signature parity."""
+    N/4].  ``failed`` is accepted for signature parity.  An ensemble's
+    ``diag`` f32[B, N] gives f32[B, 10, N/4], member by member."""
     from .tetcols import _node_cols, block_factor_cols
+
+    if diag.dim() == 2:
+        return each_member(lambda d: tet_block_factor_plain(d, block6), diag.shape[0], diag)
 
     return torch.stack(block_factor_cols(_node_cols(diag, diag.shape[0] // 4), block6))
 
@@ -861,13 +921,15 @@ def tet_block_factor(diag: torch.Tensor, block6: torch.Tensor, failed=None) -> t
     if failed is None:
         raise ValueError("the block factor kernel needs the failure latch")
     k = block6.shape[1]
-    if diag.shape[0] != 4 * k:
-        raise ValueError("the block factor needs the disjoint-tet layout over the capacity")
+    lead = diag.shape[:-1]
+    if diag.shape[-1] != 4 * k or failed.shape[:-1] != lead:
+        raise ValueError("the block factor needs the disjoint-tet layout over the capacity"
+                         " and the diagonal's member axis on the latch")
     kernels.require(diag.device, diag, block6, failed)
-    factors = torch.empty((10, k), dtype=torch.float32, device=diag.device)
+    factors = torch.empty(lead + (10, k), dtype=torch.float32, device=diag.device)
     err = kernels.lib().pies_tet_block_factor(diag.data_ptr(), block6.data_ptr(),
                                               factors.data_ptr(), k, failed.data_ptr(),
-                                              kernels.stream())
+                                              lead[0] if lead else 1, kernels.stream())
     kernels.check(err, "tet_block_factor")
     tet_block_factor.launches += 1
     return factors

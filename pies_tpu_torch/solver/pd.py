@@ -48,10 +48,15 @@ counts and flags that the kernels read and exit on: the host never waits
 for the device within a tick.
 
 An ensemble state (``state.py``: every leaf with a leading member axis)
-runs the tet-column path with the same launches: T1-T8 take the member
-axis, so the launch count of a substep does not depend on the member
-count, and each plain twin loops over the members
-(``state.each_member``).  Its residual and its counters are per member.
+runs with the same launches as one member: on the tet-column path T1-T8
+take the member axis (ROADMAP item 10a), on the contact-free generic path
+T3, T9-T13, T22 and T4 (item 10b-i), each CG with its own exit per
+member.  So the launch count of a substep does not depend on the member
+count, and each plain twin loops over the members (``state.each_member``).
+Its residual and its counters are per member.  An ensemble with
+self-contact off the packed bodies, edge-edge or node-node contacts (so
+full coupling's terms) or the entry-list floor raises
+:class:`NotPortedError` (item 10b-ii, :func:`check_ensemble_path`).
 """
 
 from __future__ import annotations
@@ -145,6 +150,40 @@ def detect_point_tri(state: SolverState, x: torch.Tensor, topo: Topology,
         adj=topo.super_adj, triangles=topo.triangles)
     return CollisionSet(floor_active=active, pt_idx=pt_idx, pt_mask=pt_mask,
                         pt_count=pt_count, overflow=overflow, rebuilt=rebuilt)
+
+
+def ensemble_unported(state: SolverState, topo: Topology, config: StepConfig) -> str | None:
+    """What keeps an ensemble of this scene off the ported PD paths (None if
+    nothing does): on the tet-column path self-contact off the packed
+    bodies; on the generic path any contact term, whose kernels (T5-T8 on
+    this path, T14-T17, T20, T23-T27) are single-scene, or the entry-list
+    floor (T24).  Full coupling acts only through the contacts (T23, T26):
+    without them it is the contact-free path (``StepConfig``'s default
+    coupling, which the JAX package's own ensemble scenes keep)."""
+    if tetcols.applies(state, topo, config):
+        packed = (broadphase.tri_mode(config, topo.tri_mask.shape[0]) is None
+                  and broadphase.packed(config))
+        return None if not self_contact(config, topo) or packed else \
+            "self-contact off the packed bodies"
+    off = [name for name, on in (
+        ("self-contact", self_contact(config, topo)),
+        ("edge-edge contacts", edge_contact(config, topo)),
+        ("node-node contacts", config.enable_node_collisions),
+        ("the entry-list floor", not config.dense_floor)) if on]
+    return ", ".join(off) or None
+
+
+def check_ensemble_path(state: SolverState, topo: Topology, config: StepConfig) -> None:
+    """Raise ``NotPortedError`` (ROADMAP item 10b-ii) for an ensemble whose
+    scene takes a path the port's ensembles do not run
+    (:func:`ensemble_unported`)."""
+    why = ensemble_unported(state, topo, config)
+    if why is not None:
+        from .host import NotPortedError  # (host imports this module)
+
+        raise NotPortedError(
+            f"ensembles run the tet-column PD path (packed-body detection) and the"
+            f" contact-free generic PD path; this scene has {why}: ROADMAP queue 1 item 10b-ii")
 
 
 def substep_head_plain(state: SolverState, topo: Topology, params: PhysicsParams,
@@ -681,7 +720,7 @@ def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
                                 full_coupling, failed, sd, inc, ptd, nodes, colls.pt_count)
     block = k["block"](diag, topo.tet_block6, failed) if block_layout(state, topo) else None
     x_it, static_proj = x, torch.zeros_like(x)
-    prr = torch.zeros(1, dtype=x.dtype, device=x.device)
+    prr = torch.zeros(x.shape[:-2] + (1,), dtype=x.dtype, device=x.device)
     for _ in range(config.iterations):
         rows = assembly.local_step(x_it, state.inv_mass, state.mass, state.shape_quats, topo,
                                    config.rotation_iterations, failed, plain)
@@ -694,7 +733,7 @@ def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
                                     state.node_mask, topo, config.cg_iterations,
                                     config.cg_rtol, failed, block, full, edges)
         if counters is not None:
-            counters["cg_trips"].add_(trips[0])
+            counters["cg_trips"].add_(trips[..., 0])
     if pt_on or edge_on:
         stages = STABILIZE if node_on else STABILIZE | FRICTION
         fric = k["pt_tail"](state, params, config, colls, inc, x_it, static_proj, edges,
@@ -708,7 +747,7 @@ def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
                                 nn_imp, FRICTION)
     k["tail"](state, topo, params, active, x_it, static_proj, colls, inc, fric,
               None if floor is None else floor.floor_counts, nn_imp)
-    return torch.sqrt(torch.sum(prr))
+    return torch.sqrt(torch.sum(prr, dim=-1))
 
 
 def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
@@ -717,7 +756,8 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     """One PD substep on the tet-column or the generic path, in place on
     ``state``; returns the device-side residual of its last iteration
     (``‖b − A·x‖`` of the block solve, or of the last CG), f32[B] for an
-    ensemble (tet-column path only).
+    ensemble (0 for a latched member; :func:`check_ensemble_path` says
+    which ensembles run).
 
     ``plain=True`` runs the plain twins whatever the device (the card's
     reference run); otherwise each wrapper picks the kernel for a CUDA state
@@ -725,6 +765,8 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     are summed on the device, never read here: one small reduction or add
     per counter and substep."""
     k = _PLAIN if plain else _KERNELS
+    if state.members:
+        check_ensemble_path(state, topo, config)
     head = k["head"](state, topo, params, config, fold)
     x, msn_h2, diag, wf, active = head
     failed = state.sim_failed
@@ -734,10 +776,11 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
         active = floor.floor_active
         head = (x, msn_h2, diag, wf, active)
     if counters is not None:
-        counters["floor_active"].add_(active.sum(-1).to(torch.int64))
+        # A latched member's (or scene's) substep is skipped: the kernels
+        # leave its outputs unwritten, and it counts nothing.
+        live = failed[..., 0] == 0
+        counters["floor_active"].add_(torch.where(live, active.sum(-1), 0.0).to(torch.int64))
     if not tetcols.applies(state, topo, config):
-        if state.members:
-            raise ValueError("an ensemble runs only on the tet-column path")
         return _generic_substep(state, topo, params, config, k, head, floor, counters, plain)
     if self_contact(config, topo):
         colls = detect_point_tri(state, x, topo, params, config, active, plain)

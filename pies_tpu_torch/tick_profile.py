@@ -10,6 +10,7 @@
     python3 -m pies_tpu_torch.tick_profile --nets [nn] [repeats]
     python3 -m pies_tpu_torch.tick_profile --node-cloud [particles] [repeats]
     python3 -m pies_tpu_torch.tick_profile --ensemble [members] [repeats]
+    python3 -m pies_tpu_torch.tick_profile --ensemble-generic [members] [repeats]
 
 and on the PD scenes any of ``--full`` (``contact_coupling="full"``,
 self-contact on), ``--no-tet-cols`` (a soup off the tet-column path, on
@@ -47,7 +48,10 @@ or with ``--ensemble`` the ``ensemble_vmap`` cell of ``chip_smoke.py``
 phase 13: 64 members by default of the 512-tet soup with self-contact, each
 member's live nodes moved by a seeded offset, stepped by
 ``parallel.ensemble.ensemble_tick_n`` (its windows and counters sum over
-the members).
+the members), or with ``--ensemble-generic`` phase 15b's: 64 members by
+default of ``tet_cube_drop`` (``scene/cube_drop.py``, 1,331 nodes each,
+self-contact off) on the generic path, each member lifted by its own seeded
+offset.
 It warms
 up until the window it measures is contact-active: 30 ticks without
 self-contact (the bottom layer reaches the floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
@@ -59,7 +63,9 @@ tick until a tick has floor-active nodes and touching pairs (the ropes
 reach the floor at tick ~42, the pile at once), the nets tick by tick
 until a tick has live edge contacts (each window below then starts from
 that tick's state: the nets latch within a few dozen ticks of it), the
-ensemble 45 ticks as the soup with self-contact, the node cloud not at all (its pairs touch from the first tick).  Then:
+ensemble 45 ticks as the soup with self-contact, the generic ensemble tick by
+tick until every member has had floor-active nodes, the node cloud not at
+all (its pairs touch from the first tick).  Then:
 
 * times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
   ends in a synchronize) and prints each, for the spread;
@@ -106,7 +112,7 @@ def _clone(state):
 
 def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, mixed=False,
          boxes=False, reference=False, rope=False, pile=False, full=False, tet_cols=True,
-         dense_floor=True, nets=False, cloud=False, members=0):
+         dense_floor=True, nets=False, cloud=False, members=0, drop=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -126,9 +132,10 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
              else f"the PBD node pile, {n_tets} particles" if pile
              else f"the crossing nets, nn = {n_tets}" if nets
              else f"the PD node cloud, {n_tets} particles" if cloud
+             else f"an ensemble of {members} tet_cube_drop meshes" if drop
              else f"an ensemble of {members} 512-tet soups" if members else "the soup")
     collisions = (collisions or mixed or boxes or rope or pile or full or nets
-                  or members) and not cloud
+                  or members) and not (cloud or drop)
     mode = "reference" if reference else "celllist"
     coupling = "full" if full or nets else "recentered"
     print(f"card: {smi}; {scene}, self-contact {'on' if collisions else 'off'},"
@@ -160,7 +167,24 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
 
     new_counters = (pbd if rope or pile else pd).new_counters
     states = None
-    if members:
+    if drop:
+        from .parallel import ensemble
+        from .scene.cube_drop import add_cube_drop, lifted_ensemble
+
+        ids = add_cube_drop(s, 10)
+        s._prepare()
+        states = lifted_ensemble(s.state, members, len(ids))
+        env = (s.topology, s.current_params(), s.config)
+        seen = torch.zeros(members, dtype=torch.bool, device=s.device)
+        for tick in range(1, 121):
+            c = pd.new_counters(s.device, members)
+            ensemble.ensemble_tick(states, *env, counters=c)
+            seen |= c["floor_active"] > 0
+            if bool(seen.all()):
+                break
+        print(f"every member has had floor-active nodes by tick {tick}")
+        new_counters = lambda device: pd.new_counters(device, members)  # noqa: E731
+    elif members:
         import numpy as np
 
         from .parallel import ensemble
@@ -297,6 +321,8 @@ if __name__ == "__main__":
         sys.exit(main(*(args or [256]), nets=True))
     if "--node-cloud" in flags:
         sys.exit(main(*(args or [131_072]), cloud=True))
+    if "--ensemble-generic" in flags:
+        sys.exit(main(512, *args[1:2], members=args[0] if args else 64, drop=True))
     if "--ensemble" in flags:
         sys.exit(main(512, *args[1:2], members=args[0] if args else 64))
     if {"--rope", "--pile"} & set(flags):

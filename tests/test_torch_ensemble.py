@@ -232,18 +232,21 @@ def test_step_reduces_over_members(reference):
 
 
 def test_other_paths_are_not_ported():
-    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=False,
+    """The generic path with self-contact (``create_sheet`` with collisions
+    on) and PBD ensembles are ROADMAP item 10b-ii; the contact-free generic
+    path runs (``tests/test_torch_ensemble_generic.py``)."""
+    s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=True,
                   device="cpu")
-    s.create_rope((0.0, 2.0, 0.0), (3.0, 2.0, 0.0), 8, 2000.0)
+    s.create_sheet((0.0, 0.5, 0.0), 0.5, 1.0, 5000.0)
     s._prepare()
     states = stack_ensemble(s.state, 2)
-    with pytest.raises(NotPortedError, match="10b"):
+    with pytest.raises(NotPortedError, match="self-contact.*10b-ii"):
         ensemble.ensemble_tick(states, s.topology, s.current_params(), s.config)
     p = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PBD), enable_collisions=False,
                   device="cpu")
     p.create_tet_soup(8, **CONTACT_SCENE)
     p._prepare()
-    with pytest.raises(NotPortedError, match="10b"):
+    with pytest.raises(NotPortedError, match="10b-ii"):
         ensemble.ensemble_tick(stack_ensemble(p.state, 2), p.topology, p.current_params(),
                                p.config)
 
