@@ -249,6 +249,25 @@ Phases (any failure exits non-zero, before the result line):
    and T11's block solve on 4 x 4,096-tet soups with ``tet_cols=False``.
    15d 4 x ``tet_cube_drop`` with member 2 latched before the start: after
    40 ticks it is bit-unchanged and the others have stepped.
+16. Ensembles on the generic PD path with point-triangle self-contact
+   (ROADMAP item 10b-ii; T14-T17, T23, T24 and T7-T10 with a member axis).
+   16a 64 x ``tet_cube_drop`` with the bench's self-contact (the super-body
+   detection, T14/T15) and 16b 64 x phase 9a's box pile (all-pairs,
+   T16/T17), each member jittered: three timed ``ensemble_tick_n(10)``
+   windows from the floor contact, gated on no latch, floor contact in
+   every member, the detection's kernels launched and launches per tick
+   equal at B = 64 and B = 1 (16b: contacts in every member), and a traced
+   window.  16c every stage of the substep (``solver/stages.py``) at B = 3
+   with a latched member bit-equal to its twins' member loop on the
+   kernels' inputs, B = 1 equal to the unbatched call, and each kernel
+   timed at B = 64 against 64 launches at B = 1: on 16a's and 16b's states,
+   16b's under full coupling on the entry-list floor (T23, T24), the
+   cell-list and reference branches on phase 9b's folded mesh and the
+   per-body branch on phase 2b's soup (64 x 110,592 and 64 x 500,000
+   nodes); then every branch and term through the ensemble tick on small
+   scenes.  16d members 0, 21, 42, 63 bit-equal to their single-scene
+   runs, and one tick of 64 members of 16b (8 of 16a) to the batched twin.
+   16e a member latched before the start stays bit-unchanged over 40 ticks.
 
 The last two lines are the kernel table and the result as JSON objects.
 """
@@ -290,6 +309,13 @@ ENS_ROPE = 64  # phase 15a: tests/test_diagnostics.py:47-76's ensemble
 ENS_DROP = 64  # phase 15b: members of tet_cube_drop
 ENS_CLOTH = (32, 8)  # phase 15c: the rigged cloth's side and members
 ENS_BLOCK = (4096, 4)  # phase 15c: the soup's tets and members, tet_cols=False
+ENS_PILE = 64  # phase 16b: members of the box pile
+PILE_WARM = 30  # the piled boxes touch from tick ~27
+# Phase 16c's small scenes (scene/contact_piles.py branch_scene): the tet
+# boxes in contact from tick ~5, the 24-tet soup's tets from tick 32.
+BRANCH_WARM = {"super": 6, "celllist": 6, "reference": 6, "bodies": 31, "full_entry": 6}
+CONTACT_PATHS = ("16a", "16b", "16c super", "16c celllist", "16c reference", "16c bodies",
+                 "16c full_entry")
 # Phase 14: the bench's cube (scripts/bench_all.py:86-97, its +0.5 lift in y
 # applied), meshed at 47 cells across and scaled by 6 (the dump MESH_BIG's
 # geometry; its bottom at y = 3), and at 10 for tet_cube_drop.
@@ -1573,12 +1599,390 @@ def phase15(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, gen
     lap("15d")
 
 
+def phase16(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nine_b,
+            members=ENS_DROP, pile_members=ENS_PILE, drop_res=DROP_RES, n_boxes=5):
+    """Phase 16: ensembles on the generic PD path with point-triangle
+    self-contact (ROADMAP item 10b-ii): 16a ``members`` x ``tet_cube_drop``
+    with the bench's self-contact (the super-body detection, T14/T15) and
+    16b ``pile_members`` x the box pile (all-pairs, T16/T17), each timed
+    over three 10-tick windows with 16d (sampled members against their
+    single-scene runs) inside; 16c every stage of the path at B = 3 against
+    its twins' member loop and timed at B = ``pile_members`` against as many
+    launches at B = 1: on 16a's and 16b's states, 16b's under full coupling
+    on the entry-list floor, and the cell-list, reference and per-body
+    branches on ``nine_b``'s states (phase 9b's folded mesh and 2b's soup:
+    ``{"mesh" | "soup": (state, topology, params, config, live nodes)}``),
+    then every branch and term through the ensemble tick on small scenes;
+    16e a pre-latched member."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pies_tpu_torch.collision import broadphase
+    from pies_tpu_torch.parallel import ensemble
+    from pies_tpu_torch.scene.contact_piles import add_box_pile, branch_scene, jittered_ensemble
+    from pies_tpu_torch.scene.cube_drop import add_cube_drop, lifted_ensemble
+    from pies_tpu_torch.solver import pd, step, tetcols
+    from pies_tpu_torch.state import member, stack_ensemble, unstack
+    from pies_tpu_torch.solver.stages import contact_stages, stages_apart
+    from pies_tpu_torch.tick_profile import device_events
+
+    fields = ("positions", "prev_positions", "velocities", "forces", "sim_failed")
+
+    def same(a, b):
+        ok = all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+        return ok and (a.bp is None or all(torch.equal(getattr(a.bp, f), getattr(b.bp, f))
+                                           for f in ("pairs", "valid", "ref", "fresh")))
+
+    def first(states, n):
+        return clone_state(member(states, slice(0, n)))
+
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        print(f"  ({what}: {time.perf_counter() - t_phase:.1f} s into phase 16)")
+
+    def windows(label, states, env, first_tick, detection):
+        """Three timed ``ensemble_tick_n(10)`` windows from ``first_tick``
+        with the device counters on, then 16d on the sampled members, the
+        launches at B = 1 and a traced window.  Returns the counters summed
+        over the 30 ticks."""
+        topo, params, cfg = env
+        b_ = states.members
+        sampled = [b for b in ENS_SAMPLED if b < b_]
+        starts = {b: unstack(states, b) for b in sampled}
+        total = pd.new_counters(dev, b_)
+        secs = []
+        for w in range(3):
+            reset_launches()
+            c = pd.new_counters(dev, b_)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ensemble.ensemble_tick_n(states, topo, params, cfg, 10, counters=c)
+            torch.cuda.synchronize()
+            sec = (time.perf_counter() - t0) / 10
+            launches[label] = read_launches()
+            for k in c:
+                total[k] += c[k]
+            n = {k: v.tolist() for k, v in c.items()}
+            secs.append(sec)
+            t = first_tick + 10 * w
+            print(f"  window {w + 1}: {sec * 1e3:.3f} ms/tick, {b_ / sec:.1f} scene-steps/s"
+                  f" ({smi}; ticks {t}-{t + 9}; max residual {float(res):.4g});"
+                  f" {sum(launches[label].values()) / 10:.1f} launches per tick; per member:"
+                  f" contacts {min(n['contacts'])} to {max(n['contacts'])}, rebuilds"
+                  f" {min(n['rebuilds'])} to {max(n['rebuilds'])}, CG trips {min(n['cg_trips'])}"
+                  f" to {max(n['cg_trips'])}, floor-active node-substeps"
+                  f" {min(n['floor_active'])} to {max(n['floor_active'])}")
+            check(not bool(states.sim_failed.any())
+                  and bool(torch.isfinite(states.positions).all()),
+                  "no member latched, positions finite")
+        n = {k: v.tolist() for k, v in total.items()}
+        check(min(n["floor_active"]) > 0, f"floor contact in every member over the 30 ticks:"
+              f" {min(n['floor_active'])} to {max(n['floor_active'])} node-substeps a member")
+        check(all(launches[label][k] > 0 for k in detection),
+              f"the detection's kernels launched: {({k: launches[label][k] for k in detection})}")
+        print(f"  {label}: {min(secs) * 1e3:.3f} to {max(secs) * 1e3:.3f} ms/tick,"
+              f" {b_ / max(secs):.1f} to {b_ / min(secs):.1f} scene-steps/s ({smi}); per member"
+              f" over the 30 ticks: contacts {min(n['contacts'])} to {max(n['contacts'])}"
+              f" (mean {sum(n['contacts']) / b_:.1f}), rebuilds {min(n['rebuilds'])} to"
+              f" {max(n['rebuilds'])}")
+        for b, sb in starts.items():
+            cb = pd.new_counters(dev)
+            step.tick_n(sb, topo, params, cfg, 30, counters=cb)
+            check(same(member(states, b), sb) and all(int(cb[k]) == n[k][b] for k in cb),
+                  f"16d: member {b} bit-equal to its single-scene run over the 30 ticks, cache"
+                  f" and counters too (contacts {int(cb['contacts'])}, rebuilds"
+                  f" {int(cb['rebuilds'])}, CG trips {int(cb['cg_trips'])})")
+        one = stack_ensemble(unstack(states, 0), 1)
+        reset_launches()
+        ensemble.ensemble_tick_n(one, topo, params, cfg, 10)
+        torch.cuda.synchronize()
+        launches[label + " B=1"] = read_launches()
+        live = {k: v / 10 for k, v in launches[label].items() if v}
+        check(launches[label + " B=1"] == launches[label],
+              f"launches per tick at B = {b_} equal those at B = 1: {sum(live.values()):.1f}"
+              f" ({live})")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ensemble.ensemble_tick_n(states, topo, params, cfg, 10)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = device_events(prof)
+        busy = sum(us for _, us in events) / 1e3
+        t = first_tick + 30
+        print(f"  traced ticks {t}-{t + 9}: wall {wall:.3f} ms, device busy {busy:.3f} ms,"
+              f" idle {100 - 100 * busy / wall:.1f}% ({smi}); device time per tick by kernel:")
+        for e, us in sorted(events, key=lambda eu: -eu[1])[:8]:
+            print(f"    {us / 10:9.2f} us/tick  x{e.count / 10:<6.1f} {e.key[:80]}")
+        return total
+
+    def batched_twin(label, states, env):
+        """One tick of ``states`` by the kernels and by the batched twin:
+        every member's state, cache and counters bit-equal."""
+        topo, params, cfg = env
+        e, p = clone_state(states), clone_state(states)
+        c, cp = pd.new_counters(dev, states.members), pd.new_counters(dev, states.members)
+        ensemble.ensemble_tick(e, topo, params, cfg, counters=c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.tick(p, topo, params, cfg, plain=True, counters=cp)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        apart = [b for b in range(states.members) if not same(member(e, b), member(p, b))]
+        check(not apart and all(torch.equal(c[k], cp[k]) for k in c),
+              f"16d: one tick of all {states.members} members of {label} bit-equal to the"
+              f" batched twin, counters too ({int(c['contacts'].sum())} contacts; batched twin"
+              f" {sec * 1e3:.1f} ms; apart: {apart})")
+
+    def stage_checks(label, states, env, contacts=True):
+        """16c: B = 3 (member 2 latched) against the twins' member loop on
+        the kernels' inputs, and B = 1 against the unbatched call; with
+        ``contacts``, members 0 or 1 in contact."""
+        topo, params, cfg = env
+        st3 = first(states, 3)
+        st3.sim_failed[2, 0] = 1
+        out = contact_stages(st3, topo, params, cfg)
+        torch.cuda.synchronize()
+        apart = stages_apart(out, [0, 1])
+        counts = out["detection"][0][2][:, 0].tolist()
+        check(not apart and counts[2] == 0 and (max(counts[:2]) > 0 or not contacts),
+              f"16c {label}: every stage at B = 3 (member 2 latched) bit-equal to its twins'"
+              f" member loop on the kernels' inputs ({', '.join(out)}; contacts {counts};"
+              f" apart: {apart})")
+        one = contact_stages(first(states, 1), topo, params, cfg, twins=False)
+        alone = contact_stages(unstack(states, 0), topo, params, cfg, twins=False)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a.reshape(b.shape), b) for stage in one
+                  for a, b in zip(one[stage].kernel, alone[stage].kernel)),
+              f"16c {label}: B = 1 equals the unbatched call, every stage")
+
+    def time_stages(label, states, env, names):
+        """Each kernel call in ``names`` of a :func:`contact_stages` run on
+        ``states`` (the twins off), on the inputs the kernel got there: at
+        B = b against b launches at B = 1 on the members' views, beside its
+        bound; recorded in the rows under ``ensemble_contacts``."""
+        topo, params, cfg = env
+        b_, n = states.members, states.capacity
+        out = contact_stages(states, topo, params, cfg, twins=False)
+        calls = {k: c for stage in out.values() for k, c in stage.calls.items()}
+        torch.cuda.synchronize()
+        n_c = int(out["detection"].kernel[2].sum())  # live contacts over the members
+        n_inc, r_all = 4 * n_c, calls["T9 stage 2"][1][3].shape[-2]
+        m = topo.ell_nbr.shape[0] if topo.ell_nbr is not None else 0
+        passes = cfg.collision_stabilization_iterations
+        full_c = cfg.contact_coupling == "full"
+        # name -> (the rows it is recorded in, bytes moved once, operations)
+        work = {}
+        mode = broadphase.tri_mode(cfg, topo.tri_mask.shape[0])
+        if mode is None:
+            lay = broadphase.super_layout(cfg, topo.super_corners, topo.super_adj)
+            valid = int(out["cache"].kernel[1].sum())
+            work["T14 without a rebuild"] = ("super_broadphase", b_ * 36 * n, b_ * 6 * n)
+            work["T14 with a rebuild"] = (
+                "super_broadphase", b_ * (36 * n + 8 * lay.lanes + 4) + 4 * lay.k * (lay.w + lay.a),
+                b_ * 1000 * lay.k)
+            work["T15"] = ("super_narrowphase",
+                           b_ * (24 * n + 4 * lay.lanes + 20 * lay.cap) + 4 * lay.k * lay.w,
+                           60 * len(lay.combos()) * valid)
+        else:
+            lay = broadphase.tri_layout(cfg, topo.triangles.shape[0], mode)
+            live_lanes = int(calls["T17"][1][3].sum())
+            work["T16 " + mode] = (
+                "tri_candidates", b_ * (24 * n + 4 * lay.t * (lay.nb + 1)) + 16 * lay.t,
+                b_ * 6 * (lay.t * lay.t if mode == "allpairs" else lay.k * lay.raw))
+            work["T17"] = ("tri_ccd", b_ * (4 * lay.t * (lay.nb + 1) + 24 * n + 20 * lay.cap)
+                           + 12 * lay.t, 3 * 200 * live_lanes)
+        work["T7 setup"] = ("pt_coupling", 20 * n_c + 24 * n_inc + b_ * 16 * n, 10 * n_inc)
+        work["T7 force"] = ("pt_coupling", 20 * n_c + 24 * n_inc, 50 * n_inc)
+        # (under full coupling T23 runs inside T9's stage 2 and T10)
+        work["T9 stage 2"] = (("tet_force_nodes", "pt_full") if full_c else "tet_force_nodes",
+                              4 * n + 4 * r_all + b_ * (52 * n + 12 * r_all) + 20 * n_c
+                              + 12 * n_inc, b_ * (3 * r_all + 12 * n) + 30 * n_inc)
+        work["T10"] = (("ell_matvec", "pt_full") if full_c else "ell_matvec",
+                       8 * m * n + b_ * 32 * n + (20 * n_c + 12 * n_inc if full_c else 0),
+                       b_ * (6 * m + 9) * n + (30 * n_inc if full_c else 0))
+        work["T8"] = ("pt_tail", passes * (20 * n_c + 64 * n_inc) + 20 * n_c + 56 * n_inc,
+                      passes * 60 * n_c + 90 * n_c)
+        n_ent = topo.corner_inc.cap if topo.corner_inc is not None else 0
+        work["T24"] = ("floor_entries", b_ * (36 * n + 12 * n_ent), b_ * 4 * n_ent)
+        work["T4"] = ("substep_tail", 120 * b_ * n, 25 * b_ * n)
+        print(f"phase 16c: {label}, each stage at B = {b_} against {b_} launches at B = 1"
+              f" ({n_c} live contacts over the members; {smi})")
+        for stage in names:
+            if stage not in calls:
+                continue
+            fn, args = calls[stage]
+            row_name, nbytes, ops = work[stage]
+            per = [tuple(member(t, k) for t in args) for k in range(b_)]
+            ms_b = cuda_ms(lambda: fn(*args), 10)
+            ms_1 = cuda_ms(lambda: [fn(*p) for p in per], 3)
+            b_ms, b_by = bound(nbytes, ops)
+            print(f"  {stage}: B = {b_} {ms_b:.4f} ms, {b_} x B = 1 {ms_1:.4f} ms"
+                  f" ({ms_1 / ms_b:.1f}x), bound {b_ms:.4f} ms ({b_by})")
+            for name in (row_name if isinstance(row_name, tuple) else (row_name,)):
+                rows[name].setdefault("ensemble_contacts", {})[f"{stage}, {label}"] = dict(
+                    members=b_, b_ms=ms_b, b1_x_members_ms=ms_1, bound_ms=b_ms, bound_by=b_by)
+
+    # 16a: members x tet_cube_drop with the bench's self-contact.
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=True, device=dev)
+    ids = add_cube_drop(s, drop_res)
+    s._prepare()
+    env = (s.topology, s.current_params(), s.config)
+    topo, params, cfg = env
+    live = len(ids)
+    n_tris = int((topo.tri_mask > 0).sum())
+    print(f"phase 16a: {members} x tet_cube_drop with self-contact (meshed at {drop_res}: {live}"
+          f" nodes, {int((topo.strain.w > 0).sum())} tets and {n_tris} surface triangles each;"
+          f" {members * live} nodes, {members * n_tris} triangles a tick), the Solver's defaults:"
+          f" contact_coupling {cfg.contact_coupling}, dense_floor {cfg.dense_floor}")
+    states = lifted_ensemble(s.state, members, live)
+    check(not tetcols.applies(states, topo, cfg) and pd.ensemble_unported(states, topo, cfg)
+          is None and broadphase.super_body(cfg)
+          and broadphase.tri_mode(cfg, topo.tri_mask.shape[0]) is None,
+          f"the generic path with the super-body detection (super_k {cfg.super_k}), one cache"
+          f" per member: pairs {tuple(states.bp.pairs.shape)}, ref {tuple(states.bp.ref.shape)}")
+    seen = torch.zeros(members, dtype=torch.bool, device=dev)
+    for tick in range(1, 121):
+        c = pd.new_counters(dev, members)
+        ensemble.ensemble_tick(states, *env, counters=c)
+        seen |= c["floor_active"] > 0
+        if bool(seen.all()):
+            break
+    else:
+        raise SystemExit(f"FAILED: 16a: {int((~seen).sum())} members never on the floor")
+    check(not bool(states.sim_failed.any()), f"every member has had floor-active nodes by tick"
+          f" {tick}, none latched")
+    lap("16a warm-up")
+    total = windows("16a", states, env, tick + 1, ("super_broadphase", "super_narrowphase"))
+    # The lone cube never touches itself: its contact terms add exact zeros,
+    # so the members step as 15b's do without self-contact.
+    off = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False, device=dev)
+    add_cube_drop(off, drop_res)
+    off._prepare()
+    off_states = lifted_ensemble(off.state, members, live)
+    ensemble.ensemble_tick_n(off_states, off.topology, off.current_params(), off.config,
+                             tick + 40)
+    check(int(total["contacts"].max()) == 0
+          and torch.equal(off_states.positions, states.positions)
+          and torch.equal(off_states.velocities, states.velocities),
+          f"16a: no contact in the windows, and after {tick + 40} ticks every member"
+          " bit-equal to the same member stepped without self-contact (15b's path)")
+    del off, off_states
+    batched_twin("16a at B = 8", first(states, 8), env)
+    drop = (states, env)
+    lap("16a")
+
+    # 16b: pile_members x phase 9a's box pile.
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=True, device=dev)
+    add_box_pile(s, n_boxes)
+    s._prepare()
+    p_env = (s.topology, s.current_params(), s.config)
+    p_live = s._builder.num_nodes
+    p_tris = int((s.topology.tri_mask > 0).sum())
+    piles = jittered_ensemble(s.state, pile_members, p_live)
+    print(f"phase 16b: {pile_members} x the box pile ({n_boxes} create_boxes: {p_live} nodes and"
+          f" {p_tris} triangles each; {pile_members * p_live} nodes, {pile_members * p_tris}"
+          f" triangles a tick), each member jittered by ±0.02, {PILE_WARM} warm-up ticks")
+    check(broadphase.tri_mode(p_env[2], s.topology.tri_mask.shape[0]) == "allpairs"
+          and pd.ensemble_unported(piles, *p_env[::2]) is None,
+          "the generic path with the all-pairs detection")
+    ensemble.ensemble_tick_n(piles, *p_env, PILE_WARM)
+    total = windows("16b", piles, p_env, PILE_WARM + 1, ("tri_candidates", "tri_ccd"))
+    check(int(total["contacts"].min()) > 0, f"point-triangle contacts in every member in the"
+          f" window (device counters): {int(total['contacts'].min())} to"
+          f" {int(total['contacts'].max())} contact-substeps a member")
+    batched_twin("16b", piles, p_env)
+    lap("16b")
+
+    # 16c: every stage against the twins, at B = 3 and B = 1, and timed at B.
+    states, env = drop
+    # (a lone cube has no self-contact: its detection runs and finds none)
+    stage_checks("16a's state (super-body, T14/T15)", states, env, contacts=False)
+    main_stages = ["T14 without a rebuild", "T14 with a rebuild", "T15", "T16 allpairs", "T17",
+                   "T7 setup", "T7 force", "T9 stage 2", "T10", "T8", "T4"]
+    time_stages(f"16a's state ({members} x tet_cube_drop)", states, env, main_stages)
+    stage_checks("16b's state (all-pairs, T16/T17)", piles, p_env)
+    time_stages(f"16b's state ({pile_members} x the box pile)", piles, p_env, main_stages)
+    # Full coupling on the entry-list floor (T23 in T9's stage 2 and T10, T24)
+    # for one substep of 16b's state.
+    f_env = p_env[:2] + (dataclasses.replace(p_env[2], contact_coupling="full",
+                                             dense_floor=False),)
+    stage_checks("16b's state, full coupling on the entry-list floor (T23, T24)", piles, f_env)
+    time_stages(f"16b's state ({pile_members} x the box pile), full coupling on the entry-list"
+                f" floor", piles, f_env, ["T24", "T9 stage 2", "T10"])
+    lap("16c on 16a's and 16b's states")
+    # The cell-list, reference and per-body branches at phase 9b's sizes: the
+    # folded 110,592-node mesh with phase 9b's cell-list overrides (and
+    # broadphase_mode="reference"), and phase 2b's 125,000-tet soup with the
+    # packed layout off, each member jittered.
+    mesh9, soup9 = nine_b["mesh"], nine_b["soup"]
+    for kind, (st9, topo9, params9, cfg9, live9) in (
+            ("celllist", mesh9), ("reference", mesh9[:3] + (dataclasses.replace(
+                mesh9[3], broadphase_mode="reference"),) + mesh9[4:]), ("bodies", soup9)):
+        st9 = clone_state(st9)
+        st9.bp = None  # (the per-triangle branches keep no cache)
+        b_env = (topo9, params9, cfg9)
+        big = jittered_ensemble(st9, pile_members, live9, seed0=100)
+        check(broadphase.tri_mode(cfg9, topo9.tri_mask.shape[0]) == kind
+              and not tetcols.applies(big, topo9, cfg9)
+              and pd.ensemble_unported(big, topo9, cfg9) is None,
+              f"16c {kind} at phase 9b's size: {live9} nodes and"
+              f" {int((topo9.tri_mask > 0).sum())} triangles a member, the generic path")
+        stage_checks(f"{kind} at phase 9b's size", big, b_env)
+        time_stages(f"{kind} at phase 9b's size, B = {pile_members}", big, b_env,
+                    ["T16 " + kind, "T17", "T7 setup", "T7 force", "T9 stage 2", "T10", "T8",
+                     "T4"])
+        del big, st9
+        torch.cuda.empty_cache()
+    lap("16c at phase 9b's sizes")
+    # Every branch and term through the ensemble tick on small scenes (its
+    # launches), each stage against its twins there too.
+    for kind in ("super", "celllist", "reference", "bodies", "full_entry"):
+        b_s, b_cfg = branch_scene(kind, dev)
+        b_env = (b_s.topology, b_s.current_params(), b_cfg)
+        b_states = jittered_ensemble(b_s.state, 3, b_s._builder.num_nodes, seed0=100)
+        ensemble.ensemble_tick_n(b_states, *b_env, BRANCH_WARM[kind])
+        reset_launches()
+        ensemble.ensemble_tick_n(clone_state(b_states), *b_env, 1)
+        torch.cuda.synchronize()
+        launches["16c " + kind] = read_launches()
+        mode = broadphase.tri_mode(b_cfg, b_s.topology.tri_mask.shape[0])
+        check(mode == {"full_entry": "allpairs", "super": None}.get(kind, kind),
+              f"16c {kind}: the {mode or 'super-body'} detection, contact_coupling"
+              f" {b_cfg.contact_coupling},"
+              f" dense_floor {b_cfg.dense_floor}")
+        stage_checks(f"{kind} ({b_s._builder.num_nodes} nodes a member)", b_states, b_env)
+    lap("16c")
+
+    # 16e: a member latched before the start stays frozen, with contacts on.
+    e4 = jittered_ensemble(s.state, 4, p_live)
+    ensemble.ensemble_tick_n(e4, *p_env, PILE_WARM)
+    e4.sim_failed[2, 0] = 1
+    start, others = unstack(e4, 2), [unstack(e4, b) for b in (0, 1, 3)]
+    c = pd.new_counters(dev, 4)
+    ensemble.ensemble_tick_n(e4, *p_env, 40, counters=c)
+    latched = (e4.sim_failed != 0).any(dim=-1).tolist()
+    n = {k: v.tolist() for k, v in c.items()}
+    print(f"phase 16e: 4 x the box pile from tick {PILE_WARM + 1}, member 2 latched, 40 ticks:"
+          f" latched {latched}, contacts {n['contacts']}, CG trips {n['cg_trips']}")
+    check(same(member(e4, 2), start) and all(n[k][2] == 0 for k in n),
+          "the latched member is bit-unchanged, its cache too, and counts nothing")
+    check(latched == [False, False, True, False] and min(n["contacts"][:2] + n["contacts"][3:]) > 0
+          and all(not torch.equal(member(e4, b).positions, o.positions)
+                  for b, o in zip((0, 1, 3), others))
+          and bool(torch.isfinite(e4.positions).all()),
+          "the others step in contact, unlatched and finite")
+    lap("16e")
+
+
 def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
          cloth_n=CLOTH_N, n_blobs=N_BLOBS, mixed_sheet=MIXED_SHEET, small_sheet=SMALL_SHEET,
          pbd_big=PBD_BIG, pbd_bench=PBD_BENCH, nets_nn=NETS_NN, nets_big=NETS_BIG,
          cloud_n=CLOUD_N, ens_members=ENS_MEMBERS, ens_tets=ENS_TETS, ens_small=ENS_SMALL,
          mesh_res=MESH_RES, mesh_scale=MESH_SCALE, mesh_dump=MESH_BIG, ens_drop=ENS_DROP,
-         ens_rope=ENS_ROPE, drop_res=DROP_RES, ens_cloth=ENS_CLOTH, ens_block=ENS_BLOCK):
+         ens_rope=ENS_ROPE, drop_res=DROP_RES, ens_cloth=ENS_CLOTH, ens_block=ENS_BLOCK,
+         ens_contacts=ENS_DROP, ens_pile=ENS_PILE, contact_res=DROP_RES, pile_boxes=5):
     import torch
 
     # ---- phase 0
@@ -1868,6 +2272,10 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     held = hold_tri("bodies", x, prev, topo.triangles, tmask, params, cfg_b, failed, fresh,
                     "T5 and T6 (fresh)")
     time_tri("bodies", x, prev, topo.triangles, tmask, failed, held, st.capacity)
+    # (phase 16c's per-body branch on this state, on the generic path)
+    keep.setdefault("9b", {})["soup"] = (clone_state(st), topo, params,
+                                        dataclasses.replace(cfg_b, tet_cols=False),
+                                        s._builder.num_nodes)
     del held, fresh
     st6 = stats["as found"]
     row("pt_narrowphase", "pies_tpu_torch/kernels/csrc/pt_narrowphase.cu",
@@ -2859,7 +3267,12 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             row("tri_ccd", "pies_tpu_torch/kernels/csrc/tri_ccd.cu",
                 "pies_tpu/collision/broadphase.py:1769", 0.0, ms17, ms17p, "equal", bytes17,
                 ops17)
-    del s, mesh_off, held, xf, pf, fresh
+    # (phase 16c's cell-list and reference branches on this folded state)
+    folded = clone_state(st)
+    folded.positions.copy_(xf)
+    folded.prev_positions.copy_(pf)
+    keep["9b"]["mesh"] = (folded, topo, params, tri_cfg["celllist"], s._builder.num_nodes)
+    del s, mesh_off, held, xf, pf, fresh, folded
 
     print(f"phase 6c: the rigged cloth of phase 6 with self-contact on, {cloth_first + 11} ticks")
     t0 = time.perf_counter()
@@ -3484,6 +3897,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             list(wrappers)[:8], ens_members, ens_tets, ens_small)
 
     # ---- phase 14: the mesher, add_tri_mesh_volume and the diagnostics (T28, T29)
+    nine_b = keep.pop("9b")  # (phase 14 clears the rest; phase 16c reads these)
     phase14(pt, dev, smi, PD, row, launches, reset_launches, read_launches, keep,
             mesh_res, mesh_scale, mesh_dump)
 
@@ -3491,6 +3905,11 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     # T22, T4 with a member axis)
     phase15(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, generic, ens_drop,
             ens_rope, drop_res, ens_cloth, ens_block)
+
+    # ---- phase 16: ensembles on the generic path with point-triangle
+    # self-contact (T14-T17, T7, T8, T23, T24 with a member axis)
+    phase16(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nine_b,
+            ens_contacts, ens_pile, contact_res, pile_boxes)
 
     table = []
     generic_ens = ("substep_head", "substep_tail", "tet_force_nodes", "ell_matvec", "pcg",
@@ -3541,6 +3960,14 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             if launches["15b"][name] == 0:
                 paths.update({p: launches[p][name] for p in ("15c cloth", "15c soup")})
             r.setdefault("launches_by_path", {}).update(paths)
+        # The generic path's ensembles with self-contact: 16a, 16b and 16c's
+        # other branches and terms, where they reach the kernel.
+        key = {"assemble_force_contacts": "tet_force_nodes", "ell_matvec_band": "ell_matvec",
+               "assemble_force_cloth": "tet_force_nodes", "ell_matvec_cloth": "ell_matvec",
+               "pcg_cloth": "pcg"}.get(name, name)
+        contact_paths = {p: launches[p][key] for p in CONTACT_PATHS if launches[p].get(key)}
+        if contact_paths:
+            r.setdefault("launches_by_path", {}).update(contact_paths)
         table.append(r)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": table}))

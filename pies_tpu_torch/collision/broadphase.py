@@ -37,6 +37,12 @@ row per triangle, with the latches as device flags) and T17
 hits compacted in the JAX package's chunk-major order).  These branches
 keep no cache.
 
+An ensemble (``x`` f32[B, N, 3], the cache, overflow and results with a
+leading member axis; ROADMAP items 10a and 10b-ii) takes every branch with
+the same launches as one scene: each kernel's ``blockIdx.y`` is the member,
+with its own grid, cache, compactions, counts and latches, and each plain
+twin runs member by member (``state.each_member``).
+
 The JAX package's TPU workarounds are not ported (width tiers, forced
 transposes, one-hot lookups, ``optimization_barrier``); everything runs at
 the full static width, and its width-independent results are kept.  The
@@ -470,6 +476,13 @@ def pt_narrowphase(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLayout, s
 pt_narrowphase.launches = 0
 
 
+def _fresh_cache(k: int, nb: int, m: int, x: torch.Tensor) -> BroadphaseCache:
+    """An unpopulated cache for the positions ``x``: one per member of an
+    ensemble, stacked."""
+    cache = empty_broadphase_cache(k, nb, m, x.device)
+    return stack_members([cache.clone() for _ in range(x.shape[0])]) if members_of(x) else cache
+
+
 def detect_point_tri_collisions(x, prev, tri_mask, params: PhysicsParams, config: StepConfig,
                                 cache: BroadphaseCache | None = None,
                                 failed: torch.Tensor | None = None, plain: bool = False,
@@ -486,13 +499,11 @@ def detect_point_tri_collisions(x, prev, tri_mask, params: PhysicsParams, config
     Returns ``(pt_idx, pt_mask, pt_count, overflow, rebuilt)``; ``overflow``
     and ``rebuilt`` are i32[1] device flags (``rebuilt`` stays 0 on the
     per-triangle branches, which have no cache).  An ensemble (``x``
-    f32[B, N, 3] and a batched cache) takes the packed-body path only, with
-    per-member results."""
+    f32[B, N, 3] and a batched cache, created per member when absent) takes
+    the same branch with per-member results, i32[B, ...]."""
     check_detection(config)
     mode = tri_mode(config, tri_mask.shape[0])
     lead = x.shape[:-2]  # (B,) for an ensemble
-    if lead and (mode is not None or super_body(config)):
-        raise ValueError("an ensemble's detection takes the packed-body path only")
     if mode is not None:
         if triangles is None:
             raise ValueError(f"the {mode} detection needs the scene's triangles")
@@ -502,9 +513,7 @@ def detect_point_tri_collisions(x, prev, tri_mask, params: PhysicsParams, config
     lay = body_layout(config, tri_mask.shape[0])
     if not (cache is not None and config.bp_cache
             and tuple(cache.pairs.shape) == lead + (lay.k, lay.nb)):
-        cache = empty_broadphase_cache(lay.k, lay.nb, lay.k * lay.m, x.device)
-        if lead:
-            cache = stack_members([cache.clone() for _ in range(lead[0])])
+        cache = _fresh_cache(lay.k, lay.nb, lay.k * lay.m, x)
         params = dataclasses.replace(params, broadphase_slack=0.0)
     sc = scalars(params)
     overflow = torch.zeros(lead + (1,), dtype=torch.int32, device=x.device)
@@ -636,7 +645,12 @@ def super_broadphase_plain(x, prev, corners, adj, cache: BroadphaseCache, lay: S
     capacity latch (oversize row, saturated bucket, exact-tier eviction,
     truncated raw gather) into ``overflow`` i32[1].  Returns i32[1], 1 when
     the pairs were rebuilt.  Nothing changes when latch slot 0 of ``failed``
-    is set."""
+    is set.  An ensemble (``x`` f32[B, N, 3], a batched cache, ``overflow``
+    and the result i32[B, 1]) runs member by member."""
+    if members_of(x):
+        return each_member(lambda xb, pb, cb, ob, fb: super_broadphase_plain(
+            xb, pb, corners, adj, cb, lay, sc, ob, fb), members_of(x), x, prev, cache, overflow,
+            failed)
     rebuilt = torch.zeros(1, dtype=torch.int32, device=x.device)
     if failed is not None and bool(failed[0]):
         return rebuilt
@@ -702,7 +716,8 @@ def super_broadphase(x, prev, corners, adj, cache: BroadphaseCache, lay: SuperLa
     """Kernel T14 on CUDA tensors, :func:`super_broadphase_plain` on CPU
     tensors (same arguments and result).  On the card ``failed`` is
     required; ``flags_out``, when given, receives the kernel's flag words
-    i32[8] (``SUPER_FLAGS``: which latch fired)."""
+    i32[8] (``SUPER_FLAGS``: which latch fired; i32[B, 8] for an
+    ensemble)."""
     if kernels.on_cpu(x):
         return super_broadphase_plain(x, prev, corners, adj, cache, lay, sc, overflow, failed)
     if failed is None:
@@ -713,21 +728,25 @@ def super_broadphase(x, prev, corners, adj, cache: BroadphaseCache, lay: SuperLa
             f"the super-body broadphase kernel takes at most {SUPER_MAX_RAW} raw candidates,"
             f" {SUPER_MAX_CELLS} query cells, {SUPER_MAX_ADJ} neighbours and 8 corners per row")
     dev = x.device
-    n = x.shape[0]
-    if tuple(cache.ref.shape) != (n, 3) or tuple(cache.pairs.shape) != (lay.k, lay.nb):
+    n = x.shape[-2]
+    lead = x.shape[:-2]  # (B,) for an ensemble: a table, bounds and flags per member
+    members = kernels.launch_members(x, failed, prev, cache.pairs, cache.valid, cache.ref,
+                                     cache.fresh, overflow)
+    if (tuple(cache.ref.shape) != lead + (n, 3)
+            or tuple(cache.pairs.shape) != lead + (lay.k, lay.nb)):
         raise ValueError("the cache does not have the scene's super-body shapes")
     kernels.require(dev, x, prev, corners, adj, cache.pairs, cache.valid, cache.ref,
                     cache.fresh, overflow, failed)
     i32 = dict(dtype=torch.int32, device=dev)
     # Scratch of a rebuild; the kernel zeroes the counts and cursors itself,
     # and only when it rebuilds.
-    count = torch.empty(lay.h, **i32)
-    cursor = torch.empty(lay.h, **i32)
-    start = torch.empty(lay.h + 1, **i32)
-    partial = torch.empty(kernels.scan_partials(lay.h), **i32)
-    entries = torch.empty(lay.entries, **i32)
-    bounds = torch.empty((2, lay.k, 3), dtype=torch.float32, device=dev)
-    flags = torch.zeros(8, **i32)
+    count = torch.empty(lead + (lay.h,), **i32)
+    cursor = torch.empty(lead + (lay.h,), **i32)
+    start = torch.empty(lead + (lay.h + 1,), **i32)
+    partial = torch.empty(lead + (kernels.scan_partials(lay.h),), **i32)
+    entries = torch.empty(lead + (lay.entries,), **i32)
+    bounds = torch.empty(lead + (2, lay.k, 3), dtype=torch.float32, device=dev)
+    flags = torch.zeros(lead + (8,), **i32)
     err = kernels.lib().pies_super_broadphase(
         x.data_ptr(), prev.data_ptr(), corners.data_ptr(), kernels.ptr(adj),
         cache.pairs.data_ptr(), cache.valid.data_ptr(), cache.ref.data_ptr(),
@@ -736,13 +755,13 @@ def super_broadphase(x, prev, corners, adj, cache: BroadphaseCache, lay: SuperLa
         overflow.data_ptr(), failed.data_ptr(), n, lay.k, lay.live_k, lay.w, lay.a, lay.nb,
         lay.bmax, lay.cells_cap, lay.entries_cap, lay.h,
         int(lay.entries >= PACKED_MAX_ENTRIES), sc.cell, sc.slack, sc.slack_c, sc.margin,
-        sc.exact_margin, sc.size_limit, kernels.stream(),
+        sc.exact_margin, sc.size_limit, members, kernels.stream(),
     )
     kernels.check(err, "super_broadphase")
     super_broadphase.launches += 1
     if flags_out is not None:
         flags_out.append(flags)
-    return flags[6:7]  # kRebuild
+    return flags[..., 6:7]  # kRebuild
 
 
 super_broadphase.launches = 0
@@ -757,7 +776,13 @@ def super_narrowphase_plain(x, prev, corners, cache: BroadphaseCache, lay: Super
     a packed prefix; ORs the proximity-lane eviction latch into
     ``overflow``.  ``stats``, when given, receives the work counts: live
     lanes, compacted lanes, crossing combos solved by the cubic, and
-    contacts before the cap."""
+    contacts before the cap.  An ensemble runs member by member
+    (``pt_idx`` i32[B, cap, 4], ``pt_count`` i32[B, 1]; ``stats`` not
+    taken)."""
+    if members_of(x):
+        return each_member(lambda xb, pb, cb, ob, fb: super_narrowphase_plain(
+            xb, pb, corners, cb, lay, sc, ob, fb), members_of(x), x, prev, cache, overflow,
+            failed)
     dev = x.device
     k, w, nb, cap, kp, nf = lay.k, lay.w, lay.nb, lay.cap, lay.kp, lay.n_face
     pt_idx = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
@@ -855,7 +880,8 @@ def super_narrowphase(x, prev, corners, cache: BroadphaseCache, lay: SuperLayout
                       overflow: torch.Tensor, failed: torch.Tensor | None = None):
     """Kernel T15 on CUDA tensors, :func:`super_narrowphase_plain` on CPU
     tensors (same arguments and results).  On the card the count stays on
-    the device and ``failed`` is required."""
+    the device and ``failed`` is required; a latched scene or member gets
+    an empty contact buffer, as from the twin."""
     if kernels.on_cpu(x):
         return super_narrowphase_plain(x, prev, corners, cache, lay, sc, overflow, failed)
     if failed is None:
@@ -864,28 +890,30 @@ def super_narrowphase(x, prev, corners, cache: BroadphaseCache, lay: SuperLayout
         raise ValueError("the narrowphase kernel takes W <= 8 and W·faces <= 32")
     dev = x.device
     kernels.require(dev, x, prev, corners, cache.pairs, cache.valid, overflow, failed)
+    members = kernels.launch_members(x, failed, prev, cache.pairs, cache.valid, overflow)
+    lead = x.shape[:-2]  # (B,) for an ensemble: every buffer per member
     i32 = dict(dtype=torch.int32, device=dev)
     lanes, pcap, cap = lay.lanes, lay.pcap, lay.cap
-    if lanes >= 1 << 31:
-        raise ValueError("the narrowphase kernel takes fewer than 2^31 lanes")
-    bits = torch.empty((2, lanes), **i32)
-    pair_buf = torch.empty(pcap, **i32)
-    pbits = torch.empty(pcap, **i32)
-    partial = torch.empty(kernels.scan_partials(lanes) + kernels.scan_partials(pcap),
+    if members * max(lanes, 4 * cap, x.shape[-2] * 3) >= 1 << 31:
+        raise ValueError("the narrowphase kernel takes fewer than 2^31 lanes in all")
+    bits = torch.empty(lead + (2, lanes), **i32)
+    pair_buf = torch.empty(lead + (pcap,), **i32)
+    pbits = torch.empty(lead + (pcap,), **i32)
+    partial = torch.empty(members * (kernels.scan_partials(lanes) + kernels.scan_partials(pcap)),
                           dtype=torch.int64, device=dev)
-    totals = torch.zeros(4, dtype=torch.int64, device=dev)
+    totals = torch.zeros(lead + (4,), dtype=torch.int64, device=dev)
     faces = torch.tensor(lay.faces, **i32)
     masks = [m if m < 1 << 31 else m - (1 << 32) for m in lay.combo_bits()]
-    pt_idx = torch.empty((cap, 4), **i32)
-    pt_mask = torch.empty(cap, dtype=torch.float32, device=dev)
-    pt_count = torch.empty(1, **i32)
+    pt_idx = torch.empty(lead + (cap, 4), **i32)
+    pt_mask = torch.empty(lead + (cap,), dtype=torch.float32, device=dev)
+    pt_count = torch.empty(lead + (1,), **i32)
     err = kernels.lib().pies_super_narrowphase(
         x.data_ptr(), prev.data_ptr(), corners.data_ptr(), cache.pairs.data_ptr(),
         cache.valid.data_ptr(), faces.data_ptr(), bits.data_ptr(), pair_buf.data_ptr(),
         pbits.data_ptr(), partial.data_ptr(), totals.data_ptr(), pt_idx.data_ptr(),
         pt_mask.data_ptr(), pt_count.data_ptr(), overflow.data_ptr(), failed.data_ptr(),
         lay.k, lay.kp, lay.live_k, lay.w, lay.n_face, lay.nb, cap, *masks, sc.thr,
-        kernels.stream(),
+        x.shape[-2], members, kernels.stream(),
     )
     kernels.check(err, "super_narrowphase")
     super_narrowphase.launches += 1
@@ -901,13 +929,14 @@ def _detect_super(x, prev, params: PhysicsParams, config: StepConfig,
     if corners is None:
         raise ValueError("the super-body detection needs the scene's corner table")
     lay = super_layout(config, corners, adj)
+    lead = x.shape[:-2]
     if not (cache is not None and config.bp_cache
-            and tuple(cache.pairs.shape) == (lay.k, lay.nb)
-            and cache.ref.shape[0] == x.shape[0]):
-        cache = empty_broadphase_cache(lay.k, lay.nb, x.shape[0], x.device)
+            and tuple(cache.pairs.shape) == lead + (lay.k, lay.nb)
+            and tuple(cache.ref.shape) == x.shape):
+        cache = _fresh_cache(lay.k, lay.nb, x.shape[-2], x)
         params = dataclasses.replace(params, broadphase_slack=0.0)
     sc = scalars(params)
-    overflow = torch.zeros(1, dtype=torch.int32, device=x.device)
+    overflow = torch.zeros(lead + (1,), dtype=torch.int32, device=x.device)
     bf, nf = ((super_broadphase_plain, super_narrowphase_plain) if plain
               else (super_broadphase, super_narrowphase))
     rebuilt = bf(x, prev, corners, adj, cache, lay, sc, overflow, failed)
@@ -1088,7 +1117,13 @@ def tri_candidates_plain(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scala
     branch: ``(cand i32[T, nb], count i32[T], flags i32[8])``, each row's
     candidates a packed ascending prefix of ``count`` slots (0 past it) and
     ``flags`` the words of ``TRI_FLAGS``; ORs the latches into ``overflow``.
-    Nothing is found when latch slot 0 of ``failed`` is set."""
+    Nothing is found when latch slot 0 of ``failed`` is set.  An ensemble
+    (``x`` f32[B, N, 3], ``overflow`` i32[B, 1]) runs member by member:
+    ``cand`` i32[B, T, nb], ``count`` i32[B, T], ``flags`` i32[B, 8]."""
+    if members_of(x):
+        return each_member(lambda xb, pb, ob, fb: tri_candidates_plain(
+            xb, pb, triangles, tri_mask, lay, sc, ob, fb), members_of(x), x, prev, overflow,
+            failed)
     dev = x.device
     flags = torch.zeros(8, dtype=torch.int32, device=dev)
     if failed is not None and bool(failed[0]):
@@ -1155,19 +1190,21 @@ def tri_candidates(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scalars,
                          " cells per row")
     dev = x.device
     kernels.require(dev, x, prev, triangles, tri_mask, overflow, failed)
+    members = kernels.launch_members(x, failed, prev, overflow)
+    lead = x.shape[:-2]  # (B,) for an ensemble: every buffer per member
     i32 = dict(dtype=torch.int32, device=dev)
     h = max(lay.h, 1)
-    count_h = torch.empty(h, **i32)
-    cursor = torch.empty(h, **i32)
-    start = torch.empty(h + 1, **i32)
-    partial = torch.empty(kernels.scan_partials(h), **i32)
-    entries = torch.empty(max(1, lay.k * lay.s), **i32)
-    bounds = torch.empty((2, lay.t + lay.k, 3), dtype=torch.float32, device=dev)
-    bodies = torch.empty((lay.k, max(1, lay.nbb)), **i32)
-    n_bodies = torch.empty(lay.k, **i32)
-    cand = torch.empty((lay.t, lay.nb), **i32)
-    count = torch.empty(lay.t, **i32)
-    flags = torch.zeros(8, **i32)
+    count_h = torch.empty(lead + (h,), **i32)
+    cursor = torch.empty(lead + (h,), **i32)
+    start = torch.empty(lead + (h + 1,), **i32)
+    partial = torch.empty(lead + (kernels.scan_partials(h),), **i32)
+    entries = torch.empty(lead + (max(1, lay.k * lay.s),), **i32)
+    bounds = torch.empty(lead + (2, lay.t + lay.k, 3), dtype=torch.float32, device=dev)
+    bodies = torch.empty(lead + (lay.k, max(1, lay.nbb)), **i32)
+    n_bodies = torch.empty(lead + (lay.k,), **i32)
+    cand = torch.empty(lead + (lay.t, lay.nb), **i32)
+    count = torch.empty(lead + (lay.t,), **i32)
+    flags = torch.zeros(lead + (8,), **i32)
     err = kernels.lib().pies_tri_candidates(
         x.data_ptr(), prev.data_ptr(), triangles.data_ptr(), tri_mask.data_ptr(),
         count_h.data_ptr(), cursor.data_ptr(), start.data_ptr(), partial.data_ptr(),
@@ -1175,7 +1212,7 @@ def tri_candidates(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scalars,
         cand.data_ptr(), count.data_ptr(), flags.data_ptr(), overflow.data_ptr(),
         failed.data_ptr(), TRI_MODES.index(lay.mode), lay.t, lay.k, lay.e, lay.s,
         lay.cells_cap, lay.entries_cap, lay.raw, lay.nbb, lay.nb, lay.h, int(lay.unpacked),
-        sc.cell, sc.margin, sc.size_limit, kernels.stream(),
+        sc.cell, sc.margin, sc.size_limit, x.shape[-2], members, kernels.stream(),
     )
     kernels.check(err, "tri_candidates")
     tri_candidates.launches += 1
@@ -1195,7 +1232,12 @@ def tri_ccd_plain(x, prev, triangles, cand, count, flags, lay: TriLayout, sc: Sc
     slot, corner) into ``cap`` contacts.  Returns ``(pt_idx i32[cap, 4],
     pt_mask f32[cap], pt_count i32[1])`` with the contacts a packed prefix.
     ``stats``, when given, receives the live lanes and the hits before the
-    cap."""
+    cap.  An ensemble runs member by member (``pt_idx`` i32[B, cap, 4],
+    ``pt_count`` i32[B, 1]; ``stats`` not taken)."""
+    if members_of(x):
+        return each_member(lambda xb, pb, cb, nb, fl, fb: tri_ccd_plain(
+            xb, pb, triangles, cb, nb, fl, lay, sc, fb), members_of(x), x, prev, cand, count,
+            flags, failed)
     dev, cap = x.device, lay.cap
     pt_idx = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
     pt_mask = torch.zeros(cap, dtype=torch.float32, device=dev)
@@ -1251,22 +1293,25 @@ def tri_ccd(x, prev, triangles, cand, count, flags, lay: TriLayout, sc: Scalars,
         return tri_ccd_plain(x, prev, triangles, cand, count, flags, lay, sc, failed)
     if failed is None:
         raise ValueError("the CCD kernel needs the failure latch")
-    if lay.lanes >= 1 << 31:
-        raise ValueError("the CCD kernel takes fewer than 2^31 lanes")
+    if max(members_of(x), 1) * lay.lanes >= 1 << 31:
+        raise ValueError("the CCD kernel takes fewer than 2^31 lanes in all")
     dev = x.device
     kernels.require(dev, x, prev, triangles, cand, count, flags, failed)
+    members = kernels.launch_members(x, failed, prev, cand, count, flags)
+    lead = x.shape[:-2]  # (B,) for an ensemble: every buffer per member
     i32 = dict(dtype=torch.int32, device=dev)
     cap = lay.cap
-    hits = torch.empty(lay.lanes, dtype=torch.uint8, device=dev)
-    partial = torch.empty(kernels.scan_partials(max(lay.lanes, cap)) + 1, **i32)
-    pt_idx = torch.empty((cap, 4), **i32)
-    pt_mask = torch.empty(cap, dtype=torch.float32, device=dev)
-    pt_count = torch.empty(1, **i32)
+    hits = torch.empty(lead + (lay.lanes,), dtype=torch.uint8, device=dev)
+    # Each member's block sums, then the members' totals.
+    partial = torch.empty(members * (kernels.scan_partials(lay.lanes) + 1), **i32)
+    pt_idx = torch.empty(lead + (cap, 4), **i32)
+    pt_mask = torch.empty(lead + (cap,), dtype=torch.float32, device=dev)
+    pt_count = torch.empty(lead + (1,), **i32)
     err = kernels.lib().pies_tri_ccd(
         x.data_ptr(), prev.data_ptr(), triangles.data_ptr(), cand.data_ptr(),
         count.data_ptr(), flags.data_ptr(), hits.data_ptr(), partial.data_ptr(),
         pt_idx.data_ptr(), pt_mask.data_ptr(), pt_count.data_ptr(), failed.data_ptr(),
-        lay.t, lay.nb, lay.chunk, cap, sc.thr, kernels.stream(),
+        lay.t, lay.nb, lay.chunk, cap, sc.thr, x.shape[-2], members, kernels.stream(),
     )
     kernels.check(err, "tri_ccd")
     tri_ccd.launches += 1
@@ -1281,7 +1326,7 @@ def _detect_tri(x, prev, triangles, tri_mask, params: PhysicsParams, config: Ste
     """A per-triangle branch of :func:`detect_point_tri_collisions`."""
     lay = tri_layout(config, triangles.shape[0], mode)
     sc = tri_scalars(params, config)
-    overflow = torch.zeros(1, dtype=torch.int32, device=x.device)
+    overflow = torch.zeros(x.shape[:-2] + (1,), dtype=torch.int32, device=x.device)
     cf, df = (tri_candidates_plain, tri_ccd_plain) if plain else (tri_candidates, tri_ccd)
     cand, count, flags = cf(x, prev, triangles, tri_mask, lay, sc, overflow, failed)
     pt_idx, pt_mask, pt_count = df(x, prev, triangles, cand, count, flags, lay, sc, failed)

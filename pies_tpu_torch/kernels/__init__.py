@@ -65,10 +65,12 @@ wrappers that call them sit beside their plain PyTorch twins:
   ``grid.cuh``), behind ``candidate_occupancy`` and
   ``diagnostics.broadphase_health``
 
-T1-T8 (ROADMAP item 10a) and the generic path's T9-T13 and T22 (item
-10b-i) take an ensemble's member axis (``pies_tpu/parallel/ensemble.py``):
-their last int argument is the member count, each launch's ``blockIdx.y``
-is the member, and a single scene is one member.  The row kernels (T9's
+T1-T8 (ROADMAP item 10a), the generic path's T9-T13 and T22 (item 10b-i)
+and its point-triangle contacts and entry-list floor, T14-T17, T23 and T24
+(item 10b-ii), take an ensemble's member axis
+(``pies_tpu/parallel/ensemble.py``): their last int argument is the member
+count, each launch's ``blockIdx.y`` is the member, and a single scene is
+one member.  The row kernels (T9's
 stage 1, T12, T13) and T9's stage 2 also take the row buffer's member
 stride, in rows, since each family writes its part of one buffer.
 
@@ -112,13 +114,13 @@ SIGNATURES = {
     "pies_body_broadphase": [_P] * 16 + [_I] * 10 + [_F] * 6 + [_I, _I, _P],
     "pies_pt_narrowphase": [_P] * 16 + [_I] * 6 + [_F, _I, _I, _P],
     "pies_pt_coupling_setup": [_P] * 15 + [_I, _I, _F, _I, _P],
-    "pies_super_broadphase": [_P] * 17 + [_I] * 11 + [_F] * 6 + [_P],
-    "pies_super_narrowphase": [_P] * 16 + [_I] * 11 + [_F, _P],
+    "pies_super_broadphase": [_P] * 17 + [_I] * 11 + [_F] * 6 + [_I, _P],
+    "pies_super_narrowphase": [_P] * 16 + [_I] * 11 + [_F, _I, _I, _P],
     "pies_pt_force": [_P] * 9 + [_I, _I, _F, _I, _P],
     "pies_pt_tail": [_P] * 23 + [_I] * 6 + [_F] * 6 + [_I, _P],
     "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P] + [_I] * 3 + [_P],
-    "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 8 + [_I, _F] + [_P] * 10
-    + [_I, _F] + [_P] * 8 + [_I] * 3 + [_P],
+    "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 8 + [_I, _F] + [_P] * 3 + [_I]
+    + [_P] * 7 + [_I, _F] + [_P] * 8 + [_I] * 3 + [_P],
     "pies_ell_matvec": [_P] * 8 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F]
     + [_P] * 5 + [_I] + [_P] * 7 + [_I, _F, _I, _P],
     "pies_cg_init": [_P] * 13 + [_I, _P, _I, _P],
@@ -128,8 +130,8 @@ SIGNATURES = {
     "pies_bend_rows": [_P] * 6 + [_I, _P] + [_I] * 3 + [_P],
     "pies_shape_rows": [_P] * 12 + [_I, _I, _I, _P] + [_I] * 3 + [_P],
     "pies_goal_rows": [_P] * 6 + [_I, _P, _I, _I, _P],
-    "pies_tri_candidates": [_P] * 17 + [_I] * 12 + [_F] * 3 + [_P],
-    "pies_tri_ccd": [_P] * 12 + [_I] * 4 + [_F, _P],
+    "pies_tri_candidates": [_P] * 17 + [_I] * 12 + [_F] * 3 + [_I, _I, _P],
+    "pies_tri_ccd": [_P] * 12 + [_I] * 4 + [_F, _I, _I, _P],
     "pies_pbd_rows": [_I] + [_P] * 8 + [_I, _F, _I, _P, _P],
     "pies_pbd_apply": [_P] * 4 + [_I, _P, _P],
     "pies_pbd_head": [_P] * 4 + [_I, _F, _F, _P, _I, _P],
@@ -140,7 +142,7 @@ SIGNATURES = {
     "pies_node_pairs": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_P],
     "pies_node_response": [_P] * 13 + [_I, _F, _F, _P, _P],
     "pies_tet_block_factor": [_P] * 3 + [_I, _P, _I, _P],
-    "pies_floor_entries": [_P] * 4 + [_F] + [_P] * 5 + [_I, _P, _P],
+    "pies_floor_entries": [_P] * 4 + [_F] + [_P] * 5 + [_I, _I, _P, _I, _P],
     "pies_edge_ccd": [_P] * 13 + [_I] * 4 + [_P],
     "pies_edge_setup": [_P] * 23 + [_I] * 3 + [_F, _P],
     "pies_node_setup": [_P] * 16 + [_I] * 3 + [_F, _P],
@@ -258,13 +260,14 @@ def require(device: torch.device, *tensors: torch.Tensor | None) -> None:
             raise ValueError("the kernels take contiguous tensors")
 
 
-def launch_members(x: torch.Tensor, failed: torch.Tensor, *batched: torch.Tensor) -> int:
+def launch_members(x: torch.Tensor, failed: torch.Tensor, *batched: torch.Tensor | None) -> int:
     """The member count a kernel launches with for the positions (or
     vectors) ``x`` f32[..., N, 3]: B for an ensemble's f32[B, N, 3], 1 for
     a single scene.  Raises unless the latch ``failed`` and the per-member
-    arrays ``batched`` carry the same member axis."""
+    arrays ``batched`` (None skipped) carry the same member axis."""
     lead = x.shape[:-2]
-    if failed.shape[:-1] != lead or any(t.shape[:len(lead)] != lead for t in batched):
+    if failed.shape[:-1] != lead or any(t is not None and t.shape[:len(lead)] != lead
+                                        for t in batched):
         raise ValueError("the latch and the per-member arrays need the positions' member axis")
     return lead[0] if lead else 1
 

@@ -37,8 +37,9 @@
 // static weight and the band are the shared topology's; b's x and y start
 // at b*N*3, its mass and dense diagonal at b*N, its partials at b*P, its
 // latch at failed[2b], and a CG trip passes b's own gate (cg_reduce.cuh).
-// The contacts' blocks under full coupling (T23, T26) are single-scene:
-// the wrapper passes them only with one member.
+// The point-triangle contacts' blocks under full coupling (T23) are b's own
+// (PtFull::member); the edge contacts' (T26) are single-scene: the wrapper
+// passes them only with one member.
 //
 // Bound: device memory.  Per node it reads m neighbour ids and
 // coefficients (8 m bytes), x, mass, the floor and static weights (24
@@ -137,7 +138,7 @@ __global__ void __launch_bounds__(pies::kCgBlock)
 #pragma unroll
     for (int d = 0; d < 3; ++d) yi[d] = yi[d] + acc[d];
     // Full contact coupling (kernel T23, pt_full.cuh): the contacts' blocks.
-    if (pt.pt_idx != nullptr) pies::pt_full_add<false>(pt, x, i, yi);
+    if (pt.pt_idx != nullptr) pies::pt_full_add<false>(pt.member(mb, n), x, i, yi);
     if (et.edge_idx != nullptr) pies::edge_add<false>(et, x, i, yi);  // kernel T26
 #pragma unroll
     for (int d = 0; d < 3; ++d) y[(size_t)i * 3 + d] = yi[d];
@@ -156,9 +157,9 @@ __global__ void __launch_bounds__(pies::kCgBlock)
 // With `row_start` non-null the operator is CSR, else ELL of width m; with
 // `band` non-null the seven tet diagonals are applied before it; with
 // `pt_idx` non-null (full contact coupling) the contacts' blocks after it,
-// through T7's incidence (`pt_start`, `pt_entries`), and with `edge_idx`
-// non-null the edge contacts' blocks after those, through T26's (both with
-// one member only).
+// through T7's incidence (`pt_start`, `pt_entries`; each member's own), and
+// with `edge_idx` non-null the edge contacts' blocks after those, through
+// T26's (one member only).
 extern "C" int pies_ell_matvec(const float* x, const float* mass,
                                const float* wf, const float* static_w,
                                const float* band,

@@ -26,6 +26,12 @@
 // (24 bytes) and four words written, per entry its id, its triangle's mask
 // and its written mask (12 bytes): ~3.3 MB at 110,592 nodes and 79,536
 // entries, ~1 us at 3.35 TB/s.
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick):
+// blockIdx.y is the member b: its positions from b*n*3, its diag, wf,
+// active and counts from b*n, its static_mask from b*n_entries and its
+// latch failed[2b].  The corner incidence and the triangle mask are the
+// shared topology's.
 #include <cuda_runtime.h>
 
 #include "floor_entries.cuh"
@@ -40,11 +46,15 @@ __global__ void __launch_bounds__(256)
                          float* __restrict__ static_mask,
                          float* __restrict__ diag, float* __restrict__ wf,
                          float* __restrict__ active,
-                         float* __restrict__ counts, int n,
+                         float* __restrict__ counts, int n, int n_entries,
                          const int* __restrict__ failed) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  if (failed[0] != 0) return;
+  const size_t mb = blockIdx.y;
+  if (failed[2 * mb] != 0) return;
+  x += mb * n * 3;
+  static_mask += mb * n_entries;
+  diag += mb * n, wf += mb * n, active += mb * n, counts += mb * n;
   const bool below = x[(size_t)i * 3 + 1] < threshold;
   float w = 0.0f, c = 0.0f;
   const int e1 = start[i + 1];
@@ -66,14 +76,14 @@ __global__ void __launch_bounds__(256)
 extern "C" int pies_floor_entries(const float* x, const int* start, const int* entries,
                                   const float* tri_mask, float threshold,
                                   float* static_mask, float* diag, float* wf,
-                                  float* active, float* counts, int n,
-                                  const int* failed, void* stream) {
-  if (n > 0) {
+                                  float* active, float* counts, int n, int n_entries,
+                                  const int* failed, int members, void* stream) {
+  if (n > 0 && members > 0) {
     const int threads = 256;
-    floor_entries_kernel<<<(n + threads - 1) / threads, threads, 0,
+    floor_entries_kernel<<<dim3((n + threads - 1) / threads, members), threads, 0,
                            (cudaStream_t)stream>>>(x, start, entries, tri_mask,
                                                    threshold, static_mask, diag,
-                                                   wf, active, counts, n, failed);
+                                                   wf, active, counts, n, n_entries, failed);
   }
   return (int)cudaGetLastError();
 }

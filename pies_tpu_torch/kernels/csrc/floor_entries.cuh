@@ -9,7 +9,9 @@
 // the JAX scatter), one after another, with s its floor projection and w =
 // 1e4 * static_mask[e] (kernel T24 wrote the mask this substep).  k entries
 // add w * s k times: against the dense floor's single (k w) * s the sum
-// rounds differently, by about 1e-7 of the force.
+// rounds differently, by about 1e-7 of the force.  An ensemble's member b
+// reads its own static_mask row ([b] of [members, n_entries]; member()),
+// the corner incidence is shared.
 #pragma once
 
 namespace pies {
@@ -19,7 +21,15 @@ constexpr float kWStaticEntry = 1.0e4f;  // StaticCollisionConstraint weight
 struct FloorEntries {
   const int* start;          // [N + 1] corner incidence
   const int* entries;        // [3 T]
-  const float* static_mask;  // [3 T]
+  const float* static_mask;  // [members, 3 T]
+  int n_entries;             // 3 T
+
+  // Member b's view.
+  __device__ __forceinline__ FloorEntries member(int b) const {
+    FloorEntries m = *this;
+    if (m.static_mask != nullptr) m.static_mask += (size_t)b * n_entries;
+    return m;
+  }
 };
 
 __device__ __forceinline__ void floor_entry_force(const FloorEntries& fl, int i,

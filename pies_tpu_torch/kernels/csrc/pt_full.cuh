@@ -23,6 +23,10 @@
 // Bound (per CG apply, per PD iteration): device memory over the live
 // contacts, the 16-byte index row and the mask per incident entry and the
 // four 12-byte rows of x it gathers (from L2), ~4x the contacts' 20 bytes.
+//
+// Ensembles: the kernels pass member b's view (PtFull::member): its
+// contacts [b] of [members, cap, 4], mask, count, and T7's incidence rows
+// [b] of [members, N + 1] and [members, 4 cap], all local to the member.
 #pragma once
 
 #include "nan_math.cuh"
@@ -39,13 +43,26 @@ __device__ __forceinline__ float ata_diff4(int a, int b) {
 }
 
 struct PtFull {
-  const int* pt_idx;     // [cap, 4]
-  const float* pt_mask;  // [cap]
-  const int* pt_count;   // live contacts (device scalar)
-  const int* row_start;  // [N + 1] T7's incidence
-  const int* entries;    // [4 cap]
+  const int* pt_idx;     // [members, cap, 4]
+  const float* pt_mask;  // [members, cap]
+  const int* pt_count;   // [members] live contacts (device scalars)
+  const int* row_start;  // [members, N + 1] T7's incidence
+  const int* entries;    // [members, 4 cap]
   int cap;
   float thickness;
+
+  // Member b's view, for n nodes a member (no-op without contacts).
+  __device__ __forceinline__ PtFull member(int b, int n) const {
+    PtFull m = *this;
+    if (m.pt_idx == nullptr) return m;
+    const size_t bb = b;
+    m.pt_idx += bb * cap * 4;
+    m.pt_mask += bb * cap;
+    m.pt_count += bb;
+    m.row_start += bb * (n + 1);
+    m.entries += bb * 4 * cap;
+    return m;
+  }
 };
 
 // Row a of A^T A q for the contact's four rows q[4][3].

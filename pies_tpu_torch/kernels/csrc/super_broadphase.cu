@@ -44,6 +44,15 @@
 // rank sort of its survivors do not fit one thread's registers: the keys
 // live in 4 KB of shared memory per warp.  The rank sort is quadratic in a
 // row's survivors (a handful on most rows).
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b, and each member runs all of the above
+// on its own, as T5 does: its nodes from b*n, its cache (pairs and valid [b]
+// of [members, k, nb], ref [b] of [members, n, 3], fresh[b]), its own hash
+// table (count, cursor, start, entries over the same h slots), its bounds,
+// flag words, overflow word and latch.  So no pair joins rows of two
+// members, and each member's rebuild, order and latches are those of a
+// single-scene run.  The corner and adj tables are shared.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,8 +90,30 @@ struct Geo {
   float cell, slack, slack_c, margin, exact_margin, size_limit;
 };
 
+// The view of member blockIdx.y: every per-member array offset to its row.
+__device__ __forceinline__ Geo member_view(Geo g) {
+  const size_t b = blockIdx.y;
+  g.x += b * g.n * 3;
+  g.prev += b * g.n * 3;
+  g.pairs += b * g.k * g.nb;
+  g.valid += b * g.k * g.nb;
+  g.ref += b * g.n * 3;
+  g.fresh += b;
+  g.count += b * g.h;
+  g.cursor += b * g.h;
+  g.start += b * (g.h + 1);
+  g.entries += b * kSlotsPerBody * g.k;
+  g.lo += b * 6 * g.k;
+  g.hi += b * 6 * g.k;
+  g.flags += b * 8;
+  g.overflow += b;
+  g.failed += 2 * b;
+  return g;
+}
+
 // (a) the displacement test over all nodes.
-__global__ void __launch_bounds__(pies::kBlock) sb_disp_kernel(Geo g) {
+__global__ void __launch_bounds__(pies::kBlock) sb_disp_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= g.n || g.failed[0] != 0) return;
   bool exceed = false, nan = false;
@@ -101,7 +132,8 @@ __global__ void __launch_bounds__(pies::kBlock) sb_disp_kernel(Geo g) {
 }
 
 // (b) bounds and the oversize latch.
-__global__ void __launch_bounds__(pies::kBlock) sb_bounds_kernel(Geo g) {
+__global__ void __launch_bounds__(pies::kBlock) sb_bounds_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (g.failed[0] != 0 || !rebuild_due(g.fresh, g.flags)) return;
   for (int i = b; i < g.h; i += gridDim.x * blockDim.x) g.count[i] = g.cursor[i] = 0;
@@ -139,7 +171,8 @@ __global__ void __launch_bounds__(pies::kBlock) sb_bounds_kernel(Geo g) {
 }
 
 // (c) the rebuild flag and the per-slot counts.
-__global__ void __launch_bounds__(pies::kBlock) sb_count_kernel(Geo g) {
+__global__ void __launch_bounds__(pies::kBlock) sb_count_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= g.k || g.failed[0] != 0) return;
   const bool rebuild = rebuild_due(g.fresh, g.flags);
@@ -149,20 +182,23 @@ __global__ void __launch_bounds__(pies::kBlock) sb_count_kernel(Geo g) {
 }
 
 // (d) fill each bucket (any order), then order its head.
-__global__ void __launch_bounds__(pies::kBlock) sb_fill_kernel(Geo g) {
+__global__ void __launch_bounds__(pies::kBlock) sb_fill_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= g.live_k || g.failed[0] != 0 || g.flags[kRebuild] == 0) return;
   fill_row(g.lo, g.hi, b, g.h, g.start, g.cursor, g.entries);
 }
 
-__global__ void __launch_bounds__(pies::kBlock) sb_order_kernel(Geo g) {
+__global__ void __launch_bounds__(pies::kBlock) sb_order_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   if (slot >= g.h || g.failed[0] != 0 || g.flags[kRebuild] == 0) return;
   order_bucket(g.entries + g.start[slot], g.count[slot], g.entries_cap);
 }
 
 // (e) query, gather, drops, prefilter, dedup, pack: one warp per row.
-__global__ void __launch_bounds__(32 * kWarpsPerBlock) sb_query_kernel(Geo g) {
+__global__ void __launch_bounds__(32 * kWarpsPerBlock) sb_query_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   __shared__ long long s_key[kWarpsPerBlock][kMaxRaw];
   __shared__ int s_off[kWarpsPerBlock][kMaxCells];
   __shared__ int s_start[kWarpsPerBlock][kMaxCells];
@@ -306,7 +342,8 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) sb_query_kernel(Geo g) {
 }
 
 // (f) the cache reference, freshness and the capacity latch.
-__global__ void __launch_bounds__(pies::kBlock) sb_finish_kernel(Geo g) {
+__global__ void __launch_bounds__(pies::kBlock) sb_finish_kernel(Geo g0) {
+  const Geo g = member_view(g0);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (g.failed[0] != 0 || g.flags[kRebuild] == 0) return;
   if (t < g.n) {
@@ -330,9 +367,9 @@ extern "C" int pies_super_broadphase(
     int* overflow, const int* failed, int n, int k, int live_k, int w, int a,
     int nb, int bmax, int cells_cap, int entries_cap, int h, int unpacked,
     float cell, float slack, float slack_c, float margin, float exact_margin,
-    float size_limit, void* stream) {
+    float size_limit, int members, void* stream) {
   if (n > 0 && k > 0 && w > 0 && w <= kMaxCorners && bmax <= kMaxRaw &&
-      cells_cap <= kMaxCells && a <= kMaxAdj) {
+      cells_cap <= kMaxCells && a <= kMaxAdj && members > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     Geo g{x,     prev,    corners, adj,   pairs,   valid,    ref,
           fresh, count,   cursor,  start, entries, bounds,   bounds + (size_t)3 * k,
@@ -340,16 +377,16 @@ extern "C" int pies_super_broadphase(
           adj != nullptr ? a : 0,  nb,    bmax,    cells_cap, entries_cap,
           h,     unpacked, cell,   slack, slack_c, margin,   exact_margin,
           size_limit};
-    const int kb = pies::tiles(k);
-    sb_disp_kernel<<<pies::tiles(n), pies::kBlock, 0, s>>>(g);
+    const dim3 kb(pies::tiles(k), members), nb_(pies::tiles(n), members);
+    sb_disp_kernel<<<nb_, pies::kBlock, 0, s>>>(g);
     sb_bounds_kernel<<<kb, pies::kBlock, 0, s>>>(g);
     sb_count_kernel<<<kb, pies::kBlock, 0, s>>>(g);
-    pies::exclusive_scan_i32(count, start, h, partial, s, flags + kRebuild);
+    pies::exclusive_scan_i32(count, start, h, partial, s, flags + kRebuild, members, 8);
     sb_fill_kernel<<<kb, pies::kBlock, 0, s>>>(g);
-    sb_order_kernel<<<pies::tiles(h), pies::kBlock, 0, s>>>(g);
-    sb_query_kernel<<<(k + kWarpsPerBlock - 1) / kWarpsPerBlock, 32 * kWarpsPerBlock, 0,
-                      s>>>(g);
-    sb_finish_kernel<<<pies::tiles(n), pies::kBlock, 0, s>>>(g);
+    sb_order_kernel<<<dim3(pies::tiles(h), members), pies::kBlock, 0, s>>>(g);
+    sb_query_kernel<<<dim3((k + kWarpsPerBlock - 1) / kWarpsPerBlock, members),
+                      32 * kWarpsPerBlock, 0, s>>>(g);
+    sb_finish_kernel<<<nb_, pies::kBlock, 0, s>>>(g);
   }
   return (int)cudaGetLastError();
 }

@@ -45,6 +45,15 @@
 // bitmask arrays (74 MB), stage (b) reads them again.  A live lane gathers
 // two rows of corners (<= 2 x 96 bytes, from L2) and does ~60 flops per
 // combo.
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b, as in T6: its nodes from b*n, its
+// cached pairs, lane bits, pair buffer, block counts and totals, and its
+// contact buffer [b] of [members, cap, 4] with pt_count[b] and overflow[b].
+// The two scans of block counts take one block per member, so each
+// member's compaction order, and so its contact prefix, is a single-scene
+// run's.  A latched member (or scene) writes an empty contact buffer, as
+// the plain twin returns one.  The corner and face tables are shared.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,10 +83,32 @@ struct Np {
   int* pt_count;
   int* overflow;
   const int* failed;
-  int k, kp, live_k, w, n_face, nb, cap, pcap, lanes;
+  int k, kp, live_k, w, n_face, nb, cap, pcap, lanes, b1, b2, n;
   unsigned live, row_packed, cand_packed, cand_loose;
   float thr;
 };
+
+// The view of member blockIdx.y: every per-member array offset to its row.
+__device__ __forceinline__ Np member_view(Np p) {
+  const size_t b = blockIdx.y;
+  p.x += b * p.n * 3;
+  p.prev += b * p.n * 3;
+  p.pairs += b * p.lanes;
+  p.valid += b * p.lanes;
+  p.bits_prox += b * 2 * p.lanes;
+  p.bits_cross += b * 2 * p.lanes;
+  p.pair_buf += b * p.pcap;
+  p.pbits += b * p.pcap;
+  p.part1 += b * p.b1;
+  p.part2 += b * p.b2;
+  p.totals += b * 4;
+  p.pt_idx += b * p.cap * 4;
+  p.pt_mask += b * p.cap;
+  p.pt_count += b;
+  p.overflow += b;
+  p.failed += 2 * b;
+  return p;
+}
 
 // The combos a lane of row b against candidate `other` may test.
 __device__ __forceinline__ unsigned allowed_combos(const Np& p, int b, int other) {
@@ -91,7 +122,8 @@ __device__ __forceinline__ V3 corner(const Np& p, const float* a, int row, int c
   return load3(a, p.corners[(size_t)row * p.w + c]);
 }
 
-__global__ void __launch_bounds__(pies::kBlock) sn_phase1_kernel(Np p) {
+__global__ void __launch_bounds__(pies::kBlock) sn_phase1_kernel(Np p0) {
+  const Np p = member_view(p0);
   if (p.failed[0] != 0) return;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned prox_bits = 0, cross_bits = 0;
@@ -132,13 +164,15 @@ __global__ void __launch_bounds__(pies::kBlock) sn_phase1_kernel(Np p) {
   if (threadIdx.x == 0) p.part1[blockIdx.x] = tile;
 }
 
-__global__ void __launch_bounds__(pies::kBlock) sn_compact_kernel(Np p) {
+__global__ void __launch_bounds__(pies::kBlock) sn_compact_kernel(Np p0) {
+  const Np p = member_view(p0);
   if (p.failed[0] != 0) return;
   compact_lane(blockIdx.x * blockDim.x + threadIdx.x, p.lanes, p.pcap, p.bits_prox,
                p.bits_cross, p.part1[blockIdx.x], p.totals, p.pair_buf, p.overflow);
 }
 
-__global__ void __launch_bounds__(pies::kBlock) sn_phase2_kernel(Np p) {
+__global__ void __launch_bounds__(pies::kBlock) sn_phase2_kernel(Np p0) {
+  const Np p = member_view(p0);
   if (p.failed[0] != 0) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned hit_bits = 0;
@@ -175,9 +209,17 @@ __global__ void __launch_bounds__(pies::kBlock) sn_phase2_kernel(Np p) {
   if (threadIdx.x == 0) p.part2[blockIdx.x] = tile;
 }
 
-__global__ void __launch_bounds__(pies::kBlock) sn_decode_kernel(Np p) {
-  if (p.failed[0] != 0) return;
+__global__ void __launch_bounds__(pies::kBlock) sn_decode_kernel(Np p0) {
+  const Np p = member_view(p0);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p.failed[0] != 0) {  // no contact, as the twin reports for a latched state
+    if (i < p.cap) {
+      p.pt_mask[i] = 0.0f;
+      for (int r = 0; r < 4; ++r) p.pt_idx[(size_t)i * 4 + r] = 0;
+    }
+    if (i == 0) p.pt_count[0] = 0;
+    return;
+  }
   const unsigned hit_bits = i < (int)p.totals[2] ? p.pbits[i] : 0u;
   long long tile;
   long long pos =
@@ -213,24 +255,26 @@ extern "C" int pies_super_narrowphase(
     long long* partial, long long* totals, int* pt_idx, float* pt_mask,
     int* pt_count, int* overflow, const int* failed, int k, int kp, int live_k,
     int w, int n_face, int nb, int cap, int live, int row_packed,
-    int cand_packed, int cand_loose, float thr, void* stream) {
-  if (k > 0 && w > 0 && w <= kMaxNodes && w * n_face <= 32 && cap > 0) {
+    int cand_packed, int cand_loose, float thr, int n, int members, void* stream) {
+  if (k > 0 && w > 0 && w <= kMaxNodes && w * n_face <= 32 && cap > 0 && members > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     const int lanes = k * nb, pcap = 2 * cap;
     const int b1 = pies::tiles(lanes), b2 = pies::tiles(pcap);
+    // bits [members, 2, lanes]; partial [members, b1] then [members, b2].
     Np p{x, prev, corners, pairs, valid, faces,
          (unsigned*)bits, (unsigned*)bits + lanes, pair_buf, (unsigned*)pbits,
-         partial, partial + b1, totals, pt_idx, pt_mask, pt_count, overflow, failed,
-         k, kp, live_k, w, n_face, nb, cap, pcap, lanes,
+         partial, partial + (size_t)members * b1, totals, pt_idx, pt_mask, pt_count,
+         overflow, failed, k, kp, live_k, w, n_face, nb, cap, pcap, lanes, b1, b2, n,
          (unsigned)live, (unsigned)row_packed, (unsigned)cand_packed,
          (unsigned)cand_loose, thr};
-    sn_phase1_kernel<<<b1, pies::kBlock, 0, s>>>(p);
-    pies::scan_partials_kernel<long long><<<1, 1024, 0, s>>>(p.part1, b1, totals, nullptr);
-    sn_compact_kernel<<<b1, pies::kBlock, 0, s>>>(p);
-    sn_phase2_kernel<<<b2, pies::kBlock, 0, s>>>(p);
-    pies::scan_partials_kernel<long long><<<1, 1024, 0, s>>>(p.part2, b2, totals + 1,
-                                                             nullptr);
-    sn_decode_kernel<<<b2, pies::kBlock, 0, s>>>(p);
+    sn_phase1_kernel<<<dim3(b1, members), pies::kBlock, 0, s>>>(p);
+    pies::scan_segments_kernel<long long><<<members, 1024, 0, s>>>(p.part1, b1, totals, 4,
+                                                                   nullptr, 0);
+    sn_compact_kernel<<<dim3(b1, members), pies::kBlock, 0, s>>>(p);
+    sn_phase2_kernel<<<dim3(b2, members), pies::kBlock, 0, s>>>(p);
+    pies::scan_segments_kernel<long long><<<members, 1024, 0, s>>>(p.part2, b2, totals + 1, 4,
+                                                                   nullptr, 0);
+    sn_decode_kernel<<<dim3(b2, members), pies::kBlock, 0, s>>>(p);
   }
   return (int)cudaGetLastError();
 }

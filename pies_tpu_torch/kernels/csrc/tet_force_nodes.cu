@@ -46,8 +46,12 @@
 // topology's; b's positions, inertia term, force and static projection
 // start at b*N*3, its floor weight at b*N, its rows at b*S*3 (S the row
 // buffer's member stride, which stage 1 writes a part of) and its latch at
-// failed[2b].  The contact terms (T7's force and lag, T23, T24, T26, T27)
-// are single-scene: the wrappers pass them only with one member.
+// failed[2b].  The point-triangle terms are per member too: T7's force
+// [b] of [members, N, 3], its lag ptd, incidence row_start and count at
+// b*N, b*(N+1) and b, T23's contacts and incidence (PtFull::member), and
+// the entry-list floor's static_mask row (FloorEntries::member); the corner
+// incidence is shared.  The edge-edge and node-node terms (T26, T27) are
+// single-scene: the wrappers pass them only with one member.
 //
 // Bound: device memory.  The function needs the tet ids and 27 parameter
 // floats per tet (124 B; ~77 MB at 622,938 tets) and 52 B per node (x, msn
@@ -126,6 +130,14 @@ __global__ void __launch_bounds__(256)
   x += v, msn += v, force += v, stat += v;
   wf += (size_t)mb * n;
   blocks += (size_t)mb * stride * 3;
+  if (ptd != nullptr) {
+    ptd += (size_t)mb * n;
+    contact += v;
+    pt_start += (size_t)mb * (n + 1);
+    pt_count += mb;
+  }
+  full = full.member(mb, n);
+  fl = fl.member(mb);
   float f[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -208,7 +220,8 @@ extern "C" int pies_assemble_force(const float* x, const float* msn,
                                    int cap, float thickness,
                                    const int* corner_start,
                                    const int* corner_entries,
-                                   const float* static_mask, const int* edge_idx,
+                                   const float* static_mask, int n_entries,
+                                   const int* edge_idx,
                                    const float* edge_mask, const int* edge_count,
                                    const int* e_start, const int* e_entries, const float* ed,
                                    const float* e_inv_mass, int e_mode, float e_thickness,
@@ -220,7 +233,7 @@ extern "C" int pies_assemble_force(const float* x, const float* msn,
   if (n > 0 && members > 0) {
     const int threads = 256;
     pies::PtFull full{pt_idx, pt_mask, pt_count, pt_start, pt_entries, cap, thickness};
-    pies::FloorEntries fl{corner_start, corner_entries, static_mask};
+    pies::FloorEntries fl{corner_start, corner_entries, static_mask, n_entries};
     pies::EdgeTerms et{edge_idx, edge_mask, edge_count, e_start, e_entries, ed,
                        e_inv_mass, e_mode, e_thickness};
     pies::NodeTerms nt{nn_pi,  nn_pj,     nn_row_off,  nn_inc_start, nn_inc_pair,

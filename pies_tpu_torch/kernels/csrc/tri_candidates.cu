@@ -53,6 +53,15 @@
 // Bound: bytes for the grid modes (positions, the grid and the rows:
 // ~100 bytes a triangle), operations for all-pairs (T^2 box tests of ~20
 // integer and float comparisons each; at 26,508 rows, 7e8 tests).
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b, and each member runs its branch on
+// its own: its nodes from b*n, its own table (count, cursor, start,
+// entries), bounds, body rows, candidate rows and counts, flag words
+// (flags[b*8]: the filled count and the latches, all-pairs' n2 latch
+// among them), overflow word and latch.  The triangles and their mask are
+// shared.  So each member's candidate rows, and the gate T17 reads, are a
+// single-scene run's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -100,9 +109,31 @@ struct Tc {
   int* flags;
   int* overflow;
   const int* failed;
-  int mode, t, k, e, s, cells_cap, entries_cap, raw, nbb, nb, h, unpacked;
+  int mode, t, k, e, s, cells_cap, entries_cap, raw, nbb, nb, h, unpacked, n;
   float cell, margin, size_limit;
 };
+
+// The view of member blockIdx.y: every per-member array offset to its row.
+__device__ __forceinline__ Tc member_view(Tc g) {
+  const size_t b = blockIdx.y;
+  const size_t hh = g.h > 0 ? g.h : 1;
+  g.x += b * g.n * 3;
+  g.prev += b * g.n * 3;
+  g.count_h += b * hh;
+  g.cursor += b * hh;
+  g.start += b * (hh + 1);
+  g.entries += b * (g.k * g.s > 0 ? (size_t)g.k * g.s : 1);
+  g.lo += b * 6 * (size_t)(g.t + g.k);
+  g.hi += b * 6 * (size_t)(g.t + g.k);
+  g.bodies += b * g.k * (size_t)(g.nbb > 0 ? g.nbb : 1);
+  g.n_bodies += b * g.k;
+  g.cand += b * g.t * (size_t)g.nb;
+  g.count += b * g.t;
+  g.flags += b * 8;
+  g.overflow += b;
+  g.failed += 2 * b;
+  return g;
+}
 
 __device__ __forceinline__ bool tri_live(const Tc& g, int r) { return g.tri_mask[r] > 0.0f; }
 
@@ -119,7 +150,8 @@ __device__ __forceinline__ bool item_live(const Tc& g, int i) {
 }
 
 // (a) triangle boxes, the table zeroed, the oversize latch (cell list).
-__global__ void __launch_bounds__(pies::kBlock) tc_bounds_kernel(Tc g) {
+__global__ void __launch_bounds__(pies::kBlock) tc_bounds_kernel(Tc g0) {
+  const Tc g = member_view(g0);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (g.failed[0] != 0) return;
   for (int i = r; i < g.h; i += gridDim.x * blockDim.x) g.count_h[i] = g.cursor[i] = 0;
@@ -147,7 +179,8 @@ __global__ void __launch_bounds__(pies::kBlock) tc_bounds_kernel(Tc g) {
 }
 
 // (b) body boxes over their live triangles, 0 for a dead body.
-__global__ void __launch_bounds__(pies::kBlock) tc_body_bounds_kernel(Tc g) {
+__global__ void __launch_bounds__(pies::kBlock) tc_body_bounds_kernel(Tc g0) {
+  const Tc g = member_view(g0);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= g.k || g.failed[0] != 0) return;
   const float big = 3.0e38f;
@@ -200,19 +233,22 @@ __device__ __forceinline__ void insert_item(const Tc& g, int i, bool fill) {
   }
 }
 
-__global__ void __launch_bounds__(pies::kBlock) tc_count_kernel(Tc g) {
+__global__ void __launch_bounds__(pies::kBlock) tc_count_kernel(Tc g0) {
+  const Tc g = member_view(g0);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_items(g) || g.failed[0] != 0 || !item_live(g, i)) return;
   insert_item(g, i, false);
 }
 
-__global__ void __launch_bounds__(pies::kBlock) tc_fill_kernel(Tc g) {
+__global__ void __launch_bounds__(pies::kBlock) tc_fill_kernel(Tc g0) {
+  const Tc g = member_view(g0);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_items(g) || g.failed[0] != 0 || !item_live(g, i)) return;
   insert_item(g, i, true);
 }
 
-__global__ void __launch_bounds__(pies::kBlock) tc_order_kernel(Tc g) {
+__global__ void __launch_bounds__(pies::kBlock) tc_order_kernel(Tc g0) {
+  const Tc g = member_view(g0);
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   if (slot >= g.h || g.failed[0] != 0) return;
   order_bucket(g.entries + g.start[slot], g.count_h[slot], g.entries_cap);
@@ -267,7 +303,8 @@ __device__ __forceinline__ bool overlaps(const float* lo, const float* hi, int c
 }
 
 // (e) a warp per grid row: query, gather, margin test, pack.
-__global__ void __launch_bounds__(32 * kQueryWarps) tc_query_kernel(Tc g) {
+__global__ void __launch_bounds__(32 * kQueryWarps) tc_query_kernel(Tc g0) {
+  const Tc g = member_view(g0);
   __shared__ int s_key[kQueryWarps][kMaxRaw];
   __shared__ int s_off[kQueryWarps][kMaxCells];
   __shared__ int s_start[kQueryWarps][kMaxCells];
@@ -369,7 +406,8 @@ __global__ void __launch_bounds__(32 * kQueryWarps) tc_query_kernel(Tc g) {
 
 // (f) bodies: a warp per triangle packs its body's row, expanded to
 // triangles, that overlap its own box.
-__global__ void __launch_bounds__(32 * kQueryWarps) tc_expand_kernel(Tc g) {
+__global__ void __launch_bounds__(32 * kQueryWarps) tc_expand_kernel(Tc g0) {
+  const Tc g = member_view(g0);
   __shared__ int s_key[kQueryWarps][kMaxRaw];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * kQueryWarps + warp;
@@ -415,7 +453,8 @@ __global__ void __launch_bounds__(32 * kQueryWarps) tc_expand_kernel(Tc g) {
 
 // Mode 0: a warp per row, kPairWarps rows per block; the columns' boxes,
 // corners and liveness staged in shared memory kTile at a time.
-__global__ void __launch_bounds__(32 * kPairWarps) tc_allpairs_kernel(Tc g) {
+__global__ void __launch_bounds__(32 * kPairWarps) tc_allpairs_kernel(Tc g0) {
+  const Tc g = member_view(g0);
   __shared__ float c_lo[kTile][3], c_hi[kTile][3];
   __shared__ int c_tri[kTile][3];
   __shared__ int c_live[kTile];
@@ -482,7 +521,8 @@ __global__ void __launch_bounds__(32 * kPairWarps) tc_allpairs_kernel(Tc g) {
 }
 
 // (g) the capacity latch.
-__global__ void tc_finish_kernel(Tc g) {
+__global__ void tc_finish_kernel(Tc g0) {
+  const Tc g = member_view(g0);
   if (g.failed[0] != 0) return;
   int any = 0;
   for (int f = kTriSizeOver; f < 8; ++f) any |= g.flags[f];
@@ -496,32 +536,39 @@ extern "C" int pies_tri_candidates(
     int* cursor, int* start, int* partial, int* entries, float* bounds, int* bodies,
     int* n_bodies, int* cand, int* count, int* flags, int* overflow, const int* failed,
     int mode, int t, int k, int e, int s, int cells_cap, int entries_cap, int raw, int nbb,
-    int nb, int h, int unpacked, float cell, float margin, float size_limit, void* stream) {
+    int nb, int h, int unpacked, float cell, float margin, float size_limit, int n,
+    int members, void* stream) {
   const bool grid = mode != kAllPairs;
-  if (t > 0 && nb > 0 && mode >= kAllPairs && mode <= kReference &&
+  if (t > 0 && nb > 0 && n > 0 && members > 0 && mode >= kAllPairs && mode <= kReference &&
       (!grid || (raw <= kMaxRaw && cells_cap <= kMaxCells && h > 0 && s > 0)) &&
       (mode != kBodies || (e > 0 && k * e == t && nbb > 0 && nbb * e <= kMaxRaw))) {
     cudaStream_t st = (cudaStream_t)stream;
+    // bounds [members, 2, t + k, 3]: a member's triangle and body boxes, lo then hi.
     Tc g{x,      prev,        tris,     tri_mask, count_h,   cursor, start,
          entries, bounds,     bounds + (size_t)3 * (t + k),  bodies, n_bodies,
          cand,   count,       flags,    overflow, failed,    mode,   t,
          k,      e,           s,        cells_cap, entries_cap, raw, nbb,
-         nb,     h,           unpacked, cell,     margin,    size_limit};
-    tc_bounds_kernel<<<pies::tiles(t), pies::kBlock, 0, st>>>(g);
+         nb,     h,           unpacked, n,        cell,      margin, size_limit};
+    tc_bounds_kernel<<<dim3(pies::tiles(t), members), pies::kBlock, 0, st>>>(g);
     if (mode == kAllPairs) {
-      tc_allpairs_kernel<<<(t + kPairWarps - 1) / kPairWarps, 32 * kPairWarps, 0, st>>>(g);
+      tc_allpairs_kernel<<<dim3((t + kPairWarps - 1) / kPairWarps, members), 32 * kPairWarps, 0,
+                           st>>>(g);
     } else {
       const int items = mode == kBodies ? k : t;
-      if (mode == kBodies) tc_body_bounds_kernel<<<pies::tiles(k), pies::kBlock, 0, st>>>(g);
-      tc_count_kernel<<<pies::tiles(items), pies::kBlock, 0, st>>>(g);
-      pies::exclusive_scan_i32(count_h, start, h, partial, st);
-      tc_fill_kernel<<<pies::tiles(items), pies::kBlock, 0, st>>>(g);
-      tc_order_kernel<<<pies::tiles(h), pies::kBlock, 0, st>>>(g);
-      tc_query_kernel<<<(items + kQueryWarps - 1) / kQueryWarps, 32 * kQueryWarps, 0, st>>>(g);
+      const dim3 ib(pies::tiles(items), members);
       if (mode == kBodies)
-        tc_expand_kernel<<<(t + kQueryWarps - 1) / kQueryWarps, 32 * kQueryWarps, 0, st>>>(g);
+        tc_body_bounds_kernel<<<dim3(pies::tiles(k), members), pies::kBlock, 0, st>>>(g);
+      tc_count_kernel<<<ib, pies::kBlock, 0, st>>>(g);
+      pies::exclusive_scan_i32(count_h, start, h, partial, st, nullptr, members, 0);
+      tc_fill_kernel<<<ib, pies::kBlock, 0, st>>>(g);
+      tc_order_kernel<<<dim3(pies::tiles(h), members), pies::kBlock, 0, st>>>(g);
+      tc_query_kernel<<<dim3((items + kQueryWarps - 1) / kQueryWarps, members),
+                        32 * kQueryWarps, 0, st>>>(g);
+      if (mode == kBodies)
+        tc_expand_kernel<<<dim3((t + kQueryWarps - 1) / kQueryWarps, members),
+                           32 * kQueryWarps, 0, st>>>(g);
     }
-    tc_finish_kernel<<<1, 1, 0, st>>>(g);
+    tc_finish_kernel<<<dim3(1, members), 1, 0, st>>>(g);
   } else {
     return (int)cudaErrorInvalidValue;
   }

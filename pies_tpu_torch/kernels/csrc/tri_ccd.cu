@@ -31,6 +31,14 @@
 // triangles' corners at two times (72 bytes, mostly from L2); the CCD is
 // ~200 float operations per corner, 3 corners.  Most lanes are empty on a
 // calm scene (a row holds a few candidates of nb slots).
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b: its nodes from b*n, its candidate
+// rows and counts (T16's [b]), its gate flags[b*8], lane hits, block
+// partials and total, its contact buffer [b] of [members, cap, 4] with
+// pt_count[b], and its latch.  The scan of block sums takes one block per
+// member, gated on that member's filled count, so each member's contact
+// order is a single-scene run's.  The triangles are shared.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,13 +56,32 @@ struct Cc {
   const int* flags;
   uint8_t* hits;
   int* partial;
+  int* total;  // the hits of all lanes (the scan's sum)
   int* pt_idx;
   float* pt_mask;
   int* pt_count;
   const int* failed;
-  int t, nb, chunk, cap, lanes, n_tiles;
+  int t, nb, chunk, cap, lanes, n_tiles, n;
   float thr;
 };
+
+// The view of member blockIdx.y: every per-member array offset to its row.
+__device__ __forceinline__ Cc member_view(Cc g) {
+  const size_t b = blockIdx.y;
+  g.x += b * g.n * 3;
+  g.prev += b * g.n * 3;
+  g.cand += b * g.t * (size_t)g.nb;
+  g.count += b * g.t;
+  g.flags += b * 8;
+  g.hits += b * g.lanes;
+  g.partial += b * g.n_tiles;
+  g.total += b;
+  g.pt_idx += b * g.cap * 4;
+  g.pt_mask += b * g.cap;
+  g.pt_count += b;
+  g.failed += 2 * b;
+  return g;
+}
 
 __device__ __forceinline__ bool gated(const Cc& g) {
   return g.failed[0] != 0 || g.flags[0] == 0;
@@ -70,7 +97,8 @@ __device__ __forceinline__ bool lane_pair(const Cc& g, int l, int* r, int* slot)
 }
 
 // (a) the three corner tests of a lane.
-__global__ void __launch_bounds__(pies::kBlock) tcc_ccd_kernel(Cc g) {
+__global__ void __launch_bounds__(pies::kBlock) tcc_ccd_kernel(Cc g0) {
+  const Cc g = member_view(g0);
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= g.lanes || gated(g)) return;
   int r, slot;
@@ -102,7 +130,8 @@ __device__ __forceinline__ int lane_hits(const Cc& g, int l) {
 }
 
 // (b1) the hits of each block of lanes.
-__global__ void __launch_bounds__(pies::kBlock) tcc_tile_sums_kernel(Cc g) {
+__global__ void __launch_bounds__(pies::kBlock) tcc_tile_sums_kernel(Cc g0) {
+  const Cc g = member_view(g0);
   if (gated(g)) return;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   int tile;
@@ -111,7 +140,8 @@ __global__ void __launch_bounds__(pies::kBlock) tcc_tile_sums_kernel(Cc g) {
 }
 
 // (b3) each lane's hits into their contact slots, decoded.
-__global__ void __launch_bounds__(pies::kBlock) tcc_scatter_kernel(Cc g) {
+__global__ void __launch_bounds__(pies::kBlock) tcc_scatter_kernel(Cc g0) {
+  const Cc g = member_view(g0);
   if (gated(g)) return;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = lane_hits(g, l);
@@ -139,9 +169,10 @@ __global__ void __launch_bounds__(pies::kBlock) tcc_scatter_kernel(Cc g) {
 }
 
 // (c) the count and the empty tail of the contact buffer.
-__global__ void __launch_bounds__(pies::kBlock) tcc_finish_kernel(Cc g) {
+__global__ void __launch_bounds__(pies::kBlock) tcc_finish_kernel(Cc g0) {
+  const Cc g = member_view(g0);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int total = gated(g) ? 0 : g.partial[g.n_tiles];
+  const int total = gated(g) ? 0 : g.total[0];
   const int n = total < g.cap ? total : g.cap;
   if (i == 0) g.pt_count[0] = n;
   if (i >= n && i < g.cap) {
@@ -156,19 +187,23 @@ extern "C" int pies_tri_ccd(const float* x, const float* prev, const int* tris,
                             const int* cand, const int* count, const int* flags,
                             uint8_t* hits, int* partial, int* pt_idx, float* pt_mask,
                             int* pt_count, const int* failed, int t, int nb, int chunk, int cap,
-                            float thr, void* stream) {
-  if (t <= 0 || nb <= 0 || chunk <= 0 || cap <= 0) return (int)cudaErrorInvalidValue;
+                            float thr, int n, int members, void* stream) {
+  if (t <= 0 || nb <= 0 || chunk <= 0 || cap <= 0 || n <= 0 || members <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int padded = (nb + chunk - 1) / chunk * chunk;
   const int lanes = t * padded;
   const int nt = pies::tiles(lanes);
-  Cc g{x,      prev,    tris,    cand,    count, flags, hits, partial, pt_idx,
-       pt_mask, pt_count, failed, t,      nb,    chunk, cap,  lanes,   nt,
+  // partial [members, nt] block sums, then the members' totals [members].
+  int* total = partial + (size_t)members * nt;
+  Cc g{x,      prev,    tris,    cand,    count, flags, hits, partial, total, pt_idx,
+       pt_mask, pt_count, failed, t,      nb,    chunk, cap,  lanes,   nt,    n,
        thr};
-  tcc_ccd_kernel<<<nt, pies::kBlock, 0, st>>>(g);
-  tcc_tile_sums_kernel<<<nt, pies::kBlock, 0, st>>>(g);
-  pies::scan_partials_kernel<int><<<1, 1024, 0, st>>>(partial, nt, partial + nt, flags);
-  tcc_scatter_kernel<<<nt, pies::kBlock, 0, st>>>(g);
-  tcc_finish_kernel<<<pies::tiles(cap), pies::kBlock, 0, st>>>(g);
+  const dim3 lb(nt, members);
+  tcc_ccd_kernel<<<lb, pies::kBlock, 0, st>>>(g);
+  tcc_tile_sums_kernel<<<lb, pies::kBlock, 0, st>>>(g);
+  pies::scan_segments_kernel<int><<<members, 1024, 0, st>>>(partial, nt, total, 1, flags, 8);
+  tcc_scatter_kernel<<<lb, pies::kBlock, 0, st>>>(g);
+  tcc_finish_kernel<<<dim3(pies::tiles(cap), members), pies::kBlock, 0, st>>>(g);
   return (int)cudaGetLastError();
 }

@@ -13,18 +13,21 @@ as it is and reports residual 0, while the others step.
 
 The ensemble runs on the tet-column path (``tetcols.applies``), with or
 without self-contact on packed bodies (ROADMAP item 10a), and on the
-contact-free generic PD path (item 10b-i): the rope of
+generic PD path: contact-free (item 10b-i: the rope of
 ``tests/test_parallel.py``, the meshes, the cloth and its constraint
-families, a soup off the tet-column path.  There the kernels T9-T13 and
-T22 take the member axis too, and each member's CG leaves at its own trip,
+families, a soup off the tet-column path), where the kernels T9-T13 and
+T22 take the member axis too and each member's CG leaves at its own trip,
 as ``vmap`` of the JAX package's ``while_loop`` selects each member's carry
-once its condition fails.  The generic path's contact terms (self-contact,
-edge-edge and node-node contacts, and so full coupling's blocks), the
-entry-list floor and PBD ensembles raise :class:`NotPortedError` naming
-ROADMAP item 10b-ii.  Several cards (``make_mesh``, ``shard_ensemble`` and
-``make_sharded_step``'s ``shard_map``) are ROADMAP item 11;
-:func:`ensemble_step` is that step's one-card form, its ``pmax`` and
-``psum`` reductions over the member axis on the device.
+once its condition fails; and with point-triangle self-contact (item
+10b-ii: ``tet_cube_drop`` with the bench's self-contact, the box piles) in
+every detection branch (super-body T14/T15; all-pairs, cell list, per-body
+and reference T16/T17), under recentered or full coupling (T7's force, or
+T23's blocks) and on either floor (dense, or T24's entry list).  Edge-edge
+and node-node contacts and PBD ensembles raise :class:`NotPortedError`
+naming ROADMAP item 10b-iii.  Several cards (``make_mesh``,
+``shard_ensemble`` and ``make_sharded_step``'s ``shard_map``) are ROADMAP
+item 11; :func:`ensemble_step` is that step's one-card form, its ``pmax``
+and ``psum`` reductions over the member axis on the device.
 """
 
 from __future__ import annotations
@@ -43,12 +46,12 @@ __all__ = ["ensemble_step", "ensemble_tick", "ensemble_tick_n", "stack_ensemble"
 def check_ensemble(states: SolverState, topo: Topology, config: StepConfig) -> None:
     """Raise unless ``states`` is an ensemble whose scene takes a ported
     path: PD on the tet-column path, detection (if any) on packed bodies,
-    or PD on the generic path without contact terms
+    or PD on the generic path without edge-edge or node-node contacts
     (``pd.check_ensemble_path``)."""
     if not states.members:
         raise ValueError("an ensemble's state has a leading member axis (stack_ensemble)")
     if config.solver != SolverName.PD:
-        raise NotPortedError("PBD ensembles are not ported yet: ROADMAP queue 1 item 10b-ii")
+        raise NotPortedError("PBD ensembles are not ported yet: ROADMAP queue 1 item 10b-iii")
     pd.check_ensemble_path(states, topo, config)
 
 

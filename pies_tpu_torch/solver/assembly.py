@@ -37,8 +37,10 @@ partials and trip counts ``i32[B, 1]``) and shares the topology: each
 kernel launches once for all members, and each twin runs member by member
 (``state.each_member``).  The CG's exit is per member, as ``vmap`` of its
 ``while_loop`` makes it: a member stops at its own trip, and its result is
-its single-scene solve's.  The contact terms (T7's force, T23, T24, T26,
-T27) stay single-scene (ROADMAP item 10b-ii).
+its single-scene solve's.  The point-triangle contact terms (T7's force
+and lag, T23's blocks and stacked force) and the entry-list floor's force
+(T24's mask) are per member too (ROADMAP item 10b-ii); the edge-edge and
+node-node terms (T26, T27) stay single-scene (item 10b-iii).
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ from ..collision.batches import (
 )
 from ..constraints import projections as proj
 from ..ops.math3d import ieee_div as _div
-from ..state import each_member, members_of
+from ..state import each_member, member, members_of
 from ..topology import Topology, row_layout
 
 CG_BLOCK = 256  # pies::kCgBlock in kernels/csrc/cg_reduce.cuh
@@ -451,12 +453,13 @@ def assemble_force_plain(x, msn_h2, wf, blocks, topo: Topology, plane: float,
     terms) + wf·static`` and the floor projection ``static = (x, max(y,
     plane), z)``.  ``failed`` is accepted for signature parity.  An
     ensemble (``x``, ``msn_h2`` f32[B, N, 3], ``wf`` f32[B, N], ``blocks``
-    f32[B, R, 3]; no contact terms) runs member by member."""
+    f32[B, R, 3], and ``pt``, ``full`` and ``floor`` with the member axis;
+    no edge or node-node terms) runs member by member."""
     if members_of(x):
-        _single_scene_terms(pt, full, floor, edges, nodes)
-        return each_member(lambda xb, mb, wb, bb: assemble_force_plain(xb, mb, wb, bb, topo,
-                                                                      plane),
-                           members_of(x), x, msn_h2, wf, blocks)
+        _single_scene_terms(edges, nodes)
+        return each_member(lambda xb, mb, wb, bb, pb, fb, lb: assemble_force_plain(
+            xb, mb, wb, bb, topo, plane, None, pb, fb, lb),
+            members_of(x), x, msn_h2, wf, blocks, pt, full, floor)
     f = msn_h2 + topo.position_force_dense if _pins(topo) else msn_h2
     f = csr_sum(topo.row_inc, blocks, f)
     lag_on = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
@@ -500,9 +503,6 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
         raise ValueError("the force kernel needs the failure latch")
     inc = topo.row_inc
     n = x.shape[-2]
-    members = kernels.launch_members(x, failed, msn_h2, wf, blocks)
-    if members > 1:
-        _single_scene_terms(pt, full, floor, edges, nodes)
     pin = topo.position_force_dense if _pins(topo) else None
     if pin is not None and pin.shape[0] != n:
         raise ValueError("pin force must be dense over the capacity")
@@ -519,6 +519,12 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
     if floor is not None:
         c_start, c_entries = topo.corner_inc.row_start, topo.corner_inc.entries
         smask = floor.static_mask
+    members = kernels.launch_members(x, failed, msn_h2, wf, blocks, ptd, contact, pt_start,
+                                     pt_count, pt_idx, pt_mask, pt_entries, smask)
+    if members > 1:
+        _single_scene_terms(edges, nodes)
+    if smask is not None and smask.shape[-1] != c_entries.shape[0]:
+        raise ValueError("the floor entries' mask needs a row of corner entries per member")
     kernels.require(x.device, x, msn_h2, pin, wf, inc.row_start, inc.entries, blocks, failed,
                     ptd, contact, pt_start, pt_count, pt_idx, pt_mask, pt_entries, c_start,
                     c_entries, smask)
@@ -530,7 +536,8 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
         kernels.ptr(ptd), kernels.ptr(contact), kernels.ptr(pt_start),
         kernels.ptr(pt_count), kernels.ptr(pt_idx), kernels.ptr(pt_mask),
         kernels.ptr(pt_entries), cap, float(thickness), kernels.ptr(c_start),
-        kernels.ptr(c_entries), kernels.ptr(smask), *_edge_args(x.device, edges, True),
+        kernels.ptr(c_entries), kernels.ptr(smask),
+        c_entries.shape[0] if c_entries is not None else 0, *_edge_args(x.device, edges, True),
         *_node_args(x.device, nodes), blocks.shape[-2], members, kernels.stream(),
     )
     kernels.check(err, "assemble_force")
@@ -545,11 +552,11 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
 
 
 def _single_scene_terms(*terms) -> None:
-    """Raise for an ensemble given a contact term: the recentered contact
-    force, full coupling, the entry-list floor, edge-edge or node-node
-    contacts (ROADMAP item 10b-ii)."""
+    """Raise for an ensemble given an edge-edge or node-node contact term
+    (ROADMAP item 10b-iii)."""
     if any(t is not None for t in terms):
-        raise ValueError("an ensemble's generic path has no contact terms (ROADMAP item 10b-ii)")
+        raise ValueError("an ensemble's generic path has no edge-edge or node-node contact"
+                         " terms (ROADMAP item 10b-iii)")
 
 
 def _edge_args(device, edges: EdgeTerms | None, force: bool) -> tuple:
@@ -677,11 +684,11 @@ def apply_system_plain(x, mass, wf, h2: float, topo: Topology, part: bool = Fals
     then, with ``edges`` under full coupling, each node's ``w·AᵀA·x`` over
     its edge entries (T26); with ``part`` also the block partials of
     ``x·y``, else None.  An ensemble (``x`` f32[B, N, 3], ``mass`` and ``wf``
-    f32[B, N]; no contact blocks) runs member by member: partials f32[B,
-    P]."""
+    f32[B, N], ``full`` with the member axis; no edge blocks) runs member
+    by member: partials f32[B, P]."""
     if members_of(x):
-        _single_scene_terms(full, edges)
-        y, p = zip(*(apply_system_plain(x[b], mass[b], wf[b], h2, topo, part)
+        _single_scene_terms(edges)
+        y, p = zip(*(apply_system_plain(x[b], mass[b], wf[b], h2, topo, part, member(full, b))
                      for b in range(x.shape[0])))
         return torch.stack(y), (torch.stack(p) if part else None)
     y = (_div(mass, h2) + wf)[:, None] * x
@@ -712,9 +719,12 @@ def apply_system(x, mass, wf, h2: float, topo: Topology, failed=None,
     if failed is None:
         raise ValueError("the operator kernel needs the failure latch")
     n = x.shape[-2]
-    members = kernels.launch_members(x, failed, mass, wf)
+    c, inc = (full.colls, full.inc) if full is not None else (None, None)
+    pt = ((c.pt_idx, c.pt_mask, c.pt_count, inc.row_start, inc.entries) if full is not None
+          else (None,) * 5)
+    members = kernels.launch_members(x, failed, mass, wf, *pt)
     if members > 1:
-        _single_scene_terms(full, edges)
+        _single_scene_terms(edges)
     row_start = topo.csr_start
     if row_start is not None:
         nbr, coef, m = topo.csr_col, topo.csr_val, 0
@@ -733,9 +743,6 @@ def apply_system(x, mass, wf, h2: float, topo: Topology, failed=None,
                            device=x.device)
     part = part if isinstance(part, torch.Tensor) else None
     trips, prz, prz0, trip, early, rtol2 = gate if gate is not None else (None,) * 3 + (0, 0, 0.0)
-    c, inc = (full.colls, full.inc) if full is not None else (None, None)
-    pt = ((c.pt_idx, c.pt_mask, c.pt_count, inc.row_start, inc.entries) if full is not None
-          else (None,) * 5)
     kernels.require(x.device, x, mass, wf, pin_w, band, row_start, nbr, coef, y, part, failed,
                     trips, prz, prz0, *pt)
     err = kernels.lib().pies_ell_matvec(
@@ -780,14 +787,14 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
     and ``edges`` go to the operator.  Returns ``(x f32[N, 3], prr f32[P], trips
     i32[1])``: the solution, the block partials of the final ``r·r`` (zero
     when ``failed`` slot 0 is set) and the trips run.  An ensemble (every
-    per-node argument with the member axis, ``block`` f32[B, 10, K]; no
-    contact blocks) runs member by member, each with its own exit: ``(x
-    f32[B, N, 3], prr f32[B, P], trips i32[B, 1])``."""
+    per-node argument with the member axis, ``block`` f32[B, 10, K], ``full``
+    per member; no edge blocks) runs member by member, each with its own
+    exit: ``(x f32[B, N, 3], prr f32[B, P], trips i32[B, 1])``."""
     if members_of(b):
-        _single_scene_terms(full, edges)
-        return each_member(lambda bb, xb, db, mb, wb, kb, fb, ob: pcg_solve_plain(
-            bb, xb, db, mb, wb, h2, kb, topo, iterations, rtol, fb, ob),
-            members_of(b), b, x0, diag, mass, wf, mask, failed, block)
+        _single_scene_terms(edges)
+        return each_member(lambda bb, xb, db, mb, wb, kb, fb, ob, cb: pcg_solve_plain(
+            bb, xb, db, mb, wb, h2, kb, topo, iterations, rtol, fb, ob, cb),
+            members_of(b), b, x0, diag, mass, wf, mask, failed, block, full)
     dev = b.device
     if failed is not None and bool(failed[0]):
         return (x0.clone(), torch.zeros(-(-b.shape[0] // CG_BLOCK), device=dev),

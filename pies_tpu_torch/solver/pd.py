@@ -49,14 +49,15 @@ for the device within a tick.
 
 An ensemble state (``state.py``: every leaf with a leading member axis)
 runs with the same launches as one member: on the tet-column path T1-T8
-take the member axis (ROADMAP item 10a), on the contact-free generic path
-T3, T9-T13, T22 and T4 (item 10b-i), each CG with its own exit per
-member.  So the launch count of a substep does not depend on the member
-count, and each plain twin loops over the members (``state.each_member``).
-Its residual and its counters are per member.  An ensemble with
-self-contact off the packed bodies, edge-edge or node-node contacts (so
-full coupling's terms) or the entry-list floor raises
-:class:`NotPortedError` (item 10b-ii, :func:`check_ensemble_path`).
+take the member axis (ROADMAP item 10a), on the generic path T3, T9-T13,
+T22 and T4 (item 10b-i), each CG with its own exit per member, and its
+point-triangle contacts in every detection branch and coupling and the
+entry-list floor: T14-T17, T7, T8, T23 and T24 (item 10b-ii).  So the
+launch count of a substep does not depend on the member count, and each
+plain twin loops over the members (``state.each_member``).  Its residual
+and its counters are per member.  An ensemble with edge-edge or node-node
+contacts raises :class:`NotPortedError` (item 10b-iii,
+:func:`check_ensemble_path`).
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ from ..collision.batches import (
 from ..constraints.projections import tet_force12, tet_force12_plain
 from ..ops.math3d import ieee_div as _div
 from ..options import PhysicsParams, StepConfig
-from ..state import SolverState, each_member
+from ..state import SolverState, each_member, members_of
 from ..topology import Topology
 from . import assembly, tetcols
 
@@ -155,26 +156,23 @@ def detect_point_tri(state: SolverState, x: torch.Tensor, topo: Topology,
 def ensemble_unported(state: SolverState, topo: Topology, config: StepConfig) -> str | None:
     """What keeps an ensemble of this scene off the ported PD paths (None if
     nothing does): on the tet-column path self-contact off the packed
-    bodies; on the generic path any contact term, whose kernels (T5-T8 on
-    this path, T14-T17, T20, T23-T27) are single-scene, or the entry-list
-    floor (T24).  Full coupling acts only through the contacts (T23, T26):
-    without them it is the contact-free path (``StepConfig``'s default
-    coupling, which the JAX package's own ensemble scenes keep)."""
+    bodies; on the generic path edge-edge or node-node contacts, whose
+    kernels (T16 and T25, T26, T8's edge pass; T20, T27) are single-scene.
+    Point-triangle self-contact in every detection branch, both couplings
+    and both floors run."""
     if tetcols.applies(state, topo, config):
         packed = (broadphase.tri_mode(config, topo.tri_mask.shape[0]) is None
                   and broadphase.packed(config))
         return None if not self_contact(config, topo) or packed else \
             "self-contact off the packed bodies"
     off = [name for name, on in (
-        ("self-contact", self_contact(config, topo)),
         ("edge-edge contacts", edge_contact(config, topo)),
-        ("node-node contacts", config.enable_node_collisions),
-        ("the entry-list floor", not config.dense_floor)) if on]
+        ("node-node contacts", config.enable_node_collisions)) if on]
     return ", ".join(off) or None
 
 
 def check_ensemble_path(state: SolverState, topo: Topology, config: StepConfig) -> None:
-    """Raise ``NotPortedError`` (ROADMAP item 10b-ii) for an ensemble whose
+    """Raise ``NotPortedError`` (ROADMAP item 10b-iii) for an ensemble whose
     scene takes a path the port's ensembles do not run
     (:func:`ensemble_unported`)."""
     why = ensemble_unported(state, topo, config)
@@ -182,8 +180,9 @@ def check_ensemble_path(state: SolverState, topo: Topology, config: StepConfig) 
         from .host import NotPortedError  # (host imports this module)
 
         raise NotPortedError(
-            f"ensembles run the tet-column PD path (packed-body detection) and the"
-            f" contact-free generic PD path; this scene has {why}: ROADMAP queue 1 item 10b-ii")
+            f"ensembles run the tet-column PD path (packed-body detection) and the generic PD"
+            f" path with point-triangle self-contact; this scene has {why}: ROADMAP queue 1"
+            " item 10b-iii")
 
 
 def substep_head_plain(state: SolverState, topo: Topology, params: PhysicsParams,
@@ -255,7 +254,11 @@ def floor_entries_plain(x: torch.Tensor, topo: Topology, params: PhysicsParams,
     incidence the floor weight ``wf = Σ w·mask`` (``assembly.py:338-353``),
     added to ``diag`` in place, the count of live entries and the snap flag.
     Returns ``(wf f32[N], CollisionSet)`` with ``floor_active`` the snap
-    flags.  ``failed`` is accepted for signature parity."""
+    flags.  ``failed`` is accepted for signature parity.  An ensemble (``x``
+    f32[B, N, 3], ``diag`` f32[B, N]) runs member by member."""
+    if members_of(x):
+        return each_member(lambda xb, db: floor_entries_plain(xb, topo, params, config, db),
+                           members_of(x), x, diag)
     colls = default_detect_collisions(x, topo, params, config)
     wf = assembly.static_collision_diag(colls, topo.floor_count, topo.corner_inc)
     diag.copy_(diag + wf)
@@ -266,25 +269,31 @@ def floor_entries(x: torch.Tensor, topo: Topology, params: PhysicsParams,
                   config: StepConfig, diag: torch.Tensor, failed=None):
     """Kernel T24 on CUDA tensors, :func:`floor_entries_plain` on CPU
     tensors.  On the card ``failed`` is required: nothing is written when
-    its slot 0 is set."""
+    its slot 0 is set (a member's slot, in an ensemble, whose entry list
+    ``static_idx`` is the corner list copied per member, as the twin's)."""
     if kernels.on_cpu(x):
         return floor_entries_plain(x, topo, params, config, diag, failed)
     if failed is None:
         raise ValueError("the floor entry kernel needs the failure latch")
-    n = x.shape[0]
+    n = x.shape[-2]
+    lead = x.shape[:-2]
     inc = topo.corner_inc
+    members = kernels.launch_members(x, failed)
+    if tuple(diag.shape) != lead + (n,):
+        raise ValueError("the diagonal needs the positions' member axis")
     kernels.require(x.device, x, inc.row_start, inc.entries, topo.tri_mask, diag, failed)
     f32 = dict(dtype=torch.float32, device=x.device)
-    static_mask = torch.empty(inc.cap, **f32)
-    wf, active, counts = (torch.empty(n, **f32) for _ in range(3))
+    static_mask = torch.empty(lead + (inc.cap,), **f32)
+    wf, active, counts = (torch.empty(lead + (n,), **f32) for _ in range(3))
     err = kernels.lib().pies_floor_entries(
         x.data_ptr(), inc.row_start.data_ptr(), inc.entries.data_ptr(),
         topo.tri_mask.data_ptr(), floor_threshold(params), static_mask.data_ptr(),
-        diag.data_ptr(), wf.data_ptr(), active.data_ptr(), counts.data_ptr(), n,
-        failed.data_ptr(), kernels.stream())
+        diag.data_ptr(), wf.data_ptr(), active.data_ptr(), counts.data_ptr(), n, inc.cap,
+        failed.data_ptr(), members, kernels.stream())
     kernels.check(err, "floor_entries")
     floor_entries.launches += 1
-    return wf, CollisionSet(floor_active=active, static_idx=topo.triangles.reshape(-1),
+    static_idx = topo.triangles.reshape(-1).expand(lead + (inc.cap,)).contiguous()
+    return wf, CollisionSet(floor_active=active, static_idx=static_idx,
                             static_mask=static_mask, floor_counts=counts)
 
 
@@ -680,8 +689,8 @@ def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     if pt_on:
         colls = detect_point_tri(state, x, topo, params, config, active, plain)
         if counters is not None:
-            counters["contacts"].add_(colls.pt_count[0])
-            counters["rebuilds"].add_(colls.rebuilt[0])
+            counters["contacts"].add_(colls.pt_count[..., 0])
+            counters["rebuilds"].add_(colls.rebuilt[..., 0])
     elif edge_on or node_on:
         colls = CollisionSet(floor_active=active,
                              overflow=torch.zeros(1, dtype=torch.int32, device=x.device))
@@ -691,8 +700,8 @@ def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
             x, state.prev_positions, topo.triangles, topo.tri_mask, params, config,
             colls.overflow, failed, plain)
         if counters is not None:
-            counters["edge_contacts"].add_(colls.edge_count[0])
-            counters["edge_hits"].add_(colls.edge_hits[0])
+            counters["edge_contacts"].add_(colls.edge_count[..., 0])
+            counters["edge_hits"].add_(colls.edge_hits[..., 0])
     if node_on:
         colls.nn = broadphase.detect_node_node_pairs(x, state.radius, state.node_mask, params,
                                                      config, failed, plain)
@@ -713,7 +722,7 @@ def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
                                 state.inv_mass, topo, h2, diag, wf, failed, sd, inc, ptd,
                                 not full_coupling, colls.pt_count)
         if counters is not None:
-            counters["node_pairs"].add_(nodes.lim[0])
+            counters["node_pairs"].add_(nodes.lim[..., 0])
     if edge_on:
         edges = k["edge_setup"](colls, state.mass, state.inv_mass, topo, h2, diag, wf,
                                 params.collision_thickness, config.reference_quirks,
@@ -741,7 +750,7 @@ def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     if node_on:
         nn_imp, touching = k["node_friction"](x_it, state, params, nodes, failed)
         if counters is not None:
-            counters["touching_pairs"].add_(touching[0])
+            counters["touching_pairs"].add_(touching[..., 0])
         if pt_on:
             fric = k["pt_tail"](state, params, config, colls, inc, x_it, static_proj, None,
                                 nn_imp, FRICTION)

@@ -298,13 +298,13 @@ def pt_coupling_setup_plain(colls: CollisionSet, mass: torch.Tensor, topo: Topol
     (``assembly.py:577-599``).  ``static_diag`` f32[N] (the generic path's
     dense operator diagonal, preset to the floor weight ``wf``) becomes
     ``wf + ptd`` at those nodes (``pd.py:81-99``).  Returns ``(incidence, ptd
-    f32[N])``.  An ensemble (``mass`` f32[B, N], no ``static_diag``) runs
-    member by member; its incidence has a leading member axis."""
+    f32[N])``.  An ensemble (``mass`` f32[B, N], ``static_diag`` f32[B, N]
+    on the generic path) runs member by member; its incidence has a leading
+    member axis."""
     if mass.dim() == 2:
-        if static_diag is not None:
-            raise ValueError("an ensemble has no generic-path operator diagonal")
-        return each_member(lambda c, m, d, w, f: pt_coupling_setup_plain(c, m, topo, h2, d, w, f),
-                           mass.shape[0], colls, mass, diag, wf, failed)
+        return each_member(lambda c, m, d, w, f, sd: pt_coupling_setup_plain(c, m, topo, h2, d,
+                                                                             w, f, sd),
+                           mass.shape[0], colls, mass, diag, wf, failed, static_diag)
     n = mass.shape[0]
     inc = incidence_plain(colls.pt_idx, colls.pt_count, n)
     ptd = assembly.point_tri_collision_diag(colls.pt_idx, colls.pt_mask, n, inc)

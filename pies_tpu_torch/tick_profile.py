@@ -11,6 +11,7 @@
     python3 -m pies_tpu_torch.tick_profile --node-cloud [particles] [repeats]
     python3 -m pies_tpu_torch.tick_profile --ensemble [members] [repeats]
     python3 -m pies_tpu_torch.tick_profile --ensemble-generic [members] [repeats]
+    python3 -m pies_tpu_torch.tick_profile --ensemble-contacts [members] [repeats] [--boxes]
 
 and on the PD scenes any of ``--full`` (``contact_coupling="full"``,
 self-contact on), ``--no-tet-cols`` (a soup off the tet-column path, on
@@ -51,14 +52,17 @@ member's live nodes moved by a seeded offset, stepped by
 the members), or with ``--ensemble-generic`` phase 15b's: 64 members by
 default of ``tet_cube_drop`` (``scene/cube_drop.py``, 1,331 nodes each,
 self-contact off) on the generic path, each member lifted by its own seeded
-offset.
+offset, or with ``--ensemble-contacts`` phase 16a's: the same with the
+bench's self-contact (the super-body detection), or with ``--boxes`` as
+well phase 16b's: 64 members by default of the box pile, each jittered by
+its own seeded offset (the all-pairs detection).
 It warms
 up until the window it measures is contact-active: 30 ticks without
 self-contact (the bottom layer reaches the floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
 bottom one rests on the floor), 75 for the mesh (its bottom, 3.0 above the
 floor, meets it at tick 70), 25 for the cloth (it lands at tick ~19), 50 for
 the mixed scene (the soup's layers meet at tick ~40, sheet and soup at tick
-49), 30 for the boxes (they touch from tick 27); the PBD scenes tick by
+49), 30 for the boxes and their ensemble (they touch from tick 27); the PBD scenes tick by
 tick until a tick has floor-active nodes and touching pairs (the ropes
 reach the floor at tick ~42, the pile at once), the nets tick by tick
 until a tick has live edge contacts (each window below then starts from
@@ -112,7 +116,7 @@ def _clone(state):
 
 def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, mixed=False,
          boxes=False, reference=False, rope=False, pile=False, full=False, tet_cols=True,
-         dense_floor=True, nets=False, cloud=False, members=0, drop=False):
+         dense_floor=True, nets=False, cloud=False, members=0, drop=False, contacts=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -132,10 +136,11 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
              else f"the PBD node pile, {n_tets} particles" if pile
              else f"the crossing nets, nn = {n_tets}" if nets
              else f"the PD node cloud, {n_tets} particles" if cloud
+             else f"an ensemble of {members} box piles" if members and boxes
              else f"an ensemble of {members} tet_cube_drop meshes" if drop
              else f"an ensemble of {members} 512-tet soups" if members else "the soup")
     collisions = (collisions or mixed or boxes or rope or pile or full or nets
-                  or members) and not (cloud or drop)
+                  or members) and not (cloud or (drop and not contacts))
     mode = "reference" if reference else "celllist"
     coupling = "full" if full or nets else "recentered"
     print(f"card: {smi}; {scene}, self-contact {'on' if collisions else 'off'},"
@@ -167,7 +172,17 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
 
     new_counters = (pbd if rope or pile else pd).new_counters
     states = None
-    if drop:
+    if members and boxes:
+        from .parallel import ensemble
+        from .scene.contact_piles import add_box_pile, jittered_ensemble
+
+        add_box_pile(s)
+        s._prepare()
+        states = jittered_ensemble(s.state, members, s._builder.num_nodes)
+        env = (s.topology, s.current_params(), s.config)
+        ensemble.ensemble_tick_n(states, *env, BOXES_WARMUP)
+        new_counters = lambda device: pd.new_counters(device, members)  # noqa: E731
+    elif drop:
         from .parallel import ensemble
         from .scene.cube_drop import add_cube_drop, lifted_ensemble
 
@@ -323,6 +338,9 @@ if __name__ == "__main__":
         sys.exit(main(*(args or [131_072]), cloud=True))
     if "--ensemble-generic" in flags:
         sys.exit(main(512, *args[1:2], members=args[0] if args else 64, drop=True))
+    if "--ensemble-contacts" in flags:
+        sys.exit(main(512, *args[1:2], members=args[0] if args else 64, drop=True, contacts=True,
+                      boxes="--boxes" in flags))
     if "--ensemble" in flags:
         sys.exit(main(512, *args[1:2], members=args[0] if args else 64))
     if {"--rope", "--pile"} & set(flags):

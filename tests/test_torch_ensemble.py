@@ -233,20 +233,27 @@ def test_step_reduces_over_members(reference):
 
 def test_other_paths_are_not_ported():
     """The generic path with self-contact (``create_sheet`` with collisions
-    on) and PBD ensembles are ROADMAP item 10b-ii; the contact-free generic
-    path runs (``tests/test_torch_ensemble_generic.py``)."""
+    on) runs as an ensemble (ROADMAP item 10b-ii,
+    ``tests/test_torch_ensemble_contacts.py``): it steps, each member as
+    its single-scene run; PBD ensembles are ROADMAP item 10b-iii."""
     s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=True,
                   device="cpu")
     s.create_sheet((0.0, 0.5, 0.0), 0.5, 1.0, 5000.0)
     s._prepare()
     states = stack_ensemble(s.state, 2)
-    with pytest.raises(NotPortedError, match="self-contact.*10b-ii"):
-        ensemble.ensemble_tick(states, s.topology, s.current_params(), s.config)
+    single = unstack(states, 0)
+    start = states.positions.clone()
+    for _ in range(2):  # (the first tick from rest leaves the positions)
+        res = ensemble.ensemble_tick(states, s.topology, s.current_params(), s.config)
+        step.tick(single, s.topology, s.current_params(), s.config)
+    assert not torch.equal(states.positions, start) and bool(torch.isfinite(res).all())
+    assert torch.equal(states.positions[0], single.positions)
+    assert torch.equal(states.positions[0], states.positions[1])
     p = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PBD), enable_collisions=False,
                   device="cpu")
     p.create_tet_soup(8, **CONTACT_SCENE)
     p._prepare()
-    with pytest.raises(NotPortedError, match="10b-ii"):
+    with pytest.raises(NotPortedError, match="10b-iii"):
         ensemble.ensemble_tick(stack_ensemble(p.state, 2), p.topology, p.current_params(),
                                p.config)
 

@@ -298,23 +298,35 @@ def test_convert_carries_batched_shape_rotations():
 
 
 def test_contact_paths_are_not_ported_in_an_ensemble():
-    """The generic path's contact terms stay single-scene (item 10b-ii):
-    self-contact, edge-edge and node-node contacts, the entry-list floor."""
-    cases = (dict(enable_collisions=True), dict(enable_edge_collisions=True),
-             dict(enable_node_collisions=True))
-    for kw in cases:
+    """Self-contact and the entry-list floor run in an ensemble (item
+    10b-ii): each steps, its members equal to the single-scene run;
+    edge-edge and node-node contacts stay single-scene (item 10b-iii)."""
+    def steps(s, cfg):
+        states = stack_ensemble(s.state, 2)
+        single = unstack(states, 0)
+        start = states.positions.clone()
+        for _ in range(2):  # (the first tick from rest leaves the positions)
+            res = ensemble.ensemble_tick(states, s.topology, s.current_params(), cfg)
+            step.tick(single, s.topology, s.current_params(), cfg)
+        assert not torch.equal(states.positions, start) and bool(torch.isfinite(res).all())
+        assert torch.equal(states.positions[0], single.positions)
+        assert torch.equal(states.positions[1], single.positions)
+
+    for kw in (dict(enable_collisions=True), dict(enable_edge_collisions=True),
+               dict(enable_node_collisions=True)):
         s = pt.Solver(pt.SolverOptions(), device="cpu", **{"enable_collisions": False, **kw})
         s.create_sheet((0.0, 0.5, 0.0), 0.5, 1.0, 5000.0)
         s._prepare()
-        with pytest.raises(NotPortedError, match="10b-ii"):
+        if kw.get("enable_collisions"):
+            steps(s, s.config)
+            continue
+        with pytest.raises(NotPortedError, match="10b-iii"):
             ensemble.ensemble_tick(stack_ensemble(s.state, 2), s.topology, s.current_params(),
                                    s.config)
     s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device="cpu")
     add_cube_drop(s, 2)
     s._prepare()
-    cfg = dataclasses.replace(s.config, dense_floor=False)
-    with pytest.raises(NotPortedError, match="entry-list floor.*10b-ii"):
-        ensemble.ensemble_tick(stack_ensemble(s.state, 2), s.topology, s.current_params(), cfg)
+    steps(s, dataclasses.replace(s.config, dense_floor=False))
 
 
 # ---------------------------------------------------------------------------
