@@ -268,6 +268,33 @@ Phases (any failure exits non-zero, before the result line):
    scenes.  16d members 0, 21, 42, 63 bit-equal to their single-scene
    runs, and one tick of 64 members of 16b (8 of 16a) to the batched twin.
    16e a member latched before the start stays bit-unchanged over 40 ticks.
+17. Ensembles on the generic PD path with edge-edge and PD node-node
+   contacts (ROADMAP item 10b-iii; T20, T25, T26 and T27 with a member
+   axis, T26's and T27's terms inside T8, T9 and T10 per member).  17a 64 x
+   ``edge_nets`` at the bench's nn = 24 (``scene/edge_nets.nets_ensemble``:
+   1,152 nodes and 2,116 triangles a member, full coupling, caps 2,048),
+   each member jittered; a probe of 110 ticks gives each member's first
+   edge-contact tick and latch tick, and the three timed
+   ``ensemble_tick_n(10)`` windows run from tick 48, or earlier so that
+   they end before the first latch, gated on no latch, finite positions,
+   edge contacts in every member (device counters), the detection's
+   kernels launched and launches per tick equal at B = 64 and B = 1, then
+   a traced window.  17b 64 PD node clouds (``scene/pbd_scenes.
+   cloud_ensemble``: ``add_node_pile`` at 8,192 nodes, cap 16 a node), the
+   same from the tick at which every member has touching pairs, gated on
+   node pairs and touching pairs in every member.  17c every stage
+   (``solver/stages.py``: T16's edge candidates, T25, T26's setup, T9 and
+   T10 with T26's terms, T8's edge pass; T20, T27's setup and friction, T9
+   with the pair force) at B = 3 with a latched member bit-equal to its
+   twins' member loop and B = 1 to the unbatched call, on 17a's state in
+   both quirk modes, 17b's and the tet boxes with all three contact
+   families under recentered coupling; each timed at B = 64 against 64
+   launches at B = 1 on 17a's and 17b's states and at B = 4 on phase 12b's
+   full-width nets.  17d members 0, 21, 42, 63 bit-equal to their
+   single-scene runs over each window, one tick of 8 members of 17a and of
+   17b bit-equal to the batched twin, and on 4 x the 6 x 6 nets with
+   node-node contacts on too a member latched before the start
+   bit-unchanged over 40 ticks.
 
 The last two lines are the kernel table and the result as JSON objects.
 """
@@ -316,6 +343,13 @@ PILE_WARM = 30  # the piled boxes touch from tick ~27
 BRANCH_WARM = {"super": 6, "celllist": 6, "reference": 6, "bodies": 31, "full_entry": 6}
 CONTACT_PATHS = ("16a", "16b", "16c super", "16c celllist", "16c reference", "16c bodies",
                  "16c full_entry")
+ENS_NETS = 64  # phase 17a: members of edge_nets
+ENS_CLOUD = (8192, 64)  # phase 17b: nodes of each PD node cloud (bench_all.py:168-175), members
+ENS_BIG = 4  # phase 17c: members of phase 12b's full-width nets
+NETS_DENSE = 48  # the bench's nets have dense edge contacts from tick ~48
+NETS_PROBE = 110  # phase 17a's probe, past the window and the single scene's latch (tick 72)
+ALL_ON_WARM = 10  # the tet boxes have all three contact families live from tick ~10
+EDGE_PATHS = ("17a", "17b", "17c all_on")
 # Phase 14: the bench's cube (scripts/bench_all.py:86-97, its +0.5 lift in y
 # applied), meshed at 47 cells across and scaled by 6 (the dump MESH_BIG's
 # geometry; its bottom at y = 3), and at 10 for tet_cube_drop.
@@ -797,6 +831,9 @@ def phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches, kern
     del s
     # 12b: full width, caps x 128.
     s, _ = nets_phase("12b", nets_big, BENCH_CAPS * 128, 120)
+    # (phase 17c times its ensemble's stages on this state)
+    nets12b = (clone_state(s.state), s.topology, s.current_params(), s.config,
+               s._builder.num_nodes)
 
     print("phase 12b: T25 and T26 against their twins on the window's last state")
     st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
@@ -967,6 +1004,7 @@ def phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches, kern
         f"{max(ulps.values())} ulp", 68 * n_nodes + 40 * lim, 80 * lim,
         cuda_ms(lambda: torch.zeros((n_nodes, 4), device=dev).index_add_(0, pair_nodes,
                                                                          pair_rows), 20))
+    return nets12b
 
 
 def device_idle(solver, ticks=10):
@@ -1599,6 +1637,287 @@ def phase15(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, gen
     lap("15d")
 
 
+ENS_FIELDS = ("positions", "prev_positions", "velocities", "forces", "sim_failed")
+
+
+def same_state(a, b):
+    """Two states (or members) bit-equal: the stepped fields and the
+    broadphase cache."""
+    import torch
+
+    ok = all(torch.equal(getattr(a, f), getattr(b, f)) for f in ENS_FIELDS)
+    return ok and (a.bp is None or all(torch.equal(getattr(a.bp, f), getattr(b.bp, f))
+                                       for f in ("pairs", "valid", "ref", "fresh")))
+
+
+def first_members(states, n):
+    """A copy of an ensemble's first ``n`` members."""
+    from pies_tpu_torch.state import member
+
+    return clone_state(member(states, slice(0, n)))
+
+
+class EnsembleChecks:
+    """The checks and timings phases 16 and 17 run on an ensemble: timed
+    windows with the sampled members against their single-scene runs
+    (:meth:`windows`), one tick against the batched twin
+    (:meth:`batched_twin`), each stage of ``solver/stages.contact_stages``
+    against its twins (:meth:`stage_checks`) and timed at B against B
+    launches at B = 1 (:meth:`time_stages`)."""
+
+    def __init__(self, dev, smi, rows, launches, reset_launches, read_launches, phase):
+        self.dev, self.smi, self.rows, self.launches = dev, smi, rows, launches
+        self.reset, self.read, self.phase = reset_launches, read_launches, phase
+
+    def windows(self, label, states, env, first_tick, detection, every=("floor_active",),
+                show=("contacts", "rebuilds", "cg_trips", "floor_active")):
+        """Three timed ``ensemble_tick_n(10)`` windows from ``first_tick``
+        with the device counters on, gated on no latch, finite positions,
+        the counters ``every`` above 0 in every member over the 30 ticks and
+        the ``detection`` kernels launched; then the sampled members
+        against their single-scene runs (the ``d`` checks), the launches at
+        B = 1 and the third window again, traced.  Returns the counters
+        summed over the 30 ticks."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from pies_tpu_torch.parallel import ensemble
+        from pies_tpu_torch.solver import pd, step
+        from pies_tpu_torch.state import member, stack_ensemble, unstack
+        from pies_tpu_torch.tick_profile import device_events
+
+        dev, smi, launches = self.dev, self.smi, self.launches
+        topo, params, cfg = env
+        b_ = states.members
+        sampled = [b for b in ENS_SAMPLED if b < b_]
+        starts = {b: unstack(states, b) for b in sampled}
+        start = clone_state(states)
+        total = pd.new_counters(dev, b_)
+        secs = []
+        for w in range(3):
+            if w == 2:
+                last = clone_state(states)  # (the traced window's start)
+            self.reset()
+            c = pd.new_counters(dev, b_)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ensemble.ensemble_tick_n(states, topo, params, cfg, 10, counters=c)
+            torch.cuda.synchronize()
+            sec = (time.perf_counter() - t0) / 10
+            launches[label] = self.read()
+            for k in c:
+                total[k] += c[k]
+            n = {k: v.tolist() for k, v in c.items()}
+            secs.append(sec)
+            t = first_tick + 10 * w
+            print(f"  window {w + 1}: {sec * 1e3:.3f} ms/tick, {b_ / sec:.1f} scene-steps/s"
+                  f" ({smi}; ticks {t}-{t + 9}; max residual {float(res):.4g});"
+                  f" {sum(launches[label].values()) / 10:.1f} launches per tick; per member: "
+                  + ", ".join(f"{k} {min(n[k])} to {max(n[k])}" for k in show))
+            check(not bool(states.sim_failed.any())
+                  and bool(torch.isfinite(states.positions).all()),
+                  "no member latched, positions finite")
+        n = {k: v.tolist() for k, v in total.items()}
+        check(all(min(n[k]) > 0 for k in every), "in every member over the 30 ticks: "
+              + ", ".join(f"{k} {min(n[k])} to {max(n[k])}" for k in every))
+        check(all(launches[label][k] > 0 for k in detection),
+              f"the detection's kernels launched: {({k: launches[label][k] for k in detection})}")
+        print(f"  {label}: {min(secs) * 1e3:.3f} to {max(secs) * 1e3:.3f} ms/tick,"
+              f" {b_ / max(secs):.1f} to {b_ / min(secs):.1f} scene-steps/s ({smi}); per member"
+              " over the 30 ticks: " + ", ".join(f"{k} {min(n[k])} to {max(n[k])} (mean"
+                                                 f" {sum(n[k]) / b_:.1f})" for k in show))
+        for b, sb in starts.items():
+            cb = pd.new_counters(dev)
+            step.tick_n(sb, topo, params, cfg, 30, counters=cb)
+            check(same_state(member(states, b), sb) and all(int(cb[k]) == n[k][b] for k in cb),
+                  f"{self.phase}d: member {b} bit-equal to its single-scene run over the 30 ticks,"
+                  f" cache and counters too ("
+                  + ", ".join(f"{k} {int(cb[k])}" for k in show) + ")")
+        one = stack_ensemble(unstack(start, 0), 1)
+        self.reset()
+        ensemble.ensemble_tick_n(one, topo, params, cfg, 10)
+        torch.cuda.synchronize()
+        launches[label + " B=1"] = self.read()
+        live = {k: v / 10 for k, v in launches[label].items() if v}
+        check(launches[label + " B=1"] == launches[label],
+              f"launches per tick at B = {b_} equal those at B = 1: {sum(live.values()):.1f}"
+              f" ({live})")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ensemble.ensemble_tick_n(last, topo, params, cfg, 10)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = device_events(prof)
+        busy = sum(us for _, us in events) / 1e3
+        t = first_tick + 20
+        print(f"  traced ticks {t}-{t + 9} again: wall {wall:.3f} ms, device busy {busy:.3f} ms,"
+              f" idle {100 - 100 * busy / wall:.1f}% ({smi}); device time per tick by kernel:")
+        for e, us in sorted(events, key=lambda eu: -eu[1])[:8]:
+            print(f"    {us / 10:9.2f} us/tick  x{e.count / 10:<6.1f} {e.key[:80]}")
+        return total
+
+    def batched_twin(self, label, states, env):
+        """One tick of ``states`` by the kernels and by the batched twin:
+        every member's state, cache and counters bit-equal."""
+        import torch
+
+        from pies_tpu_torch.parallel import ensemble
+        from pies_tpu_torch.solver import pd, step
+        from pies_tpu_torch.state import member
+
+        topo, params, cfg = env
+        e, p = clone_state(states), clone_state(states)
+        c, cp = (pd.new_counters(self.dev, states.members) for _ in range(2))
+        ensemble.ensemble_tick(e, topo, params, cfg, counters=c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.tick(p, topo, params, cfg, plain=True, counters=cp)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        apart = [b for b in range(states.members) if not same_state(member(e, b), member(p, b))]
+        sums = {k: int(v.sum()) for k, v in c.items() if v.any()}
+        check(not apart and all(torch.equal(c[k], cp[k]) for k in c),
+              f"{self.phase}d: one tick of all {states.members} members of {label} bit-equal to"
+              f" the batched twin, counters too ({sums}; batched twin {sec * 1e3:.1f} ms;"
+              f" apart: {apart})")
+
+    def stage_checks(self, label, states, env, count=("detection", 2), contacts=True):
+        """B = 3 (member 2 latched) against the twins' member loop on the
+        kernels' inputs, and B = 1 against the unbatched call; with
+        ``contacts``, members 0 or 1 with contacts by the count at
+        ``count`` (a stage and an output index)."""
+        import torch
+
+        from pies_tpu_torch.solver.stages import contact_stages, stages_apart
+        from pies_tpu_torch.state import unstack
+
+        topo, params, cfg = env
+        st3 = first_members(states, 3)
+        st3.sim_failed[2, 0] = 1
+        out = contact_stages(st3, topo, params, cfg)
+        torch.cuda.synchronize()
+        apart = stages_apart(out, [0, 1])
+        counts = out[count[0]].kernel[count[1]][:, 0].tolist()
+        check(not apart and counts[2] == 0 and (max(counts[:2]) > 0 or not contacts),
+              f"{self.phase}c {label}: every stage at B = 3 (member 2 latched) bit-equal to its"
+              f" twins' member loop on the kernels' inputs ({', '.join(out)}; {count[0]}"
+              f" {counts}; apart: {apart})")
+        one = contact_stages(first_members(states, 1), topo, params, cfg, twins=False)
+        alone = contact_stages(unstack(states, 0), topo, params, cfg, twins=False)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a.reshape(b.shape), b) for stage in one
+                  for a, b in zip(one[stage].kernel, alone[stage].kernel)),
+              f"{self.phase}c {label}: B = 1 equals the unbatched call, every stage")
+
+    def time_stages(self, label, states, env, names, key="ensemble_contacts"):
+        """Each kernel call in ``names`` of a :func:`contact_stages` run on
+        ``states`` (the twins off), on the inputs the kernel got there: at
+        B = b against b launches at B = 1 on the members' views, beside its
+        bound; recorded in the rows under ``key``."""
+        import torch
+
+        from pies_tpu_torch.collision import broadphase
+        from pies_tpu_torch.solver.stages import contact_stages
+        from pies_tpu_torch.state import member
+
+        topo, params, cfg = env
+        b_, n = states.members, states.capacity
+        out = contact_stages(states, topo, params, cfg, twins=False)
+        calls = {k: c for stage in out.values() for k, c in stage.calls.items()}
+        torch.cuda.synchronize()
+        # live contacts over the members: point-triangle, edge-edge, node pairs
+        n_c = int(out["detection"].kernel[2].sum()) if "detection" in out else 0
+        n_e = int(out["edge detection"].kernel[2].sum()) if "edge detection" in out else 0
+        n_p = int(out["T27 setup"].kernel[0].sum()) if "T27 setup" in out else 0
+        n_pairs = int(out["T20"].kernel[2].sum()) if "T20" in out else 0
+        n_inc, e_ent, p_ent = 4 * n_c, 4 * n_e, 2 * n_p
+        r_all = calls["T9 stage 2"][1][3].shape[-2]
+        m = topo.ell_nbr.shape[0] if topo.ell_nbr is not None else 0
+        passes = cfg.collision_stabilization_iterations
+        full_c = cfg.contact_coupling == "full"
+        # name -> (the rows it is recorded in, bytes moved once, operations)
+        work = {}
+        mode = broadphase.tri_mode(cfg, topo.tri_mask.shape[0])
+        if "detection" in out and mode is None:
+            lay = broadphase.super_layout(cfg, topo.super_corners, topo.super_adj)
+            valid = int(out["cache"].kernel[1].sum())
+            work["T14 without a rebuild"] = ("super_broadphase", b_ * 36 * n, b_ * 6 * n)
+            work["T14 with a rebuild"] = (
+                "super_broadphase", b_ * (36 * n + 8 * lay.lanes + 4) + 4 * lay.k * (lay.w + lay.a),
+                b_ * 1000 * lay.k)
+            work["T15"] = ("super_narrowphase",
+                           b_ * (24 * n + 4 * lay.lanes + 20 * lay.cap) + 4 * lay.k * lay.w,
+                           60 * len(lay.combos()) * valid)
+        elif "detection" in out:
+            lay = broadphase.tri_layout(cfg, topo.triangles.shape[0], mode)
+            live_lanes = int(calls["T17"][1][3].sum())
+            work["T16 " + mode] = (
+                "tri_candidates", b_ * (24 * n + 4 * lay.t * (lay.nb + 1)) + 16 * lay.t,
+                b_ * 6 * (lay.t * lay.t if mode == "allpairs" else lay.k * lay.raw))
+            work["T17"] = ("tri_ccd", b_ * (4 * lay.t * (lay.nb + 1) + 24 * n + 20 * lay.cap)
+                           + 12 * lay.t, 3 * 200 * live_lanes)
+        if "edge detection" in out:
+            lay = broadphase.tri_layout(cfg, topo.triangles.shape[0], "celllist")
+            _, _, cand, count, _, _ = calls["T25"][1]
+            slot = torch.arange(lay.nb, device=cand.device)
+            own = torch.arange(lay.t, device=cand.device)[:, None]
+            live_pairs = int(((slot < count[..., None]) & (cand > own)).sum())
+            work["T16 edges"] = ("tri_candidates",
+                                 b_ * (24 * n + 4 * lay.t * (lay.nb + 1)) + 16 * lay.t,
+                                 b_ * 6 * lay.k * lay.raw)
+            work["T25"] = ("edge_ccd", b_ * (4 * lay.t * (lay.nb + 1) + 24 * n) + 12 * lay.t
+                           + 20 * n_e, 9 * 220 * live_pairs)
+            work["T26 setup"] = ("edge_terms", 20 * n_e + 32 * e_ent + b_ * 24 * n, 8 * e_ent)
+        if "T20" in out:
+            work["T20"] = ("node_pairs", b_ * 128 * n + 16 * n_pairs, b_ * 64 * n)
+            work["T27 setup"] = ("node_contacts", 12 * n_pairs + b_ * 36 * n, 2 * p_ent)
+            work["T27 friction"] = ("node_contacts", 112 * n_p + b_ * 72 * n, 80 * n_p)
+        work["T7 setup"] = ("pt_coupling", 20 * n_c + 24 * n_inc + b_ * 16 * n, 10 * n_inc)
+        work["T7 force"] = ("pt_coupling", 20 * n_c + 24 * n_inc, 50 * n_inc)
+        # (under full coupling T23 runs inside T9's stage 2 and T10; T26's
+        # and T27's terms run inside T9's stage 2, T26's also in T10 under
+        # full coupling and in T8)
+        terms = (("pt_full",) if full_c else ()) + (("edge_terms",) if n_e or "T26 setup" in calls
+                                                   else ()) + (("node_contacts",) if "T20" in out
+                                                               else ())
+        work["T9 stage 2"] = (("tet_force_nodes",) + terms,
+                              4 * n + 4 * r_all + b_ * (52 * n + 12 * r_all) + 20 * n_c
+                              + 12 * n_inc + 68 * e_ent + 40 * p_ent,
+                              b_ * (3 * r_all + 12 * n) + 30 * n_inc + 150 * e_ent + 40 * p_ent)
+        e_op = full_c and "T26 setup" in calls
+        work["T10"] = (("ell_matvec",) + (("pt_full",) if full_c else ())
+                       + (("edge_terms",) if e_op else ()),
+                       8 * m * n + b_ * 32 * n + (20 * n_c + 12 * n_inc if full_c else 0)
+                       + (68 * e_ent if e_op else 0),
+                       b_ * (6 * m + 9) * n + (30 * n_inc if full_c else 0)
+                       + (30 * e_ent if e_op else 0))
+        work["T8"] = (("pt_tail", "edge_terms") if "T26 setup" in calls else "pt_tail",
+                      passes * (20 * n_c + 64 * n_inc + 64 * n_e + 16 * e_ent + b_ * 28 * n)
+                      + 20 * n_c + 56 * n_inc,
+                      passes * (60 * n_c + 200 * n_e) + 90 * n_c)
+        n_ent = topo.corner_inc.cap if topo.corner_inc is not None else 0
+        work["T24"] = ("floor_entries", b_ * (36 * n + 12 * n_ent), b_ * 4 * n_ent)
+        work["T4"] = ("substep_tail", 120 * b_ * n, 25 * b_ * n)
+        print(f"phase {self.phase}c: {label}, each stage at B = {b_} against {b_} launches at"
+              f" B = 1 ({n_c} point-triangle contacts, {n_e} edge contacts, {n_p} live node"
+              f" pairs over the members; {self.smi})")
+        for stage in names:
+            if stage not in calls:
+                continue
+            fn, args = calls[stage]
+            row_name, nbytes, ops = work[stage]
+            per = [tuple(member(t, k) for t in args) for k in range(b_)]
+            ms_b = cuda_ms(lambda: fn(*args), 10)
+            ms_1 = cuda_ms(lambda: [fn(*p) for p in per], 3)
+            b_ms, b_by = bound(nbytes, ops)
+            print(f"  {stage}: B = {b_} {ms_b:.4f} ms, {b_} x B = 1 {ms_1:.4f} ms"
+                  f" ({ms_1 / ms_b:.1f}x), bound {b_ms:.4f} ms ({b_by})")
+            for name in (row_name if isinstance(row_name, tuple) else (row_name,)):
+                self.rows[name].setdefault(key, {})[f"{stage}, {label}"] = dict(
+                    members=b_, b_ms=ms_b, b1_x_members_ms=ms_1, bound_ms=b_ms, bound_by=b_by)
+
+
 def phase16(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nine_b,
             members=ENS_DROP, pile_members=ENS_PILE, drop_res=DROP_RES, n_boxes=5):
     """Phase 16: ensembles on the generic PD path with point-triangle
@@ -1615,214 +1934,22 @@ def phase16(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nin
     then every branch and term through the ensemble tick on small scenes;
     16e a pre-latched member."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from pies_tpu_torch.collision import broadphase
     from pies_tpu_torch.parallel import ensemble
     from pies_tpu_torch.scene.contact_piles import add_box_pile, branch_scene, jittered_ensemble
     from pies_tpu_torch.scene.cube_drop import add_cube_drop, lifted_ensemble
-    from pies_tpu_torch.solver import pd, step, tetcols
-    from pies_tpu_torch.state import member, stack_ensemble, unstack
-    from pies_tpu_torch.solver.stages import contact_stages, stages_apart
-    from pies_tpu_torch.tick_profile import device_events
+    from pies_tpu_torch.solver import pd, tetcols
+    from pies_tpu_torch.state import member, unstack
 
-    fields = ("positions", "prev_positions", "velocities", "forces", "sim_failed")
-
-    def same(a, b):
-        ok = all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
-        return ok and (a.bp is None or all(torch.equal(getattr(a.bp, f), getattr(b.bp, f))
-                                           for f in ("pairs", "valid", "ref", "fresh")))
-
-    def first(states, n):
-        return clone_state(member(states, slice(0, n)))
-
+    ck = EnsembleChecks(dev, smi, rows, launches, reset_launches, read_launches, "16")
+    windows, batched_twin = ck.windows, ck.batched_twin
+    stage_checks, time_stages = ck.stage_checks, ck.time_stages
+    first, same = first_members, same_state
     t_phase = time.perf_counter()
 
     def lap(what):
         print(f"  ({what}: {time.perf_counter() - t_phase:.1f} s into phase 16)")
-
-    def windows(label, states, env, first_tick, detection):
-        """Three timed ``ensemble_tick_n(10)`` windows from ``first_tick``
-        with the device counters on, then 16d on the sampled members, the
-        launches at B = 1 and a traced window.  Returns the counters summed
-        over the 30 ticks."""
-        topo, params, cfg = env
-        b_ = states.members
-        sampled = [b for b in ENS_SAMPLED if b < b_]
-        starts = {b: unstack(states, b) for b in sampled}
-        total = pd.new_counters(dev, b_)
-        secs = []
-        for w in range(3):
-            reset_launches()
-            c = pd.new_counters(dev, b_)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = ensemble.ensemble_tick_n(states, topo, params, cfg, 10, counters=c)
-            torch.cuda.synchronize()
-            sec = (time.perf_counter() - t0) / 10
-            launches[label] = read_launches()
-            for k in c:
-                total[k] += c[k]
-            n = {k: v.tolist() for k, v in c.items()}
-            secs.append(sec)
-            t = first_tick + 10 * w
-            print(f"  window {w + 1}: {sec * 1e3:.3f} ms/tick, {b_ / sec:.1f} scene-steps/s"
-                  f" ({smi}; ticks {t}-{t + 9}; max residual {float(res):.4g});"
-                  f" {sum(launches[label].values()) / 10:.1f} launches per tick; per member:"
-                  f" contacts {min(n['contacts'])} to {max(n['contacts'])}, rebuilds"
-                  f" {min(n['rebuilds'])} to {max(n['rebuilds'])}, CG trips {min(n['cg_trips'])}"
-                  f" to {max(n['cg_trips'])}, floor-active node-substeps"
-                  f" {min(n['floor_active'])} to {max(n['floor_active'])}")
-            check(not bool(states.sim_failed.any())
-                  and bool(torch.isfinite(states.positions).all()),
-                  "no member latched, positions finite")
-        n = {k: v.tolist() for k, v in total.items()}
-        check(min(n["floor_active"]) > 0, f"floor contact in every member over the 30 ticks:"
-              f" {min(n['floor_active'])} to {max(n['floor_active'])} node-substeps a member")
-        check(all(launches[label][k] > 0 for k in detection),
-              f"the detection's kernels launched: {({k: launches[label][k] for k in detection})}")
-        print(f"  {label}: {min(secs) * 1e3:.3f} to {max(secs) * 1e3:.3f} ms/tick,"
-              f" {b_ / max(secs):.1f} to {b_ / min(secs):.1f} scene-steps/s ({smi}); per member"
-              f" over the 30 ticks: contacts {min(n['contacts'])} to {max(n['contacts'])}"
-              f" (mean {sum(n['contacts']) / b_:.1f}), rebuilds {min(n['rebuilds'])} to"
-              f" {max(n['rebuilds'])}")
-        for b, sb in starts.items():
-            cb = pd.new_counters(dev)
-            step.tick_n(sb, topo, params, cfg, 30, counters=cb)
-            check(same(member(states, b), sb) and all(int(cb[k]) == n[k][b] for k in cb),
-                  f"16d: member {b} bit-equal to its single-scene run over the 30 ticks, cache"
-                  f" and counters too (contacts {int(cb['contacts'])}, rebuilds"
-                  f" {int(cb['rebuilds'])}, CG trips {int(cb['cg_trips'])})")
-        one = stack_ensemble(unstack(states, 0), 1)
-        reset_launches()
-        ensemble.ensemble_tick_n(one, topo, params, cfg, 10)
-        torch.cuda.synchronize()
-        launches[label + " B=1"] = read_launches()
-        live = {k: v / 10 for k, v in launches[label].items() if v}
-        check(launches[label + " B=1"] == launches[label],
-              f"launches per tick at B = {b_} equal those at B = 1: {sum(live.values()):.1f}"
-              f" ({live})")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            ensemble.ensemble_tick_n(states, topo, params, cfg, 10)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        events = device_events(prof)
-        busy = sum(us for _, us in events) / 1e3
-        t = first_tick + 30
-        print(f"  traced ticks {t}-{t + 9}: wall {wall:.3f} ms, device busy {busy:.3f} ms,"
-              f" idle {100 - 100 * busy / wall:.1f}% ({smi}); device time per tick by kernel:")
-        for e, us in sorted(events, key=lambda eu: -eu[1])[:8]:
-            print(f"    {us / 10:9.2f} us/tick  x{e.count / 10:<6.1f} {e.key[:80]}")
-        return total
-
-    def batched_twin(label, states, env):
-        """One tick of ``states`` by the kernels and by the batched twin:
-        every member's state, cache and counters bit-equal."""
-        topo, params, cfg = env
-        e, p = clone_state(states), clone_state(states)
-        c, cp = pd.new_counters(dev, states.members), pd.new_counters(dev, states.members)
-        ensemble.ensemble_tick(e, topo, params, cfg, counters=c)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step.tick(p, topo, params, cfg, plain=True, counters=cp)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        apart = [b for b in range(states.members) if not same(member(e, b), member(p, b))]
-        check(not apart and all(torch.equal(c[k], cp[k]) for k in c),
-              f"16d: one tick of all {states.members} members of {label} bit-equal to the"
-              f" batched twin, counters too ({int(c['contacts'].sum())} contacts; batched twin"
-              f" {sec * 1e3:.1f} ms; apart: {apart})")
-
-    def stage_checks(label, states, env, contacts=True):
-        """16c: B = 3 (member 2 latched) against the twins' member loop on
-        the kernels' inputs, and B = 1 against the unbatched call; with
-        ``contacts``, members 0 or 1 in contact."""
-        topo, params, cfg = env
-        st3 = first(states, 3)
-        st3.sim_failed[2, 0] = 1
-        out = contact_stages(st3, topo, params, cfg)
-        torch.cuda.synchronize()
-        apart = stages_apart(out, [0, 1])
-        counts = out["detection"][0][2][:, 0].tolist()
-        check(not apart and counts[2] == 0 and (max(counts[:2]) > 0 or not contacts),
-              f"16c {label}: every stage at B = 3 (member 2 latched) bit-equal to its twins'"
-              f" member loop on the kernels' inputs ({', '.join(out)}; contacts {counts};"
-              f" apart: {apart})")
-        one = contact_stages(first(states, 1), topo, params, cfg, twins=False)
-        alone = contact_stages(unstack(states, 0), topo, params, cfg, twins=False)
-        torch.cuda.synchronize()
-        check(all(torch.equal(a.reshape(b.shape), b) for stage in one
-                  for a, b in zip(one[stage].kernel, alone[stage].kernel)),
-              f"16c {label}: B = 1 equals the unbatched call, every stage")
-
-    def time_stages(label, states, env, names):
-        """Each kernel call in ``names`` of a :func:`contact_stages` run on
-        ``states`` (the twins off), on the inputs the kernel got there: at
-        B = b against b launches at B = 1 on the members' views, beside its
-        bound; recorded in the rows under ``ensemble_contacts``."""
-        topo, params, cfg = env
-        b_, n = states.members, states.capacity
-        out = contact_stages(states, topo, params, cfg, twins=False)
-        calls = {k: c for stage in out.values() for k, c in stage.calls.items()}
-        torch.cuda.synchronize()
-        n_c = int(out["detection"].kernel[2].sum())  # live contacts over the members
-        n_inc, r_all = 4 * n_c, calls["T9 stage 2"][1][3].shape[-2]
-        m = topo.ell_nbr.shape[0] if topo.ell_nbr is not None else 0
-        passes = cfg.collision_stabilization_iterations
-        full_c = cfg.contact_coupling == "full"
-        # name -> (the rows it is recorded in, bytes moved once, operations)
-        work = {}
-        mode = broadphase.tri_mode(cfg, topo.tri_mask.shape[0])
-        if mode is None:
-            lay = broadphase.super_layout(cfg, topo.super_corners, topo.super_adj)
-            valid = int(out["cache"].kernel[1].sum())
-            work["T14 without a rebuild"] = ("super_broadphase", b_ * 36 * n, b_ * 6 * n)
-            work["T14 with a rebuild"] = (
-                "super_broadphase", b_ * (36 * n + 8 * lay.lanes + 4) + 4 * lay.k * (lay.w + lay.a),
-                b_ * 1000 * lay.k)
-            work["T15"] = ("super_narrowphase",
-                           b_ * (24 * n + 4 * lay.lanes + 20 * lay.cap) + 4 * lay.k * lay.w,
-                           60 * len(lay.combos()) * valid)
-        else:
-            lay = broadphase.tri_layout(cfg, topo.triangles.shape[0], mode)
-            live_lanes = int(calls["T17"][1][3].sum())
-            work["T16 " + mode] = (
-                "tri_candidates", b_ * (24 * n + 4 * lay.t * (lay.nb + 1)) + 16 * lay.t,
-                b_ * 6 * (lay.t * lay.t if mode == "allpairs" else lay.k * lay.raw))
-            work["T17"] = ("tri_ccd", b_ * (4 * lay.t * (lay.nb + 1) + 24 * n + 20 * lay.cap)
-                           + 12 * lay.t, 3 * 200 * live_lanes)
-        work["T7 setup"] = ("pt_coupling", 20 * n_c + 24 * n_inc + b_ * 16 * n, 10 * n_inc)
-        work["T7 force"] = ("pt_coupling", 20 * n_c + 24 * n_inc, 50 * n_inc)
-        # (under full coupling T23 runs inside T9's stage 2 and T10)
-        work["T9 stage 2"] = (("tet_force_nodes", "pt_full") if full_c else "tet_force_nodes",
-                              4 * n + 4 * r_all + b_ * (52 * n + 12 * r_all) + 20 * n_c
-                              + 12 * n_inc, b_ * (3 * r_all + 12 * n) + 30 * n_inc)
-        work["T10"] = (("ell_matvec", "pt_full") if full_c else "ell_matvec",
-                       8 * m * n + b_ * 32 * n + (20 * n_c + 12 * n_inc if full_c else 0),
-                       b_ * (6 * m + 9) * n + (30 * n_inc if full_c else 0))
-        work["T8"] = ("pt_tail", passes * (20 * n_c + 64 * n_inc) + 20 * n_c + 56 * n_inc,
-                      passes * 60 * n_c + 90 * n_c)
-        n_ent = topo.corner_inc.cap if topo.corner_inc is not None else 0
-        work["T24"] = ("floor_entries", b_ * (36 * n + 12 * n_ent), b_ * 4 * n_ent)
-        work["T4"] = ("substep_tail", 120 * b_ * n, 25 * b_ * n)
-        print(f"phase 16c: {label}, each stage at B = {b_} against {b_} launches at B = 1"
-              f" ({n_c} live contacts over the members; {smi})")
-        for stage in names:
-            if stage not in calls:
-                continue
-            fn, args = calls[stage]
-            row_name, nbytes, ops = work[stage]
-            per = [tuple(member(t, k) for t in args) for k in range(b_)]
-            ms_b = cuda_ms(lambda: fn(*args), 10)
-            ms_1 = cuda_ms(lambda: [fn(*p) for p in per], 3)
-            b_ms, b_by = bound(nbytes, ops)
-            print(f"  {stage}: B = {b_} {ms_b:.4f} ms, {b_} x B = 1 {ms_1:.4f} ms"
-                  f" ({ms_1 / ms_b:.1f}x), bound {b_ms:.4f} ms ({b_by})")
-            for name in (row_name if isinstance(row_name, tuple) else (row_name,)):
-                rows[name].setdefault("ensemble_contacts", {})[f"{stage}, {label}"] = dict(
-                    members=b_, b_ms=ms_b, b1_x_members_ms=ms_1, bound_ms=b_ms, bound_by=b_by)
 
     # 16a: members x tet_cube_drop with the bench's self-contact.
     s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=True, device=dev)
@@ -1862,11 +1989,11 @@ def phase16(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nin
     off._prepare()
     off_states = lifted_ensemble(off.state, members, live)
     ensemble.ensemble_tick_n(off_states, off.topology, off.current_params(), off.config,
-                             tick + 40)
+                             tick + 30)
     check(int(total["contacts"].max()) == 0
           and torch.equal(off_states.positions, states.positions)
           and torch.equal(off_states.velocities, states.velocities),
-          f"16a: no contact in the windows, and after {tick + 40} ticks every member"
+          f"16a: no contact in the windows, and after {tick + 30} ticks every member"
           " bit-equal to the same member stepped without self-contact (15b's path)")
     del off, off_states
     batched_twin("16a at B = 8", first(states, 8), env)
@@ -1976,13 +2103,183 @@ def phase16(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nin
     lap("16e")
 
 
+
+def phase17(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nets12b,
+            members=ENS_NETS, nets_nn=NETS_NN, cloud=ENS_CLOUD, big_members=ENS_BIG):
+    """Phase 17: ensembles on the generic PD path with edge-edge and PD
+    node-node contacts (ROADMAP item 10b-iii): 17a ``members`` x
+    ``edge_nets`` and 17b ``cloud`` (nodes, members) PD node clouds, each
+    timed over three 10-tick windows with 17d (sampled members against
+    their single-scene runs) inside; 17c every stage of those paths at B =
+    3 against its twins' member loop (on 17a's state in both quirk modes,
+    17b's, and the tet boxes with all three contact families under
+    recentered coupling) and timed at B against as many launches at B = 1
+    on 17a's and 17b's states and at B = ``big_members`` on ``nets12b``
+    (phase 12b's full-width nets: ``(state, topology, params, config,
+    live nodes)``); 17d one tick of 8 members against the batched twin and
+    a pre-latched member with edge-edge and node-node contacts on."""
+    import torch
+
+    from pies_tpu_torch.parallel import ensemble
+    from pies_tpu_torch.scene.contact_piles import branch_scene, jittered_ensemble
+    from pies_tpu_torch.scene.edge_nets import nets_ensemble
+    from pies_tpu_torch.scene.pbd_scenes import cloud_ensemble
+    from pies_tpu_torch.solver import pd, tetcols
+    from pies_tpu_torch.state import member, unstack
+
+    ck = EnsembleChecks(dev, smi, rows, launches, reset_launches, read_launches, "17")
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        print(f"  ({what}: {time.perf_counter() - t_phase:.1f} s into phase 17)")
+
+    def per_member(total, keys):
+        return "; ".join(f"{k} {total[k].tolist()}" for k in keys)
+
+    edge_stages = ["T16 edges", "T25", "T26 setup", "T9 stage 2", "T10", "T8"]
+    node_stages = ["T20", "T27 setup", "T9 stage 2", "T27 friction", "T4"]
+
+    # 17a: members x edge_nets at the bench's size.
+    s, states = nets_ensemble(members, nets_nn, dev)
+    env = (s.topology, s.current_params(), s.config)
+    topo, params, cfg = env
+    live = s._builder.num_nodes
+    n_tris = int((topo.tri_mask > 0).sum())
+    print(f"phase 17a: {members} x edge_nets (nn = {nets_nn}: {live} nodes and {n_tris}"
+          f" triangles each; {members * live} nodes, {members * n_tris} triangles a tick),"
+          f" edge_nets.solver_args(): contact_coupling {cfg.contact_coupling}, reference_quirks"
+          f" {cfg.reference_quirks}, caps {cfg.budget.max_edge_contacts}; each member jittered"
+          " by ±0.02")
+    check(not tetcols.applies(states, topo, cfg) and pd.ensemble_unported(states, topo, cfg)
+          is None and pd.edge_contact(cfg, topo),
+          "the generic path with edge-edge and point-triangle contacts")
+    # A probe past the window (reruns are bit-identical): each member's first
+    # tick with edge contacts and its latch tick.
+    probe = clone_state(states)
+    first_t = torch.full((members,), -1, dtype=torch.int64, device=dev)
+    latch_t = first_t.clone()
+    for t in range(1, NETS_PROBE + 1):
+        c = pd.new_counters(dev, members)
+        ensemble.ensemble_tick(probe, *env, counters=c)
+        first_t = torch.where((first_t < 0) & (c["edge_contacts"] > 0), t, first_t)
+        latch_t = torch.where((latch_t < 0) & (probe.sim_failed != 0).any(-1), t, latch_t)
+    first_l, latch_l = first_t.tolist(), latch_t.tolist()
+    del probe
+    end = min([t for t in latch_l if t > 0], default=NETS_PROBE + 1) - 1
+    start = min(NETS_DENSE - 1, end - 30)
+    print(f"  a probe of {NETS_PROBE} ticks: first edge contacts per member at ticks {first_l};"
+          f" latch ticks per member (-1: none) {latch_l}")
+    check(0 <= start and start + 30 <= end and max(first_l) > 0,
+          f"the window, ticks {start + 1}-{start + 30}, ends before the first latch (tick"
+          f" {end + 1}) and every member has had edge contacts (by tick {max(first_l)})")
+    ensemble.ensemble_tick_n(states, *env, start)
+    lap("17a probe and warm-up")
+    total = ck.windows("17a", states, env, start + 1, ("tri_candidates", "edge_ccd", "edge_terms"),
+                       every=("edge_contacts",),
+                       show=("edge_contacts", "edge_hits", "contacts", "cg_trips"))
+    print("  17a per member over the 30 ticks:"
+          f" {per_member(total, ('edge_contacts', 'edge_hits'))}")
+    ck.batched_twin("17a at B = 8", first_members(states, 8), env)
+    lap("17a")
+
+    # 17b: PD node clouds at the bench's pile size.
+    cloud_n, cloud_members = cloud
+    c_s, cl = cloud_ensemble(cloud_members, cloud_n, dev)
+    c_env = (c_s.topology, c_s.current_params(), c_s.config)
+    print(f"phase 17b: {cloud_members} PD node clouds (add_node_pile, {cloud_n} nodes each, seed"
+          f" 3; {cloud_members * cloud_n} nodes a tick), node-node contacts on, cap"
+          f" {c_env[2].budget.max_node_node_contacts}; each member jittered by ±0.02")
+    check(not tetcols.applies(cl, *c_env[::2]) and pd.ensemble_unported(cl, *c_env[::2]) is None
+          and c_env[2].enable_node_collisions, "the generic path with node-node contacts")
+    seen = torch.zeros(cloud_members, dtype=torch.bool, device=dev)
+    for tick in range(1, 41):
+        c = pd.new_counters(dev, cloud_members)
+        ensemble.ensemble_tick(cl, *c_env, counters=c)
+        seen |= c["touching_pairs"] > 0
+        if bool(seen.all()):
+            break
+    check(bool(seen.all()) and not bool(cl.sim_failed.any()),
+          f"every member has touching pairs by tick {tick}, none latched")
+    total = ck.windows("17b", cl, c_env, tick + 1, ("node_pairs", "node_contacts"),
+                       every=("node_pairs", "touching_pairs"),
+                       show=("node_pairs", "touching_pairs", "cg_trips", "floor_active"))
+    print(f"  17b per member over the 30 ticks: {per_member(total, ('touching_pairs',))}")
+    ck.batched_twin("17b at B = 8", first_members(cl, 8), c_env)
+    lap("17b")
+
+    # 17c: every stage against the twins at B = 3 and B = 1, and timed.
+    ck.stage_checks("17a's state (edge_nets, full coupling)", states, env,
+                    count=("edge detection", 2))
+    q_env = env[:2] + (dataclasses.replace(cfg, reference_quirks=True),)
+    ck.stage_checks("17a's state in quirk mode (reference_quirks=True)", states, q_env,
+                    count=("edge detection", 2))
+    ck.stage_checks("17b's state (PD node clouds)", cl, c_env, count=("T27 setup", 0))
+    a_s, a_cfg = branch_scene("all_on", dev)
+    a_env = (a_s.topology, a_s.current_params(), a_cfg)
+    a_states = jittered_ensemble(a_s.state, 4, a_s._builder.num_nodes, seed0=100)
+    ensemble.ensemble_tick_n(a_states, *a_env, ALL_ON_WARM)
+    reset_launches()
+    c = pd.new_counters(dev, 4)
+    ensemble.ensemble_tick(clone_state(a_states), *a_env, counters=c)
+    torch.cuda.synchronize()
+    launches["17c all_on"] = read_launches()
+    n = {k: v.tolist() for k, v in c.items()}
+    check(all(min(n[k]) > 0 for k in ("contacts", "edge_contacts", "touching_pairs")),
+          "17c all_on: the tet boxes with point-triangle, edge-edge and node-node contacts,"
+          f" recentered coupling ({a_s._builder.num_nodes} nodes a member), all three live in"
+          f" every member at tick {ALL_ON_WARM + 1}: contacts {n['contacts']}, edge contacts"
+          f" {n['edge_contacts']}, node pairs {n['node_pairs']}, touching {n['touching_pairs']}")
+    ck.stage_checks("all_on (tet boxes, every contact family)", a_states, a_env,
+                    count=("edge detection", 2))
+    lap("17c checks")
+    ck.time_stages(f"17a's state ({members} x edge_nets)", states, env, edge_stages,
+                   key="ensemble_edges")
+    ck.time_stages(f"17b's state ({cloud_members} PD node clouds)", cl, c_env, node_stages,
+                   key="ensemble_edges")
+    del states, cl
+    torch.cuda.empty_cache()
+    st12, topo12, params12, cfg12, live12 = nets12b
+    big = jittered_ensemble(st12, big_members, live12, seed0=100)
+    ck.time_stages(f"phase 12b's nets (nn = 256, {live12} nodes a member)", big,
+                   (topo12, params12, cfg12), edge_stages, key="ensemble_edges")
+    del big
+    torch.cuda.empty_cache()
+    lap("17c")
+
+    # 17d: a member latched before the start stays frozen, both families on:
+    # 4 x the 6 x 6 nets with node-node contacts too, recentered coupling,
+    # ticks 1-40 (edge contacts from tick ~15, before the nets' latch).
+    d_s, d4 = nets_ensemble(4, 6, dev, seed0=100, contact_coupling="recentered",
+                            enable_node_collisions=True)
+    d_env = (d_s.topology, d_s.current_params(), d_s.config)
+    d4.sim_failed[2, 0] = 1
+    start_2, others = unstack(d4, 2), [unstack(d4, b) for b in (0, 1, 3)]
+    c = pd.new_counters(dev, 4)
+    ensemble.ensemble_tick_n(d4, *d_env, 40, counters=c)
+    latched = (d4.sim_failed != 0).any(dim=-1).tolist()
+    n = {k: v.tolist() for k, v in c.items()}
+    print(f"phase 17d: 4 x the 6 x 6 nets with node-node contacts, member 2 latched, 40 ticks:"
+          f" latched {latched}, edge contacts {n['edge_contacts']}, node pairs"
+          f" {n['node_pairs']}")
+    check(same_state(member(d4, 2), start_2) and all(n[k][2] == 0 for k in n),
+          "the latched member is bit-unchanged and counts nothing")
+    live3 = [0, 1, 3]
+    check(latched == [False, False, True, False]
+          and all(min(n[k][b] for b in live3) > 0 for k in ("edge_contacts", "node_pairs"))
+          and all(not torch.equal(member(d4, b).positions, o.positions)
+                  for b, o in zip(live3, others))
+          and bool(torch.isfinite(d4.positions).all()),
+          "the others step with edge-edge contacts and node pairs, unlatched and finite")
+    lap("17d")
+
 def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
          cloth_n=CLOTH_N, n_blobs=N_BLOBS, mixed_sheet=MIXED_SHEET, small_sheet=SMALL_SHEET,
          pbd_big=PBD_BIG, pbd_bench=PBD_BENCH, nets_nn=NETS_NN, nets_big=NETS_BIG,
          cloud_n=CLOUD_N, ens_members=ENS_MEMBERS, ens_tets=ENS_TETS, ens_small=ENS_SMALL,
          mesh_res=MESH_RES, mesh_scale=MESH_SCALE, mesh_dump=MESH_BIG, ens_drop=ENS_DROP,
          ens_rope=ENS_ROPE, drop_res=DROP_RES, ens_cloth=ENS_CLOTH, ens_block=ENS_BLOCK,
-         ens_contacts=ENS_DROP, ens_pile=ENS_PILE, contact_res=DROP_RES, pile_boxes=5):
+         ens_contacts=ENS_DROP, ens_pile=ENS_PILE, contact_res=DROP_RES, pile_boxes=5,
+         ens_nets=ENS_NETS, ens_cloud=ENS_CLOUD, ens_big=ENS_BIG):
     import torch
 
     # ---- phase 0
@@ -3889,8 +4186,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     del mesh_5, s, warm
 
     # ---- phase 12: edge-edge and PD node-node contacts (T25-T27)
-    phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches, kernels_vs_twins,
-            nets_nn, nets_big, cloud_n)
+    nets12b = phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches,
+                      kernels_vs_twins, nets_nn, nets_big, cloud_n)
 
     # ---- phase 13: the scene ensemble (T1-T8 with a member axis)
     phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches,
@@ -3910,6 +4207,12 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     # self-contact (T14-T17, T7, T8, T23, T24 with a member axis)
     phase16(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nine_b,
             ens_contacts, ens_pile, contact_res, pile_boxes)
+
+    # ---- phase 17: ensembles on the generic path with edge-edge and node-node
+    # contacts (T20, T25-T27 with a member axis)
+    phase17(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nets12b, ens_nets,
+            nets_nn, ens_cloud, ens_big)
+    del nets12b
 
     table = []
     generic_ens = ("substep_head", "substep_tail", "tet_force_nodes", "ell_matvec", "pcg",
@@ -3960,12 +4263,15 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             if launches["15b"][name] == 0:
                 paths.update({p: launches[p][name] for p in ("15c cloth", "15c soup")})
             r.setdefault("launches_by_path", {}).update(paths)
-        # The generic path's ensembles with self-contact: 16a, 16b and 16c's
-        # other branches and terms, where they reach the kernel.
+        # The generic path's ensembles with self-contact (16a, 16b and 16c's
+        # other branches and terms) and with edge-edge and node-node contacts
+        # (17a, 17b, 17c's tet boxes with all three), where they reach the
+        # kernel.
         key = {"assemble_force_contacts": "tet_force_nodes", "ell_matvec_band": "ell_matvec",
                "assemble_force_cloth": "tet_force_nodes", "ell_matvec_cloth": "ell_matvec",
                "pcg_cloth": "pcg"}.get(name, name)
-        contact_paths = {p: launches[p][key] for p in CONTACT_PATHS if launches[p].get(key)}
+        contact_paths = {p: launches[p][key] for p in CONTACT_PATHS + EDGE_PATHS
+                         if launches[p].get(key)}
         if contact_paths:
             r.setdefault("launches_by_path", {}).update(contact_paths)
         table.append(r)

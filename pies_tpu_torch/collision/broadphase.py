@@ -38,10 +38,11 @@ hits compacted in the JAX package's chunk-major order).  These branches
 keep no cache.
 
 An ensemble (``x`` f32[B, N, 3], the cache, overflow and results with a
-leading member axis; ROADMAP items 10a and 10b-ii) takes every branch with
-the same launches as one scene: each kernel's ``blockIdx.y`` is the member,
-with its own grid, cache, compactions, counts and latches, and each plain
-twin runs member by member (``state.each_member``).
+leading member axis; ROADMAP items 10a and 10b-ii) takes every branch, and
+the edge-edge detection (T16, T25) and the node-pair prefix (T20; item
+10b-iii), with the same launches as one scene: each kernel's ``blockIdx.y``
+is the member, with its own grid, cache, compactions, counts and latches,
+and each plain twin runs member by member (``state.each_member``).
 
 The JAX package's TPU workarounds are not ported (width tiers, forced
 transposes, one-hot lookups, ``optimization_barrier``); everything runs at
@@ -1350,7 +1351,13 @@ def edge_ccd_plain(x, prev, triangles, cand, count, flags, cap: int, quirks: boo
     ``(a, b | c, d)``.  Returns ``(edge_idx i32[cap, 4], edge_mask f32[cap],
     edge_count i32[1], edge_hits i32[1])``, ``edge_hits`` the hits before
     the cap.  Nothing is found when latch slot 0 is set or T16 filled no
-    slot."""
+    slot.  An ensemble (``x`` f32[B, N, 3], T16's rows, counts and flags
+    and the latch per member) runs member by member: every result with the
+    member axis."""
+    if members_of(x):
+        return each_member(lambda xb, pb, cb, kb, gb, fb: edge_ccd_plain(
+            xb, pb, triangles, cb, kb, gb, cap, quirks, fb), members_of(x), x, prev, cand, count,
+            flags, failed)
     dev = x.device
     edge_idx = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
     edge_mask = torch.zeros(cap, dtype=torch.float32, device=dev)
@@ -1396,28 +1403,33 @@ def edge_ccd(x, prev, triangles, cand, count, flags, cap: int, quirks: bool,
              failed: torch.Tensor | None = None):
     """Kernel T25 on CUDA tensors, :func:`edge_ccd_plain` on CPU tensors
     (same arguments and results; the counts stay on the device).  On the
-    card ``failed`` is required."""
+    card ``failed`` is required; an ensemble is one launch for all
+    members."""
     if kernels.on_cpu(x):
         return edge_ccd_plain(x, prev, triangles, cand, count, flags, cap, quirks, failed)
     if failed is None:
         raise ValueError("the edge CCD kernel needs the failure latch")
-    t, nb = cand.shape
-    if 9 * t * nb >= 1 << 31:
-        raise ValueError("the edge CCD kernel takes fewer than 2^31 lanes")
+    t, nb = cand.shape[-2:]
+    if 9 * t * nb >= 1 << 31:  # (a lane index counts one member's pairs)
+        raise ValueError("the edge CCD kernel takes fewer than 2^31 lanes a member")
     dev = x.device
     kernels.require(dev, x, prev, triangles, cand, count, flags, failed)
+    members = kernels.launch_members(x, failed, prev, cand, count, flags)
+    lead = x.shape[:-2]  # (B,) for an ensemble: every buffer per member
     i32 = dict(dtype=torch.int32, device=dev)
-    bits = torch.empty(t * nb, dtype=torch.int16, device=dev)
-    partial = torch.empty(9 * kernels.scan_partials(t * nb) + 1, **i32)
-    edge_idx = torch.empty((cap, 4), **i32)
-    edge_mask = torch.empty(cap, dtype=torch.float32, device=dev)
-    edge_count = torch.empty(1, **i32)
-    edge_hits = torch.empty(1, **i32)
+    bits = torch.empty(lead + (t * nb,), dtype=torch.int16, device=dev)
+    # Each member's block sums of the nine combos, then the members' totals.
+    partial = torch.empty(members * (9 * kernels.scan_partials(t * nb) + 1), **i32)
+    edge_idx = torch.empty(lead + (cap, 4), **i32)
+    edge_mask = torch.empty(lead + (cap,), dtype=torch.float32, device=dev)
+    edge_count = torch.empty(lead + (1,), **i32)
+    edge_hits = torch.empty(lead + (1,), **i32)
     err = kernels.lib().pies_edge_ccd(
         x.data_ptr(), prev.data_ptr(), triangles.data_ptr(), cand.data_ptr(),
         count.data_ptr(), flags.data_ptr(), bits.data_ptr(), partial.data_ptr(),
         edge_idx.data_ptr(), edge_mask.data_ptr(), edge_count.data_ptr(),
-        edge_hits.data_ptr(), failed.data_ptr(), t, nb, cap, int(quirks), kernels.stream())
+        edge_hits.data_ptr(), failed.data_ptr(), t, nb, cap, int(quirks), x.shape[-2], members,
+        kernels.stream())
     kernels.check(err, "edge_ccd")
     edge_ccd.launches += 1
     return edge_idx, edge_mask, edge_count, edge_hits
@@ -1433,7 +1445,8 @@ def detect_edge_edge_collisions(x, prev, triangles, tri_mask, params: PhysicsPar
     the cell-list candidates (T16 in ``"celllist"`` mode, whatever branch
     the point-triangle detection takes, in ``broadphase_cell`` units), their
     latches ORed into ``overflow``, then T25.  Returns ``(edge_idx,
-    edge_mask, edge_count, edge_hits)``."""
+    edge_mask, edge_count, edge_hits)``, each with the member axis for an
+    ensemble's ``x`` f32[B, N, 3] (T16 and T25 take it)."""
     lay = tri_layout(config, triangles.shape[0], "celllist")
     sc = scalars(params)
     cf, ef = (tri_candidates_plain, edge_ccd_plain) if plain else (tri_candidates, edge_ccd)
@@ -1448,8 +1461,11 @@ def detect_node_node_pairs(x, radius, node_mask, params: PhysicsParams, config: 
     i-major pair prefix of T20, built afresh in a new cache (PD detects
     every substep; the PBD cache ``state.nn`` is not touched), of which the
     first ``min(count, max_node_node_contacts)`` pairs are the contacts
-    (``batches.node_pairs_of``).  Returns the cache."""
-    nn = empty_node_pair_cache(x.shape[0], config.budget.max_candidates_per_node, x.device)
+    (``batches.node_pairs_of``).  Returns the cache, one per member for an
+    ensemble's ``x`` f32[B, N, 3] (every field with the member axis)."""
+    nn = empty_node_pair_cache(x.shape[-2], config.budget.max_candidates_per_node, x.device)
+    if members_of(x):
+        nn = stack_members([nn] * members_of(x))
     (node_pairs_plain if plain else node_pairs)(x, radius, node_mask, nn, params, config,
                                                 failed)
     return nn
@@ -1591,7 +1607,13 @@ def node_pairs_plain(x, radius, node_mask, nn, params: PhysicsParams, config: St
     the pair prefix of :func:`node_pair_prefix`, ``ref = x``, ``fresh = 1``
     and the incidence of :func:`state.pair_incidence`.  Returns the rebuild
     flag i32[1] (also ``nn.rebuilt``); nothing happens when latch slot 0 is
-    set."""
+    set.  An ensemble (``x`` f32[B, N, 3], its cache and latch per member)
+    runs member by member."""
+    if members_of(x):
+        each_member(lambda xb, rb, mb, cb, fb: node_pairs_plain(xb, rb, mb, cb, params, config,
+                                                                fb),
+                    members_of(x), x, radius, node_mask, nn, failed)
+        return nn.rebuilt
     drift = torch.max(torch.abs(x - nn.ref))
     due = (int(failed[0]) == 0
            and (int(nn.fresh[0]) == 0 or bool(drift > NN_CACHE_SLACK)))
@@ -1611,18 +1633,21 @@ def node_pairs_plain(x, radius, node_mask, nn, params: PhysicsParams, config: St
     return nn.rebuilt
 
 
-def node_scratch(n: int, config: StepConfig, device) -> dict[str, torch.Tensor]:
-    """The device scratch of T20 for ``n`` nodes, in one int32 buffer."""
+def node_scratch(n: int, config: StepConfig, device, members: int = 1) -> dict[str, torch.Tensor]:
+    """The device scratch of T20 for ``n`` nodes a member, in one int32
+    buffer: each array holds ``members`` rows of a member's size (the
+    kernel's ``Np::member``), the scans' partials one row per member of the
+    wider scan's."""
     h = node_table_size(n, config)
     s, bw = config.budget.max_cells_per_node, config.budget.max_candidates_per_node
     sizes = dict(count_h=h, cursor=h, start=h + 1, partial=kernels.scan_partials(max(h, 2 * n)),
                  entries=n * s, rows=n * bw, cnt2=2 * n, off2=2 * n + 1, jcur=n, flags=8,
                  big=1 + n * s // (NODE_SMALL_BUCKET + 1))
-    buf = torch.empty(sum(sizes.values()), dtype=torch.int32, device=device)
+    buf = torch.empty(members * sum(sizes.values()), dtype=torch.int32, device=device)
     out, at = {}, 0
     for name, size in sizes.items():
-        out[name] = buf[at: at + size]
-        at += size
+        out[name] = buf[at: at + members * size]
+        at += members * size
     return out
 
 
@@ -1630,7 +1655,8 @@ def node_pairs(x, radius, node_mask, nn, params: PhysicsParams, config: StepConf
                failed) -> torch.Tensor:
     """Kernel T20 on a CUDA tensor (the cache updated on the device, the
     rebuild decided there), :func:`node_pairs_plain` on a CPU tensor.
-    Returns the rebuild flag i32[1]."""
+    Returns the rebuild flag i32[1] (i32[B, 1] for an ensemble, one launch
+    for all members)."""
     if kernels.on_cpu(x):
         return node_pairs_plain(x, radius, node_mask, nn, params, config, failed)
     b = config.budget
@@ -1638,18 +1664,20 @@ def node_pairs(x, radius, node_mask, nn, params: PhysicsParams, config: StepConf
             or b.max_entries_per_cell > NODE_MAX_HEAD):
         raise ValueError(f"T20 takes at most {NODE_MAX_BUDGET} candidates and"
                          f" {NODE_MAX_CELLS} cells per node, {NODE_MAX_HEAD} entries per cell")
-    n = x.shape[0]
-    sc = node_scratch(n, config, x.device)
-    kernels.require(x.device, x, radius, node_mask, failed,
-                    *(getattr(nn, f.name) for f in dataclasses.fields(nn)))
+    n = x.shape[-2]
+    cache = [getattr(nn, f.name) for f in dataclasses.fields(nn)]
+    members = kernels.launch_members(x, failed, radius, node_mask, *cache)
+    if nn.pi.shape[-1] != n * b.max_candidates_per_node or nn.ref.shape[-2] != n:
+        raise ValueError("the node-pair cache does not match the nodes and the budget")
+    sc = node_scratch(n, config, x.device, members)
+    kernels.require(x.device, x, radius, node_mask, failed, *cache)
     err = kernels.lib().pies_node_pairs(
-        x.data_ptr(), radius.data_ptr(), node_mask.data_ptr(),
-        *(getattr(nn, f.name).data_ptr() for f in dataclasses.fields(nn)),
+        x.data_ptr(), radius.data_ptr(), node_mask.data_ptr(), *(t.data_ptr() for t in cache),
         *(sc[k].data_ptr() for k in ("count_h", "cursor", "start", "partial", "entries", "rows",
                                       "cnt2", "off2", "jcur", "flags", "big")),
         failed.data_ptr(), n, b.max_cells_per_node, b.max_entries_per_cell,
         b.max_candidates_per_node, node_table_size(n, config), params.grid_spacing,
-        NN_CACHE_SLACK, kernels.stream())
+        NN_CACHE_SLACK, members, kernels.stream())
     kernels.check(err, "node_pairs")
     node_pairs.launches += 1
     return nn.rebuilt

@@ -65,9 +65,10 @@ wrappers that call them sit beside their plain PyTorch twins:
   ``grid.cuh``), behind ``candidate_occupancy`` and
   ``diagnostics.broadphase_health``
 
-T1-T8 (ROADMAP item 10a), the generic path's T9-T13 and T22 (item 10b-i)
-and its point-triangle contacts and entry-list floor, T14-T17, T23 and T24
-(item 10b-ii), take an ensemble's member axis
+T1-T8 (ROADMAP item 10a), the generic path's T9-T13 and T22 (item 10b-i),
+its point-triangle contacts and entry-list floor, T14-T17, T23 and T24
+(item 10b-ii), and its edge-edge and node-node contacts, T20 and T25-T27
+(item 10b-iii), take an ensemble's member axis
 (``pies_tpu/parallel/ensemble.py``): their last int argument is the member
 count, each launch's ``blockIdx.y`` is the member, and a single scene is
 one member.  The row kernels (T9's
@@ -120,9 +121,9 @@ SIGNATURES = {
     "pies_pt_tail": [_P] * 23 + [_I] * 6 + [_F] * 6 + [_I, _P],
     "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P] + [_I] * 3 + [_P],
     "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 8 + [_I, _F] + [_P] * 3 + [_I]
-    + [_P] * 7 + [_I, _F] + [_P] * 8 + [_I] * 3 + [_P],
+    + [_P] * 7 + [_I, _F, _I] + [_P] * 8 + [_I] * 4 + [_P],
     "pies_ell_matvec": [_P] * 8 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F]
-    + [_P] * 5 + [_I] + [_P] * 7 + [_I, _F, _I, _P],
+    + [_P] * 5 + [_I] + [_P] * 7 + [_I, _F, _I, _I, _P],
     "pies_cg_init": [_P] * 13 + [_I, _P, _I, _P],
     "pies_cg_update": [_P] * 13 + [_I] * 3 + [_F, _P, _I, _P],
     "pies_cg_direction": [_P] * 5 + [_I] * 3 + [_F, _P, _I, _P],
@@ -139,14 +140,14 @@ SIGNATURES = {
     "pies_pbd_tail": [_P] * 6 + [_I] + [_F] * 4 + [_P, _P],
     "pies_pbd_chains": [_P] * 5 + [_I, _I, _P, _P],
     "pies_pbd_color_class": [_P] * 4 + [_I, _I, _P, _P],
-    "pies_node_pairs": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_P],
+    "pies_node_pairs": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_I, _P],
     "pies_node_response": [_P] * 13 + [_I, _F, _F, _P, _P],
     "pies_tet_block_factor": [_P] * 3 + [_I, _P, _I, _P],
     "pies_floor_entries": [_P] * 4 + [_F] + [_P] * 5 + [_I, _I, _P, _I, _P],
-    "pies_edge_ccd": [_P] * 13 + [_I] * 4 + [_P],
-    "pies_edge_setup": [_P] * 23 + [_I] * 3 + [_F, _P],
-    "pies_node_setup": [_P] * 16 + [_I] * 3 + [_F, _P],
-    "pies_node_friction": [_P] * 16 + [_I, _I] + [_F] * 5 + [_P],
+    "pies_edge_ccd": [_P] * 13 + [_I] * 6 + [_P],
+    "pies_edge_setup": [_P] * 23 + [_I] * 4 + [_F, _I, _P],
+    "pies_node_setup": [_P] * 16 + [_I] * 4 + [_F, _I, _P],
+    "pies_node_friction": [_P] * 16 + [_I] * 3 + [_F] * 5 + [_I, _P],
     "pies_constraint_residuals": ([_P] * 3 + [_I]) + ([_P] * 3 + [_I]) * 2
     + ([_P] * 5 + [_I]) * 2 + ([_P] * 3 + [_I]) + [_P] * 5,
     "pies_occupancy": [_P] * 7 + [_I] * 8 + [_F] * 3 + [_P],

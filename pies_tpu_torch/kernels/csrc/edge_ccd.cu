@@ -35,6 +35,16 @@
 // triangles' corners at two times (72 bytes, mostly from L2) and writes a
 // 2-byte word; the nine CCDs are ~2,000 float operations per live pair.
 // Most lanes are empty (a row holds a few candidates of nb = 32 slots).
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b of `members`: its nodes from b*n, its
+// candidate rows and counts (T16's [b]), its gate flags[b*8], lane bits,
+// block partials [b] of [members, 9 nt] and total, its contact buffer [b]
+// of [members, cap, 4] with its count and hits, and its latch (Ec::member).
+// The scan of block sums takes one block per member, gated on that
+// member's filled count, so each member's contact order is a single-scene
+// run's.  A lane index counts one member's pairs; member offsets are
+// 64-bit.  The triangles are shared.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,13 +65,34 @@ struct Ec {
   const int* count;
   const int* flags;
   uint16_t* bits;
-  int* partial;  // [9 nt + 1]
+  int* partial;  // [9 nt] a member: per combo, the block sums
+  int* total;    // the member's hits (the scan's sum)
   int* edge_idx;
   float* edge_mask;
   int* edge_count;
   int* edge_hits;
   const int* failed;
-  int t, nb, cap, pairs, nt, quirks;
+  int t, nb, cap, pairs, nt, quirks, n;
+
+  // The view of member b: every per-member array offset to its row.
+  __device__ __forceinline__ Ec member(int b) const {
+    Ec m = *this;
+    const size_t bb = b;
+    m.x += bb * n * 3;
+    m.prev += bb * n * 3;
+    m.cand += bb * pairs;
+    m.count += bb * t;
+    m.flags += bb * 8;
+    m.bits += bb * pairs;
+    m.partial += bb * 9 * nt;
+    m.total += bb;
+    m.edge_idx += bb * cap * 4;
+    m.edge_mask += bb * cap;
+    m.edge_count += bb;
+    m.edge_hits += bb;
+    m.failed += 2 * bb;
+    return m;
+  }
 };
 
 __device__ __forceinline__ bool gated(const Ec& g) {
@@ -118,7 +149,8 @@ __device__ bool edge_edge_ccd(V3 ab0, V3 ac0, V3 ad0, V3 ab1, V3 ac1, V3 ad1, bo
 }
 
 // (a) the nine tests of a pair.
-__global__ void __launch_bounds__(pies::kBlock) ecc_ccd_kernel(Ec g) {
+__global__ void __launch_bounds__(pies::kBlock) ecc_ccd_kernel(Ec g0) {
+  const Ec g = g0.member(blockIdx.y);
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= g.pairs || gated(g)) return;
   const int r = l / g.nb, slot = l - r * g.nb;
@@ -151,7 +183,8 @@ __global__ void __launch_bounds__(pies::kBlock) ecc_ccd_kernel(Ec g) {
 }
 
 // (b1) each block's hits of each combo.
-__global__ void __launch_bounds__(pies::kBlock) ecc_tile_sums_kernel(Ec g) {
+__global__ void __launch_bounds__(pies::kBlock) ecc_tile_sums_kernel(Ec g0) {
+  const Ec g = g0.member(blockIdx.y);
   if (gated(g)) return;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned bits = l < g.pairs ? g.bits[l] : 0u;
@@ -163,7 +196,8 @@ __global__ void __launch_bounds__(pies::kBlock) ecc_tile_sums_kernel(Ec g) {
 }
 
 // (b3) each hit into its contact slot, decoded.
-__global__ void __launch_bounds__(pies::kBlock) ecc_scatter_kernel(Ec g) {
+__global__ void __launch_bounds__(pies::kBlock) ecc_scatter_kernel(Ec g0) {
+  const Ec g = g0.member(blockIdx.y);
   if (gated(g)) return;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned bits = l < g.pairs ? g.bits[l] : 0u;
@@ -188,9 +222,10 @@ __global__ void __launch_bounds__(pies::kBlock) ecc_scatter_kernel(Ec g) {
 }
 
 // (c) the counts and the empty tail of the contact buffer.
-__global__ void __launch_bounds__(pies::kBlock) ecc_finish_kernel(Ec g) {
+__global__ void __launch_bounds__(pies::kBlock) ecc_finish_kernel(Ec g0) {
+  const Ec g = g0.member(blockIdx.y);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int total = gated(g) ? 0 : g.partial[9 * g.nt];
+  const int total = gated(g) ? 0 : g.total[0];
   const int n = total < g.cap ? total : g.cap;
   if (i == 0) {
     g.edge_count[0] = n;
@@ -208,18 +243,21 @@ extern "C" int pies_edge_ccd(const float* x, const float* prev, const int* tris,
                              const int* cand, const int* count, const int* flags,
                              uint16_t* bits, int* partial, int* edge_idx, float* edge_mask,
                              int* edge_count, int* edge_hits, const int* failed, int t, int nb,
-                             int cap, int quirks, void* stream) {
-  if (t <= 0 || nb <= 0 || cap < 0) return (int)cudaErrorInvalidValue;
+                             int cap, int quirks, int n, int members, void* stream) {
+  if (t <= 0 || nb <= 0 || cap < 0 || n <= 0 || members <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int pairs = t * nb;
   const int nt = pies::tiles(pairs);
-  Ec g{x,         prev,       tris,       cand,   count,   flags, bits, partial, edge_idx,
-       edge_mask, edge_count, edge_hits,  failed, t,       nb,    cap,  pairs,   nt,
-       quirks};
-  ecc_ccd_kernel<<<nt, pies::kBlock, 0, st>>>(g);
-  ecc_tile_sums_kernel<<<nt, pies::kBlock, 0, st>>>(g);
-  pies::scan_partials_kernel<int><<<1, 1024, 0, st>>>(partial, 9 * nt, partial + 9 * nt, flags);
-  ecc_scatter_kernel<<<nt, pies::kBlock, 0, st>>>(g);
-  ecc_finish_kernel<<<pies::tiles(cap), pies::kBlock, 0, st>>>(g);
+  // partial: [members, 9 nt] block sums, then the members' totals [members].
+  int* total = partial + (size_t)members * 9 * nt;
+  Ec g{x,         prev,       tris,       cand,   count,   flags, bits, partial, total,
+       edge_idx,  edge_mask,  edge_count, edge_hits, failed, t,   nb,   cap,     pairs,
+       nt,        quirks,     n};
+  const dim3 lanes(nt, members);
+  ecc_ccd_kernel<<<lanes, pies::kBlock, 0, st>>>(g);
+  ecc_tile_sums_kernel<<<lanes, pies::kBlock, 0, st>>>(g);
+  pies::scan_segments_kernel<int><<<members, 1024, 0, st>>>(partial, 9 * nt, total, 1, flags, 8);
+  ecc_scatter_kernel<<<lanes, pies::kBlock, 0, st>>>(g);
+  ecc_finish_kernel<<<dim3(pies::tiles(cap), members), pies::kBlock, 0, st>>>(g);
   return (int)cudaGetLastError();
 }

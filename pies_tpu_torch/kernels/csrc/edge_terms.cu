@@ -26,6 +26,13 @@
 //
 // Bound: bytes over the live contacts: 16 bytes of indices and the mask
 // per contact, and per incident node its incidence and five diagonals.
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b of `members`: its contacts and count,
+// its nodes' masses and diagonals from b*n, T7's and T27's lists and
+// results, its degree, incidence and diagonal rows and its latch
+// (Es::member); the scan takes one segment per member.  The stiffness
+// diagonal is the shared topology's.
 #include <cuda_runtime.h>
 
 #include "compact.cuh"
@@ -59,8 +66,38 @@ struct Es {
   int* nodes;
   float* ed;
   const int* failed;
-  int n, cap, full;
+  int n, cap, full, nn_width;
   float h2;
+
+  // The view of member b: every per-member array offset to its row.
+  __device__ __forceinline__ Es member(int b) const {
+    Es m = *this;
+    const size_t bb = b, nn = n, c = cap;
+    m.edge_idx += bb * c * 4;
+    m.edge_mask += bb * c;
+    m.count += bb;
+    m.mass += bb * nn;
+    m.wf += bb * nn;
+    m.diag += bb * nn;
+    if (m.static_diag != nullptr) m.static_diag += bb * nn;
+    if (m.pt_start != nullptr) m.pt_start += bb * (nn + 1);
+    if (m.pt_count != nullptr) m.pt_count += bb;
+    if (m.ptd != nullptr) m.ptd += bb * nn;
+    if (m.nn_lim != nullptr) {
+      m.nn_row_off += bb * (nn + 1);
+      m.nn_inc_start += bb * (nn + 1);
+      m.nn_inc_pair += bb * (size_t)nn_width;
+      m.nn_lim += bb;
+      m.nnd += bb * nn;
+    }
+    m.deg += bb * nn;
+    m.row_start += bb * (nn + 1);
+    m.entries += bb * 4 * c;
+    m.nodes += bb * 4 * c;
+    m.ed += bb * nn;
+    m.failed += 2 * bb;
+    return m;
+  }
 };
 
 __device__ __forceinline__ bool live_entry(const Es& p, int t, int* node) {
@@ -70,13 +107,15 @@ __device__ __forceinline__ bool live_entry(const Es& p, int t, int* node) {
   return true;
 }
 
-__global__ void __launch_bounds__(pies::kBlock) es_degree_kernel(Es p) {
+__global__ void __launch_bounds__(pies::kBlock) es_degree_kernel(Es p0) {
+  const Es p = p0.member(blockIdx.y);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   int node;
   if (live_entry(p, t, &node)) atomicAdd(&p.deg[node], 1);
 }
 
-__global__ void __launch_bounds__(pies::kBlock) es_fill_kernel(Es p) {
+__global__ void __launch_bounds__(pies::kBlock) es_fill_kernel(Es p0) {
+  const Es p = p0.member(blockIdx.y);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   int node;
   if (!live_entry(p, t, &node)) return;
@@ -85,7 +124,8 @@ __global__ void __launch_bounds__(pies::kBlock) es_fill_kernel(Es p) {
   p.nodes[pos] = node;
 }
 
-__global__ void __launch_bounds__(pies::kBlock) es_node_kernel(Es p) {
+__global__ void __launch_bounds__(pies::kBlock) es_node_kernel(Es p0) {
+  const Es p = p0.member(blockIdx.y);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (p.failed[0] != 0 || p.count[0] == 0 || t >= p.row_start[p.n]) return;
   const int node = p.nodes[t];
@@ -139,17 +179,17 @@ extern "C" int pies_edge_setup(const int* edge_idx, const float* edge_mask, cons
                                const int* nn_inc_start, const int* nn_inc_pair,
                                const int* nn_lim, const float* nnd, int* deg, int* row_start,
                                int* partial, int* entries, int* nodes, float* ed,
-                               const int* failed, int n, int cap, int full, float h2,
-                               void* stream) {
-  if (n <= 0 || cap < 0) return (int)cudaErrorInvalidValue;
+                               const int* failed, int n, int cap, int full, int nn_width,
+                               float h2, int members, void* stream) {
+  if (n <= 0 || cap < 0 || nn_width < 0 || members <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   Es p{edge_idx,  edge_mask,  count,        mass,        stiffness, wf,      diag,
        static_diag, pt_start, pt_count,     ptd,         nn_row_off, nn_inc_start,
        nn_inc_pair, nn_lim,   nnd,          deg,         row_start, entries, nodes,
-       ed,        failed,     n,            cap,         full,      h2};
-  const int blocks = pies::tiles(4 * cap);
+       ed,        failed,     n,            cap,         full,      nn_width, h2};
+  const dim3 blocks(pies::tiles(4 * cap), members);
   es_degree_kernel<<<blocks, pies::kBlock, 0, s>>>(p);
-  pies::exclusive_scan_i32(deg, row_start, n, partial, s);
+  pies::exclusive_scan_i32(deg, row_start, n, partial, s, nullptr, members);
   es_fill_kernel<<<blocks, pies::kBlock, 0, s>>>(p);
   es_node_kernel<<<blocks, pies::kBlock, 0, s>>>(p);
   return (int)cudaGetLastError();

@@ -23,6 +23,11 @@
 // package's scatters over edge_idx; the stabilization pass sums them in
 // column-major order (a, then i), the order of its scatter over
 // edge_idx.T.  A contact is recomputed by each of its four nodes.
+//
+// Ensembles: the kernels pass member b's view (EdgeTerms::member): its
+// contacts [b] of [members, cap, 4], mask, count, T26's incidence rows [b]
+// of [members, N + 1] and [members, 4 cap], its diagonal and inverse
+// masses, all local to the member.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,6 +51,22 @@ struct EdgeTerms {
   const float* inv_mass;
   int mode;
   float thickness;
+  int cap;  // contact slots of a member
+
+  // Member b's view, for n nodes a member (no-op without contacts).
+  __device__ __forceinline__ EdgeTerms member(int b, int n) const {
+    EdgeTerms m = *this;
+    if (m.edge_idx == nullptr) return m;
+    const size_t bb = b;
+    m.edge_idx += bb * cap * 4;
+    m.edge_mask += bb * cap;
+    m.count += bb;
+    m.row_start += bb * (n + 1);
+    m.entries += bb * 4 * cap;
+    if (m.ed != nullptr) m.ed += bb * n;
+    m.inv_mass += bb * n;
+    return m;
+  }
 };
 
 __device__ __forceinline__ float edge_dot3(const float a[3], const float b[3]) {

@@ -38,8 +38,7 @@
 // at b*N*3, its mass and dense diagonal at b*N, its partials at b*P, its
 // latch at failed[2b], and a CG trip passes b's own gate (cg_reduce.cuh).
 // The point-triangle contacts' blocks under full coupling (T23) are b's own
-// (PtFull::member); the edge contacts' (T26) are single-scene: the wrapper
-// passes them only with one member.
+// (PtFull::member), and so are the edge contacts' (T26, EdgeTerms::member).
 //
 // Bound: device memory.  Per node it reads m neighbour ids and
 // coefficients (8 m bytes), x, mass, the floor and static weights (24
@@ -139,7 +138,7 @@ __global__ void __launch_bounds__(pies::kCgBlock)
     for (int d = 0; d < 3; ++d) yi[d] = yi[d] + acc[d];
     // Full contact coupling (kernel T23, pt_full.cuh): the contacts' blocks.
     if (pt.pt_idx != nullptr) pies::pt_full_add<false>(pt.member(mb, n), x, i, yi);
-    if (et.edge_idx != nullptr) pies::edge_add<false>(et, x, i, yi);  // kernel T26
+    if (et.edge_idx != nullptr) pies::edge_add<false>(et.member(mb, n), x, i, yi);  // T26
 #pragma unroll
     for (int d = 0; d < 3; ++d) y[(size_t)i * 3 + d] = yi[d];
     v = xi[0] * yi[0] + xi[1] * yi[1] + xi[2] * yi[2];
@@ -159,7 +158,7 @@ __global__ void __launch_bounds__(pies::kCgBlock)
 // `pt_idx` non-null (full contact coupling) the contacts' blocks after it,
 // through T7's incidence (`pt_start`, `pt_entries`; each member's own), and
 // with `edge_idx` non-null the edge contacts' blocks after those, through
-// T26's (one member only).
+// T26's (each member's own).
 extern "C" int pies_ell_matvec(const float* x, const float* mass,
                                const float* wf, const float* static_w,
                                const float* band,
@@ -175,13 +174,13 @@ extern "C" int pies_ell_matvec(const float* x, const float* mass,
                                const int* edge_count, const int* e_start,
                                const int* e_entries, const float* ed,
                                const float* e_inv_mass, int e_mode, float e_thickness,
-                               int members, void* stream) {
+                               int e_cap, int members, void* stream) {
   if (n > 0 && members > 0) {
     const dim3 blocks((n + pies::kCgBlock - 1) / pies::kCgBlock, members);
     pies::CgGate gate{trips, prz, prz0, (int)blocks.x, trip, early_exit, rtol2};
     pies::PtFull pt{pt_idx, pt_mask, pt_count, pt_start, pt_entries, cap, 0.0f};
     pies::EdgeTerms et{edge_idx, edge_mask, edge_count, e_start, e_entries, ed,
-                       e_inv_mass, e_mode, e_thickness};
+                       e_inv_mass, e_mode, e_thickness, e_cap};
     if (row_start != nullptr)
       ell_matvec_kernel<true><<<blocks, pies::kCgBlock, 0, (cudaStream_t)stream>>>(
           x, mass, wf, static_w, band, row_start, nbr, coef, m, y, part, n, h2,

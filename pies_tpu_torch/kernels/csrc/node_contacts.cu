@@ -26,6 +26,13 @@
 //
 // Everything returns at once when the failure latch (slot 0) is set.
 //
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b of `members`: its T20 lists (pairs of
+// `width` slots, incidence rows of n + 1), its nodes' masses, radii,
+// positions and diagonals from b*n, T7's incidence and count, its records,
+// impulses, touching count and latch (Ns::member, Nf::member).  The
+// stiffness diagonal is the shared topology's.
+//
 // Bound: bytes.  Setup reads T20's lists (~12 bytes per pair and node);
 // the friction reads two nodes' positions, velocities' inputs and radii
 // per pair (~80 bytes) and writes a 32-byte record, then 12 bytes per node.
@@ -54,11 +61,33 @@ struct Ns {
   int* lim;
   float* nnd;
   const int* failed;
-  int n, cap, recentered;
+  int n, cap, recentered, width;
   float h2;
+
+  __device__ __forceinline__ Ns member(int b) const {
+    Ns m = *this;
+    const size_t bb = b, nn = n, w = width;
+    m.pi += bb * w;
+    m.count += bb;
+    m.row_off += bb * (nn + 1);
+    m.inc_start += bb * (nn + 1);
+    m.inc_pair += bb * w;
+    m.mass += bb * nn;
+    m.wf += bb * nn;
+    m.diag += bb * nn;
+    if (m.static_diag != nullptr) m.static_diag += bb * nn;
+    if (m.pt_start != nullptr) m.pt_start += bb * (nn + 1);
+    if (m.pt_count != nullptr) m.pt_count += bb;
+    if (m.ptd != nullptr) m.ptd += bb * nn;
+    m.lim += bb;
+    m.nnd += bb * nn;
+    m.failed += 2 * bb;
+    return m;
+  }
 };
 
-__global__ void __launch_bounds__(kThreads) node_setup_kernel(Ns p) {
+__global__ void __launch_bounds__(kThreads) node_setup_kernel(Ns p0) {
+  const Ns p = p0.member(blockIdx.y);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (p.failed[0] != 0) {
     if (i == 0) p.lim[0] = 0;
@@ -104,8 +133,30 @@ struct Nf {
   float* imp;
   int* touching;
   const int* failed;
-  int n, rows;
+  int n, rows, width;
   float h, damping, gravity, friction, static_threshold;
+
+  __device__ __forceinline__ Nf member(int b) const {
+    Nf m = *this;
+    const size_t bb = b, nn = n, w = width;
+    m.x += bb * nn * 3;
+    m.prev += bb * nn * 3;
+    m.inv_mass += bb * nn;
+    m.mass += bb * nn;
+    m.mask += bb * nn;
+    m.radius += bb * nn;
+    m.pi += bb * w;
+    m.pj += bb * w;
+    m.row_off += bb * (nn + 1);
+    m.inc_start += bb * (nn + 1);
+    m.inc_pair += bb * w;
+    m.lim += bb;
+    m.rec += bb * rows * 8;
+    m.imp += bb * nn * 3;
+    m.touching += bb;
+    m.failed += 2 * bb;
+    return m;
+  }
 };
 
 // The tail's velocity of a node (pd.base_velocity, T8's velocity()).
@@ -125,7 +176,8 @@ __device__ __forceinline__ float norm3(const float v[3]) {
   return sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
 }
 
-__global__ void __launch_bounds__(kThreads) friction_pair_kernel(Nf p) {
+__global__ void __launch_bounds__(kThreads) friction_pair_kernel(Nf p0) {
+  const Nf p = p0.member(blockIdx.y);
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (p.failed[0] != 0 || q >= p.rows || q >= p.lim[0]) return;
   const int a = p.pi[q], b = p.pj[q];
@@ -160,7 +212,8 @@ __global__ void __launch_bounds__(kThreads) friction_pair_kernel(Nf p) {
   if (touching) atomicAdd(p.touching, 1);
 }
 
-__global__ void __launch_bounds__(kThreads) friction_node_kernel(Nf p) {
+__global__ void __launch_bounds__(kThreads) friction_node_kernel(Nf p0) {
+  const Nf p = p0.member(blockIdx.y);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (p.failed[0] != 0 || i >= p.n) return;
   const int lim = p.lim[0] < p.rows ? p.lim[0] : p.rows;
@@ -188,8 +241,6 @@ __global__ void __launch_bounds__(kThreads) friction_node_kernel(Nf p) {
   for (int d = 0; d < 3; ++d) p.imp[(size_t)i * 3 + d] = acc[d] / c;
 }
 
-__global__ void zero_kernel(int* v) { v[0] = 0; }
-
 inline int blocks(int n) { return n > 0 ? (n + kThreads - 1) / kThreads : 1; }
 
 }  // namespace
@@ -199,12 +250,13 @@ extern "C" int pies_node_setup(const int* pi, const int* count, const int* row_o
                                const float* stiffness, const float* wf, float* diag,
                                float* static_diag, const int* pt_start, const int* pt_count,
                                const float* ptd, int* lim, float* nnd, const int* failed,
-                               int n, int cap, int recentered, float h2, void* stream) {
-  if (n <= 0 || cap < 0) return (int)cudaErrorInvalidValue;
+                               int n, int cap, int recentered, int width, float h2, int members,
+                               void* stream) {
+  if (n <= 0 || cap < 0 || width < 0 || members <= 0) return (int)cudaErrorInvalidValue;
   Ns p{pi,       count,    row_off, inc_start, inc_pair, mass,   stiffness, wf,         diag,
        static_diag, pt_start, pt_count, ptd,   lim,      nnd,    failed,    n,          cap,
-       recentered, h2};
-  node_setup_kernel<<<blocks(n), kThreads, 0, (cudaStream_t)stream>>>(p);
+       recentered, width, h2};
+  node_setup_kernel<<<dim3(blocks(n), members), kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -213,15 +265,16 @@ extern "C" int pies_node_friction(const float* x, const float* prev, const float
                                   const int* pi, const int* pj, const int* row_off,
                                   const int* inc_start, const int* inc_pair, const int* lim,
                                   float* rec, float* imp, int* touching, const int* failed,
-                                  int n, int rows, float h, float damping, float gravity,
-                                  float friction, float static_threshold, void* stream) {
-  if (n <= 0 || rows < 0) return (int)cudaErrorInvalidValue;
+                                  int n, int rows, int width, float h, float damping,
+                                  float gravity, float friction, float static_threshold,
+                                  int members, void* stream) {
+  if (n <= 0 || rows < 0 || width < 0 || members <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   Nf p{x,    prev,  inv_mass, mass, mask,   radius,  pi,       pj,      row_off,
-       inc_start, inc_pair, lim, rec, imp, touching, failed, n, rows, h, damping,
+       inc_start, inc_pair, lim, rec, imp, touching, failed, n, rows, width, h, damping,
        gravity, friction, static_threshold};
-  zero_kernel<<<1, 1, 0, s>>>(touching);
-  if (rows > 0) friction_pair_kernel<<<blocks(rows), kThreads, 0, s>>>(p);
-  friction_node_kernel<<<blocks(n), kThreads, 0, s>>>(p);
+  cudaMemsetAsync(touching, 0, (size_t)members * sizeof(int), s);
+  if (rows > 0) friction_pair_kernel<<<dim3(blocks(rows), members), kThreads, 0, s>>>(p);
+  friction_node_kernel<<<dim3(blocks(n), members), kThreads, 0, s>>>(p);
   return (int)cudaGetLastError();
 }

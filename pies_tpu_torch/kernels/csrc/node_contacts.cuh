@@ -17,6 +17,10 @@
 // friction: the first is the two lists merged by pair, the second the
 // first list then the second.  Every float operation follows the plain
 // twins (collision/batches.py project_node_node, node_friction_pairs).
+//
+// Ensembles: the kernels pass member b's view (NodeTerms::member): its
+// pair lists of `width` slots, incidence rows of N + 1, live count, radii
+// and inverse masses, all local to the member.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,6 +41,23 @@ struct NodeTerms {
   const float* radius;
   const float* inv_mass;
   int cap;
+  int width;  // pair slots of a member's lists (pi, pj, inc_pair)
+
+  // Member b's view, for n nodes a member (no-op without pairs).
+  __device__ __forceinline__ NodeTerms member(int b, int n) const {
+    NodeTerms m = *this;
+    if (m.pi == nullptr) return m;
+    const size_t bb = b, w = width;
+    m.pi += bb * w;
+    m.pj += bb * w;
+    m.row_off += bb * (n + 1);
+    m.inc_start += bb * (n + 1);
+    m.inc_pair += bb * w;
+    m.lim += bb;
+    m.radius += bb * n;
+    m.inv_mass += bb * n;
+    return m;
+  }
 };
 
 // Node n's live pairs: as the first node [*i0, *i1), as the second

@@ -40,6 +40,15 @@
 // Bound: device memory.  A rebuild reads the positions and writes about 27
 // table entries per node plus the pair lists (~16 bytes per pair); a
 // quiescent iteration reads 24 bytes per node.
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b of `members`, with its own nodes
+// (positions, radii, mask from b*n), its own cache (pair lists of n*budget
+// slots, count, ref, fresh, incidence, rebuild word) and its own scratch
+// (hash table, bucket starts, entries, rows, counts, flag words, `big`
+// list), each at b times its single-scene size (Np::member), and its latch
+// failed[2b].  The two scans take one segment per member, gated on the
+// member's rebuild word, so each member's pairs are its single-scene run's.
 #include <cuda_runtime.h>
 
 #include "compact.cuh"
@@ -80,6 +89,41 @@ struct Np {
   const int* failed;
   int n, s, entries_cap, budget, h;
   float spacing, slack;
+
+  // Ints of the `big` list of a member.
+  __host__ __device__ size_t big_stride() const {
+    return 1 + (size_t)n * s / (kSmallBucket + 1);
+  }
+
+  // The view of member b: every per-member array offset to its row.
+  __device__ __forceinline__ Np member(int b) const {
+    Np m = *this;
+    const size_t bb = b, nn = n, w = (size_t)n * budget, hh = h;
+    m.x += bb * nn * 3;
+    m.radius += bb * nn;
+    m.mask += bb * nn;
+    m.pi += bb * w;
+    m.pj += bb * w;
+    m.count += bb;
+    m.ref += bb * nn * 3;
+    m.fresh += bb;
+    m.row_off += bb * (nn + 1);
+    m.inc_start += bb * (nn + 1);
+    m.inc_pair += bb * w;
+    m.rebuilt += bb;
+    m.count_h += bb * hh;
+    m.cursor += bb * hh;
+    m.start += bb * (hh + 1);
+    m.entries += bb * nn * s;
+    m.rows += bb * w;
+    m.cnt2 += bb * 2 * nn;
+    m.off2 += bb * (2 * nn + 1);
+    m.jcur += bb * nn;
+    m.flags += bb * 8;
+    m.big += bb * big_stride();
+    m.failed += 2 * bb;
+    return m;
+  }
 };
 
 // Node i's box in cell units and its range of cells (grid.cuh cell_range).
@@ -99,7 +143,8 @@ __device__ __forceinline__ int node_cells(const Np& g, int i, int base[3], int l
 __device__ __forceinline__ bool gated(const Np& g) { return g.rebuilt[0] == 0; }
 
 // (a)
-__global__ void __launch_bounds__(256) np_drift_kernel(Np g) {
+__global__ void __launch_bounds__(256) np_drift_kernel(Np g0) {
+  const Np g = g0.member(blockIdx.y);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= g.n || g.failed[0] != 0) return;
   bool exceed = false, nan = false;
@@ -114,7 +159,8 @@ __global__ void __launch_bounds__(256) np_drift_kernel(Np g) {
 }
 
 // (b)
-__global__ void __launch_bounds__(256) np_prep_kernel(Np g) {
+__global__ void __launch_bounds__(256) np_prep_kernel(Np g0) {
+  const Np g = g0.member(blockIdx.y);
   const bool due = g.failed[0] == 0 && rebuild_due(g.fresh, g.flags);
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   if (tid == 0) g.rebuilt[0] = due ? 1 : 0;
@@ -131,7 +177,8 @@ __global__ void __launch_bounds__(256) np_prep_kernel(Np g) {
 }
 
 // (c) count, or fill, a live node's cells.
-__global__ void __launch_bounds__(256) np_insert_kernel(Np g, int fill) {
+__global__ void __launch_bounds__(256) np_insert_kernel(Np g0, int fill) {
+  const Np g = g0.member(blockIdx.y);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (gated(g) || i >= g.n || !(g.mask[i] > 0.0f)) return;
   int base[3], len[3];
@@ -145,7 +192,8 @@ __global__ void __launch_bounds__(256) np_insert_kernel(Np g, int fill) {
   }
 }
 
-__global__ void __launch_bounds__(256) np_order_kernel(Np g) {
+__global__ void __launch_bounds__(256) np_order_kernel(Np g0) {
+  const Np g = g0.member(blockIdx.y);
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   if (gated(g) || slot >= g.h) return;
   const int c = g.count_h[slot];
@@ -157,7 +205,8 @@ __global__ void __launch_bounds__(256) np_order_kernel(Np g) {
 
 // A warp per large bucket: its entries_cap smallest entries, ascending, into
 // its first slots (entries are distinct; only those slots are ever read).
-__global__ void __launch_bounds__(32 * kPairWarps) np_order_big_kernel(Np g) {
+__global__ void __launch_bounds__(32 * kPairWarps) np_order_big_kernel(Np g0) {
+  const Np g = g0.member(blockIdx.y);
   __shared__ int s_head[kPairWarps][kMaxHead];
   if (gated(g)) return;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -189,7 +238,8 @@ __global__ void __launch_bounds__(32 * kPairWarps) np_order_big_kernel(Np g) {
 }
 
 // (d) a warp per node.
-__global__ void __launch_bounds__(32 * kPairWarps) np_query_kernel(Np g) {
+__global__ void __launch_bounds__(32 * kPairWarps) np_query_kernel(Np g0) {
+  const Np g = g0.member(blockIdx.y);
   __shared__ int s_off[kPairWarps][kMaxNodeCells];
   __shared__ int s_start[kPairWarps][kMaxNodeCells];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -252,7 +302,8 @@ __global__ void __launch_bounds__(32 * kPairWarps) np_query_kernel(Np g) {
 }
 
 // (f) the pair prefix and the incidence.
-__global__ void __launch_bounds__(256) np_scatter_kernel(Np g) {
+__global__ void __launch_bounds__(256) np_scatter_kernel(Np g0) {
+  const Np g = g0.member(blockIdx.y);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (gated(g) || r >= g.n) return;
   const int n = g.n;
@@ -276,7 +327,8 @@ __global__ void __launch_bounds__(256) np_scatter_kernel(Np g) {
   }
 }
 
-__global__ void __launch_bounds__(256) np_jorder_kernel(Np g) {
+__global__ void __launch_bounds__(256) np_jorder_kernel(Np g0) {
+  const Np g = g0.member(blockIdx.y);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (gated(g) || r >= g.n) return;
   int* e = g.inc_pair + g.inc_start[r];
@@ -301,27 +353,29 @@ extern "C" int pies_node_pairs(const float* x, const float* radius, const float*
                                int* cnt2, int* off2, int* jcur, int* flags, int* big,
                                const int* failed,
                                int n, int s, int entries_cap, int budget, int h, float spacing,
-                               float slack, void* stream) {
+                               float slack, int members, void* stream) {
   if (n <= 0 || s <= 0 || s > kMaxNodeCells || budget <= 0 || budget > 32 || h <= 0 ||
-      entries_cap <= 0 || entries_cap > kMaxHead)
+      entries_cap <= 0 || entries_cap > kMaxHead || members <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Np g{x,      radius, mask,  pi,   pj,   count, ref,   fresh, row_off, inc_start,
        inc_pair, rebuilt, count_h, cursor, start, entries, rows, cnt2, off2, jcur,
        flags,  big,   failed, n,  s,    entries_cap, budget, h,  spacing, slack};
-  cudaMemsetAsync(flags, 0, 2 * sizeof(int), st);
-  np_drift_kernel<<<pies::tiles(n), pies::kBlock, 0, st>>>(g);
+  cudaMemsetAsync(flags, 0, (size_t)members * 8 * sizeof(int), st);
+  const dim3 nodes(pies::tiles(n), members);
+  np_drift_kernel<<<nodes, pies::kBlock, 0, st>>>(g);
   const int wide = h > 2 * n ? h : 2 * n;
   const int prep_blocks = pies::tiles(wide) < 2048 ? pies::tiles(wide) : 2048;
-  np_prep_kernel<<<prep_blocks, pies::kBlock, 0, st>>>(g);
-  np_insert_kernel<<<pies::tiles(n), pies::kBlock, 0, st>>>(g, 0);
-  pies::exclusive_scan_i32(count_h, start, h, partial, st, rebuilt);
-  np_insert_kernel<<<pies::tiles(n), pies::kBlock, 0, st>>>(g, 1);
-  np_order_kernel<<<pies::tiles(h), pies::kBlock, 0, st>>>(g);
-  np_order_big_kernel<<<kBigBlocks, 32 * kPairWarps, 0, st>>>(g);
-  np_query_kernel<<<(n + kPairWarps - 1) / kPairWarps, 32 * kPairWarps, 0, st>>>(g);
-  pies::exclusive_scan_i32(cnt2, off2, 2 * n, partial, st, rebuilt);
-  np_scatter_kernel<<<pies::tiles(n), pies::kBlock, 0, st>>>(g);
-  np_jorder_kernel<<<pies::tiles(n), pies::kBlock, 0, st>>>(g);
+  np_prep_kernel<<<dim3(prep_blocks, members), pies::kBlock, 0, st>>>(g);
+  np_insert_kernel<<<nodes, pies::kBlock, 0, st>>>(g, 0);
+  pies::exclusive_scan_i32(count_h, start, h, partial, st, rebuilt, members, 1);
+  np_insert_kernel<<<nodes, pies::kBlock, 0, st>>>(g, 1);
+  np_order_kernel<<<dim3(pies::tiles(h), members), pies::kBlock, 0, st>>>(g);
+  np_order_big_kernel<<<dim3(kBigBlocks, members), 32 * kPairWarps, 0, st>>>(g);
+  np_query_kernel<<<dim3((n + kPairWarps - 1) / kPairWarps, members), 32 * kPairWarps, 0,
+                    st>>>(g);
+  pies::exclusive_scan_i32(cnt2, off2, 2 * n, partial, st, rebuilt, members, 1);
+  np_scatter_kernel<<<nodes, pies::kBlock, 0, st>>>(g);
+  np_jorder_kernel<<<nodes, pies::kBlock, 0, st>>>(g);
   return (int)cudaGetLastError();
 }

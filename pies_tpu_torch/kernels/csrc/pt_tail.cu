@@ -36,8 +36,9 @@
 // launch's blockIdx.y is the member b, with its nodes from b*n (x, prev,
 // the static projection, the floor flags, the masses, the friction
 // impulse), its contacts, T7's incidence and the records [b] of their
-// [members, ...] arrays, and its latch failed[2b].  Edge contacts exist only
-// off the tet-column path, so only in single scenes (members == 1).
+// [members, ...] arrays, and its latch failed[2b]; with edge contacts (off
+// the tet-column path) also its edge contacts, T26's incidence
+// (EdgeTerms::member) and its edge records [b] of [members, 4 ecap, 4].
 #include <cuda_runtime.h>
 
 #include "compact.cuh"
@@ -86,6 +87,8 @@ __device__ __forceinline__ Pt member_view(Pt p) {
     p.entries += b * 4 * p.cap;
     p.nodes += b * 4 * p.cap;
   }
+  p.edges = p.edges.member(b, p.n);
+  p.erec += b * p.ecap * 16;
   if (p.nn_imp != nullptr) p.nn_imp += b * p.n * 3;
   p.inv_mass += b * p.n;
   p.mass += b * p.n;
@@ -192,7 +195,8 @@ __global__ void __launch_bounds__(pies::kBlock) stab_node_kernel(Pt p0) {
 }
 
 // Per edge contact: its four columns' stabilization records.
-__global__ void __launch_bounds__(pies::kBlock) edge_stab_kernel(Pt p) {
+__global__ void __launch_bounds__(pies::kBlock) edge_stab_kernel(Pt p0) {
+  const Pt p = member_view(p0);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.ecap || p.failed[0] != 0 || i >= p.edges.count[0]) return;
   float r[4][4];
@@ -207,7 +211,8 @@ __global__ void __launch_bounds__(pies::kBlock) edge_stab_kernel(Pt p) {
 // Per node: its edge entries' records summed column by column (the
 // edge_idx.T order), count-averaged into x and prev; then the floor snap
 // at nodes with entries of either kind.
-__global__ void __launch_bounds__(pies::kBlock) edge_node_kernel(Pt p) {
+__global__ void __launch_bounds__(pies::kBlock) edge_node_kernel(Pt p0) {
+  const Pt p = member_view(p0);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n || p.failed[0] != 0) return;
   const pies::EdgeTerms& e = p.edges;
@@ -318,13 +323,12 @@ extern "C" int pies_pt_tail(float* x, float* prev, const float* stat,
                             float thickness, float h, float damping, float gravity,
                             float friction, float static_threshold, int members,
                             void* stream) {
-  if (n <= 0 || cap < 0 || ecap < 0 || members <= 0 || (members > 1 && edge_idx != nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (n <= 0 || cap < 0 || ecap < 0 || members <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const bool pt = pt_idx != nullptr && cap > 0, edge = edge_idx != nullptr && ecap > 0;
   const pies::EdgeTerms edges{edge ? edge_idx : nullptr, edge_mask, edge_count, e_row_start,
                               e_entries, nullptr, inv_mass, quirks ? pies::kEdgeQuirks : 0,
-                              thickness};
+                              thickness, ecap};
   Pt p{x,        prev,     stat,    floor_active, pt_idx,   pt_mask, pt_count, row_start,
        entries,  nodes,    edges,   nn_imp,       inv_mass, mass,    mask,     rec,
        erec,     fric,     failed,  n,            cap,      ecap,    thickness, h,
@@ -337,8 +341,8 @@ extern "C" int pies_pt_tail(float* x, float* prev, const float* stat,
         stab_node_kernel<<<bn, pies::kBlock, 0, s>>>(p);
       }
       if (edge) {
-        edge_stab_kernel<<<pies::tiles(ecap), pies::kBlock, 0, s>>>(p);
-        edge_node_kernel<<<pies::tiles(n), pies::kBlock, 0, s>>>(p);
+        edge_stab_kernel<<<dim3(pies::tiles(ecap), members), pies::kBlock, 0, s>>>(p);
+        edge_node_kernel<<<dim3(pies::tiles(n), members), pies::kBlock, 0, s>>>(p);
       }
     }
   }

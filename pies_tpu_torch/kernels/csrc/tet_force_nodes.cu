@@ -50,8 +50,9 @@
 // [b] of [members, N, 3], its lag ptd, incidence row_start and count at
 // b*N, b*(N+1) and b, T23's contacts and incidence (PtFull::member), and
 // the entry-list floor's static_mask row (FloorEntries::member); the corner
-// incidence is shared.  The edge-edge and node-node terms (T26, T27) are
-// single-scene: the wrappers pass them only with one member.
+// incidence is shared.  So are the edge-edge and node-node terms: T26's
+// contacts and incidence (EdgeTerms::member) and T27's pair lists
+// (NodeTerms::member) are b's own.
 //
 // Bound: device memory.  The function needs the tet ids and 27 parameter
 // floats per tet (124 B; ~77 MB at 622,938 tets) and 52 B per node (x, msn
@@ -138,6 +139,8 @@ __global__ void __launch_bounds__(256)
   }
   full = full.member(mb, n);
   fl = fl.member(mb);
+  et = et.member(mb, n);
+  nt = nt.member(mb, n);
   float f[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -225,19 +228,20 @@ extern "C" int pies_assemble_force(const float* x, const float* msn,
                                    const float* edge_mask, const int* edge_count,
                                    const int* e_start, const int* e_entries, const float* ed,
                                    const float* e_inv_mass, int e_mode, float e_thickness,
-                                   const int* nn_pi, const int* nn_pj, const int* nn_row_off,
-                                   const int* nn_inc_start, const int* nn_inc_pair,
-                                   const int* nn_lim, const float* nn_radius,
-                                   const float* nn_inv_mass, int nn_cap, int stride,
+                                   int e_cap, const int* nn_pi, const int* nn_pj,
+                                   const int* nn_row_off, const int* nn_inc_start,
+                                   const int* nn_inc_pair, const int* nn_lim,
+                                   const float* nn_radius, const float* nn_inv_mass, int nn_cap,
+                                   int nn_width, int stride,
                                    int members, void* stream) {
   if (n > 0 && members > 0) {
     const int threads = 256;
     pies::PtFull full{pt_idx, pt_mask, pt_count, pt_start, pt_entries, cap, thickness};
     pies::FloorEntries fl{corner_start, corner_entries, static_mask, n_entries};
     pies::EdgeTerms et{edge_idx, edge_mask, edge_count, e_start, e_entries, ed,
-                       e_inv_mass, e_mode, e_thickness};
+                       e_inv_mass, e_mode, e_thickness, e_cap};
     pies::NodeTerms nt{nn_pi,  nn_pj,     nn_row_off,  nn_inc_start, nn_inc_pair,
-                       nn_lim, nn_radius, nn_inv_mass, nn_cap};
+                       nn_lim, nn_radius, nn_inv_mass, nn_cap,       nn_width};
     const dim3 grid((n + threads - 1) / threads, members);
     assemble_force_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
         x, msn, pin, wf, row_start, entries, blocks, force, stat, n, stride, plane,

@@ -22,9 +22,13 @@ once its condition fails; and with point-triangle self-contact (item
 10b-ii: ``tet_cube_drop`` with the bench's self-contact, the box piles) in
 every detection branch (super-body T14/T15; all-pairs, cell list, per-body
 and reference T16/T17), under recentered or full coupling (T7's force, or
-T23's blocks) and on either floor (dense, or T24's entry list).  Edge-edge
-and node-node contacts and PBD ensembles raise :class:`NotPortedError`
-naming ROADMAP item 10b-iii.  Several cards (``make_mesh``,
+T23's blocks) and on either floor (dense, or T24's entry list); and with
+edge-edge and PD node-node contacts (item 10b-iii: ``edge_nets``, the PD
+node clouds), alone, together or beside point-triangle self-contact, where
+T16 and T25 detect each member's edge contacts, T26 adds their terms to
+T8, T9 and T10, T20 builds each member's pair prefix and T27 adds the
+pairs' terms and friction.  PBD ensembles raise :class:`NotPortedError`
+naming ROADMAP item 10b-iv.  Several cards (``make_mesh``,
 ``shard_ensemble`` and ``make_sharded_step``'s ``shard_map``) are ROADMAP
 item 11; :func:`ensemble_step` is that step's one-card form, its ``pmax``
 and ``psum`` reductions over the member axis on the device.
@@ -46,12 +50,11 @@ __all__ = ["ensemble_step", "ensemble_tick", "ensemble_tick_n", "stack_ensemble"
 def check_ensemble(states: SolverState, topo: Topology, config: StepConfig) -> None:
     """Raise unless ``states`` is an ensemble whose scene takes a ported
     path: PD on the tet-column path, detection (if any) on packed bodies,
-    or PD on the generic path without edge-edge or node-node contacts
-    (``pd.check_ensemble_path``)."""
+    or PD on the generic path with any contacts (``pd.check_ensemble_path``)."""
     if not states.members:
         raise ValueError("an ensemble's state has a leading member axis (stack_ensemble)")
     if config.solver != SolverName.PD:
-        raise NotPortedError("PBD ensembles are not ported yet: ROADMAP queue 1 item 10b-iii")
+        raise NotPortedError("PBD ensembles are not ported yet: ROADMAP queue 1 item 10b-iv")
     pd.check_ensemble_path(states, topo, config)
 
 

@@ -75,7 +75,9 @@ def branch_scene(kind: str, device="cuda"):
     with the super-body layout switched off), the reference sweep, or full
     coupling on the entry-list floor; or a 24-tet soup at spacing 1.0 off
     the tet-column path under the per-body cell list (``body_nodes = 0``;
-    its tets meet from tick ~32).  Returns ``(solver, config)``, the
+    its tets meet from tick ~32); or (``"all_on"``) the tet boxes with
+    edge-edge and node-node contacts on too (a cap of 4,096 pairs), all
+    three families live from tick ~10.  Returns ``(solver, config)``, the
     solver prepared."""
     import dataclasses
 
@@ -84,7 +86,9 @@ def branch_scene(kind: str, device="cuda"):
 
     kw = dict(super=dict(allpairs_broadphase_max=0), celllist=dict(allpairs_broadphase_max=0),
               reference=dict(broadphase_mode="reference"),
-              full_entry=dict(contact_coupling="full")).get(kind, {})
+              full_entry=dict(contact_coupling="full"),
+              all_on=dict(enable_edge_collisions=True, enable_node_collisions=True,
+                          budget_overrides=dict(max_node_node_contacts=4096))).get(kind, {})
     s = Solver(SolverOptions(), enable_collisions=True, device=device, **kw)
     if kind == "bodies":
         s.create_tet_soup(24, spacing=1.0, scale=0.8, w=2000.0, height=0.5, jitter=0.05)

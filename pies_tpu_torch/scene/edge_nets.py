@@ -8,8 +8,9 @@ every strand of one crosses strands of the other.  Nodes have inverse mass
 lattice cell is two triangles, which the edge-edge detection walks.  The
 bench runs it with ``enable_edge_collisions=True``, ``reference_quirks=
 False``, ``contact_coupling="full"`` and caps of 2,048 contacts
-(:data:`SOLVER_ARGS`); ``nn`` is 24 there (1,152 nodes, 2,116 triangles)
-and 6 at its small size.
+(:func:`solver_args`); ``nn`` is 24 there (1,152 nodes, 2,116
+triangles) and 6 at its small size.  :func:`nets_ensemble` stacks the
+port's nets into a seeded ensemble.
 """
 
 from __future__ import annotations
@@ -61,3 +62,21 @@ def add_crossing_nets(s, nn: int = BENCH_NN):
     _emit_net(s, nn, 1.45, np.pi / 4, pin_corners=False)
     s._dirty = True
     return s
+
+
+def nets_ensemble(members: int, nn: int = BENCH_NN, device="cuda", seed0: int = 0,
+                  **overrides):
+    """A seeded ensemble of the crossing nets on the port: a ``Solver`` with
+    :func:`solver_args` (``overrides`` replace its arguments) and
+    :func:`add_crossing_nets` at ``nn``, prepared, and ``members`` copies of
+    its state, member b's live nodes moved by
+    ``contact_piles.jitter_offsets`` (uniform ±0.02, seed ``seed0 + b``;
+    member 0 as built).  Returns ``(solver, states)``."""
+    from ..options import SolverOptions
+    from ..solver.host import Solver
+    from .contact_piles import jittered_ensemble
+
+    s = add_crossing_nets(Solver(SolverOptions(), device=device,
+                                 **{**solver_args(), **overrides}), nn)
+    s._prepare()
+    return s, jittered_ensemble(s.state, members, s._builder.num_nodes, seed0=seed0)

@@ -10,7 +10,8 @@ pile), at any size, on either package's ``Solver``.
   bare nodes (node-node contact only).  ``h = 4`` at the bench's 8,192
   particles; by default ``h`` grows with the count so that the density, and
   so each grid cell's occupancy, stays the bench's (``h = 16`` at 131,072:
-  16× the floor area).
+  16× the floor area).  :func:`cloud_ensemble` stacks it, under the PD
+  solver with node-node contacts, into a seeded ensemble.
 * :func:`add_net` — the 8 x 8 PBD net of ``tests/test_solver.py:654-672``
   (distance constraints on a lattice, one corner pinned): the colour
   classes' scene.
@@ -44,6 +45,27 @@ def add_node_pile(s, n_particles: int = PILE_BENCH, half: float | None = None):
     pts = rng.uniform([-h, 0.5, -h], [h, 6.0, h], (n_particles, 3)).astype(np.float32)
     s.add_nodes(pts)
     return s
+
+
+def cloud_ensemble(members: int, n_particles: int = PILE_BENCH, device="cuda", seed0: int = 0,
+                   **overrides):
+    """A seeded ensemble of PD node clouds on the port: ``Solver(SolverOptions
+    (solver=PD), enable_collisions=False, enable_node_collisions=True)``
+    with a cap of ``16 · n_particles`` node-node contacts (``overrides``
+    replace these arguments), :func:`add_node_pile`, prepared, and
+    ``members`` copies of its state, member b's nodes moved by
+    ``contact_piles.jitter_offsets`` (uniform ±0.02, seed ``seed0 + b``;
+    member 0 as built).  Returns ``(solver, states)``."""
+    from ..options import SolverName, SolverOptions
+    from ..solver.host import Solver
+    from .contact_piles import jittered_ensemble
+
+    kw = dict(enable_collisions=False, enable_node_collisions=True,
+              budget_overrides=dict(max_node_node_contacts=16 * n_particles))
+    s = add_node_pile(Solver(SolverOptions(solver=SolverName.PD), device=device,
+                             **{**kw, **overrides}), n_particles)
+    s._prepare()
+    return s, jittered_ensemble(s.state, members, n_particles, seed0=seed0)
 
 
 def add_net(s, n: int = 8):

@@ -39,8 +39,9 @@ kernel launches once for all members, and each twin runs member by member
 ``while_loop`` makes it: a member stops at its own trip, and its result is
 its single-scene solve's.  The point-triangle contact terms (T7's force
 and lag, T23's blocks and stacked force) and the entry-list floor's force
-(T24's mask) are per member too (ROADMAP item 10b-ii); the edge-edge and
-node-node terms (T26, T27) stay single-scene (item 10b-iii).
+(T24's mask) are per member too (ROADMAP item 10b-ii), and so are the
+edge-edge and node-node terms (T26's setup, force and blocks, T27's setup
+and force; item 10b-iii).
 """
 
 from __future__ import annotations
@@ -141,7 +142,8 @@ class EdgeTerms:
     """T26's live edge contacts for T8, T9's stage 2 and T10: the
     detection's buffer, its row-major incidence (``e = 4·i + a``), the
     per-node diagonal ``ed`` (the sum of ``w·(AᵀA)ₐₐ`` over the node's
-    entries, written at nodes with entries), and what the terms read."""
+    entries, written at nodes with entries), and what the terms read.  An
+    ensemble's tensors (the incidence's too) have a leading member axis."""
 
     edge_idx: torch.Tensor  # i32[E, 4]
     edge_mask: torch.Tensor  # f32[E]
@@ -160,7 +162,8 @@ class NodeTerms:
     prefix (``state.NodePairCache`` from T20, its incidence ``row_off``,
     ``inc_start``, ``inc_pair``) of which the first ``lim = min(count,
     cap)`` pairs are live, and the per-node diagonal ``nnd`` (written at
-    nodes with live pairs)."""
+    nodes with live pairs).  An ensemble's tensors (the cache's too) have
+    a leading member axis."""
 
     nn: object
     cap: int
@@ -199,7 +202,14 @@ def node_setup_plain(nn, cap: int, mass, radius, inv_mass, topo: Topology, h2: f
     under recentered coupling; ``pd.py:83-99``), in place.  ``pt_inc``,
     ``ptd``, ``pt_count``: T7's incidence, diagonal and contact count (None
     without self-contact; the twin's incidence is empty without contacts,
-    so ``pt_count`` is accepted for signature parity)."""
+    so ``pt_count`` is accepted for signature parity).  An ensemble (``mass``
+    f32[B, N] and every per-node or per-pair argument with the member axis)
+    runs member by member."""
+    if mass.dim() == 2:
+        return each_member(lambda nb, mb, rb, ib, db, wb, fb, sb, pb, qb, cb: node_setup_plain(
+            nb, cap, mb, rb, ib, topo, h2, db, wb, fb, sb, pb, qb, recentered, cb),
+            mass.shape[0], nn, mass, radius, inv_mass, diag, wf, failed, static_diag, pt_inc, ptd,
+            pt_count)
     n = mass.shape[0]
     lim = torch.full((1,), min(int(nn.count[0]), cap), dtype=torch.int32, device=mass.device)
     terms = NodeTerms(nn, cap, lim, torch.zeros_like(mass), radius, inv_mass)
@@ -222,25 +232,31 @@ def node_setup(nn, cap: int, mass, radius, inv_mass, topo: Topology, h2: float, 
                recentered: bool = False, pt_count=None) -> NodeTerms:
     """T27's setup on CUDA tensors, :func:`node_setup_plain` on CPU tensors.
     On the card ``nnd`` is written only at nodes with live pairs, and
-    nothing when ``failed`` slot 0 is set (``lim`` is then 0)."""
+    nothing when ``failed`` slot 0 is set (``lim`` is then 0); an ensemble
+    is one launch for all members."""
     if kernels.on_cpu(mass):
         return node_setup_plain(nn, cap, mass, radius, inv_mass, topo, h2, diag, wf, failed,
                                 static_diag, pt_inc, ptd, recentered, pt_count)
     if failed is None:
         raise ValueError("the node contact kernel needs the failure latch")
     dev = mass.device
-    n = mass.shape[0]
+    n = mass.shape[-1]
     pt_start = pt_inc.row_start if pt_inc is not None else None
-    kernels.require(dev, nn.pi, nn.pj, nn.count, nn.row_off, nn.inc_start, nn.inc_pair, mass,
+    members = kernels.launch_members(nn.ref, failed, nn.pi, nn.count, nn.row_off, nn.inc_start,
+                                     nn.inc_pair, mass, diag, wf, static_diag, pt_start,
+                                     pt_count, ptd)
+    kernels.require(dev, nn.pi, nn.count, nn.row_off, nn.inc_start, nn.inc_pair, mass,
                     topo.stiffness_diag, diag, wf, failed, static_diag, pt_start, pt_count, ptd)
-    lim = torch.empty(1, dtype=torch.int32, device=dev)
-    nnd = torch.empty(n, dtype=torch.float32, device=dev)
+    lead = mass.shape[:-1]
+    lim = torch.empty(lead + (1,), dtype=torch.int32, device=dev)
+    nnd = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     err = kernels.lib().pies_node_setup(
         nn.pi.data_ptr(), nn.count.data_ptr(), nn.row_off.data_ptr(), nn.inc_start.data_ptr(),
         nn.inc_pair.data_ptr(), mass.data_ptr(), topo.stiffness_diag.data_ptr(), wf.data_ptr(),
         diag.data_ptr(), kernels.ptr(static_diag), kernels.ptr(pt_start),
         kernels.ptr(pt_count), kernels.ptr(ptd), lim.data_ptr(), nnd.data_ptr(),
-        failed.data_ptr(), n, cap, int(recentered), h2, kernels.stream())
+        failed.data_ptr(), n, cap, int(recentered), nn.pi.shape[-1], h2, members,
+        kernels.stream())
     kernels.check(err, "node_setup")
     node_terms.launches += 1
     return NodeTerms(nn, cap, lim, nnd, radius, inv_mass)
@@ -255,7 +271,14 @@ def edge_setup_plain(colls: CollisionSet, mass, inv_mass, topo: Topology, h2: fl
     with edge entries, ``diag = ((((m/h² + stiffness) + ptd) + w·(AᵀA)ₐₐ of
     each entry in turn) + nnd) + wf`` (``assembly.py:577-598``) and the
     operator's dense diagonal ``static_diag = (wf + nnd) + (ptd + ed)``
-    (``ptd + ed`` only off full coupling; ``pd.py:83-99``), in place."""
+    (``ptd + ed`` only off full coupling; ``pd.py:83-99``), in place.  An
+    ensemble (``mass`` f32[B, N], ``colls``, ``nodes`` and every per-node
+    argument with the member axis) runs member by member."""
+    if mass.dim() == 2:
+        return each_member(lambda cb, mb, ib, db, wb, fb, sb, pb, qb, nb, kb: edge_setup_plain(
+            cb, mb, ib, topo, h2, db, wb, thickness, quirks, full, fb, sb, pb, qb, nb, kb),
+            mass.shape[0], colls, mass, inv_mass, diag, wf, failed, static_diag, pt_inc, ptd,
+            nodes, pt_count)
     n = mass.shape[0]
     inc = incidence_plain(colls.edge_idx, colls.edge_count, n, row_major=True)
     we = W_EDGE * colls.edge_mask
@@ -285,35 +308,41 @@ def edge_setup(colls: CollisionSet, mass, inv_mass, topo: Topology, h2: float, d
                nodes: NodeTerms | None = None, pt_count=None) -> EdgeTerms:
     """T26's setup on CUDA tensors, :func:`edge_setup_plain` on CPU tensors.
     On the card ``ed`` is written only at nodes with edge entries, and
-    nothing when ``failed`` slot 0 is set."""
+    nothing when ``failed`` slot 0 is set; an ensemble is one launch for
+    all members."""
     if kernels.on_cpu(mass):
         return edge_setup_plain(colls, mass, inv_mass, topo, h2, diag, wf, thickness, quirks,
                                 full, failed, static_diag, pt_inc, ptd, nodes, pt_count)
     if failed is None:
         raise ValueError("the edge contact kernel needs the failure latch")
     dev = mass.device
-    n, cap = mass.shape[0], colls.edge_idx.shape[0]
+    n, cap = mass.shape[-1], colls.edge_idx.shape[-2]
     pt_start = pt_inc.row_start if pt_inc is not None else None
     nn = nodes.nn if nodes is not None else None
     nn_ptrs = ((nn.row_off, nn.inc_start, nn.inc_pair, nodes.lim, nodes.nnd)
                if nodes is not None else (None,) * 5)
+    members = kernels.launch_members(colls.edge_idx, failed, colls.edge_mask, colls.edge_count,
+                                     mass, diag, wf, static_diag, pt_start, pt_count, ptd,
+                                     *nn_ptrs)
     kernels.require(dev, colls.edge_idx, colls.edge_mask, colls.edge_count, mass,
                     topo.stiffness_diag, diag, wf, failed, static_diag, pt_start, pt_count, ptd,
                     *nn_ptrs)
+    lead = mass.shape[:-1]
     i32 = dict(dtype=torch.int32, device=dev)
-    deg = torch.zeros(n, **i32)
-    row_start = torch.empty(n + 1, **i32)
-    partial = torch.empty(kernels.scan_partials(n), **i32)
-    entries = torch.empty(4 * cap, **i32)
-    nodes_of = torch.empty(4 * cap, **i32)
-    ed = torch.empty(n, dtype=torch.float32, device=dev)
+    deg = torch.zeros(lead + (n,), **i32)
+    row_start = torch.empty(lead + (n + 1,), **i32)
+    partial = torch.empty(members * kernels.scan_partials(n), **i32)
+    entries = torch.empty(lead + (4 * cap,), **i32)
+    nodes_of = torch.empty(lead + (4 * cap,), **i32)
+    ed = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     err = kernels.lib().pies_edge_setup(
         colls.edge_idx.data_ptr(), colls.edge_mask.data_ptr(), colls.edge_count.data_ptr(),
         mass.data_ptr(), topo.stiffness_diag.data_ptr(), wf.data_ptr(), diag.data_ptr(),
         kernels.ptr(static_diag), kernels.ptr(pt_start), kernels.ptr(pt_count),
         kernels.ptr(ptd), *(kernels.ptr(t) for t in nn_ptrs), deg.data_ptr(),
         row_start.data_ptr(), partial.data_ptr(), entries.data_ptr(), nodes_of.data_ptr(),
-        ed.data_ptr(), failed.data_ptr(), n, cap, int(full), h2, kernels.stream())
+        ed.data_ptr(), failed.data_ptr(), n, cap, int(full),
+        nn.pi.shape[-1] if nn is not None else 0, h2, members, kernels.stream())
     kernels.check(err, "edge_setup")
     edge_terms.launches += 1
     return EdgeTerms(colls.edge_idx, colls.edge_mask, colls.edge_count,
@@ -453,13 +482,12 @@ def assemble_force_plain(x, msn_h2, wf, blocks, topo: Topology, plane: float,
     terms) + wf·static`` and the floor projection ``static = (x, max(y,
     plane), z)``.  ``failed`` is accepted for signature parity.  An
     ensemble (``x``, ``msn_h2`` f32[B, N, 3], ``wf`` f32[B, N], ``blocks``
-    f32[B, R, 3], and ``pt``, ``full`` and ``floor`` with the member axis;
-    no edge or node-node terms) runs member by member."""
+    f32[B, R, 3], and ``pt``, ``full``, ``floor``, ``edges`` and ``nodes``
+    with the member axis) runs member by member."""
     if members_of(x):
-        _single_scene_terms(edges, nodes)
-        return each_member(lambda xb, mb, wb, bb, pb, fb, lb: assemble_force_plain(
-            xb, mb, wb, bb, topo, plane, None, pb, fb, lb),
-            members_of(x), x, msn_h2, wf, blocks, pt, full, floor)
+        return each_member(lambda xb, mb, wb, bb, pb, fb, lb, eb, nb: assemble_force_plain(
+            xb, mb, wb, bb, topo, plane, None, pb, fb, lb, eb, nb),
+            members_of(x), x, msn_h2, wf, blocks, pt, full, floor, edges, nodes)
     f = msn_h2 + topo.position_force_dense if _pins(topo) else msn_h2
     f = csr_sum(topo.row_inc, blocks, f)
     lag_on = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
@@ -520,9 +548,8 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
         c_start, c_entries = topo.corner_inc.row_start, topo.corner_inc.entries
         smask = floor.static_mask
     members = kernels.launch_members(x, failed, msn_h2, wf, blocks, ptd, contact, pt_start,
-                                     pt_count, pt_idx, pt_mask, pt_entries, smask)
-    if members > 1:
-        _single_scene_terms(edges, nodes)
+                                     pt_count, pt_idx, pt_mask, pt_entries, smask,
+                                     *_terms_arrays(edges, nodes))
     if smask is not None and smask.shape[-1] != c_entries.shape[0]:
         raise ValueError("the floor entries' mask needs a row of corner entries per member")
     kernels.require(x.device, x, msn_h2, pin, wf, inc.row_start, inc.entries, blocks, failed,
@@ -551,37 +578,39 @@ def assemble_force(x, msn_h2, wf, blocks, topo: Topology, plane: float, failed=N
     return force, static
 
 
-def _single_scene_terms(*terms) -> None:
-    """Raise for an ensemble given an edge-edge or node-node contact term
-    (ROADMAP item 10b-iii)."""
-    if any(t is not None for t in terms):
-        raise ValueError("an ensemble's generic path has no edge-edge or node-node contact"
-                         " terms (ROADMAP item 10b-iii)")
+def _terms_arrays(edges: EdgeTerms | None, nodes: NodeTerms | None) -> tuple:
+    """The per-member arrays of the edge and pair terms, for the member
+    axis checks."""
+    e = () if edges is None else (edges.edge_idx, edges.edge_mask, edges.count,
+                                  edges.inc.row_start, edges.inc.entries, edges.ed,
+                                  edges.inv_mass)
+    n = () if nodes is None else (nodes.nn.pi, nodes.nn.pj, nodes.nn.row_off,
+                                  nodes.nn.inc_start, nodes.nn.inc_pair, nodes.lim,
+                                  nodes.radius, nodes.inv_mass)
+    return e + n
 
 
 def _edge_args(device, edges: EdgeTerms | None, force: bool) -> tuple:
     """T26's arguments of T9's stage 2 (``force``) and T10: pointers (null
     without edges, and in T10 off full coupling), then the mode word (1 full
-    coupling, 2 quirks) and the thickness."""
+    coupling, 2 quirks), the thickness and a member's contact slots."""
     if edges is None or not (force or edges.full):
-        return (None,) * 7 + (0, 0.0)
-    t = (edges.edge_idx, edges.edge_mask, edges.count, edges.inc.row_start,
-         edges.inc.entries, edges.ed, edges.inv_mass)
+        return (None,) * 7 + (0, 0.0, 0)
+    t = _terms_arrays(edges, None)
     kernels.require(device, *t)
     mode = int(edges.full) | (2 * int(edges.quirks))
-    return tuple(x.data_ptr() for x in t) + (mode, float(edges.thickness))
+    return tuple(x.data_ptr() for x in t) + (mode, float(edges.thickness),
+                                             edges.edge_idx.shape[-2])
 
 
 def _node_args(device, nodes: NodeTerms | None) -> tuple:
     """T27's arguments of T9's stage 2: pointers (null without pairs), then
-    the cap."""
+    the cap and a member's pair slots."""
     if nodes is None:
-        return (None,) * 8 + (0,)
-    nn = nodes.nn
-    t = (nn.pi, nn.pj, nn.row_off, nn.inc_start, nn.inc_pair, nodes.lim, nodes.radius,
-         nodes.inv_mass)
+        return (None,) * 8 + (0, 0)
+    t = _terms_arrays(None, nodes)
     kernels.require(device, *t)
-    return tuple(x.data_ptr() for x in t) + (nodes.cap,)
+    return tuple(x.data_ptr() for x in t) + (nodes.cap, nodes.nn.pi.shape[-1])
 
 
 assemble_force.launches = 0
@@ -684,11 +713,11 @@ def apply_system_plain(x, mass, wf, h2: float, topo: Topology, part: bool = Fals
     then, with ``edges`` under full coupling, each node's ``w·AᵀA·x`` over
     its edge entries (T26); with ``part`` also the block partials of
     ``x·y``, else None.  An ensemble (``x`` f32[B, N, 3], ``mass`` and ``wf``
-    f32[B, N], ``full`` with the member axis; no edge blocks) runs member
-    by member: partials f32[B, P]."""
+    f32[B, N], ``full`` and ``edges`` with the member axis) runs member by
+    member: partials f32[B, P]."""
     if members_of(x):
-        _single_scene_terms(edges)
-        y, p = zip(*(apply_system_plain(x[b], mass[b], wf[b], h2, topo, part, member(full, b))
+        y, p = zip(*(apply_system_plain(x[b], mass[b], wf[b], h2, topo, part, member(full, b),
+                                        member(edges, b))
                      for b in range(x.shape[0])))
         return torch.stack(y), (torch.stack(p) if part else None)
     y = (_div(mass, h2) + wf)[:, None] * x
@@ -722,9 +751,7 @@ def apply_system(x, mass, wf, h2: float, topo: Topology, failed=None,
     c, inc = (full.colls, full.inc) if full is not None else (None, None)
     pt = ((c.pt_idx, c.pt_mask, c.pt_count, inc.row_start, inc.entries) if full is not None
           else (None,) * 5)
-    members = kernels.launch_members(x, failed, mass, wf, *pt)
-    if members > 1:
-        _single_scene_terms(edges)
+    members = kernels.launch_members(x, failed, mass, wf, *pt, *_terms_arrays(edges, None))
     row_start = topo.csr_start
     if row_start is not None:
         nbr, coef, m = topo.csr_col, topo.csr_val, 0
@@ -788,13 +815,12 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
     i32[1])``: the solution, the block partials of the final ``r·r`` (zero
     when ``failed`` slot 0 is set) and the trips run.  An ensemble (every
     per-node argument with the member axis, ``block`` f32[B, 10, K], ``full``
-    per member; no edge blocks) runs member by member, each with its own
+    and ``edges`` per member) runs member by member, each with its own
     exit: ``(x f32[B, N, 3], prr f32[B, P], trips i32[B, 1])``."""
     if members_of(b):
-        _single_scene_terms(edges)
-        return each_member(lambda bb, xb, db, mb, wb, kb, fb, ob, cb: pcg_solve_plain(
-            bb, xb, db, mb, wb, h2, kb, topo, iterations, rtol, fb, ob, cb),
-            members_of(b), b, x0, diag, mass, wf, mask, failed, block, full)
+        return each_member(lambda bb, xb, db, mb, wb, kb, fb, ob, cb, eb: pcg_solve_plain(
+            bb, xb, db, mb, wb, h2, kb, topo, iterations, rtol, fb, ob, cb, eb),
+            members_of(b), b, x0, diag, mass, wf, mask, failed, block, full, edges)
     dev = b.device
     if failed is not None and bool(failed[0]):
         return (x0.clone(), torch.zeros(-(-b.shape[0] // CG_BLOCK), device=dev),

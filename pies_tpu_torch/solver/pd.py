@@ -52,12 +52,12 @@ runs with the same launches as one member: on the tet-column path T1-T8
 take the member axis (ROADMAP item 10a), on the generic path T3, T9-T13,
 T22 and T4 (item 10b-i), each CG with its own exit per member, and its
 point-triangle contacts in every detection branch and coupling and the
-entry-list floor: T14-T17, T7, T8, T23 and T24 (item 10b-ii).  So the
-launch count of a substep does not depend on the member count, and each
-plain twin loops over the members (``state.each_member``).  Its residual
-and its counters are per member.  An ensemble with edge-edge or node-node
-contacts raises :class:`NotPortedError` (item 10b-iii,
-:func:`check_ensemble_path`).
+entry-list floor: T14-T17, T7, T8, T23 and T24 (item 10b-ii), and its
+edge-edge and node-node contacts: T16 and T25, T26's setup and terms, T8's
+edge pass, T20's pair prefix and T27 (item 10b-iii).  So the launch count
+of a substep does not depend on the member count, and each plain twin
+loops over the members (``state.each_member``).  Its residual and its
+counters are per member.
 """
 
 from __future__ import annotations
@@ -156,33 +156,27 @@ def detect_point_tri(state: SolverState, x: torch.Tensor, topo: Topology,
 def ensemble_unported(state: SolverState, topo: Topology, config: StepConfig) -> str | None:
     """What keeps an ensemble of this scene off the ported PD paths (None if
     nothing does): on the tet-column path self-contact off the packed
-    bodies; on the generic path edge-edge or node-node contacts, whose
-    kernels (T16 and T25, T26, T8's edge pass; T20, T27) are single-scene.
-    Point-triangle self-contact in every detection branch, both couplings
-    and both floors run."""
+    bodies.  The generic path runs every contact: point-triangle
+    self-contact in every detection branch, both couplings and both floors,
+    edge-edge and node-node contacts."""
     if tetcols.applies(state, topo, config):
         packed = (broadphase.tri_mode(config, topo.tri_mask.shape[0]) is None
                   and broadphase.packed(config))
         return None if not self_contact(config, topo) or packed else \
             "self-contact off the packed bodies"
-    off = [name for name, on in (
-        ("edge-edge contacts", edge_contact(config, topo)),
-        ("node-node contacts", config.enable_node_collisions)) if on]
-    return ", ".join(off) or None
+    return None
 
 
 def check_ensemble_path(state: SolverState, topo: Topology, config: StepConfig) -> None:
-    """Raise ``NotPortedError`` (ROADMAP item 10b-iii) for an ensemble whose
-    scene takes a path the port's ensembles do not run
-    (:func:`ensemble_unported`)."""
+    """Raise ``NotPortedError`` for an ensemble whose scene takes a path the
+    port's ensembles do not run (:func:`ensemble_unported`)."""
     why = ensemble_unported(state, topo, config)
     if why is not None:
         from .host import NotPortedError  # (host imports this module)
 
         raise NotPortedError(
             f"ensembles run the tet-column PD path (packed-body detection) and the generic PD"
-            f" path with point-triangle self-contact; this scene has {why}: ROADMAP queue 1"
-            " item 10b-iii")
+            f" path with every contact; this scene has {why}")
 
 
 def substep_head_plain(state: SolverState, topo: Topology, params: PhysicsParams,
@@ -387,14 +381,11 @@ def pt_tail_plain(state: SolverState, params: PhysicsParams, config: StepConfig,
     impulse, ``pd.py:398-402``).  Returns the count-averaged friction
     impulse f32[N, 3] that T4 adds (zero at nodes without point-triangle
     entries).  Does nothing without live contacts, or when latch slot 0 is
-    set.  An ensemble (no edge or node-node contacts) runs member by
-    member."""
+    set.  An ensemble runs member by member."""
     if state.members:
-        if edges is not None or nn_imp is not None:
-            raise ValueError("an ensemble has no edge-edge or node-node contacts")
-        return each_member(lambda s, c, i, xx, sp: pt_tail_plain(s, params, config, c, i, xx, sp,
-                                                                 stages=stages),
-                           state.members, state, colls, inc, x, static_proj)
+        return each_member(lambda s, c, i, xx, sp, e, nb: pt_tail_plain(
+            s, params, config, c, i, xx, sp, e, nb, stages),
+            state.members, state, colls, inc, x, static_proj, edges, nn_imp)
     fric = torch.zeros_like(x)
     pt_live = colls.pt_idx is not None and int(colls.pt_count[0]) > 0
     e_live = edges is not None and int(edges.count[0]) > 0
@@ -452,12 +443,11 @@ def pt_tail(state: SolverState, params: PhysicsParams, config: StepConfig,
                     *pt_t, *e_t, nn_imp, state.inv_mass, state.mass, state.node_mask,
                     state.sim_failed)
     lead = pos.shape[:-2]  # (B,) for an ensemble
-    if lead and (e_on or nn_imp is not None):
-        raise ValueError("an ensemble has no edge-edge or node-node contacts")
+    kernels.launch_members(x, state.sim_failed, *pt_t, *e_t, nn_imp)
     cap = colls.pt_idx.shape[-2] if pt else 0
-    ecap = edges.edge_idx.shape[0] if e_on else 0
+    ecap = edges.edge_idx.shape[-2] if e_on else 0
     per_contact = torch.empty(lead + (cap, 8), dtype=torch.float32, device=pos.device)
-    per_entry = torch.empty((4 * ecap, 4), dtype=torch.float32, device=pos.device)
+    per_entry = torch.empty(lead + (4 * ecap, 4), dtype=torch.float32, device=pos.device)
     fric = torch.empty_like(x)
     h, _ = _h_h2(params)
     err = kernels.lib().pies_pt_tail(
@@ -487,7 +477,11 @@ def node_friction_plain(x: torch.Tensor, state: SolverState, params: PhysicsPara
     pair the impulses at the velocity the tail computes, summed per node in
     the JAX package's ``idx.T`` order and count-averaged.  Returns ``(imp
     f32[N, 3], touching i32[1])``: the impulse (zero at nodes without a
-    touching pair) and the touching pairs."""
+    touching pair) and the touching pairs.  An ensemble (``x`` f32[B, N, 3],
+    ``state``, ``nodes`` and ``failed`` per member) runs member by member."""
+    if members_of(x):
+        return each_member(lambda xb, sb, nb, fb: node_friction_plain(xb, sb, params, nb, fb),
+                           members_of(x), x, state, nodes, failed)
     touching = torch.zeros(1, dtype=torch.int32, device=x.device)
     imp = torch.zeros_like(x)
     if failed is not None and bool(failed[0]):
@@ -506,28 +500,33 @@ def node_friction_plain(x: torch.Tensor, state: SolverState, params: PhysicsPara
 def node_friction(x: torch.Tensor, state: SolverState, params: PhysicsParams, nodes,
                   failed=None):
     """T27's friction stage on a CUDA state, :func:`node_friction_plain` on
-    a CPU state (the count stays on the device)."""
+    a CPU state (the count stays on the device; an ensemble is one launch
+    for all members)."""
     if kernels.on_cpu(x):
         return node_friction_plain(x, state, params, nodes, failed)
     if failed is None:
         raise ValueError("the node contact kernel needs the failure latch")
     nn = nodes.nn
+    members = kernels.launch_members(x, failed, state.prev_positions, state.inv_mass,
+                                     state.mass, state.node_mask, state.radius, nn.pi, nn.pj,
+                                     nn.row_off, nn.inc_start, nn.inc_pair, nodes.lim)
     kernels.require(x.device, x, state.prev_positions, state.inv_mass, state.mass,
                     state.node_mask, state.radius, nn.pi, nn.pj, nn.row_off, nn.inc_start,
                     nn.inc_pair, nodes.lim, failed)
-    cap = nodes.cap
-    rows = min(cap, nn.pi.shape[0])
-    rec = torch.empty((rows, 8), dtype=torch.float32, device=x.device)
+    cap, lead = nodes.cap, x.shape[:-2]
+    rows = min(cap, nn.pi.shape[-1])
+    rec = torch.empty(lead + (rows, 8), dtype=torch.float32, device=x.device)
     imp = torch.empty_like(x)
-    touching = torch.empty(1, dtype=torch.int32, device=x.device)
+    touching = torch.empty(lead + (1,), dtype=torch.int32, device=x.device)
     h, _ = _h_h2(params)
     err = kernels.lib().pies_node_friction(
         x.data_ptr(), state.prev_positions.data_ptr(), state.inv_mass.data_ptr(),
         state.mass.data_ptr(), state.node_mask.data_ptr(), state.radius.data_ptr(),
         nn.pi.data_ptr(), nn.pj.data_ptr(), nn.row_off.data_ptr(), nn.inc_start.data_ptr(),
         nn.inc_pair.data_ptr(), nodes.lim.data_ptr(), rec.data_ptr(), imp.data_ptr(),
-        touching.data_ptr(), failed.data_ptr(), x.shape[0], rows, h, params.damping,
-        params.gravity, params.friction, params.static_friction_threshold, kernels.stream())
+        touching.data_ptr(), failed.data_ptr(), x.shape[-2], rows, nn.pi.shape[-1], h,
+        params.damping, params.gravity, params.friction, params.static_friction_threshold,
+        members, kernels.stream())
     kernels.check(err, "node_friction")
     assembly.node_terms.launches += 1
     return imp, touching
@@ -692,8 +691,8 @@ def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
             counters["contacts"].add_(colls.pt_count[..., 0])
             counters["rebuilds"].add_(colls.rebuilt[..., 0])
     elif edge_on or node_on:
-        colls = CollisionSet(floor_active=active,
-                             overflow=torch.zeros(1, dtype=torch.int32, device=x.device))
+        colls = CollisionSet(floor_active=active, overflow=torch.zeros(
+            x.shape[:-2] + (1,), dtype=torch.int32, device=x.device))
     if edge_on:
         (colls.edge_idx, colls.edge_mask, colls.edge_count,
          colls.edge_hits) = broadphase.detect_edge_edge_collisions(

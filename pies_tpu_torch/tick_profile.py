@@ -12,6 +12,7 @@
     python3 -m pies_tpu_torch.tick_profile --ensemble [members] [repeats]
     python3 -m pies_tpu_torch.tick_profile --ensemble-generic [members] [repeats]
     python3 -m pies_tpu_torch.tick_profile --ensemble-contacts [members] [repeats] [--boxes]
+    python3 -m pies_tpu_torch.tick_profile --ensemble-edges [members] [repeats] [--cloud]
 
 and on the PD scenes any of ``--full`` (``contact_coupling="full"``,
 self-contact on), ``--no-tet-cols`` (a soup off the tet-column path, on
@@ -55,7 +56,12 @@ self-contact off) on the generic path, each member lifted by its own seeded
 offset, or with ``--ensemble-contacts`` phase 16a's: the same with the
 bench's self-contact (the super-body detection), or with ``--boxes`` as
 well phase 16b's: 64 members by default of the box pile, each jittered by
-its own seeded offset (the all-pairs detection).
+its own seeded offset (the all-pairs detection), or with
+``--ensemble-edges`` phase 17a's: 64 members by default of the crossing
+nets at the bench's nn = 24 (``edge_nets.nets_ensemble``: edge-edge
+contacts, full coupling), each jittered, or with ``--cloud`` as well phase
+17b's: 64 PD node clouds of the bench's 8,192 nodes
+(``pbd_scenes.cloud_ensemble``).
 It warms
 up until the window it measures is contact-active: 30 ticks without
 self-contact (the bottom layer reaches the floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
@@ -68,8 +74,10 @@ reach the floor at tick ~42, the pile at once), the nets tick by tick
 until a tick has live edge contacts (each window below then starts from
 that tick's state: the nets latch within a few dozen ticks of it), the
 ensemble 45 ticks as the soup with self-contact, the generic ensemble tick by
-tick until every member has had floor-active nodes, the node cloud not at
-all (its pairs touch from the first tick).  Then:
+tick until every member has had floor-active nodes, the nets' ensemble 47
+ticks (their dense contact phase begins near tick 48; each window starts
+from that state, since members latch at the cap later), the node cloud and
+its ensemble not at all (their pairs touch from the first tick).  Then:
 
 * times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
   ends in a synchronize) and prints each, for the spread;
@@ -93,6 +101,7 @@ from pathlib import Path
 FLOOR_WARMUP, CONTACT_WARMUP, MESH_WARMUP, CLOTH_WARMUP, MIXED_WARMUP = 30, 45, 75, 25, 50
 BOXES_WARMUP = 30
 PBD_WARMUP = 35  # then tick by tick: the ropes reach the floor at tick ~42
+NETS_ENS_WARMUP = 47  # the bench's nets have dense edge contacts from tick ~48
 MESH = Path(__file__).resolve().parent.parent / "scripts" / "refbench" / "tet_cube_mesh_100k.txt"
 
 
@@ -106,17 +115,10 @@ def device_events(prof):
     return [(e, getattr(e, attr)) for e in events]
 
 
-def _clone(state):
-    import dataclasses
-
-    return dataclasses.replace(
-        state, **{f.name: getattr(state, f.name).clone() for f in dataclasses.fields(state)
-                  if getattr(state, f.name) is not None})
-
-
 def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, mixed=False,
          boxes=False, reference=False, rope=False, pile=False, full=False, tet_cols=True,
-         dense_floor=True, nets=False, cloud=False, members=0, drop=False, contacts=False):
+         dense_floor=True, nets=False, cloud=False, members=0, drop=False, contacts=False,
+         edges=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -130,7 +132,9 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    scene = ("the 110k mesh" if mesh else "the 512 x 512 rigged cloth" if cloth
+    scene = (f"an ensemble of {members} PD node clouds of {n_tets} nodes" if edges and cloud
+             else f"an ensemble of {members} crossing nets, nn = {n_tets}" if edges
+             else "the 110k mesh" if mesh else "the 512 x 512 rigged cloth" if cloth
              else "the cloth over the soup" if mixed else "the box pile" if boxes
              else f"the PBD rope fleet, {n_tets} particles" if rope
              else f"the PBD node pile, {n_tets} particles" if pile
@@ -139,6 +143,7 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
              else f"an ensemble of {members} box piles" if members and boxes
              else f"an ensemble of {members} tet_cube_drop meshes" if drop
              else f"an ensemble of {members} 512-tet soups" if members else "the soup")
+    nets = nets or (edges and not cloud)
     collisions = (collisions or mixed or boxes or rope or pile or full or nets
                   or members) and not (cloud or (drop and not contacts))
     mode = "reference" if reference else "celllist"
@@ -172,7 +177,22 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
 
     new_counters = (pbd if rope or pile else pd).new_counters
     states = None
-    if members and boxes:
+    if edges:
+        from .parallel import ensemble
+
+        if cloud:
+            from .scene.pbd_scenes import cloud_ensemble
+
+            s, states = cloud_ensemble(members, n_tets, s.device)
+        else:
+            from .scene.edge_nets import nets_ensemble
+
+            s, states = nets_ensemble(members, n_tets, s.device)
+        env = (s.topology, s.current_params(), s.config)
+        if not cloud:
+            ensemble.ensemble_tick_n(states, *env, NETS_ENS_WARMUP)
+        new_counters = lambda device: pd.new_counters(device, members)  # noqa: E731
+    elif members and boxes:
         from .parallel import ensemble
         from .scene.contact_piles import add_box_pile, jittered_ensemble
 
@@ -215,7 +235,7 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
         env = (s.topology, s.current_params(), s.config)
         ensemble.ensemble_tick_n(states, *env, CONTACT_WARMUP)
         new_counters = lambda device: pd.new_counters(device, members)  # noqa: E731
-    elif nets:
+    elif nets and not members:
         from pies_tpu_torch.scene.edge_nets import add_crossing_nets
 
         add_crossing_nets(s, n_tets)
@@ -226,7 +246,7 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
             if int(c["edge_contacts"]) > 0:
                 break
         print(f"edge contacts from tick {s.ticks}")
-    elif cloud:
+    elif cloud and not members:
         from pies_tpu_torch.scene.pbd_scenes import add_node_pile
 
         add_node_pile(s, n_tets)
@@ -273,11 +293,16 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
         s.run_ticks(CONTACT_WARMUP if collisions else FLOOR_WARMUP)
     # The nets latch within a few dozen ticks of their first contacts, so
     # every window of theirs starts from the state after that tick.
-    start = _clone(s.state) if nets else None
+    from .state import clone_state
+
+    start = clone_state(s.state if states is None else states) if nets else None
 
     def rewind():
-        if start is not None:
-            s._state = _clone(start)
+        nonlocal states
+        if start is not None and states is not None:
+            states = clone_state(start)
+        elif start is not None:
+            s._state = clone_state(start)
 
     def run10(counters=None):
         """10 ticks, then one synchronize."""
@@ -338,6 +363,9 @@ if __name__ == "__main__":
         sys.exit(main(*(args or [131_072]), cloud=True))
     if "--ensemble-generic" in flags:
         sys.exit(main(512, *args[1:2], members=args[0] if args else 64, drop=True))
+    if "--ensemble-edges" in flags:
+        sys.exit(main(8192 if "--cloud" in flags else 24, *args[1:2],
+                      members=args[0] if args else 64, edges=True, cloud="--cloud" in flags))
     if "--ensemble-contacts" in flags:
         sys.exit(main(512, *args[1:2], members=args[0] if args else 64, drop=True, contacts=True,
                       boxes="--boxes" in flags))

@@ -260,6 +260,10 @@ def _count_jax_applies(monkeypatch):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(jasm, "apply_system", counted)
+    # A tick traced earlier in this process for the same configuration and
+    # shapes (another test file's vmapped tick of the same cloth) would be
+    # reused without the callback: trace afresh.
+    jax.clear_caches()
     return calls
 
 

@@ -235,7 +235,7 @@ def test_other_paths_are_not_ported():
     """The generic path with self-contact (``create_sheet`` with collisions
     on) runs as an ensemble (ROADMAP item 10b-ii,
     ``tests/test_torch_ensemble_contacts.py``): it steps, each member as
-    its single-scene run; PBD ensembles are ROADMAP item 10b-iii."""
+    its single-scene run; PBD ensembles are ROADMAP item 10b-iv."""
     s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=True,
                   device="cpu")
     s.create_sheet((0.0, 0.5, 0.0), 0.5, 1.0, 5000.0)
@@ -253,7 +253,7 @@ def test_other_paths_are_not_ported():
                   device="cpu")
     p.create_tet_soup(8, **CONTACT_SCENE)
     p._prepare()
-    with pytest.raises(NotPortedError, match="10b-iii"):
+    with pytest.raises(NotPortedError, match="10b-iv"):
         ensemble.ensemble_tick(stack_ensemble(p.state, 2), p.topology, p.current_params(),
                                p.config)
 

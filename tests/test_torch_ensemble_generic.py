@@ -64,7 +64,6 @@ from pies_tpu_torch.parallel import ensemble
 from pies_tpu_torch.scene.cube_drop import add_cube_drop, lifted_ensemble, member_offsets
 from pies_tpu_torch.scene.rigged_cloth import add_rigged_cloth
 from pies_tpu_torch.solver import assembly, pd, step, tetcols
-from pies_tpu_torch.solver.host import NotPortedError
 from pies_tpu_torch.state import clone_state, member, stack_ensemble, unstack
 from pies_tpu_torch.topology import row_layout
 
@@ -298,9 +297,9 @@ def test_convert_carries_batched_shape_rotations():
 
 
 def test_contact_paths_are_not_ported_in_an_ensemble():
-    """Self-contact and the entry-list floor run in an ensemble (item
-    10b-ii): each steps, its members equal to the single-scene run;
-    edge-edge and node-node contacts stay single-scene (item 10b-iii)."""
+    """Self-contact and the entry-list floor (item 10b-ii) and edge-edge and
+    node-node contacts (item 10b-iii) run in an ensemble: each steps, its
+    members equal to the single-scene run."""
     def steps(s, cfg):
         states = stack_ensemble(s.state, 2)
         single = unstack(states, 0)
@@ -317,12 +316,8 @@ def test_contact_paths_are_not_ported_in_an_ensemble():
         s = pt.Solver(pt.SolverOptions(), device="cpu", **{"enable_collisions": False, **kw})
         s.create_sheet((0.0, 0.5, 0.0), 0.5, 1.0, 5000.0)
         s._prepare()
-        if kw.get("enable_collisions"):
-            steps(s, s.config)
-            continue
-        with pytest.raises(NotPortedError, match="10b-iii"):
-            ensemble.ensemble_tick(stack_ensemble(s.state, 2), s.topology, s.current_params(),
-                                   s.config)
+        assert pd.ensemble_unported(stack_ensemble(s.state, 2), s.topology, s.config) is None
+        steps(s, s.config)
     s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device="cpu")
     add_cube_drop(s, 2)
     s._prepare()

@@ -95,10 +95,14 @@ def build(s, scene):
 
 
 def solvers(scene, **kw):
+    """Both packages' solvers on ``scene``; the JAX one ticks with
+    ``unroll_loops=False`` (the same iterations as a ``fori_loop``, traced
+    once instead of four times: ``pies_tpu/options.py:122-128``)."""
     kw = dict(dict(enable_collisions=True, allpairs_broadphase_max=0), **kw)
-    j = pies_tpu.Solver(JOptions(solver=JName.PD), dense_operator_max=0, **kw)
+    j = build(pies_tpu.Solver(JOptions(solver=JName.PD), dense_operator_max=0, **kw), scene)
+    j._config = dataclasses.replace(j._config, unroll_loops=False)
     t = pt.Solver(pt.SolverOptions(), device="cpu", **kw)
-    return build(j, scene), build(t, scene)
+    return j, build(t, scene)
 
 
 def _np(tree):
