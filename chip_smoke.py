@@ -295,6 +295,34 @@ Phases (any failure exits non-zero, before the result line):
    17b bit-equal to the batched twin, and on 4 x the 6 x 6 nets with
    node-node contacts on too a member latched before the start
    bit-unchanged over 40 ticks.
+18. PBD ensembles (ROADMAP item 10b-iv; T18, T19 and T21 with a member
+   axis, T20's node-pair cache kept per member across ticks), at
+   ``scripts/bench_all.py``'s sizes, each member jittered by ±0.02
+   (``scene/pbd_scenes.py``): 18a 64 x ``rope_pbd`` (16 pinned ropes of
+   128, collisions on: 131,072 nodes a tick; the chain walk), 18b 64 x
+   ``pbd_node_pile`` (8,192 nodes: 524,288 a tick), 18c 64 x
+   ``ensemble_vmap``'s 512-tet soup under the PBD solver, collisions off,
+   ``reference_quirks=False``, strain weight 1.0 (``PBD_SOUP``).  Each is
+   warmed tick by tick until every member has had floor-active nodes (18a,
+   18b: and touching pairs;
+   the per-tick rebuild counts of 18b's members must differ on some tick:
+   one member reuses its cache while another rebuilds in the same launch),
+   then three timed ``ensemble_tick_n(10)`` windows gated on no latch,
+   finite positions, floor-active nodes in every member (18a: touching and
+   live pairs in every member and floor-active nodes in all, since a
+   swinging rope meets the floor now and then; 18b: touching pairs in
+   every member too), the path's kernels launched and launches per tick
+   equal at B = 64 and B = 1, and a traced window.  18d
+   every stage of ``solver/stages.pbd_stages`` at B = 3 (member 1
+   latched) bit-equal to its twins' member loop on the kernels' inputs
+   (bend rows within 1e-6) and B = 1 to the unbatched call, on 18a's,
+   18b's and 18c's states (18c's in both quirk modes), the 8 x 8 net
+   (colour classes) and ``create_bend_sheet``; each stage timed at B = 64
+   against 64 launches at B = 1 on 18a's, 18b's and 18c's states.  18e
+   members 0, 21, 42, 63 bit-equal to their single-scene runs over each
+   window, caches and counters included, and one tick of 8 members of each
+   bit-equal to the batched twin.  18f 4 x ``rope_pbd`` with member 2
+   latched before the start: bit-unchanged over 40 ticks, counting nothing.
 
 The last two lines are the kernel table and the result as JSON objects.
 """
@@ -309,6 +337,10 @@ import time
 N_TETS = 125_000
 SCENE = dict(spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
 DENSE_SCENE = dict(SCENE, spacing=1.0)
+# The soup under PBD (phase 18c): a PBD weight is the fraction of a
+# projection applied, so the PD stiffness 2000 overshoots 2000-fold and the
+# first tick goes non-finite; 1.0 applies each tet's projection in full.
+PBD_SOUP = dict(SCENE, w=1.0)
 FLOOR_WARMUP = 30  # the bench soup's bottom layer reaches the floor at tick ~25
 CONTACT_WARMUP = 45  # its layers start touching at tick ~40
 MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "refbench")
@@ -350,6 +382,8 @@ NETS_DENSE = 48  # the bench's nets have dense edge contacts from tick ~48
 NETS_PROBE = 110  # phase 17a's probe, past the window and the single scene's latch (tick 72)
 ALL_ON_WARM = 10  # the tet boxes have all three contact families live from tick ~10
 EDGE_PATHS = ("17a", "17b", "17c all_on")
+ENS_PBD = 64  # phase 18: members of each PBD ensemble
+PBD_PATHS = ("18a", "18b", "18c")
 # Phase 14: the bench's cube (scripts/bench_all.py:86-97, its +0.5 lift in y
 # applied), meshed at 47 cells across and scaled by 6 (the dump MESH_BIG's
 # geometry; its bottom at y = 3), and at 10 for tet_cube_drop.
@@ -1641,13 +1675,16 @@ ENS_FIELDS = ("positions", "prev_positions", "velocities", "forces", "sim_failed
 
 
 def same_state(a, b):
-    """Two states (or members) bit-equal: the stepped fields and the
-    broadphase cache."""
+    """Two states (or members) bit-equal: the stepped fields, the
+    broadphase cache and the node-pair cache."""
     import torch
 
     ok = all(torch.equal(getattr(a, f), getattr(b, f)) for f in ENS_FIELDS)
-    return ok and (a.bp is None or all(torch.equal(getattr(a.bp, f), getattr(b.bp, f))
-                                       for f in ("pairs", "valid", "ref", "fresh")))
+    ok = ok and (a.bp is None or all(torch.equal(getattr(a.bp, f), getattr(b.bp, f))
+                                     for f in ("pairs", "valid", "ref", "fresh")))
+    return ok and (a.nn is None) == (b.nn is None) and (a.nn is None or all(
+        torch.equal(getattr(a.nn, f.name), getattr(b.nn, f.name))
+        for f in dataclasses.fields(a.nn)))
 
 
 def first_members(states, n):
@@ -1658,16 +1695,26 @@ def first_members(states, n):
 
 
 class EnsembleChecks:
-    """The checks and timings phases 16 and 17 run on an ensemble: timed
-    windows with the sampled members against their single-scene runs
+    """The checks and timings phases 16, 17 and 18 run on an ensemble:
+    timed windows with the sampled members against their single-scene runs
     (:meth:`windows`), one tick against the batched twin
     (:meth:`batched_twin`), each stage of ``solver/stages.contact_stages``
     against its twins (:meth:`stage_checks`) and timed at B against B
     launches at B = 1 (:meth:`time_stages`)."""
 
-    def __init__(self, dev, smi, rows, launches, reset_launches, read_launches, phase):
+    def __init__(self, dev, smi, rows, launches, reset_launches, read_launches, phase,
+                 sampled="d"):
         self.dev, self.smi, self.rows, self.launches = dev, smi, rows, launches
         self.reset, self.read, self.phase = reset_launches, read_launches, phase
+        self.sampled = phase + sampled  # the label of the members' checks
+
+    def counters(self, cfg, members=0):
+        """Zeroed device counters of the configuration's solver (PD or
+        PBD), i64[members] for an ensemble."""
+        from pies_tpu_torch.options import SolverName
+        from pies_tpu_torch.solver import pbd, pd
+
+        return (pbd if cfg.solver == SolverName.PBD else pd).new_counters(self.dev, members)
 
     def windows(self, label, states, env, first_tick, detection, every=("floor_active",),
                 show=("contacts", "rebuilds", "cg_trips", "floor_active")):
@@ -1675,14 +1722,14 @@ class EnsembleChecks:
         with the device counters on, gated on no latch, finite positions,
         the counters ``every`` above 0 in every member over the 30 ticks and
         the ``detection`` kernels launched; then the sampled members
-        against their single-scene runs (the ``d`` checks), the launches at
+        against their single-scene runs (``sampled``'s checks), the launches at
         B = 1 and the third window again, traced.  Returns the counters
         summed over the 30 ticks."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
         from pies_tpu_torch.parallel import ensemble
-        from pies_tpu_torch.solver import pd, step
+        from pies_tpu_torch.solver import step
         from pies_tpu_torch.state import member, stack_ensemble, unstack
         from pies_tpu_torch.tick_profile import device_events
 
@@ -1692,13 +1739,13 @@ class EnsembleChecks:
         sampled = [b for b in ENS_SAMPLED if b < b_]
         starts = {b: unstack(states, b) for b in sampled}
         start = clone_state(states)
-        total = pd.new_counters(dev, b_)
+        total = self.counters(cfg, b_)
         secs = []
         for w in range(3):
             if w == 2:
                 last = clone_state(states)  # (the traced window's start)
             self.reset()
-            c = pd.new_counters(dev, b_)
+            c = self.counters(cfg, b_)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = ensemble.ensemble_tick_n(states, topo, params, cfg, 10, counters=c)
@@ -1727,10 +1774,10 @@ class EnsembleChecks:
               " over the 30 ticks: " + ", ".join(f"{k} {min(n[k])} to {max(n[k])} (mean"
                                                  f" {sum(n[k]) / b_:.1f})" for k in show))
         for b, sb in starts.items():
-            cb = pd.new_counters(dev)
+            cb = self.counters(cfg)
             step.tick_n(sb, topo, params, cfg, 30, counters=cb)
             check(same_state(member(states, b), sb) and all(int(cb[k]) == n[k][b] for k in cb),
-                  f"{self.phase}d: member {b} bit-equal to its single-scene run over the 30 ticks,"
+                  f"{self.sampled}: member {b} bit-equal to its single-scene run over the 30 ticks,"
                   f" cache and counters too ("
                   + ", ".join(f"{k} {int(cb[k])}" for k in show) + ")")
         one = stack_ensemble(unstack(start, 0), 1)
@@ -1763,12 +1810,12 @@ class EnsembleChecks:
         import torch
 
         from pies_tpu_torch.parallel import ensemble
-        from pies_tpu_torch.solver import pd, step
+        from pies_tpu_torch.solver import step
         from pies_tpu_torch.state import member
 
         topo, params, cfg = env
         e, p = clone_state(states), clone_state(states)
-        c, cp = (pd.new_counters(self.dev, states.members) for _ in range(2))
+        c, cp = (self.counters(cfg, states.members) for _ in range(2))
         ensemble.ensemble_tick(e, topo, params, cfg, counters=c)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1778,7 +1825,7 @@ class EnsembleChecks:
         apart = [b for b in range(states.members) if not same_state(member(e, b), member(p, b))]
         sums = {k: int(v.sum()) for k, v in c.items() if v.any()}
         check(not apart and all(torch.equal(c[k], cp[k]) for k in c),
-              f"{self.phase}d: one tick of all {states.members} members of {label} bit-equal to"
+              f"{self.sampled}: one tick of all {states.members} members of {label} bit-equal to"
               f" the batched twin, counters too ({sums}; batched twin {sec * 1e3:.1f} ms;"
               f" apart: {apart})")
 
@@ -2272,6 +2319,237 @@ def phase17(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, net
           "the others step with edge-edge contacts and node pairs, unlatched and finite")
     lap("17d")
 
+def pbd_stage_work(name, states, env, out):
+    """``(row, bytes, operations)`` of a :func:`pbd_stages` call at the
+    ensemble's member count: the bytes moved once (the topology read once,
+    each member's nodes, rows and pairs once) and the float32 operations."""
+    topo, params, cfg = env
+    b_, n = states.members, states.capacity
+    pairs = int(out["T20"].kernel[2].sum()) if "T20" in out else 0
+    k4 = {"position": 1, "distance": 1, "strain": 4, "bend": 4}
+    kind = name.split()[-1]
+    c = getattr(topo, kind).idx.shape[0] if kind in k4 else 0
+    if name.startswith("T18 rows"):
+        shared, per, ops = {"position": (20, 28, 8), "distance": (16, 40, 20),
+                            "strain": (64, 112, 1500), "bend": (24, 128, 200)}[kind]
+        return "pbd_constraints", shared * c + b_ * per * c, b_ * ops * c
+    if name.startswith("T18 apply"):
+        e = c * k4[kind]
+        return "pbd_constraints", 4 * (n + 1) + 4 * e + b_ * (24 * n + 16 * e), b_ * 4 * (e + n)
+    if name == "T19 chains":
+        links, chains = topo.chains.idx0.numel(), topo.chains.idx0.shape[0]
+        return ("pbd_distance_seq", 12 * links + 4 * chains + b_ * (24 * links + 12 * chains),
+                b_ * 45 * links)
+    if name == "T19 colours":
+        c = topo.distance.idx.shape[0]
+        return "pbd_distance_seq", 16 * c + b_ * 36 * c, b_ * 25 * c
+    return {"T18 head": ("pbd_constraints", b_ * 52 * n, b_ * 9 * n),
+            "T18 floor": ("pbd_constraints", b_ * 20 * n, b_ * 3 * n),
+            "T18 tail": ("pbd_constraints", b_ * 68 * n, b_ * 25 * n),
+            "T20 without a rebuild": ("node_pairs", b_ * 24 * n, b_ * 6 * n),
+            "T20 with a rebuild": ("node_pairs", b_ * 128 * n + 16 * pairs, b_ * 64 * n),
+            "T21": ("node_response", b_ * 68 * n + 12 * pairs, 140 * pairs)}[name]
+
+
+def phase18(pt, dev, smi, rows, launches, reset_launches, read_launches, members=ENS_PBD,
+            bench=PBD_BENCH, soup_tets=ENS_TETS, small=4):
+    """Phase 18: PBD ensembles (ROADMAP item 10b-iv): 18a ``members`` x
+    ``rope_pbd`` (``bench[0]`` nodes each), 18b ``members`` x
+    ``pbd_node_pile`` (``bench[1]``), 18c ``members`` x the 512-tet soup
+    (``soup_tets``) under the PBD solver, collisions off, each timed over
+    three 10-tick windows with 18e (sampled members against their
+    single-scene runs, and 8 members against the batched twin) inside; 18d
+    every stage of ``solver/stages.pbd_stages`` at B = 3 against its twins'
+    member loop and B = 1 against the unbatched call on those states, the
+    net and the bend sheet (``small`` members each), and timed at B against
+    B launches at B = 1 on 18a's, 18b's and 18c's states; 18f a pre-latched
+    member of ``small`` ropes frozen over 40 ticks."""
+    import torch
+
+    from pies_tpu_torch.parallel import ensemble
+    from pies_tpu_torch.scene.pbd_scenes import (
+        add_net, pbd_ensemble, pile_ensemble, rope_ensemble)
+    from pies_tpu_torch.solver import pbd
+    from pies_tpu_torch.solver.stages import PBD_ROUNDOFF, PBD_WHOLE, pbd_stages, stages_apart
+    from pies_tpu_torch.state import member, unstack
+
+    ck = EnsembleChecks(dev, smi, rows, launches, reset_launches, read_launches, "18", "e")
+    t_phase = time.perf_counter()
+    show = ("floor_active", "pairs", "touching", "rebuilds")
+    kernels4 = ("pbd_constraints", "pbd_distance_seq", "node_pairs", "node_response")
+
+    def lap(what):
+        print(f"  ({what}: {time.perf_counter() - t_phase:.1f} s into phase 18)")
+
+    def warm(label, states, env, first, keys, least=1, cap=60):
+        """``first`` ticks at once, then tick by tick (at least ``least``)
+        until every member has had each counter of ``keys`` above 0;
+        returns the ticks run and the tick-by-tick part's rebuilds per tick
+        and member."""
+        b_ = states.members
+        if first:
+            ensemble.ensemble_tick_n(states, *env, first)
+        seen = torch.zeros((len(keys), b_), dtype=torch.bool, device=dev)
+        per_tick = []
+        for t in range(1, cap + 1):
+            c = pbd.new_counters(dev, b_)
+            ensemble.ensemble_tick(states, *env, counters=c)
+            for i, k in enumerate(keys):
+                seen[i] |= c[k] > 0
+            per_tick.append(c["rebuilds"])
+            if t >= least and bool(seen.all()):
+                break
+        per_tick = torch.stack(per_tick).tolist()
+        check(bool(seen.all()) and not bool(states.sim_failed.any())
+              and bool(torch.isfinite(states.positions).all()),
+              f"{label}: every member has had {', '.join(keys)} by tick {first + t}, none"
+              " latched, positions finite")
+        return first + t, per_tick
+
+    def stage_checks(label, states, env):
+        """B = 3 (member 1 latched) against the twins' member loop, B = 1
+        against the unbatched call."""
+        st3 = first_members(states, 3)
+        st3.sim_failed[1, 0] = 1
+        out = pbd_stages(st3, *env)
+        torch.cuda.synchronize()
+        apart = stages_apart(out, [0, 2], PBD_WHOLE, PBD_ROUNDOFF)
+        touch = out["T21"].kernel[2][:, 0].tolist() if "T21" in out else None
+        check(not apart and (touch is None or (touch[1] == 0 and max(touch[0], touch[2]) > 0)),
+              f"18d {label}: every stage at B = 3 (member 1 latched) equal to its twins' member"
+              f" loop on the kernels' inputs, bend rows within 1e-6 ({', '.join(out)};"
+              f" touching pairs {touch}; apart: {apart})")
+        one = pbd_stages(first_members(states, 1), *env, twins=False)
+        alone = pbd_stages(unstack(states, 0), *env, twins=False)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a.reshape(b.shape), b) for stage in one
+                  for a, b in zip(one[stage].kernel, alone[stage].kernel)),
+              f"18d {label}: B = 1 equals the unbatched call, every stage")
+
+    def time_stages(label, states, env):
+        """Each kernel call of a ``pbd_stages`` run at B = members against
+        as many launches at B = 1 on the members' views, beside its bound;
+        recorded in the rows under ``ensemble_pbd``."""
+        b_ = states.members
+        out = pbd_stages(states, *env, twins=False)
+        calls = {k: c for stage in out.values() for k, c in stage.calls.items()}
+        torch.cuda.synchronize()
+        print(f"phase 18d: {label}, each stage at B = {b_} against {b_} launches at B = 1 ({smi})")
+        for name, (fn, args) in calls.items():
+            row_name, nbytes, ops = pbd_stage_work(name, states, env, out)
+            per = [tuple(member(t, k) for t in args) for k in range(b_)]
+            ms_b = cuda_ms(lambda: fn(*args), 10)
+            ms_1 = cuda_ms(lambda: [fn(*p) for p in per], 3)
+            b_ms, b_by = bound(nbytes, ops)
+            print(f"  {name}: B = {b_} {ms_b:.4f} ms, {b_} x B = 1 {ms_1:.4f} ms"
+                  f" ({ms_1 / ms_b:.1f}x), bound {b_ms:.4f} ms ({b_by})")
+            rows[row_name].setdefault("ensemble_pbd", {})[f"{name}, {label}"] = dict(
+                members=b_, b_ms=ms_b, b1_x_members_ms=ms_1, bound_ms=b_ms, bound_by=b_by)
+
+    # 18a: members x rope_pbd at the bench's size.
+    s, ropes = rope_ensemble(members, bench[0], dev)
+    r_env = (s.topology, s.current_params(), s.config)
+    print(f"phase 18a: {members} x rope_pbd ({bench[0]} nodes each, {bench[0] // 128} pinned"
+          f" ropes of 128, w 0.9, collisions on; {members * bench[0]} nodes a tick), distance"
+          f" form {'chains' if s.config.distance_chain else 'not chains'}; each member"
+          " jittered by ±0.02")
+    check(s.config.distance_chain and ropes.nn is not None and ropes.nn.pi.shape[0] == members,
+          "the chain walk and a node-pair cache per member")
+    tick, per_tick = warm("18a", ropes, r_env, 35, ("floor_active", "touching"))
+    differ = [t for t, r in enumerate(per_tick) if len(set(r)) > 1]
+    rebuilding = [sum(map(bool, r)) for r in per_tick]
+    print(f"  ticks 36-{tick}: members with a rebuild per tick {rebuilding}; ticks whose rebuild"
+          f" counts differ between members: {len(differ)}")
+    lap("18a warm-up")
+    total = ck.windows("18a", ropes, r_env, tick + 1, kernels4, every=("touching",), show=show)
+    # (a swinging rope meets the floor now and then: floor nodes in all)
+    check(int(total["floor_active"].sum()) > 0 and int(total["pairs"].min()) > 0,
+          f"18a: floor-active nodes over the 30 ticks ({total['floor_active'].tolist()}), live"
+          " pairs in every member")
+    print(f"  18a per member over the 30 ticks: rebuilds {total['rebuilds'].tolist()}")
+    ck.batched_twin("18a at B = 8", first_members(ropes, 8), r_env)
+    lap("18a")
+
+    # 18b: members x pbd_node_pile at the bench's size.
+    p_s, piles = pile_ensemble(members, bench[1], dev)
+    p_env = (p_s.topology, p_s.current_params(), p_s.config)
+    print(f"phase 18b: {members} x pbd_node_pile ({bench[1]} nodes each, seed 3, collisions on;"
+          f" {members * bench[1]} nodes a tick); each member jittered by ±0.02")
+    tick, per_tick = warm("18b", piles, p_env, 0, ("floor_active", "touching"), least=10)
+    differ = [t + 1 for t, r in enumerate(per_tick) if len(set(r)) > 1]
+    check(bool(differ), f"18b: members rebuild their caches on their own iterations: ticks"
+          f" {differ} of 1-{tick} have rebuild counts that differ between members (tick 1:"
+          f" {sorted(set(per_tick[0]))})")
+    lap("18b warm-up")
+    total = ck.windows("18b", piles, p_env, tick + 1, ("pbd_constraints", "node_pairs",
+                                                       "node_response"),
+                       every=("floor_active", "touching"), show=show)
+    print(f"  18b per member over the 30 ticks: rebuilds {total['rebuilds'].tolist()}")
+    ck.batched_twin("18b at B = 8", first_members(piles, 8), p_env)
+    lap("18b")
+
+    # 18c: members x the ensemble_vmap soup under PBD, collisions off.
+    c_s, soups = pbd_ensemble(lambda s_: s_.create_tet_soup(soup_tets, **PBD_SOUP), members, dev,
+                              enable_collisions=False, reference_quirks=False)
+    c_env = (c_s.topology, c_s.current_params(), c_s.config)
+    live = c_s._builder.num_nodes
+    print(f"phase 18c: {members} x the {soup_tets}-tet soup under PBD ({live} nodes each,"
+          f" {members * live} a tick; strain w 1.0, reference_quirks=False, collisions off);"
+          " each member jittered by ±0.02")
+    tick, _ = warm("18c", soups, c_env, 0, ("floor_active",))
+    lap("18c warm-up")
+    ck.windows("18c", soups, c_env, tick + 1, ("pbd_constraints",), every=("floor_active",),
+               show=("floor_active",))
+    ck.batched_twin("18c at B = 8", first_members(soups, 8), c_env)
+    lap("18c")
+
+    # 18d: every stage against the twins, and timed.
+    stage_checks("18a's state (rope_pbd: pins, chains, T20, T21)", ropes, r_env)
+    stage_checks("18b's state (pbd_node_pile: T20, T21)", piles, p_env)
+    stage_checks("18c's state (the soup: strain, reference_quirks=False)", soups, c_env)
+    q_env = c_env[:2] + (dataclasses.replace(c_env[2], reference_quirks=True),)
+    stage_checks("18c's state in quirk mode (reference_quirks=True)", soups, q_env)
+    n_s, nets = pbd_ensemble(add_net, small, dev, enable_collisions=False)
+    n_env = (n_s.topology, n_s.current_params(), n_s.config)
+    ensemble.ensemble_tick_n(nets, *n_env, 5)
+    check(len(n_env[2].distance_colors) > 1, "the net takes the colour classes")
+    stage_checks(f"the 8 x 8 net ({len(n_env[2].distance_colors)} colour classes)", nets, n_env)
+    b_s, sheets = pbd_ensemble(lambda s_: s_.create_bend_sheet((0, 2.0, 0), 0.5, w=0.1), small,
+                               dev, enable_collisions=False)
+    b_env = (b_s.topology, b_s.current_params(), b_s.config)
+    ensemble.ensemble_tick_n(sheets, *b_env, 5)
+    stage_checks(f"create_bend_sheet ({b_s.topology.bend.idx.shape[0]} bends)", sheets, b_env)
+    lap("18d checks")
+    time_stages(f"18a's state ({members} x rope_pbd)", ropes, r_env)
+    time_stages(f"18b's state ({members} x pbd_node_pile)", piles, p_env)
+    time_stages(f"18c's state ({members} PBD soups)", soups, c_env)
+    del ropes, piles, soups
+    torch.cuda.empty_cache()
+    lap("18d")
+
+    # 18f: a member latched before the start stays frozen.
+    f_s, f4 = rope_ensemble(small, bench[0], dev, seed0=100)
+    f_env = (f_s.topology, f_s.current_params(), f_s.config)
+    f4.sim_failed[2, 0] = 1
+    start_2, others = unstack(f4, 2), [unstack(f4, b) for b in range(small) if b != 2]
+    c = pbd.new_counters(dev, small)
+    ensemble.ensemble_tick_n(f4, *f_env, 40, counters=c)
+    latched = (f4.sim_failed != 0).any(dim=-1).tolist()
+    n = {k: v.tolist() for k, v in c.items()}
+    print(f"phase 18f: {small} x rope_pbd, member 2 latched, 40 ticks: latched {latched},"
+          f" counters {n}")
+    check(same_state(member(f4, 2), start_2) and all(n[k][2] == 0 for k in n),
+          "the latched member is bit-unchanged, its cache too, and counts nothing")
+    rest = [b for b in range(small) if b != 2]
+    check(latched == [b == 2 for b in range(small)]
+          and all(min(n[k][b] for b in rest) > 0 for k in ("touching", "rebuilds"))
+          and all(not torch.equal(member(f4, b).positions, o.positions)
+                  for b, o in zip(rest, others))
+          and bool(torch.isfinite(f4.positions).all()),
+          "the others step with touching pairs and cache rebuilds, unlatched and finite")
+    lap("18f")
+
+
 def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
          cloth_n=CLOTH_N, n_blobs=N_BLOBS, mixed_sheet=MIXED_SHEET, small_sheet=SMALL_SHEET,
          pbd_big=PBD_BIG, pbd_bench=PBD_BENCH, nets_nn=NETS_NN, nets_big=NETS_BIG,
@@ -2279,7 +2557,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
          mesh_res=MESH_RES, mesh_scale=MESH_SCALE, mesh_dump=MESH_BIG, ens_drop=ENS_DROP,
          ens_rope=ENS_ROPE, drop_res=DROP_RES, ens_cloth=ENS_CLOTH, ens_block=ENS_BLOCK,
          ens_contacts=ENS_DROP, ens_pile=ENS_PILE, contact_res=DROP_RES, pile_boxes=5,
-         ens_nets=ENS_NETS, ens_cloud=ENS_CLOUD, ens_big=ENS_BIG):
+         ens_nets=ENS_NETS, ens_cloud=ENS_CLOUD, ens_big=ENS_BIG, ens_pbd=ENS_PBD):
     import torch
 
     # ---- phase 0
@@ -4214,6 +4492,11 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             nets_nn, ens_cloud, ens_big)
     del nets12b
 
+    # ---- phase 18: PBD ensembles (T18, T19, T21 with a member axis, T20's
+    # node-pair cache per member across ticks)
+    phase18(pt, dev, smi, rows, launches, reset_launches, read_launches, ens_pbd, pbd_bench,
+            ens_tets)
+
     table = []
     generic_ens = ("substep_head", "substep_tail", "tet_force_nodes", "ell_matvec", "pcg",
                    "constraint_rows", "shape_match", "tet_block")
@@ -4247,6 +4530,9 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             timed = "rope fleet" if name in PBD_ROWS[:2] else "pile"
             r["launches"] = launches["10 " + timed][name]
             r["launches_by_path"] = {c[0]: launches["10 " + c[0]][name] for c in cells}
+            # The PBD ensembles (18a-18c, B = 64), where they reach the kernel.
+            r["launches_by_path"].update({p: launches[p][name] for p in PBD_PATHS
+                                          if launches[p][name]})
         elif name.endswith("_cloth") or name in ("constraint_rows", "shape_match"):
             key = {"assemble_force_cloth": "tet_force_nodes", "ell_matvec_cloth": "ell_matvec",
                    "pcg_cloth": "pcg"}.get(name, name)

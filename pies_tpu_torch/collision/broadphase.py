@@ -40,9 +40,11 @@ keep no cache.
 An ensemble (``x`` f32[B, N, 3], the cache, overflow and results with a
 leading member axis; ROADMAP items 10a and 10b-ii) takes every branch, and
 the edge-edge detection (T16, T25) and the node-pair prefix (T20; item
-10b-iii), with the same launches as one scene: each kernel's ``blockIdx.y``
-is the member, with its own grid, cache, compactions, counts and latches,
-and each plain twin runs member by member (``state.each_member``).
+10b-iii), and the PBD node-node response with each member's pair cache
+kept across ticks (T20, T21; item 10b-iv), with the same launches as one
+scene: each kernel's ``blockIdx.y`` is the member, with its own grid,
+cache, compactions, counts and latches, and each plain twin runs member by
+member (``state.each_member``).
 
 The JAX package's TPU workarounds are not ported (width tiers, forced
 transposes, one-hot lookups, ``optimization_barrier``); everything runs at
@@ -1691,7 +1693,12 @@ def node_response_plain(x, vel, radius, inv_mass, node_mask, nn, params: Physics
     """Plain twin of kernel T21: ``(x + dx·live, vel + dv·live, touching
     i32[1])`` from the cached pairs (:func:`pair_terms` summed per node over
     the cache's incidence).  New tensors; with latch slot 0 set the inputs
-    come back as they are."""
+    come back as they are.  An ensemble (``x`` f32[B, N, 3], its cache and
+    latch per member) runs member by member; touching i32[B, 1]."""
+    if members_of(x):
+        return each_member(lambda xb, vb, rb, ib, mb, cb, fb: node_response_plain(
+            xb, vb, rb, ib, mb, cb, params, fb), members_of(x), x, vel, radius, inv_mass,
+            node_mask, nn, failed)
     touching = torch.zeros(1, dtype=torch.int32, device=x.device)
     if int(failed[0]) != 0:
         return x, vel, touching
@@ -1707,19 +1714,23 @@ def node_response_plain(x, vel, radius, inv_mass, node_mask, nn, params: Physics
 def node_response(x, vel, radius, inv_mass, node_mask, nn, params: PhysicsParams, failed):
     """Kernel T21 on a CUDA tensor, :func:`node_response_plain` on a CPU
     tensor.  On the card the outputs are new buffers and the touching count
-    stays on the device."""
+    stays on the device (i32[B, 1] for an ensemble, one launch for all
+    members; a latched member's outputs are left unwritten and its count
+    is 0)."""
     if kernels.on_cpu(x):
         return node_response_plain(x, vel, radius, inv_mass, node_mask, nn, params, failed)
+    cache = (nn.pi, nn.pj, nn.row_off, nn.inc_start, nn.inc_pair)
+    members = kernels.launch_members(x, failed, vel, radius, inv_mass, node_mask, *cache)
     x_out, vel_out = torch.empty_like(x), torch.empty_like(vel)
-    touching = torch.empty(1, dtype=torch.int32, device=x.device)
-    kernels.require(x.device, x, vel, radius, inv_mass, node_mask, nn.pi, nn.pj, nn.row_off,
-                    nn.inc_start, nn.inc_pair, x_out, vel_out, touching, failed)
+    touching = torch.empty(x.shape[:-2] + (1,), dtype=torch.int32, device=x.device)
+    kernels.require(x.device, x, vel, radius, inv_mass, node_mask, *cache, x_out, vel_out,
+                    touching, failed)
     err = kernels.lib().pies_node_response(
         x.data_ptr(), vel.data_ptr(), radius.data_ptr(), inv_mass.data_ptr(),
         node_mask.data_ptr(), nn.pi.data_ptr(), nn.pj.data_ptr(), nn.row_off.data_ptr(),
         nn.inc_start.data_ptr(), nn.inc_pair.data_ptr(), x_out.data_ptr(), vel_out.data_ptr(),
-        touching.data_ptr(), x.shape[0], params.friction, params.static_friction_threshold,
-        failed.data_ptr(), kernels.stream())
+        touching.data_ptr(), x.shape[-2], nn.pi.shape[-1], params.friction,
+        params.static_friction_threshold, failed.data_ptr(), members, kernels.stream())
     kernels.check(err, "node_response")
     node_response.launches += 1
     return x_out, vel_out, touching
@@ -1736,12 +1747,18 @@ def pbd_node_node_response(state, x, vel, params: PhysicsParams, config: StepCon
     T21 applies the response.  Without a cache (the JAX package's uncached
     form) an empty one stands in, so T20 rebuilds the pairs on every call.  Returns
     ``(x, vel, touching i32[1], rebuilt i32[1])``; the width ladder of the
-    JAX package is not ported: the kernels run over the device's count."""
+    JAX package is not ported: the kernels run over the device's count.  An
+    ensemble (``x`` f32[B, N, 3]) keeps a cache per member, each rebuilt on
+    its own member's drift, as ``vmap`` selects the JAX package's
+    ``lax.cond(rebuild, build, keep)`` per member; the counts are i32[B,
+    1]."""
     failed = state.sim_failed
     args = (state.radius, state.inv_mass, state.node_mask)
     if cache is None:
-        cache = empty_node_pair_cache(x.shape[0], config.budget.max_candidates_per_node,
+        cache = empty_node_pair_cache(x.shape[-2], config.budget.max_candidates_per_node,
                                       x.device)
+        if members_of(x):
+            cache = stack_members([cache] * members_of(x))
     pairs, respond = ((node_pairs_plain, node_response_plain) if plain
                       else (node_pairs, node_response))
     rebuilt = pairs(x, state.radius, state.node_mask, cache, params, config, failed)

@@ -670,7 +670,12 @@ def jacobi_rows_plain(kind: str, x: torch.Tensor, inv_mass: torch.Tensor, batch,
     pins, ``w·w_scale`` with ``w_scale = 1 − release_hinge``), "distance"
     (k = 1: slot 0 of each pair, the only node that moves), "strain"
     (k = 4, ``recenter`` off the quirks) or "bend" (k = 4).  ``failed`` is
-    accepted for signature parity."""
+    accepted for signature parity.  An ensemble (``x`` f32[B, N, 3]) gives
+    each member's rows, f32[B, C·k, 4]."""
+    if members_of(x):
+        return each_member(lambda xb, mb: jacobi_rows_plain(kind, xb, mb, batch, w_scale,
+                                                            recenter),
+                           members_of(x), x, inv_mass)
     idx = batch.idx.long()
     if kind == "position":
         w = batch.w * w_scale
@@ -694,16 +699,18 @@ def jacobi_rows_plain(kind: str, x: torch.Tensor, inv_mass: torch.Tensor, batch,
 def jacobi_rows(kind: str, x: torch.Tensor, inv_mass: torch.Tensor, batch,
                 w_scale: float = 1.0, recenter: bool = False,
                 failed=None) -> torch.Tensor:
-    """T18's stage 1 (``kernels/csrc/pbd_constraints.cu``) on a CUDA tensor,
-    :func:`jacobi_rows_plain` on a CPU tensor.  The kernel returns at once
-    when latch slot 0 is set."""
+    """T18's stage 1 (``kernels/csrc/pbd_constraints.cu``) on a CUDA tensor
+    (one launch for all members of an ensemble), :func:`jacobi_rows_plain`
+    on a CPU tensor.  The kernel returns at once when latch slot 0 is set
+    (a latched member's rows are left unwritten)."""
     if kernels.on_cpu(x):
         return jacobi_rows_plain(kind, x, inv_mass, batch, w_scale, recenter, failed)
     if failed is None:
         raise ValueError("the PBD row kernel needs the failure latch")
     c = batch.idx.shape[0]
     k = 4 if kind in ("strain", "bend") else 1
-    vals = torch.empty((c * k, 4), dtype=torch.float32, device=x.device)
+    members = kernels.launch_members(x, failed, inv_mass)
+    vals = torch.empty(x.shape[:-2] + (c * k, 4), dtype=torch.float32, device=x.device)
     fields = {"position": ("target",), "distance": ("rest",), "strain": ("qinv", "lo", "hi"),
               "bend": ("rest_angle",)}[kind]
     a, b, cc = ([getattr(batch, f) for f in fields] + [None, None])[:3]
@@ -711,7 +718,8 @@ def jacobi_rows(kind: str, x: torch.Tensor, inv_mass: torch.Tensor, batch,
     err = kernels.lib().pies_pbd_rows(
         PBD_KINDS[kind], x.data_ptr(), inv_mass.data_ptr(), batch.idx.data_ptr(),
         kernels.ptr(a), kernels.ptr(b), kernels.ptr(cc), batch.w.data_ptr(), vals.data_ptr(),
-        c, float(w_scale), int(recenter), failed.data_ptr(), kernels.stream())
+        c, x.shape[-2], float(w_scale), int(recenter), failed.data_ptr(), members,
+        kernels.stream())
     kernels.check(err, "pbd_rows")
     jacobi_rows.launches += 1
     return vals

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .options import CollisionBudget, PhysicsParams, SolverName, StepConfig
-from .state import BroadphaseCache, NodePairCache, SolverState, pair_incidence
+from .state import BroadphaseCache, NodePairCache, SolverState, pair_incidence, stack_members
 from .topology import (
     BendBatch,
     ChainBatch,
@@ -61,12 +61,19 @@ def cache_from_numpy(bp, device="cpu") -> BroadphaseCache | None:
 def node_cache_from_numpy(nn, device="cpu") -> NodePairCache | None:
     """The port's node-pair cache from a JAX ``NodePairCache`` with NumPy
     leaves: scalars become i32[1], and the port's incidence is built from
-    the pair prefix."""
+    the pair prefix.  A vmapped ensemble's cache (``count`` i32[B], ``ref``
+    f32[B, N, 3]) becomes the port's batched cache, each member's
+    incidence built from its own prefix."""
     if nn is None:
         return None
+    count = np.asarray(nn.count)
+    if count.ndim:
+        return stack_members([node_cache_from_numpy(type(nn)(**{
+            f: np.asarray(getattr(nn, f))[b] for f in ("pi", "pj", "count", "ref", "fresh")}),
+            device) for b in range(count.shape[0])])
     i32 = torch.int32
     pi, pj = _t(nn.pi, device, i32), _t(nn.pj, device, i32)
-    count = int(np.asarray(nn.count))
+    count = int(count)
     row_off, inc_start, inc_pair = pair_incidence(pi, pj, count, np.asarray(nn.ref).shape[0])
     return NodePairCache(pi=pi, pj=pj, count=_t(np.reshape(count, 1), device, i32),
                          ref=_t(nn.ref, device),

@@ -67,13 +67,14 @@ wrappers that call them sit beside their plain PyTorch twins:
 
 T1-T8 (ROADMAP item 10a), the generic path's T9-T13 and T22 (item 10b-i),
 its point-triangle contacts and entry-list floor, T14-T17, T23 and T24
-(item 10b-ii), and its edge-edge and node-node contacts, T20 and T25-T27
-(item 10b-iii), take an ensemble's member axis
-(``pies_tpu/parallel/ensemble.py``): their last int argument is the member
-count, each launch's ``blockIdx.y`` is the member, and a single scene is
-one member.  The row kernels (T9's
-stage 1, T12, T13) and T9's stage 2 also take the row buffer's member
-stride, in rows, since each family writes its part of one buffer.
+(item 10b-ii), its edge-edge and node-node contacts, T20 and T25-T27
+(item 10b-iii), and the PBD tick's T18, T19 and T21 (item 10b-iv, with
+T20's pair cache kept per member across ticks) take an ensemble's member
+axis (``pies_tpu/parallel/ensemble.py``): their last int argument is the
+member count, each launch's ``blockIdx.y`` is the member, and a single
+scene is one member.  The row kernels (T9's stage 1, T12, T13) and T9's
+stage 2 also take the row buffer's member stride, in rows, since each
+family writes its part of one buffer.
 
 Each source compiles to an object in its own ``nvcc`` process, all started
 together, and the objects link into one library.
@@ -133,15 +134,15 @@ SIGNATURES = {
     "pies_goal_rows": [_P] * 6 + [_I, _P, _I, _I, _P],
     "pies_tri_candidates": [_P] * 17 + [_I] * 12 + [_F] * 3 + [_I, _I, _P],
     "pies_tri_ccd": [_P] * 12 + [_I] * 4 + [_F, _I, _I, _P],
-    "pies_pbd_rows": [_I] + [_P] * 8 + [_I, _F, _I, _P, _P],
-    "pies_pbd_apply": [_P] * 4 + [_I, _P, _P],
-    "pies_pbd_head": [_P] * 4 + [_I, _F, _F, _P, _I, _P],
-    "pies_pbd_floor": [_P] * 3 + [_I, _F, _P, _P],
-    "pies_pbd_tail": [_P] * 6 + [_I] + [_F] * 4 + [_P, _P],
-    "pies_pbd_chains": [_P] * 5 + [_I, _I, _P, _P],
-    "pies_pbd_color_class": [_P] * 4 + [_I, _I, _P, _P],
+    "pies_pbd_rows": [_I] + [_P] * 8 + [_I, _I, _F, _I, _P, _I, _P],
+    "pies_pbd_apply": [_P] * 4 + [_I, _I, _P, _I, _P],
+    "pies_pbd_head": [_P] * 4 + [_I, _F, _F, _P, _I, _I, _P],
+    "pies_pbd_floor": [_P] * 3 + [_I, _F, _P, _I, _P],
+    "pies_pbd_tail": [_P] * 6 + [_I] + [_F] * 4 + [_P, _I, _P],
+    "pies_pbd_chains": [_P] * 5 + [_I, _I, _I, _P, _I, _P],
+    "pies_pbd_color_class": [_P] * 4 + [_I, _I, _I, _P, _I, _P],
     "pies_node_pairs": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_I, _P],
-    "pies_node_response": [_P] * 13 + [_I, _F, _F, _P, _P],
+    "pies_node_response": [_P] * 13 + [_I, _I, _F, _F, _P, _I, _P],
     "pies_tet_block_factor": [_P] * 3 + [_I, _P, _I, _P],
     "pies_floor_entries": [_P] * 4 + [_F] + [_P] * 5 + [_I, _I, _P, _I, _P],
     "pies_edge_ccd": [_P] * 13 + [_I] * 6 + [_P],

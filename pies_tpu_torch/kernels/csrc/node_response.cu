@@ -22,6 +22,13 @@
 //
 // Bound: device memory: 36 bytes of node data per entry (two per pair),
 // 24 bytes read and written per node.
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b of `members` (the last int argument),
+// with its own nodes (from b*n), its own cache of T20 (pair lists of `slots`
+// entries from b*slots, row_off and inc_start from b*(n+1)), its own
+// outputs, its touching count touching[b] and its latch failed[2b].  A
+// single scene is a batch of one.
 #include <cuda_runtime.h>
 
 #include "nan_math.cuh"
@@ -79,10 +86,24 @@ __global__ void __launch_bounds__(256)
                          const int* __restrict__ pj, const int* __restrict__ row_off,
                          const int* __restrict__ inc_start, const int* __restrict__ inc_pair,
                          float* __restrict__ x_out, float* __restrict__ vel_out,
-                         int* __restrict__ touching, int n, float friction, float static_thr,
-                         const int* __restrict__ failed) {
+                         int* __restrict__ touching, int n, int slots, float friction,
+                         float static_thr, const int* __restrict__ failed) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool on = i < n && failed[0] == 0;
+  const size_t b = blockIdx.y, bn = b * n, bw = b * slots, bo = b * (n + 1);
+  x += bn * 3;
+  vel += bn * 3;
+  radius += bn;
+  inv_mass += bn;
+  mask += bn;
+  pi += bw;
+  pj += bw;
+  inc_pair += bw;
+  row_off += bo;
+  inc_start += bo;
+  x_out += bn * 3;
+  vel_out += bn * 3;
+  touching += b;
+  const bool on = i < n && failed[2 * b] == 0;
   int touched = 0;
   if (on) {
     float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, t[6];
@@ -117,14 +138,14 @@ extern "C" int pies_node_response(const float* x, const float* vel, const float*
                                   const float* inv_mass, const float* mask, const int* pi,
                                   const int* pj, const int* row_off, const int* inc_start,
                                   const int* inc_pair, float* x_out, float* vel_out,
-                                  int* touching, int n, float friction, float static_thr,
-                                  const int* failed, void* stream) {
+                                  int* touching, int n, int slots, float friction,
+                                  float static_thr, const int* failed, int members,
+                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(touching, 0, sizeof(int), st);
-  if (n > 0)
-    node_response_kernel<<<(n + 255) / 256, 256, 0, st>>>(x, vel, radius, inv_mass, mask, pi, pj,
-                                                          row_off, inc_start, inc_pair, x_out,
-                                                          vel_out, touching, n, friction,
-                                                          static_thr, failed);
+  if (members > 0) cudaMemsetAsync(touching, 0, sizeof(int) * members, st);
+  if (n > 0 && members > 0)
+    node_response_kernel<<<dim3((n + 255) / 256, members), 256, 0, st>>>(
+        x, vel, radius, inv_mass, mask, pi, pj, row_off, inc_start, inc_pair, x_out, vel_out,
+        touching, n, slots, friction, static_thr, failed);
   return (int)cudaGetLastError();
 }

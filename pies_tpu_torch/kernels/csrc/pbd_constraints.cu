@@ -25,6 +25,15 @@
 // few tens of bytes per row or node at a few flops), operations for strain
 // (an 8-sweep Jacobi SVD, ~1.5k flops per tet).  The design is one coalesced
 // pass per stage; the per-node sum reads 16 bytes per entry.
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b of `members` (the last int argument),
+// with its own nodes (positions, velocities, masses, radii, mask from b*n),
+// its own rows (stage 1 writes, stage 2 reads, C k rows from b*C*k) and its
+// latch failed[2b], failed[2b+1]; the topology and its incidence serve every
+// member.  The head folds each member's slot 1 into its slot 0, and the tail
+// latches into its member's slot 1, so one member's failure freezes no
+// other.  A single scene is a batch of one.
 #include <cuda_runtime.h>
 
 #include "bend.cuh"
@@ -46,10 +55,15 @@ __global__ void __launch_bounds__(128)
     pbd_rows_kernel(int kind, const float* __restrict__ x, const float* __restrict__ inv_mass,
                     const int* __restrict__ idx, const float* __restrict__ a,
                     const float* __restrict__ b, const float* __restrict__ c_hi,
-                    const float* __restrict__ w_in, float* __restrict__ vals, int c,
+                    const float* __restrict__ w_in, float* __restrict__ vals, int c, int n,
                     float w_scale, int recenter, const int* __restrict__ failed) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t m = blockIdx.y;  // the member
+  failed += 2 * m;
   if (t >= c || failed[0] != 0) return;
+  x += m * n * 3;
+  inv_mass += m * n;
+  vals += m * c * (kind == kStrain || kind == kBend ? 4 : 1) * 4;
   if (kind == kPosition) {
     const float w = w_in[t] * w_scale;
     const size_t i = (size_t)idx[t];
@@ -144,9 +158,13 @@ __global__ void __launch_bounds__(128)
 __global__ void __launch_bounds__(256)
     pbd_apply_kernel(float* __restrict__ x, const int* __restrict__ row_start,
                      const int* __restrict__ entries, const float* __restrict__ vals, int n,
-                     const int* __restrict__ failed) {
+                     int rows, const int* __restrict__ failed) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t b = blockIdx.y;
+  failed += 2 * b;
   if (i >= n || failed[0] != 0) return;
+  x += b * n * 3;
+  vals += b * rows * 4;
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   const int e1 = row_start[i + 1];
   for (int e = row_start[i]; e < e1; ++e) {
@@ -162,13 +180,20 @@ __global__ void __launch_bounds__(256)
 }
 
 // The head: prev = x, then x += (v dt - g dt^2 y) mask, in place.  The first
-// substep of a tick folds latch slot 1 into slot 0 (see state.py).
+// substep of a tick folds each member's latch slot 1 into its slot 0 (see
+// state.py).
 __global__ void __launch_bounds__(256)
     pbd_head_kernel(float* __restrict__ pos, float* __restrict__ prev,
                     const float* __restrict__ vel, const float* __restrict__ mask, int n,
                     float dt, float gravity, int* failed, int fold) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t b = blockIdx.y;
+  failed += 2 * b;
   if (i >= n) return;
+  pos += b * n * 3;
+  prev += b * n * 3;
+  vel += b * n * 3;
+  mask += b * n;
   const int was = fold ? (failed[0] | failed[1]) : failed[0];
   if (fold && i == 0 && was) failed[0] = 1;
   if (was) return;
@@ -189,7 +214,12 @@ __global__ void __launch_bounds__(256)
                      const float* __restrict__ mask, int n, float floor_height,
                      const int* __restrict__ failed) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t b = blockIdx.y;
+  failed += 2 * b;
   if (i >= n || failed[0] != 0) return;
+  x += b * n * 3;
+  radius += b * n;
+  mask += b * n;
   const size_t j = (size_t)i * 3 + 1;
   const float y = x[j];
   const float lift = (floor_height + radius[i]) - y;
@@ -205,7 +235,15 @@ __global__ void __launch_bounds__(256)
                     const float* __restrict__ mask, int n, float dt, float keep_damp,
                     float keep_fric, float floor_height, int* failed) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t b = blockIdx.y;
+  failed += 2 * b;
   if (i >= n || failed[0] != 0) return;
+  pos += b * n * 3;
+  prev += b * n * 3;
+  vel += b * n * 3;
+  x += b * n * 3;
+  radius += b * n;
+  mask += b * n;
   const float m = mask[i];
   float xi[3], v[3];
   bool finite = true;
@@ -231,53 +269,58 @@ __global__ void __launch_bounds__(256)
   if (!finite) atomicOr(&failed[1], 1);
 }
 
-inline int blocks(int n, int threads) { return (n + threads - 1) / threads; }
+// Blocks over n items per member, members in y.
+inline dim3 grid(int n, int threads, int members) {
+  return dim3((n + threads - 1) / threads, members);
+}
 
 }  // namespace
 
 extern "C" int pies_pbd_rows(int kind, const float* x, const float* inv_mass, const int* idx,
                              const float* a, const float* b, const float* c_hi, const float* w,
-                             float* vals, int c, float w_scale, int recenter, const int* failed,
-                             void* stream) {
+                             float* vals, int c, int n, float w_scale, int recenter,
+                             const int* failed, int members, void* stream) {
   if (kind < kPosition || kind > kBend || a == nullptr ||
       (kind == kStrain && (b == nullptr || c_hi == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (c > 0)
-    pbd_rows_kernel<<<blocks(c, 128), 128, 0, (cudaStream_t)stream>>>(
-        kind, x, inv_mass, idx, a, b, c_hi, w, vals, c, w_scale, recenter, failed);
+  if (c > 0 && members > 0)
+    pbd_rows_kernel<<<grid(c, 128, members), 128, 0, (cudaStream_t)stream>>>(
+        kind, x, inv_mass, idx, a, b, c_hi, w, vals, c, n, w_scale, recenter, failed);
   return (int)cudaGetLastError();
 }
 
 extern "C" int pies_pbd_apply(float* x, const int* row_start, const int* entries,
-                              const float* vals, int n, const int* failed, void* stream) {
-  if (n > 0)
-    pbd_apply_kernel<<<blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(x, row_start, entries,
-                                                                       vals, n, failed);
+                              const float* vals, int n, int rows, const int* failed, int members,
+                              void* stream) {
+  if (n > 0 && members > 0)
+    pbd_apply_kernel<<<grid(n, 256, members), 256, 0, (cudaStream_t)stream>>>(
+        x, row_start, entries, vals, n, rows, failed);
   return (int)cudaGetLastError();
 }
 
 extern "C" int pies_pbd_head(float* pos, float* prev, const float* vel, const float* mask, int n,
-                             float dt, float gravity, int* failed, int fold, void* stream) {
-  if (n > 0)
-    pbd_head_kernel<<<blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(pos, prev, vel, mask, n,
-                                                                      dt, gravity, failed, fold);
+                             float dt, float gravity, int* failed, int fold, int members,
+                             void* stream) {
+  if (n > 0 && members > 0)
+    pbd_head_kernel<<<grid(n, 256, members), 256, 0, (cudaStream_t)stream>>>(
+        pos, prev, vel, mask, n, dt, gravity, failed, fold);
   return (int)cudaGetLastError();
 }
 
 extern "C" int pies_pbd_floor(float* x, const float* radius, const float* mask, int n,
-                              float floor_height, const int* failed, void* stream) {
-  if (n > 0)
-    pbd_floor_kernel<<<blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(x, radius, mask, n,
-                                                                       floor_height, failed);
+                              float floor_height, const int* failed, int members, void* stream) {
+  if (n > 0 && members > 0)
+    pbd_floor_kernel<<<grid(n, 256, members), 256, 0, (cudaStream_t)stream>>>(
+        x, radius, mask, n, floor_height, failed);
   return (int)cudaGetLastError();
 }
 
 extern "C" int pies_pbd_tail(float* pos, float* prev, float* vel, const float* x,
                              const float* radius, const float* mask, int n, float dt,
                              float keep_damp, float keep_fric, float floor_height, int* failed,
-                             void* stream) {
-  if (n > 0)
-    pbd_tail_kernel<<<blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(
+                             int members, void* stream) {
+  if (n > 0 && members > 0)
+    pbd_tail_kernel<<<grid(n, 256, members), 256, 0, (cudaStream_t)stream>>>(
         pos, prev, vel, x, radius, mask, n, dt, keep_damp, keep_fric, floor_height, failed);
   return (int)cudaGetLastError();
 }

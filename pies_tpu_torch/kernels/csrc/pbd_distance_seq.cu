@@ -25,6 +25,12 @@
 // Bound: latency for the chains (L dependent steps of ~40 flops each, one
 // 12-byte gather per step); device memory for the colours (~40 bytes per
 // constraint).
+//
+// Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
+// launch's blockIdx.y is the member b of `members` (the last int argument),
+// whose positions start at b*n and whose latch is failed[2b]; the chains and
+// the classes serve every member.  The class loop stays on the host, one
+// launch per class at any member count.  A single scene is a batch of one.
 #include <cuda_runtime.h>
 
 #include "pbd_link.cuh"
@@ -43,9 +49,12 @@ __device__ __forceinline__ void link_delta(const float tg[3], const float pa[3],
 __global__ void __launch_bounds__(128)
     chain_kernel(float* __restrict__ x, const int* __restrict__ idx0,
                  const int* __restrict__ anchor, const float* __restrict__ rest,
-                 const float* __restrict__ w, int c, int l, const int* __restrict__ failed) {
+                 const float* __restrict__ w, int c, int l, int n,
+                 const int* __restrict__ failed) {
   const int ch = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ch >= c || failed[0] != 0) return;
+  const size_t b = blockIdx.y;
+  if (ch >= c || failed[2 * b] != 0) return;
+  x += b * n * 3;
   float tg[3];
   const size_t a = (size_t)anchor[ch];
 #pragma unroll
@@ -70,9 +79,11 @@ __global__ void __launch_bounds__(128)
 __global__ void __launch_bounds__(256)
     color_kernel(float* __restrict__ x, const int* __restrict__ idx,
                  const float* __restrict__ rest, const float* __restrict__ w, int s0, int e0,
-                 const int* __restrict__ failed) {
+                 int n, const int* __restrict__ failed) {
   const int t = s0 + blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= e0 || failed[0] != 0) return;
+  const size_t b = blockIdx.y;
+  if (t >= e0 || failed[2 * b] != 0) return;
+  x += b * n * 3;
   const size_t i0 = (size_t)idx[2 * t], i1 = (size_t)idx[2 * t + 1];
   float pa[3], pb[3], delta[3];
 #pragma unroll
@@ -88,17 +99,19 @@ __global__ void __launch_bounds__(256)
 }  // namespace
 
 extern "C" int pies_pbd_chains(float* x, const int* idx0, const int* anchor, const float* rest,
-                               const float* w, int c, int l, const int* failed, void* stream) {
-  if (c > 0 && l > 0)
-    chain_kernel<<<(c + 127) / 128, 128, 0, (cudaStream_t)stream>>>(x, idx0, anchor, rest, w, c,
-                                                                    l, failed);
+                               const float* w, int c, int l, int n, const int* failed,
+                               int members, void* stream) {
+  if (c > 0 && l > 0 && members > 0)
+    chain_kernel<<<dim3((c + 127) / 128, members), 128, 0, (cudaStream_t)stream>>>(
+        x, idx0, anchor, rest, w, c, l, n, failed);
   return (int)cudaGetLastError();
 }
 
 extern "C" int pies_pbd_color_class(float* x, const int* idx, const float* rest, const float* w,
-                                    int s0, int e0, const int* failed, void* stream) {
-  if (e0 > s0)
-    color_kernel<<<(e0 - s0 + 255) / 256, 256, 0, (cudaStream_t)stream>>>(x, idx, rest, w, s0, e0,
-                                                                          failed);
+                                    int s0, int e0, int n, const int* failed, int members,
+                                    void* stream) {
+  if (e0 > s0 && members > 0)
+    color_kernel<<<dim3((e0 - s0 + 255) / 256, members), 256, 0, (cudaStream_t)stream>>>(
+        x, idx, rest, w, s0, e0, n, failed);
   return (int)cudaGetLastError();
 }

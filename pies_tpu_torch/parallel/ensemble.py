@@ -27,8 +27,11 @@ edge-edge and PD node-node contacts (item 10b-iii: ``edge_nets``, the PD
 node clouds), alone, together or beside point-triangle self-contact, where
 T16 and T25 detect each member's edge contacts, T26 adds their terms to
 T8, T9 and T10, T20 builds each member's pair prefix and T27 adds the
-pairs' terms and friction.  PBD ensembles raise :class:`NotPortedError`
-naming ROADMAP item 10b-iv.  Several cards (``make_mesh``,
+pairs' terms and friction.  PBD ensembles run too (item 10b-iv: the
+JAX package's vmapped PBD tick with every distance form, pins, strain,
+bend and the node-node response), where T18, T19 and T21 take the member
+axis and T20 keeps each member's node-pair cache across ticks, rebuilt on
+that member's own drift.  Several cards (``make_mesh``,
 ``shard_ensemble`` and ``make_sharded_step``'s ``shard_map``) are ROADMAP
 item 11; :func:`ensemble_step` is that step's one-card form, its ``pmax``
 and ``psum`` reductions over the member axis on the device.
@@ -40,7 +43,6 @@ import torch
 
 from ..options import PhysicsParams, SolverName, StepConfig
 from ..solver import pd, step
-from ..solver.host import NotPortedError
 from ..state import SolverState, stack_ensemble, unstack
 from ..topology import Topology
 
@@ -50,19 +52,20 @@ __all__ = ["ensemble_step", "ensemble_tick", "ensemble_tick_n", "stack_ensemble"
 def check_ensemble(states: SolverState, topo: Topology, config: StepConfig) -> None:
     """Raise unless ``states`` is an ensemble whose scene takes a ported
     path: PD on the tet-column path, detection (if any) on packed bodies,
-    or PD on the generic path with any contacts (``pd.check_ensemble_path``)."""
+    or PD on the generic path with any contacts (``pd.check_ensemble_path``),
+    or PBD."""
     if not states.members:
         raise ValueError("an ensemble's state has a leading member axis (stack_ensemble)")
-    if config.solver != SolverName.PD:
-        raise NotPortedError("PBD ensembles are not ported yet: ROADMAP queue 1 item 10b-iv")
-    pd.check_ensemble_path(states, topo, config)
+    if config.solver == SolverName.PD:
+        pd.check_ensemble_path(states, topo, config)
 
 
 def ensemble_tick(states: SolverState, topo: Topology, params: PhysicsParams,
                   config: StepConfig, counters=None) -> torch.Tensor:
     """One tick of every member, in place on ``states``; returns the
-    residuals f32[B] on the device (0 for a latched member).  ``counters``
-    are ``pd.new_counters(device, B)``."""
+    residuals f32[B] on the device (0 for a latched member, and for every
+    member of a PBD ensemble).  ``counters`` are ``pd.new_counters(device,
+    B)``, or ``pbd.new_counters(device, B)`` under the PBD solver."""
     check_ensemble(states, topo, config)
     return step.tick(states, topo, params, config, counters=counters)
 

@@ -12,6 +12,9 @@ pile), at any size, on either package's ``Solver``.
   so each grid cell's occupancy, stays the bench's (``h = 16`` at 131,072:
   16× the floor area).  :func:`cloud_ensemble` stacks it, under the PD
   solver with node-node contacts, into a seeded ensemble.
+* :func:`rope_ensemble`, :func:`pile_ensemble` — seeded ensembles of the
+  two PBD scenes as the bench runs them (collisions on), and
+  :func:`pbd_ensemble` of any PBD scene.
 * :func:`add_net` — the 8 x 8 PBD net of ``tests/test_solver.py:654-672``
   (distance constraints on a lattice, one corner pinned): the colour
   classes' scene.
@@ -66,6 +69,37 @@ def cloud_ensemble(members: int, n_particles: int = PILE_BENCH, device="cuda", s
                              **{**kw, **overrides}), n_particles)
     s._prepare()
     return s, jittered_ensemble(s.state, members, n_particles, seed0=seed0)
+
+
+def pbd_ensemble(build, members: int, device="cuda", seed0: int = 0, **solver_kw):
+    """A seeded ensemble of a PBD scene on the port: ``Solver(SolverOptions
+    (solver=PBD), **solver_kw)``, ``build(solver)``, prepared (the node-pair
+    cache allocated with collisions on), and ``members`` copies of its
+    state, member b's live nodes moved by ``contact_piles.jitter_offsets``
+    (uniform ±0.02, seed ``seed0 + b``; member 0 as built).  Returns
+    ``(solver, states)``."""
+    from ..options import SolverName, SolverOptions
+    from ..solver.host import Solver
+    from .contact_piles import jittered_ensemble
+
+    s = Solver(SolverOptions(solver=SolverName.PBD), device=device, **solver_kw)
+    build(s)
+    s._prepare()
+    return s, jittered_ensemble(s.state, members, s._builder.num_nodes, seed0=seed0)
+
+
+def rope_ensemble(members: int, n_particles: int = 2048, device="cuda", seed0: int = 0):
+    """``members`` × ``rope_pbd`` (:func:`add_rope_fleet`, collisions on),
+    seeded as :func:`pbd_ensemble`."""
+    return pbd_ensemble(lambda s: add_rope_fleet(s, n_particles), members, device, seed0,
+                        enable_collisions=True)
+
+
+def pile_ensemble(members: int, n_particles: int = PILE_BENCH, device="cuda", seed0: int = 0):
+    """``members`` × ``pbd_node_pile`` (:func:`add_node_pile`, collisions
+    on), seeded as :func:`pbd_ensemble`."""
+    return pbd_ensemble(lambda s: add_node_pile(s, n_particles), members, device, seed0,
+                        enable_collisions=True)
 
 
 def add_net(s, n: int = 8):

@@ -1,9 +1,10 @@
 """One substep of the generic PD path with contacts (point-triangle,
-edge-edge and node-node), stage by stage, for holding each kernel against
-its plain twin on the kernels' own inputs and for timing each kernel on
-those inputs (``chip_smoke.py`` phases 16c and 17c,
-``tests/test_torch_ensemble_contacts.py`` and
-``tests/test_torch_ensemble_edges.py``)."""
+edge-edge and node-node), or of the PBD solver, stage by stage, for holding
+each kernel against its plain twin on the kernels' own inputs and for
+timing each kernel on those inputs (``chip_smoke.py`` phases 16c, 17c and
+18d, ``tests/test_torch_ensemble_contacts.py``,
+``tests/test_torch_ensemble_edges.py`` and
+``tests/test_torch_ensemble_pbd.py``)."""
 
 from __future__ import annotations
 
@@ -14,14 +15,21 @@ import torch
 
 from ..collision import broadphase
 from ..collision.batches import CollisionSet, Incidence
-from ..state import clone_state
-from . import assembly, pd, tetcols
+from ..constraints import projections as proj
+from ..state import clone_state, empty_node_pair_cache, stack_members
+from . import assembly, pbd, pd, tetcols
 
 # The stages of contact_stages whose outputs are written for a latched
 # member too: the detections (an empty contact buffer, a fresh pair
 # cache), the cache (left as it is) and the state; and of the CG, its
 # residual partials and trips.
 WHOLE_STAGES = ("detection", "edge detection", "T20", "cache", "T4")
+# The stages of pbd_stages written for a latched member too: the head (its
+# latch folded, nothing moved), the pair cache (left as it is) and the tail.
+PBD_WHOLE = ("T18 head", "T20", "T18 tail")
+# The stages whose kernel rounds apart from its twin: acosf against
+# torch.acos in the bend rows (T18's, as T12's).
+PBD_ROUNDOFF = ("T18 rows bend",)
 
 
 class Stage(NamedTuple):
@@ -356,16 +364,148 @@ def contact_stages(states, topo, params, config, twins: bool = True) -> dict:
     return out
 
 
-def stages_apart(stages: dict, live=None) -> list:
-    """The stages of a :func:`contact_stages` run whose kernel and twin
-    outputs differ (bit for bit).  ``live`` (the unlatched members of an
-    ensemble) limits the stages a latched member leaves unwritten to those
-    members."""
+def stages_apart(stages: dict, live=None, whole=WHOLE_STAGES, roundoff=()) -> list:
+    """The stages of a :func:`contact_stages` (or :func:`pbd_stages`, with
+    ``whole=PBD_WHOLE`` and ``roundoff=PBD_ROUNDOFF``) run whose kernel and
+    twin outputs differ: bit for bit, or for the ``roundoff`` stages by more
+    than 1e-6 of the largest value (at least 1).  ``live`` (the unlatched
+    members of an ensemble) limits the stages a latched member leaves
+    unwritten to those members."""
     apart = []
     for stage, (kernel, twin, _) in stages.items():
         for i, (a, b) in enumerate(zip(kernel, twin)):
-            if live is not None and not (stage in WHOLE_STAGES or (stage == "T11" and i > 0)):
+            if live is not None and not (stage in whole or (stage == "T11" and i > 0)):
                 a, b = a[live], b[live]
-            if not torch.equal(a, b):
+            if stage in roundoff:
+                ok = float((a - b).abs().max()) <= 1e-6 * max(float(b.abs().max()), 1.0)
+            else:
+                ok = torch.equal(a, b)
+            if not ok:
                 apart.append(f"{stage}[{i}]")
     return apart
+
+
+def _cache_prefix(nn) -> tuple:
+    """A node-pair cache's fields with the pair slots past each member's
+    count zeroed (no kernel writes them)."""
+    slot = torch.arange(nn.pi.shape[-1], device=nn.pi.device) < nn.count
+    cut = lambda t: torch.where(slot, t, 0)  # noqa: E731
+    return (cut(nn.pi), cut(nn.pj), nn.count, nn.ref, nn.fresh, nn.row_off, nn.inc_start,
+            cut(nn.inc_pair), nn.rebuilt)
+
+
+def pbd_stages(states, topo, params, config, twins: bool = True) -> dict:
+    """One PBD substep on a copy of ``states`` (a single scene or an
+    ensemble; the first substep of a tick, one iteration), stage by stage
+    by the kernels, and (``twins``) each stage's plain twin on the same
+    inputs (the kernels' outputs carried forward): ``{stage: Stage}`` for
+    T18's head, each family present its rows and application (the pins,
+    the Jacobi distance form, strain, bend), T19's chain walk or colour
+    classes, with collisions on T20 (the state's pair cache, or an empty
+    one per member; its calls without and with a rebuild) and T21, T18's
+    floor clamp and its tail."""
+
+    def pair(kernel, twin, *args, **kw):
+        return kernel(*args, **kw), (twin(*args, **kw) if twins else None)
+
+    def inplace(stage, kernel, twin, x, *args):
+        """An in-place stage ``kernel(x, *args)`` (the topology bound in
+        ``kernel`` and ``twin``, ``args`` batched): the kernel's output and
+        the twin's, each on a copy; returns the kernel's."""
+        xk = x.clone()
+        kernel(xk, *args)
+        xp = None
+        if twins:
+            xp = x.clone()
+            twin(xp, *args)
+        out[stage] = Stage((xk,), (xp,) if twins else None, {stage: (kernel, (x.clone(),) + args)})
+        return xk
+
+    out = {}
+    st = clone_state(states)
+    pbd.substep_head(st, params, True)
+    tw = None
+    if twins:
+        tw = clone_state(states)
+        pbd.substep_head_plain(tw, params, True)
+    fields = lambda s_: (s_.positions, s_.prev_positions, s_.sim_failed)  # noqa: E731
+    out["T18 head"] = Stage(fields(st), fields(tw) if twins else None, {"T18 head": (
+        lambda s_: pbd.substep_head(s_, params, True), (clone_state(states),))})
+    x, failed, im = st.positions, st.sim_failed, st.inv_mass
+    inc = topo.jacobi
+
+    def family(kind, batch, incidence, **kw):
+        nonlocal x
+        if not batch.idx.shape[0]:
+            return
+
+        def rows(x_, m_, f_):  # (the batch is the topology's: bound, not batched)
+            return proj.jacobi_rows(kind, x_, m_, batch, failed=f_, **kw)
+
+        vals = pair(proj.jacobi_rows, proj.jacobi_rows_plain, kind, x, im, batch, failed=failed,
+                    **kw)
+        out[f"T18 rows {kind}"] = Stage((vals[0],), (vals[1],) if twins else None,
+                                        {f"T18 rows {kind}": (rows, (x, im, failed))})
+        x = inplace(f"T18 apply {kind}",
+                    lambda x_, v_, f_: pbd.apply_jacobi(x_, incidence, v_, f_),
+                    lambda x_, v_, f_: pbd.apply_jacobi_plain(x_, incidence, v_, f_), x,
+                    vals[0], failed)
+
+    family("position", topo.position, inc.position, w_scale=pbd._keep(params.release_hinge))
+    ch, dist, ends = topo.chains, topo.distance, config.distance_colors
+    if config.distance_chain and ch is not None:
+        x = inplace("T19 chains", lambda x_, f_: pbd.chain_scan(x_, ch, f_),
+                    lambda x_, f_: pbd.chain_scan_plain(x_, ch, f_), x, failed)
+    elif ends:
+        x = inplace("T19 colours", lambda x_, f_: pbd.color_classes(x_, dist, ends, f_),
+                    lambda x_, f_: pbd.color_classes_plain(x_, dist, ends, f_), x, failed)
+    else:
+        family("distance", topo.distance, inc.distance)
+    family("strain", topo.strain, inc.strain, recenter=not config.reference_quirks)
+    family("bend", topo.bend, inc.bend)
+    vel = st.velocities
+    if config.enable_collisions:
+        cache = st.nn
+        if cache is None:
+            cache = empty_node_pair_cache(x.shape[-2], config.budget.max_candidates_per_node,
+                                          x.device)
+            if st.members:
+                cache = stack_members([cache] * st.members)
+        args = (st.radius, st.node_mask)
+        caches = [cache.clone() for _ in range(1 + twins)]
+        for c_, fn in zip(caches, (broadphase.node_pairs, broadphase.node_pairs_plain)):
+            fn(x, *args, c_, params, config, failed)
+
+        def t20(x_, r_, m_, c_, f_):
+            return broadphase.node_pairs(x_, r_, m_, c_, params, config, f_)
+
+        def t20_rebuild(x_, r_, m_, c_, f_):
+            c_.fresh.zero_()
+            return t20(x_, r_, m_, c_, f_)
+
+        out["T20"] = Stage(_cache_prefix(caches[0]), _cache_prefix(caches[1]) if twins else None,
+                           {"T20 without a rebuild": (t20, (x, *args, caches[0].clone(), failed)),
+                            "T20 with a rebuild": (t20_rebuild,
+                                                   (x, *args, caches[0].clone(), failed))})
+        nn = caches[0]
+        resp = pair(broadphase.node_response, broadphase.node_response_plain, x, vel, st.radius,
+                    im, st.node_mask, nn, params, failed)
+
+        def t21(x_, v_, r_, i_, m_, n_, f_):
+            return broadphase.node_response(x_, v_, r_, i_, m_, n_, params, f_)
+
+        out["T21"] = Stage(*resp, {"T21": (t21, (x, vel, st.radius, im, st.node_mask, nn,
+                                                 failed))})
+        x, vel = resp[0][0], resp[0][1]
+    fh = params.floor_height
+    x = inplace("T18 floor", lambda x_, r_, m_, f_: pbd.floor_clamp(x_, r_, m_, fh, f_),
+                lambda x_, r_, m_, f_: pbd.floor_clamp_plain(x_, r_, m_, fh, f_), x, st.radius,
+                st.node_mask, failed)
+    ends = []
+    for tail in (pbd.substep_tail, pbd.substep_tail_plain)[: 1 + twins]:
+        s_ = clone_state(st)
+        tail(s_, x, params)
+        ends.append((s_.positions, s_.prev_positions, s_.velocities, s_.sim_failed))
+    out["T18 tail"] = Stage(ends[0], ends[1] if twins else None, {"T18 tail": (
+        lambda s_, x_: pbd.substep_tail(s_, x_, params), (clone_state(st), x.clone()))})
+    return out

@@ -31,7 +31,8 @@ An ensemble (``pies_tpu/parallel/ensemble.py``) is one ``SolverState`` whose
 every leaf has a leading member axis B, the cache's included:
 ``positions`` f32[B, N, 3], ``mass`` f32[B, N], ``sim_failed`` i32[B, 2]
 (each row the two-slot latch above), ``bp.pairs`` i32[B, K, NB], ``bp.ref``
-f32[B, M, 3], ``bp.fresh`` i32[B, 1].  One-word flags and counts keep a unit
+f32[B, M, 3], ``bp.fresh`` i32[B, 1], ``nn.pi`` i32[B, NB], ``nn.count``
+i32[B, 1].  One-word flags and counts keep a unit
 axis, so member b's slice (:func:`member`) of any batched value is the
 single scene's value, a view that shares its memory.
 :func:`stack_ensemble` makes one, :func:`unstack` copies one member out.

@@ -13,6 +13,7 @@
     python3 -m pies_tpu_torch.tick_profile --ensemble-generic [members] [repeats]
     python3 -m pies_tpu_torch.tick_profile --ensemble-contacts [members] [repeats] [--boxes]
     python3 -m pies_tpu_torch.tick_profile --ensemble-edges [members] [repeats] [--cloud]
+    python3 -m pies_tpu_torch.tick_profile --ensemble-pbd [members] [repeats] [--pile | --soup]
 
 and on the PD scenes any of ``--full`` (``contact_coupling="full"``,
 self-contact on), ``--no-tet-cols`` (a soup off the tet-column path, on
@@ -61,7 +62,13 @@ its own seeded offset (the all-pairs detection), or with
 nets at the bench's nn = 24 (``edge_nets.nets_ensemble``: edge-edge
 contacts, full coupling), each jittered, or with ``--cloud`` as well phase
 17b's: 64 PD node clouds of the bench's 8,192 nodes
-(``pbd_scenes.cloud_ensemble``).
+(``pbd_scenes.cloud_ensemble``), or with ``--ensemble-pbd`` phase 18a's:
+64 members by default of ``rope_pbd`` at the bench's 2,048 nodes
+(``pbd_scenes.rope_ensemble``, collisions on), or with ``--pile`` as well
+18b's: 64 of ``pbd_node_pile`` at 8,192 (``pile_ensemble``), or with
+``--soup`` 18c's: 64 of the 512-tet soup under the PBD solver
+(``chip_smoke.py``'s ``PBD_SOUP``: strain weight 1.0, collisions off,
+``reference_quirks=False``), each member jittered by ±0.02.
 It warms
 up until the window it measures is contact-active: 30 ticks without
 self-contact (the bottom layer reaches the floor at tick ~25), 45 with it (the layers meet at tick ~40, once the
@@ -77,7 +84,9 @@ ensemble 45 ticks as the soup with self-contact, the generic ensemble tick by
 tick until every member has had floor-active nodes, the nets' ensemble 47
 ticks (their dense contact phase begins near tick 48; each window starts
 from that state, since members latch at the cap later), the node cloud and
-its ensemble not at all (their pairs touch from the first tick).  Then:
+its ensemble not at all (their pairs touch from the first tick), the PBD
+ensembles tick by tick until every member has had floor-active nodes (and,
+with collisions, touching pairs; the ropes after 35 ticks at once).  Then:
 
 * times ``repeats`` runs of ``run_ticks(10)`` (host clock around work that
   ends in a synchronize) and prints each, for the spread;
@@ -118,7 +127,7 @@ def device_events(prof):
 def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, mixed=False,
          boxes=False, reference=False, rope=False, pile=False, full=False, tet_cols=True,
          dense_floor=True, nets=False, cloud=False, members=0, drop=False, contacts=False,
-         edges=False):
+         edges=False, pbd_ens=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -132,7 +141,9 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    scene = (f"an ensemble of {members} PD node clouds of {n_tets} nodes" if edges and cloud
+    unit = "tets" if pbd_ens == "soup" else "nodes"
+    scene = (f"an ensemble of {members} PBD {pbd_ens}s ({n_tets} {unit} each)" if pbd_ens
+             else f"an ensemble of {members} PD node clouds of {n_tets} nodes" if edges and cloud
              else f"an ensemble of {members} crossing nets, nn = {n_tets}" if edges
              else "the 110k mesh" if mesh else "the 512 x 512 rigged cloth" if cloth
              else "the cloth over the soup" if mixed else "the box pile" if boxes
@@ -145,7 +156,7 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
              else f"an ensemble of {members} 512-tet soups" if members else "the soup")
     nets = nets or (edges and not cloud)
     collisions = (collisions or mixed or boxes or rope or pile or full or nets
-                  or members) and not (cloud or (drop and not contacts))
+                  or members) and not (cloud or (drop and not contacts) or pbd_ens == "soup")
     mode = "reference" if reference else "celllist"
     coupling = "full" if full or nets else "recentered"
     print(f"card: {smi}; {scene}, self-contact {'on' if collisions else 'off'},"
@@ -177,7 +188,34 @@ def main(n_tets=125_000, repeats=5, collisions=False, mesh=False, cloth=False, m
 
     new_counters = (pbd if rope or pile else pd).new_counters
     states = None
-    if edges:
+    if pbd_ens:
+        from .parallel import ensemble
+        from .scene.pbd_scenes import pbd_ensemble, pile_ensemble, rope_ensemble
+
+        if pbd_ens == "soup":
+            s, states = pbd_ensemble(
+                lambda s_: s_.create_tet_soup(n_tets, spacing=1.6, scale=0.8, w=1.0, height=0.5,
+                                              jitter=0.05), members, s.device,
+                enable_collisions=False, reference_quirks=False)
+        else:
+            s, states = (pile_ensemble if pbd_ens == "pile" else rope_ensemble)(
+                members, n_tets, s.device)
+        env = (s.topology, s.current_params(), s.config)
+        keys = ("floor_active", "touching") if s.config.enable_collisions else ("floor_active",)
+        first = PBD_WARMUP if pbd_ens == "rope" else 0
+        if first:
+            ensemble.ensemble_tick_n(states, *env, first)
+        seen = torch.zeros((len(keys), members), dtype=torch.bool, device=s.device)
+        for tick in range(first + 1, first + 121):
+            c = pbd.new_counters(s.device, members)
+            ensemble.ensemble_tick(states, *env, counters=c)
+            for i, k in enumerate(keys):
+                seen[i] |= c[k] > 0
+            if bool(seen.all()):
+                break
+        print(f"every member has had {', '.join(keys)} by tick {tick}")
+        new_counters = lambda device: pbd.new_counters(device, members)  # noqa: E731
+    elif edges:
         from .parallel import ensemble
 
         if cloud:
@@ -363,6 +401,10 @@ if __name__ == "__main__":
         sys.exit(main(*(args or [131_072]), cloud=True))
     if "--ensemble-generic" in flags:
         sys.exit(main(512, *args[1:2], members=args[0] if args else 64, drop=True))
+    if "--ensemble-pbd" in flags:
+        kind = "pile" if "--pile" in flags else "soup" if "--soup" in flags else "rope"
+        sys.exit(main({"rope": 2048, "pile": 8192, "soup": 512}[kind], *args[1:2],
+                      members=args[0] if args else 64, pbd_ens=kind))
     if "--ensemble-edges" in flags:
         sys.exit(main(8192 if "--cloud" in flags else 24, *args[1:2],
                       members=args[0] if args else 64, edges=True, cloud="--cloud" in flags))

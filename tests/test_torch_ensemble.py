@@ -43,7 +43,6 @@ from pies_tpu_torch.collision import broadphase
 from pies_tpu_torch.constraints import projections as proj
 from pies_tpu_torch.parallel import ensemble
 from pies_tpu_torch.solver import pd, step, tetcols
-from pies_tpu_torch.solver.host import NotPortedError
 from pies_tpu_torch.state import clone_state, member, stack_ensemble, unstack
 
 from torch_threads import two_threads  # noqa: F401
@@ -235,7 +234,8 @@ def test_other_paths_are_not_ported():
     """The generic path with self-contact (``create_sheet`` with collisions
     on) runs as an ensemble (ROADMAP item 10b-ii,
     ``tests/test_torch_ensemble_contacts.py``): it steps, each member as
-    its single-scene run; PBD ensembles are ROADMAP item 10b-iv."""
+    its single-scene run; so does the PBD tet soup (item 10b-iv,
+    ``tests/test_torch_ensemble_pbd.py``)."""
     s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=True,
                   device="cpu")
     s.create_sheet((0.0, 0.5, 0.0), 0.5, 1.0, 5000.0)
@@ -251,11 +251,21 @@ def test_other_paths_are_not_ported():
     assert torch.equal(states.positions[0], states.positions[1])
     p = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PBD), enable_collisions=False,
                   device="cpu")
-    p.create_tet_soup(8, **CONTACT_SCENE)
+    # (a PBD weight is the fraction of the projection applied: the PD
+    # stiffness 2000 overshoots and the first tick goes non-finite)
+    p.create_tet_soup(8, **dict(CONTACT_SCENE, w=1.0))
     p._prepare()
-    with pytest.raises(NotPortedError, match="10b-iv"):
-        ensemble.ensemble_tick(stack_ensemble(p.state, 2), p.topology, p.current_params(),
-                               p.config)
+    states = stack_ensemble(p.state, 2)
+    single = unstack(states, 0)
+    start = states.positions.clone()
+    for _ in range(2):
+        res = ensemble.ensemble_tick(states, p.topology, p.current_params(), p.config)
+        step.tick(single, p.topology, p.current_params(), p.config)
+    assert not torch.equal(states.positions, start) and not bool(res.any())
+    assert not states.failed() and bool(torch.isfinite(states.positions).all())
+    assert torch.equal(states.positions[0], single.positions)
+    assert torch.equal(states.positions[1], single.positions)
+    assert torch.equal(states.velocities[1], single.velocities)
 
 
 def test_stack_ensemble_copies():
