@@ -7,7 +7,7 @@ Phases (any failure exits non-zero, before the result line):
 
 0. The card: ``nvidia-smi`` name and power limit, torch / CUDA / nvcc
    versions, whether ``triton`` imports.  No CUDA device: exit 2.
-1. Build the 29 kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
+1. Build the 30 kernels from ``pies_tpu_torch/kernels/csrc`` with nvcc,
    one process per source, all at once (``-Xptxas -v`` output printed), and
    report the build time.
 2. T1-T4 against their plain PyTorch twins on the card, at the main path's
@@ -323,12 +323,46 @@ Phases (any failure exits non-zero, before the result line):
    window, caches and counters included, and one tick of 8 members of each
    bit-equal to the batched twin.  18f 4 x ``rope_pbd`` with member 2
    latched before the start: bit-unchanged over 40 ticks, counting nothing.
+19. Tet-column ensembles with self-contact off the packed bodies (ROADMAP
+   item 10c): 64 x phase 13's 512-tet soup (±0.02 jitter) in reference
+   mode ("19 reference": T16/T17's reference sweep) and with a budget that
+   unpacks the bodies ("19 celllist": body stride 1, 32 narrow slots, the
+   super-body layout off), each after 45 warm-up ticks: three timed
+   ``ensemble_tick_n(10)`` windows gated on no latch, finite positions,
+   floor contact in every member, T16/T17 launched and launches per tick
+   equal at B = 64 and B = 1, members 0, 21, 42, 63 bit-equal to their
+   single-scene runs over the 30 ticks, a traced window; then every stage
+   (T3, T16/T17, T7, T1, T2, T8, T4) at B = 3 with member 1 latched equal
+   to its twin for members 0 and 2, member 1 frozen.
+20. The spatial domain decomposition on one card (ROADMAP item 11a; T30
+   ``halo.cu``, and T3, T4, T9-T13, T7, T8 and T27 in their
+   accumulate-only modes, T16/T17, T25 and T20 with their emit masks, T11
+   over the owned nodes): 20a phase 5's mesh at tick 75 in 8 slabs (floor
+   contact), 20b phase 3b's soup at tick 55 with self-contact in 4 (the
+   cell list, 32 narrow slots), 20c a PD node cloud of 131,072 in 4 (phase
+   12c's, sparser: ``CLOUD_DENSITY``), 20d ``edge_nets`` at nn = 24 in 2
+   (from the single scene's first edge contact, before the dense phase and
+   any latch); a refused slab count falls back to
+   the largest one below it that the partitioner accepts.  Each: the
+   slabs' contact counts (20c: touching node pairs) summed equal to the
+   single scene's on identical inputs, one domain tick within 1e-5 of the
+   single scene's on the generic path with Jacobi (20c: printed), three
+   timed 10-tick windows beside the single scene's ms/tick, the path's
+   kernels launched, launches per tick and a traced window's idle share and
+   T30 share.  20e two domain ticks by the kernels bit-equal to the twins'
+   on a 16,384-tet soup, an 8,192-node cloud at 20c's density and the nets
+   at 3 and 8 slabs (or the largest accepted), and T30's refresh, reduce (sum, p·Ap
+   partials, average, apply) and merge equal to their twins and timed on
+   20a's shapes beside ``index_select`` / ``index_add_``.  20f a NaN in one
+   slab latches every slab, and the next tick leaves the state bit for bit.
 
-The last two lines are the kernel table and the result as JSON objects.
+Each phase prints its seconds.  The last two lines are the kernel table
+and the result as JSON objects.
 """
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -384,6 +418,8 @@ ALL_ON_WARM = 10  # the tet boxes have all three contact families live from tick
 EDGE_PATHS = ("17a", "17b", "17c all_on")
 ENS_PBD = 64  # phase 18: members of each PBD ensemble
 PBD_PATHS = ("18a", "18b", "18c")
+DOMAIN_PATHS = ("20a", "20b", "20c", "20d")
+CLOUD_DENSITY = 0.02  # phase 20c's nodes per unit volume (the pile's 5.5 units high)
 # Phase 14: the bench's cube (scripts/bench_all.py:86-97, its +0.5 lift in y
 # applied), meshed at 47 cells across and scaled by 6 (the dump MESH_BIG's
 # geometry; its bottom at y = 3), and at 10 for tet_cube_drop.
@@ -1343,8 +1379,7 @@ def phase15(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, gen
           f" {n_tets} tets each; {members * live} nodes, {members * n_tets} tets a tick),"
           f" self-contact off, {cfg.iterations} iterations, {cfg.cg_iterations} CG trips,"
           f" cg_rtol {cfg.cg_rtol}")
-    check(not tetcols.applies(states, topo, cfg) and pd.ensemble_unported(states, topo, cfg)
-          is None and topo.ell_nbr is not None,
+    check(not tetcols.applies(states, topo, cfg) and topo.ell_nbr is not None,
           f"the contact-free generic path, ELL width {topo.ell_nbr.shape[0]}")
     seen = torch.zeros(members, dtype=torch.bool, device=dev)
     for tick in range(1, 121):
@@ -2011,8 +2046,7 @@ def phase16(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nin
           f" {members * live} nodes, {members * n_tris} triangles a tick), the Solver's defaults:"
           f" contact_coupling {cfg.contact_coupling}, dense_floor {cfg.dense_floor}")
     states = lifted_ensemble(s.state, members, live)
-    check(not tetcols.applies(states, topo, cfg) and pd.ensemble_unported(states, topo, cfg)
-          is None and broadphase.super_body(cfg)
+    check(not tetcols.applies(states, topo, cfg) and broadphase.super_body(cfg)
           and broadphase.tri_mode(cfg, topo.tri_mask.shape[0]) is None,
           f"the generic path with the super-body detection (super_k {cfg.super_k}), one cache"
           f" per member: pairs {tuple(states.bp.pairs.shape)}, ref {tuple(states.bp.ref.shape)}")
@@ -2058,8 +2092,7 @@ def phase16(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nin
     print(f"phase 16b: {pile_members} x the box pile ({n_boxes} create_boxes: {p_live} nodes and"
           f" {p_tris} triangles each; {pile_members * p_live} nodes, {pile_members * p_tris}"
           f" triangles a tick), each member jittered by ±0.02, {PILE_WARM} warm-up ticks")
-    check(broadphase.tri_mode(p_env[2], s.topology.tri_mask.shape[0]) == "allpairs"
-          and pd.ensemble_unported(piles, *p_env[::2]) is None,
+    check(broadphase.tri_mode(p_env[2], s.topology.tri_mask.shape[0]) == "allpairs",
           "the generic path with the all-pairs detection")
     ensemble.ensemble_tick_n(piles, *p_env, PILE_WARM)
     total = windows("16b", piles, p_env, PILE_WARM + 1, ("tri_candidates", "tri_ccd"))
@@ -2099,8 +2132,7 @@ def phase16(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nin
         b_env = (topo9, params9, cfg9)
         big = jittered_ensemble(st9, pile_members, live9, seed0=100)
         check(broadphase.tri_mode(cfg9, topo9.tri_mask.shape[0]) == kind
-              and not tetcols.applies(big, topo9, cfg9)
-              and pd.ensemble_unported(big, topo9, cfg9) is None,
+              and not tetcols.applies(big, topo9, cfg9),
               f"16c {kind} at phase 9b's size: {live9} nodes and"
               f" {int((topo9.tri_mask > 0).sum())} triangles a member, the generic path")
         stage_checks(f"{kind} at phase 9b's size", big, b_env)
@@ -2197,8 +2229,7 @@ def phase17(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, net
           f" edge_nets.solver_args(): contact_coupling {cfg.contact_coupling}, reference_quirks"
           f" {cfg.reference_quirks}, caps {cfg.budget.max_edge_contacts}; each member jittered"
           " by ±0.02")
-    check(not tetcols.applies(states, topo, cfg) and pd.ensemble_unported(states, topo, cfg)
-          is None and pd.edge_contact(cfg, topo),
+    check(not tetcols.applies(states, topo, cfg) and pd.edge_contact(cfg, topo),
           "the generic path with edge-edge and point-triangle contacts")
     # A probe past the window (reruns are bit-identical): each member's first
     # tick with edge contacts and its latch tick.
@@ -2236,8 +2267,8 @@ def phase17(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, net
     print(f"phase 17b: {cloud_members} PD node clouds (add_node_pile, {cloud_n} nodes each, seed"
           f" 3; {cloud_members * cloud_n} nodes a tick), node-node contacts on, cap"
           f" {c_env[2].budget.max_node_node_contacts}; each member jittered by ±0.02")
-    check(not tetcols.applies(cl, *c_env[::2]) and pd.ensemble_unported(cl, *c_env[::2]) is None
-          and c_env[2].enable_node_collisions, "the generic path with node-node contacts")
+    check(not tetcols.applies(cl, *c_env[::2]) and c_env[2].enable_node_collisions,
+          "the generic path with node-node contacts")
     seen = torch.zeros(cloud_members, dtype=torch.bool, device=dev)
     for tick in range(1, 41):
         c = pd.new_counters(dev, cloud_members)
@@ -2550,6 +2581,781 @@ def phase18(pt, dev, smi, rows, launches, reset_launches, read_launches, members
     lap("18f")
 
 
+def tetcol_stages(states, topo, params, cfg, kernel):
+    """One tet-column substep's outputs on a copy of ``states``, every stage
+    by the kernels (``kernel``) or every stage by the twins: T3, the
+    detection (T16/T17 on a per-triangle branch), T7's setup and force, T1,
+    T2, T8 and T4 (``tests/test_torch_ensemble.py``'s stages)."""
+    import numpy as np
+    import torch
+
+    from pies_tpu_torch.constraints import projections as proj
+    from pies_tpu_torch.solver import pd, tetcols
+
+    st = clone_state(states)
+    pick = (lambda k, p: k) if kernel else (lambda k, p: p)  # noqa: E731
+    out = {}
+    x, msn, diag, wf, active = out["T3"] = pick(pd.substep_head, pd.substep_head_plain)(
+        st, topo, params, cfg, True)
+    colls = pd.detect_point_tri(st, x, topo, params, cfg, active, plain=not kernel)
+    out["T16/T17"] = (colls.pt_idx, colls.pt_mask, colls.pt_count, colls.overflow)
+    h2 = float(np.float32(params.dt) * np.float32(params.dt))
+    inc, ptd = pick(tetcols.pt_coupling_setup, tetcols.pt_coupling_setup_plain)(
+        colls, st.mass, topo, h2, diag, wf, st.sim_failed)
+    live = colls.pt_count > 0
+    on = (inc.row_start[..., 1:] > inc.row_start[..., :-1]) & live
+    out["T7 setup"] = (torch.where(live, inc.row_start, 0), torch.where(on, ptd, 0.0), diag)
+    f0 = pick(proj.tet_force12, proj.tet_force12_plain)(x, topo.strain, topo.volume,
+                                                        st.sim_failed)
+    out["T1"] = (f0,)
+    contact = pick(tetcols.pt_force, tetcols.pt_force_plain)(x, colls, inc,
+                                                             params.collision_thickness,
+                                                             st.sim_failed)
+    out["T7 force"] = (torch.where(on[..., None], contact, 0.0),)
+    plane = pd.floor_plane(params, cfg.reference_quirks)
+    x_new, stat, r2 = out["T2"] = pick(tetcols.substep_cols, tetcols.substep_cols_plain)(
+        x, msn, diag, st.node_mask, wf, f0, topo, plane, 1, st.sim_failed,
+        (ptd, contact, inc.row_start, colls.pt_count))
+    fric = pick(pd.pt_tail, pd.pt_tail_plain)(st, params, cfg, colls, inc, x_new, stat)
+    out["T8"] = (x_new, st.prev_positions.clone(), torch.where(on[..., None], fric, 0.0))
+    pick(pd.substep_tail, pd.substep_tail_plain)(st, topo, params, active, x_new, stat, colls,
+                                                 inc, fric)
+    out["T4"] = (st.positions, st.velocities, st.forces, st.sim_failed)
+    return out, st
+
+
+def phase19(pt, dev, smi, PD, rows, launches, reset_launches, read_launches,
+            members=ENS_MEMBERS, n_tets=ENS_TETS):
+    """Phase 19: tet-column ensembles with self-contact off the packed bodies
+    (ROADMAP item 10c): ``members`` x the 512-tet soup of phase 13 (seeded
+    +-0.02 offsets) in reference mode (19 reference) and with a budget that
+    unpacks the bodies, on the cell list (19 celllist); each warmed into
+    contact, three timed ``ensemble_tick_n(10)`` windows with the sampled
+    members against their single-scene runs and the launches per tick at B
+    = members against B = 1 (``EnsembleChecks.windows``); then every stage
+    at B = 3, member 1 latched, against its twin."""
+    import dataclasses
+
+    import torch
+
+    from pies_tpu_torch.collision import broadphase
+    from pies_tpu_torch.parallel import ensemble
+    from pies_tpu_torch.scene.contact_piles import SUPER_OFF, jittered_ensemble
+    from pies_tpu_torch.solver import tetcols
+
+    ck = EnsembleChecks(dev, smi, rows, launches, reset_launches, read_launches, "19")
+    t_phase = time.perf_counter()
+    for mode in ("reference", "celllist"):
+        label = f"19 {mode}"
+        s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=True, device=dev,
+                      broadphase_mode=mode)
+        s.create_tet_soup(n_tets, **SCENE)
+        s._prepare()
+        cfg = s.config
+        if mode == "celllist":
+            cfg = dataclasses.replace(
+                cfg, body_nodes=0, body_node_offset=0, body_faces=(), allpairs_broadphase_max=0,
+                budget=dataclasses.replace(cfg.budget, body_stride=1, max_narrow_candidates=32),
+                **SUPER_OFF)
+        env = (s.topology, s.current_params(), cfg)
+        states = jittered_ensemble(s.state, members, s._builder.num_nodes, seed0=0)
+        check(tetcols.applies(states, *env[::2]) and broadphase.tri_mode(
+            cfg, s.topology.tri_mask.shape[0]) == mode,
+              f"{label}: {members} x {n_tets}-tet soups on the tet-column path, the {mode}"
+              " detection")
+        ensemble.ensemble_tick_n(states, *env, CONTACT_WARMUP)
+        print(f"phase {label}: {members} x {n_tets} tets, {CONTACT_WARMUP} warm-up ticks")
+        ck.windows(label, states, env, CONTACT_WARMUP + 1, ("tri_candidates", "tri_ccd"),
+                   every=("floor_active",), show=("contacts", "floor_active"))
+        st3 = first_members(states, 3)
+        st3.sim_failed[1, 0] = 1
+        k, k_state = tetcol_stages(st3, *env, True)
+        p, p_state = tetcol_stages(st3, *env, False)
+        torch.cuda.synchronize()
+        apart = [name for name in k for a, b in zip(k[name], p[name])
+                 if not all(torch.equal(a[m], b[m]) for m in (0, 2))]
+        counts = k["T16/T17"][2][:, 0].tolist()
+        frozen = all(torch.equal(getattr(k_state, f)[1], getattr(st3, f)[1])
+                     for f in ("positions", "prev_positions", "velocities"))
+        check(not apart and counts[1] == 0 and min(counts[0], counts[2]) > 0 and frozen,
+              f"{label}: every stage at B = 3 (member 1 latched, frozen) equal to its twin for"
+              f" members 0 and 2 ({', '.join(k)}; contacts {counts}; apart: {apart})")
+        del states, st3, k, p, s
+        print(f"  ({label}: {time.perf_counter() - t_phase:.1f} s into phase 19)")
+
+
+def domain_partition(domain, state, topo, want, margin, label):
+    """The domain of ``state`` in ``want`` slabs, or in the largest count
+    below it that the partitioner accepts (a halo wider than a block);
+    returns ``(domain, slabs)``."""
+    for d in range(want, 1, -1):
+        try:
+            return domain.partition_domain(clone_state(state), topo, d,
+                                           collision_margin=margin), d
+        except ValueError as e:
+            print(f"  {label}: {d} slabs refused ({e})")
+    raise SystemExit(f"FAILED: {label}: no slab count from {want} down to 2 accepted")
+
+
+def domain_counts(domain, dom, params, cfg, label, row):
+    """The slabs' contact counts, each slab on its view with its emit mask
+    (T16/T17, T25, T20), summed: ``{kind: count}``; of the node pairs the
+    touching ones, as a list of node-id pairs in the original numbering (a
+    pair is any two nodes sharing a hash bucket, so the rest depend on the
+    grid's table size, which a slab's view sets).  Each slab's detection is
+    held to its twins on the same inputs (the main path's shapes), and on
+    an inner slab the emit-masked launch is timed beside its twin: T16 on
+    the point-triangle scene, T25 on the edge scene, T20 on the node
+    cloud, each a row ``"<kernel> (emit)"`` of ``label``."""
+    import numpy as np
+    import torch
+
+    from pies_tpu_torch.collision import broadphase
+    from pies_tpu_torch.parallel import halo
+    from pies_tpu_torch.state import empty_node_pair_cache
+
+    meta, st, sc = dom.meta, dom.state, dom.static
+    b, l, v = meta.halo, meta.block, meta.view
+    dev = st.positions.device
+    h = float(np.float32(params.dt))
+    mask = sc.node_mask_view[:, b:b + l, None]
+    xv = halo.refresh(st.positions + h * st.velocities * mask, b)
+    pv = halo.refresh(st.prev_positions, b)
+    dcfg = domain.domain_config(cfg)
+    failed = st.sim_failed
+    zero = lambda: torch.zeros(1, dtype=torch.int32, device=dev)  # noqa: E731
+    out, held = {}, []
+    tris = sc.triangles.shape[1] > 0
+    timed = min(1, meta.n_slabs - 1)  # (an inner slab where there is one)
+    for s in range(meta.n_slabs):
+        emit = sc.tri_emit_mask[s]
+        if dcfg.enable_collisions and tris:
+            k, p = (broadphase.detect_point_tri_collisions(
+                xv[s], pv[s], sc.tri_mask[s], params, dcfg, failed=failed, plain=plain,
+                triangles=sc.triangles[s], emit=emit) for plain in (False, True))
+            held.append(("T16/T17", all(torch.equal(a, c) for a, c in zip(k, p))))
+            out["contacts"] = out.get("contacts", 0) + int(k[2][0])
+            if s == timed and label == "20b":
+                mode = broadphase.tri_mode(dcfg, sc.tri_mask.shape[1])
+                lay = broadphase.tri_layout(dcfg, sc.tri_mask.shape[1], mode)
+                scal = broadphase.tri_scalars(params, dcfg)
+                c16 = lambda fn: fn(  # noqa: E731
+                    xv[s], pv[s], sc.triangles[s], sc.tri_mask[s], lay, scal, zero(), failed, emit)
+                n_emit = int(((emit > 0) & (sc.tri_mask[s] > 0)).sum())
+                # Positions at both times and the triangles read once, the
+                # rows written; the emitting rows compare their gathered
+                # candidates' boxes (6 float comparisons each).
+                row("tri_candidates (emit)", "pies_tpu_torch/kernels/csrc/tri_candidates.cu",
+                    "pies_tpu/collision/broadphase.py:1410", 0.0,
+                    cuda_ms(lambda: c16(broadphase.tri_candidates), 10),
+                    cuda_ms(lambda: c16(broadphase.tri_candidates_plain), 2), "equal",
+                    24 * v + 16 * lay.t + 4 * lay.t * (lay.nb + 1), 6 * n_emit * lay.raw)
+        if dcfg.enable_edge_collisions and tris:
+            k, p = (broadphase.detect_edge_edge_collisions(
+                xv[s], pv[s], sc.triangles[s], sc.tri_mask[s], params, dcfg, zero(), failed,
+                plain, emit) for plain in (False, True))
+            held.append(("T16/T25", all(torch.equal(a, c) for a, c in zip(k, p))))
+            out["edge_hits"] = out.get("edge_hits", 0) + int(k[3][0])
+            if s == timed and label == "20d":
+                lay = broadphase.tri_layout(dcfg, sc.tri_mask.shape[1], "celllist")
+                ov = zero()
+                cand, count, flags = broadphase.tri_candidates(
+                    xv[s], pv[s], sc.triangles[s], sc.tri_mask[s], lay,
+                    broadphase.tri_scalars(params, dcfg), ov, failed)
+                args = (xv[s], pv[s], sc.triangles[s], cand, count, flags,
+                        dcfg.budget.max_edge_contacts, dcfg.reference_quirks, failed, emit)
+                t_rows, nb = cand.shape
+                slot = torch.arange(nb, device=dev)[None, :]
+                own = torch.arange(t_rows, device=dev)[:, None]
+                live_pairs = int(((slot < count[:, None]) & (cand > own)
+                                  & (emit[:, None] > 0)).sum())
+                n_e = int(k[2][0])
+                row("edge_ccd (emit)", "pies_tpu_torch/kernels/csrc/edge_ccd.cu",
+                    "pies_tpu/collision/broadphase.py:1499", 0.0,
+                    cuda_ms(lambda: broadphase.edge_ccd(*args), 20),
+                    cuda_ms(lambda: broadphase.edge_ccd_plain(*args), 2), "equal",
+                    4 * t_rows * nb + 16 * t_rows + 24 * v + 20 * n_e, 9 * 220 * live_pairs)
+        if dcfg.enable_node_collisions:
+            nk, np_ = (broadphase.detect_node_node_pairs(
+                xv[s], sc.radius_view[s], sc.node_mask_view[s], params, dcfg, failed, plain,
+                emit=sc.node_emit[s]) for plain in (False, True))
+            n = int(np_.count[0])
+            held.append(("T20", int(nk.count[0]) == n and all(
+                torch.equal(getattr(nk, f)[:n], getattr(np_, f)[:n])
+                for f in ("pi", "pj", "inc_pair")) and all(
+                torch.equal(getattr(nk, f), getattr(np_, f))
+                for f in ("row_off", "inc_start", "ref"))))
+            base = s * meta.block - meta.halo  # view slot v is new node base + v
+            out.setdefault("touching_pairs", []).extend(
+                frozenset(int(dom.perm[base + u]) for u in p)
+                for p in touching(nk, xv[s], sc.radius_view[s]))
+            if s == timed and label == "20c":
+                cc = empty_node_pair_cache(v, dcfg.budget.max_candidates_per_node, dev)
+
+                def rebuild(fn):
+                    cc.fresh.zero_()
+                    fn(xv[s], sc.radius_view[s], sc.node_mask_view[s], cc, params, dcfg, failed,
+                       sc.node_emit[s])
+
+                row("node_pairs (emit)", "pies_tpu_torch/kernels/csrc/node_pairs.cu",
+                    "pies_tpu/collision/broadphase.py:1966", 0.0,
+                    cuda_ms(lambda: rebuild(broadphase.node_pairs), 20),
+                    cuda_ms(lambda: rebuild(broadphase.node_pairs_plain), 3), "equal",
+                    52 * v + 12 * n, 0)
+    torch.cuda.synchronize()
+    kinds = sorted({k for k, _ in held})
+    if held:
+        check(all(ok for _, ok in held),
+              f"{label}: each of the {meta.n_slabs} slabs' emit-masked detection"
+              f" ({', '.join(kinds)}) equal to its twins on the same view")
+    return out
+
+
+def hold_stages(domain, dom, params, cfg, label, row):
+    """One domain substep on a copy of ``dom``'s state, at the main path's
+    shapes, with T8 (``pt_tail``) and T27's friction (``node_friction``) in
+    their accumulate-only modes and T4 (``tail``) with the friction at
+    every node each held to its twin on the inputs of the call, then timed
+    beside it: rows ``"pt_tail (acc)"`` and ``"substep_tail (fric_all)"``
+    on the point-triangle scene, ``"node_contacts (acc)"`` on the node
+    cloud (``label``).  Returns the stages held."""
+    import torch
+
+    from pies_tpu_torch.solver import pd
+    from pies_tpu_torch.state import clone_state as clone
+
+    kern, plain = pd._KERNELS, pd._PLAIN
+    held = {}
+    v_all = dom.meta.n_slabs * dom.meta.view
+    n_own = dom.meta.n_slabs * dom.meta.block
+
+    def pt_tail(*a):
+        got, ref = kern["pt_tail"](*a), plain["pt_tail"](*a)
+        torch.cuda.synchronize()
+        stage = "stabilize" if a[9] == pd.STABILIZE else "friction"
+        held.setdefault(f"T8 {stage}", []).append(torch.equal(got, ref))
+        colls = a[3]
+        if label == "20b" and stage == "friction" and a[4] is not None:
+            n_c = int(colls.pt_count[0])
+            # The contacts and the view's positions, masses and velocities
+            # read once, the sums written; ~90 operations a contact.
+            row("pt_tail (acc)", "pies_tpu_torch/kernels/csrc/pt_tail.cu",
+                "pies_tpu/solver/pd.py:526", 0.0, cuda_ms(lambda: kern["pt_tail"](*a), 20),
+                cuda_ms(lambda: plain["pt_tail"](*a), 3), "equal", 20 * n_c + 60 * v_all,
+                90 * n_c)
+        return got
+
+    def node_friction(*a):
+        got, ref = kern["node_friction"](*a), plain["node_friction"](*a)
+        torch.cuda.synchronize()
+        held.setdefault("T27 friction", []).append(all(torch.equal(x, y)
+                                                       for x, y in zip(got, ref)))
+        if label == "20c":
+            n_p = int(a[3].lim[0])
+            row("node_contacts (acc)", "pies_tpu_torch/kernels/csrc/node_contacts.cu",
+                "pies_tpu/solver/pd.py:452", 0.0, cuda_ms(lambda: kern["node_friction"](*a), 20),
+                cuda_ms(lambda: plain["node_friction"](*a), 3), "equal",
+                112 * n_p + 72 * v_all, 80 * n_p)
+        return got
+
+    def tail(state, *a):
+        twin = clone(state)
+        plain["tail"](twin, *a)
+        kern["tail"](state, *a)
+        torch.cuda.synchronize()
+        fields = ("positions", "prev_positions", "velocities", "forces", "sim_failed")
+        held.setdefault("T4" + (" fric_all" if a[-1] else ""), []).append(
+            all(torch.equal(getattr(state, f), getattr(twin, f)) for f in fields))
+        if label == "20b" and a[-1]:
+            row("substep_tail (fric_all)", "pies_tpu_torch/kernels/csrc/substep_ends.cu",
+                "pies_tpu/parallel/domain.py:955", 0.0, cuda_ms(lambda: kern["tail"](twin, *a), 20),
+                cuda_ms(lambda: plain["tail"](twin, *a), 5), "equal", 120 * n_own, 25 * n_own)
+
+    ops = domain._Ops(False)
+    ops.k = dict(kern, pt_tail=pt_tail, node_friction=node_friction, tail=tail)
+    domain._substep(clone(dom.state), dom.static, params, domain.domain_config(cfg), dom.meta,
+                    ops, True, None)
+    torch.cuda.synchronize()
+    check(held and all(all(v) for v in held.values()),
+          f"{label}: one domain substep at the main path's shapes with each of"
+          f" {', '.join(f'{k} ({len(v)})' for k, v in held.items())} equal to its twin on the"
+          " inputs of its call")
+    return held
+
+
+def hold_operator(dom, state, topo, params, label):
+    """The domain's CG operator and its dot product at the main path's
+    shapes against the single scene's, on one seeded vector ``p``: T30's
+    refresh, T10 over the flat views and T30's reduce (the slabs' view-local
+    rows, offsets and halo sums) against T10 over the single scene
+    (``topo``, the generic path's), within 1e-5 of the largest entry; the
+    reduce's p·Ap block partials against the float64 dot of the single
+    scene's ``p`` and ``Ap`` over its nodes, within 1e-5.  A lost or doubled
+    halo term parts them by a constraint's weight, a halo slot in the dot
+    by its share of the nodes; float32 sums in another order part them by
+    a few ulps.  (A whole tick amplifies those ulps about twentyfold: its
+    check is against the single scene's own one-ulp spread.)"""
+    import torch
+
+    from pies_tpu_torch.parallel import halo
+    from pies_tpu_torch.solver import assembly, pd
+
+    meta, sc = dom.meta, dom.static
+    d, l, b, v = meta.n_slabs, meta.block, meta.halo, meta.view
+    dev = state.positions.device
+    n = state.positions.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(20)
+    p = torch.randn((n, 3), generator=gen, device=dev) * state.node_mask[:, None]
+    _, h2 = pd._h_h2(params)
+    failed = torch.zeros(2, dtype=torch.int32, device=dev)
+    y1, _ = assembly.apply_system(p, state.mass, torch.zeros(n, device=dev), h2, topo, failed)
+    p_own = torch.zeros((d * l, 3), device=dev)
+    p_own[:n] = p[torch.from_numpy(dom.perm).to(dev).long()]
+    yv, _ = assembly.apply_system(halo.refresh(p_own.view(d, l, 3), b).view(-1, 3),
+                                  sc.mass_own_view.reshape(-1), torch.zeros(d * v, device=dev),
+                                  h2, sc.topo, failed)
+    y_own, part = halo.reduce(yv.view(d, v, 3), b, p=p_own.view(d, l, 3))
+    y = y_own.reshape(-1, 3)[torch.from_numpy(dom.inv_perm).to(dev).long()]
+    torch.cuda.synchronize()
+    scale = float(y1.abs().max())
+    err = float((y - y1).abs().max())
+    dot1 = float((p.double() * y1.double()).sum())
+    dot = float(part.double().sum())
+    check(err <= 1e-5 * scale and abs(dot - dot1) <= 1e-5 * abs(dot1),
+          f"{label}: the domain's operator (refresh, T10 over the {d} views, reduce) on one"
+          f" vector within 1e-5 of the largest entry ({scale:.4e}) of the single scene's T10"
+          f" (max |dy| {err:.3e}, {max_ulp(y, y1):.0f} ulp), its p.Ap partials within 1e-5 of"
+          f" the single scene's float64 dot ({dot:.9e} against {dot1:.9e})")
+
+
+def touching(nn, x, radius) -> list:
+    """The touching pairs ``(i, j)`` of a pair prefix: |x_j - x_i| <= r_i +
+    r_j."""
+    import torch
+
+    n = int(nn.count[0])
+    i, j = nn.pi[:n].long(), nn.pj[:n].long()
+    hit = torch.linalg.vector_norm(x[j] - x[i], dim=-1) <= radius[i] + radius[j]
+    return list(zip(i[hit].tolist(), j[hit].tolist()))
+
+
+def single_counts(domain, state, topo, params, cfg):
+    """The same counts of the single scene, on the same predicted positions
+    under the domain's detection branch."""
+    import numpy as np
+    import torch
+
+    from pies_tpu_torch.collision import broadphase
+
+    dcfg = domain.domain_config(cfg)
+    h = float(np.float32(params.dt))
+    x = state.positions + h * state.velocities * state.node_mask[:, None]
+    prev, failed = state.prev_positions, state.sim_failed
+    out = {}
+    tris = topo.triangles.shape[0] > 0
+    if dcfg.enable_collisions and tris:
+        out["contacts"] = int(broadphase.detect_point_tri_collisions(
+            x, prev, topo.tri_mask, params, dcfg, failed=failed, triangles=topo.triangles)[2][0])
+    if dcfg.enable_edge_collisions and tris:
+        ov = torch.zeros(1, dtype=torch.int32, device=x.device)
+        out["edge_hits"] = int(broadphase.detect_edge_edge_collisions(
+            x, prev, topo.triangles, topo.tri_mask, params, dcfg, ov, failed)[3][0])
+    if dcfg.enable_node_collisions:
+        nn = broadphase.detect_node_node_pairs(x, state.radius, state.node_mask, params, dcfg,
+                                               failed)
+        out["touching_pairs"] = [frozenset(p) for p in touching(nn, x, state.radius)]
+    return out
+
+
+def phase20(pt, dev, smi, PD, row, rows, launches, reset_launches, read_launches, keep,
+            cloud_n=CLOUD_N, nets_nn=NETS_NN, small_tets=16_384, twin_slabs=(3, 8)):
+    """Phase 20: the spatial domain decomposition on one card (ROADMAP item
+    11a): 20a phase 5's mesh in 8 slabs (floor contact), 20b phase 3b's
+    soup with self-contact in 4 (the cell list), 20c phase 12c's PD node
+    cloud in 4, 20d the crossing nets in 2 (edge-edge contacts under full
+    coupling); each: every slab's emit-masked detection (T16/T17, T25,
+    T20) and one substep's accumulate-only T8 and T27 friction and T4 with
+    the friction at every node held to their twins at the scene's own
+    shapes, and timed (rows ``"<kernel> (emit)"``, ``"(acc)"``,
+    ``"(fric_all)"``); the domain's CG operator and p·Ap partials on one
+    vector against the single scene's within 1e-5 (``hold_operator``); one
+    domain tick against the single scene's tick from the same state (the
+    generic path's Jacobi CG, the domain's detection branch) within 1e-5
+    or twice the single scene's own one-ulp spread, and against the same
+    tick in one slab (printed); the slabs' contact counts summed against
+    the single scene's on identical inputs, three timed 10-tick windows
+    beside the single scene's ms/tick, launches per tick and the device's
+    idle share; 20e the domain ticks by the kernels against the twins (every
+    kernel of the slice on the path, T30 and the emit masks and the
+    accumulate-only modes among them) at ``twin_slabs`` slabs on small
+    scenes, T30 held to its twins and timed on 20a's shapes; 20f a NaN in
+    one slab latches every slab.
+
+    20c's cloud is phase 12c's at ``CLOUD_DENSITY`` nodes per unit volume
+    instead of ~23: a node pair is any two nodes sharing a hash bucket of the
+    padded boxes, gathered up to 32 candidates a node in bucket order, and
+    at phase 12c's density that budget binds, so which pairs a node keeps
+    depends on the numbering (the slabs' and the single scene's differ, in
+    the JAX package too); at this density it does not bind, and the pairs
+    that touch are the same.  Distant cells still collide in the hash
+    table, so 20c's one tick against the single scene (and the one slab)
+    is printed, not held."""
+    import dataclasses
+
+    import torch
+
+    from pies_tpu_torch.parallel import domain, halo
+    from pies_tpu_torch.scene.edge_nets import add_crossing_nets, solver_args
+    from pies_tpu_torch.scene.pbd_scenes import add_node_pile
+    from pies_tpu_torch.solver import pd, step
+    from pies_tpu_torch.tick_profile import device_events
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    cells = {}  # each scene's slabs, ms/tick beside the single scene's, launches, idle share
+
+    def lap(what):
+        print(f"  ({what}: {time.perf_counter() - t_phase:.1f} s into phase 20)")
+
+    def generic(cfg, topo):
+        """The single scene on the generic path with Jacobi and the domain's
+        detection branch: the algorithm the domain runs."""
+        return (dataclasses.replace(domain.domain_config(cfg), tet_cols=False),
+                dataclasses.replace(topo, tet_block6=None))
+
+    def margin_of(state, topo, params, cfg):
+        """The partitioner's collision margin: the CCD threshold, twice the
+        largest triangle extent (a swept triangle) and the node pairs'
+        reach, 2 (r + 0.5) + a cell, as the scene's contacts need."""
+        m = 0.0
+        if topo.triangles.shape[0] and (cfg.enable_collisions or cfg.enable_edge_collisions):
+            live = topo.tri_mask > 0
+            p = state.positions[topo.triangles[live].long()]
+            ext = float((p.amax(1) - p.amin(1)).max())
+            m = params.collision_threshold_distance + 2.0 * ext
+        if cfg.enable_node_collisions:
+            m = max(m, 2.0 * (float(state.radius.max()) + 0.5) + params.grid_spacing)
+        return m
+
+    def run(label, state, topo, params, cfg, want, names, gate, n_live):
+        margin = margin_of(state, topo, params, cfg)
+        t0 = time.perf_counter()
+        dom, d = domain_partition(domain, state, topo, want, margin, label)
+        meta = dom.meta
+        print(f"phase {label}: {d} slabs of {meta.block} owned nodes, halo {meta.halo}, margin"
+              f" {margin:.3f} ({n_live} live nodes; partition {time.perf_counter() - t0:.2f} s)")
+        gcfg, gtopo = generic(cfg, topo)
+
+        def tagged(name, *args):
+            """``row``, the row's launches read from this scene's window."""
+            row(name, *args)
+            rows[name]["timed_on"] = label
+
+        dc = domain_counts(domain, dom, params, cfg, label, tagged)
+        sc_ = single_counts(domain, state, topo, params, cfg)
+        pairs, single_pairs = dc.pop("touching_pairs", []), set(sc_.pop("touching_pairs", []))
+        check(dc == sc_, f"{label}: the slabs' contact counts summed equal the single scene's on"
+              f" identical inputs: {dc} (each contact emitted by exactly one slab)")
+        if cfg.enable_node_collisions:
+            # Each node's candidates stop at 32 in bucket order, and a bucket
+            # holds the entries of every cell hashed to it: which pairs a
+            # crowded node keeps depends on the grid, so a slab may find a
+            # touching pair the single scene's grid dropped.
+            found = set(pairs)
+            check(len(found) == len(pairs) and single_pairs <= found,
+                  f"{label}: every touching pair of the single scene ({len(single_pairs)}) found by"
+                  f" exactly one slab on identical inputs ({len(pairs)} found, none twice;"
+                  f" {len(found - single_pairs)} more than the single scene's grid kept)")
+        hold_stages(domain, dom, params, cfg, label, tagged)
+        hold_operator(dom, state, gtopo, params, label)
+        tick = domain.make_domain_tick(cfg, meta)
+        single = clone_state(state)
+        step.tick(single, gtopo, params, gcfg)
+        # The same tick in one slab: the domain's spatial order, and so the
+        # CG's dot products summed in the same order as the slabs' (no halo
+        # exchange); the slabs part from it where the halo reduce sums a
+        # node's terms in another order, which the tick amplifies as it does
+        # a one-ulp move of its input (printed).
+        dom1 = domain.partition_domain(clone_state(state), topo, 1, collision_margin=margin)
+        domain.make_domain_tick(cfg, dom1.meta)(dom1.state, dom1.static, params)
+        tick(dom.state, dom.static, params)
+        got = torch.from_numpy(domain.gather_positions(dom, dom.state)[:n_live]).to(dev)
+        err = float((got - single.positions[:n_live]).abs().max())
+        err1 = float((got - torch.from_numpy(domain.gather_positions(dom1, dom1.state)[:n_live])
+                      .to(dev)).abs().max())
+        del dom1
+        # The single scene's own float32 spread: its tick from the state with
+        # half the live coordinates moved one ulp (phase 11d's measure); the
+        # domain sums the CG's dot products in another order (the spatial
+        # numbering), which is such a move.
+        gen = torch.Generator(device=dev).manual_seed(20)
+        u = clone_state(state)
+        live = u.node_mask[:, None] > 0
+        moved = (torch.rand(u.positions.shape, generator=gen, device=dev) < 0.5) & live
+        up = torch.rand(u.positions.shape, generator=gen, device=dev) < 0.5
+        u.positions.copy_(torch.where(moved, torch.nextafter(
+            u.positions, torch.where(up, float("inf"), float("-inf"))), u.positions))
+        step.tick(u, gtopo, params, gcfg)
+        spread = float((u.positions[:n_live] - single.positions[:n_live]).abs().max())
+        tol = max(1e-5, 2.0 * spread)
+        if cfg.enable_node_collisions:
+            # A node pair is any two nodes whose padded boxes share a hash
+            # bucket, and distant cells collide in the table: the single
+            # scene's pairs include such far pairs, a slab's view cannot
+            # (the JAX domain's neither), and every pair adds its weight to
+            # the system.  So the one tick is printed, and the pairs that
+            # touch are what is held (above).
+            print(f"  {label}: one domain tick against the single scene's from the same state:"
+                  f" max |dx| {err:.3e}, against the same tick in one slab {err1:.3e} (the far"
+                  f" hash-bucket pairs differ; the single scene's one-ulp spread {spread:.3e})")
+        else:
+            print(f"  {label}: one domain tick in {d} slabs against the same tick in one slab:"
+                  f" max |dx| {err1:.3e}")
+            check(err <= tol, f"{label}: one domain tick within {tol:.3e} (1e-5, or twice the"
+                  f" single scene's own one-ulp spread {spread:.3e}) of the single scene's"
+                  f" generic Jacobi tick from the same state (max |dx| {err:.3e})")
+        secs = []
+        for w in range(3):
+            reset_launches()
+            c = pd.new_counters(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                tick(dom.state, dom.static, params, c)
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) / 10)
+            launches[label] = read_launches()
+            counts = {k: int(v) for k, v in c.items() if int(v)}
+            check(not dom.state.sim_failed.any() and bool(torch.isfinite(dom.state.positions)
+                                                          .all()),
+                  f"{label} window {w + 1}: {secs[-1] * 1e3:.3f} ms/tick ({smi}), no slab"
+                  f" latched, finite; counters {counts}")
+        check(all(counts.get(g, 0) > 0 for g in gate), f"{label}: {', '.join(gate)} live")
+        check(all(launches[label][n] > 0 for n in names),
+              f"{label}: every kernel of the path launched: "
+              + ", ".join(f"{n} {launches[label][n] / 10:.1f}/tick" for n in names))
+        per_tick = sum(launches[label].values()) / 10
+        s_state = clone_state(state)
+        step.tick(s_state, topo, params, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.tick_n(s_state, topo, params, cfg, 10)
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 100
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                tick(dom.state, dom.static, params)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = device_events(prof)
+        busy = sum(us for _, us in events) / 1e3
+        halo_us = sum(us for e, us in events if "halo" in e.key or "refresh" in e.key
+                      or "reduce_kernel" in e.key or "merge" in e.key)
+        print(f"  {label}: domain {min(secs) * 1e3:.3f} to {max(secs) * 1e3:.3f} ms/tick, single"
+              f" scene {single_ms:.3f} ms/tick ({smi}); {per_tick:.1f} launches per tick; traced"
+              f" window: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle"
+              f" {100 - 100 * busy / wall:.1f}%, T30 {halo_us / 1e3:.3f} ms"
+              f" ({100 * halo_us / 1e3 / max(busy, 1e-9):.1f}% of busy)")
+        for e, us in sorted(events, key=lambda eu: -eu[1])[:6]:
+            print(f"    {us / 10:9.2f} us/tick  x{e.count / 10:<6.1f} {e.key[:80]}")
+        cells[label] = dict(one_tick_dx=err, one_slab_dx=err1, single_spread=spread,
+            slabs=d, block=meta.block, halo=meta.halo, ms_per_tick=min(secs) * 1e3,
+            single_ms_per_tick=single_ms, launches_per_tick=per_tick,
+            idle_share=1 - busy / wall, halo_share=halo_us / 1e3 / max(busy, 1e-9))
+        return dom, tick
+
+    path = ["substep_head", "halo_refresh", "halo_reduce", "tet_force_nodes", "ell_matvec",
+            "pcg", "substep_tail"]
+    # 20a: phase 5's mesh at tick 75 (floor contact), no self-contact.
+    warm, topo_a, params_a, cfg_a, live_a = keep.pop("20a")
+    dom_a, tick_a = run("20a", warm, topo_a, params_a, cfg_a, 8, path,
+                        ("floor_active", "cg_trips"), live_a)
+    del warm
+    lap("20a")
+    # 20b: phase 3b's soup at the start of its contact window, self-contact (the cell
+    # list, with the 32 narrow slots a row of the cell list's own budget: the
+    # packed bodies' 16 latch the piled soup's rows within ~20 ticks).
+    st, topo, params, cfg = keep.pop("20b")
+    cfg = dataclasses.replace(cfg, budget=dataclasses.replace(cfg.budget,
+                                                              max_narrow_candidates=32))
+    run("20b", st, topo, params, cfg, 4, path + ["tri_candidates", "tri_ccd", "pt_coupling",
+                                                 "pt_tail", "halo_merge"],
+        ("contacts", "floor_active"),
+        int((st.node_mask > 0).sum()))
+    del st, topo
+    lap("20b")
+    # 20c: phase 12c's PD node cloud.
+    s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False,
+                  enable_node_collisions=True,
+                  budget_overrides=dict(max_node_node_contacts=32 * cloud_n // 2), device=dev)
+    add_node_pile(s, cloud_n, math.sqrt(cloud_n / (5.5 * CLOUD_DENSITY)) / 2)
+    s._prepare()
+    run("20c", s.state, s.topology, s.current_params(), s.config, 4,
+        path + ["node_pairs", "node_contacts", "halo_merge"], ("node_pairs", "touching_pairs"),
+        s._builder.num_nodes)
+    del s
+    lap("20c")
+    # 20d: the crossing nets from their first edge contact (the single
+    # scene's), so that the windows end before the dense phase (tick ~48).
+    s = pt.Solver(pt.SolverOptions(solver=PD), device=dev, **solver_args())
+    add_crossing_nets(s, nets_nn)
+    s._prepare()
+    for first in range(1, NETS_DENSE + 1):
+        c = pd.new_counters(dev)
+        x = clone_state(s.state)
+        step.tick(x, s.topology, s.current_params(), s.config, counters=c)
+        if int(c["edge_contacts"]):
+            break
+        s._state = x
+    print(f"phase 20d: the nets' first edge contacts on tick {first}")
+    run("20d", s.state, s.topology, s.current_params(), s.config, 2,
+        path + ["tri_candidates", "tri_ccd", "edge_ccd", "edge_terms", "pt_full", "pt_tail",
+                "halo_merge"],
+        ("edge_contacts",), s._builder.num_nodes)
+    del s
+    lap("20d")
+
+    # 20e: the domain ticks by the kernels against the twins on small scenes.
+    done = set()
+
+    def twin_tick(label, state, topo, params, cfg, want, ticks=2):
+        dom, d = domain_partition(domain, state, topo, want, margin_of(state, topo, params, cfg),
+                                  label)
+        if (label, d) in done:  # (a refused count fell back to one already run)
+            return None
+        done.add((label, d))
+        dom2, _ = domain_partition(domain, state, topo, d, margin_of(state, topo, params, cfg),
+                                   label)
+        k_tick = domain.make_domain_tick(cfg, dom.meta)
+        p_tick = domain.make_domain_tick(cfg, dom.meta, plain=True)
+        ck, cp = pd.new_counters(dev), pd.new_counters(dev)
+        for _ in range(ticks):
+            k_tick(dom.state, dom.static, params, ck)
+            p_tick(dom2.state, dom2.static, params, cp)
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(dom.state, f), getattr(dom2.state, f))
+                   for f in ("positions", "prev_positions", "velocities", "shape_quats",
+                             "sim_failed"))
+        counts = {k: int(v) for k, v in ck.items() if int(v)}
+        check(same and all(torch.equal(ck[k], cp[k]) for k in ck),
+              f"20e {label} in {d} slabs: {ticks} domain ticks by the kernels bit-equal to the"
+              f" twins, counters too ({counts})")
+        return counts
+
+    soup = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=True, device=dev)
+    soup.create_tet_soup(small_tets, **SCENE)
+    soup.run_ticks(CONTACT_WARMUP)
+    cloud = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False,
+                      enable_node_collisions=True,
+                      budget_overrides=dict(max_node_node_contacts=16 * 8192), device=dev)
+    add_node_pile(cloud, 8192, math.sqrt(8192 / (5.5 * CLOUD_DENSITY)) / 2)  # (20c's density)
+    cloud._prepare()
+    nets = pt.Solver(pt.SolverOptions(solver=PD), device=dev, **solver_args())
+    add_crossing_nets(nets, nets_nn)
+    nets._prepare()
+    nets.run_ticks(NETS_DENSE)
+    for d in twin_slabs:
+        for label, s in (("soup", soup), ("cloud", cloud), ("nets", nets)):
+            twin_tick(f"{label} ({small_tets if label == 'soup' else s._builder.num_nodes}"
+                      " nodes)" if label != "soup" else f"soup ({small_tets} tets)", s.state,
+                      s.topology, s.current_params(), s.config, d)
+    del soup, cloud, nets
+    lap("20e twins")
+
+    # T30 on 20a's shapes: each mode against its twin, timed beside its bound
+    # and the library's gather / scatter-add of the same values.
+    meta = dom_a.meta
+    dd, ll, bb, vv = meta.n_slabs, meta.block, meta.halo, meta.view
+    gen = torch.Generator(device=dev).manual_seed(20)
+    own3 = torch.randn((dd, ll, 3), device=dev, generator=gen)
+    view3 = torch.randn((dd, vv, 3), device=dev, generator=gen)
+    view4 = torch.rand((dd, vv, 4), device=dev, generator=gen) * 3
+    idx = torch.arange(dd * vv, device=dev)
+    slab, slot = idx // vv, idx % vv
+    src = slab * ll + slot - bb  # the refresh's gather from the flat owned nodes
+    src_ok = (src >= 0) & (src < dd * ll)
+    src = torch.where(src_ok, src, 0)
+    dst_own = (slab * ll + slot - bb).clamp(0, dd * ll - 1)
+    checks = {
+        "refresh": (lambda: halo.refresh(own3, bb), lambda: halo.refresh_plain(own3, bb)),
+        "reduce": (lambda: halo.reduce(view3, bb), lambda: halo.reduce_plain(view3, bb)),
+        "reduce p.Ap": (lambda: halo.reduce(view3, bb, p=own3),
+                        lambda: halo.reduce_plain(view3, bb, p=own3)),
+        "average": (lambda: halo.reduce(view4, bb, halo.AVERAGE),
+                    lambda: halo.reduce_plain(view4, bb, halo.AVERAGE)),
+    }
+    for name, (fk, fp) in checks.items():
+        a, b_ = fk(), fp()
+        a, b_ = (a if isinstance(a, tuple) else (a,)), (b_ if isinstance(b_, tuple) else (b_,))
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(a, b_)),
+              f"20e T30 {name} at D = {dd}, L = {ll}, B = {bb}: equal to its twin")
+    x0, p0 = torch.randn((dd, ll, 3), device=dev, generator=gen), torch.randn(
+        (dd, ll, 3), device=dev, generator=gen)
+    act = (torch.rand((dd, ll), device=dev, generator=gen) < 0.1).float()
+    stat = torch.randn((dd, ll, 3), device=dev, generator=gen)
+    ok_failed = torch.zeros(2, dtype=torch.int32, device=dev)
+    xa, pa, xb, pb = x0.clone(), p0.clone(), x0.clone(), p0.clone()
+    halo.reduce(view4, bb, halo.APPLY, x_own=xa, prev_own=pa, active=act, stat=stat,
+                failed=ok_failed)
+    halo.reduce_plain(view4, bb, halo.APPLY, x_own=xb, prev_own=pb, active=act, stat=stat,
+                      failed=ok_failed)
+    torch.cuda.synchronize()
+    check(torch.equal(xa, xb) and torch.equal(pa, pb), "20e T30 apply: equal to its twin")
+    ms_r = cuda_ms(lambda: halo.refresh(own3, bb), 50)
+    lib_r = cuda_ms(lambda: own3.reshape(-1, 3).index_select(0, src), 50)
+    row("halo_refresh", "pies_tpu_torch/kernels/csrc/halo.cu",
+        "pies_tpu/parallel/domain.py:581", 0.0, ms_r,
+        cuda_ms(lambda: halo.refresh_plain(own3, bb), 10), "equal",
+        4 * dd * (ll + vv) * 3, 0, lib_r)  # (each input read once, each output written once)
+    ms_d = cuda_ms(lambda: halo.reduce(view3, bb), 50)
+    lib_d = cuda_ms(lambda: torch.zeros((dd * ll, 3), device=dev).index_add_(
+        0, dst_own, view3.reshape(-1, 3)), 50)
+    row("halo_reduce", "pies_tpu_torch/kernels/csrc/halo.cu",
+        "pies_tpu/parallel/domain.py:596", 0.0, ms_d,
+        cuda_ms(lambda: halo.reduce_plain(view3, bb), 10), "equal",
+        4 * dd * (vv + ll) * 3, 3 * dd * ll, lib_d)
+    cap = 4096
+    src = torch.randint(0, vv, (dd, cap, 4), device=dev, dtype=torch.int32, generator=gen)
+    smask = torch.ones((dd, cap), device=dev)
+    counts = torch.randint(0, cap + 1, (dd, 1), device=dev, dtype=torch.int32, generator=gen)
+    mk, mp = halo.merge(src, smask, counts, cap, vv), halo.merge_plain(src, smask, counts, cap, vv)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(mk, mp)),
+          f"20e T30 merge of {dd} lists of {cap} contacts ({int(mk[2][0])} live): equal to its"
+          " twin")
+    row("halo_merge", "pies_tpu_torch/kernels/csrc/halo.cu",
+        "pies_tpu/parallel/domain.py:706", 0.0,
+        cuda_ms(lambda: halo.merge(src, smask, counts, cap, vv), 50),
+        cuda_ms(lambda: halo.merge_plain(src, smask, counts, cap, vv), 5), "equal",
+        dd * cap * 20 + 4 * dd + dd * cap * 20, 0)
+    rows["halo_refresh"]["domain_cells"] = cells
+    rows["halo_reduce"]["modes_ms"] = {
+        "p.Ap partials": cuda_ms(lambda: halo.reduce(view3, bb, p=own3), 50),
+        "average k=4": cuda_ms(lambda: halo.reduce(view4, bb, halo.AVERAGE), 50)}
+    lap("20e T30")
+
+    # 20f: a NaN planted in one slab latches every slab; the next tick is a no-op.
+    ds, st_ = dom_a.state, dom_a.static
+    b_nan = dd // 2
+    node = int((st_.own.node_mask.view(dd, ll)[b_nan] > 0).nonzero()[0, 0])
+    check(not bool(ds.sim_failed.any()), "20f: no slab latched before")
+    ds.positions[b_nan, node, 0] = float("nan")
+    tick_a(ds, st_, params_a)
+    bits = lambda t: t.view(torch.int32).clone()  # noqa: E731  (NaN-proof equality)
+    before = [bits(getattr(ds, f)) for f in ("positions", "prev_positions", "velocities")]
+    tick_a(ds, st_, params_a)
+    torch.cuda.synchronize()
+    after = [bits(getattr(ds, f)) for f in ("positions", "prev_positions", "velocities")]
+    check(bool(ds.failed_slabs().all()) and int(ds.sim_failed[0]) == 1
+          and all(torch.equal(a, b) for a, b in zip(before, after)),
+          f"20f: a NaN in slab {b_nan} of {dd} latched every slab ({ds.failed_slabs().tolist()});"
+          " the next tick left the state bit for bit")
+    lap("20f")
+
+
 def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
          cloth_n=CLOTH_N, n_blobs=N_BLOBS, mixed_sheet=MIXED_SHEET, small_sheet=SMALL_SHEET,
          pbd_big=PBD_BIG, pbd_bench=PBD_BENCH, nets_nn=NETS_NN, nets_big=NETS_BIG,
@@ -2557,7 +3363,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
          mesh_res=MESH_RES, mesh_scale=MESH_SCALE, mesh_dump=MESH_BIG, ens_drop=ENS_DROP,
          ens_rope=ENS_ROPE, drop_res=DROP_RES, ens_cloth=ENS_CLOTH, ens_block=ENS_BLOCK,
          ens_contacts=ENS_DROP, ens_pile=ENS_PILE, contact_res=DROP_RES, pile_boxes=5,
-         ens_nets=ENS_NETS, ens_cloud=ENS_CLOUD, ens_big=ENS_BIG, ens_pbd=ENS_PBD):
+         ens_nets=ENS_NETS, ens_cloud=ENS_CLOUD, ens_big=ENS_BIG, ens_pbd=ENS_PBD,
+         domain_small=16_384, domain_slabs=(3, 8)):
     import torch
 
     # ---- phase 0
@@ -2583,12 +3390,22 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     from pies_tpu_torch.collision import broadphase
     from pies_tpu_torch.collision.batches import CollisionSet, incident
     from pies_tpu_torch.constraints import projections as proj
+    from pies_tpu_torch.parallel import halo
     from pies_tpu_torch.solver import assembly, pbd, pd, step, tetcols
 
     print("nvcc: " + run([kernels._nvcc(), "--version"]).splitlines()[-1])
     dev = dev or torch.device("cuda", 0)
     PD = pt.SolverName.PD
     soup_tets = n_tets  # (later phases reuse the name for their own tet counts)
+
+    t_main = [time.perf_counter()] * 2
+
+    def stamp(phase):
+        """Each phase's seconds, and the script's so far."""
+        now = time.perf_counter()
+        print(f"  (phase {phase}: {now - t_main[1]:.1f} s; {now - t_main[0]:.1f} s since the"
+              " start)")
+        t_main[1] = now
 
     # ---- phase 1
     print("phase 1: build")
@@ -2601,6 +3418,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
 
     rows = {}
     keep = {}  # solvers of earlier phases that phase 14 reads
+    domain_keep = {}  # the states phase 20 starts from
 
     def row(name, source, replaces, err, ms, plain_ms, tol_text, nbytes, ops, library_ms=None):
         b_ms, b_by = bound(nbytes, ops)
@@ -2693,6 +3511,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
               f" contacts ({smi})")
         return ms16, ms16p, bytes16, ops16, ms17, ms17p, bytes17, ops17
 
+    stamp("1")
+
     # ---- phase 2
     print(f"phase 2: T1-T4 against twins at {n_tets} tets, {4 * n_tets} nodes")
     s = pt.Solver(pt.SolverOptions(solver=PD), enable_collisions=False, device=dev)
@@ -2764,6 +3584,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         cuda_ms(lambda: pd.substep_tail_plain(tp, topo, params, active, x_new, static_proj), 20),
         f"{ulps} ulp", 120 * n_nodes, 25 * n_nodes)
     del s, st, sk, sp, tk, tp, hk, hp, fk, fp, ck, cp, args
+
+    stamp("2")
 
     # ---- phase 2b
     print(f"phase 2b: T5-T8 against twins at {n_tets} tets, contact-active state")
@@ -2927,6 +3749,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         passes * 60 * n_contacts + 90 * n_contacts)
     del s, st, sk, sp, cache, timing_cache, colls, colls_a, inc_k, inc_p
 
+    stamp("2b")
+
     # ---- phases 3 and 3b
     wrappers = {"substep_head": [pd.substep_head], "tet_force12": [proj.tet_force12],
                 "tet_cols_substep": [tetcols.substep_cols], "substep_tail": [pd.substep_tail],
@@ -2949,7 +3773,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                 "floor_entries": [pd.floor_entries], "edge_ccd": [broadphase.edge_ccd],
                 "edge_terms": [assembly.edge_terms], "node_contacts": [assembly.node_terms],
                 "residuals": [diagnostics.constraint_residuals],
-                "occupancy": [broadphase.occupancy]}
+                "occupancy": [broadphase.occupancy], "halo_refresh": [halo.refresh],
+                "halo_reduce": [halo.reduce], "halo_merge": [halo.merge, halo.merge_pairs]}
 
     def reset_launches():
         for fns in wrappers.values():
@@ -3011,6 +3836,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         print(f"phase {phase}: the main path {what}, {4 * n_tets} particles,"
               f" {warm} warm-up ticks")
         s = prepare(n_tets, collisions, SCENE, warm, False)
+        if collisions:  # phase 20b starts from this state, at tick 45
+            domain_keep["20b"] = (clone_state(s.state), s.topology, s.current_params(), s.config)
         reset_launches()
         sec, counts = window(s, 10, False)
         launches[phase] = read_launches()
@@ -3040,6 +3867,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             soup_3b = s  # phase 11b starts from this state
         del s, s_plain, pos
 
+    stamp("3 and 3b")
+
     # ---- phase 4
     print(f"phase 4: 40 ticks of a {n_small}-tet soup, kernels against twins")
     runs = []
@@ -3066,6 +3895,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
           f"contact counts equal on every tick: {per_tick[0]}")
     d = float((runs[0] - runs[1]).abs().max())
     check(d <= 1e-3, f"trajectories agree: max |dx| {d:.3e}")
+
+    stamp("4")
 
     # ---- phase 5 (with 2c)
     generic = ["substep_head", "tet_force_nodes", "ell_matvec", "pcg", "substep_tail"]
@@ -3195,6 +4026,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     print(f"  plain twins: {runs[1][2] * 1e3:.3f} ms/tick ({smi})")
     mesh_off = pos.clone()  # collisions off, mesh_warmup + 10 ticks: phase 5b compares
     mesh_5 = (s, warm)  # phase 11d starts from the warmed state
+    domain_keep["20a"] = (clone_state(warm), topo, params, cfg, n_live)  # phase 20a too
     del s, st, warm, runs, pos
 
     print(f"phase 5, small mesh: 40 ticks of {MESH_SMALL} with 4 pins, kernels against twins")
@@ -3209,6 +4041,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     d = float((runs[0][0] - runs[1][0]).abs().max())
     check(d <= 1e-3 and runs[0][1] == runs[1][1] and runs[0][1]["floor_active"] > 0,
           f"trajectories agree: max |dx| {d:.3e}, counters {runs[0][1]}")
+
+    stamp("5")
 
     # ---- phase 6 (with 2d)
     from pies_tpu_torch.scene.rigged_cloth import add_rigged_cloth, fixed_region_matrix
@@ -3388,6 +4222,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     keep["cloth"] = s  # phase 14c holds T28's distance and bend rows on its state
     del s, st, topo, warm, runs, pos
 
+    stamp("6")
+
     # ---- phase 6b
     print(f"phase 6b: {n_blobs} shape-matching blobs, {125 * n_blobs} nodes")
     t0 = time.perf_counter()
@@ -3442,6 +4278,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
           f" twins' {runs[1][1]}")
     del s, st, topo, warm, runs
 
+
+    stamp("6b")
 
     # ---- phase 7 (with 2e)
     from pies_tpu_torch.scene.mixed_drape import add_mixed_drape
@@ -3700,6 +4538,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     mixed_7 = (s, warm, first)  # phase 11c starts from the state of the first contact
     del s, st, topo, warm, runs, pos
 
+    stamp("7")
+
     # ---- phases 5b and 6c
     def hold_loose(solver, fold_from):
         """T14 and T15 against their twins at a pure-loose scene's shapes, on
@@ -3877,6 +4717,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     hold_loose(s, 0.9)
     del s, cloth_off
 
+    stamp("5b and 6c")
+
     # ---- phase 8
     print(f"phase 8: 40 ticks of a small mixed scene ({n_small} tets, a {small_sheet} x"
           f" {small_sheet} sheet at y = 2.2), kernels against twins")
@@ -3896,6 +4738,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
           f"contact counts equal on every tick: {per_tick[0]}")
     d = float((runs[0] - runs[1]).abs().max())
     check(d <= 1e-3, f"trajectories agree: max |dx| {d:.3e}")
+
+    stamp("8")
 
     # ---- phase 9 (a)
     tri_path = ["substep_head", "tri_candidates", "tri_ccd", "pt_coupling", "ell_matvec", "pcg",
@@ -3952,6 +4796,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         if name == "box_pile":
             keep["box_pile"] = sk  # phase 14d: T29's all-pairs branch
         del runs, sk, sp
+
+    stamp("9")
 
     # ---- phase 10
     from pies_tpu_torch.scene.pbd_scenes import add_net, add_node_pile, add_rope_fleet
@@ -4163,6 +5009,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         68 * n_pile + 12 * pairs, 140 * pairs,
         cuda_ms(lambda: torch.zeros((n_pile, 6), device=dev).index_add_(0, rows21, vals21), 20))
     del warmed, fleet, pile_s, a, b, xk, xp, ck, cp
+
+    stamp("10")
 
     # ---- phase 11: full contact coupling, the block preconditioner and the
     # entry-list floor (T22-T24)
@@ -4463,28 +5311,40 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     print(f"  phase 11a: {trips_11a:.2f} CG trips per solve under full coupling")
     del mesh_5, s, warm
 
+    stamp("11")
+
     # ---- phase 12: edge-edge and PD node-node contacts (T25-T27)
     nets12b = phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches,
                       kernels_vs_twins, nets_nn, nets_big, cloud_n)
 
+    stamp("12")
+
     # ---- phase 13: the scene ensemble (T1-T8 with a member axis)
     phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches,
             list(wrappers)[:8], ens_members, ens_tets, ens_small)
+
+    stamp("13")
 
     # ---- phase 14: the mesher, add_tri_mesh_volume and the diagnostics (T28, T29)
     nine_b = keep.pop("9b")  # (phase 14 clears the rest; phase 16c reads these)
     phase14(pt, dev, smi, PD, row, launches, reset_launches, read_launches, keep,
             mesh_res, mesh_scale, mesh_dump)
 
+    stamp("14")
+
     # ---- phase 15: ensembles on the contact-free generic path (T3, T9-T13,
     # T22, T4 with a member axis)
     phase15(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, generic, ens_drop,
             ens_rope, drop_res, ens_cloth, ens_block)
 
+    stamp("15")
+
     # ---- phase 16: ensembles on the generic path with point-triangle
     # self-contact (T14-T17, T7, T8, T23, T24 with a member axis)
     phase16(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, nine_b,
             ens_contacts, ens_pile, contact_res, pile_boxes)
+
+    stamp("16")
 
     # ---- phase 17: ensembles on the generic path with edge-edge and node-node
     # contacts (T20, T25-T27 with a member axis)
@@ -4492,10 +5352,25 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             nets_nn, ens_cloud, ens_big)
     del nets12b
 
+    stamp("17")
+
     # ---- phase 18: PBD ensembles (T18, T19, T21 with a member axis, T20's
     # node-pair cache per member across ticks)
     phase18(pt, dev, smi, rows, launches, reset_launches, read_launches, ens_pbd, pbd_bench,
             ens_tets)
+    stamp("18")
+
+    # ---- phase 19: tet-column ensembles with self-contact off the packed
+    # bodies (the reference sweep and the cell list, ROADMAP item 10c)
+    phase19(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, ens_members,
+            ens_tets)
+    stamp("19")
+
+    # ---- phase 20: the domain decomposition on one card (T30; T3, T4,
+    # T9-T13, T16/T17, T20, T25-T27 over the slabs)
+    phase20(pt, dev, smi, PD, row, rows, launches, reset_launches, read_launches, domain_keep,
+            cloud_n, nets_nn, domain_small, domain_slabs)
+    stamp("20")
 
     table = []
     generic_ens = ("substep_head", "substep_tail", "tet_force_nodes", "ell_matvec", "pcg",
@@ -4514,6 +5389,18 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             r["launches_by_path"] = {p: launches[p][name] for p in paths}
         elif name in ("tri_candidates", "tri_ccd"):
             r["launches"] = launches["9"][name]
+        elif "timed_on" in r:
+            # A domain mode of an earlier slice's kernel (its emit mask, its
+            # accumulate-only mode): the window of the scene it was timed on,
+            # every domain scene beside it.
+            base = name.split(" (")[0]
+            r["launches"] = launches[r.pop("timed_on")][base]
+            r["launches_by_path"] = {p: launches[p][base] for p in DOMAIN_PATHS}
+        elif name.startswith("halo_"):
+            # T30's main path: the mesh in 8 slabs (20a), the soup's contact
+            # lists (20b); every domain scene beside it.
+            r["launches"] = launches["20b" if name == "halo_merge" else "20a"][name]
+            r["launches_by_path"] = {p: launches[p][name] for p in DOMAIN_PATHS}
         elif name in ("residuals", "occupancy"):
             # The main path: 14a's window and the diagnostics read after it;
             # 14b's beside it.
@@ -4556,8 +5443,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         key = {"assemble_force_contacts": "tet_force_nodes", "ell_matvec_band": "ell_matvec",
                "assemble_force_cloth": "tet_force_nodes", "ell_matvec_cloth": "ell_matvec",
                "pcg_cloth": "pcg"}.get(name, name)
-        contact_paths = {p: launches[p][key] for p in CONTACT_PATHS + EDGE_PATHS
-                         if launches[p].get(key)}
+        contact_paths = {p: launches[p][key] for p in CONTACT_PATHS + EDGE_PATHS + (
+            "19 reference", "19 celllist") + DOMAIN_PATHS if launches[p].get(key)}
         if contact_paths:
             r.setdefault("launches_by_path", {}).update(contact_paths)
         table.append(r)

@@ -491,12 +491,16 @@ def detect_point_tri_collisions(x, prev, tri_mask, params: PhysicsParams, config
                                 failed: torch.Tensor | None = None, plain: bool = False,
                                 corners: torch.Tensor | None = None,
                                 adj: torch.Tensor | None = None,
-                                triangles: torch.Tensor | None = None):
+                                triangles: torch.Tensor | None = None,
+                                emit: torch.Tensor | None = None):
     """Point-triangle contacts of one substep, dispatched as
     ``broadphase.py:74-101`` does: the reference sweep, the packed-body
     path, the super-body path (with the scene's ``corners`` and ``adj``
     tables), the per-body cell list, all-pairs, or the cell list; the
-    per-triangle branches need ``triangles``.  With a cache of the scene's
+    per-triangle branches need ``triangles``.  ``emit`` (f32[T]) restricts
+    the triangles whose corners are tested (the domain decomposition's
+    owned triangles): the all-pairs, cell-list and reference branches
+    take it, as in the JAX package, and no other does.  With a cache of the scene's
     shape, the body paths use and update it in place; without one every
     call rebuilds (a fresh cache with zero slack gives exactly that).
     Returns ``(pt_idx, pt_mask, pt_count, overflow, rebuilt)``; ``overflow``
@@ -507,10 +511,13 @@ def detect_point_tri_collisions(x, prev, tri_mask, params: PhysicsParams, config
     check_detection(config)
     mode = tri_mode(config, tri_mask.shape[0])
     lead = x.shape[:-2]  # (B,) for an ensemble
+    if emit is not None and mode not in ("allpairs", "celllist", "reference"):
+        raise ValueError("an emit mask needs the all-pairs, cell-list or reference branch")
     if mode is not None:
         if triangles is None:
             raise ValueError(f"the {mode} detection needs the scene's triangles")
-        return _detect_tri(x, prev, triangles, tri_mask, params, config, failed, plain, mode)
+        return _detect_tri(x, prev, triangles, tri_mask, params, config, failed, plain, mode,
+                           emit)
     if super_body(config):
         return _detect_super(x, prev, params, config, cache, failed, plain, corners, adj)
     lay = body_layout(config, tri_mask.shape[0])
@@ -1058,11 +1065,11 @@ def tri_swept_aabb(x, prev, triangles, scale: float):
     return lo, hi
 
 
-def _allpairs_plain(lo, hi, triangles, live, lay: TriLayout, sc: Scalars, flags):
+def _allpairs_plain(lo, hi, triangles, live, lay: TriLayout, sc: Scalars, flags, emits):
     """All triangles' AABBs against all (``broadphase.py:104-207``):
     overlaps with the margin between live triangles that share no node,
-    each row's packed ascending into ``nb`` slots; ``narrow_over`` when a
-    row has more."""
+    the rows of emitting triangles only (``emits``), each row's packed
+    ascending into ``nb`` slots; ``narrow_over`` when a row has more."""
     t, nb, dev = lay.t, lay.nb, lo.device
     cand = torch.zeros((t, nb), dtype=torch.int32, device=dev)
     count = torch.zeros(t, dtype=torch.int32, device=dev)
@@ -1071,7 +1078,7 @@ def _allpairs_plain(lo, hi, triangles, live, lay: TriLayout, sc: Scalars, flags)
         rows = slice(r0, min(r0 + TRI_TWIN_ROWS, t))
         ov = ((lo[None] <= hi[rows, None] + sc.margin)
               & (hi[None] >= lo[rows, None] - sc.margin)).all(-1)
-        ov &= live[rows, None] & live[None, :] & (cols[None, :] != cols[rows, None])
+        ov &= (live & emits)[rows, None] & live[None, :] & (cols[None, :] != cols[rows, None])
         for a in range(3):
             for b in range(3):
                 ov &= triangles[rows, a, None] != triangles[None, :, b]
@@ -1101,32 +1108,38 @@ def _pack_rows(cand, valid, lo, hi, sc: Scalars, narrow: int, flags):
     return packed, count
 
 
-def _cell_list(lo, hi, live, lay: TriLayout, raw: int, flags):
+def _cell_list(lo, hi, live, lay: TriLayout, raw: int, flags, emits=None):
     """One home-cell entry per item (two corners on an oversize axis),
-    queries over ``[lo − 1, hi]`` (``broadphase.py:1386-1428``): up to
-    ``raw`` candidate items per row, clamped to the item count."""
+    queries over ``[lo − 1, hi]`` (``broadphase.py:1386-1428``) from the
+    emitting items (``emits``, all when None): up to ``raw`` candidate
+    items per row, clamped to the item count."""
     ins_coords, ins_valid = _insertion_slots(lo, hi, live)
     grid = build_grid(ins_coords, ins_valid, lay.h)
     q_coords, q_valid, _ = aabb_cell_slots(lo - 1.0, hi, lay.cells_cap, QUERY_RANGE_CAP)
-    cand, valid, over = gather_candidates(grid, q_coords, q_valid & live[:, None],
+    query = live if emits is None else live & emits
+    cand, valid, over = gather_candidates(grid, q_coords, q_valid & query[:, None],
                                           lay.entries_cap, raw)
     flags[2] |= (over & live).any().to(torch.int32)
     return torch.clamp_max(cand, lo.shape[0] - 1), valid
 
 
 def tri_candidates_plain(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scalars,
-                         overflow: torch.Tensor, failed: torch.Tensor | None = None):
+                         overflow: torch.Tensor, failed: torch.Tensor | None = None,
+                         emit: torch.Tensor | None = None):
     """Plain twin of kernel T16, the candidate stage of a per-triangle
     branch: ``(cand i32[T, nb], count i32[T], flags i32[8])``, each row's
     candidates a packed ascending prefix of ``count`` slots (0 past it) and
     ``flags`` the words of ``TRI_FLAGS``; ORs the latches into ``overflow``.
-    Nothing is found when latch slot 0 of ``failed`` is set.  An ensemble
-    (``x`` f32[B, N, 3], ``overflow`` i32[B, 1]) runs member by member:
-    ``cand`` i32[B, T, nb], ``count`` i32[B, T], ``flags`` i32[B, 8]."""
+    Nothing is found when latch slot 0 of ``failed`` is set.  ``emit``
+    (f32[T], or None: every triangle) marks the triangles that query: the
+    others keep empty rows but stay candidates (the domain decomposition's
+    owned triangles; not in the per-body branch).  An ensemble (``x``
+    f32[B, N, 3], ``overflow`` i32[B, 1]) runs member by member: ``cand``
+    i32[B, T, nb], ``count`` i32[B, T], ``flags`` i32[B, 8]."""
     if members_of(x):
         return each_member(lambda xb, pb, ob, fb: tri_candidates_plain(
-            xb, pb, triangles, tri_mask, lay, sc, ob, fb), members_of(x), x, prev, overflow,
-            failed)
+            xb, pb, triangles, tri_mask, lay, sc, ob, fb, emit), members_of(x), x, prev,
+            overflow, failed)
     dev = x.device
     flags = torch.zeros(8, dtype=torch.int32, device=dev)
     if failed is not None and bool(failed[0]):
@@ -1134,11 +1147,14 @@ def tri_candidates_plain(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scala
                 torch.zeros(lay.t, dtype=torch.int32, device=dev), flags)
     lo, hi = tri_swept_aabb(x, prev, triangles, sc.cell)
     live = tri_mask > 0
+    if emit is not None and lay.mode == "bodies":
+        raise ValueError("the per-body branch takes no emit mask")
+    emits = torch.ones_like(live) if emit is None else emit > 0
     if lay.mode == "allpairs":
-        cand, count = _allpairs_plain(lo, hi, triangles, live, lay, sc, flags)
+        cand, count = _allpairs_plain(lo, hi, triangles, live, lay, sc, flags, emits)
     elif lay.mode == "celllist":
         flags[1] |= ((((hi - lo) > sc.size_limit).any(-1) & live).any()).to(torch.int32)
-        raw, valid = _cell_list(lo, hi, live, lay, lay.raw, flags)
+        raw, valid = _cell_list(lo, hi, live, lay, lay.raw, flags, emits)
         cand, count = _pack_rows(raw, valid, lo, hi, sc, lay.nb, flags)
     elif lay.mode == "bodies":
         # Body boxes over their live triangles (broadphase.py:1117-1166).
@@ -1166,7 +1182,7 @@ def tri_candidates_plain(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scala
         ins_coords, ins_valid, ins_over = aabb_cell_slots(lo, hi, s, 50)
         q_coords, q_valid, q_over = aabb_cell_slots(lo, hi, s, 20)
         grid = build_grid(ins_coords, ins_valid & live[:, None], lay.h)
-        raw, valid, over = gather_candidates(grid, q_coords, q_valid & live[:, None],
+        raw, valid, over = gather_candidates(grid, q_coords, q_valid & (live & emits)[:, None],
                                              lay.entries_cap, lay.raw)
         flags[2] |= (over & live).any().to(torch.int32)
         flags[5] |= (ins_over & live).any().to(torch.int32)
@@ -1178,12 +1194,16 @@ def tri_candidates_plain(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scala
 
 
 def tri_candidates(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scalars,
-                   overflow: torch.Tensor, failed: torch.Tensor | None = None):
+                   overflow: torch.Tensor, failed: torch.Tensor | None = None,
+                   emit: torch.Tensor | None = None):
     """Kernel T16 on CUDA tensors, :func:`tri_candidates_plain` on CPU
     tensors (same arguments and results).  On the card ``failed`` is
     required."""
     if kernels.on_cpu(x):
-        return tri_candidates_plain(x, prev, triangles, tri_mask, lay, sc, overflow, failed)
+        return tri_candidates_plain(x, prev, triangles, tri_mask, lay, sc, overflow, failed,
+                                    emit)
+    if emit is not None and lay.mode == "bodies":
+        raise ValueError("the per-body branch takes no emit mask")
     if failed is None:
         raise ValueError("the candidate kernel needs the failure latch")
     if (lay.raw > TRI_MAX_RAW or lay.cells_cap > TRI_MAX_CELLS
@@ -1192,7 +1212,7 @@ def tri_candidates(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scalars,
                          f" (narrow bodies times body stride) and {TRI_MAX_CELLS} query"
                          " cells per row")
     dev = x.device
-    kernels.require(dev, x, prev, triangles, tri_mask, overflow, failed)
+    kernels.require(dev, x, prev, triangles, tri_mask, overflow, failed, emit)
     members = kernels.launch_members(x, failed, prev, overflow)
     lead = x.shape[:-2]  # (B,) for an ensemble: every buffer per member
     i32 = dict(dtype=torch.int32, device=dev)
@@ -1213,8 +1233,8 @@ def tri_candidates(x, prev, triangles, tri_mask, lay: TriLayout, sc: Scalars,
         count_h.data_ptr(), cursor.data_ptr(), start.data_ptr(), partial.data_ptr(),
         entries.data_ptr(), bounds.data_ptr(), bodies.data_ptr(), n_bodies.data_ptr(),
         cand.data_ptr(), count.data_ptr(), flags.data_ptr(), overflow.data_ptr(),
-        failed.data_ptr(), TRI_MODES.index(lay.mode), lay.t, lay.k, lay.e, lay.s,
-        lay.cells_cap, lay.entries_cap, lay.raw, lay.nbb, lay.nb, lay.h, int(lay.unpacked),
+        failed.data_ptr(), kernels.ptr(emit), TRI_MODES.index(lay.mode), lay.t, lay.k, lay.e,
+        lay.s, lay.cells_cap, lay.entries_cap, lay.raw, lay.nbb, lay.nb, lay.h, int(lay.unpacked),
         sc.cell, sc.margin, sc.size_limit, x.shape[-2], members, kernels.stream(),
     )
     kernels.check(err, "tri_candidates")
@@ -1325,13 +1345,13 @@ tri_ccd.launches = 0
 
 
 def _detect_tri(x, prev, triangles, tri_mask, params: PhysicsParams, config: StepConfig,
-                failed, plain: bool, mode: str):
+                failed, plain: bool, mode: str, emit=None):
     """A per-triangle branch of :func:`detect_point_tri_collisions`."""
     lay = tri_layout(config, triangles.shape[0], mode)
     sc = tri_scalars(params, config)
     overflow = torch.zeros(x.shape[:-2] + (1,), dtype=torch.int32, device=x.device)
     cf, df = (tri_candidates_plain, tri_ccd_plain) if plain else (tri_candidates, tri_ccd)
-    cand, count, flags = cf(x, prev, triangles, tri_mask, lay, sc, overflow, failed)
+    cand, count, flags = cf(x, prev, triangles, tri_mask, lay, sc, overflow, failed, emit)
     pt_idx, pt_mask, pt_count = df(x, prev, triangles, cand, count, flags, lay, sc, failed)
     return pt_idx, pt_mask, pt_count, overflow, torch.zeros_like(overflow)
 
@@ -1343,7 +1363,7 @@ EDGES = ((0, 1), (1, 2), (2, 0))  # a triangle's edges, in the JAX order
 
 
 def edge_ccd_plain(x, prev, triangles, cand, count, flags, cap: int, quirks: bool,
-                   failed: torch.Tensor | None = None):
+                   failed: torch.Tensor | None = None, emit: torch.Tensor | None = None):
     """Plain twin of kernel T25, the narrowphase of ``detect_edge_edge_
     collisions`` (``broadphase.py:1485-1548``): each (triangle, candidate
     slot) pair whose candidate has a larger id and shares no node, its 3 x 3
@@ -1353,13 +1373,14 @@ def edge_ccd_plain(x, prev, triangles, cand, count, flags, cap: int, quirks: boo
     ``(a, b | c, d)``.  Returns ``(edge_idx i32[cap, 4], edge_mask f32[cap],
     edge_count i32[1], edge_hits i32[1])``, ``edge_hits`` the hits before
     the cap.  Nothing is found when latch slot 0 is set or T16 filled no
-    slot.  An ensemble (``x`` f32[B, N, 3], T16's rows, counts and flags
+    slot.  ``emit`` (f32[T], or None) keeps the pairs whose triangle emits
+    (``broadphase.py:1499-1500``).  An ensemble (``x`` f32[B, N, 3], T16's rows, counts and flags
     and the latch per member) runs member by member: every result with the
     member axis."""
     if members_of(x):
         return each_member(lambda xb, pb, cb, kb, gb, fb: edge_ccd_plain(
-            xb, pb, triangles, cb, kb, gb, cap, quirks, fb), members_of(x), x, prev, cand, count,
-            flags, failed)
+            xb, pb, triangles, cb, kb, gb, cap, quirks, fb, emit), members_of(x), x, prev, cand,
+            count, flags, failed)
     dev = x.device
     edge_idx = torch.zeros((cap, 4), dtype=torch.int32, device=dev)
     edge_mask = torch.zeros(cap, dtype=torch.float32, device=dev)
@@ -1373,6 +1394,8 @@ def edge_ccd_plain(x, prev, triangles, cand, count, flags, cap: int, quirks: boo
     other = cand.reshape(-1).long()
     tl = triangles.long()
     ok = (slot < count.long()[tri]) & (other > tri)
+    if emit is not None:
+        ok &= emit[tri] > 0
     ok &= ~(tl[tri][:, :, None] == tl[other][:, None, :]).any(-1).any(-1)
     pair, tri, other = pair[ok], tri[ok], other[ok]
     ids = []
@@ -1402,20 +1425,21 @@ def edge_ccd_plain(x, prev, triangles, cand, count, flags, cap: int, quirks: boo
 
 
 def edge_ccd(x, prev, triangles, cand, count, flags, cap: int, quirks: bool,
-             failed: torch.Tensor | None = None):
+             failed: torch.Tensor | None = None, emit: torch.Tensor | None = None):
     """Kernel T25 on CUDA tensors, :func:`edge_ccd_plain` on CPU tensors
     (same arguments and results; the counts stay on the device).  On the
     card ``failed`` is required; an ensemble is one launch for all
     members."""
     if kernels.on_cpu(x):
-        return edge_ccd_plain(x, prev, triangles, cand, count, flags, cap, quirks, failed)
+        return edge_ccd_plain(x, prev, triangles, cand, count, flags, cap, quirks, failed,
+                              emit)
     if failed is None:
         raise ValueError("the edge CCD kernel needs the failure latch")
     t, nb = cand.shape[-2:]
     if 9 * t * nb >= 1 << 31:  # (a lane index counts one member's pairs)
         raise ValueError("the edge CCD kernel takes fewer than 2^31 lanes a member")
     dev = x.device
-    kernels.require(dev, x, prev, triangles, cand, count, flags, failed)
+    kernels.require(dev, x, prev, triangles, cand, count, flags, failed, emit)
     members = kernels.launch_members(x, failed, prev, cand, count, flags)
     lead = x.shape[:-2]  # (B,) for an ensemble: every buffer per member
     i32 = dict(dtype=torch.int32, device=dev)
@@ -1430,8 +1454,8 @@ def edge_ccd(x, prev, triangles, cand, count, flags, cap: int, quirks: bool,
         x.data_ptr(), prev.data_ptr(), triangles.data_ptr(), cand.data_ptr(),
         count.data_ptr(), flags.data_ptr(), bits.data_ptr(), partial.data_ptr(),
         edge_idx.data_ptr(), edge_mask.data_ptr(), edge_count.data_ptr(),
-        edge_hits.data_ptr(), failed.data_ptr(), t, nb, cap, int(quirks), x.shape[-2], members,
-        kernels.stream())
+        edge_hits.data_ptr(), failed.data_ptr(), kernels.ptr(emit), t, nb, cap, int(quirks),
+        x.shape[-2], members, kernels.stream())
     kernels.check(err, "edge_ccd")
     edge_ccd.launches += 1
     return edge_idx, edge_mask, edge_count, edge_hits
@@ -1442,11 +1466,13 @@ edge_ccd.launches = 0
 
 def detect_edge_edge_collisions(x, prev, triangles, tri_mask, params: PhysicsParams,
                                 config: StepConfig, overflow: torch.Tensor,
-                                failed: torch.Tensor | None = None, plain: bool = False):
+                                failed: torch.Tensor | None = None, plain: bool = False,
+                                emit: torch.Tensor | None = None):
     """Port of ``detect_edge_edge_collisions`` (``broadphase.py:1450-1548``):
     the cell-list candidates (T16 in ``"celllist"`` mode, whatever branch
     the point-triangle detection takes, in ``broadphase_cell`` units), their
-    latches ORed into ``overflow``, then T25.  Returns ``(edge_idx,
+    latches ORed into ``overflow``, then T25 (with the emit mask ``emit``,
+    f32[T] or None, on its pairs).  Returns ``(edge_idx,
     edge_mask, edge_count, edge_hits)``, each with the member axis for an
     ensemble's ``x`` f32[B, N, 3] (T16 and T25 take it)."""
     lay = tri_layout(config, triangles.shape[0], "celllist")
@@ -1454,22 +1480,24 @@ def detect_edge_edge_collisions(x, prev, triangles, tri_mask, params: PhysicsPar
     cf, ef = (tri_candidates_plain, edge_ccd_plain) if plain else (tri_candidates, edge_ccd)
     cand, count, flags = cf(x, prev, triangles, tri_mask, lay, sc, overflow, failed)
     return ef(x, prev, triangles, cand, count, flags, config.budget.max_edge_contacts,
-              config.reference_quirks, failed)
+              config.reference_quirks, failed, emit)
 
 
 def detect_node_node_pairs(x, radius, node_mask, params: PhysicsParams, config: StepConfig,
-                           failed, plain: bool = False):
+                           failed, plain: bool = False, emit: torch.Tensor | None = None):
     """Port of ``detect_node_node_pairs`` (``broadphase.py:1975-2015``): the
     i-major pair prefix of T20, built afresh in a new cache (PD detects
     every substep; the PBD cache ``state.nn`` is not touched), of which the
     first ``min(count, max_node_node_contacts)`` pairs are the contacts
-    (``batches.node_pairs_of``).  Returns the cache, one per member for an
-    ensemble's ``x`` f32[B, N, 3] (every field with the member axis)."""
+    (``batches.node_pairs_of``); with ``emit`` (f32[N]) only the pairs
+    whose first node emits (the domain decomposition's owned nodes).
+    Returns the cache, one per member for an ensemble's ``x`` f32[B, N, 3]
+    (every field with the member axis)."""
     nn = empty_node_pair_cache(x.shape[-2], config.budget.max_candidates_per_node, x.device)
     if members_of(x):
         nn = stack_members([nn] * members_of(x))
     (node_pairs_plain if plain else node_pairs)(x, radius, node_mask, nn, params, config,
-                                                failed)
+                                                failed, emit)
     return nn
 
 
@@ -1495,14 +1523,15 @@ def node_table_size(n: int, config: StepConfig) -> int:
 
 
 def node_pair_candidates(x: torch.Tensor, radius: torch.Tensor, node_mask: torch.Tensor,
-                         params: PhysicsParams, config: StepConfig):
+                         params: PhysicsParams, config: StepConfig, emit=None):
     """Port of ``_node_pair_candidates`` (``broadphase.py:1903-1972``): every
     live node's AABB padded by 0.5 (``NodeCompRange``, ``Solver.cpp:877-901``)
     in ``grid_spacing`` cells, its cells (range cap 50), the grid, up to
     ``max_candidates_per_node`` candidates per node in query-cell order
     (``max_entries_per_cell`` per bucket), each row sorted and deduplicated.
     Returns ``(cand i32[N, B], ok bool[N, B])``, ``ok`` marking unordered
-    pairs (``cand > i``) of live nodes."""
+    pairs (``cand > i``) of live nodes, whose i emits where ``emit`` (f32[N])
+    is given (``broadphase.py:1966-1971``)."""
     budget = config.budget
     n = x.shape[0]
     live = node_mask > 0
@@ -1523,15 +1552,18 @@ def node_pair_candidates(x: torch.Tensor, radius: torch.Tensor, node_mask: torch
     cand = torch.clamp_max(cand_sorted, n - 1)
     i_idx = torch.arange(n, dtype=torch.int32, device=x.device)[:, None]
     ok = cand_valid & (cand > i_idx) & live[:, None] & live[cand.long()]
+    if emit is not None:
+        ok &= (emit > 0)[:, None]
     return cand.to(torch.int32), ok
 
 
-def node_pair_prefix(x, radius, node_mask, params: PhysicsParams, config: StepConfig):
+def node_pair_prefix(x, radius, node_mask, params: PhysicsParams, config: StepConfig,
+                     emit=None):
     """Port of ``_node_pair_prefix`` (``broadphase.py:2018-2032``): the
     unordered pairs packed to a valid prefix in stable i-major order.
     Returns ``(pi i32[NB], pj i32[NB], count)``; the tail holds the invalid
     slots in order."""
-    cand, ok = node_pair_candidates(x, radius, node_mask, params, config)
+    cand, ok = node_pair_candidates(x, radius, node_mask, params, config, emit)
     n, bw = cand.shape
     ok_f = ok.reshape(-1)
     order = torch.sort((~ok_f).to(torch.int32), stable=True).indices
@@ -1603,17 +1635,18 @@ def pair_response_acc(x, vel, radius, inv_mass, pi, pj, count: int,
 
 
 def node_pairs_plain(x, radius, node_mask, nn, params: PhysicsParams, config: StepConfig,
-                     failed) -> torch.Tensor:
+                     failed, emit: torch.Tensor | None = None) -> torch.Tensor:
     """Plain twin of kernel T20, in place on the cache ``nn``: the drift test
     (``max|x − ref| > NN_CACHE_SLACK``, or a stale cache), then on a rebuild
     the pair prefix of :func:`node_pair_prefix`, ``ref = x``, ``fresh = 1``
-    and the incidence of :func:`state.pair_incidence`.  Returns the rebuild
-    flag i32[1] (also ``nn.rebuilt``); nothing happens when latch slot 0 is
-    set.  An ensemble (``x`` f32[B, N, 3], its cache and latch per member)
-    runs member by member."""
+    and the incidence of :func:`state.pair_incidence`; ``emit`` as in
+    :func:`node_pair_candidates`.  Returns the rebuild flag i32[1] (also
+    ``nn.rebuilt``); nothing happens when latch slot 0 is set.  An ensemble
+    (``x`` f32[B, N, 3], its cache and latch per member) runs member by
+    member."""
     if members_of(x):
         each_member(lambda xb, rb, mb, cb, fb: node_pairs_plain(xb, rb, mb, cb, params, config,
-                                                                fb),
+                                                                fb, emit),
                     members_of(x), x, radius, node_mask, nn, failed)
         return nn.rebuilt
     drift = torch.max(torch.abs(x - nn.ref))
@@ -1621,7 +1654,7 @@ def node_pairs_plain(x, radius, node_mask, nn, params: PhysicsParams, config: St
            and (int(nn.fresh[0]) == 0 or bool(drift > NN_CACHE_SLACK)))
     nn.rebuilt.fill_(int(due))
     if due:
-        pi, pj, count = node_pair_prefix(x, radius, node_mask, params, config)
+        pi, pj, count = node_pair_prefix(x, radius, node_mask, params, config, emit)
         n = x.shape[0]
         ro, ist, ip = pair_incidence(pi, pj, count, n)
         nn.pi[:count] = pi[:count]
@@ -1654,13 +1687,13 @@ def node_scratch(n: int, config: StepConfig, device, members: int = 1) -> dict[s
 
 
 def node_pairs(x, radius, node_mask, nn, params: PhysicsParams, config: StepConfig,
-               failed) -> torch.Tensor:
+               failed, emit: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel T20 on a CUDA tensor (the cache updated on the device, the
     rebuild decided there), :func:`node_pairs_plain` on a CPU tensor.
     Returns the rebuild flag i32[1] (i32[B, 1] for an ensemble, one launch
     for all members)."""
     if kernels.on_cpu(x):
-        return node_pairs_plain(x, radius, node_mask, nn, params, config, failed)
+        return node_pairs_plain(x, radius, node_mask, nn, params, config, failed, emit)
     b = config.budget
     if (b.max_candidates_per_node > NODE_MAX_BUDGET or b.max_cells_per_node > NODE_MAX_CELLS
             or b.max_entries_per_cell > NODE_MAX_HEAD):
@@ -1672,12 +1705,12 @@ def node_pairs(x, radius, node_mask, nn, params: PhysicsParams, config: StepConf
     if nn.pi.shape[-1] != n * b.max_candidates_per_node or nn.ref.shape[-2] != n:
         raise ValueError("the node-pair cache does not match the nodes and the budget")
     sc = node_scratch(n, config, x.device, members)
-    kernels.require(x.device, x, radius, node_mask, failed, *cache)
+    kernels.require(x.device, x, radius, node_mask, failed, emit, *cache)
     err = kernels.lib().pies_node_pairs(
         x.data_ptr(), radius.data_ptr(), node_mask.data_ptr(), *(t.data_ptr() for t in cache),
         *(sc[k].data_ptr() for k in ("count_h", "cursor", "start", "partial", "entries", "rows",
                                       "cnt2", "off2", "jcur", "flags", "big")),
-        failed.data_ptr(), n, b.max_cells_per_node, b.max_entries_per_cell,
+        failed.data_ptr(), kernels.ptr(emit), n, b.max_cells_per_node, b.max_entries_per_cell,
         b.max_candidates_per_node, node_table_size(n, config), params.grid_spacing,
         NN_CACHE_SLACK, members, kernels.stream())
     kernels.check(err, "node_pairs")

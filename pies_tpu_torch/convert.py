@@ -196,3 +196,32 @@ def params_from(params) -> PhysicsParams:
         **{f.name: float(np.asarray(getattr(params, f.name)))
            for f in dataclasses.fields(PhysicsParams)}
     )
+
+
+def domain_from_numpy(dom, device="cpu"):
+    """The port's ``parallel.domain.Domain`` from the JAX package's
+    ``Domain`` (its leaves NumPy, or anything ``np.asarray`` takes): the
+    same host arrays, read by their field paths, then the port's tensors
+    and flat view topology on ``device``.  So both packages can start from
+    one partition (:func:`domain_state_to_numpy` is the way back)."""
+    from .parallel.domain import DomainMeta, domain_from_host, host_keys
+
+    def leaf(path):
+        obj = dom
+        for name in path.split("."):
+            obj = getattr(obj, name)
+        return np.asarray(obj)
+
+    m = dom.meta
+    meta = DomainMeta(n_slabs=int(m.n_slabs), block=int(m.block), halo=int(m.halo))
+    return domain_from_host({k: leaf(k) for k in host_keys()}, meta, device)
+
+
+def domain_state_to_numpy(dstate) -> dict[str, np.ndarray]:
+    """A port ``DomainState``'s arrays as the JAX ``DomainState``'s leaves,
+    by field name: f32[D, L, 3] nodes, f32[D, G, 4] rotations, and the
+    latch as bool[D] (the port's one latch, on every slab)."""
+    f = lambda a: a.detach().cpu().numpy()  # noqa: E731
+    return dict(positions=f(dstate.positions), prev_positions=f(dstate.prev_positions),
+                velocities=f(dstate.velocities), shape_quats=f(dstate.shape_quats),
+                sim_failed=dstate.failed_slabs())

@@ -65,6 +65,12 @@ wrappers that call them sit beside their plain PyTorch twins:
   ``grid.cuh``), behind ``candidate_occupancy`` and
   ``diagnostics.broadphase_health``
 
+* T30 ``pies_halo_refresh``, ``pies_halo_reduce``, ``pies_halo_merge``,
+  ``pies_halo_merge_pairs`` — ``parallel/halo.py``: the domain
+  decomposition's halo exchange between the slabs of one card, the
+  count-averaged applies and the CG's partials of its reduce, and the
+  gather of the slabs' contact lists (``parallel/domain.py``)
+
 T1-T8 (ROADMAP item 10a), the generic path's T9-T13 and T22 (item 10b-i),
 its point-triangle contacts and entry-list floor, T14-T17, T23 and T24
 (item 10b-ii), its edge-edge and node-node contacts, T20 and T25-T27
@@ -119,7 +125,7 @@ SIGNATURES = {
     "pies_super_broadphase": [_P] * 17 + [_I] * 11 + [_F] * 6 + [_I, _P],
     "pies_super_narrowphase": [_P] * 16 + [_I] * 11 + [_F, _I, _I, _P],
     "pies_pt_force": [_P] * 9 + [_I, _I, _F, _I, _P],
-    "pies_pt_tail": [_P] * 23 + [_I] * 6 + [_F] * 6 + [_I, _P],
+    "pies_pt_tail": [_P] * 24 + [_I] * 6 + [_F] * 6 + [_I, _P],
     "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P] + [_I] * 3 + [_P],
     "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 8 + [_I, _F] + [_P] * 3 + [_I]
     + [_P] * 7 + [_I, _F, _I] + [_P] * 8 + [_I] * 4 + [_P],
@@ -132,7 +138,7 @@ SIGNATURES = {
     "pies_bend_rows": [_P] * 6 + [_I, _P] + [_I] * 3 + [_P],
     "pies_shape_rows": [_P] * 12 + [_I, _I, _I, _P] + [_I] * 3 + [_P],
     "pies_goal_rows": [_P] * 6 + [_I, _P, _I, _I, _P],
-    "pies_tri_candidates": [_P] * 17 + [_I] * 12 + [_F] * 3 + [_I, _I, _P],
+    "pies_tri_candidates": [_P] * 18 + [_I] * 12 + [_F] * 3 + [_I, _I, _P],
     "pies_tri_ccd": [_P] * 12 + [_I] * 4 + [_F, _I, _I, _P],
     "pies_pbd_rows": [_I] + [_P] * 8 + [_I, _I, _F, _I, _P, _I, _P],
     "pies_pbd_apply": [_P] * 4 + [_I, _I, _P, _I, _P],
@@ -141,17 +147,21 @@ SIGNATURES = {
     "pies_pbd_tail": [_P] * 6 + [_I] + [_F] * 4 + [_P, _I, _P],
     "pies_pbd_chains": [_P] * 5 + [_I, _I, _I, _P, _I, _P],
     "pies_pbd_color_class": [_P] * 4 + [_I, _I, _I, _P, _I, _P],
-    "pies_node_pairs": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_I, _P],
+    "pies_node_pairs": [_P] * 25 + [_I] * 5 + [_F] * 2 + [_I, _P],
     "pies_node_response": [_P] * 13 + [_I, _I, _F, _F, _P, _I, _P],
     "pies_tet_block_factor": [_P] * 3 + [_I, _P, _I, _P],
     "pies_floor_entries": [_P] * 4 + [_F] + [_P] * 5 + [_I, _I, _P, _I, _P],
-    "pies_edge_ccd": [_P] * 13 + [_I] * 6 + [_P],
+    "pies_edge_ccd": [_P] * 14 + [_I] * 6 + [_P],
     "pies_edge_setup": [_P] * 23 + [_I] * 4 + [_F, _I, _P],
     "pies_node_setup": [_P] * 16 + [_I] * 4 + [_F, _I, _P],
-    "pies_node_friction": [_P] * 16 + [_I] * 3 + [_F] * 5 + [_I, _P],
+    "pies_node_friction": [_P] * 17 + [_I] * 3 + [_F] * 5 + [_I, _P],
     "pies_constraint_residuals": ([_P] * 3 + [_I]) + ([_P] * 3 + [_I]) * 2
     + ([_P] * 5 + [_I]) * 2 + ([_P] * 3 + [_I]) + [_P] * 5,
     "pies_occupancy": [_P] * 7 + [_I] * 8 + [_F] * 3 + [_P],
+    "pies_halo_refresh": [_P] * 2 + [_I] * 5 + [_P],
+    "pies_halo_reduce": [_P] * 2 + [_I] * 5 + [_P] * 8,
+    "pies_halo_merge": [_P] * 3 + [_I] * 5 + [_P] * 4,
+    "pies_halo_merge_pairs": [_P] * 12 + [_I] * 4 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

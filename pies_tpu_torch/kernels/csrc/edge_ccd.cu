@@ -12,10 +12,12 @@
 //
 // A lane is one pair l = triangle * nb + slot.  A pair is live when the
 // slot holds a candidate with a larger id that shares no node with the
-// triangle.  Combo c = 3 e1 + e2 tests edge e1 of the triangle against edge
-// e2 of the candidate (edges (0,1), (1,2), (2,0)), relative to the first
-// edge's start before and now.  Hit h = (combo, pair) is numbered c * P +
-// l (P pairs): the JAX package's loop, combo outer, pairs inner.  The first
+// triangle, and, with the emit mask `emit` (broadphase.py:1499-1500; the
+// domain decomposition's owned triangles), the triangle emits.  Combo c =
+// 3 e1 + e2 tests edge e1 of the triangle against edge e2 of the
+// candidate (edges (0,1), (1,2), (2,0)), relative to the first edge's
+// start before and now.  Hit h = (combo, pair) is numbered c * P + l (P
+// pairs): the JAX package's loop, combo outer, pairs inner.  The first
 // `cap` hits are the contacts; the JAX package drops the rest without a
 // latch, and `hits` counts them all.
 //
@@ -72,6 +74,7 @@ struct Ec {
   int* edge_count;
   int* edge_hits;
   const int* failed;
+  const float* emit;  // f32[t] or null: a row whose entry is 0 queries nothing
   int t, nb, cap, pairs, nt, quirks, n;
 
   // The view of member b: every per-member array offset to its row.
@@ -155,7 +158,7 @@ __global__ void __launch_bounds__(pies::kBlock) ecc_ccd_kernel(Ec g0) {
   if (l >= g.pairs || gated(g)) return;
   const int r = l / g.nb, slot = l - r * g.nb;
   unsigned bits = 0;
-  if (slot < g.count[r]) {
+  if (slot < g.count[r] && (g.emit == nullptr || g.emit[r] > 0.0f)) {
     const int o = g.cand[l];
     const int w[3] = {g.tris[r * 3], g.tris[r * 3 + 1], g.tris[r * 3 + 2]};
     const int v[3] = {g.tris[o * 3], g.tris[o * 3 + 1], g.tris[o * 3 + 2]};
@@ -242,7 +245,8 @@ __global__ void __launch_bounds__(pies::kBlock) ecc_finish_kernel(Ec g0) {
 extern "C" int pies_edge_ccd(const float* x, const float* prev, const int* tris,
                              const int* cand, const int* count, const int* flags,
                              uint16_t* bits, int* partial, int* edge_idx, float* edge_mask,
-                             int* edge_count, int* edge_hits, const int* failed, int t, int nb,
+                             int* edge_count, int* edge_hits, const int* failed,
+                             const float* emit, int t, int nb,
                              int cap, int quirks, int n, int members, void* stream) {
   if (t <= 0 || nb <= 0 || cap < 0 || n <= 0 || members <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -251,7 +255,7 @@ extern "C" int pies_edge_ccd(const float* x, const float* prev, const int* tris,
   // partial: [members, 9 nt] block sums, then the members' totals [members].
   int* total = partial + (size_t)members * 9 * nt;
   Ec g{x,         prev,       tris,       cand,   count,   flags, bits, partial, total,
-       edge_idx,  edge_mask,  edge_count, edge_hits, failed, t,   nb,   cap,     pairs,
+       edge_idx,  edge_mask,  edge_count, edge_hits, failed, emit, t,  nb,   cap,     pairs,
        nt,        quirks,     n};
   const dim3 lanes(nt, members);
   ecc_ccd_kernel<<<lanes, pies::kBlock, 0, st>>>(g);

@@ -22,7 +22,11 @@
 // per node, its impulses summed in the JAX package's nn_idx.T order (its
 // pairs as the first node, then as the second) and count-averaged, written
 // at every node (zero without a touching pair).  T8's point-triangle
-// friction and T4 add it to the velocity.
+// friction and T4 add it to the velocity.  In the accumulate-only mode
+// (`acc` not null; the domain decomposition's node_node_friction_acc,
+// pies_tpu/parallel/domain.py:932-942) the node stage writes the sums and
+// the count, f32[N, 4], and averages nothing: the domain sums the slabs'
+// accumulators across the halo first.
 //
 // Everything returns at once when the failure latch (slot 0) is set.
 //
@@ -131,6 +135,7 @@ struct Nf {
   const int* lim;
   float* rec;  // [rows, 8]: a's impulse, b's impulse, touching
   float* imp;
+  float* acc;  // accumulate-only mode: f32[N, 4], or null
   int* touching;
   const int* failed;
   int n, rows, width;
@@ -153,6 +158,7 @@ struct Nf {
     m.lim += bb;
     m.rec += bb * rows * 8;
     m.imp += bb * nn * 3;
+    if (m.acc != nullptr) m.acc += bb * nn * 4;
     m.touching += bb;
     m.failed += 2 * bb;
     return m;
@@ -236,6 +242,11 @@ __global__ void __launch_bounds__(kThreads) friction_node_kernel(Nf p0) {
       acc[3] = acc[3] + r[6];
     }
   }
+  if (p.acc != nullptr) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) p.acc[(size_t)i * 4 + d] = acc[d];
+    return;
+  }
   const float c = acc[3] < 1.0f ? 1.0f : acc[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) p.imp[(size_t)i * 3 + d] = acc[d] / c;
@@ -264,14 +275,15 @@ extern "C" int pies_node_friction(const float* x, const float* prev, const float
                                   const float* mass, const float* mask, const float* radius,
                                   const int* pi, const int* pj, const int* row_off,
                                   const int* inc_start, const int* inc_pair, const int* lim,
-                                  float* rec, float* imp, int* touching, const int* failed,
+                                  float* rec, float* imp, float* acc, int* touching,
+                                  const int* failed,
                                   int n, int rows, int width, float h, float damping,
                                   float gravity, float friction, float static_threshold,
                                   int members, void* stream) {
   if (n <= 0 || rows < 0 || width < 0 || members <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   Nf p{x,    prev,  inv_mass, mass, mask,   radius,  pi,       pj,      row_off,
-       inc_start, inc_pair, lim, rec, imp, touching, failed, n, rows, width, h, damping,
+       inc_start, inc_pair, lim, rec, imp, acc, touching, failed, n, rows, width, h, damping,
        gravity, friction, static_threshold};
   cudaMemsetAsync(touching, 0, (size_t)members * sizeof(int), s);
   if (rows > 0) friction_pair_kernel<<<dim3(blocks(rows), members), kThreads, 0, s>>>(p);

@@ -25,8 +25,10 @@
 //      the bench's density, too many for one thread's selection);
 //  (d) a warp per live node, a lane per candidate slot (budget <= 32): the
 //      gather in query-cell order (entries_cap per bucket, budget per row),
-//      duplicates dropped, kept when j > i and j is live, ranked by j; the
-//      row's count and, per j, its count as the pair's second node;
+//      duplicates dropped, kept when j > i and j is live (and, with the
+//      emit mask `emit`, broadphase.py:1966-1971, when i emits: the domain
+//      decomposition's owned nodes), ranked by j; the row's count and, per
+//      j, its count as the pair's second node;
 //  (e) one exclusive scan over both counts (2N values): the i-major pair
 //      offsets and the j-side list offsets;
 //  (f) a thread per node: its pairs written at its offset (pi, pj), its
@@ -87,6 +89,7 @@ struct Np {
   int* flags;
   int* big;  // [0]: how many; then the slots of the buckets a warp orders
   const int* failed;
+  const float* emit;  // f32[n] or null: a pair is kept only where its i emits
   int n, s, entries_cap, budget, h;
   float spacing, slack;
 
@@ -287,7 +290,8 @@ __global__ void __launch_bounds__(32 * kPairWarps) np_query_kernel(Np g0) {
     const int other = __shfl_sync(full, cand, m);
     dup = dup || (m < lane && valid && other == cand);
   }
-  const bool ok = valid && !dup && cand > r && g.mask[cand] > 0.0f;
+  const bool ok = valid && !dup && cand > r && g.mask[cand] > 0.0f &&
+                  (g.emit == nullptr || g.emit[r] > 0.0f);
   int rank = 0;
   const unsigned oks = __ballot_sync(full, ok);
   for (int m = 0; m < 32; ++m) {
@@ -351,7 +355,7 @@ extern "C" int pies_node_pairs(const float* x, const float* radius, const float*
                                int* inc_start, int* inc_pair, int* rebuilt, int* count_h,
                                int* cursor, int* start, int* partial, int* entries, int* rows,
                                int* cnt2, int* off2, int* jcur, int* flags, int* big,
-                               const int* failed,
+                               const int* failed, const float* emit,
                                int n, int s, int entries_cap, int budget, int h, float spacing,
                                float slack, int members, void* stream) {
   if (n <= 0 || s <= 0 || s > kMaxNodeCells || budget <= 0 || budget > 32 || h <= 0 ||
@@ -360,7 +364,7 @@ extern "C" int pies_node_pairs(const float* x, const float* radius, const float*
   cudaStream_t st = (cudaStream_t)stream;
   Np g{x,      radius, mask,  pi,   pj,   count, ref,   fresh, row_off, inc_start,
        inc_pair, rebuilt, count_h, cursor, start, entries, rows, cnt2, off2, jcur,
-       flags,  big,   failed, n,  s,    entries_cap, budget, h,  spacing, slack};
+       flags,  big,   failed, emit, n, s,  entries_cap, budget, h,  spacing, slack};
   cudaMemsetAsync(flags, 0, (size_t)members * 8 * sizeof(int), st);
   const dim3 nodes(pies::tiles(n), members);
   np_drift_kernel<<<nodes, pies::kBlock, 0, st>>>(g);

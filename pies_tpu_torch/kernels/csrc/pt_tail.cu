@@ -26,6 +26,14 @@
 // nodes with contact entries are read or written; T4 snaps and updates the
 // rest.
 //
+// Accumulate-only mode (`acc` not null, one pass, one kind; the domain
+// decomposition's stabilize_point_tri_acc, stabilize_edge_edge_acc and
+// point_tri_friction_acc, pies_tpu/parallel/domain.py:878-953): the
+// chosen stage's per-node sums of its entries' records and their count go
+// to acc f32[N, 4] (the caller zeroes it; only nodes with entries are
+// written), and nothing is averaged, applied or snapped: the domain sums
+// the slabs' accumulators across the halo before it averages.
+//
 // Everything exits at once when the failure latch (slot 0) is set, and
 // each kind's stages when its device contact count is 0.
 //
@@ -67,6 +75,7 @@ struct Pt {
   float* rec;
   float* erec;  // [4 ecap, 4]: per edge entry, push xyz and count
   float* fric;
+  float* acc;  // accumulate-only mode: f32[N, 4] sums and counts, or null
   const int* failed;
   int n, cap, ecap;
   float thickness, h, damping, gravity, friction, static_threshold;
@@ -95,6 +104,7 @@ __device__ __forceinline__ Pt member_view(Pt p) {
   p.mask += b * p.n;
   p.rec += b * p.cap * kRec;
   p.fric += b * p.n * 3;
+  if (p.acc != nullptr) p.acc += b * p.n * 4;
   p.failed += 2 * b;
   return p;
 }
@@ -155,14 +165,14 @@ __global__ void __launch_bounds__(pies::kBlock) stab_contact_kernel(Pt p0) {
 }
 
 // Per node: sum its entries' records in entry order (column 0 takes the
-// point's share, columns 1-3 the corners'), then average by the count.
-__device__ __forceinline__ bool node_average(const Pt& p, int t, int* node, float avg[3]) {
+// point's share, columns 1-3 the corners') and their count.
+__device__ __forceinline__ bool node_sum(const Pt& p, int t, int* node, float acc[4]) {
   if (p.pt_idx == nullptr || p.failed[0] != 0 || p.pt_count[0] == 0 || t >= p.row_start[p.n])
     return false;
   *node = p.nodes[t];
   if (p.row_start[*node] != t) return false;
   const int len = p.row_start[*node + 1] - t;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;
   for (int j = 0; j < len; ++j) {
     const int ent = p.entries[t + j];
     const int a = ent / p.cap, i = ent - a * p.cap;
@@ -171,6 +181,19 @@ __device__ __forceinline__ bool node_average(const Pt& p, int t, int* node, floa
     acc[1] = acc[1] + r[1];
     acc[2] = acc[2] + r[2];
     acc[3] = acc[3] + p.rec[(size_t)i * kRec + 6];
+  }
+  return true;
+}
+
+// node_sum averaged by the count; in accumulate-only mode the sums go to
+// acc instead and it returns false.
+__device__ __forceinline__ bool node_average(const Pt& p, int t, int* node, float avg[3]) {
+  float acc[4];
+  if (!node_sum(p, t, node, acc)) return false;
+  if (p.acc != nullptr) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) p.acc[(size_t)*node * 4 + d] = acc[d];
+    return false;
   }
   const float c = acc[3] < 1.0f ? 1.0f : acc[3];
 #pragma unroll
@@ -230,6 +253,11 @@ __global__ void __launch_bounds__(pies::kBlock) edge_node_kernel(Pt p0) {
         acc[2] = acc[2] + r[2];
         acc[3] = acc[3] + r[3];
       }
+    if (p.acc != nullptr) {
+#pragma unroll
+      for (int d = 0; d < 4; ++d) p.acc[(size_t)i * 4 + d] = acc[d];
+      return;
+    }
     const float c = acc[3] < 1.0f ? 1.0f : acc[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
@@ -239,6 +267,7 @@ __global__ void __launch_bounds__(pies::kBlock) edge_node_kernel(Pt p0) {
       p.x[j] = p.x[j] + delta;
     }
   }
+  if (p.acc != nullptr) return;
   const bool pt_on = p.pt_idx != nullptr && p.pt_count[0] > 0 &&
                      p.row_start[i + 1] > p.row_start[i];
   if ((e_on || pt_on) && p.floor_active[i] > 0.0f) {
@@ -318,7 +347,8 @@ extern "C" int pies_pt_tail(float* x, float* prev, const float* stat,
                             const int* edge_count, const int* e_row_start,
                             const int* e_entries, const float* nn_imp,
                             const float* inv_mass, const float* mass, const float* mask,
-                            float* rec, float* erec, float* fric, const int* failed, int n,
+                            float* rec, float* erec, float* fric, float* acc,
+                            const int* failed, int n,
                             int cap, int ecap, int passes, int stages, int quirks,
                             float thickness, float h, float damping, float gravity,
                             float friction, float static_threshold, int members,
@@ -331,7 +361,7 @@ extern "C" int pies_pt_tail(float* x, float* prev, const float* stat,
                               thickness, ecap};
   Pt p{x,        prev,     stat,    floor_active, pt_idx,   pt_mask, pt_count, row_start,
        entries,  nodes,    edges,   nn_imp,       inv_mass, mass,    mask,     rec,
-       erec,     fric,     failed,  n,            cap,      ecap,    thickness, h,
+       erec,     fric,     acc,     failed,       n,        cap,     ecap,     thickness, h,
        damping,  gravity,  friction, static_threshold};
   const dim3 bc(pies::tiles(cap), members), bn(pies::tiles(4 * cap), members);
   if (stages & 1) {

@@ -26,7 +26,9 @@
 // `nn_imp` (pd.py:398-402, every node).  With self-contact, T4 also takes
 // kernel T8's contact friction impulse `fric` (added, before the floor
 // friction, at every node with contact entries in T7's incidence when the
-// device contact count is > 0).  It ORs the detection's capacity latch
+// device contact count is > 0; given without the incidence, at every node:
+// the domain decomposition's halo-reduced friction, pies_tpu/parallel/
+// domain.py:943-953).  It ORs the detection's capacity latch
 // `overflow` (T5, T6, T14-T17, and the edge detection's T16) into the
 // failure latch.
 //
@@ -113,7 +115,8 @@ __global__ void __launch_bounds__(256)
   if (failed[0] != 0) return;
   if (i == 0 && overflow != nullptr && overflow[b] != 0) atomicOr(&failed[1], 1);
   const int* rs = row_start == nullptr ? nullptr : row_start + (size_t)b * (n + 1);
-  const bool pt = pt_count != nullptr && pt_count[b] > 0 && rs[i + 1] > rs[i];
+  // Without T7's incidence `fric` (when given) is added at every node.
+  const bool pt = fric != nullptr && (rs == nullptr || (pt_count[b] > 0 && rs[i + 1] > rs[i]));
 
   const float act = active[g];
   const float m = mask[g];

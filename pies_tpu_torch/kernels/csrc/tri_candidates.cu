@@ -50,6 +50,14 @@
 // flags[0] counts the candidate slots filled over all rows; kernel T17
 // does nothing when it is 0 (the JAX package's lax.cond on jnp.any(ov)).
 //
+// The emit mask (`emit`, f32[T], may be null; broadphase.py:152-153,
+// :1410-1411, :1595-1596): a triangle whose entry is 0 still inserts and
+// serves as a candidate but queries nothing, so its row is empty; the
+// latches it would set on insertion and, in reference mode, on its query
+// range stay as without the mask.  The domain decomposition
+// (pies_tpu/parallel/domain.py) passes each slab's owned triangles, so
+// that every contact is emitted by exactly one slab.  Not in mode 2.
+//
 // Bound: bytes for the grid modes (positions, the grid and the rows:
 // ~100 bytes a triangle), operations for all-pairs (T^2 box tests of ~20
 // integer and float comparisons each; at 26,508 rows, 7e8 tests).
@@ -109,6 +117,7 @@ struct Tc {
   int* flags;
   int* overflow;
   const int* failed;
+  const float* emit;  // may be null
   int mode, t, k, e, s, cells_cap, entries_cap, raw, nbb, nb, h, unpacked, n;
   float cell, margin, size_limit;
 };
@@ -136,6 +145,9 @@ __device__ __forceinline__ Tc member_view(Tc g) {
 }
 
 __device__ __forceinline__ bool tri_live(const Tc& g, int r) { return g.tri_mask[r] > 0.0f; }
+__device__ __forceinline__ bool tri_emits(const Tc& g, int r) {
+  return g.emit == nullptr || g.emit[r] > 0.0f;
+}
 
 // The items of the grid: triangles, or bodies in mode 2 (their boxes after
 // the triangles').
@@ -342,6 +354,11 @@ __global__ void __launch_bounds__(32 * kQueryWarps) tc_query_kernel(Tc g0) {
   const int n_cells = total_cells < g.cells_cap ? total_cells : g.cells_cap;
   if (g.mode == kReference && total_cells > g.cells_cap && lane == 0)
     atomicOr(&g.flags[kQueryOver], 1);
+  if (!bodies && !tri_emits(g, r)) {
+    for (int j = lane; j < narrow; j += 32) out[j] = 0;
+    if (lane == 0) g.count[r] = 0;
+    return;
+  }
 
   // A lane per query cell: the bucket's start and capped count.
   bool over = false;
@@ -461,7 +478,7 @@ __global__ void __launch_bounds__(32 * kPairWarps) tc_allpairs_kernel(Tc g0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * kPairWarps + warp;
   const bool failed = g.failed[0] != 0;
-  const bool row_ok = r < g.t && !failed && tri_live(g, r);
+  const bool row_ok = r < g.t && !failed && tri_live(g, r) && tri_emits(g, r);
   const unsigned full = 0xffffffffu;
   float rlo_m[3] = {0.0f, 0.0f, 0.0f}, rhi_m[3] = {0.0f, 0.0f, 0.0f};
   int rt[3] = {0, 0, 0};
@@ -535,18 +552,19 @@ extern "C" int pies_tri_candidates(
     const float* x, const float* prev, const int* tris, const float* tri_mask, int* count_h,
     int* cursor, int* start, int* partial, int* entries, float* bounds, int* bodies,
     int* n_bodies, int* cand, int* count, int* flags, int* overflow, const int* failed,
-    int mode, int t, int k, int e, int s, int cells_cap, int entries_cap, int raw, int nbb,
-    int nb, int h, int unpacked, float cell, float margin, float size_limit, int n,
-    int members, void* stream) {
+    const float* emit, int mode, int t, int k, int e, int s, int cells_cap, int entries_cap,
+    int raw, int nbb, int nb, int h, int unpacked, float cell, float margin, float size_limit,
+    int n, int members, void* stream) {
   const bool grid = mode != kAllPairs;
   if (t > 0 && nb > 0 && n > 0 && members > 0 && mode >= kAllPairs && mode <= kReference &&
       (!grid || (raw <= kMaxRaw && cells_cap <= kMaxCells && h > 0 && s > 0)) &&
-      (mode != kBodies || (e > 0 && k * e == t && nbb > 0 && nbb * e <= kMaxRaw))) {
+      (mode != kBodies || (e > 0 && k * e == t && nbb > 0 && nbb * e <= kMaxRaw &&
+                           emit == nullptr))) {
     cudaStream_t st = (cudaStream_t)stream;
     // bounds [members, 2, t + k, 3]: a member's triangle and body boxes, lo then hi.
     Tc g{x,      prev,        tris,     tri_mask, count_h,   cursor, start,
          entries, bounds,     bounds + (size_t)3 * (t + k),  bodies, n_bodies,
-         cand,   count,       flags,    overflow, failed,    mode,   t,
+         cand,   count,       flags,    overflow, failed,    emit,   mode,   t,
          k,      e,           s,        cells_cap, entries_cap, raw, nbb,
          nb,     h,           unpacked, n,        cell,      margin, size_limit};
     tc_bounds_kernel<<<dim3(pies::tiles(t), members), pies::kBlock, 0, st>>>(g);

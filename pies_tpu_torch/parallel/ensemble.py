@@ -12,7 +12,9 @@ per-member latch: a member whose ``sim_failed`` is set is left bit for bit
 as it is and reports residual 0, while the others step.
 
 The ensemble runs on the tet-column path (``tetcols.applies``), with or
-without self-contact on packed bodies (ROADMAP item 10a), and on the
+without self-contact in any detection branch (packed bodies, ROADMAP item
+10a; the reference sweep and the cell list when the budget unpacks the
+bodies, item 10c), and on the
 generic PD path: contact-free (item 10b-i: the rope of
 ``tests/test_parallel.py``, the meshes, the cloth and its constraint
 families, a soup off the tet-column path), where the kernels T9-T13 and
@@ -33,7 +35,7 @@ bend and the node-node response), where T18, T19 and T21 take the member
 axis and T20 keeps each member's node-pair cache across ticks, rebuilt on
 that member's own drift.  Several cards (``make_mesh``,
 ``shard_ensemble`` and ``make_sharded_step``'s ``shard_map``) are ROADMAP
-item 11; :func:`ensemble_step` is that step's one-card form, its ``pmax``
+item 11b; :func:`ensemble_step` is that step's one-card form, its ``pmax``
 and ``psum`` reductions over the member axis on the device.
 """
 
@@ -41,23 +43,18 @@ from __future__ import annotations
 
 import torch
 
-from ..options import PhysicsParams, SolverName, StepConfig
-from ..solver import pd, step
+from ..options import PhysicsParams, StepConfig
+from ..solver import step
 from ..state import SolverState, stack_ensemble, unstack
 from ..topology import Topology
 
 __all__ = ["ensemble_step", "ensemble_tick", "ensemble_tick_n", "stack_ensemble", "unstack"]
 
 
-def check_ensemble(states: SolverState, topo: Topology, config: StepConfig) -> None:
-    """Raise unless ``states`` is an ensemble whose scene takes a ported
-    path: PD on the tet-column path, detection (if any) on packed bodies,
-    or PD on the generic path with any contacts (``pd.check_ensemble_path``),
-    or PBD."""
+def check_ensemble(states: SolverState) -> None:
+    """Raise unless ``states`` is an ensemble (a leading member axis)."""
     if not states.members:
         raise ValueError("an ensemble's state has a leading member axis (stack_ensemble)")
-    if config.solver == SolverName.PD:
-        pd.check_ensemble_path(states, topo, config)
 
 
 def ensemble_tick(states: SolverState, topo: Topology, params: PhysicsParams,
@@ -66,7 +63,7 @@ def ensemble_tick(states: SolverState, topo: Topology, params: PhysicsParams,
     residuals f32[B] on the device (0 for a latched member, and for every
     member of a PBD ensemble).  ``counters`` are ``pd.new_counters(device,
     B)``, or ``pbd.new_counters(device, B)`` under the PBD solver."""
-    check_ensemble(states, topo, config)
+    check_ensemble(states)
     return step.tick(states, topo, params, config, counters=counters)
 
 
@@ -75,7 +72,7 @@ def ensemble_tick_n(states: SolverState, topo: Topology, params: PhysicsParams,
     """``n`` ticks of every member with no host sync; returns the largest of
     the last tick's residuals over the members (``ensemble.py:70,73``), a
     device scalar."""
-    check_ensemble(states, topo, config)
+    check_ensemble(states)
     res = step.tick_n(states, topo, params, config, n, counters=counters)
     return torch.max(res)
 

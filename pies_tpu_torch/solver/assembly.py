@@ -804,7 +804,8 @@ def _rtol2(rtol: float) -> float:
 
 def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
                     iterations: int, rtol: float = 0.0, failed=None, block=None,
-                    full: FullCoupling | None = None, edges: EdgeTerms | None = None):
+                    full: FullCoupling | None = None, edges: EdgeTerms | None = None,
+                    matvec=None):
     """Plain twin of T11 (with T10's twin as the operator): PCG on the
     stacked 3-RHS system from ``x0``, at most ``iterations`` trips, stopping
     before a trip once ``rz ≤ rtol²·rz0`` when ``rtol > 0``
@@ -816,7 +817,12 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
     when ``failed`` slot 0 is set) and the trips run.  An ensemble (every
     per-node argument with the member axis, ``block`` f32[B, 10, K], ``full``
     and ``edges`` per member) runs member by member, each with its own
-    exit: ``(x f32[B, N, 3], prr f32[B, P], trips i32[B, 1])``."""
+    exit: ``(x f32[B, N, 3], prr f32[B, P], trips i32[B, 1])``.
+
+    ``matvec(v, part)`` (a single scene only) replaces T10's twin as the
+    operator: it returns ``(A·v f32[N, 3], the block partials of v·A·v or
+    None)``; the domain decomposition's halo-exchanged operator is one
+    (``parallel/domain.py``)."""
     if members_of(b):
         return each_member(lambda bb, xb, db, mb, wb, kb, fb, ob, cb, eb: pcg_solve_plain(
             bb, xb, db, mb, wb, h2, kb, topo, iterations, rtol, fb, ob, cb, eb),
@@ -825,7 +831,10 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
     if failed is not None and bool(failed[0]):
         return (x0.clone(), torch.zeros(-(-b.shape[0] // CG_BLOCK), device=dev),
                 torch.zeros(1, dtype=torch.int32, device=dev))
-    y, _ = apply_system_plain(x0, mass, wf, h2, topo, full=full, edges=edges)
+    if matvec is None:
+        matvec = lambda v, part=False: apply_system_plain(  # noqa: E731
+            v, mass, wf, h2, topo, part=part, full=full, edges=edges)
+    y, _ = matvec(x0)
     r = b - y
     if block is None:
         inv = _div(torch.ones_like(diag), diag)[:, None]
@@ -842,7 +851,7 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
     for _ in range(iterations):
         if rtol > 0.0 and not bool(rz > tol2):
             break
-        ap, pap = apply_system_plain(p, mass, wf, h2, topo, part=True, full=full, edges=edges)
+        ap, pap = matvec(p, True)
         p_ap = finalize(pap)
         alpha = torch.where(p_ap > 0, rz / torch.clamp_min(p_ap, 1e-30), 0.0)
         x = torch.where(live, x + alpha * p, x)
@@ -859,15 +868,17 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
 
 def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations: int,
               rtol: float = 0.0, failed=None, block=None, full: FullCoupling | None = None,
-              edges: EdgeTerms | None = None):
+              edges: EdgeTerms | None = None, matvec=None):
     """T10 + T11 on CUDA tensors, :func:`pcg_solve_plain` on CPU tensors
     (same arguments and results; ``trips`` stays on the device).  Enqueues
     the init and all ``iterations`` trips without waiting: the trips past
     the exit return at once on the device, each member's past its own exit
-    in an ensemble (one launch per stage for all members)."""
+    in an ensemble (one launch per stage for all members).  ``matvec``
+    (see :func:`pcg_solve_plain`) replaces T10: its launches are not gated,
+    only T11's stages are."""
     if kernels.on_cpu(b):
         return pcg_solve_plain(b, x0, diag, mass, wf, h2, mask, topo, iterations, rtol,
-                               failed, block, full, edges)
+                               failed, block, full, edges, matvec)
     if failed is None:
         raise ValueError("the CG kernels need the failure latch")
     n = b.shape[-2]
@@ -886,7 +897,10 @@ def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations
     trips = torch.empty(lead + (1,), dtype=torch.int32, device=dev)
     r, z, p, x, ap = (torch.empty_like(b) for _ in range(5))
     lib, stream = kernels.lib(), kernels.stream()
-    apply_system(x0, mass, wf, h2, topo, failed, out=ap, full=full, edges=edges)
+    if matvec is None:
+        apply_system(x0, mass, wf, h2, topo, failed, out=ap, full=full, edges=edges)
+    else:
+        ap = matvec(x0)[0]
     err = lib.pies_cg_init(
         b.data_ptr(), ap.data_ptr(), x0.data_ptr(), diag.data_ptr(), kernels.ptr(block),
         r.data_ptr(),
@@ -896,8 +910,11 @@ def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations
     pcg_solve.launches += 1
     early, rtol2 = int(rtol > 0.0), _rtol2(rtol)
     for i in range(iterations):
-        apply_system(p, mass, wf, h2, topo, failed, part=pap, out=ap,
-                     gate=(trips, prz, prz0, i, early, rtol2), full=full, edges=edges)
+        if matvec is None:
+            apply_system(p, mass, wf, h2, topo, failed, part=pap, out=ap,
+                         gate=(trips, prz, prz0, i, early, rtol2), full=full, edges=edges)
+        else:
+            ap, pap = matvec(p, True)
         err = lib.pies_cg_update(
             x.data_ptr(), p.data_ptr(), ap.data_ptr(), r.data_ptr(), z.data_ptr(),
             diag.data_ptr(), kernels.ptr(block), mask.data_ptr(), prz.data_ptr(), prz0.data_ptr(),

@@ -36,9 +36,9 @@ Edge-edge contacts (``enable_edge_collisions``) and PD node-node contacts
 (``enable_node_collisions``) run on the generic path of any PD scene.
 
 Imported closed triangle meshes are tetrahedralized by the lattice mesher
-(``add_tri_mesh_volume``).  Anything outside it raises
-``NotImplementedError`` naming the ROADMAP item that will bring it.
-``dense_operator_max`` is accepted and has no effect: the port's generic
+(``add_tri_mesh_volume``).  Every ``Solver`` path of the JAX package runs;
+what the port leaves out (several cards, ROADMAP item 11b) is not a
+``Solver`` path.  ``dense_operator_max`` is accepted and has no effect: the port's generic
 path always runs Jacobi-PCG, and the JAX package's dense prefactorization
 for small scenes is not ported (ROADMAP, "Not to port").
 """
@@ -67,12 +67,6 @@ from .. import topology as topo_mod
 from . import step
 
 _F32 = np.float32
-
-class NotPortedError(NotImplementedError, AttributeError):
-    """A path of the JAX package that the port does not have yet (the
-    message names its ROADMAP item); an ``AttributeError`` too, so
-    ``hasattr`` answers False where it stands for a missing attribute."""
-
 
 def _detect_chains(idx: np.ndarray, rest: np.ndarray, w: np.ndarray):
     """Split PBD distance constraints into chase chains (``topology.ChainBatch``;

@@ -54,7 +54,9 @@ T22 and T4 (item 10b-i), each CG with its own exit per member, and its
 point-triangle contacts in every detection branch and coupling and the
 entry-list floor: T14-T17, T7, T8, T23 and T24 (item 10b-ii), and its
 edge-edge and node-node contacts: T16 and T25, T26's setup and terms, T8's
-edge pass, T20's pair prefix and T27 (item 10b-iii).  So the launch count
+edge pass, T20's pair prefix and T27 (item 10b-iii).  A tet-column
+ensemble takes any detection branch too (item 10c): T14-T17 feed T2, T7
+and T8 each member's contact list.  So the launch count
 of a substep does not depend on the member count, and each plain twin
 loops over the members (``state.each_member``).  Its residual and its
 counters are per member.
@@ -151,32 +153,6 @@ def detect_point_tri(state: SolverState, x: torch.Tensor, topo: Topology,
         adj=topo.super_adj, triangles=topo.triangles)
     return CollisionSet(floor_active=active, pt_idx=pt_idx, pt_mask=pt_mask,
                         pt_count=pt_count, overflow=overflow, rebuilt=rebuilt)
-
-
-def ensemble_unported(state: SolverState, topo: Topology, config: StepConfig) -> str | None:
-    """What keeps an ensemble of this scene off the ported PD paths (None if
-    nothing does): on the tet-column path self-contact off the packed
-    bodies.  The generic path runs every contact: point-triangle
-    self-contact in every detection branch, both couplings and both floors,
-    edge-edge and node-node contacts."""
-    if tetcols.applies(state, topo, config):
-        packed = (broadphase.tri_mode(config, topo.tri_mask.shape[0]) is None
-                  and broadphase.packed(config))
-        return None if not self_contact(config, topo) or packed else \
-            "self-contact off the packed bodies"
-    return None
-
-
-def check_ensemble_path(state: SolverState, topo: Topology, config: StepConfig) -> None:
-    """Raise ``NotPortedError`` for an ensemble whose scene takes a path the
-    port's ensembles do not run (:func:`ensemble_unported`)."""
-    why = ensemble_unported(state, topo, config)
-    if why is not None:
-        from .host import NotPortedError  # (host imports this module)
-
-        raise NotPortedError(
-            f"ensembles run the tet-column PD path (packed-body detection) and the generic PD"
-            f" path with every contact; this scene has {why}")
 
 
 def substep_head_plain(state: SolverState, topo: Topology, params: PhysicsParams,
@@ -364,10 +340,17 @@ def point_tri_friction_acc(x, vel, inv_mass, pt_idx, pt_mask,
 STABILIZE, FRICTION = 1, 2  # T8's stages
 
 
+def snap_target(config: StepConfig, x: torch.Tensor, static_proj: torch.Tensor) -> torch.Tensor:
+    """T4's floor-snap target: the static projection, or ``x`` itself (no
+    snap) without stabilization passes, since the reference snaps only
+    inside them (``pd.py:353-355``)."""
+    return static_proj if config.collision_stabilization_iterations > 0 else x
+
+
 def pt_tail_plain(state: SolverState, params: PhysicsParams, config: StepConfig,
                   colls: CollisionSet, inc: Incidence | None, x: torch.Tensor,
                   static_proj: torch.Tensor, edges=None, nn_imp: torch.Tensor | None = None,
-                  stages: int = STABILIZE | FRICTION) -> torch.Tensor:
+                  stages: int = STABILIZE | FRICTION, acc: bool = False) -> torch.Tensor:
     """Plain twin of kernel T8, the contact part of ``pd._finish_substep``
     (``pd.py:330-436``), in place on ``x`` and ``state.prev_positions`` at
     the nodes with contact entries.  Stage ``STABILIZE``:
@@ -381,7 +364,12 @@ def pt_tail_plain(state: SolverState, params: PhysicsParams, config: StepConfig,
     impulse, ``pd.py:398-402``).  Returns the count-averaged friction
     impulse f32[N, 3] that T4 adds (zero at nodes without point-triangle
     entries).  Does nothing without live contacts, or when latch slot 0 is
-    set.  An ensemble runs member by member."""
+    set.  An ensemble runs member by member.
+
+    ``acc`` (accumulate-only, :func:`pt_tail_acc_plain`): one stage's sums
+    instead, nothing applied."""
+    if acc:
+        return pt_tail_acc_plain(state, params, colls, inc, x, edges, nn_imp, stages)
     if state.members:
         return each_member(lambda s, c, i, xx, sp, e, nb: pt_tail_plain(
             s, params, config, c, i, xx, sp, e, nb, stages),
@@ -422,17 +410,68 @@ def pt_tail_plain(state: SolverState, params: PhysicsParams, config: StepConfig,
     return torch.where(on_pt, count_average(csr_sum(inc, entry_values(vals))), fric)
 
 
+def pt_tail_acc_plain(state: SolverState, params: PhysicsParams, colls: CollisionSet,
+                      inc: Incidence | None, x: torch.Tensor, edges=None,
+                      nn_imp: torch.Tensor | None = None,
+                      stages: int = STABILIZE) -> torch.Tensor:
+    """Plain twin of T8's accumulate-only mode: the ``[N, 4]`` sums of one
+    stage's per-entry records and their count, per node in the JAX
+    scatter's order, nothing averaged or applied: under ``STABILIZE`` one
+    pass of the point-triangle push-out (``colls.pt_idx``,
+    ``batches.py:478-549`` ``stabilize_point_tri_acc``) or, without it, of
+    the edge-edge push-out (``edges``, ``stabilize_edge_edge_acc``); under
+    ``FRICTION`` the point-triangle friction at the tail's velocity plus
+    ``nn_imp`` (``pd.py:526-586`` ``point_tri_friction_acc``).  Zero
+    without live contacts or with latch slot 0 set.  The domain
+    decomposition sums these over the slabs before it averages
+    (``pies_tpu/parallel/domain.py:878-953``)."""
+    if state.members:
+        return each_member(lambda s, c, i, xx, e, nb: pt_tail_acc_plain(
+            s, params, c, i, xx, e, nb, stages),
+            state.members, state, colls, inc, x, edges, nn_imp)
+    out = torch.zeros(x.shape[:-1] + (4,), dtype=x.dtype, device=x.device)
+    pt_live = colls.pt_idx is not None and int(colls.pt_count[0]) > 0
+    if bool(state.sim_failed[0]):
+        return out
+    thickness = params.collision_thickness
+    if stages & STABILIZE:
+        if colls.pt_idx is not None:
+            if not pt_live:
+                return out
+            vals = stabilize_contacts(x, state.inv_mass, colls.pt_idx, colls.pt_mask, thickness)
+            return csr_sum(inc, entry_values(vals))
+        if edges is None or int(edges.count[0]) == 0:
+            return out
+        vals = stabilize_edges(x, state.inv_mass, edges.edge_idx, edges.edge_mask, thickness,
+                               edges.quirks)
+        return csr_sum(column_order(edges.inc, 4), vals)
+    if not pt_live:
+        return out
+    vel = base_velocity(x, state.prev_positions, state, params)
+    if nn_imp is not None:
+        vel = vel + nn_imp
+    vals = friction_contacts(x, vel, state.inv_mass, colls.pt_idx, colls.pt_mask, params)
+    return csr_sum(inc, entry_values(vals))
+
+
 def pt_tail(state: SolverState, params: PhysicsParams, config: StepConfig,
             colls: CollisionSet, inc: Incidence | None, x: torch.Tensor,
             static_proj: torch.Tensor, edges=None, nn_imp: torch.Tensor | None = None,
-            stages: int = STABILIZE | FRICTION) -> torch.Tensor:
+            stages: int = STABILIZE | FRICTION, acc: bool = False) -> torch.Tensor:
     """Kernel T8 on a CUDA state, :func:`pt_tail_plain` on a CPU state.  On
     the card the friction impulse is written only at nodes with
-    point-triangle entries, which are the only ones T4 reads."""
+    point-triangle entries, which are the only ones T4 reads.  ``acc``
+    (accumulate-only, one stage, the point-triangle contacts or else the
+    edges): returns the stage's ``[N, 4]`` sums, as
+    :func:`pt_tail_acc_plain`, and leaves ``x`` and the state as they are."""
     pos = state.positions
     if kernels.on_cpu(pos):
         return pt_tail_plain(state, params, config, colls, inc, x, static_proj, edges, nn_imp,
-                             stages)
+                             stages, acc)
+    if acc and stages not in (STABILIZE, FRICTION):
+        raise ValueError("the accumulate-only mode runs one stage")
+    if acc and colls.pt_idx is not None:
+        edges = None  # (one kind a launch: the point-triangle contacts first)
     pt = colls.pt_idx is not None
     pt_t = ((colls.pt_idx, colls.pt_mask, colls.pt_count, inc.row_start, inc.entries,
              inc.nodes) if pt else (None,) * 6)
@@ -449,14 +488,17 @@ def pt_tail(state: SolverState, params: PhysicsParams, config: StepConfig,
     per_contact = torch.empty(lead + (cap, 8), dtype=torch.float32, device=pos.device)
     per_entry = torch.empty(lead + (4 * ecap, 4), dtype=torch.float32, device=pos.device)
     fric = torch.empty_like(x)
+    sums = torch.zeros(x.shape[:-1] + (4,), dtype=torch.float32, device=pos.device) if acc \
+        else None
     h, _ = _h_h2(params)
     err = kernels.lib().pies_pt_tail(
         x.data_ptr(), state.prev_positions.data_ptr(), static_proj.data_ptr(),
         colls.floor_active.data_ptr(), *(kernels.ptr(t) for t in pt_t),
         *(kernels.ptr(t) for t in e_t), kernels.ptr(nn_imp), state.inv_mass.data_ptr(),
         state.mass.data_ptr(), state.node_mask.data_ptr(), per_contact.data_ptr(),
-        per_entry.data_ptr(), fric.data_ptr(), state.sim_failed.data_ptr(), state.capacity,
-        cap, ecap, config.collision_stabilization_iterations, int(stages),
+        per_entry.data_ptr(), fric.data_ptr(), kernels.ptr(sums), state.sim_failed.data_ptr(),
+        state.capacity, cap, ecap, 1 if acc else config.collision_stabilization_iterations,
+        int(stages),
         int(e_on and edges.quirks), params.collision_thickness, h, params.damping,
         params.gravity, params.friction, params.static_friction_threshold,
         max(state.members, 1), kernels.stream(),
@@ -465,14 +507,14 @@ def pt_tail(state: SolverState, params: PhysicsParams, config: StepConfig,
     pt_tail.launches += 1
     if e_on:
         assembly.edge_terms.launches += 1
-    return fric
+    return sums if acc else fric
 
 
 pt_tail.launches = 0
 
 
 def node_friction_plain(x: torch.Tensor, state: SolverState, params: PhysicsParams,
-                        nodes, failed=None):
+                        nodes, failed=None, acc: bool = False):
     """Plain twin of T27's friction stage (``pd.py:438-508``): per live
     pair the impulses at the velocity the tail computes, summed per node in
     the JAX package's ``idx.T`` order and count-averaged.  Returns ``(imp
@@ -494,16 +536,17 @@ def node_friction_plain(x: torch.Tensor, state: SolverState, params: PhysicsPara
     rows = torch.stack([torch.cat([vals[:, 0:3], vals[:, 6:7]], dim=1),
                         torch.cat([vals[:, 3:6], vals[:, 6:7]], dim=1)], dim=1).reshape(-1, 4)
     touching[0] = int(vals[:, 6].sum())
-    return count_average(csr_sum(inc, rows)), touching
+    sums = csr_sum(inc, rows)
+    return (sums if acc else count_average(sums)), touching
 
 
 def node_friction(x: torch.Tensor, state: SolverState, params: PhysicsParams, nodes,
-                  failed=None):
+                  failed=None, acc: bool = False):
     """T27's friction stage on a CUDA state, :func:`node_friction_plain` on
     a CPU state (the count stays on the device; an ensemble is one launch
     for all members)."""
     if kernels.on_cpu(x):
-        return node_friction_plain(x, state, params, nodes, failed)
+        return node_friction_plain(x, state, params, nodes, failed, acc)
     if failed is None:
         raise ValueError("the node contact kernel needs the failure latch")
     nn = nodes.nn
@@ -517,6 +560,8 @@ def node_friction(x: torch.Tensor, state: SolverState, params: PhysicsParams, no
     rows = min(cap, nn.pi.shape[-1])
     rec = torch.empty(lead + (rows, 8), dtype=torch.float32, device=x.device)
     imp = torch.empty_like(x)
+    sums = torch.zeros(x.shape[:-1] + (4,), dtype=torch.float32, device=x.device) if acc \
+        else None
     touching = torch.empty(lead + (1,), dtype=torch.int32, device=x.device)
     h, _ = _h_h2(params)
     err = kernels.lib().pies_node_friction(
@@ -524,12 +569,12 @@ def node_friction(x: torch.Tensor, state: SolverState, params: PhysicsParams, no
         state.mass.data_ptr(), state.node_mask.data_ptr(), state.radius.data_ptr(),
         nn.pi.data_ptr(), nn.pj.data_ptr(), nn.row_off.data_ptr(), nn.inc_start.data_ptr(),
         nn.inc_pair.data_ptr(), nodes.lim.data_ptr(), rec.data_ptr(), imp.data_ptr(),
-        touching.data_ptr(), failed.data_ptr(), x.shape[-2], rows, nn.pi.shape[-1], h,
-        params.damping, params.gravity, params.friction, params.static_friction_threshold,
-        members, kernels.stream())
+        kernels.ptr(sums), touching.data_ptr(), failed.data_ptr(), x.shape[-2], rows,
+        nn.pi.shape[-1], h, params.damping, params.gravity, params.friction,
+        params.static_friction_threshold, members, kernels.stream())
     kernels.check(err, "node_friction")
     assembly.node_terms.launches += 1
-    return imp, touching
+    return (sums if acc else imp), touching
 
 
 def substep_tail_plain(state: SolverState, topo: Topology, params: PhysicsParams,
@@ -538,7 +583,7 @@ def substep_tail_plain(state: SolverState, topo: Topology, params: PhysicsParams
                        inc: Incidence | None = None,
                        fric: torch.Tensor | None = None,
                        floor_counts: torch.Tensor | None = None,
-                       nn_imp: torch.Tensor | None = None) -> None:
+                       nn_imp: torch.Tensor | None = None, fric_all: bool = False) -> None:
     """Plain twin of kernel T4 — the dense-floor rest of
     ``pd._finish_substep`` — in place on ``state``: floor snap, velocity,
     the node-node friction impulse ``nn_imp`` (T27), then the contact
@@ -549,11 +594,13 @@ def substep_tail_plain(state: SolverState, topo: Topology, params: PhysicsParams
     Nothing changes when latch slot 0 is set (a skipped tick).
     ``floor_counts`` (the entry-list floor's
     live entries per node) are the floor friction's exponents; ``active`` is
-    then the entry list's snap flag.  An ensemble runs member by member."""
+    then the entry list's snap flag.  ``fric_all``: ``fric`` is added at
+    every node (the domain decomposition's halo-reduced friction, zero where
+    a node has no contact).  An ensemble runs member by member."""
     if state.members:
         return each_member(
             lambda s, a, xx, sp, c, i, f, fc, nn: substep_tail_plain(s, topo, params, a, xx, sp,
-                                                                     c, i, f, fc, nn),
+                                                                     c, i, f, fc, nn, fric_all),
             state.members, state, active, x, static_proj, colls, inc, fric, floor_counts, nn_imp)
     floor = CollisionSet(floor_active=active, floor_counts=floor_counts)
     # Hard snap of floor contacts to the stale static projection
@@ -565,7 +612,9 @@ def substep_tail_plain(state: SolverState, topo: Topology, params: PhysicsParams
     if nn_imp is not None:
         vel = vel + nn_imp
     overflow = torch.zeros(1, dtype=torch.int32, device=x.device)
-    if colls is not None and colls.pt_idx is not None:
+    if fric_all:
+        vel = vel + fric
+    elif colls is not None and colls.pt_idx is not None:
         on = (incident(inc) & (colls.pt_count[0] > 0))[:, None]
         vel = torch.where(on, vel + fric, vel)
     if colls is not None and colls.overflow is not None:
@@ -586,14 +635,15 @@ def substep_tail(state: SolverState, topo: Topology, params: PhysicsParams,
                  inc: Incidence | None = None,
                  fric: torch.Tensor | None = None,
                  floor_counts: torch.Tensor | None = None,
-                 nn_imp: torch.Tensor | None = None) -> None:
+                 nn_imp: torch.Tensor | None = None, fric_all: bool = False) -> None:
     """Kernel T4 on a CUDA state, :func:`substep_tail_plain` on a CPU state."""
     pos = state.positions
     if kernels.on_cpu(pos):
         return substep_tail_plain(state, topo, params, active, x, static_proj, colls,
-                                  inc, fric, floor_counts, nn_imp)
-    pt = colls is not None and colls.pt_idx is not None
+                                  inc, fric, floor_counts, nn_imp, fric_all)
+    pt = colls is not None and colls.pt_idx is not None and not fric_all
     row_start, pt_count = (inc.row_start, colls.pt_count) if pt else (None, None)
+    fric = fric if pt or fric_all else None
     overflow = colls.overflow if colls is not None else None
     kernels.require(pos.device, pos, state.prev_positions, state.velocities,
                     state.forces, x, static_proj, active, topo.floor_count,
@@ -753,8 +803,8 @@ def _generic_substep(state: SolverState, topo: Topology, params: PhysicsParams,
         if pt_on:
             fric = k["pt_tail"](state, params, config, colls, inc, x_it, static_proj, None,
                                 nn_imp, FRICTION)
-    k["tail"](state, topo, params, active, x_it, static_proj, colls, inc, fric,
-              None if floor is None else floor.floor_counts, nn_imp)
+    k["tail"](state, topo, params, active, x_it, snap_target(config, x_it, static_proj), colls,
+              inc, fric, None if floor is None else floor.floor_counts, nn_imp)
     return torch.sqrt(torch.sum(prr, dim=-1))
 
 
@@ -764,8 +814,7 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     """One PD substep on the tet-column or the generic path, in place on
     ``state``; returns the device-side residual of its last iteration
     (``‖b − A·x‖`` of the block solve, or of the last CG), f32[B] for an
-    ensemble (0 for a latched member; :func:`check_ensemble_path` says
-    which ensembles run).
+    ensemble (0 for a latched member).
 
     ``plain=True`` runs the plain twins whatever the device (the card's
     reference run); otherwise each wrapper picks the kernel for a CUDA state
@@ -773,8 +822,6 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     are summed on the device, never read here: one small reduction or add
     per counter and substep."""
     k = _PLAIN if plain else _KERNELS
-    if state.members:
-        check_ensemble_path(state, topo, config)
     head = k["head"](state, topo, params, config, fold)
     x, msn_h2, diag, wf, active = head
     failed = state.sim_failed
@@ -812,5 +859,6 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
                                                plane, 1, failed, pt)
     if colls is not None:
         fric = k["pt_tail"](state, params, config, colls, inc, x_new, static_proj)
-    k["tail"](state, topo, params, active, x_new, static_proj, colls, inc, fric)
+    k["tail"](state, topo, params, active, x_new, snap_target(config, x_new, static_proj), colls,
+              inc, fric)
     return torch.sqrt(torch.sum(r2, dim=-1))

@@ -617,6 +617,18 @@ def generic_fields(num_nodes: int, *, strain, volume, position, distance, bend, 
     return out
 
 
+def position_force(num_nodes: int, position: PositionBatch) -> np.ndarray:
+    """``Σ w·target`` of the pins per node, accumulated in float64, f32[N, 3];
+    f32[1, 3] when the scene has no pin."""
+    if not np.asarray(position.idx).shape[0]:
+        return np.zeros((1, 3), _F32)
+    out = np.zeros((num_nodes, 3), np.float64)
+    np.add.at(out, np.asarray(position.idx),
+              np.asarray(position.w)[:, None].astype(np.float64)
+              * np.asarray(position.target, np.float64))
+    return out.astype(_F32)
+
+
 def assemble_topology(
     num_nodes: int,
     *,
@@ -683,17 +695,6 @@ def assemble_topology(
             ]
         )
 
-    if np.asarray(position.idx).shape[0]:
-        pos_force = np.zeros((num_nodes, 3), np.float64)
-        np.add.at(
-            pos_force,
-            np.asarray(position.idx),
-            np.asarray(position.w)[:, None].astype(np.float64)
-            * np.asarray(position.target, np.float64),
-        )
-        pos_force = pos_force.astype(_F32)
-    else:
-        pos_force = np.zeros((1, 3), _F32)
 
     tcap = _round_up(tris.shape[0], 8)
     triangles = _pad2(tris, tcap)
@@ -704,7 +705,7 @@ def assemble_topology(
         stiffness_diag=diag.astype(_F32),
         floor_count=floor_count,
         tet_block6=tet_block6,
-        position_force_dense=pos_force,
+        position_force_dense=position_force(num_nodes, position),
         triangles=triangles,
         tri_mask=_pad2(np.ones(tris.shape[0], _F32), tcap),
         **generic,

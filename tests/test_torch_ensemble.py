@@ -27,6 +27,7 @@ at B = 3, and B = 1 to the unbatched call; they skip without a card.
 """
 
 import dataclasses
+from functools import partial
 
 import jax
 import numpy as np
@@ -365,3 +366,115 @@ def test_one_member_equals_the_single_scene_kernels(cuda):
     for stage in k1:
         for a, b in zip(k1[stage], single[stage]):
             assert torch.equal(a.reshape(b.shape), b), stage
+
+
+# ---------------------------------------------------------------------------
+# the tet-column path off the packed bodies (ROADMAP item 10c)
+
+BRANCH_B, BRANCH_LATCHED, BRANCH_WARM, BRANCH_TICKS = 3, 1, 33, 2
+
+
+def _branch_fields(branch, budget):
+    """The StepConfig fields that take the soup's detection off the packed
+    bodies: none for the reference sweep (the Solver's own, with its
+    budget), or the cell list (the budget's bodies unpacked with 32 narrow
+    slots a row, as the cell list's own budget has, the super-body layout
+    off, no all-pairs)."""
+    if branch == "reference":
+        return {}
+    from pies_tpu_torch.scene.contact_piles import SUPER_OFF
+
+    return dict(body_nodes=0, body_node_offset=0, body_faces=(), allpairs_broadphase_max=0,
+                budget=dataclasses.replace(budget, body_stride=1, max_narrow_candidates=32),
+                **SUPER_OFF)
+
+
+@pytest.fixture(scope="module", params=["reference", "celllist"])
+def branch_reference(request):
+    """The JAX vmapped tick of the 32-tet soup in one branch: B = 3 members,
+    member 1 latched, each other member's live nodes moved by its seeded
+    offset; after ``BRANCH_WARM`` ticks the start (contacts from tick 31),
+    then per tick the positions and each member's contact set on the tick's
+    predicted positions."""
+    branch = request.param
+    j = pies_tpu.Solver(JOptions(solver=JName.PD), enable_collisions=True,
+                        dense_operator_max=0, broadphase_mode=branch)
+    j.create_tet_soup(N_TETS, **CONTACT_SCENE)
+    j._prepare()
+    topo, params = j._topology, j.current_params()
+    cfg = dataclasses.replace(j._config, unroll_loops=False,
+                              **_branch_fields(branch, j._config.budget))
+    base = jax.tree.map(np.asarray, j._state)
+    st = jax.tree.map(lambda a: np.repeat(a[None], BRANCH_B, 0), base)
+    pos, prev = st.positions.copy(), st.prev_positions.copy()
+    for b, off in enumerate(_offsets(LIVE)[:BRANCH_B]):
+        pos[b, :LIVE] += off
+        prev[b, :LIVE] += off
+    failed = np.arange(BRANCH_B) == BRANCH_LATCHED
+    st = dataclasses.replace(st, positions=pos, prev_positions=prev, sim_failed=failed)
+    # (XLA's backend optimization level 0: half the compile time)
+    opt0 = {"xla_backend_optimization_level": 0}
+    tick = jax.jit(jens.ensemble_tick, static_argnames=("config",), compiler_options=opt0)
+
+    @partial(jax.jit, compiler_options=opt0)
+    def contacts(states):
+        def one(s):
+            x = s.positions + params.dt * s.velocities * s.node_mask[:, None]
+            out = jdetect(x, s.prev_positions, topo.triangles, topo.tri_mask, params, cfg)
+            return out[0], jax.numpy.where(s.sim_failed, 0.0, out[1])
+        return jax.vmap(one)(states)
+
+    states = jax.tree.map(jax.numpy.asarray, st)
+    for _ in range(BRANCH_WARM):
+        states, _ = tick(states, topo, params, config=cfg)
+    start = jax.tree.map(np.asarray, states)
+    xs, sets = [], []
+    for _ in range(BRANCH_TICKS):
+        sets.append(_contact_sets(*contacts(states)))
+        states, _ = tick(states, topo, params, config=cfg)
+        xs.append(np.asarray(states.positions)[:, :LIVE])
+    return dict(branch=branch, start=start, pos=np.stack(xs), sets=sets, cfg=cfg,
+                topo=jax.tree.map(np.asarray, topo), params=jax.tree.map(np.asarray, params))
+
+
+def _contact_sets(pt_idx, pt_mask):
+    """Each member's contacts as a set of (a, b, c, d) rows."""
+    return [{tuple(int(v) for v in row) for row, m in zip(idx, mask) if m > 0}
+            for idx, mask in zip(np.asarray(pt_idx), np.asarray(pt_mask))]
+
+
+def test_tet_column_ensembles_run_off_the_packed_bodies(branch_reference):
+    """Item 10c: the tet-column ensemble with self-contact in reference mode
+    and on the cell list.  One tick within 3e-6 of the JAX package's vmapped
+    tick and each member's contact set equal on every tick of the window
+    (live in members 0 and 2); the latched member frozen; each member
+    equal to its single-scene run."""
+    ref = branch_reference
+    cfg = convert.config_from(ref["cfg"])
+    topo = convert.topology_from_numpy(ref["topo"])
+    params = convert.params_from(ref["params"])
+    states = convert.state_from_numpy(ref["start"])
+    assert tetcols.applies(states, topo, cfg)
+    assert broadphase.tri_mode(cfg, topo.tri_mask.shape[0]) == ref["branch"]
+    singles = unstack_all(states)
+    h = float(np.float32(params.dt))
+    pos, sets = [], []
+    for _ in range(BRANCH_TICKS):
+        x = states.positions + h * states.velocities * states.node_mask[..., None]
+        idx, mask, _, _, _ = broadphase.detect_point_tri_collisions(
+            x, states.prev_positions, topo.tri_mask, params, cfg, failed=states.sim_failed,
+            triangles=topo.triangles)
+        mask = torch.where((states.sim_failed != 0).any(-1, keepdim=True), 0.0, mask)
+        sets.append(_contact_sets(idx.numpy(), mask.numpy()))
+        ensemble.ensemble_tick(states, topo, params, cfg)
+        pos.append(states.positions[:, :LIVE].numpy().copy())
+    assert sets == ref["sets"], [[len(m) for m in s] for s in sets]
+    assert all(len(s[0]) and len(s[2]) and not s[BRANCH_LATCHED] for s in sets), \
+        [[len(m) for m in s] for s in sets]
+    d = np.abs(pos[0] - ref["pos"][0]).reshape(BRANCH_B, -1).max(axis=1)
+    assert (d <= STEP_TOL).all(), d
+    assert torch.equal(states.positions[BRANCH_LATCHED], singles[BRANCH_LATCHED].positions)
+    for b in range(BRANCH_B):
+        for _ in range(BRANCH_TICKS):
+            step.tick(singles[b], topo, params, cfg)
+        assert torch.equal(member(states, b).positions, singles[b].positions), b

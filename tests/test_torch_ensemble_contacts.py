@@ -204,7 +204,6 @@ def test_the_case_takes_its_branch(reference):
     _, _, members, _, branch = CASES[reference["case"]]
     assert states.members == members
     assert not tetcols.applies(states, topo, cfg)
-    assert pd.ensemble_unported(states, topo, cfg) is None
     assert broadphase.tri_mode(cfg, topo.tri_mask.shape[0]) == branch
     if branch is None:  # the super-body layout with the members' caches
         assert broadphase.super_body(cfg)

@@ -263,7 +263,6 @@ def test_the_case_takes_the_generic_path(reference):
     assert states.members == members and states.nn is None and states.bp is None
     assert states.sim_failed[:, 0].tolist() == [int(b == latched) for b in range(members)]
     assert not tetcols.applies(states, topo, cfg)
-    assert pd.ensemble_unported(states, topo, cfg) is None
     assert pd.edge_contact(cfg, topo) == (case != "cloud")
     assert cfg.enable_node_collisions == (case == "cloud")
     assert pd.self_contact(cfg, topo) == (case == "nets")

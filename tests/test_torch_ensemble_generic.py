@@ -188,7 +188,6 @@ def test_the_case_takes_the_generic_path(reference):
     states, topo, _, cfg = _port(reference)
     assert states.members == CASES[reference["case"]][2]
     assert not tetcols.applies(states, topo, cfg)
-    assert pd.ensemble_unported(states, topo, cfg) is None
     if reference["case"] == "soup":
         assert pd.block_layout(states, topo) and topo.tet_band is not None
 
@@ -316,7 +315,6 @@ def test_contact_paths_are_not_ported_in_an_ensemble():
         s = pt.Solver(pt.SolverOptions(), device="cpu", **{"enable_collisions": False, **kw})
         s.create_sheet((0.0, 0.5, 0.0), 0.5, 1.0, 5000.0)
         s._prepare()
-        assert pd.ensemble_unported(stack_ensemble(s.state, 2), s.topology, s.config) is None
         steps(s, s.config)
     s = pt.Solver(pt.SolverOptions(), enable_collisions=False, device="cpu")
     add_cube_drop(s, 2)

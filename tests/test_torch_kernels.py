@@ -1531,3 +1531,21 @@ def test_edge_node_paths_match_twins_over_a_trajectory(cuda, scene):
             and lk[2] > 0
     else:
         assert ck["edge_contacts"] > 0 and lk[0] > 0 and lk[1] > 0 and lk[2] == 0
+
+
+def test_every_entry_point_has_its_signature():
+    """Each ``extern "C"`` entry point of ``csrc`` has its ctypes argument
+    list in ``kernels.SIGNATURES``, of its length (without one ctypes
+    passes a pointer as a 32-bit int)."""
+    import re
+
+    from pies_tpu_torch import kernels
+
+    found = {}
+    for src in kernels._CSRC.glob("*.cu"):
+        for name, args in re.findall(r'extern "C" int (pies_\w+)\(([^)]*)\)',
+                                     src.read_text()):
+            found[name] = len([a for a in args.split(",") if a.strip()])
+    assert found and set(found) == set(kernels.SIGNATURES)
+    for name, n in found.items():
+        assert len(kernels.SIGNATURES[name]) == n, name
