@@ -355,6 +355,28 @@ Phases (any failure exits non-zero, before the result line):
    partials, average, apply) and merge equal to their twins and timed on
    20a's shapes beside ``index_select`` / ``index_add_``.  20f a NaN in one
    slab latches every slab, and the next tick leaves the state bit for bit.
+21. The domain decomposition and the ensembles across ``torch.distributed``
+   ranks (ROADMAP item 11b): four gloo ranks on the one card (NCCL refuses
+   two ranks on one device), started once with ``ranks.launch`` after
+   phase 1 built the kernels, so that each rank only loads the library.
+   21a phase 13's ensemble from its last tick, 16 members a rank, 10
+   sharded steps: every member bit-equal to the one-process ensemble's,
+   the fleet's residual and latched count equal on every tick; ms/tick per
+   rank, launches per tick.  21b phase 20a's mesh in 8 slabs (two a rank)
+   and phase 20b's soup with self-contact in 4 (every halo across ranks):
+   T30's outer-band modes bit-equal to their twins at the rank's shapes;
+   the operator across the ranks on one seeded vector bit-equal to phase
+   20's one-card operator, its p·Ap total within 1e-5 of the float64 dot;
+   one tick within the bound phase 20 held the slabs to, and within 1e-5
+   of phase 20's one-card domain tick; a rerun of it bit-identical on every
+   rank; three timed 10-tick windows beside phase 20's one-card ms/tick;
+   the CG across the ranks (T11's split partials) by the kernels bit-equal
+   to the twins', and its time a solve (collectives included); T11's
+   update and direction alone on rank 0, their partials at the last rank's
+   slice of R·P, bit-equal to their twin and timed a trip; the exchange's
+   and the gather's time a call.  21c a NaN in one rank's slab latches
+   every rank on that substep, and the next tick leaves every rank's state
+   bit for bit.  A rank that fails ends the others and the script.
 
 Each phase prints its seconds.  The last two lines are the kernel table
 and the result as JSON objects.
@@ -488,6 +510,40 @@ def check(ok, what):
     if not ok:
         raise SystemExit(f"FAILED: {what}")
     print(f"  ok: {what}")
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrappers, by the name of its row: their ``launches``
+    counts are what the script resets before a path and reads after it."""
+    from pies_tpu_torch import diagnostics
+    from pies_tpu_torch.collision import broadphase
+    from pies_tpu_torch.constraints import projections as proj
+    from pies_tpu_torch.parallel import halo
+    from pies_tpu_torch.solver import assembly, pbd, pd, tetcols
+
+    return {"substep_head": [pd.substep_head], "tet_force12": [proj.tet_force12],
+            "tet_cols_substep": [tetcols.substep_cols], "substep_tail": [pd.substep_tail],
+            "body_broadphase": [broadphase.body_broadphase],
+            "pt_narrowphase": [broadphase.pt_narrowphase],
+            "pt_coupling": [tetcols.pt_coupling_setup, tetcols.pt_force],
+            "pt_tail": [pd.pt_tail],
+            "tet_force_nodes": [proj.tet_force12_gathered, assembly.assemble_force],
+            "ell_matvec": [assembly.apply_system], "pcg": [assembly.pcg_solve],
+            "constraint_rows": [proj.distance_rows, proj.bend_rows],
+            "shape_match": [proj.shape_rows, proj.goal_rows],
+            "super_broadphase": [broadphase.super_broadphase],
+            "super_narrowphase": [broadphase.super_narrowphase],
+            "tri_candidates": [broadphase.tri_candidates], "tri_ccd": [broadphase.tri_ccd],
+            "pbd_constraints": [pbd.substep_head, proj.jacobi_rows, pbd.apply_jacobi,
+                                pbd.floor_clamp, pbd.substep_tail],
+            "pbd_distance_seq": [pbd.chain_scan, pbd.color_classes],
+            "node_pairs": [broadphase.node_pairs], "node_response": [broadphase.node_response],
+            "tet_block": [assembly.tet_block_factor], "pt_full": [assembly.pt_full],
+            "floor_entries": [pd.floor_entries], "edge_ccd": [broadphase.edge_ccd],
+            "edge_terms": [assembly.edge_terms], "node_contacts": [assembly.node_terms],
+            "residuals": [diagnostics.constraint_residuals],
+            "occupancy": [broadphase.occupancy], "halo_refresh": [halo.refresh],
+            "halo_reduce": [halo.reduce], "halo_merge": [halo.merge, halo.merge_pairs]}
 
 
 def mesh_solver(pt, path, dev, pins=(), collisions=False):
@@ -747,6 +803,7 @@ def phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, pat
         if name in rows:
             rows[name].update(ensemble_b64_ms=ms_b, ensemble_b1x64_ms=ms_1,
                               ensemble_bound_ms=b_ms, ensemble_bound_by=b_by)
+    handoff = (states, topo, params, cfg)  # (phase 21 starts from it)
     del st, colls, inc, s, states
     lap("stages")
 
@@ -767,6 +824,7 @@ def phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, pat
           and bool(torch.isfinite(e4.positions).all()),
           "the others step through contact, unlatched and finite")
     lap("13b")
+    return handoff
 
 
 def phase12(pt, dev, smi, PD, row, launches, reset_launches, read_launches, kernels_vs_twins,
@@ -2871,7 +2929,7 @@ def hold_stages(domain, dom, params, cfg, label, row):
                 "pies_tpu/parallel/domain.py:955", 0.0, cuda_ms(lambda: kern["tail"](twin, *a), 20),
                 cuda_ms(lambda: plain["tail"](twin, *a), 5), "equal", 120 * n_own, 25 * n_own)
 
-    ops = domain._Ops(False)
+    ops = domain._Ops(False, dom.meta.halo)
     ops.k = dict(kern, pt_tail=pt_tail, node_friction=node_friction, tail=tail)
     domain._substep(clone(dom.state), dom.static, params, domain.domain_config(cfg), dom.meta,
                     ops, True, None)
@@ -2897,11 +2955,11 @@ def hold_operator(dom, state, topo, params, label):
     check is against the single scene's own one-ulp spread.)"""
     import torch
 
-    from pies_tpu_torch.parallel import halo
+    from pies_tpu_torch.parallel import domain
     from pies_tpu_torch.solver import assembly, pd
 
-    meta, sc = dom.meta, dom.static
-    d, l, b, v = meta.n_slabs, meta.block, meta.halo, meta.view
+    meta = dom.meta
+    d, l = meta.n_slabs, meta.block
     dev = state.positions.device
     n = state.positions.shape[0]
     gen = torch.Generator(device=dev).manual_seed(20)
@@ -2911,11 +2969,8 @@ def hold_operator(dom, state, topo, params, label):
     y1, _ = assembly.apply_system(p, state.mass, torch.zeros(n, device=dev), h2, topo, failed)
     p_own = torch.zeros((d * l, 3), device=dev)
     p_own[:n] = p[torch.from_numpy(dom.perm).to(dev).long()]
-    yv, _ = assembly.apply_system(halo.refresh(p_own.view(d, l, 3), b).view(-1, 3),
-                                  sc.mass_own_view.reshape(-1), torch.zeros(d * v, device=dev),
-                                  h2, sc.topo, failed)
-    y_own, part = halo.reduce(yv.view(d, v, 3), b, p=p_own.view(d, l, 3))
-    y = y_own.reshape(-1, 3)[torch.from_numpy(dom.inv_perm).to(dev).long()]
+    y_own, part = domain.operator(dom, params)(p_own, True)
+    y = y_own[torch.from_numpy(dom.inv_perm).to(dev).long()]
     torch.cuda.synchronize()
     scale = float(y1.abs().max())
     err = float((y - y1).abs().max())
@@ -2968,7 +3023,7 @@ def single_counts(domain, state, topo, params, cfg):
 
 
 def phase20(pt, dev, smi, PD, row, rows, launches, reset_launches, read_launches, keep,
-            cloud_n=CLOUD_N, nets_nn=NETS_NN, small_tets=16_384, twin_slabs=(3, 8)):
+            cloud_n=CLOUD_N, nets_nn=NETS_NN, small_tets=16_384, twin_slabs=(3, 8), keep21=None):
     """Phase 20: the spatial domain decomposition on one card (ROADMAP item
     11a): 20a phase 5's mesh in 8 slabs (floor contact), 20b phase 3b's
     soup with self-contact in 4 (the cell list), 20c phase 12c's PD node
@@ -2989,7 +3044,8 @@ def phase20(pt, dev, smi, PD, row, rows, launches, reset_launches, read_launches
     kernel of the slice on the path, T30 and the emit masks and the
     accumulate-only modes among them) at ``twin_slabs`` slabs on small
     scenes, T30 held to its twins and timed on 20a's shapes; 20f a NaN in
-    one slab latches every slab.
+    one slab latches every slab.  ``keep21`` receives 20a's and 20b's
+    scenes, partitions, single-scene ticks, bounds and ms/tick (phase 21).
 
     20c's cloud is phase 12c's at ``CLOUD_DENSITY`` nodes per unit volume
     instead of ~23: a node pair is any two nodes sharing a hash bucket of the
@@ -3160,6 +3216,10 @@ def phase20(pt, dev, smi, PD, row, rows, launches, reset_launches, read_launches
               f" ({100 * halo_us / 1e3 / max(busy, 1e-9):.1f}% of busy)")
         for e, us in sorted(events, key=lambda eu: -eu[1])[:6]:
             print(f"    {us / 10:9.2f} us/tick  x{e.count / 10:<6.1f} {e.key[:80]}")
+        if keep21 is not None and label in ("20a", "20b"):
+            keep21[label] = dict(dom=dom, state=state, topo=topo, params=params, config=cfg,
+                                 n_live=n_live, margin=margin, tol=tol, ms=min(secs) * 1e3,
+                                 single=single.positions[:n_live].cpu(), one_card=got.cpu())
         cells[label] = dict(one_tick_dx=err, one_slab_dx=err1, single_spread=spread,
             slabs=d, block=meta.block, halo=meta.halo, ms_per_tick=min(secs) * 1e3,
             single_ms_per_tick=single_ms, launches_per_tick=per_tick,
@@ -3354,6 +3414,463 @@ def phase20(pt, dev, smi, PD, row, rows, launches, reset_launches, read_launches
           f"20f: a NaN in slab {b_nan} of {dd} latched every slab ({ds.failed_slabs().tolist()});"
           " the next tick left the state bit for bit")
     lap("20f")
+
+
+R21 = 4  # phase 21's ranks, all on the one card (gloo)
+NAN_RANK = 2  # 21c: the rank whose slab gets the NaN
+RANK_ROWS = ("halo_refresh (outer bands)", "halo_reduce (outer bands)", "pcg (ranks)")
+
+
+def hold_t11(diag, mask, world, dev, seed, reps=50):
+    """T11's split stages alone (``assembly.cg_update``, ``cg_direction``)
+    at one rank's shapes: ``N`` owned nodes (``diag``, ``mask``), partials
+    of ``parts = world·P`` with this launch's P blocks at the last rank's
+    slice, the other ranks' partials seeded.  One trip is held to its twin
+    (``assembly.cg_trip_plain``, totals over the same R·P partials); then
+    ``reps`` trips in a row (no exit test, every trip live) are timed by
+    CUDA events, and a fifth as many twin trips.  Returns the trip's max |dx| over
+    x, r and p, whether the trip's outputs are bit-equal, ms a trip, the
+    twin's ms a trip, N and P."""
+    import torch
+
+    from pies_tpu_torch.ops.math3d import ieee_div
+    from pies_tpu_torch.solver import assembly
+
+    n = diag.shape[0]
+    own = -(-n // assembly.CG_BLOCK)
+    parts, at = world * own, (world - 1) * own
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, r, p, ap = (torch.randn((n, 3), device=dev, generator=gen) for _ in range(4))
+    prz = torch.rand((2, parts), device=dev, generator=gen) + 0.5
+    prz0, pap = (torch.rand(parts, device=dev, generator=gen) + 0.5 for _ in range(2))
+    prr = torch.zeros(parts, device=dev)
+    failed = torch.zeros(2, dtype=torch.int32, device=dev)
+    trips = torch.zeros(1, dtype=torch.int32, device=dev)
+    live = mask[:, None] > 0
+    inv = ieee_div(torch.ones_like(diag), diag)[:, None]
+    precond = lambda res: inv * res  # noqa: E731
+    seen = {}
+
+    def total(row):
+        """This launch's r.z partials (kept in ``seen``) at its slice of
+        ``row``, then the total over all R.P."""
+        def at_slice(t):
+            seen["rz"] = t
+            return assembly.finalize(torch.cat([row[:at], t, row[at + own:]]))
+        return at_slice
+
+    xk, rk, pk, zk = x.clone(), r.clone(), p.clone(), torch.empty_like(x)
+    assembly.cg_update(xk, pk, ap, rk, zk, diag, None, mask, prz, prz0, pap, prr, trips, failed,
+                       0, 0, 0.0, at)
+    assembly.cg_direction(pk, zk, prz, prz0, trips, failed, 0, 0, 0.0, at)
+    xp, rp, pp, _, prr_p = assembly.cg_trip_plain(
+        x, r, p, ap, assembly.finalize(prz[0]), assembly.finalize(pap), live, precond,
+        total(prz[1]))
+    torch.cuda.synchronize()
+    equal = (torch.equal(xk, xp) and torch.equal(rk, rp) and torch.equal(pk, pp)
+             and torch.equal(prz[1, at:], seen["rz"]) and torch.equal(prr[at:], prr_p)
+             and int(trips[0]) == 1)
+    err = max(float((a - b).abs().max()) for a, b in ((xk, xp), (rk, rp), (pk, pp)))
+    state = {"i": 0}
+    trips.zero_()
+
+    def kernel_trip():
+        i = state["i"]
+        assembly.cg_update(xk, pk, ap, rk, zk, diag, None, mask, prz, prz0, pap, prr, trips,
+                           failed, i, 0, 0.0, at)
+        assembly.cg_direction(pk, zk, prz, prz0, trips, failed, i, 0, 0.0, at)
+        state["i"] = i + 1
+
+    plain = {"v": (x, r, p)}
+
+    def plain_trip():
+        xx, rr, pv = plain["v"]
+        xx, rr, pv, _, _ = assembly.cg_trip_plain(
+            xx, rr, pv, ap, assembly.finalize(prz[0]), assembly.finalize(pap), live, precond,
+            total(prz[1]))
+        plain["v"] = (xx, rr, pv)
+
+    ms = cuda_ms(kernel_trip, reps)
+    plain_ms = cuda_ms(plain_trip, max(reps // 5, 1))
+    return dict(err=err, equal=equal, ms=ms, plain_ms=plain_ms, n=n, parts=parts, own=own)
+
+
+def rank21(path):
+    """Phase 21 on one rank (a spawned process, one of ``R21`` gloo ranks on
+    the one card): the cases of the file ``path`` (``phase21`` writes it);
+    returns this rank's results.  The kernels are the library the parent
+    built: ``kernels.lib()`` only loads it."""
+    import torch
+
+    from pies_tpu_torch import kernels
+    from pies_tpu_torch.parallel import domain, ensemble, halo, ranks
+    from pies_tpu_torch.solver import assembly, pd
+    from pies_tpu_torch.topology import to_device
+
+    c = torch.load(path, weights_only=False)
+    mesh = ranks.make_mesh()
+    net = ranks.Transport(mesh)
+    dev = mesh.device
+    kernels.lib()
+    wrappers = kernel_wrappers()
+
+    def reset():
+        for fns in wrappers.values():
+            for f in fns:
+                f.launches = 0
+
+    def read():
+        return {name: sum(f.launches for f in fns) for name, fns in wrappers.items()}
+
+    def sync_time(fn, reps):
+        """Host seconds per call of ``fn``, the stream synchronised around."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps
+
+    def on_rank0(fn):
+        """``fn()`` on rank 0 while the others wait (kernel timings alone on
+        the card); None elsewhere."""
+        out = fn() if mesh.rank == 0 else None
+        torch.distributed.barrier()
+        return out
+
+    out = {"rank": mesh.rank}
+    # 21a: the sharded ensemble.
+    e = c["21a"]
+    topo, params, cfg = to_device(e["topo"], dev), e["params"], e["config"]
+    mine = ensemble.shard_ensemble(e["states"], mesh)
+    step = ensemble.make_sharded_step(mesh, cfg)
+    step(ensemble.shard_ensemble(e["states"], mesh), topo, params)  # (warm-up, a copy)
+    reset()
+    calls = step.transport.calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    diag = [step(mine, topo, params)[1:] for _ in range(e["ticks"])]
+    torch.cuda.synchronize()
+    out["21a"] = dict(ms=(time.perf_counter() - t0) / e["ticks"] * 1e3, launches=read(),
+                      diag=[(float(r), int(f)) for r, f in diag],
+                      collectives=(step.transport.calls - calls) / e["ticks"])
+    back = ensemble.gather_ensemble(mine, mesh)
+    if mesh.rank == 0:
+        out["21a"]["states"] = ensemble._map(torch.Tensor.cpu, back)
+    del mine, back, topo
+
+    # 21b: the domain over the ranks.
+    for label in ("20a", "20b"):
+        sc = c[label]
+        params, cfg, n_live = sc["params"], sc["config"], sc["n_live"]
+        t0 = time.perf_counter()
+        dom = domain.partition_domain(sc["state"], sc["topo"], sc["slabs"],
+                                      collision_margin=sc["margin"], mesh=mesh)
+        meta = domain.local_meta(dom.meta, mesh)
+        d, l, b, v = meta.n_slabs, meta.block, meta.halo, meta.view
+        r = dict(partition_s=time.perf_counter() - t0, local=(d, l, b))
+        # T30's outer-band modes against their twins at the scene's shapes.
+        gen = torch.Generator(device=dev).manual_seed(21 + mesh.rank)
+        own3 = torch.randn((d, l, 3), device=dev, generator=gen)
+        own1 = own3[..., 0].contiguous()
+        view3 = torch.randn((d, v, 3), device=dev, generator=gen)
+        view4 = torch.rand((d, v, 4), device=dev, generator=gen) * 3
+        p3 = torch.randn((d, l, 3), device=dev, generator=gen)
+        same = {}
+        for name, o in (("k=3", own3), ("k=1", own1)):
+            bands = net.exchange(o[0, :b], o[-1, l - b:])
+            same[f"refresh {name}"] = torch.equal(halo.refresh(o, b, False, *bands),
+                                                  halo.refresh_plain(o, b, False, *bands))
+        rb3 = net.exchange(view3[0, :b], view3[-1, v - b:])
+        rb4 = net.exchange(view4[0, :b], view4[-1, v - b:])
+        ref_bands = net.exchange(own3[0, :b], own3[-1, l - b:])
+        same["reduce k=3"] = torch.equal(halo.reduce(view3, b, left=rb3[0], right=rb3[1]),
+                                         halo.reduce_plain(view3, b, left=rb3[0], right=rb3[1]))
+        yk, pk = halo.reduce(view3, b, p=p3, left=rb3[0], right=rb3[1])
+        yp, pp = halo.reduce_plain(view3, b, p=p3, left=rb3[0], right=rb3[1])
+        same["reduce p.Ap"] = torch.equal(yk, yp) and torch.equal(pk, pp)
+        same["average"] = torch.equal(
+            halo.reduce(view4, b, halo.AVERAGE, left=rb4[0], right=rb4[1]),
+            halo.reduce_plain(view4, b, halo.AVERAGE, left=rb4[0], right=rb4[1]))
+        xa, pa = own3.clone(), p3.clone()
+        xb, pb = own3.clone(), p3.clone()
+        act = (torch.rand((d, l), device=dev, generator=gen) < 0.1).float()
+        ok_failed = torch.zeros(2, dtype=torch.int32, device=dev)
+        for xx, pv, fn in ((xa, pa, halo.reduce), (xb, pb, halo.reduce_plain)):
+            fn(view4, b, halo.APPLY, x_own=xx, prev_own=pv, active=act, stat=view3[:, b:b + l]
+               .contiguous(), failed=ok_failed, left=rb4[0], right=rb4[1])
+        same["apply"] = torch.equal(xa, xb) and torch.equal(pa, pb)
+        torch.cuda.synchronize()
+        r["bands_equal"] = same
+        # The operator across the ranks on the parent's seeded vector.
+        mine = slice(mesh.rank * d * l, (mesh.rank + 1) * d * l)
+        p_own = sc["p_own"][mine].to(dev)
+        own_parts = -(-d * l // 256)
+        buf = torch.empty(mesh.world * own_parts, device=dev)
+        y, _ = domain.operator(dom, params, mesh=mesh)(
+            p_own, buf[mesh.rank * own_parts:(mesh.rank + 1) * own_parts])
+        net.gather_(buf, own_parts)
+        r["operator"] = (y.cpu(), float(buf.double().sum()))
+        # One tick, and a rerun of it from the same partition.
+        tick = domain.make_domain_tick(cfg, dom.meta, mesh=mesh)
+        start = [getattr(dom.state, f).clone() for f in domain_fields()]
+        tick(dom.state, dom.static, params)
+        r["one_tick"] = domain.gather_positions(dom, dom.state, mesh)[:n_live]
+        again = domain.shard_host(dom.host, dom.meta, mesh)
+        if not all(torch.equal(a, getattr(again.state, f))
+                   for a, f in zip(start, domain_fields())):
+            raise RuntimeError(f"21b {label}: the rerun's start differs")
+        tick(again.state, again.static, params)
+        r["rerun_equal"] = all(torch.equal(getattr(again.state, f), getattr(dom.state, f))
+                               for f in domain_fields())
+        del again
+        # Three timed 10-tick windows.
+        r["ms"], r["counts"] = [], []
+        for w in range(3):
+            counters = pd.new_counters(dev)
+            reset()
+            calls = tick.transport.calls
+            r["ms"].append(sync_time(lambda: tick(dom.state, dom.static, params, counters), 10)
+                           * 1e3)
+            r["launches"] = read()
+            r["collectives"] = (tick.transport.calls - calls) / 10
+            r["counts"].append(domain.read_counters(counters, mesh))
+        r["ok"] = (not bool(dom.state.sim_failed.any())
+                   and bool(torch.isfinite(dom.state.positions).all()))
+        # Timings at this scene's shapes: T30's band modes alone on the card,
+        # the exchange and the gather (every rank takes part), and the CG
+        # across the ranks (kernels, then twins) on the seeded vector.
+        lb, rb = ref_bands
+        r["t30"] = on_rank0(lambda: dict(
+            refresh=cuda_ms(lambda: halo.refresh(own3, b, False, lb, rb), 50),
+            refresh_plain=cuda_ms(lambda: halo.refresh_plain(own3, b, False, lb, rb), 10),
+            reduce=cuda_ms(lambda: halo.reduce(view3, b, left=rb3[0], right=rb3[1]), 50),
+            reduce_plain=cuda_ms(lambda: halo.reduce_plain(view3, b, left=rb3[0],
+                                                           right=rb3[1]), 10)))
+        r["exchange_ms"] = sync_time(lambda: net.exchange(own3[0, :b], own3[-1, l - b:]), 50) * 1e3
+        r["gather_ms"] = sync_time(lambda: net.gather_(buf, own_parts), 50) * 1e3
+        h2 = pd._h_h2(params)[1]
+        so = dom.static.own
+        diag = so.mass / h2 + so.stiffness_diag
+        failed = torch.zeros(2, dtype=torch.int32, device=dev)
+        cg = lambda plain: (assembly.pcg_solve_plain if plain else assembly.pcg_solve)(  # noqa: E731
+            p_own, torch.zeros_like(p_own), diag, None, None, h2, so.node_mask, None,
+            cfg.cg_iterations, cfg.cg_rtol, failed,
+            matvec=domain.operator(dom, params, plain=plain, mesh=mesh), ranks=net)
+        xk, rk, tk = cg(False)
+        xp, rp, tp = cg(True)
+        torch.cuda.synchronize()
+        r["cg_equal"] = torch.equal(xk, xp) and torch.equal(rk, rp) and torch.equal(tk, tp)
+        r["cg_trips"] = int(tk[0])
+        r["cg_ms"] = sync_time(lambda: cg(False), 3) * 1e3
+        r["cg_plain_ms"] = sync_time(lambda: cg(True), 1) * 1e3
+        r["t11"] = on_rank0(lambda: hold_t11(diag, so.node_mask, mesh.world, dev, 11))
+        if label == "20a":
+            # 21c: a NaN in one rank's slab latches every rank on that substep;
+            # the next tick leaves every rank's state bit for bit.
+            if mesh.rank == NAN_RANK:
+                node = int((so.node_mask.view(d, l)[0] > 0).nonzero()[0, 0])
+                dom.state.positions[0, node, 0] = float("nan")
+            before = bool(dom.state.sim_failed.any())
+            tick(dom.state, dom.static, params)
+            words = dom.state.sim_failed.tolist()
+            bits = [getattr(dom.state, f).view(torch.int32).clone()
+                    for f in ("positions", "prev_positions", "velocities")]
+            tick(dom.state, dom.static, params)
+            frozen = all(torch.equal(a, getattr(dom.state, f).view(torch.int32))
+                         for a, f in zip(bits, ("positions", "prev_positions", "velocities")))
+            r["latch"] = dict(before=before, words=words, frozen=frozen)
+        out[label] = r
+        del dom, tick
+        torch.cuda.empty_cache()
+    return out
+
+
+def domain_fields():
+    return ("positions", "prev_positions", "velocities", "shape_quats", "sim_failed")
+
+
+def phase21(pt, dev, smi, row, rows, ens13, keep21, ticks=10, backend="gloo"):
+    """Phase 21: the domain decomposition and the ensembles across
+    ``torch.distributed`` ranks (ROADMAP item 11b), ``R21`` gloo ranks on
+    the one card (NCCL refuses two ranks on one device; gloo stages the
+    bands through the host, ``parallel/ranks.py``), started once
+    (``ranks.launch``) after the parent built the kernels:
+
+    21a phase 13's ensemble (64 x the 512-tet soup with self-contact) from
+    its last tick, 16 members a rank, ``ticks`` sharded steps: every
+    member bit-equal to the one-process ensemble's, the fleet's residual
+    and latched count equal on every tick; ms/tick per rank, launches per
+    tick.  21b phase 20a's mesh in 8 slabs (two a rank) and phase 20b's
+    soup with self-contact in 4 (every halo across ranks): T30's
+    outer-band modes bit-equal to their twins at the rank's shapes; the
+    operator across the ranks (refresh, T10, reduce) on one seeded vector
+    bit-equal to phase 20's one-card operator, its p.Ap total within 1e-5
+    of the float64 dot; one tick within the bound phase 20 held the slabs
+    to, against the single scene's tick; a rerun bit-identical on every
+    rank; three timed 10-tick windows beside phase 20's one-card ms/tick;
+    the CG across the ranks by the kernels bit-equal to the twins'.  21c
+    a NaN in one rank's slab latches every rank on that substep.
+    ``backend="nccl"`` runs the same ranks one a card
+    (``scripts/ranks_nccl.py``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pies_tpu_torch.parallel import domain, ensemble, ranks
+
+    t_phase = time.perf_counter()
+    states, topo13, params13, cfg13 = ens13
+    members = states.members
+    one = clone_state(states)
+    diag = [tuple(ensemble.ensemble_step(one, topo13, params13, cfg13)) for _ in range(ticks)]
+    diag = [(float(r), int(f)) for r, f in diag]
+    to_cpu = lambda obj: ensemble._map(torch.Tensor.cpu, obj)  # noqa: E731
+    cases = {"21a": dict(states=to_cpu(states), topo=to_cpu(topo13),
+                         params=params13, config=cfg13, ticks=ticks)}
+    ops_one = {}
+    for label, k in keep21.items():
+        dom1 = k["dom"]
+        meta = dom1.meta
+        gen = torch.Generator(device=dev).manual_seed(21)
+        p_own = (torch.randn((meta.n_slabs * meta.block, 3), device=dev, generator=gen)
+                 * dom1.static.own.node_mask[:, None])
+        y1, _ = domain.operator(dom1, k["params"])(p_own)
+        ops_one[label] = (y1.cpu(), float((p_own.double() * y1.double()).sum()))
+        cases[label] = dict(state=to_cpu(k["state"]), topo=to_cpu(k["topo"]),
+                            params=k["params"], config=k["config"], n_live=k["n_live"],
+                            slabs=meta.n_slabs, margin=k["margin"], p_own=p_own.cpu())
+    where = "the one card" if backend == "gloo" else f"{R21} cards"
+    print(f"phase 21: {R21} {backend} ranks on {where}: 21a {members} x the 512-tet soup"
+          f" ({members // R21} a rank), 21b "
+          + ", ".join(f"{lab}: {c['slabs']} slabs" for lab, c in cases.items() if lab != "21a"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cases.pt")
+        torch.save(cases, path)
+        t0 = time.perf_counter()
+        res = ranks.launch(rank21, R21, backend, path, store_dir=tmp)
+        print(f"  ({R21} ranks ran in {time.perf_counter() - t0:.1f} s, their start included)")
+    del cases
+
+    # 21a
+    got = res[0]["21a"]["states"]
+    fields = ("positions", "prev_positions", "velocities", "forces", "sim_failed")
+    apart = [b for b in range(members)
+             if not all(torch.equal(getattr(got, f)[b].to(dev), getattr(one, f)[b])
+                        for f in fields)
+             or not all(torch.equal(getattr(got.bp, f)[b].to(dev), getattr(one.bp, f)[b])
+                        for f in ("pairs", "valid", "ref", "fresh"))]
+    check(not apart, f"21a: all {members} members after {ticks} sharded steps over {R21} ranks"
+          f" bit-equal to the one-process ensemble's, caches too (apart: {apart})")
+    check(all(r["21a"]["diag"] == diag for r in res),
+          f"21a: the fleet's largest residual and latched count equal the one-process"
+          f" ensemble_step's on every tick, on every rank (last {diag[-1]})")
+    per_tick = [sum(r["21a"]["launches"].values()) / ticks for r in res]
+    print("  21a: " + ", ".join(f"rank {r['rank']} {r['21a']['ms']:.3f} ms/tick" for r in res)
+          + f" ({smi}); launches per tick {per_tick}, collectives"
+          f" {res[0]['21a']['collectives']:.1f}")
+
+    # 21b
+    cells = {}
+    for label, k in keep21.items():
+        rs = [r[label] for r in res]
+        d, l, b = rs[0]["local"]
+        check(all(all(r["bands_equal"].values()) for r in rs),
+              f"21b {label}: T30's outer-band modes (refresh k=1, 3; reduce; p.Ap; average;"
+              f" apply) bit-equal to their twins on every rank at D = {d}, L = {l}, B = {b}")
+        y1, dot1 = ops_one[label]
+        y = torch.cat([r["operator"][0] for r in rs])
+        total = rs[0]["operator"][1]
+        check(torch.equal(y, y1) and all(r["operator"][1] == total for r in rs)
+              and abs(total - dot1) <= 1e-5 * abs(dot1),
+              f"21b {label}: the operator across {R21} ranks (refresh, T10, reduce with the"
+              f" bands) on one seeded vector bit-equal to phase 20's one-card operator; its"
+              f" p.Ap total {total:.9e}, the same on every rank, within 1e-5 of the float64"
+              f" dot {dot1:.9e}")
+        pos = torch.from_numpy(rs[0]["one_tick"])
+        err = float((pos - k["single"]).abs().max())
+        err1 = float((pos - k["one_card"]).abs().max())
+        check(all(np.array_equal(r["one_tick"], rs[0]["one_tick"]) for r in rs)
+              and err <= k["tol"] and err1 <= 1e-5,
+              f"21b {label}: one tick over {R21} ranks within {k['tol']:.3e} (phase 20's bound)"
+              f" of the single scene's tick (max |dx| {err:.3e}) and within 1e-5 of phase 20's"
+              f" one-card domain tick ({err1:.3e})")
+        check(all(r["rerun_equal"] for r in rs),
+              f"21b {label}: a rerun of the tick from the same partition bit-identical on every"
+              " rank")
+        check(all(r["cg_equal"] for r in rs),
+              f"21b {label}: the CG across the ranks by the kernels (T11's split partials, T10,"
+              f" T30) bit-equal to the twins' ({rs[0]['cg_trips']} trips; a solve"
+              f" {rs[0]['cg_ms']:.3f} ms on the host's clock, collectives included)")
+        t11 = rs[0]["t11"]
+        t11_nbytes = 128 * t11["n"] + 4 * (3 * t11["parts"] + 2 * t11["own"])
+        t11_ops = 32 * t11["n"] + 4 * t11["parts"]
+        check(t11["equal"],
+              f"21b {label}: T11's update and direction over N = {t11['n']} with their partials"
+              f" at the last rank's slice of {t11['parts']} bit-equal to their twin"
+              f" (assembly.cg_trip_plain); {t11['ms']:.4f} ms a trip against a bound of"
+              f" {bound(t11_nbytes, t11_ops)[0]:.4f} ms, the twin {t11['plain_ms']:.4f} ms")
+        counts = rs[0]["counts"][-1]
+        check(all(r["ok"] for r in rs) and counts["cg_trips"] > 0
+              and (label != "20b" or counts["contacts"] > 0),
+              f"21b {label}: no rank latched, finite after the windows; counters summed over"
+              f" the ranks {dict((n, v) for n, v in counts.items() if v)}")
+        launches = rs[0]["launches"]
+        names = ["halo_refresh", "halo_reduce", "pcg", "ell_matvec", "substep_head",
+                 "substep_tail"]
+        check(all(launches[n] > 0 for n in names),
+              f"21b {label}: every kernel of the path launched on rank 0: "
+              + ", ".join(f"{n} {launches[n] / 10:.1f}/tick" for n in names))
+        ms = [min(r["ms"]) for r in rs]
+        print(f"  21b {label}: {d} slabs a rank; windows "
+              + "; ".join(f"rank {i} " + ", ".join(f"{m:.3f}" for m in r["ms"])
+                          for i, r in enumerate(rs))
+              + f" ms/tick; phase 20's one card {k['ms']:.3f} ms/tick ({smi});"
+              f" {sum(launches.values()) / 10:.1f} launches and {rs[0]['collectives']:.1f}"
+              f" collectives per tick on rank 0; exchange"
+              f" {rs[0]['exchange_ms']:.3f} ms, gather {rs[0]['gather_ms']:.3f} ms a call;"
+              f" partition {max(r['partition_s'] for r in rs):.2f} s")
+        cells[label] = dict(slabs_per_rank=d, ranks=R21, ms_per_tick=ms,
+                            one_card_ms_per_tick=k["ms"], launches_per_tick=sum(
+                                launches.values()) / 10, collectives_per_tick=rs[0]["collectives"],
+                            exchange_ms=rs[0]["exchange_ms"],
+                            gather_ms=rs[0]["gather_ms"], one_tick_dx=err, one_card_dx=err1,
+                            cg_trips=rs[0]["cg_trips"], cg_solve_ms=rs[0]["cg_ms"],
+                            cg_solve_plain_ms=rs[0]["cg_plain_ms"], t11_trip_ms=t11["ms"],
+                            t11_trip_plain_ms=t11["plain_ms"])
+        if label == "20a":
+            lat = [r["latch"] for r in rs]
+            check(all(not x["before"] and x["words"] == lat[0]["words"] and x["words"][1] == 1
+                      and x["frozen"] for x in lat),
+                  f"21c: a NaN in rank {NAN_RANK}'s slab latched every rank on that substep"
+                  f" (latch words {[x['words'] for x in lat]}); the next tick left every rank's"
+                  " state bit for bit")
+            # The kernel table's rows of the slice's new modes, at 20a's shapes.
+            t30, v = rs[0]["t30"], l + 2 * b
+            n, nv, trips = d * l, d * v, rs[0]["cg_trips"]
+            rb = 4 * (n * 3 + 2 * b * 3 + nv * 3)
+            row("halo_refresh (outer bands)", "pies_tpu_torch/kernels/csrc/halo.cu",
+                "pies_tpu/parallel/domain.py:581", 0.0, t30["refresh"], t30["refresh_plain"],
+                "equal", rb, 0)
+            row("halo_reduce (outer bands)", "pies_tpu_torch/kernels/csrc/halo.cu",
+                "pies_tpu/parallel/domain.py:596", 0.0, t30["reduce"], t30["reduce_plain"],
+                "equal", rb, 3 * n)
+            # T11's row: one trip of its update and direction over R.P
+            # partials; the whole solve across the ranks, collectives
+            # included, beside it as a transport figure.
+            row("pcg (ranks)", "pies_tpu_torch/kernels/csrc/pcg.cu",
+                "pies_tpu/parallel/domain.py:612", t11["err"], t11["ms"], t11["plain_ms"],
+                "equal", t11_nbytes, t11_ops)
+            rows["pcg (ranks)"].update(solve_ms=rs[0]["cg_ms"], solve_plain_ms=rs[0]["cg_plain_ms"],
+                                       solve_trips=trips)
+            for name, key in zip(RANK_ROWS, ("halo_refresh", "halo_reduce", "pcg")):
+                rows[name]["launches"] = launches[key]
+                rows[name]["launches_by_rank"] = [r["launches"][key] for r in rs]
+                rows[name]["exchange_ms"] = rs[0]["exchange_ms"]
+                rows[name]["gather_ms"] = rs[0]["gather_ms"]
+    rows["pcg (ranks)"]["domain_ranks_cells"] = cells
+    print(f"  (phase 21: {time.perf_counter() - t_phase:.1f} s)")
 
 
 def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=MESH_WARMUP,
@@ -3752,29 +4269,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     stamp("2b")
 
     # ---- phases 3 and 3b
-    wrappers = {"substep_head": [pd.substep_head], "tet_force12": [proj.tet_force12],
-                "tet_cols_substep": [tetcols.substep_cols], "substep_tail": [pd.substep_tail],
-                "body_broadphase": [broadphase.body_broadphase],
-                "pt_narrowphase": [broadphase.pt_narrowphase],
-                "pt_coupling": [tetcols.pt_coupling_setup, tetcols.pt_force],
-                "pt_tail": [pd.pt_tail],
-                "tet_force_nodes": [proj.tet_force12_gathered, assembly.assemble_force],
-                "ell_matvec": [assembly.apply_system], "pcg": [assembly.pcg_solve],
-                "constraint_rows": [proj.distance_rows, proj.bend_rows],
-                "shape_match": [proj.shape_rows, proj.goal_rows],
-                "super_broadphase": [broadphase.super_broadphase],
-                "super_narrowphase": [broadphase.super_narrowphase],
-                "tri_candidates": [broadphase.tri_candidates], "tri_ccd": [broadphase.tri_ccd],
-                "pbd_constraints": [pbd.substep_head, proj.jacobi_rows, pbd.apply_jacobi,
-                                    pbd.floor_clamp, pbd.substep_tail],
-                "pbd_distance_seq": [pbd.chain_scan, pbd.color_classes],
-                "node_pairs": [broadphase.node_pairs], "node_response": [broadphase.node_response],
-                "tet_block": [assembly.tet_block_factor], "pt_full": [assembly.pt_full],
-                "floor_entries": [pd.floor_entries], "edge_ccd": [broadphase.edge_ccd],
-                "edge_terms": [assembly.edge_terms], "node_contacts": [assembly.node_terms],
-                "residuals": [diagnostics.constraint_residuals],
-                "occupancy": [broadphase.occupancy], "halo_refresh": [halo.refresh],
-                "halo_reduce": [halo.reduce], "halo_merge": [halo.merge, halo.merge_pairs]}
+    wrappers = kernel_wrappers()
 
     def reset_launches():
         for fns in wrappers.values():
@@ -5320,8 +5815,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     stamp("12")
 
     # ---- phase 13: the scene ensemble (T1-T8 with a member axis)
-    phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches,
-            list(wrappers)[:8], ens_members, ens_tets, ens_small)
+    ens13 = phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches,
+                    list(wrappers)[:8], ens_members, ens_tets, ens_small)
 
     stamp("13")
 
@@ -5368,9 +5863,16 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
 
     # ---- phase 20: the domain decomposition on one card (T30; T3, T4,
     # T9-T13, T16/T17, T20, T25-T27 over the slabs)
+    keep21 = {}
     phase20(pt, dev, smi, PD, row, rows, launches, reset_launches, read_launches, domain_keep,
-            cloud_n, nets_nn, domain_small, domain_slabs)
+            cloud_n, nets_nn, domain_small, domain_slabs, keep21)
     stamp("20")
+
+    # ---- phase 21: the domain decomposition and the ensembles across
+    # torch.distributed ranks (T30's outer bands, T11's split partials)
+    phase21(pt, dev, smi, row, rows, ens13, keep21)
+    del ens13, keep21
+    stamp("21")
 
     table = []
     generic_ens = ("substep_head", "substep_tail", "tet_force_nodes", "ell_matvec", "pcg",
@@ -5379,7 +5881,9 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                   "super_narrowphase": "super_narrowphase",
                   "assemble_force_contacts": "tet_force_nodes", "ell_matvec_band": "ell_matvec"}
     for name, r in rows.items():
-        if name in mixed_rows:
+        if name in RANK_ROWS:
+            pass  # (phase 21 set them from rank 0's window on phase 20a's mesh)
+        elif name in mixed_rows:
             r["launches"] = launches["7"][mixed_rows[name]]
         elif name in ("tet_block", "pt_full", "floor_entries"):
             # The main path of each: 11a (T22, T23) and 11d (T24); every

@@ -8,10 +8,10 @@ with floor contact and point-triangle self-contact (in every coupling
 mode) on disjoint tet soups (the tet-column path) and every other scene the
 builders make (the generic path, which also runs edge-edge and node-node
 contacts), and the PBD solver; the mesher (``Solver.add_tri_mesh_volume``,
-``scene.tetmesh``), the diagnostics (``diagnostics``), scene ensembles on
-one card (``parallel.ensemble``) and the spatial domain decomposition of
-one scene into slabs on one card (``parallel.domain``).  Several cards
-(ROADMAP item 11b) are not ported yet.
+``scene.tetmesh``), the diagnostics (``diagnostics``), scene ensembles
+(``parallel.ensemble``) and the spatial domain decomposition of one scene
+into slabs (``parallel.domain``), on one card or spread over
+``torch.distributed`` ranks (``parallel.ranks``).
 """
 
 import torch

@@ -198,13 +198,12 @@ def params_from(params) -> PhysicsParams:
     )
 
 
-def domain_from_numpy(dom, device="cpu"):
-    """The port's ``parallel.domain.Domain`` from the JAX package's
-    ``Domain`` (its leaves NumPy, or anything ``np.asarray`` takes): the
-    same host arrays, read by their field paths, then the port's tensors
-    and flat view topology on ``device``.  So both packages can start from
-    one partition (:func:`domain_state_to_numpy` is the way back)."""
-    from .parallel.domain import DomainMeta, domain_from_host, host_keys
+def domain_host(dom):
+    """The JAX package's ``Domain`` (its leaves NumPy, or anything
+    ``np.asarray`` takes) as the port's host arrays, read by their field
+    paths, and its geometry: ``(host, DomainMeta)``, NumPy and ints only, so
+    that they cross to processes that import no JAX."""
+    from .parallel.domain import DomainMeta, host_keys
 
     def leaf(path):
         obj = dom
@@ -214,7 +213,34 @@ def domain_from_numpy(dom, device="cpu"):
 
     m = dom.meta
     meta = DomainMeta(n_slabs=int(m.n_slabs), block=int(m.block), halo=int(m.halo))
-    return domain_from_host({k: leaf(k) for k in host_keys()}, meta, device)
+    return {k: leaf(k) for k in host_keys()}, meta
+
+
+def domain_from_numpy(dom, device="cpu", mesh=None):
+    """The port's ``parallel.domain.Domain`` from the JAX package's
+    ``Domain``: :func:`domain_host`'s arrays, then the port's tensors and
+    flat view topology on ``device``; with ``mesh`` (a
+    ``parallel.ranks.Mesh``) only the rank's slabs, on its device
+    (``domain.shard_host``).  So both packages can start from one partition
+    (:func:`domain_state_to_numpy` is the way back)."""
+    from .parallel.domain import domain_from_host, shard_host
+
+    host, meta = domain_host(dom)
+    if mesh is not None:
+        return shard_host(host, meta, mesh)
+    return domain_from_host(host, meta, device)
+
+
+def ensemble_from_numpy(states, device="cpu", mesh=None) -> SolverState:
+    """The port's batched state from a JAX ensemble (a vmapped
+    ``SolverState`` with NumPy leaves, :func:`state_from_numpy`); with
+    ``mesh`` only the rank's contiguous B/R members, on its device
+    (``parallel.ensemble.shard_ensemble``; raises unless R divides B)."""
+    if mesh is None:
+        return state_from_numpy(states, device)
+    from .parallel.ensemble import shard_ensemble
+
+    return shard_ensemble(state_from_numpy(states), mesh)
 
 
 def domain_state_to_numpy(dstate) -> dict[str, np.ndarray]:

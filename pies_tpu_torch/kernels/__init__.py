@@ -24,7 +24,9 @@ wrappers that call them sit beside their plain PyTorch twins:
   ``solver/assembly.py:assemble_force``
 * T10 ``pies_ell_matvec`` — ``solver/assembly.py:apply_system``
 * T11 ``pies_cg_init``, ``pies_cg_update``, ``pies_cg_direction`` —
-  ``solver/assembly.py:pcg_solve``
+  ``solver/assembly.py:pcg_solve`` (across ranks each stage writes the
+  rank's block partials at its offset of a gathered buffer and sums all
+  of them)
 * T12 ``pies_distance_rows``, ``pies_bend_rows`` —
   ``constraints/projections.py:distance_rows``, ``bend_rows``
 * T13 ``pies_shape_rows``, ``pies_goal_rows`` —
@@ -67,9 +69,11 @@ wrappers that call them sit beside their plain PyTorch twins:
 
 * T30 ``pies_halo_refresh``, ``pies_halo_reduce``, ``pies_halo_merge``,
   ``pies_halo_merge_pairs`` — ``parallel/halo.py``: the domain
-  decomposition's halo exchange between the slabs of one card, the
-  count-averaged applies and the CG's partials of its reduce, and the
-  gather of the slabs' contact lists (``parallel/domain.py``)
+  decomposition's halo exchange between the slabs of one device and, across
+  ranks, the two outer bands the neighbouring ranks send
+  (``parallel/ranks.py``), the count-averaged applies and the CG's
+  partials of its reduce, and the gather of the slabs' contact lists
+  (``parallel/domain.py``)
 
 T1-T8 (ROADMAP item 10a), the generic path's T9-T13 and T22 (item 10b-i),
 its point-triangle contacts and entry-list floor, T14-T17, T23 and T24
@@ -131,9 +135,9 @@ SIGNATURES = {
     + [_P] * 7 + [_I, _F, _I] + [_P] * 8 + [_I] * 4 + [_P],
     "pies_ell_matvec": [_P] * 8 + [_I] + [_P] * 2 + [_I, _F] + [_P] * 4 + [_I, _I, _F]
     + [_P] * 5 + [_I] + [_P] * 7 + [_I, _F, _I, _I, _P],
-    "pies_cg_init": [_P] * 13 + [_I, _P, _I, _P],
-    "pies_cg_update": [_P] * 13 + [_I] * 3 + [_F, _P, _I, _P],
-    "pies_cg_direction": [_P] * 5 + [_I] * 3 + [_F, _P, _I, _P],
+    "pies_cg_init": [_P] * 13 + [_I, _P, _I, _I, _I, _P],
+    "pies_cg_update": [_P] * 13 + [_I] * 3 + [_F, _P, _I, _I, _I, _P],
+    "pies_cg_direction": [_P] * 5 + [_I] * 3 + [_F, _P, _I, _I, _I, _P],
     "pies_distance_rows": [_P] * 5 + [_I, _P] + [_I] * 3 + [_P],
     "pies_bend_rows": [_P] * 6 + [_I, _P] + [_I] * 3 + [_P],
     "pies_shape_rows": [_P] * 12 + [_I, _I, _I, _P] + [_I] * 3 + [_P],
@@ -158,8 +162,8 @@ SIGNATURES = {
     "pies_constraint_residuals": ([_P] * 3 + [_I]) + ([_P] * 3 + [_I]) * 2
     + ([_P] * 5 + [_I]) * 2 + ([_P] * 3 + [_I]) + [_P] * 5,
     "pies_occupancy": [_P] * 7 + [_I] * 8 + [_F] * 3 + [_P],
-    "pies_halo_refresh": [_P] * 2 + [_I] * 5 + [_P],
-    "pies_halo_reduce": [_P] * 2 + [_I] * 5 + [_P] * 8,
+    "pies_halo_refresh": [_P] * 2 + [_I] * 5 + [_P] * 3,
+    "pies_halo_reduce": [_P] * 2 + [_I] * 5 + [_P] * 10,
     "pies_halo_merge": [_P] * 3 + [_I] * 5 + [_P] * 4,
     "pies_halo_merge_pairs": [_P] * 12 + [_I] * 4 + [_P],
 }

@@ -19,6 +19,14 @@
 // enqueues all cg_iterations trips and never waits; the trips that the
 // while_loop would not run change nothing.
 //
+// Ranks (the domain decomposition's CG, pies_tpu/parallel/domain.py:612,
+// whose dots psum over the devices): a launch covers this rank's nodes, P_r
+// blocks, and writes their partials at CgGate::offset = r P_r of a buffer
+// of R P_r that torch.distributed gathers in place (all ranks' blocks in
+// rank order); every total above then sums those R P_r partials in the
+// same tree on every rank, so the exit and the trip count are the same on
+// every rank, and reruns are bit-identical.
+//
 // Ensembles (the CG under jax.vmap, pies_tpu/parallel/ensemble.py:41):
 // each member has its own gate.  A stage's blockIdx.y is the member b, and
 // CgGate::member(b) points at b's trip count trips[b], its r.z partials
@@ -64,10 +72,14 @@ struct CgGate {
   const int* trips;   // [B] trips completed in this solve, or null: no gate
   const float* prz;   // [B, 2, P] partials of r.z; trip i reads row i & 1
   const float* prz0;  // [B, P] partials of the initial r.z
-  int parts;          // P = blocks over the nodes
+  int parts;          // P = the partials a total sums (and each member's stride)
   int trip;           // this trip's index i
   int early_exit;     // cg_rtol > 0
   float rtol2;        // float32(cg_rtol^2)
+  int offset = 0;     // where this launch writes its blocks' partials: 0, or
+                      // across ranks this rank's slice r P_r of the gathered
+                      // [R P_r] buffer (P = R P_r), every rank's blocks in
+                      // rank order
 
   // Member b's gate: its own count and partials.
   __device__ __forceinline__ CgGate member(int b) const {

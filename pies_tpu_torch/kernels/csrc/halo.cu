@@ -1,8 +1,10 @@
-// Kernel T30: the halo exchange of the spatial domain decomposition on one
-// card, and the gather of the slabs' contact lists into the flat scene.
+// Kernel T30: the halo exchange of the spatial domain decomposition, the
+// slabs of one device and the outer bands that other ranks send, and the
+// gather of the slabs' contact lists into the flat scene.
 //
 // Replaces (JAX): pies_tpu/parallel/domain.py:581 _halo_refresh and :596
-// _halo_reduce (each two ppermutes between neighbouring slabs), with the
+// _halo_reduce (each two ppermutes between neighbouring slabs; between two
+// ranks' slabs the ppermutes become the bands below), with the
 // count-averaged applies that follow the reduced accumulators (:889-892,
 // :903-911, :941-942, :952-953) and the p.Ap partials of the domain CG's
 // psum'd dot (:620-632).
@@ -10,18 +12,29 @@
 // Layout: D slabs of L owned nodes (f32[D, L, k], k = 1, 3 or 4) and their
 // views of V = L + 2B slots (f32[D, V, k]): B halo slots copied from the
 // left neighbour's tail, the L owned slots, B from the right neighbour's
-// head.  All slabs sit on one device, so an exchange is a gather between
-// neighbouring slabs' rows; slab 0's left halo and slab D-1's right halo
-// are zero, as ppermute with no source gives.
+// head.  The slabs of one device exchange by a gather between neighbouring
+// slabs' rows.  Across ranks (pies_tpu_torch/parallel/ranks.py) a device
+// holds D of the domain's slabs, and its two outer bands come from the
+// neighbouring ranks (torch.distributed moves them, outside the kernel):
+// `left` f32[B, k] stands in for slab -1 and `right` f32[B, k] for slab D;
+// a missing band (the domain's first or last slab, a rank with no
+// neighbour on that side) is zero, as ppermute with no source gives.
 //
 //  refresh   view[s, v] = own[s-1, L-B+v] (v < B), own[s, v-B],
-//            own[s+1, v-B-L] (v >= B+L); with `zero_halo` the halos are
-//            zero (the owned values embedded in the view);
+//            own[s+1, v-B-L] (v >= B+L), where own[-1, L-B+v] = left[v]
+//            (the left rank's last slab's tail) and own[D, v] = right[v]
+//            (the right rank's first slab's head); with `zero_halo` the
+//            halos are zero (the owned values embedded in the view);
 //  reduce    own[s, i] = view[s, B+i], then + view[s+1, i-(L-B)] where
 //            i >= L-B, then + view[s-1, B+L+i] where i < B: the JAX
 //            package's own.at[l-b:].add(from_right).at[:b].add(from_left),
-//            in that order (it matters where 2B > L); a missing neighbour
-//            adds 0.  Modes:
+//            in that order (it matters where 2B > L); view[D, i] = right[i]
+//            (the right rank's first slab's left-halo partials) and
+//            view[-1, B+L+i] = left[i] (the left rank's last slab's
+//            right-halo partials), added in the same order as an inner
+//            neighbour's.  The bands a rank sends are view[0, :B] and
+//            view[D-1, B+L:] (and own[0, :B], own[D-1, L-B:] for the
+//            refresh): contiguous rows, sent as they lie.  Modes:
 //              0 sum: the reduced values (k = 1, 3, 4);
 //              1 apply: k = 4 accumulators (xyz sums, count), delta =
 //                xyz / max(count, 1) added to x_own and prev_own in place,
@@ -31,7 +44,8 @@
 //              2 average: k = 4 accumulators to xyz / max(count, 1);
 //            with `part` (mode 0, k = 3) also the CG's block partials of
 //            p.y over the flat owned index, cg_reduce.cuh's tree, which
-//            kernel T11's update reads as T10's partials;
+//            kernel T11's update reads as T10's partials (across ranks
+//            `part` points at this rank's slice of the gathered buffer);
 //  merge     the slabs' contact lists i32[D, cap, w] (each a live prefix of
 //            count[s], kept up to `keep` entries) into one list of the flat
 //            scene (slab s's node ids + s V), slab after slab, the rest of
@@ -60,6 +74,8 @@ constexpr int kThreads = pies::kCgBlock;  // the reduce's partials need 256
 
 struct Halo {
   int d, l, b, k;
+  const float* left;   // f32[B, k] from the left rank, or null: zero
+  const float* right;  // f32[B, k] from the right rank, or null: zero
   __device__ __forceinline__ int v() const { return l + 2 * b; }
 };
 
@@ -79,8 +95,10 @@ __global__ void __launch_bounds__(kThreads)
     src_i = v - h.b - h.l;
   }
   const bool halo = src_s != s;
-  const bool zero = (halo && zero_halo) || src_s < 0 || src_s >= h.d;
   const float* src = own + ((size_t)src_s * h.l + src_i) * h.k;
+  if (src_s < 0) src = h.left != nullptr ? h.left + (size_t)v * h.k : nullptr;
+  if (src_s >= h.d) src = h.right != nullptr ? h.right + (size_t)src_i * h.k : nullptr;
+  const bool zero = (halo && zero_halo) || src == nullptr;
   float* dst = view + (size_t)g * h.k;
   for (int c = 0; c < h.k; ++c) dst[c] = zero ? 0.0f : src[c];
 }
@@ -91,12 +109,16 @@ __device__ __forceinline__ float reduced(const float* __restrict__ view, const H
   const int vv = h.v();
   float acc = view[((size_t)s * vv + h.b + i) * h.k + c];
   if (i >= h.l - h.b) {
-    const float fr =
-        s + 1 < h.d ? view[((size_t)(s + 1) * vv + (i - (h.l - h.b))) * h.k + c] : 0.0f;
+    const int j = i - (h.l - h.b);
+    const float fr = s + 1 < h.d     ? view[((size_t)(s + 1) * vv + j) * h.k + c]
+                     : h.right != nullptr ? h.right[(size_t)j * h.k + c]
+                                          : 0.0f;
     acc = acc + fr;
   }
   if (i < h.b) {
-    const float fl = s > 0 ? view[((size_t)(s - 1) * vv + h.b + h.l + i) * h.k + c] : 0.0f;
+    const float fl = s > 0           ? view[((size_t)(s - 1) * vv + h.b + h.l + i) * h.k + c]
+                     : h.left != nullptr ? h.left[(size_t)i * h.k + c]
+                                         : 0.0f;
     acc = acc + fl;
   }
   return acc;
@@ -236,9 +258,10 @@ inline unsigned blocks(long long n) { return (unsigned)((n + kThreads - 1) / kTh
 }  // namespace
 
 extern "C" int pies_halo_refresh(const float* own, float* view, int d, int l, int b, int k,
-                                 int zero_halo, void* stream) {
+                                 int zero_halo, const float* left, const float* right,
+                                 void* stream) {
   if (d <= 0 || l <= 0 || b < 0 || b > l || k <= 0) return (int)cudaErrorInvalidValue;
-  const Halo h{d, l, b, k};
+  const Halo h{d, l, b, k, left, right};
   refresh_kernel<<<blocks((long long)d * (l + 2 * b)), kThreads, 0, (cudaStream_t)stream>>>(
       own, view, h, zero_halo);
   return (int)cudaGetLastError();
@@ -247,12 +270,13 @@ extern "C" int pies_halo_refresh(const float* own, float* view, int d, int l, in
 extern "C" int pies_halo_reduce(const float* view, float* out, int d, int l, int b, int k,
                                 int mode, const float* p, float* part, float* x_own,
                                 float* prev_own, const float* active, const float* stat,
-                                const int* failed, void* stream) {
+                                const int* failed, const float* left, const float* right,
+                                void* stream) {
   if (d <= 0 || l <= 0 || b < 0 || b > l || k <= 0 || mode < 0 || mode > 2 ||
       (mode != 0 && k != 4) || (part != nullptr && (k != 3 || mode != 0)) ||
       (mode == 1 && (x_own == nullptr || prev_own == nullptr || failed == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const Halo h{d, l, b, k};
+  const Halo h{d, l, b, k, left, right};
   reduce_kernel<<<blocks((long long)d * l), kThreads, 0, (cudaStream_t)stream>>>(
       view, out, h, mode, p, part, x_own, prev_own, active, stat, failed);
   return (int)cudaGetLastError();

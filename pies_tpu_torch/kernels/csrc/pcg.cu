@@ -20,11 +20,20 @@
 //              and r.r;
 //   direction  beta = rz_new / max(rz, 1e-30) if rz > 0 else 0; p = z +
 //              beta p; block 0 writes trips = i + 1.
+// Ranks (the domain CG of pies_tpu/parallel/domain.py:612-656, its dots
+// psum'd over the devices): the stages run over this rank's P_r blocks of
+// owned nodes, write their partials at `offset` = r P_r of buffers of
+// `parts` = R P_r, and every total (the gate's r.z and rz_0, p.Ap, r.z_new)
+// sums all `parts`: torch.distributed gathers each buffer in place between
+// the stages (parallel/ranks.py), so every rank sums the same partials in
+// the same order and leaves the loop at the same trip.  A single device has
+// parts = P_r and offset 0.
+//
 // Every stage of a trip first evaluates the gate of cg_reduce.cuh, so the
 // trips after the while_loop's exit change nothing and `trips` ends as the
 // while_loop's trip count.  The residual partials are those of the last
 // trip that ran.  With the latch (failed slot 0) set, init writes zero
-// residual partials and every stage returns at once.
+// partials and every stage returns at once.
 //
 // Ensembles (pcg_solve under jax.vmap, pies_tpu/parallel/ensemble.py:41):
 // blockIdx.y is the member b of `members`.  Its vectors start at b*N*3,
@@ -72,19 +81,19 @@ __global__ void __launch_bounds__(kCgBlock)
                    float* __restrict__ x, float* __restrict__ prz,
                    float* __restrict__ prz0, float* __restrict__ prr,
                    int* __restrict__ trips, int n,
-                   const int* __restrict__ failed) {
+                   const int* __restrict__ failed, int parts, int offset) {
   __shared__ float sm[kCgBlock];
   const int mb = blockIdx.y;
-  const size_t v = (size_t)mb * n * 3, parts = gridDim.x;
+  const size_t v = (size_t)mb * n * 3, at = (size_t)offset + blockIdx.x;
   b += v, y += v, x0 += v, r += v, z += v, p += v, x += v;
   diag += (size_t)mb * n;
   if (factors != nullptr) factors += (size_t)mb * pies::kTetBlockCols * (n / 4);
-  prz += mb * 2 * parts, prz0 += mb * parts, prr += mb * parts;
+  prz += (size_t)mb * 2 * parts, prz0 += (size_t)mb * parts, prr += (size_t)mb * parts;
   trips += mb;
   failed += 2 * mb;
   if (blockIdx.x == 0 && threadIdx.x == 0) *trips = 0;
   if (failed[0] != 0) {
-    if (threadIdx.x == 0) prr[blockIdx.x] = 0.0f;
+    if (threadIdx.x == 0) prr[at] = prz[at] = prz0[at] = 0.0f;
     return;
   }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -110,9 +119,9 @@ __global__ void __launch_bounds__(kCgBlock)
   const float sz = pies::block_sum(vz, sm);
   const float sr = pies::block_sum(vr, sm);
   if (threadIdx.x == 0) {
-    prz[blockIdx.x] = sz;
-    prz0[blockIdx.x] = sz;
-    prr[blockIdx.x] = sr;
+    prz[at] = sz;
+    prz0[at] = sz;
+    prr[at] = sr;
   }
 }
 
@@ -162,8 +171,9 @@ __global__ void __launch_bounds__(kCgBlock)
   const float sz = pies::block_sum(vz, sm);
   const float sr = pies::block_sum(vr, sm);
   if (threadIdx.x == 0) {
-    prz[(size_t)((gate.trip + 1) & 1) * gate.parts + blockIdx.x] = sz;
-    prr[blockIdx.x] = sr;
+    const size_t at = (size_t)gate.offset + blockIdx.x;
+    prz[(size_t)((gate.trip + 1) & 1) * gate.parts + at] = sz;
+    prr[at] = sr;
   }
 }
 
@@ -197,6 +207,11 @@ inline dim3 grid_for(int n, int members) {
   return dim3((n + kCgBlock - 1) / kCgBlock, members);
 }
 
+// This launch's blocks fit at `offset` of `parts` partials.
+inline bool parts_fit(dim3 grid, int parts, int offset) {
+  return offset >= 0 && (long long)offset + grid.x <= (long long)parts;
+}
+
 }  // namespace
 
 extern "C" int pies_cg_init(const float* b, const float* y, const float* x0,
@@ -204,10 +219,12 @@ extern "C" int pies_cg_init(const float* b, const float* y, const float* x0,
                             float* z, float* p,
                             float* x, float* prz, float* prz0, float* prr,
                             int* trips, int n, const int* failed,
-                            int members, void* stream) {
+                            int members, int parts, int offset, void* stream) {
   if (n > 0 && members > 0) {
-    cg_init_kernel<<<grid_for(n, members), kCgBlock, 0, (cudaStream_t)stream>>>(
-        b, y, x0, diag, factors, r, z, p, x, prz, prz0, prr, trips, n, failed);
+    const dim3 grid = grid_for(n, members);
+    if (!parts_fit(grid, parts, offset)) return (int)cudaErrorInvalidValue;
+    cg_init_kernel<<<grid, kCgBlock, 0, (cudaStream_t)stream>>>(
+        b, y, x0, diag, factors, r, z, p, x, prz, prz0, prr, trips, n, failed, parts, offset);
   }
   return (int)cudaGetLastError();
 }
@@ -218,10 +235,11 @@ extern "C" int pies_cg_update(float* x, const float* p, const float* ap,
                               const float* prz0, const float* pap, float* prr,
                               const int* trips, int n, int trip,
                               int early_exit, float rtol2, const int* failed,
-                              int members, void* stream) {
+                              int members, int parts, int offset, void* stream) {
   if (n > 0 && members > 0) {
     const dim3 grid = grid_for(n, members);
-    pies::CgGate gate{trips, prz, prz0, (int)grid.x, trip, early_exit, rtol2};
+    if (!parts_fit(grid, parts, offset)) return (int)cudaErrorInvalidValue;
+    pies::CgGate gate{trips, prz, prz0, parts, trip, early_exit, rtol2, offset};
     cg_update_kernel<<<grid, kCgBlock, 0, (cudaStream_t)stream>>>(
         x, p, ap, r, z, diag, factors, mask, prz, pap, prr, n, failed, gate);
   }
@@ -231,10 +249,12 @@ extern "C" int pies_cg_update(float* x, const float* p, const float* ap,
 extern "C" int pies_cg_direction(float* p, const float* z, const float* prz,
                                  const float* prz0, int* trips, int n,
                                  int trip, int early_exit, float rtol2,
-                                 const int* failed, int members, void* stream) {
+                                 const int* failed, int members, int parts, int offset,
+                                 void* stream) {
   if (n > 0 && members > 0) {
     const dim3 grid = grid_for(n, members);
-    pies::CgGate gate{trips, prz, prz0, (int)grid.x, trip, early_exit, rtol2};
+    if (!parts_fit(grid, parts, offset)) return (int)cudaErrorInvalidValue;
+    pies::CgGate gate{trips, prz, prz0, parts, trip, early_exit, rtol2, offset};
     cg_direction_kernel<<<grid, kCgBlock, 0, (cudaStream_t)stream>>>(
         p, z, trips, n, failed, gate);
   }

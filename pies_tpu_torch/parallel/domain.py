@@ -1,5 +1,5 @@
-"""Spatial domain decomposition of one scene on one card (port of
-``pies_tpu/parallel/domain.py``, ROADMAP item 11a).
+"""Spatial domain decomposition of one scene, on one card or over ranks
+(port of ``pies_tpu/parallel/domain.py``, ROADMAP items 11a and 11b).
 
 The JAX package sorts the nodes along the scene's longest axis, cuts them
 into D slabs of L owned nodes, gives each slab a view of V = L + 2B slots
@@ -42,10 +42,21 @@ JAX domain and both packages' single scenes.  Where the JAX domain keeps
 stepping a latched scene, the port freezes it, as both packages' single
 scenes do (ROADMAP: faults known in the reference).
 
-Several cards are ROADMAP item 11b: ``torch.distributed`` halo exchange and
-all-reduced dot products across ranks.  :func:`make_domain_tick` takes no
-mesh; the tick runs on CUDA unless the state lives on the CPU, where every
-wrapper takes its plain twin.
+Over R ranks (ROADMAP item 11b, a :class:`.ranks.Mesh`): rank r holds the
+slabs ``[r·D/R, (r+1)·D/R)`` (:func:`shard_domain`; every rank partitions
+the same scene and keeps its slabs, so no host dict is broadcast) and
+steps them through the same substep.  T30 takes the rank's two outer
+bands, which :class:`.ranks.Transport` exchanges with the neighbouring
+ranks before each refresh and reduce (the ``ppermute``s of
+``domain.py:581-609``); T11 writes the rank's block partials into its
+slice of buffers gathered in rank order before each total (the ``psum``'d
+dots of ``:612-656``), so every rank leaves the CG on the same trip; after
+every substep an ``all_reduce(MAX)`` of the latch words gives every rank
+the domain's one latch (the ``psum`` of ``:971-973``), which the next
+tick's gates read.  Detection stays per slab inside the rank.  Counters
+count the rank's slabs and are summed across ranks when read
+(:func:`read_counters`).  The tick runs on CUDA unless the state lives on
+the CPU, where every wrapper takes its plain twin.
 """
 
 from __future__ import annotations
@@ -75,6 +86,7 @@ from ..topology import (
     to_device,
 )
 from . import halo
+from .ranks import Mesh, Transport
 
 _F32 = np.float32
 _I32 = np.int32
@@ -215,7 +227,8 @@ def host_keys() -> list[str]:
 
 
 def partition_domain(state: SolverState, topo: Topology, n_slabs: int, halo: int | None = None,
-                     sort_axis: int | None = None, collision_margin: float = 0.0) -> Domain:
+                     sort_axis: int | None = None, collision_margin: float = 0.0,
+                     mesh: Mesh | None = None) -> Domain:
     """Partition a scene into ``n_slabs`` spatial slabs
     (``pies_tpu/parallel/domain.py:181``).
 
@@ -226,7 +239,9 @@ def partition_domain(state: SolverState, topo: Topology, n_slabs: int, halo: int
     locality only) unless ``halo`` is given, and emits per-slab constraint
     batches in view-local indices.  Raises ``ValueError`` when a given halo
     is narrower than the constraints need, or when the halo exceeds the
-    block (too many slabs).  The tensors go to the state's device."""
+    block (too many slabs).  The tensors go to the state's device; with
+    ``mesh``, only this rank's slabs, to the mesh's device
+    (:func:`shard_host`)."""
     pos = _np(state.positions).astype(_F32)
     mask = _np(state.node_mask).astype(_F32)
     live = mask > 0
@@ -466,6 +481,8 @@ def partition_domain(state: SolverState, topo: Topology, n_slabs: int, halo: int
         "inv_perm": inv_perm[:n_cap],
         "group_slab": shape_map,
     })
+    if mesh is not None:
+        return shard_host(host, meta, mesh)
     return domain_from_host(host, meta, state.positions.device)
 
 
@@ -611,10 +628,55 @@ def domain_from_host(h: dict, meta: DomainMeta, device) -> Domain:
                   host=h)
 
 
-def gather_positions(domain: Domain, dstate: DomainState) -> np.ndarray:
-    """Owned positions back in the original node order (the capacity's)."""
-    flat = dstate.positions.detach().cpu().numpy().reshape(-1, 3)
+GLOBAL_KEYS = ("perm", "inv_perm", "group_slab")  # the host arrays with no slab axis
+
+
+def shard_host(host: dict, meta: DomainMeta, mesh: Mesh) -> Domain:
+    """This rank's ``Domain`` of the partition ``host`` (keys of
+    :func:`host_keys`) of ``meta.n_slabs`` slabs: the slabs ``[r·D/R,
+    (r+1)·D/R)`` on the mesh's device, with the flat view topology of those
+    slabs only.  Its ``meta`` stays the whole domain's; raises unless R
+    divides D."""
+    mine = mesh.share(meta.n_slabs, "slabs")
+    local = {k: a if k in GLOBAL_KEYS else a[mine] for k, a in host.items()}
+    dom = domain_from_host(local, local_meta(meta, mesh), mesh.device)
+    dom.meta, dom.host = meta, host
+    return dom
+
+
+def shard_domain(domain: Domain, mesh: Mesh) -> Domain:
+    """This rank's slabs of a whole ``domain`` (:func:`shard_host` of its
+    host arrays)."""
+    return shard_host(domain.host, domain.meta, mesh)
+
+
+def local_meta(meta: DomainMeta, mesh: Mesh | None) -> DomainMeta:
+    """The geometry of one rank's slabs (``meta`` without a mesh)."""
+    if mesh is None:
+        return meta
+    mine = mesh.share(meta.n_slabs, "slabs")
+    return dataclasses.replace(meta, n_slabs=mine.stop - mine.start)
+
+
+def gather_positions(domain: Domain, dstate: DomainState, mesh: Mesh | None = None) -> np.ndarray:
+    """Owned positions back in the original node order (the capacity's);
+    with ``mesh`` every rank's slabs, all-gathered in rank order (every rank
+    gets them all)."""
+    pos = dstate.positions
+    if mesh is not None:
+        pos = Transport(mesh).gather(pos.contiguous())
+    flat = pos.detach().cpu().numpy().reshape(-1, 3)
     return flat[domain.inv_perm]
+
+
+def read_counters(counters: dict, mesh: Mesh | None = None) -> dict[str, int]:
+    """``pd.new_counters``' values as ints, summed over the ranks with
+    ``mesh`` (each rank counts its own slabs)."""
+    names = list(counters)
+    vals = torch.stack([counters[k].reshape(()) for k in names])
+    if mesh is not None:
+        Transport(mesh).all_reduce_(vals)
+    return dict(zip(names, (int(v) for v in vals.tolist())))
 
 
 # ---------------------------------------------------------------------------
@@ -633,17 +695,40 @@ def domain_config(config: StepConfig) -> StepConfig:
 
 @dataclass
 class _Ops:
-    """The substep's wrappers: the kernels, or every plain twin."""
+    """The substep's wrappers: the kernels, or every plain twin; with
+    ``net`` (over ranks) the outer bands exchanged before each refresh and
+    reduce, and the CG's partials gathered."""
 
     plain: bool
+    width: int  # B, the halo band
+    net: Transport | None = None
 
     def __post_init__(self):
         self.k = pd._PLAIN if self.plain else pd._KERNELS
-        self.refresh = halo.refresh_plain if self.plain else halo.refresh
-        self.reduce = halo.reduce_plain if self.plain else halo.reduce
+        self._refresh = halo.refresh_plain if self.plain else halo.refresh
+        self._reduce = halo.reduce_plain if self.plain else halo.reduce
         self.merge = halo.merge_plain if self.plain else halo.merge
         self.merge_pairs = halo.merge_pairs_plain if self.plain else halo.merge_pairs
         self.apply = assembly.apply_system_plain if self.plain else assembly.apply_system
+
+    def refresh(self, own: torch.Tensor, zero: bool = False) -> torch.Tensor:
+        """T30's refresh of the owned ``f32[D, L, ...]``; over ranks the
+        first slab's head goes to the rank before and the last slab's tail
+        to the rank after, and theirs fill the outer halos."""
+        b, bands = self.width, (None, None)
+        if self.net is not None and not zero:
+            bands = self.net.exchange(own[0, :b], own[-1, own.shape[1] - b:])
+        return self._refresh(own, b, zero, *bands)
+
+    def reduce(self, view: torch.Tensor, mode: int = halo.SUM, **kw):
+        """T30's reduce of the views ``f32[D, V, ...]``; over ranks the
+        first slab's left-halo partials go to the rank before and the last
+        slab's right-halo partials to the rank after, and theirs are added
+        to the outer owned bands."""
+        b, bands = self.width, (None, None)
+        if self.net is not None:
+            bands = self.net.exchange(view[0, :b], view[-1, view.shape[1] - b:])
+        return self._reduce(view, b, mode, **kw, left=bands[0], right=bands[1])
 
 
 def _detect(ops: _Ops, meta: DomainMeta, st: DomainStatic, xv, pv, params, config, failed,
@@ -700,6 +785,44 @@ def _detect(ops: _Ops, meta: DomainMeta, st: DomainStatic, xv, pv, params, confi
     return colls, pt_on, edge_on
 
 
+def _operator(ops: _Ops, meta: DomainMeta, topo: Topology, mass_v, wf_v, h2: float, failed,
+              full=None, edges=None):
+    """The domain CG's operator over the slabs' owned nodes (refresh, T10
+    over the flat views, reduce): ``matvec(vec f32[D·L, 3], part=False) ->
+    (A·vec f32[D·L, 3], partials)``; with ``part`` (True, or the slots to
+    write into) also the block partials of vec·A·vec over the owned nodes,
+    else None."""
+    d, l, v = meta.n_slabs, meta.block, meta.view
+    flat = lambda a: a.reshape((-1,) + a.shape[2:])  # noqa: E731
+
+    def matvec(vec, part=False):
+        y, _ = ops.apply(flat(ops.refresh(vec.view(d, l, 3))), mass_v, wf_v, h2, topo,
+                         **({} if ops.plain else dict(failed=failed)), full=full, edges=edges)
+        if part is False:
+            return flat(ops.reduce(y.view(d, v, 3))), None
+        out, parts = ops.reduce(y.view(d, v, 3), p=vec.view(d, l, 3),
+                                part=None if part is True else part)
+        return flat(out), parts
+
+    return matvec
+
+
+def operator(dom: Domain, params: PhysicsParams, plain: bool = False, mesh: Mesh | None = None):
+    """The domain CG's operator without contacts and floor weight, over the
+    slabs ``dom`` holds (the whole domain, or with ``mesh`` this rank's,
+    exchanging with the other ranks): ``matvec(vec, part)`` as the CG
+    calls it (:func:`_operator`), the kernels' or, with ``plain``, the
+    twins', with a latch of its own (unset).  The checks hold it to the
+    single scene's T10."""
+    meta = local_meta(dom.meta, mesh)
+    st = dom.static
+    dev = st.mass_own_view.device
+    ops = _Ops(plain, meta.halo, Transport(mesh) if mesh is not None else None)
+    wf = torch.zeros(meta.n_slabs * meta.view, device=dev)
+    return _operator(ops, meta, st.topo, st.mass_own_view.reshape(-1), wf, pd._h_h2(params)[1],
+                     torch.zeros(2, dtype=torch.int32, device=dev))
+
+
 def _substep(ds: DomainState, st: DomainStatic, params: PhysicsParams, config: StepConfig,
              meta: DomainMeta, ops: _Ops, fold: bool, counters) -> torch.Tensor:
     """One PD substep of every slab (``domain.py:659-981``), in place on
@@ -711,7 +834,7 @@ def _substep(ds: DomainState, st: DomainStatic, params: PhysicsParams, config: S
     topo = st.topo
     dev = ds.positions.device
     full_coupling = config.contact_coupling == "full"
-    refresh = lambda a, zero=False: ops.refresh(a, b, zero)  # noqa: E731
+    refresh = ops.refresh
     flat = lambda a: a.reshape((-1,) + a.shape[2:])  # noqa: E731
     pos3, prev3 = ds.positions, ds.prev_positions
     own = SolverState(positions=flat(pos3), prev_positions=flat(prev3),
@@ -765,13 +888,8 @@ def _substep(ds: DomainState, st: DomainStatic, params: PhysicsParams, config: S
         edges = k["edge_setup"](colls, mass_own_v, inv_mass_v, topo, h2, diag_view, wf_view,
                                 params.collision_thickness, config.reference_quirks,
                                 full_coupling, failed, sd, inc, ptd, nodes, colls.pt_count)
-    diag_own = flat(ops.reduce(diag_view.view(d, v), b))
-
-    def matvec(vec, part=False):
-        y, _ = ops.apply(flat(refresh(vec.view(d, l, 3))), mass_own_v, static_diag, h2, topo,
-                         **({} if ops.plain else dict(failed=failed)), full=full, edges=edges)
-        out = ops.reduce(y.view(d, v, 3), b, halo.SUM, p=vec.view(d, l, 3) if part else None)
-        return (flat(out[0]), out[1]) if part else (flat(out), None)
+    diag_own = flat(ops.reduce(diag_view.view(d, v)))
+    matvec = _operator(ops, meta, topo, mass_own_v, static_diag, h2, failed, full, edges)
 
     # PD iterations: local step over the views (T12, T13, T9), force (T9,
     # with T7, T23, T26 and T27's terms) reduced to the owned nodes, CG.
@@ -789,10 +907,10 @@ def _substep(ds: DomainState, st: DomainStatic, params: PhysicsParams, config: S
             pt = (ptd, contact, inc.row_start, colls.pt_count)
         force, static_view = k["assemble"](xv, msn_view, wf_view, rows, topo, plane, failed, pt,
                                            full, None, edges, nodes)
-        f_own = flat(ops.reduce(force.view(d, v, 3), b))
+        f_own = flat(ops.reduce(force.view(d, v, 3)))
         x_it, prr, trips = k["pcg"](f_own, x_it, diag_own, None, None, h2, st.own.node_mask,
                                     None, config.cg_iterations, config.cg_rtol, failed,
-                                    matvec=matvec)
+                                    matvec=matvec, ranks=ops.net)
         if counters is not None:
             counters["cg_trips"].add_(trips[0])
     x_it = x_it.contiguous()
@@ -814,7 +932,7 @@ def _substep(ds: DomainState, st: DomainStatic, params: PhysicsParams, config: S
                                    inc, xv, xv, None if kind == "pt" else edges, None,
                                    pd.STABILIZE, True)
                 last = kind == "edge" or not edge_on
-                ops.reduce(acc.view(d, v, 4), b, halo.APPLY, x_own=x3, prev_own=prev3,
+                ops.reduce(acc.view(d, v, 4), halo.APPLY, x_own=x3, prev_own=prev3,
                            active=active_own.view(d, l) if last else None,
                            stat=static_own if last else None, failed=failed)
 
@@ -828,24 +946,27 @@ def _substep(ds: DomainState, st: DomainStatic, params: PhysicsParams, config: S
         view_state.prev_positions = flat(refresh(prev3))
     if node_on:
         acc, touching = k["node_friction"](xv, view_state, params, nodes, failed, True)
-        nn_avg = ops.reduce(acc.view(d, v, 4), b, halo.AVERAGE)
+        nn_avg = ops.reduce(acc.view(d, v, 4), halo.AVERAGE)
         if counters is not None:
             counters["touching_pairs"].add_(touching[0])
     if pt_on:
         nn_view = flat(refresh(nn_avg)) if nn_avg is not None else None
         acc = k["pt_tail"](view_state, params, config, colls, inc, xv, xv, None, nn_view,
                            pd.FRICTION, True)
-        pt_avg = ops.reduce(acc.view(d, v, 4), b, halo.AVERAGE)
+        pt_avg = ops.reduce(acc.view(d, v, 4), halo.AVERAGE)
     tail_colls = CollisionSet(floor_active=active_own,
                               overflow=colls.overflow if colls is not None else None)
     snap = pd.snap_target(config, x_it, flat(static_own))
     k["tail"](own, st.own, params, active_own, x_it, snap, tail_colls, None,
               flat(pt_avg) if pt_avg is not None else None, None,
               flat(nn_avg) if nn_avg is not None else None, pt_avg is not None)
+    if ops.net is not None:  # the domain's one latch (domain.py:971-973)
+        ops.net.all_reduce_(failed, torch.distributed.ReduceOp.MAX)
     return torch.sqrt(torch.sum(prr))
 
 
-def make_domain_tick(config: StepConfig, meta: DomainMeta, device=None, plain: bool = False):
+def make_domain_tick(config: StepConfig, meta: DomainMeta, device=None, plain: bool = False,
+                     mesh: Mesh | None = None):
     """The domain tick (``domain.py:984``): ``tick(dstate, dstatic, params,
     counters=None) -> (dstate, residual)`` runs ``time_substeps`` substeps
     of every slab in place on ``dstate`` (returned too) and gives the last
@@ -853,9 +974,16 @@ def make_domain_tick(config: StepConfig, meta: DomainMeta, device=None, plain: b
     (summed over the slabs and substeps).  The slab axis lives on one device:
     the state's, CUDA (the kernels) unless it is the CPU (the twins), or
     ``device`` when given, which the state must be on; ``plain`` runs the
-    twins on any device.  Several cards are ROADMAP item 11b."""
+    twins on any device.  With ``mesh`` the tick steps this rank's D/R
+    slabs of the ``meta.n_slabs`` (:func:`shard_domain`'s), exchanging
+    with the other ranks, whose ticks must run alongside it; the residual
+    is then the whole domain's on every rank and the counters the rank's
+    own (:func:`read_counters`); ``tick.transport`` is the tick's
+    :class:`.ranks.Transport` (None on one device).  Raises unless R
+    divides D."""
     config = domain_config(config)
-    ops = _Ops(plain)
+    meta = local_meta(meta, mesh)
+    ops = _Ops(plain, meta.halo, Transport(mesh) if mesh is not None else None)
     want = None if device is None else torch.device(device)
 
     def tick(dstate: DomainState, dstatic: DomainStatic, params: PhysicsParams, counters=None):
@@ -866,4 +994,5 @@ def make_domain_tick(config: StepConfig, meta: DomainMeta, device=None, plain: b
             res = _substep(dstate, dstatic, params, config, meta, ops, sub == 0, counters)
         return dstate, res
 
+    tick.transport = ops.net
     return tick

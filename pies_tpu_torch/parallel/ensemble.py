@@ -33,22 +33,35 @@ pairs' terms and friction.  PBD ensembles run too (item 10b-iv: the
 JAX package's vmapped PBD tick with every distance form, pins, strain,
 bend and the node-node response), where T18, T19 and T21 take the member
 axis and T20 keeps each member's node-pair cache across ticks, rebuilt on
-that member's own drift.  Several cards (``make_mesh``,
-``shard_ensemble`` and ``make_sharded_step``'s ``shard_map``) are ROADMAP
-item 11b; :func:`ensemble_step` is that step's one-card form, its ``pmax``
-and ``psum`` reductions over the member axis on the device.
+that member's own drift.  :func:`ensemble_step` is the one-card form of
+``make_sharded_step``'s step, its ``pmax`` and ``psum`` reductions over the
+member axis on the device.
+
+Over R ranks (ROADMAP item 11b; ``pies_tpu/parallel/ensemble.py:77-122``):
+:func:`shard_ensemble` keeps the rank's contiguous B/R members on its
+device (the mesh is :func:`.ranks.make_mesh`'s), :func:`make_sharded_step`
+steps them with the kernels above and reduces the fleet's diagnostics over
+the ranks (an ``all_reduce(MAX)`` of the residual, an ``all_reduce(SUM)``
+of the latched count), and :func:`gather_ensemble` brings every member
+back.  Members never exchange anything else.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dataclasses import fields, is_dataclass, replace
+
+import torch.distributed as dist
+
 from ..options import PhysicsParams, StepConfig
 from ..solver import step
 from ..state import SolverState, stack_ensemble, unstack
 from ..topology import Topology
+from .ranks import Mesh, Transport, make_mesh
 
-__all__ = ["ensemble_step", "ensemble_tick", "ensemble_tick_n", "stack_ensemble", "unstack"]
+__all__ = ["ensemble_step", "ensemble_tick", "ensemble_tick_n", "gather_ensemble", "make_mesh",
+           "make_sharded_step", "shard_ensemble", "stack_ensemble", "unstack"]
 
 
 def check_ensemble(states: SolverState) -> None:
@@ -85,3 +98,46 @@ def ensemble_step(states: SolverState, topo: Topology, params: PhysicsParams,
     the number of latched members after the tick."""
     res = ensemble_tick(states, topo, params, config, counters=counters)
     return torch.max(res), (states.sim_failed != 0).any(dim=-1).sum()
+
+
+def _map(fn, obj):
+    """``fn`` on every tensor of a state (its caches' too), field by field."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if is_dataclass(obj) and not isinstance(obj, type):
+        return replace(obj, **{f.name: _map(fn, getattr(obj, f.name)) for f in fields(obj)})
+    return obj
+
+
+def shard_ensemble(states: SolverState, mesh: Mesh) -> SolverState:
+    """This rank's contiguous B/R members of the ensemble ``states`` (every
+    rank passes the same B members), copied to the mesh's device
+    (``ensemble.py:86``); raises unless R divides B."""
+    check_ensemble(states)
+    mine = mesh.share(states.members, "members")
+    return _map(lambda t: t[mine].to(mesh.device, copy=True).contiguous(), states)
+
+
+def gather_ensemble(states: SolverState, mesh: Mesh) -> SolverState:
+    """Every rank's members, gathered in rank order (each rank gets all B),
+    on the mesh's device: :func:`shard_ensemble`'s inverse."""
+    net = Transport(mesh)
+    return _map(lambda t: net.gather(t.contiguous()), states)
+
+
+def make_sharded_step(mesh: Mesh, config: StepConfig):
+    """The ensemble step over the ranks (``ensemble.py:92-122``):
+    ``step(states, topo, params) -> (states, max_residual, num_failed)``
+    ticks this rank's members in place (:func:`ensemble_step`) and gives
+    the fleet's largest residual (``all_reduce(MAX)``, the ``pmax``) and
+    latched count (``all_reduce(SUM)``, the ``psum``), device scalars equal
+    on every rank; ``step.transport`` is its :class:`.ranks.Transport`."""
+    net = Transport(mesh)
+
+    def sharded_step(states: SolverState, topo: Topology, params: PhysicsParams):
+        res, failed = ensemble_step(states, topo, params, config)
+        return (states, net.all_reduce_(res.reshape(1), dist.ReduceOp.MAX)[0],
+                net.all_reduce_(failed.reshape(1))[0])
+
+    sharded_step.transport = net
+    return sharded_step

@@ -1,10 +1,13 @@
-"""Kernel T30: the halo exchange of the domain decomposition on one card
+"""Kernel T30: the halo exchange of the domain decomposition
 (``pies_tpu/parallel/domain.py:581-609``), each wrapper beside its plain
 twin, and the gather of the slabs' contact lists into the flat scene.
 
 D slabs of L owned nodes (``f32[D, L, k]``) have views of V = L + 2B slots
 (``f32[D, V, k]``): B halo slots from the left neighbour's tail, the owned
-slots, B from the right neighbour's head; slab 0's left and slab D−1's
+slots, B from the right neighbour's head.  Across ranks a device holds D
+of the domain's slabs, and refresh and reduce take the rank's two outer
+bands, ``left`` and ``right`` f32[B, k], which the neighbouring ranks sent
+(:mod:`.ranks` moves them); without a band, slab 0's left and slab D−1's
 right halo are zero, as ``ppermute`` with no source gives.  A CUDA tensor
 launches ``csrc/halo.cu``; a CPU tensor takes the twin.  Each wrapper
 counts its launches on its ``launches`` attribute.
@@ -22,30 +25,36 @@ SUM, APPLY, AVERAGE = 0, 1, 2  # the reduce's modes (csrc/halo.cu)
 SENTINEL = 2**31 - 1
 
 
-def refresh_plain(own: torch.Tensor, halo: int, zero_halo: bool = False) -> torch.Tensor:
+def refresh_plain(own: torch.Tensor, halo: int, zero_halo: bool = False, left=None,
+                  right=None) -> torch.Tensor:
     """Plain twin of T30's refresh: owned ``f32[D, L]`` or ``f32[D, L, k]``
     to the views ``f32[D, L + 2B, ...]`` (``_halo_refresh``), the halos
-    zero with ``zero_halo`` (the owned values embedded)."""
-    d = own.shape[0]
-    z = torch.zeros_like(own[:, :halo])
-    if zero_halo or d == 1:
-        left = right = z
+    zero with ``zero_halo`` (the owned values embedded); ``left`` (the left
+    rank's last slab's tail) and ``right`` (the right rank's first slab's
+    head), f32[B, ...] each, fill slab 0's left and slab D−1's right halo,
+    zero where None."""
+    z = torch.zeros_like(own[:1, :halo])
+    if zero_halo:
+        lo = hi = torch.zeros_like(own[:, :halo])
     else:
-        left = torch.cat([z[:1], own[:-1, own.shape[1] - halo:]])
-        right = torch.cat([own[1:, :halo], z[:1]])
-    return torch.cat([left, own, right], dim=1)
+        lo = torch.cat([z if left is None else left[None], own[:-1, own.shape[1] - halo:]])
+        hi = torch.cat([own[1:, :halo], z if right is None else right[None]])
+    return torch.cat([lo, own, hi], dim=1)
 
 
-def refresh(own: torch.Tensor, halo: int, zero_halo: bool = False) -> torch.Tensor:
+def refresh(own: torch.Tensor, halo: int, zero_halo: bool = False, left=None,
+            right=None) -> torch.Tensor:
     """T30's refresh on a CUDA tensor, :func:`refresh_plain` on a CPU one."""
     if kernels.on_cpu(own):
-        return refresh_plain(own, halo, zero_halo)
+        return refresh_plain(own, halo, zero_halo, left, right)
     d, l = own.shape[:2]
     k = own.shape[2] if own.dim() == 3 else 1
-    kernels.require(own.device, own)
+    kernels.require(own.device, own, left, right)
+    _check_bands(halo, k, left, right)
     view = torch.empty((d, l + 2 * halo) + own.shape[2:], dtype=own.dtype, device=own.device)
     err = kernels.lib().pies_halo_refresh(own.data_ptr(), view.data_ptr(), d, l, halo, k,
-                                          int(zero_halo), kernels.stream())
+                                          int(zero_halo), kernels.ptr(left), kernels.ptr(right),
+                                          kernels.stream())
     kernels.check(err, "halo_refresh")
     refresh.launches += 1
     return view
@@ -54,39 +63,54 @@ def refresh(own: torch.Tensor, halo: int, zero_halo: bool = False) -> torch.Tens
 refresh.launches = 0
 
 
-def _reduced(view: torch.Tensor, halo: int) -> torch.Tensor:
+def _check_bands(halo: int, k: int, *bands) -> None:
+    for t in bands:
+        if t is not None and t.numel() != halo * k:
+            raise ValueError(f"an outer band holds B x k = {halo} x {k} values, not {t.numel()}")
+
+
+def _reduced(view: torch.Tensor, halo: int, left=None, right=None) -> torch.Tensor:
     """``own.at[l-b:].add(from_right).at[:b].add(from_left)`` per slab, a
-    missing neighbour's part zero (``_halo_reduce``)."""
+    missing neighbour's part zero (``_halo_reduce``); ``right`` stands in
+    for slab D's left halo and ``left`` for slab −1's right halo (the
+    neighbouring ranks' partials)."""
     b = halo
     l = view.shape[1] - 2 * b
     own = view[:, b:b + l].clone()
     if b == 0:
         return own
     z = torch.zeros_like(view[:1, :b])
-    from_right = torch.cat([view[1:, :b], z])
-    from_left = torch.cat([z, view[:-1, b + l:]])
+    from_right = torch.cat([view[1:, :b], z if right is None else right[None]])
+    from_left = torch.cat([z if left is None else left[None], view[:-1, b + l:]])
     own[:, l - b:] = own[:, l - b:] + from_right
     own[:, :b] = own[:, :b] + from_left
     return own
 
 
 def reduce_plain(view: torch.Tensor, halo: int, mode: int = SUM, p=None, x_own=None,
-                 prev_own=None, active=None, stat=None, failed=None):
+                 prev_own=None, active=None, stat=None, failed=None, left=None, right=None,
+                 part=None):
     """Plain twin of T30's reduce, views ``f32[D, V, ...]`` to owned
     ``f32[D, L, ...]``: ``SUM`` the reduced values (with ``p`` f32[D, L, 3]
     also the CG's block partials of p·y over the flat owned index:
-    returns ``(y, part)``), ``AVERAGE`` the count-averaged k = 4
-    accumulators f32[D, L, 3], ``APPLY`` that average added to ``x_own``
-    and ``prev_own`` in place, then ``x_own = stat`` where ``active`` > 0
-    (when given), nothing when latch slot 0 of ``failed`` is set; returns
-    None."""
-    acc = _reduced(view, halo)
+    returns ``(y, part)``, the partials written into ``part`` when given),
+    ``AVERAGE`` the count-averaged k = 4 accumulators f32[D, L, 3],
+    ``APPLY`` that average added to ``x_own`` and ``prev_own`` in place,
+    then ``x_own = stat`` where ``active`` > 0 (when given), nothing when
+    latch slot 0 of ``failed`` is set; returns None.  ``left`` and
+    ``right`` f32[B, ...] are the neighbouring ranks' halo partials, added
+    to slab 0's and slab D−1's owned bands in every mode."""
+    acc = _reduced(view, halo, left, right)
     if mode == SUM:
         if p is None:
             return acc
         y = acc.reshape(-1, 3)
         q = p.reshape(-1, 3)
-        return acc, block_partials(q[:, 0] * y[:, 0] + q[:, 1] * y[:, 1] + q[:, 2] * y[:, 2])
+        parts = block_partials(q[:, 0] * y[:, 0] + q[:, 1] * y[:, 1] + q[:, 2] * y[:, 2])
+        if part is not None:
+            part.copy_(parts)
+            parts = part
+        return acc, parts
     delta = _div(acc[..., :3], torch.clamp_min(acc[..., 3:4], 1.0))
     if mode == AVERAGE:
         return delta
@@ -101,27 +125,34 @@ def reduce_plain(view: torch.Tensor, halo: int, mode: int = SUM, p=None, x_own=N
 
 
 def reduce(view: torch.Tensor, halo: int, mode: int = SUM, p=None, x_own=None,
-           prev_own=None, active=None, stat=None, failed=None):
+           prev_own=None, active=None, stat=None, failed=None, left=None, right=None,
+           part=None):
     """T30's reduce on a CUDA tensor, :func:`reduce_plain` on a CPU one
     (same arguments and results)."""
     if kernels.on_cpu(view):
-        return reduce_plain(view, halo, mode, p, x_own, prev_own, active, stat, failed)
+        return reduce_plain(view, halo, mode, p, x_own, prev_own, active, stat, failed, left,
+                            right, part)
     d, vv = view.shape[:2]
     l = vv - 2 * halo
     k = view.shape[2] if view.dim() == 3 else 1
-    kernels.require(view.device, view, p, x_own, prev_own, active, stat, failed)
+    kernels.require(view.device, view, p, x_own, prev_own, active, stat, failed, left, right,
+                    part)
+    _check_bands(halo, k, left, right)
     out = None
     if mode == SUM:
         out = torch.empty((d, l) + view.shape[2:], dtype=view.dtype, device=view.device)
     elif mode == AVERAGE:
         out = torch.empty((d, l, 3), dtype=view.dtype, device=view.device)
-    part = None
-    if p is not None:
-        part = torch.empty(-(-d * l // 256), dtype=torch.float32, device=view.device)
+    parts = -(-d * l // 256)
+    if p is not None and part is None:
+        part = torch.empty(parts, dtype=torch.float32, device=view.device)
+    if part is not None and (p is None or part.numel() != parts):
+        raise ValueError(f"the p.Ap partials take p and {parts} slots")
     err = kernels.lib().pies_halo_reduce(
         view.data_ptr(), kernels.ptr(out), d, l, halo, k, mode, kernels.ptr(p),
         kernels.ptr(part), kernels.ptr(x_own), kernels.ptr(prev_own), kernels.ptr(active),
-        kernels.ptr(stat), kernels.ptr(failed), kernels.stream())
+        kernels.ptr(stat), kernels.ptr(failed), kernels.ptr(left), kernels.ptr(right),
+        kernels.stream())
     kernels.check(err, "halo_reduce")
     reduce.launches += 1
     if part is not None:

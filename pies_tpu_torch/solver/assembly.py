@@ -805,7 +805,7 @@ def _rtol2(rtol: float) -> float:
 def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
                     iterations: int, rtol: float = 0.0, failed=None, block=None,
                     full: FullCoupling | None = None, edges: EdgeTerms | None = None,
-                    matvec=None):
+                    matvec=None, ranks=None):
     """Plain twin of T11 (with T10's twin as the operator): PCG on the
     stacked 3-RHS system from ``x0``, at most ``iterations`` trips, stopping
     before a trip once ``rz ≤ rtol²·rz0`` when ``rtol > 0``
@@ -821,15 +821,25 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
 
     ``matvec(v, part)`` (a single scene only) replaces T10's twin as the
     operator: it returns ``(A·v f32[N, 3], the block partials of v·A·v or
-    None)``; the domain decomposition's halo-exchanged operator is one
-    (``parallel/domain.py``)."""
+    None)`` (``part`` True: the partials; a tensor: the partials written
+    into it, on the card); the domain decomposition's halo-exchanged
+    operator is one (``parallel/domain.py``).  ``ranks`` (the domain over
+    several ranks, a ``parallel.ranks.Transport``) makes every dot product
+    global: the rank's block partials are gathered from all ranks in rank
+    order (``ranks.gather``) before each total, so every rank leaves the
+    loop on the same trip (the ``psum``'d dots of ``pies_tpu/parallel/
+    domain.py:612-656``); ``prr`` is then every rank's partials, f32[R·P].
+    The latch and the totals read here are the same on every rank, so
+    every rank issues the same collectives."""
     if members_of(b):
         return each_member(lambda bb, xb, db, mb, wb, kb, fb, ob, cb, eb: pcg_solve_plain(
             bb, xb, db, mb, wb, h2, kb, topo, iterations, rtol, fb, ob, cb, eb),
             members_of(b), b, x0, diag, mass, wf, mask, failed, block, full, edges)
     dev = b.device
+    gather = (lambda t: t) if ranks is None else ranks.gather  # noqa: E731
+    total = lambda t: finalize(gather(t))  # noqa: E731
     if failed is not None and bool(failed[0]):
-        return (x0.clone(), torch.zeros(-(-b.shape[0] // CG_BLOCK), device=dev),
+        return (x0.clone(), gather(torch.zeros(-(-b.shape[0] // CG_BLOCK), device=dev)),
                 torch.zeros(1, dtype=torch.int32, device=dev))
     if matvec is None:
         matvec = lambda v, part=False: apply_system_plain(  # noqa: E731
@@ -843,7 +853,7 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
         precond = lambda res: tet_block_apply_plain(block, res)  # noqa: E731
     z = precond(r)
     p, x = z, x0
-    rz = finalize(block_partials(_dot3(r, z)))
+    rz = total(block_partials(_dot3(r, z)))
     prr = block_partials(_dot3(r, r))
     tol2 = rz * _rtol2(rtol)
     trips = 0
@@ -852,33 +862,81 @@ def pcg_solve_plain(b, x0, diag, mass, wf, h2: float, mask, topo: Topology,
         if rtol > 0.0 and not bool(rz > tol2):
             break
         ap, pap = matvec(p, True)
-        p_ap = finalize(pap)
-        alpha = torch.where(p_ap > 0, rz / torch.clamp_min(p_ap, 1e-30), 0.0)
-        x = torch.where(live, x + alpha * p, x)
-        r = r - alpha * ap
-        z = precond(r)
-        rz_new = finalize(block_partials(_dot3(r, z)))
-        prr = block_partials(_dot3(r, r))
-        beta = torch.where(rz > 0, rz_new / torch.clamp_min(rz, 1e-30), 0.0)
-        p = z + beta * p
-        rz = rz_new
+        x, r, p, rz, prr = cg_trip_plain(x, r, p, ap, rz, total(pap), live, precond, total)
         trips += 1
-    return x, prr, torch.full((1,), trips, dtype=torch.int32, device=dev)
+    return x, gather(prr), torch.full((1,), trips, dtype=torch.int32, device=dev)
+
+
+def cg_trip_plain(x, r, p, ap, rz, p_ap, live, precond, total):
+    """Plain twin of T11's update and direction (one trip after the
+    operator): from the totals ``rz`` (r·z before the trip) and ``p_ap``
+    (p·Ap), ``(x, r, p, rz_new, prr)`` after it.  ``live`` is the mask
+    re-select (bool[N, 1]), ``precond`` the preconditioner, ``total`` turns
+    this launch's block partials of r·z into the total (across ranks, with
+    every other rank's, in rank order); ``prr`` is this launch's block
+    partials of r·r."""
+    alpha = torch.where(p_ap > 0, rz / torch.clamp_min(p_ap, 1e-30), 0.0)
+    x = torch.where(live, x + alpha * p, x)
+    r = r - alpha * ap
+    z = precond(r)
+    rz_new = total(block_partials(_dot3(r, z)))
+    prr = block_partials(_dot3(r, r))
+    beta = torch.where(rz > 0, rz_new / torch.clamp_min(rz, 1e-30), 0.0)
+    return x, r, z + beta * p, rz_new, prr
+
+
+def cg_update(x, p, ap, r, z, diag, block, mask, prz, prz0, pap, prr, trips, failed,
+              trip: int, early: int, rtol2: float, at: int = 0):
+    """T11's update stage of trip ``trip`` on CUDA tensors (one launch, all
+    members): x, r and z in place, the r·z partials into row ``(trip + 1)
+    & 1`` of ``prz`` f32[..., 2, P] and the r·r partials into ``prr``, this
+    launch's blocks at ``at``; its totals (the gate's r·z, p·Ap) sum all P
+    partials of ``prz``, ``prz0`` and ``pap``.  Needs ``trips`` ≥ ``trip``
+    (the direction stages before it ran), else it returns at once."""
+    members = kernels.launch_members(x, failed, p, ap, r, z, diag, mask)
+    err = kernels.lib().pies_cg_update(
+        x.data_ptr(), p.data_ptr(), ap.data_ptr(), r.data_ptr(), z.data_ptr(),
+        diag.data_ptr(), kernels.ptr(block), mask.data_ptr(), prz.data_ptr(), prz0.data_ptr(),
+        pap.data_ptr(), prr.data_ptr(), trips.data_ptr(), x.shape[-2], trip, early, rtol2,
+        failed.data_ptr(), members, pap.shape[-1], at, kernels.stream())
+    kernels.check(err, "cg_update")
+    pcg_solve.launches += 1
+
+
+def cg_direction(p, z, prz, prz0, trips, failed, trip: int, early: int, rtol2: float,
+                 at: int = 0):
+    """T11's direction stage of trip ``trip`` on CUDA tensors (one launch,
+    all members): p = z + beta p in place, beta from the r·z totals of
+    both rows of ``prz`` f32[..., 2, P]; block 0 writes ``trips`` = trip +
+    1.  ``at`` is where :func:`cg_update` wrote this launch's partials."""
+    members = kernels.launch_members(p, failed, z)
+    err = kernels.lib().pies_cg_direction(
+        p.data_ptr(), z.data_ptr(), prz.data_ptr(), prz0.data_ptr(), trips.data_ptr(),
+        p.shape[-2], trip, early, rtol2, failed.data_ptr(), members, prz.shape[-1], at,
+        kernels.stream())
+    kernels.check(err, "cg_direction")
+    pcg_solve.launches += 1
 
 
 def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations: int,
               rtol: float = 0.0, failed=None, block=None, full: FullCoupling | None = None,
-              edges: EdgeTerms | None = None, matvec=None):
+              edges: EdgeTerms | None = None, matvec=None, ranks=None):
     """T10 + T11 on CUDA tensors, :func:`pcg_solve_plain` on CPU tensors
     (same arguments and results; ``trips`` stays on the device).  Enqueues
     the init and all ``iterations`` trips without waiting: the trips past
     the exit return at once on the device, each member's past its own exit
     in an ensemble (one launch per stage for all members).  ``matvec``
     (see :func:`pcg_solve_plain`) replaces T10: its launches are not gated,
-    only T11's stages are."""
+    only T11's stages are.  With ``ranks`` T11 writes this rank's P block
+    partials into its slice of buffers of R·P, and each trip runs: the
+    matvec (with its exchanges), a gather of p·Ap, the update (which writes
+    r·z and r·r), a gather of r·z, the direction; the init's r·z is
+    gathered after it and the last r·r after the loop, all in place on the
+    stream, so that every rank finalizes the same R·P partials in the same
+    order and nothing waits for the host."""
     if kernels.on_cpu(b):
         return pcg_solve_plain(b, x0, diag, mass, wf, h2, mask, topo, iterations, rtol,
-                               failed, block, full, edges, matvec)
+                               failed, block, full, edges, matvec, ranks)
     if failed is None:
         raise ValueError("the CG kernels need the failure latch")
     n = b.shape[-2]
@@ -888,9 +946,14 @@ def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations
     if block is not None and (n % 4 or tuple(block.shape) != lead + (10, n // 4)):
         raise ValueError("the block preconditioner needs f32[10, N/4] factors per member")
     kernels.require(dev, b, x0, diag, mask, block)
-    parts = -(-n // CG_BLOCK)
+    own = -(-n // CG_BLOCK)  # this launch's blocks
+    if ranks is not None and (matvec is None or members_of(b)):
+        raise ValueError("the CG across ranks takes a single scene's halo-exchanged operator")
+    world, at = (1, 0) if ranks is None else (ranks.world, ranks.rank * own)
+    parts = world * own
     # Per-member scratch, once per solve: r.z partials (two rows, a trip
-    # reads one and writes the other), r.z at the start, p.Ap and r.r.
+    # reads one and writes the other), r.z at the start, p.Ap and r.r;
+    # across ranks every rank's partials, this rank's at [at, at + own).
     prz = torch.empty(lead + (2, parts), dtype=torch.float32, device=dev)
     prz0, pap, prr = (torch.empty(lead + (parts,), dtype=torch.float32, device=dev)
                       for _ in range(3))
@@ -905,27 +968,28 @@ def pcg_solve(b, x0, diag, mass, wf, h2: float, mask, topo: Topology, iterations
         b.data_ptr(), ap.data_ptr(), x0.data_ptr(), diag.data_ptr(), kernels.ptr(block),
         r.data_ptr(),
         z.data_ptr(), p.data_ptr(), x.data_ptr(), prz.data_ptr(), prz0.data_ptr(),
-        prr.data_ptr(), trips.data_ptr(), n, failed.data_ptr(), members, stream)
+        prr.data_ptr(), trips.data_ptr(), n, failed.data_ptr(), members, parts, at, stream)
     kernels.check(err, "cg_init")
     pcg_solve.launches += 1
+    if ranks is not None:
+        ranks.gather_(prz[0], own)
+        prz0.copy_(prz[0])
     early, rtol2 = int(rtol > 0.0), _rtol2(rtol)
     for i in range(iterations):
         if matvec is None:
             apply_system(p, mass, wf, h2, topo, failed, part=pap, out=ap,
                          gate=(trips, prz, prz0, i, early, rtol2), full=full, edges=edges)
         else:
-            ap, pap = matvec(p, True)
-        err = lib.pies_cg_update(
-            x.data_ptr(), p.data_ptr(), ap.data_ptr(), r.data_ptr(), z.data_ptr(),
-            diag.data_ptr(), kernels.ptr(block), mask.data_ptr(), prz.data_ptr(), prz0.data_ptr(),
-            pap.data_ptr(), prr.data_ptr(), trips.data_ptr(), n, i, early, rtol2,
-            failed.data_ptr(), members, stream)
-        kernels.check(err, "cg_update")
-        err = lib.pies_cg_direction(
-            p.data_ptr(), z.data_ptr(), prz.data_ptr(), prz0.data_ptr(), trips.data_ptr(),
-            n, i, early, rtol2, failed.data_ptr(), members, stream)
-        kernels.check(err, "cg_direction")
-        pcg_solve.launches += 2
+            ap, _ = matvec(p, pap[at:at + own])
+        if ranks is not None:
+            ranks.gather_(pap, own)
+        cg_update(x, p, ap, r, z, diag, block, mask, prz, prz0, pap, prr, trips, failed, i,
+                  early, rtol2, at)
+        if ranks is not None:
+            ranks.gather_(prz[(i + 1) & 1], own)
+        cg_direction(p, z, prz, prz0, trips, failed, i, early, rtol2, at)
+    if ranks is not None:
+        ranks.gather_(prr, own)
     return x, prr, trips
 
 

@@ -37,8 +37,8 @@ Edge-edge contacts (``enable_edge_collisions``) and PD node-node contacts
 
 Imported closed triangle meshes are tetrahedralized by the lattice mesher
 (``add_tri_mesh_volume``).  Every ``Solver`` path of the JAX package runs;
-what the port leaves out (several cards, ROADMAP item 11b) is not a
-``Solver`` path.  ``dense_operator_max`` is accepted and has no effect: the port's generic
+the ensembles and the domain decomposition, on one card or across ranks,
+live in ``parallel/``.  ``dense_operator_max`` is accepted and has no effect: the port's generic
 path always runs Jacobi-PCG, and the JAX package's dense prefactorization
 for small scenes is not ported (ROADMAP, "Not to port").
 """
