@@ -19,7 +19,12 @@ Phases (any failure exits non-zero, before the result line):
    flags equal (as found, and with a rebuild forced), T6's contacts equal
    (as found, and with the positions jittered so that points cross face
    planes and the cubic runs), T7's incidence and diagonal equal and its
-   force, T2's one-iteration contact mode, and T8 within 1 ulp.
+   force, T2's one-iteration contact mode (also with T7's force fused into
+   its launch, as the main path runs it: bit-equal to T2 given T7's force,
+   and timed as its own row of the kernels line), and T8 within 1 ulp.
+   Then each T5-T8 call's device work kernel by kernel (the profiler's
+   CUDA events): T6 and T7's setup one kernel a call with no memcpy and no
+   memset, T7's force one kernel.
 3. The contact-free main path: ``Solver(SolverOptions(solver=PD),
    enable_collisions=False)`` on ``create_tet_soup(125_000, spacing=1.6,
    scale=0.8, w=2000.0, height=0.5, jitter=0.05)``; 30 warm-up ticks (the
@@ -30,10 +35,15 @@ Phases (any failure exits non-zero, before the result line):
    timed too, and its final positions are held against the kernels' run.
 3b. The main path with self-contact: the same scene with
    ``enable_collisions=True``; 45 warm-up ticks (its layers meet only after
-   the bottom one stops on the floor, at tick ~40), then a timed
-   ``run_ticks(10)``.  Checks as in phase 3, plus live contacts in the
-   window and every counter of T1-T8 > 0; prints contacts per tick and cache
-   rebuilds.  The plain twins' run is held to 1e-3.
+   the bottom one stops on the floor, at tick ~40), then 10 timed ticks
+   enqueued by ``step.tick_n`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no call may make the host
+   wait for the device; the closing synchronize outside).  Checks as in
+   phase 3, plus live contacts in the window, every counter of T1-T8 > 0,
+   and every T2 launch a contact iteration with T7's force inside (no
+   standalone force); prints contacts per tick and cache rebuilds, then a
+   traced copy of the window from tick 45: device busy, kernels, memcpys
+   and memsets per tick.  The plain twins' run is held to 1e-3.
 4. Kernels against twins on the card over 40 ticks of a 4,096-tet soup:
    max |dx| <= 1e-3; then with self-contact at spacing 1.0, where the
    contact counts must also be equal on every tick.
@@ -399,6 +409,9 @@ DENSE_SCENE = dict(SCENE, spacing=1.0)
 PBD_SOUP = dict(SCENE, w=1.0)
 FLOOR_WARMUP = 30  # the bench soup's bottom layer reaches the floor at tick ~25
 CONTACT_WARMUP = 45  # its layers start touching at tick ~40
+# The kernels-line row of T2's contact iteration with T7's force inside
+# its launch, the main path's form (phase 2b times it, 3b launches it).
+T2_FUSED = "tet_cols_substep (contact, fused force)"
 MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "refbench")
 MESH_BIG = os.path.join(MESH_DIR, "tet_cube_mesh_100k.txt")
 MESH_SMALL = os.path.join(MESH_DIR, "tet_cube_mesh.txt")
@@ -1167,6 +1180,33 @@ def device_us(fn, reps=5):
             fn()
         torch.cuda.synchronize()
     return sum(us for _, us in device_events(prof)) / reps
+
+
+def device_kernels(fn, reps=5):
+    """The device work of one call of ``fn``: ``{name: (count, µs)}`` per
+    kernel, memcpy and memset name, from the profiler's CUDA events over
+    ``reps`` calls, divided by ``reps``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pies_tpu_torch.tick_profile import device_events
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count / reps, us / reps) for e, us in device_events(prof)}
+
+
+def device_kinds(events):
+    """``(kernels, memcpys, memsets, µs)`` of :func:`device_kernels`'
+    result."""
+    n = {"Memcpy": 0.0, "Memset": 0.0, "kernel": 0.0}
+    for name, (count, _) in events.items():
+        n[name.split()[0] if name.startswith(("Memcpy", "Memset")) else "kernel"] += count
+    return n["kernel"], n["Memcpy"], n["Memset"], sum(us for _, us in events.values())
 
 
 def phase14(pt, dev, smi, PD, row, launches, reset_launches, read_launches, keep, mesh_res,
@@ -3909,6 +3949,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     from pies_tpu_torch.constraints import projections as proj
     from pies_tpu_torch.parallel import halo
     from pies_tpu_torch.solver import assembly, pbd, pd, step, tetcols
+    from pies_tpu_torch.tick_profile import device_events
+    from torch.profiler import ProfilerActivity, profile
 
     print("nvcc: " + run([kernels._nvcc(), "--version"]).splitlines()[-1])
     dev = dev or torch.device("cuda", 0)
@@ -4234,7 +4276,11 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         cuda_ms(lambda: couple(tetcols.pt_coupling_setup, tetcols.pt_force), 20),
         cuda_ms(lambda: couple(tetcols.pt_coupling_setup_plain, tetcols.pt_force_plain), 3),
         f"{ulps} ulp",
-        20 * n_contacts + 24 * n_inc + cfg.iterations * (20 * n_contacts + 24 * n_inc),
+        # (the contacts and the incident nodes' rows read, row_start over
+        # every node, the entries, nodes and node list written; then per
+        # iteration the contacts and the incident rows again)
+        20 * n_contacts + 24 * n_inc + 4 * (st.capacity + 1) + 8 * nnz + 4 * n_inc
+        + cfg.iterations * (20 * n_contacts + 24 * n_inc),
         cfg.iterations * 50 * nnz)
 
     pt_args = (ptd_k, con_k, inc_k.row_start, colls.pt_count)
@@ -4245,6 +4291,30 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(ok2[:2], op2[:2]))
     check(err <= 1e-4, f"T2 one iteration with contacts within 1e-4 (max {err:.3e})")
+    # The main path's form: T7's force inside T2's launch, from the iterate
+    # it reads; the same outputs bit for bit as T2 given T7's force.
+    pt_fused = (ptd_k, None, inc_k.row_start, colls.pt_count)
+    fused = (colls, inc_k, thick)
+    of2 = tetcols.substep_cols(*one[:-1], pt_fused, fused=fused)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(of2, ok2)),
+          "T2 with T7's force fused in equals T2 given T7's force, bit for bit")
+    n2 = x.shape[-2]  # (of2 equals ok2, so err is also its error against the twin)
+    row(T2_FUSED, "pies_tpu_torch/kernels/csrc/tet_cols_substep.cu",
+        "pies_tpu/solver/tetcols.py:263", err,
+        cuda_ms(lambda: tetcols.substep_cols(*one[:-1], pt_fused, fused=fused), 20),
+        cuda_ms(lambda: tetcols.substep_cols_plain(*one[:-1], (
+            ptd_p, tetcols.pt_force_plain(x, colls, inc_p, thick, failed), inc_p.row_start,
+            colls.pt_count)), 3),
+        "abs",
+        # (T2's one iteration over every column, with row_start over every
+        # node; the incident nodes' contact diagonal, the contacts and the
+        # incidence entries the force reads)
+        424 * (n2 // 4) + 4 * (n2 + 1) + 4 * n_inc + 20 * n_contacts + 4 * nnz,
+        1600 * (n2 // 4) + 50 * nnz)
+    rows["pt_coupling"]["form"] = (f"setup + {cfg.iterations} standalone forces (the generic"
+                                   " path's form; the main path runs the force inside T2,"
+                                   f" row {T2_FUSED})")
 
     x_new, static_proj = ok2[0], ok2[1]
     sk, sp = clone_state(st), clone_state(st)
@@ -4264,7 +4334,44 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         cuda_ms(lambda: pd.pt_tail_plain(sp, params, cfg, colls_a, inc_p, xp, static_proj), 3),
         f"{ulps} ulp", passes * (20 * n_contacts + 64 * n_inc) + 20 * n_contacts + 56 * n_inc,
         passes * 60 * n_contacts + 90 * n_contacts)
-    del s, st, sk, sp, cache, timing_cache, colls, colls_a, inc_k, inc_p
+
+    # The device work of each wrapper call of T5-T8 on this state, kernel by
+    # kernel (the profiler's CUDA events): T6 and T7's setup are one
+    # cooperative launch a call and T7's force one launch, with no memcpy
+    # and no memset.
+    found, ov_t, d_t = st.bp.clone(), zero(), diag.clone()
+    per_call = {
+        "T5 as found": lambda: broadphase.body_broadphase(x, prev, tmask, found, lay, sc, ov_t,
+                                                          failed),
+        "T5 rebuild (with the fill that forces it)": lambda: rebuild(broadphase.body_broadphase),
+        "T6": lambda: broadphase.pt_narrowphase(x, prev, tmask, cache, lay, sc, ov_t, failed),
+        "T7 setup": lambda: tetcols.pt_coupling_setup(colls, st.mass, topo, h2, d_t, wf, failed),
+        "T7 force": lambda: tetcols.pt_force(x, colls, inc_k, thick, failed),
+        "T2 one contact iteration": lambda: tetcols.substep_cols(
+            x, msn, dk, st.node_mask, wf, None, topo, plane, 1, failed, pt_args),
+        "T2 one contact iteration, T7's force fused in": lambda: tetcols.substep_cols(
+            x, msn, dk, st.node_mask, wf, None, topo, plane, 1, failed, pt_fused,
+            fused=fused),
+        "T8": lambda: pd.pt_tail(sk, params, cfg, colls_a, inc_k, xk, static_proj),
+    }
+    print(f"  device work per call on this state ({smi}):")
+    kinds = {}
+    for name, fn in per_call.items():
+        events = device_kernels(fn)
+        kinds[name] = device_kinds(events)
+        k_, mc_, ms_, us_ = kinds[name]
+        print(f"  {name}: {us_:.2f} us, {k_:g} kernels, {mc_:g} memcpys, {ms_:g} memsets")
+        for key, (count, us) in sorted(events.items(), key=lambda kv: -kv[1][1]):
+            print(f"    {us:9.2f} us x{count:<4g} {key[:90]}")
+    check(kinds["T6"][0] <= 3 and kinds["T6"][1:3] == (0, 0),
+          f"T6: {kinds['T6'][0]:g} kernels, no memcpy, no memset a call")
+    check(kinds["T7 setup"][0] <= 3 and kinds["T7 setup"][2] == 0,
+          f"T7 setup: {kinds['T7 setup'][0]:g} kernels, no memset a call")
+    check(kinds["T7 force"][:3] == (1, 0, 0), "T7 force: one kernel a call")
+    rows["pt_narrowphase"]["device_us"] = kinds["T6"][3]
+    rows["pt_coupling"]["device_us"] = kinds["T7 setup"][3] + cfg.iterations * kinds["T7 force"][3]
+    rows[T2_FUSED]["device_us"] = kinds["T2 one contact iteration, T7's force fused in"][3]
+    del s, st, sk, sp, cache, timing_cache, colls, colls_a, inc_k, inc_p, found
 
     stamp("2b")
 
@@ -4285,22 +4392,40 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         advance(s, warm, plain)
         return s
 
-    def advance(s, ticks, plain, counters=None):
+    def advance(s, ticks, plain, counters=None, sync_check=False):
+        """``ticks`` ticks of the twins or of the kernels (``Solver.run_ticks``);
+        with ``sync_check`` the kernels' ticks are enqueued by ``step.tick_n``
+        under ``torch.cuda.set_sync_debug_mode("error")`` (a call among them
+        that makes the host wait for the device raises), the closing
+        synchronize outside it."""
         if plain:
             step.tick_n(s.state, s.topology, s.current_params(), s.config, ticks, plain=True,
                         counters=counters)
             torch.cuda.synchronize()
+        elif sync_check:
+            env = (s.state, s.topology, s.current_params(), s.config)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = step.tick_n(*env, ticks, counters=counters)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            if res is not None:
+                s.last_residual = res
+            s.ticks += ticks
+            s.render_state_dirty = True
         else:
             s.counters = counters
             s.run_ticks(ticks)
             s.counters = None
 
-    def window(s, ticks, plain):
+    def window(s, ticks, plain, sync_check=False):
         """``ticks`` timed ticks with the device counters on; returns the
-        seconds per tick and the counters."""
+        seconds per tick and the counters.  ``sync_check``: see
+        :func:`advance`."""
         counters = pd.new_counters(dev)
         t0 = time.perf_counter()
-        advance(s, ticks, plain, counters)
+        advance(s, ticks, plain, counters, sync_check)
         return (time.perf_counter() - t0) / ticks, {k: int(v) for k, v in counters.items()}
 
     def operator_csr(st, topo, wf, h2):
@@ -4334,8 +4459,37 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         if collisions:  # phase 20b starts from this state, at tick 45
             domain_keep["20b"] = (clone_state(s.state), s.topology, s.current_params(), s.config)
         reset_launches()
-        sec, counts = window(s, 10, False)
+        # (3b's ticks are enqueued under the sync check: a call among them
+        # that makes the host wait for the device raises)
+        sec, counts = window(s, 10, False, sync_check=collisions)
         launches[phase] = read_launches()
+        if collisions:
+            check(True, "the window's 10 ticks enqueued under"
+                        " torch.cuda.set_sync_debug_mode('error')")
+            setups, t2 = tetcols.pt_coupling_setup.launches, launches[phase]["tet_cols_substep"]
+            check(tetcols.pt_force.launches == 0 and t2 == s.config.iterations * setups,
+                  f"every T2 launch a contact iteration with T7's force inside ({t2} T2"
+                  f" launches, {setups} T7 setups, {tetcols.pt_force.launches} standalone"
+                  " forces)")
+            # The device work of the same window, traced from the state at
+            # tick 45 on a copy: kernels, memcpys and memsets per tick.
+            after, s._state = s._state, clone_state(domain_keep["20b"][0])
+            counted = {f: f.launches for fns in wrappers.values() for f in fns}
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                s.run_ticks(10)
+                wall = (time.perf_counter() - t0) / 10
+            s._state, s.ticks = after, s.ticks - 10
+            for f, n in counted.items():  # (the window's counts stand)
+                f.launches = n
+            events = {e.key: (e.count / 10, us / 10) for e, us in device_events(prof)}
+            k_, mc_, ms_, us_ = device_kinds(events)
+            print(f"  traced copy of the window: {wall * 1e3:.3f} ms/tick, device busy"
+                  f" {us_ / 1e3:.4f} ms/tick ({100 * us_ / 1e3 / (wall * 1e3):.1f}%), {k_:g}"
+                  f" kernels, {mc_:g} memcpys, {ms_:g} memsets per tick ({smi})")
+            for key, (count, us) in sorted(events.items(), key=lambda kv: -kv[1][1]):
+                print(f"    {us:9.2f} us/tick x{count:<5g} {key[:90]}")
         live = 4 * n_tets
         pos = s.state.positions[:live]
         check(not s.sim_failed, "no sim_failed")
@@ -5885,6 +6039,11 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             pass  # (phase 21 set them from rank 0's window on phase 20a's mesh)
         elif name in mixed_rows:
             r["launches"] = launches["7"][mixed_rows[name]]
+        elif name == T2_FUSED:
+            # Every T2 launch of 3b is a contact iteration with T7's force
+            # inside (3b checks it); the ensemble's (13) beside it.
+            r["launches"] = launches["3b"]["tet_cols_substep"]
+            r["launches_by_path"] = {p: launches[p]["tet_cols_substep"] for p in ("3b", "13")}
         elif name in ("tet_block", "pt_full", "floor_entries"):
             # The main path of each: 11a (T22, T23) and 11d (T24); every
             # phase-11 window beside it.

@@ -132,12 +132,16 @@ class Incidence:
     node pairs) is column a of contact i; ``entries[row_start[n] :
     row_start[n+1]]`` are node n's entries in ascending order, and
     ``nodes[p]`` is the node of position p.  Positions past ``row_start[N]``
-    are unused."""
+    are unused.  T7's setup on the card also lists the incident nodes,
+    ascending, in ``node_list[: node_count[0]]``, which its force kernel
+    strides over."""
 
     row_start: torch.Tensor  # i32[N + 1]
     entries: torch.Tensor  # i32[w·cap]
     nodes: torch.Tensor  # i32[w·cap]
     cap: int
+    node_list: torch.Tensor | None = None  # i32[w·cap]
+    node_count: torch.Tensor | None = None  # i32[1]
 
 
 def incidence_plain(idx: torch.Tensor, count: torch.Tensor | int, n_nodes: int,

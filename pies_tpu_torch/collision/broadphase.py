@@ -12,9 +12,10 @@ twin here:
   the cell queries with their caps and latches, the exact/slack AABB tiers
   with deduplication, and the cache update.
 * T6 :func:`pt_narrowphase` — phase 1 (proximity decided, plane crossings
-  flagged) on every (body, slot) lane, the prox-first lane compaction,
-  phase 2 (the coplanarity cubic) on compacted lanes with crossings, and the
-  compaction and decode of the hit (corner, face) combos into contacts.
+  flagged) on every live (body, slot) lane, phase 2 (the coplanarity cubic)
+  on its crossings, the prox-first lane order and the decode of the hit
+  (corner, face) combos into contacts; one cooperative launch whose blocks
+  own contiguous lane ranges (the plain twin compacts, then solves).
 
 The super-body layout covers any triangle scene (``StepConfig.super_*``): a
 packed prefix of such bodies and one "loose" row per remaining triangle,
@@ -58,6 +59,7 @@ slot) order and contacts in (lane, combo) order on the body layouts, and in
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -336,6 +338,30 @@ def body_broadphase(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLayout,
 body_broadphase.launches = 0
 
 
+def face_table(faces, device: torch.device) -> torch.Tensor:
+    """The local corner patterns ``faces`` (three corners each) as i32[e, 3]
+    on ``device``, made once per pattern and device: the narrowphase
+    kernels T6 and T15 read it on every call, and a fresh copy from host
+    memory would block the host each time."""
+    return _face_table(tuple(tuple(int(c) for c in f) for f in faces), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _face_table(faces: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(faces, dtype=torch.int32, device=device).reshape(-1, 3)
+
+
+@functools.lru_cache(maxsize=64)
+def narrowphase_grid(device: torch.device, members: int, lanes: int) -> int:
+    """Blocks per member of T6's cooperative grid on ``device`` (its scratch
+    is sized by it; members past what one launch keeps resident go to
+    further launches)."""
+    grid = kernels.lib().pies_pt_narrowphase_grid(members, lanes)
+    if grid <= 0:
+        raise RuntimeError("the narrowphase: no block of the cooperative kernel stays resident")
+    return grid
+
+
 def pt_narrowphase_plain(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLayout,
                          sc: Scalars, overflow: torch.Tensor,
                          failed: torch.Tensor | None = None, stats: dict | None = None):
@@ -444,32 +470,31 @@ def pt_narrowphase(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLayout, s
         return pt_narrowphase_plain(x, prev, tri_mask, cache, lay, sc, overflow, failed)
     if failed is None:
         raise ValueError("the narrowphase kernel needs the failure latch")
-    if lay.m > 8 or lay.m * lay.e > 32:
-        raise ValueError("the narrowphase kernel takes m <= 8 and m·e <= 32")
+    lanes, cap = lay.lanes, lay.cap
+    if lay.m * lay.e > 32 or lanes <= 0 or cap <= 0:
+        raise ValueError("the narrowphase kernel takes m·e <= 32, lanes and a contact cap")
     dev = x.device
     kernels.require(dev, x, prev, tri_mask, cache.pairs, cache.valid, overflow, failed)
-    i32 = dict(dtype=torch.int32, device=dev)
-    lanes, pcap, cap = lay.lanes, lay.pcap, lay.cap
     lead = x.shape[:-2]  # (B,) for an ensemble: every buffer per member
     b = max(members_of(x), 1)
-    if b * max(lanes, 4 * cap, x.shape[-2] * 3) >= 1 << 31:
-        raise ValueError("the narrowphase kernel takes fewer than 2^31 lanes in all")
-    bits = torch.empty(lead + (2, lanes), **i32)
-    pair_buf = torch.empty(lead + (pcap,), **i32)
-    pbits = torch.empty(lead + (pcap,), **i32)
-    partial = torch.empty(b * (kernels.scan_partials(lanes) + kernels.scan_partials(pcap)),
-                          dtype=torch.int64, device=dev)
-    totals = torch.zeros(lead + (4,), dtype=torch.int64, device=dev)
-    faces = torch.tensor(lay.faces, **i32)
-    pt_idx = torch.empty(lead + (cap, 4), **i32)
+    if b * max(lanes * lay.m * lay.e, 4 * cap, x.shape[-2] * 3) >= 1 << 31:
+        raise ValueError("the narrowphase kernel takes fewer than 2^31 lane combos in all")
+    grid = narrowphase_grid(dev, b, lanes)
+    # (scratch, each call writing it before reading it: per block a range
+    # of lane items, the block table, the kept hit count)
+    items = kernels.scratch("T6 items", lead + (grid * -(-lanes // grid), 4), torch.int32, dev)
+    table = kernels.scratch("T6 table", lead + (grid, 2), torch.int64, dev)
+    kept = kernels.scratch("T6 kept", lead + (1,), torch.int64, dev)
+    faces = face_table(lay.faces, dev)
+    pt_idx = torch.empty(lead + (cap, 4), dtype=torch.int32, device=dev)
     pt_mask = torch.empty(lead + (cap,), dtype=torch.float32, device=dev)
-    pt_count = torch.empty(lead + (1,), **i32)
+    pt_count = torch.empty(lead + (1,), dtype=torch.int32, device=dev)
     err = kernels.lib().pies_pt_narrowphase(
         x.data_ptr(), prev.data_ptr(), tri_mask.data_ptr(), cache.pairs.data_ptr(),
-        cache.valid.data_ptr(), faces.data_ptr(), bits.data_ptr(), pair_buf.data_ptr(),
-        pbits.data_ptr(), partial.data_ptr(), totals.data_ptr(), pt_idx.data_ptr(),
-        pt_mask.data_ptr(), pt_count.data_ptr(), overflow.data_ptr(), failed.data_ptr(),
-        lay.k, lay.m, lay.e, lay.off, lay.nb, cap, sc.thr, x.shape[-2], b, kernels.stream(),
+        cache.valid.data_ptr(), faces.data_ptr(), items.data_ptr(), table.data_ptr(),
+        kept.data_ptr(), pt_idx.data_ptr(), pt_mask.data_ptr(), pt_count.data_ptr(),
+        overflow.data_ptr(), failed.data_ptr(), lay.k, lay.m, lay.e, lay.off, lay.nb, cap,
+        sc.thr, x.shape[-2], b, grid, kernels.stream(),
     )
     kernels.check(err, "pt_narrowphase")
     pt_narrowphase.launches += 1
@@ -912,7 +937,7 @@ def super_narrowphase(x, prev, corners, cache: BroadphaseCache, lay: SuperLayout
     partial = torch.empty(members * (kernels.scan_partials(lanes) + kernels.scan_partials(pcap)),
                           dtype=torch.int64, device=dev)
     totals = torch.zeros(lead + (4,), dtype=torch.int64, device=dev)
-    faces = torch.tensor(lay.faces, **i32)
+    faces = face_table(lay.faces, dev)
     masks = [m if m < 1 << 31 else m - (1 << 32) for m in lay.combo_bits()]
     pt_idx = torch.empty(lead + (cap, 4), **i32)
     pt_mask = torch.empty(lead + (cap,), dtype=torch.float32, device=dev)

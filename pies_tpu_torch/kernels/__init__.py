@@ -16,8 +16,11 @@ wrappers that call them sit beside their plain PyTorch twins:
 * T4 ``pies_substep_tail`` — ``solver/pd.py:substep_tail``
 * T5 ``pies_body_broadphase`` — ``collision/broadphase.py:body_broadphase``
 * T6 ``pies_pt_narrowphase`` — ``collision/broadphase.py:pt_narrowphase``
+  (a cooperative launch, ``csrc/coop.cuh``; ``pies_pt_narrowphase_grid``
+  gives its grid)
 * T7 ``pies_pt_coupling_setup``, ``pies_pt_force`` —
-  ``solver/tetcols.py:pt_coupling_setup``, ``pt_force``
+  ``solver/tetcols.py:pt_coupling_setup``, ``pt_force`` (the setup a
+  cooperative launch, its grid from ``pies_pt_coupling_grid``)
 * T8 ``pies_pt_tail`` — ``solver/pd.py:pt_tail``
 * T9 ``pies_tet_force12_gather``, ``pies_assemble_force`` —
   ``constraints/projections.py:tet_force12_gathered``,
@@ -98,6 +101,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import OrderedDict
 from pathlib import Path
 
 import torch
@@ -120,15 +124,17 @@ _F = ctypes.c_float
 # argtypes of every entry point: c_void_p for each pointer and the stream.
 SIGNATURES = {
     "pies_tet_force12": [_P] * 10 + [_I, _I, _P, _I, _P],
-    "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F] + [_P] * 5 + [_I, _P],
+    "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F] + [_P] * 8 + [_I, _F, _I, _P],
     "pies_substep_head": [_P] * 11 + [_I, _F, _F, _F, _P, _I, _I, _P],
     "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F] + [_P] * 7 + [_I, _P],
     "pies_body_broadphase": [_P] * 16 + [_I] * 10 + [_F] * 6 + [_I, _I, _P],
-    "pies_pt_narrowphase": [_P] * 16 + [_I] * 6 + [_F, _I, _I, _P],
-    "pies_pt_coupling_setup": [_P] * 15 + [_I, _I, _F, _I, _P],
+    "pies_pt_narrowphase": [_P] * 14 + [_I] * 6 + [_F, _I, _I, _I, _P],
+    "pies_pt_narrowphase_grid": [_I, _I],
+    "pies_pt_coupling_setup": [_P] * 17 + [_I, _I, _F, _I, _I, _P],
+    "pies_pt_coupling_grid": [_I, _I],
     "pies_super_broadphase": [_P] * 17 + [_I] * 11 + [_F] * 6 + [_I, _P],
     "pies_super_narrowphase": [_P] * 16 + [_I] * 11 + [_F, _I, _I, _P],
-    "pies_pt_force": [_P] * 9 + [_I, _I, _F, _I, _P],
+    "pies_pt_force": [_P] * 10 + [_I, _I, _F, _I, _P],
     "pies_pt_tail": [_P] * 24 + [_I] * 6 + [_F] * 6 + [_I, _P],
     "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P] + [_I] * 3 + [_P],
     "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 8 + [_I, _F] + [_P] * 3 + [_I]
@@ -247,6 +253,29 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib
+
+
+_SCRATCH: OrderedDict = OrderedDict()
+SCRATCH_KEPT = 16  # scratch tensors kept, the least recently used dropped first
+
+
+def scratch(name: str, shape: tuple, dtype: torch.dtype, device: torch.device,
+            zeroed: bool = False) -> torch.Tensor:
+    """A kernel's scratch tensor, kept across calls per name, shape, dtype,
+    device and current stream instead of allocated each call: the launches
+    of one stream run in order, so one call's use of it ends before the
+    next one's begins.  The kernel either writes it before reading it or,
+    with ``zeroed`` (made with zeros the first time), leaves it all 0."""
+    key = (name, tuple(shape), dtype, device, stream())
+    t = _SCRATCH.get(key)
+    if t is None:
+        t = (torch.zeros if zeroed else torch.empty)(shape, dtype=dtype, device=device)
+        _SCRATCH[key] = t
+        while len(_SCRATCH) > SCRATCH_KEPT:
+            _SCRATCH.popitem(last=False)
+    else:
+        _SCRATCH.move_to_end(key)
+    return t
 
 
 def check(err: int, name: str) -> None:

@@ -1,7 +1,7 @@
 // The point-triangle tests shared by the narrowphase kernels T6 and T15:
 // phase 1's proximity / crossing decision per (corner, face) combo, phase 2's
 // continuous test (the coplanarity cubic and the containment at its earliest
-// root), and the proximity-first compaction of lanes.
+// root); and T15's proximity-first compaction of lanes.
 //
 // Replaces (JAX): pies_tpu/collision/narrowphase.py:39-207
 // (point_triangle_ccd_cols, point_triangle_phase1_face,
@@ -201,7 +201,7 @@ __device__ __forceinline__ long long lane_class(unsigned prox, unsigned cross) {
   return prox != 0 ? 1LL : (cross != 0 ? (1LL << 32) : 0LL);
 }
 
-// Stage (b) of both narrowphases, every thread of the block: lane l with a
+// Stage (b) of T15, every thread of the block: lane l with a
 // bit goes to the pair buffer, proximity lanes first, then crossing-only
 // lanes, each by lane id, into min(pcap, lanes) slots.  `part` is this
 // block's scanned class count, totals[0] the class counts of all lanes;

@@ -35,7 +35,7 @@
 // No host sync: the kernels read the device counts and exit past them.
 //
 // The point-triangle tests, the cubic and the prox-first compaction are
-// ccd.cuh's, shared by T6 and T15.  Every float operation follows the plain
+// ccd.cuh's (the tests shared with T6).  Every float operation follows the plain
 // twin (collision/narrowphase.py, ops/cubic.py) in order; with -fmad=false
 // and IEEE division the two agree bit for bit on the card, powf/acosf/cosf
 // included (same libdevice).
@@ -47,7 +47,7 @@
 // combo.
 //
 // Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): every
-// launch's blockIdx.y is the member b, as in T6: its nodes from b*n, its
+// launch's blockIdx.y is the member b: its nodes from b*n, its
 // cached pairs, lane bits, pair buffer, block counts and totals, and its
 // contact buffer [b] of [members, cap, 4] with pt_count[b] and overflow[b].
 // The two scans of block counts take one block per member, so each

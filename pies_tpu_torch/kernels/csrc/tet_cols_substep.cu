@@ -24,20 +24,28 @@
 //
 // With point-triangle contacts (pt_count non-null and > 0 on the device)
 // the caller runs one iteration per launch, after kernel T7 has written the
-// contacts' diagonal `ptd` and force `contact` for every node with contact
-// entries (those with row_start[n+1] > row_start[n]); such a node adds
-// ptd*x and then contact to its force after the floor term
+// contacts' diagonal `ptd` for every node with contact entries (those with
+// row_start[n+1] > row_start[n]); such a node adds ptd*x and then its
+// contact force to its force after the floor term
 // (pies_tpu/solver/tetcols.py:341-349).  Elsewhere both are exact zeros and
-// are not read.
+// are not read.  The contact force is T7's `contact` array, or, fused (no
+// `contact`; T7's incidence `entries` and the contacts instead), computed
+// here per node by pt_force.cuh from the iterate this launch reads: no
+// thread of the launch writes that buffer (it writes x_out), so every
+// node's force is T7's force kernel's, bit for bit, and the tick saves a
+// launch per iteration.
 //
 // Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): blockIdx.y
 // is the member b.  Its nodes start at b*4k (x, msn, diag, mask, wf, ptd,
 // contact and the outputs), its latch is failed[2b], its first force f0[b]
 // of [members, 12, C], its contact count pt_count[b], its incidence row
-// row_start + b*(4k+1) and its residual shares r2[b] of [members, K]; the
-// tets' parameters, block6 and the pin force are shared.
+// row_start + b*(4k+1) and entries + b*4cap, its contacts pt_idx [b] of
+// [members, cap, 4] and pt_mask [b] of [members, cap], and its residual
+// shares r2[b] of [members, K]; the tets' parameters, block6 and the pin
+// force are shared.
 #include <cuda_runtime.h>
 
+#include "pt_force.cuh"
 #include "tet_block.cuh"
 #include "tet_force.cuh"
 
@@ -54,9 +62,14 @@ struct SubstepIn {
   const float* f0;      // [12, C] first iteration's tet force, or null
   const int* failed;    // latch slot 0 (tick start), [2 members]
   const float* ptd;     // [N] contact diagonal, or null
-  const float* contact;  // [N, 3] contact force, or null
+  const float* contact;  // [N, 3] contact force, or null (fused, or no contacts)
   const int* row_start;  // [N + 1] T7's incidence, or null
   const int* pt_count;   // live contacts (device scalar), or null
+  const int* entries;    // [4 cap] T7's incidence entries (fused), or null
+  const int* pt_idx;     // [cap, 4] contacts (fused), or null
+  const float* pt_mask;  // [cap] (fused), or null
+  int cap;
+  float thickness;
 };
 
 struct SubstepOut {
@@ -101,8 +114,15 @@ __global__ void __launch_bounds__(128)
       const size_t node = n0 + a;
       pt_on[a] = rs[l0 + a + 1] > rs[l0 + a];
       pt_d[a] = pt_on[a] ? in.ptd[node] : 0.0f;
+      if (in.contact != nullptr) {
 #pragma unroll
-      for (int d = 0; d < 3; ++d) pt_f[a][d] = pt_on[a] ? in.contact[node * 3 + d] : 0.0f;
+        for (int d = 0; d < 3; ++d) pt_f[a][d] = pt_on[a] ? in.contact[node * 3 + d] : 0.0f;
+      } else if (pt_on[a]) {  // fused: the member's contacts at this launch's iterate
+        pies::pt_node_force(in.x + base * 3, in.pt_idx + member * in.cap * 4,
+                            in.pt_mask + member * in.cap,
+                            in.entries + member * 4 * in.cap + rs[l0 + a],
+                            rs[l0 + a + 1] - rs[l0 + a], in.cap, in.thickness, pt_f[a]);
+      }
     }
   }
   float b6[6];
@@ -204,10 +224,12 @@ extern "C" int pies_tet_cols_substep(
     const float* sw, const float* vlo, const float* vhi, const float* vw,
     float* x_out, float* static_out, float* r2, int k, int c, int iterations,
     float plane, const int* failed, const float* ptd, const float* contact,
-    const int* row_start, const int* pt_count, int members, void* stream) {
+    const int* row_start, const int* pt_count, const int* entries, const int* pt_idx,
+    const float* pt_mask, int cap, float thickness, int members, void* stream) {
   if (k > 0 && members > 0) {
-    SubstepIn in{x,  msn,    pin,     diag,      mask,     wf,
-                 block6, f0, failed, ptd, contact, row_start, pt_count};
+    SubstepIn in{x,         msn,       pin,   diag,     mask,    wf,
+                 block6,    f0,        failed, ptd,     contact, row_start,
+                 pt_count,  entries,   pt_idx, pt_mask, cap,     thickness};
     pies::TetBatchPtrs b{qinv, g, slo, shi, sw, vlo, vhi, vw, c};
     SubstepOut o{x_out, static_out, r2};
     const int threads = 128;

@@ -12,8 +12,8 @@ PyTorch twin.  On the tet-column path (disjoint tet soups):
 * T1 ``tet_force12`` — the first PD iteration's tet force;
 * T2 ``tetcols.substep_cols`` — the PD iterations with the direct 4x4 block
   solve, the stale static projection and the residual; with self-contact
-  on, one T2 launch per iteration, each after T7's contact force
-  (``tetcols.pt_force``);
+  on, one T2 launch per iteration, each computing T7's contact force
+  (``tetcols.pt_force``'s) at its iterate inside the launch;
 * with self-contact on: T8 :func:`pt_tail` — the stabilization passes with
   the floor snap between them and the contact friction;
 * T4 :func:`substep_tail` — floor snap, velocity, floor friction, the state
@@ -852,11 +852,18 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
                                            failed)
     else:
         x_new = x
+        thick = params.collision_thickness
         for it in range(config.iterations):
-            contact = k["pt_force"](x_new, colls, inc, params.collision_thickness, failed)
-            pt = (ptd, contact, inc.row_start, colls.pt_count)
-            x_new, static_proj, r2 = k["cols"](x_new, *args, f0 if it == 0 else None, topo,
-                                               plane, 1, failed, pt)
+            first = f0 if it == 0 else None
+            if plain:
+                contact = k["pt_force"](x_new, colls, inc, thick, failed)
+                pt = (ptd, contact, inc.row_start, colls.pt_count)
+                x_new, static_proj, r2 = k["cols"](x_new, *args, first, topo, plane, 1, failed,
+                                                   pt)
+            else:  # (T7's force inside T2's launch)
+                pt = (ptd, None, inc.row_start, colls.pt_count)
+                x_new, static_proj, r2 = k["cols"](x_new, *args, first, topo, plane, 1, failed,
+                                                   pt, fused=(colls, inc, thick))
     if colls is not None:
         fric = k["pt_tail"](state, params, config, colls, inc, x_new, static_proj)
     k["tail"](state, topo, params, active, x_new, snap_target(config, x_new, static_proj), colls,

@@ -193,7 +193,7 @@ def contact_stages(states, topo, params, config, twins: bool = True) -> dict:
         # leaves its rows unwritten)
         row_start, ptd, diag, s_ = setups[0]
         sd = s_ if sd_on else wf
-        inc = Incidence(row_start, incs[0].entries, incs[0].nodes, incs[0].cap)
+        inc = dataclasses.replace(incs[0], row_start=row_start)
         on = (row_start[..., 1:] > row_start[..., :-1])[..., None]
         if full_c:
             full = assembly.FullCoupling(colls, inc, thick)

@@ -14,10 +14,11 @@ tet_cols_substep.cu``); :func:`substep_cols_plain` is its plain twin.
 With point-triangle contacts the loop runs one iteration per call: kernel
 T7 (``kernels/csrc/pt_coupling.cu``) first builds the node incidence and
 folds the contacts' diagonal into ``diag`` once per substep
-(:func:`pt_coupling_setup`), then, before each T2 iteration, computes each
-contact's push-out from the current iterate and its per-node force
-(:func:`pt_force`), which T2 adds as ``ptd·x + contact`` after the floor
-term (``pies_tpu/solver/tetcols.py:194-260,306-349``).
+(:func:`pt_coupling_setup`); each T2 iteration then adds ``ptd·x +
+contact`` after the floor term, ``contact`` being each contact's push-out
+from the current iterate summed per node (:func:`pt_force`; on the main
+path computed inside T2's launch, ``substep_cols(..., fused=...)``)
+(``pies_tpu/solver/tetcols.py:194-260,306-349``).
 
 Each wrapper also takes an ensemble's arrays (a leading member axis, see
 ``state.py``) and launches its kernel once over all members; its plain
@@ -25,6 +26,8 @@ twin then runs member by member (``state.each_member``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -236,11 +239,21 @@ def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
 
 
 def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
-                 plane: float, iterations: int, failed=None, pt=None):
+                 plane: float, iterations: int, failed=None, pt=None, fused=None):
     """Kernel T2 on CUDA tensors, :func:`substep_cols_plain` on CPU tensors
     (same arguments and results).  On the card ``failed`` is required: the
-    kernel returns at once, writing ``r2 = 0``, when its slot 0 is set."""
+    kernel returns at once, writing ``r2 = 0``, when its slot 0 is set.
+    ``fused`` = ``(colls, inc, thickness)`` (with ``pt``'s contact force
+    None): T7's force (:func:`pt_force`) of the contacts ``colls`` over
+    ``inc`` at the iterate ``x``, computed inside T2's launch on the card
+    and by :func:`pt_force_plain` on CPU tensors."""
+    if fused is not None:
+        if pt is None or pt[1] is not None:
+            raise ValueError("the fused contact force takes pt's force slot as None")
+        colls, inc, thickness = fused
     if kernels.on_cpu(x):
+        if fused is not None:
+            pt = (pt[0], pt_force_plain(x, colls, inc, thickness, failed)) + tuple(pt[2:])
         return substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo, plane,
                                   iterations, failed, pt)
     n = x.shape[-2]
@@ -259,8 +272,12 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
         raise ValueError(f"f0 must be {list(lead + (12, c))}, got {list(f0.shape)}")
     batch = (s.qinv, s.g, s.lo, s.hi, s.w, v.lo, v.hi, v.w)
     ptd, contact, row_start, pt_count = pt if pt is not None else (None,) * 4
+    entries, pt_idx, pt_mask, cap, thickness = (
+        (inc.entries, colls.pt_idx, colls.pt_mask, inc.cap, thickness) if fused is not None
+        else (None, None, None, 0, 0.0))
     kernels.require(x.device, x, msn_h2, pin, diag, mask, wf, topo.tet_block6,
-                    f0, failed, ptd, contact, row_start, pt_count, *batch)
+                    f0, failed, ptd, contact, row_start, pt_count, entries, pt_idx, pt_mask,
+                    *batch)
     x_out = torch.empty_like(x)
     static_out = torch.empty_like(x)
     r2 = torch.empty(lead + (k,), dtype=torch.float32, device=x.device)
@@ -271,7 +288,8 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
         x_out.data_ptr(), static_out.data_ptr(), r2.data_ptr(),
         k, c, int(iterations), float(plane), failed.data_ptr(),
         kernels.ptr(ptd), kernels.ptr(contact), kernels.ptr(row_start),
-        kernels.ptr(pt_count), max(members_of(x), 1), kernels.stream(),
+        kernels.ptr(pt_count), kernels.ptr(entries), kernels.ptr(pt_idx), kernels.ptr(pt_mask),
+        cap, float(thickness), max(members_of(x), 1), kernels.stream(),
     )
     kernels.check(err, "tet_cols_substep")
     substep_cols.launches += 1
@@ -286,6 +304,17 @@ substep_cols.launches = 0
 
 
 _COL0 = [float(ATA_DIFF4[a, 0]) for a in range(4)]
+
+
+@functools.lru_cache(maxsize=64)
+def coupling_grid(device: torch.device, members: int, n: int) -> int:
+    """Blocks per member of T7's cooperative setup grid on ``device`` (its
+    scratch is sized by it; members past what one launch keeps resident go
+    to further launches)."""
+    grid = kernels.lib().pies_pt_coupling_grid(members, n)
+    if grid <= 0:
+        raise RuntimeError("the coupling setup: no block of the cooperative kernel stays resident")
+    return grid
 
 
 def pt_coupling_setup_plain(colls: CollisionSet, mass: torch.Tensor, topo: Topology,
@@ -322,7 +351,9 @@ def pt_coupling_setup(colls: CollisionSet, mass: torch.Tensor, topo: Topology, h
                       static_diag: torch.Tensor | None = None):
     """T7's once-per-substep stages on CUDA tensors (the plain twin on CPU
     tensors).  On the card ``ptd`` is written only at nodes with contact
-    entries, and nothing at all when ``failed`` slot 0 is set."""
+    entries, and nothing at all when ``failed`` slot 0 is set; the
+    incidence also lists the incident nodes (``node_list``,
+    ``node_count``) for :func:`pt_force`."""
     if kernels.on_cpu(mass):
         return pt_coupling_setup_plain(colls, mass, topo, h2, diag, wf, failed, static_diag)
     if failed is None:
@@ -332,23 +363,30 @@ def pt_coupling_setup(colls: CollisionSet, mass: torch.Tensor, topo: Topology, h
     lead = mass.shape[:-1]  # (B,) for an ensemble
     kernels.require(dev, colls.pt_idx, colls.pt_mask, colls.pt_count, mass,
                     topo.stiffness_diag, diag, wf, failed, static_diag)
+    b = lead[0] if lead else 1
+    if b * max(n + 1, 4 * cap) >= 1 << 31:
+        raise ValueError("the coupling kernel takes fewer than 2^31 nodes and entries in all")
+    grid = coupling_grid(dev, b, n)
+    # (scratch: the degrees, all 0 between calls, and the block sums)
+    deg = kernels.scratch("T7 degrees", lead + (n,), torch.int32, dev, zeroed=True)
+    sums = kernels.scratch("T7 sums", lead + (grid,), torch.int64, dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    deg = torch.zeros(lead + (n,), **i32)
     row_start = torch.empty(lead + (n + 1,), **i32)
-    partial = torch.empty(lead + (kernels.scan_partials(n),), **i32)
     entries = torch.empty(lead + (4 * cap,), **i32)
     nodes = torch.empty(lead + (4 * cap,), **i32)
+    node_list = torch.empty(lead + (4 * cap,), **i32)
+    node_count = torch.empty(lead + (1,), **i32)
     ptd = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     err = kernels.lib().pies_pt_coupling_setup(
         colls.pt_idx.data_ptr(), colls.pt_mask.data_ptr(), colls.pt_count.data_ptr(),
         mass.data_ptr(), topo.stiffness_diag.data_ptr(), wf.data_ptr(), diag.data_ptr(),
-        deg.data_ptr(), row_start.data_ptr(), partial.data_ptr(), entries.data_ptr(),
-        nodes.data_ptr(), ptd.data_ptr(), kernels.ptr(static_diag), failed.data_ptr(), n, cap,
-        h2, lead[0] if lead else 1, kernels.stream(),
+        deg.data_ptr(), row_start.data_ptr(), entries.data_ptr(), nodes.data_ptr(),
+        node_list.data_ptr(), node_count.data_ptr(), sums.data_ptr(), ptd.data_ptr(),
+        kernels.ptr(static_diag), failed.data_ptr(), n, cap, h2, b, grid, kernels.stream(),
     )
     kernels.check(err, "pt_coupling_setup")
     pt_coupling_setup.launches += 1
-    return Incidence(row_start, entries, nodes, cap), ptd
+    return Incidence(row_start, entries, nodes, cap, node_list, node_count), ptd
 
 
 pt_coupling_setup.launches = 0
@@ -389,14 +427,18 @@ def pt_force(x: torch.Tensor, colls: CollisionSet, inc: Incidence, thickness: fl
         return pt_force_plain(x, colls, inc, thickness, failed)
     if failed is None:
         raise ValueError("the coupling kernel needs the failure latch")
+    if inc.node_list is None or inc.node_count is None:
+        raise ValueError("the coupling kernel needs the incidence's node list from"
+                         " pt_coupling_setup")
     kernels.require(x.device, x, colls.pt_idx, colls.pt_mask, colls.pt_count,
-                    inc.row_start, inc.entries, inc.nodes, failed)
+                    inc.row_start, inc.entries, inc.node_list, inc.node_count, failed)
     contact = torch.empty_like(x)
     err = kernels.lib().pies_pt_force(
         x.data_ptr(), colls.pt_idx.data_ptr(), colls.pt_mask.data_ptr(),
-        colls.pt_count.data_ptr(), inc.row_start.data_ptr(), inc.entries.data_ptr(), inc.nodes.data_ptr(),
-        contact.data_ptr(), failed.data_ptr(), x.shape[-2], inc.cap, thickness,
-        max(members_of(x), 1), kernels.stream(),
+        colls.pt_count.data_ptr(), inc.row_start.data_ptr(), inc.entries.data_ptr(),
+        inc.node_list.data_ptr(), inc.node_count.data_ptr(), contact.data_ptr(),
+        failed.data_ptr(), x.shape[-2], inc.cap, thickness, max(members_of(x), 1),
+        kernels.stream(),
     )
     kernels.check(err, "pt_force")
     pt_force.launches += 1

@@ -22,9 +22,13 @@ port's one-process references.
 * The domain: ``domain_cases.SCENES``' ``tet_boxes`` (4 slabs over the 2
   ranks: inner and cross-rank halos), ``pile`` (2 over 2: contacts,
   stabilization, friction), ``node_line`` and ``edge_strips`` (2 over 2).
-  Against JAX ``make_domain_tick`` under ``domain_cases``' bounds: one tick
-  and ten, the latch on the same tick.  Against the port's one-device
-  domain tick: one tick within 1e-5, the latch on the same tick.  A rerun
+  Against JAX ``make_domain_tick`` under ``domain_cases``' bounds: one
+  tick and ten, the latch on the same tick, on ``tet_boxes`` and ``pile``;
+  one JAX tick on ``node_line`` and ``edge_strips``, whose ten ticks
+  ``tests/test_torch_domain_edges.py`` holds to the JAX domain through the
+  port's one-device domain, which their ranks equal bit for bit on all ten
+  ticks here.  Against the port's one-device domain tick: one tick within
+  1e-5, the latch on the same tick.  A rerun
   from the same partition is bit-identical on every rank.  T30's outer-band
   modes (refresh and reduce with the exchanged bands; the reduce's sum,
   average, apply and p·Ap partials) equal the one-device stages over all
@@ -60,6 +64,10 @@ RANKS = 2
 MEMBERS = (8, 16)
 ENS_TICKS = 5
 DOMAINS = ("tet_boxes", "pile", "node_line", "edge_strips")
+# The scenes whose ranks equal the one-device domain bit for bit on every
+# tick: one JAX tick each here (test_torch_domain_edges.py holds the
+# one-device domain's ten ticks to the JAX domain)
+ONE_JAX_TICK = ("node_line", "edge_strips")
 WIDE = domain.DomainMeta(n_slabs=4, block=16, halo=12)  # 2B > L
 
 
@@ -122,8 +130,8 @@ def _domain_scene(name):
     return s, jdom, params, cfg, n_live
 
 
-def _jax_domain(s, jdom, params, cfg, n_live, port_dom):
-    """The JAX domain ticks (compiled once, at ``OPT0``) and, where the
+def _jax_domain(s, jdom, params, cfg, n_live, port_dom, ticks=JAX_TICKS):
+    """``ticks`` JAX domain ticks (compiled once, at ``OPT0``) and, where the
     port's one-device domain parts from them by more than 3e-6, the JAX
     package's own single-device ticks (``domain_cases.run_case``)."""
     n_slabs = jdom.meta.n_slabs
@@ -134,17 +142,17 @@ def _jax_domain(s, jdom, params, cfg, n_live, port_dom):
     dtick = jdomain.make_domain_tick(mesh, cfg, jdom.meta).lower(
         dstate, dstatic, params).compile(compiler_options=OPT0)
     traj, failed = [], []
-    for _ in range(JAX_TICKS):
+    for _ in range(ticks):
         dstate, _ = dtick(dstate, dstatic, params)
         traj.append(jdomain.gather_positions(jdom, dstate)[:n_live])
         failed.append(bool(np.any(np.asarray(dstate.sim_failed))))
     traj = np.stack(traj)
     single = None
-    apart = np.abs(port_dom - traj).reshape(JAX_TICKS, -1).max(1)
+    apart = np.abs(port_dom[:ticks] - traj).reshape(ticks, -1).max(1)
     if apart[0] > STEP_TOL or apart[-1] > STEP_TOL:
         stick = jax.jit(jstep.tick, static_argnames=("config",), compiler_options=OPT0)
         st, single = s._state, []
-        for _ in range(JAX_TICKS):
+        for _ in range(ticks):
             st, _ = stick(st, s._topology, params, config=cfg)
             single.append(np.asarray(st.positions)[:n_live])
         single = np.stack(single)
@@ -206,7 +214,8 @@ def world(tmp_path_factory):
     for name, (s, jdom, params, cfg, n_live) in scenes.items():
         pparams, pcfg = conv[name]
         port_dom, port_failed = _port_one_device(jdom, pparams, pcfg, n_live)
-        refs[name] = dict(_jax_domain(s, jdom, params, cfg, n_live, port_dom),
+        ticks = 1 if name in ONE_JAX_TICK else JAX_TICKS
+        refs[name] = dict(_jax_domain(s, jdom, params, cfg, n_live, port_dom, ticks),
                           port_dom=port_dom, port_failed=port_failed)
     # The one-device domain with the same NaN: it latches on the same tick.
     jdom, (pparams, pcfg) = scenes["tet_boxes"][1], conv["tet_boxes"]
@@ -267,13 +276,17 @@ def test_domain_matches_jax(world, name):
     ref = refs[name]
     case = dict(ref, name=name)
     one, ten, spread = bounds(case)
+    ticks = len(ref["jax_dom"])
     for r in results:
         got = r[name]
-        d = np.abs(got["traj"] - ref["jax_dom"]).reshape(JAX_TICKS, -1).max(1)
+        d = np.abs(got["traj"][:ticks] - ref["jax_dom"]).reshape(ticks, -1).max(1)
         assert d[0] <= one, (d[0], one, spread[0])
         assert d[-1] <= ten, (d[-1], ten, spread[-1])
-        assert got["latch"] == ref["jax_failed"]
+        assert got["latch"][:ticks] == ref["jax_failed"]
         assert np.isfinite(got["traj"]).all()
+        if name in ONE_JAX_TICK:  # (the other nine ticks: through the one-device domain)
+            assert np.array_equal(got["traj"], ref["port_dom"])
+            assert got["latch"] == ref["port_failed"]
 
 
 @pytest.mark.parametrize("name", DOMAINS)
