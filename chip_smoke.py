@@ -19,12 +19,14 @@ Phases (any failure exits non-zero, before the result line):
    flags equal (as found, and with a rebuild forced), T6's contacts equal
    (as found, and with the positions jittered so that points cross face
    planes and the cubic runs), T7's incidence and diagonal equal and its
-   force, T2's one-iteration contact mode (also with T7's force fused into
-   its launch, as the main path runs it: bit-equal to T2 given T7's force,
-   and timed as its own row of the kernels line), and T8 within 1 ulp.
-   Then each T5-T8 call's device work kernel by kernel (the profiler's
-   CUDA events): T6 and T7's setup one kernel a call with no memcpy and no
-   memset, T7's force one kernel.
+   force, T2's one-iteration contact mode given T7's force, T2's contact
+   substep as the main path runs it (4 iterations from T1's force in one
+   cooperative launch, the contact tets first, T7's force inside:
+   bit-equal to its twin, timed as its own row of the kernels line) and T8
+   (one cooperative launch: bit-equal).  Then each T5-T8 call's device
+   work kernel by kernel (the profiler's CUDA events): T6, T7's setup, T2's
+   contact substep and T8 one kernel a call with no memcpy and no memset,
+   T7's force one kernel.
 3. The contact-free main path: ``Solver(SolverOptions(solver=PD),
    enable_collisions=False)`` on ``create_tet_soup(125_000, spacing=1.6,
    scale=0.8, w=2000.0, height=0.5, jitter=0.05)``; 30 warm-up ticks (the
@@ -40,10 +42,12 @@ Phases (any failure exits non-zero, before the result line):
    ``torch.cuda.set_sync_debug_mode("error")`` (no call may make the host
    wait for the device; the closing synchronize outside).  Checks as in
    phase 3, plus live contacts in the window, every counter of T1-T8 > 0,
-   and every T2 launch a contact iteration with T7's force inside (no
-   standalone force); prints contacts per tick and cache rebuilds, then a
-   traced copy of the window from tick 45: device busy, kernels, memcpys
-   and memsets per tick.  The plain twins' run is held to 1e-3.
+   and every T2 call a contact substep with T7's force inside (no
+   standalone force, one call a substep); prints contacts per tick and
+   cache rebuilds, then a traced copy of the window from tick 45: device
+   busy, kernels, memcpys and memsets per tick, checking T2's contact
+   substep and T8 at 1 kernel a substep each, no memcpy.  The plain
+   twins' run is held to 1e-3.
 4. Kernels against twins on the card over 40 ticks of a 4,096-tet soup:
    max |dx| <= 1e-3; then with self-contact at spacing 1.0, where the
    contact counts must also be equal on every tick.
@@ -409,9 +413,9 @@ DENSE_SCENE = dict(SCENE, spacing=1.0)
 PBD_SOUP = dict(SCENE, w=1.0)
 FLOOR_WARMUP = 30  # the bench soup's bottom layer reaches the floor at tick ~25
 CONTACT_WARMUP = 45  # its layers start touching at tick ~40
-# The kernels-line row of T2's contact iteration with T7's force inside
-# its launch, the main path's form (phase 2b times it, 3b launches it).
-T2_FUSED = "tet_cols_substep (contact, fused force)"
+# The kernels-line row of T2's contact substep (one cooperative launch, T7's
+# force inside), the main path's form (phase 2b times it, 3b launches it).
+T2_CONTACT = "tet_cols_substep (contact substep)"
 MESH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "refbench")
 MESH_BIG = os.path.join(MESH_DIR, "tet_cube_mesh_100k.txt")
 MESH_SMALL = os.path.join(MESH_DIR, "tet_cube_mesh.txt")
@@ -535,7 +539,8 @@ def kernel_wrappers() -> dict:
     from pies_tpu_torch.solver import assembly, pbd, pd, tetcols
 
     return {"substep_head": [pd.substep_head], "tet_force12": [proj.tet_force12],
-            "tet_cols_substep": [tetcols.substep_cols], "substep_tail": [pd.substep_tail],
+            "tet_cols_substep": [tetcols.substep_cols, tetcols.contact_substep],
+            "substep_tail": [pd.substep_tail],
             "body_broadphase": [broadphase.body_broadphase],
             "pt_narrowphase": [broadphase.pt_narrowphase],
             "pt_coupling": [tetcols.pt_coupling_setup, tetcols.pt_force],
@@ -4291,32 +4296,38 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(ok2[:2], op2[:2]))
     check(err <= 1e-4, f"T2 one iteration with contacts within 1e-4 (max {err:.3e})")
-    # The main path's form: T7's force inside T2's launch, from the iterate
-    # it reads; the same outputs bit for bit as T2 given T7's force.
-    pt_fused = (ptd_k, None, inc_k.row_start, colls.pt_count)
-    fused = (colls, inc_k, thick)
-    of2 = tetcols.substep_cols(*one[:-1], pt_fused, fused=fused)
+    # The main path's form: T2's contact substep, T7's force inside, from
+    # the iterate each iteration starts from; bit-equal to its twin (one
+    # twin call an iteration given T7's plain force).
+    n_it = cfg.iterations
+    sub = (x, msn, dk, st.node_mask, wf, f0, topo, plane, n_it, failed)
+    oc2 = tetcols.contact_substep(*sub, ptd_k, colls, inc_k, thick)
+    pc2 = tetcols.contact_substep_plain(*sub, ptd_p, colls, inc_p, thick)
     torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(of2, ok2)),
-          "T2 with T7's force fused in equals T2 given T7's force, bit for bit")
-    n2 = x.shape[-2]  # (of2 equals ok2, so err is also its error against the twin)
-    row(T2_FUSED, "pies_tpu_torch/kernels/csrc/tet_cols_substep.cu",
-        "pies_tpu/solver/tetcols.py:263", err,
-        cuda_ms(lambda: tetcols.substep_cols(*one[:-1], pt_fused, fused=fused), 20),
-        cuda_ms(lambda: tetcols.substep_cols_plain(*one[:-1], (
-            ptd_p, tetcols.pt_force_plain(x, colls, inc_p, thick, failed), inc_p.row_start,
-            colls.pt_count)), 3),
-        "abs",
-        # (T2's one iteration over every column, with row_start over every
-        # node; the incident nodes' contact diagonal, the contacts and the
-        # incidence entries the force reads)
-        424 * (n2 // 4) + 4 * (n2 + 1) + 4 * n_inc + 20 * n_contacts + 4 * nnz,
-        1600 * (n2 // 4) + 50 * nnz)
+    check(all(torch.equal(a, b) for a, b in zip(oc2, pc2)),
+          f"T2's contact substep ({n_it} iterations) equals its twin, bit for bit")
+    n2 = x.shape[-2]
+    on_t = on.view(-1, 4).any(1)
+    n_ct = int(on_t.sum())
+    print(f"  {n_ct} contact tets of {n2 // 4}; T2's contact launch keeps"
+          f" {tetcols.contact_occupancy()} blocks an SM resident"
+          f" (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    row(T2_CONTACT, "pies_tpu_torch/kernels/csrc/tet_cols_substep.cu",
+        "pies_tpu/solver/tetcols.py:263", 0.0,
+        cuda_ms(lambda: tetcols.contact_substep(*sub, ptd_k, colls, inc_k, thick), 20),
+        cuda_ms(lambda: tetcols.contact_substep_plain(*sub, ptd_p, colls, inc_p, thick), 3),
+        "equal",
+        # (T2's substep over every column, f0 and row_start over every
+        # node read once; the incident nodes' contact diagonal, the
+        # contacts and the incidence entries and node list the force reads)
+        424 * (n2 // 4) + 48 * (n2 // 4) + 4 * (n2 + 1) + 8 * n_inc + 20 * n_contacts
+        + 4 * nnz,
+        n_it * 1600 * (n2 // 4) + n_it * 50 * nnz)
     rows["pt_coupling"]["form"] = (f"setup + {cfg.iterations} standalone forces (the generic"
                                    " path's form; the main path runs the force inside T2,"
-                                   f" row {T2_FUSED})")
+                                   f" row {T2_CONTACT})")
 
-    x_new, static_proj = ok2[0], ok2[1]
+    x_new, static_proj = oc2[0], oc2[1]
     sk, sp = clone_state(st), clone_state(st)
     xk, xp = x_new.clone(), x_new.clone()
     colls_a = CollisionSet(floor_active=active, pt_idx=pk[0], pt_mask=pk[1],
@@ -4324,15 +4335,14 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     frk = pd.pt_tail(sk, params, cfg, colls_a, inc_k, xk, static_proj)
     frp = pd.pt_tail_plain(sp, params, cfg, colls_a, inc_p, xp, static_proj)
     torch.cuda.synchronize()
-    ulps = max(max_ulp(xk, xp), max_ulp(sk.prev_positions, sp.prev_positions),
-               max_ulp(frk[on], frp[on]))
-    err8 = max(float((xk - xp).abs().max()), float((frk[on] - frp[on]).abs().max()))
-    check(ulps <= 1.0, f"T8 pt_tail positions, prev and friction within 1 ulp (max {ulps} ulp)")
+    check(torch.equal(xk, xp) and torch.equal(sk.prev_positions, sp.prev_positions)
+          and torch.equal(frk[on], frp[on]),
+          "T8 pt_tail positions, prev and friction equal to the twin's, bit for bit")
     passes = cfg.collision_stabilization_iterations
     row("pt_tail", "pies_tpu_torch/kernels/csrc/pt_tail.cu", "pies_tpu/collision/batches.py:501",
-        err8, cuda_ms(lambda: pd.pt_tail(sk, params, cfg, colls_a, inc_k, xk, static_proj), 20),
+        0.0, cuda_ms(lambda: pd.pt_tail(sk, params, cfg, colls_a, inc_k, xk, static_proj), 20),
         cuda_ms(lambda: pd.pt_tail_plain(sp, params, cfg, colls_a, inc_p, xp, static_proj), 3),
-        f"{ulps} ulp", passes * (20 * n_contacts + 64 * n_inc) + 20 * n_contacts + 56 * n_inc,
+        "equal", passes * (20 * n_contacts + 64 * n_inc) + 20 * n_contacts + 56 * n_inc,
         passes * 60 * n_contacts + 90 * n_contacts)
 
     # The device work of each wrapper call of T5-T8 on this state, kernel by
@@ -4349,9 +4359,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         "T7 force": lambda: tetcols.pt_force(x, colls, inc_k, thick, failed),
         "T2 one contact iteration": lambda: tetcols.substep_cols(
             x, msn, dk, st.node_mask, wf, None, topo, plane, 1, failed, pt_args),
-        "T2 one contact iteration, T7's force fused in": lambda: tetcols.substep_cols(
-            x, msn, dk, st.node_mask, wf, None, topo, plane, 1, failed, pt_fused,
-            fused=fused),
+        "T2 contact substep": lambda: tetcols.contact_substep(*sub, ptd_k, colls, inc_k, thick),
         "T8": lambda: pd.pt_tail(sk, params, cfg, colls_a, inc_k, xk, static_proj),
     }
     print(f"  device work per call on this state ({smi}):")
@@ -4368,9 +4376,15 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
     check(kinds["T7 setup"][0] <= 3 and kinds["T7 setup"][2] == 0,
           f"T7 setup: {kinds['T7 setup'][0]:g} kernels, no memset a call")
     check(kinds["T7 force"][:3] == (1, 0, 0), "T7 force: one kernel a call")
+    check(kinds["T2 contact substep"][:3] == (1, 0, 0),
+          "T2's contact substep: one kernel a call, no memcpy, no memset")
+    check(kinds["T8"][:3] == (1, 0, 0), "T8: one kernel a call, no memcpy, no memset")
     rows["pt_narrowphase"]["device_us"] = kinds["T6"][3]
     rows["pt_coupling"]["device_us"] = kinds["T7 setup"][3] + cfg.iterations * kinds["T7 force"][3]
-    rows[T2_FUSED]["device_us"] = kinds["T2 one contact iteration, T7's force fused in"][3]
+    rows[T2_CONTACT]["device_us"] = kinds["T2 contact substep"][3]
+    rows[T2_CONTACT]["kernels_per_call"] = kinds["T2 contact substep"][0]
+    rows["pt_tail"]["device_us"] = kinds["T8"][3]
+    rows["pt_tail"]["kernels_per_call"] = kinds["T8"][0]
     del s, st, sk, sp, cache, timing_cache, colls, colls_a, inc_k, inc_p, found
 
     stamp("2b")
@@ -4466,11 +4480,12 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         if collisions:
             check(True, "the window's 10 ticks enqueued under"
                         " torch.cuda.set_sync_debug_mode('error')")
-            setups, t2 = tetcols.pt_coupling_setup.launches, launches[phase]["tet_cols_substep"]
-            check(tetcols.pt_force.launches == 0 and t2 == s.config.iterations * setups,
-                  f"every T2 launch a contact iteration with T7's force inside ({t2} T2"
-                  f" launches, {setups} T7 setups, {tetcols.pt_force.launches} standalone"
-                  " forces)")
+            setups, t2 = tetcols.pt_coupling_setup.launches, tetcols.contact_substep.launches
+            check(tetcols.pt_force.launches == 0 and tetcols.substep_cols.launches == 0
+                  and t2 == setups,
+                  f"every T2 call a contact substep with T7's force inside, one a substep"
+                  f" ({t2} contact substeps, {setups} T7 setups, {tetcols.pt_force.launches}"
+                  " standalone forces)")
             # The device work of the same window, traced from the state at
             # tick 45 on a copy: kernels, memcpys and memsets per tick.
             after, s._state = s._state, clone_state(domain_keep["20b"][0])
@@ -4490,6 +4505,15 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                   f" kernels, {mc_:g} memcpys, {ms_:g} memsets per tick ({smi})")
             for key, (count, us) in sorted(events.items(), key=lambda kv: -kv[1][1]):
                 print(f"    {us:9.2f} us/tick x{count:<5g} {key[:90]}")
+            subs = setups / 10  # (substeps a tick: one T7 setup each)
+
+            def per_tick(name):
+                return sum(c for key, (c, _) in events.items() if name in key)
+
+            t2k, t8k = per_tick("tet_cols_"), per_tick("pt_tail_kernel")
+            check(mc_ == 0 and subs > 0 and t2k == subs and t8k == subs,
+                  f"a tick: T2's contact substep {t2k:g} kernels, T8 {t8k:g}, {mc_:g} memcpys"
+                  f" ({subs:g} substeps)")
         live = 4 * n_tets
         pos = s.state.positions[:live]
         check(not s.sim_failed, "no sim_failed")
@@ -6039,8 +6063,8 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
             pass  # (phase 21 set them from rank 0's window on phase 20a's mesh)
         elif name in mixed_rows:
             r["launches"] = launches["7"][mixed_rows[name]]
-        elif name == T2_FUSED:
-            # Every T2 launch of 3b is a contact iteration with T7's force
+        elif name == T2_CONTACT:
+            # Every T2 call of 3b is a contact substep with T7's force
             # inside (3b checks it); the ensemble's (13) beside it.
             r["launches"] = launches["3b"]["tet_cols_substep"]
             r["launches_by_path"] = {p: launches[p]["tet_cols_substep"] for p in ("3b", "13")}

@@ -11,7 +11,9 @@ Each C entry point launches one kernel on the stream it is given and returns
 wrappers that call them sit beside their plain PyTorch twins:
 
 * T1 ``pies_tet_force12`` — ``constraints/projections.py:tet_force12``
-* T2 ``pies_tet_cols_substep`` — ``solver/tetcols.py:substep_cols``
+* T2 ``pies_tet_cols_substep``, ``pies_tet_cols_contact`` —
+  ``solver/tetcols.py:substep_cols``, ``contact_substep`` (the contact
+  substep one cooperative launch, ``csrc/coop.cuh``)
 * T3 ``pies_substep_head`` — ``solver/pd.py:substep_head``
 * T4 ``pies_substep_tail`` — ``solver/pd.py:substep_tail``
 * T5 ``pies_body_broadphase`` — ``collision/broadphase.py:body_broadphase``
@@ -21,7 +23,8 @@ wrappers that call them sit beside their plain PyTorch twins:
 * T7 ``pies_pt_coupling_setup``, ``pies_pt_force`` —
   ``solver/tetcols.py:pt_coupling_setup``, ``pt_force`` (the setup a
   cooperative launch, its grid from ``pies_pt_coupling_grid``)
-* T8 ``pies_pt_tail`` — ``solver/pd.py:pt_tail``
+* T8 ``pies_pt_tail`` — ``solver/pd.py:pt_tail`` (one cooperative launch
+  a call)
 * T9 ``pies_tet_force12_gather``, ``pies_assemble_force`` —
   ``constraints/projections.py:tet_force12_gathered``,
   ``solver/assembly.py:assemble_force``
@@ -124,7 +127,9 @@ _F = ctypes.c_float
 # argtypes of every entry point: c_void_p for each pointer and the stream.
 SIGNATURES = {
     "pies_tet_force12": [_P] * 10 + [_I, _I, _P, _I, _P],
-    "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F] + [_P] * 8 + [_I, _F, _I, _P],
+    "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F] + [_P] * 5 + [_I, _P],
+    "pies_tet_cols_contact": [_P] * 21 + [_I, _I, _I, _F] + [_P] * 9 + [_I, _F, _I, _P],
+    "pies_tet_cols_contact_occupancy": [],
     "pies_substep_head": [_P] * 11 + [_I, _F, _F, _F, _P, _I, _I, _P],
     "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F] + [_P] * 7 + [_I, _P],
     "pies_body_broadphase": [_P] * 16 + [_I] * 10 + [_F] * 6 + [_I, _I, _P],
@@ -135,7 +140,7 @@ SIGNATURES = {
     "pies_super_broadphase": [_P] * 17 + [_I] * 11 + [_F] * 6 + [_I, _P],
     "pies_super_narrowphase": [_P] * 16 + [_I] * 11 + [_F, _I, _I, _P],
     "pies_pt_force": [_P] * 10 + [_I, _I, _F, _I, _P],
-    "pies_pt_tail": [_P] * 24 + [_I] * 6 + [_F] * 6 + [_I, _P],
+    "pies_pt_tail": [_P] * 25 + [_I] * 6 + [_F] * 6 + [_I, _P],
     "pies_tet_force12_gather": [_P] * 11 + [_I, _I, _P] + [_I] * 3 + [_P],
     "pies_assemble_force": [_P] * 9 + [_I, _F] + [_P] * 8 + [_I, _F] + [_P] * 3 + [_I]
     + [_P] * 7 + [_I, _F, _I] + [_P] * 8 + [_I] * 4 + [_P],

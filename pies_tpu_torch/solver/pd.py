@@ -12,8 +12,10 @@ PyTorch twin.  On the tet-column path (disjoint tet soups):
 * T1 ``tet_force12`` — the first PD iteration's tet force;
 * T2 ``tetcols.substep_cols`` — the PD iterations with the direct 4x4 block
   solve, the stale static projection and the residual; with self-contact
-  on, one T2 launch per iteration, each computing T7's contact force
-  (``tetcols.pt_force``'s) at its iterate inside the launch;
+  on ``tetcols.contact_substep``: every iteration of the tets without
+  contact entries in one launch, then a cooperative launch over the
+  others, computing T7's contact force (``tetcols.pt_force``'s) at each
+  iteration's iterate;
 * with self-contact on: T8 :func:`pt_tail` — the stabilization passes with
   the floor snap between them and the contact friction;
 * T4 :func:`substep_tail` — floor snap, velocity, floor friction, the state
@@ -473,8 +475,11 @@ def pt_tail(state: SolverState, params: PhysicsParams, config: StepConfig,
     if acc and colls.pt_idx is not None:
         edges = None  # (one kind a launch: the point-triangle contacts first)
     pt = colls.pt_idx is not None
+    if pt and (inc.node_list is None or inc.node_count is None):
+        raise ValueError("the tail kernel needs the incidence's node list from"
+                         " pt_coupling_setup")
     pt_t = ((colls.pt_idx, colls.pt_mask, colls.pt_count, inc.row_start, inc.entries,
-             inc.nodes) if pt else (None,) * 6)
+             inc.node_list, inc.node_count) if pt else (None,) * 7)
     e_on = edges is not None and bool(stages & STABILIZE)
     e_t = ((edges.edge_idx, edges.edge_mask, edges.count, edges.inc.row_start,
             edges.inc.entries) if e_on else (None,) * 5)
@@ -669,13 +674,15 @@ substep_tail.launches = 0
 
 
 _KERNELS = dict(head=substep_head, floor=floor_entries, force=tet_force12,
-                cols=tetcols.substep_cols, setup=tetcols.pt_coupling_setup,
+                cols=tetcols.substep_cols, contact=tetcols.contact_substep,
+                setup=tetcols.pt_coupling_setup,
                 pt_force=tetcols.pt_force, pt_tail=pt_tail, tail=substep_tail,
                 block=assembly.tet_block_factor, assemble=assembly.assemble_force,
                 pcg=assembly.pcg_solve, edge_setup=assembly.edge_setup,
                 node_setup=assembly.node_setup, node_friction=node_friction)
 _PLAIN = dict(head=substep_head_plain, floor=floor_entries_plain, force=tet_force12_plain,
-              cols=tetcols.substep_cols_plain, setup=tetcols.pt_coupling_setup_plain,
+              cols=tetcols.substep_cols_plain, contact=tetcols.contact_substep_plain,
+              setup=tetcols.pt_coupling_setup_plain,
               pt_force=tetcols.pt_force_plain, pt_tail=pt_tail_plain, tail=substep_tail_plain,
               block=assembly.tet_block_factor_plain, assemble=assembly.assemble_force_plain,
               pcg=assembly.pcg_solve_plain, edge_setup=assembly.edge_setup_plain,
@@ -825,7 +832,7 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     head = k["head"](state, topo, params, config, fold)
     x, msn_h2, diag, wf, active = head
     failed = state.sim_failed
-    colls = inc = fric = pt = floor = None
+    colls = inc = fric = floor = None
     if not config.dense_floor and topo.corner_inc is not None:  # (no triangle: no entry)
         wf, floor = k["floor"](x, topo, params, config, diag, failed)
         active = floor.floor_active
@@ -850,20 +857,10 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
     if colls is None or config.iterations == 0:
         x_new, static_proj, r2 = k["cols"](x, *args, f0, topo, plane, config.iterations,
                                            failed)
-    else:
-        x_new = x
-        thick = params.collision_thickness
-        for it in range(config.iterations):
-            first = f0 if it == 0 else None
-            if plain:
-                contact = k["pt_force"](x_new, colls, inc, thick, failed)
-                pt = (ptd, contact, inc.row_start, colls.pt_count)
-                x_new, static_proj, r2 = k["cols"](x_new, *args, first, topo, plane, 1, failed,
-                                                   pt)
-            else:  # (T7's force inside T2's launch)
-                pt = (ptd, None, inc.row_start, colls.pt_count)
-                x_new, static_proj, r2 = k["cols"](x_new, *args, first, topo, plane, 1, failed,
-                                                   pt, fused=(colls, inc, thick))
+    else:  # (T7's force at each iteration's iterate, inside T2)
+        x_new, static_proj, r2 = k["contact"](x, *args, f0, topo, plane, config.iterations,
+                                              failed, ptd, colls, inc,
+                                              params.collision_thickness)
     if colls is not None:
         fric = k["pt_tail"](state, params, config, colls, inc, x_new, static_proj)
     k["tail"](state, topo, params, active, x_new, snap_target(config, x_new, static_proj), colls,

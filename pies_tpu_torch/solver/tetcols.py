@@ -11,14 +11,14 @@ dodge TPU tile padding and are not ported.
 :func:`substep_cols` is the wrapper of kernel T2 (``kernels/csrc/
 tet_cols_substep.cu``); :func:`substep_cols_plain` is its plain twin.
 
-With point-triangle contacts the loop runs one iteration per call: kernel
-T7 (``kernels/csrc/pt_coupling.cu``) first builds the node incidence and
-folds the contacts' diagonal into ``diag`` once per substep
+With point-triangle contacts each iteration needs their force at its
+iterate: kernel T7 (``kernels/csrc/pt_coupling.cu``) first builds the node
+incidence and folds the contacts' diagonal into ``diag`` once per substep
 (:func:`pt_coupling_setup`); each T2 iteration then adds ``ptd·x +
 contact`` after the floor term, ``contact`` being each contact's push-out
 from the current iterate summed per node (:func:`pt_force`; on the main
-path computed inside T2's launch, ``substep_cols(..., fused=...)``)
-(``pies_tpu/solver/tetcols.py:194-260,306-349``).
+path computed inside T2, whose :func:`contact_substep` runs all the
+iterations in one launch) (``pies_tpu/solver/tetcols.py:194-260,306-349``).
 
 Each wrapper also takes an ensemble's arrays (a leading member axis, see
 ``state.py``) and launches its kernel once over all members; its plain
@@ -238,30 +238,13 @@ def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
     return _cols_to_node3(x_it), _cols_to_node3(static_c), r2
 
 
-def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
-                 plane: float, iterations: int, failed=None, pt=None, fused=None):
-    """Kernel T2 on CUDA tensors, :func:`substep_cols_plain` on CPU tensors
-    (same arguments and results).  On the card ``failed`` is required: the
-    kernel returns at once, writing ``r2 = 0``, when its slot 0 is set.
-    ``fused`` = ``(colls, inc, thickness)`` (with ``pt``'s contact force
-    None): T7's force (:func:`pt_force`) of the contacts ``colls`` over
-    ``inc`` at the iterate ``x``, computed inside T2's launch on the card
-    and by :func:`pt_force_plain` on CPU tensors."""
-    if fused is not None:
-        if pt is None or pt[1] is not None:
-            raise ValueError("the fused contact force takes pt's force slot as None")
-        colls, inc, thickness = fused
-    if kernels.on_cpu(x):
-        if fused is not None:
-            pt = (pt[0], pt_force_plain(x, colls, inc, thickness, failed)) + tuple(pt[2:])
-        return substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo, plane,
-                                  iterations, failed, pt)
+def _t2_inputs(x, f0, topo: Topology):
+    """The checks and arrays shared by T2's two entry points: ``(k, c,
+    pin, batch)``."""
     n = x.shape[-2]
     k = n // 4
     if n % 4 or topo.tet_block6 is None or topo.tet_block6.shape[1] != k:
         raise ValueError("the tet-column kernel needs the disjoint-tet block layout")
-    if failed is None:
-        raise ValueError("the tet-column kernel needs the failure latch")
     s, v = topo.strain, topo.volume
     c = s.qinv.shape[1]
     pin = topo.position_force_dense if topo.position.idx.shape[0] else None
@@ -270,17 +253,27 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
     lead = x.shape[:-2]  # (B,) for an ensemble
     if f0 is not None and tuple(f0.shape) != lead + (12, c):
         raise ValueError(f"f0 must be {list(lead + (12, c))}, got {list(f0.shape)}")
-    batch = (s.qinv, s.g, s.lo, s.hi, s.w, v.lo, v.hi, v.w)
+    return k, c, pin, (s.qinv, s.g, s.lo, s.hi, s.w, v.lo, v.hi, v.w)
+
+
+def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
+                 plane: float, iterations: int, failed=None, pt=None):
+    """Kernel T2 on CUDA tensors, :func:`substep_cols_plain` on CPU tensors
+    (same arguments and results).  On the card ``failed`` is required: the
+    kernel returns at once, writing ``r2 = 0``, when its slot 0 is set.
+    The main path's contact substep is :func:`contact_substep`."""
+    if kernels.on_cpu(x):
+        return substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo, plane,
+                                  iterations, failed, pt)
+    if failed is None:
+        raise ValueError("the tet-column kernel needs the failure latch")
+    k, c, pin, batch = _t2_inputs(x, f0, topo)
     ptd, contact, row_start, pt_count = pt if pt is not None else (None,) * 4
-    entries, pt_idx, pt_mask, cap, thickness = (
-        (inc.entries, colls.pt_idx, colls.pt_mask, inc.cap, thickness) if fused is not None
-        else (None, None, None, 0, 0.0))
     kernels.require(x.device, x, msn_h2, pin, diag, mask, wf, topo.tet_block6,
-                    f0, failed, ptd, contact, row_start, pt_count, entries, pt_idx, pt_mask,
-                    *batch)
+                    f0, failed, ptd, contact, row_start, pt_count, *batch)
     x_out = torch.empty_like(x)
     static_out = torch.empty_like(x)
-    r2 = torch.empty(lead + (k,), dtype=torch.float32, device=x.device)
+    r2 = torch.empty(x.shape[:-2] + (k,), dtype=torch.float32, device=x.device)
     err = kernels.lib().pies_tet_cols_substep(
         x.data_ptr(), msn_h2.data_ptr(), kernels.ptr(pin), diag.data_ptr(),
         mask.data_ptr(), wf.data_ptr(), topo.tet_block6.data_ptr(),
@@ -288,8 +281,7 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
         x_out.data_ptr(), static_out.data_ptr(), r2.data_ptr(),
         k, c, int(iterations), float(plane), failed.data_ptr(),
         kernels.ptr(ptd), kernels.ptr(contact), kernels.ptr(row_start),
-        kernels.ptr(pt_count), kernels.ptr(entries), kernels.ptr(pt_idx), kernels.ptr(pt_mask),
-        cap, float(thickness), max(members_of(x), 1), kernels.stream(),
+        kernels.ptr(pt_count), max(members_of(x), 1), kernels.stream(),
     )
     kernels.check(err, "tet_cols_substep")
     substep_cols.launches += 1
@@ -297,6 +289,89 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
 
 
 substep_cols.launches = 0
+
+
+def contact_substep_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology, plane: float,
+                          iterations: int, failed, ptd, colls: CollisionSet, inc: Incidence,
+                          thickness: float):
+    """Plain twin of T2's contact substep: ``iterations`` PD iterations
+    with point-triangle contacts, one :func:`substep_cols_plain` call an
+    iteration, each given T7's force (:func:`pt_force_plain`) at the
+    iterate it starts from and ``f0`` only in the first: the loop
+    ``pd_substep`` runs with ``plain=True``.  Returns ``(x_new,
+    static_proj, r2)`` of the last iteration (the static projection of the
+    iterate it started from)."""
+    x_it = x
+    out = None
+    for it in range(iterations):
+        contact = pt_force_plain(x_it, colls, inc, thickness, failed)
+        out = substep_cols_plain(x_it, msn_h2, diag, mask, wf, f0 if it == 0 else None, topo,
+                                 plane, 1, failed, (ptd, contact, inc.row_start, colls.pt_count))
+        x_it = out[0]
+    if out is None:
+        return substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo, plane, 0, failed)
+    return out
+
+
+def contact_substep(x, msn_h2, diag, mask, wf, f0, topo: Topology, plane: float,
+                    iterations: int, failed, ptd, colls: CollisionSet, inc: Incidence,
+                    thickness: float):
+    """T2's contact substep (the main path with self-contact) on CUDA
+    tensors, :func:`contact_substep_plain` on CPU tensors (same arguments
+    and results): ``iterations`` iterations, each with T7's force of the
+    contacts ``colls`` over ``inc`` (from :func:`pt_coupling_setup`, with
+    its node list) at the iterate it starts from, in one cooperative
+    launch: the tets with a node with contact entries iteration by
+    iteration, each waiting only for the tets it shares a contact with,
+    then every iteration of the others in registers
+    (``kernels/csrc/tet_cols_substep.cu``)."""
+    if kernels.on_cpu(x):
+        return contact_substep_plain(x, msn_h2, diag, mask, wf, f0, topo, plane, iterations,
+                                     failed, ptd, colls, inc, thickness)
+    if failed is None:
+        raise ValueError("the tet-column kernel needs the failure latch")
+    if inc.node_list is None or inc.node_count is None:
+        raise ValueError("the contact substep needs the incidence's node list from"
+                         " pt_coupling_setup")
+    if iterations <= 0:  # (no iteration: nothing reads the contacts)
+        return substep_cols(x, msn_h2, diag, mask, wf, f0, topo, plane, 0, failed)
+    k, c, pin, batch = _t2_inputs(x, f0, topo)
+    kernels.require(x.device, x, msn_h2, pin, diag, mask, wf, topo.tet_block6, f0, failed,
+                    ptd, inc.row_start, colls.pt_count, inc.entries, colls.pt_idx,
+                    colls.pt_mask, inc.node_list, inc.node_count, *batch)
+    members = kernels.launch_members(x, failed, ptd, colls.pt_count, colls.pt_idx,
+                                     inc.node_list, inc.node_count)
+    x_out = torch.empty_like(x)
+    static_out = torch.empty_like(x)
+    lead = x.shape[:-2]
+    r2 = torch.empty(lead + (k,), dtype=torch.float32, device=x.device)
+    # (scratch: the other iterate buffer; a member's work counters, epoch and
+    # a progress flag a tet, which the kernel keeps ready for the next call)
+    buf = kernels.scratch("T2 iterate", tuple(x.shape), torch.float32, x.device)
+    sync = kernels.scratch("T2 sync", lead + (4 + k,), torch.int32, x.device, zeroed=True)
+    err = kernels.lib().pies_tet_cols_contact(
+        x.data_ptr(), msn_h2.data_ptr(), kernels.ptr(pin), diag.data_ptr(),
+        mask.data_ptr(), wf.data_ptr(), topo.tet_block6.data_ptr(),
+        kernels.ptr(f0), *(t.data_ptr() for t in batch),
+        x_out.data_ptr(), static_out.data_ptr(), r2.data_ptr(), buf.data_ptr(),
+        sync.data_ptr(), k, c, int(iterations), float(plane),
+        failed.data_ptr(), ptd.data_ptr(), inc.row_start.data_ptr(),
+        colls.pt_count.data_ptr(), inc.entries.data_ptr(), colls.pt_idx.data_ptr(),
+        colls.pt_mask.data_ptr(), inc.node_list.data_ptr(), inc.node_count.data_ptr(),
+        inc.cap, float(thickness), members, kernels.stream(),
+    )
+    kernels.check(err, "tet_cols_contact")
+    contact_substep.launches += 1
+    return x_out, static_out, r2
+
+
+contact_substep.launches = 0
+
+
+def contact_occupancy() -> int:
+    """Blocks of T2's cooperative contact launch that one SM of the current
+    card keeps resident (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    return kernels.lib().pies_tet_cols_contact_occupancy()
 
 
 # ---------------------------------------------------------------------------

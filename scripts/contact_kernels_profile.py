@@ -13,7 +13,10 @@ phases 2b and 3b start from.  Then:
   wrapper call of T5 (as found, and with a rebuild forced), T6, T7's setup,
   T7's force, T7's setup and 4 forces (``chip_smoke.py``'s ``pt_coupling``
   row), T2's one contact iteration (and, where the tree has it, with T7's
-  force fused into T2's launch) and T8: CUDA-event ms per call,
+  force fused into T2's launch), T2's contact-free substep (all
+  iterations in one launch), T2's whole contact substep as ``pd_substep``
+  runs it (``tetcols.contact_substep`` where the tree has it, else one
+  fused call an iteration) and T8: CUDA-event ms per call,
   host µs per call (the enqueue, no synchronize), and from
   ``torch.profiler`` the device µs, the count of each kernel per call by
   name, and the memcpys and memsets per call;
@@ -141,10 +144,14 @@ def main(n_tets=125_000, label="run", dev=None, json_path=None):
     sk, xk = clone_state(st), x_new.clone()
     torch.cuda.synchronize()
     n_contacts, nnz = int(pk[2][0]), int(inc.row_start[-1])
-    print(f"phase 2b's state: {n_contacts} contacts, {nnz} incidence entries,"
+    on = inc.row_start[1:] > inc.row_start[:-1]
+    n_inc, contact_tets = int(on.sum()), int(on.view(-1, 4).any(1).sum())
+    print(f"phase 2b's state: {n_contacts} contacts, {nnz} incidence entries over {n_inc}"
+          f" nodes, {contact_tets} contact tets of {st.capacity // 4},"
           f" {int(found.valid.sum())} valid lanes of {lay.lanes}")
-    report["state"] = dict(contacts=n_contacts, entries=nnz, valid_lanes=int(found.valid.sum()),
-                           lanes=lay.lanes)
+    report["state"] = dict(contacts=n_contacts, entries=nnz, incident_nodes=n_inc,
+                           contact_tets=contact_tets, tets=st.capacity // 4,
+                           valid_lanes=int(found.valid.sum()), lanes=lay.lanes)
 
     def couple():
         d = diag.clone()
@@ -168,10 +175,31 @@ def main(n_tets=125_000, label="run", dev=None, json_path=None):
             x, msn, dk, st.node_mask, wf, None, topo, plane, 1, failed, pt_args),
         "T8": lambda: pd.pt_tail(sk, params, cfg, colls, inc, xk, static_proj),
     }
-    if "fused" in inspect.signature(tetcols.substep_cols).parameters:  # (the main path's T2)
+    if hasattr(tetcols, "contact_substep"):  # (the main path's T2, one iteration)
+        calls["T2 one contact iteration, T7's force fused in"] = lambda: tetcols.contact_substep(
+            x, msn, dk, st.node_mask, wf, None, topo, plane, 1, failed, ptd, colls, inc, thick)
+    elif "fused" in inspect.signature(tetcols.substep_cols).parameters:
         calls["T2 one contact iteration, T7's force fused in"] = lambda: tetcols.substep_cols(
             x, msn, dk, st.node_mask, wf, None, topo, plane, 1, failed,
             (ptd, None, inc.row_start, colls.pt_count), fused=(colls, inc, thick))
+
+    def contact_substep():  # (T2's contact substep as pd_substep runs it)
+        if hasattr(tetcols, "contact_substep"):
+            return tetcols.contact_substep(x, msn, dk, st.node_mask, wf, f0, topo, plane,
+                                           cfg.iterations, failed, ptd, colls, inc, thick)
+        x_it = x
+        for it in range(cfg.iterations):
+            x_it, _, _ = tetcols.substep_cols(
+                x_it, msn, dk, st.node_mask, wf, f0 if it == 0 else None, topo, plane, 1,
+                failed, (ptd, None, inc.row_start, colls.pt_count), fused=(colls, inc, thick))
+
+    calls[f"T2 contact-free substep, {cfg.iterations} iterations"] = lambda: tetcols.substep_cols(
+        x, msn, diag, st.node_mask, wf, f0, topo, plane, cfg.iterations, failed)
+    calls[f"T2 contact substep, {cfg.iterations} iterations"] = contact_substep
+    if hasattr(tetcols, "contact_occupancy"):
+        report["t2_contact_blocks_per_sm"] = tetcols.contact_occupancy()
+        print(f"T2's contact launch: {report['t2_contact_blocks_per_sm']} blocks an SM resident"
+              " (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     report["calls"] = {}
     for name, fn in calls.items():
         fn()

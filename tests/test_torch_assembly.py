@@ -40,6 +40,8 @@ from pies_tpu_torch.constraints import projections as tproj
 from pies_tpu_torch.scene.mesh_dump import add_tet_mesh, load_mesh_txt
 from pies_tpu_torch.solver import assembly as tasm
 
+from torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESH = os.path.join(REPO, "scripts", "refbench", "tet_cube_mesh.txt")
 PINS = [0, 10, 110, 120]  # the corners of the mesh's x = 0 face

@@ -64,6 +64,8 @@ from pies_tpu_torch.solver import pd as tpd
 from pies_tpu_torch.solver import step as tstep
 from pies_tpu_torch.topology import row_layout
 
+from torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
+
 CLOTH_N = 32
 
 

@@ -1,5 +1,6 @@
-"""The main path's point-triangle kernels T6 (narrowphase) and T7 (coupling)
-against their plain twins, bit for bit, in every branch of their design.
+"""The main path's point-triangle kernels T6 (narrowphase), T7 (coupling),
+T2's contact substep and T8 (the tail) against their plain twins, bit for
+bit, in every branch of their design.
 
 This file imports nothing of JAX or of the JAX package.  On a GPU machine:
 
@@ -18,8 +19,19 @@ several sweeps and scan passes a block), no live lane, live lanes without
 a contact, and caps the contacts overflow (the first ``cap`` contacts, and
 the latch when the proximity lanes alone overflow the pair buffer).  Every output is held equal to the twin's: contacts, mask, count
 and latch; row_start, the entries and nodes, the diagonals and the force.
-The CPU tests cover the face table the wrappers keep on the device and the
-scratch they keep across calls.
+T2's contact substep is one cooperative launch: the contact tets first,
+walking T7's node list iteration by iteration (each waiting for the tets
+it shares a contact with), then the free tets' iterations in registers;
+T8 runs all its stages in one cooperative launch.
+Their cases: the soup's contacts as found and jittered with 1 and 4
+iterations, with and without T1's first force, with pins, no live
+contact, every tet a contact tet (several tets a thread), B = 3 with a
+member latched, more members than one launch keeps resident; T8 with 0, 1
+and 4 passes, each stage alone and both, the accumulate-only mode, and
+the generic path's edge contacts with the node-node impulse.  The CPU
+tests cover the face table the wrappers keep on the device, the scratch
+they keep across calls, and T2's contact substep as the per-iteration
+loop it replaces.
 """
 
 import dataclasses
@@ -32,6 +44,7 @@ import pies_tpu_torch as pt
 from pies_tpu_torch import kernels
 from pies_tpu_torch.collision import broadphase
 from pies_tpu_torch.collision.batches import CollisionSet, incident
+from pies_tpu_torch.constraints.projections import tet_force12
 from pies_tpu_torch.parallel import ensemble
 from pies_tpu_torch.solver import pd, tetcols
 from pies_tpu_torch.state import clone_state, member, stack_members
@@ -79,15 +92,50 @@ def test_scratch_is_kept_per_key_and_stream(monkeypatch):
     assert kernels.scratch("test scratch", (3, 5), torch.int32, cpu) is not a
 
 
-def _contact_state(device, n=512, ticks=25):
-    """A self-contact soup after ``ticks`` ticks of the kernels, with the
-    predicted positions of its next substep."""
+def _contact_state(device, n=512, ticks=25, pins=None):
+    """A self-contact soup (``pins``: node ids held by position
+    constraints) after ``ticks`` ticks of the kernels, with the predicted
+    positions of its next substep."""
     s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device=device)
     s.create_tet_soup(n, **SCENE)
+    if pins:
+        s._builder.pos_idx.append(np.asarray(pins, np.int32))
+        s._builder.pos_w.append(np.full(len(pins), 8000.0, np.float32))
     s.run_ticks(ticks)
     st, topo, cfg, params = s.state, s.topology, s.config, s.current_params()
     head = pd.substep_head_plain(clone_state(st), topo, params, cfg, True)
     return s, head
+
+
+def test_contact_substep_on_the_cpu_is_the_per_iteration_loop():
+    """On CPU tensors T2's contact substep takes its twin: the loop that
+    ``pd_substep`` runs with ``plain=True``, one ``substep_cols_plain`` call
+    an iteration given T7's plain force at the iterate it starts from and
+    T1's force in the first only; the result is that loop's, bit for bit,
+    and differs from the contact-free iterations."""
+    s, head = _contact_state("cpu", 96, 2)
+    st, topo, params = s.state, s.topology, s.current_params()
+    x, msn, diag, wf, active = head
+    colls = pd.detect_point_tri(clone_state(st), x, topo, params, s.config, active, True)
+    assert int(colls.pt_count[0]) > 0
+    _, h2 = pd._h_h2(params)
+    inc, ptd = tetcols.pt_coupling_setup(colls, st.mass, topo, h2, diag, wf, st.sim_failed)
+    thick = params.collision_thickness
+    f0 = tet_force12(x, topo.strain, topo.volume, st.sim_failed)
+    args = (msn, diag, st.node_mask, wf)
+    got = tetcols.contact_substep(x, *args, f0, topo, 0.0, 4, st.sim_failed, ptd, colls, inc,
+                                  thick)
+    x_it = x
+    for it in range(4):
+        contact = tetcols.pt_force_plain(x_it, colls, inc, thick, st.sim_failed)
+        want = tetcols.substep_cols_plain(x_it, *args, f0 if it == 0 else None, topo, 0.0, 1,
+                                          st.sim_failed,
+                                          (ptd, contact, inc.row_start, colls.pt_count))
+        x_it = want[0]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    free = tetcols.substep_cols_plain(x, *args, f0, topo, 0.0, 4, st.sim_failed)
+    assert not torch.equal(got[0], free[0])
 
 
 def _jitter(x, mask, seed, scale=0.05):
@@ -327,19 +375,16 @@ def test_more_members_than_one_launch_keeps_resident_equal_twins(cuda):
         _assert_t7_equal([tuple(member(v, b) for v in side) for side in out], counts[b])
 
 
-def _t2_fused(x, head, topo, mask, colls, setups, thick, failed):
-    """One T2 contact iteration with T7's force inside the launch (on the
-    kernel's setup), and the plain twin given T7's plain force (on the
-    twin's setup): ``(kernel's, twin's)`` outputs.  ``setups`` is
-    ``[(inc, ptd)]`` of the kernel and of the twin."""
+def _t2_fused(x, head, topo, mask, colls, setups, thick, failed, iterations=1, f0=None):
+    """T2's contact substep (T7's force inside its launches, on the kernel's
+    setup) and its plain twin (T7's plain force an iteration, on the twin's
+    setup): ``(kernel's, twin's)`` outputs.  ``setups`` is ``[(inc, ptd)]``
+    of the kernel and of the twin."""
     _, msn, diag, wf, _ = head
-    args = (msn, diag, mask, wf, None, topo, 0.0, 1, failed)
+    args = (msn, diag, mask, wf, f0, topo, 0.0, iterations, failed)
     (ik, dk), (ip, dp) = setups
-    count = colls.pt_count
-    fused = tetcols.substep_cols(x, *args, (dk, None, ik.row_start, count),
-                                 fused=(colls, ik, thick))
-    plain = tetcols.substep_cols_plain(
-        x, *args, (dp, tetcols.pt_force_plain(x, colls, ip, thick, failed), ip.row_start, count))
+    fused = tetcols.contact_substep(x, *args, dk, colls, ik, thick)
+    plain = tetcols.contact_substep_plain(x, *args, dp, colls, ip, thick)
     return fused, plain
 
 
@@ -406,10 +451,261 @@ def test_fused_contact_force_in_t2_over_an_ensemble(cuda):
     assert torch.equal(fused[2], plain[2]) and float(fused[2][1].abs().sum()) == 0.0
 
 
+def _soup_contacts(cuda, n=512, jitter_seed=None, pins=None):
+    """The contact soup, its predicted positions (jittered by
+    ``jitter_seed``), T6's contacts there and T7's setup by the kernel and
+    by the twin: ``(solver, head, colls, setups, diag)``, ``diag`` the
+    system diagonal with the contacts' diagonal folded in."""
+    s, head = _contact_state(cuda, n, pins=pins)
+    st, topo = s.state, s.topology
+    lay = broadphase.body_layout(s.config, topo.tri_mask.shape[0])
+    sc = broadphase.scalars(s.current_params())
+    x = head[0] if jitter_seed is None else _jitter(head[0], st.node_mask, jitter_seed, 0.01)
+    pk = broadphase.pt_narrowphase(x, st.prev_positions, topo.tri_mask, st.bp, lay, sc,
+                                   torch.zeros_like(st.sim_failed[:1]), st.sim_failed)
+    colls, mass, topo_, h2, diag, wf, failed, _, thick = _coupling_inputs(
+        s, (x,) + tuple(head[1:]), pk, st.sim_failed)
+    setups, d = _setups(colls, mass, topo_, h2, diag, wf, failed)
+    return s, (x, head[1], d, wf, head[4]), colls, setups, d
+
+
+def _assert_t2_equal(fused, plain, live=None):
+    """T2's contact substep equal to its twin: positions and static
+    projection (of the ``live`` members), residual shares everywhere."""
+    for a, b in zip(fused[:2], plain[:2]):
+        if live is not None:
+            a, b = a[live], b[live]
+        assert torch.equal(a, b)
+    assert torch.equal(fused[2], plain[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("first", [False, True], ids=["no_f0", "f0"])
+@pytest.mark.parametrize("iterations", [1, 4])
+@pytest.mark.parametrize("jittered", [False, True], ids=["as_found", "jittered"])
+def test_contact_substep_equals_twin(cuda, jittered, iterations, first):
+    """T2's contact substep on the soup's contacts (as found and jittered):
+    one cooperative launch, the contact tets iteration by iteration and
+    then the free tets, bit for bit the twin's one-iteration calls, with 1
+    and 4 iterations, with and without T1's first force."""
+    s, head, colls, setups, _ = _soup_contacts(cuda, jitter_seed=4 if jittered else None)
+    st, topo = s.state, s.topology
+    inc = setups[0][0]
+    assert int(colls.pt_count[0]) > 0 and 0 < int(inc.node_count[0]) < st.capacity
+    f0 = tet_force12(head[0], topo.strain, topo.volume, st.sim_failed) if first else None
+    _assert_t2_equal(*_t2_fused(head[0], head, topo, st.node_mask, colls, setups,
+                                s.current_params().collision_thickness, st.sim_failed,
+                                iterations, f0))
+
+
+@pytest.mark.gpu
+def test_contact_substep_with_pins_equals_twin(cuda):
+    """A soup with two pinned nodes (the pin force folded into the
+    right-hand side of every tet, contact tets too): equal to the twin."""
+    s, head, colls, setups, _ = _soup_contacts(cuda, pins=[0, 5])
+    st, topo = s.state, s.topology
+    assert int((topo.position.w > 0).sum()) == 2 and int(colls.pt_count[0]) > 0
+    f0 = tet_force12(head[0], topo.strain, topo.volume, st.sim_failed)
+    _assert_t2_equal(*_t2_fused(head[0], head, topo, st.node_mask, colls, setups,
+                                s.current_params().collision_thickness, st.sim_failed, 4, f0))
+
+
+@pytest.mark.gpu
+def test_contact_substep_without_contacts_equals_twin(cuda):
+    """No live contact (the soup spread three times apart): every tet is a
+    free tet, the launch finds no listed node, and the result is the
+    twin's (the contact-free iterations)."""
+    s, head = _contact_state(cuda)
+    st, topo = s.state, s.topology
+    lay = broadphase.body_layout(s.config, topo.tri_mask.shape[0])
+    sc = broadphase.scalars(s.current_params())
+    centre = head[0].mean(0)
+    x = (head[0] - centre) * 3.0 + centre
+    prev = (st.prev_positions - centre) * 3.0 + centre
+    pk = broadphase.pt_narrowphase(x, prev, topo.tri_mask, st.bp, lay, sc,
+                                   torch.zeros_like(st.sim_failed[:1]), st.sim_failed)
+    assert int(pk[2][0]) == 0
+    colls, mass, topo_, h2, diag, wf, failed, _, thick = _coupling_inputs(
+        s, (x,) + tuple(head[1:]), pk, st.sim_failed)
+    setups, d = _setups(colls, mass, topo_, h2, diag, wf, failed)
+    f0 = tet_force12(x, topo.strain, topo.volume, failed)
+    _assert_t2_equal(*_t2_fused(x, (x, head[1], d, wf, None), topo, st.node_mask, colls,
+                                setups, thick, failed, 4, f0))
+
+
+@pytest.mark.gpu
+def test_contact_substep_walks_several_tets_a_thread(cuda):
+    """Every tet a contact tet (a contact from each tet's first node to the
+    next tet's other three, 12,288 tets): 49,152 listed nodes, more than
+    the cooperative grid's threads on any card (at most 2 blocks of 128
+    an SM), so each thread walks several tets an iteration, re-deriving
+    each from device memory: equal to the twin."""
+    k = 12_288
+    s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device=cuda)
+    s.create_tet_soup(k, **SCENE)
+    s._prepare()
+    st, topo, params = s.state, s.topology, s.current_params()
+    head = pd.substep_head_plain(clone_state(st), topo, params, s.config, True)
+    x = _jitter(head[0], st.node_mask, 5, 0.01)
+    t = torch.arange(k, device=cuda)
+    nxt = (t + 1) % k
+    idx = torch.stack([4 * t, 4 * nxt + 1, 4 * nxt + 2, 4 * nxt + 3], 1).to(torch.int32)
+    count = torch.tensor([k], dtype=torch.int32, device=cuda)
+    contacts = (idx.contiguous(), torch.ones(k, device=cuda), count)
+    colls, mass, topo_, h2, diag, wf, failed, _, thick = _coupling_inputs(
+        s, (x,) + tuple(head[1:]), contacts, st.sim_failed)
+    setups, d = _setups(colls, mass, topo_, h2, diag, wf, failed)
+    assert int(setups[0][0].node_count[0]) == 4 * k
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 4 * k > 2 * sms * 128
+    f0 = tet_force12(x, topo.strain, topo.volume, failed)
+    _assert_t2_equal(*_t2_fused(x, (x, head[1], d, wf, None), topo, st.node_mask, colls,
+                                setups, thick, failed, 4, f0))
+
+
+def _tail_pair(s, colls, setups, x, static, cfg=None, edges=None, nn_imp=None,
+               stages=pd.STABILIZE | pd.FRICTION, acc=False):
+    """T8 by the kernel and by the twin on copies of the state and of ``x``:
+    ``[(x, prev, out)] * 2``, ``out`` the friction impulse or, with
+    ``acc``, the sums."""
+    out = []
+    for tail, (inc, _) in zip((pd.pt_tail, pd.pt_tail_plain), setups):
+        st, x_ = clone_state(s.state), x.clone()
+        r = tail(st, s.current_params(), cfg or s.config, colls, inc, x_, static, edges,
+                 nn_imp, stages, acc)
+        out.append((x_, st.prev_positions, r))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stages", [1, 2, 3], ids=["stabilize", "friction", "both"])
+@pytest.mark.parametrize("passes", [0, 1, 4])
+def test_tail_equals_twin(cuda, passes, stages):
+    """T8, one cooperative launch a call, after T2's contact substep on the
+    soup's contacts: positions and previous positions everywhere and the
+    friction impulse at the incident nodes (the only ones T4 reads) equal
+    to the twin's, with 0, 1 and 4 stabilization passes and each stage
+    alone or both."""
+    s, head, colls, setups, _ = _soup_contacts(cuda, jitter_seed=6)
+    st, topo = s.state, s.topology
+    x, static, _ = tetcols.contact_substep(head[0], head[1], head[2], st.node_mask, head[3],
+                                           None, topo, 0.0, 4, st.sim_failed, setups[0][1],
+                                           colls, setups[0][0],
+                                           s.current_params().collision_thickness)
+    cfg = dataclasses.replace(s.config, collision_stabilization_iterations=passes)
+    (xk, pk, fk), (xp, pp, fp) = _tail_pair(s, colls, setups, x, static, cfg, stages=stages)
+    on = incident(setups[1][0])
+    assert torch.equal(xk, xp) and torch.equal(pk, pp)
+    if stages & pd.FRICTION:
+        assert torch.equal(fk[on], fp[on])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stages", [1, 2], ids=["stabilize", "friction"])
+def test_tail_accumulate_only_equals_twin(cuda, stages):
+    """T8's accumulate-only mode (the domain's): one stage's per-node sums
+    and counts equal to the twin's, positions untouched."""
+    s, head, colls, setups, _ = _soup_contacts(cuda, jitter_seed=7)
+    x = head[0]
+    (xk, pk, ak), (xp, pp, ap) = _tail_pair(s, colls, setups, x, x, stages=stages, acc=True)
+    assert torch.equal(ak, ap)
+    assert torch.equal(xk, x) and torch.equal(pk, s.state.prev_positions)
+
+
+@pytest.mark.gpu
+def test_tail_with_edge_contacts_and_node_impulse_equals_twin(cuda):
+    """The tet boxes with all three contact families (the generic path's
+    T8: each pass's point-triangle and edge push-outs and the snap, then
+    the friction at the velocity with the node-node impulse), the stages
+    of one substep against their twins on the same inputs: T8 and its
+    friction call equal."""
+    from pies_tpu_torch.scene.contact_piles import branch_scene
+    from pies_tpu_torch.solver.stages import contact_stages, stages_apart
+
+    s, cfg = branch_scene("all_on", cuda)
+    s.run_ticks(10)
+    out = contact_stages(s.state, s.topology, s.current_params(), cfg)
+    assert {"T8", "T8 friction", "T26 setup", "T27 friction"} <= set(out)
+    assert stages_apart({k: out[k] for k in ("T8", "T8 friction")}) == []
+    assert int(out["T26 setup"].kernel[0][-1]) > 0
+
+
+@pytest.mark.gpu
+def test_contact_substep_and_tail_over_an_ensemble(cuda):
+    """B = 3 jittered members, member 1 latched: T2's contact substep and
+    T8 equal the twins on the live members; the latched member's residual
+    shares are 0 and its positions untouched by T8."""
+    s, head = _contact_state(cuda)
+    st, topo = s.state, s.topology
+    lay = broadphase.body_layout(s.config, topo.tri_mask.shape[0])
+    sc = broadphase.scalars(s.current_params())
+    states = ensemble.stack_ensemble(st, 3)
+    x = torch.stack([_jitter(head[0], st.node_mask, 40 + b, 0.01) for b in range(3)])
+    states.sim_failed[1, 0] = 1
+    over = torch.zeros((3, 1), dtype=torch.int32, device=cuda)
+    pk = broadphase.pt_narrowphase(x, states.prev_positions, topo.tri_mask, states.bp, lay, sc,
+                                   over, states.sim_failed)
+    _, msn, diag, wf, active = head
+    colls = CollisionSet(floor_active=stack_members([active] * 3), pt_idx=pk[0],
+                         pt_mask=pk[1], pt_count=pk[2], overflow=over)
+    _, h2 = pd._h_h2(s.current_params())
+    w3 = stack_members([wf] * 3)
+    setups, d = _setups(colls, states.mass, topo, h2, stack_members([diag] * 3), w3,
+                        states.sim_failed)
+    thick = s.current_params().collision_thickness
+    f0 = tet_force12(x, topo.strain, topo.volume, states.sim_failed)
+    fused, plain = _t2_fused(x, (x, stack_members([msn] * 3), d, w3, None), topo,
+                             states.node_mask, colls, setups, thick, states.sim_failed, 4, f0)
+    _assert_t2_equal(fused, plain, [0, 2])
+    assert float(fused[2][1].abs().sum()) == 0.0
+    s._state = states
+    (xk, pk_, fk), (xp, pp, fp) = _tail_pair(s, colls, setups, fused[0], fused[1])
+    assert torch.equal(xk, xp) and torch.equal(pk_, pp) and torch.equal(xk[1], fused[0][1])
+    on = torch.stack([incident(member(setups[1][0], b)) for b in range(3)])
+    assert torch.equal(fk[on], fp[on])
+
+
+@pytest.mark.gpu
+def test_contact_substep_and_tail_past_one_resident_launch(cuda):
+    """More members than one cooperative launch keeps resident (T2's
+    contact launch at its card occupancy and one block a member; T8's
+    256-thread blocks at most 8 an SM), every seventh latched, one
+    contact set for all: several launches each, every live member equal
+    to the twins."""
+    s, head, colls1, _, d1 = _soup_contacts(cuda, 256)
+    st, topo = s.state, s.topology
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    members = max(8, tetcols.contact_occupancy()) * sms + 7
+    states = ensemble.stack_ensemble(st, members)
+    rng = np.random.default_rng(31)
+    j = torch.from_numpy((0.01 * rng.standard_normal((members,) + tuple(head[0].shape))).astype(
+        np.float32)).to(cuda)
+    x = head[0] + j * st.node_mask[..., None]
+    states.sim_failed[::7, 0] = 1
+    live = [b for b in range(members) if b % 7]
+    colls = CollisionSet(floor_active=stack_members([colls1.floor_active] * members),
+                         pt_idx=stack_members([colls1.pt_idx] * members),
+                         pt_mask=stack_members([colls1.pt_mask] * members),
+                         pt_count=stack_members([colls1.pt_count] * members),
+                         overflow=torch.zeros((members, 1), dtype=torch.int32, device=cuda))
+    _, h2 = pd._h_h2(s.current_params())
+    wm = stack_members([head[3]] * members)
+    setups, d = _setups(colls, states.mass, topo, h2, stack_members([d1] * members), wm,
+                        states.sim_failed)
+    thick = s.current_params().collision_thickness
+    fused, plain = _t2_fused(x, (x, stack_members([head[1]] * members), d, wm, None), topo,
+                             states.node_mask, colls, setups, thick, states.sim_failed, 4)
+    _assert_t2_equal(fused, plain, live)
+    s._state = states
+    (xk, pk, fk), (xp, pp, fp) = _tail_pair(s, colls, setups, fused[0], fused[1])
+    assert torch.equal(xk[live], xp[live]) and torch.equal(pk[live], pp[live])
+
+
 @pytest.mark.gpu
 def test_each_call_is_one_kernel_without_copies(cuda):
     """On the contact soup: T6 and T7's setup launch one kernel a call and
-    T7's force one, with no memcpy and no memset (the profiler's count)."""
+    T7's force one, T2's contact substep one (cooperative) and T8 one, with
+    no memcpy and no memset (the profiler's count)."""
     from torch.profiler import ProfilerActivity, profile
 
     from pies_tpu_torch.tick_profile import device_events
@@ -423,14 +719,23 @@ def test_each_call_is_one_kernel_without_copies(cuda):
                                    over, st.sim_failed)
     colls, mass, topo_, h2, diag, wf, failed, x, thick = _coupling_inputs(s, head, pk,
                                                                           st.sim_failed)
-    inc, _ = tetcols.pt_coupling_setup(colls, mass, topo_, h2, diag, wf, failed)
+    inc, ptd = tetcols.pt_coupling_setup(colls, mass, topo_, h2, diag, wf, failed)
+    x2, static, _ = tetcols.contact_substep(x, head[1], diag, st.node_mask, wf, None, topo,
+                                            0.0, 4, failed, ptd, colls, inc, thick)
+    st8, x8 = clone_state(st), x2.clone()  # (T8 updates both in place)
     calls = {
-        "T6": lambda: broadphase.pt_narrowphase(head[0], st.prev_positions, topo.tri_mask,
-                                                st.bp, lay, sc, over, st.sim_failed),
-        "T7 setup": lambda: tetcols.pt_coupling_setup(colls, mass, topo_, h2, diag, wf, failed),
-        "T7 force": lambda: tetcols.pt_force(x, colls, inc, thick, failed),
+        "T6": (lambda: broadphase.pt_narrowphase(head[0], st.prev_positions, topo.tri_mask,
+                                                 st.bp, lay, sc, over, st.sim_failed), 1),
+        "T7 setup": (lambda: tetcols.pt_coupling_setup(colls, mass, topo_, h2, diag, wf,
+                                                       failed), 1),
+        "T7 force": (lambda: tetcols.pt_force(x, colls, inc, thick, failed), 1),
+        "T2 contact substep": (lambda: tetcols.contact_substep(
+            x, head[1], diag, st.node_mask, wf, None, topo, 0.0, 4, failed, ptd, colls, inc,
+            thick), 1),
+        "T8": (lambda: pd.pt_tail(st8, s.current_params(), s.config, colls, inc, x8, static),
+               1),
     }
-    for name, fn in calls.items():
+    for name, (fn, per_call) in calls.items():
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -441,4 +746,4 @@ def test_each_call_is_one_kernel_without_copies(cuda):
         for e, _us in device_events(prof):
             kind = e.key.split()[0] if e.key.startswith(("Memcpy", "Memset")) else "kernel"
             kinds[kind] = kinds.get(kind, 0) + e.count
-        assert kinds == {"kernel": 4}, (name, kinds)
+        assert kinds == {"kernel": 4 * per_call}, (name, kinds)

@@ -25,6 +25,8 @@ from pies_tpu_torch import convert
 from pies_tpu_torch.collision import broadphase as tb
 from pies_tpu_torch.collision import grid as tgrid
 
+from torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
+
 N_TETS = 96
 SCENE = dict(spacing=1.0, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
 TICKS = (0, 19, 25)

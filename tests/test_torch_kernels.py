@@ -41,7 +41,8 @@ SCENE = dict(spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)
 CONTACT_SCENE = dict(SCENE, spacing=1.0)
 WRAPPERS = (pd.substep_head, proj.tet_force12, tetcols.substep_cols, pd.substep_tail)
 CONTACT_WRAPPERS = (broadphase.body_broadphase, broadphase.pt_narrowphase,
-                    tetcols.pt_coupling_setup, tetcols.pt_force, pd.pt_tail)
+                    tetcols.pt_coupling_setup, tetcols.pt_force, tetcols.contact_substep,
+                    pd.pt_tail)
 GENERIC_WRAPPERS = (pd.substep_head, proj.tet_force12_gathered, assembly.assemble_force,
                     assembly.apply_system, assembly.pcg_solve, pd.substep_tail)
 MESH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -280,8 +281,8 @@ def test_coupling_and_tail_kernels_equal_twins(cuda):
 def test_contact_kernels_match_twins_over_a_trajectory(cuda):
     """40 ticks of a self-contact soup, kernels against twins: the same
     contacts every tick and the same positions, and every kernel of the
-    path launched on every tick (T7's force inside T2's launches, so its
-    own wrapper never)."""
+    path launched on every tick (T7's force inside T2's contact substep,
+    so its own wrapper never, nor T2's contact-free form)."""
     runs = []
     for plain in (False, True):
         s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device=cuda)
@@ -303,8 +304,9 @@ def test_contact_kernels_match_twins_over_a_trajectory(cuda):
     (ck, xk, lk), (cp, xp, lp) = runs
     assert ck == cp and sum(ck) > 0
     assert torch.equal(xk, xp)
-    fused = (WRAPPERS + CONTACT_WRAPPERS).index(tetcols.pt_force)
-    assert all(n > 0 for i, n in enumerate(lk) if i != fused) and lk[fused] == 0
+    unused = [(WRAPPERS + CONTACT_WRAPPERS).index(f) for f in (tetcols.pt_force,
+                                                                tetcols.substep_cols)]
+    assert all((n == 0) == (i in unused) for i, n in enumerate(lk))
     assert not any(lp)
 
 

@@ -38,6 +38,8 @@ from pies_tpu_torch.collision import broadphase as tb
 from pies_tpu_torch.collision import narrowphase as tnarrow
 from pies_tpu_torch.ops import cubic as tcubic
 
+from torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
+
 T_TOL = 2e-4
 N_TETS = 96
 SCENE = dict(spacing=1.0, scale=0.8, w=2000.0, height=0.5, jitter=0.05)

@@ -41,6 +41,8 @@ from pies_tpu_torch import convert
 from pies_tpu_torch.solver import pd as tpd
 from pies_tpu_torch.solver import step as tstep
 
+from torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
+
 N_TETS, TICKS = 96, 40
 STEP_TOL, TRAJ_TOL = 1e-5, 2.5e-3
 SCENE = dict(spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)

@@ -30,6 +30,7 @@ Tolerances and why:
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -199,41 +200,68 @@ def _jax_detect(j, x, cache):
                     corners=topo.super_corners, adj=topo.super_adj)
 
 
+CONTACT_TICK = 12  # the mixed scene's tick of the contact-state tests
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """The 40-tick JAX runs of the mixed scene and of the cloth (folded over
+    itself first), made once for the module: each scene's starting cache
+    and, at every fourth tick, the predicted and the previous positions
+    and the JAX detection there with the cache carried from sample to
+    sample and without it; and the mixed run's solver with its state
+    after ``CONTACT_TICK`` ticks."""
+    runs = {}
+    for scene in ("mixed", "cloth"):
+        j, _ = solvers(scene)
+        if scene == "cloth":
+            _fold(j)
+        jcache, samples = j._state.bp, []
+        runs[scene + " cache"] = jcache
+        for tick in range(40):
+            if scene == "mixed" and tick == CONTACT_TICK:
+                runs["mixed at contact"] = SimpleNamespace(
+                    _state=j._state, _topology=j._topology, _config=j._config,
+                    current_params=j.current_params)
+            if tick % 4 == 0:
+                s = j._state
+                x = s.positions + j.current_params().dt * s.velocities * s.node_mask[:, None]
+                carried = _jax_detect(j, x, jcache)
+                samples.append((x, s.prev_positions, carried, _jax_detect(j, x, None)))
+                jcache = carried[3]
+            j.tick()
+        runs[scene] = samples
+    return runs
+
+
 @pytest.mark.parametrize("use_cache", [True, False], ids=["cache", "no_cache"])
 @pytest.mark.parametrize("scene", ["mixed", "cloth"])
-def test_detection_equals_reference_along_a_run(scene, use_cache):
+def test_detection_equals_reference_along_a_run(scene, use_cache, jax_runs):
     """States sampled every 4 ticks of a 40-tick JAX run (the cloth folded
     over itself first); with the cache, both packages carry their own cache
     from sample to sample."""
-    j, t = solvers(scene)
-    if scene == "cloth":
-        _fold(j)
+    t = build(pt.Solver(pt.SolverOptions(), device="cpu", enable_collisions=True,
+                        allpairs_broadphase_max=0), scene)
     topo, cfg, params = t.topology, t.config, t.current_params()
-    jcache = j._state.bp
-    tcache = convert.cache_from_numpy(_np(jcache))
+    tcache = convert.cache_from_numpy(_np(jax_runs[scene + " cache"]))
     contacts = rebuilds = 0
-    for tick in range(40):
-        if tick % 4 == 0:
-            s = j._state
-            x = s.positions + j.current_params().dt * s.velocities * s.node_mask[:, None]
-            out = _jax_detect(j, x, jcache if use_cache else None)
-            ji, jm, jo = np.asarray(out[0]), np.asarray(out[1]), bool(out[2])
-            pi, pm, pc, po, rb = tb.detect_point_tri_collisions(
-                torch.from_numpy(np.array(x)), torch.from_numpy(np.array(s.prev_positions)),
-                topo.tri_mask, params, cfg, cache=tcache if use_cache else None,
-                corners=topo.super_corners, adj=topo.super_adj)
-            n = int(pc[0])
-            assert n == int(jm.sum()) and bool(po[0]) == jo
-            np.testing.assert_array_equal(pi.numpy(), ji)
-            np.testing.assert_array_equal(pm.numpy(), jm)
-            contacts += n
-            if use_cache:
-                jcache = out[3]
-                ref = convert.cache_from_numpy(_np(jcache))
-                for f in ("pairs", "valid", "ref", "fresh"):
-                    assert torch.equal(getattr(tcache, f), getattr(ref, f)), (tick, f)
-                rebuilds += int(rb[0])
-        j.tick()
+    for x, prev, carried, fresh in jax_runs[scene]:
+        out = carried if use_cache else fresh
+        ji, jm, jo = np.asarray(out[0]), np.asarray(out[1]), bool(out[2])
+        pi, pm, pc, po, rb = tb.detect_point_tri_collisions(
+            torch.from_numpy(np.array(x)), torch.from_numpy(np.array(prev)),
+            topo.tri_mask, params, cfg, cache=tcache if use_cache else None,
+            corners=topo.super_corners, adj=topo.super_adj)
+        n = int(pc[0])
+        assert n == int(jm.sum()) and bool(po[0]) == jo
+        np.testing.assert_array_equal(pi.numpy(), ji)
+        np.testing.assert_array_equal(pm.numpy(), jm)
+        contacts += n
+        if use_cache:
+            ref = convert.cache_from_numpy(_np(out[3]))
+            for f in ("pairs", "valid", "ref", "fresh"):
+                assert torch.equal(getattr(tcache, f), getattr(ref, f)), f
+            rebuilds += int(rb[0])
     assert contacts > 0
     if use_cache:
         # The mixed scene's samples reuse cached pairs; the sheet, with its
@@ -290,11 +318,12 @@ def test_broadphase_twin_in_blocks_of_rows_equals_one_block(scene, monkeypatch):
         assert torch.equal(a, b)
 
 
-def _contact_state(ticks=12):
-    """The mixed scene after ``ticks`` JAX ticks, with its detection."""
-    j, t = solvers("mixed")
-    for _ in range(ticks):
-        j.tick()
+def _contact_state(jax_runs):
+    """The mixed scene after ``CONTACT_TICK`` JAX ticks (the module's run),
+    with its detection, and the port's solver of the scene."""
+    j = jax_runs["mixed at contact"]
+    t = build(pt.Solver(pt.SolverOptions(), device="cpu", enable_collisions=True,
+                        allpairs_broadphase_max=0), "mixed")
     s, p = j._state, j.current_params()
     x = s.positions + p.dt * s.velocities * s.node_mask[:, None]
     pt_idx, pt_mask, _, _ = _jax_detect(j, x, s.bp)
@@ -302,8 +331,8 @@ def _contact_state(ticks=12):
     return j, t, x, pt_idx, pt_mask
 
 
-def test_band_operator_and_contact_diagonal_match_reference():
-    j, t, x, pt_idx, pt_mask = _contact_state()
+def test_band_operator_and_contact_diagonal_match_reference(jax_runs):
+    j, t, x, pt_idx, pt_mask = _contact_state(jax_runs)
     s, p, cfg = j._state, j.current_params(), j._config
     n = s.capacity
     colls = dataclasses.replace(
@@ -340,8 +369,8 @@ def test_band_operator_and_contact_diagonal_match_reference():
     assert np.abs(other.numpy() - ref).max() > 1e-2 * np.abs(ref).max()
 
 
-def test_force_with_contact_terms_matches_reference():
-    j, t, x, pt_idx, pt_mask = _contact_state()
+def test_force_with_contact_terms_matches_reference(jax_runs):
+    j, t, x, pt_idx, pt_mask = _contact_state(jax_runs)
     s, p, cfg = j._state, j.current_params(), j._config
     n = s.capacity
     floor = (np.asarray(x)[:, 1] < 0.3).astype(np.float32)

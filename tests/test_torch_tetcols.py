@@ -26,6 +26,8 @@ from pies_tpu_torch import convert
 from pies_tpu_torch.constraints.projections import tet_force12
 from pies_tpu_torch.solver import tetcols as tcols
 
+from torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
+
 N_TETS, CAP = 96, 400
 POS_TOL = 2e-5
 
