@@ -20,33 +20,38 @@ Phases (any failure exits non-zero, before the result line):
    (as found, and with the positions jittered so that points cross face
    planes and the cubic runs), T7's incidence and diagonal equal and its
    force, T2's one-iteration contact mode given T7's force, T2's contact
-   substep as the main path runs it (4 iterations from T1's force in one
-   cooperative launch, the contact tets first, T7's force inside:
-   bit-equal to its twin, timed as its own row of the kernels line) and T8
+   substep (4 iterations in one cooperative launch, the first iteration's
+   tet force computed inside as on the main path, the contact tets first,
+   T7's force inside: bit-equal to its twin, timed as its own row of the
+   kernels line) and T8
    (one cooperative launch: bit-equal).  Then each T5-T8 call's device
-   work kernel by kernel (the profiler's CUDA events): T6, T7's setup, T2's
-   contact substep and T8 one kernel a call with no memcpy and no memset,
-   T7's force one kernel.
+   work kernel by kernel (the profiler's CUDA events): T5 one kernel a call
+   as found and one with a rebuild forced (beside the fill that forces
+   it), T6, T7's setup, T2's contact substep and T8 one kernel a call, all
+   with no memcpy and no memset, T7's force one kernel.
 3. The contact-free main path: ``Solver(SolverOptions(solver=PD),
    enable_collisions=False)`` on ``create_tet_soup(125_000, spacing=1.6,
    scale=0.8, w=2000.0, height=0.5, jitter=0.05)``; 30 warm-up ticks (the
    soup reaches the floor at tick ~25), then a timed ``run_ticks(10)`` with
    the launch counters reset to 0 before it.  Checks: no sim_failed, finite
    positions, floor-active nodes in the window (a device counter), every
-   counter of T1-T4 > 0.  The same run with the plain twins on the card is
-   timed too, and its final positions are held against the kernels' run.
+   counter of T2-T4 > 0 (T2 computes the first iteration's tet force, so
+   T1's wrapper launches nothing on the path).  The same run with the
+   plain twins on the card is timed too, and its final positions are held
+   against the kernels' run.
 3b. The main path with self-contact: the same scene with
    ``enable_collisions=True``; 45 warm-up ticks (its layers meet only after
    the bottom one stops on the floor, at tick ~40), then 10 timed ticks
    enqueued by ``step.tick_n`` under
    ``torch.cuda.set_sync_debug_mode("error")`` (no call may make the host
    wait for the device; the closing synchronize outside).  Checks as in
-   phase 3, plus live contacts in the window, every counter of T1-T8 > 0,
-   and every T2 call a contact substep with T7's force inside (no
-   standalone force, one call a substep); prints contacts per tick and
-   cache rebuilds, then a traced copy of the window from tick 45: device
-   busy, kernels, memcpys and memsets per tick, checking T2's contact
-   substep and T8 at 1 kernel a substep each, no memcpy.  The plain
+   phase 3, plus live contacts in the window, every counter of T2-T8 > 0
+   and T1's at 0, and every T2 call a contact substep with T7's force
+   inside (no standalone force, one call a substep); prints contacts per
+   tick and cache rebuilds, then a traced copy of the window from tick 45:
+   wrapper calls, kernels, memcpys, memsets and device busy per tick,
+   checking T5, T2's contact substep and T8 at 1 kernel a substep each, no
+   memcpy and no memset.  The plain
    twins' run is held to 1e-3.
 4. Kernels against twins on the card over 40 ticks of a 4,096-tet soup:
    max |dx| <= 1e-3; then with self-contact at spacing 1.0, where the
@@ -756,12 +761,11 @@ def phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, pat
     colls = pd.detect_point_tri(st, x, topo, params, cfg, active)
     _, h2 = pd._h_h2(params)
     inc, ptd = tetcols.pt_coupling_setup(colls, st.mass, topo, h2, diag, wf, st.sim_failed)
-    f0 = proj.tet_force12(x, topo.strain, topo.volume, st.sim_failed)
     thick = params.collision_thickness
     contact = tetcols.pt_force(x, colls, inc, thick, st.sim_failed)
     plane = pd.floor_plane(params, cfg.reference_quirks)
     pt_args = (ptd, contact, inc.row_start, colls.pt_count)
-    x_new, stat, _ = tetcols.substep_cols(x, msn, diag, st.node_mask, wf, f0, topo, plane, 1,
+    x_new, stat, _ = tetcols.substep_cols(x, msn, diag, st.node_mask, wf, topo, plane, 1,
                                           st.sim_failed, pt_args)
     fric = pd.pt_tail(st, params, cfg, colls, inc, x_new, stat)
     torch.cuda.synchronize()
@@ -790,9 +794,9 @@ def phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches, pat
         "tet_force12": (lambda x_, f_: proj.tet_force12(x_, topo.strain, topo.volume, f_),
                         (x, st.sim_failed), 204 * members * lay.k, 1500 * members * lay.k),
         "tet_cols_substep": (
-            lambda x_, m_, d_, k_, w_, f0_, f_, p_: tetcols.substep_cols(
-                x_, m_, d_, k_, w_, f0_, topo, plane, 1, f_, p_),
-            (x, msn, diag, st.node_mask, wf, f0, st.sim_failed, pt_args),
+            lambda x_, m_, d_, k_, w_, f_, p_: tetcols.substep_cols(
+                x_, m_, d_, k_, w_, topo, plane, 1, f_, p_),
+            (x, msn, diag, st.node_mask, wf, st.sim_failed, pt_args),
             424 * members * (st.capacity // 4), 1600 * members * (st.capacity // 4)),
         "pt_tail": (lambda s_, c_, i_, x_, sp_: pd.pt_tail(s_, params, cfg, c_, i_, x_, sp_),
                     (st, colls, inc, x_new, stat),
@@ -1187,10 +1191,16 @@ def device_us(fn, reps=5):
     return sum(us for _, us in device_events(prof)) / reps
 
 
-def device_kernels(fn, reps=5):
-    """The device work of one call of ``fn``: ``{name: (count, µs)}`` per
-    kernel, memcpy and memset name, from the profiler's CUDA events over
-    ``reps`` calls, divided by ``reps``."""
+def device_kernels(fn, reps=5, rounds=3):
+    """The device work of one call of ``fn`` from ``rounds`` profiles of
+    ``reps`` calls each (the profiler's CUDA events, divided by ``reps``):
+    ``({name: (count, µs)}, [{name: count} of each round])`` per kernel,
+    memcpy and memset name.  The profiler now and then loses records (in
+    ~1% of profiles of the main path's calls some or all of a kernel's
+    records of the 5 calls: ``scripts/contact_kernels_profile.py
+    --record-rounds``), and a lost record only lowers a count, so each
+    name's count is the largest of the rounds, with that round's µs; every
+    round is returned for the log."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1198,11 +1208,18 @@ def device_kernels(fn, reps=5):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: (e.count / reps, us / reps) for e, us in device_events(prof)}
+    every, best = [], {}
+    for _ in range(rounds):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        got = {e.key: (e.count / reps, us / reps) for e, us in device_events(prof)}
+        every.append({key: count for key, (count, _) in got.items()})
+        for key, (count, us) in got.items():
+            if key not in best or count > best[key][0]:
+                best[key] = (count, us)
+    return best, every
 
 
 def device_kinds(events):
@@ -2717,7 +2734,7 @@ def tetcol_stages(states, topo, params, cfg, kernel):
     out["T7 force"] = (torch.where(on[..., None], contact, 0.0),)
     plane = pd.floor_plane(params, cfg.reference_quirks)
     x_new, stat, r2 = out["T2"] = pick(tetcols.substep_cols, tetcols.substep_cols_plain)(
-        x, msn, diag, st.node_mask, wf, f0, topo, plane, 1, st.sim_failed,
+        x, msn, diag, st.node_mask, wf, topo, plane, 1, st.sim_failed,
         (ptd, contact, inc.row_start, colls.pt_count))
     fric = pick(pd.pt_tail, pd.pt_tail_plain)(st, params, cfg, colls, inc, x_new, stat)
     out["T8"] = (x_new, st.prev_positions.clone(), torch.where(on[..., None], fric, 0.0))
@@ -4117,8 +4134,10 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         cuda_ms(lambda: proj.tet_force12(x, topo.strain, topo.volume, st.sim_failed), 20),
         cuda_ms(lambda: proj.tet_force12_plain(x, topo.strain, topo.volume), 5),
         f"rel {err / scale:.2e}", 204 * n_cols, 1500 * n_cols)
+    rows["tet_force12"]["form"] = ("the standalone launch, T1's parity check: on every path T2"
+                                   " computes the first iteration's force itself (0 launches)")
 
-    args = (x, msn, diag, st.node_mask, wf, fk, topo, plane, cfg.iterations, st.sim_failed)
+    args = (x, msn, diag, st.node_mask, wf, topo, plane, cfg.iterations, st.sim_failed)
     ck = tetcols.substep_cols(*args)
     cp = tetcols.substep_cols_plain(*args)
     torch.cuda.synchronize()
@@ -4192,11 +4211,19 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         fn(x, prev, tmask, timing_cache, lay, sc, ov, failed)
 
     n_body_nodes = lay.k * lay.m
+    # (a rebuild: x, prev and ref read, ref and the cache rows written, the
+    # mask read; without one only the reads of x, prev, ref and the mask)
     row("body_broadphase", "pies_tpu_torch/kernels/csrc/body_broadphase.cu",
         "pies_tpu/collision/broadphase.py:210", 0.0,
         cuda_ms(lambda: rebuild(broadphase.body_broadphase), 20),
         cuda_ms(lambda: rebuild(broadphase.body_broadphase_plain), 3), "equal",
         48 * n_body_nodes + 4 * lay.k * lay.e + 8 * lay.lanes + 4, 1000 * lay.k)
+    found_cache = st.bp.clone()
+    rows["body_broadphase"].update(
+        form="with a rebuild forced (the fill that forces it included)",
+        found_ms=cuda_ms(lambda: broadphase.body_broadphase(x, prev, tmask, found_cache, lay, sc,
+                                                            ov, failed), 20),
+        found_bound_ms=bound(36 * n_body_nodes + 4 * lay.k * lay.e, 40 * n_body_nodes)[0])
 
     def t6(fn, xx, **kw):
         ovx = zero()
@@ -4289,18 +4316,18 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         cfg.iterations * 50 * nnz)
 
     pt_args = (ptd_k, con_k, inc_k.row_start, colls.pt_count)
-    f0 = proj.tet_force12(x, topo.strain, topo.volume, failed)
-    one = (x, msn, dk, st.node_mask, wf, f0, topo, plane, 1, failed, pt_args)
+    one = (x, msn, dk, st.node_mask, wf, topo, plane, 1, failed, pt_args)
     ok2 = tetcols.substep_cols(*one)
     op2 = tetcols.substep_cols_plain(*one)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(ok2[:2], op2[:2]))
     check(err <= 1e-4, f"T2 one iteration with contacts within 1e-4 (max {err:.3e})")
-    # The main path's form: T2's contact substep, T7's force inside, from
-    # the iterate each iteration starts from; bit-equal to its twin (one
-    # twin call an iteration given T7's plain force).
+    # The main path's form: T2's contact substep, the first iteration's tet
+    # force computed inside (as pd_substep calls it), T7's force inside,
+    # from the iterate each iteration starts from; bit-equal to its twin
+    # (one twin call an iteration given T7's plain force).
     n_it = cfg.iterations
-    sub = (x, msn, dk, st.node_mask, wf, f0, topo, plane, n_it, failed)
+    sub = (x, msn, dk, st.node_mask, wf, topo, plane, n_it, failed)
     oc2 = tetcols.contact_substep(*sub, ptd_k, colls, inc_k, thick)
     pc2 = tetcols.contact_substep_plain(*sub, ptd_p, colls, inc_p, thick)
     torch.cuda.synchronize()
@@ -4317,11 +4344,10 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         cuda_ms(lambda: tetcols.contact_substep(*sub, ptd_k, colls, inc_k, thick), 20),
         cuda_ms(lambda: tetcols.contact_substep_plain(*sub, ptd_p, colls, inc_p, thick), 3),
         "equal",
-        # (T2's substep over every column, f0 and row_start over every
-        # node read once; the incident nodes' contact diagonal, the
-        # contacts and the incidence entries and node list the force reads)
-        424 * (n2 // 4) + 48 * (n2 // 4) + 4 * (n2 + 1) + 8 * n_inc + 20 * n_contacts
-        + 4 * nnz,
+        # (T2's substep over every column and row_start over every node
+        # read once; the incident nodes' contact diagonal, the contacts and
+        # the incidence entries and node list the force reads)
+        424 * (n2 // 4) + 4 * (n2 + 1) + 8 * n_inc + 20 * n_contacts + 4 * nnz,
         n_it * 1600 * (n2 // 4) + n_it * 50 * nnz)
     rows["pt_coupling"]["form"] = (f"setup + {cfg.iterations} standalone forces (the generic"
                                    " path's form; the main path runs the force inside T2,"
@@ -4346,31 +4372,50 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         passes * 60 * n_contacts + 90 * n_contacts)
 
     # The device work of each wrapper call of T5-T8 on this state, kernel by
-    # kernel (the profiler's CUDA events): T6 and T7's setup are one
+    # kernel (the profiler's CUDA events): T5, T6 and T7's setup are one
     # cooperative launch a call and T7's force one launch, with no memcpy
     # and no memset.
+    T5_REBUILD = "T5 rebuild (with the fill that forces it)"
     found, ov_t, d_t = st.bp.clone(), zero(), diag.clone()
     per_call = {
         "T5 as found": lambda: broadphase.body_broadphase(x, prev, tmask, found, lay, sc, ov_t,
                                                           failed),
-        "T5 rebuild (with the fill that forces it)": lambda: rebuild(broadphase.body_broadphase),
+        T5_REBUILD: lambda: rebuild(broadphase.body_broadphase),
         "T6": lambda: broadphase.pt_narrowphase(x, prev, tmask, cache, lay, sc, ov_t, failed),
         "T7 setup": lambda: tetcols.pt_coupling_setup(colls, st.mass, topo, h2, d_t, wf, failed),
         "T7 force": lambda: tetcols.pt_force(x, colls, inc_k, thick, failed),
         "T2 one contact iteration": lambda: tetcols.substep_cols(
-            x, msn, dk, st.node_mask, wf, None, topo, plane, 1, failed, pt_args),
+            x, msn, dk, st.node_mask, wf, topo, plane, 1, failed, pt_args),
         "T2 contact substep": lambda: tetcols.contact_substep(*sub, ptd_k, colls, inc_k, thick),
         "T8": lambda: pd.pt_tail(sk, params, cfg, colls_a, inc_k, xk, static_proj),
     }
     print(f"  device work per call on this state ({smi}):")
-    kinds = {}
+    kinds, per_call_events = {}, {}
     for name, fn in per_call.items():
-        events = device_kernels(fn)
+        events, every = device_kernels(fn)
+        per_call_events[name] = events
         kinds[name] = device_kinds(events)
         k_, mc_, ms_, us_ = kinds[name]
         print(f"  {name}: {us_:.2f} us, {k_:g} kernels, {mc_:g} memcpys, {ms_:g} memsets")
         for key, (count, us) in sorted(events.items(), key=lambda kv: -kv[1][1]):
             print(f"    {us:9.2f} us x{count:<4g} {key[:90]}")
+        # (every round's count of each name; a round below the largest lost records)
+        print("    counts a call by round: " + "; ".join(
+            ", ".join(f"{key[:40]} x{r.get(key, 0):g}" for key in events) for r in every))
+
+    def t5_kernel(name):  # (T5's own launches and device µs a call)
+        events = per_call_events[name]
+        return (sum(c for key, (c, _) in events.items() if "bp_kernel" in key),
+                sum(us for key, (_, us) in events.items() if "bp_kernel" in key))
+
+    (t5_found, us_found), (t5_rb, us_rb) = t5_kernel("T5 as found"), t5_kernel(T5_REBUILD)
+    check(kinds["T5 as found"][:3] == (1, 0, 0) and t5_found == 1,
+          f"T5 as found: one kernel a call, no memcpy, no memset ({us_found:.2f} us)")
+    check(kinds[T5_REBUILD][0] <= 2 and kinds[T5_REBUILD][1:3] == (0, 0) and t5_rb == 1,
+          f"T5 with a rebuild: {kinds[T5_REBUILD][0]:g} kernels a call with the fill that"
+          f" forces it, one of them T5's ({us_rb:.2f} us), no memcpy, no memset")
+    rows["body_broadphase"].update(device_us=us_rb, kernels_per_call=t5_rb,
+                                   found_device_us=us_found, found_kernels_per_call=t5_found)
     check(kinds["T6"][0] <= 3 and kinds["T6"][1:3] == (0, 0),
           f"T6: {kinds['T6'][0]:g} kernels, no memcpy, no memset a call")
     check(kinds["T7 setup"][0] <= 3 and kinds["T7 setup"][2] == 0,
@@ -4463,9 +4508,12 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
         return coo.coalesce().to_sparse_csr()
 
     launches = {}
+    # (the main path's wrappers: T1's force runs inside T2, so its own
+    # wrapper launches nothing there)
+    main_path = [n for n in list(wrappers)[:8] if n != "tet_force12"]
     for phase, collisions, warm, names in (
-            ("3", False, FLOOR_WARMUP, list(wrappers)[:4]),
-            ("3b", True, CONTACT_WARMUP, list(wrappers)[:8])):
+            ("3", False, FLOOR_WARMUP, main_path[:3]),
+            ("3b", True, CONTACT_WARMUP, main_path)):
         what = "with self-contact" if collisions else "contact-free"
         print(f"phase {phase}: the main path {what}, {4 * n_tets} particles,"
               f" {warm} warm-up ticks")
@@ -4511,9 +4559,15 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
                 return sum(c for key, (c, _) in events.items() if name in key)
 
             t2k, t8k = per_tick("tet_cols_"), per_tick("pt_tail_kernel")
-            check(mc_ == 0 and subs > 0 and t2k == subs and t8k == subs,
-                  f"a tick: T2's contact substep {t2k:g} kernels, T8 {t8k:g}, {mc_:g} memcpys"
-                  f" ({subs:g} substeps)")
+            t5k = per_tick("bp_kernel")
+            calls = sum(launches[phase][n] for n in names) / 10
+            check(mc_ == 0 and ms_ == 0 and subs > 0 and t2k == subs and t8k == subs
+                  and t5k == subs,
+                  f"a tick: {calls:g} wrapper calls, {k_:g} kernels (T5 {t5k:g}, T2's contact"
+                  f" substep {t2k:g}, T8 {t8k:g}), {mc_:g} memcpys, {ms_:g} memsets,"
+                  f" {us_:.2f} us of device busy ({subs:g} substeps)")
+            check(launches[phase]["tet_force12"] == 0,
+                  "T1 launched no time: T2 computes the first iteration's force")
         live = 4 * n_tets
         pos = s.state.positions[:live]
         check(not s.sim_failed, "no sim_failed")
@@ -5994,7 +6048,7 @@ def main(n_tets=N_TETS, n_small=4096, dev=None, mesh_big=MESH_BIG, mesh_warmup=M
 
     # ---- phase 13: the scene ensemble (T1-T8 with a member axis)
     ens13 = phase13(pt, dev, smi, PD, rows, launches, reset_launches, read_launches,
-                    list(wrappers)[:8], ens_members, ens_tets, ens_small)
+                    main_path, ens_members, ens_tets, ens_small)
 
     stamp("13")
 

@@ -249,14 +249,16 @@ def body_broadphase_plain(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLa
                           failed: torch.Tensor | None = None) -> torch.Tensor:
     """Plain twin of kernel T5: the body broadphase with the temporal cache,
     in place on ``cache``; ORs the capacity latch into ``overflow`` i32[1].
-    Returns i32[1], 1 when the pairs were rebuilt.  Nothing changes when
-    latch slot 0 of ``failed`` is set.  An ensemble (``x`` f32[B, N, 3], a
-    batched cache, ``overflow`` and the result i32[B, 1]) runs member by
-    member."""
+    Writes ``cache.rebuilt`` i32[1], 1 when the pairs were rebuilt, and
+    returns it.  When latch slot 0 of ``failed`` is set nothing else
+    changes and the flag is 0.  An ensemble (``x`` f32[B, N, 3], a batched
+    cache, ``overflow`` and the flag i32[B, 1]) runs member by member."""
     if members_of(x):
-        return each_member(lambda xb, pb, cb, ob, fb: body_broadphase_plain(
+        each_member(lambda xb, pb, cb, ob, fb: body_broadphase_plain(
             xb, pb, tri_mask, cb, lay, sc, ob, fb), members_of(x), x, prev, cache, overflow, failed)
-    rebuilt = torch.zeros(1, dtype=torch.int32, device=x.device)
+        return cache.rebuilt
+    rebuilt = cache.rebuilt
+    rebuilt.zero_()
     if failed is not None and bool(failed[0]):
         return rebuilt
     k, m, off = lay.k, lay.m, lay.off
@@ -300,42 +302,58 @@ def body_broadphase(x, prev, tri_mask, cache: BroadphaseCache, lay: BodyLayout,
                     failed: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel T5 on CUDA tensors, :func:`body_broadphase_plain` on CPU
     tensors (same arguments and result).  On the card ``failed`` is
-    required."""
+    required, and the call is one cooperative launch that allocates
+    nothing; the flag it returns is ``cache.rebuilt``, the cache's own
+    word, which the next call on that cache overwrites."""
     if kernels.on_cpu(x):
         return body_broadphase_plain(x, prev, tri_mask, cache, lay, sc, overflow, failed)
     if failed is None:
         raise ValueError("the broadphase kernel needs the failure latch")
-    if lay.bmax > 64 or lay.m > 8:
+    if lay.bmax > 64 or lay.m > 8 or lay.nb <= 0:
         raise ValueError("the broadphase kernel takes at most 64 candidates and 8 nodes"
-                         " per body")
+                         " per body, and narrow slots")
     dev = x.device
     kernels.require(dev, x, prev, tri_mask, cache.pairs, cache.valid, cache.ref,
-                    cache.fresh, overflow, failed)
+                    cache.fresh, cache.rebuilt, overflow, failed)
     lead = x.shape[:-2]  # (B,) for an ensemble: a table, bounds and flags per member
-    i32 = dict(dtype=torch.int32, device=dev)
-    count = torch.zeros(lead + (lay.h,), **i32)
-    cursor = torch.zeros(lead + (lay.h,), **i32)
-    start = torch.empty(lead + (lay.h + 1,), **i32)
-    partial = torch.empty(lead + (kernels.scan_partials(lay.h),), **i32)
-    entries = torch.empty(lead + (lay.entries,), **i32)
-    bounds = torch.empty(lead + (2, lay.k, 3), dtype=torch.float32, device=dev)
-    flags = torch.zeros(lead + (8,), **i32)
+    if tuple(cache.rebuilt.shape) != lead + (1,):
+        raise ValueError(f"the cache's rebuilt flag must be {list(lead + (1,))}")
+    b = max(members_of(x), 1)
+    grid, words = broadphase_grid(dev, b, lay.k, lay.h)
+    # (scratch, a row a member: counts, which the kernel leaves zero,
+    # starts, tile sums, entries, bounds, the flag words and the query's
+    # row counter)
+    work = kernels.scratch(("T5 work", lay.h), lead + (words,), torch.int32, dev, zeroed=True)
     err = kernels.lib().pies_body_broadphase(
         x.data_ptr(), prev.data_ptr(), tri_mask.data_ptr(), cache.pairs.data_ptr(),
         cache.valid.data_ptr(), cache.ref.data_ptr(), cache.fresh.data_ptr(),
-        count.data_ptr(), cursor.data_ptr(), start.data_ptr(), partial.data_ptr(),
-        entries.data_ptr(), bounds.data_ptr(), flags.data_ptr(), overflow.data_ptr(),
-        failed.data_ptr(), lay.k, lay.m, lay.e, lay.off, lay.nb, lay.bmax, lay.cells_cap,
-        lay.entries_cap, lay.h, int(lay.entries >= PACKED_MAX_ENTRIES), sc.cell, sc.slack,
-        sc.slack_c, sc.margin, sc.exact_margin, sc.size_limit, x.shape[-2],
-        max(members_of(x), 1), kernels.stream(),
+        cache.rebuilt.data_ptr(), work.data_ptr(), overflow.data_ptr(), failed.data_ptr(),
+        lay.k, lay.m, lay.e, lay.off, lay.nb, lay.bmax, lay.cells_cap, lay.entries_cap, lay.h,
+        int(lay.entries >= PACKED_MAX_ENTRIES), grid,
+        sc.cell, sc.slack, sc.slack_c, sc.margin, sc.exact_margin, sc.size_limit, x.shape[-2],
+        b, kernels.stream(),
     )
     kernels.check(err, "body_broadphase")
     body_broadphase.launches += 1
-    return flags[..., 6:7]  # kRebuild
+    return cache.rebuilt
 
 
 body_broadphase.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def broadphase_grid(device: torch.device, members: int, k: int, h: int) -> tuple[int, int]:
+    """Blocks per member of T5's cooperative grid on ``device`` and the
+    int32 scratch words a member takes (members past what one launch
+    keeps resident go to further launches)."""
+    lib = kernels.lib()
+    grid = lib.pies_body_broadphase_grid(members, k)
+    if grid <= 0:
+        raise RuntimeError("the broadphase: no block of the cooperative kernel stays resident")
+    words = lib.pies_body_broadphase_words(k, h, grid)
+    if words <= 0:
+        raise ValueError("the broadphase kernel takes fewer than 2^31 scratch words a member")
+    return grid, words
 
 
 def face_table(faces, device: torch.device) -> torch.Tensor:

@@ -55,6 +55,7 @@ def cache_from_numpy(bp, device="cpu") -> BroadphaseCache | None:
         valid=_t(valid, device, i32),
         ref=_t(bp.ref, device),
         fresh=_t(fresh.reshape(fresh.shape + (1,)), device, i32),
+        rebuilt=torch.zeros(fresh.shape + (1,), dtype=i32, device=device),
     )
 
 

@@ -17,6 +17,8 @@ wrappers that call them sit beside their plain PyTorch twins:
 * T3 ``pies_substep_head`` — ``solver/pd.py:substep_head``
 * T4 ``pies_substep_tail`` — ``solver/pd.py:substep_tail``
 * T5 ``pies_body_broadphase`` — ``collision/broadphase.py:body_broadphase``
+  (one cooperative launch a call; ``pies_body_broadphase_grid`` gives its
+  grid, ``pies_body_broadphase_words`` its scratch)
 * T6 ``pies_pt_narrowphase`` — ``collision/broadphase.py:pt_narrowphase``
   (a cooperative launch, ``csrc/coop.cuh``; ``pies_pt_narrowphase_grid``
   gives its grid)
@@ -127,12 +129,15 @@ _F = ctypes.c_float
 # argtypes of every entry point: c_void_p for each pointer and the stream.
 SIGNATURES = {
     "pies_tet_force12": [_P] * 10 + [_I, _I, _P, _I, _P],
-    "pies_tet_cols_substep": [_P] * 19 + [_I, _I, _I, _F] + [_P] * 5 + [_I, _P],
-    "pies_tet_cols_contact": [_P] * 21 + [_I, _I, _I, _F] + [_P] * 9 + [_I, _F, _I, _P],
+    "pies_tet_force12_attrs": [_P],
+    "pies_tet_cols_substep": [_P] * 18 + [_I, _I, _I, _F] + [_P] * 5 + [_I, _P],
+    "pies_tet_cols_contact": [_P] * 20 + [_I, _I, _I, _F] + [_P] * 9 + [_I, _F, _I, _P],
     "pies_tet_cols_contact_occupancy": [],
     "pies_substep_head": [_P] * 11 + [_I, _F, _F, _F, _P, _I, _I, _P],
     "pies_substep_tail": [_P] * 11 + [_I, _F, _F, _F, _F, _F] + [_P] * 7 + [_I, _P],
-    "pies_body_broadphase": [_P] * 16 + [_I] * 10 + [_F] * 6 + [_I, _I, _P],
+    "pies_body_broadphase": [_P] * 11 + [_I] * 11 + [_F] * 6 + [_I, _I, _P],
+    "pies_body_broadphase_grid": [_I, _I],
+    "pies_body_broadphase_words": [_I, _I, _I],
     "pies_pt_narrowphase": [_P] * 14 + [_I] * 6 + [_F, _I, _I, _I, _P],
     "pies_pt_narrowphase_grid": [_I, _I],
     "pies_pt_coupling_setup": [_P] * 17 + [_I, _I, _F, _I, _I, _P],

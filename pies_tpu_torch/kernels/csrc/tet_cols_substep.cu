@@ -12,9 +12,9 @@
 // but its own four nodes.  A thread therefore factors its block once, keeps
 // x, the stale iterate and the last force in registers across all
 // iterations, and writes x, the static projection and its residual share
-// once.  The first iteration's tet force may come from kernel T1 (f0), which
-// evaluates the same device function on the same input; the rest are
-// computed here.
+// once.  Every iteration's tet force is computed here, the first one too
+// (kernel T1's device function, tet_force.cuh, on the predicted
+// positions): the main path launches no T1 beside it.
 //
 // Bound: compute, about 1.6k flops per tet and iteration on 48 bytes of x;
 // device memory is touched only at entry and exit (~200 bytes per tet).
@@ -73,9 +73,9 @@
 // Ensembles (pies_tpu/parallel/ensemble.py:41, vmap of the tick): blockIdx.y
 // is the member b (after the contact launch's member0).  Its nodes start at
 // b*4k (x, msn, diag, mask, wf, ptd, contact, the scratch and the
-// outputs), its latch is failed[2b], its first force f0[b] of [members, 12,
-// C], its contact count pt_count[b], its incidence row row_start +
-// b*(4k+1), entries + b*4cap and node_list + b*4cap, node_count[b], its
+// outputs), its latch is failed[2b], its contact count pt_count[b], its
+// incidence row row_start + b*(4k+1), entries + b*4cap and node_list +
+// b*4cap, node_count[b], its
 // contacts pt_idx [b] of [members, cap, 4] and pt_mask [b] of [members,
 // cap], and its residual shares r2[b] of [members, K]; the tets'
 // parameters, block6 and the pin force are shared.  A latched member
@@ -100,7 +100,6 @@ struct SubstepIn {
   const float* mask;    // [N]
   const float* wf;      // [N]     W_STATIC * floor_count * active
   const float* block6;  // [6, K]
-  const float* f0;      // [12, C] first iteration's tet force, or null
   const int* failed;    // latch slot 0 (tick start), [2 members]
   const float* ptd;     // [N] contact diagonal, or null
   const float* contact;  // [N, 3] contact force (one-iteration form), or null
@@ -206,9 +205,6 @@ __device__ __forceinline__ void tet_iterations(const SubstepIn& in, const pies::
     if (!live) {
 #pragma unroll
       for (int r = 0; r < 12; ++r) f12[r] = 0.0f;
-    } else if (it == 0 && in.f0 != nullptr) {
-#pragma unroll
-      for (int r = 0; r < 12; ++r) f12[r] = in.f0[(member * 12 + r) * b.ld + t];
     } else {
       pies::tet_force12(x, tp, f12);
     }
@@ -421,16 +417,16 @@ int resident[pies::kMaxDevices];
 
 extern "C" int pies_tet_cols_substep(
     const float* x, const float* msn, const float* pin, const float* diag,
-    const float* mask, const float* wf, const float* block6, const float* f0,
+    const float* mask, const float* wf, const float* block6,
     const float* qinv, const float* g, const float* slo, const float* shi,
     const float* sw, const float* vlo, const float* vhi, const float* vw,
     float* x_out, float* static_out, float* r2, int k, int c, int iterations,
     float plane, const int* failed, const float* ptd, const float* contact,
     const int* row_start, const int* pt_count, int members, void* stream) {
   if (k > 0 && members > 0) {
-    SubstepIn in{x,      msn,     pin,       diag,     mask,    wf,      block6,
-                 f0,     failed,  ptd,       contact,  row_start, pt_count, nullptr,
-                 nullptr, nullptr, nullptr,  nullptr,  0,       0.0f};
+    SubstepIn in{x,       msn,       pin,      diag,    mask,    wf,      block6,
+                 failed,  ptd,       contact,  row_start, pt_count, nullptr, nullptr,
+                 nullptr, nullptr,   nullptr,  0,       0.0f};
     pies::TetBatchPtrs b{qinv, g, slo, shi, sw, vlo, vhi, vw, c};
     SubstepOut o{x_out, static_out, r2};
     const dim3 blocks((k + kThreads - 1) / kThreads, members);
@@ -454,7 +450,7 @@ extern "C" int pies_tet_cols_contact_occupancy() {
 // members past what one launch keeps resident in further launches.
 extern "C" int pies_tet_cols_contact(
     const float* x, const float* msn, const float* pin, const float* diag,
-    const float* mask, const float* wf, const float* block6, const float* f0,
+    const float* mask, const float* wf, const float* block6,
     const float* qinv, const float* g, const float* slo, const float* shi,
     const float* sw, const float* vlo, const float* vhi, const float* vw,
     float* x_out, float* static_out, float* r2, float* buf, int* sync, int k, int c,
@@ -463,9 +459,9 @@ extern "C" int pies_tet_cols_contact(
     const float* pt_mask, const int* node_list, const int* node_count, int cap,
     float thickness, int members, void* stream) {
   if (k <= 0 || cap <= 0 || iterations <= 0 || members <= 0) return (int)cudaErrorInvalidValue;
-  SubstepIn in{x,       msn,    pin,      diag,      mask,     wf,        block6,
-               f0,      failed, ptd,      nullptr,   row_start, pt_count, entries,
-               pt_idx,  pt_mask, node_list, node_count, cap,    thickness};
+  SubstepIn in{x,         msn,        pin,     diag,      mask,     wf,      block6,
+               failed,    ptd,        nullptr, row_start, pt_count, entries, pt_idx,
+               pt_mask,   node_list,  node_count, cap,    thickness};
   pies::TetBatchPtrs b{qinv, g, slo, shi, sw, vlo, vhi, vw, c};
   SubstepOut o{x_out, static_out, r2};
   c = c < k ? c : k;

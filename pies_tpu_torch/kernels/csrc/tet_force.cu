@@ -63,3 +63,19 @@ extern "C" int pies_tet_force12(const float* x, const float* qinv,
   }
   return (int)cudaGetLastError();
 }
+
+// T1's compiled resources on the current device: out[0] registers a thread,
+// out[1] local (spill and stack) bytes a thread, out[2] blocks of 128
+// threads an SM keeps resident.  Returns a CUDA error code.
+extern "C" int pies_tet_force12_attrs(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, (const void*)tet_force12_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)tet_force12_kernel,
+                                                      128, 0);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = per_sm;
+  return (int)err;
+}

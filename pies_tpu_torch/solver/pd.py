@@ -9,12 +9,13 @@ PyTorch twin.  On the tet-column path (disjoint tet soups):
   (``collision/broadphase.py``: T5 and T6 on packed bodies, else T16 and
   T17), and T7's setup (``tetcols.pt_coupling_setup``),
   the node incidence and the contacts' diagonal;
-* T1 ``tet_force12`` — the first PD iteration's tet force;
 * T2 ``tetcols.substep_cols`` — the PD iterations with the direct 4x4 block
-  solve, the stale static projection and the residual; with self-contact
-  on ``tetcols.contact_substep``: every iteration of the tets without
-  contact entries in one launch, then a cooperative launch over the
-  others, computing T7's contact force (``tetcols.pt_force``'s) at each
+  solve, the stale static projection and the residual, the first
+  iteration's tet force (T1's function, ``tet_force12``) computed in its
+  registers from the predicted positions; with self-contact on
+  ``tetcols.contact_substep``: one cooperative launch, the tets with
+  contact entries iteration by iteration and the others in registers,
+  computing T7's contact force (``tetcols.pt_force``'s) at each
   iteration's iterate;
 * with self-contact on: T8 :func:`pt_tail` — the stabilization passes with
   the floor snap between them and the contact friction;
@@ -91,7 +92,6 @@ from ..collision.batches import (
     _dot3,
     _unit_normal_div,
 )
-from ..constraints.projections import tet_force12, tet_force12_plain
 from ..ops.math3d import ieee_div as _div
 from ..options import PhysicsParams, StepConfig
 from ..state import SolverState, each_member, members_of
@@ -673,14 +673,14 @@ def substep_tail(state: SolverState, topo: Topology, params: PhysicsParams,
 substep_tail.launches = 0
 
 
-_KERNELS = dict(head=substep_head, floor=floor_entries, force=tet_force12,
+_KERNELS = dict(head=substep_head, floor=floor_entries,
                 cols=tetcols.substep_cols, contact=tetcols.contact_substep,
                 setup=tetcols.pt_coupling_setup,
                 pt_force=tetcols.pt_force, pt_tail=pt_tail, tail=substep_tail,
                 block=assembly.tet_block_factor, assemble=assembly.assemble_force,
                 pcg=assembly.pcg_solve, edge_setup=assembly.edge_setup,
                 node_setup=assembly.node_setup, node_friction=node_friction)
-_PLAIN = dict(head=substep_head_plain, floor=floor_entries_plain, force=tet_force12_plain,
+_PLAIN = dict(head=substep_head_plain, floor=floor_entries_plain,
               cols=tetcols.substep_cols_plain, contact=tetcols.contact_substep_plain,
               setup=tetcols.pt_coupling_setup_plain,
               pt_force=tetcols.pt_force_plain, pt_tail=pt_tail_plain, tail=substep_tail_plain,
@@ -851,14 +851,13 @@ def pd_substep(state: SolverState, topo: Topology, params: PhysicsParams,
             counters["rebuilds"].add_(colls.rebuilt[..., 0])
         _, h2 = _h_h2(params)
         inc, ptd = k["setup"](colls, state.mass, topo, h2, diag, wf, failed)
-    f0 = k["force"](x, topo.strain, topo.volume, failed) if config.iterations else None
     args = (msn_h2, diag, state.node_mask, wf)
     plane = floor_plane(params, config.reference_quirks)
     if colls is None or config.iterations == 0:
-        x_new, static_proj, r2 = k["cols"](x, *args, f0, topo, plane, config.iterations,
+        x_new, static_proj, r2 = k["cols"](x, *args, topo, plane, config.iterations,
                                            failed)
     else:  # (T7's force at each iteration's iterate, inside T2)
-        x_new, static_proj, r2 = k["contact"](x, *args, f0, topo, plane, config.iterations,
+        x_new, static_proj, r2 = k["contact"](x, *args, topo, plane, config.iterations,
                                               failed, ptd, colls, inc,
                                               params.collision_thickness)
     if colls is not None:

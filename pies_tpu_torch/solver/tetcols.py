@@ -144,27 +144,27 @@ def _cols_to_node3(cols) -> torch.Tensor:
     return torch.stack([torch.stack(list(cols[a]), dim=-1) for a in range(4)], dim=1).reshape(-1, 3)
 
 
-def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
+def substep_cols_plain(x, msn_h2, diag, mask, wf, topo: Topology,
                        plane: float, iterations: int, failed=None, pt=None):
     """Plain twin of kernel T2: the PD iteration loop of one substep.
 
     ``x``/``msn_h2`` f32[N, 3] are the predicted positions and inertia term;
     ``diag``/``mask``/``wf`` f32[N] the system diagonal, node mask and floor
-    weight ``W_STATIC·count·active``; ``f0`` f32[12, C] (or None) the first
-    iteration's tet force.  ``pt`` (or None) is ``(ptd f32[N], contact
-    f32[N, 3], row_start i32[N+1], pt_count i32[1])``: when contacts are
-    live, each node with contact entries adds ``ptd·x`` and then
-    ``contact`` to its force (elsewhere both are exact zeros, and the
-    arrays there are not read).  Returns ``(x_new [N, 3], static_proj
+    weight ``W_STATIC·count·active``; every iteration's tet force, the
+    first one too, is computed here from its iterate.  ``pt`` (or None) is
+    ``(ptd f32[N], contact f32[N, 3], row_start i32[N+1], pt_count
+    i32[1])``: when contacts are live, each node with contact entries adds
+    ``ptd·x`` and then ``contact`` to its force (elsewhere both are exact
+    zeros, and the arrays there are not read).  Returns ``(x_new [N, 3], static_proj
     [N, 3], r2 [K])`` with ``r2`` the per-tet squared residual
     ``‖force − A·x‖²`` (zero where ``failed`` slot 0 is set, as the kernel
     writes it).  An ensemble's arrays (``r2`` f32[B, K]) run member by
     member."""
     if members_of(x):
         return each_member(
-            lambda xb, mb, db, kb, wb, fb, lb, pb: substep_cols_plain(
-                xb, mb, db, kb, wb, fb, topo, plane, iterations, lb, pb),
-            members_of(x), x, msn_h2, diag, mask, wf, f0, failed, pt)
+            lambda xb, mb, db, kb, wb, lb, pb: substep_cols_plain(
+                xb, mb, db, kb, wb, topo, plane, iterations, lb, pb),
+            members_of(x), x, msn_h2, diag, mask, wf, failed, pt)
     n = x.shape[0]
     k = n // 4
     c_tet = min(topo.strain.qinv.shape[1], k)
@@ -183,12 +183,9 @@ def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
         ptd_c = _node_cols(ptd, k)
         contact_c = corner_cols(contact, k)
 
-    def tet_force(xc_it, it):
-        if it == 0 and f0 is not None:
-            f12 = list(f0[:, :c_tet])
-        else:
-            p = [[xc_it[a][d][:c_tet] for d in range(3)] for a in range(4)]
-            f12 = tet_force12_fused_cols(p, topo.strain, topo.volume)
+    def tet_force(xc_it):
+        p = [[xc_it[a][d][:c_tet] for d in range(3)] for a in range(4)]
+        f12 = tet_force12_fused_cols(p, topo.strain, topo.volume)
         if c_tet < k:
             pad = torch.zeros(k - c_tet, dtype=x.dtype, device=x.device)
             f12 = [torch.cat([f, pad]) for f in f12]
@@ -197,7 +194,7 @@ def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
     x_it, x_stale = xc, xc
     force = tuple(tuple(torch.zeros_like(xc[a][d]) for d in range(3)) for a in range(4))
     for it in range(iterations):
-        f12 = tet_force(x_it, it)
+        f12 = tet_force(x_it)
         force = []
         for a in range(4):
             sp_y = torch.clamp_min(x_it[a][1], plane)
@@ -238,7 +235,7 @@ def substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology,
     return _cols_to_node3(x_it), _cols_to_node3(static_c), r2
 
 
-def _t2_inputs(x, f0, topo: Topology):
+def _t2_inputs(x, topo: Topology):
     """The checks and arrays shared by T2's two entry points: ``(k, c,
     pin, batch)``."""
     n = x.shape[-2]
@@ -250,34 +247,31 @@ def _t2_inputs(x, f0, topo: Topology):
     pin = topo.position_force_dense if topo.position.idx.shape[0] else None
     if pin is not None and pin.shape[0] != n:
         raise ValueError("pin force must be dense over the capacity")
-    lead = x.shape[:-2]  # (B,) for an ensemble
-    if f0 is not None and tuple(f0.shape) != lead + (12, c):
-        raise ValueError(f"f0 must be {list(lead + (12, c))}, got {list(f0.shape)}")
     return k, c, pin, (s.qinv, s.g, s.lo, s.hi, s.w, v.lo, v.hi, v.w)
 
 
-def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
+def substep_cols(x, msn_h2, diag, mask, wf, topo: Topology,
                  plane: float, iterations: int, failed=None, pt=None):
     """Kernel T2 on CUDA tensors, :func:`substep_cols_plain` on CPU tensors
     (same arguments and results).  On the card ``failed`` is required: the
     kernel returns at once, writing ``r2 = 0``, when its slot 0 is set.
     The main path's contact substep is :func:`contact_substep`."""
     if kernels.on_cpu(x):
-        return substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo, plane,
+        return substep_cols_plain(x, msn_h2, diag, mask, wf, topo, plane,
                                   iterations, failed, pt)
     if failed is None:
         raise ValueError("the tet-column kernel needs the failure latch")
-    k, c, pin, batch = _t2_inputs(x, f0, topo)
+    k, c, pin, batch = _t2_inputs(x, topo)
     ptd, contact, row_start, pt_count = pt if pt is not None else (None,) * 4
     kernels.require(x.device, x, msn_h2, pin, diag, mask, wf, topo.tet_block6,
-                    f0, failed, ptd, contact, row_start, pt_count, *batch)
+                    failed, ptd, contact, row_start, pt_count, *batch)
     x_out = torch.empty_like(x)
     static_out = torch.empty_like(x)
     r2 = torch.empty(x.shape[:-2] + (k,), dtype=torch.float32, device=x.device)
     err = kernels.lib().pies_tet_cols_substep(
         x.data_ptr(), msn_h2.data_ptr(), kernels.ptr(pin), diag.data_ptr(),
         mask.data_ptr(), wf.data_ptr(), topo.tet_block6.data_ptr(),
-        kernels.ptr(f0), *(t.data_ptr() for t in batch),
+        *(t.data_ptr() for t in batch),
         x_out.data_ptr(), static_out.data_ptr(), r2.data_ptr(),
         k, c, int(iterations), float(plane), failed.data_ptr(),
         kernels.ptr(ptd), kernels.ptr(contact), kernels.ptr(row_start),
@@ -291,29 +285,29 @@ def substep_cols(x, msn_h2, diag, mask, wf, f0, topo: Topology,
 substep_cols.launches = 0
 
 
-def contact_substep_plain(x, msn_h2, diag, mask, wf, f0, topo: Topology, plane: float,
+def contact_substep_plain(x, msn_h2, diag, mask, wf, topo: Topology, plane: float,
                           iterations: int, failed, ptd, colls: CollisionSet, inc: Incidence,
                           thickness: float):
     """Plain twin of T2's contact substep: ``iterations`` PD iterations
     with point-triangle contacts, one :func:`substep_cols_plain` call an
     iteration, each given T7's force (:func:`pt_force_plain`) at the
-    iterate it starts from and ``f0`` only in the first: the loop
-    ``pd_substep`` runs with ``plain=True``.  Returns ``(x_new,
+    iterate it starts from: the loop ``pd_substep`` runs with
+    ``plain=True``.  Returns ``(x_new,
     static_proj, r2)`` of the last iteration (the static projection of the
     iterate it started from)."""
     x_it = x
     out = None
     for it in range(iterations):
         contact = pt_force_plain(x_it, colls, inc, thickness, failed)
-        out = substep_cols_plain(x_it, msn_h2, diag, mask, wf, f0 if it == 0 else None, topo,
-                                 plane, 1, failed, (ptd, contact, inc.row_start, colls.pt_count))
+        out = substep_cols_plain(x_it, msn_h2, diag, mask, wf, topo, plane, 1, failed,
+                                 (ptd, contact, inc.row_start, colls.pt_count))
         x_it = out[0]
     if out is None:
-        return substep_cols_plain(x, msn_h2, diag, mask, wf, f0, topo, plane, 0, failed)
+        return substep_cols_plain(x, msn_h2, diag, mask, wf, topo, plane, 0, failed)
     return out
 
 
-def contact_substep(x, msn_h2, diag, mask, wf, f0, topo: Topology, plane: float,
+def contact_substep(x, msn_h2, diag, mask, wf, topo: Topology, plane: float,
                     iterations: int, failed, ptd, colls: CollisionSet, inc: Incidence,
                     thickness: float):
     """T2's contact substep (the main path with self-contact) on CUDA
@@ -326,7 +320,7 @@ def contact_substep(x, msn_h2, diag, mask, wf, f0, topo: Topology, plane: float,
     then every iteration of the others in registers
     (``kernels/csrc/tet_cols_substep.cu``)."""
     if kernels.on_cpu(x):
-        return contact_substep_plain(x, msn_h2, diag, mask, wf, f0, topo, plane, iterations,
+        return contact_substep_plain(x, msn_h2, diag, mask, wf, topo, plane, iterations,
                                      failed, ptd, colls, inc, thickness)
     if failed is None:
         raise ValueError("the tet-column kernel needs the failure latch")
@@ -334,9 +328,9 @@ def contact_substep(x, msn_h2, diag, mask, wf, f0, topo: Topology, plane: float,
         raise ValueError("the contact substep needs the incidence's node list from"
                          " pt_coupling_setup")
     if iterations <= 0:  # (no iteration: nothing reads the contacts)
-        return substep_cols(x, msn_h2, diag, mask, wf, f0, topo, plane, 0, failed)
-    k, c, pin, batch = _t2_inputs(x, f0, topo)
-    kernels.require(x.device, x, msn_h2, pin, diag, mask, wf, topo.tet_block6, f0, failed,
+        return substep_cols(x, msn_h2, diag, mask, wf, topo, plane, 0, failed)
+    k, c, pin, batch = _t2_inputs(x, topo)
+    kernels.require(x.device, x, msn_h2, pin, diag, mask, wf, topo.tet_block6, failed,
                     ptd, inc.row_start, colls.pt_count, inc.entries, colls.pt_idx,
                     colls.pt_mask, inc.node_list, inc.node_count, *batch)
     members = kernels.launch_members(x, failed, ptd, colls.pt_count, colls.pt_idx,
@@ -352,7 +346,7 @@ def contact_substep(x, msn_h2, diag, mask, wf, f0, topo: Topology, plane: float,
     err = kernels.lib().pies_tet_cols_contact(
         x.data_ptr(), msn_h2.data_ptr(), kernels.ptr(pin), diag.data_ptr(),
         mask.data_ptr(), wf.data_ptr(), topo.tet_block6.data_ptr(),
-        kernels.ptr(f0), *(t.data_ptr() for t in batch),
+        *(t.data_ptr() for t in batch),
         x_out.data_ptr(), static_out.data_ptr(), r2.data_ptr(), buf.data_ptr(),
         sync.data_ptr(), k, c, int(iterations), float(plane),
         failed.data_ptr(), ptd.data_ptr(), inc.row_start.data_ptr(),

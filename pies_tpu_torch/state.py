@@ -67,10 +67,13 @@ class BroadphaseCache:
     # f32[N, 3], all nodes (the super-body layout).
     ref: torch.Tensor
     fresh: torch.Tensor  # i32[1]; 0 forces a rebuild
+    # i32[1]: 1 when the last packed-body broadphase on this cache rebuilt
+    # the pairs (kernel T5 and its twin write it; not part of a checkpoint)
+    rebuilt: torch.Tensor
 
     def clone(self) -> "BroadphaseCache":
         return BroadphaseCache(self.pairs.clone(), self.valid.clone(),
-                               self.ref.clone(), self.fresh.clone())
+                               self.ref.clone(), self.fresh.clone(), self.rebuilt.clone())
 
 
 def empty_broadphase_cache(k: int, nb: int, m: int,
@@ -81,6 +84,7 @@ def empty_broadphase_cache(k: int, nb: int, m: int,
         valid=torch.zeros((k, nb), dtype=torch.int32, device=device),
         ref=torch.zeros((m, 3), dtype=torch.float32, device=device),
         fresh=torch.zeros(1, dtype=torch.int32, device=device),
+        rebuilt=torch.zeros(1, dtype=torch.int32, device=device),
     )
 
 
@@ -360,7 +364,8 @@ def load_state(path: str, like: SolverState) -> SolverState:
         pairs, valid, ref, fresh = (next(leaf) for _ in range(4))
         valid = np.asarray(valid, bool)
         out.bp = BroadphaseCache(pairs=t(np.where(valid, pairs, 0), i32), valid=t(valid, i32),
-                                 ref=t(ref), fresh=t(np.reshape(fresh, 1), i32))
+                                 ref=t(ref), fresh=t(np.reshape(fresh, 1), i32),
+                                 rebuilt=torch.zeros(1, dtype=i32, device=dev))
     if like.nn is not None:
         pi, pj, count, ref, fresh = (next(leaf) for _ in range(5))
         n, count = out.capacity, int(count)

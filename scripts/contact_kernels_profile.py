@@ -3,6 +3,7 @@
 the main path's self-contact tick, on one GPU.
 
     python3 scripts/contact_kernels_profile.py [n_tets] [--label NAME] [--json PATH]
+                                               [--record-rounds N]
 
 Builds the soup of ``bench.py`` with self-contact (``create_tet_soup(n_tets,
 spacing=1.6, scale=0.8, w=2000.0, height=0.5, jitter=0.05)``, 125,000 tets
@@ -16,14 +17,29 @@ phases 2b and 3b start from.  Then:
   force fused into T2's launch), T2's contact-free substep (all
   iterations in one launch), T2's whole contact substep as ``pd_substep``
   runs it (``tetcols.contact_substep`` where the tree has it, else one
-  fused call an iteration) and T8: CUDA-event ms per call,
+  fused call an iteration; where T2 takes T1's force as ``f0``, as that
+  tree's ``pd_substep`` passes it), both substeps again with iteration 0's
+  force computed inside T2 where T2 takes ``f0`` (``f0 = None``, the form
+  a tree without ``f0`` always runs), T8 and T1: CUDA-event ms per call,
   host µs per call (the enqueue, no synchronize), and from
   ``torch.profiler`` the device µs, the count of each kernel per call by
   name, and the memcpys and memsets per call;
 * over ticks 46-55 (phase 3b's window), restarting from a copy of the
   state at tick 45: ms/tick from the host clock around ``run_ticks(10)``
   (twice), and a traced window: device busy, kernels, memcpys and memsets
-  per tick, device µs per tick by kernel name;
+  per tick, device µs per tick by kernel name; the window's cache rebuilds
+  and contacts (device counters) and T1-T8 wrapper calls a tick; its
+  reductions by input shape (a profile with shapes);
+* the ``-Xptxas -v`` lines of T1's and T5's sources (registers, spills,
+  stack) and T1's registers and resident blocks an SM;
+* with ``--record-rounds N``, the profiler's record loss: each call above
+  profiled N times over 5 calls in two forms, the tracer started just
+  before the counted calls (the form of ``chip_smoke.py``'s per-call
+  table) and after a traced warm-up step of 5 calls that the profiler
+  discards (``schedule(warmup=1, active=1)``); for each form and
+  call, the rounds whose count of some kernel, memcpy or memset name is
+  not a multiple of 5 or that recorded nothing, and the counts per call
+  they show;
 * the window's ticks enqueued by ``step.tick_n`` under
   ``torch.cuda.set_sync_debug_mode("warn")`` (every synchronizing call it
   makes, with its Python line) and then ``"error"``, the closing
@@ -75,6 +91,35 @@ def profile_calls(fn, reps):
     return {e.key: (e.count / reps, us / reps) for e, us in device_events(prof)}
 
 
+def record_rounds(fn, reps, rounds, warmup):
+    """``rounds`` profiles of ``reps`` calls of ``fn`` (device activity only),
+    the tracer started just before them or, with ``warmup``, ``reps`` calls
+    earlier in a warm-up step whose records the profiler discards: the
+    rounds that lost records, ``[{name: count per call}]`` of each round
+    that recorded nothing or a count ``reps`` does not divide."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from pies_tpu_torch.tick_profile import device_events
+
+    fn()
+    torch.cuda.synchronize()
+    lossy = []
+    for _ in range(rounds):
+        plan = schedule(wait=0, warmup=1, active=1, repeat=1) if warmup else None
+        with profile(activities=[ProfilerActivity.CUDA], schedule=plan) as prof:
+            for _ in range(2 if warmup else 1):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                if warmup:
+                    prof.step()
+        counts = {e.key: e.count for e, _ in device_events(prof)}
+        if not counts or any(c % reps for c in counts.values()):
+            lossy.append({k: c / reps for k, c in counts.items()})
+    return lossy
+
+
 def summary(events):
     out = defaultdict(float)
     for name, (calls, us) in events.items():
@@ -83,7 +128,32 @@ def summary(events):
     return dict(out)
 
 
-def main(n_tets=125_000, label="run", dev=None, json_path=None):
+def ptxas_lines(log, sources):
+    """The ``-Xptxas -v`` lines of ``sources`` in a build log: each kernel's
+    entry, registers, spills and stack frame."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if line.startswith("== "):
+            keep = line[3:].strip() in sources
+            src = line[3:].strip()
+            continue
+        if keep and ("Compiling entry" in line or "Used" in line or "spill" in line):
+            out.append(f"{src}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def wrapper_launches():
+    """The main path's wrappers (T1-T8), each with its ``launches`` count."""
+    from pies_tpu_torch.collision import broadphase
+    from pies_tpu_torch.constraints import projections as proj
+    from pies_tpu_torch.solver import pd, tetcols
+
+    return (pd.substep_head, proj.tet_force12, tetcols.substep_cols, tetcols.contact_substep,
+            pd.substep_tail, broadphase.body_broadphase, broadphase.pt_narrowphase,
+            tetcols.pt_coupling_setup, tetcols.pt_force, pd.pt_tail)
+
+
+def main(n_tets=125_000, label="run", dev=None, json_path=None, record=0):
     import torch
 
     if not torch.cuda.is_available():
@@ -107,8 +177,22 @@ def main(n_tets=125_000, label="run", dev=None, json_path=None):
     report = {"label": label, "card": smi, "n_tets": n_tets}
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+    kernels.build(verbose=True)
     kernels.lib()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    report["ptxas"] = ptxas_lines(kernels.build_log, ("tet_force.cu", "body_broadphase.cu"))
+    for line in report["ptxas"]:
+        print(f"  {line}")
+    attrs = getattr(kernels.lib(), "pies_tet_force12_attrs", None)
+    if attrs is not None:
+        import ctypes
+
+        out = (ctypes.c_int * 3)()
+        kernels.check(attrs(ctypes.addressof(out)), "tet_force12_attrs")
+        report["t1_attrs"] = dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2])
+        print(f"T1: {out[0]} registers a thread, {out[1]} local bytes a thread, {out[2]} blocks"
+              " of 128 an SM resident (cudaFuncGetAttributes,"
+              " cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     dev = dev or torch.device("cuda", 0)
 
     s = pt.Solver(pt.SolverOptions(solver=pt.SolverName.PD), enable_collisions=True, device=dev)
@@ -139,8 +223,15 @@ def main(n_tets=125_000, label="run", dev=None, json_path=None):
     pt_args = (ptd, contact, inc.row_start, colls.pt_count)
     plane = pd.floor_plane(params, cfg.reference_quirks)
     f0 = proj.tet_force12(x, topo.strain, topo.volume, failed)
-    x_new, static_proj, _ = tetcols.substep_cols(x, msn, dk, st.node_mask, wf, f0, topo, plane,
-                                                 1, failed, pt_args)
+    # (a tree whose T2 takes T1's force as ``f0`` runs the main path with it)
+    takes_f0 = "f0" in inspect.signature(tetcols.substep_cols).parameters
+    main_f0 = f0 if takes_f0 else None
+
+    def t2_in(x_, d_, first=None):  # (T2's arguments up to the topology)
+        return (x_, msn, d_, st.node_mask, wf) + ((first,) if takes_f0 else ())
+
+    x_new, static_proj, _ = tetcols.substep_cols(*t2_in(x, dk, f0), topo, plane, 1, failed,
+                                                 pt_args)
     sk, xk = clone_state(st), x_new.clone()
     torch.cuda.synchronize()
     n_contacts, nnz = int(pk[2][0]), int(inc.row_start[-1])
@@ -172,30 +263,37 @@ def main(n_tets=125_000, label="run", dev=None, json_path=None):
         "T7 force": lambda: tetcols.pt_force(x, colls, inc, thick, failed),
         f"T7 setup + {cfg.iterations} forces": couple,
         "T2 one contact iteration": lambda: tetcols.substep_cols(
-            x, msn, dk, st.node_mask, wf, None, topo, plane, 1, failed, pt_args),
+            *t2_in(x, dk), topo, plane, 1, failed, pt_args),
         "T8": lambda: pd.pt_tail(sk, params, cfg, colls, inc, xk, static_proj),
+        "T1": lambda: proj.tet_force12(x, topo.strain, topo.volume, failed),
     }
     if hasattr(tetcols, "contact_substep"):  # (the main path's T2, one iteration)
         calls["T2 one contact iteration, T7's force fused in"] = lambda: tetcols.contact_substep(
-            x, msn, dk, st.node_mask, wf, None, topo, plane, 1, failed, ptd, colls, inc, thick)
+            *t2_in(x, dk), topo, plane, 1, failed, ptd, colls, inc, thick)
     elif "fused" in inspect.signature(tetcols.substep_cols).parameters:
         calls["T2 one contact iteration, T7's force fused in"] = lambda: tetcols.substep_cols(
-            x, msn, dk, st.node_mask, wf, None, topo, plane, 1, failed,
+            *t2_in(x, dk), topo, plane, 1, failed,
             (ptd, None, inc.row_start, colls.pt_count), fused=(colls, inc, thick))
 
-    def contact_substep():  # (T2's contact substep as pd_substep runs it)
+    def contact_substep(first=None):  # (T2's contact substep as pd_substep runs it)
         if hasattr(tetcols, "contact_substep"):
-            return tetcols.contact_substep(x, msn, dk, st.node_mask, wf, f0, topo, plane,
-                                           cfg.iterations, failed, ptd, colls, inc, thick)
+            return tetcols.contact_substep(*t2_in(x, dk, first), topo, plane, cfg.iterations,
+                                           failed, ptd, colls, inc, thick)
         x_it = x
         for it in range(cfg.iterations):
             x_it, _, _ = tetcols.substep_cols(
-                x_it, msn, dk, st.node_mask, wf, f0 if it == 0 else None, topo, plane, 1,
-                failed, (ptd, None, inc.row_start, colls.pt_count), fused=(colls, inc, thick))
+                *t2_in(x_it, dk, first if it == 0 else None), topo, plane, 1, failed,
+                (ptd, None, inc.row_start, colls.pt_count), fused=(colls, inc, thick))
 
     calls[f"T2 contact-free substep, {cfg.iterations} iterations"] = lambda: tetcols.substep_cols(
-        x, msn, diag, st.node_mask, wf, f0, topo, plane, cfg.iterations, failed)
-    calls[f"T2 contact substep, {cfg.iterations} iterations"] = contact_substep
+        *t2_in(x, diag, main_f0), topo, plane, cfg.iterations, failed)
+    calls[f"T2 contact substep, {cfg.iterations} iterations"] = lambda: contact_substep(main_f0)
+    if takes_f0:  # (iteration 0's force inside T2, as a tree without f0 runs it)
+        calls[f"T2 contact substep without T1's force, {cfg.iterations} iterations"] = (
+            contact_substep)
+        calls[f"T2 contact-free substep without T1's force, {cfg.iterations} iterations"] = (
+            lambda: tetcols.substep_cols(*t2_in(x, diag), topo, plane, cfg.iterations,
+                                         failed))
     if hasattr(tetcols, "contact_occupancy"):
         report["t2_contact_blocks_per_sm"] = tetcols.contact_occupancy()
         print(f"T2's contact launch: {report['t2_contact_blocks_per_sm']} blocks an SM resident"
@@ -227,6 +325,16 @@ def main(n_tets=125_000, label="run", dev=None, json_path=None):
             print(f"    {us:9.2f} us x{n:<4g} {key[:100]}")
         report["calls"][name] = dict(ms=ms, host_us=host_us, **tot,
                                      events={k: list(v) for k, v in events.items()})
+    if record:
+        report["record_loss"] = {}
+        for warmup in (False, True):
+            form = "after a discarded warm-up step" if warmup else "tracer started at the calls"
+            print(f"profiler record loss, {record} rounds of 5 calls each, {form}:")
+            for name, fn in calls.items():
+                lossy = record_rounds(fn, 5, record, warmup)
+                report["record_loss"][f"{name}; {form}"] = lossy
+                print(f"  {name}: {len(lossy)} of {record} rounds lost records"
+                      + "".join(f"; {r}" for r in lossy[:3]))
 
     # Phase 3b's window: ticks 46-55 from the state at tick 45.
     def rewind():
@@ -256,6 +364,42 @@ def main(n_tets=125_000, label="run", dev=None, json_path=None):
         print(f"    {us:9.2f} us/tick x{n:<5g} {key[:100]}")
     report["window"] = dict(ms_per_tick=per_tick, traced_wall_ms_per_tick=wall / 10, **tot,
                             events={k: list(v) for k, v in events.items()})
+
+    # The window's cache rebuilds (device counters) and wrapper calls.
+    rewind()
+    wrappers = wrapper_launches()
+    for f in wrappers:
+        f.launches = 0
+    s.counters = pd.new_counters(dev)
+    s.run_ticks(10)
+    torch.cuda.synchronize()
+    counts = {k: int(v.sum()) for k, v in s.counters.items()}
+    s.counters = None
+    calls_tick = sum(f.launches for f in wrappers) / 10
+    by_wrapper = {f"{f.__module__.rsplit('.', 1)[-1]}.{f.__name__}": f.launches / 10
+                  for f in wrappers if f.launches}
+    print(f"3b window: {counts['rebuilds']} cache rebuilds in 10 ticks, {counts['contacts']}"
+          f" contacts, {calls_tick:g} wrapper calls a tick {by_wrapper}")
+    report["window"].update(rebuilds=counts["rebuilds"], contacts=counts["contacts"],
+                            wrapper_calls=calls_tick, wrappers=by_wrapper)
+
+    # The window's reductions (aten::sum and the like) by input shape: the
+    # per-tet residual f32[tets] is pd_substep's last ``torch.sum``.
+    rewind()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        s.run_ticks(2)
+        torch.cuda.synchronize()
+    sums = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ("aten::sum", "aten::amax", "aten::max", "aten::any"):
+            us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+            sums.append(dict(op=e.key, calls_per_tick=e.count / 2, device_us_per_tick=us / 2,
+                             input_shapes=str(e.input_shapes)))
+    for row in sorted(sums, key=lambda r: -r["device_us_per_tick"]):
+        print(f"  {row['op']} x{row['calls_per_tick']:g} a tick, {row['device_us_per_tick']:.2f}"
+              f" device us a tick, inputs {row['input_shapes']}")
+    report["window"]["reductions"] = sums
 
     # The window's ticks enqueued under the sync check.
     sites = defaultdict(int)
@@ -299,5 +443,6 @@ if __name__ == "__main__":
     argv = sys.argv[1:]
     name = argv[argv.index("--label") + 1] if "--label" in argv else "run"
     path = argv[argv.index("--json") + 1] if "--json" in argv else None
-    nums = [int(a) for a in argv if a.isdigit()]
-    sys.exit(main(*nums[:1], label=name, json_path=path))
+    record = int(argv[argv.index("--record-rounds") + 1]) if "--record-rounds" in argv else 0
+    nums = [int(a) for i, a in enumerate(argv) if a.isdigit() and argv[i - 1] != "--record-rounds"]
+    sys.exit(main(*nums[:1], label=name, json_path=path, record=record))

@@ -1,6 +1,6 @@
-"""The main path's point-triangle kernels T6 (narrowphase), T7 (coupling),
-T2's contact substep and T8 (the tail) against their plain twins, bit for
-bit, in every branch of their design.
+"""The main path's point-triangle kernels T5 (the packed-body broadphase),
+T6 (narrowphase), T7 (coupling), T2's contact substep and T8 (the tail)
+against their plain twins, bit for bit, in every branch of their design.
 
 This file imports nothing of JAX or of the JAX package.  On a GPU machine:
 
@@ -22,16 +22,23 @@ and latch; row_start, the entries and nodes, the diagonals and the force.
 T2's contact substep is one cooperative launch: the contact tets first,
 walking T7's node list iteration by iteration (each waiting for the tets
 it shares a contact with), then the free tets' iterations in registers;
-T8 runs all its stages in one cooperative launch.
-Their cases: the soup's contacts as found and jittered with 1 and 4
+T8 runs all its stages in one cooperative launch.  T5 is one cooperative
+launch a call: bounds and flags, then, when a member rebuilds, the grid
+build, a warp a body's query and the cache update.  Its cases: the soup
+as found, moved past the slack, stale, with a NaN position (moved: no
+rebuild; stale: a rebuild), the oversize latch, dead bodies, a narrow row
+of 2 slots, a dense pile past 127 entries a bucket (packed and unpacked
+mode), B = 3 with a latched member and members that do and do not
+rebuild, and more members than one launch keeps resident.  T2's and T8's
+cases: the soup's contacts as found and jittered with 1 and 4
 iterations, with and without T1's first force, with pins, no live
 contact, every tet a contact tet (several tets a thread), B = 3 with a
 member latched, more members than one launch keeps resident; T8 with 0, 1
 and 4 passes, each stage alone and both, the accumulate-only mode, and
 the generic path's edge contacts with the node-node impulse.  The CPU
 tests cover the face table the wrappers keep on the device, the scratch
-they keep across calls, and T2's contact substep as the per-iteration
-loop it replaces.
+they keep across calls, T5's grid query, and T2's contact substep as the
+per-iteration loop it replaces.
 """
 
 import dataclasses
@@ -44,7 +51,6 @@ import pies_tpu_torch as pt
 from pies_tpu_torch import kernels
 from pies_tpu_torch.collision import broadphase
 from pies_tpu_torch.collision.batches import CollisionSet, incident
-from pies_tpu_torch.constraints.projections import tet_force12
 from pies_tpu_torch.parallel import ensemble
 from pies_tpu_torch.solver import pd, tetcols
 from pies_tpu_torch.state import clone_state, member, stack_members
@@ -92,6 +98,32 @@ def test_scratch_is_kept_per_key_and_stream(monkeypatch):
     assert kernels.scratch("test scratch", (3, 5), torch.int32, cpu) is not a
 
 
+def test_broadphase_grid_is_asked_once_per_key(monkeypatch):
+    """T5's grid and scratch width come from the library once per device,
+    member count and layout; a grid of 0 (no block resident) raises."""
+    asked = []
+
+    class Lib:
+        def pies_body_broadphase_grid(self, members, k):
+            asked.append((members, k))
+            return 0 if k == 7 else 3
+
+        def pies_body_broadphase_words(self, k, h, grid):
+            return 2 * h + 1 + grid + 14 * k + 18
+
+    monkeypatch.setattr(kernels, "lib", lambda: Lib())
+    broadphase.broadphase_grid.cache_clear()
+    cpu = torch.device("cpu")
+    try:
+        assert broadphase.broadphase_grid(cpu, 2, 64, 256) == (3, 2 * 256 + 1 + 3 + 14 * 64 + 18)
+        assert broadphase.broadphase_grid(cpu, 2, 64, 256) == (3, 1430)
+        assert asked == [(2, 64)]
+        with pytest.raises(RuntimeError, match="resident"):
+            broadphase.broadphase_grid(cpu, 1, 7, 16)
+    finally:
+        broadphase.broadphase_grid.cache_clear()
+
+
 def _contact_state(device, n=512, ticks=25, pins=None):
     """A self-contact soup (``pins``: node ids held by position
     constraints) after ``ticks`` ticks of the kernels, with the predicted
@@ -107,12 +139,47 @@ def _contact_state(device, n=512, ticks=25, pins=None):
     return s, head
 
 
+def test_broadphase_flag_is_the_caches_own_word():
+    """T5 (its twin on CPU tensors) writes the rebuilt flag into the cache
+    it was given and returns that word: a call on another cache leaves it
+    alone, the next call on the same cache overwrites it, a latched call
+    writes 0, and an ensemble's members each get their own flag."""
+    s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device="cpu")
+    s.create_tet_soup(64, **dict(SCENE, spacing=3.0))  # (no row past its narrow slots)
+    s._prepare()
+    st, topo = s.state, s.topology
+    lay = broadphase.body_layout(s.config, topo.tri_mask.shape[0])
+    sc = broadphase.scalars(s.current_params())
+    x, prev, tmask = st.positions, st.prev_positions, topo.tri_mask
+    over = torch.zeros(1, dtype=torch.int32)
+    ok, latched = torch.zeros(2, dtype=torch.int32), torch.tensor([1, 0], dtype=torch.int32)
+    a, b = st.bp.clone(), st.bp.clone()
+    assert int(a.fresh[0]) == 0 and int(a.rebuilt[0]) == 0
+    flag = broadphase.body_broadphase(x, prev, tmask, a, lay, sc, over, ok)
+    assert flag is a.rebuilt and int(flag[0]) == 1 and int(a.fresh[0]) == 1
+    assert int(broadphase.body_broadphase(x, prev, tmask, b, lay, sc, over, ok)[0]) == 1
+    assert int(broadphase.body_broadphase(x, prev, tmask, b, lay, sc, over, ok)[0]) == 0
+    assert int(flag[0]) == 1  # (b's calls leave a's word alone)
+    assert int(broadphase.body_broadphase(x, prev, tmask, a, lay, sc, over, ok)[0]) == 0
+    assert int(flag[0]) == 0  # (a's next call overwrites it)
+    a.fresh.zero_()
+    a.rebuilt.fill_(1)
+    pairs = a.pairs.clone()
+    assert int(broadphase.body_broadphase(x, prev, tmask, a, lay, sc, over, latched)[0]) == 0
+    assert int(a.fresh[0]) == 0 and torch.equal(a.pairs, pairs)
+    c = stack_members([st.bp.clone(), b.clone()])
+    two = lambda t: stack_members([t, t])  # noqa: E731
+    flags = broadphase.body_broadphase(two(x), two(prev), tmask, c, lay, sc, two(over),
+                                       two(ok))
+    assert flags is c.rebuilt and flags.tolist() == [[1], [0]]
+
+
 def test_contact_substep_on_the_cpu_is_the_per_iteration_loop():
     """On CPU tensors T2's contact substep takes its twin: the loop that
     ``pd_substep`` runs with ``plain=True``, one ``substep_cols_plain`` call
-    an iteration given T7's plain force at the iterate it starts from and
-    T1's force in the first only; the result is that loop's, bit for bit,
-    and differs from the contact-free iterations."""
+    an iteration given T7's plain force at the iterate it starts from; the
+    result is that loop's, bit for bit, and differs from the contact-free
+    iterations."""
     s, head = _contact_state("cpu", 96, 2)
     st, topo, params = s.state, s.topology, s.current_params()
     x, msn, diag, wf, active = head
@@ -121,20 +188,18 @@ def test_contact_substep_on_the_cpu_is_the_per_iteration_loop():
     _, h2 = pd._h_h2(params)
     inc, ptd = tetcols.pt_coupling_setup(colls, st.mass, topo, h2, diag, wf, st.sim_failed)
     thick = params.collision_thickness
-    f0 = tet_force12(x, topo.strain, topo.volume, st.sim_failed)
     args = (msn, diag, st.node_mask, wf)
-    got = tetcols.contact_substep(x, *args, f0, topo, 0.0, 4, st.sim_failed, ptd, colls, inc,
+    got = tetcols.contact_substep(x, *args, topo, 0.0, 4, st.sim_failed, ptd, colls, inc,
                                   thick)
     x_it = x
     for it in range(4):
         contact = tetcols.pt_force_plain(x_it, colls, inc, thick, st.sim_failed)
-        want = tetcols.substep_cols_plain(x_it, *args, f0 if it == 0 else None, topo, 0.0, 1,
-                                          st.sim_failed,
+        want = tetcols.substep_cols_plain(x_it, *args, topo, 0.0, 1, st.sim_failed,
                                           (ptd, contact, inc.row_start, colls.pt_count))
         x_it = want[0]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    free = tetcols.substep_cols_plain(x, *args, f0, topo, 0.0, 4, st.sim_failed)
+    free = tetcols.substep_cols_plain(x, *args, topo, 0.0, 4, st.sim_failed)
     assert not torch.equal(got[0], free[0])
 
 
@@ -375,13 +440,169 @@ def test_more_members_than_one_launch_keeps_resident_equal_twins(cuda):
         _assert_t7_equal([tuple(member(v, b) for v in side) for side in out], counts[b])
 
 
-def _t2_fused(x, head, topo, mask, colls, setups, thick, failed, iterations=1, f0=None):
+def _t5(x, prev, tmask, cache, lay, sc, failed):
+    """T5 and its twin on copies of ``cache``: ``[(cache, overflow,
+    rebuilt)] * 2``, the flag each call returns being its cache's own
+    word."""
+    out = []
+    for fn in (broadphase.body_broadphase, broadphase.body_broadphase_plain):
+        c = cache.clone()
+        over = torch.zeros(failed.shape[:-1] + (1,), dtype=torch.int32, device=x.device)
+        flag = fn(x, prev, tmask, c, lay, sc, over, failed)
+        assert flag.data_ptr() == c.rebuilt.data_ptr()
+        out.append((c, over, flag))
+    return out
+
+
+def _assert_t5_equal(out):
+    """The cache rows, reference, freshness, latch and rebuilt flag equal,
+    bit for bit; returns the kernel's side."""
+    (ck, ok, rk), (cp, op, rp) = out
+    for f in ("pairs", "valid", "ref", "fresh"):  # (bits: a NaN copied is equal)
+        assert torch.equal(getattr(ck, f).view(torch.int32), getattr(cp, f).view(torch.int32)), f
+    assert torch.equal(ok, op) and torch.equal(rk, rp)
+    return ck, ok, rk
+
+
+def _t5_state(cuda, n=512):
+    s, head = _contact_state(cuda, n)
+    lay = broadphase.body_layout(s.config, s.topology.tri_mask.shape[0])
+    return s, head, lay, broadphase.scalars(s.current_params())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["as_found", "moved", "fresh_0", "nan_moved", "nan_fresh_0"])
+@pytest.mark.parametrize("n_tets", [512, 4096])
+def test_broadphase_equals_twin(cuda, case, n_tets):
+    """T5 on the contact soup (one and several blocks a member): as found;
+    every node moved past the slack (a rebuild by displacement); the cache
+    marked stale; a NaN position with nodes moved (the displacement test
+    false: no rebuild) and with the cache stale (a rebuild on NaN
+    bounds).  Cache, latch and rebuilt flag equal the twin's."""
+    s, head, lay, sc = _t5_state(cuda, n_tets)
+    st, topo = s.state, s.topology
+    x, cache = head[0], st.bp.clone()
+    if case in ("moved", "nan_moved"):  # (a fresh cache: only the displacement decides)
+        x = _jitter(x, st.node_mask, 40, 0.5)
+        cache.fresh.fill_(1)
+    if case in ("fresh_0", "nan_fresh_0"):
+        cache.fresh.zero_()
+    if case.startswith("nan"):
+        x = x.clone()
+        x[5, 1] = float("nan")
+    ck, ok, rk = _assert_t5_equal(_t5(x, st.prev_positions, topo.tri_mask, cache, lay, sc,
+                                      st.sim_failed))
+    if case == "nan_moved":
+        assert int(rk[0]) == 0
+    else:
+        assert int(ck.valid.sum()) > 0 and (case == "as_found" or int(rk[0]) == 1)
+
+
+@pytest.mark.gpu
+def test_broadphase_latches_equal_twin(cuda):
+    """The oversize latch (one body stretched past 2 - margin cells), dead
+    bodies (every third body's faces masked), a narrow row of 2 slots (more
+    unique candidates than slots, and more exact ones), each on a stale
+    cache: equal to the twin, with the latches the twin sets."""
+    s, head, lay, sc = _t5_state(cuda)
+    st, topo = s.state, s.topology
+    stale = st.bp.clone()
+    stale.fresh.zero_()
+    big = head[0].clone()
+    big[lay.off + 4 * 10 + 2, 0] += 3.0 * sc.cell
+    _, ok, _ = _assert_t5_equal(_t5(big, st.prev_positions, topo.tri_mask, stale, lay, sc,
+                                    st.sim_failed))
+    assert int(ok[0]) == 1
+    dead = topo.tri_mask.clone()
+    dead[: lay.k * lay.e].view(lay.k, lay.e)[::3] = 0.0
+    ck, _, _ = _assert_t5_equal(_t5(head[0], st.prev_positions, dead, stale, lay, sc,
+                                    st.sim_failed))
+    assert int(ck.valid[::3].sum()) == 0 and int(ck.valid.sum()) > 0
+    narrow = dataclasses.replace(lay, nb=2)
+    cache2 = broadphase.empty_broadphase_cache(lay.k, 2, lay.k * lay.m, cuda)
+    ck, _, _ = _assert_t5_equal(_t5(head[0], st.prev_positions, topo.tri_mask, cache2, narrow,
+                                    sc, st.sim_failed))
+    assert int(ck.fresh[0]) == 0  # (the narrow latch)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unpacked", [False, True], ids=["packed", "unpacked"])
+def test_broadphase_dense_pile_equals_twin(cuda, unpacked, monkeypatch):
+    """A dense pile: 300 tets of the soup moved onto one cell, so buckets
+    hold 300 or more entries (past the packed table's 127, ordered by a
+    warp) on a stale cache, in the packed mode (the bucket latches at 127)
+    and the unpacked one (as with 2^24 entries or more: only past 1,000).
+    Equal to the twin, latch included."""
+    if unpacked:
+        from pies_tpu_torch.collision import grid
+
+        monkeypatch.setattr(broadphase, "PACKED_MAX_ENTRIES", 1)
+        monkeypatch.setattr(grid, "PACKED_MAX_ENTRIES", 1)
+    s, head, lay, sc = _t5_state(cuda)
+    st, topo = s.state, s.topology
+    x, prev = head[0].clone(), st.prev_positions.clone()
+    pile = slice(lay.off + 4 * 100, lay.off + 4 * 400)
+    corner = x[pile][:4] - x[pile][:4].mean(0)
+    x[pile] = corner.repeat(300, 1) * 0.05 + torch.tensor([0.3, 2.0, 0.3], device=cuda)
+    prev[pile] = x[pile]
+    stale = st.bp.clone()
+    stale.fresh.zero_()
+    ck, _, rk = _assert_t5_equal(_t5(x, prev, topo.tri_mask, stale, lay, sc, st.sim_failed))
+    assert int(rk[0]) == 1 and int(ck.valid.sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("anyone", [False, True], ids=["none_rebuilds", "one_rebuilds"])
+def test_broadphase_ensemble_with_a_latched_member_equals_twin(cuda, anyone):
+    """B = 3: member 0 as found, member 1 latched on a stale cache, member
+    2 stale (rebuilding) or not; each member's cache, latch and rebuilt
+    flag equal the twin's; the latched member's cache is left as it was."""
+    s, head, lay, sc = _t5_state(cuda)
+    st, topo = s.state, s.topology
+    states = ensemble.stack_ensemble(st, 3)
+    x = stack_members([head[0]] * 3)
+    states.sim_failed[1, 0] = 1
+    states.bp.fresh[1] = 0
+    if anyone:
+        states.bp.fresh[2] = 0
+    for _ in range(2):  # (the second call as found after the first's rebuilds)
+        before = states.bp.clone()
+        ck, ok, rk = _assert_t5_equal(_t5(x, states.prev_positions, topo.tri_mask, states.bp,
+                                          lay, sc, states.sim_failed))
+        assert int(rk[1, 0]) == 0 and torch.equal(ck.pairs[1], before.pairs[1])
+        if anyone:
+            assert int(rk[2, 0]) == 1
+        states.bp = ck
+
+
+@pytest.mark.gpu
+def test_broadphase_past_one_resident_launch_equals_twin(cuda):
+    """1,100 jittered members of the 512-tet soup, every seventh latched
+    and every third stale: more members than one cooperative launch keeps
+    resident, so T5 takes several launches at one block a member.  Each
+    member's cache, latch and rebuilt flag equal the twin's."""
+    members = 1100
+    s, head, lay, sc = _t5_state(cuda)
+    st, topo = s.state, s.topology
+    states = ensemble.stack_ensemble(st, members)
+    rng = np.random.default_rng(31)
+    j = torch.from_numpy((0.01 * rng.standard_normal((members,) + tuple(head[0].shape))).astype(
+        np.float32)).to(cuda)
+    x = head[0] + j * st.node_mask[..., None]
+    states.sim_failed[::7, 0] = 1
+    states.bp.fresh[::3] = 0
+    _, _, rk = _assert_t5_equal(_t5(x, states.prev_positions, topo.tri_mask, states.bp, lay, sc,
+                                    states.sim_failed))
+    assert int(rk[::7].sum()) == 0 and int(rk.sum()) > 0
+
+
+def _t2_fused(x, head, topo, mask, colls, setups, thick, failed, iterations=1):
     """T2's contact substep (T7's force inside its launches, on the kernel's
     setup) and its plain twin (T7's plain force an iteration, on the twin's
     setup): ``(kernel's, twin's)`` outputs.  ``setups`` is ``[(inc, ptd)]``
     of the kernel and of the twin."""
     _, msn, diag, wf, _ = head
-    args = (msn, diag, mask, wf, f0, topo, 0.0, iterations, failed)
+    args = (msn, diag, mask, wf, topo, 0.0, iterations, failed)
     (ik, dk), (ip, dp) = setups
     fused = tetcols.contact_substep(x, *args, dk, colls, ik, thick)
     plain = tetcols.contact_substep_plain(x, *args, dp, colls, ip, thick)
@@ -480,22 +701,20 @@ def _assert_t2_equal(fused, plain, live=None):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("first", [False, True], ids=["no_f0", "f0"])
 @pytest.mark.parametrize("iterations", [1, 4])
 @pytest.mark.parametrize("jittered", [False, True], ids=["as_found", "jittered"])
-def test_contact_substep_equals_twin(cuda, jittered, iterations, first):
+def test_contact_substep_equals_twin(cuda, jittered, iterations):
     """T2's contact substep on the soup's contacts (as found and jittered):
     one cooperative launch, the contact tets iteration by iteration and
     then the free tets, bit for bit the twin's one-iteration calls, with 1
-    and 4 iterations, with and without T1's first force."""
+    and 4 iterations, the first iteration's tet force computed inside."""
     s, head, colls, setups, _ = _soup_contacts(cuda, jitter_seed=4 if jittered else None)
     st, topo = s.state, s.topology
     inc = setups[0][0]
     assert int(colls.pt_count[0]) > 0 and 0 < int(inc.node_count[0]) < st.capacity
-    f0 = tet_force12(head[0], topo.strain, topo.volume, st.sim_failed) if first else None
     _assert_t2_equal(*_t2_fused(head[0], head, topo, st.node_mask, colls, setups,
                                 s.current_params().collision_thickness, st.sim_failed,
-                                iterations, f0))
+                                iterations))
 
 
 @pytest.mark.gpu
@@ -505,9 +724,8 @@ def test_contact_substep_with_pins_equals_twin(cuda):
     s, head, colls, setups, _ = _soup_contacts(cuda, pins=[0, 5])
     st, topo = s.state, s.topology
     assert int((topo.position.w > 0).sum()) == 2 and int(colls.pt_count[0]) > 0
-    f0 = tet_force12(head[0], topo.strain, topo.volume, st.sim_failed)
     _assert_t2_equal(*_t2_fused(head[0], head, topo, st.node_mask, colls, setups,
-                                s.current_params().collision_thickness, st.sim_failed, 4, f0))
+                                s.current_params().collision_thickness, st.sim_failed, 4))
 
 
 @pytest.mark.gpu
@@ -528,9 +746,8 @@ def test_contact_substep_without_contacts_equals_twin(cuda):
     colls, mass, topo_, h2, diag, wf, failed, _, thick = _coupling_inputs(
         s, (x,) + tuple(head[1:]), pk, st.sim_failed)
     setups, d = _setups(colls, mass, topo_, h2, diag, wf, failed)
-    f0 = tet_force12(x, topo.strain, topo.volume, failed)
     _assert_t2_equal(*_t2_fused(x, (x, head[1], d, wf, None), topo, st.node_mask, colls,
-                                setups, thick, failed, 4, f0))
+                                setups, thick, failed, 4))
 
 
 @pytest.mark.gpu
@@ -558,9 +775,8 @@ def test_contact_substep_walks_several_tets_a_thread(cuda):
     assert int(setups[0][0].node_count[0]) == 4 * k
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert 4 * k > 2 * sms * 128
-    f0 = tet_force12(x, topo.strain, topo.volume, failed)
     _assert_t2_equal(*_t2_fused(x, (x, head[1], d, wf, None), topo, st.node_mask, colls,
-                                setups, thick, failed, 4, f0))
+                                setups, thick, failed, 4))
 
 
 def _tail_pair(s, colls, setups, x, static, cfg=None, edges=None, nn_imp=None,
@@ -589,7 +805,7 @@ def test_tail_equals_twin(cuda, passes, stages):
     s, head, colls, setups, _ = _soup_contacts(cuda, jitter_seed=6)
     st, topo = s.state, s.topology
     x, static, _ = tetcols.contact_substep(head[0], head[1], head[2], st.node_mask, head[3],
-                                           None, topo, 0.0, 4, st.sim_failed, setups[0][1],
+                                           topo, 0.0, 4, st.sim_failed, setups[0][1],
                                            colls, setups[0][0],
                                            s.current_params().collision_thickness)
     cfg = dataclasses.replace(s.config, collision_stabilization_iterations=passes)
@@ -653,9 +869,8 @@ def test_contact_substep_and_tail_over_an_ensemble(cuda):
     setups, d = _setups(colls, states.mass, topo, h2, stack_members([diag] * 3), w3,
                         states.sim_failed)
     thick = s.current_params().collision_thickness
-    f0 = tet_force12(x, topo.strain, topo.volume, states.sim_failed)
     fused, plain = _t2_fused(x, (x, stack_members([msn] * 3), d, w3, None), topo,
-                             states.node_mask, colls, setups, thick, states.sim_failed, 4, f0)
+                             states.node_mask, colls, setups, thick, states.sim_failed, 4)
     _assert_t2_equal(fused, plain, [0, 2])
     assert float(fused[2][1].abs().sum()) == 0.0
     s._state = states
@@ -703,9 +918,11 @@ def test_contact_substep_and_tail_past_one_resident_launch(cuda):
 
 @pytest.mark.gpu
 def test_each_call_is_one_kernel_without_copies(cuda):
-    """On the contact soup: T6 and T7's setup launch one kernel a call and
-    T7's force one, T2's contact substep one (cooperative) and T8 one, with
-    no memcpy and no memset (the profiler's count)."""
+    """On the contact soup: T5 launches one kernel a call as found and one
+    with a rebuild (beside the fill that forces it), T6 and T7's setup one
+    kernel a call and T7's force one, T2's contact substep one
+    (cooperative) and T8 one, with no memcpy and no memset (the profiler's
+    count)."""
     from torch.profiler import ProfilerActivity, profile
 
     from pies_tpu_torch.tick_profile import device_events
@@ -720,17 +937,27 @@ def test_each_call_is_one_kernel_without_copies(cuda):
     colls, mass, topo_, h2, diag, wf, failed, x, thick = _coupling_inputs(s, head, pk,
                                                                           st.sim_failed)
     inc, ptd = tetcols.pt_coupling_setup(colls, mass, topo_, h2, diag, wf, failed)
-    x2, static, _ = tetcols.contact_substep(x, head[1], diag, st.node_mask, wf, None, topo,
+    x2, static, _ = tetcols.contact_substep(x, head[1], diag, st.node_mask, wf, topo,
                                             0.0, 4, failed, ptd, colls, inc, thick)
     st8, x8 = clone_state(st), x2.clone()  # (T8 updates both in place)
+    found, forced = st.bp.clone(), st.bp.clone()
+
+    def rebuild():
+        forced.fresh.zero_()
+        broadphase.body_broadphase(head[0], st.prev_positions, topo.tri_mask, forced, lay, sc,
+                                   over, st.sim_failed)
+
     calls = {
+        "T5 as found": (lambda: broadphase.body_broadphase(
+            head[0], st.prev_positions, topo.tri_mask, found, lay, sc, over, st.sim_failed), 1),
+        "T5 rebuild (and the fill that forces it)": (rebuild, 2),
         "T6": (lambda: broadphase.pt_narrowphase(head[0], st.prev_positions, topo.tri_mask,
                                                  st.bp, lay, sc, over, st.sim_failed), 1),
         "T7 setup": (lambda: tetcols.pt_coupling_setup(colls, mass, topo_, h2, diag, wf,
                                                        failed), 1),
         "T7 force": (lambda: tetcols.pt_force(x, colls, inc, thick, failed), 1),
         "T2 contact substep": (lambda: tetcols.contact_substep(
-            x, head[1], diag, st.node_mask, wf, None, topo, 0.0, 4, failed, ptd, colls, inc,
+            x, head[1], diag, st.node_mask, wf, topo, 0.0, 4, failed, ptd, colls, inc,
             thick), 1),
         "T8": (lambda: pd.pt_tail(st8, s.current_params(), s.config, colls, inc, x8, static),
                1),
@@ -746,4 +973,7 @@ def test_each_call_is_one_kernel_without_copies(cuda):
         for e, _us in device_events(prof):
             kind = e.key.split()[0] if e.key.startswith(("Memcpy", "Memset")) else "kernel"
             kinds[kind] = kinds.get(kind, 0) + e.count
-        assert kinds == {"kernel": 4 * per_call}, (name, kinds)
+            if name.startswith("T5") and "bp_kernel" in e.key:
+                kinds["T5"] = kinds.get("T5", 0) + e.count
+        want = {"kernel": 4 * per_call} | ({"T5": 4} if name.startswith("T5") else {})
+        assert kinds == want, (name, kinds)

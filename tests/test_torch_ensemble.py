@@ -333,7 +333,7 @@ def _stages(states, topo, params, cfg, kernel):
     out["T7 force"] = (torch.where(on[..., None], contact, 0.0),)
     plane = pd.floor_plane(params, cfg.reference_quirks)
     x_new, stat, r2 = out["T2"] = pick(tetcols.substep_cols, tetcols.substep_cols_plain)(
-        x, msn, diag, st.node_mask, wf, f0, topo, plane, 1, st.sim_failed,
+        x, msn, diag, st.node_mask, wf, topo, plane, 1, st.sim_failed,
         (ptd, contact, inc.row_start, colls.pt_count))
     fric = pick(pd.pt_tail, pd.pt_tail_plain)(st, params, cfg, colls, inc, x_new, stat)
     out["T8"] = (x_new, st.prev_positions.clone(), torch.where(on[..., None], fric, 0.0))

@@ -129,7 +129,7 @@ def test_head_and_tail_kernels_are_exact(cuda):
     for u, v in zip(hk, hp):
         assert torch.equal(u, v)
     assert hk[4].sum().item() > 0  # floor-active nodes
-    x, static, _ = tetcols.substep_cols(hk[0], hk[1], hk[2], st.node_mask, hk[3], None, topo,
+    x, static, _ = tetcols.substep_cols(hk[0], hk[1], hk[2], st.node_mask, hk[3], topo,
                                         0.0, cfg.iterations, st.sim_failed)
     pd.substep_tail(a, topo, params, hk[4], x, static)
     pd.substep_tail_plain(b, topo, params, hk[4], x, static)
@@ -157,8 +157,7 @@ def test_substep_cols_kernel_matches_twin(cuda, pins):
         s._builder.pos_w.append(np.full(len(pins), 8000.0, np.float32))
     st, topo, cfg, params = _head_inputs(s)
     x, msn, diag, wf, _ = pd.substep_head_plain(_clone(st), topo, params, cfg, True)
-    f0 = proj.tet_force12_plain(x, topo.strain, topo.volume)
-    args = (x, msn, diag, st.node_mask, wf, f0, topo, 0.0, cfg.iterations, st.sim_failed)
+    args = (x, msn, diag, st.node_mask, wf, topo, 0.0, cfg.iterations, st.sim_failed)
     out = tetcols.substep_cols(*args)
     ref = tetcols.substep_cols_plain(*args)
     for u, v in zip(out[:2], ref[:2]):
@@ -168,11 +167,13 @@ def test_substep_cols_kernel_matches_twin(cuda, pins):
 
 @pytest.mark.gpu
 def test_kernels_match_twins_over_a_trajectory(cuda):
+    """40 ticks of the soup, kernels against twins: T3, T2 and T4 launched
+    every tick, T1 never (T2 computes the first iteration's tet force)."""
     before = [f.launches for f in WRAPPERS]
     a, b = _solver(cuda), _solver(cuda)
     a.run_ticks(40)
     step.tick_n(b.state, b.topology, b.current_params(), b._config, 40, plain=True)
-    assert [f.launches - n for f, n in zip(WRAPPERS, before)] == [40] * 4
+    assert [f.launches - n for f, n in zip(WRAPPERS, before)] == [40, 0, 40, 40]
     assert not a.sim_failed and not b.sim_failed
     assert (a.state.positions - b.state.positions).abs().max().item() <= 1e-5
     assert a.state.positions[:, 1].min().item() < 0.05
@@ -264,7 +265,7 @@ def test_coupling_and_tail_kernels_equal_twins(cuda):
     assert torch.equal(fk[on], fp[on])
 
     pt_args = (ptd_k, fk, inc_k.row_start, pt_count)
-    args = (x, msn, dk, st.node_mask, wf, None, topo, 0.0, 1, st.sim_failed, pt_args)
+    args = (x, msn, dk, st.node_mask, wf, topo, 0.0, 1, st.sim_failed, pt_args)
     x_new, static, _ = tetcols.substep_cols(*args)
     x_ref, static_ref, _ = tetcols.substep_cols_plain(*args)
     assert torch.equal(x_new, x_ref) and torch.equal(static, static_ref)
@@ -282,7 +283,8 @@ def test_contact_kernels_match_twins_over_a_trajectory(cuda):
     """40 ticks of a self-contact soup, kernels against twins: the same
     contacts every tick and the same positions, and every kernel of the
     path launched on every tick (T7's force inside T2's contact substep,
-    so its own wrapper never, nor T2's contact-free form)."""
+    so its own wrapper never, nor T2's contact-free form, nor T1: T2
+    computes the first iteration's tet force)."""
     runs = []
     for plain in (False, True):
         s = pt.Solver(pt.SolverOptions(), enable_collisions=True, device=cuda)
@@ -305,7 +307,8 @@ def test_contact_kernels_match_twins_over_a_trajectory(cuda):
     assert ck == cp and sum(ck) > 0
     assert torch.equal(xk, xp)
     unused = [(WRAPPERS + CONTACT_WRAPPERS).index(f) for f in (tetcols.pt_force,
-                                                                tetcols.substep_cols)]
+                                                                tetcols.substep_cols,
+                                                                proj.tet_force12)]
     assert all((n == 0) == (i in unused) for i, n in enumerate(lk))
     assert not any(lp)
 

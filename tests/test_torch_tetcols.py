@@ -23,7 +23,8 @@ from pies_tpu.options import SolverName as JName, SolverOptions as JOptions
 from pies_tpu.solver import tetcols as jcols
 import pies_tpu_torch as pt
 from pies_tpu_torch import convert
-from pies_tpu_torch.constraints.projections import tet_force12
+from pies_tpu_torch.constraints.projections import (corner_cols, tet_force12,
+                                                     tet_force12_fused_cols)
 from pies_tpu_torch.solver import tetcols as tcols
 
 from torch_threads import two_threads  # noqa: F401  (autouse: two torch threads)
@@ -87,7 +88,7 @@ def test_substep_cols_matches_reference(pins):
 
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
     tx, tstatic, r2 = tcols.substep_cols(
-        T(x), T(msn), T(diag), t.state.node_mask, T(wf), None, t.topology, 0.0, 4
+        T(x), T(msn), T(diag), t.state.node_mask, T(wf), t.topology, 0.0, 4
     )
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=POS_TOL)
     np.testing.assert_allclose(tstatic.numpy(), np.asarray(jstatic), atol=POS_TOL)
@@ -102,18 +103,21 @@ def test_substep_cols_matches_reference(pins):
 
 
 def test_first_force_from_t1_changes_nothing():
-    """T2 may take its first iteration's tet force from T1 (``f0``): the
-    result is identical to computing it in the loop."""
-    _, t = _solvers(None)
-    j, _ = _solvers(None)
-    x, msn, diag, _, wf = _inputs(j)
+    """T2 computes its first iteration's tet force itself, from the
+    predicted positions in its corner columns: T1's force on the same
+    positions is that force bit for bit, so the tet-column path needs no
+    T1 launch beside T2."""
+    j, t = _solvers(None)
+    x, _, _, _, _ = _inputs(j)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
     topo = t.topology
     f0 = tet_force12(T(x), topo.strain, topo.volume)
-    a = tcols.substep_cols(T(x), T(msn), T(diag), t.state.node_mask, T(wf), None, topo, 0.0, 4)
-    b = tcols.substep_cols(T(x), T(msn), T(diag), t.state.node_mask, T(wf), f0, topo, 0.0, 4)
-    for u, v in zip(a, b):
-        assert torch.equal(u, v)
+    c = topo.strain.qinv.shape[1]
+    cols = corner_cols(T(x), x.shape[0] // 4)
+    inside = tet_force12_fused_cols([[cols[a][d][:c] for d in range(3)] for a in range(4)],
+                                    topo.strain, topo.volume)
+    assert f0.shape == (12, c) and float(f0.abs().max()) > 0.0
+    assert torch.equal(torch.stack(list(inside)), f0)
 
 
 def test_block_factor_and_solve_match_reference():

@@ -13,9 +13,11 @@ eager PyTorch could decide a comparison differently.
 Whole-slice runs (two ``create_tet_box``es, one thrown onto the other, and
 a pile of five ``create_box``es) go through both packages' ``Solver`` with
 their default arguments, the JAX package with ``dense_operator_max=0`` so
-that both run Jacobi-PCG.  Contact counts and the latch must be equal on
-every tick; positions stay within a tolerance set from the JAX package's
-own float32 spread on the scene (``test_slice_matches_reference``).
+that both run Jacobi-PCG, and with ``unroll_loops=False`` (its PD
+iterations as a fori_loop, traced once instead of four times).  Contact
+counts and the latch must be equal on every tick; positions stay within a
+tolerance set from the JAX package's own float32 spread on the scene
+(``test_slice_matches_reference``).
 """
 
 import dataclasses
@@ -286,6 +288,8 @@ def _jax_run(scene, ticks, perturb=None):
     build, kw = SLICE_SCENES[scene]
     j = build(pies_tpu.Solver(JOptions(solver=JName.PD), dense_operator_max=0, **kw))
     j._prepare()
+    # (the PD iterations as a fori_loop, traced once instead of four times)
+    j._config = dataclasses.replace(j._config, unroll_loops=False)
     if perturb is not None:
         _perturbed(j, *perturb)
     n = j._builder.num_nodes
@@ -326,7 +330,15 @@ def test_slice_matches_reference(scene):
     it too and parts by 3.94e-4,
     decaying to 8e-5 by tick 40.  Box pile: spread 5.0e-5, the port 4.8e-5.
     Eight tets, one collision body per triangle: spread 2.6e-2 (a tet comes
-    to rest on the floor), the port 3.8e-4."""
+    to rest on the floor), the port 3.8e-4.  Those spreads are of the
+    unrolled loop (the JAX default).  These runs take the rolled one, whose
+    own spread is 4.0e-5, 5.8e-5 and 2.6e-2 (``jax_spread`` as it runs
+    now) and which parts from the unrolled run by 1.3e-5, 3.3e-5 and 0;
+    the port parts from it by 3.9e-4 (tick 33), 5.1e-5 and 3.8e-4.  On the
+    tet boxes the port takes the tick-31 branch that none of the 48 rolled
+    runs takes, and that the unrolled loop takes from one ulp away: the
+    tolerances stay those set from the unrolled loop's spread, the JAX
+    package's own float32 behaviour on the scene."""
     (build, kw), ticks = SLICE_SCENES[scene], 40
     j, ref, ref_counts, states = _jax_run(scene, ticks)
     t = build(pt.Solver(pt.SolverOptions(), device="cpu", **kw))
